@@ -1,0 +1,136 @@
+"""Decoder configuration (a copy of what the port needs from
+``llm_interpretation_replication_tpu/models/config.py``): ``DecoderConfig``,
+the Falcon family translator and the two Falcon geometries.  Other family
+presets come with the slices that port them."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int
+    hidden_size: int
+    num_layers: int
+    num_heads: int
+    # Grouped/multi-query attention: Falcon-7B uses 1 kv head (MQA).
+    num_kv_heads: Optional[int] = None
+    head_dim: Optional[int] = None
+    intermediate_size: Optional[int] = None
+
+    # Position encoding: "rotary" | "alibi" | "learned"
+    position_embedding: str = "rotary"
+    rotary_pct: float = 1.0
+    # "half" (LLaMA/NeoX), "interleaved" (GPT-J, ChatGLM2), "glm" (GLM-4)
+    rotary_style: str = "half"
+    rope_theta: float = 10000.0
+    max_position_embeddings: int = 2048
+    learned_pos_offset: int = 0
+
+    # Block structure
+    parallel_residual: bool = False
+    shared_layernorm: bool = False
+    norm_type: str = "layernorm"     # "layernorm" | "rmsnorm"
+    norm_eps: float = 1e-5
+    embedding_layernorm: bool = False
+
+    # Projections
+    qkv_bias: bool = True
+    out_bias: bool = True
+    mlp_bias: bool = True
+    fused_qkv: bool = False
+    mlp_type: str = "mlp"             # "mlp" | "gated"
+    activation: str = "gelu"          # "gelu" | "gelu_new" | "silu" | "relu"
+
+    sliding_window: Optional[int] = None
+    norm_head: bool = False
+    tie_word_embeddings: bool = False
+    final_norm: bool = True
+    logit_scale: float = 1.0
+    # "xla"   -- dense attention (plain PyTorch in the port)
+    # "flash" -- the causal grouped attention kernel for every prompt forward
+    #            (causal + right-padding only; rejected for ALiBi / window)
+    # "auto"  -- dense up to ``auto_flash_seq``, the kernel beyond it
+    attention_impl: str = "xla"
+    auto_flash_seq: int = 1024
+    kv_cache_dtype: str = "bf16"      # "bf16" | "int8" (int8 not ported yet)
+
+    def __post_init__(self):
+        if self.num_kv_heads is None:
+            object.__setattr__(self, "num_kv_heads", self.num_heads)
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.hidden_size // self.num_heads)
+        if self.intermediate_size is None:
+            object.__setattr__(self, "intermediate_size", 4 * self.hidden_size)
+        if self.attention_impl not in ("xla", "flash", "auto"):
+            raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
+        if self.kv_cache_dtype not in ("bf16", "int8"):
+            raise ValueError(f"unknown kv_cache_dtype {self.kv_cache_dtype!r}")
+        if self.attention_impl == "flash" and (
+            self.position_embedding == "alibi" or self.sliding_window is not None
+        ):
+            raise ValueError(
+                "flash attention kernel supports causal+padding only "
+                "(no ALiBi / sliding window)"
+            )
+
+    def use_flash_attention(self, seq_len: int) -> bool:
+        """Resolve the attention impl for a prompt forward at ``seq_len``."""
+        if self.attention_impl == "flash":
+            return True
+        if self.attention_impl == "auto":
+            return (seq_len > self.auto_flash_seq
+                    and self.position_embedding != "alibi"
+                    and self.sliding_window is None)
+        return False
+
+
+def falcon_config(hf) -> DecoderConfig:
+    """Falcon-7B(-Instruct): MQA, parallel attention, shared LN, no biases."""
+    new_arch = getattr(hf, "new_decoder_architecture", False)
+    if new_arch:
+        num_kv = getattr(hf, "num_kv_heads", None) or hf.num_attention_heads
+    else:
+        # old arch (falcon-7b): multi_query governs
+        num_kv = 1 if getattr(hf, "multi_query", True) else hf.num_attention_heads
+    return DecoderConfig(
+        vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size,
+        num_layers=hf.num_hidden_layers,
+        num_heads=hf.num_attention_heads,
+        num_kv_heads=num_kv,
+        intermediate_size=getattr(hf, "ffn_hidden_size", 4 * hf.hidden_size),
+        position_embedding="alibi" if getattr(hf, "alibi", False) else "rotary",
+        rope_theta=getattr(hf, "rope_theta", 10000.0),
+        max_position_embeddings=getattr(hf, "max_position_embeddings", 2048),
+        parallel_residual=getattr(hf, "parallel_attn", True),
+        shared_layernorm=getattr(hf, "parallel_attn", True) and not new_arch,
+        norm_eps=getattr(hf, "layer_norm_epsilon", 1e-5),
+        qkv_bias=getattr(hf, "bias", False),
+        out_bias=getattr(hf, "bias", False),
+        mlp_bias=getattr(hf, "bias", False),
+        fused_qkv=True,
+        activation="gelu",
+        tie_word_embeddings=True,
+    )
+
+
+#: Falcon-7B's published geometry (tiiuae/falcon-7b config.json).
+FALCON_7B_GEOMETRY = dict(
+    vocab_size=65024, hidden_size=4544, num_layers=32, num_heads=71,
+    num_kv_heads=1, intermediate_size=18176, parallel_residual=True,
+    shared_layernorm=True, qkv_bias=False, out_bias=False, mlp_bias=False,
+    position_embedding="rotary", tie_word_embeddings=True,
+    max_position_embeddings=2048,
+)
+
+#: The same architecture at test scale (MQA + parallel attention + shared LN).
+FLAGSHIP_SMALL_GEOMETRY = dict(
+    vocab_size=1024, hidden_size=256, num_layers=4, num_heads=8,
+    num_kv_heads=1, intermediate_size=1024, parallel_residual=True,
+    shared_layernorm=True, qkv_bias=False, out_bias=False, mlp_bias=False,
+    position_embedding="rotary", tie_word_embeddings=True,
+    max_position_embeddings=512,
+)

@@ -1,0 +1,607 @@
+"""Decoder-only transformer: prefill and scored greedy decode in PyTorch.
+
+Port of ``llm_interpretation_replication_tpu/models/decoder.py`` for the
+binary scoring slice.  The weights live in :class:`DecoderWeights`, an
+``nn.Module`` holding the reference's stacked layout (layer tensors carry a
+leading ``L`` axis); the paths are functions on tensors that take
+``weights.tree()``, the same nested dict the JAX functions take:
+
+    embed/tokens            [V, H]
+    layers/ln1/{scale,bias} [L, H]            (ln2 absent when shared)
+    layers/attn/{wq,wk,wv}  [L, H, N*D] / [L, H, G*D]   (+ bq, bk, bv)
+    layers/attn/wo          [L, N*D, H]       (+ bo)
+    layers/mlp/wi, wo       [L, H, F], [L, F, H]  (+ wg when gated, biases)
+    final_ln/{scale,bias}   [H]
+    lm_head                 [H, V]            (absent when tied: embed.T)
+
+``lax.scan`` over layers becomes a Python loop over layer views.  Softmax and
+the final logits run in float32 whatever the weights' dtype; products run in
+the weights' dtype.  The prompt forward's attention goes through
+``ops.attention.attention_bsnd`` (the Hopper kernel on the card) when
+``DecoderConfig.use_flash_attention`` says so, else the dense path.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import DecoderConfig
+from ..ops import quant
+from ..ops.attention import NEG_INF, attention_bsnd
+
+
+class DecoderWeights(nn.Module):
+    """Owns a decoder's weights in the reference's stacked layout.
+
+    Each leaf of the nested param dict is a buffer named by its dotted path
+    with ``__`` in place of ``.``; :meth:`tree` rebuilds the nested dict of
+    (shared, not copied) tensors the path functions take."""
+
+    def __init__(self, cfg: DecoderConfig, tree: Dict):
+        super().__init__()
+        self.cfg = cfg
+        self._paths = []
+        for path, t in _flatten(tree):
+            self.register_buffer("__".join(path), t)
+            self._paths.append(path)
+
+    def tree(self) -> Dict:
+        out: Dict = {}
+        for path in self._paths:
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = getattr(self, "__".join(path))
+        return out
+
+
+def _flatten(tree, prefix=()):
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            yield from _flatten(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _tree(params) -> Dict:
+    return params.tree() if isinstance(params, DecoderWeights) else params
+
+
+def _layer(layers: Dict, i: int) -> Dict:
+    """Views of layer ``i`` of the stacked layer tree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+# ---------------------------------------------------------------------------
+# Primitives
+# ---------------------------------------------------------------------------
+
+def layer_norm(x, scale, bias, eps):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def rms_norm(x, scale, eps):
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _norm(cfg: DecoderConfig, x, p):
+    if cfg.norm_type == "rmsnorm":
+        return rms_norm(x, p["scale"], cfg.norm_eps)
+    return layer_norm(x, p["scale"], p.get("bias"), cfg.norm_eps)
+
+
+def activation(name: str, x):
+    if name == "gelu":
+        return F.gelu(x)
+    if name == "gelu_new":
+        return F.gelu(x, approximate="tanh")
+    if name == "silu":
+        return F.silu(x)
+    if name == "relu":
+        return F.relu(x)
+    raise ValueError(name)
+
+
+def rotary_embedding(positions, dim: int, theta: float, dtype=torch.float32):
+    """Return (sin, cos) of shape [..., dim/2] for the given positions."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                            device=positions.device), exps)
+    angles = positions[..., None].float() * inv_freq
+    return torch.sin(angles).to(dtype), torch.cos(angles).to(dtype)
+
+
+def apply_rotary(x, sin, cos, rotary_dim: int, style: str = "half"):
+    """RoPE on the first ``rotary_dim`` dims of the head axis.  x: [B, S, N,
+    D]; sin/cos: [B, S, rotary_dim/2].  "half" pairs (i, i+rd/2), "interleaved"
+    pairs (2i, 2i+1), "glm" is rotate-half with interleaved frequencies."""
+    rot, pass_ = x[..., :rotary_dim], x[..., rotary_dim:]
+    half = rotary_dim // 2
+    sin = sin[:, :, None, :]
+    cos = cos[:, :, None, :]
+    if style == "half":
+        x1, x2 = rot[..., :half], rot[..., half:]
+        rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    elif style == "interleaved":
+        x1, x2 = rot[..., 0::2], rot[..., 1::2]
+        rotated = torch.stack(
+            [x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1
+        ).reshape(rot.shape)
+    elif style == "glm":
+        cs = torch.repeat_interleave(cos, 2, dim=-1)
+        sn = torch.repeat_interleave(sin, 2, dim=-1)
+        x1, x2 = rot[..., :half], rot[..., half:]
+        rotated = rot * cs + torch.cat([-x2, x1], dim=-1) * sn
+    else:
+        raise ValueError(f"unknown rotary style {style!r}")
+    return torch.cat([rotated.to(x.dtype), pass_], dim=-1)
+
+
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """ALiBi per-head slopes (Press et al.; matches HF BLOOM/Falcon)."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start**i) for i in range(n)]
+
+    if math.log2(num_heads).is_integer():
+        slopes = pow2_slopes(num_heads)
+    else:
+        closest = 2 ** math.floor(math.log2(num_heads))
+        slopes = pow2_slopes(closest)
+        slopes += pow2_slopes(2 * closest)[0::2][: num_heads - closest]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(x, groups: int):
+    """[B, T, Nkv, D] -> [B, T, Nkv*groups, D] for GQA/MQA."""
+    if groups == 1:
+        return x
+    b, t, nkv, d = x.shape
+    return x[:, :, :, None, :].expand(b, t, nkv, groups, d).reshape(
+        b, t, nkv * groups, d)
+
+
+def dot_product_attention(q, k, v, bias):
+    """q: [B,S,N,D], k/v: [B,T,N,D], bias: broadcastable to [B,N,S,T]."""
+    d = q.shape[-1]
+    scale = torch.tensor(math.sqrt(d), dtype=q.dtype)
+    scores = torch.einsum("bsnd,btnd->bnst", q, k) / scale
+    scores = scores.float() + bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bnst,btnd->bsnd", probs, v)
+
+
+def _grouped_scores(q, k):
+    """q [B,S,N,D] x unrepeated k [B,T,G,D] -> scores [B,G,N/G,S,T]."""
+    b, s, n, d = q.shape
+    g = k.shape[2]
+    qg = q.reshape(b, s, g, n // g, d)
+    scale = torch.tensor(math.sqrt(d), dtype=q.dtype)
+    return torch.einsum("bsghd,btgd->bghst", qg, k) / scale
+
+
+def _bias_grouped(bias, b, n, g, s, t):
+    bias = bias.expand(b, bias.shape[1], s, t)
+    if bias.shape[1] == n:
+        return bias.reshape(b, g, n // g, s, t)
+    return bias[:, :, None]                        # head-agnostic [B,1,1,S,T]
+
+
+def grouped_attention_two_block(q, kp, vp, bias_p, kt, vt, bias_t):
+    """Attention over two K/V blocks with one joint softmax: the read-only
+    prompt cache and the small per-chunk tail of generated tokens."""
+    b, s, n, d = q.shape
+    g = kp.shape[2]
+    sp = _grouped_scores(q, kp).float() + _bias_grouped(
+        bias_p, b, n, g, s, kp.shape[1])
+    st = _grouped_scores(q, kt).float() + _bias_grouped(
+        bias_t, b, n, g, s, kt.shape[1])
+    m = torch.maximum(sp.amax(-1, keepdim=True), st.amax(-1, keepdim=True))
+    ep = torch.exp(sp - m)
+    et = torch.exp(st - m)
+    denom = ep.sum(-1, keepdim=True) + et.sum(-1, keepdim=True)
+    op = torch.einsum("bghst,btgd->bsghd", (ep / denom).to(q.dtype), vp)
+    ot = torch.einsum("bghst,btgd->bsghd", (et / denom).to(q.dtype), vt)
+    return (op + ot).reshape(b, s, n, d)
+
+
+def make_attention_bias(cfg: DecoderConfig, q_positions, kv_positions, kv_valid):
+    """Additive fp32 bias [B, N_or_1, S, T]: causal + padding + sliding
+    window (+ ALiBi when configured)."""
+    mask = q_positions[:, :, None] >= kv_positions[:, None, :]           # [B,S,T]
+    mask = mask & kv_valid[:, None, :]
+    if cfg.sliding_window is not None:
+        mask = mask & (q_positions[:, :, None] - kv_positions[:, None, :]
+                       < cfg.sliding_window)
+    bias = torch.where(mask[:, None], 0.0, NEG_INF).float()
+    if cfg.position_embedding == "alibi":
+        slopes = alibi_slopes(cfg.num_heads, q_positions.device)
+        dist = (q_positions[:, :, None] - kv_positions[:, None, :]).float()
+        bias = bias - slopes[None, :, None, None] * dist[:, None]
+    return bias
+
+
+class KVCache(NamedTuple):
+    """Read-only K/V block for decode: per-layer prompt K/V plus the
+    slot->position mapping.  Decode never writes into it; each decode chunk
+    keeps its new K/V in a small tail and folds it in once at the end."""
+    k: torch.Tensor          # [L, B, T, G, D]
+    v: torch.Tensor          # [L, B, T, G, D]
+    positions: torch.Tensor  # [B, T] int64 absolute position of each slot
+    valid: torch.Tensor      # [B, T] bool: slot holds a real token
+    length: torch.Tensor     # [] int64 -- slots filled so far
+    k_scale: Optional[torch.Tensor] = None  # int8 cache only (not ported)
+    v_scale: Optional[torch.Tensor] = None
+
+
+def _rotary_dim(cfg: DecoderConfig) -> int:
+    return int(cfg.rotary_pct * cfg.head_dim) // 2 * 2
+
+
+def _qkv(cfg: DecoderConfig, ap, x, sin_cos):
+    b, s, _ = x.shape
+    n, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = quant.linear(ap, "wq", x)
+    k = quant.linear(ap, "wk", x)
+    v = quant.linear(ap, "wv", x)
+    if "bq" in ap:
+        q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
+    q = q.reshape(b, s, n, d)
+    k = k.reshape(b, s, nkv, d)
+    v = v.reshape(b, s, nkv, d)
+    if sin_cos is not None:
+        sin, cos = sin_cos
+        rd = _rotary_dim(cfg)
+        q = apply_rotary(q, sin, cos, rd, cfg.rotary_style)
+        k = apply_rotary(k, sin, cos, rd, cfg.rotary_style)
+    return q, k, v
+
+
+def _out_proj(ap, out):
+    b, s = out.shape[:2]
+    out = quant.linear(ap, "wo", out.reshape(b, s, -1))
+    if "bo" in ap:
+        out = out + ap["bo"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Block + full forward
+# ---------------------------------------------------------------------------
+
+def _attn(cfg: DecoderConfig, lp, x, sin_cos, bias, cache_len=None,
+          flash_lengths=None):
+    """One attention sub-block.  With ``cache_len`` the prompt K/V are
+    zero-padded to that many slots and returned as this layer's cache.  With
+    ``flash_lengths`` the layout-native kernel path replaces the dense
+    bias-based attention."""
+    s = x.shape[1]
+    n, nkv = cfg.num_heads, cfg.num_kv_heads
+    q, k, v = _qkv(cfg, lp["attn"], x, sin_cos)
+    new_cache = None
+    if cache_len is not None:
+        pad = (0, 0, 0, 0, 0, cache_len - s)
+        new_cache = (F.pad(k, pad), F.pad(v, pad))
+        if flash_lengths is None:
+            k, v = new_cache
+    if flash_lengths is not None:
+        out = attention_bsnd(q.contiguous(), k.contiguous(), v.contiguous(),
+                             flash_lengths, causal=True)
+    else:
+        out = dot_product_attention(q, _repeat_kv(k, n // nkv),
+                                    _repeat_kv(v, n // nkv), bias)
+    return _out_proj(lp["attn"], out), new_cache
+
+
+def _mlp(cfg: DecoderConfig, lp, x):
+    mp = lp["mlp"]
+    if cfg.mlp_type == "gated":
+        gate = quant.linear(mp, "wg", x)
+        up = quant.linear(mp, "wi", x)
+        if "bg" in mp:
+            gate, up = gate + mp["bg"], up + mp["bi"]
+        hidden = activation(cfg.activation, gate) * up
+    else:
+        hidden = quant.linear(mp, "wi", x)
+        if "bi" in mp:
+            hidden = hidden + mp["bi"]
+        hidden = activation(cfg.activation, hidden)
+    out = quant.linear(mp, "wo", hidden)
+    if "bo" in mp:
+        out = out + mp["bo"]
+    return out
+
+
+def _residual(cfg: DecoderConfig, lp, x, ln1_out, attn_out):
+    if cfg.parallel_residual:
+        # NeoX/Falcon: mlp reads the same (or its own) LN of the block input
+        mlp_in = ln1_out if cfg.shared_layernorm else _norm(cfg, x, lp["ln2"])
+        return x + attn_out + _mlp(cfg, lp, mlp_in)
+    x = x + attn_out
+    return x + _mlp(cfg, lp, _norm(cfg, x, lp["ln2"]))
+
+
+def _block(cfg: DecoderConfig, lp, x, sin_cos, bias, cache_len=None,
+           flash_lengths=None):
+    ln1_out = _norm(cfg, x, lp["ln1"])
+    attn_out, new_cache = _attn(cfg, lp, ln1_out, sin_cos, bias, cache_len,
+                                flash_lengths)
+    return _residual(cfg, lp, x, ln1_out, attn_out), new_cache
+
+
+def _embed(cfg: DecoderConfig, params, token_ids, positions):
+    x = params["embed"]["tokens"][token_ids]
+    if cfg.position_embedding == "learned":
+        x = x + params["embed"]["pos"][positions + cfg.learned_pos_offset]
+    if cfg.embedding_layernorm:
+        ln = params["embed"]["ln"]
+        x = layer_norm(x, ln["scale"], ln["bias"], cfg.norm_eps)
+    return x
+
+
+def _matmul_f32(x, w, chunk: int = 8192):
+    """``x @ w`` accumulated and returned in float32.  Low-precision operands
+    are upcast a column slice of ``w`` at a time (the products of bf16 values
+    are exact in float32, so this is the reference's fp32-accumulating
+    product up to summation order) to bound the float32 copy of ``w``."""
+    if w.dtype == torch.float32:
+        return x.float() @ w
+    xf = x.float()
+    return torch.cat([xf @ w[:, i:i + chunk].float()
+                      for i in range(0, w.shape[1], chunk)], dim=-1)
+
+
+def _unembed_hidden(cfg: DecoderConfig, params, x):
+    """(final-normed hidden, fp32 logits)."""
+    if cfg.final_norm:
+        x = _norm(cfg, x, params["final_ln"])
+    table = params.get("lm_head")
+    if table is None:
+        table = params["embed"]["tokens"].T
+    logits = _matmul_f32(x, table) * cfg.logit_scale
+    bias = params.get("lm_head_bias")
+    if bias is not None:
+        logits = logits + bias.float()
+    return x, logits
+
+
+def _unembed(cfg: DecoderConfig, params, x):
+    return _unembed_hidden(cfg, params, x)[1]
+
+
+def _positions(attention_mask):
+    """Right-padded prompts: position = running count of real tokens - 1."""
+    return torch.clamp(torch.cumsum(attention_mask, dim=-1) - 1, min=0)
+
+
+def run_layers(cfg: DecoderConfig, layers, x, positions, attention_mask):
+    """Rotary setup + flash/dense attention dispatch + the loop over the
+    stacked ``layers``."""
+    mask = attention_mask.bool()
+    sin_cos = None
+    if cfg.position_embedding == "rotary":
+        sin_cos = rotary_embedding(positions, _rotary_dim(cfg), cfg.rope_theta,
+                                   x.dtype)
+    use_flash = cfg.use_flash_attention(x.shape[1])
+    bias = None if use_flash else make_attention_bias(cfg, positions, positions, mask)
+    flash_lengths = (attention_mask.sum(-1).to(torch.int32).contiguous()
+                     if use_flash else None)
+    for i in range(cfg.num_layers):
+        x, _ = _block(cfg, _layer(layers, i), x, sin_cos, bias, None,
+                      flash_lengths)
+    return x
+
+
+def _trunk(params, cfg: DecoderConfig, token_ids, attention_mask,
+           cache_len: Optional[int] = None):
+    """Embed + blocks.  Returns (hidden [B,S,H], cache | None)."""
+    if cfg.kv_cache_dtype != "bf16":
+        raise NotImplementedError(
+            "int8 KV cache is not ported yet (ROADMAP.md queue 1, 'int8 "
+            "weights and KV cache')")
+    b, s = token_ids.shape
+    positions = _positions(attention_mask)
+    x = _embed(cfg, params, token_ids, positions)
+    if cache_len is None:
+        return run_layers(cfg, params["layers"], x, positions, attention_mask), None
+
+    sin_cos = None
+    if cfg.position_embedding == "rotary":
+        sin_cos = rotary_embedding(positions, _rotary_dim(cfg), cfg.rope_theta,
+                                   params["embed"]["tokens"].dtype)
+    t = cache_len
+    mask = attention_mask.bool()
+    # slot index == position for right-padded rows
+    kv_positions = torch.arange(t, device=token_ids.device)[None, :].expand(b, t)
+    kv_valid = F.pad(mask, (0, t - s))
+    use_flash = cfg.use_flash_attention(s)
+    flash_lengths = (attention_mask.sum(-1).to(torch.int32).contiguous()
+                     if use_flash else None)
+    bias = (None if use_flash
+            else make_attention_bias(cfg, positions, kv_positions, kv_valid))
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, (ck, cv) = _block(cfg, _layer(params["layers"], i), x, sin_cos,
+                             bias, t, flash_lengths)
+        ks.append(ck)
+        vs.append(cv)
+    cache = KVCache(
+        k=torch.stack(ks), v=torch.stack(vs), positions=kv_positions,
+        valid=kv_valid, length=attention_mask.sum(-1).max(),
+    )
+    return x, cache
+
+
+def _last_hidden(x, attention_mask):
+    lengths = attention_mask.sum(-1)
+    idx = (lengths - 1).clamp(min=0)
+    return x[torch.arange(x.shape[0], device=x.device), idx][:, None]  # [B,1,H]
+
+
+@torch.no_grad()
+def forward(params, cfg: DecoderConfig, token_ids, attention_mask):
+    """Full-sequence forward: fp32 logits [B, S, V]."""
+    params = _tree(params)
+    x, _ = _trunk(params, cfg, token_ids, attention_mask, None)
+    return _unembed(cfg, params, x)
+
+
+@torch.no_grad()
+def forward_last_logits(params, cfg: DecoderConfig, token_ids, attention_mask):
+    """fp32 logits at each row's last real position only -- [B, V]."""
+    params = _tree(params)
+    x, _ = _trunk(params, cfg, token_ids, attention_mask, None)
+    return _unembed(cfg, params, _last_hidden(x, attention_mask))[:, 0, :]
+
+
+@torch.no_grad()
+def prefill(params, cfg: DecoderConfig, token_ids, attention_mask, cache_len: int):
+    """One prompt forward returning (last_logits [B, V] fp32 at each row's
+    last real token, KVCache padded to ``cache_len`` slots)."""
+    params = _tree(params)
+    x, cache = _trunk(params, cfg, token_ids, attention_mask, cache_len)
+    last = _unembed(cfg, params, _last_hidden(x, attention_mask))[:, 0, :]
+    return last, cache
+
+
+#: Candidates kept per step by the reduced score mode (the confidence leg's
+#: 19-candidate contract); any yes/no scan with top_k <= this reads its
+#: threshold from the kept candidates.
+REDUCED_TOPK = 19
+
+
+class ReducedScores(NamedTuple):
+    """Per-step score statistics in place of stacked [B, P, V] logits."""
+    topk_vals: torch.Tensor      # [B, P, REDUCED_TOPK] fp32 logits, descending
+    topk_ids: torch.Tensor       # [B, P, REDUCED_TOPK] int64 token ids
+    logz: torch.Tensor           # [B, P] fp32 logsumexp over the vocab
+    target_logits: torch.Tensor  # [B, P, 2] fp32 logits at (yes_id, no_id)
+
+
+def _reduce_step_scores(logits, target_ids):
+    """One step's [B, V] logits -> (vals, ids, logz, tgt) for ReducedScores."""
+    sub = logits.float()
+    logz = torch.logsumexp(sub, dim=-1)
+    vals, ids = torch.topk(sub, REDUCED_TOPK, dim=-1)
+    tgt = torch.gather(sub, -1, target_ids.long())
+    return vals, ids, logz, tgt
+
+
+def _block_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l, i):
+    """_block for one decode step: this step's K/V go into slot ``i`` of the
+    layer's tail (in place); the prompt cache slice is read-only."""
+    ln1_out = _norm(cfg, x, lp["ln1"])
+    attn_out = _attn_decode(cfg, lp, ln1_out, sin_cos, bias_p, bias_t, kp_l,
+                            vp_l, tk_l, tv_l, i)
+    return _residual(cfg, lp, x, ln1_out, attn_out)
+
+
+def _attn_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l, i):
+    q, k, v = _qkv(cfg, lp["attn"], x, sin_cos)
+    # in-place write of slot i of the small tail (the reference's
+    # dynamic-update-slice); the tail is this call's own buffer
+    tk_l[:, i:i + 1] = k.to(tk_l.dtype)
+    tv_l[:, i:i + 1] = v.to(tv_l.dtype)
+    out = grouped_attention_two_block(
+        q, kp_l.to(x.dtype), vp_l.to(x.dtype), bias_p,
+        tk_l.to(x.dtype), tv_l.to(x.dtype), bias_t)
+    return _out_proj(lp["attn"], out)
+
+
+@torch.no_grad()
+def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
+                 lengths, offset: int, num_steps: int,
+                 eos_token_id: Optional[int] = None, done=None,
+                 with_scores=True, target_ids=None):
+    """Continue a batched greedy decode from an existing KV cache.
+
+    ``prev_logits`` [B, V] fp32 predict the next token; ``lengths`` [B] are
+    the prompt lengths and ``offset`` the tokens generated before this call.
+    ``with_scores``: True stacks the [B, n, V] fp32 scores, "reduced" stacks
+    :class:`ReducedScores` (needs ``target_ids`` [B, 2]), False none.  Rows
+    in ``done`` (EOS seen) emit ``eos_token_id`` from then on.
+
+    Returns (tokens [B, n], scores, cache with this chunk's tail folded in,
+    last_logits [B, V], done); ``scores[:, 0]`` are ``prev_logits``'s."""
+    params = _tree(params)
+    if cache.k_scale is not None:
+        raise NotImplementedError(
+            "int8 KV cache is not ported yet (ROADMAP.md queue 1, 'int8 "
+            "weights and KV cache')")
+    b = prev_logits.shape[0]
+    n = num_steps
+    dev = prev_logits.device
+    if done is None:
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    if with_scores == "reduced" and target_ids is None:
+        raise ValueError("with_scores='reduced' needs target_ids [B, 2]")
+    cdt = cache.k.dtype
+    tail_shape = (cfg.num_layers, b, n, cfg.num_kv_heads, cfg.head_dim)
+    tail_k = torch.zeros(tail_shape, dtype=cdt, device=dev)
+    tail_v = torch.zeros(tail_shape, dtype=cdt, device=dev)
+    # tail slot j holds the step-j token, at position lengths + offset + j
+    steps = torch.arange(n, device=dev)
+    tail_positions = lengths[:, None] + offset + steps[None, :]         # [B,n]
+    layers = params["layers"]
+    toks, outs = [], []
+    for i in range(n):
+        next_tok = torch.argmax(prev_logits, dim=-1)                    # [B]
+        if eos_token_id is not None:
+            next_tok = torch.where(done, eos_token_id, next_tok)
+        q_pos = (lengths + offset + i)[:, None]                         # [B,1]
+        bias_p = make_attention_bias(cfg, q_pos, cache.positions, cache.valid)
+        tail_valid = (steps <= i)[None, :].expand(b, n)
+        bias_t = make_attention_bias(cfg, q_pos, tail_positions, tail_valid)
+        sin_cos = None
+        if cfg.position_embedding == "rotary":
+            sin_cos = rotary_embedding(q_pos, _rotary_dim(cfg), cfg.rope_theta,
+                                       cdt)
+        x = _embed(cfg, params, next_tok[:, None], q_pos)
+        for li in range(cfg.num_layers):
+            x = _block_decode(cfg, _layer(layers, li), x, sin_cos, bias_p,
+                              bias_t, cache.k[li], cache.v[li], tail_k[li],
+                              tail_v[li], i)
+        step_logits = _unembed(cfg, params, x)[:, 0, :]
+        if eos_token_id is not None:
+            done = done | (next_tok == eos_token_id)
+        if with_scores == "reduced":
+            outs.append(_reduce_step_scores(prev_logits, target_ids))
+        elif with_scores:
+            outs.append(prev_logits)
+        toks.append(next_tok)
+        prev_logits = step_logits
+    cache = KVCache(
+        k=torch.cat([cache.k, tail_k], dim=2),
+        v=torch.cat([cache.v, tail_v], dim=2),
+        positions=torch.cat([cache.positions, tail_positions], dim=1),
+        valid=torch.cat([cache.valid, torch.ones((b, n), dtype=torch.bool,
+                                                 device=dev)], dim=1),
+        length=cache.length + n,
+    )
+    if with_scores == "reduced":
+        scores = ReducedScores(*(torch.stack(f, dim=1) for f in zip(*outs)))
+    elif with_scores:
+        scores = torch.stack(outs, dim=1)
+    else:
+        scores = None
+    return torch.stack(toks, dim=1), scores, cache, prev_logits, done

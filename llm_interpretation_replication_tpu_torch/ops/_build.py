@@ -1,0 +1,83 @@
+"""Build the port's CUDA sources (``ops/csrc/*.cu``) into shared libraries.
+
+Each source is compiled on first use by ``nvcc`` for Hopper (``sm_90a``)
+into a ``.so`` with a plain C interface and loaded with :mod:`ctypes`.  The
+library name carries a hash of the source and the flags, so an edited source
+is rebuilt and a stale library is never loaded.  Builds go to
+``build/torch_kernels/`` at the root of the checkout (listed in
+``.gitignore``).  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "build", "torch_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass
+class BuildRecord:
+    path: str
+    seconds: float      # 0.0 when the library was already built
+    log: str            # nvcc's output (ptxas register/spill lines)
+
+
+_records: Dict[str, BuildRecord] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _target(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def build(name: str) -> BuildRecord:
+    """Build ``ops/csrc/<name>.cu`` unless it is built already.  Raises with
+    nvcc's output on failure."""
+    rec = _records.get(name)
+    if rec is not None:
+        return rec
+    out = _target(name)
+    if os.path.exists(out):
+        rec = BuildRecord(out, 0.0, "")
+    else:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+        os.replace(tmp, out)
+        rec = BuildRecord(out, time.perf_counter() - t0, proc.stdout)
+    _records[name] = rec
+    return rec
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``ops/csrc/<name>.cu``, built if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _libs[name] = ctypes.CDLL(build(name).path)
+    return lib

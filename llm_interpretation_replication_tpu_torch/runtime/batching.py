@@ -1,0 +1,107 @@
+"""Length-bucketed batching (a copy of ``runtime/batching.py``'s
+``Batch``/``bucket_for``/``batches_for_prompts``/``encode_prompts``, without
+the tracer and telemetry).
+
+Batches pad to a fixed menu of lengths and to a full batch of rows (pad
+rows duplicate row 0 and carry index -1), so every batch has one of a few
+shapes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from ..config import DEFAULT_BUCKETS
+
+
+@dataclasses.dataclass
+class Batch:
+    token_ids: np.ndarray       # [B, S] int32, right-padded
+    attention_mask: np.ndarray  # [B, S] int32
+    indices: np.ndarray         # [B] original prompt index, -1 for pad rows
+    bucket_len: int
+
+
+def bucket_for(length: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
+    for b in buckets:
+        if length <= b:
+            return b
+    raise ValueError(f"prompt length {length} exceeds the largest bucket {buckets[-1]}")
+
+
+def _emit_batch(chunk, batch_size: int, bucket_len: int, pad_id: int) -> Batch:
+    token_ids = np.full((batch_size, bucket_len), pad_id, np.int32)
+    mask = np.zeros((batch_size, bucket_len), np.int32)
+    indices = np.full((batch_size,), -1, np.int64)
+    for r, (idx, ids) in enumerate(chunk):
+        token_ids[r, : len(ids)] = ids
+        mask[r, : len(ids)] = 1
+        indices[r] = idx
+    # fill pad rows with the first row so the model sees valid tokens
+    for r in range(len(chunk), batch_size):
+        token_ids[r] = token_ids[0]
+        mask[r] = mask[0]
+    return Batch(token_ids, mask, indices, bucket_len)
+
+
+def batches_for_prompts(
+    encoded: Sequence[Sequence[int]],
+    batch_size: int,
+    buckets: Sequence[int] = DEFAULT_BUCKETS,
+    pad_id: int = 0,
+    keep_order_within_bucket: bool = True,
+    min_bucket_rows: Optional[int] = None,
+    length_sorted: bool = False,
+) -> Iterator[Batch]:
+    """Fixed-shape padded batches for a ragged prompt list.
+
+    ``length_sorted=True``: all prompts sort by length and consecutive runs
+    of ``batch_size`` form each batch, padded to the bucket of the batch's
+    longest prompt.  ``length_sorted=False``: prompts group by their own
+    bucket (buckets with fewer than ``min_bucket_rows`` prompts, default
+    batch_size // 8, merge into the next occupied larger bucket)."""
+    if length_sorted:
+        order = sorted(enumerate(encoded), key=lambda it: len(it[1]))
+        for start in range(0, len(order), batch_size):
+            chunk = [(idx, list(ids)) for idx, ids in order[start : start + batch_size]]
+            bucket_len = bucket_for(len(chunk[-1][1]), buckets)
+            yield _emit_batch(chunk, batch_size, bucket_len, pad_id)
+        return
+    if min_bucket_rows is None:
+        min_bucket_rows = max(1, batch_size // 8)
+    by_bucket: dict = {}
+    for idx, ids in enumerate(encoded):
+        b = bucket_for(len(ids), buckets)
+        by_bucket.setdefault(b, []).append((idx, list(ids)))
+    occupied = sorted(by_bucket)
+    for i, b in enumerate(occupied[:-1]):
+        if len(by_bucket[b]) < min_bucket_rows:
+            by_bucket[occupied[i + 1]] = (
+                by_bucket.pop(b) + by_bucket[occupied[i + 1]]
+            )
+    for bucket_len in sorted(by_bucket):
+        items = by_bucket[bucket_len]
+        if not keep_order_within_bucket:
+            items.sort(key=lambda it: len(it[1]))
+        for start in range(0, len(items), batch_size):
+            yield _emit_batch(items[start : start + batch_size], batch_size,
+                              bucket_len, pad_id)
+
+
+def encode_prompts(tokenizer, prompts: Sequence, add_special_tokens: bool = True) -> List[List[int]]:
+    """Tokenize a prompt list; entries that are already token-id sequences
+    (anything non-str) pass through unchanged."""
+    out: List[Optional[List[int]]] = [None] * len(prompts)
+    str_idx = [i for i, p in enumerate(prompts) if isinstance(p, str)]
+    if str_idx:
+        enc = tokenizer([prompts[i] for i in str_idx],
+                        add_special_tokens=add_special_tokens)["input_ids"]
+        for i, ids in zip(str_idx, enc):
+            out[i] = list(ids)
+    for i, p in enumerate(prompts):
+        if out[i] is None:
+            out[i] = [int(t) for t in p]
+    return out

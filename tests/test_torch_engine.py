@@ -1,0 +1,191 @@
+"""The slice as a whole: the port's ScoringEngine against the JAX engine.
+
+Both engines take the same tiny Falcon-architecture model (float32), the
+same ``build_test_tokenizer`` and ``EngineConfig(decode_completions=False,
+phase2_pool=False)``, with prompts of mixed lengths over two buckets.
+``scan_found`` must be identical; the probability fields match to rtol 2e-5
+(the fp32 class of PARITY.md) with an absolute floor of 1e-9 for
+probabilities near zero.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from helpers import build_test_tokenizer, random_decoder_params
+from llm_interpretation_replication_tpu.models import config as jconfig
+from llm_interpretation_replication_tpu.runtime import engine as jengine
+from llm_interpretation_replication_tpu_torch.models import config as tconfig
+from llm_interpretation_replication_tpu_torch.models import convert
+from llm_interpretation_replication_tpu_torch.runtime import engine as tengine
+
+RTOL, ATOL = 2e-5, 1e-9
+PROB_FIELDS = ("yes_prob", "no_prob", "relative_prob", "odds_ratio",
+               "first_token_yes_prob", "first_token_no_prob",
+               "first_token_relative_prob")
+
+PROMPTS = (
+    [f"Is soup a beverage? Answer {i}:" for i in range(5)]
+    + [f"The quick brown fox jumps over the lazy dog {i} times. Is a tweet "
+       f"a publication? Yes or No. Answer:" for i in range(6)]
+)
+ENGINE_KW = dict(decode_completions=False, phase2_pool=False, buckets=(32, 64))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    tok = build_test_tokenizer()
+    lengths = {len(tok(p)["input_ids"]) for p in PROMPTS}
+    assert min(lengths) <= 32 < max(lengths) <= 64     # two buckets
+    return tok
+
+
+def _engines(tok, impl, **ecfg):
+    jcfg = jconfig.DecoderConfig(**{**jconfig.FLAGSHIP_SMALL_GEOMETRY,
+                                    "attention_impl": impl})
+    tcfg = tconfig.DecoderConfig(**{**tconfig.FLAGSHIP_SMALL_GEOMETRY,
+                                    "attention_impl": impl})
+    params = random_decoder_params(jcfg, seed=5)
+    weights = convert.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu",
+        dtype="fp32")
+    kw = {**ENGINE_KW, **ecfg}
+    jeng = jengine.ScoringEngine("falcon", jcfg, params, tok,
+                                 engine_config=jengine.EngineConfig(**kw))
+    teng = tengine.ScoringEngine("falcon", tcfg, weights, tok,
+                                 engine_config=tengine.EngineConfig(**kw),
+                                 device="cpu")
+    return jeng, teng
+
+
+def _assert_rows_match(got, ref):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g["success"] and r["success"]
+        assert g["scan_found"] == r["scan_found"]
+        assert g["completion"] == r["completion"] == ""
+        for f in PROB_FIELDS:
+            np.testing.assert_allclose(g[f], r[f], rtol=RTOL, atol=ATOL,
+                                       err_msg=f)
+
+
+@pytest.mark.parametrize("impl,ecfg", [
+    ("xla", dict(batch_size=4)),
+    ("flash", dict(batch_size=4)),
+    # a wide top-k decides most rows at position 0, so the look-ahead runs
+    # on a gathered, menu-padded subset -- and on full scores (top_k > 19)
+    ("flash", dict(batch_size=16, top_k=600, length_sorted_batches=False)),
+])
+def test_engine_rows_match_reference(setup, monkeypatch, impl, ecfg):
+    tok = setup
+    jeng, teng = _engines(tok, impl, **ecfg)
+    gathered = []
+    real_gather = tengine._gather_rows
+    monkeypatch.setattr(tengine, "_gather_rows",
+                        lambda *a: gathered.append(1) or real_gather(*a))
+    ref = jeng.score_prompts(list(PROMPTS))
+    got = teng.score_prompts(list(PROMPTS))
+    _assert_rows_match(got, ref)
+    found = [r["scan_found"] for r in got]
+    if ecfg["batch_size"] == 16:
+        assert gathered and any(found)
+    else:
+        assert not gathered
+
+
+def test_engine_per_prompt_targets_and_tokenized_prompts(setup):
+    """Per-prompt (yes, no) pairs and pre-tokenized prompts, as the sweep
+    shells pass them."""
+    tok = setup
+    jeng, teng = _engines(tok, "flash", batch_size=4)
+    prompts = [tok(p)["input_ids"] for p in PROMPTS[:6]]
+    targets = [("Yes", "No"), ("No", "Yes")] * 3
+    _assert_rows_match(teng.score_prompts(prompts, targets),
+                       jeng.score_prompts(prompts, targets))
+
+
+@pytest.mark.parametrize("override", [
+    dict(decode_completions=True),
+    dict(phase2_pool=True),
+    dict(phase2_pool=True, slot_repack=False),
+    dict(kv_dtype="int8"),
+    dict(prefill_chunk=32),
+    dict(decode_k=2),
+    dict(oom_batch_ladder=(16, 8)),
+    dict(oom_batch_floor=4),
+])
+def test_unsupported_engine_settings_raise(setup, override):
+    tok = setup
+    tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
+    weights = convert.random_params(tcfg, seed=0, device="cpu", dtype="fp32")
+    kw = {**ENGINE_KW, **override}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tengine.ScoringEngine("falcon", tcfg, weights, tok,
+                              engine_config=tengine.EngineConfig(**kw),
+                              device="cpu")
+    # a supported engine whose config is changed afterwards refuses to score
+    eng = tengine.ScoringEngine("falcon", tcfg, weights, tok, device="cpu",
+                                engine_config=tengine.EngineConfig(**ENGINE_KW))
+    eng.ecfg = dataclasses.replace(eng.ecfg, **override)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        eng.score_prompts(["Is soup a beverage?"])
+
+
+@pytest.mark.parametrize("case", ["confidence", "prefix_pairs", "mesh",
+                                  "t5", "int8_weights"])
+def test_unsupported_calls_raise(setup, case):
+    tok = setup
+    tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
+    weights = convert.random_params(tcfg, seed=0, device="cpu", dtype="fp32")
+    ecfg = tengine.EngineConfig(**ENGINE_KW)
+    kw = dict(engine_config=ecfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        if case == "mesh":
+            tengine.ScoringEngine("falcon", tcfg, weights, tok, mesh=object(), **kw)
+        elif case == "t5":
+            tengine.ScoringEngine("t5", tcfg, weights, tok, **kw)
+        elif case == "int8_weights":
+            weights.register_buffer("layers__attn__wq_qscale", torch.ones(4, 256))
+            tengine.ScoringEngine("falcon", tcfg, weights, tok, **kw)
+        else:
+            eng = tengine.ScoringEngine("falcon", tcfg, weights, tok, **kw)
+            if case == "confidence":
+                eng.score_prompts(["Is soup a beverage?"], with_confidence=True)
+            else:
+                eng.score_prompts([("Is soup a beverage?", " Answer:")])
+
+
+def test_default_device_is_cuda(setup):
+    """Entry points run on the card unless the caller asks for the CPU: on a
+    machine without CUDA the defaults raise instead of using the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.random_params(tcfg)
+    weights = convert.random_params(tcfg, device="cpu", dtype="fp32")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tengine.ScoringEngine("falcon", tcfg, weights, setup,
+                              engine_config=tengine.EngineConfig(**ENGINE_KW))
+
+
+def test_close_releases_weights(setup):
+    tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
+    weights = convert.random_params(tcfg, seed=0, device="cpu", dtype="fp32")
+    eng = tengine.ScoringEngine("falcon", tcfg, weights, setup, device="cpu",
+                                engine_config=tengine.EngineConfig(**ENGINE_KW))
+    assert eng.score_prompts(["Is soup a beverage?"])[0]["success"]
+    eng.close()
+    eng.close()                                          # idempotent
+    assert eng.closed and eng.params is None
+    with pytest.raises(tengine.EngineClosed):
+        eng.score_prompts(["Is soup a beverage?"])
+    # the caller's weights survive for another engine built on them
+    assert all(b.numel() > 0 for b in weights.buffers())
+    other = tengine.ScoringEngine("falcon", tcfg, weights, setup, device="cpu",
+                                  engine_config=tengine.EngineConfig(**ENGINE_KW))
+    assert other.score_prompts(["Is soup a beverage?"])[0]["success"]

@@ -1,0 +1,112 @@
+"""Rules the PyTorch port keeps, and its copies of the reference's host code.
+
+The port (and ``chip_smoke.py``, which drives it on the card) imports no
+JAX, nothing of the JAX package and no ``transformers``/``tokenizers``: the
+machine with the card has none of them.  Its copies of host-only modules
+must behave exactly as the originals.
+"""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+
+from llm_interpretation_replication_tpu.config import DEFAULT_BUCKETS as J_BUCKETS
+from llm_interpretation_replication_tpu.models import config as jconfig
+from llm_interpretation_replication_tpu.runtime import batching as jbatching
+from llm_interpretation_replication_tpu.runtime import plan as jplan
+from llm_interpretation_replication_tpu_torch.config import DEFAULT_BUCKETS
+from llm_interpretation_replication_tpu_torch.models import config as tconfig
+from llm_interpretation_replication_tpu_torch.runtime import batching, plan
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "llm_interpretation_replication_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "llm_interpretation_replication_tpu",
+             "transformers", "tokenizers"}
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, dirnames, filenames in os.walk(PORT):
+        dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+        out += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_port_imports_nothing_of_jax():
+    sources = _port_sources()
+    assert len(sources) > 10
+    bad = []
+    for path in sources:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(os.path.relpath(path, ROOT), n) for n in names
+                    if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_copied_config_matches_reference():
+    assert DEFAULT_BUCKETS == J_BUCKETS
+    assert tconfig.FALCON_7B_GEOMETRY == jconfig.FALCON_7B_GEOMETRY
+    assert tconfig.FLAGSHIP_SMALL_GEOMETRY == jconfig.FLAGSHIP_SMALL_GEOMETRY
+    t = tconfig.DecoderConfig(**tconfig.FALCON_7B_GEOMETRY)
+    j = jconfig.DecoderConfig(**jconfig.FALCON_7B_GEOMETRY)
+    assert ({f: getattr(t, f) for f in t.__dataclass_fields__}
+            == {f: getattr(j, f) for f in j.__dataclass_fields__})
+    for impl in ("xla", "flash", "auto"):
+        tc = tconfig.DecoderConfig(**{**tconfig.FALCON_7B_GEOMETRY,
+                                      "attention_impl": impl})
+        jc = jconfig.DecoderConfig(**{**jconfig.FALCON_7B_GEOMETRY,
+                                      "attention_impl": impl})
+        for s in (432, 2048):
+            assert tc.use_flash_attention(s) == jc.use_flash_attention(s)
+    with pytest.raises(ValueError):
+        tconfig.DecoderConfig(**{**tconfig.FALCON_7B_GEOMETRY,
+                                 "attention_impl": "flash",
+                                 "position_embedding": "alibi"})
+
+
+def test_falcon_config_translator_matches_reference():
+    import types
+
+    hf = types.SimpleNamespace(vocab_size=65024, hidden_size=4544,
+                               num_hidden_layers=32, num_attention_heads=71,
+                               multi_query=True, parallel_attn=True, bias=False)
+    assert tconfig.falcon_config(hf).__dict__ == jconfig.falcon_config(hf).__dict__
+
+
+@pytest.mark.parametrize("length_sorted", [True, False])
+def test_copied_batching_matches_reference(length_sorted):
+    rng = np.random.default_rng(0)
+    encoded = [list(rng.integers(3, 100, int(n)))
+               for n in rng.integers(1, 140, 23)]
+    got = list(batching.batches_for_prompts(encoded, 4, (64, 80, 144),
+                                            pad_id=0, length_sorted=length_sorted))
+    ref = list(jbatching.batches_for_prompts(encoded, 4, (64, 80, 144),
+                                             pad_id=0, length_sorted=length_sorted))
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.bucket_len == r.bucket_len
+        for f in ("token_ids", "attention_mask", "indices"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(r, f))
+    with pytest.raises(ValueError):
+        batching.bucket_for(3000)
+
+
+def test_copied_plan_matches_reference():
+    for args in [(10, 10, 50, False, None), (10, 10, 50, True, None),
+                 (10, 10, 50, True, 7), (4, 10, 50, True, 23)]:
+        got, ref = plan.generation_plan(*args), jplan.generation_plan(*args)
+        assert (got.scan_steps, got.total_new_tokens, got.chunks,
+                got.cache_key) == (ref.scan_steps, ref.total_new_tokens,
+                                   ref.chunks, ref.cache_key)
+        assert tuple(got) == tuple(ref)
+        assert plan.plan_cache_key(*args) == jplan.plan_cache_key(*args)
