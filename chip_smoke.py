@@ -7,17 +7,28 @@ Phases, each fatal on failure (the exit code is then non-zero and no result
 line is printed):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compile every CUDA kernel of the slice from ``ops/csrc``;
-3. kernels: hold each kernel against its plain PyTorch version (float32
-   from the same bf16 inputs) at the shapes the main path gives it, and
-   time it (CUDA events) beside its plain version, its bound and one
-   PyTorch library call computing the same function;
+2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
+   started together) and print each kernel's ptxas register and spill lines;
+3. kernels: hold each kernel (causal grouped, head-major grouped, head-major
+   flash) against its plain PyTorch version (float32 from the same bf16
+   inputs) at the shapes the main paths give it, and time it (CUDA events)
+   beside its plain version, its bound and one PyTorch library call
+   computing the same function;
 4. slice: Falcon-7B at its published width and depth, bf16, random weights
    from ``--seed``, scores 96 pre-tokenized prompts of 100-440 tokens in
-   batches of 32 through ``ScoringEngine.score_prompts`` with the kernel
-   carrying every prefill; the launch counters must show the kernel ran,
-   the same prompts go through the dense path, and the position-0 logits of
-   both are held against a float32 reference of the same weights.
+   batches of 32 through ``ScoringEngine.score_prompts`` with the causal
+   kernel carrying every prefill; the launch counters must show the kernel
+   ran, the same prompts go through the dense path, and the position-0
+   logits of both are held against a float32 reference of the same weights;
+5. forced routes: the slice's longest batch through
+   ``decoder.forward_last_logits`` with every layer's attention forced
+   through ``attention_bsnd(force="grouped")`` and then ``force="pallas"``
+   (each kernel must launch once a layer), held against the same float32
+   reference, and each route's prefill timed;
+6. int8: the int8 product's int32 accumulators on the card against a CPU
+   int32 product at Falcon-7B's projection shapes; then the slice's prompts
+   scored with w8a8 int8 weights (quantized as they are made), once with a
+   bf16 and once with an int8 KV cache, held against the bf16 rows.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -27,6 +38,8 @@ CPU in its place.
 
 import argparse
 import dataclasses
+import functools
+import importlib
 import json
 import os
 import subprocess
@@ -39,13 +52,38 @@ ERR_TOL = 1e-2            # kernel vs plain, bf16 output of unit-normal inputs
 KERNEL_VS_DENSE_ERR_RATIO = 1.25
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak, same source
-KERNEL_SHAPES = [         # (label, B, S, N, G, D)
+KERNEL_SHAPES = [         # (label, B, S, N, G, D) of the causal kernel
     ("falcon-7b", 32, 432, 71, 1, 64),
     ("falcon-7b-long", 4, 2048, 71, 1, 64),
     ("gqa", 16, 448, 32, 8, 128),
     ("mha-small-1b", 16, 320, 16, 16, 128),
 ]
+HEAD_MAJOR_SHAPES = [     # of the head-major kernels (the slice's bucket 448)
+    ("falcon-7b", 32, 448, 71, 1, 64),
+    ("falcon-7b-long", 4, 2048, 71, 1, 64),
+    ("gqa", 16, 448, 32, 8, 128),
+]
+FLASH_ONLY_SHAPES = [     # Llama-2-7B's width at its 4096 context
+    ("llama-2-7b-4096", 2, 4096, 32, 32, 128),
+]
 N_PROMPTS, BATCH = 96, 32
+# int8 runs against the bf16 engine on the same weights and prompts
+# (PARITY.md's w8a8 audit bounds) and int8 KV against bf16 KV (ROADMAP.md)
+W8A8_MEAN_DREL, W8A8_MAX_DREL = 0.02, 0.10
+INT8_KV_MAX_DREL = 0.05
+# Falcon-7B's projections (K, N): QKV (q, then MQA's k or v), out, MLP in/out
+INT8_SHAPES = [(4544, 4544), (4544, 64), (4544, 18176), (18176, 4544)]
+# (wrapper, source in ops/csrc, line of the TPU kernel it replaces in
+# llm_interpretation_replication_tpu/ops/attention.py, shapes, layout)
+KERNELS = [
+    ("causal_grouped_attention", "causal_grouped_attention", 355,
+     KERNEL_SHAPES, "bsnd"),
+    ("grouped_attention", "head_major_attention", 183,
+     HEAD_MAJOR_SHAPES, "bnsd"),
+    ("flash_attention", "head_major_attention", 50,
+     HEAD_MAJOR_SHAPES + FLASH_ONLY_SHAPES, "bnsd"),
+]
+KERNEL_NAMES = [k[0] for k in KERNELS]
 
 
 def say(*parts):
@@ -89,60 +127,85 @@ def attention_bound_ms(b, s, n, g, d, lengths, causal):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _inputs(gen, b, s, n, g, d, layout):
+    """bf16 unit-normal q, k, v in ``layout`` ("bsnd" or "bnsd") and ragged
+    int32 lengths with a full row, a length-1 row and a length-0 row."""
+    import torch
+
+    dev = torch.device("cuda")
+    qs, ks = ((b, s, n, d), (b, s, g, d)) if layout == "bsnd" else \
+        ((b, n, s, d), (b, g, s, d))
+    q = torch.randn(qs, generator=gen, device=dev).bfloat16()
+    k = torch.randn(ks, generator=gen, device=dev).bfloat16()
+    v = torch.randn(ks, generator=gen, device=dev).bfloat16()
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0] = s
+    if b > 2:
+        lengths[1], lengths[2] = 1, 0
+    return q, k, v, lengths
+
+
 def kernel_phase(attention, gen):
-    """Every shape, causal and not: error vs the plain version, times."""
+    """Every kernel at every shape, causal and not: error vs the plain
+    version, times.  The causal kernel's error is taken on the valid rows
+    (as its first measurements were); the head-major kernels' on all rows."""
     import torch
     import torch.nn.functional as F
 
-    dev = torch.device("cuda")
     rows = []
-    for label, b, s, n, g, d in KERNEL_SHAPES:
-        q = torch.randn(b, s, n, d, generator=gen, device=dev).bfloat16()
-        k = torch.randn(b, s, g, d, generator=gen, device=dev).bfloat16()
-        v = torch.randn(b, s, g, d, generator=gen, device=dev).bfloat16()
-        lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
-                                dtype=torch.int32)
-        lengths[0] = s
-        if b > 2:
-            lengths[1], lengths[2] = 1, 0
-        pos = torch.arange(s, device=dev)
-        valid = (pos[None, :] < lengths[:, None])[:, :, None, None]
-        for causal in (True, False):
-            out = attention.causal_grouped_attention(q, k, v, lengths, causal)
-            torch.cuda.synchronize()
-            ref = attention.causal_grouped_attention_plain(
-                q.float(), k.float(), v.float(), lengths, causal)
-            err = float(((out.float() - ref).abs() * valid).max())
-            zero_rows = out[lengths == 0]
-            if not torch.isfinite(out).all():
-                raise AssertionError(f"{label}: non-finite kernel output")
-            if zero_rows.numel() and bool((zero_rows != 0).any()):
-                raise AssertionError(f"{label}: length-0 rows are not zero")
-            if err > ERR_TOL:
-                raise AssertionError(f"{label} causal={causal}: max abs err "
-                                     f"{err} > {ERR_TOL}")
-            ms = time_ms(lambda: attention.causal_grouped_attention(
-                q, k, v, lengths, causal), iters=50)
-            plain_ms = time_ms(lambda: attention.causal_grouped_attention_plain(
-                q, k, v, lengths, causal), iters=3, warmup=1)
-            # yardstick only: one PyTorch call computing the same function
-            bound = torch.minimum(lengths[:, None].long(), pos[None, :] + 1) \
-                if causal else lengths[:, None].long().expand(b, s)
-            mask = (pos[None, None, :] < bound[:, :, None])[:, None]
-            qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, enable_gqa=g != n), iters=10)
-            bound_ms, bound_by = attention_bound_ms(
-                b, s, n, g, d, lengths.tolist(), causal)
-            row = dict(shape=label, B=b, S=s, N=n, G=g, D=d, causal=causal,
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
-            rows.append(row)
-            say("kernel", json.dumps(row))
-            del out, ref
-        del q, k, v
-        torch.cuda.empty_cache()
+    for kname, _, _, shapes, layout in KERNELS:
+        fn = getattr(attention, kname)
+        plain = getattr(attention, kname + "_plain")
+        for label, b, s, n, g, d in shapes:
+            q, k, v, lengths = _inputs(gen, b, s, n, g, d, layout)
+            if kname == "flash_attention":   # the dispatcher's repeat
+                k = k.repeat_interleave(n // g, dim=1)
+                v = v.repeat_interleave(n // g, dim=1)
+            kv_heads = n if kname == "flash_attention" else g
+            # the library call takes head-major tensors
+            qh, kh, vh = (q, k, v) if layout == "bnsd" else \
+                (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+            pos = torch.arange(s, device=q.device)
+            for causal in (True, False):
+                out = fn(q, k, v, lengths, causal)
+                torch.cuda.synchronize()
+                ref = plain(q.float(), k.float(), v.float(), lengths, causal)
+                diff = (out.float() - ref).abs()
+                if layout == "bsnd":
+                    valid = pos[None, :] < lengths[:, None]
+                    diff = diff * valid[:, :, None, None]
+                err = float(diff.max())
+                zero_rows = out[lengths == 0]
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"{kname} {label}: non-finite output")
+                if zero_rows.numel() and bool((zero_rows != 0).any()):
+                    raise AssertionError(f"{kname} {label}: length-0 rows "
+                                         f"are not zero")
+                if err > ERR_TOL:
+                    raise AssertionError(f"{kname} {label} causal={causal}: "
+                                         f"max abs err {err} > {ERR_TOL}")
+                ms = time_ms(lambda: fn(q, k, v, lengths, causal), iters=50)
+                plain_ms = time_ms(lambda: plain(q, k, v, lengths, causal),
+                                   iters=3, warmup=1)
+                # yardstick only: one PyTorch call computing the same function
+                bound = torch.minimum(lengths[:, None].long(), pos[None, :] + 1) \
+                    if causal else lengths[:, None].long().expand(b, s)
+                mask = (pos[None, None, :] < bound[:, :, None])[:, None]
+                library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, enable_gqa=kv_heads != n),
+                    iters=10)
+                bound_ms, bound_by = attention_bound_ms(
+                    b, s, n, kv_heads, d, lengths.tolist(), causal)
+                row = dict(kernel=kname, shape=label, B=b, S=s, N=n, G=g, D=d,
+                           causal=causal, max_abs_err=err, ms=ms,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+                rows.append(row)
+                say("kernel", json.dumps(row))
+                del out, ref, diff
+            del q, k, v, qh, kh, vh
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -151,9 +214,32 @@ def _to_float32(tree):
             for k, v in tree.items()}
 
 
-def slice_phase(seed, attention):
-    """Falcon-7B binary-leg scoring through the port's engine."""
+def _reset_launches(attention):
+    for name in KERNEL_NAMES:
+        getattr(attention, name).launches = 0
+
+
+def _launches(attention):
+    return {name: getattr(attention, name).launches for name in KERNEL_NAMES}
+
+
+def _rel_l2(a, ref):
+    return float((a - ref).norm() / ref.norm())
+
+
+def _prompts(seed, tok):
+    """96 random-token prompts whose lengths spread evenly over 100-440."""
     import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.permutation(np.linspace(100, 440, N_PROMPTS).astype(int))
+    return [rng.integers(3, len(tok), int(n)).tolist() for n in lengths]
+
+
+def slice_phase(seed, attention):
+    """Falcon-7B binary-leg scoring through the port's engine, then the
+    forced head-major routes on its longest batch.  Returns the phase's
+    results and the scored rows."""
     import torch
 
     from llm_interpretation_replication_tpu_torch.models import config as mconfig
@@ -176,9 +262,7 @@ def slice_phase(seed, attention):
         f"bf16 random weights (seed {seed}) in "
         f"{time.perf_counter() - t0:.1f} s")
     tok = default_tokenizer()
-    rng = np.random.default_rng(seed)
-    lengths = rng.permutation(np.linspace(100, 440, N_PROMPTS).astype(int))
-    prompts = [rng.integers(3, len(tok), int(n)).tolist() for n in lengths]
+    prompts = _prompts(seed, tok)
     ecfg = emod.EngineConfig(decode_completions=False, phase2_pool=False,
                              batch_size=BATCH)
     engine = emod.ScoringEngine("falcon", cfg, weights, tok, engine_config=ecfg,
@@ -187,12 +271,12 @@ def slice_phase(seed, attention):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    attention.causal_grouped_attention.launches = 0
+    _reset_launches(attention)
     t0 = time.perf_counter()
     rows = engine.score_prompts(prompts)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = attention.causal_grouped_attention.launches
+    launches = _launches(attention)["causal_grouped_attention"]
     peak = torch.cuda.max_memory_allocated()
 
     batches = list(batching.batches_for_prompts(
@@ -202,13 +286,7 @@ def slice_phase(seed, attention):
         raise AssertionError(f"kernel launched {launches} times; the "
                              f"{len(batches)} prefills need "
                              f"{cfg.num_layers * len(batches)}")
-    if len(rows) != N_PROMPTS or not all(r["success"] for r in rows):
-        raise AssertionError("missing or failed rows")
-    for r in rows:
-        vals = [r[f] for f in ("yes_prob", "no_prob", "relative_prob",
-                               "first_token_relative_prob")]
-        if not all(np.isfinite(vals)) or not 0 <= r["relative_prob"] <= 1:
-            raise AssertionError(f"bad row {r}")
+    _check_rows(rows)
 
     dense = emod.ScoringEngine("falcon", dense_cfg, weights, tok,
                                engine_config=ecfg, device=device)
@@ -245,6 +323,7 @@ def slice_phase(seed, attention):
         for t in (a, b, r):
             if t.shape != (int(real.sum()), cfg.vocab_size) or not torch.isfinite(t).all():
                 raise AssertionError("bad position-0 logits")
+        last_batch_logits = (b, r)      # dense bf16 and float32, longest batch
         sq["kernel_vs_dense"] += float((a - b).square().sum())
         sq["kernel_vs_fp32"] += float((a - r).square().sum())
         sq["dense_vs_fp32"] += float((b - r).square().sum())
@@ -254,7 +333,9 @@ def slice_phase(seed, attention):
         hit_b = yes_no.first_token_scan(b, yes_id, no_id, ecfg.top_k)[4]
         same_hit0 += int((hit_a == hit_b).sum())
         undecided += int((~hit_a).sum())
-    del ref_weights
+    forced = forced_route_phase(attention, weights, cfg, ref_weights,
+                                batches[-1], *last_batch_logits)
+    del ref_weights, last_batch_logits
 
     # where the time goes, on the longest batch: one prefill through the
     # kernel and through the dense path, and one scored look-ahead chunk
@@ -296,6 +377,203 @@ def slice_phase(seed, attention):
     say("slice", json.dumps(result))
     engine.close()
     dense.close()
+    result["forced_routes"] = forced
+    return result, rows
+
+
+def _check_rows(rows):
+    import numpy as np
+
+    if len(rows) != N_PROMPTS or not all(r["success"] for r in rows):
+        raise AssertionError("missing or failed rows")
+    for r in rows:
+        vals = [r[f] for f in ("yes_prob", "no_prob", "relative_prob",
+                               "first_token_relative_prob")]
+        if not all(np.isfinite(vals)) or not 0 <= r["relative_prob"] <= 1:
+            raise AssertionError(f"bad row {r}")
+
+
+def forced_route_phase(attention, weights, cfg, ref_weights, batch,
+                       dense_logits, ref_logits):
+    """The longest batch's position-0 logits with every layer's attention
+    forced through ``attention_bsnd(force=...)``: each forced kernel must
+    launch exactly once a layer (and no other kernel), and its logits be no
+    further from the float32 reference than the dense bf16 path's allow."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    device = "cuda"
+    ids = torch.as_tensor(batch.token_ids, device=device).long()
+    mask = torch.as_tensor(batch.attention_mask, device=device)
+    real = torch.as_tensor(batch.indices >= 0, device=device)
+    dense_err = _rel_l2(dense_logits, ref_logits)
+    routed = decoder.attention_bsnd
+    out = {}
+    for force, kname in (("grouped", "grouped_attention"),
+                         ("pallas", "flash_attention")):
+        decoder.attention_bsnd = functools.partial(attention.attention_bsnd,
+                                                   force=force)
+        try:
+            _reset_launches(attention)
+            logits = decoder.forward_last_logits(weights, cfg, ids, mask)[real]
+            torch.cuda.synchronize()
+            launches = _launches(attention)
+            if launches != {**dict.fromkeys(KERNEL_NAMES, 0),
+                            kname: cfg.num_layers}:
+                raise AssertionError(f"force={force}: launches {launches}; "
+                                     f"want {cfg.num_layers} of {kname} only")
+            if logits.shape != ref_logits.shape or not torch.isfinite(logits).all():
+                raise AssertionError(f"force={force}: bad position-0 logits")
+            err = _rel_l2(logits, ref_logits)
+            if err > KERNEL_VS_DENSE_ERR_RATIO * dense_err:
+                raise AssertionError(
+                    f"force={force}: position-0 logits {err} from float32, "
+                    f"dense bf16 {dense_err}")
+            prefill_ms = time_ms(lambda: decoder.prefill(
+                weights, cfg, ids, mask, batch.bucket_len), iters=3, warmup=1)
+        finally:
+            decoder.attention_bsnd = routed
+        out[force] = dict(kernel=kname, launches=launches[kname],
+                          logits_rel_l2_vs_fp32=err, prefill_ms=prefill_ms)
+    out["dense_logits_rel_l2_vs_fp32"] = dense_err
+    out["bucket"] = batch.bucket_len
+    say("forced_routes", json.dumps(out))
+    return out
+
+
+def int8_phase(seed, attention, bf16_rows):
+    """The int8 product's accumulators on the card, then w8a8 scoring of the
+    slice's prompts with a bf16 and an int8 KV cache."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import convert
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.ops import quant
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
+        default_tokenizer)
+
+    device = "cuda"
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    products = []
+    for k, n in INT8_SHAPES:
+        w = quant.int8_matmul_layout(torch.randint(
+            -127, 128, (k, n), generator=gen, device=device, dtype=torch.int8))
+        for m in (64, 1):
+            x = torch.randint(-127, 128, (m, k), generator=gen, device=device,
+                              dtype=torch.int8)
+            got = quant.int8_accumulate(x, w).cpu()
+            want = quant.int8_accumulate(x.cpu(), w.cpu())
+            if got.dtype != torch.int32 or not torch.equal(got, want):
+                raise AssertionError(f"int8 accumulators differ at M={m} "
+                                     f"K={k} N={n}")
+            products.append(dict(M=m, K=k, N=n, identical=True))
+    say("int8 accumulators", json.dumps(products))
+
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
+    t0 = time.perf_counter()
+    weights = convert.random_params(cfg, seed=seed, device=device,
+                                    dtype="bf16", quant="int8")
+    torch.cuda.synchronize()
+    weight_bytes = sum(b.numel() * b.element_size() for b in weights.buffers())
+    say(f"int8: Falcon-7B w8a8 weights (seed {seed}, {weight_bytes} bytes) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    tok = default_tokenizer()
+    prompts = _prompts(seed, tok)
+    batches = list(batching.batches_for_prompts(
+        prompts, BATCH, emod.EngineConfig().buckets, pad_id=tok.pad_token_id,
+        length_sorted=True))
+    runs = {}
+    for kv in ("bf16", "int8"):
+        ecfg = emod.EngineConfig(decode_completions=False, phase2_pool=False,
+                                 batch_size=BATCH, kv_dtype=kv)
+        engine = emod.ScoringEngine("falcon", cfg, weights, tok,
+                                    engine_config=ecfg, device=device)
+        engine.score_prompts(prompts[:BATCH])          # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(attention)
+        t0 = time.perf_counter()
+        rows = engine.score_prompts(prompts)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = _launches(attention)["causal_grouped_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        _check_rows(rows)
+        yes_id, no_id = engine.target_ids(["Yes", "No"])
+        if launches < cfg.num_layers * len(batches):
+            raise AssertionError(f"int8 kv={kv}: causal kernel launched "
+                                 f"{launches} times")
+        runs[kv] = dict(rows=rows, result=dict(
+            kv_dtype=kv, rows_per_s=N_PROMPTS / elapsed, seconds=elapsed,
+            peak_memory_bytes=peak, kernel_launches=launches))
+        engine.close()
+
+    def drel(a_rows, b_rows):
+        d = np.abs([a["relative_prob"] - b["relative_prob"]
+                    for a, b in zip(a_rows, b_rows)])
+        return float(d.mean()), float(d.max())
+
+    for kv in ("bf16", "int8"):
+        mean, mx = drel(runs[kv]["rows"], bf16_rows)
+        runs[kv]["result"].update(mean_abs_delta_relative_prob_vs_bf16=mean,
+                                  max_abs_delta_relative_prob_vs_bf16=mx)
+    kv_mean, kv_max = drel(runs["int8"]["rows"], runs["bf16"]["rows"])
+    runs["int8"]["result"].update(mean_abs_delta_relative_prob_vs_w8a8=kv_mean,
+                                  max_abs_delta_relative_prob_vs_w8a8=kv_max)
+
+    # The longest batch: the w8a8 prefill and a scored look-ahead chunk from
+    # each cache, for where the time goes.  Random weights leave every row
+    # undecided, so the rows read position 0 and cannot show what the int8
+    # cache does to the look-ahead; the first look-ahead step's logits can
+    # (both caches take the same token there; later steps follow greedy
+    # tokens that near-tied random logits let diverge).
+    batch = batches[-1]
+    ids = torch.as_tensor(batch.token_ids, device=device).long()
+    mask = torch.as_tensor(batch.attention_mask, device=device)
+    prefill_ms = time_ms(lambda: decoder.prefill(
+        weights, cfg, ids, mask, batch.bucket_len), iters=3, warmup=1)
+    tgt = torch.tensor([[yes_id, no_id]] * BATCH, device=device)
+    chunk = emod.EngineConfig().scan_chunk
+    step_ms, first_step, tokens = {}, {}, {}
+    for kv in ("bf16", "int8"):
+        kcfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        last, cache = decoder.prefill(weights, kcfg, ids, mask, batch.bucket_len)
+
+        def look_ahead():
+            return decoder.decode_steps(
+                weights, kcfg, cache, last, mask.sum(-1), 0, chunk, None,
+                None, with_scores="reduced", target_ids=tgt)
+
+        toks, scores, _, _, _ = look_ahead()
+        # scores[:, 0] are the prefill's; step 1 is the first to read the cache
+        first_step[kv] = torch.cat([scores.topk_vals[:, 1],
+                                    scores.target_logits[:, 1]], dim=-1)
+        tokens[kv] = toks
+        step_ms[kv] = time_ms(look_ahead, iters=2, warmup=1) / chunk
+        del last, cache
+    result = dict(accumulators=products, weight_bytes=weight_bytes,
+                  longest_batch=dict(
+                      bucket=batch.bucket_len, prefill_ms=prefill_ms,
+                      lookahead_step_ms=step_ms,
+                      int8_kv_first_step_logits_rel_l2=_rel_l2(
+                          first_step["int8"], first_step["bf16"]),
+                      int8_kv_same_greedy_token_share=float(
+                          (tokens["int8"] == tokens["bf16"]).float().mean())),
+                  runs=[runs[kv]["result"] for kv in ("bf16", "int8")])
+    say("int8", json.dumps(result))
+    w8 = runs["bf16"]["result"]
+    if not (w8["mean_abs_delta_relative_prob_vs_bf16"] < W8A8_MEAN_DREL
+            and w8["max_abs_delta_relative_prob_vs_bf16"] < W8A8_MAX_DREL):
+        raise AssertionError(f"w8a8 rows too far from bf16: {w8}")
+    if kv_max > INT8_KV_MAX_DREL:
+        raise AssertionError(f"int8 KV rows {kv_max} from the bf16-KV rows")
     return result
 
 
@@ -311,7 +589,10 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from llm_interpretation_replication_tpu_torch.ops import _build, attention
+    from llm_interpretation_replication_tpu_torch.ops import _build
+    # the ops package re-exports a function named ``attention``
+    attention = importlib.import_module(
+        "llm_interpretation_replication_tpu_torch.ops.attention")
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -321,32 +602,42 @@ def main(argv=None):
     say(smi.splitlines()[0])
 
     t0 = time.perf_counter()
-    rec = _build.build(attention.KERNEL_SOURCE)
+    recs = _build.build_all(attention.KERNEL_SOURCES)
     say(f"build: {time.perf_counter() - t0:.2f} s")
-    for line in rec.log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"build {attention.KERNEL_SOURCE}: {line.strip()}")
+    for source, rec in recs.items():
+        say(f"build {source}: {rec.seconds:.2f} s")
+        for line in rec.log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"build {source}: {line.strip()}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     krows = kernel_phase(attention, gen)
-    sres = slice_phase(args.seed, attention)
+    sres, bf16_rows = slice_phase(args.seed, attention)
+    torch.cuda.empty_cache()
+    ires = int8_phase(args.seed, attention, bf16_rows)
 
-    main_row = next(r for r in krows if r["shape"] == "falcon-7b" and r["causal"])
-    kernels = [dict(
-        name="causal_grouped_attention", route="cuda",
-        source="llm_interpretation_replication_tpu_torch/ops/csrc/"
-               "causal_grouped_attention.cu",
-        replaces="llm_interpretation_replication_tpu/ops/attention.py:355",
-        launches=sres["kernel_launches"],
-        max_abs_err=max(r["max_abs_err"] for r in krows),
-        ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=main_row["library_ms"])]
+    launches = {"causal_grouped_attention": sres["kernel_launches"],
+                "grouped_attention": sres["forced_routes"]["grouped"]["launches"],
+                "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
+    kernels = []
+    for name, source, line, _, _ in KERNELS:
+        mine = [r for r in krows if r["kernel"] == name]
+        main_row = next(r for r in mine
+                        if r["shape"] == "falcon-7b" and r["causal"])
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"llm_interpretation_replication_tpu_torch/ops/csrc/{source}.cu",
+            replaces=f"llm_interpretation_replication_tpu/ops/attention.py:{line}",
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=main_row["library_ms"]))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, kernel_rows=krows,
-                       slice=sres, kernels=kernels), f, indent=1)
+                       slice=sres, int8=ires, kernels=kernels), f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

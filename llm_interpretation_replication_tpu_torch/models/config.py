@@ -55,7 +55,7 @@ class DecoderConfig:
     # "auto"  -- dense up to ``auto_flash_seq``, the kernel beyond it
     attention_impl: str = "xla"
     auto_flash_seq: int = 1024
-    kv_cache_dtype: str = "bf16"      # "bf16" | "int8" (int8 not ported yet)
+    kv_cache_dtype: str = "bf16"      # "bf16" | "int8" (codes + per-head scales)
 
     def __post_init__(self):
         if self.num_kv_heads is None:

@@ -16,9 +16,12 @@ leading ``L`` axis); the paths are functions on tensors that take
 
 ``lax.scan`` over layers becomes a Python loop over layer views.  Softmax and
 the final logits run in float32 whatever the weights' dtype; products run in
-the weights' dtype.  The prompt forward's attention goes through
-``ops.attention.attention_bsnd`` (the Hopper kernel on the card) when
-``DecoderConfig.use_flash_attention`` says so, else the dense path.
+the weights' dtype, or on the int8 path where a projection carries a
+``{key}_qscale`` (w8a8, ``ops.quant``).  The prompt forward's attention goes
+through ``ops.attention.attention_bsnd`` (the Hopper kernel on the card) when
+``DecoderConfig.use_flash_attention`` says so, else the dense path.  With
+``kv_cache_dtype="int8"`` the prompt cache stores int8 codes and per-head
+scales, quantized on append and dequantized at the decode attention.
 """
 
 from __future__ import annotations
@@ -40,13 +43,17 @@ class DecoderWeights(nn.Module):
 
     Each leaf of the nested param dict is a buffer named by its dotted path
     with ``__`` in place of ``.``; :meth:`tree` rebuilds the nested dict of
-    (shared, not copied) tensors the path functions take."""
+    (shared, not copied) tensors the path functions take.  int8 weights are
+    stored once in the layout the int8 product takes
+    (``quant.int8_matmul_layout``)."""
 
     def __init__(self, cfg: DecoderConfig, tree: Dict):
         super().__init__()
         self.cfg = cfg
         self._paths = []
         for path, t in _flatten(tree):
+            if t.dtype == torch.int8:
+                t = quant.int8_matmul_layout(t)
             self.register_buffer("__".join(path), t)
             self._paths.append(path)
 
@@ -244,14 +251,49 @@ def make_attention_bias(cfg: DecoderConfig, q_positions, kv_positions, kv_valid)
 class KVCache(NamedTuple):
     """Read-only K/V block for decode: per-layer prompt K/V plus the
     slot->position mapping.  Decode never writes into it; each decode chunk
-    keeps its new K/V in a small tail and folds it in once at the end."""
-    k: torch.Tensor          # [L, B, T, G, D]
+    keeps its new K/V in a small tail and folds it in once at the end.
+
+    With ``kv_cache_dtype == "int8"`` k/v hold int8 codes and
+    ``k_scale``/``v_scale`` the per-(layer, row, slot, head) fp32 scales
+    (``quant.quantize_kv``), quantized on append (prefill, the end-of-chunk
+    tail fold) and dequantized at the decode attention.  ``None`` scales
+    mean the bf16 layout."""
+    k: torch.Tensor          # [L, B, T, G, D] (compute dtype, or int8)
     v: torch.Tensor          # [L, B, T, G, D]
     positions: torch.Tensor  # [B, T] int64 absolute position of each slot
     valid: torch.Tensor      # [B, T] bool: slot holds a real token
     length: torch.Tensor     # [] int64 -- slots filled so far
-    k_scale: Optional[torch.Tensor] = None  # int8 cache only (not ported)
-    v_scale: Optional[torch.Tensor] = None
+    k_scale: Optional[torch.Tensor] = None  # [L, B, T, G] fp32 (int8 only)
+    v_scale: Optional[torch.Tensor] = None  # [L, B, T, G] fp32 (int8 only)
+
+
+def cache_kv_map(cache: KVCache, f, **replace) -> KVCache:
+    """Apply ``f`` to the cache's k/v blocks and, when quantized, their
+    scales; ``f`` acts only on the leading ``[L, B, T]`` axes the two share.
+    Other fields are set from ``replace``."""
+    return cache._replace(
+        k=f(cache.k), v=f(cache.v),
+        k_scale=None if cache.k_scale is None else f(cache.k_scale),
+        v_scale=None if cache.v_scale is None else f(cache.v_scale),
+        **replace)
+
+
+def _deq(x, scale, dtype):
+    """Cache block -> compute dtype: dequantize when per-head scales are
+    present (int8 cache), plain cast otherwise."""
+    if scale is None:
+        return x.to(dtype)
+    return quant.dequantize_kv(x, scale, dtype)
+
+
+def _quantize_append(cfg: DecoderConfig, k, v):
+    """(k, v, k_scale | None, v_scale | None) in the cache's storage layout
+    for a freshly computed K/V block."""
+    if cfg.kv_cache_dtype != "int8":
+        return k, v, None, None
+    kq, ks = quant.quantize_kv(k)
+    vq, vs = quant.quantize_kv(v)
+    return kq, vq, ks, vs
 
 
 def _rotary_dim(cfg: DecoderConfig) -> int:
@@ -415,10 +457,6 @@ def run_layers(cfg: DecoderConfig, layers, x, positions, attention_mask):
 def _trunk(params, cfg: DecoderConfig, token_ids, attention_mask,
            cache_len: Optional[int] = None):
     """Embed + blocks.  Returns (hidden [B,S,H], cache | None)."""
-    if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(
-            "int8 KV cache is not ported yet (ROADMAP.md queue 1, 'int8 "
-            "weights and KV cache')")
     b, s = token_ids.shape
     positions = _positions(attention_mask)
     x = _embed(cfg, params, token_ids, positions)
@@ -439,15 +477,20 @@ def _trunk(params, cfg: DecoderConfig, token_ids, attention_mask,
                      if use_flash else None)
     bias = (None if use_flash
             else make_attention_bias(cfg, positions, kv_positions, kv_valid))
-    ks, vs = [], []
+    # per layer (k, v, k_scale, v_scale): quantized on append, after the
+    # layer's attention read its exact K/V
+    per_layer = []
     for i in range(cfg.num_layers):
         x, (ck, cv) = _block(cfg, _layer(params["layers"], i), x, sin_cos,
                              bias, t, flash_lengths)
-        ks.append(ck)
-        vs.append(cv)
+        per_layer.append(_quantize_append(cfg, ck, cv))
+    ks, vs, kss, vss = zip(*per_layer)
+    quantized = cfg.kv_cache_dtype == "int8"
     cache = KVCache(
         k=torch.stack(ks), v=torch.stack(vs), positions=kv_positions,
         valid=kv_valid, length=attention_mask.sum(-1).max(),
+        k_scale=torch.stack(kss) if quantized else None,
+        v_scale=torch.stack(vss) if quantized else None,
     )
     return x, cache
 
@@ -507,23 +550,25 @@ def _reduce_step_scores(logits, target_ids):
     return vals, ids, logz, tgt
 
 
-def _block_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l, i):
+def _block_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l,
+                  i, ks_l=None, vs_l=None):
     """_block for one decode step: this step's K/V go into slot ``i`` of the
     layer's tail (in place); the prompt cache slice is read-only."""
     ln1_out = _norm(cfg, x, lp["ln1"])
     attn_out = _attn_decode(cfg, lp, ln1_out, sin_cos, bias_p, bias_t, kp_l,
-                            vp_l, tk_l, tv_l, i)
+                            vp_l, tk_l, tv_l, i, ks_l, vs_l)
     return _residual(cfg, lp, x, ln1_out, attn_out)
 
 
-def _attn_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l, i):
+def _attn_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l,
+                 i, ks_l=None, vs_l=None):
     q, k, v = _qkv(cfg, lp["attn"], x, sin_cos)
     # in-place write of slot i of the small tail (the reference's
     # dynamic-update-slice); the tail is this call's own buffer
     tk_l[:, i:i + 1] = k.to(tk_l.dtype)
     tv_l[:, i:i + 1] = v.to(tv_l.dtype)
     out = grouped_attention_two_block(
-        q, kp_l.to(x.dtype), vp_l.to(x.dtype), bias_p,
+        q, _deq(kp_l, ks_l, x.dtype), _deq(vp_l, vs_l, x.dtype), bias_p,
         tk_l.to(x.dtype), tv_l.to(x.dtype), bias_t)
     return _out_proj(lp["attn"], out)
 
@@ -542,12 +587,17 @@ def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
     in ``done`` (EOS seen) emit ``eos_token_id`` from then on.
 
     Returns (tokens [B, n], scores, cache with this chunk's tail folded in,
-    last_logits [B, V], done); ``scores[:, 0]`` are ``prev_logits``'s."""
+    last_logits [B, V], done); ``scores[:, 0]`` are ``prev_logits``'s.  An
+    int8 cache is read dequantized; the tail stays in the compute dtype for
+    the chunk and is quantized when it is folded in."""
     params = _tree(params)
-    if cache.k_scale is not None:
-        raise NotImplementedError(
-            "int8 KV cache is not ported yet (ROADMAP.md queue 1, 'int8 "
-            "weights and KV cache')")
+    quantized = cache.k_scale is not None
+    if quantized != (cfg.kv_cache_dtype == "int8"):
+        # folding a tail of the wrong storage into the cache would corrupt
+        # every later read
+        raise ValueError(
+            f"cache quantization ({'int8' if quantized else 'bf16'}) does "
+            f"not match cfg.kv_cache_dtype={cfg.kv_cache_dtype!r}")
     b = prev_logits.shape[0]
     n = num_steps
     dev = prev_logits.device
@@ -555,7 +605,7 @@ def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
     if with_scores == "reduced" and target_ids is None:
         raise ValueError("with_scores='reduced' needs target_ids [B, 2]")
-    cdt = cache.k.dtype
+    cdt = params["embed"]["tokens"].dtype if quantized else cache.k.dtype
     tail_shape = (cfg.num_layers, b, n, cfg.num_kv_heads, cfg.head_dim)
     tail_k = torch.zeros(tail_shape, dtype=cdt, device=dev)
     tail_v = torch.zeros(tail_shape, dtype=cdt, device=dev)
@@ -578,9 +628,11 @@ def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
                                        cdt)
         x = _embed(cfg, params, next_tok[:, None], q_pos)
         for li in range(cfg.num_layers):
-            x = _block_decode(cfg, _layer(layers, li), x, sin_cos, bias_p,
-                              bias_t, cache.k[li], cache.v[li], tail_k[li],
-                              tail_v[li], i)
+            x = _block_decode(
+                cfg, _layer(layers, li), x, sin_cos, bias_p, bias_t,
+                cache.k[li], cache.v[li], tail_k[li], tail_v[li], i,
+                cache.k_scale[li] if quantized else None,
+                cache.v_scale[li] if quantized else None)
         step_logits = _unembed(cfg, params, x)[:, 0, :]
         if eos_token_id is not None:
             done = done | (next_tok == eos_token_id)
@@ -590,6 +642,12 @@ def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
             outs.append(prev_logits)
         toks.append(next_tok)
         prev_logits = step_logits
+    # one concat per chunk folds the tail in; an int8 cache quantizes the
+    # tail here, once per generated token
+    tk_s = tv_s = None
+    if quantized:
+        tail_k, tk_s = quant.quantize_kv(tail_k)
+        tail_v, tv_s = quant.quantize_kv(tail_v)
     cache = KVCache(
         k=torch.cat([cache.k, tail_k], dim=2),
         v=torch.cat([cache.v, tail_v], dim=2),
@@ -597,6 +655,8 @@ def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
         valid=torch.cat([cache.valid, torch.ones((b, n), dtype=torch.bool,
                                                  device=dev)], dim=1),
         length=cache.length + n,
+        k_scale=torch.cat([cache.k_scale, tk_s], dim=2) if quantized else None,
+        v_scale=torch.cat([cache.v_scale, tv_s], dim=2) if quantized else None,
     )
     if with_scores == "reduced":
         scores = ReducedScores(*(torch.stack(f, dim=1) for f in zip(*outs)))

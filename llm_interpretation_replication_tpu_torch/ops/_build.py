@@ -1,7 +1,8 @@
 """Build the port's CUDA sources (``ops/csrc/*.cu``) into shared libraries.
 
 Each source is compiled on first use by ``nvcc`` for Hopper (``sm_90a``)
-into a ``.so`` with a plain C interface and loaded with :mod:`ctypes`.  The
+into a ``.so`` with a plain C interface and loaded with :mod:`ctypes`;
+:func:`build_all` compiles several at once, one ``nvcc`` each.  The
 library name carries a hash of the source and the flags, so an edited source
 is rebuilt and a stale library is never loaded.  Builds go to
 ``build/torch_kernels/`` at the root of the checkout (listed in
@@ -51,33 +52,40 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(name: str) -> BuildRecord:
-    """Build ``ops/csrc/<name>.cu`` unless it is built already.  Raises with
-    nvcc's output on failure."""
-    rec = _records.get(name)
-    if rec is not None:
-        return rec
-    out = _target(name)
-    if os.path.exists(out):
-        rec = BuildRecord(out, 0.0, "")
-    else:
+def build_all(names) -> Dict[str, BuildRecord]:
+    """Build every ``ops/csrc/<name>.cu`` of ``names`` that is not built yet:
+    one ``nvcc`` for each source, all started together, each waited for.
+    Raises with nvcc's output if any build failed."""
+    started = {}
+    for name in names:
+        if name in _records:
+            continue
+        out = _target(name)
+        if os.path.exists(out):
+            _records[name] = BuildRecord(out, 0.0, "")
+            continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started[name] = (out, tmp, time.perf_counter(), proc)
+    failed = []
+    for name, (out, tmp, t0, proc) in started.items():
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+            failed.append(f"nvcc failed for {name}:\n{log}")
+            continue
         os.replace(tmp, out)
-        rec = BuildRecord(out, time.perf_counter() - t0, proc.stdout)
-    _records[name] = rec
-    return rec
+        _records[name] = BuildRecord(out, time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _records[name] for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``ops/csrc/<name>.cu``, built if needed."""
     lib = _libs.get(name)
     if lib is None:
-        lib = _libs[name] = ctypes.CDLL(build(name).path)
+        lib = _libs[name] = ctypes.CDLL(build_all([name])[name].path)
     return lib

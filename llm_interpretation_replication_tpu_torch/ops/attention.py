@@ -1,16 +1,21 @@
-"""Prefill attention: the hand-written Hopper kernel and its plain versions.
+"""Prefill attention: the hand-written Hopper kernels and their plain versions.
 
-Port of ``llm_interpretation_replication_tpu/ops/attention.py`` for the
-slice's path:
+Port of ``llm_interpretation_replication_tpu/ops/attention.py``.  Each Pallas
+TPU kernel there has a CUDA kernel here (``csrc/``) behind a wrapper of the
+same name; on a CUDA tensor the wrapper launches its kernel or raises, on a
+CPU tensor it computes its plain version:
 
-- :func:`causal_grouped_attention` -- the wrapper of the CUDA kernel in
-  ``csrc/causal_grouped_attention.cu`` (which replaces the Pallas kernel
-  ``_causal_grouped_kernel``).  On a CUDA tensor it launches the kernel or
-  raises; on a CPU tensor it computes :func:`causal_grouped_attention_plain`.
-- :func:`causal_grouped_attention_plain` -- the same function in plain
-  PyTorch, in float32 whatever the input dtype.
-- :func:`_dense_attention` -- the reference's dense head-major path.
-- :func:`attention_bsnd` -- the layout-native dispatcher the decoder calls.
+- :func:`causal_grouped_attention` (``csrc/causal_grouped_attention.cu``,
+  replaces ``_causal_grouped_kernel``) -- the projection layout
+  ``[B, S, N, D]`` with unrepeated K/V.
+- :func:`grouped_attention` (``csrc/head_major_attention.cu``, replaces
+  ``_grouped_kernel``) -- head-major ``[B, N, S, D]`` with unrepeated K/V.
+- :func:`flash_attention` (``csrc/head_major_attention.cu``, replaces
+  ``_flash_kernel``) -- head-major with K/V repeated to N heads.
+- ``*_plain`` -- the same functions in plain PyTorch, in float32 whatever the
+  input dtype; :func:`_dense_attention` -- the reference's dense path.
+- :func:`attention` (head-major) and :func:`attention_bsnd` (projection
+  layout) -- the dispatchers.
 
 ``NEG_INF`` stays finite: fully masked rows and length-0 rows rely on it
 (their softmax is uniform, not NaN, and is then zeroed explicitly).
@@ -20,14 +25,15 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from . import _build
 
 NEG_INF = -1e9
-KERNEL_SOURCE = "causal_grouped_attention"
+GROUPED_MAX_SEQ = 2048           # attention() picks the grouped kernel up to here
+KERNEL_SOURCES = ("causal_grouped_attention", "head_major_attention")
 
 
 def _dense_attention(q, k, v, lengths, causal: bool):
@@ -66,32 +72,56 @@ def causal_grouped_attention_plain(q, k, v, lengths, causal: bool = True):
     return out.to(q.dtype)
 
 
-_lib: Optional[ctypes.CDLL] = None
+def grouped_attention_plain(q, k, v, lengths, causal: bool = True):
+    """Plain PyTorch version of :func:`grouped_attention`: q ``[B, N, S, D]``,
+    unrepeated k/v ``[B, G, S, D]`` -> ``[B, N, S, D]`` in q's dtype,
+    computed in float32 (the head-major view of
+    :func:`causal_grouped_attention_plain`)."""
+    out = causal_grouped_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lengths, causal)
+    return out.transpose(1, 2)
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = _build.load(KERNEL_SOURCE)
-        fn = lib.causal_grouped_attention_bf16
+def flash_attention_plain(q, k, v, lengths, causal: bool = True):
+    """Plain PyTorch version of :func:`flash_attention`: q and k/v all
+    ``[B, N, S, D]`` (K/V repeated to the N query heads), float32 -- the
+    grouped function with one query head per K/V head."""
+    return grouped_attention_plain(q, k, v, lengths, causal)
+
+
+_fns: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def _kernel(source: str, name: str):
+    """Entry point ``name`` of ``csrc/<source>.cu``, built on first use.
+    Every entry point takes (q, k, v, lengths, out, B, S, N, G, D, causal,
+    stream) and returns a cudaError_t."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load(source), name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib.causal_grouped_attention_bf16
+        _fns[name] = fn
+    return fn
 
 
-def _check_kernel_inputs(q, k, v, lengths):
+def _check_kernel_inputs(q, k, v, lengths, head_axis: int = 2):
+    """Raise on what the kernels do not take.  ``head_axis`` is 2 for the
+    projection layout (q ``[B,S,N,D]``, k/v ``[B,S,G,D]``) and 1 for the
+    head-major one (q ``[B,N,S,D]``, k/v ``[B,G,S,D]``)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"need q [B,S,N,D] and k/v [B,S,G,D]; got "
+        raise ValueError(f"need 4-d q and k/v of one shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, s, n, d = q.shape
-    g = k.shape[2]
-    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+    n, g, d = q.shape[head_axis], k.shape[head_axis], q.shape[3]
+    want = list(q.shape)
+    want[head_axis] = g
+    if list(k.shape) != want:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if g < 1 or n % g:
         raise ValueError(f"query heads {n} not a multiple of K/V heads {g}")
     if d % 8 or not 8 <= d <= 128:
         raise ValueError(f"head dim {d}: the kernel takes D <= 128, D % 8 == 0")
+    b = q.shape[0]
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32 [{b}]; got "
                          f"{lengths.dtype} {tuple(lengths.shape)}")
@@ -107,6 +137,26 @@ def _check_kernel_inputs(q, k, v, lengths):
         raise ValueError("lengths must be contiguous")
 
 
+def _launch(source, name, q, k, v, lengths, causal, head_axis):
+    """Check, allocate the output and launch one kernel on the current
+    stream; raise if the launch is refused."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_kernel_inputs(q, k, v, lengths, head_axis)
+    b, d = q.shape[0], q.shape[3]
+    s = q.shape[3 - head_axis]
+    n, g = q.shape[head_axis], k.shape[head_axis]
+    out = torch.empty_like(q)
+    fn = _kernel(source, name)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), b, s, n, g, d, int(bool(causal)),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    return out
+
+
 def causal_grouped_attention(q, k, v, lengths, causal: bool = True):
     """Causal (or length-only) grouped attention on the projection layout:
     q ``[B, S, N, D]``, unrepeated k/v ``[B, S, G, D]``, lengths ``[B]``
@@ -118,24 +168,84 @@ def causal_grouped_attention(q, k, v, lengths, causal: bool = True):
     :func:`causal_grouped_attention_plain`."""
     if q.device.type == "cpu":
         return causal_grouped_attention_plain(q, k, v, lengths, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    _check_kernel_inputs(q, k, v, lengths)
-    b, s, n, d = q.shape
-    out = torch.empty_like(q)
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), b, s, n, k.shape[2], d, int(bool(causal)),
-                torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"causal_grouped_attention kernel launch failed: "
-                           f"cudaError {rc}")
+    out = _launch("causal_grouped_attention", "causal_grouped_attention_bf16",
+                  q, k, v, lengths, causal, head_axis=2)
     causal_grouped_attention.launches += 1
     return out
 
 
+def grouped_attention(q, k, v, lengths, causal: bool = True):
+    """Head-major grouped attention: q ``[B, N, S, D]``, unrepeated k/v
+    ``[B, G, S, D]`` (N % G == 0), lengths ``[B]`` int32 -> ``[B, N, S, D]``.
+    Row bound = min(length, pos + 1) (causal) or length; a row whose bound
+    is 0 is zero.
+
+    On a CUDA tensor this launches ``grouped_attention_bf16`` (bf16 in and
+    out, float32 softmax, a ~16-bit P in P.V) and counts it in
+    ``grouped_attention.launches``; there is no fallback.  On a CPU tensor
+    it returns :func:`grouped_attention_plain`."""
+    if q.device.type == "cpu":
+        return grouped_attention_plain(q, k, v, lengths, causal)
+    out = _launch("head_major_attention", "grouped_attention_bf16",
+                  q, k, v, lengths, causal, head_axis=1)
+    grouped_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, lengths, causal: bool = True):
+    """Per-head attention on ``[B, N, S, D]`` with K/V already repeated to N
+    heads, lengths ``[B]`` int32 -> ``[B, N, S, D]``; mask ``col < length``
+    (and ``col <= row`` when causal), a length-0 row is zero.
+
+    On a CUDA tensor this launches ``flash_attention_bf16`` (bf16 in and
+    out, products as exact as the TPU kernel's fp32 ones up to summation
+    order and a ~16-bit P) and counts it in ``flash_attention.launches``;
+    there is no fallback.  On a CPU tensor it returns
+    :func:`flash_attention_plain`."""
+    if k.shape != q.shape:
+        raise ValueError(f"flash attention takes K/V repeated to q's shape "
+                         f"{tuple(q.shape)}; got {tuple(k.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, lengths, causal)
+    out = _launch("head_major_attention", "flash_attention_bf16",
+                  q, k, v, lengths, causal, head_axis=1)
+    flash_attention.launches += 1
+    return out
+
+
 causal_grouped_attention.launches = 0
+grouped_attention.launches = 0
+flash_attention.launches = 0
+
+
+def attention(q, k, v, lengths, causal: bool = True,
+              force: Optional[str] = None):
+    """Head-major dispatch: q ``[B, N, S, D]``, k/v ``[B, G, S, D]`` with G
+    dividing N (K/V not yet repeated) or G == N.
+
+    ``force``: ``"grouped"`` (:func:`grouped_attention`), ``"pallas"``
+    (:func:`flash_attention` on K/V repeated here) or ``"dense"``.  Default:
+    on a CUDA tensor ``"grouped"`` up to ``GROUPED_MAX_SEQ`` and ``"pallas"``
+    beyond it; elsewhere ``"dense"``, as the reference off the TPU.  An
+    unknown ``force`` raises."""
+    n, s = q.shape[1], q.shape[2]
+    backend = force
+    if backend is None:
+        if q.device.type == "cuda":
+            backend = "grouped" if s <= GROUPED_MAX_SEQ else "pallas"
+        else:
+            backend = "dense"
+    if backend not in ("grouped", "pallas", "dense"):
+        raise ValueError(f"unknown attention backend {force!r}")
+    if backend == "grouped":
+        return grouped_attention(q, k, v, lengths, causal)
+    if k.shape[1] != n:                    # grouped K/V on a non-grouped path
+        reps = n // k.shape[1]
+        k = k.repeat_interleave(reps, dim=1)
+        v = v.repeat_interleave(reps, dim=1)
+    if backend == "pallas":
+        return flash_attention(q, k, v, lengths, causal)
+    return _dense_attention(q, k, v, lengths, causal)
 
 
 def attention_bsnd(q, k, v, lengths, causal: bool = True,
@@ -143,15 +253,10 @@ def attention_bsnd(q, k, v, lengths, causal: bool = True,
     """Layout-native dispatch: q ``[B, S, N, D]``, k/v ``[B, S, G, D]``.
 
     Default (and ``force="causal"``): :func:`causal_grouped_attention` --
-    the kernel on a CUDA tensor, its plain version on a CPU tensor.
-    ``force="dense"``: head-major :func:`_dense_attention` on either
-    device."""
-    if force == "dense":
-        reps = q.shape[2] // k.shape[2]
-        kh = k.transpose(1, 2).repeat_interleave(reps, dim=1)
-        vh = v.transpose(1, 2).repeat_interleave(reps, dim=1)
-        out = _dense_attention(q.transpose(1, 2), kh, vh, lengths, causal)
-        return out.transpose(1, 2)
-    if force not in (None, "causal"):
-        raise ValueError(f"unknown attention backend {force!r}")
-    return causal_grouped_attention(q, k, v, lengths, causal)
+    the kernel on a CUDA tensor, its plain version on a CPU tensor.  Any
+    other ``force`` transposes to head-major and goes through
+    :func:`attention`."""
+    if force in (None, "causal"):
+        return causal_grouped_attention(q, k, v, lengths, causal)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return attention(qh, kh, vh, lengths, causal, force=force).transpose(1, 2)

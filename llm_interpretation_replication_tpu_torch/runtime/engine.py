@@ -34,7 +34,6 @@ from ..scoring import yes_no as yn
 from . import batching
 from . import plan as plan_mod
 
-_ITEM_INT8 = "ROADMAP.md queue 1, 'int8 weights and KV cache'"
 _ITEM_POOL = "ROADMAP.md queue 1, '_Phase2Pool and the slot ring'"
 _ITEM_FULL = "ROADMAP.md queue 1, 'The full-study legs'"
 _ITEM_KDEC = "ROADMAP.md queue 1, 'K-decode'"
@@ -52,9 +51,10 @@ class EngineConfig:
     """The reference's engine knobs, same names and defaults.  This slice
     honours the binary per-batch route: ``decode_completions=False`` and
     ``phase2_pool=False`` are required; the knobs of the paths not ported
-    yet (``kv_dtype="int8"``, ``prefill_chunk``, ``decode_k``) must keep
-    their defaults.  ``pipeline_depth`` does not change results; batches
-    run one at a time here.  ``oom_backoff`` is not honoured yet: a device
+    yet (``prefill_chunk``, ``decode_k``) must keep their defaults.
+    ``kv_dtype`` ("bf16" or "int8") sets the decoder's ``kv_cache_dtype``
+    at construction, as in the reference.  ``pipeline_depth`` does not
+    change results; batches run one at a time here.  ``oom_backoff`` is not honoured yet: a device
     out-of-memory error propagates; a non-default ``oom_batch_floor`` or
     ``oom_batch_ladder`` raises until the ladder is ported."""
     batch_size: int = 32
@@ -83,7 +83,7 @@ class EngineConfig:
     oom_batch_ladder: Sequence[int] = ()
 
 
-def _check_supported(family, cfg, ecfg: EngineConfig, params, mesh) -> None:
+def _check_supported(family, ecfg: EngineConfig, mesh) -> None:
     """Raise NotImplementedError for every setting this slice cannot honour."""
     if ecfg.kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_dtype {ecfg.kv_dtype!r}")
@@ -93,15 +93,10 @@ def _check_supported(family, cfg, ecfg: EngineConfig, params, mesh) -> None:
         (ecfg.decode_completions, "decode_completions=True", _ITEM_FULL),
         (ecfg.phase2_pool, "phase2_pool=True (with or without slot_repack)",
          _ITEM_POOL),
-        (ecfg.kv_dtype == "int8" or cfg.kv_cache_dtype == "int8",
-         "an int8 KV cache", _ITEM_INT8),
         (int(ecfg.prefill_chunk or 0) > 0, "prefill_chunk > 0", _ITEM_FULL),
         (int(ecfg.decode_k) > 1, "decode_k > 1", _ITEM_KDEC),
         (bool(ecfg.oom_batch_ladder) or ecfg.oom_batch_floor != 8,
          "an OOM batch ladder or floor", _ITEM_OOM),
-        (params is not None and any(
-            name.endswith("_qscale") for name, _ in params.named_buffers()),
-         "int8 weights", _ITEM_INT8),
     ]
     for bad, what, item in unsupported:
         if bad:
@@ -112,13 +107,18 @@ class ScoringEngine:
     """Holds (family, model config, weights, tokenizer) and scores prompts
     on ``device`` (default ``"cuda"``).  The tokenizer is any object with
     ``__call__``, ``encode``, ``decode``, ``pad_token_id`` and
-    ``eos_token_id`` (a Hugging Face tokenizer, or ``utils.tokenizer``)."""
+    ``eos_token_id`` (a Hugging Face tokenizer, or ``utils.tokenizer``).
+    Weights may be w8a8 int8 (``{key}_qscale`` beside a projection)."""
 
     def __init__(self, family, cfg, params: dmod.DecoderWeights, tokenizer,
                  mesh=None, engine_config: Optional[EngineConfig] = None,
                  device=DEFAULT_DEVICE):
         ecfg = engine_config or EngineConfig()
-        _check_supported(family, cfg, ecfg, params, mesh)
+        _check_supported(family, ecfg, mesh)
+        # the KV storage dtype lives on the decoder config: resolve the
+        # engine knob into it once, at construction
+        if ecfg.kv_dtype != "bf16" and cfg.kv_cache_dtype != ecfg.kv_dtype:
+            cfg = dataclasses.replace(cfg, kv_cache_dtype=ecfg.kv_dtype)
         self.family = family
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -222,7 +222,7 @@ class ScoringEngine:
         route), success and the first_token_{yes,no,relative}_prob fields.
         Prompts are strings or pre-tokenized id sequences."""
         self._check_open()
-        _check_supported(self.family, self.cfg, self.ecfg, self.params, self.mesh)
+        _check_supported(self.family, self.ecfg, self.mesh)
         if with_confidence:
             raise NotImplementedError(
                 f"with_confidence is not ported yet ({_ITEM_FULL})")
@@ -412,11 +412,12 @@ def _pad_slice(n: int, cap: int) -> int:
 
 
 def _gather_rows(cache: dmod.KVCache, last, lengths, idx):
-    """The look-ahead subset's rows of the prefill outputs: cache k/v are
-    [L, B, T, G, D] (batch axis 1); everything else is batch-leading."""
-    sub = cache._replace(k=cache.k[:, idx], v=cache.v[:, idx],
-                         positions=cache.positions[idx],
-                         valid=cache.valid[idx])
+    """The look-ahead subset's rows of the prefill outputs: cache k/v (and
+    an int8 cache's scales) are [L, B, T, ...] (batch axis 1); everything
+    else is batch-leading."""
+    sub = dmod.cache_kv_map(cache, lambda t: t[:, idx],
+                            positions=cache.positions[idx],
+                            valid=cache.valid[idx])
     return sub, last[idx], lengths[idx]
 
 

@@ -14,9 +14,9 @@ import torch
 
 import jax.numpy as jnp
 
-from llm_interpretation_replication_tpu_torch.ops import attention as tattn
-
-# the reference's ops package re-exports a function named ``attention``
+# both ops packages re-export a function named ``attention``
+tattn = importlib.import_module(
+    "llm_interpretation_replication_tpu_torch.ops.attention")
 jattn = importlib.import_module("llm_interpretation_replication_tpu.ops.attention")
 
 ATOL, RTOL = 2e-5, 1e-4

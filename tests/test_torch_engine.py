@@ -18,6 +18,7 @@ import jax
 
 from helpers import build_test_tokenizer, random_decoder_params
 from llm_interpretation_replication_tpu.models import config as jconfig
+from llm_interpretation_replication_tpu.ops import quant as jquant
 from llm_interpretation_replication_tpu.runtime import engine as jengine
 from llm_interpretation_replication_tpu_torch.models import config as tconfig
 from llm_interpretation_replication_tpu_torch.models import convert
@@ -44,15 +45,18 @@ def setup():
     return tok
 
 
-def _engines(tok, impl, **ecfg):
+def _engines(tok, impl, w8a8=False, **ecfg):
     jcfg = jconfig.DecoderConfig(**{**jconfig.FLAGSHIP_SMALL_GEOMETRY,
                                     "attention_impl": impl})
     tcfg = tconfig.DecoderConfig(**{**tconfig.FLAGSHIP_SMALL_GEOMETRY,
                                     "attention_impl": impl})
-    params = random_decoder_params(jcfg, seed=5)
-    weights = convert.params_from_jax(
-        jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu",
-        dtype="fp32")
+    params_np = jax.tree_util.tree_map(np.asarray,
+                                       random_decoder_params(jcfg, seed=5))
+    if w8a8:
+        params_np = jquant.quantize_decoder_params_np(params_np)
+    params = jax.tree_util.tree_map(jax.numpy.asarray, params_np)
+    weights = convert.params_from_jax(params_np, tcfg, device="cpu",
+                                      dtype="fp32")
     kw = {**ENGINE_KW, **ecfg}
     jeng = jengine.ScoringEngine("falcon", jcfg, params, tok,
                                  engine_config=jengine.EngineConfig(**kw))
@@ -97,6 +101,43 @@ def test_engine_rows_match_reference(setup, monkeypatch, impl, ecfg):
         assert not gathered
 
 
+# w8a8 rows: PARITY.md's fp32 class (rtol 2e-5) does not hold at any seed
+# tried (3 to 6).  The two packages' float32 LayerNorm, GELU and softmax
+# differ in the last bit, so an activation within that bit of a rounding
+# boundary takes neighbouring int8 codes ("a flip"; tests/test_torch_decoder.py
+# says how it spreads).  Measured on these prompts: probabilities up to 1.45e-3
+# apart, 5.8e-3 relative.  Scan verdicts stay identical; the probability
+# fields are held to rtol 2e-2 (~3x the measured gap).
+W8A8_RTOL = 2e-2
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("ecfg", [
+    dict(batch_size=4),
+    dict(batch_size=16, top_k=600, length_sorted_batches=False),
+])
+def test_engine_w8a8_rows_match_reference(setup, monkeypatch, kv, ecfg):
+    """w8a8 weights with a bf16 or an int8 KV cache: ``kv_dtype`` lands on
+    the decoder config and the look-ahead decodes from a cache of that
+    storage, as in the reference engine."""
+    tok = setup
+    jeng, teng = _engines(tok, "flash", w8a8=True, kv_dtype=kv, **ecfg)
+    assert teng.cfg.kv_cache_dtype == jeng.cfg.kv_cache_dtype == kv
+    seen = []
+    real_decode = tengine.dmod.decode_steps
+    monkeypatch.setattr(tengine.dmod, "decode_steps", lambda p, c, cache, *a, **k:
+                        seen.append(cache.k.dtype) or real_decode(p, c, cache, *a, **k))
+    ref = jeng.score_prompts(list(PROMPTS))
+    got = teng.score_prompts(list(PROMPTS))
+    assert seen and set(seen) == {torch.int8 if kv == "int8" else torch.float32}
+    assert [g["scan_found"] for g in got] == [r["scan_found"] for r in ref]
+    for g, r in zip(got, ref):
+        assert g["success"] and r["success"]
+        for f in PROB_FIELDS:
+            np.testing.assert_allclose(g[f], r[f], rtol=W8A8_RTOL, atol=ATOL,
+                                       err_msg=f)
+
+
 def test_engine_per_prompt_targets_and_tokenized_prompts(setup):
     """Per-prompt (yes, no) pairs and pre-tokenized prompts, as the sweep
     shells pass them."""
@@ -112,7 +153,8 @@ def test_engine_per_prompt_targets_and_tokenized_prompts(setup):
     dict(decode_completions=True),
     dict(phase2_pool=True),
     dict(phase2_pool=True, slot_repack=False),
-    dict(kv_dtype="int8"),
+    # an int8 KV cache is ported; with the pool it still needs the pool
+    dict(kv_dtype="int8", phase2_pool=True),
     dict(prefill_chunk=32),
     dict(decode_k=2),
     dict(oom_batch_ladder=(16, 8)),
@@ -136,7 +178,7 @@ def test_unsupported_engine_settings_raise(setup, override):
 
 
 @pytest.mark.parametrize("case", ["confidence", "prefix_pairs", "mesh",
-                                  "t5", "int8_weights"])
+                                  "t5"])
 def test_unsupported_calls_raise(setup, case):
     tok = setup
     tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
@@ -148,9 +190,6 @@ def test_unsupported_calls_raise(setup, case):
             tengine.ScoringEngine("falcon", tcfg, weights, tok, mesh=object(), **kw)
         elif case == "t5":
             tengine.ScoringEngine("t5", tcfg, weights, tok, **kw)
-        elif case == "int8_weights":
-            weights.register_buffer("layers__attn__wq_qscale", torch.ones(4, 256))
-            tengine.ScoringEngine("falcon", tcfg, weights, tok, **kw)
         else:
             eng = tengine.ScoringEngine("falcon", tcfg, weights, tok, **kw)
             if case == "confidence":

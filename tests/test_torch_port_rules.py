@@ -34,23 +34,75 @@ def _port_sources():
     return sorted(out)
 
 
+def _forbidden_imports(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [(os.path.relpath(path, ROOT), n) for n in names
+                if n.split(".")[0] in FORBIDDEN]
+    return bad
+
+
 def test_port_imports_nothing_of_jax():
     sources = _port_sources()
     assert len(sources) > 10
     bad = []
     for path in sources:
-        with open(path, encoding="utf-8") as f:
-            tree = ast.parse(f.read(), path)
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            bad += [(os.path.relpath(path, ROOT), n) for n in names
-                    if n.split(".")[0] in FORBIDDEN]
+        bad += _forbidden_imports(path)
     assert not bad, bad
+
+
+@pytest.mark.parametrize("rel", [
+    "chip_smoke.py",
+    "llm_interpretation_replication_tpu_torch/ops/__init__.py",
+    "llm_interpretation_replication_tpu_torch/ops/_build.py",
+    "llm_interpretation_replication_tpu_torch/ops/attention.py",
+    "llm_interpretation_replication_tpu_torch/ops/quant.py",
+    "llm_interpretation_replication_tpu_torch/models/convert.py",
+    "llm_interpretation_replication_tpu_torch/models/decoder.py",
+    "llm_interpretation_replication_tpu_torch/runtime/engine.py",
+])
+def test_slice_modules_are_guarded(rel):
+    """The modules the head-major kernels and the int8 path live in are
+    among the guarded sources and import nothing of JAX."""
+    path = os.path.join(ROOT, rel)
+    assert path in _port_sources()
+    assert not _forbidden_imports(path)
+
+
+def test_ops_api_matches_reference():
+    """The port's ops package exports the reference's attention and int8
+    names (its MoE ops come with a later slice)."""
+    import llm_interpretation_replication_tpu.ops as jops
+    import llm_interpretation_replication_tpu_torch.ops as tops
+
+    assert set(tops.__all__) == set(jops.__all__) - {
+        "init_moe_params", "moe_mlp_dense", "moe_mlp_sharded"}
+    for name in tops.__all__:
+        assert callable(getattr(tops, name))
+
+
+@pytest.mark.parametrize("source,tpu_kernel", [
+    ("causal_grouped_attention", "_causal_grouped_kernel"),
+    ("head_major_attention", "_grouped_kernel"),
+    ("head_major_attention", "_flash_kernel"),
+])
+def test_every_tpu_kernel_has_a_cuda_source(source, tpu_kernel):
+    """Each function of the reference that reaches ``pl.pallas_call`` has a
+    CUDA source in the port that names it as the kernel it replaces."""
+    with open(os.path.join(ROOT, "llm_interpretation_replication_tpu", "ops",
+                           "attention.py"), encoding="utf-8") as f:
+        assert f"def {tpu_kernel}(" in f.read()
+    with open(os.path.join(PORT, "ops", "csrc", source + ".cu"),
+              encoding="utf-8") as f:
+        assert f"`{tpu_kernel}`" in f.read()
 
 
 def test_copied_config_matches_reference():
