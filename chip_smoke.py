@@ -8,24 +8,35 @@ line is printed):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
-   started together) and print each kernel's ptxas register and spill lines;
+   started together) and print, for each kernel template instance, its
+   ptxas registers, spills and shared memory;
 3. kernels: hold each kernel (causal grouped, head-major grouped, head-major
    flash) against its plain PyTorch version (float32 from the same bf16
-   inputs) at the shapes the main paths give it, and time it (CUDA events)
-   beside its plain version, its bound and one PyTorch library call
-   computing the same function;
-4. slice: Falcon-7B at its published width and depth, bf16, random weights
+   inputs) at the shapes the main paths give it, and time it beside its
+   plain version, its bound and one PyTorch library call computing the same
+   function.  The kernel and the library call are timed as a CUDA graph of
+   20 calls, replayed after warm-up, between CUDA events (device time
+   only); the wrapper's host cost per call is a column of its own; the
+   plain version is timed call after call between CUDA events.  This phase
+   draws first from the seeded generator, so its q, k and lengths are those
+   of earlier runs of the script, and its v theirs up to the clamp;
+4. edge: the two kernels on ``attention_tile.cuh`` (causal grouped and
+   flash) against their plain versions, causal and not, at the shapes where
+   a pipelined tile loop goes wrong: S in {1, 63, 64, 65, 127, 129} x D in
+   {64, 96, 128} x (N, G) in {(71, 1), (8, 2), (4, 4)} with a full, a
+   length-1, a length-0 and a mid-tile row, and S=4097 (B=1, (4, 4));
+5. slice: Falcon-7B at its published width and depth, bf16, random weights
    from ``--seed``, scores 96 pre-tokenized prompts of 100-440 tokens in
    batches of 32 through ``ScoringEngine.score_prompts`` with the causal
    kernel carrying every prefill; the launch counters must show the kernel
    ran, the same prompts go through the dense path, and the position-0
    logits of both are held against a float32 reference of the same weights;
-5. forced routes: the slice's longest batch through
+6. forced routes: the slice's longest batch through
    ``decoder.forward_last_logits`` with every layer's attention forced
    through ``attention_bsnd(force="grouped")`` and then ``force="pallas"``
    (each kernel must launch once a layer), held against the same float32
    reference, and each route's prefill timed;
-6. int8: the int8 product's int32 accumulators on the card against a CPU
+7. int8: the int8 product's int32 accumulators on the card against a CPU
    int32 product at Falcon-7B's projection shapes; then the slice's prompts
    scored with w8a8 int8 weights (quantized as they are made), once with a
    bf16 and once with an int8 KV cache, held against the bf16 rows.
@@ -42,11 +53,13 @@ import functools
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 ERR_TOL = 1e-2            # kernel vs plain, bf16 output of unit-normal inputs
+V_CLAMP = 3.5             # |v| bound, so outputs stay where bf16 rounds < ERR_TOL
 # position-0 logits: the kernel path's relative L2 distance from a float32
 # reference may exceed the dense bf16 path's by at most this factor
 KERNEL_VS_DENSE_ERR_RATIO = 1.25
@@ -84,6 +97,17 @@ KERNELS = [
      HEAD_MAJOR_SHAPES + FLASH_ONLY_SHAPES, "bnsd"),
 ]
 KERNEL_NAMES = [k[0] for k in KERNELS]
+LAYOUTS = {k[0]: k[4] for k in KERNELS}
+# the kernels on ops/csrc/attention_tile.cuh, and the edge phase's shapes
+TILE_KERNELS = ("causal_grouped_attention", "flash_attention")
+EDGE_SEQS = (1, 63, 64, 65, 127, 129)
+EDGE_DIMS = (64, 96, 128)
+EDGE_HEADS = ((71, 1), (8, 2), (4, 4))
+EDGE_BATCH = 4
+# S=4097 with one batch row and 4 heads only: the float32 plain version's
+# scores at 71 heads would take ~5 GB
+EDGE_LONG = (1, 4097, 4, 4)               # (B, S, N, G)
+GRAPH_CALLS = 20
 
 
 def say(*parts):
@@ -105,6 +129,156 @@ def time_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls=GRAPH_CALLS, replays=5):
+    """Mean device time of one call of ``fn``: ``calls`` calls captured in
+    a CUDA graph, replayed once to warm up and then ``replays`` times
+    between CUDA events, so no host cost of the call is in the number."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up outside the capture
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_us(fn, calls=GRAPH_CALLS):
+    """Host microseconds one call of ``fn`` takes to return (checks,
+    allocation, launch), the device left to run behind it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
+
+
+def ptxas_instances(log):
+    """One dict per kernel template instance in ``nvcc -Xptxas -v`` output:
+    its mangled name, registers, spill bytes and static shared memory."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(function=m.group(1))
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m.group(1)),
+                       static_smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
+def build_phase(_build, attention):
+    """Build every source (one nvcc each, all at once) and print each
+    kernel instance's registers, spills and shared memory (the tile
+    kernels' dynamic shared memory as their launch requests it)."""
+    t0 = time.perf_counter()
+    recs = _build.build_all(attention.KERNEL_SOURCES)
+    say(f"build: {time.perf_counter() - t0:.2f} s")
+    instances = []
+    for source, rec in recs.items():
+        say(f"build {source}: {rec.seconds:.2f} s")
+        smem_bytes = _build.load(source).attention_tile_smem_bytes
+        for inst in ptxas_instances(rec.log):
+            m = re.search(r"tile_kernelILi(\d+)E", inst["function"])
+            inst.update(source=source,
+                        dynamic_smem=smem_bytes(int(m.group(1))) if m else 0)
+            instances.append(inst)
+            say("build", json.dumps(inst))
+    if not instances:
+        raise AssertionError("no ptxas output for any kernel")
+    return dict(seconds={s: r.seconds for s, r in recs.items()},
+                instances=instances)
+
+
+def _check_output(what, out, ref, lengths, valid=None):
+    """Raise unless ``out`` is finite, zero on length-0 rows and within
+    ERR_TOL of ``ref`` (on the ``valid`` rows when given); return the max
+    abs error."""
+    import torch
+
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: non-finite output")
+    zero_rows = out[lengths == 0]
+    if zero_rows.numel() and bool((zero_rows != 0).any()):
+        raise AssertionError(f"{what}: length-0 rows are not zero")
+    diff = (out.float() - ref).abs()
+    if valid is not None:
+        diff = diff * valid
+    err = float(diff.max())
+    if err > ERR_TOL:
+        raise AssertionError(f"{what}: max abs err {err} > {ERR_TOL}")
+    return err
+
+
+def edge_phase(attention, gen):
+    """The tile-core kernels against their plain versions, causal and not,
+    on every edge shape and on all rows; returns one row per case."""
+    import torch
+
+    cases = [(EDGE_BATCH, s, n, g, d) for s in EDGE_SEQS for d in EDGE_DIMS
+             for n, g in EDGE_HEADS]
+    cases += [(*EDGE_LONG, d) for d in EDGE_DIMS]
+    rows = []
+    for kname in TILE_KERNELS:
+        fn = getattr(attention, kname)
+        plain = getattr(attention, kname + "_plain")
+        for b, s, n, g, d in cases:
+            q, k, v, _ = _inputs(gen, b, s, n, g, d, LAYOUTS[kname])
+            # a full row, a length-1, a length-0 and a mid-tile row
+            lengths = torch.tensor([s, 1, 0, s - s // 3][:b], device=q.device,
+                                   dtype=torch.int32)
+            if kname == "flash_attention":       # the dispatcher's repeat
+                k = k.repeat_interleave(n // g, dim=1)
+                v = v.repeat_interleave(n // g, dim=1)
+            for causal in (True, False):
+                out = fn(q, k, v, lengths, causal)
+                torch.cuda.synchronize()
+                ref = plain(q.float(), k.float(), v.float(), lengths, causal)
+                err = _check_output(f"edge {kname} B={b} S={s} N={n} G={g} "
+                                    f"D={d} causal={causal}", out, ref, lengths)
+                rows.append(dict(kernel=kname, B=b, S=s, N=n, G=g, D=d,
+                                 causal=causal, max_abs_err=err))
+                del out, ref
+        worst = max((r for r in rows if r["kernel"] == kname),
+                    key=lambda r: r["max_abs_err"])
+        say("edge", json.dumps(dict(kernel=kname, cases=2 * len(cases),
+                                    worst=worst)))
+    torch.cuda.empty_cache()
+    return rows
 
 
 def attention_bound_ms(b, s, n, g, d, lengths, causal):
@@ -129,7 +303,12 @@ def attention_bound_ms(b, s, n, g, d, lengths, causal):
 
 def _inputs(gen, b, s, n, g, d, layout):
     """bf16 unit-normal q, k, v in ``layout`` ("bsnd" or "bnsd") and ragged
-    int32 lengths with a full row, a length-1 row and a length-0 row."""
+    int32 lengths with a full row, a length-1 row and a length-0 row.
+
+    v is clamped to +-V_CLAMP: every output is a convex combination of V
+    rows, so it stays below 4, where rounding to bf16 costs at most 0.0078
+    and ERR_TOL leaves room for the kernel's own error (at |out| >= 4 the
+    rounding alone reaches 0.0156)."""
     import torch
 
     dev = torch.device("cuda")
@@ -137,7 +316,8 @@ def _inputs(gen, b, s, n, g, d, layout):
         ((b, n, s, d), (b, g, s, d))
     q = torch.randn(qs, generator=gen, device=dev).bfloat16()
     k = torch.randn(ks, generator=gen, device=dev).bfloat16()
-    v = torch.randn(ks, generator=gen, device=dev).bfloat16()
+    v = torch.randn(ks, generator=gen, device=dev).clamp(
+        -V_CLAMP, V_CLAMP).bfloat16()
     lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
                             dtype=torch.int32)
     lengths[0] = s
@@ -167,43 +347,39 @@ def kernel_phase(attention, gen):
             qh, kh, vh = (q, k, v) if layout == "bnsd" else \
                 (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
             pos = torch.arange(s, device=q.device)
+            valid = None
+            if layout == "bsnd":
+                valid = (pos[None, :] < lengths[:, None])[:, :, None, None]
             for causal in (True, False):
                 out = fn(q, k, v, lengths, causal)
                 torch.cuda.synchronize()
                 ref = plain(q.float(), k.float(), v.float(), lengths, causal)
-                diff = (out.float() - ref).abs()
-                if layout == "bsnd":
-                    valid = pos[None, :] < lengths[:, None]
-                    diff = diff * valid[:, :, None, None]
-                err = float(diff.max())
-                zero_rows = out[lengths == 0]
-                if not torch.isfinite(out).all():
-                    raise AssertionError(f"{kname} {label}: non-finite output")
-                if zero_rows.numel() and bool((zero_rows != 0).any()):
-                    raise AssertionError(f"{kname} {label}: length-0 rows "
-                                         f"are not zero")
-                if err > ERR_TOL:
-                    raise AssertionError(f"{kname} {label} causal={causal}: "
-                                         f"max abs err {err} > {ERR_TOL}")
-                ms = time_ms(lambda: fn(q, k, v, lengths, causal), iters=50)
+                err = _check_output(f"{kname} {label} causal={causal}", out,
+                                    ref, lengths, valid)
+                del out, ref
+
+                def call():
+                    return fn(q, k, v, lengths, causal)
+
+                ms = graph_ms(call)
+                wrapper_us = host_us(call)
                 plain_ms = time_ms(lambda: plain(q, k, v, lengths, causal),
                                    iters=3, warmup=1)
                 # yardstick only: one PyTorch call computing the same function
                 bound = torch.minimum(lengths[:, None].long(), pos[None, :] + 1) \
                     if causal else lengths[:, None].long().expand(b, s)
                 mask = (pos[None, None, :] < bound[:, :, None])[:, None]
-                library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask, enable_gqa=kv_heads != n),
-                    iters=10)
+                library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, enable_gqa=kv_heads != n))
                 bound_ms, bound_by = attention_bound_ms(
                     b, s, n, kv_heads, d, lengths.tolist(), causal)
                 row = dict(kernel=kname, shape=label, B=b, S=s, N=n, G=g, D=d,
                            causal=causal, max_abs_err=err, ms=ms,
-                           plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                           host_us=wrapper_us, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, x_bound=ms / bound_ms)
                 rows.append(row)
                 say("kernel", json.dumps(row))
-                del out, ref, diff
             del q, k, v, qh, kh, vh
             torch.cuda.empty_cache()
     return rows
@@ -601,18 +777,11 @@ def main(argv=None):
     say(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     say(smi.splitlines()[0])
 
-    t0 = time.perf_counter()
-    recs = _build.build_all(attention.KERNEL_SOURCES)
-    say(f"build: {time.perf_counter() - t0:.2f} s")
-    for source, rec in recs.items():
-        say(f"build {source}: {rec.seconds:.2f} s")
-        for line in rec.log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"build {source}: {line.strip()}")
-
+    build = build_phase(_build, attention)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     krows = kernel_phase(attention, gen)
+    erows = edge_phase(attention, gen)
     sres, bf16_rows = slice_phase(args.seed, attention)
     torch.cuda.empty_cache()
     ires = int8_phase(args.seed, attention, bf16_rows)
@@ -622,9 +791,9 @@ def main(argv=None):
                 "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
     kernels = []
     for name, source, line, _, _ in KERNELS:
-        mine = [r for r in krows if r["kernel"] == name]
+        mine = [r for r in krows + erows if r["kernel"] == name]
         main_row = next(r for r in mine
-                        if r["shape"] == "falcon-7b" and r["causal"])
+                        if r.get("shape") == "falcon-7b" and r["causal"])
         kernels.append(dict(
             name=name, route="cuda",
             source=f"llm_interpretation_replication_tpu_torch/ops/csrc/{source}.cu",
@@ -636,8 +805,9 @@ def main(argv=None):
             library_ms=main_row["library_ms"]))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(device=kind, nvidia_smi=smi, kernel_rows=krows,
-                       slice=sres, int8=ires, kernels=kernels), f, indent=1)
+        json.dump(dict(device=kind, nvidia_smi=smi, build=build,
+                       edge_rows=erows, kernel_rows=krows, slice=sres,
+                       int8=ires, kernels=kernels), f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -3,8 +3,10 @@
 Each source is compiled on first use by ``nvcc`` for Hopper (``sm_90a``)
 into a ``.so`` with a plain C interface and loaded with :mod:`ctypes`;
 :func:`build_all` compiles several at once, one ``nvcc`` each.  The
-library name carries a hash of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded.  Builds go to
+library name carries a hash of the source, of every ``csrc/*.cuh`` header
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.  ``nvcc`` finds a header beside the source that
+includes it.  Builds go to
 ``build/torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``).  Nothing here runs at import time.
 """
@@ -47,8 +49,14 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library path for ``csrc/<name>.cu``: its name hashes the source,
+    every header of ``csrc/`` (a source may include any of them) and the
+    flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

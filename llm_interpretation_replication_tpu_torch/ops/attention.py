@@ -17,6 +17,10 @@ CPU tensor it computes its plain version:
 - :func:`attention` (head-major) and :func:`attention_bsnd` (projection
   layout) -- the dispatchers.
 
+The causal and flash kernels run one Hopper tile core,
+``csrc/attention_tile.cuh`` (an asynchronous K/V ring, ``wgmma`` for both
+products); the grouped kernel is its own ``mma.sync`` loop.
+
 ``NEG_INF`` stays finite: fully masked rows and length-0 rows rely on it
 (their softmax is uniform, not NaN, and is then zeroed explicitly).
 """
@@ -162,9 +166,11 @@ def causal_grouped_attention(q, k, v, lengths, causal: bool = True):
     q ``[B, S, N, D]``, unrepeated k/v ``[B, S, G, D]``, lengths ``[B]``
     int32 -> ``[B, S, N, D]``.
 
-    On a CUDA tensor this launches the Hopper kernel (bf16 in, bf16 out,
-    float32 softmax) and counts the launch in ``causal_grouped_attention.
-    launches``; there is no fallback.  On a CPU tensor it returns
+    On a CUDA tensor this launches the Hopper kernel on
+    ``csrc/attention_tile.cuh`` (bf16 in and out, ``wgmma`` products with
+    float32 accumulation, float32 softmax, a ~16-bit P in P.V) and counts
+    the launch in ``causal_grouped_attention.launches``; there is no
+    fallback.  On a CPU tensor it returns
     :func:`causal_grouped_attention_plain`."""
     if q.device.type == "cpu":
         return causal_grouped_attention_plain(q, k, v, lengths, causal)
@@ -197,10 +203,11 @@ def flash_attention(q, k, v, lengths, causal: bool = True):
     heads, lengths ``[B]`` int32 -> ``[B, N, S, D]``; mask ``col < length``
     (and ``col <= row`` when causal), a length-0 row is zero.
 
-    On a CUDA tensor this launches ``flash_attention_bf16`` (bf16 in and
-    out, products as exact as the TPU kernel's fp32 ones up to summation
-    order and a ~16-bit P) and counts it in ``flash_attention.launches``;
-    there is no fallback.  On a CPU tensor it returns
+    On a CUDA tensor this launches ``flash_attention_bf16``, the tile core
+    of ``csrc/attention_tile.cuh`` on head-major rows (bf16 in and out,
+    products as exact as the TPU kernel's fp32 ones up to summation order
+    and a ~16-bit P), and counts it in ``flash_attention.launches``; there
+    is no fallback.  On a CPU tensor it returns
     :func:`flash_attention_plain`."""
     if k.shape != q.shape:
         raise ValueError(f"flash attention takes K/V repeated to q's shape "

@@ -6,6 +6,11 @@
 //   grouped_attention_bf16  <- `_grouped_kernel` (behind `grouped_attention`)
 //   flash_attention_bf16    <- `_flash_kernel`   (behind `flash_attention`)
 //
+// The flash entry runs attention_tile.cuh's main loop (asynchronous K/V
+// ring, wgmma, 16-byte Q/O staging, heaviest blocks first) on head-major
+// rows: a block is 128 positions of one head.  The grouped entry runs
+// `head_major_kernel` below, the design described next.
+//
 // Both compute
 //
 //   q [B, N, S, D], k/v [B, G, S, D] with N % G == 0, lengths [B] int32
@@ -33,7 +38,7 @@
 // version on the card, so the grouped entry keeps the split too.
 // The TPU's grouped kernel holds a whole [rows, S] fp32 score block in VMEM
 // and softmaxes it in one pass; a Hopper block cannot hold that at S = 2048,
-// so both entries use an online softmax over 64-key tiles.
+// so both entries use an online softmax over key tiles.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at the Falcon-7B
 // prefill shape (B=32, S=448, N=71, G=1, D=64) q and out are 130 MB each and
@@ -44,13 +49,13 @@
 // registers, and stages each K/V tile once in shared memory for all the
 // query rows that share it.
 //
-// Design (the layout of causal_grouped_attention.cu, on head-major tensors).
+// Design of `head_major_kernel` (the grouped entry).
 // - One block per (batch, K/V group, tile of 128 consecutive (position, head)
 //   rows of that group, position-major).  For Falcon's 71 heads on one K/V
 //   head a tile is ~1.8 positions x all heads, so the causal bounds of a
 //   block's rows are nearly equal and the block skips the same key tiles
-//   everywhere; with G == N (flash) a tile is 128 positions of one head.
-//   Each row of q/out is D contiguous values, read and written once.
+//   everywhere.  Each row of q/out is D contiguous values, read and written
+//   once.
 // - Eight warps, 16 rows each; Q.K and P.V on the tensor cores with
 //   mma.sync m16n8k16 (bf16 operands, fp32 accumulators); the score fragment
 //   is re-used in registers as the A operand of P.V; m, l and the output
@@ -66,6 +71,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_tile.cuh"
 
 namespace {
 
@@ -354,5 +361,6 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     void* out, int B, int S, int N, int G,
                                     int D, int causal, void* stream) {
   if (G != N) return (int)cudaErrorInvalidValue;
-  return launch(q, k, v, lengths, out, B, S, N, G, D, causal, stream);
+  return attn_tile::launch<attn_tile::BnsdRows>(q, k, v, lengths, out, B, S,
+                                                N, G, D, causal, stream);
 }

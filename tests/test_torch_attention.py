@@ -3,7 +3,8 @@
 The port's ``causal_grouped_attention`` on a CPU tensor is its plain
 version; the reference runs its Pallas kernel in interpret mode.  Inputs are
 float32 from a numpy seed.  Tolerance: atol 2e-5, rtol 1e-4 (the reference's
-own kernel-vs-dense tolerance, tests/test_ops.py), on the valid rows.
+own kernel-vs-dense tolerance, tests/test_ops.py), on the valid rows (on
+all rows for the edge shapes).
 """
 
 import importlib
@@ -56,6 +57,38 @@ def test_causal_grouped_matches_reference_kernel(causal, n_heads, n_kv):
     for force in (None, "causal", "dense"):
         got = _port(q, k, v, lengths, causal, force)
         np.testing.assert_allclose(got * valid, ref * valid, atol=ATOL, rtol=RTOL)
+
+
+# chip_smoke.py's edge shapes: S around the 64-key tile, each with one of the
+# head dims that the kernel pads to 64 or 128
+EDGE_SD = [(1, 64), (63, 96), (64, 128), (65, 64), (127, 96), (129, 128)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n,g", [(71, 1), (8, 2), (4, 4)])
+@pytest.mark.parametrize("s,d", EDGE_SD)
+def test_causal_grouped_edges_match_reference(s, d, n, g, causal):
+    """Lengths [S, 1, 0, mid-tile], on ALL rows: against the interpret-mode
+    kernel where its wrapper takes the S (``pick_block_pos`` needs a
+    position block with ``bp * heads_per_group % 8 == 0``), elsewhere
+    against the reference's dense path."""
+    b = 4
+    q, k, v = _inputs(30 + s, b, s, n, g, d)
+    lengths = np.array([s, 1, 0, s - s // 3], np.int32)
+    if jattn.pick_block_pos(s, n // g) is not None:
+        ref = np.asarray(jattn.causal_grouped_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), lengths,
+            causal=causal, interpret=True))
+    else:
+        tr = (0, 2, 1, 3)
+        kh, vh = (np.repeat(t.transpose(tr), n // g, axis=1) for t in (k, v))
+        ref = np.asarray(jattn._dense_attention(
+            jnp.asarray(q.transpose(tr)), jnp.asarray(kh), jnp.asarray(vh),
+            jnp.asarray(lengths), causal)).transpose(tr)
+    got = tattn.causal_grouped_attention(
+        *(torch.from_numpy(a) for a in (q, k, v, lengths)), causal).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+    np.testing.assert_array_equal(got[2], 0.0)
 
 
 def test_causal_grouped_padded_seq_and_zero_rows():

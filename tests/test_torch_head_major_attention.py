@@ -82,6 +82,28 @@ def test_flash_matches_reference_kernel(n, g, s, causal):
     _check(got, ref, lengths)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n,g", [(71, 1), (8, 2), (4, 4)])
+@pytest.mark.parametrize("s,d", [(1, 64), (63, 96), (64, 128), (65, 64),
+                                 (127, 96), (129, 128)])
+def test_flash_edges_match_reference(s, d, n, g, causal):
+    """chip_smoke.py's edge shapes (S around the 64-key tile, D padded to 64
+    or 128) with lengths [S, 1, 0, mid-tile]: against the interpret-mode
+    kernel where its wrapper takes the S (``pick_block`` needs S % 8 == 0),
+    elsewhere against the reference's dense path."""
+    q, k, v, _ = _inputs(40 + s, 4, n, g, s, d)
+    lengths = np.array([s, 1, 0, s - s // 3], np.int32)
+    k, v = (np.repeat(t, n // g, axis=1) for t in (k, v))
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    if jattn.pick_block(s, jattn.DEFAULT_BLOCK_Q) is not None:
+        ref = jattn.flash_attention(*args, lengths, causal=causal,
+                                    interpret=True)
+    else:
+        ref = jattn._dense_attention(*args, jnp.asarray(lengths), causal)
+    got = tattn.flash_attention(*_t(q, k, v, lengths), causal)
+    _check(got, ref, lengths)
+
+
 @pytest.mark.parametrize("force", [None, "grouped", "pallas", "dense"])
 def test_attention_dispatch_matches_reference(force):
     """The head-major dispatcher on every route with grouped K/V (the

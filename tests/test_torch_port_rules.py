@@ -27,7 +27,8 @@ FORBIDDEN = {"jax", "jaxlib", "llm_interpretation_replication_tpu",
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "scripts", "profile_torch_slice.py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
         out += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
@@ -61,6 +62,7 @@ def test_port_imports_nothing_of_jax():
 
 @pytest.mark.parametrize("rel", [
     "chip_smoke.py",
+    "scripts/profile_torch_slice.py",
     "llm_interpretation_replication_tpu_torch/ops/__init__.py",
     "llm_interpretation_replication_tpu_torch/ops/_build.py",
     "llm_interpretation_replication_tpu_torch/ops/attention.py",
