@@ -17,9 +17,10 @@ CPU tensor it computes its plain version:
 - :func:`attention` (head-major) and :func:`attention_bsnd` (projection
   layout) -- the dispatchers.
 
-The causal and flash kernels run one Hopper tile core,
-``csrc/attention_tile.cuh`` (an asynchronous K/V ring, ``wgmma`` for both
-products); the grouped kernel is its own ``mma.sync`` loop.
+All three kernels run one Hopper tile core, ``csrc/attention_tile.cuh``
+(an asynchronous K/V ring, ``wgmma`` for both products), each with its own
+row-addressing policy: the projection layout for the causal kernel,
+head-major for the grouped and flash kernels.
 
 ``NEG_INF`` stays finite: fully masked rows and length-0 rows rely on it
 (their softmax is uniform, not NaN, and is then zeroed explicitly).
@@ -186,8 +187,11 @@ def grouped_attention(q, k, v, lengths, causal: bool = True):
     Row bound = min(length, pos + 1) (causal) or length; a row whose bound
     is 0 is zero.
 
-    On a CUDA tensor this launches ``grouped_attention_bf16`` (bf16 in and
-    out, float32 softmax, a ~16-bit P in P.V) and counts it in
+    On a CUDA tensor this launches ``grouped_attention_bf16``, the tile
+    core of ``csrc/attention_tile.cuh`` on head-major rows with K/V
+    unrepeated (each K/V tile staged once for all the heads of its group;
+    bf16 in and out, ``wgmma`` products with float32 accumulation, float32
+    softmax, a ~16-bit P in P.V), and counts it in
     ``grouped_attention.launches``; there is no fallback.  On a CPU tensor
     it returns :func:`grouped_attention_plain`."""
     if q.device.type == "cpu":

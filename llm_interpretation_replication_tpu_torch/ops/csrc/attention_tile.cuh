@@ -1,8 +1,9 @@
-// One Hopper (sm_90a) attention tile core, shared by the port's causal
-// grouped kernel (causal_grouped_attention.cu) and its per-head flash kernel
-// (head_major_attention.cu, `flash_attention_bf16`).  bf16 in and out.
+// One Hopper (sm_90a) attention tile core, shared by all three of the port's
+// attention kernels: the causal grouped kernel (causal_grouped_attention.cu)
+// and the head-major grouped and flash kernels (head_major_attention.cu,
+// `grouped_attention_bf16` and `flash_attention_bf16`).  bf16 in and out.
 //
-// Both compute, for the query rows of one (batch, K/V group),
+// All compute, for the query rows of one (batch, K/V group),
 //
 //   out[row] = softmax_j(q[row] . k[j] / sqrt(D)) . v[j]
 //   over the keys j < bound(row) = min(length[b], pos(row) + 1)   (causal)
@@ -16,10 +17,11 @@
 //
 // Design (one block = 128 query rows of one (batch, group): 8 warps, two
 // warpgroups of 64 rows, 16 rows a warp):
-// - Q is staged in shared memory with 16-byte `cp.async` copies (a 128-row
-//   tile of Falcon's 71 MQA heads is one contiguous 16 KB run) and stays
-//   there as Q.K's A operand; O goes back through the same shared memory
-//   and leaves with 16-byte coalesced stores.
+// - Q is staged in shared memory with 16-byte `cp.async` copies (in the
+//   projection layout a 128-row tile of Falcon's 71 MQA heads is one
+//   contiguous 16 KB run; head-major, each row's D values are contiguous)
+//   and stays there as Q.K's A operand; O goes back through the same
+//   shared memory and leaves with 16-byte coalesced stores.
 // - K/V stream through a ring of 3 tiles (64 keys at D <= 64, 128 at
 //   D = 128) in dynamic shared memory, filled with 16-byte `cp.async.cg` in
 //   commit/wait groups: tiles t+1 and t+2 load while tile t computes, one

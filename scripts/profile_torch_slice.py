@@ -6,15 +6,20 @@
 Builds Falcon-7B (published width and depth, bf16, random weights from
 ``--seed``), then profiles with ``torch.profiler`` (CPU + CUDA activities)
 one prefill of a batch of 32 prompts (kernel attention) and one scored
-look-ahead chunk of 5 steps over the same 32 rows.  For each it reports the
-host wall time, the device busy time (the sum of kernel durations), the
-device's idle share of the wall time, the kernel launches, and the kernels
-that take the most device time.  Prints one JSON object and writes it to
-``chiprun_out/profile_torch_slice.json``.  Needs a CUDA device.
+look-ahead chunk of 5 steps over the same 32 rows, and the same prefill
+with every layer's attention forced through
+``attention_bsnd(force="grouped")``, the head-major route chip_smoke.py
+times.  For each it reports the host wall time, the device busy time (the
+sum of kernel durations), the device's idle share of the wall time, the
+kernel launches, and the kernels that take the most device time.  Prints
+one JSON object and writes it to ``chiprun_out/profile_torch_slice.json``.
+Needs a CUDA device.
 """
 
 import argparse
 import collections
+import functools
+import importlib
 import json
 import os
 import sys
@@ -58,6 +63,9 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from llm_interpretation_replication_tpu_torch.models import config, convert, decoder
+    # the ops package re-exports a function named ``attention``
+    attention = importlib.import_module(
+        "llm_interpretation_replication_tpu_torch.ops.attention")
 
     cfg = config.DecoderConfig(**{**config.FALCON_7B_GEOMETRY,
                                   "attention_impl": "flash"})
@@ -80,6 +88,14 @@ def main(argv=None):
             with_scores="reduced", target_ids=tgt)),
         lookahead_steps=steps,
     )
+    routed = decoder.attention_bsnd
+    decoder.attention_bsnd = functools.partial(attention.attention_bsnd,
+                                               force="grouped")
+    try:
+        out["grouped_prefill"] = profile(
+            lambda: decoder.prefill(weights, cfg, ids, mask, s))
+    finally:
+        decoder.attention_bsnd = routed
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile_torch_slice.json"), "w") as f:
         json.dump(out, f, indent=1)

@@ -104,6 +104,23 @@ def test_flash_edges_match_reference(s, d, n, g, causal):
     _check(got, ref, lengths)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n,g", [(71, 1), (8, 2), (4, 4)])
+@pytest.mark.parametrize("s,d", [(1, 64), (63, 96), (64, 128), (65, 64),
+                                 (127, 96), (129, 128)])
+def test_grouped_edges_match_reference(s, d, n, g, causal):
+    """chip_smoke.py's edge shapes for the grouped kernel, K/V unrepeated,
+    with lengths [S, 1, 0, mid-tile], against the interpret-mode kernel
+    (its wrapper pads the rows, so it takes every S)."""
+    q, k, v, _ = _inputs(60 + s, 4, n, g, s, d)
+    lengths = np.array([s, 1, 0, s - s // 3], np.int32)
+    ref = jattn.grouped_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), lengths, causal=causal,
+                                  interpret=True)
+    got = tattn.grouped_attention(*_t(q, k, v, lengths), causal)
+    _check(got, ref, lengths)
+
+
 @pytest.mark.parametrize("force", [None, "grouped", "pallas", "dense"])
 def test_attention_dispatch_matches_reference(force):
     """The head-major dispatcher on every route with grouped K/V (the
