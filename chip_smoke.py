@@ -38,7 +38,22 @@ line is printed):
    through ``attention_bsnd(force="grouped")`` and then ``force="pallas"``
    (each kernel must launch once a layer), held against the same float32
    reference, and each route's prefill timed;
-7. int8: the int8 product's int32 accumulators on the card against a CPU
+7. pooled: the engine's default binary schedule on the slice's weights:
+   384 prompts of 100-440 tokens, batch 32 (12 batches), per-prompt
+   targets from a pre-pass so that 339 rows are decided at position 0
+   (one batch of the 448 bucket holds 12 undecided rows, more than the
+   8-row selection slice, and takes the overflow route).  Six runs on the
+   same prompts: the per-batch route, the pooled whole-flush route, the
+   defaults (slot ring, ``pipeline_depth=2``), the defaults at depth 1,
+   ``score_prompts_slotted`` admitting the second half mid-decode, and
+   ``export_kv_slab`` + ``decode_kv_slabs`` of the same halves.  Runs 2-4
+   must agree with run 1 (verdicts and position-0 fields identical,
+   relative_prob within 0.02), the ring must refill lanes, run 6 must equal
+   run 5 bit for bit, and each run's prefills must launch the kernel.
+   Last, one real OOM: under a per-process memory cap between the batch-32
+   and the batch-64 need, the 128 longest prompts at batch 64 must step
+   down to 32 and give run 3's rows;
+8. int8: the int8 product's int32 accumulators on the card against a CPU
    int32 product at Falcon-7B's projection shapes; then the slice's prompts
    scored with w8a8 int8 weights (quantized as they are made), once with a
    bf16 and once with an int8 KV cache, held against the bf16 rows.
@@ -82,6 +97,15 @@ FLASH_ONLY_SHAPES = [     # Llama-2-7B's width at its 4096 context
     ("llama-2-7b-4096", 2, 4096, 32, 32, 128),
 ]
 N_PROMPTS, BATCH = 96, 32
+# the pooled phase: prompts, ring capacity, and per batch the rows decided at
+# position 0, resolved at look-ahead step 1, and never resolved; the longest
+# batch (bucket 448) gets more undecided rows than the 8-row selection slice
+POOL_PROMPTS, POOL_TARGET = 384, 16
+POOL_ROLES, OVERFLOW_ROLES = (29, 2, 1), (20, 6, 6)
+POOL_RELPROB_TOL = 0.02      # pooled routes vs the per-batch route
+# the memory cap of the OOM run: the batch-32 need times this factor; a
+# batch of 64 at bucket 384 holds 1.71x the tokens of one of 32 at 448
+OOM_BATCH, OOM_CAP_FACTOR, OOM_LONGEST = 64, 1.4, 128
 # int8 runs against the bf16 engine on the same weights and prompts
 # (PARITY.md's w8a8 audit bounds) and int8 KV against bf16 KV (ROADMAP.md)
 W8A8_MEAN_DREL, W8A8_MAX_DREL = 0.02, 0.10
@@ -408,19 +432,20 @@ def _rel_l2(a, ref):
     return float((a - ref).norm() / ref.norm())
 
 
-def _prompts(seed, tok):
-    """96 random-token prompts whose lengths spread evenly over 100-440."""
+def _prompts(seed, tok, n=N_PROMPTS):
+    """``n`` random-token prompts whose lengths spread evenly over
+    100-440."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    lengths = rng.permutation(np.linspace(100, 440, N_PROMPTS).astype(int))
-    return [rng.integers(3, len(tok), int(n)).tolist() for n in lengths]
+    lengths = rng.permutation(np.linspace(100, 440, n).astype(int))
+    return [rng.integers(3, len(tok), int(m)).tolist() for m in lengths]
 
 
 def slice_phase(seed, attention):
     """Falcon-7B binary-leg scoring through the port's engine, then the
     forced head-major routes on its longest batch.  Returns the phase's
-    results and the scored rows."""
+    results, the scored rows and the weights."""
     import torch
 
     from llm_interpretation_replication_tpu_torch.models import config as mconfig
@@ -559,13 +584,13 @@ def slice_phase(seed, attention):
     engine.close()
     dense.close()
     result["forced_routes"] = forced
-    return result, rows
+    return result, rows, weights
 
 
-def _check_rows(rows):
+def _check_rows(rows, n=N_PROMPTS):
     import numpy as np
 
-    if len(rows) != N_PROMPTS or not all(r["success"] for r in rows):
+    if len(rows) != n or not all(r["success"] for r in rows):
         raise AssertionError("missing or failed rows")
     for r in rows:
         vals = [r[f] for f in ("yes_prob", "no_prob", "relative_prob",
@@ -621,6 +646,292 @@ def forced_route_phase(attention, weights, cfg, ref_weights, batch,
     out["bucket"] = batch.bucket_len
     say("forced_routes", json.dumps(out))
     return out
+
+
+def _id_tokenizer(vocab_size):
+    """A tokenizer in which the word ``t<i>`` is token ``i``, for every id of
+    the vocabulary: any token can then be named as a scoring target (the
+    engine takes the first id of ``" " + target``)."""
+    from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
+        Encoding)
+
+    class IdTokenizer:
+        pad_token_id, eos_token_id = 0, 1
+
+        def __len__(self):
+            return vocab_size
+
+        def encode(self, text, add_special_tokens=True):
+            return [int(w[1:]) for w in text.split()]
+
+        def __call__(self, text, add_special_tokens=True):
+            if isinstance(text, str):
+                return Encoding(input_ids=self.encode(text))
+            return Encoding(input_ids=[self.encode(t) for t in text])
+
+        def decode(self, ids, skip_special_tokens=False):
+            return "".join(f" t{int(i)}" for i in ids)
+
+    return IdTokenizer()
+
+
+def _pool_targets(seed, weights, cfg, batches, n):
+    """Per-prompt (yes, no) targets from the prefill logits and one greedy
+    look-ahead step of each batch: in every batch ``POOL_ROLES`` rows are
+    decided at position 0 (yes = the top token there), resolve at step 1
+    (yes = step 1's top token, outside position 0's top 5) or never resolve
+    (both targets among position 0's lowest logits); the longest batch takes
+    ``OVERFLOW_ROLES``."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    rng = np.random.default_rng(seed)
+    pairs = [None] * n
+    for bi, b in enumerate(batches):
+        ids = torch.as_tensor(b.token_ids, device="cuda").long()
+        mask = torch.as_tensor(b.attention_mask, device="cuda")
+        last, cache = decoder.prefill(weights, cfg, ids, mask, b.bucket_len)
+        _, sc, _, _, _ = decoder.decode_steps(
+            weights, cfg, cache, last, mask.sum(-1), 0, 2, None, None,
+            with_scores=True)
+        top0 = torch.topk(sc[:, 0], 5).indices.cpu().numpy()
+        low0 = torch.topk(sc[:, 0], 2, largest=False).indices.cpu().numpy()
+        top1 = sc[:, 1].argmax(-1).cpu().numpy()
+        del last, cache, sc
+        _, n_step1, n_never = (OVERFLOW_ROLES if bi == len(batches) - 1
+                               else POOL_ROLES)
+        real = np.flatnonzero(b.indices >= 0)
+        eligible = [r for r in real if top1[r] not in top0[r]
+                    and top1[r] not in low0[r]]
+        if len(eligible) < n_step1:
+            raise AssertionError(f"batch {bi}: {len(eligible)} rows can "
+                                 f"resolve at step 1, {n_step1} needed")
+        step1 = set(rng.choice(eligible, n_step1, replace=False).tolist())
+        never = set(rng.permutation([r for r in real if r not in step1])
+                    [:n_never].tolist())
+        for r in real:
+            if r in step1:
+                yes, no = top1[r], low0[r][0]
+            elif r in never:
+                yes, no = low0[r]
+            else:
+                yes, no = top0[r][:2]
+            pairs[int(b.indices[r])] = (f"t{yes}", f"t{no}")
+    return pairs
+
+
+def _check_pooled_rows(what, rows, ref):
+    """Verdicts and position-0 fields identical to ``ref``, relative_prob
+    within POOL_RELPROB_TOL; returns the largest relative_prob gap."""
+    _check_rows(rows, len(ref))
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(rows, ref)):
+        if a["scan_found"] != b["scan_found"]:
+            raise AssertionError(f"{what}: row {i} scan_found "
+                                 f"{a['scan_found']} vs {b['scan_found']}")
+        for f in ("first_token_yes_prob", "first_token_no_prob",
+                  "first_token_relative_prob"):
+            if a[f] != b[f]:
+                raise AssertionError(f"{what}: row {i} {f} {a[f]} vs {b[f]}")
+        worst = max(worst, abs(a["relative_prob"] - b["relative_prob"]))
+    if worst > POOL_RELPROB_TOL:
+        raise AssertionError(f"{what}: relative_prob {worst} apart")
+    return worst
+
+
+def _merge_slab_rows(results, slabs, decoded):
+    """Rows decoded from slabs (flat feed order) back onto prompt indices."""
+    merged = list(results)
+    i = 0
+    for slab in slabs:
+        for m in slab.metas:
+            merged[m["orig"]] = decoded[i]
+            i += 1
+    return merged
+
+
+def pooled_phase(seed, attention, weights):
+    """The engine's default binary schedule on Falcon-7B: the per-batch
+    route, the pooled whole-flush and ring routes, the serve-side ring
+    entries and one real OOM, on prompts with a realistic decided share."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+
+    device = "cuda"
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
+    tok = _id_tokenizer(cfg.vocab_size)
+    prompts = _prompts(seed, tok, POOL_PROMPTS)
+    base = emod.EngineConfig(decode_completions=False, batch_size=BATCH,
+                             phase2_pool_target=POOL_TARGET)
+    batches = list(batching.batches_for_prompts(
+        prompts, BATCH, base.buckets, pad_id=tok.pad_token_id,
+        length_sorted=True))
+    t0 = time.perf_counter()
+    targets = _pool_targets(seed, weights, cfg, batches, POOL_PROMPTS)
+    decided = POOL_PROMPTS - (len(batches) - 1) * sum(POOL_ROLES[1:]) \
+        - sum(OVERFLOW_ROLES[1:])
+    say(f"pooled: {POOL_PROMPTS} prompts, {len(batches)} batches, buckets "
+        f"{[b.bucket_len for b in batches]}, targets in "
+        f"{time.perf_counter() - t0:.1f} s, decided share "
+        f"{decided / POOL_PROMPTS:.4f}")
+
+    prefills = [0]
+    real_prefill = decoder.prefill
+
+    def counted_prefill(*args, **kwargs):
+        prefills[0] += 1
+        return real_prefill(*args, **kwargs)
+
+    def timed(name, call, n_batches, pooled):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _reset_launches(attention)
+        prefills[0] = 0
+        t0 = time.perf_counter()
+        rows = call()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = _launches(attention)["causal_grouped_attention"]
+        overflow = prefills[0] - n_batches
+        res = dict(run=name, rows_per_s=len(rows) / elapsed, seconds=elapsed,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   memory_before_bytes=before, kernel_launches=launches,
+                   prefills=prefills[0], overflow_batches=overflow)
+        if launches < cfg.num_layers * prefills[0] or \
+                prefills[0] < n_batches or overflow != int(pooled):
+            raise AssertionError(f"pooled {name}: {launches} launches, "
+                                 f"{prefills[0]} prefills of {n_batches} "
+                                 f"batches")
+        return rows, res
+
+    runs, rows = [], {}
+    decoder.prefill = counted_prefill
+    try:
+        # runs 1-4: score_prompts on four schedules
+        for name, ecfg, pooled in (
+                ("per_batch", dataclasses.replace(base, phase2_pool=False),
+                 False),
+                ("whole_flush", dataclasses.replace(base, slot_repack=False),
+                 True),
+                ("ring", base, True),
+                ("ring_depth1", dataclasses.replace(base, pipeline_depth=1),
+                 True)):
+            engine = emod.ScoringEngine("falcon", cfg, weights, tok,
+                                        engine_config=ecfg, device=device)
+            engine.score_prompts(prompts[:BATCH], targets[:BATCH])  # warm-up
+            engine.occupancy_report()
+            rows[name], res = timed(
+                name, lambda: engine.score_prompts(prompts, targets),
+                len(batches), pooled)
+            res["occupancy"] = engine.occupancy_report()
+            if name != "per_batch":
+                res["max_abs_delta_relative_prob_vs_per_batch"] = \
+                    _check_pooled_rows(name, rows[name], rows["per_batch"])
+            runs.append(res)
+            say("pooled", json.dumps(res))
+            engine.close()
+        if not runs[2]["occupancy"]["refills"] > 0:
+            raise AssertionError(f"the ring never refilled a lane: "
+                                 f"{runs[2]['occupancy']}")
+
+        # runs 5-6: the serve-side entries, the second half admitted
+        # mid-decode in both
+        engine = emod.ScoringEngine("falcon", cfg, weights, tok,
+                                    engine_config=base, device=device)
+        engine.score_prompts_slotted(prompts[:BATCH], targets[:BATCH])
+        engine.occupancy_report()
+        half = POOL_PROMPTS // 2
+        first, second = (prompts[:half], targets[:half]), \
+            (prompts[half:], targets[half:])
+        admit = [second]
+        rows["slotted"], res = timed(
+            "slotted", lambda: engine.score_prompts_slotted(
+                *first, admit_fn=lambda: admit.pop() if admit else None),
+            len(batches), False)
+        res["occupancy"] = engine.occupancy_report()
+        runs.append(res)
+        say("pooled", json.dumps(res))
+
+        def handoff():
+            r1, s1 = engine.export_kv_slab(*first)
+            r2, s2 = engine.export_kv_slab(*second)
+            later = [s2]
+            decoded = engine.decode_kv_slabs(
+                s1, admit_fn=lambda: later.pop() if later else None)
+            n1 = sum(s.rows() for s in s1)
+            return (_merge_slab_rows(r1, s1, decoded[:n1])
+                    + _merge_slab_rows(r2, s2, decoded[n1:]))
+
+        rows["kv_slabs"], res = timed("kv_slabs", handoff, len(batches),
+                                      False)
+        res["occupancy"] = engine.occupancy_report()
+        res["identical_to_slotted"] = rows["kv_slabs"] == rows["slotted"]
+        runs.append(res)
+        say("pooled", json.dumps(res))
+        if not res["identical_to_slotted"]:
+            raise AssertionError("KV-slab rows differ from the slotted rows")
+        engine.close()
+    finally:
+        decoder.prefill = real_prefill
+    oom = oom_run(cfg, weights, tok, prompts, targets, base, rows["ring"],
+                  runs[2])
+    return dict(prompts=POOL_PROMPTS, batches=len(batches),
+                buckets=[b.bucket_len for b in batches],
+                decided_share=decided / POOL_PROMPTS,
+                pool_target=POOL_TARGET, runs=runs, oom=oom)
+
+
+def oom_run(cfg, weights, tok, prompts, targets, base, ring_rows, ring_res):
+    """One real device OOM: the 128 longest prompts at batch 64 under a
+    per-process memory cap of the weights plus OOM_CAP_FACTOR times the
+    batch-32 ring run's own need.  Each batch of 64 must step down to 32
+    (``oom_batch_ladder=(32,)``) and give the ring run's rows."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+
+    order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
+    idx = sorted(order[-OOM_LONGEST:])
+    need32 = ring_res["peak_memory_bytes"] - ring_res["memory_before_bytes"]
+    torch.cuda.empty_cache()
+    cap = torch.cuda.memory_reserved() + OOM_CAP_FACTOR * need32
+    total = torch.cuda.get_device_properties(0).total_memory
+    engine = emod.ScoringEngine(
+        "falcon", cfg, weights, tok, device="cuda",
+        engine_config=dataclasses.replace(base, batch_size=OOM_BATCH,
+                                          oom_batch_ladder=(BATCH,)))
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        t0 = time.perf_counter()
+        rows = engine.score_prompts([prompts[i] for i in idx],
+                                    [targets[i] for i in idx])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    events = [{k: e[k] for k in ("batch", "new_batch", "bucket_len", "rows")}
+              for e in engine.fault_events]
+    engine.close()
+    res = dict(prompts=len(idx), batch=OOM_BATCH, cap_bytes=int(cap),
+               batch32_need_bytes=int(need32), fault_events=events,
+               seconds=elapsed)
+    say("pooled oom", json.dumps(res))
+    if not events or any((e["batch"], e["new_batch"]) != (OOM_BATCH, BATCH)
+                         for e in events) \
+            or sum(e["rows"] for e in events) != len(idx):
+        raise AssertionError(f"OOM run: every batch of {OOM_BATCH} must step "
+                             f"to {BATCH}: {events}")
+    res["max_abs_delta_relative_prob_vs_ring"] = _check_pooled_rows(
+        "oom", rows, [ring_rows[i] for i in idx])
+    return res
 
 
 def int8_phase(seed, attention, bf16_rows):
@@ -787,7 +1098,9 @@ def main(argv=None):
     gen.manual_seed(args.seed)
     krows = kernel_phase(attention, gen)
     erows = edge_phase(attention, gen)
-    sres, bf16_rows = slice_phase(args.seed, attention)
+    sres, bf16_rows, weights = slice_phase(args.seed, attention)
+    pres = pooled_phase(args.seed, attention, weights)
+    del weights
     torch.cuda.empty_cache()
     ires = int8_phase(args.seed, attention, bf16_rows)
 
@@ -812,7 +1125,7 @@ def main(argv=None):
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build=build,
                        edge_rows=erows, kernel_rows=krows, slice=sres,
-                       int8=ires, kernels=kernels), f, indent=1)
+                       pooled=pres, int8=ires, kernels=kernels), f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """Length-bucketed batching (a copy of ``runtime/batching.py``'s
-``Batch``/``bucket_for``/``batches_for_prompts``/``encode_prompts``, without
-the tracer and telemetry).
+``Batch``/``bucket_for``/``batches_for_prompts``/``rebatch``/
+``encode_prompts``, without the tracer and telemetry).
 
 Batches pad to a fixed menu of lengths and to a full batch of rows (pad
 rows duplicate row 0 and carry index -1), so every batch has one of a few
@@ -89,6 +89,30 @@ def batches_for_prompts(
         for start in range(0, len(items), batch_size):
             yield _emit_batch(items[start : start + batch_size], batch_size,
                               bucket_len, pad_id)
+
+
+def rebatch(
+    batch: Batch,
+    encoded: Sequence[Sequence[int]],
+    batch_size: int,
+    buckets: Sequence[int] = DEFAULT_BUCKETS,
+    pad_id: int = 0,
+    length_sorted: bool = True,
+) -> List[Batch]:
+    """Re-bucket one emitted batch's real rows at a smaller batch size (the
+    engine's OOM back-off): the rows (``indices >= 0``) are taken again from
+    ``encoded`` and re-emitted through :func:`batches_for_prompts`, with
+    ``indices`` mapped back to the original prompt indices, so no row is
+    lost or duplicated by the retry."""
+    rows = batch.indices[batch.indices >= 0]
+    sub_encoded = [encoded[int(i)] for i in rows]
+    out = []
+    for sb in batches_for_prompts(sub_encoded, batch_size, buckets,
+                                  pad_id=pad_id, length_sorted=length_sorted):
+        sb.indices = np.where(sb.indices >= 0,
+                              rows[np.clip(sb.indices, 0, None)], -1)
+        out.append(sb)
+    return out
 
 
 def encode_prompts(tokenizer, prompts: Sequence, add_special_tokens: bool = True) -> List[List[int]]:

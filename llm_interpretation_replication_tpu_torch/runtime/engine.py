@@ -1,28 +1,45 @@
-"""ScoringEngine for the port: binary-leg yes/no scoring, batch by batch.
+"""ScoringEngine for the port: binary-leg yes/no scoring.
 
-Port of ``runtime/engine.py``'s per-batch route of ``score_prompts`` under
-``EngineConfig(decode_completions=False, phase2_pool=False)``:
+Port of ``runtime/engine.py``'s binary leg of ``score_prompts`` under
+``EngineConfig(decode_completions=False)``, with every other field at the
+reference's default or any value the port honours:
 
 1. prompt prefill (``models.decoder.prefill``; its attention is the Hopper
-   kernel when ``attention_impl`` selects flash);
-2. the position-0 top-k scan (``scoring.yes_no.first_token_scan``) and the
-   top-20-filtered position-0 probabilities;
-3. a scored greedy look-ahead over only the undecided rows, gathered out of
-   the prefill cache (menu-padded), in ``scan_chunk``-step chunks that stop
-   once every real row is resolved;
-4. the yes/no scan over the look-ahead's ``ReducedScores``.
+   kernel when ``attention_impl`` selects flash) and the position-0 top-k
+   scan with the top-20-filtered position-0 probabilities;
+2. a scored greedy look-ahead over only the undecided rows, and the yes/no
+   scan over its ``ReducedScores``.
 
-Batches run one after another.  Every ``EngineConfig`` field keeps the
-reference's name and default; a setting this slice cannot honour raises
-``NotImplementedError`` naming the ROADMAP.md item that will bring it.  A
-device out-of-memory error propagates (the reference's OOM back-off ladder
-comes with pipelining).
+Two routes run step 2.  ``phase2_pool=True`` (the default):
+:func:`_prefill_select` keeps only an undecided-first slice of each batch's
+cache, and :class:`_Phase2Pool` gathers the undecided rows of many batches
+and decodes them together, through a ``runtime.slots.SlotRing`` whose
+retired lanes refill between chunks (``slot_repack=True``, the default) or
+in whole flushes of ``phase2_pool_target`` rows (``slot_repack=False``); a
+batch with more undecided rows than the slice holds re-runs its prefill and
+decodes in place.  ``phase2_pool=False``: each batch decodes its own
+undecided rows, gathered out of its prefill cache.
+
+Both routes run through :meth:`ScoringEngine._run_pipelined`: up to
+``pipeline_depth`` batches are launched before the oldest is consumed, and
+a batch whose launch or consume runs out of device memory is retried at the
+next size down the OOM ladder (``oom_backoff``, ``oom_batch_ladder``,
+``oom_batch_floor``; each step lands in ``fault_events``).  The slot ring
+also serves :meth:`ScoringEngine.score_prompts_slotted` (mid-decode
+admission) and the KV-slab handoff (:meth:`~ScoringEngine.export_kv_slab`,
+:meth:`~ScoringEngine.decode_kv_slabs`).
+
+Every ``EngineConfig`` field keeps the reference's name and default; a
+setting the port cannot honour yet raises ``NotImplementedError`` naming the
+ROADMAP.md item that will bring it.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import sys
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,15 +48,15 @@ from ..config import DEFAULT_BUCKETS
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import decoder as dmod
 from ..scoring import yes_no as yn
-from . import batching
+from ..utils.telemetry import record_counter, record_fault
+from . import batching, faults
 from . import plan as plan_mod
+from . import slots as slots_mod
 
-_ITEM_POOL = "ROADMAP.md queue 1, '_Phase2Pool and the slot ring'"
 _ITEM_FULL = "ROADMAP.md queue 1, 'The full-study legs'"
 _ITEM_KDEC = "ROADMAP.md queue 1, 'K-decode'"
 _ITEM_T5 = "ROADMAP.md queue 1, 'T5'"
 _ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
-_ITEM_OOM = "ROADMAP.md queue 1, 'Pipelining and the OOM ladder'"
 
 
 class EngineClosed(RuntimeError):
@@ -48,15 +65,14 @@ class EngineClosed(RuntimeError):
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The reference's engine knobs, same names and defaults.  This slice
-    honours the binary per-batch route: ``decode_completions=False`` and
-    ``phase2_pool=False`` are required; the knobs of the paths not ported
-    yet (``prefill_chunk``, ``decode_k``) must keep their defaults.
-    ``kv_dtype`` ("bf16" or "int8") sets the decoder's ``kv_cache_dtype``
-    at construction, as in the reference.  ``pipeline_depth`` does not
-    change results; batches run one at a time here.  ``oom_backoff`` is not honoured yet: a device
-    out-of-memory error propagates; a non-default ``oom_batch_floor`` or
-    ``oom_batch_ladder`` raises until the ladder is ported."""
+    """The reference's engine knobs, same names and defaults.  The port
+    honours the binary leg: ``decode_completions=False`` is required, and
+    the knobs of the paths not ported yet (``prefill_chunk``, ``decode_k``)
+    must keep their defaults.  ``phase2_pool`` with its target, slice and
+    byte cap, ``slot_repack``, ``pipeline_depth`` (>= 1) and the OOM ladder
+    (``oom_backoff``, ``oom_batch_floor``, ``oom_batch_ladder``) behave as
+    in the reference.  ``kv_dtype`` ("bf16" or "int8") sets the decoder's
+    ``kv_cache_dtype`` at construction, as in the reference."""
     batch_size: int = 32
     max_new_tokens: int = 50
     score_steps: int = 10           # MAX_LOOK_AHEAD -- steps that need scores
@@ -70,8 +86,8 @@ class EngineConfig:
     completion_chars: int = 100
     pipeline_depth: int = 2
     phase2_pool: bool = True
-    phase2_pool_target: int = 0
-    phase2_select_slice: int = 0
+    phase2_pool_target: int = 0     # rows per pooled decode; 0 -> batch_size
+    phase2_select_slice: int = 0    # 0 -> batch_size // 4 (at least 8)
     phase2_pool_max_bytes: int = 512 << 20
     pooled_confidence: bool = True
     slot_repack: bool = True
@@ -84,23 +100,55 @@ class EngineConfig:
 
 
 def _check_supported(family, ecfg: EngineConfig, mesh) -> None:
-    """Raise NotImplementedError for every setting this slice cannot honour."""
+    """Raise NotImplementedError for every setting the port cannot honour."""
     if ecfg.kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_dtype {ecfg.kv_dtype!r}")
     unsupported = [
         (family == "t5", "encoder-decoder models", _ITEM_T5),
         (mesh is not None, "a device mesh", _ITEM_PAR),
         (ecfg.decode_completions, "decode_completions=True", _ITEM_FULL),
-        (ecfg.phase2_pool, "phase2_pool=True (with or without slot_repack)",
-         _ITEM_POOL),
         (int(ecfg.prefill_chunk or 0) > 0, "prefill_chunk > 0", _ITEM_FULL),
         (int(ecfg.decode_k) > 1, "decode_k > 1", _ITEM_KDEC),
-        (bool(ecfg.oom_batch_ladder) or ecfg.oom_batch_floor != 8,
-         "an OOM batch ladder or floor", _ITEM_OOM),
     ]
     for bad, what, item in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+class _HostCopy:
+    """Small device outputs on their way to the host.
+
+    On a CUDA device each tensor is copied with ``non_blocking=True`` into a
+    pinned host tensor as soon as it is launched, and one event is recorded
+    behind the copies, so :meth:`numpy` waits for these copies only.  A
+    ``.cpu()`` issued later would be queued behind every kernel launched in
+    between (with pipelining, the next batch's prefill), and the host would
+    wait for those too.  On the CPU the tensors are their own host copies."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, tensors: Iterable[torch.Tensor]):
+        tensors = list(tensors)
+        self.event = None
+        if tensors and tensors[0].is_cuda:
+            self.host = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self.host.append(h)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = tensors
+
+    def ready(self) -> bool:
+        """True once the copies have landed (never blocks)."""
+        return self.event is None or self.event.query()
+
+    def numpy(self) -> List[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
 
 
 class ScoringEngine:
@@ -126,7 +174,12 @@ class ScoringEngine:
         self.tokenizer = tokenizer
         self.mesh = mesh
         self.ecfg = ecfg
+        # every OOM back-off step this engine took (the telemetry fault log
+        # holds the process-wide list)
+        self.fault_events: List[Dict] = []
         self._plan_cache: Dict[Tuple, plan_mod.GenerationPlan] = {}
+        # per-ring slot-occupancy stats since the last occupancy_report()
+        self._occupancy: List[slots_mod.OccupancyStats] = []
         self._closed = False
 
     # -- lifecycle -------------------------------------------------------
@@ -140,6 +193,7 @@ class ScoringEngine:
             raise EngineClosed(
                 "ScoringEngine is closed -- its weights are released; "
                 "construct a new engine before scoring")
+        _check_supported(self.family, self.ecfg, self.mesh)
 
     def close(self) -> None:
         """Drop the engine's reference to its weights and return cached
@@ -151,6 +205,7 @@ class ScoringEngine:
         self._closed = True
         self.params = None
         self._plan_cache.clear()
+        self._occupancy = []
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -208,6 +263,111 @@ class ScoringEngine:
     def _tensor(self, arr, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), device=self.device, dtype=dtype)
 
+    def _batches(self, encoded):
+        ecfg = self.ecfg
+        return batching.batches_for_prompts(
+            encoded, ecfg.batch_size, ecfg.buckets,
+            pad_id=self.tokenizer.pad_token_id or 0,
+            length_sorted=ecfg.length_sorted_batches)
+
+    # -- pipelining and the OOM ladder ----------------------------------
+
+    def _run_pipelined(self, batches: Iterable, launch: Callable,
+                       consume: Callable, rebatch: Optional[Callable] = None):
+        """Launch batches up to ``pipeline_depth`` ahead of consuming them.
+
+        ``launch`` queues a batch's device work and returns at once (CUDA
+        launches are asynchronous; its small outputs go to the host through
+        a :class:`_HostCopy`); ``consume`` reads them.  While the host
+        consumes batch k, the device runs batch k+1.
+
+        ``rebatch(batch, err)`` is the OOM back-off hook
+        (:meth:`_oom_rebatch`): when a batch's launch or consume raises a
+        device OOM, it returns sub-batches of the same real rows at a
+        smaller size, queued ahead of the remaining input; anything it
+        cannot absorb it re-raises.  A consume that fails part-way
+        re-scores its whole batch; results are keyed by prompt index, so
+        the rewrite is idempotent."""
+        depth = max(1, int(self.ecfg.pipeline_depth))
+        pending: collections.deque = collections.deque()
+        retries: collections.deque = collections.deque()
+        stepped_down = False
+        it = iter(batches)
+
+        def handle(batch, err):
+            nonlocal stepped_down
+            if rebatch is None:
+                raise err
+            retries.extend(rebatch(batch, err))  # re-raises what it cannot take
+            stepped_down = True
+
+        while True:
+            if stepped_down and self.device.type == "cuda":
+                # The failed attempt's tensors died with its traceback at
+                # the end of the except block.  Release their cached
+                # segments, cut to the larger batch's sizes: otherwise the
+                # retry's allocations split them, and split segments
+                # cannot be released again under a memory cap.
+                torch.cuda.empty_cache()
+            stepped_down = False
+            batch = retries.popleft() if retries else next(it, None)
+            if batch is not None:
+                try:
+                    pending.append((batch, launch(batch)))
+                except Exception as err:
+                    handle(batch, err)
+                    continue
+            elif not pending:
+                break
+            if len(pending) >= depth or batch is None:
+                done, out = pending.popleft()
+                try:
+                    consume(done, out)
+                except Exception as err:
+                    out = None           # the failed batch's device outputs
+                    handle(done, err)
+                out = None
+
+    def _oom_rebatch(self, encoded) -> Optional[Callable]:
+        """Per-call OOM back-off hook for :meth:`_run_pipelined`: for a
+        device OOM, the failed batch's size steps down the ladder (halving
+        between ladder points, never below ``oom_batch_floor``) and its real
+        rows are re-bucketed (``batching.rebatch``); the step is recorded in
+        telemetry and on ``self.fault_events``.  Non-OOM errors, errors
+        marked ``_no_rebatch`` and OOMs at the floor re-raise.  None when
+        back-off is off."""
+        ecfg = self.ecfg
+        if not ecfg.oom_backoff:
+            return None
+
+        def rebatch(batch, err):
+            # _no_rebatch marks errors whose device work spans rows of other
+            # batches (the pooled decode): stepping this batch down cannot
+            # shrink it, and a retry would lose the pooled rows
+            if getattr(err, "_no_rebatch", False) or not faults.is_oom(err):
+                raise err
+            size = int(batch.token_ids.shape[0])
+            new_size = faults.next_batch_down(
+                size, ladder=ecfg.oom_batch_ladder, floor=ecfg.oom_batch_floor)
+            if new_size is None:
+                raise err
+            n_real = int((batch.indices >= 0).sum())
+            event = record_fault(
+                "engine_oom_backoff", batch=size, new_batch=new_size,
+                bucket_len=int(batch.bucket_len), rows=n_real,
+                error=faults.oom_detail(err))
+            self.fault_events.append(event)
+            print(f"# engine: device OOM at batch {size} "
+                  f"(bucket {batch.bucket_len}); retrying {n_real} rows at "
+                  f"batch {new_size} [{faults.oom_detail(err)}]",
+                  file=sys.stderr)
+            return batching.rebatch(
+                batch, encoded, new_size, ecfg.buckets,
+                pad_id=self.tokenizer.pad_token_id or 0,
+                length_sorted=ecfg.length_sorted_batches)
+
+        return rebatch
+
     # -- core ------------------------------------------------------------
 
     def score_prompts(
@@ -219,10 +379,10 @@ class ScoringEngine:
     ) -> List[Dict]:
         """Yes/No scoring: one dict per prompt with yes_prob, no_prob,
         relative_prob, odds_ratio, scan_found, completion (empty on this
-        route), success and the first_token_{yes,no,relative}_prob fields.
-        Prompts are strings or pre-tokenized id sequences."""
+        leg), success and the first_token_{yes,no,relative}_prob fields.
+        Prompts are strings or pre-tokenized id sequences; ``targets`` is
+        one (yes, no) pair or one pair per prompt."""
         self._check_open()
-        _check_supported(self.family, self.ecfg, self.mesh)
         if with_confidence:
             raise NotImplementedError(
                 f"with_confidence is not ported yet ({_ITEM_FULL})")
@@ -230,19 +390,24 @@ class ScoringEngine:
             raise NotImplementedError(
                 f"(prefix, suffix) prompts (score_prefixed) are not ported "
                 f"yet ({_ITEM_FULL})")
-        ecfg = self.ecfg
         ids_all = self._target_id_rows(prompts, targets)   # [N, 2]
         eos_id = getattr(self.tokenizer, "eos_token_id", None)
         encoded = batching.encode_prompts(self.tokenizer, prompts)
         results: List[Optional[Dict]] = [None] * len(prompts)
         steps, _ = self._gen_plan(max_new_tokens)
-        for batch in batching.batches_for_prompts(
-                encoded, ecfg.batch_size, ecfg.buckets,
-                pad_id=self.tokenizer.pad_token_id or 0,
-                length_sorted=ecfg.length_sorted_batches):
-            out = self._launch(batch, ids_all)
+        if self.ecfg.phase2_pool:
+            return self._score_decoder_pooled(encoded, ids_all, results,
+                                              eos_id, steps)
+
+        def launch(batch):
+            return self._launch(batch, ids_all)
+
+        def consume(batch, out):
             self._consume_scored_batch(batch, out, ids_all, results, steps,
                                        eos_id)
+
+        self._run_pipelined(self._batches(encoded), launch, consume,
+                            rebatch=self._oom_rebatch(encoded))
         return [r if r is not None else _error_row("missing") for r in results]
 
     def _launch(self, batch, ids_all):
@@ -260,16 +425,17 @@ class ScoringEngine:
                                     top_k=ecfg.top_k)
         first3 = yn.relative_prob_first_token(
             last, row_ids[:, 0], row_ids[:, 1], ecfg.first_token_top_filter)
-        return last, cache, lengths, scan0, first3
+        return last, cache, lengths, _HostCopy((*scan0, *first3))
 
     def _consume_scored_batch(self, batch, out, ids_all, results, steps,
                               eos_id):
         """One batch into ``results``: rows whose position-0 top-k holds a
         target keep the position-0 read; the undecided rows go through the
         scored look-ahead.  Keyed by prompt index."""
-        last, cache, lengths, scan0, first3 = out
-        yes0, no0, rel0, odds0, hit0 = (t.cpu().numpy() for t in scan0)
-        first3 = tuple(t.cpu().numpy() for t in first3)
+        last, cache, lengths, fetched = out
+        host = fetched.numpy()
+        scan0, first3 = host[:5], host[5:]
+        hit0 = scan0[4]
         row_ids = self._batch_target_rows(ids_all, batch)
         valid = batch.indices >= 0
         undecided = np.flatnonzero(~hit0 & valid)
@@ -295,23 +461,113 @@ class ScoringEngine:
             res = self._scan_results(sc, ids_sub[:, 0], ids_sub[:, 1],
                                      toks_s, eos_id)
             res_np = {k: v.cpu().numpy() for k, v in res._asdict().items()}
+        _write_batch_rows(batch, scan0, first3, results, res_np, sub_pos)
 
-        for r, orig in enumerate(batch.indices):
-            if orig < 0:
-                continue
-            if hit0[r]:
-                vals = (yes0[r], no0[r], rel0[r], odds0[r], True)
-            else:
-                j = r if sub_pos is None else sub_pos[r]
-                vals = (res_np["yes_prob"][j], res_np["no_prob"][j],
-                        res_np["relative_prob"][j], res_np["odds_ratio"][j],
-                        res_np["found"][j])
-            results[int(orig)] = _attach_first_token(_result_row(*vals, ""),
-                                                     first3, r)
+    def _launch_select(self, batch, ids_all, slice_m: int):
+        """:func:`_prefill_select` on one batch: the device part of the
+        pooled and slotted routes.  Returns (host copy of scan0, first3 and
+        sel; the slice's cache, last logits, lengths)."""
+        ecfg = self.ecfg
+        row_ids = self._tensor(self._batch_target_rows(ids_all, batch),
+                               torch.int64)
+        scan0, first3, sel, sub, last_s, len_s = _prefill_select(
+            self.params, self.cfg, self._tensor(batch.token_ids, torch.int64),
+            self._tensor(batch.attention_mask, torch.int32),
+            self._tensor(batch.indices >= 0), row_ids[:, 0], row_ids[:, 1],
+            cache_len=batch.bucket_len, slice_m=slice_m, top_k=ecfg.top_k,
+            top_filter=ecfg.first_token_top_filter,
+            out_len=_pool_len(batch.bucket_len))
+        return _HostCopy((*scan0, *first3, sel)), sub, last_s, len_s
+
+    def _score_decoder_pooled(self, encoded, ids_all, results, eos_id,
+                              steps) -> List[Dict]:
+        """The pooled route: each batch's prefill keeps only a
+        ``phase2_select_slice``-row cache slice, undecided rows first, and
+        the undecided rows of many batches decode together in
+        :class:`_Phase2Pool`.  A batch with more undecided rows than the
+        slice holds re-runs its prefill with the full cache and decodes in
+        place (it was going to decode near-full anyway)."""
+        ecfg = self.ecfg
+        pool = _Phase2Pool(
+            self, steps, eos_id,
+            target=ecfg.phase2_pool_target or ecfg.batch_size,
+            results=results, max_bytes=ecfg.phase2_pool_max_bytes,
+        )
+        select_m = _pad_slice(
+            ecfg.phase2_select_slice or max(8, ecfg.batch_size // 4),
+            ecfg.batch_size)
+
+        def launch(batch):
+            return self._launch_select(batch, ids_all, select_m)
+
+        def consume(batch, out):
+            fetched, sub_cache, last_s, len_s = out
+            host = fetched.numpy()
+            scan0, first3, sel_np = host[:5], host[5:8], host[8]
+            row_ids = self._batch_target_rows(ids_all, batch)
+            valid = batch.indices >= 0
+            count = int(np.count_nonzero(~scan0[4] & valid))
+            # the slice actually produced: select_m normally, but an OOM-
+            # rebatched sub-batch smaller than select_m yields its own size
+            slice_rows = int(sel_np.shape[0])
+            if count > slice_rows:
+                self._score_overflow_batch(batch, row_ids, valid, steps,
+                                           eos_id, scan0, first3, results)
+                return
+            if count:
+                # slice rows 0..count-1 are the undecided rows (the sort key
+                # is False for exactly those rows); every per-row
+                # association goes through sel.  Shrink to the tight menu
+                # size before pooling, so held bytes follow the real rows.
+                m = _pad_slice(count, slice_rows)
+                if m < slice_rows:
+                    idx = np.zeros((m,), np.int64)
+                    idx[:count] = np.arange(count)
+                    sub_cache, last_s, len_s = _gather_rows(
+                        sub_cache, last_s, len_s, self._tensor(idx))
+                    mapped = sel_np[idx]
+                else:
+                    mapped = sel_np[:slice_rows]
+                try:
+                    pool.add(_pool_len(batch.bucket_len), sub_cache, last_s,
+                             len_s, count, batch.indices[mapped[:count]],
+                             row_ids[mapped],
+                             first3=np.stack([a[mapped] for a in first3],
+                                             axis=1))
+                except Exception as err:
+                    # a pooled decode holds rows of many earlier batches:
+                    # re-bucketing the batch that triggered it cannot
+                    # shrink it, and the pooled rows would come back as
+                    # "missing" after the retry -- propagate instead
+                    err._no_rebatch = True
+                    raise
+            _write_batch_rows(batch, scan0, first3, results)
+
+        self._run_pipelined(self._batches(encoded), launch, consume,
+                            rebatch=self._oom_rebatch(encoded))
+        pool.flush_all()
+        return [r if r is not None else _error_row("missing") for r in results]
+
+    def _score_overflow_batch(self, batch, row_ids, valid, steps, eos_id,
+                              scan0, first3, results):
+        """The pooled route's fallback for a batch whose undecided rows
+        overflow the selection slice: prefill again with the full cache and
+        decode the whole batch in place."""
+        ids = self._tensor(batch.token_ids, torch.int64)
+        mask = self._tensor(batch.attention_mask, torch.int32)
+        last, cache = dmod.prefill(self.params, self.cfg, ids, mask,
+                                   cache_len=batch.bucket_len)
+        sc, toks = self._scan_decode_chunked(
+            cache, last, mask.sum(-1), steps, eos_id,
+            row_ids[:, 0], row_ids[:, 1], real_mask=valid)
+        res = self._scan_results(sc, row_ids[:, 0], row_ids[:, 1], toks,
+                                 eos_id)
+        res_np = {k: v.cpu().numpy() for k, v in res._asdict().items()}
+        _write_batch_rows(batch, scan0, first3, results, res_np)
 
     def _scan_results(self, sc, yes_ids, no_ids, toks, eos_id):
-        """Yes/no scan over a chunked decode's scores (full [m, P, V] scores
-        or ReducedScores, whichever the decode produced)."""
+        """Yes/no scan over a decode's scores (full [m, P, V] scores or
+        ReducedScores, whichever the decode produced)."""
         vsteps = yn.steps_until_eos(toks, eos_id)
         if isinstance(sc, dmod.ReducedScores):
             return yn.yes_no_from_reduced(
@@ -381,6 +637,271 @@ class ScoringEngine:
                 break
         return _cat_scores(sc_parts, reduced), torch.cat(tok_parts, dim=1)
 
+    # -- decode-then-repack consumers (runtime/slots.py) ------------------
+
+    def record_occupancy(self, stats) -> None:
+        """Collect one ring's :class:`~.slots.OccupancyStats` (pools and
+        slotted sessions call this as they finish)."""
+        if stats is not None and (stats.capacity_steps or stats.rows):
+            self._occupancy.append(stats)
+
+    def occupancy_report(self, clear: bool = True):
+        """Merged slot-occupancy block for everything scored since the last
+        drain (None when no ring ran)."""
+        merged = slots_mod.merge_occupancy(self._occupancy)
+        if clear:
+            self._occupancy = []
+        return slots_mod.occupancy_block(merged)
+
+    def _binary_ring(self, steps, eos_id, results) -> slots_mod.SlotRing:
+        """A binary scored ring of the serve-side entries."""
+        ecfg = self.ecfg
+        return slots_mod.SlotRing(
+            self, steps=steps, eos_id=eos_id,
+            capacity=ecfg.phase2_pool_target or ecfg.batch_size,
+            leg="binary", workload="serve",
+            retire=_binary_retire,
+            emit=lambda rows: self._emit_scored_slot_rows(rows, steps,
+                                                          eos_id, results),
+            batch_review=self._binary_batch_review(steps, eos_id),
+            pad_slice=lambda n: _pad_slice(n, max(n, 1)),
+        )
+
+    def _select_undecided(self, batch, ids_all, results, base: int):
+        """Prefill one batch with an all-rows selection slice, write its
+        position-0-decided rows into ``results[base + prompt index]``, and
+        return the undecided rows as ring feed parts (cache, last, lengths,
+        target ids, metas with prompt index ``orig`` and ``first3``), or
+        None when every row is decided."""
+        fetched, sub_cache, last_s, len_s = self._launch_select(
+            batch, ids_all, int(batch.token_ids.shape[0]))
+        host = fetched.numpy()
+        scan0, first3, sel_np = host[:5], host[5:8], host[8]
+        row_ids = self._batch_target_rows(ids_all, batch)
+        _write_batch_rows(batch, scan0, first3, results, base=base)
+        count = int(np.count_nonzero(~scan0[4] & (batch.indices >= 0)))
+        if not count:
+            return None
+        idx = self._tensor(np.arange(count), torch.int64)
+        mapped = sel_np[:count]
+        metas = [{"orig": int(batch.indices[m]),
+                  "first3": np.asarray([first3[0][m], first3[1][m],
+                                        first3[2][m]])}
+                 for m in mapped]
+        return (slots_mod._gather_ring_rows(sub_cache, idx), last_s[idx],
+                len_s[idx], row_ids[mapped], metas)
+
+    def score_prompts_slotted(
+        self,
+        prompts: Sequence,
+        targets: Sequence = ("Yes", "No"),
+        admit_fn: Optional[Callable] = None,
+    ) -> List[Dict]:
+        """Binary scored decoding through the slot ring with mid-decode
+        admission.
+
+        Prompts prefill in ordinary batches; rows whose position-0 scan
+        already hit resolve at once, undecided rows feed the ring.  Between
+        decode chunks the ring's starvation hook calls ``admit_fn()``, which
+        may return ``(prompts, target_pairs)`` of newly arrived work: those
+        rows prefill and drop into vacated lanes while earlier rows keep
+        decoding.  Results return in feed order (initial prompts first,
+        admitted rows appended).  Rows match ``score_prompts`` on the pooled
+        route: verdicts identical, probabilities in the chunked-prefill fp32
+        class (PARITY.md "Decode-then-repack")."""
+        self._check_open()
+        eos_id = getattr(self.tokenizer, "eos_token_id", None)
+        steps, _ = self._gen_plan()
+        results: List[Optional[Dict]] = []
+        ring = self._binary_ring(steps, eos_id, results)
+
+        def feed(batch_prompts, batch_targets):
+            base = len(results)
+            results.extend([None] * len(batch_prompts))
+            ids_all = self._target_id_rows(batch_prompts, batch_targets)
+            encoded = batching.encode_prompts(self.tokenizer, batch_prompts)
+            for batch in self._batches(encoded):
+                parts = self._select_undecided(batch, ids_all, results, base)
+                if parts is not None:
+                    cache, last, lens, row_ids, metas = parts
+                    for m in metas:
+                        m["orig"] += base
+                    ring.feed(cache, last, lens, row_ids, metas)
+
+        def refill_hook(n_free):
+            # admit_fn owns the admission bound: a hook that never returns
+            # empty keeps this session alive
+            if admit_fn is None:
+                return False
+            more = admit_fn()
+            if not more:
+                return False
+            more_prompts, more_targets = more
+            if not more_prompts:
+                return False
+            feed(more_prompts, more_targets)
+            slots_mod.slot_counter("slot_admitted", len(more_prompts),
+                                   "binary", "serve")
+            return True
+
+        ring.refill_hook = refill_hook
+        feed(list(prompts), targets)
+        ring.drain()
+        # one more admission window after the drain, so work that arrived
+        # during the last chunk is not orphaned
+        while admit_fn is not None and refill_hook(0):
+            ring.drain()
+        self.record_occupancy(ring.stats)
+        return [r if r is not None else _error_row("missing")
+                for r in results]
+
+    def _scan_slot_rows(self, rows, vsteps):
+        """The yes/no scan over slot rows' accumulated ReducedScores
+        statistics, on the host."""
+        ecfg = self.ecfg
+        return yn.yes_no_from_reduced(
+            torch.from_numpy(np.stack([r.vals for r in rows])),
+            torch.from_numpy(np.stack([r.logz for r in rows])),
+            torch.from_numpy(np.stack([r.tgt for r in rows])),
+            max_look_ahead=ecfg.max_look_ahead, top_k=ecfg.top_k,
+            valid_steps=torch.from_numpy(vsteps))
+
+    @staticmethod
+    def _cut_at_eos(rows, vsteps, eos_id):
+        """Scan-visible steps per row: up to and including the first EOS."""
+        if eos_id is not None:
+            for i, r in enumerate(rows):
+                hits = np.flatnonzero(r.toks[: r.decoded] == eos_id)
+                if hits.size:
+                    vsteps[i] = min(vsteps[i], int(hits[0]) + 1)
+        return vsteps
+
+    def _binary_batch_review(self, steps, eos_id):
+        """Vectorized found-scan hook for binary slot rows: one yes/no
+        reduction per chunk over the live rows' accumulated statistics; the
+        per-row ``retire`` then reads the cached verdict."""
+
+        def review(rows):
+            vsteps = self._cut_at_eos(
+                rows, np.asarray([r.decoded for r in rows], np.int32),
+                eos_id)
+            found = self._scan_slot_rows(rows, vsteps).found.numpy()
+            for i, r in enumerate(rows):
+                done = (eos_id is not None
+                        and bool((r.toks[: r.decoded] == eos_id).any()))
+                r.meta["resolved"] = bool(found[i]) or done
+
+        return review
+
+    def _emit_scored_slot_rows(self, rows, steps, eos_id, results):
+        """Finish binary slot rows: one batched yes/no scan over their
+        decoded statistics (valid steps cut at EOS), then the result rows,
+        keyed by the meta's original index."""
+        vsteps = self._cut_at_eos(
+            rows, np.asarray([max(1, r.decoded) for r in rows], np.int32),
+            eos_id)
+        res = self._scan_slot_rows(rows, vsteps)
+        res_np = {k: v.numpy() for k, v in res._asdict().items()}
+        for i, r in enumerate(rows):
+            f3 = r.meta["first3"]
+            results[int(r.meta["orig"])] = _attach_first_token(
+                _result_row(*(res_np[k][i] for k in _SCAN_FIELDS), ""),
+                (f3[0:1], f3[1:2], f3[2:3]), 0)
+
+    def export_kv_slab(
+        self,
+        prompts: Sequence,
+        targets: Sequence = ("Yes", "No"),
+    ):
+        """Prefill half of the KV handoff: the same prefill and position-0
+        scan as :meth:`score_prompts_slotted`, but the undecided rows are
+        gathered into one host :class:`~.slots.KVSlab` per prefill batch
+        instead of being decoded here.
+
+        Returns ``(rows, slabs)``: ``rows`` holds the position-0-decided
+        results and ``None`` at every index that shipped out in a slab; each
+        slab's metas carry ``{"orig": prompt index, "first3": ...}``.
+        Decoding the slabs (:meth:`decode_kv_slabs`) gives rows bit-identical
+        to decoding the same rows locally in the same ring composition
+        (PARITY.md "Cross-replica KV handoff"): the round trip moves bytes,
+        not values."""
+        self._check_open()
+        results: List[Optional[Dict]] = [None] * len(prompts)
+        slabs: List[slots_mod.KVSlab] = []
+        ids_all = self._target_id_rows(prompts, targets)
+        encoded = batching.encode_prompts(self.tokenizer, list(prompts))
+        for batch in self._batches(encoded):
+            parts = self._select_undecided(batch, ids_all, results, 0)
+            if parts is not None:
+                slabs.append(slots_mod.slab_from_device(*parts))
+        if slabs:
+            slots_mod.slot_counter(
+                "slot_slab_export_rows", sum(s.rows() for s in slabs),
+                "binary", "serve")
+            record_counter("slab_export_bytes",
+                           sum(s.nbytes() for s in slabs))
+        return results, slabs
+
+    def decode_kv_slabs(
+        self,
+        slabs: Sequence,
+        admit_fn: Optional[Callable] = None,
+    ) -> List[Dict]:
+        """Decode half of the KV handoff: import host slabs straight into a
+        slot ring's pending queue and run the scored decode to retirement.
+
+        Returns one result row per slab row in flat feed order (slabs in the
+        given order, rows in each slab's meta order); the slab metas'
+        ``orig`` map them back.  ``admit_fn()`` may return more slabs
+        between decode chunks, as in :meth:`score_prompts_slotted`."""
+        self._check_open()
+        eos_id = getattr(self.tokenizer, "eos_token_id", None)
+        steps, _ = self._gen_plan()
+        results: List[Optional[Dict]] = []
+        ring = self._binary_ring(steps, eos_id, results)
+
+        def feed_slab(slab):
+            base = len(results)
+            results.extend([None] * slab.rows())
+            cache, last, lens, row_ids, metas = slots_mod.slab_to_device(
+                slab, self.device)
+            # re-key to local result indices; the exporter's orig stays on
+            # the slab for the caller's mapping
+            local = [{"orig": base + i, "first3": m["first3"]}
+                     for i, m in enumerate(metas)]
+            ring.feed(cache, last, lens, row_ids, local)
+            slots_mod.slot_counter("slot_slab_import_rows", slab.rows(),
+                                   "binary", "serve")
+
+        def refill_hook(n_free):
+            if admit_fn is None:
+                return False
+            more = admit_fn()
+            if not more:
+                return False
+            for slab in more:
+                feed_slab(slab)
+            return True
+
+        ring.refill_hook = refill_hook
+        for slab in slabs:
+            feed_slab(slab)
+        ring.drain()
+        # post-drain admission window, as in score_prompts_slotted
+        while admit_fn is not None and refill_hook(0):
+            ring.drain()
+        self.record_occupancy(ring.stats)
+        return [r if r is not None else _error_row("missing")
+                for r in results]
+
+
+def _binary_retire(row) -> int:
+    """Slot-ring retirement of a binary scored row: it leaves its lane as
+    soon as its yes/no scan is resolved (top-k hit or EOS: no later position
+    can change the row), as computed once per chunk by
+    ``_binary_batch_review``."""
+    return row.decoded if row.meta.get("resolved") else -1
+
 
 def _is_prefix_pair(prompt) -> bool:
     """A ``(prefix, suffix)`` 2-tuple asks for the fused prefix-reuse path;
@@ -411,14 +932,280 @@ def _pad_slice(n: int, cap: int) -> int:
     return cap
 
 
+#: Every pooled slice is padded with inert invalid slots to the pool menu
+#: entry covering its bucket, so slices of different buckets decode
+#: together (with the default buckets, every bucket up to 256 pools under
+#: 256 and every one from 320 to 512 under 512).
+_pool_len = plan_mod.pool_len_for
+
+
 def _gather_rows(cache: dmod.KVCache, last, lengths, idx):
     """The look-ahead subset's rows of the prefill outputs: cache k/v (and
     an int8 cache's scales) are [L, B, T, ...] (batch axis 1); everything
     else is batch-leading."""
-    sub = dmod.cache_kv_map(cache, lambda t: t[:, idx],
-                            positions=cache.positions[idx],
-                            valid=cache.valid[idx])
-    return sub, last[idx], lengths[idx]
+    return slots_mod._gather_ring_rows(cache, idx), last[idx], lengths[idx]
+
+
+class _Phase2Pool:
+    """Cross-batch pool of the binary leg's scored-decode rows.
+
+    The scored look-ahead is bound by streaming the weights (and, in eager
+    PyTorch, by launching kernels), so a step costs nearly the same for 8
+    rows as for 32.  Each batch's undecided rows are gathered out of its
+    prefill slice and accumulate here, keyed by quantized cache length
+    (:data:`_pool_len`); decodes run over many batches' rows at once.  The
+    same rows decode the same tokens from the same caches, grouped into
+    fewer decodes.
+
+    ``slot_repack=True`` (the engine's default): rows stream
+    through one :class:`~.slots.SlotRing` per key, which spins up once
+    ``target`` rows are pending and then refills retired lanes between
+    chunks.  ``slot_repack=False``: rows accumulate to ``target`` (or until the
+    pool's held bytes would pass ``max_bytes``), then one full ``steps``
+    decode runs for them; it is queued and its small outputs go to the host
+    through a :class:`_HostCopy`, read later in :meth:`drain`, so the launch
+    loop keeps feeding the device."""
+
+    leg = "binary"
+
+    def __init__(self, engine, steps, eos_id, target, results,
+                 max_bytes: int = 512 << 20, confidence: bool = False):
+        if confidence:
+            raise NotImplementedError(
+                f"the pooled confidence leg is not ported yet ({_ITEM_FULL})")
+        self.engine = engine
+        self.steps = steps
+        self.eos_id = eos_id
+        self.target = max(1, int(target))
+        self.max_bytes = max(1, int(max_bytes))
+        self.results = results
+        self.repack = bool(engine.ecfg.slot_repack)
+        self._rings: Dict[int, slots_mod.SlotRing] = {}
+        self.entries: Dict[int, List] = {}
+        self.counts: Dict[int, int] = {}
+        self.bytes: Dict[int, int] = {}
+        # dispatched flushes awaiting their host copy:
+        # [(layout, host copy, first3, [pinned bytes])]; the K/V bytes a
+        # flush pins until its decode has run count against max_bytes until
+        # the copy reports ready (_inflight_bytes)
+        self.deferred: List = []
+
+    def add(self, pool_len, sub_cache, last_s, len_s, n_real, orig_idx,
+            row_ids, first3):
+        """Queue one batch's gathered undecided slice (rows past ``n_real``
+        are gather padding).  ``pool_len`` is the slice's quantized cache
+        length; ``orig_idx`` the prompt index of each real row; ``row_ids``
+        [m, 2] per-row (yes, no) target ids; ``first3`` [m, 3].  On the
+        whole-flush schedule a key flushes when it reaches ``target`` rows
+        or when the pool's held K/V would pass ``max_bytes`` (largest key
+        first); an add that would push a key past the slice menu's largest
+        entry flushes that key first, so a flush never exceeds the menu."""
+        if self.repack:
+            self._ring_add(pool_len, sub_cache, last_s, len_s, n_real,
+                           orig_idx, row_ids, first3)
+            return
+        nb = slots_mod._cache_nbytes(sub_cache)
+        # evict from the pool, largest key first (a flush moves its bytes
+        # to the dispatched set, so this loop ends)...
+        while self.entries and sum(self.bytes.values()) + nb > self.max_bytes:
+            self.flush(max(self.bytes, key=self.bytes.get))
+        # ...and only when dispatched flushes whose decode has not run yet
+        # push the total past the cap, wait for them
+        if self.deferred and (self._inflight_bytes()
+                              + sum(self.bytes.values()) + nb > self.max_bytes):
+            self.drain()
+        rows = int(last_s.shape[0])
+        if self.counts.get(pool_len, 0) and (
+                self.counts[pool_len] + rows > _SLICE_MENU[-1]):
+            self.flush(pool_len)
+        self.entries.setdefault(pool_len, []).append(
+            (sub_cache, last_s, len_s, int(n_real), np.asarray(orig_idx),
+             np.asarray(row_ids, np.int32), np.asarray(first3)))
+        self.counts[pool_len] = self.counts.get(pool_len, 0) + rows
+        self.bytes[pool_len] = self.bytes.get(pool_len, 0) + nb
+        if self.counts[pool_len] >= self.target:
+            self.flush(pool_len)
+
+    def flush_all(self):
+        if self.repack:
+            for ring in self._rings.values():
+                ring.drain()
+                self.engine.record_occupancy(ring.stats)
+            self._rings = {}
+            return
+        for pool_len in list(self.entries):
+            self.flush(pool_len)
+        self.drain()
+
+    # -- decode-then-repack (runtime/slots.py) ---------------------------
+
+    def _ring_add(self, pool_len, sub_cache, last_s, len_s, n_real,
+                  orig_idx, row_ids, first3):
+        """Feed one batch's real rows into the ring of this quantized cache
+        length, then crank it: the ring spins up once a full capacity of
+        rows is pending, and from then on refills retired lanes from the
+        queue between chunks."""
+        if not n_real:
+            return
+        ring = self._rings.get(pool_len)
+        if ring is None:
+            ring = self._rings[pool_len] = self._make_ring()
+        orig_idx = np.asarray(orig_idx)
+        row_ids = np.asarray(row_ids, np.int32)
+        first3 = np.asarray(first3)
+        idx = self.engine._tensor(np.arange(int(n_real)), torch.int64)
+        sub, last_u, len_u = _gather_rows(sub_cache, last_s, len_s, idx)
+        metas = [{"orig": int(orig_idx[j]), "first3": first3[j]}
+                 for j in range(int(n_real))]
+        ring.feed(sub, last_u, len_u, row_ids[: int(n_real)], metas)
+        ring.pump(drain=False)
+
+    def _make_ring(self) -> slots_mod.SlotRing:
+        return slots_mod.SlotRing(
+            self.engine, steps=self.steps, eos_id=self.eos_id,
+            capacity=self.target, leg=self.leg, workload="engine",
+            retire=_binary_retire, emit=self._binary_ring_emit,
+            batch_review=self.engine._binary_batch_review(self.steps,
+                                                          self.eos_id),
+            pad_slice=lambda n: _pad_slice(n, max(n, 1)),
+        )
+
+    def _binary_ring_emit(self, rows):
+        self.engine._emit_scored_slot_rows(rows, self.steps, self.eos_id,
+                                           self.results)
+
+    # -- whole-flush schedule -------------------------------------------
+
+    def _blank_entry(self, template, rows: int):
+        """Numerically inert filler rows that pad a pooled decode up to a
+        menu size (``slots._blank_rows`` at the entries' slot length)."""
+        cache_t, last_t, len_t = template
+        cache, last, lens = slots_mod._blank_rows(
+            cache_t, last_t, len_t.dtype, rows, int(cache_t.k.shape[2]))
+        return (cache, last, lens, 0, np.empty((0,), np.int64),
+                np.zeros((rows, 2), np.int32), np.full((rows, 3), np.nan))
+
+    def flush(self, pool_len):
+        """Queue one pooled decode of every row held under ``pool_len``:
+        the full ``steps`` decode and the yes/no reduction on the device,
+        their [m]-sized results copied to the host behind an event.  Only
+        :meth:`drain` reads them, so the launch loop is not held up by an
+        early-exit check."""
+        entries = self.entries.pop(pool_len, [])
+        self.counts.pop(pool_len, None)
+        self.bytes.pop(pool_len, None)
+        if not entries:
+            return
+        total = sum(e[1].shape[0] for e in entries)
+        m = _pad_slice(total, total if total > _SLICE_MENU[-1]
+                       else _SLICE_MENU[-1])
+        if m > total:
+            entries.append(self._blank_entry(entries[0][:3], m - total))
+        cache = slots_mod._concat_caches([e[0] for e in entries])
+        last = torch.cat([e[1] for e in entries], dim=0)
+        lens = torch.cat([e[2] for e in entries], dim=0)
+        ids = np.concatenate([e[5] for e in entries], axis=0)     # [m, 2]
+        first3 = np.concatenate([e[6] for e in entries], axis=0)  # [m, 3]
+        engine = self.engine
+        reduced = engine.ecfg.top_k <= dmod.REDUCED_TOPK
+        toks, sc, _, _, _ = dmod.decode_steps(
+            engine.params, engine.cfg, cache, last, lens, 0, self.steps,
+            self.eos_id, None, with_scores="reduced" if reduced else True,
+            target_ids=engine._tensor(ids, torch.int64) if reduced else None)
+        res = engine._scan_results(sc, ids[:, 0], ids[:, 1], toks,
+                                   self.eos_id)
+        fields = res._asdict()
+        # keep only the row layout, not the entries, whose cache slices
+        # would otherwise stay referenced until drain().  Until the queued
+        # decode runs, both the source slices (read by the concat) and the
+        # concatenated copy are resident: 2x the slices.
+        layout = [(int(e[1].shape[0]), e[3], e[4]) for e in entries]
+        pinned = 2 * sum(slots_mod._cache_nbytes(e[0]) for e in entries)
+        self.deferred.append((layout, list(fields), first3,
+                              _HostCopy(fields.values()), [pinned]))
+
+    def _inflight_bytes(self) -> int:
+        """K/V bytes pinned by dispatched flushes whose decode has not run
+        yet: a flush stops counting once its host copy reports ready (an
+        event query, never a wait)."""
+        total = 0
+        for _layout, _names, _first3, fetched, pinned in self.deferred:
+            if pinned[0] and fetched.ready():
+                pinned[0] = 0
+            total += pinned[0]
+        return total
+
+    def drain(self):
+        """Resolve every dispatched flush into result rows."""
+        for layout, names, first3, fetched, _pinned in self.deferred:
+            res_np = dict(zip(names, fetched.numpy()))
+            row = 0
+            for rows, n_real, orig in layout:
+                for j in range(n_real):
+                    g = row + j
+                    self.results[int(orig[j])] = _attach_first_token(
+                        _result_row(*(res_np[k][g] for k in _SCAN_FIELDS),
+                                    ""),
+                        (first3[:, 0], first3[:, 1], first3[:, 2]), g)
+                row += rows
+        self.deferred = []
+
+
+@torch.no_grad()
+def _prefill_select(params, cfg, ids, mask, valid_rows, yes_ids, no_ids,
+                    cache_len: int, slice_m: int, top_k: int,
+                    top_filter: int = 20, out_len: int = 0):
+    """Prefill, position-0 scan and the look-ahead's row selection.
+
+    The selection is a stable undecided-first sort of the scan's hit mask
+    (batch padding rows, ``~valid_rows``, count as decided): only a
+    ``slice_m``-row slice of the cache is kept, padded with inert invalid
+    slots to ``out_len`` when that exceeds ``cache_len``.  The full cache
+    and the full-batch logits are dropped as soon as the slice is gathered.
+
+    Returns (scan0, first3 [top-filtered position-0 (yes, no, relative)],
+    sel [slice_m] batch row of each slice row, sub_cache, last_sel,
+    len_sel).  When more than ``slice_m`` rows are undecided the caller
+    must prefill again with the full cache."""
+    last, cache = dmod.prefill(params, cfg, ids, mask, cache_len=cache_len)
+    lengths = mask.sum(-1)
+    scan0 = yn.first_token_scan(last, yes_ids, no_ids, top_k=top_k)
+    first3 = yn.relative_prob_first_token(last, yes_ids, no_ids, top_filter)
+    decided = scan0[4] | ~valid_rows
+    # argsort of an int8 key: a bool tensor has no stable sort on every
+    # backend
+    sel = torch.argsort(decided.to(torch.int8), stable=True)[:slice_m]
+    sub = slots_mod._gather_ring_rows(cache, sel)
+    last_sel, len_sel = last[sel], lengths[sel]
+    del cache, last
+    if out_len and out_len > cache_len:
+        sub = slots_mod._pad_cache_to(sub, out_len)
+    return scan0, first3, sel, sub, last_sel, len_sel
+
+
+#: The yes/no scan's fields a result row takes, in ``_result_row``'s order.
+_SCAN_FIELDS = ("yes_prob", "no_prob", "relative_prob", "odds_ratio", "found")
+
+
+def _write_batch_rows(batch, scan0, first3, results, res_np=None,
+                      sub_pos=None, base: int = 0) -> None:
+    """One batch's result rows into ``results[base + prompt index]``: a row
+    whose position-0 scan hit reads position 0 (``scan0``); any other reads
+    the look-ahead's scan ``res_np`` at its row (``sub_pos`` maps batch rows
+    to subset rows), or is left to the pool when there is none."""
+    yes0, no0, rel0, odds0, hit0 = scan0
+    for r, orig in enumerate(batch.indices):
+        if orig < 0:
+            continue
+        if hit0[r]:
+            vals = (yes0[r], no0[r], rel0[r], odds0[r], True)
+        elif res_np is None:
+            continue
+        else:
+            j = r if sub_pos is None else sub_pos[r]
+            vals = tuple(res_np[k][j] for k in _SCAN_FIELDS)
+        results[base + int(orig)] = _attach_first_token(
+            _result_row(*vals, ""), first3, r)
 
 
 def _attach_first_token(row: Dict, first3, i: int) -> Dict:

@@ -1,5 +1,7 @@
-"""Generation schedule of one scoring leg (a copy of ``runtime/plan.py``'s
-``GenerationPlan``/``plan_cache_key``/``generation_plan``)."""
+"""Generation schedule of one scoring leg and the pools' quantized cache
+lengths (a copy of ``runtime/plan.py``'s ``GenerationPlan``/
+``plan_cache_key``/``generation_plan`` and ``POOL_LEN_MENU``/
+``pool_len_for``/``conf_pool_len_for``)."""
 
 from __future__ import annotations
 
@@ -52,3 +54,26 @@ def generation_plan(score_steps: int, max_look_ahead: int, default_cap: int,
         offset += chunks[-1]
     return GenerationPlan(steps, total, tuple(chunks),
                           cache_key=(steps, total, decode_completions, cap))
+
+
+#: Quantized cache lengths of the cross-batch pools (``engine._Phase2Pool``):
+#: every pooled slice is padded with inert invalid slots up to the menu entry
+#: covering its cache length, so slices from different length buckets pool
+#: and decode together.  The binary pool keeps the coarse menu (it holds only
+#: the undecided rows); the confidence pool, which holds every row, the finer
+#: one.
+POOL_LEN_MENU = (256, 512, 1024, 2048)
+CONF_POOL_LEN_MENU = (256, 320, 384, 512, 1024, 2048)
+
+
+def pool_len_for(cache_len: int, menu=POOL_LEN_MENU) -> int:
+    """Smallest pool-menu cache length covering ``cache_len``."""
+    for t in menu:
+        if cache_len <= t:
+            return t
+    return cache_len
+
+
+def conf_pool_len_for(cache_len: int) -> int:
+    """Confidence-pool quantized cache length (the finer menu)."""
+    return pool_len_for(cache_len, CONF_POOL_LEN_MENU)

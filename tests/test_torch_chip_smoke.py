@@ -1,4 +1,5 @@
-"""``chip_smoke.py``'s kernel tables stay true to the sources they name.
+"""``chip_smoke.py``'s kernel tables stay true to the sources they name, and
+its pooled phase keeps driving the engine's default schedule.
 
 The card run reads two hand-kept tables: ``KERNELS`` (wrapper, CUDA source,
 line of the TPU kernel it replaces) and ``TILE_KERNELS`` (the wrappers whose
@@ -8,6 +9,8 @@ phase; a line number must name the TPU kernel.  These tests read the files
 as text: no card, no ``nvcc``.
 """
 
+import ast
+import inspect
 import os
 import re
 
@@ -62,3 +65,29 @@ def test_kernel_lines_name_the_tpu_kernel(wrapper, line):
     with open(TPU_ATTENTION, encoding="utf-8") as f:
         lines = f.read().splitlines()
     assert lines[line - 1].startswith(f"def {tpu_kernel}(")
+
+
+def _call_name(call):
+    return getattr(call.func, "attr", getattr(call.func, "id", None))
+
+
+def test_pooled_phase_runs_the_default_schedule_beside_the_per_batch_route():
+    """The pooled phase builds its engines from one ``EngineConfig`` that
+    leaves ``phase2_pool``, ``slot_repack``, ``pipeline_depth`` and the OOM
+    settings at their defaults, and derives the per-batch route
+    (``phase2_pool=False``), the whole-flush route and depth 1 from it."""
+    tree = ast.parse(inspect.getsource(chip_smoke.pooled_phase))
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)]
+    configs = [c for c in calls if _call_name(c) == "EngineConfig"]
+    assert len(configs) == 1
+    assert {k.arg for k in configs[0].keywords} == {
+        "decode_completions", "batch_size", "phase2_pool_target"}
+    replaced = [{k.arg: ast.literal_eval(k.value) for k in c.keywords}
+                for c in calls if _call_name(c) == "replace"]
+    for override in ({"phase2_pool": False}, {"slot_repack": False},
+                     {"pipeline_depth": 1}):
+        assert override in replaced
+    runs = {elt.elts[0].value: elt.elts[1] for elt in ast.walk(tree)
+            if isinstance(elt, ast.Tuple) and len(elt.elts) == 3
+            and isinstance(elt.elts[0], ast.Constant)}
+    assert isinstance(runs["ring"], ast.Name) and runs["ring"].id == "base"

@@ -151,14 +151,8 @@ def test_engine_per_prompt_targets_and_tokenized_prompts(setup):
 
 @pytest.mark.parametrize("override", [
     dict(decode_completions=True),
-    dict(phase2_pool=True),
-    dict(phase2_pool=True, slot_repack=False),
-    # an int8 KV cache is ported; with the pool it still needs the pool
-    dict(kv_dtype="int8", phase2_pool=True),
     dict(prefill_chunk=32),
     dict(decode_k=2),
-    dict(oom_batch_ladder=(16, 8)),
-    dict(oom_batch_floor=4),
 ])
 def test_unsupported_engine_settings_raise(setup, override):
     tok = setup
@@ -177,13 +171,14 @@ def test_unsupported_engine_settings_raise(setup, override):
         eng.score_prompts(["Is soup a beverage?"])
 
 
-@pytest.mark.parametrize("case", ["confidence", "prefix_pairs", "mesh",
-                                  "t5"])
+@pytest.mark.parametrize("case", ["confidence", "pooled_confidence",
+                                  "prefix_pairs", "mesh", "t5"])
 def test_unsupported_calls_raise(setup, case):
     tok = setup
     tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
     weights = convert.random_params(tcfg, seed=0, device="cpu", dtype="fp32")
-    ecfg = tengine.EngineConfig(**ENGINE_KW)
+    ecfg = tengine.EngineConfig(**{**ENGINE_KW, "phase2_pool": True}
+                                if case == "pooled_confidence" else ENGINE_KW)
     kw = dict(engine_config=ecfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         if case == "mesh":
@@ -192,7 +187,7 @@ def test_unsupported_calls_raise(setup, case):
             tengine.ScoringEngine("t5", tcfg, weights, tok, **kw)
         else:
             eng = tengine.ScoringEngine("falcon", tcfg, weights, tok, **kw)
-            if case == "confidence":
+            if case.endswith("confidence"):
                 eng.score_prompts(["Is soup a beverage?"], with_confidence=True)
             else:
                 eng.score_prompts([("Is soup a beverage?", " Answer:")])

@@ -28,7 +28,8 @@ FORBIDDEN = {"jax", "jaxlib", "llm_interpretation_replication_tpu",
 
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "profile_torch_slice.py")]
+           os.path.join(ROOT, "scripts", "profile_torch_slice.py"),
+           os.path.join(ROOT, "scripts", "profile_torch_pooled.py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
         out += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
@@ -63,6 +64,7 @@ def test_port_imports_nothing_of_jax():
 @pytest.mark.parametrize("rel", [
     "chip_smoke.py",
     "scripts/profile_torch_slice.py",
+    "scripts/profile_torch_pooled.py",
     "llm_interpretation_replication_tpu_torch/ops/__init__.py",
     "llm_interpretation_replication_tpu_torch/ops/_build.py",
     "llm_interpretation_replication_tpu_torch/ops/attention.py",
@@ -70,10 +72,16 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/models/convert.py",
     "llm_interpretation_replication_tpu_torch/models/decoder.py",
     "llm_interpretation_replication_tpu_torch/runtime/engine.py",
+    "llm_interpretation_replication_tpu_torch/runtime/slots.py",
+    "llm_interpretation_replication_tpu_torch/runtime/faults.py",
+    "llm_interpretation_replication_tpu_torch/runtime/batching.py",
+    "llm_interpretation_replication_tpu_torch/runtime/plan.py",
+    "llm_interpretation_replication_tpu_torch/utils/telemetry.py",
 ])
 def test_slice_modules_are_guarded(rel):
-    """The modules the head-major kernels and the int8 path live in are
-    among the guarded sources and import nothing of JAX."""
+    """The modules the kernels, the int8 path, the pool, the slot ring and
+    the OOM ladder live in are among the guarded sources and import nothing
+    of JAX."""
     path = os.path.join(ROOT, rel)
     assert path in _port_sources()
     assert not _forbidden_imports(path)
@@ -164,3 +172,8 @@ def test_copied_plan_matches_reference():
                                    ref.chunks, ref.cache_key)
         assert tuple(got) == tuple(ref)
         assert plan.plan_cache_key(*args) == jplan.plan_cache_key(*args)
+    assert plan.POOL_LEN_MENU == jplan.POOL_LEN_MENU
+    assert plan.CONF_POOL_LEN_MENU == jplan.CONF_POOL_LEN_MENU
+    for n in (1, 64, 256, 257, 320, 448, 512, 600, 2048, 3000):
+        assert plan.pool_len_for(n) == jplan.pool_len_for(n)
+        assert plan.conf_pool_len_for(n) == jplan.conf_pool_len_for(n)
