@@ -53,7 +53,27 @@ line is printed):
    Last, one real OOM: under a per-process memory cap between the batch-32
    and the batch-64 need, the 128 longest prompts at batch 64 must step
    down to 32 and give run 3's rows;
-8. int8: the int8 product's int32 accumulators on the card against a CPU
+8. full study: the full-study row on the slice's weights at
+   ``EngineConfig()``: 96 prefixes of 100-440 tokens, each with a binary
+   and a confidence suffix of a scenario's format lengths (19-21 and 30-35
+   words).  A greedy pre-pass decodes both legs as the per-batch route
+   does, and gives the id tokenizer a decode map under which chosen tokens
+   read as a terminated number, so confidence rows retire mid-decode and
+   some position-0 candidates read as digits.  Five runs on the same rows:
+   the binary leg with its 50-token completion, the confidence leg
+   (``max_new_tokens=10``) on the ring, on whole flushes and per batch, and
+   ``score_prefixed`` with both legs over one prefix cache.  The per-batch
+   runs must reproduce the pre-pass; the pooled confidence rows and the
+   fused legs are held against them: position-0 fields identical (pooled)
+   or within FUSED_PROB_TOL (fused); completions may part only at a
+   near-tie, a step whose top-1 logit leads by less than twice the largest
+   rounding measured between two bf16 computations of the same logits;
+   rows that do not part agree in verdict, relative_prob and first
+   integer, and weighted confidence within STUDY_WC_TOL / FUSED_WC_TOL.
+   Each pooled row must be cut at the step its own tokens retire it, and
+   the retirement counters must be those of these steps; every prefill
+   must launch the causal kernel once a layer;
+9. int8: the int8 product's int32 accumulators on the card against a CPU
    int32 product at Falcon-7B's projection shapes; then the slice's prompts
    scored with w8a8 int8 weights (quantized as they are made), once with a
    bf16 and once with an int8 KV cache, held against the bf16 rows.
@@ -106,6 +126,37 @@ POOL_RELPROB_TOL = 0.02      # pooled routes vs the per-batch route
 # the memory cap of the OOM run: the batch-32 need times this factor; a
 # batch of 64 at bucket 384 holds 1.71x the tokens of one of 32 at 448
 OOM_BATCH, OOM_CAP_FACTOR, OOM_LONGEST = 64, 1.4, 128
+# the full-study phase: per scenario of data_assets/irrelevant_scenarios.json,
+# the word counts of its response_format (the binary suffix) and its
+# confidence_format (the confidence suffix); one token a word here
+SCENARIO_SUFFIX_WORDS = ((19, 32), (21, 35), (21, 31), (20, 30), (20, 31))
+STUDY_PROMPTS, CONF_CAP = 96, 10
+# per batch of 32: targets deciding rows at position 0, at look-ahead step 1
+# and never; a step-1 target lies outside position 0's top 64
+STUDY_ROLES, STUDY_OUTSIDE = (12, 10, 10), 64
+# confidence rows planned to retire, at most, in each batch of 32
+RETIRE_PER_BATCH = 18
+# Greedy decoding of random weights keeps meeting near-ties: a few tokens
+# take turns at the top.  Two bf16 computations of the same logits (another
+# batch composition, another cache layout) may then pick different tokens,
+# and the rows part there.  The phase measures that rounding: the largest
+# difference between the pre-pass decode's top-1 logit and one forward's
+# over the same tokens.  Two runs' completions may part only at a step
+# whose top-1 logit leads the next by less than NEAR_TIE_FACTOR times it
+# (two logits, each off by up to that much), and a planned retirement's
+# steps lead by more.
+NEAR_TIE_FACTOR = 2.0
+# weighted_confidence (0-100 scale): pooled vs per-batch rows, whose
+# position-0 candidates come from the same prefill, and fused vs unfused
+# rows, whose come from two bf16 computations of the same logits
+STUDY_WC_TOL, FUSED_WC_TOL = 0.01, 0.5
+# position-0 fields and relative_prob of rows that did not part: fused vs
+# unfused, where every logit differs by bf16 rounding (pooled vs per-batch:
+# position-0 fields identical, relative_prob as this)
+FUSED_PROB_TOL = 0.05
+# the top-20 filter of the position-0 fields: a target whose logit lies
+# within the near-tie of the 20th largest may fall on either side of it
+TOP_FILTER = 20
 # int8 runs against the bf16 engine on the same weights and prompts
 # (PARITY.md's w8a8 audit bounds) and int8 KV against bf16 KV (ROADMAP.md)
 W8A8_MEAN_DREL, W8A8_MAX_DREL = 0.02, 0.10
@@ -648,12 +699,16 @@ def forced_route_phase(attention, weights, cfg, ref_weights, batch,
     return out
 
 
-def _id_tokenizer(vocab_size):
+def _id_tokenizer(vocab_size, decode_map=None):
     """A tokenizer in which the word ``t<i>`` is token ``i``, for every id of
     the vocabulary: any token can then be named as a scoring target (the
-    engine takes the first id of ``" " + target``)."""
+    engine takes the first id of ``" " + target``).  Token ``i`` decodes to
+    ``" t<i>"``, or to ``decode_map[i]`` where given (the full-study phase
+    makes chosen tokens read as numbers)."""
     from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
         Encoding)
+
+    texts = dict(decode_map or {})
 
     class IdTokenizer:
         pad_token_id, eos_token_id = 0, 1
@@ -670,18 +725,21 @@ def _id_tokenizer(vocab_size):
             return Encoding(input_ids=[self.encode(t) for t in text])
 
         def decode(self, ids, skip_special_tokens=False):
-            return "".join(f" t{int(i)}" for i in ids)
+            return "".join(texts.get(int(i), f" t{int(i)}") for i in ids)
 
     return IdTokenizer()
 
 
-def _pool_targets(seed, weights, cfg, batches, n):
+def _pool_targets(seed, weights, cfg, batches, n, roles=POOL_ROLES,
+                  last_roles=OVERFLOW_ROLES, outside=5, by_lead=False):
     """Per-prompt (yes, no) targets from the prefill logits and one greedy
-    look-ahead step of each batch: in every batch ``POOL_ROLES`` rows are
+    look-ahead step of each batch: in every batch ``roles`` rows are
     decided at position 0 (yes = the top token there), resolve at step 1
-    (yes = step 1's top token, outside position 0's top 5) or never resolve
-    (both targets among position 0's lowest logits); the longest batch takes
-    ``OVERFLOW_ROLES``."""
+    (yes = step 1's top token, outside position 0's top ``outside``) or
+    never resolve (both targets among position 0's lowest logits); the
+    longest batch takes ``last_roles``.  The step-1 rows are drawn at
+    random, or (``by_lead``) are those whose greedy step-0 token leads the
+    next by the most, so that rounding does not change their step 1."""
     import numpy as np
     import torch
 
@@ -696,19 +754,27 @@ def _pool_targets(seed, weights, cfg, batches, n):
         _, sc, _, _, _ = decoder.decode_steps(
             weights, cfg, cache, last, mask.sum(-1), 0, 2, None, None,
             with_scores=True)
-        top0 = torch.topk(sc[:, 0], 5).indices.cpu().numpy()
+        top0, wide0 = (t.cpu().numpy() for t in torch.topk(
+            sc[:, 0], max(5, outside)).indices.split([5, max(0, outside - 5)],
+                                                       dim=-1))
+        vals0 = torch.topk(sc[:, 0], 2).values
+        gap0 = (vals0[:, 0] - vals0[:, 1]).cpu().numpy()
         low0 = torch.topk(sc[:, 0], 2, largest=False).indices.cpu().numpy()
         top1 = sc[:, 1].argmax(-1).cpu().numpy()
         del last, cache, sc
-        _, n_step1, n_never = (OVERFLOW_ROLES if bi == len(batches) - 1
-                               else POOL_ROLES)
+        _, n_step1, n_never = (last_roles if bi == len(batches) - 1
+                               else roles)
         real = np.flatnonzero(b.indices >= 0)
         eligible = [r for r in real if top1[r] not in top0[r]
-                    and top1[r] not in low0[r]]
+                    and top1[r] not in wide0[r] and top1[r] not in low0[r]]
         if len(eligible) < n_step1:
             raise AssertionError(f"batch {bi}: {len(eligible)} rows can "
                                  f"resolve at step 1, {n_step1} needed")
-        step1 = set(rng.choice(eligible, n_step1, replace=False).tolist())
+        if by_lead:
+            step1 = set(sorted(eligible, key=lambda r: -gap0[r])[:n_step1])
+        else:
+            step1 = set(rng.choice(eligible, n_step1,
+                                   replace=False).tolist())
         never = set(rng.permutation([r for r in real if r not in step1])
                     [:n_never].tolist())
         for r in real:
@@ -934,6 +1000,632 @@ def oom_run(cfg, weights, tok, prompts, targets, base, ring_rows, ring_res):
     return res
 
 
+def _study_inputs(seed, vocab_size):
+    """The full-study rows: ``STUDY_PROMPTS`` prefixes of 100-440 tokens
+    (``_prompts``) and, for row i, scenario i % 5's binary and confidence
+    suffixes, random ids of ``SCENARIO_SUFFIX_WORDS``'s lengths.  Returns
+    (prefixes, [(binary suffix, confidence suffix)] a row)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    scenarios = [(rng.integers(3, vocab_size, nb).tolist(),
+                  rng.integers(3, vocab_size, nc).tolist())
+                 for nb, nc in SCENARIO_SUFFIX_WORDS]
+    prefixes = _prompts(seed, _id_tokenizer(vocab_size), STUDY_PROMPTS)
+    return prefixes, [scenarios[i % len(scenarios)]
+                      for i in range(STUDY_PROMPTS)]
+
+
+def _retire_steps(tok, tokens, steps=CONF_CAP, completion_chars=100):
+    """Each row's retirement step under the pooled confidence leg's own rule
+    (``engine._Phase2Pool._conf_retired_at``) over its greedy tokens
+    ``[N, steps]``, checked from step 3: the first k whose k-token window
+    freezes the row, or -1."""
+    import types
+
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+
+    pool = types.SimpleNamespace(
+        eos_id=tok.eos_token_id, engine=types.SimpleNamespace(
+            tokenizer=tok, ecfg=types.SimpleNamespace(
+                completion_chars=completion_chars)))
+    return [next((k for k in range(min(3, steps), steps + 1)
+                  if emod._Phase2Pool._conf_retired_at(pool, row, k)), -1)
+            for row in tokens]
+
+
+def _retirement_plan(tokens, top_ids, batches, vocab_size, logits3,
+                     margin, per_batch=RETIRE_PER_BATCH,
+                     digit_ranks=range(1, 19)):
+    """Rows of the confidence leg to retire, and the decode map that makes
+    them retire, from a greedy pre-pass: ``tokens`` ``[N, steps]`` greedy
+    ids, ``top_ids`` ``[N, steps, k]`` each step's candidate ids by rank,
+    ``batches`` the rows of each batch.  Returns (decode map, {row: step}),
+    the plan holding every row the map retires.
+
+    A mapped token reads ``" <d>."`` (a number, then a non-word character):
+    a window that holds it holds a terminated integer, so a row retires at
+    the step of its first mapped token, or at step 3 (the first checked)
+    when that comes earlier.  Tokens are tried in order of the earliest
+    index they take in any window, and one is mapped unless a batch would
+    pass ``per_batch`` retiring rows.  Two of each row's position-0
+    candidates (at ``digit_ranks``) that no window holds read ``" 4"`` and
+    ``" 8"``, so ``weighted_confidence_digits`` sees digits; from the first
+    three positions' logits ``logits3`` ``[N, 3, V]``, only ids at least
+    ``margin`` from the top-19 edge at each of those positions of their
+    row, and ``margin`` below it everywhere else, so rounding moves no
+    digit into or out of a candidate list."""
+    import collections
+
+    import numpy as np
+
+    tokens = np.asarray(tokens)
+    n, steps = tokens.shape
+    batch_of = {int(r): bi for bi, rows in enumerate(batches) for r in rows}
+    holders = collections.defaultdict(set)
+    earliest = {}
+    for r in range(n):
+        for j, t in enumerate(tokens[r].tolist()):
+            holders[t].add(r)
+            if t not in (0, 1):
+                earliest[t] = min(earliest.get(t, steps), j)
+    decode_map = {}
+    plan = {r: k for r, k in enumerate(_retire_steps(
+        _id_tokenizer(vocab_size), tokens)) if k >= 0}
+    per = collections.Counter(batch_of[r] for r in plan)
+    for t in sorted(earliest, key=lambda t: (earliest[t], t)):
+        trial = {**decode_map, t: f" {1 + t % 9}."}
+        rows = sorted(holders[t])
+        new = dict(zip(rows, _retire_steps(_id_tokenizer(vocab_size, trial),
+                                           tokens[rows])))
+        added = collections.Counter(batch_of[r] for r in new if r not in plan)
+        if not added or any(per[b] + c > per_batch for b, c in added.items()):
+            continue
+        decode_map = trial
+        plan.update(new)
+        per.update(added)
+    k = top_ids.shape[2]
+    edge = -np.partition(-logits3, k - 1, axis=-1)[..., k - 1]      # [N, 3]
+
+    def clear(r, c):
+        off = logits3[:, :, c] - edge                                # [N, 3]
+        others = np.delete(off, r, axis=0)
+        return bool((np.abs(off[r]) >= margin).all()
+                    and (others <= -margin).all())
+
+    for r in range(n):
+        free = [int(c) for c in top_ids[r, 0, list(digit_ranks)]
+                if int(c) not in holders and int(c) not in decode_map
+                and clear(r, int(c))]
+        for c, text in zip(free, (" 4", " 8")):
+            decode_map[c] = text
+    return decode_map, plan
+
+
+def _observed_retirements(tok, decode_map, rows, steps=CONF_CAP):
+    """Each confidence row's retirement step, read off its own completion
+    (the rule of ``_retire_steps`` over the tokens its words name; a row
+    whose words end early without retiring met an EOS, on which it
+    retires), or -1; and whether it met an EOS."""
+    import numpy as np
+
+    ids = {text.strip(): t for t, text in decode_map.items()}
+    out, eos = [], []
+    for row in rows:
+        words = row["completion"].split()
+        toks = [int(w[1:]) if w[:1] == "t" and w[1:].isdigit() else ids[w]
+                for w in words]
+        r = (_retire_steps(tok, np.asarray([toks]), steps=len(toks))[0]
+             if toks else -1)
+        eos.append(r < 0 and len(toks) < steps)
+        out.append(max(3, len(toks) + 1) if eos[-1] else r)
+    return out, eos
+
+
+def _ring_steps_saved(r_stars, steps=CONF_CAP, chunk=5):
+    """``conf_steps_saved`` of rows on the slot ring: a row decodes whole
+    chunks from its admission, so one retiring at step r* leaves at the
+    end of the chunk holding r*."""
+    return sum(steps - min(steps, -(-r // chunk) * chunk)
+               for r in r_stars if r >= 0)
+
+
+def _flush_checkpoints(steps=CONF_CAP, chunk=5):
+    """The decoded counts after which a whole flush reads retirements:
+    after every chunk (3 positions, then ``chunk``) but the last."""
+    out, offset = [], 3
+    while offset < steps:
+        out.append(offset)
+        offset += chunk
+    return out
+
+
+def _flush_retirements(r_stars, steps=CONF_CAP, chunk=5):
+    """(retired rows, ``conf_steps_saved``) of one whole flush of these
+    rows, as ``engine._Phase2Pool._flush_confidence`` schedules it: chunks
+    of 3 then ``chunk`` positions, retirements read after every chunk but
+    the last; the rows retired so far leave the decode only when the
+    menu-padded count of live rows shrinks it."""
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+
+    n = len(r_stars)
+    m = emod._pad_slice(n, max(n, emod._SLICE_MENU[-1]))
+    in_cache, decoded, offset, last_check = list(range(n)), [0] * n, 0, 0
+    while offset < steps:
+        step = 3 if offset == 0 else min(chunk, steps - offset)
+        for r in in_cache:
+            decoded[r] = offset + step
+        offset += step
+        if offset >= steps:
+            break
+        last_check = offset
+        alive = [r for r in in_cache if not 0 <= r_stars[r] <= offset]
+        if not alive:
+            break
+        m2 = emod._pad_slice(len(alive), m)
+        if m2 < m:
+            in_cache, m = alive, m2
+    return (sum(0 <= r <= last_check for r in r_stars),
+            sum(steps - d for d in decoded))
+
+
+def _study_prepass(weights, cfg, batches, n, total, chunk, eos_id,
+                   target_ids, keep=0):
+    """Greedy tokens ``[n, total]``, each step's candidate ids by rank, its
+    top-1 logit and that logit's lead over the next, decoded as the per-batch
+    route decodes a leg: one prefill of each batch, then chunks of
+    ``chunk`` steps from the cache (the same calls on the same shapes, so
+    the same tokens).  Also each row's distance of its two target logits
+    ``target_ids`` ``[n, 2]`` from the TOP_FILTER-th largest at position 0
+    (the nearer of the two), and, for ``keep`` > 0, the full logits of the
+    first ``keep`` positions ``[n, keep, V]``."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    tokens = np.zeros((n, total), np.int64)
+    top_ids = np.zeros((n, total, decoder.REDUCED_TOPK), np.int64)
+    top1 = np.zeros((n, total), np.float32)
+    gaps = np.zeros((n, total), np.float32)
+    edge0 = np.zeros((n,), np.float32)
+    kept = np.zeros((n, keep, cfg.vocab_size), np.float32) if keep else None
+    for b in batches:
+        ids = torch.as_tensor(b.token_ids, device="cuda").long()
+        mask = torch.as_tensor(b.attention_mask, device="cuda")
+        lengths = mask.sum(-1)
+        prev, cache = decoder.prefill(weights, cfg, ids, mask, b.bucket_len)
+        real = b.indices >= 0
+        rows, done = b.indices[real], None
+        tgt = torch.as_tensor(np.asarray(target_ids)[
+            np.where(real, b.indices, b.indices[0])], device="cuda")
+        kth = torch.topk(prev, TOP_FILTER).values[:, -1:]
+        edge0[rows] = (prev.gather(1, tgt) - kth).abs().min(1).values \
+            .cpu().numpy()[real]
+        for offset in range(0, total, chunk):
+            k = min(chunk, total - offset)
+            full = offset < keep
+            toks, sc, cache, prev, done = decoder.decode_steps(
+                weights, cfg, cache, prev, lengths, offset, k, eos_id, done,
+                with_scores=True if full else "reduced", target_ids=tgt)
+            if full:
+                kept[rows, :keep - offset] = \
+                    sc[:, :keep - offset].cpu().numpy()[real]
+                sc = decoder.ReducedScores(
+                    *torch.topk(sc, decoder.REDUCED_TOPK), None, None)
+            vals = sc.topk_vals.cpu().numpy()[real]
+            tokens[rows, offset:offset + k] = toks.cpu().numpy()[real]
+            top_ids[rows, offset:offset + k] = sc.topk_ids.cpu().numpy()[real]
+            top1[rows, offset:offset + k] = vals[..., 0]
+            gaps[rows, offset:offset + k] = vals[..., 0] - vals[..., 1]
+        del prev, cache, sc
+    return tokens, top_ids, top1, gaps, edge0, kept
+
+
+def _completion_of(tok, toks, completion_chars=100):
+    """The completion text the engine records for these greedy tokens
+    (``ScoringEngine._completion_text``)."""
+    import types
+
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+
+    stub = types.SimpleNamespace(tokenizer=tok, ecfg=types.SimpleNamespace(
+        completion_chars=completion_chars))
+    return emod.ScoringEngine._completion_text(stub, toks, tok.eos_token_id)
+
+
+def _teacher_top1(weights, cfg, prompts, continuations, batch=BATCH):
+    """Top-1 logit at every step of each row's continuation ``[N, L]``,
+    from one forward over prompt + continuation: a second bf16 computation
+    of the logits the decode saw."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    tree = decoder._tree(weights)
+    n, steps = len(prompts), max(map(len, continuations))
+    top1 = np.full((n, steps), np.nan, np.float32)
+    for lo in range(0, n, batch):
+        seqs = [list(p) + list(c) for p, c in
+                zip(prompts[lo:lo + batch], continuations[lo:lo + batch])]
+        width = max(map(len, seqs))
+        ids = torch.zeros((len(seqs), width), dtype=torch.long, device="cuda")
+        mask = torch.zeros((len(seqs), width), dtype=torch.int32,
+                           device="cuda")
+        pos = torch.zeros((len(seqs), steps), dtype=torch.long,
+                          device="cuda")
+        for i, seq in enumerate(seqs):
+            ids[i, :len(seq)] = torch.tensor(seq, device="cuda")
+            mask[i, :len(seq)] = 1
+            start = len(prompts[lo + i]) - 1
+            pos[i] = torch.arange(start, start + steps).clamp(max=width - 1)
+        x, _ = decoder._trunk(tree, cfg, ids, mask)
+        h = x[torch.arange(len(seqs), device="cuda")[:, None], pos]
+        vals = decoder._unembed(cfg, tree, h).amax(-1).cpu().numpy()
+        for i in range(len(seqs)):
+            k = len(continuations[lo + i])
+            top1[lo + i, :k] = vals[i, :k]
+        del x, h
+    return top1
+
+
+def _compare_rows(what, rows, ref, ref_gaps, ref_edge0, near_tie,
+                  exact_pos0, wc_tol, cut=()):
+    """Hold study rows against ``ref`` of another run.
+
+    The position-0 fields come from the prefill: identical
+    (``exact_pos0``) or within FUSED_PROB_TOL, unless a target logit lies
+    within ``near_tie`` of the top-filter's edge (``ref_edge0`` ``[N]``).  Where the two completions
+    part (at the first differing word; a row in ``cut`` may stop early, a
+    prefix of the reference's), the reference's step there must lead by
+    less than ``near_tie`` (``ref_gaps`` ``[N, steps]``): a near-tie
+    rounding may turn.  Rows that never part must agree in first-integer
+    parse and, unless cut (their scan reads only the positions before their
+    retirement), in verdict and relative_prob within FUSED_PROB_TOL;
+    weighted_confidence (read at positions 0-2) is held to ``wc_tol`` on
+    every row that agrees through its first two tokens.  Returns (stats,
+    failures)."""
+    from llm_interpretation_replication_tpu_torch.scoring.confidence import (
+        extract_first_int)
+
+    _check_rows(rows, len(ref))
+    fails, parted, cut_rows = [], [], 0
+    worst = dict(relative_prob=0.0, position0=0.0, weighted_confidence=0.0)
+    for i, (a, b) in enumerate(zip(rows, ref)):
+        for f in ("first_token_yes_prob", "first_token_no_prob",
+                  "first_token_relative_prob"):
+            d = abs(a[f] - b[f])
+            worst["position0"] = max(worst["position0"], d)
+            if ((exact_pos0 and d) or d > FUSED_PROB_TOL) \
+                    and not ref_edge0[i] < near_tie:
+                fails.append(f"row {i} {f} {a[f]} vs {b[f]}")
+        wa, wb = a["completion"].split(), b["completion"].split()
+        n = min(len(wa), len(wb))
+        part = next((j for j in range(n) if wa[j] != wb[j]), None)
+        if part is None and len(wa) != len(wb) and not (
+                i in cut and len(wa) < len(wb)):
+            part = n
+        if part is not None:
+            gap = float(ref_gaps[i, part]) if part < ref_gaps.shape[1] \
+                else float("inf")
+            parted.append(gap)
+            if not gap < near_tie:
+                fails.append(f"row {i} parts at step {part} (lead {gap}): "
+                             f"{a['completion']!r} vs {b['completion']!r}")
+        else:
+            if extract_first_int(a["completion"]) != \
+                    extract_first_int(b["completion"]):
+                fails.append(f"row {i} first integer")
+            if len(wa) < len(wb):
+                cut_rows += 1
+            else:
+                if a["scan_found"] != b["scan_found"]:
+                    fails.append(f"row {i} scan_found")
+                d = abs(a["relative_prob"] - b["relative_prob"])
+                worst["relative_prob"] = max(worst["relative_prob"], d)
+                if d > FUSED_PROB_TOL:
+                    fails.append(f"row {i} relative_prob {d}")
+        if "weighted_confidence" in b and (part is None or part >= 2):
+            wca, wcb = a["weighted_confidence"], b["weighted_confidence"]
+            if (wca is None) != (wcb is None):
+                fails.append(f"row {i} weighted_confidence {wca} vs {wcb}")
+            elif wca is not None:
+                worst["weighted_confidence"] = max(
+                    worst["weighted_confidence"], abs(wca - wcb))
+                if abs(wca - wcb) > wc_tol:
+                    fails.append(f"row {i} weighted_confidence {wca} "
+                                 f"vs {wcb}")
+    worst.update(parted_rows=len(parted), cut_rows=cut_rows,
+                 widest_lead_where_parted=max(parted, default=None))
+    return worst, [f"{what}: {f}" for f in fails]
+
+
+def _quantiles(a):
+    import numpy as np
+
+    a = np.asarray(a, np.float64).ravel()
+    a = a[np.isfinite(a)]
+    return [float(q) for q in np.quantile(a, (0, 0.01, 0.1, 0.5, 0.9, 1))] \
+        if a.size else []
+
+
+def full_study_phase(seed, attention, weights):
+    """The full-study row on Falcon-7B: the binary leg with its 50-token
+    completion and the confidence leg, unfused through ``score_prompts``
+    (the confidence leg on the ring, on whole flushes and per batch) and
+    fused through ``score_prefixed`` over one prefix cache, on prompts
+    whose decode map makes planned confidence rows retire mid-decode."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.utils import telemetry
+
+    device = "cuda"
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
+    base = emod.EngineConfig()
+    prefixes, suffixes = _study_inputs(seed, cfg.vocab_size)
+    binary = [p + s[0] for p, s in zip(prefixes, suffixes)]
+    conf = [p + s[1] for p, s in zip(prefixes, suffixes)]
+    pairs = [(p, s) for p, s in zip(prefixes, suffixes)]
+
+    def batches(prompts):
+        return list(batching.batches_for_prompts(
+            prompts, base.batch_size, base.buckets, pad_id=0,
+            length_sorted=True))
+
+    t0 = time.perf_counter()
+    conf_batches, bin_batches = batches(conf), batches(binary)
+    targets = _pool_targets(seed, weights, cfg, bin_batches,
+                            STUDY_PROMPTS, roles=STUDY_ROLES,
+                            last_roles=STUDY_ROLES, outside=STUDY_OUTSIDE,
+                            by_lead=True)
+    # the per-batch runs' own decodes: the confidence leg (one chunk of
+    # CONF_CAP) and the binary leg (max_new_tokens in scan_steps chunks)
+    target_ids = np.asarray([[int(t[1:]) for t in pair] for pair in targets])
+    tokens, top_ids, top1, gaps, edge0, logits3 = _study_prepass(
+        weights, cfg, conf_batches, STUDY_PROMPTS, CONF_CAP, CONF_CAP, 1,
+        target_ids, keep=3)
+    steps, gen_total = base.max_look_ahead, base.max_new_tokens
+    bin_tokens, _, _, bin_gaps, bin_edge0, _ = _study_prepass(
+        weights, cfg, bin_batches, STUDY_PROMPTS, gen_total, steps, 1,
+        target_ids)
+    # the rounding between two bf16 computations of the same logits: the
+    # pre-pass's decode and one forward over the prompt and its tokens
+    tf_top1 = _teacher_top1(weights, cfg, conf, tokens.tolist())
+    noise = np.abs(tf_top1 - top1)
+    near_tie = NEAR_TIE_FACTOR * float(noise.max())
+    groups = [b.indices[b.indices >= 0] for b in conf_batches]
+    decode_map, plan = _retirement_plan(tokens, top_ids, groups,
+                                        cfg.vocab_size, logits3, near_tie)
+    del logits3
+    tok = _id_tokenizer(cfg.vocab_size, decode_map)
+    r_stars = _retire_steps(tok, tokens)
+    planned = {r: k for r, k in enumerate(r_stars) if k >= 0}
+
+    def schedule(obs):
+        """(retired rows, steps saved) on the ring and on whole flushes
+        (one a batch) for these retirement steps."""
+        flushes = [_flush_retirements([obs[int(i)] for i in g])
+                   for g in groups]
+        return dict(ring=(sum(r >= 0 for r in obs), _ring_steps_saved(obs)),
+                    flush=tuple(map(sum, zip(*flushes))))
+
+    expect = schedule(r_stars)
+    os.makedirs("chiprun_out", exist_ok=True)
+    np.savez_compressed(
+        os.path.join("chiprun_out", "full_study_prepass.npz"),
+        tokens=tokens, top_ids=top_ids, top1=top1, gaps=gaps,
+        teacher_top1=tf_top1, edge0=edge0, target_ids=target_ids,
+        batches=np.asarray([b.indices for b in conf_batches]))
+    say("full_study: " + json.dumps(dict(
+        prompts=STUDY_PROMPTS, prefix_buckets=[b.bucket_len for b in
+                                               batches(prefixes)],
+        planned_retirements={str(k): sum(v == k for v in plan.values())
+                             for k in sorted(set(plan.values()))},
+        natural_retirements=len(planned) - len(plan), expected=expect,
+        lead_quantiles=_quantiles(gaps),
+        top1_logit_quantiles=_quantiles(top1),
+        top1_two_computations_abs_diff_quantiles=_quantiles(noise),
+        near_tie=near_tie,
+        planned_rows_leading_by_near_tie=sum(
+            float(gaps[r, :k].min()) >= near_tie for r, k in plan.items()),
+        prepass_s=time.perf_counter() - t0)))
+    fails = []
+    if planned != plan or not plan:
+        fails.append(f"the decode map retires {planned}, planned {plan}")
+
+    counted = {"prefill": 0, "extend_prefill": 0}
+    real = {name: getattr(decoder, name) for name in counted}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counted[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    runs, rows = {}, {}
+
+    def timed(name, call, ecfg):
+        engine = emod.ScoringEngine("falcon", cfg, weights, tok,
+                                    engine_config=ecfg, device=device)
+        call(engine, slice(0, base.batch_size))             # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        telemetry.clear_counters()
+        _reset_launches(attention)
+        for k in counted:
+            counted[k] = 0
+        t0 = time.perf_counter()
+        out = call(engine, slice(None))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        c = telemetry.counters()
+        launches = _launches(attention)["causal_grouped_attention"]
+        res = dict(run=name, rows_per_s=STUDY_PROMPTS / elapsed,
+                   seconds=elapsed,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   kernel_launches=launches, prefills=counted["prefill"],
+                   extend_prefills=counted["extend_prefill"],
+                   **{k: c.get(k, 0) for k in (
+                       "decode_steps_saved", "conf_steps_saved",
+                       "pooled_conf_retired_rows", "pooled_conf_rows",
+                       "completion_cache_bytes_freed", "prefix_hit",
+                       "prefix_miss")})
+        engine.close()
+        runs[name], rows[name] = res, out
+        say("full_study", json.dumps(res))
+
+    conf_kw = dict(with_confidence=True, max_new_tokens=CONF_CAP)
+    legs = [emod.LegSpec("binary"), emod.LegSpec("confidence", **conf_kw)]
+    for name in counted:
+        setattr(decoder, name, counting(name))
+    try:
+        timed("binary", lambda e, sl: e.score_prompts(binary[sl],
+                                                      targets[sl]), base)
+        for name, ecfg in (
+                ("confidence_ring", base),
+                ("confidence_flush",
+                 dataclasses.replace(base, slot_repack=False)),
+                ("confidence_per_batch",
+                 dataclasses.replace(base, pooled_confidence=False))):
+            timed(name, lambda e, sl: e.score_prompts(
+                conf[sl], targets[sl], **conf_kw), ecfg)
+        timed("fused", lambda e, sl: e.score_prefixed(
+            pairs[sl], targets[sl], legs=legs), base)
+    finally:
+        for name in counted:
+            setattr(decoder, name, real[name])
+    unfused_s = runs["binary"]["seconds"] + runs["confidence_ring"]["seconds"]
+    runs["unfused"] = dict(run="unfused (binary + confidence_ring)",
+                           rows_per_s=STUDY_PROMPTS / unfused_s,
+                           seconds=unfused_s)
+
+    # where the time goes, on the longest prefix batch: the prefix prefill,
+    # the confidence suffix's extension, the joined prompt's prefill, and a
+    # look-ahead chunk from the extended cache
+    pb = batches(prefixes)[-1]
+    ids = torch.as_tensor(pb.token_ids, device=device).long()
+    mask = torch.as_tensor(pb.attention_mask, device=device)
+    plen = mask.sum(-1)
+    members = [int(i) if i >= 0 else int(pb.indices[0]) for i in pb.indices]
+    sb = batching.suffix_bucket_for(max(len(suffixes[i][1])
+                                        for i in members))
+    sids = torch.zeros((ids.shape[0], sb), dtype=torch.long, device=device)
+    smask = torch.zeros((ids.shape[0], sb), dtype=torch.int32, device=device)
+    for r, i in enumerate(members):
+        suf = suffixes[i][1]
+        sids[r, :len(suf)] = torch.tensor(suf, device=device)
+        smask[r, :len(suf)] = 1
+    _, pcache = decoder.prefill(weights, cfg, ids, mask, pb.bucket_len)
+    prefix_ms = time_ms(lambda: decoder.prefill(
+        weights, cfg, ids, mask, pb.bucket_len), iters=3, warmup=1)
+    extend_ms = time_ms(lambda: decoder.extend_prefill(
+        weights, cfg, pcache, sids, smask, plen), iters=3, warmup=1)
+    joined = [conf[i] for i in members]
+    jb = batching._emit_batch(
+        list(enumerate(joined)), len(joined),
+        batching.bucket_for(max(map(len, joined)), base.buckets), 0)
+    jids = torch.as_tensor(jb.token_ids, device=device).long()
+    jmask = torch.as_tensor(jb.attention_mask, device=device)
+    joined_ms = time_ms(lambda: decoder.prefill(
+        weights, cfg, jids, jmask, jb.bucket_len), iters=3, warmup=1)
+    last, cache, lens = decoder.extend_prefill(weights, cfg, pcache, sids,
+                                               smask, plen)
+    tgt = torch.zeros((ids.shape[0], 2), dtype=torch.long, device=device)
+    step_ms = time_ms(lambda: decoder.decode_steps(
+        weights, cfg, cache, last, lens, 0, base.scan_chunk, None, None,
+        with_scores="reduced", target_ids=tgt), iters=2,
+        warmup=1) / base.scan_chunk
+    del pcache, last, cache
+    timing = dict(prefix_bucket=pb.bucket_len, suffix_bucket=sb,
+                  joined_bucket=jb.bucket_len, prefix_prefill_ms=prefix_ms,
+                  extend_prefill_ms=extend_ms, joined_prefill_ms=joined_ms,
+                  lookahead_step_ms=step_ms)
+    say("full_study timing", json.dumps(timing))
+
+    # gates.  The per-batch confidence run decodes as the pre-pass did, so
+    # its tokens are the pre-pass's and its leads are known; the pooled
+    # routes and the fused leg are held against it.  The fused binary leg is
+    # held against the unfused binary run, whose leads come from one
+    # forward over each prompt and its completion.
+    stats = {}
+    for name, toks in (("confidence_per_batch", tokens),
+                       ("binary", bin_tokens)):
+        same = [r["completion"] == _completion_of(tok, t)
+                for r, t in zip(rows[name], toks)]
+        stats[f"{name}_rows_as_prepass"] = sum(same)
+        if not all(same):
+            fails.append(f"{name}: {len(same) - sum(same)} completions "
+                         f"differ from the pre-pass decode")
+    cut = set(planned)
+    for name, got, ref, ref_gaps, ref_edge0, exact, tol, c in (
+            ("confidence_ring", rows["confidence_ring"],
+             rows["confidence_per_batch"], gaps, edge0, True, STUDY_WC_TOL,
+             cut),
+            ("confidence_flush", rows["confidence_flush"],
+             rows["confidence_per_batch"], gaps, edge0, True, STUDY_WC_TOL,
+             cut),
+            ("fused_confidence", rows["fused"][1],
+             rows["confidence_per_batch"], gaps, edge0, False, FUSED_WC_TOL,
+             cut),
+            ("fused_binary", rows["fused"][0], rows["binary"], bin_gaps,
+             bin_edge0, False, FUSED_WC_TOL, ())):
+        stats[name], f = _compare_rows(name, got, ref, ref_gaps, ref_edge0,
+                                       near_tie, exact, tol, c)
+        fails += f
+    # retirements: each pooled run's rows are cut at the step their own
+    # tokens retire them (a row that parted from the pre-pass may retire
+    # elsewhere), and the counters are those of these steps; on the rows
+    # that did not part, the steps are the planned ones
+    for name, kind, got_rows in (
+            ("confidence_ring", "ring", rows["confidence_ring"]),
+            ("confidence_flush", "flush", rows["confidence_flush"]),
+            ("fused", "ring", rows["fused"][1])):
+        obs, eos = _observed_retirements(tok, decode_map, got_rows)
+        last_check = CONF_CAP if kind == "ring" else _flush_checkpoints()[-1]
+        for i, (row, r) in enumerate(zip(got_rows, obs)):
+            words = len(row["completion"].split())
+            if not eos[i] and words != (r if 0 <= r <= last_check
+                                        else CONF_CAP):
+                fails.append(f"{name}: row {i} cut after {words} tokens, "
+                             f"retires at {r}")
+        got = (runs[name]["pooled_conf_retired_rows"],
+               runs[name]["conf_steps_saved"])
+        want = schedule(obs)[kind]
+        stats[f"{name}_retired_as_planned"] = sum(
+            obs[r] == k for r, k in planned.items())
+        if got != want or not all(got):
+            fails.append(f"{name}: retired rows and steps saved {got}, "
+                         f"{want} by the rows' own retirements "
+                         f"(planned {expect[kind]})")
+    for name, res in runs.items():
+        if "prefills" in res and (
+                res["kernel_launches"] != cfg.num_layers * res["prefills"]
+                or not res["prefills"]):
+            fails.append(f"{name}: {res['kernel_launches']} causal launches "
+                         f"for {res['prefills']} prefills")
+    wc = [r["weighted_confidence"] for r in rows["confidence_per_batch"]]
+    stats["weighted_confidence_rows"] = sum(w is not None for w in wc)
+    if not stats["weighted_confidence_rows"]:
+        fails.append("no confidence row saw a digit candidate")
+    stats["binary_lead_quantiles"] = _quantiles(bin_gaps)
+    result = dict(prompts=STUDY_PROMPTS, runs=list(runs.values()),
+                  timing=timing, expected=expect, stats=stats,
+                  failures=fails[:50])
+    say("full_study gates", json.dumps(dict(stats=stats,
+                                            failures=len(fails))))
+    if fails:
+        raise AssertionError(f"full_study: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
 def int8_phase(seed, attention, bf16_rows):
     """The int8 product's accumulators on the card, then w8a8 scoring of the
     slice's prompts with a bf16 and an int8 KV cache."""
@@ -1100,11 +1792,13 @@ def main(argv=None):
     erows = edge_phase(attention, gen)
     sres, bf16_rows, weights = slice_phase(args.seed, attention)
     pres = pooled_phase(args.seed, attention, weights)
+    fres = full_study_phase(args.seed, attention, weights)
     del weights
     torch.cuda.empty_cache()
     ires = int8_phase(args.seed, attention, bf16_rows)
 
-    launches = {"causal_grouped_attention": sres["kernel_launches"],
+    fused = next(r for r in fres["runs"] if r["run"] == "fused")
+    launches = {"causal_grouped_attention": fused["kernel_launches"],
                 "grouped_attention": sres["forced_routes"]["grouped"]["launches"],
                 "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
     kernels = []
@@ -1125,7 +1819,8 @@ def main(argv=None):
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build=build,
                        edge_rows=erows, kernel_rows=krows, slice=sres,
-                       pooled=pres, int8=ires, kernels=kernels), f, indent=1)
+                       pooled=pres, full_study=fres, int8=ires,
+                       kernels=kernels), f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

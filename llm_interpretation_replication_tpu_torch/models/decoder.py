@@ -22,6 +22,8 @@ through ``ops.attention.attention_bsnd`` (the Hopper kernel on the card) when
 ``DecoderConfig.use_flash_attention`` says so, else the dense path.  With
 ``kv_cache_dtype="int8"`` the prompt cache stores int8 codes and per-head
 scales, quantized on append and dequantized at the decode attention.
+:func:`extend_prefill` runs a suffix over a prefilled prefix cache (the
+fused prefix-reuse path) through ``ops.attention.cache_extend_attention``.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from torch import nn
 
 from .config import DecoderConfig
 from ..ops import quant
-from ..ops.attention import NEG_INF, attention_bsnd
+from ..ops.attention import NEG_INF, attention_bsnd, cache_extend_attention
 
 
 class DecoderWeights(nn.Module):
@@ -525,6 +527,85 @@ def prefill(params, cfg: DecoderConfig, token_ids, attention_mask, cache_len: in
     x, cache = _trunk(params, cfg, token_ids, attention_mask, cache_len)
     last = _unembed(cfg, params, _last_hidden(x, attention_mask))[:, 0, :]
     return last, cache
+
+
+def _attn_extend(cfg: DecoderConfig, lp, x, sin_cos, bias, kp_l, vp_l,
+                 ks_l=None, vs_l=None):
+    """Attention sub-block of a suffix-extension prefill: the suffix's
+    queries over the read-only prefix cache slice of this layer plus the
+    suffix's own K/V, one joint softmax (``cache_extend_attention``, which
+    dequantizes an int8 prefix block with ``ks_l``/``vs_l``).  Returns the
+    suffix's K/V for the caller to append to the cache."""
+    q, k, v = _qkv(cfg, lp["attn"], x, sin_cos)
+    out = cache_extend_attention(q, kp_l, vp_l, k, v, bias,
+                                 kp_scale=ks_l, vp_scale=vs_l)
+    return _out_proj(lp["attn"], out), (k, v)
+
+
+def _block_extend(cfg: DecoderConfig, lp, x, sin_cos, bias, kp_l, vp_l,
+                  ks_l=None, vs_l=None):
+    ln1_out = _norm(cfg, x, lp["ln1"])
+    attn_out, new_kv = _attn_extend(cfg, lp, ln1_out, sin_cos, bias, kp_l,
+                                    vp_l, ks_l, vs_l)
+    return _residual(cfg, lp, x, ln1_out, attn_out), new_kv
+
+
+@torch.no_grad()
+def extend_prefill(params, cfg: DecoderConfig, cache: KVCache, token_ids,
+                   attention_mask, prefix_lengths):
+    """Suffix-extension prefill: the trunk over ``token_ids`` ([B, S]
+    right-padded suffix tokens) attending over a prefilled prefix
+    :class:`KVCache`, so each leg of a fused call extends one shared prefix
+    cache instead of re-running the whole prompt.
+
+    Suffix token j of row b sits at position ``prefix_lengths[b] + j``; one
+    bias over the concatenated key axis (prefix slots, then suffix slots)
+    gives causal masking inside the suffix and full sight of the valid
+    prefix, the mask the full-prompt prefill builds.  The returned cache
+    appends the suffix block's K/V (quantized on append for an int8 cache)
+    and positions, so :func:`decode_steps` continues from it as from
+    :func:`prefill`'s; the input cache is not modified.
+
+    Returns (last_logits [B, V] fp32 at each row's last real suffix token,
+    the extended KVCache, total lengths [B] = prefix + suffix real
+    tokens)."""
+    params = _tree(params)
+    quantized = cache.k_scale is not None
+    if quantized != (cfg.kv_cache_dtype == "int8"):
+        raise ValueError(
+            f"cache quantization ({'int8' if quantized else 'bf16'}) does "
+            f"not match cfg.kv_cache_dtype={cfg.kv_cache_dtype!r}")
+    s = token_ids.shape[1]
+    mask = attention_mask.bool()
+    positions = prefix_lengths[:, None] + _positions(attention_mask)  # [B, S]
+    x = _embed(cfg, params, token_ids, positions)
+    sin_cos = None
+    if cfg.position_embedding == "rotary":
+        sin_cos = rotary_embedding(positions, _rotary_dim(cfg), cfg.rope_theta,
+                                   params["embed"]["tokens"].dtype)
+    kv_positions = torch.cat([cache.positions, positions], dim=1)
+    kv_valid = torch.cat([cache.valid, mask], dim=1)
+    bias = make_attention_bias(cfg, positions, kv_positions, kv_valid)
+    per_layer = []
+    for i in range(cfg.num_layers):
+        x, (k_s, v_s) = _block_extend(
+            cfg, _layer(params["layers"], i), x, sin_cos, bias,
+            cache.k[i], cache.v[i],
+            cache.k_scale[i] if quantized else None,
+            cache.v_scale[i] if quantized else None)
+        per_layer.append(_quantize_append(cfg, k_s, v_s))
+    ks, vs, kss, vss = zip(*per_layer)
+    last = _unembed(cfg, params, _last_hidden(x, attention_mask))[:, 0, :]
+    new_cache = KVCache(
+        k=torch.cat([cache.k, torch.stack(ks).to(cache.k.dtype)], dim=2),
+        v=torch.cat([cache.v, torch.stack(vs).to(cache.v.dtype)], dim=2),
+        positions=kv_positions, valid=kv_valid, length=cache.length + s,
+        k_scale=(torch.cat([cache.k_scale, torch.stack(kss)], dim=2)
+                 if quantized else None),
+        v_scale=(torch.cat([cache.v_scale, torch.stack(vss)], dim=2)
+                 if quantized else None),
+    )
+    return last, new_cache, prefix_lengths + attention_mask.sum(-1)
 
 
 #: Candidates kept per step by the reduced score mode (the confidence leg's

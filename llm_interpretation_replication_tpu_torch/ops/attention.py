@@ -16,6 +16,9 @@ CPU tensor it computes its plain version:
   input dtype; :func:`_dense_attention` -- the reference's dense path.
 - :func:`attention` (head-major) and :func:`attention_bsnd` (projection
   layout) -- the dispatchers.
+- :func:`cache_extend_attention` -- the suffix-extension prefill's attention
+  over a prefilled prefix cache, a plain PyTorch op as in the reference,
+  which has no Pallas kernel for it.
 
 All three kernels run one Hopper tile core, ``csrc/attention_tile.cuh``
 (an asynchronous K/V ring, ``wgmma`` for both products), each with its own
@@ -271,3 +274,40 @@ def attention_bsnd(q, k, v, lengths, causal: bool = True,
         return causal_grouped_attention(q, k, v, lengths, causal)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     return attention(qh, kh, vh, lengths, causal, force=force).transpose(1, 2)
+
+
+def cache_extend_attention(q, kp, vp, kt, vt, bias,
+                           kp_scale=None, vp_scale=None):
+    """Attention of a suffix-extension prefill (``decoder.extend_prefill``):
+    the suffix's queries attend jointly over the read-only prefix cache block
+    and the suffix's own K/V.
+
+    q ``[B, S, N, D]``; kp/vp ``[B, T, G, D]`` the prefix block; kt/vt
+    ``[B, S, G, D]`` the suffix's own K/V; bias fp32 additive ``[B, N or 1,
+    S, T + S]`` over the concatenated key axis (the caller owns positions
+    and validity).  ``kp_scale``/``vp_scale`` ``[B, T, G]``: an int8 prefix
+    block is dequantized here, right before the softmax; the suffix's K/V
+    are exact.
+
+    One joint softmax in float32 over the concatenated keys (not the
+    decode's two-block split), with MQA/GQA K/V repeated to the query heads
+    as the dense prompt path repeats them: masked prefix slots contribute
+    exact zeros, so this is the dense full-prompt attention over the same
+    keys.  Products run in the query dtype, as the reference's."""
+    from . import quant
+
+    kp = (quant.dequantize_kv(kp, kp_scale, kt.dtype) if kp_scale is not None
+          else kp.to(kt.dtype))
+    vp = (quant.dequantize_kv(vp, vp_scale, vt.dtype) if vp_scale is not None
+          else vp.to(vt.dtype))
+    k = torch.cat([kp, kt], dim=1)
+    v = torch.cat([vp, vt], dim=1)
+    b, t, g, d = k.shape
+    n = q.shape[2]
+    if g != n:
+        k = k[:, :, :, None, :].expand(b, t, g, n // g, d).reshape(b, t, n, d)
+        v = v[:, :, :, None, :].expand(b, t, g, n // g, d).reshape(b, t, n, d)
+    scale = torch.tensor(math.sqrt(d), dtype=q.dtype)
+    scores = torch.einsum("bsnd,btnd->bnst", q, k) / scale
+    probs = torch.softmax(scores.float() + bias, dim=-1).to(q.dtype)
+    return torch.einsum("bnst,btnd->bsnd", probs, v)

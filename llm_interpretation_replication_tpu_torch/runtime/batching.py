@@ -1,6 +1,8 @@
 """Length-bucketed batching (a copy of ``runtime/batching.py``'s
 ``Batch``/``bucket_for``/``batches_for_prompts``/``rebatch``/
-``encode_prompts``, without the tracer and telemetry).
+``encode_prompts`` and the fused path's ``SUFFIX_BUCKETS``/
+``suffix_bucket_for``/``encode_prefix_pairs``, without the tracer and
+telemetry).
 
 Batches pad to a fixed menu of lengths and to a full batch of rows (pad
 rows duplicate row 0 and carry index -1), so every batch has one of a few
@@ -10,7 +12,7 @@ shapes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -129,3 +131,54 @@ def encode_prompts(tokenizer, prompts: Sequence, add_special_tokens: bool = True
         if out[i] is None:
             out[i] = [int(t) for t in p]
     return out
+
+
+#: Pad-length menu of the fused path's suffix blocks (the per-leg format
+#: strings appended to a shared prefix, ``engine.score_prefixed``): real
+#: response and confidence formats run 8-25 tokens; anything longer rounds
+#: up to a multiple of 64 instead of raising.
+SUFFIX_BUCKETS = (8, 16, 24, 32, 48, 64)
+
+
+def suffix_bucket_for(length: int,
+                      buckets: Sequence[int] = SUFFIX_BUCKETS) -> int:
+    for b in buckets:
+        if length <= b:
+            return b
+    return -(-length // 64) * 64
+
+
+def encode_prefix_pairs(
+    tokenizer, pairs: Sequence,
+) -> Tuple[List[List[int]], List[List[List[int]]]]:
+    """Tokenize ``(prefix, suffixes)`` pairs once each for the fused
+    prefix-reuse path: prefixes encode with special tokens (they open the
+    prompt), suffixes without (they continue it), both memoized on their
+    text, so a format string shared by every row tokenizes once a call.
+    Entries that are already token-id sequences pass through.
+
+    Returns ``(prefix_encoded[N], suffix_encoded[n_legs][N])``."""
+    n_legs = len(pairs[0][1]) if pairs else 0
+    memo: dict = {}
+
+    def enc(text, special: bool) -> List[int]:
+        if not isinstance(text, str):
+            return [int(t) for t in text]
+        key = (special, text)
+        ids = memo.get(key)
+        if ids is None:
+            ids = memo[key] = list(tokenizer(
+                [text], add_special_tokens=special)["input_ids"][0])
+        return list(ids)
+
+    prefix_encoded = []
+    suffix_encoded: List[List[List[int]]] = [[] for _ in range(n_legs)]
+    for prefix, suffixes in pairs:
+        if len(suffixes) != n_legs:
+            raise ValueError(
+                f"every pair must carry {n_legs} suffixes; got "
+                f"{len(suffixes)}")
+        prefix_encoded.append(enc(prefix, True))
+        for li, suffix in enumerate(suffixes):
+            suffix_encoded[li].append(enc(suffix, False))
+    return prefix_encoded, suffix_encoded

@@ -1,16 +1,30 @@
-"""ScoringEngine for the port: binary-leg yes/no scoring.
+"""ScoringEngine for the port: yes/no scoring, completions and the
+verbalized-confidence leg.
 
-Port of ``runtime/engine.py``'s binary leg of ``score_prompts`` under
-``EngineConfig(decode_completions=False)``, with every other field at the
-reference's default or any value the port honours:
+Port of ``runtime/engine.py``'s ``score_prompts`` and ``score_prefixed``
+with every ``EngineConfig`` field at the reference's default or any value
+the port honours:
 
 1. prompt prefill (``models.decoder.prefill``; its attention is the Hopper
    kernel when ``attention_impl`` selects flash) and the position-0 top-k
    scan with the top-20-filtered position-0 probabilities;
 2. a scored greedy look-ahead over only the undecided rows, and the yes/no
-   scan over its ``ReducedScores``.
+   scan over its ``ReducedScores``;
+3. with ``decode_completions`` (the default), every row greedy-generates
+   its completion in ``scan_steps`` chunks up to ``max_new_tokens`` (the
+   first chunk doubles as the scored look-ahead), stopping early, one chunk
+   late, once every row has emitted EOS;
+4. with ``with_confidence``, every row takes the scored decode and its
+   first three positions' top-19 candidates feed
+   ``scoring.confidence.weighted_confidence_digits``.
 
-Two routes run step 2.  ``phase2_pool=True`` (the default):
+``score_prefixed`` (and ``(prefix, suffix)`` prompts) prefill each batch's
+shared prefixes once and run every leg (:class:`LegSpec`) as a
+suffix-extension prefill (``models.decoder.extend_prefill``) against that
+cache; :class:`PrefixCachePool` audits the prefix caches' lifetimes.
+
+Two routes run the binary leg's step 2 without completions.
+``phase2_pool=True`` (the default):
 :func:`_prefill_select` keeps only an undecided-first slice of each batch's
 cache, and :class:`_Phase2Pool` gathers the undecided rows of many batches
 and decodes them together, through a ``runtime.slots.SlotRing`` whose
@@ -18,9 +32,15 @@ retired lanes refill between chunks (``slot_repack=True``, the default) or
 in whole flushes of ``phase2_pool_target`` rows (``slot_repack=False``); a
 batch with more undecided rows than the slice holds re-runs its prefill and
 decodes in place.  ``phase2_pool=False``: each batch decodes its own
-undecided rows, gathered out of its prefill cache.
+undecided rows, gathered out of its prefill cache.  A confidence leg whose
+decode cap fits inside the scored scan pools every row the same way
+(``pooled_confidence=True``, the default; :class:`_Phase2Pool` with
+``confidence=True``), where a row retires as soon as its completion's first
+integer can no longer change (``scoring.confidence.first_int_stable``);
+completions, and a confidence leg with ``pooled_confidence=False``, decode
+per batch.
 
-Both routes run through :meth:`ScoringEngine._run_pipelined`: up to
+Every route runs through :meth:`ScoringEngine._run_pipelined`: up to
 ``pipeline_depth`` batches are launched before the oldest is consumed, and
 a batch whose launch or consume runs out of device memory is retried at the
 next size down the OOM ladder (``oom_backoff``, ``oom_batch_ladder``,
@@ -47,6 +67,7 @@ import torch
 from ..config import DEFAULT_BUCKETS
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import decoder as dmod
+from ..scoring import confidence as conf_mod
 from ..scoring import yes_no as yn
 from ..utils.telemetry import record_counter, record_fault
 from . import batching, faults
@@ -63,16 +84,31 @@ class EngineClosed(RuntimeError):
     """Scoring was attempted on a closed :class:`ScoringEngine`."""
 
 
+@torch.no_grad()
+def _confidence_topk(scores, num_positions: int = 3,
+                     k: int = dmod.REDUCED_TOPK):
+    """The confidence leg's candidates out of full ``[m, P, V]`` scores:
+    top-``k`` log-probabilities (float32, against the logsumexp) and token
+    ids of the first ``num_positions`` positions, ``[m, num_positions,
+    k]`` each.  Only ``top_k`` past ``REDUCED_TOPK`` reaches it; otherwise
+    the decode's ReducedScores already hold the candidates."""
+    sub = scores[:, :num_positions, :].float()
+    logz = torch.logsumexp(sub, dim=-1)
+    vals, idx = torch.topk(sub, k, dim=-1)
+    return vals - logz[..., None], idx
+
+
 @dataclasses.dataclass
 class EngineConfig:
-    """The reference's engine knobs, same names and defaults.  The port
-    honours the binary leg: ``decode_completions=False`` is required, and
-    the knobs of the paths not ported yet (``prefill_chunk``, ``decode_k``)
-    must keep their defaults.  ``phase2_pool`` with its target, slice and
-    byte cap, ``slot_repack``, ``pipeline_depth`` (>= 1) and the OOM ladder
-    (``oom_backoff``, ``oom_batch_floor``, ``oom_batch_ladder``) behave as
-    in the reference.  ``kv_dtype`` ("bf16" or "int8") sets the decoder's
-    ``kv_cache_dtype`` at construction, as in the reference."""
+    """The reference's engine knobs, same names and defaults, each honoured
+    as in the reference: ``decode_completions`` and ``max_new_tokens``,
+    ``completion_chars``, ``phase2_pool`` with its target, slice and byte
+    cap, ``pooled_confidence``, ``slot_repack``, ``pipeline_depth`` (>= 1)
+    and the OOM ladder (``oom_backoff``, ``oom_batch_floor``,
+    ``oom_batch_ladder``).  ``kv_dtype`` ("bf16" or "int8") sets the
+    decoder's ``kv_cache_dtype`` at construction.  The knobs of the paths
+    not ported yet must keep their defaults: ``prefill_chunk`` (chunked
+    prefill) and ``decode_k`` (K-decode)."""
     batch_size: int = 32
     max_new_tokens: int = 50
     score_steps: int = 10           # MAX_LOOK_AHEAD -- steps that need scores
@@ -106,13 +142,105 @@ def _check_supported(family, ecfg: EngineConfig, mesh) -> None:
     unsupported = [
         (family == "t5", "encoder-decoder models", _ITEM_T5),
         (mesh is not None, "a device mesh", _ITEM_PAR),
-        (ecfg.decode_completions, "decode_completions=True", _ITEM_FULL),
         (int(ecfg.prefill_chunk or 0) > 0, "prefill_chunk > 0", _ITEM_FULL),
         (int(ecfg.decode_k) > 1, "decode_k > 1", _ITEM_KDEC),
     ]
     for bad, what, item in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+@dataclasses.dataclass
+class LegSpec:
+    """One suffix leg of a fused prefix-reuse call
+    (:meth:`ScoringEngine.score_prefixed`).  The full-study row is two legs
+    over one prefix: binary (50-token completion) and confidence
+    (``with_confidence`` with a 10-token cap).  ``max_new_tokens`` keys the
+    leg's own generation plan; ``decode_completions=None`` inherits the
+    engine config."""
+
+    name: str = ""
+    with_confidence: bool = False
+    max_new_tokens: Optional[int] = None
+    decode_completions: Optional[bool] = None
+
+
+class PrefixCachePool:
+    """Lifetime audit of the fused path's per-batch prefix KV caches.
+
+    The cache itself travels in the pipeline's in-flight tuple; this pool
+    counts its bytes and pairs every acquire with exactly one release (a
+    second release raises; an entry still live at :meth:`close` is counted
+    as leaked), and records the ``prefix_hit``/``prefix_miss`` counters.  A
+    batch whose launch fails after its prefix prefill releases its entry
+    before the OOM re-bucket retries, so retried sub-batches take fresh
+    entries and nothing is orphaned or freed twice."""
+
+    class Entry:
+        __slots__ = ("nbytes", "rows", "released")
+
+        def __init__(self, nbytes: int, rows: int):
+            self.nbytes = int(nbytes)
+            self.rows = int(rows)
+            self.released = False
+
+    def __init__(self):
+        self.live: List[PrefixCachePool.Entry] = []
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self.acquired = 0
+        self.released = 0
+        self.hits = 0
+        self.misses = 0
+        self.leaked = 0
+        self.closed = False
+
+    def acquire(self, nbytes: int, rows: int) -> "PrefixCachePool.Entry":
+        entry = self.Entry(nbytes, rows)
+        self.live.append(entry)
+        self.live_bytes += entry.nbytes
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        self.acquired += 1
+        self.misses += entry.rows
+        record_counter("prefix_miss", entry.rows)
+        return entry
+
+    def hit(self, rows: int) -> None:
+        """A leg past the first reused a prefilled prefix for ``rows``
+        real rows."""
+        self.hits += int(rows)
+        record_counter("prefix_hit", int(rows))
+
+    def release(self, entry: "PrefixCachePool.Entry") -> None:
+        if entry.released:
+            raise RuntimeError(
+                "prefix cache entry released twice: a retried sub-batch "
+                "must take a fresh entry")
+        entry.released = True
+        self.live.remove(entry)
+        self.live_bytes -= entry.nbytes
+        self.released += 1
+
+    def close(self) -> None:
+        """End-of-call sweep: a still-live entry is a leak (an error
+        propagated past the pipeline); it is force-released and counted.
+        Idempotent."""
+        if self.closed:
+            return
+        self.closed = True
+        for entry in list(self.live):
+            entry.released = True
+            self.live.remove(entry)
+            self.live_bytes -= entry.nbytes
+            self.leaked += 1
+        if self.leaked:
+            record_counter("prefix_pool_leaked", self.leaked)
+
+    @property
+    def consistent(self) -> bool:
+        """Every acquire met exactly one release, and nothing leaked."""
+        return (not self.live and self.leaked == 0
+                and self.acquired == self.released)
 
 
 class _HostCopy:
@@ -180,6 +308,10 @@ class ScoringEngine:
         self._plan_cache: Dict[Tuple, plan_mod.GenerationPlan] = {}
         # per-ring slot-occupancy stats since the last occupancy_report()
         self._occupancy: List[slots_mod.OccupancyStats] = []
+        # the audit of the last score_prefixed call's prefix caches
+        self.last_prefix_pool: Optional[PrefixCachePool] = None
+        # token id -> text of the confidence leg's candidates
+        self._tok_text_cache: Dict[int, str] = {}
         self._closed = False
 
     # -- lifecycle -------------------------------------------------------
@@ -203,8 +335,11 @@ class ScoringEngine:
         if self._closed:
             return
         self._closed = True
+        if self.last_prefix_pool is not None:
+            self.last_prefix_pool.close()
         self.params = None
         self._plan_cache.clear()
+        self._tok_text_cache = {}
         self._occupancy = []
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -247,18 +382,65 @@ class ScoringEngine:
         idx = np.where(batch.indices >= 0, batch.indices, first)
         return ids_all[idx]
 
-    def _gen_plan(self, max_new_tokens: Optional[int] = None
+    def _gen_plan(self, max_new_tokens: Optional[int] = None,
+                  decode_completions: Optional[bool] = None
                   ) -> plan_mod.GenerationPlan:
+        """The cached generation plan of one leg: the per-call
+        ``max_new_tokens`` and the leg's completion flag (the engine's when
+        None) are part of the key, so the binary and confidence legs keep
+        plans of their own."""
         ecfg = self.ecfg
+        dc = (ecfg.decode_completions if decode_completions is None
+              else decode_completions)
         key = plan_mod.plan_cache_key(
             ecfg.score_steps, ecfg.max_look_ahead, ecfg.max_new_tokens,
-            ecfg.decode_completions, max_new_tokens)
+            dc, max_new_tokens)
         plan = self._plan_cache.get(key)
         if plan is None:
             plan = self._plan_cache[key] = plan_mod.generation_plan(
                 ecfg.score_steps, ecfg.max_look_ahead, ecfg.max_new_tokens,
-                ecfg.decode_completions, max_new_tokens)
+                dc, max_new_tokens)
         return plan
+
+    def _completion_text(self, row_tokens, eos_id) -> str:
+        """One row's generated tokens as the reference records
+        ``completion``: cut at the first EOS, special tokens skipped,
+        stripped, truncated to ``completion_chars``."""
+        ids = []
+        for t in row_tokens:
+            t = int(t)
+            if eos_id is not None and t == eos_id:
+                break
+            ids.append(t)
+        return self.tokenizer.decode(ids, skip_special_tokens=True).strip()[
+            : self.ecfg.completion_chars]
+
+    def _candidates_from_topk(self, lp_row, idx_row):
+        """(token text, logprob) candidate lists of one row, one list a
+        position, from its top-k log-probabilities and ids ``[P, k]``: the
+        input of ``weighted_confidence_digits``.  Token texts are memoized
+        by id."""
+        cache = self._tok_text_cache
+        positions = []
+        for p in range(lp_row.shape[0]):
+            cands = []
+            for lp, i in zip(lp_row[p], idx_row[p]):
+                i = int(i)
+                text = cache.get(i)
+                if text is None:
+                    text = cache[i] = self.tokenizer.decode([i])
+                cands.append((text, float(lp)))
+            positions.append(cands)
+        return positions
+
+    @staticmethod
+    def _conf_topk_np(sc):
+        """``[m, 3, 19]`` (log-probabilities, ids) of the confidence leg, as
+        numpy, from ReducedScores or full scores."""
+        if isinstance(sc, dmod.ReducedScores):
+            return ((sc.topk_vals[:, :3] - sc.logz[:, :3, None]).cpu().numpy(),
+                    sc.topk_ids[:, :3].cpu().numpy())
+        return tuple(a.cpu().numpy() for a in _confidence_topk(sc))
 
     def _tensor(self, arr, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), device=self.device, dtype=dtype)
@@ -378,37 +560,195 @@ class ScoringEngine:
         max_new_tokens: Optional[int] = None,
     ) -> List[Dict]:
         """Yes/No scoring: one dict per prompt with yes_prob, no_prob,
-        relative_prob, odds_ratio, scan_found, completion (empty on this
-        leg), success and the first_token_{yes,no,relative}_prob fields.
-        Prompts are strings or pre-tokenized id sequences; ``targets`` is
-        one (yes, no) pair or one pair per prompt."""
+        relative_prob, odds_ratio, scan_found, completion (empty unless
+        ``decode_completions``), success, the first_token_{yes,no,relative}
+        _prob fields and, ``with_confidence``, weighted_confidence.
+
+        Prompts are strings, pre-tokenized id sequences, or ``(prefix,
+        suffix)`` 2-tuples, which go through :meth:`score_prefixed` with
+        one leg.  ``targets`` is one (yes, no) pair or one pair per prompt.
+        ``max_new_tokens`` overrides the completion cap for this call only
+        (never below the scored scan's steps)."""
         self._check_open()
-        if with_confidence:
-            raise NotImplementedError(
-                f"with_confidence is not ported yet ({_ITEM_FULL})")
         if prompts and _is_prefix_pair(prompts[0]):
-            raise NotImplementedError(
-                f"(prefix, suffix) prompts (score_prefixed) are not ported "
-                f"yet ({_ITEM_FULL})")
+            leg = LegSpec(with_confidence=with_confidence,
+                          max_new_tokens=max_new_tokens)
+            return self.score_prefixed(
+                [(p[0], (p[1],)) for p in prompts], targets=targets,
+                legs=[leg])[0]
+        ecfg = self.ecfg
         ids_all = self._target_id_rows(prompts, targets)   # [N, 2]
         eos_id = getattr(self.tokenizer, "eos_token_id", None)
         encoded = batching.encode_prompts(self.tokenizer, prompts)
         results: List[Optional[Dict]] = [None] * len(prompts)
-        steps, _ = self._gen_plan(max_new_tokens)
-        if self.ecfg.phase2_pool:
+        steps, gen_total = self._gen_plan(max_new_tokens)
+        if (ecfg.phase2_pool and not with_confidence
+                and not ecfg.decode_completions):
             return self._score_decoder_pooled(encoded, ids_all, results,
                                               eos_id, steps)
+        if self._conf_pool_eligible(with_confidence, steps, gen_total):
+            return self._score_decoder_conf_pooled(encoded, ids_all, results,
+                                                   eos_id, steps)
 
         def launch(batch):
             return self._launch(batch, ids_all)
 
         def consume(batch, out):
-            self._consume_scored_batch(batch, out, ids_all, results, steps,
-                                       eos_id)
+            self._consume_scored_batch(
+                batch, out, ids_all, results, with_confidence, steps,
+                gen_total, ecfg.decode_completions, eos_id)
 
         self._run_pipelined(self._batches(encoded), launch, consume,
                             rebatch=self._oom_rebatch(encoded))
         return [r if r is not None else _error_row("missing") for r in results]
+
+    def score_prefixed(
+        self,
+        pairs: Sequence,
+        targets: Sequence = ("Yes", "No"),
+        legs: Optional[Sequence[LegSpec]] = None,
+    ) -> List[List[Dict]]:
+        """Fused multi-leg scoring over shared prefixes: the full-study
+        row's path.
+
+        ``pairs``: one ``(prefix, suffixes)`` tuple per row, ``suffixes``
+        holding one format suffix per leg (strings tokenize once per
+        distinct text, without special tokens; id lists pass through).
+        ``legs`` configures each leg (default: plain scoring); ``targets``
+        is one (yes, no) pair or one pair per row, shared by every leg.
+
+        Each batch's prefixes prefill once into a bucketed KV cache and
+        every leg runs as a short suffix-extension prefill against it
+        (``models.decoder.extend_prefill``); each leg then consumes with its
+        own generation plan.  Returns one list of result rows per leg,
+        aligned with ``pairs``.  The prefix caches' lifetimes are audited on
+        ``self.last_prefix_pool``."""
+        self._check_open()
+        n_legs = len(legs) if legs is not None else (
+            len(pairs[0][1]) if pairs else 1)
+        legs = list(legs) if legs is not None else [
+            LegSpec() for _ in range(n_legs)]
+        if pairs and len(pairs[0][1]) != len(legs):
+            raise ValueError(
+                f"{len(legs)} legs configured but pairs carry "
+                f"{len(pairs[0][1])} suffixes")
+        if not pairs:
+            return [[] for _ in legs]
+        prefix_encoded, suffix_encoded = batching.encode_prefix_pairs(
+            self.tokenizer, pairs)
+        return self._score_decoder_prefixed(prefix_encoded, suffix_encoded,
+                                            targets, legs)
+
+    def _score_decoder_prefixed(self, prefix_encoded, suffix_encoded,
+                                targets, legs) -> List[List[Dict]]:
+        """Batches form over the prefixes' token lengths; per batch, one
+        prefix prefill and one suffix-extension prefill per leg, then each
+        leg consumes through the per-batch consumer (or, for an eligible
+        confidence leg, its cross-batch pool) with its own plan."""
+        ecfg = self.ecfg
+        n = len(prefix_encoded)
+        ids_all = self._target_id_rows(prefix_encoded, targets)
+        eos_id = getattr(self.tokenizer, "eos_token_id", None)
+        results: List[List[Optional[Dict]]] = [[None] * n for _ in legs]
+        decode_flags = [
+            ecfg.decode_completions if leg.decode_completions is None
+            else leg.decode_completions for leg in legs]
+        plans = [self._gen_plan(leg.max_new_tokens, decode_flags[li])
+                 for li, leg in enumerate(legs)]
+        pad_id = self.tokenizer.pad_token_id or 0
+        pool = PrefixCachePool()
+        self.last_prefix_pool = pool
+        conf_pools = {
+            li: self._make_conf_pool(
+                plans[li].scan_steps, eos_id, results[li],
+                leg_name=leg.name or "confidence",
+                completions=decode_flags[li])
+            for li, leg in enumerate(legs)
+            if self._conf_pool_eligible(
+                leg.with_confidence, plans[li].scan_steps,
+                plans[li].total_new_tokens)
+        }
+
+        def suffix_batch(batch, li):
+            """[B, suffix bucket] ids and mask of one leg, aligned with the
+            batch's rows; pad rows (index -1) take row 0's suffix, as the
+            batcher's pad rows take row 0's prefix."""
+            rows = [suffix_encoded[li][int(orig)] if orig >= 0 else None
+                    for orig in batch.indices]
+            first = next(r for r in rows if r is not None)
+            rows = [r if r is not None else first for r in rows]
+            sb = batching.suffix_bucket_for(max(len(r) for r in rows))
+            ids = np.full((len(rows), sb), pad_id, np.int64)
+            mask = np.zeros((len(rows), sb), np.int32)
+            for r, src in enumerate(rows):
+                ids[r, : len(src)] = src
+                mask[r, : len(src)] = 1
+            return ids, mask
+
+        def launch(batch):
+            entry = None
+            try:
+                mask = self._tensor(batch.attention_mask, torch.int32)
+                _, pcache = dmod.prefill(
+                    self.params, self.cfg,
+                    self._tensor(batch.token_ids, torch.int64), mask,
+                    cache_len=batch.bucket_len)
+                plen = mask.sum(-1)
+                n_real = int((batch.indices >= 0).sum())
+                entry = pool.acquire(slots_mod._cache_nbytes(pcache), n_real)
+                row_ids = self._tensor(self._batch_target_rows(ids_all, batch),
+                                       torch.int64)
+                leg_outs = []
+                for li in range(len(legs)):
+                    sids, smask = suffix_batch(batch, li)
+                    last, cache, lengths = dmod.extend_prefill(
+                        self.params, self.cfg, pcache, self._tensor(sids),
+                        self._tensor(smask), plen)
+                    scan0 = yn.first_token_scan(
+                        last, row_ids[:, 0], row_ids[:, 1], top_k=ecfg.top_k)
+                    first3 = yn.relative_prob_first_token(
+                        last, row_ids[:, 0], row_ids[:, 1],
+                        ecfg.first_token_top_filter)
+                    leg_outs.append((last, cache, lengths,
+                                     _HostCopy((*scan0, *first3))))
+                    if li:              # every later leg rides the cache
+                        pool.hit(n_real)
+                return entry, leg_outs
+            except Exception:
+                # the OOM re-bucket retries this batch's rows in fresh
+                # sub-batches with entries of their own: this one ends now
+                if entry is not None:
+                    pool.release(entry)
+                raise
+
+        def consume(batch, out):
+            entry, leg_outs = out
+            try:
+                for li in range(len(legs)):
+                    if li in conf_pools:
+                        self._pool_confidence_batch(
+                            conf_pools[li], batch, leg_outs[li], ids_all)
+                    else:
+                        self._consume_scored_batch(
+                            batch, leg_outs[li], ids_all, results[li],
+                            legs[li].with_confidence, plans[li].scan_steps,
+                            plans[li].total_new_tokens, decode_flags[li],
+                            eos_id)
+            finally:
+                # exactly once, whether the legs consumed or an OOM sends
+                # the batch back through the re-bucket ladder
+                pool.release(entry)
+
+        try:
+            self._run_pipelined(self._batches(prefix_encoded), launch,
+                                consume,
+                                rebatch=self._oom_rebatch(prefix_encoded))
+        finally:
+            pool.close()
+        for cpool in conf_pools.values():
+            cpool.flush_all()
+        return [[r if r is not None else _error_row("missing") for r in rows]
+                for rows in results]
 
     def _launch(self, batch, ids_all):
         """Prefill one batch and run the position-0 scans on the device."""
@@ -427,21 +767,78 @@ class ScoringEngine:
             last, row_ids[:, 0], row_ids[:, 1], ecfg.first_token_top_filter)
         return last, cache, lengths, _HostCopy((*scan0, *first3))
 
-    def _consume_scored_batch(self, batch, out, ids_all, results, steps,
-                              eos_id):
-        """One batch into ``results``: rows whose position-0 top-k holds a
-        target keep the position-0 read; the undecided rows go through the
-        scored look-ahead.  Keyed by prompt index."""
+    def _consume_scored_batch(self, batch, out, ids_all, results,
+                              with_confidence, steps, gen_total,
+                              decode_completions, eos_id):
+        """One launched batch into ``results`` (keyed by prompt index, so a
+        re-consume after an OOM re-bucket is idempotent): the position-0
+        reads, the completion chunks, the scored look-ahead of the rows
+        that need it (every row with confidence) and the confidence
+        candidates.  ``out`` is (last logits, cache, lengths, host copy of
+        scan0 and first3), from a prompt prefill or a leg's
+        suffix-extension prefill; ``steps``, ``gen_total`` and
+        ``decode_completions`` are the leg's plan."""
+        ecfg = self.ecfg
         last, cache, lengths, fetched = out
         host = fetched.numpy()
         scan0, first3 = host[:5], host[5:]
         hit0 = scan0[4]
         row_ids = self._batch_target_rows(ids_all, batch)
         valid = batch.indices >= 0
-        undecided = np.flatnonzero(~hit0 & valid)
-        res_np = None
+        undecided = np.flatnonzero(valid if with_confidence
+                                   else ~hit0 & valid)
+        need_scores = undecided.size > 0
+        tokens_np = None      # [B, generated] when completions decode
+        conf_lp = conf_idx = None
+        res_np = None         # the scan over positions 0..steps-1
         sub_pos = None        # batch row -> row in the subset arrays
-        if undecided.size > 0:
+
+        if decode_completions:
+            # every row generates its completion; the first chunk doubles
+            # as the scored look-ahead when any row needs scores
+            reduced = ecfg.top_k <= dmod.REDUCED_TOPK
+            tids = self._tensor(row_ids, torch.int64)
+            prev, done, offset = last, None, 0
+            chunk_toks, scores_dev = [], None
+            lag = None            # host copy of the previous chunk's all-done
+            while offset < gen_total:
+                n = min(steps, gen_total - offset)
+                ws = offset == 0 and need_scores
+                toks, sc, cache, prev, done = dmod.decode_steps(
+                    self.params, self.cfg, cache, prev, lengths, offset, n,
+                    eos_id, done,
+                    with_scores=("reduced" if reduced else True) if ws
+                    else False,
+                    target_ids=tids if ws and reduced else None)
+                if ws:
+                    scores_dev = sc
+                chunk_toks.append(toks)
+                offset += n
+                if eos_id is not None and offset < gen_total:
+                    # EOS stop one chunk late: the flag of chunk k is read
+                    # after chunk k+1 is queued, so the device never waits
+                    # for the host; the surplus chunk's tokens are EOS
+                    if lag is not None and bool(lag.numpy()[0]):
+                        break
+                    lag = _HostCopy([done.all()])
+            if eos_id is not None and offset < gen_total:
+                record_counter("decode_steps_saved",
+                               (gen_total - offset) * int(valid.sum()))
+            tokens_np = torch.cat(chunk_toks, dim=1).cpu().numpy()
+            if need_scores:
+                sc_steps = (dmod.ReducedScores(*(f[:, :steps]
+                                                 for f in scores_dev))
+                            if reduced else scores_dev[:, :steps])
+                res = self._scan_results(sc_steps, row_ids[:, 0],
+                                         row_ids[:, 1],
+                                         chunk_toks[0][:, :steps], eos_id)
+                res_np = {k: v.cpu().numpy()
+                          for k, v in res._asdict().items()}
+                if with_confidence:
+                    conf_lp, conf_idx = self._conf_topk_np(scores_dev)
+        elif need_scores:
+            # scored decode of the rows that need it, gathered out of the
+            # prefill cache unless most of the batch does
             m = _pad_slice(undecided.size, hit0.shape[0])
             if m == hit0.shape[0]:
                 sub_cache, last_s, len_s = cache, last, lengths
@@ -457,16 +854,41 @@ class ScoringEngine:
                 ids_sub = row_ids[idx]
             sc, toks_s = self._scan_decode_chunked(
                 sub_cache, last_s, len_s, steps, eos_id,
-                ids_sub[:, 0], ids_sub[:, 1], real_mask=real)
+                ids_sub[:, 0], ids_sub[:, 1],
+                min_steps=3 if with_confidence else 0, real_mask=real)
             res = self._scan_results(sc, ids_sub[:, 0], ids_sub[:, 1],
                                      toks_s, eos_id)
             res_np = {k: v.cpu().numpy() for k, v in res._asdict().items()}
-        _write_batch_rows(batch, scan0, first3, results, res_np, sub_pos)
+            if with_confidence:
+                conf_lp, conf_idx = self._conf_topk_np(sc)
 
-    def _launch_select(self, batch, ids_all, slice_m: int):
+        for r, orig in enumerate(batch.indices):
+            if orig < 0:
+                continue
+            if hit0[r] and not with_confidence:
+                vals = tuple(a[r] for a in scan0[:4]) + (True,)
+            else:
+                j = r if sub_pos is None else sub_pos[r]
+                vals = tuple(res_np[k][j] for k in _SCAN_FIELDS)
+            completion = ""
+            if decode_completions:
+                completion = self._completion_text(tokens_np[r], eos_id)
+            row = _attach_first_token(_result_row(*vals, completion),
+                                      first3, r)
+            if with_confidence:
+                k = r if sub_pos is None else sub_pos[r]
+                row["weighted_confidence"] = \
+                    conf_mod.weighted_confidence_digits(
+                        self._candidates_from_topk(conf_lp[k], conf_idx[k]))
+            results[int(orig)] = row
+
+    def _launch_select(self, batch, ids_all, slice_m: int,
+                       out_len: Optional[int] = None,
+                       select_all: bool = False):
         """:func:`_prefill_select` on one batch: the device part of the
-        pooled and slotted routes.  Returns (host copy of scan0, first3 and
-        sel; the slice's cache, last logits, lengths)."""
+        pooled and slotted routes (``out_len`` defaults to the binary pool's
+        length of the bucket).  Returns (host copy of scan0, first3 and sel;
+        the slice's cache, last logits, lengths)."""
         ecfg = self.ecfg
         row_ids = self._tensor(self._batch_target_rows(ids_all, batch),
                                torch.int64)
@@ -476,7 +898,9 @@ class ScoringEngine:
             self._tensor(batch.indices >= 0), row_ids[:, 0], row_ids[:, 1],
             cache_len=batch.bucket_len, slice_m=slice_m, top_k=ecfg.top_k,
             top_filter=ecfg.first_token_top_filter,
-            out_len=_pool_len(batch.bucket_len))
+            out_len=(_pool_len(batch.bucket_len) if out_len is None
+                     else out_len),
+            select_all=select_all)
         return _HostCopy((*scan0, *first3, sel)), sub, last_s, len_s
 
     def _score_decoder_pooled(self, encoded, ids_all, results, eos_id,
@@ -565,6 +989,108 @@ class ScoringEngine:
         res_np = {k: v.cpu().numpy() for k, v in res._asdict().items()}
         _write_batch_rows(batch, scan0, first3, results, res_np)
 
+    # -- the pooled confidence leg ----------------------------------------
+
+    def _conf_pool_eligible(self, with_confidence, steps, gen_total) -> bool:
+        """A confidence leg goes through the cross-batch pool when pooling
+        is on for it, its completion cap fits inside the scored scan (the
+        scored decode's greedy tokens are then the completion) and the
+        scan's top-k reads from ReducedScores' kept candidates."""
+        ecfg = self.ecfg
+        return bool(with_confidence and ecfg.phase2_pool
+                    and ecfg.pooled_confidence and gen_total <= steps
+                    and ecfg.top_k <= dmod.REDUCED_TOPK)
+
+    def _make_conf_pool(self, steps, eos_id, results, leg_name="confidence",
+                        completions=None):
+        ecfg = self.ecfg
+        return _Phase2Pool(
+            self, steps, eos_id,
+            target=ecfg.phase2_pool_target or ecfg.batch_size,
+            results=results, max_bytes=ecfg.phase2_pool_max_bytes,
+            leg=leg_name, confidence=True,
+            completions=(ecfg.decode_completions if completions is None
+                         else completions))
+
+    @staticmethod
+    def _pool_add_batch(pool, plen, sub_cache, last_s, len_s, count,
+                        orig_idx, row_ids, first3_cols, sel):
+        """Queue one batch's confidence rows on ``pool``, mapped through
+        ``sel`` (slice row -> batch row).  A failure is marked
+        ``_no_rebatch``: the pooled decode holds rows of many earlier
+        batches, which re-bucketing this one cannot shrink and a retry
+        would lose."""
+        try:
+            pool.add(plen, sub_cache, last_s, len_s, count,
+                     orig_idx[sel[:count]], row_ids[sel],
+                     first3=np.stack([a[sel] for a in first3_cols], axis=1))
+        except Exception as err:
+            err._no_rebatch = True
+            raise
+
+    def _score_decoder_conf_pooled(self, encoded, ids_all, results, eos_id,
+                                   steps) -> List[Dict]:
+        """The confidence leg through the cross-batch pool: every valid
+        row needs the scored decode, so each prefill keeps all of them
+        (``_prefill_select`` with ``select_all``, padded to the confidence
+        pool's length) and they decode in a ``confidence=True`` pool."""
+        pool = self._make_conf_pool(steps, eos_id, results)
+
+        def launch(batch):
+            return self._launch_select(
+                batch, ids_all, int(batch.token_ids.shape[0]),
+                out_len=_conf_pool_len(batch.bucket_len), select_all=True)
+
+        def consume(batch, out):
+            fetched, sub_cache, last_s, len_s = out
+            host = fetched.numpy()
+            first3, sel_np = host[5:8], host[8]
+            row_ids = self._batch_target_rows(ids_all, batch)
+            count = int((batch.indices >= 0).sum())
+            if not count:
+                return
+            # valid rows sort first; a partial batch shrinks to its menu size
+            m = _pad_slice(count, int(sel_np.shape[0]))
+            if m < sel_np.shape[0]:
+                idx = np.zeros((m,), np.int64)
+                idx[:count] = np.arange(count)
+                sub_cache, last_s, len_s = _gather_rows(
+                    sub_cache, last_s, len_s, self._tensor(idx))
+                mapped = sel_np[idx]
+            else:
+                mapped = sel_np
+            self._pool_add_batch(
+                pool, _conf_pool_len(batch.bucket_len), sub_cache, last_s,
+                len_s, count, batch.indices, row_ids, first3, mapped)
+
+        self._run_pipelined(self._batches(encoded), launch, consume,
+                            rebatch=self._oom_rebatch(encoded))
+        pool.flush_all()
+        return [r if r is not None else _error_row("missing") for r in results]
+
+    def _pool_confidence_batch(self, pool, batch, out, ids_all):
+        """A fused call's confidence leg into its pool: the batch's valid
+        rows gathered out of the suffix-extended cache, the slot axis padded
+        to the pool's quantized length."""
+        last, cache, lengths, fetched = out
+        first3 = fetched.numpy()[5:]
+        row_ids = self._batch_target_rows(ids_all, batch)
+        valid = batch.indices >= 0
+        count = int(valid.sum())
+        if not count:
+            return
+        m = _pad_slice(count, int(last.shape[0]))
+        idx = np.zeros((m,), np.int64)
+        idx[:count] = np.flatnonzero(valid)
+        sub_cache, last_s, len_s = _gather_rows(cache, last, lengths,
+                                                self._tensor(idx))
+        cache_len = int(sub_cache.k.shape[2])
+        plen = _conf_pool_len(cache_len)
+        if plen > cache_len:
+            sub_cache = slots_mod._pad_cache_to(sub_cache, plen)
+        self._pool_add_batch(pool, plen, sub_cache, last_s, len_s, count,
+                             batch.indices, row_ids, first3, idx)
+
     def _scan_results(self, sc, yes_ids, no_ids, toks, eos_id):
         """Yes/no scan over a decode's scores (full [m, P, V] scores or
         ReducedScores, whichever the decode produced)."""
@@ -580,11 +1106,12 @@ class ScoringEngine:
             valid_steps=vsteps)
 
     def _scan_decode_chunked(self, sub_cache, last_s, len_s, steps, eos_id,
-                             yes_id, no_id,
+                             yes_id, no_id, min_steps: int = 0,
                              real_mask: Optional[np.ndarray] = None):
         """Scored look-ahead decode in ``scan_chunk``-step chunks with early
         exit once every real row has a top-k hit or has emitted EOS (no later
-        position can change its scan).  Returns (scores, tokens [m, P]),
+        position can change its scan), never before ``min_steps`` (the
+        confidence leg reads 3 positions).  Returns (scores, tokens [m, P]),
         P <= steps; scores are ReducedScores unless ``top_k`` exceeds the
         kept candidates."""
         ecfg = self.ecfg
@@ -595,11 +1122,11 @@ class ScoringEngine:
             target_ids = self._tensor(
                 np.stack([yes_id, no_id], axis=1), torch.int64)
         return self._scan_decode_loop(
-            sub_cache, last_s, len_s, steps, eos_id, real_mask,
+            sub_cache, last_s, len_s, steps, eos_id, min_steps, real_mask,
             chunk, reduced, target_ids, yes_id, no_id)
 
     def _scan_decode_loop(self, sub_cache, last_s, len_s, steps, eos_id,
-                          real_mask, chunk, reduced, target_ids,
+                          min_steps, real_mask, chunk, reduced, target_ids,
                           yes_id, no_id):
         ecfg = self.ecfg
         sc_parts, tok_parts = [], []
@@ -633,7 +1160,7 @@ class ScoringEngine:
             resolved = (part.found | done).cpu().numpy()
             if real_mask is not None:
                 resolved = resolved[real_mask]
-            if bool(resolved.all()):
+            if offset >= min_steps and bool(resolved.all()):
                 break
         return _cat_scores(sc_parts, reduced), torch.cat(tok_parts, dim=1)
 
@@ -937,6 +1464,8 @@ def _pad_slice(n: int, cap: int) -> int:
 #: together (with the default buckets, every bucket up to 256 pools under
 #: 256 and every one from 320 to 512 under 512).
 _pool_len = plan_mod.pool_len_for
+#: The confidence pool holds every row, so its menu is finer.
+_conf_pool_len = plan_mod.conf_pool_len_for
 
 
 def _gather_rows(cache: dmod.KVCache, last, lengths, idx):
@@ -947,7 +1476,7 @@ def _gather_rows(cache: dmod.KVCache, last, lengths, idx):
 
 
 class _Phase2Pool:
-    """Cross-batch pool of the binary leg's scored-decode rows.
+    """Cross-batch pool of a leg's scored-decode rows.
 
     The scored look-ahead is bound by streaming the weights (and, in eager
     PyTorch, by launching kernels), so a step costs nearly the same for 8
@@ -964,21 +1493,31 @@ class _Phase2Pool:
     pool's held bytes would pass ``max_bytes``), then one full ``steps``
     decode runs for them; it is queued and its small outputs go to the host
     through a :class:`_HostCopy`, read later in :meth:`drain`, so the launch
-    loop keeps feeding the device."""
+    loop keeps feeding the device.
 
-    leg = "binary"
+    ``confidence=True`` (the confidence leg, ``leg`` names it): every row
+    pools, and a row retires at the first step ``k >= 3`` whose ``k``-token
+    completion can no longer change its first-integer parse
+    (:meth:`_conf_retired_at`, a function of the row's own tokens only, so
+    rows do not depend on the pool's composition).  On the ring a retired
+    lane refills; on whole flushes the decode runs in chunks (3 positions,
+    then ``scan_chunk``), compacts retired rows' K/V away between chunks
+    (``completion_cache_bytes_freed``) and stops once every real row has
+    retired (``conf_steps_saved``).  ``completions`` writes each row's
+    completion, cut at its retirement step."""
 
     def __init__(self, engine, steps, eos_id, target, results,
-                 max_bytes: int = 512 << 20, confidence: bool = False):
-        if confidence:
-            raise NotImplementedError(
-                f"the pooled confidence leg is not ported yet ({_ITEM_FULL})")
+                 max_bytes: int = 512 << 20, leg: str = "binary",
+                 confidence: bool = False, completions: bool = False):
         self.engine = engine
         self.steps = steps
         self.eos_id = eos_id
         self.target = max(1, int(target))
         self.max_bytes = max(1, int(max_bytes))
         self.results = results
+        self.leg = leg
+        self.confidence = bool(confidence)
+        self.completions = bool(completions)
         self.repack = bool(engine.ecfg.slot_repack)
         self._rings: Dict[int, slots_mod.SlotRing] = {}
         self.entries: Dict[int, List] = {}
@@ -1057,10 +1596,20 @@ class _Phase2Pool:
         sub, last_u, len_u = _gather_rows(sub_cache, last_s, len_s, idx)
         metas = [{"orig": int(orig_idx[j]), "first3": first3[j]}
                  for j in range(int(n_real))]
+        if self.confidence:
+            record_counter("pooled_conf_rows", int(n_real))
         ring.feed(sub, last_u, len_u, row_ids[: int(n_real)], metas)
         ring.pump(drain=False)
 
     def _make_ring(self) -> slots_mod.SlotRing:
+        if self.confidence:
+            return slots_mod.SlotRing(
+                self.engine, steps=self.steps, eos_id=self.eos_id,
+                capacity=self.target, leg=self.leg, workload="engine",
+                retire=self._conf_ring_retire, emit=self._conf_ring_emit,
+                min_check=min(3, self.steps),
+                pad_slice=lambda n: _pad_slice(n, max(n, 1)),
+            )
         return slots_mod.SlotRing(
             self.engine, steps=self.steps, eos_id=self.eos_id,
             capacity=self.target, leg=self.leg, workload="engine",
@@ -1070,9 +1619,93 @@ class _Phase2Pool:
             pad_slice=lambda n: _pad_slice(n, max(n, 1)),
         )
 
+    def _conf_ring_retire(self, row) -> int:
+        """Retirement step of a ring row: the predicate of the whole-flush
+        schedule (:meth:`_conf_retired_at`), checked over the window
+        decoded since the last check, never before step 3."""
+        start = max(int(row.checked), min(3, self.steps) - 1) + 1
+        for k in range(start, row.decoded + 1):
+            if self._conf_retired_at(row.toks, k):
+                return k
+        return -1
+
     def _binary_ring_emit(self, rows):
         self.engine._emit_scored_slot_rows(rows, self.steps, self.eos_id,
                                            self.results)
+
+    def _conf_ring_emit(self, rows):
+        """Finish retired confidence rows, batched: the fields of the
+        whole-flush schedule (weighted confidence from positions 0-2, the
+        yes/no scan over positions before min(r*, EOS), the completion cut
+        at r*), grouped by retirement instead of by flush."""
+        record_counter("pooled_conf_retired_rows",
+                       sum(1 for r in rows if r.natural))
+        saved = sum(self.steps - r.decoded for r in rows)
+        if saved > 0:
+            record_counter("conf_steps_saved", saved)
+        r_star = np.asarray([max(1, r.retire_step) for r in rows], np.int32)
+        self._emit_conf_rows(
+            np.stack([r.toks for r in rows]), np.stack([r.vals for r in rows]),
+            np.stack([r.ids_k for r in rows]),
+            np.stack([r.logz for r in rows]), np.stack([r.tgt for r in rows]),
+            r_star, [(i, r.meta["orig"], r.meta["first3"])
+                     for i, r in enumerate(rows)])
+
+    def _emit_conf_rows(self, toks, vals, idsk, logz, tgt, r_star, where):
+        """Result rows of finished confidence rows from their per-step
+        statistics ``[m, steps, ...]`` and retirement steps ``r_star``:
+        ``where`` lists (row in the arrays, prompt index, first3)."""
+        engine = self.engine
+        ecfg = engine.ecfg
+        min_conf = min(3, self.steps)
+        vs = r_star.copy()
+        if self.eos_id is not None:
+            for g, _, _ in where:
+                hits = np.flatnonzero(toks[g, : r_star[g]] == self.eos_id)
+                if hits.size:
+                    vs[g] = min(int(vs[g]), int(hits[0]) + 1)
+        res = yn.yes_no_from_reduced(
+            torch.from_numpy(vals), torch.from_numpy(logz),
+            torch.from_numpy(tgt), max_look_ahead=ecfg.max_look_ahead,
+            top_k=ecfg.top_k, valid_steps=torch.from_numpy(vs))
+        res_np = {k: v.numpy() for k, v in res._asdict().items()}
+        conf_lp = vals[:, :min_conf] - logz[:, :min_conf, None]
+        conf_idx = idsk[:, :min_conf]
+        for g, orig, f3 in where:
+            completion = ""
+            if self.completions:
+                # a retired row's window never ends inside a character, so
+                # this is a prefix of the full decode's completion
+                completion = engine._completion_text(toks[g, : r_star[g]],
+                                                     self.eos_id)
+            f3 = np.asarray(f3, np.float64)
+            out = _attach_first_token(
+                _result_row(*(res_np[k][g] for k in _SCAN_FIELDS),
+                            completion),
+                (f3[0:1], f3[1:2], f3[2:3]), 0)
+            out["weighted_confidence"] = conf_mod.weighted_confidence_digits(
+                engine._candidates_from_topk(conf_lp[g], conf_idx[g]))
+            self.results[int(orig)] = out
+
+    def _conf_retired_at(self, toks_row, k: int) -> bool:
+        """Is a confidence row's result frozen after its first ``k`` greedy
+        tokens?  True when EOS landed in the window (the completion is cut
+        there), when the text's first-integer parse is terminated
+        (``scoring.confidence.first_int_stable``: appended text can neither
+        extend its digits nor put a match before it), or when the stripped
+        text already fills ``completion_chars``.  A window whose text ends
+        in U+FFFD never retires: the next token may complete that byte
+        sequence into a character and change the word boundaries."""
+        window = toks_row[:k]
+        if self.eos_id is not None and bool((window == self.eos_id).any()):
+            return True
+        text = self.engine.tokenizer.decode(
+            [int(t) for t in window], skip_special_tokens=True)
+        if text.endswith("\ufffd"):
+            return False
+        if len(text.strip()) >= self.engine.ecfg.completion_chars:
+            return True
+        return conf_mod.first_int_stable(text)
 
     # -- whole-flush schedule -------------------------------------------
 
@@ -1106,6 +1739,10 @@ class _Phase2Pool:
         lens = torch.cat([e[2] for e in entries], dim=0)
         ids = np.concatenate([e[5] for e in entries], axis=0)     # [m, 2]
         first3 = np.concatenate([e[6] for e in entries], axis=0)  # [m, 3]
+        if self.confidence:
+            layout = [(int(e[1].shape[0]), e[3], e[4]) for e in entries]
+            self._flush_confidence(layout, cache, last, lens, ids, first3)
+            return
         engine = self.engine
         reduced = engine.ecfg.top_k <= dmod.REDUCED_TOPK
         toks, sc, _, _, _ = dmod.decode_steps(
@@ -1123,6 +1760,109 @@ class _Phase2Pool:
         pinned = 2 * sum(slots_mod._cache_nbytes(e[0]) for e in entries)
         self.deferred.append((layout, list(fields), first3,
                               _HostCopy(fields.values()), [pinned]))
+
+    def _flush_confidence(self, layout, cache, last, lens, ids, first3):
+        """One pooled confidence decode with per-row retirement.
+
+        Chunks of 3 positions, then ``scan_chunk``; after each, the greedy
+        tokens come to the host and every live row's retirement step r*
+        (the least k >= 3 at which :meth:`_conf_retired_at` holds) is
+        resolved.  Retired rows' K/V are gathered away (menu-padded) before
+        the next chunk, and the flush stops once every real row has retired.
+        Against the full per-batch decode: weighted confidence (positions
+        0-2) and the completion's first integer are the same by
+        construction, the completion is its r*-token prefix, and the yes/no
+        scan reads positions before r*."""
+        engine = self.engine
+        ecfg = engine.ecfg
+        steps = self.steps
+        K = dmod.REDUCED_TOPK
+        m = sum(r for r, _, _ in layout)
+        min_conf = min(3, steps)
+        record_counter("pooled_conf_rows", sum(n for _, n, _ in layout))
+
+        real = np.zeros((m,), bool)
+        row = 0
+        for rows, n_real, _orig in layout:
+            real[row: row + n_real] = True
+            row += rows
+        toks_np = np.zeros((m, steps), np.int32)
+        vals_np = np.zeros((m, steps, K), np.float32)
+        idsk_np = np.zeros((m, steps, K), np.int32)
+        logz_np = np.zeros((m, steps), np.float32)
+        tgt_np = np.zeros((m, steps, 2), np.float32)
+        retire_step = np.full((m,), -1, np.int32)
+        checked_upto = np.full((m,), min_conf - 1, np.int32)
+        decoded_upto = np.zeros((m,), np.int32)
+
+        cache_map = np.arange(m)          # cache row -> flush-layout row
+        cache_real = real.copy()          # cache row holds a live real row
+        cur_cache, prev, cur_lens, done = cache, last, lens, None
+        cur_ids = engine._tensor(ids, torch.int64)
+        offset = 0
+        while offset < steps:
+            n = min_conf if offset == 0 else min(
+                max(1, ecfg.scan_chunk), steps - offset)
+            toks_c, sc_c, cur_cache, prev, done = dmod.decode_steps(
+                engine.params, engine.cfg, cur_cache, prev, cur_lens, offset,
+                n, self.eos_id, done, with_scores="reduced",
+                target_ids=cur_ids)
+            live = np.flatnonzero(cache_real)
+            lr = cache_map[live]
+            toks_np[lr, offset:offset + n] = toks_c.cpu().numpy()[live]
+            vals_np[lr, offset:offset + n] = sc_c.topk_vals.cpu().numpy()[live]
+            idsk_np[lr, offset:offset + n] = sc_c.topk_ids.cpu().numpy()[live]
+            logz_np[lr, offset:offset + n] = sc_c.logz.cpu().numpy()[live]
+            tgt_np[lr, offset:offset + n] = \
+                sc_c.target_logits.cpu().numpy()[live]
+            decoded_upto[lr] = offset + n
+            offset += n
+            if offset >= steps:
+                break
+            for r in lr:
+                if retire_step[r] >= 0:
+                    continue
+                for k in range(int(checked_upto[r]) + 1, offset + 1):
+                    if self._conf_retired_at(toks_np[r], k):
+                        retire_step[r] = k
+                        break
+                checked_upto[r] = offset
+            alive = [int(c) for c in live if retire_step[cache_map[c]] < 0]
+            if not alive:
+                break
+            m2 = _pad_slice(len(alive), int(cache_map.shape[0]))
+            if m2 < cache_map.shape[0]:
+                # the retired rows' K/V go back to the allocator: the next
+                # chunk decodes only the menu-padded live rows
+                idx = np.zeros((m2,), np.int64)
+                idx[: len(alive)] = alive
+                freed = slots_mod._cache_nbytes(cur_cache)
+                idx_dev = engine._tensor(idx)
+                cur_cache, prev, cur_lens = _gather_rows(
+                    cur_cache, prev, cur_lens, idx_dev)
+                done = done[idx_dev]
+                cur_ids = cur_ids[idx_dev]
+                freed -= slots_mod._cache_nbytes(cur_cache)
+                record_counter("completion_cache_bytes_freed", freed)
+                cache_map = cache_map[idx]
+                cache_real = np.zeros((m2,), bool)
+                cache_real[: len(alive)] = True
+        saved = int(np.sum(steps - decoded_upto[real]))
+        if saved:
+            record_counter("conf_steps_saved", saved)
+        record_counter("pooled_conf_retired_rows",
+                       int((retire_step[real] >= 0).sum()))
+
+        # r*: the retirement step, or everything decoded
+        r_star = np.maximum(np.where(retire_step >= 0, retire_step,
+                                     decoded_upto), 1).astype(np.int32)
+        where, row = [], 0
+        for rows, n_real, orig in layout:
+            where += [(row + j, orig[j], first3[row + j])
+                      for j in range(n_real)]
+            row += rows
+        self._emit_conf_rows(toks_np, vals_np, idsk_np, logz_np, tgt_np,
+                             r_star, where)
 
     def _inflight_bytes(self) -> int:
         """K/V bytes pinned by dispatched flushes whose decode has not run
@@ -1154,7 +1894,8 @@ class _Phase2Pool:
 @torch.no_grad()
 def _prefill_select(params, cfg, ids, mask, valid_rows, yes_ids, no_ids,
                     cache_len: int, slice_m: int, top_k: int,
-                    top_filter: int = 20, out_len: int = 0):
+                    top_filter: int = 20, out_len: int = 0,
+                    select_all: bool = False):
     """Prefill, position-0 scan and the look-ahead's row selection.
 
     The selection is a stable undecided-first sort of the scan's hit mask
@@ -1166,12 +1907,16 @@ def _prefill_select(params, cfg, ids, mask, valid_rows, yes_ids, no_ids,
     Returns (scan0, first3 [top-filtered position-0 (yes, no, relative)],
     sel [slice_m] batch row of each slice row, sub_cache, last_sel,
     len_sel).  When more than ``slice_m`` rows are undecided the caller
-    must prefill again with the full cache."""
+    must prefill again with the full cache.
+
+    ``select_all`` (the pooled confidence leg, where every valid row takes
+    the scored decode): the sort key is batch padding only, and the slice
+    (``slice_m`` = the batch size) holds every valid row, first."""
     last, cache = dmod.prefill(params, cfg, ids, mask, cache_len=cache_len)
     lengths = mask.sum(-1)
     scan0 = yn.first_token_scan(last, yes_ids, no_ids, top_k=top_k)
     first3 = yn.relative_prob_first_token(last, yes_ids, no_ids, top_filter)
-    decided = scan0[4] | ~valid_rows
+    decided = ~valid_rows if select_all else scan0[4] | ~valid_rows
     # argsort of an int8 key: a bool tensor has no stable sort on every
     # backend
     sel = torch.argsort(decided.to(torch.int8), stable=True)[:slice_m]
@@ -1188,11 +1933,11 @@ _SCAN_FIELDS = ("yes_prob", "no_prob", "relative_prob", "odds_ratio", "found")
 
 
 def _write_batch_rows(batch, scan0, first3, results, res_np=None,
-                      sub_pos=None, base: int = 0) -> None:
+                      base: int = 0) -> None:
     """One batch's result rows into ``results[base + prompt index]``: a row
     whose position-0 scan hit reads position 0 (``scan0``); any other reads
-    the look-ahead's scan ``res_np`` at its row (``sub_pos`` maps batch rows
-    to subset rows), or is left to the pool when there is none."""
+    the whole batch's look-ahead scan ``res_np`` at its row, or is left to
+    the pool when there is none."""
     yes0, no0, rel0, odds0, hit0 = scan0
     for r, orig in enumerate(batch.indices):
         if orig < 0:
@@ -1202,8 +1947,7 @@ def _write_batch_rows(batch, scan0, first3, results, res_np=None,
         elif res_np is None:
             continue
         else:
-            j = r if sub_pos is None else sub_pos[r]
-            vals = tuple(res_np[k][j] for k in _SCAN_FIELDS)
+            vals = tuple(res_np[k][r] for k in _SCAN_FIELDS)
         results[base + int(orig)] = _attach_first_token(
             _result_row(*vals, ""), first3, r)
 

@@ -12,6 +12,7 @@ import shutil
 import pytest
 
 from llm_interpretation_replication_tpu_torch.ops import _build
+from test_torch_slots import one_torch_thread  # noqa: F401
 
 REAL_CSRC = _build.CSRC
 

@@ -23,6 +23,7 @@ from llm_interpretation_replication_tpu_torch.models import config as tconfig
 from llm_interpretation_replication_tpu_torch.models import convert
 from llm_interpretation_replication_tpu_torch.models import decoder as tdec
 from llm_interpretation_replication_tpu_torch.ops import quant as tquant
+from test_torch_slots import one_torch_thread  # noqa: F401
 
 ATOL = 2e-5
 RTOL_SCORES, ATOL_SCORES = 2e-5, 2e-6

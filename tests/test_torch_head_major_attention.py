@@ -16,6 +16,8 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_slots import one_torch_thread  # noqa: F401
+
 # both ops packages re-export a function named ``attention``
 tattn = importlib.import_module(
     "llm_interpretation_replication_tpu_torch.ops.attention")

@@ -19,6 +19,7 @@ from llm_interpretation_replication_tpu.runtime import plan as jplan
 from llm_interpretation_replication_tpu_torch.config import DEFAULT_BUCKETS
 from llm_interpretation_replication_tpu_torch.models import config as tconfig
 from llm_interpretation_replication_tpu_torch.runtime import batching, plan
+from test_torch_slots import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "llm_interpretation_replication_tpu_torch")

@@ -21,6 +21,7 @@ from llm_interpretation_replication_tpu.ops import quant as jquant
 from llm_interpretation_replication_tpu_torch.models import config as tconfig
 from llm_interpretation_replication_tpu_torch.models import convert
 from llm_interpretation_replication_tpu_torch.ops import quant as tquant
+from test_torch_slots import one_torch_thread  # noqa: F401
 
 
 def _normal(seed, *shape, scale=1.0):

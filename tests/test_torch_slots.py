@@ -583,10 +583,3 @@ def test_slot_ring_matches_reference(kw):
     assert len(got[0]) == len(sel)
     if "compact_slack" in kw:
         assert got[1]["compactions"] > 0
-
-
-def test_confidence_pool_is_not_ported():
-    """The pool's confidence leg comes with the full-study legs."""
-    _, teng = engines(batch_size=4)
-    with pytest.raises(NotImplementedError, match="full-study legs"):
-        tengine._Phase2Pool(teng, 10, None, 4, [], confidence=True)

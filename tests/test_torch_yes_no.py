@@ -18,6 +18,7 @@ from llm_interpretation_replication_tpu.scoring import yes_no as jyn
 from llm_interpretation_replication_tpu_torch.scoring import yes_no as tyn
 from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
     WordTokenizer, default_tokenizer)
+from test_torch_slots import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-5, 1e-9
 
