@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each fatal on failure (the exit code is then non-zero and no result
-line is printed):
+line is printed; the order of the run is 1-8, 10, 9, 11):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
@@ -76,7 +76,36 @@ line is printed):
 9. int8: the int8 product's int32 accumulators on the card against a CPU
    int32 product at Falcon-7B's projection shapes; then the slice's prompts
    scored with w8a8 int8 weights (quantized as they are made), once with a
-   bf16 and once with an int8 KV cache, held against the bf16 rows.
+   bf16 and once with an int8 KV cache, held against the bf16 rows;
+10. sweep (before the int8 phase, on the slice's weights): the 5 legal
+   scenarios with 24 seeded word-level edits each of original_main (60-140
+   words, one token a word under a word tokenizer of the scenarios' words,
+   whose decode writes token i as " t<i>", and whose target tokens take
+   ids these weights often rank in position 0's top 20) go through
+   ``sweeps.run_model_perturbation_sweep`` in chunks of 40 rows: (a) the
+   fused default route, (b) a run an engine wrapper interrupts on its
+   second chunk, then the same call again (the side-log resumes it),
+   (c) the two-string route, (d) an engine whose top filter is 5, so the
+   shell takes ``first_token_relative_prob``, (e) ``prefill_chunk=64``.
+   Each workbook is read back (15 columns, 120 rows, no side-log left) and
+   held against (a)'s with the full-study gates (completions part only
+   where (a)'s lead, from one forward over prompt and completion, is below
+   twice the full-study near-tie; position-0 fields within
+   FUSED_PROB_TOL); every prompt forward launches the causal kernel once a
+   layer, and (e)'s ``prefill_chunks`` is the batches' buckets' count.
+   Then the slice's bucket-448 batch prefills monolithic and in chunks of
+   128, timed, with peak memory;
+11. CLI: a snapshot of Falcon-7B's published width cut to 2 layers
+   (random bf16 weights, target rows scaled as in phase 10, written by
+   the phase's own safetensors writer,
+   legacy config keys, a byte-level BPE tokenizer.json it builds from the
+   scenarios' texts) in a temporary directory; ``load_model`` must give the
+   written tensors back bit for bit; ``__main__.main(["run-perturbation",
+   ...])`` runs in this process in bf16 (its workbook must equal an
+   in-process sweep over the loaded weights) and with ``--quant int8
+   --kv-dtype int8 --prefill-chunk 64`` (verdicts and relative_prob within
+   0.05 of bf16's, but for rows whose target lies within the int8 path's
+   measured logit deviation, doubled, of the top-20 edge).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -88,11 +117,14 @@ import argparse
 import dataclasses
 import functools
 import importlib
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ERR_TOL = 1e-2            # kernel vs plain, bf16 output of unit-normal inputs
@@ -163,6 +195,24 @@ W8A8_MEAN_DREL, W8A8_MAX_DREL = 0.02, 0.10
 INT8_KV_MAX_DREL = 0.05
 # Falcon-7B's projections (K, N): QKV (q, then MQA's k or v), out, MLP in/out
 INT8_SHAPES = [(4544, 4544), (4544, 64), (4544, 18176), (18176, 4544)]
+# the sweep and CLI phases: rephrasings a scenario, their token range (the
+# real corpus's; the originals are 71-102 words), the sweep's chunk and
+# checkpoint sizes, the chunked-prefill run's chunk and the timing's, the
+# snapshot's layers (Falcon-7B's published width, its depth cut to bound
+# the time the snapshot takes to write and read)
+SWEEP_PER_SCENARIO, SWEEP_TOKENS = 24, (60, 140)
+SWEEP_CHUNK, SWEEP_CHECKPOINT = 40, 20
+SWEEP_PREFILL_CHUNK, TIMING_PREFILL_CHUNK = 64, 128
+SNAPSHOT_LAYERS = 2
+SWEEP_MODEL = "tiiuae/falcon-7b (random weights)"
+# the sweep phase's boosted runs scale the (tied) embedding rows of the
+# scenarios' own target ids by this factor: their logits, and the bf16
+# rounding of them, spread that much wider, and the phase measures that
+# rounding on those weights for their gates
+TARGET_BOOST = 5.0
+# the int8 CLI run (w8a8 weights, int8 KV, chunked prefill) against the bf16
+# one: |d relative_prob| bound of the int8 class (ROADMAP.md)
+CLI_INT8_MAX_DREL = 0.05
 # (wrapper, source in ops/csrc, line of the TPU kernel it replaces in
 # llm_interpretation_replication_tpu/ops/attention.py, shapes, layout)
 KERNELS = [
@@ -1190,15 +1240,16 @@ def _study_prepass(weights, cfg, batches, n, total, chunk, eos_id,
     gaps = np.zeros((n, total), np.float32)
     edge0 = np.zeros((n,), np.float32)
     kept = np.zeros((n, keep, cfg.vocab_size), np.float32) if keep else None
+    dev = _device_of(weights)
     for b in batches:
-        ids = torch.as_tensor(b.token_ids, device="cuda").long()
-        mask = torch.as_tensor(b.attention_mask, device="cuda")
+        ids = torch.as_tensor(b.token_ids, device=dev).long()
+        mask = torch.as_tensor(b.attention_mask, device=dev)
         lengths = mask.sum(-1)
         prev, cache = decoder.prefill(weights, cfg, ids, mask, b.bucket_len)
         real = b.indices >= 0
         rows, done = b.indices[real], None
         tgt = torch.as_tensor(np.asarray(target_ids)[
-            np.where(real, b.indices, b.indices[0])], device="cuda")
+            np.where(real, b.indices, b.indices[0])], device=dev)
         kth = torch.topk(prev, TOP_FILTER).values[:, -1:]
         edge0[rows] = (prev.gather(1, tgt) - kth).abs().min(1).values \
             .cpu().numpy()[real]
@@ -1234,40 +1285,83 @@ def _completion_of(tok, toks, completion_chars=100):
     return emod.ScoringEngine._completion_text(stub, toks, tok.eos_token_id)
 
 
-def _teacher_top1(weights, cfg, prompts, continuations, batch=BATCH):
-    """Top-1 logit at every step of each row's continuation ``[N, L]``,
-    from one forward over prompt + continuation: a second bf16 computation
-    of the logits the decode saw."""
+def _device_of(weights):
+    """The device the weights lie on."""
+    return weights.tree()["embed"]["tokens"].device
+
+
+def _padded(seqs, device):
+    """Right-padded ``ids`` (int64) and ``mask`` (int32) ``[len(seqs),
+    longest]`` of token-id lists, on ``device``."""
+    import torch
+
+    width = max(map(len, seqs))
+    ids = torch.zeros((len(seqs), width), dtype=torch.long)
+    mask = torch.zeros((len(seqs), width), dtype=torch.int32)
+    for i, seq in enumerate(seqs):
+        ids[i, :len(seq)] = torch.as_tensor(seq, dtype=torch.long)
+        mask[i, :len(seq)] = 1
+    return ids.to(device), mask.to(device)
+
+
+def _filtered_target_probs(logits, tgt):
+    """Position-0 probabilities ``[B, 2]`` of each row's two target ids
+    ``tgt`` ``[B, 2]`` under the top-TOP_FILTER filter, as the workbook's
+    Token_1_Prob / Token_2_Prob read them."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+
+    yes, no, _ = yes_no.relative_prob_first_token(
+        logits, tgt[:, 0], tgt[:, 1], top_filter=TOP_FILTER)
+    return torch.stack([yes, no], 1)
+
+
+def _teacher_top1(weights, cfg, prompts, continuations, batch=BATCH,
+                  target_ids=None):
+    """Top-1 logit and its lead over the second at every step of each row's
+    continuation ``[N, L + 1]`` (step L follows the last given token), from
+    one forward over prompt + continuation: a second bf16 computation of
+    the logits the decode saw.  With ``target_ids`` ``[N, 2]``, also each
+    row's distance of its nearer target logit from the TOP_FILTER-th
+    largest at step 0 ``[N]`` and its two filtered target probabilities
+    there ``[N, 2]`` (else NaN)."""
     import numpy as np
     import torch
 
     from llm_interpretation_replication_tpu_torch.models import decoder
 
-    tree = decoder._tree(weights)
-    n, steps = len(prompts), max(map(len, continuations))
+    tree, dev = decoder._tree(weights), _device_of(weights)
+    n, steps = len(prompts), max(map(len, continuations)) + 1
     top1 = np.full((n, steps), np.nan, np.float32)
+    leads = np.full((n, steps), np.nan, np.float32)
+    edge0 = np.full((n,), np.nan, np.float32)
+    probs0 = np.full((n, 2), np.nan, np.float32)
     for lo in range(0, n, batch):
         seqs = [list(p) + list(c) for p, c in
                 zip(prompts[lo:lo + batch], continuations[lo:lo + batch])]
-        width = max(map(len, seqs))
-        ids = torch.zeros((len(seqs), width), dtype=torch.long, device="cuda")
-        mask = torch.zeros((len(seqs), width), dtype=torch.int32,
-                           device="cuda")
-        pos = torch.zeros((len(seqs), steps), dtype=torch.long,
-                          device="cuda")
-        for i, seq in enumerate(seqs):
-            ids[i, :len(seq)] = torch.tensor(seq, device="cuda")
-            mask[i, :len(seq)] = 1
-            start = len(prompts[lo + i]) - 1
-            pos[i] = torch.arange(start, start + steps).clamp(max=width - 1)
+        ids, mask = _padded(seqs, dev)
+        starts = torch.as_tensor([len(p) - 1 for p in prompts[lo:lo + batch]])
+        pos = (starts[:, None] + torch.arange(steps)).clamp(
+            max=ids.shape[1] - 1).to(dev)
         x, _ = decoder._trunk(tree, cfg, ids, mask)
-        h = x[torch.arange(len(seqs), device="cuda")[:, None], pos]
-        vals = decoder._unembed(cfg, tree, h).amax(-1).cpu().numpy()
+        h = x[torch.arange(len(seqs), device=dev)[:, None], pos]
+        logits = decoder._unembed(cfg, tree, h)
+        top2 = torch.topk(logits, 2, dim=-1).values.cpu().numpy()
+        if target_ids is not None:
+            tgt = torch.as_tensor(np.asarray(target_ids[lo:lo + batch]),
+                                  device=dev)
+            kth = torch.topk(logits[:, 0], TOP_FILTER).values[:, -1:]
+            edge0[lo:lo + len(seqs)] = (logits[:, 0].gather(1, tgt) - kth) \
+                .abs().min(1).values.cpu().numpy()
+            probs0[lo:lo + len(seqs)] = _filtered_target_probs(
+                logits[:, 0], tgt).cpu().numpy()
         for i in range(len(seqs)):
-            k = len(continuations[lo + i])
-            top1[lo + i, :k] = vals[i, :k]
-        del x, h
-    return top1
+            k = len(continuations[lo + i]) + 1
+            top1[lo + i, :k] = top2[i, :k, 0]
+            leads[lo + i, :k] = top2[i, :k, 0] - top2[i, :k, 1]
+        del x, h, logits
+    return top1, leads, edge0, probs0
 
 
 def _compare_rows(what, rows, ref, ref_gaps, ref_edge0, near_tie,
@@ -1397,7 +1491,7 @@ def full_study_phase(seed, attention, weights):
         target_ids)
     # the rounding between two bf16 computations of the same logits: the
     # pre-pass's decode and one forward over the prompt and its tokens
-    tf_top1 = _teacher_top1(weights, cfg, conf, tokens.tolist())
+    tf_top1 = _teacher_top1(weights, cfg, conf, tokens.tolist())[0][:, :-1]
     noise = np.abs(tf_top1 - top1)
     near_tie = NEAR_TIE_FACTOR * float(noise.max())
     groups = [b.indices[b.indices >= 0] for b in conf_batches]
@@ -1617,7 +1711,7 @@ def full_study_phase(seed, attention, weights):
     stats["binary_lead_quantiles"] = _quantiles(bin_gaps)
     result = dict(prompts=STUDY_PROMPTS, runs=list(runs.values()),
                   timing=timing, expected=expect, stats=stats,
-                  failures=fails[:50])
+                  near_tie=near_tie, failures=fails[:50])
     say("full_study gates", json.dumps(dict(stats=stats,
                                             failures=len(fails))))
     if fails:
@@ -1761,6 +1855,988 @@ def int8_phase(seed, attention, bf16_rows):
     return result
 
 
+def _rephrasings(scenarios, seed, per=SWEEP_PER_SCENARIO, lo=SWEEP_TOKENS[0],
+                 hi=SWEEP_TOKENS[1]):
+    """``per`` distinct word-level edits of each scenario's original_main:
+    three swaps of neighbouring words, then random words of the original
+    inserted or deleted until the edit has a length drawn from [lo, hi]
+    words (one token a word under the sweep's word tokenizer)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 3)
+    out = []
+    for s in scenarios:
+        base = s["original_main"].split()
+        seen = set()
+        while len(seen) < per:
+            words = list(base)
+            for _ in range(3):
+                i = int(rng.integers(0, len(words) - 1))
+                words[i], words[i + 1] = words[i + 1], words[i]
+            n = int(rng.integers(lo, hi + 1))
+            while len(words) < n:
+                words.insert(int(rng.integers(0, len(words) + 1)),
+                             base[int(rng.integers(0, len(base)))])
+            while len(words) > n:
+                del words[int(rng.integers(0, len(words)))]
+            text = " ".join(words)
+            if text not in seen and text != s["original_main"]:
+                seen.add(text)
+                out.append((s["original_main"], text))
+    return [[t for o, t in out if o == s["original_main"]] for s in scenarios]
+
+
+def _scenario_words(scenarios):
+    words = []
+    for s in scenarios:
+        for key in ("original_main", "response_format", "confidence_format"):
+            words += s[key].split()
+        words += list(s["target_tokens"])
+    return words
+
+
+def _sweep_tokenizer(scenarios, target_ids=None):
+    """A ``WordTokenizer`` over the scenarios' words whose decode writes
+    every id ``i``, special ids too, as the word ``" t<i>"``: each generated
+    token is one word of a completion, any id of the model's vocabulary has
+    a text, and ``t<i>`` never reads as an integer.  ``target_ids`` (token
+    -> id, e.g. ``{" Covered": 331}``) moves those tokens to those ids
+    (swapping with the token there, or with a filler past the words)."""
+    from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
+        WordTokenizer)
+
+    class SweepTokenizer(WordTokenizer):
+        def decode(self, ids, skip_special_tokens=False):
+            return "".join(f" t{int(i)}" for i in ids)
+
+    tok = SweepTokenizer(_scenario_words(scenarios))
+    for token, tid in (target_ids or {}).items():
+        tok.vocab += [f"<filler{i}>" for i in range(len(tok.vocab), tid + 1)]
+        old = tok.ids[token]
+        tok.vocab[old], tok.vocab[tid] = tok.vocab[tid], token
+        tok.ids = {t: i for i, t in enumerate(tok.vocab)}
+    return tok
+
+
+def _popular_targets(weights, cfg, scenarios, tok, taken, batch=BATCH):
+    """Ids for the scenarios' target tokens that random weights rank in
+    position 0's top 20 often: over the rows of each distinct target pair,
+    the two ids most often in the top 20 of one forward over each binary
+    prompt (rephrasing and response format), not in ``taken`` and not
+    taken by another pair.  Returns ``{" <target>": id}``."""
+    from collections import Counter
+
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    prompts = [tok(f"{r} {s['response_format']}")["input_ids"]
+               for s in scenarios for r in s["rephrasings"]]
+    pairs = [tuple(s["target_tokens"]) for s in scenarios
+             for _ in s["rephrasings"]]
+    counts = {p: Counter() for p in pairs}
+    for lo in range(0, len(prompts), batch):
+        ids, mask = _padded(prompts[lo:lo + batch], _device_of(weights))
+        top = torch.topk(decoder.forward_last_logits(weights, cfg, ids, mask),
+                         TOP_FILTER).indices.cpu().tolist()
+        for pair, row in zip(pairs[lo:lo + batch], top):
+            counts[pair].update(row)
+    chosen, taken = {}, set(taken)
+    for pair, c in counts.items():
+        ranked = [i for i, _ in c.most_common() if i not in taken]
+        if len(ranked) < len(pair):
+            raise ValueError(f"{pair}: {len(ranked)} free ids in the top "
+                             f"{TOP_FILTER} of its rows")
+        for word, tid in zip(pair, ranked):
+            chosen[" " + word] = tid
+            taken.add(tid)
+    return chosen
+
+
+def _expected_prefill_chunks(buckets, chunk):
+    """The ``prefill_chunks`` count of prefix batches of these buckets: a
+    bucket longer than ``chunk`` replays in ceil(bucket / chunk) chunks."""
+    return sum(-(-b // chunk) for b in buckets if b > chunk)
+
+
+def _sweep_prefix_buckets(scenarios, tok, chunk_rows=SWEEP_CHUNK,
+                          batch=BATCH):
+    """The buckets of the fused route's prefix batches: the sweep's rows in
+    chunks of ``chunk_rows``, each chunk's rephrasings batched by length as
+    the engine batches them."""
+    from llm_interpretation_replication_tpu_torch.config import DEFAULT_BUCKETS
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+
+    items = [r for s in scenarios for r in s["rephrasings"]]
+    out = []
+    for lo in range(0, len(items), chunk_rows):
+        enc = tok(items[lo:lo + chunk_rows])["input_ids"]
+        out += [b.bucket_len for b in batching.batches_for_prompts(
+            enc, batch, DEFAULT_BUCKETS, pad_id=tok.pad_token_id,
+            length_sorted=True)]
+    return out
+
+
+def _completion_ids(text, completion_chars=100):
+    """The ids of a completion the sweep tokenizer decoded (``" t<i>"``
+    words); a last word the ``completion_chars`` cut may have shortened is
+    left out."""
+    words = text.split()
+    if len(text) >= completion_chars and words:
+        words = words[:-1]
+    return [int(w[1:]) for w in words]
+
+
+def _compare_workbooks(what, rows, ref, bin_leads, conf_leads, edge0, tie,
+                       prob_tol=FUSED_PROB_TOL):
+    """Hold one sweep workbook's rows against the reference run's, with the
+    full-study phase's gates.  Text columns of the prompt identical;
+    Token_1_Prob and Token_2_Prob within ``prob_tol`` unless a target
+    logit lies within ``tie`` of the top filter's edge (``edge0``); each
+    completion identical, or parting at a step (word) where the reference's
+    lead (``bin_leads`` / ``conf_leads`` ``[N, steps]``) is below ``tie``;
+    a confidence completion that does not part keeps its first integer and
+    weighted confidence within FUSED_WC_TOL.  Returns (stats, failures)."""
+    import math
+
+    fails, parted = [], []
+    worst = identical = 0
+    fixed = ("Model", "Original Main Part", "Response Format",
+             "Confidence Format", "Rephrased Main Part",
+             "Full Rephrased Prompt", "Full Confidence Prompt",
+             "Log Probabilities")
+    if len(rows) != len(ref):
+        return {}, [f"{what}: {len(rows)} rows, the reference has {len(ref)}"]
+    for i, (a, b) in enumerate(zip(rows, ref)):
+        identical += a == b
+        for c in fixed:
+            if a[c] != b[c]:
+                fails.append(f"row {i} {c}")
+        for c in ("Token_1_Prob", "Token_2_Prob"):
+            x, y = a[c], b[c]
+            if not all(isinstance(v, (int, float)) and not math.isnan(v)
+                       for v in (x, y)):
+                fails.append(f"row {i} {c} {x!r} vs {y!r}")
+                continue
+            worst = max(worst, abs(x - y))
+            if abs(x - y) > prob_tol and not edge0[i] < tie:
+                fails.append(f"row {i} {c} {x} vs {y}")
+        for c, leads in (("Model Response", bin_leads),
+                         ("Model Confidence Response", conf_leads)):
+            wa, wb = a[c].split(), b[c].split()
+            n = min(len(wa), len(wb))
+            part = next((j for j in range(n) if wa[j] != wb[j]), None)
+            if part is None and len(wa) != len(wb):
+                part = n
+            if part is not None:
+                gap = float(leads[i, part]) if part < leads.shape[1] \
+                    else float("inf")
+                parted.append(gap)
+                if not gap < tie:
+                    fails.append(f"row {i} {c} parts at step {part} (lead "
+                                 f"{gap}): {a[c]!r} vs {b[c]!r}")
+            elif c == "Model Confidence Response":
+                if a["Confidence Value"] != b["Confidence Value"]:
+                    fails.append(f"row {i} Confidence Value")
+                x, y = a["Weighted Confidence"], b["Weighted Confidence"]
+                if (x is None) != (y is None) or (
+                        x is not None and abs(x - y) > FUSED_WC_TOL):
+                    fails.append(f"row {i} Weighted Confidence {x} vs {y}")
+    stats = dict(identical_rows=identical, parted_completions=len(parted),
+                 widest_lead_where_parted=max(parted, default=None),
+                 max_abs_delta_token_prob=worst)
+    return stats, [f"{what}: {f}" for f in fails]
+
+
+def _boost_targets(weights, tok, scenarios):
+    """Scale, in place, the embedding rows of the scenarios' target tokens
+    (the ids the engine scores) by TARGET_BOOST."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+
+    ids = sorted({i for s in scenarios
+                  for i in yes_no.target_token_ids(tok, s["target_tokens"])})
+    with torch.no_grad():
+        weights.tree()["embed"]["tokens"][ids] *= TARGET_BOOST
+    return ids
+
+
+def _swap_embedding_rows(weights, tok, chosen):
+    """Swap, in place, the (tied) embedding row of each target token with
+    the row of the id ``chosen`` gives it (``{" <target>": id}``), so the
+    id the tokenizer gives the target scores as that id did.  Returns the
+    swapped ``(target id, chosen id)`` pairs."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+
+    emb = weights.tree()["embed"]["tokens"]
+    pairs = [(yes_no.target_token_ids(tok, [word[1:]])[0], tid)
+             for word, tid in chosen.items()]
+    with torch.no_grad():
+        for a, b in pairs:
+            emb[[a, b]] = emb[[b, a]]
+    return pairs
+
+
+def _target_shares(rows):
+    """Shares of workbook rows whose Token_1_Prob / Token_2_Prob is not 0
+    (the target inside position 0's top 20)."""
+    return [sum(r[c] > 0 for r in rows) / len(rows)
+            for c in ("Token_1_Prob", "Token_2_Prob")]
+
+
+class _InjectedCrash(RuntimeError):
+    """The sweep phase's interruption of run (b)."""
+
+
+class _CrashOnSecondChunk:
+    """An engine that raises on its second ``score_prefixed`` call and
+    delegates everything else."""
+
+    def __init__(self, engine):
+        self._engine, self.calls = engine, 0
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def score_prefixed(self, *args, **kwargs):
+        self.calls += 1
+        if self.calls == 2:
+            raise _InjectedCrash("injected crash on the second chunk")
+        return self._engine.score_prefixed(*args, **kwargs)
+
+
+def _sweep_prompts(scenarios, tok):
+    """Each sweep row's prefix ids, the ids of its two format suffixes
+    (response, confidence) and its two target ids, in the sweep's row
+    order."""
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+
+    prefixes = [tok(r)["input_ids"] for s in scenarios
+                for r in s["rephrasings"]]
+    suffixes = [[tok(" " + s[k], add_special_tokens=False)["input_ids"]
+                 for k in ("response_format", "confidence_format")]
+                for s in scenarios for _ in s["rephrasings"]]
+    target_ids = [yes_no.target_token_ids(tok, s["target_tokens"])
+                  for s in scenarios for _ in s["rephrasings"]]
+    return prefixes, suffixes, target_ids
+
+
+def _workbook_leads(weights, cfg, scenarios, tok, ref):
+    """The leads of a reference workbook ``ref``'s completions and its rows'
+    target distances from the top filter's edge (``_compare_workbooks``'s
+    ``bin_leads``, ``conf_leads``, ``edge0``): one forward over each prompt
+    and its completion."""
+    prefixes, suffixes, target_ids = _sweep_prompts(scenarios, tok)
+    _, bin_leads, edge0, _ = _teacher_top1(
+        weights, cfg, [p + x[0] for p, x in zip(prefixes, suffixes)],
+        [_completion_ids(r["Model Response"]) for r in ref],
+        target_ids=target_ids)
+    _, conf_leads, _, _ = _teacher_top1(
+        weights, cfg, [p + x[1] for p, x in zip(prefixes, suffixes)],
+        [_completion_ids(r["Model Confidence Response"]) for r in ref])
+    return bin_leads, conf_leads, edge0
+
+
+def _bf16_rounding(weights, cfg, scenarios, tok, ecfg):
+    """The bf16 rounding of the sweep's binary logits on these weights.
+    (1) The top-1 logit of two bf16 computations: a pre-pass decode of the
+    binary prompts (``ecfg``'s completion length, in its look-ahead chunks)
+    against one forward over each prompt and its tokens; the tie is 2 x
+    NEAR_TIE_FACTOR x its largest difference.  (2) The filtered position-0
+    target probabilities of one bf16 forward of each binary prompt against
+    a float32 one (a float32 copy of the weights, dense attention), on the
+    rows whose targets lie clear of the float32 filter edge by the tie.
+    Returns (readings, the float32 probabilities ``[N, 2]``, the clear rows
+    ``[N]``)."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+
+    prefixes, suffixes, target_ids = _sweep_prompts(scenarios, tok)
+    prompts = [p + x[0] for p, x in zip(prefixes, suffixes)]
+    batches = list(batching.batches_for_prompts(
+        prompts, BATCH, ecfg.buckets, pad_id=tok.pad_token_id,
+        length_sorted=True))
+    tokens, _, top1, _, _, _ = _study_prepass(
+        weights, cfg, batches, len(prompts), ecfg.max_new_tokens,
+        ecfg.max_look_ahead, tok.eos_token_id, target_ids)
+    top1_diff = np.abs(
+        _teacher_top1(weights, cfg, prompts, tokens.tolist())[0][:, :-1]
+        - top1)
+    tie = 2 * NEAR_TIE_FACTOR * float(top1_diff.max())
+    dev = _device_of(weights)
+    ref = decoder.DecoderWeights(cfg, _to_float32(weights.tree()))
+    dense = dataclasses.replace(cfg, attention_impl="xla")
+    p16, p32, edge = [], [], []
+    for lo in range(0, len(prompts), BATCH):
+        ids, mask = _padded(prompts[lo:lo + BATCH], dev)
+        tgt = torch.as_tensor(np.asarray(target_ids[lo:lo + BATCH]),
+                              device=dev)
+        a = decoder.forward_last_logits(weights, cfg, ids, mask)
+        r = decoder.forward_last_logits(ref, dense, ids, mask)
+        kth = torch.topk(r, TOP_FILTER).values[:, -1:]
+        edge.append((r.gather(1, tgt) - kth).abs().min(1).values.cpu())
+        p16.append(_filtered_target_probs(a, tgt).cpu())
+        p32.append(_filtered_target_probs(r, tgt).cpu())
+    del ref
+    clear = torch.cat(edge).numpy() >= tie
+    p16, p32 = torch.cat(p16).numpy(), torch.cat(p32).numpy()
+    readings = dict(top1_max_abs_diff=float(top1_diff.max()),
+                    top1_abs_diff_quantiles=_quantiles(top1_diff), tie=tie,
+                    prob_bf16_vs_fp32=float(
+                        np.abs(p16 - p32)[clear].max(initial=0.0)),
+                    rows_clear_of_edge=int(clear.sum()))
+    return readings, p32, clear
+
+
+def _perturbation_records(seed):
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+
+    scenarios = legal_scenarios()
+    return [dict(s, rephrasings=r)
+            for s, r in zip(scenarios, _rephrasings(scenarios, seed))]
+
+
+def sweep_phase(seed, attention, weights, near_tie, workdir, card):
+    """``run_model_perturbation_sweep`` on Falcon-7B over the legal
+    scenarios' rephrasings: the fused route (a), a run interrupted on its
+    second chunk and resumed (b), the two-string route (c), the
+    ``first_token_relative_prob`` fallback (d) and chunked prefill (e),
+    each workbook held against (a)'s; then one bucket-448 prefill,
+    monolithic against chunked.  The scenarios' target tokens take ids
+    that these weights often rank in position 0's top 20
+    (``_popular_targets``).  Then (a), (c) and (e) again with the targets'
+    own ids, their embedding rows scaled by TARGET_BOOST (larger target
+    logits, larger rounding of them), held against that (a) with the
+    bf16 rounding measured on those weights (``_bf16_rounding``)."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+    from llm_interpretation_replication_tpu_torch.gen.rephrase import (
+        load_perturbations)
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.sweeps import (
+        PERTURBATION_COLUMNS, run_model_perturbation_sweep)
+    from llm_interpretation_replication_tpu_torch.utils import telemetry
+    from llm_interpretation_replication_tpu_torch.utils.logging import (
+        SessionLogger)
+    from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
+        default_tokenizer)
+    from llm_interpretation_replication_tpu_torch.utils.xlsx import read_xlsx
+
+    device = "cuda"
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
+    path = os.path.join(workdir, "perturbations.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(_perturbation_records(seed), f)
+    scenarios = load_perturbations(path, expected_scenarios=legal_scenarios())
+    word_tok = _sweep_tokenizer(scenarios)
+    tok = _sweep_tokenizer(scenarios, _popular_targets(
+        weights, cfg, scenarios, word_tok, range(len(word_tok.special))))
+    n_rows = sum(len(s["rephrasings"]) for s in scenarios)
+    lengths = [len(tok(r)["input_ids"]) for s in scenarios
+               for r in s["rephrasings"]]
+    log = SessionLogger(log_file=os.path.join("chiprun_out", "sweep_phase.log"),
+                        stream=io.StringIO())
+    base = emod.EngineConfig(batch_size=BATCH)
+
+    counted = {"prefill": 0, "forward_last_logits": 0}
+    real = {name: getattr(decoder, name) for name in counted}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counted[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    runs, books = {}, {}
+
+    def sweep(name, ecfg=base, fuse=True, crash=False, tok=tok):
+        out = os.path.join(workdir, f"sweep_{name}.xlsx")
+        engine = emod.ScoringEngine("falcon", cfg, weights, tok,
+                                    engine_config=ecfg, device=device)
+        calls = []
+        for attempt in ((True, False) if crash else (False,)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            telemetry.clear_counters()
+            _reset_launches(attention)
+            for k in counted:
+                counted[k] = 0
+            t0 = time.perf_counter()
+            scored = sum(len(s["rephrasings"]) for s in scenarios)
+            try:
+                rows = run_model_perturbation_sweep(
+                    _CrashOnSecondChunk(engine) if attempt else engine,
+                    SWEEP_MODEL, scenarios, out,
+                    checkpoint_every=SWEEP_CHECKPOINT,
+                    score_chunk=SWEEP_CHUNK, fuse_prefix=fuse, log=log)
+            except _InjectedCrash:
+                rows = None
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            c = telemetry.counters()
+            if rows is None:
+                scored = SWEEP_CHUNK
+                sidelog = out + ".rows.jsonl"
+                with open(sidelog) as f:
+                    logged = sum(1 for line in f if line.strip())
+                if logged != SWEEP_CHUNK or os.path.exists(out):
+                    raise AssertionError(
+                        f"sweep {name}: the crash left {logged} side-log "
+                        f"rows, not the first chunk's {SWEEP_CHUNK}")
+            else:
+                scored -= SWEEP_CHUNK if crash else 0
+            calls.append(dict(
+                seconds=elapsed, rows_scored=scored,
+                rows_per_s=scored / elapsed,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                kernel_launches=_launches(attention)[
+                    "causal_grouped_attention"],
+                prefills=counted["prefill"],
+                forward_last_logits=counted["forward_last_logits"],
+                prefill_chunks=c.get("prefill_chunks", 0),
+                interrupted=rows is None))
+        engine.close()
+        if os.path.exists(out + ".rows.jsonl"):
+            raise AssertionError(f"sweep {name}: the side-log outlived the run")
+        cols, book = read_xlsx(out)
+        if cols != PERTURBATION_COLUMNS or len(book) != n_rows:
+            raise AssertionError(f"sweep {name}: workbook of {len(book)} rows "
+                                 f"and columns {cols}")
+        books[name] = book
+        res = dict(run=name, calls=calls, **{
+            k: sum(c[k] for c in calls) for k in (
+                "seconds", "rows_scored", "kernel_launches", "prefills",
+                "forward_last_logits", "prefill_chunks")})
+        res["rows_per_s"] = res["rows_scored"] / res["seconds"]
+        res["peak_memory_bytes"] = max(c["peak_memory_bytes"] for c in calls)
+        runs[name] = res
+        say("sweep", json.dumps(dict(res, card=card)))
+
+    for name in counted:
+        setattr(decoder, name, counting(name))
+    try:
+        sweep("fused")
+        sweep("resumed", crash=True)
+        sweep("legacy", fuse=False)
+        sweep("fallback", dataclasses.replace(base, first_token_top_filter=5))
+        sweep("chunked", dataclasses.replace(
+            base, prefill_chunk=SWEEP_PREFILL_CHUNK))
+        emb = weights.tree()["embed"]["tokens"]
+        unboosted = emb.clone()
+        _boost_targets(weights, word_tok, scenarios)
+        try:
+            sweep("boosted_fused", tok=word_tok)
+            sweep("boosted_legacy", fuse=False, tok=word_tok)
+            sweep("boosted_chunked", dataclasses.replace(
+                base, prefill_chunk=SWEEP_PREFILL_CHUNK), tok=word_tok)
+            boosted_leads = _workbook_leads(weights, cfg, scenarios, word_tok,
+                                            books["boosted_fused"])
+            rounding, fp32_probs, clear = _bf16_rounding(
+                weights, cfg, scenarios, word_tok, base)
+        finally:
+            emb.copy_(unboosted)
+            del unboosted
+    finally:
+        for name in counted:
+            setattr(decoder, name, real[name])
+        log.close()
+
+    # the reference's leads: one forward over each prompt and its
+    # completion; a lead there adds one more bf16 computation of both
+    # logits, so completions may part below twice the full-study near-tie
+    tie = 2 * near_tie
+    leads = _workbook_leads(weights, cfg, scenarios, tok, books["fused"])
+    fails, stats = [], {}
+    for name in ("resumed", "legacy", "fallback", "chunked"):
+        stats[name], f = _compare_workbooks(name, books[name], books["fused"],
+                                            *leads, tie)
+        fails += f
+    # the boosted runs: completions part only where the lead is below the
+    # tie of the rounding measured on the boosted weights; on rows clear of
+    # the filter's edge, each run's position-0 fields no further from
+    # float32 than NEAR_TIE_FACTOR times one bf16 forward's distance, and
+    # so two runs' no further apart than twice that
+    boosted = dict(rounding, prob_tol=NEAR_TIE_FACTOR
+                   * rounding["prob_bf16_vs_fp32"],
+                   target_in_top20_share=_target_shares(
+                       books["boosted_fused"]))
+    for name in ("boosted_fused", "boosted_legacy", "boosted_chunked"):
+        got = np.asarray([[r["Token_1_Prob"], r["Token_2_Prob"]]
+                          for r in books[name]])
+        d = float(np.abs(got - fp32_probs)[clear].max(initial=0.0))
+        boosted[f"{name}_vs_fp32"] = d
+        if not d <= boosted["prob_tol"]:
+            fails.append(f"{name}: position-0 fields {d} from float32, one "
+                         f"bf16 forward {rounding['prob_bf16_vs_fp32']}")
+    for name in ("boosted_legacy", "boosted_chunked"):
+        stats[name], f = _compare_workbooks(
+            name, books[name], books["boosted_fused"], *boosted_leads,
+            boosted["tie"], prob_tol=2 * boosted["prob_tol"])
+        fails += f
+    say("sweep boosted rounding", json.dumps(dict(boosted, card=card)))
+    expect_chunks = _expected_prefill_chunks(
+        _sweep_prefix_buckets(scenarios, tok), SWEEP_PREFILL_CHUNK)
+    for name in ("chunked", "boosted_chunked"):
+        if runs[name]["prefill_chunks"] != expect_chunks or not expect_chunks:
+            fails.append(f"{name}: prefill_chunks "
+                         f"{runs[name]['prefill_chunks']}, the batches' "
+                         f"buckets give {expect_chunks}")
+    if not runs["fallback"]["forward_last_logits"]:
+        fails.append("fallback: first_token_relative_prob never ran")
+    for name, res in runs.items():
+        forwards = res["prefills"] + res["forward_last_logits"]
+        if not forwards or res["kernel_launches"] != cfg.num_layers * forwards:
+            fails.append(f"{name}: {res['kernel_launches']} causal launches "
+                         f"for {forwards} prompt forwards")
+
+    # one bucket-448 batch of the slice phase, monolithic and chunked
+    ptok = default_tokenizer()
+    batch = list(batching.batches_for_prompts(
+        _prompts(seed, ptok), BATCH, base.buckets, pad_id=ptok.pad_token_id,
+        length_sorted=True))[-1]
+    ids = torch.as_tensor(batch.token_ids, device=device).long()
+    mask = torch.as_tensor(batch.attention_mask, device=device)
+    timing = dict(card=card, bucket=batch.bucket_len,
+                  chunk=TIMING_PREFILL_CHUNK)
+    for name, fn in (
+            ("monolithic", lambda: decoder.prefill(weights, cfg, ids, mask,
+                                                   batch.bucket_len)),
+            ("chunked", lambda: decoder.chunked_prefill(
+                weights, cfg, ids, mask, TIMING_PREFILL_CHUNK))):
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del out
+        timing[f"{name}_ms"] = time_ms(fn, iters=3, warmup=1)
+        timing[f"{name}_peak_gb"] = peak / 1e9
+        timing[f"{name}_transient_gb"] = (peak - base_bytes) / 1e9
+    say("sweep prefill timing", json.dumps(timing))
+    result = dict(card=card, rows=n_rows,
+                  token_lengths=[min(lengths), max(lengths)],
+                  target_in_top20_share=_target_shares(books["fused"]),
+                  runs=list(runs.values()), expected_prefill_chunks=expect_chunks,
+                  parting_tie=tie, boosted=boosted, stats=stats, timing=timing,
+                  failures=fails[:50])
+    say("sweep gates", json.dumps(dict(card=card, stats=stats,
+                                       failures=len(fails))))
+    if fails:
+        raise AssertionError(f"sweep: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
+def _bpe_merges(pieces):
+    """BPE merges learned on ``pieces`` (pre-tokenized words in the byte
+    alphabet -> count): the most frequent pair merges first (ties to the
+    smaller pair), until every piece is one symbol."""
+    import heapq
+    from collections import Counter, defaultdict
+
+    words = [list(p) for p in pieces]
+    freq = list(pieces.values())
+    counts, where = Counter(), defaultdict(set)
+
+    def tally(wi, sign):
+        w = words[wi]
+        for pair in zip(w, w[1:]):
+            counts[pair] += sign * freq[wi]
+            where[pair].add(wi)
+
+    for wi in range(len(words)):
+        tally(wi, 1)
+    heap = [(-c, p) for p, c in counts.items()]
+    heapq.heapify(heap)
+    merges = []
+    while heap:
+        c, pair = heapq.heappop(heap)
+        if -c <= 0 or counts.get(pair, 0) != -c:
+            continue
+        merges.append(pair)
+        a, b = pair
+        changed = set()
+        for wi in sorted(where.pop(pair)):
+            w = words[wi]
+            if not any(w[i] == a and w[i + 1] == b for i in range(len(w) - 1)):
+                continue
+            changed.update(zip(w, w[1:]))
+            tally(wi, -1)
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and w[i] == a and w[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            words[wi] = out
+            tally(wi, 1)
+            changed.update(zip(out, out[1:]))
+        for p in changed:
+            if counts[p] > 0:
+                heapq.heappush(heap, (-counts[p], p))
+    return merges
+
+
+def _bpe_tokenizer_files(texts):
+    """(tokenizer.json, tokenizer_config.json, special_tokens_map.json) of
+    a byte-level BPE tokenizer: the 256 byte symbols, merges learned on the
+    ByteLevel pieces of ``texts`` until each piece is one token, and
+    ``<|endoftext|>`` as an added special token and the EOS (which then
+    pads, by the loader's rule)."""
+    from collections import Counter
+
+    from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
+        _byte_level_split, _bytes_to_unicode)
+
+    byte_map = _bytes_to_unicode()
+    pieces = Counter()
+    for text in texts:
+        for m in _byte_level_split().finditer(text):
+            pieces["".join(byte_map[b] for b in m.group(0).encode())] += 1
+    vocab = {byte_map[b]: b for b in range(256)}
+    merges = _bpe_merges(pieces)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    eos = "<|endoftext|>"
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": len(vocab), "content": eos,
+                          "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False,
+                          "special": True}],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                          "trim_offsets": True, "use_regex": True},
+        "post_processor": {"type": "ByteLevel", "add_prefix_space": True,
+                           "trim_offsets": False, "use_regex": True},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": [list(m) for m in merges]},
+    }
+    config = {"eos_token": eos, "clean_up_tokenization_spaces": False,
+              "tokenizer_class": "PreTrainedTokenizerFast",
+              "model_max_length": 2048}
+    return spec, config, {"eos_token": eos}
+
+
+def _write_safetensors(path, tensors):
+    """A safetensors file of ``tensors`` (name -> tensor, any device): an
+    8-byte little-endian header length, the JSON header (padded with spaces
+    to a multiple of 8), then each tensor's bytes in order."""
+    import struct
+
+    import torch
+
+    names = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1)
+                    .view(torch.uint8).numpy().data)
+
+
+def _falcon_state_dict(tree, cfg):
+    """The HF Falcon checkpoint of a stacked param tree with one K/V head
+    (Falcon-7B's layout: fused QKV rows ``[q(N*D); k(D); v(D)]``, torch
+    ``Linear`` weights ``[out, in]``, tied embeddings): the inverse of
+    ``models.convert.convert_falcon``."""
+    import torch
+
+    if cfg.num_kv_heads != 1 or not cfg.shared_layernorm:
+        raise ValueError("the writer takes Falcon-7B's layout only")
+    layers, sd = tree["layers"], {}
+    sd["transformer.word_embeddings.weight"] = tree["embed"]["tokens"]
+    for i in range(cfg.num_layers):
+        pre = f"transformer.h.{i}."
+        attn, mlp = layers["attn"], layers["mlp"]
+        sd[pre + "self_attention.query_key_value.weight"] = torch.cat(
+            [attn["wq"][i].t(), attn["wk"][i].t(), attn["wv"][i].t()])
+        sd[pre + "self_attention.dense.weight"] = attn["wo"][i].t()
+        sd[pre + "mlp.dense_h_to_4h.weight"] = mlp["wi"][i].t()
+        sd[pre + "mlp.dense_4h_to_h.weight"] = mlp["wo"][i].t()
+        sd[pre + "input_layernorm.weight"] = layers["ln1"]["scale"][i]
+        sd[pre + "input_layernorm.bias"] = layers["ln1"]["bias"][i]
+    sd["transformer.ln_f.weight"] = tree["final_ln"]["scale"]
+    sd["transformer.ln_f.bias"] = tree["final_ln"]["bias"]
+    return sd
+
+
+def _falcon_config_json(cfg):
+    """Falcon-7B's ``config.json`` at this depth, with the legacy key names
+    of the original snapshots (``n_embed``, ``n_head``, ``n_layer``)."""
+    return {"model_type": "falcon", "architectures": ["FalconForCausalLM"],
+            "n_embed": cfg.hidden_size, "n_head": cfg.num_heads,
+            "n_layer": cfg.num_layers, "vocab_size": cfg.vocab_size,
+            "multi_query": True, "new_decoder_architecture": False,
+            "parallel_attn": True, "bias": False, "alibi": False,
+            "layer_norm_epsilon": 1e-5, "torch_dtype": "bfloat16",
+            "bos_token_id": 11, "eos_token_id": 11}
+
+
+def cli_phase(seed, attention, workdir, card):
+    """``python -m llm_interpretation_replication_tpu_torch
+    run-perturbation`` in this process, from a snapshot of Falcon-7B's
+    published width at SNAPSHOT_LAYERS layers that the phase writes (random
+    bf16 weights, a byte-level BPE tokenizer it builds), in bf16 and then
+    with int8 weights, int8 KV and chunked prefill."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+    from llm_interpretation_replication_tpu_torch.gen.rephrase import (
+        load_perturbations)
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import convert
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+    from llm_interpretation_replication_tpu_torch.runtime.loader import (
+        load_model, load_tokenizer)
+    from llm_interpretation_replication_tpu_torch.sweeps import (
+        run_model_perturbation_sweep)
+    from llm_interpretation_replication_tpu_torch.utils.logging import (
+        SessionLogger)
+    from llm_interpretation_replication_tpu_torch.utils.xlsx import read_xlsx
+
+    device = "cuda"
+    cfg = mconfig.DecoderConfig(**{**mconfig.FALCON_7B_GEOMETRY,
+                                   "num_layers": SNAPSHOT_LAYERS},
+                                attention_impl="flash")
+    weights = convert.random_params(cfg, seed=seed + 2, device=device,
+                                    dtype="bf16")
+    snap = os.path.join(workdir, "falcon-7b-2l")
+    os.makedirs(snap)
+    pert = os.path.join(workdir, "perturbations.json")
+    scenarios = load_perturbations(pert, expected_scenarios=legal_scenarios())
+    texts = [s[k] for s in scenarios for k in ("original_main",
+                                                "response_format",
+                                                "confidence_format")]
+    texts += [" " + t for s in scenarios for t in s["target_tokens"]]
+    t0 = time.perf_counter()
+    spec, tconf, special = _bpe_tokenizer_files(texts)
+    for name, obj in (("tokenizer.json", spec),
+                      ("tokenizer_config.json", tconf),
+                      ("special_tokens_map.json", special),
+                      ("config.json", _falcon_config_json(cfg))):
+        with open(os.path.join(snap, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f)
+    tokenizer_s = time.perf_counter() - t0
+    # the targets score as the ids these weights rank in the top 20 most
+    # often (past the tokenizer's vocabulary, which the prompts use)
+    snap_tok = load_tokenizer(snap)
+    swapped = _swap_embedding_rows(weights, snap_tok, _popular_targets(
+        weights, cfg, scenarios, snap_tok, range(len(snap_tok))))
+    t0 = time.perf_counter()
+    _write_safetensors(os.path.join(snap, "model.safetensors"),
+                       _falcon_state_dict(weights.tree(), cfg))
+    write_s = time.perf_counter() - t0
+    snap_bytes = os.path.getsize(os.path.join(snap, "model.safetensors"))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    family, lcfg, loaded = load_model(snap, dtype="bf16",
+                                      attention_impl="flash", device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    fails = []
+    if (family, dataclasses.replace(lcfg, fused_qkv=False)) != ("falcon", cfg):
+        fails.append(f"loaded config {lcfg}, written {cfg}")
+    written = dict(decoder._flatten(weights.tree()))
+    got = dict(decoder._flatten(loaded.tree()))
+    if written.keys() != got.keys() or not all(
+            got[k].dtype == v.dtype and torch.equal(got[k], v)
+            for k, v in written.items()):
+        fails.append("load_model does not give back the written tensors")
+    del weights, written
+
+    counted = {"prefill": 0}
+    real_prefill = decoder.prefill
+
+    def counting(*args, **kwargs):
+        counted["prefill"] += 1
+        return real_prefill(*args, **kwargs)
+
+    n_rows = sum(len(s["rephrasings"]) for s in scenarios)
+    runs, books = [], {}
+    argv = ["run-perturbation", "--model", snap, "--perturbations", pert,
+            "--attention-impl", "flash", "--batch-size", str(BATCH)]
+    decoder.prefill = counting
+    try:
+        for name, extra in (("bf16", []),
+                            ("int8", ["--quant", "int8", "--kv-dtype", "int8",
+                                      "--prefill-chunk",
+                                      str(SWEEP_PREFILL_CHUNK)])):
+            out = os.path.join(workdir, f"cli_{name}")
+            _reset_launches(attention)
+            counted["prefill"] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cli.main(argv + ["--output-dir", out] + extra)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            cols, books[name] = read_xlsx(
+                os.path.join(out, "perturbation_results.xlsx"))
+            res = dict(run=name, seconds=elapsed, rows=len(books[name]),
+                       rows_per_s=len(books[name]) / elapsed,
+                       peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                       kernel_launches=_launches(attention)[
+                           "causal_grouped_attention"],
+                       prefills=counted["prefill"])
+            runs.append(res)
+            say("cli", json.dumps(dict(res, card=card)))
+            if len(books[name]) != n_rows:
+                fails.append(f"cli {name}: {len(books[name])} rows")
+            if not res["prefills"] or res["kernel_launches"] != \
+                    cfg.num_layers * res["prefills"]:
+                fails.append(f"cli {name}: {res['kernel_launches']} causal "
+                             f"launches for {res['prefills']} prefills")
+    finally:
+        decoder.prefill = real_prefill
+
+    # the same sweep in this process over the weights load_model gave back
+    tok = snap_tok
+    engine = emod.ScoringEngine(family, lcfg, loaded, tok, device=device,
+                                engine_config=emod.EngineConfig(
+                                    batch_size=BATCH))
+    out = os.path.join(workdir, "in_process.xlsx")
+    run_model_perturbation_sweep(engine, snap, scenarios, out,
+                                 log=SessionLogger(stream=io.StringIO()))
+    engine.close()
+    in_process = read_xlsx(out)[1]
+    same = sum(a == b for a, b in zip(books["bf16"], in_process))
+    if same != n_rows:
+        fails.append(f"cli bf16: {n_rows - same} rows differ from the "
+                     f"in-process sweep")
+
+    # int8 against bf16.  The int8 path's own deviation, measured on these
+    # prompts by one plain forward with bf16 and with w8a8 weights: of the
+    # target logits and the filter's edge (twice it makes the tie), and of
+    # the targets' log-probabilities.  On rows whose targets lie clear of
+    # the edge by the tie: a target is in the top 20 in both workbooks or
+    # in neither; each probability in it within NEAR_TIE_FACTOR times the
+    # log-probability deviation (the workbook adds the int8 cache and
+    # chunked prefill to it); the relative probability within
+    # CLI_INT8_MAX_DREL; the verdict kept unless the two target logits lie
+    # within the tie
+    _, _, qweights = load_model(snap, dtype="bf16", quant="int8",
+                                attention_impl="flash", device=device)
+    prompts = [tok(f"{r} {s['response_format']}")["input_ids"]
+               for s in scenarios for r in s["rephrasings"]]
+    target_ids = np.asarray([yes_no.target_token_ids(tok, s["target_tokens"])
+                             for s in scenarios for _ in s["rephrasings"]])
+    dev_max = logp_dev = 0.0
+    edge, split = np.zeros(n_rows), np.zeros(n_rows)
+    for lo in range(0, n_rows, BATCH):
+        ids, mask = _padded(prompts[lo:lo + BATCH], device)
+        tgt = torch.as_tensor(target_ids[lo:lo + BATCH], device=device)
+        a = decoder.forward_last_logits(loaded, lcfg, ids, mask).float()
+        b = decoder.forward_last_logits(qweights, lcfg, ids, mask).float()
+        kth_a = torch.topk(a, TOP_FILTER).values[:, -1:]
+        kth_b = torch.topk(b, TOP_FILTER).values[:, -1:]
+        la, lb = a.gather(1, tgt), b.gather(1, tgt)
+        dev_max = max(dev_max, float((la - lb).abs().max()),
+                      float((kth_a - kth_b).abs().max()))
+        logp_dev = max(logp_dev, float(
+            (a.log_softmax(-1).gather(1, tgt)
+             - b.log_softmax(-1).gather(1, tgt)).abs().max()))
+        edge[lo:lo + len(ids)] = (la - kth_a).abs().min(1).values.cpu().numpy()
+        split[lo:lo + len(ids)] = (la[:, 0] - la[:, 1]).abs().cpu().numpy()
+    del loaded, qweights
+    tie, logp_tol = 2 * dev_max, NEAR_TIE_FACTOR * logp_dev
+
+    def rel(row):
+        t1, t2 = row["Token_1_Prob"], row["Token_2_Prob"]
+        return t1 / (t1 + t2) if t1 + t2 > 0 else 0.5
+
+    worst_rel = worst_logp = 0.0
+    flips = near = compared = both = 0
+    for i, (a, b) in enumerate(zip(books["int8"], books["bf16"])):
+        if edge[i] < tie:
+            near += 1
+            continue
+        inside = 0
+        for c in ("Token_1_Prob", "Token_2_Prob"):
+            x, y = a[c], b[c]
+            if (x > 0) != (y > 0):
+                fails.append(f"cli int8: row {i} {c} {x} vs {y}")
+            elif x > 0:
+                inside += 1
+                d = abs(math.log(x) - math.log(y))
+                worst_logp = max(worst_logp, d)
+                if d > logp_tol:
+                    fails.append(f"cli int8: row {i} {c} {x} vs {y}")
+        compared += inside > 0
+        both += inside == 2
+        d = abs(rel(a) - rel(b))
+        worst_rel = max(worst_rel, d)
+        if d > CLI_INT8_MAX_DREL:
+            fails.append(f"cli int8: row {i} relative_prob {rel(a)} vs "
+                         f"{rel(b)}")
+        if (np.sign(a["Token_1_Prob"] - a["Token_2_Prob"])
+                != np.sign(b["Token_1_Prob"] - b["Token_2_Prob"])):
+            flips += 1
+            if not split[i] < tie:
+                fails.append(f"cli int8: row {i} verdict flips")
+    if not both:
+        fails.append("cli int8: no row away from the edge has both targets "
+                     "in the top 20")
+    result = dict(card=card, layers=SNAPSHOT_LAYERS, snapshot_bytes=snap_bytes,
+                  snapshot_write_s=write_s, tokenizer_build_s=tokenizer_s,
+                  tokenizer_vocab=len(tok), snapshot_load_s=load_s, runs=runs,
+                  in_process_identical_rows=same,
+                  swapped_target_rows=swapped,
+                  target_in_top20_share=_target_shares(books["bf16"]),
+                  int8=dict(max_abs_delta_relative_prob=worst_rel,
+                            max_abs_delta_log_prob=worst_logp,
+                            log_prob_tol=logp_tol, verdict_flips=flips,
+                            rows_near_the_edge=near,
+                            rows_compared_share=compared / n_rows,
+                            rows_with_both_targets_share=both / n_rows,
+                            logit_deviation=dev_max,
+                            log_prob_deviation=logp_dev),
+                  failures=fails[:50])
+    say("cli gates", json.dumps({k: v for k, v in result.items()
+                                 if k != "runs"}))
+    if fails:
+        raise AssertionError(f"cli: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1793,12 +2869,27 @@ def main(argv=None):
     sres, bf16_rows, weights = slice_phase(args.seed, attention)
     pres = pooled_phase(args.seed, attention, weights)
     fres = full_study_phase(args.seed, attention, weights)
-    del weights
-    torch.cuda.empty_cache()
-    ires = int8_phase(args.seed, attention, bf16_rows)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        wres = sweep_phase(args.seed, attention, weights, fres["near_tie"],
+                           workdir, smi.splitlines()[0])
+        del weights
+        torch.cuda.empty_cache()
+        ires = int8_phase(args.seed, attention, bf16_rows)
+        cres = cli_phase(args.seed, attention, workdir, smi.splitlines()[0])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
-    fused = next(r for r in fres["runs"] if r["run"] == "fused")
-    launches = {"causal_grouped_attention": fused["kernel_launches"],
+    # the causal kernel's launches over every main-path run (each counted
+    # from 0 just before it); the head-major kernels run on forced routes
+    causal = (sres["kernel_launches"]
+              + sum(r.get("kernel_launches", 0) for r in pres["runs"])
+              + sum(r["kernel_launches"] for r in fres["runs"]
+                    if "kernel_launches" in r)
+              + sum(r["kernel_launches"] for r in ires["runs"])
+              + sum(r["kernel_launches"] for r in wres["runs"])
+              + sum(r["kernel_launches"] for r in cres["runs"]))
+    launches = {"causal_grouped_attention": causal,
                 "grouped_attention": sres["forced_routes"]["grouped"]["launches"],
                 "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
     kernels = []
@@ -1819,8 +2910,8 @@ def main(argv=None):
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build=build,
                        edge_rows=erows, kernel_rows=krows, slice=sres,
-                       pooled=pres, full_study=fres, int8=ires,
-                       kernels=kernels), f, indent=1)
+                       pooled=pres, full_study=fres, sweep=wres, int8=ires,
+                       cli=cres, kernels=kernels), f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

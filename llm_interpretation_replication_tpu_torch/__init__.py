@@ -1,9 +1,12 @@
-"""PyTorch/CUDA port of the scoring path of ``llm_interpretation_replication_tpu``.
+"""PyTorch/CUDA port of ``llm_interpretation_replication_tpu``.
 
 The JAX package is the reference and stays as it is; this package imports
-``torch`` and nothing of JAX or of the JAX package.  The slice ported so far
-is the binary-leg scoring path of ``ScoringEngine.score_prompts`` (prefill,
-position-0 scan, scored look-ahead of the undecided rows, yes/no scan) with
-bf16 weights, whose prefill attention runs a hand-written Hopper kernel
+``torch`` and nothing of JAX or of the JAX package.  Ported so far: the
+study's ``run-perturbation`` entry point (``python -m
+llm_interpretation_replication_tpu_torch run-perturbation``) from a local
+Falcon snapshot through the sweep shell (``sweeps/``) and
+``ScoringEngine.score_prefixed`` to the 15-column workbook, with the
+engine's scoring routes, w8a8 weights, an int8 KV cache and chunked
+prefill; every prefill's attention runs a hand-written Hopper kernel
 (``ops/csrc/causal_grouped_attention.cu``).
 """

@@ -1,12 +1,16 @@
 """Decoder configuration (a copy of what the port needs from
 ``llm_interpretation_replication_tpu/models/config.py``): ``DecoderConfig``,
-the Falcon family translator and the two Falcon geometries.  Other family
-presets come with the slices that port them."""
+the Falcon family translator, ``from_hf_config`` for Falcon's model types
+and the two Falcon geometries.  Other family presets come with the slices
+that port them."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
+
+_ITEM_FAMILIES = "ROADMAP.md queue 1, 'Other decoder families'"
+_ITEM_T5 = "ROADMAP.md queue 1, 'T5'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +119,27 @@ def falcon_config(hf) -> DecoderConfig:
         activation="gelu",
         tie_word_embeddings=True,
     )
+
+
+#: HF ``model_type`` -> (family, config translator), for the types ported
+FAMILY_BY_MODEL_TYPE = {
+    "falcon": ("falcon", falcon_config),
+    "RefinedWeb": ("falcon", falcon_config),
+    "RefinedWebModel": ("falcon", falcon_config),
+}
+
+
+def from_hf_config(hf) -> Tuple[str, DecoderConfig]:
+    """Map a HF config (any object with its attributes) to (family, our
+    config).  Only Falcon's model types are ported; another raises
+    ``NotImplementedError`` naming its ROADMAP.md item."""
+    mt = getattr(hf, "model_type", None)
+    if mt not in FAMILY_BY_MODEL_TYPE:
+        item = _ITEM_T5 if mt == "t5" else _ITEM_FAMILIES
+        raise NotImplementedError(
+            f"model_type {mt!r} is not ported yet ({item})")
+    family, translate = FAMILY_BY_MODEL_TYPE[mt]
+    return family, translate(hf)
 
 
 #: Falcon-7B's published geometry (tiiuae/falcon-7b config.json).

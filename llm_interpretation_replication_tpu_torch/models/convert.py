@@ -3,12 +3,16 @@
 ``params_from_jax`` carries the JAX package's stacked param tree (as numpy
 arrays) across unchanged in layout, quantized (w8a8) trees included;
 ``random_params`` builds full-width random weights directly on the device
-from an explicit generator, optionally quantized as they are made.
+from an explicit generator, optionally quantized as they are made;
+``convert_falcon`` turns a HF Falcon checkpoint (any ``get(name) ->
+tensor``) into the same stacked tree (a copy of ``models/convert.py``'s
+``convert_falcon`` and ``_split_falcon_qkv`` on tensors), so both load paths
+meet in one ``DecoderWeights``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -107,3 +111,84 @@ def random_params(cfg: DecoderConfig, seed: int = 0, device=DEFAULT_DEVICE,
     if not cfg.tie_word_embeddings:
         tree["lm_head"] = rnd(h, V)
     return DecoderWeights(cfg, tree)
+
+
+Getter = Callable[[str], torch.Tensor]
+
+
+def _linear(get: Getter, name: str) -> torch.Tensor:
+    """A torch ``Linear`` weight ``[out, in]`` as the ``x @ W`` layout
+    ``[in, out]``."""
+    return get(f"{name}.weight").t().contiguous()
+
+
+def _maybe(get: Getter, name: str):
+    try:
+        return get(name)
+    except KeyError:
+        return None
+
+
+def _ln(get: Getter, name: str, layers=None) -> Dict:
+    if layers is None:
+        return {"scale": get(f"{name}.weight"), "bias": get(f"{name}.bias")}
+    return {"scale": torch.stack([get(f"{name.format(i=i)}.weight") for i in layers]),
+            "bias": torch.stack([get(f"{name.format(i=i)}.bias") for i in layers])}
+
+
+def _split_falcon_qkv(w: torch.Tensor, n_heads: int, n_kv: int, head_dim: int):
+    """Falcon's fused QKV ``[rows, H]`` -> (wq, wk, wv) ``[H, N*D]`` /
+    ``[H, G*D]``.  Old architecture with multi-query (Falcon-7B): rows are
+    ``[q(N*D); k(D); v(D)]``; grouped (new architecture): ``[q(g*D); k(D);
+    v(D)]`` for each of the ``n_kv`` groups; one K/V per head: ``[q; k; v]``
+    per head."""
+    h = w.shape[1]
+    g = 1 if n_kv == n_heads else n_heads // n_kv
+    wg = w.reshape(n_kv, g + 2, head_dim, h)
+    wq = wg[:, :g].reshape(n_heads * head_dim, h).t().contiguous()
+    wk = wg[:, g].reshape(n_kv * head_dim, h).t().contiguous()
+    wv = wg[:, g + 1].reshape(n_kv * head_dim, h).t().contiguous()
+    return wq, wk, wv
+
+
+def convert_falcon(get: Getter, cfg: DecoderConfig) -> Dict:
+    """A HF Falcon checkpoint -> the stacked param tree, in the
+    checkpoint's own dtype, on the device ``get`` puts its tensors on."""
+    L = range(cfg.num_layers)
+    qkv = [_split_falcon_qkv(
+        get(f"transformer.h.{i}.self_attention.query_key_value.weight"),
+        cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) for i in L]
+    ln1_name = (
+        "transformer.h.{i}.input_layernorm"
+        if _maybe(get, "transformer.h.0.input_layernorm.weight") is not None
+        else "transformer.h.{i}.ln_attn"
+    )
+    layers = {
+        "ln1": _ln(get, ln1_name, L),
+        "attn": {
+            "wq": torch.stack([q for q, _, _ in qkv]),
+            "wk": torch.stack([k for _, k, _ in qkv]),
+            "wv": torch.stack([v for _, _, v in qkv]),
+            "wo": torch.stack([_linear(get, f"transformer.h.{i}.self_attention.dense") for i in L]),
+        },
+        "mlp": {
+            "wi": torch.stack([_linear(get, f"transformer.h.{i}.mlp.dense_h_to_4h") for i in L]),
+            "wo": torch.stack([_linear(get, f"transformer.h.{i}.mlp.dense_4h_to_h") for i in L]),
+        },
+    }
+    del qkv
+    if not cfg.shared_layernorm:
+        layers["ln2"] = _ln(get, "transformer.h.{i}.ln_mlp", L)
+    params = {
+        "embed": {"tokens": get("transformer.word_embeddings.weight")},
+        "layers": layers,
+        "final_ln": _ln(get, "transformer.ln_f"),
+    }
+    head = _maybe(get, "lm_head.weight")
+    if head is not None and not cfg.tie_word_embeddings:
+        params["lm_head"] = head.t().contiguous()
+    return params
+
+
+#: family -> checkpoint converter, for the families ported
+CONVERTERS = {"falcon": convert_falcon}

@@ -23,7 +23,8 @@ through ``ops.attention.attention_bsnd`` (the Hopper kernel on the card) when
 ``kv_cache_dtype="int8"`` the prompt cache stores int8 codes and per-head
 scales, quantized on append and dequantized at the decode attention.
 :func:`extend_prefill` runs a suffix over a prefilled prefix cache (the
-fused prefix-reuse path) through ``ops.attention.cache_extend_attention``.
+fused prefix-reuse path) through ``ops.attention.cache_extend_attention``,
+and :func:`chunked_prefill` replays a long prompt through it chunk by chunk.
 """
 
 from __future__ import annotations
@@ -606,6 +607,41 @@ def extend_prefill(params, cfg: DecoderConfig, cache: KVCache, token_ids,
                  if quantized else None),
     )
     return last, new_cache, prefix_lengths + attention_mask.sum(-1)
+
+
+@torch.no_grad()
+def chunked_prefill(params, cfg: DecoderConfig, token_ids, attention_mask,
+                    chunk: int):
+    """Prompt forward in chunks of ``chunk`` tokens: chunk 0 runs the
+    ordinary :func:`prefill` (the causal kernel when the flash path is on),
+    and every later chunk replays through :func:`extend_prefill` against the
+    cache built so far, so the widest attention transient is ``[B, chunk,
+    S]`` instead of ``[B, S, S]``.  A chunk's queries attend over the
+    concatenated key axis under one joint softmax with the monolithic
+    forward's mask, so the result is the monolithic one up to rounding; an
+    int8 cache's later chunks read its dequantized prefix.
+
+    Returns (last_logits [B, V] fp32 at each row's last real token, KVCache
+    over all ``S`` slots, n_chunks)."""
+    s = token_ids.shape[1]
+    c0 = min(int(chunk), s)
+    last, cache = prefill(params, cfg, token_ids[:, :c0],
+                          attention_mask[:, :c0], cache_len=c0)
+    lengths = attention_mask[:, :c0].sum(-1)
+    offset, n_chunks = c0, 1
+    while offset < s:
+        c = min(int(chunk), s - offset)
+        sub_mask = attention_mask[:, offset:offset + c]
+        nlast, cache, lengths = extend_prefill(
+            params, cfg, cache, token_ids[:, offset:offset + c], sub_mask,
+            lengths)
+        # a row right-padded out before this chunk keeps the logits of the
+        # chunk that holds its last token
+        has = sub_mask.sum(-1) > 0
+        last = torch.where(has[:, None], nlast, last)
+        offset += c
+        n_chunks += 1
+    return last, cache, n_chunks
 
 
 #: Candidates kept per step by the reduced score mode (the confidence leg's

@@ -1,8 +1,8 @@
 """Length-bucketed batching (a copy of ``runtime/batching.py``'s
 ``Batch``/``bucket_for``/``batches_for_prompts``/``rebatch``/
-``encode_prompts`` and the fused path's ``SUFFIX_BUCKETS``/
-``suffix_bucket_for``/``encode_prefix_pairs``, without the tracer and
-telemetry).
+``encode_prompts``, the fused path's ``SUFFIX_BUCKETS``/
+``suffix_bucket_for``/``encode_prefix_pairs`` and the sweep shell's
+``HostPrefetcher``, without the tracer).
 
 Batches pad to a fixed menu of lengths and to a full batch of rows (pad
 rows duplicate row 0 and carry index -1), so every batch has one of a few
@@ -12,11 +12,15 @@ shapes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Optional, Sequence, Tuple
+import queue
+import threading
+import time
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..config import DEFAULT_BUCKETS
+from ..utils.telemetry import record_counter
 
 
 @dataclasses.dataclass
@@ -182,3 +186,76 @@ def encode_prefix_pairs(
         for li, suffix in enumerate(suffixes):
             suffix_encoded[li].append(enc(suffix, False))
     return prefix_encoded, suffix_encoded
+
+
+class HostPrefetcher:
+    """Double-buffered host pipeline: compute ``fn(item)`` for work item
+    N+1 on a background thread while the caller consumes item N (the sweep
+    shell tokenizes chunk N+1 while the device scores chunk N).
+
+    The wall time the consumer spends blocked on the worker (host work the
+    overlap failed to hide) accumulates in the ``host_overlap_idle_ms``
+    counter; ``host_overlap_chunks`` counts items served.  A worker
+    exception re-raises in the consumer at the failed item's position.
+    ``close()`` (or leaving the iterator) stops the worker and is
+    idempotent; the thread is a daemon, so an abandoned prefetcher never
+    holds up interpreter exit."""
+
+    _DONE = object()
+
+    def __init__(self, items: Iterable, fn: Callable):
+        self._q: queue.Queue = queue.Queue(maxsize=1)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._work, args=(list(items), fn), daemon=True)
+        self._thread.start()
+
+    def _work(self, items, fn):
+        try:
+            for item in items:
+                if self._stop.is_set():
+                    return
+                self._put((None, fn(item)))
+        # relayed to the consumer, which re-raises it at its next get
+        except BaseException as err:
+            self._put((err, None))
+            return
+        self._put((None, self._DONE))
+
+    def _put(self, payload):
+        while not self._stop.is_set():
+            try:
+                self._q.put(payload, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def __iter__(self):
+        try:
+            while True:
+                t0 = time.perf_counter()
+                err, result = self._q.get()
+                record_counter("host_overlap_idle_ms",
+                               (time.perf_counter() - t0) * 1000.0)
+                if err is not None:
+                    raise err
+                if result is self._DONE:
+                    return
+                record_counter("host_overlap_chunks")
+                yield result
+        finally:
+            # exhaustion, a consumer break or a consumer exception all stop
+            # the worker
+            self.close()
+
+    @property
+    def closed(self) -> bool:
+        return self._stop.is_set()
+
+    def close(self):
+        """Stop the worker; later calls return at once."""
+        if self._stop.is_set():
+            return
+        self._stop.set()
+        if self._thread is not threading.current_thread():
+            self._thread.join(timeout=1.0)

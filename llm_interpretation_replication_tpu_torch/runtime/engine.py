@@ -18,6 +18,10 @@ the port honours:
    first three positions' top-19 candidates feed
    ``scoring.confidence.weighted_confidence_digits``.
 
+``first_token_relative_prob`` reads only the position-0 probabilities, one
+forward a batch.  A prompt bucket longer than ``prefill_chunk`` (when set)
+prefills in chunks (``models.decoder.chunked_prefill``).
+
 ``score_prefixed`` (and ``(prefix, suffix)`` prompts) prefill each batch's
 shared prefixes once and run every leg (:class:`LegSpec`) as a
 suffix-extension prefill (``models.decoder.extend_prefill``) against that
@@ -74,7 +78,6 @@ from . import batching, faults
 from . import plan as plan_mod
 from . import slots as slots_mod
 
-_ITEM_FULL = "ROADMAP.md queue 1, 'The full-study legs'"
 _ITEM_KDEC = "ROADMAP.md queue 1, 'K-decode'"
 _ITEM_T5 = "ROADMAP.md queue 1, 'T5'"
 _ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
@@ -105,10 +108,11 @@ class EngineConfig:
     ``completion_chars``, ``phase2_pool`` with its target, slice and byte
     cap, ``pooled_confidence``, ``slot_repack``, ``pipeline_depth`` (>= 1)
     and the OOM ladder (``oom_backoff``, ``oom_batch_floor``,
-    ``oom_batch_ladder``).  ``kv_dtype`` ("bf16" or "int8") sets the
-    decoder's ``kv_cache_dtype`` at construction.  The knobs of the paths
-    not ported yet must keep their defaults: ``prefill_chunk`` (chunked
-    prefill) and ``decode_k`` (K-decode)."""
+    ``oom_batch_ladder``), ``prefill_chunk`` (> 0: a prompt bucket longer
+    than it prefills in chunks, ``models.decoder.chunked_prefill``).
+    ``kv_dtype`` ("bf16" or "int8") sets the decoder's ``kv_cache_dtype``
+    at construction.  ``decode_k`` (K-decode) is not ported yet and must
+    keep its default."""
     batch_size: int = 32
     max_new_tokens: int = 50
     score_steps: int = 10           # MAX_LOOK_AHEAD -- steps that need scores
@@ -142,7 +146,6 @@ def _check_supported(family, ecfg: EngineConfig, mesh) -> None:
     unsupported = [
         (family == "t5", "encoder-decoder models", _ITEM_T5),
         (mesh is not None, "a device mesh", _ITEM_PAR),
-        (int(ecfg.prefill_chunk or 0) > 0, "prefill_chunk > 0", _ITEM_FULL),
         (int(ecfg.decode_k) > 1, "decode_k > 1", _ITEM_KDEC),
     ]
     for bad, what, item in unsupported:
@@ -550,6 +553,32 @@ class ScoringEngine:
 
         return rebatch
 
+    def _prefill(self, ids, mask, cache_len: int):
+        """One prompt forward -> (last logits, KVCache): monolithic
+        :func:`models.decoder.prefill`, or, when ``prefill_chunk`` is set
+        and the bucket exceeds it, the chunked replay through the
+        suffix-extension path (:func:`models.decoder.chunked_prefill`),
+        which bounds the long buckets' attention transients.
+
+        Counters: ``prefill_chunks`` counts the chunks of each chunked
+        prefill (the proof the chunked path ran) and, with an int8 KV cache,
+        ``kv_cache_bytes_saved`` adds the bytes the quantized cache does not
+        hold against its bf16 layout; both come from shapes, with no host
+        sync."""
+        chunk = int(self.ecfg.prefill_chunk or 0)
+        if chunk > 0 and cache_len > chunk:
+            last, cache, n_chunks = dmod.chunked_prefill(
+                self.params, self.cfg, ids, mask, chunk)
+            record_counter("prefill_chunks", n_chunks)
+        else:
+            last, cache = dmod.prefill(self.params, self.cfg, ids, mask,
+                                       cache_len=cache_len)
+        if cache.k_scale is not None:
+            bf16_bytes = 2 * (cache.k.numel() + cache.v.numel())
+            record_counter("kv_cache_bytes_saved",
+                           bf16_bytes - slots_mod._cache_nbytes(cache))
+        return last, cache
+
     # -- core ------------------------------------------------------------
 
     def score_prompts(
@@ -689,10 +718,9 @@ class ScoringEngine:
             entry = None
             try:
                 mask = self._tensor(batch.attention_mask, torch.int32)
-                _, pcache = dmod.prefill(
-                    self.params, self.cfg,
+                _, pcache = self._prefill(
                     self._tensor(batch.token_ids, torch.int64), mask,
-                    cache_len=batch.bucket_len)
+                    batch.bucket_len)
                 plen = mask.sum(-1)
                 n_real = int((batch.indices >= 0).sum())
                 entry = pool.acquire(slots_mod._cache_nbytes(pcache), n_real)
@@ -756,8 +784,7 @@ class ScoringEngine:
         ids = self._tensor(batch.token_ids, torch.int64)
         mask = self._tensor(batch.attention_mask, torch.int32)
         # cache_len == bucket length: decode folds its tails in per chunk
-        last, cache = dmod.prefill(self.params, self.cfg, ids, mask,
-                                   cache_len=batch.bucket_len)
+        last, cache = self._prefill(ids, mask, batch.bucket_len)
         lengths = mask.sum(-1)
         row_ids = self._tensor(self._batch_target_rows(ids_all, batch),
                                torch.int64)
@@ -979,8 +1006,7 @@ class ScoringEngine:
         decode the whole batch in place."""
         ids = self._tensor(batch.token_ids, torch.int64)
         mask = self._tensor(batch.attention_mask, torch.int32)
-        last, cache = dmod.prefill(self.params, self.cfg, ids, mask,
-                                   cache_len=batch.bucket_len)
+        last, cache = self._prefill(ids, mask, batch.bucket_len)
         sc, toks = self._scan_decode_chunked(
             cache, last, mask.sum(-1), steps, eos_id,
             row_ids[:, 0], row_ids[:, 1], real_mask=valid)
@@ -1420,6 +1446,42 @@ class ScoringEngine:
         self.record_occupancy(ring.stats)
         return [r if r is not None else _error_row("missing")
                 for r in results]
+
+    def first_token_relative_prob(
+        self, prompts: Sequence, targets: Sequence = ("Yes", "No"),
+        top_filter: int = 0,
+    ) -> np.ndarray:
+        """One forward a batch and no generation: the position-0 (yes, no,
+        relative) probabilities ``[N, 3]``, with ``top_filter`` > 0 reading
+        a target outside the top-N as 0 (the sweep shell's fallback when
+        the engine's ``first_token_top_filter`` is not its top-20).
+        Prompts are strings or token-id sequences; ``targets`` is one pair
+        or one pair per prompt."""
+        self._check_open()
+        ids_all = self._target_id_rows(prompts, targets)
+        encoded = batching.encode_prompts(self.tokenizer, prompts)
+        out = np.zeros((len(prompts), 3), np.float64)
+
+        def launch(batch):
+            logits = dmod.forward_last_logits(
+                self.params, self.cfg,
+                self._tensor(batch.token_ids, torch.int64),
+                self._tensor(batch.attention_mask, torch.int32))
+            row_ids = self._tensor(self._batch_target_rows(ids_all, batch),
+                                   torch.int64)
+            return _HostCopy(yn.relative_prob_first_token(
+                logits, row_ids[:, 0], row_ids[:, 1], top_filter))
+
+        def consume(batch, res):
+            yes, no, rel = res.numpy()
+            for r, orig in enumerate(batch.indices):
+                if orig >= 0:
+                    out[int(orig)] = (float(yes[r]), float(no[r]),
+                                      float(rel[r]))
+
+        self._run_pipelined(self._batches(encoded), launch, consume,
+                            rebatch=self._oom_rebatch(encoded))
+        return out
 
 
 def _binary_retire(row) -> int:

@@ -1,0 +1,183 @@
+"""Checkpoint loading: a local HF snapshot -> (family, config, weights) on
+the engine's device (a copy of ``runtime/loader.py``'s ``load_hf_config``,
+``CheckpointDir`` and ``load_model``; ``load_tokenizer`` is
+``utils.tokenizer.load_tokenizer``).
+
+Weights are read from ``*.safetensors`` (one file, or shards named by
+``model.safetensors.index.json``) with the port's own reader of the format,
+or from ``pytorch_model.bin`` (or its shards) through
+``torch.load(weights_only=True)``.  Each tensor keeps its stored dtype on
+the host (bf16 stays bf16: 7B weights never pass through float32 there),
+moves to the device as it is read, and is converted there.  Nothing is
+downloaded: the snapshot is a local directory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import struct
+import types
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DEFAULT_DEVICE, resolve_device, resolve_dtype
+from ..models import config as mcfg
+from ..models import convert as mconvert
+from ..models.decoder import DecoderWeights
+from ..ops import quant as qops
+from ..utils.tokenizer import load_tokenizer
+
+__all__ = ["CheckpointDir", "load_hf_config", "load_model", "load_tokenizer",
+           "read_safetensors_header"]
+
+#: safetensors dtype -> (numpy storage dtype, torch dtype it is viewed as)
+_ST_DTYPES = {
+    "BF16": (np.int16, torch.bfloat16),
+    "F16": (np.float16, torch.float16),
+    "F32": (np.float32, torch.float32),
+}
+
+
+def read_safetensors_header(fname: str) -> Tuple[Dict, int]:
+    """(header, byte offset of the data buffer) of a safetensors file: an
+    8-byte little-endian header length, a JSON header mapping each tensor
+    name to its dtype, shape and ``data_offsets`` into the buffer that
+    follows (``__metadata__`` dropped)."""
+    with open(fname, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    return header, 8 + n
+
+
+class _SafetensorsFile:
+    """Tensors of one safetensors file, read through a copy-on-write
+    memory map: a tensor's bytes are read when it is used."""
+
+    def __init__(self, fname: str):
+        self.header, self.start = read_safetensors_header(fname)
+        self.mm = np.memmap(fname, dtype=np.uint8, mode="c")
+
+    def get(self, name: str) -> torch.Tensor:
+        info = self.header[name]
+        if info["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{name}: safetensors dtype {info['dtype']!r} "
+                             f"is not read (one of {sorted(_ST_DTYPES)})")
+        np_dtype, dtype = _ST_DTYPES[info["dtype"]]
+        b, e = info["data_offsets"]
+        raw = self.mm[self.start + b:self.start + e]
+        if (self.start + b) % np.dtype(np_dtype).itemsize:
+            raw = np.array(raw)                 # a misaligned tensor: copy
+        arr = raw.view(np_dtype).reshape(info["shape"])
+        return torch.from_numpy(arr).view(dtype)
+
+
+class CheckpointDir:
+    """Random access over a local HF snapshot's weight files: ``get(name)``
+    returns one tensor on the host, in its stored dtype."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._index: Dict[str, Tuple[str, str]] = {}   # name -> (file, kind)
+        self._files: Dict[str, object] = {}
+        st_index = os.path.join(path, "model.safetensors.index.json")
+        bin_index = os.path.join(path, "pytorch_model.bin.index.json")
+        if os.path.exists(st_index):
+            self._map_index(st_index, "safetensors")
+        elif os.path.exists(os.path.join(path, "model.safetensors")):
+            fname = os.path.join(path, "model.safetensors")
+            for name in read_safetensors_header(fname)[0]:
+                self._index[name] = (fname, "safetensors")
+        elif os.path.exists(bin_index):
+            self._map_index(bin_index, "torch")
+        elif os.path.exists(os.path.join(path, "pytorch_model.bin")):
+            fname = os.path.join(path, "pytorch_model.bin")
+            for name in self._file(fname, "torch"):
+                self._index[name] = (fname, "torch")
+        else:
+            raise FileNotFoundError(f"no weights found under {path}")
+
+    def _map_index(self, index: str, kind: str) -> None:
+        with open(index) as f:
+            weight_map = json.load(f)["weight_map"]
+        for name, fname in weight_map.items():
+            self._index[name] = (os.path.join(self.path, fname), kind)
+
+    def _file(self, fname: str, kind: str):
+        handle = self._files.get(fname)
+        if handle is None:
+            handle = self._files[fname] = (
+                _SafetensorsFile(fname) if kind == "safetensors"
+                else torch.load(fname, map_location="cpu", weights_only=True))
+        return handle
+
+    def get(self, name: str) -> torch.Tensor:
+        if name not in self._index:
+            raise KeyError(name)
+        fname, kind = self._index[name]
+        handle = self._file(fname, kind)
+        return handle.get(name) if kind == "safetensors" else handle[name]
+
+
+def load_hf_config(path: str):
+    """A snapshot's ``config.json`` as a namespace, without running any
+    code of the snapshot; the legacy short keys of the original Falcon
+    snapshots (``n_layer``, ``n_head``, ``n_head_kv``, ``n_embed``, ...)
+    alias the canonical names."""
+    with open(os.path.join(path, "config.json")) as f:
+        raw = json.load(f)
+    proj = raw.get("feed_forward_proj")
+    if proj and "dense_act_fn" not in raw:
+        raw["dense_act_fn"] = proj.replace("gated-", "")
+        raw["is_gated_act"] = proj.startswith("gated-")
+    for legacy, canonical in (
+        ("n_layer", "num_hidden_layers"),
+        ("n_head", "num_attention_heads"),
+        ("n_head_kv", "num_kv_heads"),
+        ("n_embed", "hidden_size"),
+        ("n_embd", "hidden_size"),
+        ("n_positions", "max_position_embeddings"),
+    ):
+        if legacy in raw and canonical not in raw:
+            raw[canonical] = raw[legacy]
+    return types.SimpleNamespace(**raw)
+
+
+def _cast(tree: Dict, dtype: torch.dtype, key: str = "") -> Dict:
+    """Every float leaf to ``dtype``, except int8 codes and their float32
+    ``*_qscale`` scales."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype, k) for k, v in tree.items()}
+    if tree.dtype == torch.int8 or key.endswith(qops.QSCALE_SUFFIX):
+        return tree
+    return tree.to(dtype)
+
+
+def load_model(path: str, dtype="bf16", quant: str = "none",
+               attention_impl=None, device=DEFAULT_DEVICE
+               ) -> Tuple[str, mcfg.DecoderConfig, DecoderWeights]:
+    """(family, config, weights on ``device``) from a local snapshot dir.
+
+    ``quant='int8'`` quantizes the projection weights (w8a8,
+    ``ops.quant.quantize_decoder_params``) from the checkpoint's own values
+    before the cast to ``dtype``, as the reference's loader does;
+    embeddings and norms keep ``dtype``.  ``attention_impl`` sets the
+    config's; an explicit ``"flash"`` on a model the kernel cannot take
+    (ALiBi, a sliding window) raises ``ValueError`` rather than running the
+    plain path."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    if quant not in ("none", "int8"):
+        raise ValueError(f"unknown quant mode {quant!r}")
+    family, cfg = mcfg.from_hf_config(load_hf_config(path))
+    if attention_impl:
+        cfg = dataclasses.replace(cfg, attention_impl=attention_impl)
+    ckpt = CheckpointDir(path)
+    tree = mconvert.CONVERTERS[family](lambda name: ckpt.get(name).to(dev), cfg)
+    if quant == "int8":
+        tree = qops.quantize_decoder_params(tree)
+    return family, cfg, DecoderWeights(cfg, _cast(tree, dt))

@@ -10,6 +10,7 @@ as text: no card, no ``nvcc``.
 """
 
 import ast
+import dataclasses
 import inspect
 import os
 import re
@@ -255,3 +256,271 @@ def test_full_study_phase_runs_the_defaults_and_their_routes():
                 for c in calls if _call_name(c) == "replace"]
     for override in ({"slot_repack": False}, {"pooled_confidence": False}):
         assert override in replaced
+
+
+# -- the sweep and CLI phases ----------------------------------------------------
+
+def test_rephrasings_stay_in_the_corpus_token_range():
+    """24 distinct word-level edits a scenario, each 60-140 words (one
+    token a word under the sweep's tokenizer), none the original."""
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+
+    scenarios = legal_scenarios()
+    for seed in (0, 1):
+        reph = chip_smoke._rephrasings(scenarios, seed)
+        tok = chip_smoke._sweep_tokenizer(
+            [dict(s, rephrasings=r) for s, r in zip(scenarios, reph)])
+        assert [len(r) for r in reph] == [chip_smoke.SWEEP_PER_SCENARIO] * 5
+        for s, rs in zip(scenarios, reph):
+            assert len(set(rs)) == len(rs) and s["original_main"] not in rs
+            for r in rs:
+                n = len(tok(r)["input_ids"])
+                assert chip_smoke.SWEEP_TOKENS[0] <= n <= chip_smoke.SWEEP_TOKENS[1]
+                assert tok.unk_token_id not in tok(r)["input_ids"]
+    assert chip_smoke._rephrasings(scenarios, 0) == \
+        chip_smoke._rephrasings(scenarios, 0)
+
+
+def test_sweep_tokenizer_moves_targets_to_chosen_ids():
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+
+    scenarios = legal_scenarios()
+    plain = chip_smoke._sweep_tokenizer(scenarios)
+    inside = plain.ids[" the"]
+    tok = chip_smoke._sweep_tokenizer(scenarios, {" Covered": 900,
+                                                  " Not": inside})
+    assert yes_no.target_token_ids(tok, ["Covered", "Not"]) == [900, inside]
+    assert len(tok) == 901 and tok.vocab[plain.ids[" Not"]] == " the"
+    assert tok.vocab[plain.ids[" Covered"]].startswith("<filler")
+    text = scenarios[0]["original_main"]
+    assert len(tok(text)["input_ids"]) == len(plain(text)["input_ids"])
+
+
+def test_sweep_tokenizer_decodes_one_word_a_token():
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+
+    tok = chip_smoke._sweep_tokenizer(legal_scenarios())
+    text = tok.decode([0, 1, 7, 65023], skip_special_tokens=True)
+    assert text == " t0 t1 t7 t65023"
+    assert chip_smoke._completion_ids(text.strip()) == [0, 1, 7, 65023]
+    cut = (" t12345" * 20).strip()[:100]
+    assert chip_smoke._completion_ids(cut) == [12345] * 14
+
+
+@pytest.mark.parametrize("buckets,chunk,want", [
+    ((64, 80, 144), 64, 2 + 3), ((64, 128, 448), 128, 4), ((448,), 64, 7),
+    ((32, 48), 64, 0), ((65,), 64, 2), ((128,), 1, 128),
+])
+def test_expected_prefill_chunks(buckets, chunk, want):
+    assert chip_smoke._expected_prefill_chunks(buckets, chunk) == want
+
+
+def test_sweep_prefix_buckets_follow_the_engine_batches():
+    """The fused route's prefix batches of the smoke's rows: chunks of 40
+    rows, each batched by length; the chunked run replays the buckets
+    above 64 in 2-3 chunks."""
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+
+    scenarios = [dict(s, rephrasings=r) for s, r in zip(
+        legal_scenarios(), chip_smoke._rephrasings(legal_scenarios(), 0))]
+    tok = chip_smoke._sweep_tokenizer(scenarios)
+    buckets = chip_smoke._sweep_prefix_buckets(scenarios, tok)
+    assert len(buckets) == 6                     # 3 chunks of 32 + 8 rows
+    assert all(64 <= b <= 144 for b in buckets)
+    assert chip_smoke._expected_prefill_chunks(buckets, 64) == sum(
+        -(-b // 64) for b in buckets if b > 64) > 0
+
+
+def test_safetensors_writer_round_trips_through_the_port_reader(tmp_path):
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.runtime import loader
+
+    tensors = {"a": torch.randn(3, 5).to(torch.bfloat16),
+               "b": torch.randn(7).to(torch.float16),
+               "c.weight": torch.randn(2, 3, 4),
+               "odd": torch.randn(1).to(torch.bfloat16),
+               "after_odd": torch.randn(2, 2)}
+    path = str(tmp_path / "model.safetensors")
+    chip_smoke._write_safetensors(path, tensors)
+    header, start = loader.read_safetensors_header(path)
+    assert start % 8 == 0 and set(header) == set(tensors)
+    ckpt = loader.CheckpointDir(str(tmp_path))
+    for name, t in tensors.items():
+        got = ckpt.get(name)
+        assert got.dtype == t.dtype and torch.equal(got, t), name
+
+
+def test_compare_workbooks_lets_completions_part_only_at_near_ties():
+    import numpy as np
+
+    def row(resp, conf="t1 t2", p=0.0):
+        return {"Model": "m", "Original Main Part": "o",
+                "Response Format": "r", "Confidence Format": "c",
+                "Rephrased Main Part": "x", "Full Rephrased Prompt": "x r",
+                "Full Confidence Prompt": "x c", "Log Probabilities": "l",
+                "Model Response": resp, "Model Confidence Response": conf,
+                "Token_1_Prob": p, "Token_2_Prob": 0.0,
+                "Confidence Value": None, "Weighted Confidence": None}
+
+    ref = [row("t1 t2 t3"), row("t1 t2 t3"), row("t1 t2"), row("t1", p=0.5)]
+    got = [row("t1 t9 t3"), row("t9 t2 t3"), row("t1 t2", "t1 t8"),
+           row("t1", p=0.4)]
+    leads = np.ones((4, 4), np.float32)
+    leads[0, 1] = 0.01                        # row 0 parts at a near-tie
+    edge0 = np.ones(4, np.float32)
+    stats, fails = chip_smoke._compare_workbooks("x", got, ref, leads, leads,
+                                                 edge0, 0.1)
+    assert stats["parted_completions"] == 3
+    assert len(fails) == 3
+    assert "row 1 Model Response parts at step 0" in fails[0]
+    assert "row 2 Model Confidence Response" in fails[1]
+    assert "row 3 Token_1_Prob" in fails[2]
+    edge0[3] = 0.05                           # a target at the filter's edge
+    assert len(chip_smoke._compare_workbooks("x", got, ref, leads, leads,
+                                             edge0, 0.1)[1]) == 2
+
+
+def test_sweep_phase_runs_the_five_routes():
+    """Run (a) is the fused default, (b) the resumed crash, (c) the legacy
+    route, (d) the fallback at a top filter other than 20 and (e) chunked
+    prefill at SWEEP_PREFILL_CHUNK."""
+    src = inspect.getsource(chip_smoke.sweep_phase)
+    for call in ('sweep("fused")', 'sweep("resumed", crash=True)',
+                 'sweep("legacy", fuse=False)',
+                 "first_token_top_filter=5",
+                 "prefill_chunk=SWEEP_PREFILL_CHUNK"):
+        assert call in src, call
+
+
+def test_sweep_phase_reruns_three_routes_on_boosted_targets():
+    """(a), (c) and (e) run again on the scenarios' own target ids with
+    boosted rows, held to the rounding measured on those weights, and the
+    weights are restored afterwards."""
+    src = inspect.getsource(chip_smoke.sweep_phase)
+    for call in ('sweep("boosted_fused", tok=word_tok)',
+                 'sweep("boosted_legacy", fuse=False, tok=word_tok)',
+                 'sweep("boosted_chunked"', "_bf16_rounding(",
+                 "emb.copy_(unboosted)"):
+        assert call in src, call
+
+
+def test_boost_targets_scales_only_the_target_rows():
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+    from llm_interpretation_replication_tpu_torch.models import config, convert
+
+    scenarios = legal_scenarios()
+    tok = chip_smoke._sweep_tokenizer(scenarios)
+    cfg = config.DecoderConfig(**{**config.FLAGSHIP_SMALL_GEOMETRY,
+                                  "num_layers": 1})
+    weights = convert.random_params(cfg, seed=1, device="cpu", dtype="fp32")
+    before = weights.tree()["embed"]["tokens"].clone()
+    ids = chip_smoke._boost_targets(weights, tok, scenarios)
+    after = weights.tree()["embed"]["tokens"]
+    assert len(ids) == 8          # Covered/Not twice, three other pairs
+    assert torch.equal(after[ids], before[ids] * chip_smoke.TARGET_BOOST)
+    rest = [i for i in range(before.shape[0]) if i not in ids]
+    assert torch.equal(after[rest], before[rest])
+
+
+def _tiny_sweep(per=4, vocab_size=1024):
+    """The legal scenarios with ``per`` seeded rephrasings each, their sweep
+    tokenizer, and one-layer float32 weights on the CPU."""
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+    from llm_interpretation_replication_tpu_torch.models import config, convert
+
+    scenarios = [dict(s, rephrasings=r[:per]) for s, r in zip(
+        legal_scenarios(), chip_smoke._rephrasings(legal_scenarios(), 0))]
+    cfg = config.DecoderConfig(**{**config.FLAGSHIP_SMALL_GEOMETRY,
+                                  "num_layers": 1, "vocab_size": vocab_size})
+    weights = convert.random_params(cfg, seed=1, device="cpu", dtype="fp32")
+    return scenarios, chip_smoke._sweep_tokenizer(scenarios), cfg, weights
+
+
+def test_padded_right_pads_ids_and_mask():
+    import torch
+
+    ids, mask = chip_smoke._padded([[5, 6, 7], [8], [9, 10]], "cpu")
+    assert ids.dtype == torch.long and mask.dtype == torch.int32
+    assert ids.tolist() == [[5, 6, 7], [8, 0, 0], [9, 10, 0]]
+    assert mask.tolist() == [[1, 1, 1], [1, 0, 0], [1, 1, 0]]
+
+
+def test_filtered_target_probs_read_as_the_workbook_reads_them():
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+
+    torch.manual_seed(0)
+    logits = torch.randn(3, 50)
+    tgt = torch.stack([torch.topk(logits, 25).indices[:, 3],
+                       torch.topk(logits, 25).indices[:, 22]], 1)
+    got = chip_smoke._filtered_target_probs(logits, tgt)
+    probs = torch.softmax(logits, -1)
+    assert torch.equal(got[:, 0], probs.gather(1, tgt[:, :1])[:, 0])
+    assert torch.equal(got[:, 1], torch.zeros(3))       # past the top 20
+    for i in range(3):
+        yes, no, _ = yes_no.relative_prob_first_token(
+            logits[i:i + 1], int(tgt[i, 0]), int(tgt[i, 1]),
+            top_filter=chip_smoke.TOP_FILTER)
+        assert float(yes) == float(got[i, 0]) and float(no) == 0.0
+
+
+def test_popular_targets_and_the_row_swap(one_torch_thread):
+    """The chosen ids avoid ``taken`` and each other; swapping moves the
+    chosen ids' rows to the targets' ids and back, and touches no other."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+
+    scenarios, tok, cfg, weights = _tiny_sweep(per=2, vocab_size=8192)
+    taken = range(len(tok))
+    chosen = chip_smoke._popular_targets(weights, cfg, scenarios, tok, taken)
+    words = {" " + t for s in scenarios for t in s["target_tokens"]}
+    assert set(chosen) == words
+    assert len(set(chosen.values())) == len(chosen)
+    assert all(len(tok) <= i < cfg.vocab_size for i in chosen.values())
+    before = weights.tree()["embed"]["tokens"].clone()
+    pairs = chip_smoke._swap_embedding_rows(weights, tok, chosen)
+    after = weights.tree()["embed"]["tokens"]
+    moved = set()
+    for word, tid in chosen.items():
+        t = yes_no.target_token_ids(tok, [word[1:]])[0]
+        assert (t, tid) in pairs
+        assert torch.equal(after[t], before[tid])
+        assert torch.equal(after[tid], before[t])
+        moved |= {t, tid}
+    rest = [i for i in range(before.shape[0]) if i not in moved]
+    assert torch.equal(after[rest], before[rest])
+    with pytest.raises(ValueError, match="free ids"):
+        chip_smoke._popular_targets(weights, cfg, scenarios, tok,
+                                    range(cfg.vocab_size))
+
+
+def test_bf16_rounding_and_workbook_leads_on_the_cpu(one_torch_thread):
+    """At float32 the pre-pass decode and the one forward agree to float32
+    rounding, and the leads cover each row's completion steps."""
+    import numpy as np
+
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+
+    scenarios, tok, cfg, weights = _tiny_sweep(per=2)
+    ecfg = dataclasses.replace(emod.EngineConfig(), max_new_tokens=6,
+                               max_look_ahead=3)
+    r, p32, clear = chip_smoke._bf16_rounding(weights, cfg, scenarios, tok,
+                                              ecfg)
+    assert 0 <= r["top1_max_abs_diff"] < 1e-3
+    assert r["tie"] == 2 * chip_smoke.NEAR_TIE_FACTOR * r["top1_max_abs_diff"]
+    assert 0 <= r["prob_bf16_vs_fp32"] < 1e-6      # float32 weights both
+    assert p32.shape == (10, 2) and ((p32 >= 0) & (p32 <= 1)).all()
+    assert r["rows_clear_of_edge"] == clear.sum() and clear.shape == (10,)
+    ref = [{"Model Response": " t5 t6 t7", "Model Confidence Response": " t8"}
+           ] * 10
+    bin_leads, conf_leads, edge0 = chip_smoke._workbook_leads(
+        weights, cfg, scenarios, tok, ref)
+    assert bin_leads.shape == (10, 4) and conf_leads.shape == (10, 2)
+    assert np.isfinite(bin_leads).all() and (bin_leads >= 0).all()
+    assert edge0.shape == (10,) and np.isfinite(edge0).all()

@@ -166,7 +166,22 @@ def test_engine_per_prompt_targets_and_tokenized_prompts(setup):
     dict(decode_k=2),
 ])
 def test_unsupported_engine_settings_raise(setup, override):
+    """``decode_k > 1`` is refused at construction and, set afterwards, at
+    scoring.  ``prefill_chunk`` runs since the chunked-prefill slice: set at
+    construction or afterwards, the rows match the JAX engine's at the same
+    setting (one-token chunks on the prompts of the 32 bucket, and 32 on
+    all, below the 64 bucket)."""
     tok = setup
+    if "prefill_chunk" in override:
+        prompts = list(PROMPTS[:5] if override["prefill_chunk"] == 1
+                       else PROMPTS)
+        jeng, teng = _engines(tok, "flash", batch_size=4, **override)
+        ref = jeng.score_prompts(prompts)
+        _assert_rows_match(teng.score_prompts(prompts), ref)
+        _, eng = _engines(tok, "flash", batch_size=4)
+        eng.ecfg = dataclasses.replace(eng.ecfg, **override)
+        _assert_rows_match(eng.score_prompts(prompts), ref)
+        return
     tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
     weights = convert.random_params(tcfg, seed=0, device="cpu", dtype="fp32")
     kw = {**ENGINE_KW, **override}
@@ -188,7 +203,7 @@ def test_unsupported_calls_raise(setup, case):
     """A mesh and T5 are refused at construction.  The confidence leg (per
     batch and pooled) and ``(prefix, suffix)`` prompts run since the
     full-study slice, and refuse the settings still not ported
-    (``prefill_chunk > 0``) as every entry point does."""
+    (``decode_k > 1``) as every entry point does."""
     tok = setup
     tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
     weights = convert.random_params(tcfg, seed=0, device="cpu", dtype="fp32")
@@ -202,7 +217,7 @@ def test_unsupported_calls_raise(setup, case):
             tengine.ScoringEngine("t5", tcfg, weights, tok, **kw)
         else:
             eng = tengine.ScoringEngine("falcon", tcfg, weights, tok, **kw)
-            eng.ecfg = dataclasses.replace(eng.ecfg, prefill_chunk=1)
+            eng.ecfg = dataclasses.replace(eng.ecfg, decode_k=2)
             if case.endswith("confidence"):
                 eng.score_prompts(["Is soup a beverage?"], with_confidence=True)
             else:

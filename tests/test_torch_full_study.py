@@ -455,9 +455,18 @@ def test_prefix_pool_abandoned_entry_counts_as_leak():
     ("mesh", "Parallel and training"),
 ])
 def test_unported_settings_still_raise(case, title):
+    """Each setting not ported raises naming its ROADMAP.md item;
+    ``prefill_chunk`` ("The full-study legs") is ported now, and
+    ``prefill_chunk=1`` scores at ``EngineConfig()``'s other defaults."""
     _, tcfg, _, weights = text_models()
-    kw = dict(prefill_chunk=1) if case == "prefill_chunk" else \
-        dict(decode_k=2) if case == "decode_k" else {}
+    if case == "prefill_chunk":
+        eng = tengine.ScoringEngine(
+            "falcon", tcfg, weights, tok(), device="cpu",
+            engine_config=tengine.EngineConfig(prefill_chunk=1))
+        rows = eng.score_prompts(PROMPTS[:3])
+        assert all(r["success"] and r["completion"] for r in rows)
+        return
+    kw = dict(decode_k=2) if case == "decode_k" else {}
     with pytest.raises(NotImplementedError, match=title):
         tengine.ScoringEngine(
             "t5" if case == "t5" else "falcon", tcfg, weights, tok(),

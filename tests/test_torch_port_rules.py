@@ -1,8 +1,9 @@
 """Rules the PyTorch port keeps, and its copies of the reference's host code.
 
 The port (and ``chip_smoke.py``, which drives it on the card) imports no
-JAX, nothing of the JAX package and no ``transformers``/``tokenizers``: the
-machine with the card has none of them.  Its copies of host-only modules
+JAX, nothing of the JAX package and no ``transformers``/``tokenizers``/
+``pandas``/``safetensors``: the machine with the card is not known to have
+them.  Its copies of host-only modules
 must behave exactly as the originals.
 """
 
@@ -24,7 +25,7 @@ from test_torch_slots import one_torch_thread  # noqa: F401
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "llm_interpretation_replication_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "llm_interpretation_replication_tpu",
-             "transformers", "tokenizers"}
+             "transformers", "tokenizers", "pandas", "safetensors"}
 
 
 def _port_sources():
@@ -78,11 +79,22 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/runtime/batching.py",
     "llm_interpretation_replication_tpu_torch/runtime/plan.py",
     "llm_interpretation_replication_tpu_torch/utils/telemetry.py",
+    "llm_interpretation_replication_tpu_torch/__main__.py",
+    "llm_interpretation_replication_tpu_torch/config/__init__.py",
+    "llm_interpretation_replication_tpu_torch/gen/rephrase.py",
+    "llm_interpretation_replication_tpu_torch/runtime/loader.py",
+    "llm_interpretation_replication_tpu_torch/sweeps/perturbation.py",
+    "llm_interpretation_replication_tpu_torch/sweeps/writers.py",
+    "llm_interpretation_replication_tpu_torch/utils/checkpoint.py",
+    "llm_interpretation_replication_tpu_torch/utils/logging.py",
+    "llm_interpretation_replication_tpu_torch/utils/retry.py",
+    "llm_interpretation_replication_tpu_torch/utils/tokenizer.py",
+    "llm_interpretation_replication_tpu_torch/utils/xlsx.py",
 ])
 def test_slice_modules_are_guarded(rel):
-    """The modules the kernels, the int8 path, the pool, the slot ring and
-    the OOM ladder live in are among the guarded sources and import nothing
-    of JAX."""
+    """The modules the kernels, the int8 path, the pool, the slot ring,
+    the OOM ladder, the sweep shell, the loader and the CLI live in are
+    among the guarded sources and import nothing forbidden."""
     path = os.path.join(ROOT, rel)
     assert path in _port_sources()
     assert not _forbidden_imports(path)
