@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each fatal on failure (the exit code is then non-zero and no result
-line is printed; the order of the run is 1-8, 10, 9, 11):
+line is printed; the order of the run is 1-8, 10, 9, 11, 12, 13):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
@@ -74,9 +74,10 @@ line is printed; the order of the run is 1-8, 10, 9, 11):
    the retirement counters must be those of these steps; every prefill
    must launch the causal kernel once a layer;
 9. int8: the int8 product's int32 accumulators on the card against a CPU
-   int32 product at Falcon-7B's projection shapes; then the slice's prompts
-   scored with w8a8 int8 weights (quantized as they are made), once with a
-   bf16 and once with an int8 KV cache, held against the bf16 rows;
+   int32 product at Falcon-7B's and Mistral-7B's projection shapes (the
+   gated MLP's among them); then the slice's prompts scored with w8a8 int8
+   weights (quantized as they are made), once with a bf16 and once with an
+   int8 KV cache, held against the bf16 rows;
 10. sweep (before the int8 phase, on the slice's weights): the 5 legal
    scenarios with 24 seeded word-level edits each of original_main (60-140
    words, one token a word under a word tokenizer of the scenarios' words,
@@ -105,7 +106,44 @@ line is printed; the order of the run is 1-8, 10, 9, 11):
    in-process sweep over the loaded weights) and with ``--quant int8
    --kv-dtype int8 --prefill-chunk 64`` (verdicts and relative_prob within
    0.05 of bf16's, but for rows whose target lies within the int8 path's
-   measured logit deviation, doubled, of the top-20 edge).
+   measured logit deviation, doubled, of the top-20 edge);
+12. families: Pythia-6.9B (GPT-NeoX), Mistral-7B-Instruct-v0.2 (the
+   LLaMA family, 32 query heads on 8 K/V heads) and BLOOM-7b1 (ALiBi) at
+   their published width and depth: random bf16 weights from ``--seed``
+   made as a HF checkpoint and read through the port's converter, the two
+   targets' rows swapped with ids the weights rank high; each scores the
+   100 questions as base (the few-shot prefix through ``score_prefixed``)
+   and as instruct through ``sweeps.run_model_on_prompts`` at
+   ``EngineConfig(batch_size=32)``: NeoX and Mistral under the causal
+   kernel and dense, Mistral also with an int8 KV cache, under bf16 and
+   under w8a8 weights, BLOOM dense.  Completions may part only where the dense route's lead is
+   below the tie measured on these weights (twice NEAR_TIE_FACTOR times the
+   largest top-1 difference of two bf16 computations), verdicts only where
+   a target lies within the tie of the top-5 edge or of the other target;
+   position-0 fields within twice one bf16 forward's deviation from a
+   float32 forward; the int8 KV cache, under bf16 and under w8a8 weights,
+   against bf16 on the rows read at position 0 and clear of that route's
+   own tie (its deviation measured on the prefix prefill and suffix
+   extension the sweep runs), with the same verdict and log-probabilities
+   within twice that deviation (|d relative_prob| reported against the
+   int8 KV class); the w8a8 route also against a float32 fake-quant of
+   the same tree that skips the int8 product (``_fake_quant_witness``:
+   codes within half a step of the weights, each projection within one
+   bf16 step of its float twin, log-probabilities within twice the bf16
+   fake-quant's deviation); every kernel route launches the kernel once
+   a layer a prefill.  The causal kernel is timed at each
+   family's prefix-prefill shape, and at StableLM-alpha-7B's heads;
+13. run-100q: 2-layer snapshots of every geometry of the sweep's twelve
+   models at their published widths (BLOOM as sharded ``pytorch_model.bin``
+   with its index, the rest safetensors; byte-level BPE tokenizers learned
+   on the questions, the NeoX ones with the NFC normalizer);
+   ``python -m llm_interpretation_replication_tpu_torch run-100q
+   --attention-impl flash`` in a child process must write 1200 rows in the
+   10 columns, each with ``success``, and name each model's attention
+   (dense for BLOOM and Mistral-7B-v0.1); a run stopped by SIGTERM after
+   its first model must leave exactly that model's rows in its
+   checkpoint, resuming it must write the same CSV, and a rerun over the
+   finished output must score nothing.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -193,8 +231,14 @@ TOP_FILTER = 20
 # (PARITY.md's w8a8 audit bounds) and int8 KV against bf16 KV (ROADMAP.md)
 W8A8_MEAN_DREL, W8A8_MAX_DREL = 0.02, 0.10
 INT8_KV_MAX_DREL = 0.05
-# Falcon-7B's projections (K, N): QKV (q, then MQA's k or v), out, MLP in/out
-INT8_SHAPES = [(4544, 4544), (4544, 64), (4544, 18176), (18176, 4544)]
+# an int8 projection against the same projection in floating point (the
+# activations rounded to the same codes, the dequantized weight, float32
+# products), both cast to bf16: one bf16 step of the largest output
+PROJECTION_TOL = 2.0 ** -7
+# Falcon-7B's projections (K, N): QKV (q, then MQA's k or v), out, MLP in/out;
+# then Mistral-7B's: q/o, its 8 K/V heads, the gated MLP's gate/up and down
+INT8_SHAPES = [(4544, 4544), (4544, 64), (4544, 18176), (18176, 4544),
+               (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 # the sweep and CLI phases: rephrasings a scenario, their token range (the
 # real corpus's; the originals are 71-102 words), the sweep's chunk and
 # checkpoint sizes, the chunked-prefill run's chunk and the timing's, the
@@ -461,62 +505,84 @@ def kernel_phase(attention, gen):
     version, times.  The causal kernel's error is taken on the valid rows
     (as its first measurements were); the head-major kernels' on all rows."""
     import torch
-    import torch.nn.functional as F
 
     rows = []
     for kname, _, _, shapes, layout in KERNELS:
-        fn = getattr(attention, kname)
-        plain = getattr(attention, kname + "_plain")
         for label, b, s, n, g, d in shapes:
             q, k, v, lengths = _inputs(gen, b, s, n, g, d, layout)
             if kname == "flash_attention":   # the dispatcher's repeat
                 k = k.repeat_interleave(n // g, dim=1)
                 v = v.repeat_interleave(n // g, dim=1)
-            kv_heads = n if kname == "flash_attention" else g
-            # the library call takes head-major tensors
-            qh, kh, vh = (q, k, v) if layout == "bnsd" else \
-                (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-            pos = torch.arange(s, device=q.device)
-            valid = None
-            if layout == "bsnd":
-                valid = (pos[None, :] < lengths[:, None])[:, :, None, None]
-            for causal in (True, False):
-                out = fn(q, k, v, lengths, causal)
-                torch.cuda.synchronize()
-                ref = plain(q.float(), k.float(), v.float(), lengths, causal)
-                err = _check_output(f"{kname} {label} causal={causal}", out,
-                                    ref, lengths, valid)
-                del out, ref
-
-                def call():
-                    return fn(q, k, v, lengths, causal)
-
-                ms = graph_ms(call)
-                wrapper_us = host_us(call)
-                plain_ms = time_ms(lambda: plain(q, k, v, lengths, causal),
-                                   iters=3, warmup=1)
-                # yardstick only: one PyTorch call computing the same function
-                bound = torch.minimum(lengths[:, None].long(), pos[None, :] + 1) \
-                    if causal else lengths[:, None].long().expand(b, s)
-                mask = (pos[None, None, :] < bound[:, :, None])[:, None]
-                library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask, enable_gqa=kv_heads != n))
-                bound_ms, bound_by = attention_bound_ms(
-                    b, s, n, kv_heads, d, lengths.tolist(), causal)
-                row = dict(kernel=kname, shape=label, B=b, S=s, N=n, G=g, D=d,
-                           causal=causal, max_abs_err=err, ms=ms,
-                           host_us=wrapper_us, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, x_bound=ms / bound_ms)
-                rows.append(row)
-                say("kernel", json.dumps(row))
-            del q, k, v, qh, kh, vh
+            rows += _kernel_rows(attention, kname, layout, label, g, q, k, v,
+                                 lengths, (True, False))
+            del q, k, v
             torch.cuda.empty_cache()
     return rows
 
 
+def _kernel_rows(attention, kname, layout, label, g, q, k, v, lengths,
+                 causals):
+    """One kernel on one input of ``g`` K/V heads (the flash kernel's K/V
+    come repeated to the query heads), for each of ``causals``: its error
+    against its plain version, its time as a replayed CUDA graph, the
+    wrapper's host time, the plain version's time, its bound and the time
+    of one PyTorch library call computing the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    fn = getattr(attention, kname)
+    plain = getattr(attention, kname + "_plain")
+    if layout == "bsnd":
+        b, s, n, d = q.shape
+        kv_heads = k.shape[2]
+    else:
+        b, n, s, d = q.shape
+        kv_heads = k.shape[1]
+    # the library call takes head-major tensors
+    qh, kh, vh = (q, k, v) if layout == "bnsd" else \
+        (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    pos = torch.arange(s, device=q.device)
+    valid = None
+    if layout == "bsnd":
+        valid = (pos[None, :] < lengths[:, None])[:, :, None, None]
+    rows = []
+    for causal in causals:
+        out = fn(q, k, v, lengths, causal)
+        torch.cuda.synchronize()
+        ref = plain(q.float(), k.float(), v.float(), lengths, causal)
+        err = _check_output(f"{kname} {label} causal={causal}", out,
+                            ref, lengths, valid)
+        del out, ref
+
+        def call():
+            return fn(q, k, v, lengths, causal)
+
+        ms = graph_ms(call)
+        wrapper_us = host_us(call)
+        plain_ms = time_ms(lambda: plain(q, k, v, lengths, causal),
+                           iters=3, warmup=1)
+        # yardstick only: one PyTorch call computing the same function
+        bound = torch.minimum(lengths[:, None].long(), pos[None, :] + 1) \
+            if causal else lengths[:, None].long().expand(b, s)
+        mask = (pos[None, None, :] < bound[:, :, None])[:, None]
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=kv_heads != n))
+        bound_ms, bound_by = attention_bound_ms(
+            b, s, n, kv_heads, d, lengths.tolist(), causal)
+        row = dict(kernel=kname, shape=label, B=b, S=s, N=n, G=g, D=d,
+                   causal=causal, max_abs_err=err, ms=ms,
+                   host_us=wrapper_us, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, x_bound=ms / bound_ms)
+        rows.append(row)
+        say("kernel", json.dumps(row))
+    return rows
+
+
 def _to_float32(tree):
-    return {k: _to_float32(v) if isinstance(v, dict) else v.float()
+    """Every float leaf to float32; int8 codes stay as they are."""
+    return {k: _to_float32(v) if isinstance(v, dict) else
+            v.float() if v.is_floating_point() else v
             for k, v in tree.items()}
 
 
@@ -2063,20 +2129,24 @@ def _boost_targets(weights, tok, scenarios):
 
 
 def _swap_embedding_rows(weights, tok, chosen):
-    """Swap, in place, the (tied) embedding row of each target token with
-    the row of the id ``chosen`` gives it (``{" <target>": id}``), so the
-    id the tokenizer gives the target scores as that id did.  Returns the
-    swapped ``(target id, chosen id)`` pairs."""
+    """Swap, in place, the embedding row of each target token with the row
+    of the id ``chosen`` gives it (``{" <target>": id}``), and an untied
+    head's columns the same way, so the id the tokenizer gives the target
+    scores as that id did.  Returns the swapped ``(target id, chosen id)``
+    pairs."""
     import torch
 
     from llm_interpretation_replication_tpu_torch.scoring import yes_no
 
-    emb = weights.tree()["embed"]["tokens"]
+    tree = weights.tree()
+    emb, head = tree["embed"]["tokens"], tree.get("lm_head")
     pairs = [(yes_no.target_token_ids(tok, [word[1:]])[0], tid)
              for word, tid in chosen.items()]
     with torch.no_grad():
         for a, b in pairs:
             emb[[a, b]] = emb[[b, a]]
+            if head is not None:
+                head[:, [a, b]] = head[:, [b, a]]
     return pairs
 
 
@@ -2492,12 +2562,13 @@ def _bpe_merges(pieces):
     return merges
 
 
-def _bpe_tokenizer_files(texts):
+def _bpe_tokenizer_files(texts, nfc=False):
     """(tokenizer.json, tokenizer_config.json, special_tokens_map.json) of
     a byte-level BPE tokenizer: the 256 byte symbols, merges learned on the
     ByteLevel pieces of ``texts`` until each piece is one token, and
     ``<|endoftext|>`` as an added special token and the EOS (which then
-    pads, by the loader's rule)."""
+    pads, by the loader's rule).  ``nfc``: with the ``NFC`` normalizer
+    (GPT-NeoX-20B's tokenizer has it)."""
     from collections import Counter
 
     from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
@@ -2519,7 +2590,7 @@ def _bpe_tokenizer_files(texts):
                           "single_word": False, "lstrip": False,
                           "rstrip": False, "normalized": False,
                           "special": True}],
-        "normalizer": None,
+        "normalizer": {"type": "NFC"} if nfc else None,
         "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
                           "trim_offsets": True, "use_regex": True},
         "post_processor": {"type": "ByteLevel", "add_prefix_space": True,
@@ -2837,6 +2908,1018 @@ def cli_phase(seed, attention, workdir, card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# The 100-question sweep: the GPT-NeoX, BLOOM and LLaMA/Mistral families
+# ---------------------------------------------------------------------------
+
+# Published geometries, each the config.json of the model's Hugging Face
+# repository (the keys the port's translators read; BLOOM's with its own
+# short names)
+PYTHIA_6_9B = {   # EleutherAI/pythia-6.9b (databricks/dolly-v2-7b: the same)
+    "model_type": "gpt_neox", "vocab_size": 50432, "hidden_size": 4096,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "intermediate_size": 16384, "rotary_pct": 0.25, "rotary_emb_base": 10000,
+    "max_position_embeddings": 2048, "use_parallel_residual": True,
+    "layer_norm_eps": 1e-5, "hidden_act": "gelu",
+    "tie_word_embeddings": False, "bos_token_id": 0, "eos_token_id": 0}
+STABLELM_ALPHA_7B = {   # stabilityai/stablelm-base-alpha-7b (and -tuned-)
+    "model_type": "gpt_neox", "vocab_size": 50432, "hidden_size": 6144,
+    "num_hidden_layers": 16, "num_attention_heads": 48,
+    "intermediate_size": 24576, "rotary_pct": 0.25, "rotary_emb_base": 10000,
+    "max_position_embeddings": 4096, "use_parallel_residual": True,
+    "layer_norm_eps": 1e-5, "hidden_act": "gelu",
+    "tie_word_embeddings": False, "bos_token_id": 0, "eos_token_id": 0}
+REDPAJAMA_7B = {   # togethercomputer/RedPajama-INCITE-7B-Base (and -Instruct)
+    "model_type": "gpt_neox", "vocab_size": 50432, "hidden_size": 4096,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "intermediate_size": 16384, "rotary_pct": 1.0, "rotary_emb_base": 10000,
+    "max_position_embeddings": 2048, "use_parallel_residual": False,
+    "layer_norm_eps": 1e-5, "hidden_act": "gelu",
+    "tie_word_embeddings": False, "bos_token_id": 0, "eos_token_id": 0}
+BLOOM_7B1 = {   # bigscience/bloom-7b1 (bigscience/bloomz-7b1: the same)
+    "model_type": "bloom", "vocab_size": 250880, "hidden_size": 4096,
+    "n_layer": 30, "n_head": 32, "layer_norm_epsilon": 1e-5,
+    "apply_residual_connection_post_layernorm": False,
+    "bos_token_id": 1, "eos_token_id": 2, "pad_token_id": 3}
+MISTRAL_7B_V02 = {   # mistralai/Mistral-7B-Instruct-v0.2
+    "model_type": "mistral", "vocab_size": 32000, "hidden_size": 4096,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "intermediate_size": 14336,
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-5,
+    "rope_theta": 1000000.0, "sliding_window": None, "hidden_act": "silu",
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2}
+MISTRAL_7B_V01 = dict(   # mistralai/Mistral-7B-v0.1
+    MISTRAL_7B_V02, rope_theta=10000.0, sliding_window=4096)
+# the families phase: (label, model, config, routes); "int8kv" is bf16
+# weights with an int8 KV cache, "w8a8-int8kv" int8 weights with one, both
+# under the kernel
+FAMILY_MODELS = [
+    ("pythia-6.9b", "EleutherAI/pythia-6.9b", PYTHIA_6_9B, ("flash", "xla")),
+    ("mistral-7b-instruct-v0.2", "mistralai/Mistral-7B-Instruct-v0.2",
+     MISTRAL_7B_V02, ("flash", "xla", "int8kv", "w8a8-int8kv")),
+    ("bloom-7b1", "bigscience/bloom-7b1", BLOOM_7B1, ("xla",)),
+]
+# the run-100q CLI phase: each distinct geometry of model_pairs_100q.json at
+# SNAPSHOT_LAYERS layers, the models that share it, and its weight format
+# (one family as sharded pytorch_model.bin with its index); Mistral-7B-v0.1
+# reads v0.2's weights through symlinks beside its own config.json
+CLI_SNAPSHOTS = [
+    ("tiiuae/falcon-7b", None, ("tiiuae/falcon-7b-instruct",), "safetensors"),
+    ("stabilityai/stablelm-base-alpha-7b", STABLELM_ALPHA_7B,
+     ("stabilityai/stablelm-tuned-alpha-7b",), "safetensors"),
+    ("togethercomputer/RedPajama-INCITE-7B-Base", REDPAJAMA_7B,
+     ("togethercomputer/RedPajama-INCITE-7B-Instruct",), "safetensors"),
+    ("bigscience/bloom-7b1", BLOOM_7B1, ("bigscience/bloomz-7b1",), "bin"),
+    ("EleutherAI/pythia-6.9b", PYTHIA_6_9B, ("databricks/dolly-v2-7b",),
+     "safetensors"),
+    ("mistralai/Mistral-7B-Instruct-v0.2", MISTRAL_7B_V02, (), "safetensors"),
+]
+# models of the CLI phase that must run dense under --attention-impl flash
+CLI_DENSE = {"bigscience/bloom-7b1", "bigscience/bloomz-7b1",
+             "mistralai/Mistral-7B-v0.1"}
+SCAN_STEPS = 10          # the look-ahead the yes/no scan reads
+
+
+def _hf_state_dict(family, cfg, seed, device, dtype):
+    """A random checkpoint of ``cfg`` under the HF tensor names the port's
+    converter of ``family`` reads (torch ``Linear`` weights ``[out, in]``;
+    NeoX and BLOOM fuse QKV as rows ``[q; k; v]`` per head), made on
+    ``device``: projections, embeddings and linear biases N(0, 0.02^2),
+    norm scales 1 and norm biases 0."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    h, n, g, d = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    f, v = cfg.intermediate_size, cfg.vocab_size
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=dtype).mul_(0.02)
+
+    def norm(name, bias=True):
+        sd[name + ".weight"] = torch.ones(h, device=device, dtype=dtype)
+        if bias:
+            sd[name + ".bias"] = torch.zeros(h, device=device, dtype=dtype)
+
+    def linear(name, out, inp, bias=True):
+        sd[name + ".weight"] = rnd(out, inp)
+        if bias:
+            sd[name + ".bias"] = rnd(out)
+
+    sd = {}
+    if family in ("neox", "bloom"):
+        pre = "gpt_neox.layers" if family == "neox" else "transformer.h"
+        attn = "attention" if family == "neox" else "self_attention"
+        if family == "neox":
+            sd["gpt_neox.embed_in.weight"] = rnd(v, h)
+        else:
+            sd["transformer.word_embeddings.weight"] = rnd(v, h)
+            norm("transformer.word_embeddings_layernorm")
+        for i in range(cfg.num_layers):
+            norm(f"{pre}.{i}.input_layernorm")
+            norm(f"{pre}.{i}.post_attention_layernorm")
+            linear(f"{pre}.{i}.{attn}.query_key_value", 3 * n * d, h)
+            linear(f"{pre}.{i}.{attn}.dense", h, n * d)
+            linear(f"{pre}.{i}.mlp.dense_h_to_4h", f, h)
+            linear(f"{pre}.{i}.mlp.dense_4h_to_h", h, f)
+        if family == "neox":
+            norm("gpt_neox.final_layer_norm")
+            sd["embed_out.weight"] = rnd(v, h)
+        else:
+            norm("transformer.ln_f")
+    elif family == "llama":
+        sd["model.embed_tokens.weight"] = rnd(v, h)
+        for i in range(cfg.num_layers):
+            pre = f"model.layers.{i}"
+            norm(f"{pre}.input_layernorm", bias=False)
+            norm(f"{pre}.post_attention_layernorm", bias=False)
+            for name, out, inp in (("q", n * d, h), ("k", g * d, h),
+                                   ("v", g * d, h), ("o", h, n * d)):
+                linear(f"{pre}.self_attn.{name}_proj", out, inp, bias=False)
+            for name, out, inp in (("gate", f, h), ("up", f, h),
+                                   ("down", h, f)):
+                linear(f"{pre}.mlp.{name}_proj", out, inp, bias=False)
+        norm("model.norm", bias=False)
+        sd["lm_head.weight"] = rnd(v, h)
+    else:
+        raise ValueError(f"no writer for family {family!r}")
+    return sd
+
+
+def _family_config(config, layers=None):
+    """(family, DecoderConfig) of a published ``config.json`` dict, at
+    ``layers`` layers when given."""
+    import types
+
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+
+    return mconfig.from_hf_config(
+        types.SimpleNamespace(**_at_depth(config, layers)))
+
+
+def _at_depth(config, layers):
+    if layers is None:
+        return dict(config)
+    key = "n_layer" if "n_layer" in config else "num_hidden_layers"
+    return {**config, key: layers}
+
+
+def _question_tokenizer():
+    """A ``WordTokenizer`` over the words of the 100 questions and both
+    prompt formats, whose decode writes every id ``i`` as the word
+    ``" t<i>"`` (each generated token one word of a completion)."""
+    from llm_interpretation_replication_tpu_torch.config import (
+        ordinary_meaning_questions)
+    from llm_interpretation_replication_tpu_torch.scoring import prompts
+    from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
+        WordTokenizer)
+
+    class QuestionTokenizer(WordTokenizer):
+        def decode(self, ids, skip_special_tokens=False):
+            return "".join(f" t{int(i)}" for i in ids)
+
+    words = (prompts.FEW_SHOT_PREFIX + " " + prompts.ANSWER_INSTRUCTION + " "
+             + " ".join(ordinary_meaning_questions())).split()
+    return QuestionTokenizer(words + ["Yes", "No"])
+
+
+def _question_prompts(tok):
+    """The sweep's 200 prompts (100 base, then 100 instruct) as the engine
+    sees them: ``(prefix, suffix)`` pairs tokenized as ``score_prefixed``
+    tokenizes them, prefix and suffix ids joined."""
+    from llm_interpretation_replication_tpu_torch.config import (
+        ordinary_meaning_questions)
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+    from llm_interpretation_replication_tpu_torch.scoring import prompts
+
+    pairs = [prompts.format_prompt_parts(q, base)
+             for base in (True, False) for q in ordinary_meaning_questions()]
+    pre, suf = batching.encode_prefix_pairs(tok, [(p, (s,)) for p, s in pairs])
+    return [a + b for a, b in zip(pre, suf[0])], [len(a) for a in pre]
+
+
+def _popular_ids(weights, cfg, prompts, tok, n=2, batch=BATCH):
+    """The ``n`` ids past the tokenizer's vocabulary that random weights
+    most often rank in the top 20 of one forward over ``prompts``."""
+    from collections import Counter
+
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    counts = Counter()
+    for lo in range(0, len(prompts), batch):
+        ids, mask = _padded(prompts[lo:lo + batch], _device_of(weights))
+        top = torch.topk(decoder.forward_last_logits(weights, cfg, ids, mask),
+                         TOP_FILTER).indices.cpu().tolist()
+        for row in top:
+            counts.update(i for i in row if i >= len(tok))
+    return [i for i, _ in counts.most_common(n)]
+
+
+def _teacher_scan(weights, cfg, prompts, continuations, target_ids,
+                  steps=SCAN_STEPS, top_k=5, batch=BATCH):
+    """From one forward over each prompt and its continuation: the top-1
+    lead at every step ``[N, L + 1]`` (``_teacher_top1``'s), and over the
+    first ``steps`` steps each step's distance of the nearer target logit
+    from the ``top_k``-th largest and the two targets' logit gap ``[N,
+    steps]`` (NaN past a row's continuation)."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    tree, dev = decoder._tree(weights), _device_of(weights)
+    n = len(prompts)
+    width = max(max(map(len, continuations)) + 1, steps)
+    leads = np.full((n, width), np.nan, np.float32)
+    edge = np.full((n, steps), np.nan, np.float32)
+    split = np.full((n, steps), np.nan, np.float32)
+    for lo in range(0, n, batch):
+        seqs = [list(p) + list(c) for p, c in
+                zip(prompts[lo:lo + batch], continuations[lo:lo + batch])]
+        ids, mask = _padded(seqs, dev)
+        starts = torch.as_tensor([len(p) - 1 for p in prompts[lo:lo + batch]])
+        pos = (starts[:, None] + torch.arange(width)).clamp(
+            max=ids.shape[1] - 1).to(dev)
+        x, _ = decoder._trunk(tree, cfg, ids, mask)
+        logits = decoder._unembed(cfg, tree, x[torch.arange(
+            len(seqs), device=dev)[:, None], pos])
+        top2 = torch.topk(logits, 2, dim=-1).values.cpu().numpy()
+        kth = torch.topk(logits[:, :steps], top_k, dim=-1).values[..., -1:]
+        tgt = torch.as_tensor(np.asarray(target_ids[lo:lo + batch]),
+                              device=dev)[:, None, :].expand(-1, steps, -1)
+        tl = logits[:, :steps].gather(2, tgt)
+        e = (tl - kth).abs().min(2).values.cpu().numpy()
+        sp = (tl[..., 0] - tl[..., 1]).abs().cpu().numpy()
+        for i in range(len(seqs)):
+            k = len(continuations[lo + i]) + 1
+            leads[lo + i, :k] = top2[i, :k, 0] - top2[i, :k, 1]
+            edge[lo + i, :min(k, steps)] = e[i, :k]
+            split[lo + i, :min(k, steps)] = sp[i, :k]
+        del x, logits
+    return leads, edge, split
+
+
+class _Recorder:
+    """An engine that keeps the rows each ``score_prompts`` call returns
+    (the sweep keeps only the CSV's fields) and delegates everything
+    else."""
+
+    def __init__(self, engine):
+        self._engine, self.rows = engine, []
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def score_prompts(self, *args, **kwargs):
+        rows = self._engine.score_prompts(*args, **kwargs)
+        self.rows += rows
+        return rows
+
+
+def _family_kernel_row(attention, label, gen, b, s, n, g, d, lengths):
+    """The causal kernel at one prefill shape of a family (ragged
+    ``lengths`` of the phase's batch), causal, as the kernel phase takes
+    it."""
+    import torch
+
+    q, k, v, _ = _inputs(gen, b, s, n, g, d, "bsnd")
+    lengths = torch.as_tensor(lengths, device=q.device, dtype=torch.int32)
+    return _kernel_rows(attention, "causal_grouped_attention", "bsnd", label,
+                        g, q, k, v, lengths, (True,))[0]
+
+
+def _verdict(row):
+    return (row["scan_found"], row["yes_prob"] > row["no_prob"])
+
+
+def _parting(a, b):
+    """The first step (word) at which two completions differ, or None."""
+    wa, wb = a.split(), b.split()
+    n = min(len(wa), len(wb))
+    part = next((j for j in range(n) if wa[j] != wb[j]), None)
+    if part is None and len(wa) != len(wb):
+        part = n
+    return part
+
+
+def _compare_family_rows(what, rows, ref, leads, edge, split, tie, p32,
+                         clear, pos0_tol):
+    """Hold one route's rows against the reference route's.  Completions
+    may part only at a step where the reference's lead is below ``tie``;
+    a verdict (scan hit, yes over no) may differ only on a row where, at
+    a step the scan reads before the two part, a target logit lies within
+    ``tie`` of the top-5 edge or the two target logits within ``tie`` of
+    each other.  The position-0 fields of ``rows`` lie within ``pos0_tol``
+    of the float32 forward's (``p32`` ``[N, 2]``) on the ``clear`` rows.
+    Returns (stats, failures)."""
+    import numpy as np
+
+    fails, parted, flips = [], [], 0
+    worst_pos0 = worst_rel = 0.0
+    for i, (a, b) in enumerate(zip(rows, ref)):
+        if not (a["success"] and b["success"]):
+            fails.append(f"row {i} failed")
+            continue
+        if clear[i]:
+            for j, f in enumerate(("first_token_yes_prob",
+                                   "first_token_no_prob")):
+                d = abs(a[f] - float(p32[i, j]))
+                worst_pos0 = max(worst_pos0, d)
+                if d > pos0_tol:
+                    fails.append(f"row {i} {f} {a[f]} vs float32 {p32[i, j]}")
+        part = _parting(a["completion"], b["completion"])
+        if part is not None:
+            gap = float(leads[i, part]) if part < leads.shape[1] else np.inf
+            parted.append(gap)
+            if not gap < tie:
+                fails.append(f"row {i} parts at step {part} (lead {gap}): "
+                             f"{a['completion']!r} vs {b['completion']!r}")
+        seen = SCAN_STEPS if part is None else min(part + 1, SCAN_STEPS)
+        near = bool(np.nanmin(edge[i, :seen]) < tie
+                    or np.nanmin(split[i, :seen]) < tie)
+        if _verdict(a) != _verdict(b):
+            flips += 1
+            if not near and (part is None or part >= SCAN_STEPS):
+                fails.append(f"row {i} verdict {_verdict(a)} vs "
+                             f"{_verdict(b)}")
+        elif not near and (part is None or part >= SCAN_STEPS):
+            worst_rel = max(worst_rel, abs(a["relative_prob"]
+                                           - b["relative_prob"]))
+    stats = dict(parted_rows=len(parted), verdict_flips=flips,
+                 widest_lead_where_parted=max(parted, default=None),
+                 max_abs_delta_position0_vs_fp32=worst_pos0,
+                 max_abs_delta_relative_prob_clear=worst_rel)
+    return stats, [f"{what}: {f}" for f in fails]
+
+
+def families_phase(seed, attention, card):
+    """Pythia-6.9B, Mistral-7B-Instruct-v0.2 and BLOOM-7b1 at their
+    published width and depth (random bf16 weights from ``seed``, made as
+    a HF checkpoint and read through the port's converter) score the 100
+    questions as base (the few-shot prefix through ``score_prefixed``) and
+    as instruct, through the sweep's per-model call, on each route; then
+    the gates of ``_compare_family_rows``, and w8a8 with an int8 KV cache
+    against bf16 for Mistral."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.config import (
+        ordinary_meaning_questions)
+    from llm_interpretation_replication_tpu_torch.models import convert
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.ops import quant as qops
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+    from llm_interpretation_replication_tpu_torch.sweeps import (
+        run_model_on_prompts)
+
+    device = "cuda"
+    questions = ordinary_meaning_questions()
+    tok = _question_tokenizer()
+    prompts, prefix_lens = _question_prompts(tok)
+    target_ids = [yes_no.target_token_ids(tok, ["Yes", "No"])] * len(prompts)
+    ecfg = emod.EngineConfig(batch_size=BATCH)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 11)
+    results, kernel_rows, fails = [], [], []
+    counted = {"prefill": 0}
+    real_prefill = decoder.prefill
+
+    def counting(*args, **kwargs):
+        counted["prefill"] += 1
+        return real_prefill(*args, **kwargs)
+
+    for mi, (label, model, config, routes) in enumerate(FAMILY_MODELS):
+        family, cfg = _family_config(config)
+        dense = dataclasses.replace(cfg, attention_impl="xla")
+        t0 = time.perf_counter()
+        sd = _hf_state_dict(family, cfg, seed + 20 + mi, device,
+                            torch.bfloat16)
+        tree = convert.CONVERTERS[family](sd.__getitem__, cfg)
+        del sd
+        weights = decoder.DecoderWeights(dense, tree)
+        del tree
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        make_s = time.perf_counter() - t0
+        swapped = _swap_embedding_rows(weights, tok, dict(zip(
+            (" Yes", " No"), _popular_ids(weights, dense, prompts, tok))))
+        # the rounding of these weights: two bf16 computations of the same
+        # top-1 logits (the tie), and one bf16 forward's position-0 target
+        # probabilities against a float32 one
+        batches = list(batching.batches_for_prompts(
+            prompts, BATCH, ecfg.buckets, pad_id=tok.pad_token_id,
+            length_sorted=True))
+        tokens, _, top1, _, _, _ = _study_prepass(
+            weights, dense, batches, len(prompts), SCAN_STEPS,
+            ecfg.scan_chunk, tok.eos_token_id, target_ids)
+        top1_diff = np.abs(_teacher_top1(weights, dense, prompts,
+                                         tokens.tolist())[0][:, :-1] - top1)
+        tie = 2 * NEAR_TIE_FACTOR * float(top1_diff.max())
+        ref_w = decoder.DecoderWeights(dense, _to_float32(weights.tree()))
+        p16, p32, edge0 = [], [], []
+        for lo in range(0, len(prompts), BATCH):
+            ids, mask = _padded(prompts[lo:lo + BATCH], device)
+            tgt = torch.as_tensor(target_ids[lo:lo + BATCH], device=device)
+            a = decoder.forward_last_logits(weights, dense, ids, mask)
+            r = decoder.forward_last_logits(ref_w, dense, ids, mask)
+            kth = torch.topk(r, TOP_FILTER).values[:, -1:]
+            edge0.append((r.gather(1, tgt) - kth).abs().min(1).values.cpu())
+            p16.append(_filtered_target_probs(a, tgt).cpu())
+            p32.append(_filtered_target_probs(r, tgt).cpu())
+        del ref_w
+        torch.cuda.empty_cache()
+        clear = torch.cat(edge0).numpy() >= tie
+        p16, p32 = torch.cat(p16).numpy(), torch.cat(p32).numpy()
+        dev16 = float(np.abs(p16 - p32)[clear].max(initial=0.0))
+        pos0_tol = 2 * dev16
+        rounding = dict(top1_max_abs_diff=float(top1_diff.max()), tie=tie,
+                        position0_bf16_vs_fp32=dev16,
+                        rows_clear_of_edge=int(clear.sum()))
+
+        runs, rows_by = [], {}
+        for route in routes:
+            rcfg = dataclasses.replace(
+                cfg, attention_impl="xla" if route == "xla" else "flash")
+            rweights = weights
+            rcfg_e = ecfg
+            if route.startswith("w8a8"):
+                rweights = decoder.DecoderWeights(
+                    rcfg, qops.quantize_decoder_params(weights.tree()))
+            if route.endswith("int8kv"):
+                rcfg_e = dataclasses.replace(ecfg, kv_dtype="int8")
+            engine = _Recorder(emod.ScoringEngine(
+                family, rcfg, rweights, tok, engine_config=rcfg_e,
+                device=device))
+            engine.score_prompts([("a b", " c")])       # warm-up, not counted
+            engine.rows = []
+            _reset_launches(attention)
+            counted["prefill"] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            decoder.prefill = counting
+            try:
+                t0 = time.perf_counter()
+                csv_rows = []
+                for base in (True, False):
+                    csv_rows += run_model_on_prompts(engine, model, questions,
+                                                     base)
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t0
+            finally:
+                decoder.prefill = real_prefill
+            launches = _launches(attention)["causal_grouped_attention"]
+            # one prefill of the longest base prefix+suffix batch, timed
+            longest = max(batches, key=lambda bt: bt.bucket_len)
+            ids = torch.as_tensor(longest.token_ids, device=device).long()
+            mask = torch.as_tensor(longest.attention_mask, device=device)
+            prefill_ms = time_ms(lambda: decoder.prefill(
+                rweights, dataclasses.replace(
+                    rcfg, kv_cache_dtype=rcfg_e.kv_dtype), ids, mask,
+                longest.bucket_len), iters=3, warmup=1)
+            res = dict(model=label, route=route, rows=len(csv_rows),
+                       seconds=elapsed, rows_per_s=len(csv_rows) / elapsed,
+                       prefills=counted["prefill"], kernel_launches=launches,
+                       prefill_ms_bucket=[longest.bucket_len, prefill_ms],
+                       peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                       success_rows=sum(bool(r["success"]) for r in csv_rows),
+                       scan_found_rows=sum(r["scan_found"]
+                                           for r in engine.rows),
+                       target_in_top20_share=[
+                           sum(r[f] > 0 for r in engine.rows) / len(prompts)
+                           for f in ("first_token_yes_prob",
+                                     "first_token_no_prob")])
+            runs.append(res)
+            say("families", json.dumps(dict(res, card=card)))
+            if res["success_rows"] != len(prompts) or len(engine.rows) != \
+                    len(prompts):
+                fails.append(f"{label} {route}: {res['success_rows']} rows "
+                             f"with success of {len(prompts)}")
+            want = cfg.num_layers * counted["prefill"] if route != "xla" else 0
+            if launches != want or (route != "xla" and not launches):
+                fails.append(f"{label} {route}: {launches} causal launches "
+                             f"for {counted['prefill']} prefills")
+            rows_by[route] = engine.rows
+            engine._engine.close()
+            del engine, rweights
+            torch.cuda.empty_cache()
+
+        # gates, against the dense route (or itself) and float32
+        ref_route = "xla"
+        ref_rows = rows_by[ref_route]
+        leads, edge, split = _teacher_scan(
+            weights, dense, prompts,
+            [_completion_ids(r["completion"]) for r in ref_rows], target_ids)
+        gates = {}
+        for route in ("flash", "xla"):
+            if route not in routes:
+                continue
+            stats, f = _compare_family_rows(
+                f"{label} {route}", rows_by[route], ref_rows, leads, edge,
+                split, tie, p32, clear, pos0_tol)
+            gates[route] = stats
+            fails += f
+        for route in ("int8kv", "w8a8-int8kv"):
+            if route not in routes:
+                continue
+            kv8 = dataclasses.replace(dense, kv_cache_dtype="int8")
+            qweights = decoder.DecoderWeights(
+                kv8, qops.quantize_decoder_params(weights.tree())) \
+                if route.startswith("w8a8") else weights
+            gates[route] = _quantized_route_gate(
+                f"{label} {route}", rows_by[route], rows_by["flash"],
+                [(weights, dense), (qweights, kv8)], prompts, prefix_lens,
+                target_ids, fails)
+            if route.startswith("w8a8"):
+                gates[route]["fake_quant"] = _fake_quant_witness(
+                    f"{label} {route}", weights, qweights, kv8, prompts,
+                    prefix_lens, target_ids, fails)
+            del qweights
+        # the causal kernel at this family's prefix-prefill shape
+        if "flash" in routes:
+            pre = [p[:n] for p, n in zip(prompts, prefix_lens)]
+            bt = next(iter(batching.batches_for_prompts(
+                pre[:BATCH], BATCH, ecfg.buckets, pad_id=tok.pad_token_id,
+                length_sorted=True)))
+            kernel_rows.append(_family_kernel_row(
+                attention, label, gen, BATCH, bt.bucket_len, cfg.num_heads,
+                cfg.num_kv_heads, cfg.head_dim,
+                bt.attention_mask.sum(-1).tolist()))
+        result = dict(model=label, hf_name=model, family=family,
+                      layers=cfg.num_layers, width=cfg.hidden_size,
+                      heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+                      vocab=cfg.vocab_size, weights_s=make_s,
+                      swapped_target_rows=swapped, rounding=rounding,
+                      runs=runs, gates=gates, card=card)
+        say("families gates", json.dumps({k: v for k, v in result.items()
+                                          if k != "runs"}))
+        results.append(result)
+        del weights
+        torch.cuda.empty_cache()
+    # StableLM-alpha-7B's head shape (48 heads of 128) at the same prefix
+    # shape: its model runs only in the CLI phase, at 2 layers
+    fam, scfg = _family_config(STABLELM_ALPHA_7B)
+    kernel_rows.append(_family_kernel_row(
+        attention, "stablelm-alpha-7b", gen, BATCH, kernel_rows[0]["S"],
+        scfg.num_heads, scfg.num_kv_heads, scfg.head_dim,
+        [kernel_rows[0]["S"]] * BATCH))
+    if fails:
+        raise AssertionError(f"families: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return dict(models=results, kernel_rows=kernel_rows,
+                runs=[r for m in results for r in m["runs"]])
+
+
+def _quantized_route_gate(label, rows, ref, paths, prompts, prefix_lens,
+                          target_ids, fails):
+    """A quantized route's rows (an int8 KV cache, w8a8 weights) against
+    the bf16 rows, with the route's own deviation on these weights: each
+    row's position-0 logits computed as the sweep computes them (the
+    prefix prefilled, the suffix extended over its cache) on both
+    ``paths`` (``[(weights, cfg), (weights, cfg)]``, bf16 first), of the
+    target logits and the top-5 edge (twice it makes the tie) and of the
+    targets' log-probabilities.  On the rows both runs read at position 0
+    whose targets lie clear of the edge and of each other by the tie: the
+    same verdict, and each target's log-probability within
+    NEAR_TIE_FACTOR times the deviation.  |d relative_prob| is reported
+    against INT8_KV_MAX_DREL, ROADMAP.md's int8 KV class."""
+    import math
+
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    dev = _device_of(paths[0][0])
+    dev_max = logp_dev = 0.0
+    edge, split = [], []
+    for lo in range(0, len(prompts), BATCH):
+        part = list(zip(prompts[lo:lo + BATCH], prefix_lens[lo:lo + BATCH]))
+        pre_ids, pre_mask = _padded([p[:n] for p, n in part], dev)
+        suf_ids, suf_mask = _padded([p[n:] for p, n in part], dev)
+        tgt = torch.as_tensor(target_ids[lo:lo + BATCH], device=dev)
+        a, b = (decoder.extend_prefill(
+            w, c, decoder.prefill(w, c, pre_ids, pre_mask, pre_ids.shape[1])[1],
+            suf_ids, suf_mask, pre_mask.sum(-1))[0] for w, c in paths)
+        ka, kb = (torch.topk(x, 5).values[:, -1:] for x in (a, b))
+        la, lb = a.gather(1, tgt), b.gather(1, tgt)
+        dev_max = max(dev_max, float((la - lb).abs().max()),
+                      float((ka - kb).abs().max()))
+        logp_dev = max(logp_dev, float(
+            (a.log_softmax(-1).gather(1, tgt)
+             - b.log_softmax(-1).gather(1, tgt)).abs().max()))
+        edge.append((la - ka).abs().min(1).values.cpu())
+        split.append((la[:, 0] - la[:, 1]).abs().cpu())
+    tie, logp_tol = 2 * dev_max, NEAR_TIE_FACTOR * logp_dev
+    edge, split = torch.cat(edge).numpy(), torch.cat(split).numpy()
+    worst_logp = worst_rel = worst_rel0 = 0.0
+    compared = at0 = 0
+    for i, (a, b) in enumerate(zip(rows, ref)):
+        if not (_read_at_position0(a) and _read_at_position0(b)):
+            continue
+        at0 += 1
+        d_rel = abs(a["relative_prob"] - b["relative_prob"])
+        worst_rel0 = max(worst_rel0, d_rel)
+        if edge[i] < tie or split[i] < tie:
+            continue
+        compared += 1
+        worst_rel = max(worst_rel, d_rel)
+        for f in ("yes_prob", "no_prob"):
+            d = abs(math.log(max(a[f], 1e-300)) - math.log(max(b[f], 1e-300)))
+            worst_logp = max(worst_logp, d)
+            if d > logp_tol:
+                fails.append(f"{label}: row {i} {f} {a[f]} vs {b[f]}")
+        if _verdict(a) != _verdict(b):
+            fails.append(f"{label}: row {i} verdict {_verdict(a)} vs "
+                         f"{_verdict(b)}")
+    if not compared:
+        fails.append(f"{label}: no row compared")
+    return dict(rows_compared=compared, max_abs_delta_log_prob=worst_logp,
+                log_prob_tol=logp_tol, logit_deviation=dev_max,
+                log_prob_deviation=logp_dev, tie=tie,
+                max_abs_delta_relative_prob_compared=worst_rel,
+                rows_read_at_position0=at0,
+                max_abs_delta_relative_prob_position0=worst_rel0,
+                rows_over_int8_kv_class=sum(
+                    abs(a["relative_prob"] - b["relative_prob"])
+                    > INT8_KV_MAX_DREL for a, b in zip(rows, ref)
+                    if _read_at_position0(a) and _read_at_position0(b)),
+                max_abs_delta_relative_prob_all=max(
+                    abs(a["relative_prob"] - b["relative_prob"])
+                    for a, b in zip(rows, ref)))
+
+
+def _fake_quant_linear(p, key, x):
+    """A projection of a w8a8 tree in floating point, without the int8
+    product: each token's activations rounded to its own symmetric int8
+    grid (step max|x| / 127), times the dequantized weight (the codes times
+    their channel scales), in float32, cast to the activations' dtype."""
+    import torch
+
+    scale = p.get(key + "_qscale")
+    if scale is None:
+        return x @ p[key]
+    x32 = x.float()
+    step = x32.abs().amax(-1, keepdim=True).clamp(min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(x32 / step), -127, 127) * step
+    return (xq @ (p[key].float() * scale.unsqueeze(-2))).to(x.dtype)
+
+
+def _quantized_tree_half_step(label, weights, qweights, fails):
+    """Each w8a8 projection of ``qweights`` against the weight it was made
+    from: its channel scales are the channels' max |w| / 127, and codes
+    times scale lie within half a step of ``w``.  Returns the largest
+    |codes * scale - w| / scale."""
+    import torch
+
+    src, q = weights.tree()["layers"], qweights.tree()["layers"]
+    worst = 0.0
+    for group, leaves in q.items():
+        for key, scales in leaves.items():
+            if not key.endswith("_qscale"):
+                continue
+            name = key[:-len("_qscale")]
+            for i in range(scales.shape[0]):
+                w = src[group][name][i].float()
+                want = w.abs().amax(0).clamp(min=1e-8) / 127.0
+                if not torch.allclose(scales[i], want, rtol=1e-6, atol=0):
+                    fails.append(f"{label}: layer {i} {group}.{name} scales "
+                                 f"are not max|w| / 127")
+                off = (leaves[name][i].float() * scales[i] - w).abs() \
+                    / scales[i]
+                worst = max(worst, float(off.max()))
+    if worst > 0.5 + 1e-4:
+        fails.append(f"{label}: w8a8 codes {worst} steps from the weights")
+    return worst
+
+
+def _fake_quant_witness(label, weights, qweights, kv8, prompts, prefix_lens,
+                        target_ids, fails):
+    """The w8a8 route against a computation of the same quantized model
+    that does not use the int8 product: ``_fake_quant_linear`` in float32
+    (the witness) and in bf16 (its rounding class).  The tree is first
+    held to the bf16 weights it came from (``_quantized_tree_half_step``).
+    Each run prefills the prefix and extends the suffix over its int8 KV
+    cache, as the sweep does, and reads the targets' position-0
+    log-probabilities.  Gates: every projection of the int8 route within
+    PROJECTION_TOL (one bf16 step of its largest output) of the bf16
+    fake-quant of the same input; the int8 route's deviation from the
+    float32 witness within NEAR_TIE_FACTOR times the bf16 fake-quant's, a
+    class that no part of the int8 path sets.  Reported beside them: the
+    bf16 weights (no w8a8, same int8 KV cache) against the witness, and
+    |d relative_prob| of each run against the witness."""
+    import time
+
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.ops import quant
+
+    half_step = _quantized_tree_half_step(label, weights, qweights, fails)
+    witness = decoder.DecoderWeights(kv8, _to_float32(qweights.tree()))
+    runs = {"int8_route": (qweights, False),
+            "fake_quant_bf16": (qweights, True),
+            "bf16_weights": (weights, False),
+            "fake_quant_fp32": (witness, True)}
+    dev = _device_of(weights)
+    logp = {name: [] for name in runs}
+    real_linear = quant.linear
+    projection = [0.0]
+
+    def checked(p, key, x):
+        """The int8 route's projection, held to the bf16 fake-quant of the
+        same input (identical codes and steps: one bf16 rounding apart)."""
+        y = real_linear(p, key, x)
+        if p.get(key + "_qscale") is not None:
+            ref = _fake_quant_linear(p, key, x).float()
+            projection[0] = max(projection[0], float(
+                (y.float() - ref).abs().max() / ref.abs().max()))
+        return y
+
+    t0 = time.perf_counter()
+    try:
+        for lo in range(0, len(prompts), BATCH):
+            part = list(zip(prompts[lo:lo + BATCH],
+                            prefix_lens[lo:lo + BATCH]))
+            pre_ids, pre_mask = _padded([p[:n] for p, n in part], dev)
+            suf_ids, suf_mask = _padded([p[n:] for p, n in part], dev)
+            tgt = torch.as_tensor(target_ids[lo:lo + BATCH], device=dev)
+            for name, (w, fake) in runs.items():
+                quant.linear = _fake_quant_linear if fake else \
+                    checked if name == "int8_route" else real_linear
+                _, cache = decoder.prefill(w, kv8, pre_ids, pre_mask,
+                                           pre_ids.shape[1])
+                logits = decoder.extend_prefill(
+                    w, kv8, cache, suf_ids, suf_mask, pre_mask.sum(-1))[0]
+                logp[name].append(
+                    logits.float().log_softmax(-1).gather(1, tgt).cpu())
+    finally:
+        quant.linear = real_linear
+    del witness
+    logp = {k: torch.cat(v) for k, v in logp.items()}
+    ref = logp["fake_quant_fp32"]
+
+    def rel(lp):
+        return torch.sigmoid(lp[:, 0] - lp[:, 1])
+
+    out = dict(max_code_offset_steps=half_step, rows=int(ref.shape[0]),
+               seconds=time.perf_counter() - t0,
+               projection_max_rel_d=projection[0],
+               projection_tol=PROJECTION_TOL)
+    if not projection[0] <= PROJECTION_TOL:
+        fails.append(f"{label}: an int8 projection {projection[0]} of its "
+                     f"largest output from its bf16 fake-quant")
+    for name in ("int8_route", "fake_quant_bf16", "bf16_weights"):
+        out[f"{name}_max_abs_d_log_prob"] = float(
+            (logp[name] - ref).abs().max())
+        out[f"{name}_max_abs_d_relative_prob"] = float(
+            (rel(logp[name]) - rel(ref)).abs().max())
+    out["int8_route_vs_fake_quant_bf16_max_abs_d_log_prob"] = float(
+        (logp["int8_route"] - logp["fake_quant_bf16"]).abs().max())
+    out["log_prob_tol"] = tol = (NEAR_TIE_FACTOR
+                                 * out["fake_quant_bf16_max_abs_d_log_prob"])
+    if not out["int8_route_max_abs_d_log_prob"] <= tol:
+        fails.append(f"{label}: int8 route {out['int8_route_max_abs_d_log_prob']}"
+                     f" from the float32 fake-quant witness (tol {tol})")
+    return out
+
+
+def _read_at_position0(row):
+    """The scan read position 0: no hit within the look-ahead (the
+    fallback), or a hit there, where the top-20-filtered position-0 fields
+    equal the scan's (both targets in the top 20)."""
+    return not row["scan_found"] or (
+        row["first_token_yes_prob"] == row["yes_prob"]
+        and row["first_token_no_prob"] == row["no_prob"])
+
+
+def _write_bin_shards(snap, sd, shards=2):
+    """``sd`` as ``pytorch_model-0000i-of-0000n.bin`` shards (whole
+    tensors, split by count) with ``pytorch_model.bin.index.json``."""
+    import torch
+
+    names = list(sd)
+    per = -(-len(names) // shards)
+    weight_map, total = {}, 0
+    for s in range(shards):
+        fname = f"pytorch_model-{s + 1:05d}-of-{shards:05d}.bin"
+        part = {n: sd[n].detach().cpu().contiguous()
+                for n in names[s * per:(s + 1) * per]}
+        torch.save(part, os.path.join(snap, fname))
+        for n, t in part.items():
+            weight_map[n] = fname
+            total += t.numel() * t.element_size()
+    with open(os.path.join(snap, "pytorch_model.bin.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+
+
+def _write_100q_snapshots(root, seed, tokenizer_texts):
+    """Snapshots of each distinct geometry of ``CLI_SNAPSHOTS`` at
+    SNAPSHOT_LAYERS layers under ``root`` (``org--name`` directories; a
+    model that shares a geometry is a symlink to it; Mistral-7B-v0.1 a
+    directory of its own config.json and symlinks to v0.2's other files),
+    random bf16 weights from ``seed``, a byte-level BPE tokenizer learned on
+    ``tokenizer_texts`` (with GPT-NeoX-20B's NFC normalizer for the NeoX
+    models).  Returns (bytes written, seconds)."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import convert
+
+    device = "cuda"
+    t0, nbytes = time.perf_counter(), 0
+    for si, (model, config, shared, fmt) in enumerate(CLI_SNAPSHOTS):
+        snap = os.path.join(root, model.replace("/", "--"))
+        os.makedirs(snap)
+        if config is None:        # Falcon-7B, legacy keys, its own writer
+            cfg = mconfig.DecoderConfig(**{**mconfig.FALCON_7B_GEOMETRY,
+                                           "num_layers": SNAPSHOT_LAYERS})
+            sd = _falcon_state_dict(convert.random_params(
+                cfg, seed=seed + 40 + si, device=device,
+                dtype="bf16").tree(), cfg)
+            hf_json = _falcon_config_json(cfg)
+        else:
+            family, cfg = _family_config(config, SNAPSHOT_LAYERS)
+            sd = _hf_state_dict(family, cfg, seed + 40 + si, device,
+                                torch.bfloat16)
+            hf_json = _at_depth(config, SNAPSHOT_LAYERS)
+        spec, tconf, special = _bpe_tokenizer_files(
+            tokenizer_texts, nfc=hf_json["model_type"] == "gpt_neox")
+        for name, obj in (("tokenizer.json", spec),
+                          ("tokenizer_config.json", tconf),
+                          ("special_tokens_map.json", special),
+                          ("config.json", hf_json)):
+            with open(os.path.join(snap, name), "w", encoding="utf-8") as f:
+                json.dump(obj, f)
+        if fmt == "bin":
+            _write_bin_shards(snap, sd)
+        else:
+            _write_safetensors(os.path.join(snap, "model.safetensors"), sd)
+        nbytes += sum(t.numel() * t.element_size() for t in sd.values())
+        del sd
+        for other in shared:
+            os.symlink(os.path.basename(snap),
+                       os.path.join(root, other.replace("/", "--")))
+    v02 = os.path.join(root, "mistralai--Mistral-7B-Instruct-v0.2")
+    v01 = os.path.join(root, "mistralai--Mistral-7B-v0.1")
+    os.makedirs(v01)
+    for name in os.listdir(v02):
+        if name != "config.json":
+            os.symlink(os.path.join(os.pardir, os.path.basename(v02), name),
+                       os.path.join(v01, name))
+    with open(os.path.join(v01, "config.json"), "w") as f:
+        json.dump(_at_depth(MISTRAL_7B_V01, SNAPSHOT_LAYERS), f)
+    torch.cuda.empty_cache()
+    return nbytes, time.perf_counter() - t0
+
+
+def _run_100q(snaps, out, extra=(), signal_after_first=False):
+    """``python -m llm_interpretation_replication_tpu_torch run-100q`` in a
+    child process (the repository on its path).  With
+    ``signal_after_first`` a SIGTERM goes to it as soon as its checkpoint
+    file appears.  Returns (exit code, stdout, stderr, seconds)."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    argv = [sys.executable, "-m", "llm_interpretation_replication_tpu_torch",
+            "run-100q", "--checkpoint-dir", snaps, "--output-dir", out,
+            "--attention-impl", "flash", "--batch-size", str(BATCH), *extra]
+    ck = os.path.join(out, "base_vs_instruct_100q_checkpoint.json")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as so, tempfile.TemporaryFile("w+") as se:
+        proc = subprocess.Popen(argv, stdout=so, stderr=se, env=env, cwd=root)
+        try:
+            if signal_after_first:
+                while proc.poll() is None and not os.path.exists(ck):
+                    time.sleep(0.005)
+                proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        so.seek(0)
+        se.seek(0)
+        return rc, so.read(), se.read(), time.perf_counter() - t0
+
+
+def run100q_cli_phase(seed, workdir, card):
+    """``run-100q --attention-impl flash`` over 2-layer snapshots of the
+    sweep's twelve models at their published widths, in a child process:
+    1200 rows in the CSV's 10 columns, each with ``success``; one attention
+    line a model (dense for BLOOM and Mistral-7B-v0.1); then a run that a
+    SIGTERM stops after its first model leaves a checkpoint of exactly that
+    model's rows, and resuming it skips that model and writes the same
+    CSV; a rerun over a finished output directory skips all twelve."""
+    import csv
+
+    from llm_interpretation_replication_tpu_torch.config import (
+        model_pairs_100q, ordinary_meaning_questions)
+    from llm_interpretation_replication_tpu_torch.scoring import prompts
+    from llm_interpretation_replication_tpu_torch.sweeps import (
+        BASE_VS_INSTRUCT_100Q_COLUMNS)
+
+    questions = ordinary_meaning_questions()
+    names = [m for p in model_pairs_100q() for m in (p["base"], p["instruct"])]
+    snaps = os.path.join(workdir, "snapshots")
+    os.makedirs(snaps)
+    texts = questions + [prompts.FEW_SHOT_PREFIX, prompts.ANSWER_INSTRUCTION,
+                         " Yes", " No"]
+    nbytes, write_s = _write_100q_snapshots(snaps, seed, texts)
+    say(f"run-100q: {len(CLI_SNAPSHOTS) + 1} snapshot directories, "
+        f"{nbytes / 1e9:.2f} GB of weights written in {write_s:.1f} s")
+    fails, runs = [], []
+
+    def csv_of(out):
+        path = os.path.join(out, "base_vs_instruct_100q_results.csv")
+        with open(path, "rb") as f:
+            raw = f.read()
+        with open(path, newline="", encoding="utf-8") as f:
+            rows = list(csv.reader(f))
+        return raw, rows
+
+    def attention_lines(err):
+        return dict(re.findall(r"^# (\S+): attention (\w+) ", err, re.M))
+
+    # (1) the whole sweep
+    out = os.path.join(workdir, "run100q")
+    rc, so, se, secs = _run_100q(snaps, out)
+    runs.append(dict(run="full", rc=rc, seconds=secs,
+                     rows_per_s=len(names) * len(questions) / secs))
+    say("run-100q", json.dumps(dict(runs[-1], card=card)))
+    if rc != 0:
+        raise AssertionError(f"run-100q exited {rc}: {se[-3000:]}")
+    raw, rows = csv_of(out)
+    n = len(names) * len(questions)
+    if rows[0] != BASE_VS_INSTRUCT_100Q_COLUMNS or len(rows) != n + 1:
+        fails.append(f"run-100q: header {rows[0]}, {len(rows) - 1} rows")
+    success = rows[0].index("success") if "success" in rows[0] else 4
+    if any(r[success] != "True" for r in rows[1:]):
+        fails.append(f"run-100q: "
+                     f"{sum(r[success] != 'True' for r in rows[1:])} rows "
+                     f"without success")
+    if f"{n} rows" not in so.splitlines():
+        fails.append(f"run-100q printed {so.splitlines()[-1:]}")
+    lines = attention_lines(se)
+    want = {m: "xla" if m in CLI_DENSE else "flash" for m in names}
+    if lines != want:
+        fails.append(f"run-100q attention lines {lines}, want {want}")
+    order = [r[rows[0].index("model")] for r in rows[1:]]
+    if order != [m for m in names for _ in questions]:
+        fails.append("run-100q: rows not in roster order")
+
+    # (2) SIGTERM after the first model, then the resume
+    out2 = os.path.join(workdir, "run100q_preempted")
+    rc2, _, se2, secs2 = _run_100q(snaps, out2, signal_after_first=True)
+    with open(os.path.join(out2, "base_vs_instruct_100q_checkpoint.json")) as f:
+        state = json.load(f)
+    kept = sorted({r["model"] for r in state["results"]})
+    runs.append(dict(run="sigterm", rc=rc2, seconds=secs2,
+                     completed_models=state["completed_models"],
+                     checkpoint_rows=len(state["results"])))
+    say("run-100q", json.dumps(dict(runs[-1], card=card)))
+    if (rc2 != 143 or state["completed_models"] != names[:1]
+            or kept != names[:1] or len(state["results"]) != len(questions)):
+        fails.append(f"run-100q SIGTERM: exit {rc2}, checkpoint "
+                     f"{state['completed_models']} with "
+                     f"{len(state['results'])} rows of {kept}")
+    rc3, so3, se3, secs3 = _run_100q(snaps, out2)
+    runs.append(dict(run="resume", rc=rc3, seconds=secs3))
+    say("run-100q", json.dumps(dict(runs[-1], card=card)))
+    if rc3 != 0:
+        raise AssertionError(f"run-100q resume exited {rc3}: {se3[-3000:]}")
+    if f"Skipping {names[0]} (already completed)" not in so3 or \
+            set(attention_lines(se3)) != set(names[1:]):
+        fails.append("run-100q resume did not skip just the first model")
+    if csv_of(out2)[0] != raw:
+        fails.append("run-100q resume: the CSV differs from the whole run's")
+
+    # (3) a rerun over the finished output: nothing to score
+    rc4, so4, se4, secs4 = _run_100q(snaps, out)
+    runs.append(dict(run="rerun", rc=rc4, seconds=secs4))
+    say("run-100q", json.dumps(dict(runs[-1], card=card)))
+    if rc4 != 0 or attention_lines(se4) or csv_of(out)[0] != raw or \
+            so4.count("(already completed)") != len(names):
+        fails.append(f"run-100q rerun: exit {rc4}, it scored "
+                     f"{sorted(attention_lines(se4))}")
+    shutil.rmtree(snaps, ignore_errors=True)
+    result = dict(card=card, layers=SNAPSHOT_LAYERS, snapshot_bytes=nbytes,
+                  snapshot_write_s=write_s, rows=n, runs=runs,
+                  attention=lines, failures=fails[:50])
+    say("run-100q gates", json.dumps({k: v for k, v in result.items()
+                                      if k != "runs"}))
+    if fails:
+        raise AssertionError(f"run-100q: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2861,22 +3944,35 @@ def main(argv=None):
     say(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     say(smi.splitlines()[0])
 
-    build = build_phase(_build, attention)
+    seconds = {}
+
+    def timed(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[name] = time.perf_counter() - t0
+        say(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    card = smi.splitlines()[0]
+    build = timed("build", build_phase, _build, attention)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
-    krows = kernel_phase(attention, gen)
-    erows = edge_phase(attention, gen)
-    sres, bf16_rows, weights = slice_phase(args.seed, attention)
-    pres = pooled_phase(args.seed, attention, weights)
-    fres = full_study_phase(args.seed, attention, weights)
+    krows = timed("kernels", kernel_phase, attention, gen)
+    erows = timed("edge", edge_phase, attention, gen)
+    sres, bf16_rows, weights = timed("slice", slice_phase, args.seed, attention)
+    pres = timed("pooled", pooled_phase, args.seed, attention, weights)
+    fres = timed("full_study", full_study_phase, args.seed, attention, weights)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        wres = sweep_phase(args.seed, attention, weights, fres["near_tie"],
-                           workdir, smi.splitlines()[0])
+        wres = timed("sweep", sweep_phase, args.seed, attention, weights,
+                     fres["near_tie"], workdir, card)
         del weights
         torch.cuda.empty_cache()
-        ires = int8_phase(args.seed, attention, bf16_rows)
-        cres = cli_phase(args.seed, attention, workdir, smi.splitlines()[0])
+        ires = timed("int8", int8_phase, args.seed, attention, bf16_rows)
+        cres = timed("cli", cli_phase, args.seed, attention, workdir, card)
+        torch.cuda.empty_cache()
+        fam = timed("families", families_phase, args.seed, attention, card)
+        qres = timed("run_100q", run100q_cli_phase, args.seed, workdir, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2888,13 +3984,15 @@ def main(argv=None):
                     if "kernel_launches" in r)
               + sum(r["kernel_launches"] for r in ires["runs"])
               + sum(r["kernel_launches"] for r in wres["runs"])
-              + sum(r["kernel_launches"] for r in cres["runs"]))
+              + sum(r["kernel_launches"] for r in cres["runs"])
+              + sum(r["kernel_launches"] for r in fam["runs"]))
     launches = {"causal_grouped_attention": causal,
                 "grouped_attention": sres["forced_routes"]["grouped"]["launches"],
                 "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
     kernels = []
     for name, source, line, _, _ in KERNELS:
-        mine = [r for r in krows + erows if r["kernel"] == name]
+        mine = [r for r in krows + erows + fam["kernel_rows"]
+                if r["kernel"] == name]
         main_row = next(r for r in mine
                         if r.get("shape") == "falcon-7b" and r["causal"])
         kernels.append(dict(
@@ -2911,7 +4009,8 @@ def main(argv=None):
         json.dump(dict(device=kind, nvidia_smi=smi, build=build,
                        edge_rows=erows, kernel_rows=krows, slice=sres,
                        pooled=pres, full_study=fres, sweep=wres, int8=ires,
-                       cli=cres, kernels=kernels), f, indent=1)
+                       cli=cres, families=fam, run_100q=qres,
+                       phase_seconds=seconds, kernels=kernels), f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

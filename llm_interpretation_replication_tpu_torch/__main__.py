@@ -2,13 +2,20 @@
 
     python -m llm_interpretation_replication_tpu_torch run-perturbation \\
         --model SNAPSHOT --perturbations perturbations.json [--device cuda]
+    python -m llm_interpretation_replication_tpu_torch run-100q \\
+        --checkpoint-dir DIR [--device cuda]
 
 ``run-perturbation`` loads a local HF snapshot (``config.json``, weights as
 safetensors or ``pytorch_model.bin``, a byte-level BPE ``tokenizer.json``)
 onto the card, or onto the CPU with ``--device cpu``, and writes the
 perturbation study's 15-column workbook to
-``<output-dir>/perturbation_results.xlsx`` (a copy of the reference CLI's
-``run-perturbation``).  Flags of paths the port does not cover yet raise
+``<output-dir>/perturbation_results.xlsx``.  ``run-100q`` scores the 100
+ordinary-meaning questions with each base and instruct model of
+``data_assets/model_pairs_100q.json``, each loaded from its snapshot under
+``--checkpoint-dir`` (``org/name``, ``org--name`` or a hub cache's
+``models--org--name/snapshots/*``), and writes
+``<output-dir>/base_vs_instruct_100q_results.csv`` (copies of the reference
+CLI's commands).  Flags of paths the port does not cover yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -102,16 +109,29 @@ def _run_config(args):
 
 
 def _engine_factory(run_config):
-    """model name -> ScoringEngine over its local snapshot."""
+    """model name -> ScoringEngine over its local snapshot.  Under the
+    roster-wide ``--attention-impl flash``, a model whose config refuses
+    the causal kernel (``DecoderConfig.flash_refusal``: ALiBi, a sliding
+    window) runs dense, as the reference's loader runs it; each model's
+    impl is named on stderr (``# <model>: attention <impl> (<why>)``)
+    before it loads."""
+    from .models.config import from_hf_config
     from .runtime.engine import EngineConfig, ScoringEngine
-    from .runtime.loader import load_model, load_tokenizer
+    from .runtime.loader import load_hf_config, load_model, load_tokenizer
 
     def factory(model_name: str) -> ScoringEngine:
         rc = run_config
         path = rc.snapshot_path(model_name)
+        impl, why = rc.attention_impl, f"--attention-impl {rc.attention_impl}"
+        if impl == "flash":
+            refusal = from_hf_config(load_hf_config(path))[1].flash_refusal()
+            if refusal:
+                impl, why = "xla", refusal
+        print(f"# {model_name}: attention {impl} ({why})", file=sys.stderr,
+              flush=True)
         family, cfg, params = load_model(
-            path, dtype=rc.dtype, quant=rc.quant,
-            attention_impl=rc.attention_impl, device=rc.device)
+            path, dtype=rc.dtype, quant=rc.quant, attention_impl=impl,
+            device=rc.device)
         return ScoringEngine(
             family, cfg, params, load_tokenizer(path), device=rc.device,
             engine_config=EngineConfig(
@@ -125,6 +145,18 @@ def _engine_factory(run_config):
             ))
 
     return factory
+
+
+def cmd_run_100q(args):
+    from .sweeps import run_sweep
+
+    rc = _run_config(args)
+    rows = run_sweep(
+        _engine_factory(rc),
+        checkpoint_path=os.path.join(rc.output_dir, "base_vs_instruct_100q_checkpoint.json"),
+        results_csv=os.path.join(rc.output_dir, "base_vs_instruct_100q_results.csv"),
+    )
+    print(f"{len(rows)} rows")
 
 
 def cmd_run_perturbation(args):
@@ -152,6 +184,10 @@ def main(argv=None):
         argv = sys.argv[1:]
     parser = argparse.ArgumentParser(prog="llm_interpretation_replication_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("run-100q", help="base-vs-instruct 100-question sweep")
+    _add_run_config_args(p)
+    p.set_defaults(fn=cmd_run_100q)
 
     p = sub.add_parser("run-perturbation", help="10k-perturbation local-model sweep")
     _add_run_config_args(p)

@@ -1,6 +1,7 @@
 """Run configuration shared by the port's modules (a copy of what the port
 needs from ``llm_interpretation_replication_tpu/config``): the length
-buckets, the legal scenarios of the perturbation study and ``RunConfig``."""
+buckets, the legal scenarios of the perturbation study, the questions and
+model pairs of the 100-question sweep, and ``RunConfig``."""
 
 from __future__ import annotations
 
@@ -20,12 +21,29 @@ _ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
                        "data_assets")
 
 
+def _load(name: str):
+    with open(os.path.join(_ASSETS, name)) as f:
+        return json.load(f)
+
+
 def legal_scenarios() -> List[dict]:
     """The 5 scenarios of the prompt-sensitivity study: original_main,
     response_format, target_tokens[2], confidence_format (a byte-identical
     copy of the JAX package's ``data_assets/legal_scenarios.json``)."""
-    with open(os.path.join(_ASSETS, "legal_scenarios.json")) as f:
-        return json.load(f)
+    return _load("legal_scenarios.json")
+
+
+def ordinary_meaning_questions() -> List[str]:
+    """The 100 ordinary-meaning questions, survey 1 then survey 2 (a
+    byte-identical copy of ``data_assets/ordinary_meaning_questions.json``)."""
+    q = _load("ordinary_meaning_questions.json")
+    return q["survey1"] + q["survey2"]
+
+
+def model_pairs_100q() -> List[dict]:
+    """The 6 base/instruct pairs of the 100-question sweep (a byte-identical
+    copy of ``data_assets/model_pairs_100q.json``)."""
+    return _load("model_pairs_100q.json")
 
 
 @dataclasses.dataclass

@@ -1,8 +1,8 @@
 """Decoder configuration (a copy of what the port needs from
 ``llm_interpretation_replication_tpu/models/config.py``): ``DecoderConfig``,
-the Falcon family translator, ``from_hf_config`` for Falcon's model types
-and the two Falcon geometries.  Other family presets come with the slices
-that port them."""
+the GPT-NeoX, Falcon, BLOOM and LLaMA/Mistral family translators,
+``from_hf_config`` for their model types and the two Falcon geometries.
+Other family presets come with the slices that port them."""
 
 from __future__ import annotations
 
@@ -72,23 +72,53 @@ class DecoderConfig:
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"unknown kv_cache_dtype {self.kv_cache_dtype!r}")
-        if self.attention_impl == "flash" and (
-            self.position_embedding == "alibi" or self.sliding_window is not None
-        ):
+        refusal = self.flash_refusal()
+        if self.attention_impl == "flash" and refusal:
             raise ValueError(
-                "flash attention kernel supports causal+padding only "
-                "(no ALiBi / sliding window)"
+                f"flash attention kernel supports causal+padding only "
+                f"({refusal})"
             )
+
+    def flash_refusal(self) -> Optional[str]:
+        """Why the causal kernel cannot carry this model's prompt forwards
+        (it takes neither an ALiBi bias nor a sliding window), else None."""
+        if self.position_embedding == "alibi":
+            return "ALiBi; the causal kernel takes no bias"
+        if self.sliding_window is not None:
+            return (f"sliding window {self.sliding_window}; the causal kernel "
+                    f"takes no window")
+        return None
 
     def use_flash_attention(self, seq_len: int) -> bool:
         """Resolve the attention impl for a prompt forward at ``seq_len``."""
         if self.attention_impl == "flash":
             return True
         if self.attention_impl == "auto":
-            return (seq_len > self.auto_flash_seq
-                    and self.position_embedding != "alibi"
-                    and self.sliding_window is None)
+            return seq_len > self.auto_flash_seq and not self.flash_refusal()
         return False
+
+
+def neox_config(hf) -> DecoderConfig:
+    """GPT-NeoX: Pythia/Dolly, StableLM-alpha, RedPajama-INCITE, h2ogpt."""
+    return DecoderConfig(
+        vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size,
+        num_layers=hf.num_hidden_layers,
+        num_heads=hf.num_attention_heads,
+        intermediate_size=hf.intermediate_size,
+        position_embedding="rotary",
+        rotary_pct=getattr(hf, "rotary_pct", 0.25),
+        rope_theta=getattr(hf, "rotary_emb_base", 10000.0),
+        max_position_embeddings=hf.max_position_embeddings,
+        parallel_residual=getattr(hf, "use_parallel_residual", True),
+        norm_eps=hf.layer_norm_eps,
+        qkv_bias=True,
+        out_bias=True,
+        mlp_bias=True,
+        fused_qkv=True,
+        activation=_act(getattr(hf, "hidden_act", "gelu")),
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", False),
+    )
 
 
 def falcon_config(hf) -> DecoderConfig:
@@ -121,18 +151,80 @@ def falcon_config(hf) -> DecoderConfig:
     )
 
 
+def bloom_config(hf) -> DecoderConfig:
+    return DecoderConfig(
+        vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size,
+        num_layers=hf.n_layer,
+        num_heads=hf.n_head,
+        intermediate_size=4 * hf.hidden_size,
+        position_embedding="alibi",
+        max_position_embeddings=getattr(hf, "seq_length", 2048),
+        embedding_layernorm=True,
+        norm_eps=hf.layer_norm_epsilon,
+        qkv_bias=True,
+        out_bias=True,
+        mlp_bias=True,
+        fused_qkv=True,
+        activation="gelu_new",
+        tie_word_embeddings=True,
+    )
+
+
+def llama_config(hf) -> DecoderConfig:
+    """LLaMA-2 / Mistral: RMSNorm + SwiGLU + RoPE."""
+    return DecoderConfig(
+        vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size,
+        num_layers=hf.num_hidden_layers,
+        num_heads=hf.num_attention_heads,
+        num_kv_heads=getattr(hf, "num_key_value_heads", hf.num_attention_heads),
+        head_dim=getattr(hf, "head_dim", None) or hf.hidden_size // hf.num_attention_heads,
+        intermediate_size=hf.intermediate_size,
+        position_embedding="rotary",
+        rope_theta=getattr(hf, "rope_theta", 10000.0),
+        max_position_embeddings=hf.max_position_embeddings,
+        norm_type="rmsnorm",
+        norm_eps=hf.rms_norm_eps,
+        qkv_bias=getattr(hf, "attention_bias", False),
+        out_bias=False,
+        mlp_bias=getattr(hf, "mlp_bias", False),
+        mlp_type="gated",
+        activation=_act(hf.hidden_act),
+        sliding_window=getattr(hf, "sliding_window", None),
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", False),
+    )
+
+
+def _act(name: str) -> str:
+    return {
+        "gelu": "gelu",
+        "gelu_new": "gelu_new",
+        "gelu_fast": "gelu_new",
+        "gelu_pytorch_tanh": "gelu_new",
+        "silu": "silu",
+        "swish": "silu",
+        "relu": "relu",
+    }[name]
+
+
 #: HF ``model_type`` -> (family, config translator), for the types ported
 FAMILY_BY_MODEL_TYPE = {
+    "gpt_neox": ("neox", neox_config),
     "falcon": ("falcon", falcon_config),
     "RefinedWeb": ("falcon", falcon_config),
     "RefinedWebModel": ("falcon", falcon_config),
+    "bloom": ("bloom", bloom_config),
+    "llama": ("llama", llama_config),
+    "mistral": ("llama", llama_config),
 }
 
 
 def from_hf_config(hf) -> Tuple[str, DecoderConfig]:
     """Map a HF config (any object with its attributes) to (family, our
-    config).  Only Falcon's model types are ported; another raises
-    ``NotImplementedError`` naming its ROADMAP.md item."""
+    config).  GPT-NeoX, Falcon, BLOOM and LLaMA/Mistral model types are
+    ported; another raises ``NotImplementedError`` naming its ROADMAP.md
+    item."""
     mt = getattr(hf, "model_type", None)
     if mt not in FAMILY_BY_MODEL_TYPE:
         item = _ITEM_T5 if mt == "t5" else _ITEM_FAMILIES

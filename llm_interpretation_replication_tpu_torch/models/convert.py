@@ -3,11 +3,13 @@
 ``params_from_jax`` carries the JAX package's stacked param tree (as numpy
 arrays) across unchanged in layout, quantized (w8a8) trees included;
 ``random_params`` builds full-width random weights directly on the device
-from an explicit generator, optionally quantized as they are made;
-``convert_falcon`` turns a HF Falcon checkpoint (any ``get(name) ->
-tensor``) into the same stacked tree (a copy of ``models/convert.py``'s
-``convert_falcon`` and ``_split_falcon_qkv`` on tensors), so both load paths
-meet in one ``DecoderWeights``.
+from an explicit generator, optionally quantized as they are made; the
+converters turn a HF checkpoint of the GPT-NeoX, Falcon, BLOOM or
+LLaMA/Mistral family (any ``get(name) -> tensor``) into the same stacked
+tree (copies of ``models/convert.py``'s ``convert_neox``,
+``convert_falcon``, ``convert_bloom`` and ``convert_llama`` with their
+fused-QKV splits, on tensors), so both load paths meet in one
+``DecoderWeights``.
 """
 
 from __future__ import annotations
@@ -129,11 +131,75 @@ def _maybe(get: Getter, name: str):
         return None
 
 
-def _ln(get: Getter, name: str, layers=None) -> Dict:
+def _ln(get: Getter, name: str, layers=None, bias: bool = True) -> Dict:
+    keys = ("scale", "bias") if bias else ("scale",)
     if layers is None:
-        return {"scale": get(f"{name}.weight"), "bias": get(f"{name}.bias")}
-    return {"scale": torch.stack([get(f"{name.format(i=i)}.weight") for i in layers]),
-            "bias": torch.stack([get(f"{name.format(i=i)}.bias") for i in layers])}
+        return {k: get(f"{name}.{w}") for k, w in zip(keys, ("weight", "bias"))}
+    return {k: torch.stack([get(f"{name.format(i=i)}.{w}") for i in layers])
+            for k, w in zip(keys, ("weight", "bias"))}
+
+
+def _stack_linear(get: Getter, name: str, layers) -> torch.Tensor:
+    return torch.stack([_linear(get, name.format(i=i)) for i in layers])
+
+
+def _stack_get(get: Getter, name: str, layers) -> torch.Tensor:
+    return torch.stack([get(name.format(i=i)) for i in layers])
+
+
+def _split_neox_qkv(w: torch.Tensor, b, n_heads: int, head_dim: int):
+    """GPT-NeoX / BLOOM fused QKV: rows are head-major, ``[q(D); k(D);
+    v(D)]`` per head.  ``w`` ``[3*N*D, H]`` -> (wq, wk, wv) each ``[H,
+    N*D]``, and ``b`` ``[3*N*D]`` -> (bq, bk, bv) each ``[N*D]``."""
+    h = w.shape[1]
+    w4 = w.reshape(n_heads, 3, head_dim, h)
+    ws = [w4[:, j].reshape(n_heads * head_dim, h).t().contiguous()
+          for j in range(3)]
+    b4 = b.reshape(n_heads, 3, head_dim)
+    return ws, [b4[:, j].reshape(n_heads * head_dim).contiguous()
+                for j in range(3)]
+
+
+def _fused_attn(get: Getter, prefix: str, layers, cfg: DecoderConfig) -> Dict:
+    """The attention of a NeoX- or BLOOM-style layer stack: its fused QKV
+    (``{prefix}.query_key_value``) split per head, and ``{prefix}.dense``."""
+    split = [_split_neox_qkv(get(f"{prefix.format(i=i)}.query_key_value.weight"),
+                             get(f"{prefix.format(i=i)}.query_key_value.bias"),
+                             cfg.num_heads, cfg.head_dim) for i in layers]
+    attn = {}
+    for j, name in enumerate(("q", "k", "v")):
+        attn["w" + name] = torch.stack([ws[j] for ws, _ in split])
+        attn["b" + name] = torch.stack([bs[j] for _, bs in split])
+    attn["wo"] = _stack_linear(get, prefix + ".dense", layers)
+    attn["bo"] = _stack_get(get, prefix + ".dense.bias", layers)
+    return attn
+
+
+def _biased_mlp(get: Getter, prefix: str, layers) -> Dict:
+    """``{prefix}.dense_h_to_4h`` and ``dense_4h_to_h`` with their biases."""
+    return {
+        "wi": _stack_linear(get, prefix + ".dense_h_to_4h", layers),
+        "bi": _stack_get(get, prefix + ".dense_h_to_4h.bias", layers),
+        "wo": _stack_linear(get, prefix + ".dense_4h_to_h", layers),
+        "bo": _stack_get(get, prefix + ".dense_4h_to_h.bias", layers),
+    }
+
+
+def convert_neox(get: Getter, cfg: DecoderConfig) -> Dict:
+    """A HF GPT-NeoX checkpoint -> the stacked param tree (untied
+    ``embed_out``)."""
+    L = range(cfg.num_layers)
+    return {
+        "embed": {"tokens": get("gpt_neox.embed_in.weight")},
+        "layers": {
+            "ln1": _ln(get, "gpt_neox.layers.{i}.input_layernorm", L),
+            "ln2": _ln(get, "gpt_neox.layers.{i}.post_attention_layernorm", L),
+            "attn": _fused_attn(get, "gpt_neox.layers.{i}.attention", L, cfg),
+            "mlp": _biased_mlp(get, "gpt_neox.layers.{i}.mlp", L),
+        },
+        "final_ln": _ln(get, "gpt_neox.final_layer_norm"),
+        "lm_head": get("embed_out.weight").t().contiguous(),
+    }
 
 
 def _split_falcon_qkv(w: torch.Tensor, n_heads: int, n_kv: int, head_dim: int):
@@ -169,11 +235,11 @@ def convert_falcon(get: Getter, cfg: DecoderConfig) -> Dict:
             "wq": torch.stack([q for q, _, _ in qkv]),
             "wk": torch.stack([k for _, k, _ in qkv]),
             "wv": torch.stack([v for _, _, v in qkv]),
-            "wo": torch.stack([_linear(get, f"transformer.h.{i}.self_attention.dense") for i in L]),
+            "wo": _stack_linear(get, "transformer.h.{i}.self_attention.dense", L),
         },
         "mlp": {
-            "wi": torch.stack([_linear(get, f"transformer.h.{i}.mlp.dense_h_to_4h") for i in L]),
-            "wo": torch.stack([_linear(get, f"transformer.h.{i}.mlp.dense_4h_to_h") for i in L]),
+            "wi": _stack_linear(get, "transformer.h.{i}.mlp.dense_h_to_4h", L),
+            "wo": _stack_linear(get, "transformer.h.{i}.mlp.dense_4h_to_h", L),
         },
     }
     del qkv
@@ -190,5 +256,55 @@ def convert_falcon(get: Getter, cfg: DecoderConfig) -> Dict:
     return params
 
 
+def convert_bloom(get: Getter, cfg: DecoderConfig) -> Dict:
+    """A HF BLOOM checkpoint -> the stacked param tree (embedding
+    LayerNorm, tied head)."""
+    L = range(cfg.num_layers)
+    return {
+        "embed": {
+            "tokens": get("transformer.word_embeddings.weight"),
+            "ln": _ln(get, "transformer.word_embeddings_layernorm"),
+        },
+        "layers": {
+            "ln1": _ln(get, "transformer.h.{i}.input_layernorm", L),
+            "ln2": _ln(get, "transformer.h.{i}.post_attention_layernorm", L),
+            "attn": _fused_attn(get, "transformer.h.{i}.self_attention", L, cfg),
+            "mlp": _biased_mlp(get, "transformer.h.{i}.mlp", L),
+        },
+        "final_ln": _ln(get, "transformer.ln_f"),
+    }
+
+
+def convert_llama(get: Getter, cfg: DecoderConfig) -> Dict:
+    """A HF LLaMA / Mistral checkpoint -> the stacked param tree (RMSNorm
+    scales, gated MLP, untied ``lm_head`` unless the config ties it)."""
+    L = range(cfg.num_layers)
+    pre = "model.layers.{i}"
+    attn = {f"w{n}": _stack_linear(get, f"{pre}.self_attn.{n}_proj", L)
+            for n in ("q", "k", "v", "o")}
+    if cfg.qkv_bias:
+        attn.update({f"b{n}": _stack_get(get, f"{pre}.self_attn.{n}_proj.bias", L)
+                     for n in ("q", "k", "v")})
+    params = {
+        "embed": {"tokens": get("model.embed_tokens.weight")},
+        "layers": {
+            "ln1": _ln(get, pre + ".input_layernorm", L, bias=False),
+            "ln2": _ln(get, pre + ".post_attention_layernorm", L, bias=False),
+            "attn": attn,
+            "mlp": {
+                "wg": _stack_linear(get, pre + ".mlp.gate_proj", L),
+                "wi": _stack_linear(get, pre + ".mlp.up_proj", L),
+                "wo": _stack_linear(get, pre + ".mlp.down_proj", L),
+            },
+        },
+        "final_ln": _ln(get, "model.norm", bias=False),
+    }
+    head = _maybe(get, "lm_head.weight")
+    if head is not None and not cfg.tie_word_embeddings:
+        params["lm_head"] = head.t().contiguous()
+    return params
+
+
 #: family -> checkpoint converter, for the families ported
-CONVERTERS = {"falcon": convert_falcon}
+CONVERTERS = {"neox": convert_neox, "falcon": convert_falcon,
+              "bloom": convert_bloom, "llama": convert_llama}

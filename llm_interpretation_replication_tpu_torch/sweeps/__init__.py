@@ -1,13 +1,22 @@
-"""The port's sweep shells (a copy of ``sweeps/``'s local-model
-perturbation sweep)."""
+"""The port's sweep shells (copies of ``sweeps/``'s local-model
+perturbation sweep and the 100-question base-vs-instruct sweep)."""
 
+from .base_vs_instruct_100q import run_model_on_prompts, run_sweep
 from .perturbation import (
     load_existing_keys,
     load_existing_rows,
     run_model_perturbation_sweep,
 )
-from .writers import PERTURBATION_COLUMNS, model_family_from_name, perturbation_row
+from .writers import (
+    BASE_VS_INSTRUCT_100Q_COLUMNS,
+    PERTURBATION_COLUMNS,
+    model_family_from_name,
+    perturbation_row,
+    write_csv,
+)
 
-__all__ = ["PERTURBATION_COLUMNS", "load_existing_keys", "load_existing_rows",
+__all__ = ["BASE_VS_INSTRUCT_100Q_COLUMNS", "PERTURBATION_COLUMNS",
+           "load_existing_keys", "load_existing_rows",
            "model_family_from_name", "perturbation_row",
-           "run_model_perturbation_sweep"]
+           "run_model_on_prompts", "run_model_perturbation_sweep",
+           "run_sweep", "write_csv"]

@@ -1,14 +1,19 @@
-"""Schema-exact perturbation rows (a copy of ``sweeps/writers.py``'s
-``PERTURBATION_COLUMNS``, ``perturbation_row`` and
-``model_family_from_name``).
+"""Schema-exact result rows (a copy of ``sweeps/writers.py``'s
+``PERTURBATION_COLUMNS``, ``perturbation_row``, ``model_family_from_name``
+and ``BASE_VS_INSTRUCT_100Q_COLUMNS``) and a CSV writer that writes the
+bytes ``pandas.DataFrame(rows)[columns].to_csv(path, index=False)`` writes.
 
-Downstream statistics key on these exact column names, so the workbook is a
-drop-in replacement for the study's own.
+Downstream statistics key on these exact column names, so the workbook and
+the CSV are drop-in replacements for the study's own.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import csv
+import math
+import numbers
+import os
+from typing import Dict, List, Optional, Sequence
 
 #: perturbation result workbook columns, in order
 PERTURBATION_COLUMNS = [
@@ -27,6 +32,13 @@ PERTURBATION_COLUMNS = [
     "Odds_Ratio",
     "Confidence Value",
     "Weighted Confidence",
+]
+
+
+#: base_vs_instruct_100q_results.csv columns, in order
+BASE_VS_INSTRUCT_100Q_COLUMNS = [
+    "yes_prob", "no_prob", "relative_prob", "completion", "success",
+    "prompt", "model", "formatted_prompt", "model_family", "base_or_instruct",
 ]
 
 
@@ -66,3 +78,38 @@ def perturbation_row(
         "Confidence Value": confidence_value,
         "Weighted Confidence": weighted_confidence,
     }
+
+
+def _is_null(v) -> bool:
+    return v is None or (isinstance(v, float) and math.isnan(v))
+
+
+def _is_number(v) -> bool:
+    return isinstance(v, numbers.Real) and not isinstance(v, bool)
+
+
+def _csv_column(values: Sequence) -> List[str]:
+    """One column's fields as pandas writes them: a column of numbers with a
+    float or an empty cell is float64, every value in ``repr`` (an int
+    reads ``1.0``); a column of ints only keeps them; any other column is
+    object, each value in ``str``.  An empty cell (None, NaN) is empty."""
+    present = [v for v in values if not _is_null(v)]
+    as_float = (all(_is_number(v) for v in present) and len(present) > 0
+                and (len(present) < len(values)
+                     or any(not isinstance(v, numbers.Integral) for v in present)))
+    return ["" if _is_null(v) else repr(float(v)) if as_float else str(v)
+            for v in values]
+
+
+def write_csv(columns: Sequence[str], rows: Sequence[Dict], path: str) -> None:
+    """Write ``rows`` (dicts holding every column) to ``path`` as
+    ``pandas.DataFrame(rows)[columns].to_csv(path, index=False)`` does:
+    comma-separated, ``\\n`` line ends, fields quoted only where they hold a
+    comma, a quote or a line break (quotes doubled), floats in their
+    shortest round-trip form, ``True``/``False``, empty cells empty."""
+    cols = [_csv_column([r[c] for r in rows]) for c in columns]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(columns)
+        w.writerows(zip(*cols))

@@ -156,12 +156,15 @@ class ByteLevelBPETokenizer:
     """A byte-level BPE tokenizer read from a ``tokenizer.json``: the
     ``BPE`` model with its vocabulary and merge ranks, the ``ByteLevel``
     pre-tokenizer, post-processor and decoder, and the added and special
-    tokens.  Encoding splits the text on the added tokens (longest first),
-    pre-tokenizes each other segment with the ByteLevel split pattern, maps
-    its UTF-8 bytes to the byte alphabet and merges each piece by rank (the
-    lowest-ranked pair first, leftmost among equals, as the ``tokenizers``
-    package does); decoding maps the tokens back to bytes and decodes them
-    as UTF-8 with replacement characters.  Any other model, normalizer,
+    tokens, and an optional ``NFC`` normalizer (GPT-NeoX-20B's
+    ``tokenizer.json`` has one).  Encoding follows the ``tokenizers``
+    package: it splits the raw text on the added tokens that are not
+    normalized (longest first), normalizes the rest, splits that on the
+    normalized added tokens, then pre-tokenizes each other segment with the
+    ByteLevel split pattern, maps its UTF-8 bytes to the byte alphabet and
+    merges each piece by rank (the lowest-ranked pair first, leftmost among
+    equals); decoding maps the tokens back to bytes and decodes them as
+    UTF-8 with replacement characters.  Any other model, normalizer,
     pre-tokenizer, post-processor or decoder raises
     ``NotImplementedError``."""
 
@@ -176,8 +179,10 @@ class ByteLevelBPETokenizer:
                 raise _not_ported(f"BPE {key}={model[key]!r}")
         if model.get("byte_fallback"):
             raise _not_ported("BPE byte_fallback")
-        if spec.get("normalizer") is not None:
-            raise _not_ported(f"normalizer {spec['normalizer'].get('type')!r}")
+        norm = spec.get("normalizer")
+        if norm is not None and norm.get("type") != "NFC":
+            raise _not_ported(f"normalizer {norm.get('type')!r}")
+        self.nfc = norm is not None
         if spec.get("truncation") is not None:
             raise _not_ported("truncation")
         pre = spec.get("pre_tokenizer") or {}
@@ -202,6 +207,7 @@ class ByteLevelBPETokenizer:
         self.unk_id = self.vocab.get(unk) if unk is not None else None
         self.added: Dict[str, int] = {}
         self.special_ids = set()
+        normalized = set()      # added tokens matched after normalization
         for tok in spec.get("added_tokens") or []:
             if tok.get("single_word") or tok.get("lstrip") or tok.get("rstrip"):
                 raise _not_ported("added tokens with single_word, lstrip or "
@@ -209,6 +215,8 @@ class ByteLevelBPETokenizer:
             self.added[tok["content"]] = int(tok["id"])
             if tok.get("special"):
                 self.special_ids.add(int(tok["id"]))
+            if tok.get("normalized", not tok.get("special", False)):
+                normalized.add(tok["content"])
         # special tokens named by the tokenizer config join the added tokens,
         # as transformers adds them when it loads the tokenizer
         self.special_tokens = dict(special_tokens or {})
@@ -224,9 +232,11 @@ class ByteLevelBPETokenizer:
             self.special_ids.add(self.added[content])
         self.id_to_token = {i: t for t, i in self.vocab.items()}
         self.id_to_token.update({i: t for t, i in self.added.items()})
-        self._added_split = (re.compile("|".join(
-            re.escape(t) for t in sorted(self.added, key=len, reverse=True)))
-            if self.added else None)
+        self._raw_split = _alternation(t for t in self.added
+                                       if t not in normalized)
+        self._norm_split = _alternation(self._normalize(t) for t in normalized)
+        self._norm_added = {self._normalize(t): self.added[t]
+                            for t in normalized}
         self._byte_map = _bytes_to_unicode()
         self._char_bytes = {c: b for b, c in self._byte_map.items()}
         self._cache: Dict[str, List[int]] = {}
@@ -269,15 +279,17 @@ class ByteLevelBPETokenizer:
         """Token ids of ``text``; the ByteLevel post-processor adds no
         special tokens, so ``add_special_tokens`` changes nothing."""
         ids: List[int] = []
-        pos = 0
-        matches = (self._added_split.finditer(text)
-                   if self._added_split is not None else ())
-        for m in matches:
-            ids += self._encode_segment(text[pos:m.start()])
-            ids.append(self.added[m.group(0)])
-            pos = m.end()
-        ids += self._encode_segment(text[pos:])
+        for raw, tid in _split_on(self._raw_split, text, self.added):
+            if tid is not None:
+                ids.append(tid)
+                continue
+            for piece, nid in _split_on(self._norm_split,
+                                        self._normalize(raw), self._norm_added):
+                ids += [nid] if nid is not None else self._encode_segment(piece)
         return ids
+
+    def _normalize(self, text: str) -> str:
+        return unicodedata.normalize("NFC", text) if self.nfc else text
 
     def __call__(self, text: Union[str, Sequence[str]],
                  add_special_tokens: bool = True) -> Encoding:
@@ -380,6 +392,27 @@ class ByteLevelBPETokenizer:
                 if m is not None:
                     heapq.heappush(heap, (m[0], i, m[1]))
         return [t for t, a in zip(syms, alive) if a]
+
+
+def _alternation(tokens) -> Optional["re.Pattern"]:
+    """A pattern matching any of ``tokens``, the longest first; None for
+    none."""
+    tokens = sorted(set(tokens), key=len, reverse=True)
+    return re.compile("|".join(map(re.escape, tokens))) if tokens else None
+
+
+def _split_on(pattern, text: str, ids: Dict[str, int]):
+    """``text`` as ``(segment, None)`` and ``(token, id)`` pieces, split
+    where ``pattern`` matches one of the tokens ``ids`` names; empty
+    segments are left out."""
+    pos = 0
+    for m in (pattern.finditer(text) if pattern is not None else ()):
+        if m.start() > pos:
+            yield text[pos:m.start()], None
+        yield m.group(0), ids[m.group(0)]
+        pos = m.end()
+    if pos < len(text):
+        yield text[pos:], None
 
 
 def _special_token(value) -> Optional[str]:

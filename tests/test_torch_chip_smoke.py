@@ -524,3 +524,235 @@ def test_bf16_rounding_and_workbook_leads_on_the_cpu(one_torch_thread):
     assert bin_leads.shape == (10, 4) and conf_leads.shape == (10, 2)
     assert np.isfinite(bin_leads).all() and (bin_leads >= 0).all()
     assert edge0.shape == (10,) and np.isfinite(edge0).all()
+
+
+# -- the families and run-100q phases ----------------------------------------------
+
+_HF_CLASSES = {"neox": ("GPTNeoXConfig", "GPTNeoXForCausalLM"),
+               "bloom": ("BloomConfig", "BloomForCausalLM"),
+               "llama": ("MistralConfig", "MistralForCausalLM")}
+
+
+@pytest.mark.parametrize("config", [chip_smoke.PYTHIA_6_9B,
+                                    chip_smoke.REDPAJAMA_7B,
+                                    chip_smoke.BLOOM_7B1,
+                                    chip_smoke.MISTRAL_7B_V02],
+                         ids=["pythia", "redpajama", "bloom", "mistral"])
+def test_hf_state_dict_is_the_hf_models_and_converts(config, one_torch_thread):
+    """The random checkpoint carries the names and shapes of the HF model
+    of the same (narrowed) config, and the port's converter reads it."""
+    import torch
+    import transformers
+
+    from llm_interpretation_replication_tpu_torch.models import convert
+
+    small = {**config, "vocab_size": 96, "hidden_size": 32,
+             "intermediate_size": 64}
+    small.update({"n_head": 4} if "n_head" in small else
+                 {"num_attention_heads": 4,
+                  "num_key_value_heads": 2 if "num_key_value_heads" in small
+                  else None})
+    small = {k: v for k, v in small.items() if v is not None}
+    family, cfg = chip_smoke._family_config(small, layers=2)
+    assert cfg.num_layers == 2
+    sd = chip_smoke._hf_state_dict(family, cfg, 0, "cpu", torch.float32)
+    cfg_cls, model_cls = _HF_CLASSES[family]
+    hf_kw = {k: v for k, v in chip_smoke._at_depth(small, 2).items()
+             if k != "model_type"}
+    model = getattr(transformers, model_cls)(
+        getattr(transformers, cfg_cls)(**hf_kw))
+    ref = {k: v.shape for k, v in model.state_dict().items()
+           if v.is_floating_point() and k != "lm_head.weight"
+           or (k == "lm_head.weight" and not cfg.tie_word_embeddings)}
+    assert {k: v.shape for k, v in sd.items()} == ref
+    tree = convert.CONVERTERS[family](sd.__getitem__, cfg)
+    assert tree["layers"]["attn"]["wq"].shape == (
+        2, cfg.hidden_size, cfg.num_heads * cfg.head_dim)
+    assert tree["layers"]["attn"]["wk"].shape == (
+        2, cfg.hidden_size, cfg.num_kv_heads * cfg.head_dim)
+
+
+def test_published_configs_translate():
+    got = {label: chip_smoke._family_config(config)
+           for label, _, config, _ in chip_smoke.FAMILY_MODELS}
+    fam, cfg = got["pythia-6.9b"]
+    assert (fam, cfg.num_layers, cfg.hidden_size, cfg.num_heads,
+            cfg.head_dim, cfg.rotary_pct, cfg.vocab_size) == (
+        "neox", 32, 4096, 32, 128, 0.25, 50432)
+    assert cfg.parallel_residual and not cfg.tie_word_embeddings
+    fam, cfg = got["mistral-7b-instruct-v0.2"]
+    assert (fam, cfg.num_kv_heads, cfg.intermediate_size, cfg.rope_theta,
+            cfg.sliding_window, cfg.norm_type, cfg.mlp_type) == (
+        "llama", 8, 14336, 1e6, None, "rmsnorm", "gated")
+    fam, cfg = got["bloom-7b1"]
+    assert (fam, cfg.num_layers, cfg.num_heads, cfg.vocab_size,
+            cfg.position_embedding, cfg.embedding_layernorm,
+            cfg.tie_word_embeddings) == ("bloom", 30, 32, 250880, "alibi",
+                                          True, True)
+    assert chip_smoke._family_config(chip_smoke.MISTRAL_7B_V01)[1] \
+        .sliding_window == 4096
+    _, stable = chip_smoke._family_config(chip_smoke.STABLELM_ALPHA_7B)
+    assert (stable.num_heads, stable.head_dim) == (48, 128)
+
+
+def test_cli_roster_covers_every_model_of_the_sweep():
+    from llm_interpretation_replication_tpu_torch.config import model_pairs_100q
+
+    names = {m for p in model_pairs_100q() for m in (p["base"], p["instruct"])}
+    listed = {m for m, _, shared, _ in chip_smoke.CLI_SNAPSHOTS} | {
+        m for _, _, shared, _ in chip_smoke.CLI_SNAPSHOTS for m in shared} | {
+        "mistralai/Mistral-7B-v0.1"}
+    assert listed == names and chip_smoke.CLI_DENSE <= names
+    assert [f for *_, f in chip_smoke.CLI_SNAPSHOTS].count("bin") == 1
+
+
+def test_bin_shards_round_trip_through_the_port_reader(tmp_path):
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.runtime.loader import (
+        CheckpointDir)
+
+    sd = {f"w{i}": torch.randn(3, i + 1).bfloat16() for i in range(5)}
+    chip_smoke._write_bin_shards(str(tmp_path), sd, shards=2)
+    assert sorted(os.listdir(tmp_path)) == [
+        "pytorch_model-00001-of-00002.bin", "pytorch_model-00002-of-00002.bin",
+        "pytorch_model.bin.index.json"]
+    ck = CheckpointDir(str(tmp_path))
+    for k, v in sd.items():
+        assert torch.equal(ck.get(k), v) and ck.get(k).dtype == v.dtype
+
+
+def test_parting_and_the_family_row_gates():
+    import numpy as np
+
+    assert chip_smoke._parting(" t1 t2", " t1 t2") is None
+    assert chip_smoke._parting(" t1 t2", " t1 t3") == 1
+    assert chip_smoke._parting(" t1", " t1 t3") == 1
+
+    def row(comp, found=True, yes=0.2, no=0.1, pos0=(0.2, 0.1)):
+        return dict(success=True, completion=comp, scan_found=found,
+                    yes_prob=yes, no_prob=no,
+                    relative_prob=yes / (yes + no),
+                    first_token_yes_prob=pos0[0], first_token_no_prob=pos0[1])
+
+    steps = chip_smoke.SCAN_STEPS
+    ref = [row(" t1 t2"), row(" t1 t2"), row(" t1 t2"), row(" t1 t2")]
+    rows = [row(" t1 t2"), row(" t1 t9"), row(" t1 t2", yes=0.05),
+            row(" t1 t2", pos0=(0.3, 0.1))]
+    leads = np.full((4, 3), 1.0, np.float32)
+    leads[1, 1] = 0.01                      # row 1 parts at a near-tie
+    edge = np.full((4, steps), 1.0, np.float32)
+    split = np.full((4, steps), 1.0, np.float32)
+    p32 = np.array([[0.2, 0.1]] * 4)
+    clear = np.array([True, True, True, True])
+    stats, fails = chip_smoke._compare_family_rows(
+        "x", rows, ref, leads, edge, split, 0.1, p32, clear, 0.05)
+    assert stats["parted_rows"] == 1 and stats["verdict_flips"] == 1
+    assert len(fails) == 2 and "row 2 verdict" in fails[0] \
+        and "row 3 first_token_yes_prob" in fails[1]
+    edge[2, 1] = 0.05                       # row 2's target sits at the edge
+    clear[3] = False                        # row 3 lies near the filter edge
+    _, fails = chip_smoke._compare_family_rows(
+        "x", rows, ref, leads, edge, split, 0.1, p32, clear, 0.05)
+    assert fails == []
+    leads[1, 1] = 0.5
+    _, fails = chip_smoke._compare_family_rows(
+        "x", rows, ref, leads, edge, split, 0.1, p32, clear, 0.05)
+    assert len(fails) == 1 and "row 1 parts at step 1" in fails[0]
+
+
+def test_question_tokenizer_and_prompts():
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+
+    tok = chip_smoke._question_tokenizer()
+    prompts, prefix_lens = chip_smoke._question_prompts(tok)
+    assert len(prompts) == 200 and len(set(prefix_lens[:100])) == 1
+    assert tok.unk_token_id not in {t for p in prompts for t in p}
+    yes, no = yes_no.target_token_ids(tok, ["Yes", "No"])
+    assert tok.vocab[yes] == " Yes" and tok.vocab[no] == " No"
+    assert tok.decode([yes, 70000]) == f" t{yes} t70000"
+
+
+def test_families_phase_runs_every_route_through_the_sweep_call():
+    src = inspect.getsource(chip_smoke.families_phase)
+    assert "run_model_on_prompts" in src and "EngineConfig(batch_size=BATCH)" in src
+    routes = {label: r for label, _, _, r in chip_smoke.FAMILY_MODELS}
+    assert routes == {"pythia-6.9b": ("flash", "xla"),
+                      "mistral-7b-instruct-v0.2": ("flash", "xla", "int8kv",
+                                                   "w8a8-int8kv"),
+                      "bloom-7b1": ("xla",)}
+
+
+def _tiny_w8a8(seed=0):
+    """A 2-layer Mistral-shaped decoder in bf16 (GQA 4/2, SwiGLU) from a
+    HF-named random checkpoint, its w8a8 tree with an int8 KV cache, and
+    prompts split into a prefix and a suffix."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import convert
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.ops import quant
+
+    small = {**chip_smoke.MISTRAL_7B_V02, "vocab_size": 96, "hidden_size": 64,
+             "intermediate_size": 128, "num_attention_heads": 4,
+             "num_key_value_heads": 2}
+    family, cfg = chip_smoke._family_config(small, layers=2)
+    sd = chip_smoke._hf_state_dict(family, cfg, seed, "cpu", torch.bfloat16)
+    sd = {k: v.mul(10.0) if k.endswith("proj.weight") else v
+          for k, v in sd.items()}
+    weights = decoder.DecoderWeights(
+        cfg, convert.CONVERTERS[family](sd.__getitem__, cfg))
+    kv8 = dc.replace(cfg, kv_cache_dtype="int8")
+    qweights = decoder.DecoderWeights(
+        kv8, quant.quantize_decoder_params(weights.tree()))
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, 96, int(n)).tolist()
+               for n in rng.integers(10, 20, 12)]
+    return weights, qweights, kv8, prompts, [6] * len(prompts), \
+        [[3, 5]] * len(prompts)
+
+
+def test_fake_quant_witness_holds_the_w8a8_route(one_torch_thread,
+                                                 monkeypatch):
+    """The w8a8 route passes its float32 fake-quant witness; a route whose
+    activation steps are 2% or 10% off fails it, and a tree with a wrong
+    weight scale fails its half-step check."""
+    from llm_interpretation_replication_tpu_torch.ops import quant
+
+    weights, qweights, kv8, prompts, pre, tgt = _tiny_w8a8()
+    fails = []
+    out = chip_smoke._fake_quant_witness("w8a8", weights, qweights, kv8,
+                                         prompts, pre, tgt, fails)
+    assert fails == [], fails
+    assert out["max_code_offset_steps"] <= 0.5 + 1e-4
+    assert out["int8_route_max_abs_d_log_prob"] <= out["log_prob_tol"]
+    assert out["int8_route_vs_fake_quant_bf16_max_abs_d_log_prob"] <= \
+        out["log_prob_tol"]
+    assert out["projection_max_rel_d"] <= chip_smoke.PROJECTION_TOL
+
+    real = quant.quantize_activations
+    for off, caught in ((1.02, ["int8 projection"]),
+                        (1.1, ["int8 projection", "fake-quant witness"])):
+        monkeypatch.setattr(quant, "quantize_activations",
+                            lambda x, off=off: (lambda q, s: (q, s * off))(
+                                *real(x)))
+        fails = []
+        chip_smoke._fake_quant_witness("w8a8", weights, qweights, kv8,
+                                       prompts, pre, tgt, fails)
+        assert [c for c in caught if not any(c in f for f in fails)] == []
+    monkeypatch.setattr(quant, "quantize_activations", real)
+
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    tree = qweights.tree()
+    tree["layers"]["mlp"]["wg_qscale"] = tree["layers"]["mlp"]["wg_qscale"] \
+        * torch.linspace(0.9, 1.1, tree["layers"]["mlp"]["wg_qscale"].shape[-1])
+    fails = []
+    chip_smoke._quantized_tree_half_step(
+        "w8a8", weights, decoder.DecoderWeights(kv8, tree), fails)
+    assert fails and all("wg" in f or "steps" in f for f in fails)

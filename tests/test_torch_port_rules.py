@@ -71,6 +71,7 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/ops/_build.py",
     "llm_interpretation_replication_tpu_torch/ops/attention.py",
     "llm_interpretation_replication_tpu_torch/ops/quant.py",
+    "llm_interpretation_replication_tpu_torch/models/config.py",
     "llm_interpretation_replication_tpu_torch/models/convert.py",
     "llm_interpretation_replication_tpu_torch/models/decoder.py",
     "llm_interpretation_replication_tpu_torch/runtime/engine.py",
@@ -83,6 +84,8 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/config/__init__.py",
     "llm_interpretation_replication_tpu_torch/gen/rephrase.py",
     "llm_interpretation_replication_tpu_torch/runtime/loader.py",
+    "llm_interpretation_replication_tpu_torch/scoring/prompts.py",
+    "llm_interpretation_replication_tpu_torch/sweeps/base_vs_instruct_100q.py",
     "llm_interpretation_replication_tpu_torch/sweeps/perturbation.py",
     "llm_interpretation_replication_tpu_torch/sweeps/writers.py",
     "llm_interpretation_replication_tpu_torch/utils/checkpoint.py",
@@ -93,8 +96,9 @@ def test_port_imports_nothing_of_jax():
 ])
 def test_slice_modules_are_guarded(rel):
     """The modules the kernels, the int8 path, the pool, the slot ring,
-    the OOM ladder, the sweep shell, the loader and the CLI live in are
-    among the guarded sources and import nothing forbidden."""
+    the OOM ladder, the sweep shells, the family translators and
+    converters, the loader and the CLI live in are among the guarded
+    sources and import nothing forbidden."""
     path = os.path.join(ROOT, rel)
     assert path in _port_sources()
     assert not _forbidden_imports(path)

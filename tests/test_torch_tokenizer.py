@@ -162,7 +162,7 @@ def _spec(test_snapshot):
     ("model", "dropout", 0.1),
     ("model", "continuing_subword_prefix", "##"),
     ("model", "byte_fallback", True),
-    (None, "normalizer", {"type": "NFC"}),
+    (None, "normalizer", {"type": "NFKC"}),
     (None, "pre_tokenizer", {"type": "Sequence", "pretokenizers": []}),
     (None, "pre_tokenizer", {"type": "Metaspace"}),
     (None, "post_processor", {"type": "TemplateProcessing"}),
@@ -185,3 +185,76 @@ def test_engine_interface(test_snapshot):
     assert tok(["a", "b"]).input_ids == [tok.encode("a"), tok.encode("b")]
     assert tok.decode([10_000, 0, 5], skip_special_tokens=True) == \
         tok.decode([5])
+
+
+# -- the NFC normalizer ----------------------------------------------------------
+
+NFC_TEXTS = [
+    "caf\u00e9 na\u00efve \u00c5ngstr\u00f6m",         # composed
+    "cafe\u0301 nai\u0308ve A\u030angstro\u0308m",    # decomposed
+    "a\u0300\u0301 e\u0301\u0301 o\u0323\u0302",  # stacked marks
+    "\u1100\u1161\u11a8 \uac00",                  # Hangul jamo
+    "\u0301 leading mark",
+    "x\u0307\u0323y A\u030a \u2126",  # mark order, Angstrom, Ohm
+    "Is a \"caf\u00e9\" a \"re\u0301sume\u0301\"? Answer either 'Yes' or 'No'.",
+    "<|endoftext|>\u0301 after a special",
+    "two  spaces\u0301  cafe\u0301",
+    "cafe\u0301<|endoftext|>cafe\u0301",
+    "",
+]
+
+
+@functools.lru_cache(maxsize=None)
+def nfc_tokenizer_json(tmp_dir):
+    """A byte-level BPE with the NFC normalizer, trained by the
+    ``tokenizers`` package on NFD and NFC text, with a special added token
+    (matched before normalization) and two normalized ones (after it,
+    one written decomposed), saved as ``tokenizer.json`` in ``tmp_dir``."""
+    import unicodedata
+
+    from tokenizers import (AddedToken, Tokenizer, decoders, models,
+                            normalizers, pre_tokenizers, processors, trainers)
+
+    tok = Tokenizer(models.BPE())
+    tok.normalizer = normalizers.NFC()
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.post_processor = processors.ByteLevel(trim_offsets=True)
+    corpus = []
+    for text in texts() + NFC_TEXTS:
+        corpus += [text, unicodedata.normalize("NFD", text),
+                   unicodedata.normalize("NFC", text)]
+    tok.train_from_iterator(corpus, trainers.BpeTrainer(
+        vocab_size=700, special_tokens=["<|endoftext|>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    tok.add_tokens([AddedToken("  ", normalized=True),
+                    AddedToken("re\u0301sume\u0301", normalized=True)])
+    path = os.path.join(tmp_dir, "tokenizer.json")
+    tok.save(path)
+    return path
+
+
+def test_nfc_normalizer_matches_the_tokenizers_package(tmp_path_factory):
+    """GPT-NeoX-20B's normalizer: ids and decodes identical to the
+    ``tokenizers`` package's on NFD input, stacked combining marks, Hangul
+    jamo, a leading mark, and marks beside added tokens."""
+    import unicodedata
+
+    from tokenizers import Tokenizer
+
+    path = nfc_tokenizer_json(str(tmp_path_factory.mktemp("nfc")))
+    with open(path, encoding="utf-8") as f:
+        spec = json.load(f)
+    assert spec["normalizer"] == {"type": "NFC"}
+    ref = Tokenizer.from_file(path)
+    got = ttok.ByteLevelBPETokenizer(spec)
+    for text in NFC_TEXTS + texts():
+        for form in (text, unicodedata.normalize("NFD", text)):
+            ids = got.encode(form)
+            assert ids == ref.encode(form).ids, repr(form)
+            assert got.decode(ids) == ref.decode(ids, skip_special_tokens=False)
+    nfd = "re\u0301sume\u0301 cafe\u0301"
+    assert got.encode(nfd)[0] == got.added["re\u0301sume\u0301"] == \
+        ref.token_to_id("re\u0301sume\u0301")
+    plain = dict(spec, normalizer=None)
+    assert ttok.ByteLevelBPETokenizer(plain).encode(nfd) != got.encode(nfd)
