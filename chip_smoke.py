@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each fatal on failure (the exit code is then non-zero and no result
-line is printed; the order of the run is 1-8, 10, 9, 11, 12, 13):
+line is printed; the order of the run is 1-8, 10, 9, 11-15):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
@@ -109,7 +109,8 @@ line is printed; the order of the run is 1-8, 10, 9, 11, 12, 13):
    measured logit deviation, doubled, of the top-20 edge);
 12. families: Pythia-6.9B (GPT-NeoX), Mistral-7B-Instruct-v0.2 (the
    LLaMA family, 32 query heads on 8 K/V heads) and BLOOM-7b1 (ALiBi) at
-   their published width and depth: random bf16 weights from ``--seed``
+   their published width and FAMILY_LAYERS (8) of their 30-32 layers:
+   random bf16 weights from ``--seed``
    made as a HF checkpoint and read through the port's converter, the two
    targets' rows swapped with ids the weights rank high; each scores the
    100 questions as base (the few-shot prefix through ``score_prefixed``)
@@ -143,7 +144,32 @@ line is printed; the order of the run is 1-8, 10, 9, 11, 12, 13):
    (dense for BLOOM and Mistral-7B-v0.1); a run stopped by SIGTERM after
    its first model must leave exactly that model's rows in its
    checkpoint, resuming it must write the same CSV, and a rerun over the
-   finished output must score nothing.
+   finished output must score nothing;
+14. instruct: the instruct roster's new models at their published width
+   and depth (random bf16 HF-named checkpoints from ``--seed`` through the
+   port's converters; T5's at its own initialization scales), under the
+   families phase's word tokenizer with the targets swapped to ids the
+   weights rank high.  T0_3B (T5 XL) scores the 100 instruct prompts
+   through the instruct sweep's per-model call, and the word-meaning pair
+   (t5-v1_1-base, flan-t5-base) runs through
+   ``sweeps.run_base_vs_instruct_word_meaning`` (the base model's few-shot
+   prompt on T5): each T5 model's rows against the same prompts at batch
+   8 (partings only below the tie measured between the decode and one
+   forward over its tokens) and position-0 fields within twice one bf16
+   forward's deviation from float32, and ms a decode step.  Qwen-7B-Chat,
+   Baichuan2-7B-Chat (NormHead) and OPT-IML-1.3B run phase 12's routes and
+   gates (kernel and dense) on the instruct prompts, the causal kernel
+   timed at each one's longest prompt batch;
+15. run-instruct-sweep: 2-layer snapshots of the roster's six geometries
+   phase 13 did not write (a Unigram ``tokenizer.json`` for the T5s,
+   ``qwen.tiktoken`` for Qwen, OPT's ``vocab.json`` + ``merges.txt``,
+   byte-level BPE for the rest) beside phase 13's Falcon, BLOOM and
+   RedPajama snapshots; ``python -m llm_interpretation_replication_tpu_torch
+   run-instruct-sweep --attention-impl flash --quant int8`` in a child
+   process must write 1000 rows in the 7 columns, none a ``MODEL_ERROR``,
+   name each model's attention (dense for BLOOMZ and the T5s, which warn
+   and load bf16), keep exactly the first model's rows after a SIGTERM,
+   resume to the same CSV and score nothing on a rerun.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -1353,7 +1379,7 @@ def _completion_of(tok, toks, completion_chars=100):
 
 def _device_of(weights):
     """The device the weights lie on."""
-    return weights.tree()["embed"]["tokens"].device
+    return next(iter(weights.buffers())).device
 
 
 def _padded(seqs, device):
@@ -2609,6 +2635,108 @@ def _bpe_tokenizer_files(texts, nfc=False):
     return spec, config, {"eos_token": eos}
 
 
+def _unigram_tokenizer_files(texts):
+    """(tokenizer.json, tokenizer_config.json, special_tokens_map.json) of
+    a T5-style Unigram tokenizer: ``<pad>``, ``</s>`` and ``<unk>`` at ids
+    0-2 (special added tokens), ``"▁"`` plus every whitespace word of
+    ``texts`` after a ``"▁"`` scored by its log frequency, every
+    character of them scored 5 lower, the Metaspace pre-tokenizer and
+    decoder, a normalizer folding runs of spaces, and a post-processor
+    appending ``</s>`` (the EOS)."""
+    import math
+    from collections import Counter
+
+    words, chars = Counter(), Counter()
+    for text in texts:
+        for w in text.split():
+            words["▁" + w] += 1
+            chars.update(w)
+    total = sum(words.values()) + sum(chars.values()) + 1
+    vocab = [["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0],
+             ["▁", math.log(1 / total)]]
+    vocab += [[w, math.log(c / total)] for w, c in sorted(words.items())]
+    vocab += [[ch, math.log(c / total) - 5.0] for ch, c in sorted(chars.items())
+              if ch != "▁"]
+    meta = {"type": "Metaspace", "replacement": "▁",
+            "prepend_scheme": "always", "split": True}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": t, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for i, t in enumerate(("<pad>", "</s>", "<unk>"))],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Replace", "pattern": {"Regex": " {2,}"},
+             "content": " "}]},
+        "pre_tokenizer": meta,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "special_tokens": {"</s>": {"id": "</s>", "ids": [1],
+                                        "tokens": ["</s>"]}}},
+        "decoder": meta,
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab,
+                  "byte_fallback": False},
+    }
+    special = {"eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>"}
+    config = dict(special, tokenizer_class="T5Tokenizer",
+                  clean_up_tokenization_spaces=False, model_max_length=512)
+    return spec, config, special
+
+
+def _qwen_tiktoken(texts):
+    """The lines of a Qwen-1 ``qwen.tiktoken`` (base64 token, rank): the
+    256 bytes at ranks 0-255, then BPE merges learned on Qwen's split
+    pieces of ``texts`` (``_bpe_merges``), in merge order."""
+    import base64
+    from collections import Counter
+
+    from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
+        _bytes_to_unicode, _qwen_split)
+
+    byte_map = _bytes_to_unicode()
+    char_byte = {c: b for b, c in byte_map.items()}
+    pieces = Counter()
+    for text in texts:
+        for m in _qwen_split().finditer(text):
+            pieces["".join(byte_map[b] for b in m.group(0).encode())] += 1
+    ranks = {bytes([b]): b for b in range(256)}
+    for a, b in _bpe_merges(pieces):
+        ranks.setdefault(bytes(char_byte[c] for c in a + b), len(ranks))
+    return b"".join(base64.b64encode(t) + b" %d\n" % r
+                    for t, r in ranks.items())
+
+
+def _write_gpt2_tokenizer(snap, texts):
+    """A GPT-2-style ``vocab.json`` + ``merges.txt`` (OPT's format: no
+    ``tokenizer.json``) of ``_bpe_tokenizer_files``' BPE, with OPT's
+    tokenizer config (``</s>`` the BOS and EOS, added in front of every
+    encoding, ``<pad>`` the pad)."""
+    spec, _, _ = _bpe_tokenizer_files(texts)
+    vocab = dict(spec["model"]["vocab"])
+    for tok in ("<pad>", "</s>"):
+        vocab.setdefault(tok, len(vocab))
+    with open(os.path.join(snap, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(snap, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+        f.writelines(f"{a} {b}\n" for a, b in spec["model"]["merges"])
+    special = {"bos_token": "</s>", "eos_token": "</s>", "unk_token": "</s>",
+               "pad_token": "<pad>"}
+    for name, obj in (("tokenizer_config.json",
+                       dict(special, tokenizer_class="GPT2Tokenizer",
+                            add_bos_token=True, add_prefix_space=False,
+                            errors="replace")),
+                      ("special_tokens_map.json", special)):
+        with open(os.path.join(snap, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f)
+
+
 def _write_safetensors(path, tensors):
     """A safetensors file of ``tensors`` (name -> tensor, any device): an
     8-byte little-endian header length, the JSON header (padded with spaces
@@ -2978,14 +3106,93 @@ CLI_SNAPSHOTS = [
 CLI_DENSE = {"bigscience/bloom-7b1", "bigscience/bloomz-7b1",
              "mistralai/Mistral-7B-v0.1"}
 SCAN_STEPS = 10          # the look-ahead the yes/no scan reads
+FAMILY_LAYERS = 8        # the families phase's depth (of the models' 30-32)
+
+# ---------------------------------------------------------------------------
+# The instruct roster: T5, Qwen-1, Baichuan2 and OPT
+# ---------------------------------------------------------------------------
+
+# Published geometries (each model's config.json; the T5 ones with the
+# activation keys transformers writes beside feed_forward_proj)
+T0_3B = {   # bigscience/T0_3B (allenai/tk-instruct-3b-def: the same)
+    "model_type": "t5", "vocab_size": 32128, "d_model": 2048, "d_kv": 64,
+    "d_ff": 5120, "num_layers": 24, "num_decoder_layers": 24,
+    "num_heads": 32, "relative_attention_num_buckets": 32,
+    "relative_attention_max_distance": 128, "layer_norm_epsilon": 1e-6,
+    "feed_forward_proj": "gated-gelu", "dense_act_fn": "gelu_new",
+    "is_gated_act": True, "tie_word_embeddings": False,
+    "decoder_start_token_id": 0, "eos_token_id": 1, "pad_token_id": 0}
+T5_V1_1_BASE = dict(   # google/t5-v1_1-base (google/flan-t5-base: the same)
+    T0_3B, d_model=768, d_ff=2048, num_layers=12, num_decoder_layers=12,
+    num_heads=12)
+QWEN_7B_CHAT = {   # Qwen/Qwen-7B-Chat
+    "model_type": "qwen", "vocab_size": 151936, "hidden_size": 4096,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "intermediate_size": 22016, "kv_channels": 128,
+    "layer_norm_epsilon": 1e-6, "max_position_embeddings": 8192,
+    "seq_length": 8192, "rotary_emb_base": 10000, "rotary_pct": 1.0,
+    "tie_word_embeddings": False}
+BAICHUAN2_7B_CHAT = {   # baichuan-inc/Baichuan2-7B-Chat
+    "model_type": "baichuan", "vocab_size": 125696, "hidden_size": 4096,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "intermediate_size": 11008, "max_position_embeddings": 4096,
+    "model_max_length": 4096, "rms_norm_eps": 1e-6, "hidden_act": "silu",
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+    "pad_token_id": 0}
+OPT_IML_1_3B = {   # facebook/opt-iml-1.3b
+    "model_type": "opt", "vocab_size": 50272, "hidden_size": 2048,
+    "num_hidden_layers": 24, "num_attention_heads": 32, "ffn_dim": 8192,
+    "max_position_embeddings": 2048, "activation_function": "relu",
+    "do_layer_norm_before": True, "word_embed_proj_dim": 2048,
+    "bos_token_id": 2, "eos_token_id": 2, "pad_token_id": 1}
+H2OGPT_12B = {   # h2oai/h2ogpt-oasst1-512-12b (GPT-NeoX, Pythia-12B's shape)
+    "model_type": "gpt_neox", "vocab_size": 50688, "hidden_size": 5120,
+    "num_hidden_layers": 36, "num_attention_heads": 40,
+    "intermediate_size": 20480, "rotary_pct": 0.25, "rotary_emb_base": 10000,
+    "max_position_embeddings": 2048, "use_parallel_residual": True,
+    "layer_norm_eps": 1e-5, "hidden_act": "gelu",
+    "tie_word_embeddings": False, "bos_token_id": 0, "eos_token_id": 0}
+MISTRAL_7B_V03 = dict(   # mistralai/Mistral-7B-Instruct-v0.3
+    MISTRAL_7B_V02, vocab_size=32768)
+# the instruct phase's decoder models, at full depth, on the causal kernel
+# and dense
+INSTRUCT_DECODERS = [
+    ("qwen-7b-chat", "Qwen/Qwen-7B-Chat", QWEN_7B_CHAT, ("flash", "xla")),
+    ("baichuan2-7b-chat", "baichuan-inc/Baichuan2-7B-Chat", BAICHUAN2_7B_CHAT,
+     ("flash", "xla")),
+    ("opt-iml-1.3b", "facebook/opt-iml-1.3b", OPT_IML_1_3B, ("flash", "xla")),
+]
+# the word-meaning sweep's T5 pair
+T5_PAIR = {"base": "google/t5-v1_1-base", "instruct": "google/flan-t5-base"}
+# the run-instruct-sweep CLI phase: each roster geometry the run-100q
+# phase did not write (model, config, models sharing it, tokenizer format)
+INSTRUCT_SNAPSHOTS = [
+    ("allenai/tk-instruct-3b-def", T0_3B, ("bigscience/T0_3B",), "unigram"),
+    ("baichuan-inc/Baichuan2-7B-Chat", BAICHUAN2_7B_CHAT, (), "bpe"),
+    ("facebook/opt-iml-1.3b", OPT_IML_1_3B, (), "gpt2"),
+    ("h2oai/h2ogpt-oasst1-512-12b", H2OGPT_12B, (), "bpe"),
+    ("mistralai/Mistral-7B-Instruct-v0.3", MISTRAL_7B_V03, (), "bpe"),
+    ("Qwen/Qwen-7B-Chat", QWEN_7B_CHAT, (), "tiktoken"),
+]
+# the run-100q phase's snapshots the instruct roster reads again
+INSTRUCT_REUSED = ("tiiuae--falcon-7b", "tiiuae--falcon-7b-instruct",
+                   "bigscience--bloom-7b1", "bigscience--bloomz-7b1",
+                   "togethercomputer--RedPajama-INCITE-7B-Base",
+                   "togethercomputer--RedPajama-INCITE-7B-Instruct")
+# roster models that run dense under --attention-impl flash
+INSTRUCT_DENSE = {"bigscience/bloomz-7b1", "bigscience/T0_3B",
+                  "allenai/tk-instruct-3b-def"}
 
 
 def _hf_state_dict(family, cfg, seed, device, dtype):
     """A random checkpoint of ``cfg`` under the HF tensor names the port's
     converter of ``family`` reads (torch ``Linear`` weights ``[out, in]``;
-    NeoX and BLOOM fuse QKV as rows ``[q; k; v]`` per head), made on
-    ``device``: projections, embeddings and linear biases N(0, 0.02^2),
-    norm scales 1 and norm biases 0."""
+    NeoX and BLOOM fuse QKV as rows ``[q; k; v]`` per head, Qwen's
+    ``c_attn`` and Baichuan's ``W_pack`` as ``[q; k; v]`` whole, Qwen's MLP
+    is half its config's ``intermediate_size``; OPT ties its head and
+    stores positions with the +2 offset), made on ``device``: projections,
+    embeddings and linear biases N(0, 0.02^2), norm scales 1 and norm
+    biases 0."""
     import torch
 
     gen = torch.Generator(device=device)
@@ -3042,6 +3249,46 @@ def _hf_state_dict(family, cfg, seed, device, dtype):
                 linear(f"{pre}.mlp.{name}_proj", out, inp, bias=False)
         norm("model.norm", bias=False)
         sd["lm_head.weight"] = rnd(v, h)
+    elif family in ("qwen", "baichuan"):
+        qwen = family == "qwen"
+        emb = "transformer.wte" if qwen else "model.embed_tokens"
+        sd[emb + ".weight"] = rnd(v, h)
+        for i in range(cfg.num_layers):
+            if qwen:
+                pre = f"transformer.h.{i}"
+                norm(f"{pre}.ln_1", bias=False)
+                norm(f"{pre}.ln_2", bias=False)
+                linear(f"{pre}.attn.c_attn", 3 * n * d, h)
+                linear(f"{pre}.attn.c_proj", h, n * d, bias=False)
+                for name, out, inp in (("w1", f, h), ("w2", f, h),
+                                       ("c_proj", h, f)):
+                    linear(f"{pre}.mlp.{name}", out, inp, bias=False)
+                continue
+            pre = f"model.layers.{i}"
+            norm(f"{pre}.input_layernorm", bias=False)
+            norm(f"{pre}.post_attention_layernorm", bias=False)
+            linear(f"{pre}.self_attn.W_pack", 3 * n * d, h, bias=False)
+            linear(f"{pre}.self_attn.o_proj", h, n * d, bias=False)
+            for name, out, inp in (("gate", f, h), ("up", f, h),
+                                   ("down", h, f)):
+                linear(f"{pre}.mlp.{name}_proj", out, inp, bias=False)
+        norm("transformer.ln_f" if qwen else "model.norm", bias=False)
+        sd["lm_head.weight"] = rnd(v, h)
+    elif family == "opt":
+        pre = "model.decoder"
+        sd[f"{pre}.embed_tokens.weight"] = rnd(v, h)
+        sd[f"{pre}.embed_positions.weight"] = rnd(
+            cfg.max_position_embeddings + cfg.learned_pos_offset, h)
+        for i in range(cfg.num_layers):
+            lay = f"{pre}.layers.{i}"
+            norm(f"{lay}.self_attn_layer_norm")
+            norm(f"{lay}.final_layer_norm")
+            for name in ("q", "k", "v"):
+                linear(f"{lay}.self_attn.{name}_proj", n * d, h)
+            linear(f"{lay}.self_attn.out_proj", h, n * d)
+            linear(f"{lay}.fc1", f, h)
+            linear(f"{lay}.fc2", h, f)
+        norm(f"{pre}.final_layer_norm")
     else:
         raise ValueError(f"no writer for family {family!r}")
     return sd
@@ -3081,7 +3328,43 @@ def _question_tokenizer():
 
     words = (prompts.FEW_SHOT_PREFIX + " " + prompts.ANSWER_INSTRUCTION + " "
              + " ".join(ordinary_meaning_questions())).split()
-    return QuestionTokenizer(words + ["Yes", "No"])
+    return QuestionTokenizer(words + ["Yes", "No", "<human>:", "<bot>:"])
+
+
+def _boost_target_columns(weights, cfg, prompts, target_ids,
+                          factors=(1.0, 1.5, 2.0, 3.0, 4.0)):
+    """Scale, in place, the output columns of the two target ids (an
+    untied head's, else the embedding rows) by the smallest of ``factors``
+    that puts each target in the top TOP_FILTER of one forward at half of
+    ``prompts`` or more (a wide vocabulary leaves even the most popular
+    ids in few rows' top 20, and the position-0 gates would then compare
+    few rows).  Returns (factor, each target's top-20 share)."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    tree, dev = weights.tree(), _device_of(weights)
+    ids = list(target_ids[0])
+    table = tree.get("lm_head")
+    orig = (table[:, ids] if table is not None
+            else tree["embed"]["tokens"][ids]).clone()
+    for factor in factors:
+        with torch.no_grad():
+            if table is not None:
+                table[:, ids] = (orig.float() * factor).to(table.dtype)
+            else:
+                emb = tree["embed"]["tokens"]
+                emb[ids] = (orig.float() * factor).to(emb.dtype)
+        hits = []
+        for lo in range(0, len(prompts), BATCH):
+            logits = decoder.forward_last_logits(
+                weights, cfg, *_padded(prompts[lo:lo + BATCH], dev))
+            kth = torch.topk(logits, TOP_FILTER).values[:, -1:]
+            hits.append((logits[:, ids] >= kth).cpu())
+        share = torch.cat(hits).float().mean(0).tolist()
+        if min(share) >= 0.5:
+            break
+    return factor, share
 
 
 def _question_prompts(tok):
@@ -3255,14 +3538,20 @@ def _compare_family_rows(what, rows, ref, leads, edge, split, tie, p32,
     return stats, [f"{what}: {f}" for f in fails]
 
 
-def families_phase(seed, attention, card):
+def families_phase(seed, attention, card, instruct=False):
     """Pythia-6.9B, Mistral-7B-Instruct-v0.2 and BLOOM-7b1 at their
-    published width and depth (random bf16 weights from ``seed``, made as
-    a HF checkpoint and read through the port's converter) score the 100
-    questions as base (the few-shot prefix through ``score_prefixed``) and
-    as instruct, through the sweep's per-model call, on each route; then
-    the gates of ``_compare_family_rows``, and w8a8 with an int8 KV cache
-    against bf16 for Mistral."""
+    published width (random bf16 weights from ``seed``, made as a HF
+    checkpoint and read through the port's converter; FAMILY_LAYERS of
+    their layers) score the 100 questions as base (the few-shot prefix
+    through ``score_prefixed``) and as instruct, through the sweep's
+    per-model call, on each route; then the gates of
+    ``_compare_family_rows``, and w8a8 with an int8 KV cache against bf16
+    for Mistral.  With ``instruct``, INSTRUCT_DECODERS score the 100
+    instruct prompts (each model's own format) through the instruct
+    sweep's per-model call instead, at full depth, their targets' columns
+    scaled until the targets sit in most rows' top 20
+    (``_boost_target_columns``), and the causal kernel is timed at each
+    model's longest prompt batch."""
     import numpy as np
     import torch
 
@@ -3274,14 +3563,18 @@ def families_phase(seed, attention, card):
     from llm_interpretation_replication_tpu_torch.runtime import batching
     from llm_interpretation_replication_tpu_torch.runtime import engine as emod
     from llm_interpretation_replication_tpu_torch.scoring import yes_no
+    from llm_interpretation_replication_tpu_torch.scoring.prompts import (
+        format_prompt)
     from llm_interpretation_replication_tpu_torch.sweeps import (
-        run_model_on_prompts)
+        instruct_sweep, run_model_on_prompts)
 
     device = "cuda"
+    phase, models = (("instruct", INSTRUCT_DECODERS) if instruct
+                     else ("families", FAMILY_MODELS))
     questions = ordinary_meaning_questions()
     tok = _question_tokenizer()
-    prompts, prefix_lens = _question_prompts(tok)
-    target_ids = [yes_no.target_token_ids(tok, ["Yes", "No"])] * len(prompts)
+    if not instruct:
+        prompts, prefix_lens = _question_prompts(tok)
     ecfg = emod.EngineConfig(batch_size=BATCH)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 11)
@@ -3293,12 +3586,17 @@ def families_phase(seed, attention, card):
         counted["prefill"] += 1
         return real_prefill(*args, **kwargs)
 
-    for mi, (label, model, config, routes) in enumerate(FAMILY_MODELS):
-        family, cfg = _family_config(config)
+    for mi, (label, model, config, routes) in enumerate(models):
+        family, cfg = _family_config(config, None if instruct else FAMILY_LAYERS)
         dense = dataclasses.replace(cfg, attention_impl="xla")
+        if instruct:
+            prompts = [tok(format_prompt(q, False, model)).input_ids
+                       for q in questions]
+            prefix_lens = None
+        target_ids = [yes_no.target_token_ids(tok, ["Yes", "No"])] * len(prompts)
         t0 = time.perf_counter()
-        sd = _hf_state_dict(family, cfg, seed + 20 + mi, device,
-                            torch.bfloat16)
+        sd = _hf_state_dict(family, cfg, seed + (60 if instruct else 20) + mi,
+                            device, torch.bfloat16)
         tree = convert.CONVERTERS[family](sd.__getitem__, cfg)
         del sd
         weights = decoder.DecoderWeights(dense, tree)
@@ -3308,6 +3606,8 @@ def families_phase(seed, attention, card):
         make_s = time.perf_counter() - t0
         swapped = _swap_embedding_rows(weights, tok, dict(zip(
             (" Yes", " No"), _popular_ids(weights, dense, prompts, tok))))
+        boost = _boost_target_columns(weights, dense, prompts,
+                                      target_ids) if instruct else None
         # the rounding of these weights: two bf16 computations of the same
         # top-1 logits (the tie), and one bf16 forward's position-0 target
         # probabilities against a float32 one
@@ -3364,10 +3664,14 @@ def families_phase(seed, attention, card):
             decoder.prefill = counting
             try:
                 t0 = time.perf_counter()
-                csv_rows = []
-                for base in (True, False):
-                    csv_rows += run_model_on_prompts(engine, model, questions,
-                                                     base)
+                if instruct:
+                    csv_rows = list(instruct_sweep._score_model(
+                        engine, model, questions, False).values())
+                else:
+                    csv_rows = []
+                    for base in (True, False):
+                        csv_rows += run_model_on_prompts(engine, model,
+                                                         questions, base)
                 torch.cuda.synchronize()
                 elapsed = time.perf_counter() - t0
             finally:
@@ -3377,14 +3681,25 @@ def families_phase(seed, attention, card):
             longest = max(batches, key=lambda bt: bt.bucket_len)
             ids = torch.as_tensor(longest.token_ids, device=device).long()
             mask = torch.as_tensor(longest.attention_mask, device=device)
+            kcfg = dataclasses.replace(rcfg, kv_cache_dtype=rcfg_e.kv_dtype)
             prefill_ms = time_ms(lambda: decoder.prefill(
-                rweights, dataclasses.replace(
-                    rcfg, kv_cache_dtype=rcfg_e.kv_dtype), ids, mask,
-                longest.bucket_len), iters=3, warmup=1)
+                rweights, kcfg, ids, mask, longest.bucket_len), iters=3,
+                warmup=1)
+            # ms a look-ahead step: one scan chunk from that prefill's cache
+            last, cache = decoder.prefill(rweights, kcfg, ids, mask,
+                                          longest.bucket_len)
+            tgt = torch.as_tensor([target_ids[0]] * ids.shape[0],
+                                  device=device)
+            step_ms = time_ms(lambda: decoder.decode_steps(
+                rweights, kcfg, cache, last, mask.sum(-1), 0, ecfg.scan_chunk,
+                None, None, with_scores="reduced", target_ids=tgt),
+                iters=2, warmup=1) / ecfg.scan_chunk
+            del last, cache
             res = dict(model=label, route=route, rows=len(csv_rows),
                        seconds=elapsed, rows_per_s=len(csv_rows) / elapsed,
                        prefills=counted["prefill"], kernel_launches=launches,
                        prefill_ms_bucket=[longest.bucket_len, prefill_ms],
+                       decode_ms_per_step=step_ms,
                        peak_memory_bytes=torch.cuda.max_memory_allocated(),
                        success_rows=sum(bool(r["success"]) for r in csv_rows),
                        scan_found_rows=sum(r["scan_found"]
@@ -3394,7 +3709,7 @@ def families_phase(seed, attention, card):
                            for f in ("first_token_yes_prob",
                                      "first_token_no_prob")])
             runs.append(res)
-            say("families", json.dumps(dict(res, card=card)))
+            say(phase, json.dumps(dict(res, card=card)))
             if res["success_rows"] != len(prompts) or len(engine.rows) != \
                     len(prompts):
                 fails.append(f"{label} {route}: {res['success_rows']} rows "
@@ -3439,12 +3754,17 @@ def families_phase(seed, attention, card):
                     f"{label} {route}", weights, qweights, kv8, prompts,
                     prefix_lens, target_ids, fails)
             del qweights
-        # the causal kernel at this family's prefix-prefill shape
+        # the causal kernel at this family's prefix-prefill shape (the
+        # longest prompt batch's, for instruct prompts)
         if "flash" in routes:
-            pre = [p[:n] for p, n in zip(prompts, prefix_lens)]
-            bt = next(iter(batching.batches_for_prompts(
-                pre[:BATCH], BATCH, ecfg.buckets, pad_id=tok.pad_token_id,
-                length_sorted=True)))
+            if instruct:
+                bt = max(batches, key=lambda b: (b.bucket_len,
+                                                 int((b.indices >= 0).sum())))
+            else:
+                pre = [p[:n] for p, n in zip(prompts, prefix_lens)]
+                bt = next(iter(batching.batches_for_prompts(
+                    pre[:BATCH], BATCH, ecfg.buckets, pad_id=tok.pad_token_id,
+                    length_sorted=True)))
             kernel_rows.append(_family_kernel_row(
                 attention, label, gen, BATCH, bt.bucket_len, cfg.num_heads,
                 cfg.num_kv_heads, cfg.head_dim,
@@ -3453,22 +3773,23 @@ def families_phase(seed, attention, card):
                       layers=cfg.num_layers, width=cfg.hidden_size,
                       heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
                       vocab=cfg.vocab_size, weights_s=make_s,
-                      swapped_target_rows=swapped, rounding=rounding,
-                      runs=runs, gates=gates, card=card)
-        say("families gates", json.dumps({k: v for k, v in result.items()
+                      swapped_target_rows=swapped, target_boost=boost,
+                      rounding=rounding, runs=runs, gates=gates, card=card)
+        say(f"{phase} gates", json.dumps({k: v for k, v in result.items()
                                           if k != "runs"}))
         results.append(result)
         del weights
         torch.cuda.empty_cache()
-    # StableLM-alpha-7B's head shape (48 heads of 128) at the same prefix
-    # shape: its model runs only in the CLI phase, at 2 layers
-    fam, scfg = _family_config(STABLELM_ALPHA_7B)
-    kernel_rows.append(_family_kernel_row(
-        attention, "stablelm-alpha-7b", gen, BATCH, kernel_rows[0]["S"],
-        scfg.num_heads, scfg.num_kv_heads, scfg.head_dim,
-        [kernel_rows[0]["S"]] * BATCH))
+    if not instruct:
+        # StableLM-alpha-7B's head shape (48 heads of 128) at the same
+        # prefix shape: its model runs only in the CLI phase, at 2 layers
+        fam, scfg = _family_config(STABLELM_ALPHA_7B)
+        kernel_rows.append(_family_kernel_row(
+            attention, "stablelm-alpha-7b", gen, BATCH, kernel_rows[0]["S"],
+            scfg.num_heads, scfg.num_kv_heads, scfg.head_dim,
+            [kernel_rows[0]["S"]] * BATCH))
     if fails:
-        raise AssertionError(f"families: {len(fails)} failures: "
+        raise AssertionError(f"{phase}: {len(fails)} failures: "
                              + "; ".join(fails[:20]))
     return dict(models=results, kernel_rows=kernel_rows,
                 runs=[r for m in results for r in m["runs"]])
@@ -3908,7 +4229,6 @@ def run100q_cli_phase(seed, workdir, card):
             so4.count("(already completed)") != len(names):
         fails.append(f"run-100q rerun: exit {rc4}, it scored "
                      f"{sorted(attention_lines(se4))}")
-    shutil.rmtree(snaps, ignore_errors=True)
     result = dict(card=card, layers=SNAPSHOT_LAYERS, snapshot_bytes=nbytes,
                   snapshot_write_s=write_s, rows=n, runs=runs,
                   attention=lines, failures=fails[:50])
@@ -3916,6 +4236,532 @@ def run100q_cli_phase(seed, workdir, card):
                                       if k != "runs"}))
     if fails:
         raise AssertionError(f"run-100q: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
+def _t5_popular_ids(weights, cfg, prompts, tok, n=2, batch=BATCH):
+    """The ``n`` ids past the tokenizer's vocabulary that random T5 weights
+    most often rank in the top 20 of the first decoder step."""
+    from collections import Counter
+
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import t5
+
+    counts = Counter()
+    for lo in range(0, len(prompts), batch):
+        ids, mask = _padded(prompts[lo:lo + batch], _device_of(weights))
+        dec = torch.full((ids.shape[0], 1), cfg.decoder_start_token_id,
+                         dtype=torch.long, device=ids.device)
+        top = torch.topk(t5.forward(weights, cfg, ids, mask, dec)[:, 0],
+                         TOP_FILTER).indices.cpu().tolist()
+        for row in top:
+            counts.update(i for i in row if i >= len(tok))
+    return [i for i, _ in counts.most_common(n)]
+
+
+def _t5_swap_targets(weights, tok, chosen):
+    """Swap, in place, the decoder-input rows (``shared``) and the untied
+    head's columns of each target id with those of the id ``chosen`` gives
+    it (``{"Yes": id}``: T5 reads the bare word's first id).  Returns the
+    swapped pairs."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+
+    tree = weights.tree()
+    shared, head = tree["shared"], tree.get("lm_head")
+    pairs = [(yes_no.target_token_ids(tok, [word], True)[0], tid)
+             for word, tid in chosen.items()]
+    with torch.no_grad():
+        for a, b in pairs:
+            shared[[a, b]] = shared[[b, a]]
+            if head is not None:
+                head[:, [a, b]] = head[:, [b, a]]
+    return pairs
+
+
+def _t5_teacher(weights, cfg, prompts, continuations, target_ids,
+                steps=SCAN_STEPS, top_k=5, batch=BATCH):
+    """One T5 forward over each prompt with its continuation fed to the
+    decoder (from the start token): the top-1 logit and its lead at every
+    step ``[N, L + 1]``; over the first ``steps`` steps the nearer target
+    logit's distance from the ``top_k``-th largest and the two targets'
+    gap ``[N, steps]``; at step 0 the nearer target's distance from the
+    TOP_FILTER-th largest ``[N]`` and the filtered target probabilities
+    ``[N, 2]`` (NaN past a row's continuation)."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import t5
+
+    dev, n = _device_of(weights), len(prompts)
+    width = max(max(map(len, continuations)) + 1, steps)
+    top1 = np.full((n, width), np.nan, np.float32)
+    leads = np.full((n, width), np.nan, np.float32)
+    edge = np.full((n, steps), np.nan, np.float32)
+    split = np.full((n, steps), np.nan, np.float32)
+    edge0 = np.zeros((n,), np.float32)
+    probs0 = np.zeros((n, 2), np.float32)
+    for lo in range(0, n, batch):
+        ids, mask = _padded(prompts[lo:lo + batch], dev)
+        conts = continuations[lo:lo + batch]
+        dec = torch.full((len(conts), width), cfg.decoder_start_token_id,
+                         dtype=torch.long)
+        for i, c in enumerate(conts):
+            dec[i, 1:1 + len(c)] = torch.as_tensor(c[:width - 1],
+                                                   dtype=torch.long)
+        logits = t5.forward(weights, cfg, ids, mask, dec.to(dev))
+        top2 = torch.topk(logits, 2, dim=-1).values.cpu().numpy()
+        tgt = torch.as_tensor(np.asarray(target_ids[lo:lo + batch]), device=dev)
+        kth = torch.topk(logits[:, :steps], top_k, dim=-1).values[..., -1:]
+        tl = logits[:, :steps].gather(2, tgt[:, None, :].expand(-1, steps, -1))
+        e = (tl - kth).abs().min(2).values.cpu().numpy()
+        sp = (tl[..., 0] - tl[..., 1]).abs().cpu().numpy()
+        kth0 = torch.topk(logits[:, 0], TOP_FILTER).values[:, -1:]
+        edge0[lo:lo + len(conts)] = (logits[:, 0].gather(1, tgt) - kth0) \
+            .abs().min(1).values.cpu().numpy()
+        probs0[lo:lo + len(conts)] = _filtered_target_probs(
+            logits[:, 0], tgt).cpu().numpy()
+        for i, c in enumerate(conts):
+            k = min(len(c) + 1, width)
+            top1[lo + i, :k] = top2[i, :k, 0]
+            leads[lo + i, :k] = top2[i, :k, 0] - top2[i, :k, 1]
+            edge[lo + i, :min(k, steps)] = e[i, :k][:steps]
+            split[lo + i, :min(k, steps)] = sp[i, :k][:steps]
+        del logits
+    return top1, leads, edge, split, edge0, probs0
+
+
+def _t5_weights(config, seed, device):
+    """(config, bf16 T5Weights) of a published T5 ``config.json`` dict:
+    a random HF-named checkpoint at T5's initialization scales
+    (``convert.random_t5_state_dict``) through the port's converter."""
+    from llm_interpretation_replication_tpu_torch.models import convert, t5
+
+    _, cfg = _family_config(config)
+    sd = convert.random_t5_state_dict(cfg, seed=seed, device=device,
+                                      dtype="bf16")
+    weights = t5.T5Weights(cfg, convert.convert_t5(sd.__getitem__, cfg))
+    del sd
+    return cfg, weights
+
+
+def _t5_gated_run(label, model, cfg, weights, tok, prompts, rows, card,
+                  attention):
+    """Gates of one T5 model's rows (``rows``: the sweep's, batch BATCH)
+    against a second bf16 route (the same prompts at batch 8, another set
+    of GEMM shapes) and a float32 forward of the same weights: completions
+    part only where the batch-BATCH route's lead is below the tie (twice
+    NEAR_TIE_FACTOR times the largest top-1 difference between the decode
+    and one forward over its tokens, two bf16 computations), verdicts only
+    near it, position-0 fields within twice one bf16 forward's deviation
+    from float32 on the rows clear of the tie; no causal launch.  Returns
+    (result, failures)."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import t5
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+
+    target_ids = [yes_no.target_token_ids(tok, ["Yes", "No"], True)] * len(prompts)
+    fails = []
+    # two bf16 computations of the decode's top-1 logits
+    diffs = []
+    for lo in range(0, len(prompts), BATCH):
+        ids, mask = _padded(prompts[lo:lo + BATCH], "cuda")
+        toks, sc = t5.greedy_decode(weights, cfg, ids, mask, SCAN_STEPS,
+                                    tok.eos_token_id, SCAN_STEPS)
+        dec = torch.cat([torch.full_like(toks[:, :1], cfg.decoder_start_token_id),
+                         toks[:, :-1]], 1).long()
+        teach = t5.forward(weights, cfg, ids, mask, dec)
+        diffs.append((teach.max(-1).values - sc.max(-1).values).abs()
+                     .max().item())
+        del sc, teach
+    tie = 2 * NEAR_TIE_FACTOR * max(diffs)
+    conts = [_completion_ids(r["completion"]) for r in rows]
+    _, leads, edge, split, _, p16 = _t5_teacher(weights, cfg, prompts, conts,
+                                                target_ids)
+    ref_w = t5.T5Weights(cfg, _to_float32(weights.tree()))
+    _, _, _, _, edge32, p32 = _t5_teacher(ref_w, cfg, prompts,
+                                          [[]] * len(prompts), target_ids)
+    del ref_w
+    torch.cuda.empty_cache()
+    clear = edge32 >= tie
+    dev16 = float(np.abs(p16 - p32)[clear].max(initial=0.0))
+    _reset_launches(attention)
+    eng = emod.ScoringEngine("t5", cfg, weights, tok, device="cuda",
+                             engine_config=emod.EngineConfig(batch_size=8))
+    t0 = time.perf_counter()
+    rows8 = eng.score_prompts(prompts)
+    torch.cuda.synchronize()
+    secs8 = time.perf_counter() - t0
+    eng.close()
+    stats, f = _compare_family_rows(f"{label} batch 8", rows8, rows, leads,
+                                    edge, split, tie, p32, clear, 2 * dev16)
+    fails += f
+    stats32, f = _compare_family_rows(f"{label} batch {BATCH}", rows, rows,
+                                      leads, edge, split, tie, p32, clear,
+                                      2 * dev16)
+    fails += f
+    launches = _launches(attention)["causal_grouped_attention"]
+    if launches:
+        fails.append(f"{label}: {launches} causal launches on the T5 route")
+    # ms a decode step: 50 steps against 10 on the longest batch
+    ids, mask = _padded(max((prompts[lo:lo + BATCH]
+                             for lo in range(0, len(prompts), BATCH)),
+                            key=lambda b: (len(b), max(map(len, b)))), "cuda")
+    t50 = time_ms(lambda: t5.greedy_decode(weights, cfg, ids, mask, 50,
+                                           tok.eos_token_id, SCAN_STEPS),
+                  iters=2, warmup=1)
+    t10 = time_ms(lambda: t5.greedy_decode(weights, cfg, ids, mask, 10,
+                                           tok.eos_token_id, SCAN_STEPS),
+                  iters=2, warmup=1)
+    result = dict(model=label, hf_name=model, family="t5",
+                  layers=[cfg.num_layers, cfg.num_decoder_layers],
+                  width=cfg.d_model, heads=[cfg.num_heads, cfg.d_kv],
+                  vocab=cfg.vocab_size, tie=tie,
+                  top1_max_abs_diff=max(diffs),
+                  position0_bf16_vs_fp32=dev16,
+                  rows_clear_of_edge=int(clear.sum()),
+                  gates={"batch8": stats, "position0": stats32},
+                  batch8_s=secs8, ms_per_decode_step=(t50 - t10) / 40,
+                  decode_ms=[t10, t50], card=card)
+    return result, fails
+
+
+def instruct_phase(seed, attention, workdir, card):
+    """The instruct roster's new models at their published width and
+    depth, random bf16 weights from ``seed`` made as HF checkpoints and
+    read through the port's converters, under the phase's word tokenizer
+    with the targets swapped to ids the weights rank high: T0_3B scores
+    the 100 instruct prompts through the instruct sweep's per-model call;
+    the word-meaning T5 pair (t5-v1_1-base, flan-t5-base) runs through
+    ``sweeps.run_base_vs_instruct_word_meaning`` (the base model's few-shot
+    prompt on T5); each T5 model is held by ``_t5_gated_run``.  Qwen-7B-
+    Chat, Baichuan2-7B-Chat (NormHead) and OPT-IML-1.3B run the families
+    phase's routes and gates on the instruct prompts
+    (``families_phase(instruct=True)``), the causal kernel timed at each
+    one's longest prompt batch."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.config import (
+        ordinary_meaning_questions)
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.scoring.prompts import (
+        format_prompt)
+    from llm_interpretation_replication_tpu_torch.sweeps import (
+        instruct_sweep, run_base_vs_instruct_word_meaning)
+
+    questions = ordinary_meaning_questions()
+    tok = _question_tokenizer()
+    fails, t5_results, runs = [], [], []
+
+    def t5_model(label, model, config, mseed):
+        t0 = time.perf_counter()
+        cfg, weights = _t5_weights(config, mseed, "cuda")
+        torch.cuda.synchronize()
+        make_s = time.perf_counter() - t0
+        is_base = model == T5_PAIR["base"]
+        prompts = [tok(format_prompt(q, is_base, model)).input_ids
+                   for q in questions]
+        swapped = _t5_swap_targets(weights, tok, dict(zip(
+            ("Yes", "No"), _t5_popular_ids(weights, cfg, prompts, tok))))
+        return cfg, weights, prompts, dict(weights_s=make_s,
+                                           swapped_target_rows=swapped)
+
+    def scored(label, model, cfg, weights, prompts, call):
+        engine = _Recorder(emod.ScoringEngine(
+            "t5", cfg, weights, tok, device="cuda",
+            engine_config=emod.EngineConfig(batch_size=BATCH)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = call(engine)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        run = dict(model=label, route="t5", rows=len(engine.rows),
+                   seconds=secs, rows_per_s=len(engine.rows) / secs,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   success_rows=sum(bool(r["success"]) for r in engine.rows),
+                   scan_found_rows=sum(r["scan_found"] for r in engine.rows),
+                   kernel_launches=0)
+        say("instruct", json.dumps(dict(run, card=card)))
+        runs.append(run)
+        if run["success_rows"] != len(prompts):
+            fails.append(f"{label}: {run['success_rows']} rows with success "
+                         f"of {len(prompts)}")
+        engine._engine.close()
+        return engine.rows, out
+
+    # T0_3B through the instruct sweep's per-model call
+    cfg, weights, prompts, extra = t5_model("t0-3b", "bigscience/T0_3B",
+                                            T0_3B, seed + 50)
+    rows, _ = scored("t0-3b", "bigscience/T0_3B", cfg, weights, prompts,
+                     lambda e: instruct_sweep._score_model(
+                         e, "bigscience/T0_3B", questions, False))
+    res, f = _t5_gated_run("t0-3b", "bigscience/T0_3B", cfg, weights, tok,
+                           prompts, rows, card, attention)
+    t5_results.append(dict(res, **extra))
+    fails += f
+    say("instruct gates", json.dumps(t5_results[-1]))
+    del weights
+    torch.cuda.empty_cache()
+
+    # the word-meaning pair through its sweep: one engine a model, made by
+    # the factory as the CLI's would be
+    made = {}
+
+    def factory(name):
+        label = name.split("/")[1]
+        cfg, weights, prompts, extra = t5_model(
+            label, name, T5_V1_1_BASE, seed + 55 + len(made))
+        made[name] = (cfg, weights, prompts, extra)
+        engine = _Recorder(emod.ScoringEngine(
+            "t5", cfg, weights, tok, device="cuda",
+            engine_config=emod.EngineConfig(batch_size=BATCH)))
+        made[name] += (engine,)
+        return engine
+
+    t0 = time.perf_counter()
+    pair_rows = run_base_vs_instruct_word_meaning(
+        factory, questions, model_pairs=[T5_PAIR],
+        checkpoint_path=os.path.join(workdir, "word_meaning_checkpoint.json"),
+        results_csv=os.path.join(workdir, "model_comparison_results.csv"))
+    torch.cuda.synchronize()
+    pair_s = time.perf_counter() - t0
+    if len(pair_rows) != 2 * len(questions) or any(
+            r["model_output"].startswith("MODEL_ERROR") for r in pair_rows):
+        fails.append(f"word meaning: {len(pair_rows)} rows, "
+                     f"{sum(r['model_output'].startswith('MODEL_ERROR') for r in pair_rows)} errors")
+    runs.append(dict(model="t5-pair", route="word-meaning sweep",
+                     rows=len(pair_rows), seconds=pair_s,
+                     rows_per_s=len(pair_rows) / pair_s, kernel_launches=0))
+    say("instruct", json.dumps(dict(runs[-1], card=card)))
+    for name, (cfg, weights, prompts, extra, engine) in made.items():
+        label = name.split("/")[1]
+        res, f = _t5_gated_run(label, name, cfg, weights, tok, prompts,
+                               engine.rows, card, attention)
+        t5_results.append(dict(res, **extra))
+        fails += f
+        say("instruct gates", json.dumps(t5_results[-1]))
+        engine._engine.close()
+    made.clear()
+    torch.cuda.empty_cache()
+
+    dec = families_phase(seed, attention, card, instruct=True)
+    if fails:
+        raise AssertionError(f"instruct: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return dict(t5=t5_results, decoders=dec["models"],
+                kernel_rows=dec["kernel_rows"], runs=runs + dec["runs"])
+
+
+def _write_instruct_snapshots(root, seed, texts):
+    """2-layer snapshots of ``INSTRUCT_SNAPSHOTS`` beside the run-100q
+    phase's (whose other models go first): random bf16 weights from
+    ``seed`` as safetensors, tokenizers in each model's format learned on
+    ``texts`` (a Unigram ``tokenizer.json`` for the T5s, ``qwen.tiktoken``,
+    OPT's ``vocab.json`` + ``merges.txt``, byte-level BPE for the rest,
+    Baichuan's SentencePiece file among them).  Returns (bytes written,
+    seconds)."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import convert
+
+    for name in os.listdir(root):
+        if name not in INSTRUCT_REUSED:
+            path = os.path.join(root, name)
+            if os.path.islink(path):
+                os.unlink(path)
+            else:
+                shutil.rmtree(path)
+    t0, nbytes = time.perf_counter(), 0
+    for si, (model, config, shared, fmt) in enumerate(INSTRUCT_SNAPSHOTS):
+        snap = os.path.join(root, model.replace("/", "--"))
+        os.makedirs(snap)
+        hf_json = (dict(config, num_layers=SNAPSHOT_LAYERS,
+                        num_decoder_layers=SNAPSHOT_LAYERS)
+                   if fmt == "unigram" else _at_depth(config, SNAPSHOT_LAYERS))
+        family, cfg = _family_config(hf_json)
+        if family == "t5":
+            sd = convert.random_t5_state_dict(cfg, seed=seed + 80 + si,
+                                              device="cuda", dtype="bf16")
+        else:
+            sd = _hf_state_dict(family, cfg, seed + 80 + si, "cuda",
+                                torch.bfloat16)
+        files = {"config.json": hf_json}
+        if fmt == "unigram":
+            files.update(zip(("tokenizer.json", "tokenizer_config.json",
+                              "special_tokens_map.json"),
+                             _unigram_tokenizer_files(texts)))
+        elif fmt == "bpe":
+            files.update(zip(("tokenizer.json", "tokenizer_config.json",
+                              "special_tokens_map.json"),
+                             _bpe_tokenizer_files(texts)))
+        elif fmt == "tiktoken":
+            with open(os.path.join(snap, "qwen.tiktoken"), "wb") as f:
+                f.write(_qwen_tiktoken(texts))
+        else:
+            _write_gpt2_tokenizer(snap, texts)
+        for name, obj in files.items():
+            with open(os.path.join(snap, name), "w", encoding="utf-8") as f:
+                json.dump(obj, f)
+        _write_safetensors(os.path.join(snap, "model.safetensors"), sd)
+        nbytes += sum(t.numel() * t.element_size() for t in sd.values())
+        del sd
+        for other in shared:
+            os.symlink(os.path.basename(snap),
+                       os.path.join(root, other.replace("/", "--")))
+    torch.cuda.empty_cache()
+    return nbytes, time.perf_counter() - t0
+
+
+def _run_instruct(snaps, out, signal_after_first=False):
+    """``python -m llm_interpretation_replication_tpu_torch
+    run-instruct-sweep --attention-impl flash --quant int8`` in a child
+    process (the repository on its path); with ``signal_after_first`` a
+    SIGTERM goes to it as soon as its checkpoint file appears.  Returns
+    (exit code, stdout, stderr, seconds)."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    argv = [sys.executable, "-m", "llm_interpretation_replication_tpu_torch",
+            "run-instruct-sweep", "--checkpoint-dir", snaps, "--output-dir",
+            out, "--attention-impl", "flash", "--quant", "int8",
+            "--batch-size", str(BATCH)]
+    ck = os.path.join(out, "instruct_sweep_checkpoint.json")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as so, tempfile.TemporaryFile("w+") as se:
+        proc = subprocess.Popen(argv, stdout=so, stderr=se, env=env, cwd=root)
+        try:
+            if signal_after_first:
+                while proc.poll() is None and not os.path.exists(ck):
+                    time.sleep(0.005)
+                proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        so.seek(0)
+        se.seek(0)
+        return rc, so.read(), se.read(), time.perf_counter() - t0
+
+
+def instruct_cli_phase(seed, workdir, card):
+    """``run-instruct-sweep --attention-impl flash --quant int8`` over
+    2-layer snapshots of the 10-model roster (the run-100q phase's Falcon,
+    BLOOM and RedPajama snapshots read again), in a child process: 1000
+    rows in the CSV's 7 columns, none a ``MODEL_ERROR``, every probability
+    in [0, 1]; one attention line a model (dense for BLOOMZ and the T5
+    models, whose int8 request loads bf16 with a warning); then a run a
+    SIGTERM stops after its first model keeps exactly that model's rows,
+    resuming it writes the same CSV, and a rerun over the finished output
+    scores nothing."""
+    import csv
+
+    from llm_interpretation_replication_tpu_torch.config import (
+        instruct_sweep_models, ordinary_meaning_questions)
+    from llm_interpretation_replication_tpu_torch.scoring.prompts import (
+        format_prompt)
+    from llm_interpretation_replication_tpu_torch.sweeps import (
+        INSTRUCT_COMPARISON_COLUMNS)
+
+    questions = ordinary_meaning_questions()
+    names = instruct_sweep_models()
+    snaps = os.path.join(workdir, "snapshots")
+    texts = [format_prompt(q, False, m) for q in questions
+             for m in ("", "baichuan")] + ["Yes", "No", " Yes", " No"]
+    nbytes, write_s = _write_instruct_snapshots(snaps, seed, texts)
+    say(f"run-instruct-sweep: {len(INSTRUCT_SNAPSHOTS)} snapshots, "
+        f"{nbytes / 1e9:.2f} GB of weights written in {write_s:.1f} s")
+    fails, runs = [], []
+    n = len(names) * len(questions)
+
+    def csv_of(out):
+        path = os.path.join(out, "instruct_model_comparison_results.csv")
+        with open(path, "rb") as f:
+            raw = f.read()
+        with open(path, newline="", encoding="utf-8") as f:
+            return raw, list(csv.reader(f))
+
+    def attention_lines(err):
+        return dict(re.findall(r"^# (\S+): attention (\w+) ", err, re.M))
+
+    out = os.path.join(workdir, "instruct")
+    rc, so, se, secs = _run_instruct(snaps, out)
+    runs.append(dict(run="full", rc=rc, seconds=secs, rows_per_s=n / secs))
+    say("run-instruct-sweep", json.dumps(dict(runs[-1], card=card)))
+    if rc != 0:
+        raise AssertionError(f"run-instruct-sweep exited {rc}: {se[-3000:]}")
+    raw, rows = csv_of(out)
+    if rows[0] != INSTRUCT_COMPARISON_COLUMNS or len(rows) != n + 1:
+        fails.append(f"run-instruct-sweep: header {rows[0]}, "
+                     f"{len(rows) - 1} rows")
+    col = {c: i for i, c in enumerate(rows[0])}
+    bad = [r for r in rows[1:] if r[col["model_output"]].startswith(
+        "MODEL_ERROR") or not all(0.0 <= float(r[col[c]]) <= 1.0 for c in
+                                  ("yes_prob", "no_prob", "relative_prob"))]
+    if bad:
+        fails.append(f"run-instruct-sweep: {len(bad)} rows failed, e.g. "
+                     f"{bad[0]}")
+    if f"{n} rows over {len(questions)} questions" not in so.splitlines():
+        fails.append(f"run-instruct-sweep printed {so.splitlines()[-1:]}")
+    lines = attention_lines(se)
+    want = {m: "xla" if m in INSTRUCT_DENSE else "flash" for m in names}
+    if lines != want:
+        fails.append(f"run-instruct-sweep attention lines {lines}, want {want}")
+    if se.count("UserWarning: int8 quantization unsupported for T5") != 2:
+        fails.append("run-instruct-sweep: no int8 warning for the T5 models")
+    order = [r[col["model"]] for r in rows[1:]]
+    if order != [m for m in names for _ in questions]:
+        fails.append("run-instruct-sweep: rows not in roster order")
+
+    out2 = os.path.join(workdir, "instruct_preempted")
+    rc2, _, _, secs2 = _run_instruct(snaps, out2, signal_after_first=True)
+    with open(os.path.join(out2, "instruct_sweep_checkpoint.json")) as f:
+        state = json.load(f)
+    kept = list(state["outputs"])
+    runs.append(dict(run="sigterm", rc=rc2, seconds=secs2, kept=kept,
+                     checkpoint_rows=sum(map(len, state["outputs"].values()))))
+    say("run-instruct-sweep", json.dumps(dict(runs[-1], card=card)))
+    if rc2 != 143 or kept != names[:1] or \
+            len(state["outputs"][names[0]]) != len(questions):
+        fails.append(f"run-instruct-sweep SIGTERM: exit {rc2}, checkpoint of "
+                     f"{kept}")
+    rc3, so3, se3, secs3 = _run_instruct(snaps, out2)
+    runs.append(dict(run="resume", rc=rc3, seconds=secs3))
+    say("run-instruct-sweep", json.dumps(dict(runs[-1], card=card)))
+    if rc3 != 0:
+        raise AssertionError(f"run-instruct-sweep resume exited {rc3}: "
+                             f"{se3[-3000:]}")
+    if f"Skipping {names[0]} (checkpointed)" not in so3 or \
+            set(attention_lines(se3)) != set(names[1:]):
+        fails.append("run-instruct-sweep resume did not skip just the first "
+                     "model")
+    if csv_of(out2)[0] != raw:
+        fails.append("run-instruct-sweep resume: the CSV differs from the "
+                     "whole run's")
+    rc4, so4, se4, secs4 = _run_instruct(snaps, out)
+    runs.append(dict(run="rerun", rc=rc4, seconds=secs4))
+    say("run-instruct-sweep", json.dumps(dict(runs[-1], card=card)))
+    if rc4 != 0 or attention_lines(se4) or csv_of(out)[0] != raw or \
+            so4.count("(checkpointed)") != len(names):
+        fails.append(f"run-instruct-sweep rerun: exit {rc4}, it scored "
+                     f"{sorted(attention_lines(se4))}")
+    shutil.rmtree(snaps, ignore_errors=True)
+    result = dict(card=card, layers=SNAPSHOT_LAYERS, snapshot_bytes=nbytes,
+                  snapshot_write_s=write_s, rows=n, runs=runs,
+                  attention=lines, failures=fails[:50])
+    say("run-instruct-sweep gates", json.dumps(
+        {k: v for k, v in result.items() if k != "runs"}))
+    if fails:
+        raise AssertionError(f"run-instruct-sweep: {len(fails)} failures: "
                              + "; ".join(fails[:20]))
     return result
 
@@ -3973,6 +4819,11 @@ def main(argv=None):
         torch.cuda.empty_cache()
         fam = timed("families", families_phase, args.seed, attention, card)
         qres = timed("run_100q", run100q_cli_phase, args.seed, workdir, card)
+        torch.cuda.empty_cache()
+        inst = timed("instruct", instruct_phase, args.seed, attention,
+                     workdir, card)
+        ires_cli = timed("run_instruct_sweep", instruct_cli_phase, args.seed,
+                         workdir, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3985,14 +4836,15 @@ def main(argv=None):
               + sum(r["kernel_launches"] for r in ires["runs"])
               + sum(r["kernel_launches"] for r in wres["runs"])
               + sum(r["kernel_launches"] for r in cres["runs"])
-              + sum(r["kernel_launches"] for r in fam["runs"]))
+              + sum(r["kernel_launches"] for r in fam["runs"])
+              + sum(r["kernel_launches"] for r in inst["runs"]))
     launches = {"causal_grouped_attention": causal,
                 "grouped_attention": sres["forced_routes"]["grouped"]["launches"],
                 "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
     kernels = []
     for name, source, line, _, _ in KERNELS:
         mine = [r for r in krows + erows + fam["kernel_rows"]
-                if r["kernel"] == name]
+                + inst["kernel_rows"] if r["kernel"] == name]
         main_row = next(r for r in mine
                         if r.get("shape") == "falcon-7b" and r["causal"])
         kernels.append(dict(
@@ -4009,8 +4861,9 @@ def main(argv=None):
         json.dump(dict(device=kind, nvidia_smi=smi, build=build,
                        edge_rows=erows, kernel_rows=krows, slice=sres,
                        pooled=pres, full_study=fres, sweep=wres, int8=ires,
-                       cli=cres, families=fam, run_100q=qres,
-                       phase_seconds=seconds, kernels=kernels), f, indent=1)
+                       cli=cres, families=fam, run_100q=qres, instruct=inst,
+                       run_instruct_sweep=ires_cli, phase_seconds=seconds,
+                       kernels=kernels), f, indent=1)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -4,6 +4,8 @@
         --model SNAPSHOT --perturbations perturbations.json [--device cuda]
     python -m llm_interpretation_replication_tpu_torch run-100q \\
         --checkpoint-dir DIR [--device cuda]
+    python -m llm_interpretation_replication_tpu_torch run-instruct-sweep \\
+        --checkpoint-dir DIR [--device cuda]
 
 ``run-perturbation`` loads a local HF snapshot (``config.json``, weights as
 safetensors or ``pytorch_model.bin``, a byte-level BPE ``tokenizer.json``)
@@ -14,8 +16,11 @@ ordinary-meaning questions with each base and instruct model of
 ``data_assets/model_pairs_100q.json``, each loaded from its snapshot under
 ``--checkpoint-dir`` (``org/name``, ``org--name`` or a hub cache's
 ``models--org--name/snapshots/*``), and writes
-``<output-dir>/base_vs_instruct_100q_results.csv`` (copies of the reference
-CLI's commands).  Flags of paths the port does not cover yet raise
+``<output-dir>/base_vs_instruct_100q_results.csv``.  ``run-instruct-sweep``
+scores the 100 questions (or ``--questions-file``'s) with each model of
+``data_assets/instruct_sweep_models.json`` (T5 among them) and writes
+``<output-dir>/instruct_model_comparison_results.csv`` (or
+``--results-csv``).  These are copies of the reference CLI's commands.  Flags of paths the port does not cover yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -111,10 +116,10 @@ def _run_config(args):
 def _engine_factory(run_config):
     """model name -> ScoringEngine over its local snapshot.  Under the
     roster-wide ``--attention-impl flash``, a model whose config refuses
-    the causal kernel (``DecoderConfig.flash_refusal``: ALiBi, a sliding
-    window) runs dense, as the reference's loader runs it; each model's
-    impl is named on stderr (``# <model>: attention <impl> (<why>)``)
-    before it loads."""
+    the causal kernel (``flash_refusal``: ALiBi, a sliding window, T5's
+    position bias) runs dense, as the reference's loader runs it; each
+    model's impl is named on stderr (``# <model>: attention <impl>
+    (<why>)``) before it loads."""
     from .models.config import from_hf_config
     from .runtime.engine import EngineConfig, ScoringEngine
     from .runtime.loader import load_hf_config, load_model, load_tokenizer
@@ -159,6 +164,38 @@ def cmd_run_100q(args):
     print(f"{len(rows)} rows")
 
 
+def cmd_run_instruct_sweep(args):
+    from .config import ordinary_meaning_questions
+    from .sweeps import run_instruct_sweep
+
+    rc = _run_config(args)
+    if args.questions_file:
+        if not args.results_csv:
+            raise SystemExit(
+                "--questions-file requires --results-csv: without it the "
+                "custom-question run would overwrite the default sweep's "
+                "instruct_model_comparison_results.csv"
+            )
+        with open(args.questions_file, encoding="utf-8") as f:
+            prompts = [line.strip() for line in f if line.strip()]
+    else:
+        prompts = ordinary_meaning_questions()
+    results_csv = args.results_csv or os.path.join(
+        rc.output_dir, "instruct_model_comparison_results.csv")
+    if args.results_csv:
+        stem = os.path.splitext(os.path.basename(results_csv))[0]
+        checkpoint = os.path.join(rc.output_dir, f"{stem}_checkpoint.json")
+    else:
+        checkpoint = os.path.join(rc.output_dir, "instruct_sweep_checkpoint.json")
+    rows = run_instruct_sweep(
+        _engine_factory(rc),
+        prompts=prompts,
+        checkpoint_path=checkpoint,
+        results_csv=results_csv,
+    )
+    print(f"{len(rows)} rows over {len(prompts)} questions")
+
+
 def cmd_run_perturbation(args):
     from .config import legal_scenarios
     from .gen.rephrase import load_perturbations
@@ -188,6 +225,18 @@ def main(argv=None):
     p = sub.add_parser("run-100q", help="base-vs-instruct 100-question sweep")
     _add_run_config_args(p)
     p.set_defaults(fn=cmd_run_100q)
+
+    p = sub.add_parser("run-instruct-sweep", help="instruct-model roster sweep")
+    _add_run_config_args(p)
+    p.add_argument("--questions-file", default=None,
+                   help="newline-delimited question list (e.g. the survey-2 "
+                        "questions); default: the 100 ordinary-meaning "
+                        "questions")
+    p.add_argument("--results-csv", default=None,
+                   help="output CSV path; the checkpoint file is named after "
+                        "its basename, so two question sets can share an "
+                        "output dir")
+    p.set_defaults(fn=cmd_run_instruct_sweep)
 
     p = sub.add_parser("run-perturbation", help="10k-perturbation local-model sweep")
     _add_run_config_args(p)

@@ -1,7 +1,8 @@
 """Run configuration shared by the port's modules (a copy of what the port
 needs from ``llm_interpretation_replication_tpu/config``): the length
 buckets, the legal scenarios of the perturbation study, the questions and
-model pairs of the 100-question sweep, and ``RunConfig``."""
+model pairs of the 100-question sweep, the instruct-model roster and the
+word-meaning model pairs, and ``RunConfig``."""
 
 from __future__ import annotations
 
@@ -44,6 +45,18 @@ def model_pairs_100q() -> List[dict]:
     """The 6 base/instruct pairs of the 100-question sweep (a byte-identical
     copy of ``data_assets/model_pairs_100q.json``)."""
     return _load("model_pairs_100q.json")
+
+
+def model_pairs_word_meaning() -> List[dict]:
+    """The base/instruct pairs of the word-meaning sweep (a byte-identical
+    copy of ``data_assets/model_pairs_word_meaning.json``)."""
+    return _load("model_pairs_word_meaning.json")
+
+
+def instruct_sweep_models() -> List[str]:
+    """The 10-model instruct roster (a byte-identical copy of
+    ``data_assets/instruct_sweep_models.json``)."""
+    return _load("instruct_sweep_models.json")
 
 
 @dataclasses.dataclass

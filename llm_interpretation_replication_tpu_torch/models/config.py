@@ -1,16 +1,16 @@
-"""Decoder configuration (a copy of what the port needs from
+"""Model configuration (a copy of what the port needs from
 ``llm_interpretation_replication_tpu/models/config.py``): ``DecoderConfig``,
-the GPT-NeoX, Falcon, BLOOM and LLaMA/Mistral family translators,
-``from_hf_config`` for their model types and the two Falcon geometries.
-Other family presets come with the slices that port them."""
+``T5Config``, the GPT-NeoX, Falcon, BLOOM, LLaMA/Mistral, Qwen (first
+generation), Baichuan(2), OPT and T5 family translators, ``from_hf_config``
+for their model types and the two Falcon geometries.  Other family presets
+come with the slices that port them."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 _ITEM_FAMILIES = "ROADMAP.md queue 1, 'Other decoder families'"
-_ITEM_T5 = "ROADMAP.md queue 1, 'T5'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +96,32 @@ class DecoderConfig:
         if self.attention_impl == "auto":
             return seq_len > self.auto_flash_seq and not self.flash_refusal()
         return False
+
+
+@dataclasses.dataclass(frozen=True)
+class T5Config:
+    """Encoder-decoder config of the T0 / tk-instruct / Flan-T5 scoring leg
+    (the engine scores the first decoder tokens)."""
+
+    vocab_size: int
+    d_model: int
+    num_layers: int          # encoder layers
+    num_decoder_layers: int
+    num_heads: int
+    d_kv: int
+    d_ff: int
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    norm_eps: float = 1e-6
+    # T5 v1.1 / T0 use gated-gelu; the original T5 relu
+    feed_forward_proj: str = "gated-gelu"
+    tie_word_embeddings: bool = False
+    decoder_start_token_id: int = 0
+
+    def flash_refusal(self) -> Optional[str]:
+        """Why the causal kernel cannot carry this model's attention: T5
+        adds a relative position bias and scales nothing."""
+        return "T5; the causal kernel takes no position bias"
 
 
 def neox_config(hf) -> DecoderConfig:
@@ -196,6 +222,99 @@ def llama_config(hf) -> DecoderConfig:
     )
 
 
+def qwen_config(hf) -> DecoderConfig:
+    """Qwen-7B(-Chat), first generation (``model_type: "qwen"``): a
+    LLaMA-style RMSNorm + RoPE + SwiGLU block whose HF ``intermediate_size``
+    is twice the MLP width, with a QKV bias and no other bias."""
+    return DecoderConfig(
+        vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size,
+        num_layers=hf.num_hidden_layers,
+        num_heads=hf.num_attention_heads,
+        head_dim=getattr(hf, "kv_channels", None) or hf.hidden_size // hf.num_attention_heads,
+        intermediate_size=hf.intermediate_size // 2,
+        position_embedding="rotary",
+        rope_theta=getattr(hf, "rotary_emb_base", 10000.0),
+        rotary_pct=getattr(hf, "rotary_pct", 1.0),
+        max_position_embeddings=getattr(hf, "seq_length", 8192),
+        norm_type="rmsnorm",
+        norm_eps=hf.layer_norm_epsilon,
+        qkv_bias=True,
+        out_bias=False,
+        mlp_bias=False,
+        fused_qkv=True,
+        mlp_type="gated",
+        activation="silu",
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", False),
+    )
+
+
+def baichuan_config(hf) -> DecoderConfig:
+    """Baichuan(2)-7B/13B(-Chat) (``model_type: "baichuan"``): a LLaMA
+    block with a fused ``W_pack`` QKV; rotary at 7B (32 layers), ALiBi at
+    13B (40), and Baichuan2's NormHead when the vocabulary is over 100k."""
+    is_13b = hf.num_hidden_layers >= 40
+    return DecoderConfig(
+        vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size,
+        num_layers=hf.num_hidden_layers,
+        num_heads=hf.num_attention_heads,
+        intermediate_size=hf.intermediate_size,
+        position_embedding="alibi" if is_13b else "rotary",
+        max_position_embeddings=getattr(hf, "max_position_embeddings", None)
+        or getattr(hf, "model_max_length", 4096),
+        norm_type="rmsnorm",
+        norm_eps=hf.rms_norm_eps,
+        qkv_bias=False,
+        out_bias=False,
+        mlp_bias=False,
+        fused_qkv=True,
+        mlp_type="gated",
+        activation="silu",
+        norm_head=hf.vocab_size > 100_000,  # Baichuan2
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", False),
+    )
+
+
+def opt_config(hf) -> DecoderConfig:
+    """OPT / OPT-IML: learned positions stored with a +2 offset, biases
+    everywhere."""
+    return DecoderConfig(
+        vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size,
+        num_layers=hf.num_hidden_layers,
+        num_heads=hf.num_attention_heads,
+        intermediate_size=hf.ffn_dim,
+        position_embedding="learned",
+        learned_pos_offset=2,
+        max_position_embeddings=hf.max_position_embeddings,
+        norm_eps=1e-5,
+        qkv_bias=True,
+        out_bias=True,
+        mlp_bias=True,
+        activation=_act(hf.activation_function),
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", True),
+    )
+
+
+def t5_config(hf) -> T5Config:
+    return T5Config(
+        vocab_size=hf.vocab_size,
+        d_model=hf.d_model,
+        num_layers=hf.num_layers,
+        num_decoder_layers=getattr(hf, "num_decoder_layers", hf.num_layers),
+        num_heads=hf.num_heads,
+        d_kv=hf.d_kv,
+        d_ff=hf.d_ff,
+        relative_attention_num_buckets=hf.relative_attention_num_buckets,
+        relative_attention_max_distance=getattr(hf, "relative_attention_max_distance", 128),
+        norm_eps=hf.layer_norm_epsilon,
+        feed_forward_proj="gated-gelu" if getattr(hf, "is_gated_act", False) else _act(hf.dense_act_fn),
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", True),
+        decoder_start_token_id=hf.decoder_start_token_id or 0,
+    )
+
+
 def _act(name: str) -> str:
     return {
         "gelu": "gelu",
@@ -217,19 +336,22 @@ FAMILY_BY_MODEL_TYPE = {
     "bloom": ("bloom", bloom_config),
     "llama": ("llama", llama_config),
     "mistral": ("llama", llama_config),
+    "qwen": ("qwen", qwen_config),
+    "baichuan": ("baichuan", baichuan_config),
+    "opt": ("opt", opt_config),
+    "t5": ("t5", t5_config),
 }
 
 
-def from_hf_config(hf) -> Tuple[str, DecoderConfig]:
+def from_hf_config(hf) -> Tuple[str, Union[DecoderConfig, T5Config]]:
     """Map a HF config (any object with its attributes) to (family, our
-    config).  GPT-NeoX, Falcon, BLOOM and LLaMA/Mistral model types are
-    ported; another raises ``NotImplementedError`` naming its ROADMAP.md
-    item."""
+    config).  GPT-NeoX, Falcon, BLOOM, LLaMA/Mistral, Qwen, Baichuan, OPT
+    and T5 model types are ported; another raises ``NotImplementedError``
+    naming its ROADMAP.md item."""
     mt = getattr(hf, "model_type", None)
     if mt not in FAMILY_BY_MODEL_TYPE:
-        item = _ITEM_T5 if mt == "t5" else _ITEM_FAMILIES
         raise NotImplementedError(
-            f"model_type {mt!r} is not ported yet ({item})")
+            f"model_type {mt!r} is not ported yet ({_ITEM_FAMILIES})")
     family, translate = FAMILY_BY_MODEL_TYPE[mt]
     return family, translate(hf)
 

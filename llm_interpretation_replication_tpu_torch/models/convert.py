@@ -14,6 +14,7 @@ fused-QKV splits, on tensors), so both load paths meet in one
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict
 
 import numpy as np
@@ -21,20 +22,22 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..ops import quant as qops
-from .config import DecoderConfig
+from .config import DecoderConfig, T5Config
 from .decoder import DecoderWeights, _flatten
+from .t5 import T5Weights
 
 
-def params_from_jax(params_np: Dict, cfg: DecoderConfig, device=DEFAULT_DEVICE,
+def params_from_jax(params_np: Dict, cfg, device=DEFAULT_DEVICE,
                     dtype="bf16") -> DecoderWeights:
     """The reference's param tree (``embed.tokens``, ``layers.{ln1, ln2,
     attn.{wq,wk,wv,wo}, mlp.{wi,wo}}``, ``final_ln``, optional ``lm_head``;
-    leaves are numpy arrays or anything ``np.asarray`` takes) -> the port's
-    weights on ``device`` in ``dtype``.  A tied model keeps no ``lm_head``:
-    the unembedding reads ``embed.tokens.T``, as in the reference.  A
-    quantized tree (``ops/quant.quantize_decoder_params_np``) keeps its int8
-    weights int8 and its ``*_qscale`` scales float32, as the reference's
-    loader does."""
+    or, for a ``T5Config``, the T5 tree of ``models/t5.py``; leaves are
+    numpy arrays or anything ``np.asarray`` takes) -> the port's weights
+    (``DecoderWeights`` or ``T5Weights``) on ``device`` in ``dtype``.  A
+    tied model keeps no ``lm_head``: the unembedding reads the embedding
+    table, as in the reference.  A quantized tree
+    (``ops/quant.quantize_decoder_params_np``) keeps its int8 weights int8
+    and its ``*_qscale`` scales float32, as the reference's loader does."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     tree: Dict = {}
@@ -54,22 +57,28 @@ def params_from_jax(params_np: Dict, cfg: DecoderConfig, device=DEFAULT_DEVICE,
         node[path[-1]] = t
     if "lm_head" not in tree and not cfg.tie_word_embeddings:
         raise ValueError("untied config but the param tree has no lm_head")
-    return DecoderWeights(cfg, tree)
+    holder = T5Weights if isinstance(cfg, T5Config) else DecoderWeights
+    return holder(cfg, tree)
 
 
-def random_params(cfg: DecoderConfig, seed: int = 0, device=DEFAULT_DEVICE,
+def random_params(cfg, seed: int = 0, device=DEFAULT_DEVICE,
                   dtype="bf16", scale: float = 0.02,
                   quant: str = "none") -> DecoderWeights:
     """Random weights at the config's full width, made on ``device`` from a
     ``torch.Generator`` seeded with ``seed``: projections and embeddings are
     N(0, scale^2), norms are scale 1 / bias 0; projection biases, which
-    would be zero, are left out (the forward adds none).
+    would be zero, are left out (the forward adds none).  A ``T5Config``
+    gets T5's own initialization instead (:func:`random_t5_state_dict`
+    through :func:`convert_t5`; ``scale`` and ``quant`` do not apply).
 
     ``quant="int8"`` quantizes each projection (w8a8,
     ``ops.quant.quantize_weight``) one layer at a time right after it is drawn,
     as the loader does with ``quant='int8'``, so the full ``dtype`` copy
     never sits on the device beside the int8 one; the values drawn are those
     of ``quant="none"`` with the same seed."""
+    if isinstance(cfg, T5Config):
+        sd = random_t5_state_dict(cfg, seed, device, dtype)
+        return T5Weights(cfg, convert_t5(sd.__getitem__, cfg))
     if quant not in ("none", "int8"):
         raise ValueError(f"unknown quant mode {quant!r}")
     dev = resolve_device(device)
@@ -305,6 +314,220 @@ def convert_llama(get: Getter, cfg: DecoderConfig) -> Dict:
     return params
 
 
+def _split_concat_qkv(w: torch.Tensor, b=None):
+    """Straight-concatenated fused QKV (Qwen-1's ``c_attn``, Baichuan's
+    ``W_pack``): rows ``[q (all heads); k; v]``.  ``w`` ``[3*N*D, H]`` ->
+    (wq, wk, wv) each ``[H, N*D]``, and ``b`` -> (bq, bk, bv)."""
+    ws = tuple(part.t().contiguous() for part in torch.chunk(w, 3, dim=0))
+    if b is None:
+        return ws, (None, None, None)
+    return ws, tuple(part.contiguous() for part in torch.chunk(b, 3))
+
+
+def convert_qwen(get: Getter, cfg: DecoderConfig) -> Dict:
+    """A Qwen-7B (first generation) checkpoint -> the stacked param tree:
+    ``transformer.h.{i}`` with ``ln_1``/``ln_2``, the fused ``attn.c_attn``
+    with its bias, and the ``w1``/``w2``/``c_proj`` gated MLP, whose SiLU
+    acts on ``w2`` (our gate; ``w1`` is the up projection)."""
+    L = range(cfg.num_layers)
+    pre = "transformer.h.{i}"
+    split = [_split_concat_qkv(get(f"transformer.h.{i}.attn.c_attn.weight"),
+                               get(f"transformer.h.{i}.attn.c_attn.bias"))
+             for i in L]
+    attn = {}
+    for j, name in enumerate(("q", "k", "v")):
+        attn["w" + name] = torch.stack([ws[j] for ws, _ in split])
+        attn["b" + name] = torch.stack([bs[j] for _, bs in split])
+    del split
+    attn["wo"] = _stack_linear(get, pre + ".attn.c_proj", L)
+    params = {
+        "embed": {"tokens": get("transformer.wte.weight")},
+        "layers": {
+            "ln1": _ln(get, pre + ".ln_1", L, bias=False),
+            "ln2": _ln(get, pre + ".ln_2", L, bias=False),
+            "attn": attn,
+            "mlp": {
+                "wg": _stack_linear(get, pre + ".mlp.w2", L),
+                "wi": _stack_linear(get, pre + ".mlp.w1", L),
+                "wo": _stack_linear(get, pre + ".mlp.c_proj", L),
+            },
+        },
+        "final_ln": _ln(get, "transformer.ln_f", bias=False),
+    }
+    head = _maybe(get, "lm_head.weight")
+    if head is not None and not cfg.tie_word_embeddings:
+        params["lm_head"] = head.t().contiguous()
+    return params
+
+
+def convert_baichuan(get: Getter, cfg: DecoderConfig) -> Dict:
+    """A Baichuan(2) checkpoint: LLaMA names but for the fused
+    ``self_attn.W_pack`` QKV, so :func:`convert_llama` reads it through a
+    getter that splits it.  With ``cfg.norm_head`` (Baichuan2) each vocab
+    column of the transposed ``lm_head`` ``[H, V]`` is L2-normalized in
+    float32 and stored back in the checkpoint's dtype: the model
+    normalizes on every forward, and static weights make that exact at
+    conversion."""
+
+    def get_split(name: str) -> torch.Tensor:
+        m = re.fullmatch(r"model\.layers\.(\d+)\.self_attn\.([qkv])_proj\.weight",
+                         name)
+        if m is None:
+            return get(name)
+        packed = get(f"model.layers.{m.group(1)}.self_attn.W_pack.weight")
+        return torch.chunk(packed, 3, dim=0)["qkv".index(m.group(2))]
+
+    params = convert_llama(get_split, cfg)
+    if cfg.norm_head and "lm_head" in params:
+        head = params["lm_head"]
+        h32 = head.float()
+        params["lm_head"] = (h32 / torch.linalg.vector_norm(
+            h32, dim=0, keepdim=True).clamp(min=1e-12)).to(head.dtype)
+    return params
+
+
+def convert_opt(get: Getter, cfg: DecoderConfig) -> Dict:
+    """An OPT checkpoint -> the stacked param tree.  The stored position
+    table already holds the +2 offset (the decoder adds
+    ``cfg.learned_pos_offset`` back to the positions)."""
+    L = range(cfg.num_layers)
+    pre = "model.decoder"
+    lay = pre + ".layers.{i}"
+    attn = {f"w{n}": _stack_linear(get, f"{lay}.self_attn.{n}_proj", L)
+            for n in ("q", "k", "v")}
+    attn.update({f"b{n}": _stack_get(get, f"{lay}.self_attn.{n}_proj.bias", L)
+                 for n in ("q", "k", "v")})
+    attn["wo"] = _stack_linear(get, lay + ".self_attn.out_proj", L)
+    attn["bo"] = _stack_get(get, lay + ".self_attn.out_proj.bias", L)
+    return {
+        "embed": {"tokens": get(f"{pre}.embed_tokens.weight"),
+                  "pos": get(f"{pre}.embed_positions.weight")},
+        "layers": {
+            "ln1": _ln(get, lay + ".self_attn_layer_norm", L),
+            "ln2": _ln(get, lay + ".final_layer_norm", L),
+            "attn": attn,
+            "mlp": {
+                "wi": _stack_linear(get, lay + ".fc1", L),
+                "bi": _stack_get(get, lay + ".fc1.bias", L),
+                "wo": _stack_linear(get, lay + ".fc2", L),
+                "bo": _stack_get(get, lay + ".fc2.bias", L),
+            },
+        },
+        "final_ln": _ln(get, f"{pre}.final_layer_norm"),
+    }
+
+
+def convert_t5(get: Getter, cfg: T5Config) -> Dict:
+    """A HF ``T5ForConditionalGeneration`` checkpoint (T5, T0, tk-instruct,
+    Flan-T5) -> the stacked T5 tree of ``models/t5.py``."""
+    gated = cfg.feed_forward_proj == "gated-gelu"
+    mlp_names = (("wi0", "wi_0"), ("wi1", "wi_1"), ("wo", "wo")) if gated \
+        else (("wi", "wi"), ("wo", "wo"))
+
+    def stack(prefix, n_layers):
+        L = range(n_layers)
+        return lambda name: _stack_linear(get, f"{prefix}.{{i}}.{name}", L)
+
+    def attn(lin, part):
+        return {f"w{n}": lin(f"{part}.{n}") for n in ("q", "k", "v", "o")}
+
+    def scales(prefix, n_layers, j):
+        return {"scale": _stack_get(get, f"{prefix}.{{i}}.layer.{j}.layer_norm.weight",
+                                    range(n_layers))}
+
+    enc = stack("encoder.block", cfg.num_layers)
+    dec = stack("decoder.block", cfg.num_decoder_layers)
+    Ld = cfg.num_decoder_layers
+    params = {
+        "shared": get("shared.weight"),
+        "encoder": {
+            "rel_bias": get("encoder.block.0.layer.0.SelfAttention."
+                            "relative_attention_bias.weight"),
+            "layers": {
+                "ln1": scales("encoder.block", cfg.num_layers, 0),
+                "ln2": scales("encoder.block", cfg.num_layers, 1),
+                "attn": attn(enc, "layer.0.SelfAttention"),
+                "mlp": {k: enc(f"layer.1.DenseReluDense.{n}")
+                        for k, n in mlp_names},
+            },
+            "final_ln": {"scale": get("encoder.final_layer_norm.weight")},
+        },
+        "decoder": {
+            "rel_bias": get("decoder.block.0.layer.0.SelfAttention."
+                            "relative_attention_bias.weight"),
+            "layers": {
+                "ln1": scales("decoder.block", Ld, 0),
+                "ln2": scales("decoder.block", Ld, 1),
+                "ln3": scales("decoder.block", Ld, 2),
+                "self_attn": attn(dec, "layer.0.SelfAttention"),
+                "cross_attn": attn(dec, "layer.1.EncDecAttention"),
+                "mlp": {k: dec(f"layer.2.DenseReluDense.{n}")
+                        for k, n in mlp_names},
+            },
+            "final_ln": {"scale": get("decoder.final_layer_norm.weight")},
+        },
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = get("lm_head.weight").t().contiguous()
+    return params
+
+
+def random_t5_state_dict(cfg: T5Config, seed: int = 0, device=DEFAULT_DEVICE,
+                         dtype="bf16") -> Dict[str, torch.Tensor]:
+    """A random checkpoint of ``cfg`` under ``T5ForConditionalGeneration``'s
+    tensor names, made on ``device`` from a generator seeded with ``seed``
+    at T5's initialization scales (HF ``T5PreTrainedModel._init_weights``
+    with factor 1): embeddings N(0, 1); q N(0, (d_model*d_kv)^-1), k and v
+    N(0, d_model^-1), o N(0, (N*d_kv)^-1); the MLP's input projections
+    N(0, d_model^-1), its output N(0, d_ff^-1); the relative-bias tables
+    N(0, d_model^-1); norm scales 1.  T5 has no attention scale, so
+    unit-normal projections would overflow bf16 at full depth.  An untied
+    head is drawn at N(0, d_model^-1), the scale a tied model's output
+    gets (HF draws it at 1, which puts random logits at a standard
+    deviation of sqrt(d_model), 45 at T0_3B's width)."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d, n, dk, f = cfg.d_model, cfg.num_heads, cfg.d_kv, cfg.d_ff
+    sd: Dict[str, torch.Tensor] = {}
+
+    def rnd(name, std, *shape):
+        sd[name] = torch.randn(shape, generator=gen, device=dev,
+                               dtype=dt).mul_(std)
+
+    def ones(name):
+        sd[name] = torch.ones(d, device=dev, dtype=dt)
+
+    gated = cfg.feed_forward_proj == "gated-gelu"
+    rnd("shared.weight", 1.0, cfg.vocab_size, d)
+    for side, n_layers, parts in (
+            ("encoder", cfg.num_layers, ("SelfAttention", "DenseReluDense")),
+            ("decoder", cfg.num_decoder_layers,
+             ("SelfAttention", "EncDecAttention", "DenseReluDense"))):
+        rnd(f"{side}.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+            d ** -0.5, cfg.relative_attention_num_buckets, n)
+        for i in range(n_layers):
+            for j, part in enumerate(parts):
+                pre = f"{side}.block.{i}.layer.{j}"
+                ones(f"{pre}.layer_norm.weight")
+                if part == "DenseReluDense":
+                    for name in (("wi_0", "wi_1") if gated else ("wi",)):
+                        rnd(f"{pre}.{part}.{name}.weight", d ** -0.5, f, d)
+                    rnd(f"{pre}.{part}.wo.weight", f ** -0.5, d, f)
+                    continue
+                rnd(f"{pre}.{part}.q.weight", (d * dk) ** -0.5, n * dk, d)
+                rnd(f"{pre}.{part}.k.weight", d ** -0.5, n * dk, d)
+                rnd(f"{pre}.{part}.v.weight", d ** -0.5, n * dk, d)
+                rnd(f"{pre}.{part}.o.weight", (n * dk) ** -0.5, d, n * dk)
+        ones(f"{side}.final_layer_norm.weight")
+    if not cfg.tie_word_embeddings:
+        rnd("lm_head.weight", d ** -0.5, cfg.vocab_size, d)
+    return sd
+
+
 #: family -> checkpoint converter, for the families ported
 CONVERTERS = {"neox": convert_neox, "falcon": convert_falcon,
-              "bloom": convert_bloom, "llama": convert_llama}
+              "bloom": convert_bloom, "llama": convert_llama,
+              "qwen": convert_qwen, "baichuan": convert_baichuan,
+              "opt": convert_opt, "t5": convert_t5}

@@ -19,7 +19,14 @@ the port honours:
    ``scoring.confidence.weighted_confidence_digits``.
 
 ``first_token_relative_prob`` reads only the position-0 probabilities, one
-forward a batch.  A prompt bucket longer than ``prefill_chunk`` (when set)
+forward a batch.
+
+A T5 encoder-decoder (family ``"t5"``, ``models.t5``) scores per batch
+through one greedy decode (``_score_encdec``): the decoder re-runs its short
+prefix each step, the scan reads the first ``max_look_ahead`` steps, and
+the completion is the whole decode; ``score_prefixed`` scores each leg over
+the joined token streams.  The decoder-only entries (slotted scoring, KV
+slabs) refuse it, as in the reference.  A prompt bucket longer than ``prefill_chunk`` (when set)
 prefills in chunks (``models.decoder.chunked_prefill``).
 
 ``score_prefixed`` (and ``(prefix, suffix)`` prompts) prefill each batch's
@@ -71,6 +78,7 @@ import torch
 from ..config import DEFAULT_BUCKETS
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import decoder as dmod
+from ..models import t5 as t5mod
 from ..scoring import confidence as conf_mod
 from ..scoring import yes_no as yn
 from ..utils.telemetry import record_counter, record_fault
@@ -79,7 +87,6 @@ from . import plan as plan_mod
 from . import slots as slots_mod
 
 _ITEM_KDEC = "ROADMAP.md queue 1, 'K-decode'"
-_ITEM_T5 = "ROADMAP.md queue 1, 'T5'"
 _ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
 
 
@@ -144,7 +151,6 @@ def _check_supported(family, ecfg: EngineConfig, mesh) -> None:
     if ecfg.kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_dtype {ecfg.kv_dtype!r}")
     unsupported = [
-        (family == "t5", "encoder-decoder models", _ITEM_T5),
         (mesh is not None, "a device mesh", _ITEM_PAR),
         (int(ecfg.decode_k) > 1, "decode_k > 1", _ITEM_KDEC),
     ]
@@ -296,7 +302,8 @@ class ScoringEngine:
         _check_supported(family, ecfg, mesh)
         # the KV storage dtype lives on the decoder config: resolve the
         # engine knob into it once, at construction
-        if ecfg.kv_dtype != "bf16" and cfg.kv_cache_dtype != ecfg.kv_dtype:
+        if (ecfg.kv_dtype != "bf16" and hasattr(cfg, "kv_cache_dtype")
+                and cfg.kv_cache_dtype != ecfg.kv_dtype):
             cfg = dataclasses.replace(cfg, kv_cache_dtype=ecfg.kv_dtype)
         self.family = family
         self.cfg = cfg
@@ -355,8 +362,13 @@ class ScoringEngine:
 
     # -- helpers ---------------------------------------------------------
 
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.family == "t5"
+
     def target_ids(self, targets: Sequence[str]) -> List[int]:
-        return yn.target_token_ids(self.tokenizer, targets, False)
+        return yn.target_token_ids(self.tokenizer, targets,
+                                   self.is_encoder_decoder)
 
     def _target_id_rows(self, prompts, targets) -> np.ndarray:
         """``targets`` -> per-prompt [(yes_id, no_id)]: one (yes, no) string
@@ -605,6 +617,9 @@ class ScoringEngine:
             return self.score_prefixed(
                 [(p[0], (p[1],)) for p in prompts], targets=targets,
                 legs=[leg])[0]
+        if self.is_encoder_decoder:
+            return self._score_encdec(prompts, targets, with_confidence,
+                                      max_new_tokens)
         ecfg = self.ecfg
         ids_all = self._target_id_rows(prompts, targets)   # [N, 2]
         eos_id = getattr(self.tokenizer, "eos_token_id", None)
@@ -665,8 +680,76 @@ class ScoringEngine:
             return [[] for _ in legs]
         prefix_encoded, suffix_encoded = batching.encode_prefix_pairs(
             self.tokenizer, pairs)
+        if self.is_encoder_decoder:
+            # T5 has no decoder-side prompt cache to extend (the encoder
+            # reads the whole prompt every leg): each leg scores the joined
+            # token streams, tokenized once
+            return [
+                self.score_prompts(
+                    [list(p) + list(s) for p, s in
+                     zip(prefix_encoded, suffix_encoded[li])],
+                    targets=targets, with_confidence=leg.with_confidence,
+                    max_new_tokens=leg.max_new_tokens)
+                for li, leg in enumerate(legs)
+            ]
         return self._score_decoder_prefixed(prefix_encoded, suffix_encoded,
                                             targets, legs)
+
+    def _score_encdec(self, prompts, targets, with_confidence,
+                      max_new_tokens=None) -> List[Dict]:
+        """T5: one greedy decode a batch (``models.t5.greedy_decode``, the
+        decoder re-running its short prefix each step) of ``max_new_tokens``
+        steps when completions are recorded, scored over the first
+        ``max_look_ahead`` steps only; the scan stops at a row's EOS."""
+        ecfg = self.ecfg
+        ids_all = self._target_id_rows(prompts, targets)
+        eos_id = getattr(self.tokenizer, "eos_token_id", None)
+        encoded = batching.encode_prompts(self.tokenizer, prompts)
+        results: List[Optional[Dict]] = [None] * len(prompts)
+        steps, gen_total = self._gen_plan(max_new_tokens)
+
+        def launch(batch):
+            ids = self._tensor(batch.token_ids, torch.int64)
+            mask = self._tensor(batch.attention_mask, torch.int32)
+            tokens, scores = t5mod.greedy_decode(
+                self.params, self.cfg, ids, mask, num_steps=gen_total,
+                eos_token_id=eos_id, score_steps=steps)
+            row_ids = self._tensor(self._batch_target_rows(ids_all, batch),
+                                   torch.int64)
+            res = yn.yes_no_from_scores(
+                scores, row_ids[:, 0], row_ids[:, 1],
+                max_look_ahead=ecfg.max_look_ahead, top_k=ecfg.top_k,
+                valid_steps=yn.steps_until_eos(tokens[:, :steps], eos_id))
+            first3 = yn.relative_prob_first_token(
+                scores[:, 0, :], row_ids[:, 0], row_ids[:, 1],
+                ecfg.first_token_top_filter)
+            # the confidence leg needs only 3 x 19 candidates a row
+            conf = _confidence_topk(scores) if with_confidence else ()
+            return _HostCopy((tokens, *(getattr(res, f) for f in _SCAN_FIELDS),
+                              *first3, *conf))
+
+        def consume(batch, out):
+            tokens, *rest = out.numpy()
+            scan, first3 = rest[:5], rest[5:8]
+            conf_lp, conf_idx = rest[8:] if with_confidence else (None, None)
+            for r, orig in enumerate(batch.indices):
+                if orig < 0:
+                    continue
+                completion = ""
+                if ecfg.decode_completions:
+                    completion = self._completion_text(tokens[r], eos_id)
+                row = _attach_first_token(
+                    _result_row(*(a[r] for a in scan), completion), first3, r)
+                if with_confidence:
+                    row["weighted_confidence"] = \
+                        conf_mod.weighted_confidence_digits(
+                            self._candidates_from_topk(conf_lp[r],
+                                                       conf_idx[r]))
+                results[int(orig)] = row
+
+        self._run_pipelined(self._batches(encoded), launch, consume,
+                            rebatch=self._oom_rebatch(encoded))
+        return [r if r is not None else _error_row("missing") for r in results]
 
     def _score_decoder_prefixed(self, prefix_encoded, suffix_encoded,
                                 targets, legs) -> List[List[Dict]]:
@@ -1263,6 +1346,9 @@ class ScoringEngine:
         route: verdicts identical, probabilities in the chunked-prefill fp32
         class (PARITY.md "Decode-then-repack")."""
         self._check_open()
+        if self.is_encoder_decoder:
+            raise ValueError("slotted scoring is decoder-only (T5 has no "
+                             "decoder-side prompt cache to refill)")
         eos_id = getattr(self.tokenizer, "eos_token_id", None)
         steps, _ = self._gen_plan()
         results: List[Optional[Dict]] = []
@@ -1379,6 +1465,9 @@ class ScoringEngine:
         (PARITY.md "Cross-replica KV handoff"): the round trip moves bytes,
         not values."""
         self._check_open()
+        if self.is_encoder_decoder:
+            raise ValueError("KV slab export is decoder-only (T5 has no "
+                             "decoder-side prompt cache to hand off)")
         results: List[Optional[Dict]] = [None] * len(prompts)
         slabs: List[slots_mod.KVSlab] = []
         ids_all = self._target_id_rows(prompts, targets)
@@ -1408,6 +1497,8 @@ class ScoringEngine:
         ``orig`` map them back.  ``admit_fn()`` may return more slabs
         between decode chunks, as in :meth:`score_prompts_slotted`."""
         self._check_open()
+        if self.is_encoder_decoder:
+            raise ValueError("KV slab decode is decoder-only")
         eos_id = getattr(self.tokenizer, "eos_token_id", None)
         steps, _ = self._gen_plan()
         results: List[Optional[Dict]] = []
@@ -1463,10 +1554,18 @@ class ScoringEngine:
         out = np.zeros((len(prompts), 3), np.float64)
 
         def launch(batch):
-            logits = dmod.forward_last_logits(
-                self.params, self.cfg,
-                self._tensor(batch.token_ids, torch.int64),
-                self._tensor(batch.attention_mask, torch.int32))
+            ids = self._tensor(batch.token_ids, torch.int64)
+            mask = self._tensor(batch.attention_mask, torch.int32)
+            if self.is_encoder_decoder:
+                # one decoder step from the start token
+                dec = torch.full((ids.shape[0], 1),
+                                 self.cfg.decoder_start_token_id,
+                                 dtype=torch.int64, device=self.device)
+                logits = t5mod.forward(self.params, self.cfg, ids, mask,
+                                       dec)[:, 0, :]
+            else:
+                logits = dmod.forward_last_logits(self.params, self.cfg, ids,
+                                                  mask)
             row_ids = self._tensor(self._batch_target_rows(ids_all, batch),
                                    torch.int64)
             return _HostCopy(yn.relative_prob_first_token(

@@ -19,6 +19,7 @@ import json
 import os
 import struct
 import types
+import warnings
 from typing import Dict, Tuple
 
 import numpy as np
@@ -28,6 +29,7 @@ from ..device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..models import config as mcfg
 from ..models import convert as mconvert
 from ..models.decoder import DecoderWeights
+from ..models.t5 import T5Weights
 from ..ops import quant as qops
 from ..utils.tokenizer import load_tokenizer
 
@@ -159,8 +161,9 @@ def _cast(tree: Dict, dtype: torch.dtype, key: str = "") -> Dict:
 
 def load_model(path: str, dtype="bf16", quant: str = "none",
                attention_impl=None, device=DEFAULT_DEVICE
-               ) -> Tuple[str, mcfg.DecoderConfig, DecoderWeights]:
-    """(family, config, weights on ``device``) from a local snapshot dir.
+               ) -> Tuple[str, object, DecoderWeights]:
+    """(family, config, weights on ``device``) from a local snapshot dir:
+    ``DecoderWeights`` for a decoder-only family, ``T5Weights`` for T5.
 
     ``quant='int8'`` quantizes the projection weights (w8a8,
     ``ops.quant.quantize_decoder_params``) from the checkpoint's own values
@@ -168,16 +171,25 @@ def load_model(path: str, dtype="bf16", quant: str = "none",
     embeddings and norms keep ``dtype``.  ``attention_impl`` sets the
     config's; an explicit ``"flash"`` on a model the kernel cannot take
     (ALiBi, a sliding window) raises ``ValueError`` rather than running the
-    plain path."""
+    plain path.  T5 ignores ``attention_impl``, and under ``quant='int8'``
+    warns and loads ``dtype`` weights, as the reference does, so that a
+    roster-wide ``--attention-impl flash --quant int8`` runs its T5
+    models."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     if quant not in ("none", "int8"):
         raise ValueError(f"unknown quant mode {quant!r}")
     family, cfg = mcfg.from_hf_config(load_hf_config(path))
-    if attention_impl:
+    is_t5 = family == "t5"
+    if attention_impl and not is_t5:
         cfg = dataclasses.replace(cfg, attention_impl=attention_impl)
     ckpt = CheckpointDir(path)
     tree = mconvert.CONVERTERS[family](lambda name: ckpt.get(name).to(dev), cfg)
     if quant == "int8":
-        tree = qops.quantize_decoder_params(tree)
-    return family, cfg, DecoderWeights(cfg, _cast(tree, dt))
+        if is_t5:
+            warnings.warn(f"int8 quantization unsupported for T5 family "
+                          f"({path}); loading {dtype}")
+        else:
+            tree = qops.quantize_decoder_params(tree)
+    holder = T5Weights if is_t5 else DecoderWeights
+    return family, cfg, holder(cfg, _cast(tree, dt))

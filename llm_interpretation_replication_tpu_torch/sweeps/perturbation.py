@@ -32,7 +32,7 @@ from ..runtime.batching import HostPrefetcher
 from ..runtime.engine import LegSpec
 from ..scoring.confidence import extract_first_int
 from ..utils.checkpoint import append_jsonl
-from ..utils.logging import SessionLogger
+from ..utils.logging import SessionLogger, heartbeat
 from ..utils.telemetry import counters, counters_since, record_fault
 from ..utils.xlsx import read_xlsx, write_xlsx
 from .writers import PERTURBATION_COLUMNS, perturbation_row
@@ -56,16 +56,6 @@ def _closing(prefetcher):
 
 def _row_key(row: Dict) -> Tuple:
     return (row["Model"], row["Original Main Part"], row["Rephrased Main Part"])
-
-
-def _heartbeat(label: str, done: int, total: int, elapsed_s: float,
-               log) -> None:
-    """Log the sweep's progress line (the reference's ``[heartbeat]``
-    format)."""
-    rate = done / elapsed_s if elapsed_s > 0 else 0.0
-    eta = (total - done) / rate if rate > 0 else 0.0
-    log(f"[heartbeat] {label}: {done}/{total} rows "
-        f"| {rate:.2f} rows/s | ETA {eta:.0f}s")
 
 
 def load_existing_rows(output_xlsx: str) -> Tuple[List[Dict], set]:
@@ -342,8 +332,8 @@ def run_model_perturbation_sweep(
                 if len(pending) >= checkpoint_every:
                     flush()
             done_rows += len(chunk)
-            _heartbeat(model_name, done_rows, total_rows,
-                       time.perf_counter() - sweep_t0, log)
+            heartbeat(model_name, done_rows, total_rows,
+                      time.perf_counter() - sweep_t0, log)
         flush(final=True)
     delta = counters_since(counters_snap)
     if delta.get("kv_cache_bytes_saved") or delta.get("prefill_chunks"):

@@ -1,7 +1,9 @@
 """Schema-exact result rows (a copy of ``sweeps/writers.py``'s
-``PERTURBATION_COLUMNS``, ``perturbation_row``, ``model_family_from_name``
-and ``BASE_VS_INSTRUCT_100Q_COLUMNS``) and a CSV writer that writes the
-bytes ``pandas.DataFrame(rows)[columns].to_csv(path, index=False)`` writes.
+``PERTURBATION_COLUMNS``, ``perturbation_row``, ``model_family_from_name``,
+``BASE_VS_INSTRUCT_100Q_COLUMNS``, ``MODEL_COMPARISON_COLUMNS`` and
+``INSTRUCT_COMPARISON_COLUMNS``, with the two comparison frames as row
+lists) and a CSV writer that writes the bytes
+``pandas.DataFrame(rows)[columns].to_csv(path, index=False)`` writes.
 
 Downstream statistics key on these exact column names, so the workbook and
 the CSV are drop-in replacements for the study's own.
@@ -42,6 +44,19 @@ BASE_VS_INSTRUCT_100Q_COLUMNS = [
 ]
 
 
+#: model_comparison_results.csv columns (the word-meaning sweep), in order
+MODEL_COMPARISON_COLUMNS = [
+    "prompt", "model", "model_family", "base_or_instruct", "model_output",
+    "yes_prob", "no_prob", "odds_ratio",
+]
+
+#: instruct_model_comparison_results.csv columns, in order
+INSTRUCT_COMPARISON_COLUMNS = [
+    "prompt", "model", "model_family", "model_output",
+    "yes_prob", "no_prob", "relative_prob",
+]
+
+
 def model_family_from_name(model_name: str) -> str:
     """``org/model-name`` -> family slug."""
     tail = model_name.split("/")[1] if "/" in model_name else model_name
@@ -78,6 +93,50 @@ def perturbation_row(
         "Confidence Value": confidence_value,
         "Weighted Confidence": weighted_confidence,
     }
+
+
+def model_comparison_frame(outputs: Dict[str, Dict[str, Dict]],
+                           model_pairs) -> List[Dict]:
+    """``outputs[model][prompt]`` -> result dict, over (base, instruct)
+    pairs -> the rows of ``MODEL_COMPARISON_COLUMNS``."""
+    data = []
+    for pair in model_pairs:
+        base_name, instruct_name = pair[0], pair[1]
+        for model_name in (base_name, instruct_name):
+            family = model_family_from_name(model_name)
+            role = "base" if model_name == base_name else "instruct"
+            for prompt, result in outputs.get(model_name, {}).items():
+                data.append({
+                    "prompt": prompt,
+                    "model": model_name,
+                    "model_family": family,
+                    "base_or_instruct": role,
+                    "model_output": result.get("completion", "N/A"),
+                    "yes_prob": result.get("yes_prob", float("nan")),
+                    "no_prob": result.get("no_prob", float("nan")),
+                    "odds_ratio": result.get("odds_ratio", float("nan")),
+                })
+    return data
+
+
+def instruct_comparison_frame(outputs: Dict[str, Dict[str, Dict]],
+                              models: Sequence[str]) -> List[Dict]:
+    """``outputs[model][prompt]`` -> result dict -> the rows of
+    ``INSTRUCT_COMPARISON_COLUMNS``, in roster order."""
+    data = []
+    for model_name in models:
+        family = model_family_from_name(model_name)
+        for prompt, result in outputs.get(model_name, {}).items():
+            data.append({
+                "prompt": prompt,
+                "model": model_name,
+                "model_family": family,
+                "model_output": result.get("completion", "N/A"),
+                "yes_prob": result.get("yes_prob", float("nan")),
+                "no_prob": result.get("no_prob", float("nan")),
+                "relative_prob": result.get("relative_prob", float("nan")),
+            })
+    return data
 
 
 def _is_null(v) -> bool:

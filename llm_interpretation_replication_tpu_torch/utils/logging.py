@@ -1,5 +1,7 @@
 """Session logging (a copy of ``utils/logging.py``'s ``SessionLogger``):
-stdout plus an optional file tee."""
+stdout plus an optional file tee; and the sweep shells' ``[heartbeat]``
+progress line (the reference's ``obs.metrics.heartbeat`` line, without its
+gauges)."""
 
 from __future__ import annotations
 
@@ -7,7 +9,7 @@ import datetime as _dt
 import os
 import sys
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 
 class SessionLogger:
@@ -36,3 +38,19 @@ class SessionLogger:
             if self._file:
                 self._file.close()
                 self._file = None
+
+
+def heartbeat(label: str, done: int, total: int, elapsed_s: float,
+              log: Callable[[str], None], unit: str = "rows",
+              rate: Optional[float] = None, rate_unit: Optional[str] = None,
+              eta_s: Optional[float] = None) -> None:
+    """Log a sweep's progress line, byte for byte the reference's
+    ``[heartbeat]`` line.  ``rate``, ``rate_unit`` and ``eta_s`` override
+    the ``done / elapsed`` derivation where the progress unit and the rate
+    unit differ (the instruct sweep counts models and reports rows/s)."""
+    if rate is None:
+        rate = done / elapsed_s if elapsed_s > 0 else 0.0
+    eta = (eta_s if eta_s is not None
+           else ((total - done) / rate if rate > 0 else 0.0))
+    log(f"[heartbeat] {label}: {done}/{total} {unit} "
+        f"| {rate:.2f} {rate_unit or unit}/s | ETA {eta:.0f}s")

@@ -756,3 +756,144 @@ def test_fake_quant_witness_holds_the_w8a8_route(one_torch_thread,
     chip_smoke._quantized_tree_half_step(
         "w8a8", weights, decoder.DecoderWeights(kv8, tree), fails)
     assert fails and all("wg" in f or "steps" in f for f in fails)
+
+
+# -- the instruct phases: T5, Qwen-1, Baichuan2, OPT --------------------------
+
+_SMALL_NEW = {
+    "qwen": dict(hidden_size=32, num_attention_heads=4, kv_channels=8,
+                 intermediate_size=128, vocab_size=96),
+    "baichuan": dict(hidden_size=32, num_attention_heads=4,
+                     intermediate_size=64, vocab_size=96),
+    "opt": dict(hidden_size=32, num_attention_heads=4, ffn_dim=64,
+                word_embed_proj_dim=32, vocab_size=96,
+                max_position_embeddings=64),
+}
+
+
+@pytest.mark.parametrize("config", [chip_smoke.QWEN_7B_CHAT,
+                                    chip_smoke.BAICHUAN2_7B_CHAT,
+                                    chip_smoke.OPT_IML_1_3B],
+                         ids=["qwen", "baichuan", "opt"])
+def test_new_family_state_dicts_convert(config, one_torch_thread):
+    """The converter reads every tensor the random checkpoint holds and
+    finds every one it asks for; OPT's names and shapes are the HF
+    model's."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import convert
+
+    small = dict(config, **_SMALL_NEW[config["model_type"]])
+    family, cfg = chip_smoke._family_config(small, layers=2)
+    sd = chip_smoke._hf_state_dict(family, cfg, 0, "cpu", torch.float32)
+    read = set()
+
+    def get(name):
+        read.add(name)
+        return sd[name]
+
+    tree = convert.CONVERTERS[family](get, cfg)
+    assert read == set(sd)
+    assert tree["layers"]["mlp"]["wi"].shape == (2, 32, cfg.intermediate_size)
+    if family == "opt":
+        import transformers
+
+        hf_kw = {k: v for k, v in chip_smoke._at_depth(small, 2).items()
+                 if k != "model_type"}
+        model = transformers.OPTForCausalLM(transformers.OPTConfig(**hf_kw))
+        ref = {k: v.shape for k, v in model.state_dict().items()
+               if k != "lm_head.weight"}
+        assert {k: v.shape for k, v in sd.items()} == ref
+
+
+def test_instruct_configs_translate():
+    got = {label: chip_smoke._family_config(config)
+           for label, _, config, _ in chip_smoke.INSTRUCT_DECODERS}
+    fam, cfg = got["qwen-7b-chat"]
+    assert (fam, cfg.num_layers, cfg.num_heads, cfg.head_dim,
+            cfg.intermediate_size, cfg.vocab_size, cfg.qkv_bias) == (
+        "qwen", 32, 32, 128, 11008, 151936, True)
+    fam, cfg = got["baichuan2-7b-chat"]
+    assert (fam, cfg.norm_head, cfg.position_embedding, cfg.vocab_size) == (
+        "baichuan", True, "rotary", 125696)
+    fam, cfg = got["opt-iml-1.3b"]
+    assert (fam, cfg.num_layers, cfg.num_heads, cfg.head_dim,
+            cfg.learned_pos_offset, cfg.activation) == (
+        "opt", 24, 32, 64, 2, "relu")
+    assert all(c.flash_refusal() is None for _, c in got.values())
+    fam, t0 = chip_smoke._family_config(chip_smoke.T0_3B)
+    assert (fam, t0.d_model, t0.num_layers, t0.num_decoder_layers, t0.d_ff,
+            t0.feed_forward_proj, t0.tie_word_embeddings) == (
+        "t5", 2048, 24, 24, 5120, "gated-gelu", False)
+    _, base = chip_smoke._family_config(chip_smoke.T5_V1_1_BASE)
+    assert (base.d_model, base.num_layers, base.num_heads) == (768, 12, 12)
+    _, h2o = chip_smoke._family_config(chip_smoke.H2OGPT_12B)
+    assert (h2o.num_heads, h2o.head_dim, h2o.num_layers) == (40, 128, 36)
+
+
+def test_instruct_cli_roster_covers_every_model():
+    from llm_interpretation_replication_tpu_torch.config import (
+        instruct_sweep_models)
+
+    names = set(instruct_sweep_models())
+    written = {m for m, _, _, _ in chip_smoke.INSTRUCT_SNAPSHOTS} | {
+        m for _, _, shared, _ in chip_smoke.INSTRUCT_SNAPSHOTS for m in shared}
+    reused = {d.replace("--", "/", 1) for d in chip_smoke.INSTRUCT_REUSED}
+    assert names <= written | reused and chip_smoke.INSTRUCT_DENSE <= names
+    from_100q = {m.replace("/", "--") for m, _, shared, _ in
+                 chip_smoke.CLI_SNAPSHOTS} | {
+        s.replace("/", "--") for _, _, shared, _ in chip_smoke.CLI_SNAPSHOTS
+        for s in shared}
+    assert set(chip_smoke.INSTRUCT_REUSED) <= from_100q
+    assert {f for *_, f in chip_smoke.INSTRUCT_SNAPSHOTS} == {
+        "unigram", "bpe", "gpt2", "tiktoken"}
+
+
+def test_t5_helpers_on_the_cpu(one_torch_thread):
+    """The teacher forward's top-1 logits at each step are those the
+    greedy decode picked from (a float32 model), the target swap moves
+    ``shared`` rows and head columns, and popular ids lie past the
+    tokenizer."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import t5
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+
+    small = dict(chip_smoke.T5_V1_1_BASE, d_model=32, d_kv=8, d_ff=64,
+                 num_heads=4, num_layers=2, num_decoder_layers=2,
+                 vocab_size=1500)
+    _, cfg = chip_smoke._family_config(small)
+    from llm_interpretation_replication_tpu_torch.models import convert
+    weights = convert.random_params(cfg, seed=1, device="cpu", dtype="fp32")
+    tok = chip_smoke._question_tokenizer()
+    prompts = [tok(q).input_ids for q in ("Is soup a beverage?",
+                                          "Is a tweet a publication?")]
+    ids, mask = chip_smoke._padded(prompts, "cpu")
+    toks, sc = t5.greedy_decode(weights, cfg, ids, mask, 6)
+    tgt = [yes_no.target_token_ids(tok, ["Yes", "No"], True)] * 2
+    top1, leads, edge, split, edge0, p0 = chip_smoke._t5_teacher(
+        weights, cfg, prompts, toks.tolist(), tgt, steps=4)
+    np.testing.assert_allclose(top1[:, :6], sc.max(-1).values.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert (leads[:, :6] >= 0).all() and np.isfinite(edge).all()
+    popular = chip_smoke._t5_popular_ids(weights, cfg, prompts, tok)
+    assert popular and all(i >= len(tok) for i in popular)
+    before = weights.tree()["lm_head"].clone()
+    pairs = chip_smoke._t5_swap_targets(weights, tok,
+                                        dict(zip(("Yes", "No"), popular)))
+    a, b = pairs[0]
+    assert a == tok("Yes").input_ids[0]
+    torch.testing.assert_close(weights.tree()["lm_head"][:, a], before[:, b])
+
+
+def test_instruct_phase_drives_the_sweeps():
+    src = inspect.getsource(chip_smoke.instruct_phase)
+    assert "instruct_sweep._score_model" in src
+    assert "run_base_vs_instruct_word_meaning" in src
+    assert "families_phase(seed, attention, card, instruct=True)" in src
+    fam_src = inspect.getsource(chip_smoke.families_phase)
+    assert "FAMILY_LAYERS" in fam_src and "_score_model" in fam_src
+    assert {r for *_, r in chip_smoke.INSTRUCT_DECODERS} == {("flash", "xla")}
+    cli = inspect.getsource(chip_smoke._run_instruct)
+    assert '"--attention-impl", "flash", "--quant", "int8"' in cli

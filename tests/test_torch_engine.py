@@ -198,12 +198,13 @@ def test_unsupported_engine_settings_raise(setup, override):
 
 
 @pytest.mark.parametrize("case", ["confidence", "pooled_confidence",
-                                  "prefix_pairs", "mesh", "t5"])
+                                  "prefix_pairs", "mesh", "decode_k"])
 def test_unsupported_calls_raise(setup, case):
-    """A mesh and T5 are refused at construction.  The confidence leg (per
-    batch and pooled) and ``(prefix, suffix)`` prompts run since the
-    full-study slice, and refuse the settings still not ported
-    (``decode_k > 1``) as every entry point does."""
+    """A mesh and ``decode_k > 1`` are refused at construction (T5, refused
+    here before, is ported now).  The confidence leg (per batch and pooled)
+    and ``(prefix, suffix)`` prompts run since the full-study slice, and
+    refuse the settings still not ported (``decode_k > 1``) as every entry
+    point does."""
     tok = setup
     tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
     weights = convert.random_params(tcfg, seed=0, device="cpu", dtype="fp32")
@@ -213,8 +214,10 @@ def test_unsupported_calls_raise(setup, case):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         if case == "mesh":
             tengine.ScoringEngine("falcon", tcfg, weights, tok, mesh=object(), **kw)
-        elif case == "t5":
-            tengine.ScoringEngine("t5", tcfg, weights, tok, **kw)
+        elif case == "decode_k":
+            tengine.ScoringEngine(
+                "falcon", tcfg, weights, tok, device="cpu",
+                engine_config=dataclasses.replace(ecfg, decode_k=2))
         else:
             eng = tengine.ScoringEngine("falcon", tcfg, weights, tok, **kw)
             eng.ecfg = dataclasses.replace(eng.ecfg, decode_k=2)

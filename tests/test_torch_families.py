@@ -1,5 +1,6 @@
-"""The GPT-NeoX, BLOOM and LLaMA/Mistral decoder families in the port against
-the JAX package (and the Hugging Face models themselves).
+"""The GPT-NeoX, BLOOM, LLaMA/Mistral, Qwen (first generation), Baichuan(2)
+and OPT decoder families in the port against the JAX package (and the
+Hugging Face models themselves, where ``transformers`` has them).
 
 Five tiny cases, each a ``transformers`` model whose parameters are redrawn
 from a numpy seed (norm scales near 1, biases and weights non-zero), so the
@@ -19,6 +20,14 @@ suffix)`` pairs, with verdicts and completions identical and probabilities
 rtol 2e-5; int8 KV within 0.05 of JAX's int8 KV rows.  The prompts are the
 100-question sweep's formats of its first questions under a word-level
 tokenizer both engines take.
+
+The Qwen-7B and Baichuan(2) architectures ship as remote code, so their
+cases are HF-named state dicts drawn from a numpy seed (``NEW_CASES``):
+``qwen`` (fused ``c_attn`` with a bias, the halved MLP), ``baichuan_7b``
+(fused ``W_pack``, rotary) and ``baichuan_13b`` (40 layers: ALiBi), both
+with a vocabulary over 100k so NormHead applies; ``opt`` is a
+``transformers`` OPT (learned positions stored with the +2 offset, ReLU,
+biases), held to the HF model too.
 """
 
 import dataclasses
@@ -133,11 +142,14 @@ def state_dict(case):
 def models(case):
     """(family, jax cfg, port cfg, jax params, port weights) converted from
     the same state dict by each package's converter."""
-    sd = state_dict(case)
-    hf_cfg = hf_model(case).config
+    if case in NEW_CASES:
+        hf_cfg, sd = new_case(case)
+    else:
+        sd = state_dict(case)
+        hf_cfg = hf_model(case).config
     family, jcfg = jconfig.from_hf_config(hf_cfg)
     tfamily, tcfg = tconfig.from_hf_config(hf_cfg)
-    assert tfamily == family == FAMILIES[case]
+    assert tfamily == family == FAMILIES.get(case, NEW_CASES.get(case, ("",))[0])
     jtree = jconvert.CONVERTERS[family](
         jconvert.getter_from_torch_state_dict(sd), jcfg)
     ttree = convert.CONVERTERS[family](lambda name: sd[name], tcfg)
@@ -205,6 +217,32 @@ HF_JSON = {
                     max_position_embeddings=32768, rms_norm_eps=1e-5,
                     rope_theta=10000.0, sliding_window=4096,
                     hidden_act="silu", tie_word_embeddings=False),
+    # Qwen/Qwen-7B-Chat (the MLP is half of intermediate_size)
+    "qwen": dict(model_type="qwen", vocab_size=151936, hidden_size=4096,
+                 num_hidden_layers=32, num_attention_heads=32,
+                 intermediate_size=22016, kv_channels=128,
+                 layer_norm_epsilon=1e-6, max_position_embeddings=8192,
+                 seq_length=8192, rotary_emb_base=10000, rotary_pct=1.0,
+                 tie_word_embeddings=False),
+    # baichuan-inc/Baichuan2-7B-Chat (rotary, NormHead)
+    "baichuan": dict(model_type="baichuan", vocab_size=125696,
+                     hidden_size=4096, num_hidden_layers=32,
+                     num_attention_heads=32, intermediate_size=11008,
+                     max_position_embeddings=4096, model_max_length=4096,
+                     rms_norm_eps=1e-6, hidden_act="silu",
+                     tie_word_embeddings=False),
+    # baichuan-inc/Baichuan2-13B-Chat (ALiBi, NormHead, no
+    # max_position_embeddings)
+    "baichuan_13b": dict(model_type="baichuan", vocab_size=125696,
+                         hidden_size=5120, num_hidden_layers=40,
+                         num_attention_heads=40, intermediate_size=13696,
+                         model_max_length=4096, rms_norm_eps=1e-6,
+                         hidden_act="silu", tie_word_embeddings=False),
+    # facebook/opt-iml-1.3b
+    "opt": dict(model_type="opt", vocab_size=50272, hidden_size=2048,
+                num_hidden_layers=24, num_attention_heads=32, ffn_dim=8192,
+                max_position_embeddings=2048, activation_function="relu",
+                do_layer_norm_before=True, word_embed_proj_dim=2048),
 }
 
 
@@ -226,10 +264,19 @@ def test_from_hf_config_matches_reference(tmp_path, model_type):
         assert got.position_embedding == "alibi" and got.embedding_layernorm
     if model_type == "mistral":
         assert (got.num_kv_heads, got.sliding_window) == (8, 4096)
+    if model_type == "qwen":
+        assert (got.intermediate_size, got.qkv_bias, got.out_bias) == \
+            (11008, True, False)
+    if model_type.startswith("baichuan"):
+        assert got.norm_head and got.position_embedding == (
+            "alibi" if model_type == "baichuan_13b" else "rotary")
+    if model_type == "opt":
+        assert (got.position_embedding, got.learned_pos_offset,
+                got.tie_word_embeddings) == ("learned", 2, True)
 
 
 @pytest.mark.parametrize("model_type,item", [
-    ("t5", "'T5'"), ("opt", "Other decoder families"),
+    ("mpt", "Other decoder families"), ("glm", "Other decoder families"),
     ("qwen2", "Other decoder families"), ("gptj", "Other decoder families")])
 def test_other_model_types_raise(model_type, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -435,3 +482,191 @@ def test_w8a8_gated_projections_match_reference():
         for f in PROB_FIELDS:
             np.testing.assert_allclose(g[f], r[f], rtol=W8A8_RTOL,
                                        atol=1e-9, err_msg=f)
+
+
+# -- Qwen (first generation), Baichuan(2) and OPT ---------------------------------
+
+BIG_VOCAB = 100_352          # over 100k: Baichuan2's NormHead applies
+NEW_CASES = {
+    # case: (family, HF config keys past the shared small ones)
+    "qwen": ("qwen", dict(model_type="qwen", hidden_size=32,
+                          num_hidden_layers=2, num_attention_heads=4,
+                          intermediate_size=128, kv_channels=8,
+                          layer_norm_epsilon=1e-6, seq_length=256,
+                          rotary_emb_base=10000, tie_word_embeddings=False)),
+    "baichuan_7b": ("baichuan", dict(
+        model_type="baichuan", vocab_size=BIG_VOCAB, hidden_size=32,
+        num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
+        max_position_embeddings=256, rms_norm_eps=1e-6)),
+    "baichuan_13b": ("baichuan", dict(
+        model_type="baichuan", vocab_size=BIG_VOCAB, hidden_size=32,
+        num_hidden_layers=40, num_attention_heads=4, intermediate_size=64,
+        model_max_length=256, rms_norm_eps=1e-6)),
+    "opt": ("opt", dict(hidden_size=32, num_hidden_layers=2,
+                        num_attention_heads=4, ffn_dim=64,
+                        max_position_embeddings=256, word_embed_proj_dim=32,
+                        do_layer_norm_before=True, activation_function="relu")),
+}
+
+
+def _draw(rng, name, shape):
+    """A parameter as ``hf_model`` redraws it: norm scales near 1, biases
+    and weights non-zero."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    if "norm" in name or name.split(".")[-2].startswith("ln"):
+        return 1.0 + 0.1 * x if name.endswith("weight") else 0.1 * x
+    if name.endswith("bias"):
+        return 0.1 * x
+    return (0.5 if "embed" in name or "wte" in name else 0.15) * x
+
+
+def _remote_code_state_dict(case, cfg):
+    """The HF tensor names Qwen-7B's and Baichuan's modeling files use."""
+    h, f, v = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    shapes = {}
+    for i in range(cfg["num_hidden_layers"]):
+        if case == "qwen":
+            pre, f2 = f"transformer.h.{i}", f // 2
+            shapes.update({f"{pre}.ln_1.weight": (h,), f"{pre}.ln_2.weight": (h,),
+                           f"{pre}.attn.c_attn.weight": (3 * h, h),
+                           f"{pre}.attn.c_attn.bias": (3 * h,),
+                           f"{pre}.attn.c_proj.weight": (h, h),
+                           f"{pre}.mlp.w1.weight": (f2, h),
+                           f"{pre}.mlp.w2.weight": (f2, h),
+                           f"{pre}.mlp.c_proj.weight": (h, f2)})
+        else:
+            pre = f"model.layers.{i}"
+            shapes.update({f"{pre}.input_layernorm.weight": (h,),
+                           f"{pre}.post_attention_layernorm.weight": (h,),
+                           f"{pre}.self_attn.W_pack.weight": (3 * h, h),
+                           f"{pre}.self_attn.o_proj.weight": (h, h),
+                           f"{pre}.mlp.gate_proj.weight": (f, h),
+                           f"{pre}.mlp.up_proj.weight": (f, h),
+                           f"{pre}.mlp.down_proj.weight": (h, f)})
+    if case == "qwen":
+        shapes.update({"transformer.wte.weight": (v, h),
+                       "transformer.ln_f.weight": (h,)})
+    else:
+        shapes.update({"model.embed_tokens.weight": (v, h),
+                       "model.norm.weight": (h,)})
+    shapes["lm_head.weight"] = (v, h)
+    rng = np.random.default_rng(7)
+    return {k: torch.from_numpy(_draw(rng, k, shp)) for k, shp in shapes.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def new_case(case):
+    """(HF config, float32 state dict) of a ``NEW_CASES`` case, the " Yes"
+    and " No" head rows scaled by 4 as ``hf_model`` scales them (OPT's
+    tied embedding rows)."""
+    family, kw = NEW_CASES[case]
+    kw = dict(kw)
+    kw.setdefault("vocab_size", len(tok()))
+    if family == "opt":
+        import transformers
+
+        model = transformers.OPTForCausalLM(transformers.OPTConfig(**kw)).eval()
+        rng = np.random.default_rng(5)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(torch.from_numpy(_draw(rng, name, tuple(p.shape))))
+        hf_cfg = model.config
+        sd = {k: v.clone() for k, v in model.state_dict().items()
+              if v.is_floating_point()}
+    else:
+        hf_cfg = types.SimpleNamespace(**kw)
+        sd = _remote_code_state_dict(case, kw)
+    if family == "opt":                 # tied: the head is the embedding
+        sd["lm_head.weight"] = sd["model.decoder.embed_tokens.weight"]
+    for word in ("Yes", "No"):
+        sd["lm_head.weight"][tok().ids[" " + word]] *= 4.0
+    return hf_cfg, sd
+
+
+@functools.lru_cache(maxsize=None)
+def opt_model():
+    import transformers
+
+    hf_cfg, sd = new_case("opt")
+    model = transformers.OPTForCausalLM(hf_cfg).eval()
+    model.load_state_dict(sd, strict=False)
+    return model
+
+
+@pytest.mark.parametrize("case", list(NEW_CASES))
+def test_new_family_trees_match_reference(case):
+    """The converted trees equal the JAX converter's, leaf for leaf
+    (NormHead's normalized columns included)."""
+    _, jcfg, tcfg, params, weights = models(case)
+    ref = {tuple(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+           for path, v in jax.tree_util.tree_flatten_with_path(params)[0]}
+    got = {path: t.numpy() for path, t in tdec._flatten(weights.tree())}
+    assert got.keys() == ref.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=str(k))
+    if case.startswith("baichuan"):
+        assert tcfg.norm_head
+        np.testing.assert_allclose(
+            np.linalg.norm(got[("lm_head",)], axis=0), 1.0, rtol=1e-5)
+        assert tcfg.position_embedding == (
+            "alibi" if case == "baichuan_13b" else "rotary")
+
+
+@pytest.mark.parametrize("case", list(NEW_CASES))
+def test_new_family_logits_match_reference(case):
+    """float32 logits of a right-padded batch within 2e-5 of JAX's (OPT's
+    positions with the stored offset among them), and OPT's within 2e-3
+    of ``transformers``' OPT."""
+    _, jcfg, tcfg, params, weights = models(case)
+    ids, mask = _encode(base_strings()[:3] + instruct_strings()[:2])
+    got = tdec.forward(weights, tcfg, torch.from_numpy(ids),
+                       torch.from_numpy(mask)).numpy()
+    ref = np.asarray(jdec.forward(params, jcfg, jnp.asarray(ids),
+                                  jnp.asarray(mask)))
+    real = mask.astype(bool)
+    np.testing.assert_allclose(got[real], ref[real], atol=ATOL, rtol=1e-5)
+    if case == "opt":
+        with torch.no_grad():
+            hf = opt_model()(input_ids=torch.from_numpy(ids),
+                             attention_mask=torch.from_numpy(mask)).logits
+        np.testing.assert_allclose(got[real], hf.numpy()[real], atol=HF_ATOL,
+                                   rtol=1e-3)
+
+
+@pytest.mark.parametrize("case,impl", [("qwen", "xla"), ("baichuan_7b", "xla"),
+                                       ("opt", "xla"), ("opt", "flash")])
+def test_new_family_engine_rows_match_reference(case, impl):
+    """``EngineConfig()`` rows, base prompts as strings and as (prefix,
+    suffix) pairs; OPT also with the causal kernel's plain version (head
+    dim 8, one K/V head a query head)."""
+    jeng, teng = engines(case, impl)
+    for prompts in (base_strings(), pairs(True)):
+        assert_rows_match(teng.score_prompts(prompts),
+                          jeng.score_prompts(prompts))
+
+
+def test_norm_head_survives_w8a8_and_the_cast():
+    """Baichuan2's normalized head stays unquantized under w8a8 (as the
+    reference keeps it) and the cast leaves it one rounding of the float32
+    normalization; a bf16 checkpoint's head is normalized in float32 and
+    rounded to bf16 once."""
+    from llm_interpretation_replication_tpu_torch.ops import quant as tquant
+
+    _, _, tcfg, _, weights = models("baichuan_7b")
+    head = weights.tree()["lm_head"]
+    q = tquant.quantize_decoder_params(weights.tree())
+    assert q["lm_head"] is head and "lm_head_qscale" not in q
+    assert "wq_qscale" in q["layers"]["attn"]
+    cast = loader._cast(q, torch.bfloat16)
+    torch.testing.assert_close(cast["lm_head"], head.to(torch.bfloat16),
+                               rtol=0, atol=0)
+    # a bf16 checkpoint: normalized in float32, then rounded to bf16 once
+    hf_cfg, sd = new_case("baichuan_7b")
+    bf = convert.convert_baichuan(
+        lambda n: sd[n].to(torch.bfloat16), tcfg)["lm_head"]
+    h32 = sd["lm_head.weight"].to(torch.bfloat16).float().numpy().T
+    want = h32 / np.maximum(np.linalg.norm(h32, axis=0, keepdims=True), 1e-12)
+    assert bf.dtype == torch.bfloat16
+    # within half a bf16 step of the float32 normalization
+    torch.testing.assert_close(bf.float(), torch.from_numpy(want),
+                               rtol=2 ** -8, atol=0)

@@ -451,13 +451,14 @@ def test_prefix_pool_abandoned_entry_counts_as_leak():
 @pytest.mark.parametrize("case,title", [
     ("prefill_chunk", "The full-study legs"),
     ("decode_k", "K-decode"),
-    ("t5", "T5"),
+    ("decode_k_4", "K-decode"),
     ("mesh", "Parallel and training"),
 ])
 def test_unported_settings_still_raise(case, title):
     """Each setting not ported raises naming its ROADMAP.md item;
     ``prefill_chunk`` ("The full-study legs") is ported now, and
-    ``prefill_chunk=1`` scores at ``EngineConfig()``'s other defaults."""
+    ``prefill_chunk=1`` scores at ``EngineConfig()``'s other defaults (T5,
+    refused here before, is ported now: ``decode_k=4`` took its case)."""
     _, tcfg, _, weights = text_models()
     if case == "prefill_chunk":
         eng = tengine.ScoringEngine(
@@ -466,10 +467,11 @@ def test_unported_settings_still_raise(case, title):
         rows = eng.score_prompts(PROMPTS[:3])
         assert all(r["success"] and r["completion"] for r in rows)
         return
-    kw = dict(decode_k=2) if case == "decode_k" else {}
+    kw = ({"decode_k": 4 if case == "decode_k_4" else 2}
+          if case.startswith("decode_k") else {})
     with pytest.raises(NotImplementedError, match=title):
         tengine.ScoringEngine(
-            "t5" if case == "t5" else "falcon", tcfg, weights, tok(),
+            "falcon", tcfg, weights, tok(),
             mesh=object() if case == "mesh" else None,
             engine_config=tengine.EngineConfig(**kw), device="cpu")
 

@@ -258,3 +258,209 @@ def test_nfc_normalizer_matches_the_tokenizers_package(tmp_path_factory):
         ref.token_to_id("re\u0301sume\u0301")
     plain = dict(spec, normalizer=None)
     assert ttok.ByteLevelBPETokenizer(plain).encode(nfd) != got.encode(nfd)
+
+
+# -- Unigram (T5), qwen.tiktoken (Qwen-1), vocab.json + merges.txt (OPT) -----
+
+def _question_texts():
+    from llm_interpretation_replication_tpu_torch.config import (
+        ordinary_meaning_questions)
+    from llm_interpretation_replication_tpu_torch.scoring import prompts
+
+    qs = ordinary_meaning_questions()
+    return qs + [prompts.format_prompt(q, b) for q in qs[:20]
+                 for b in (True, False)] + ["Yes", "No"]
+
+
+UNIGRAM_EDGE = ["Yes", "No", " Yes", "", " ", "  a  b  ", "x</s>y", "</s>",
+                "<extra_id_0> Is it?", "ÉCOLE café ½ ﬁ", "tab\there\nnew",
+                "Qzx9 ∑ 漢字", "a　b", "ab" * 30, "Is a \"tweet\" a 'post'?"]
+
+
+@functools.lru_cache(maxsize=None)
+def unigram_json(variant):
+    """A Unigram ``tokenizer.json`` trained by the ``tokenizers`` package
+    on the questions, T5's post-processor appending ``</s>``: ``plain``
+    (a normalizer folding runs of spaces), ``folded`` (also NFKC,
+    lowercase and strip), ``whitespace`` (``WhitespaceSplit`` before the
+    Metaspace), ``never`` (no prefix ``▁``) and ``legacy`` (the old
+    ``add_prefix_space`` spelling)."""
+    from tokenizers import (Regex, Tokenizer, decoders, models, normalizers,
+                            pre_tokenizers, processors, trainers)
+
+    tok = Tokenizer(models.Unigram())
+    norms = [normalizers.Replace(Regex(" {2,}"), " ")]
+    if variant == "folded":
+        norms += [normalizers.NFKC(), normalizers.Lowercase(),
+                  normalizers.Strip()]
+    tok.normalizer = normalizers.Sequence(norms)
+    scheme = "never" if variant == "never" else "always"
+    meta = pre_tokenizers.Metaspace(replacement="▁", prepend_scheme=scheme)
+    tok.pre_tokenizer = (pre_tokenizers.Sequence(
+        [pre_tokenizers.WhitespaceSplit(), meta])
+        if variant == "whitespace" else meta)
+    tok.decoder = decoders.Metaspace(replacement="▁", prepend_scheme=scheme)
+    specials = ["<pad>", "</s>", "<unk>"] + [f"<extra_id_{i}>" for i in range(3)]
+    tok.train_from_iterator(_question_texts() * 2, trainers.UnigramTrainer(
+        vocab_size=400, special_tokens=specials, unk_token="<unk>",
+        max_piece_length=12))
+    tok.post_processor = processors.TemplateProcessing(
+        single="$A </s>", pair="$A </s> $B </s>",
+        special_tokens=[("</s>", tok.token_to_id("</s>"))])
+    spec = json.loads(tok.to_str())
+    if variant == "legacy":
+        for part in ("pre_tokenizer", "decoder"):
+            spec[part] = {"type": "Metaspace", "replacement": "▁",
+                          "add_prefix_space": True}
+    return json.dumps(spec)
+
+
+@pytest.mark.parametrize("variant", ["plain", "folded", "whitespace", "never",
+                                     "legacy"])
+def test_unigram_matches_the_tokenizers_package(variant):
+    from tokenizers import Tokenizer
+
+    raw = unigram_json(variant)
+    ref = Tokenizer.from_str(raw)
+    got = ttok.UnigramTokenizer(json.loads(raw))
+    for text in _question_texts() + UNIGRAM_EDGE:
+        for special in (True, False):
+            ids = got.encode(text, special)
+            assert ids == ref.encode(text, add_special_tokens=special).ids, \
+                repr(text)
+        for skip in (True, False):
+            assert got.decode(ids, skip) == \
+                ref.decode(ids, skip_special_tokens=skip), repr(text)
+
+
+def test_smoke_unigram_files_match_tokenizers_and_transformers(tmp_path):
+    """``chip_smoke``'s T5-style Unigram files: ids and decodes those of
+    the ``tokenizers`` package and of the JAX loader's tokenizer;
+    ``"Yes"`` opens with ``▁Yes`` and ``</s>`` closes every encoding."""
+    from tokenizers import Tokenizer
+
+    texts = _question_texts()
+    for name, obj in zip(("tokenizer.json", "tokenizer_config.json",
+                          "special_tokens_map.json"),
+                         chip_smoke._unigram_tokenizer_files(texts)):
+        (tmp_path / name).write_text(json.dumps(obj))
+    got = ttok.load_tokenizer(str(tmp_path))
+    ref = jloader.load_tokenizer(str(tmp_path))
+    raw = Tokenizer.from_file(str(tmp_path / "tokenizer.json"))
+    assert isinstance(got, ttok.UnigramTokenizer)
+    for text in texts + UNIGRAM_EDGE:
+        ids = got.encode(text)
+        assert ids == raw.encode(text).ids, repr(text)
+        # transformers' T5 class adds <extra_id_*> specials these files lack
+        if "<extra_id" not in text:
+            assert ids == ref(text).input_ids, repr(text)
+        assert ids[-1] == got.eos_token_id == 1
+        assert got.decode(ids, True) == ref.decode(ids, skip_special_tokens=True)
+    yes = got("Yes").input_ids
+    assert got.id_to_token[yes[0]] == "▁Yes" and yes[1:] == [1]
+    assert (got.pad_token_id, got.eos_token_id) == (ref.pad_token_id,
+                                                    ref.eos_token_id)
+
+
+@pytest.mark.parametrize("edit", [
+    ("normalizer", {"type": "Precompiled", "precompiled_charsmap": "AAEC"}),
+    ("normalizer", {"type": "BertNormalizer"}),
+    ("pre_tokenizer", {"type": "ByteLevel"}),
+    ("pre_tokenizer", {"type": "Metaspace", "replacement": "▁",
+                       "prepend_scheme": "first", "split": True}),
+    ("decoder", {"type": "ByteLevel"}),
+    ("post_processor", {"type": "RobertaProcessing"}),
+    ("model", {"type": "Unigram", "unk_id": 2, "vocab": [["a", 0.0]],
+               "byte_fallback": True}),
+], ids=lambda e: f"{e[0]}.{e[1]['type']}")
+def test_other_unigram_components_raise(edit):
+    spec = json.loads(unigram_json("plain"))
+    spec[edit[0]] = edit[1]
+    with pytest.raises(NotImplementedError, match="Snapshot tokenizers"):
+        ttok.UnigramTokenizer(spec)
+
+
+def test_empty_precompiled_normalizer_is_the_identity():
+    spec = json.loads(unigram_json("plain"))
+    plain = ttok.UnigramTokenizer(spec)
+    spec["normalizer"] = {"type": "Sequence", "normalizers": [
+        {"type": "Precompiled", "precompiled_charsmap": ""},
+        spec["normalizer"]]}
+    got = ttok.UnigramTokenizer(spec)
+    for text in UNIGRAM_EDGE:
+        assert got.encode(text) == plain.encode(text)
+
+
+QWEN_PAT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}"
+            r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+
+
+def test_qwen_tiktoken_matches_tiktoken(tmp_path):
+    """``chip_smoke``'s ``qwen.tiktoken`` read by the port against a
+    ``tiktoken`` encoding of the same ranks, Qwen's pattern and special
+    tokens (allowed, so the pattern never splits them), on NFC text."""
+    import base64
+    import unicodedata
+
+    tiktoken = pytest.importorskip("tiktoken")
+    blob = chip_smoke._qwen_tiktoken(_question_texts())
+    (tmp_path / "qwen.tiktoken").write_bytes(blob)
+    ranks = {base64.b64decode(t): int(r)
+             for t, r in (line.split() for line in blob.splitlines())}
+    ref = tiktoken.Encoding(
+        "qwen-test", pat_str=QWEN_PAT, mergeable_ranks=ranks,
+        special_tokens={t: ttok.QWEN_SPECIAL_START + i
+                        for i, t in enumerate(ttok.QWEN_SPECIALS)})
+    got = ttok.load_tokenizer(str(tmp_path))
+    assert isinstance(got, ttok.QwenTokenizer)
+    edge = ["", "It's 1961; THEY'LL pay 42.5%\r\n\n  x", "'S 'T don'T",
+            "<|endoftext|>a<|im_start|>b<|extra_12|>c<|extra_1|>",
+            "café naïve 漢字 ½", "a\n\n\n  b   "]
+    for text in _question_texts() + edge:
+        ids = got.encode(text)
+        assert ids == ref.encode(unicodedata.normalize("NFC", text),
+                                 allowed_special="all"), repr(text)
+        assert got.decode(ids) == ref.decode(ids)
+    assert got.encode("<|im_end|>") == [ttok.QWEN_SPECIAL_START + 2]
+    assert got.decode(got.encode("a<|endoftext|>b"), skip_special_tokens=True) \
+        == "ab"
+    assert got.pad_token_id == ttok.QWEN_SPECIAL_START and got.eos_token_id is None
+
+
+@pytest.mark.parametrize("add_bos", [False, True])
+def test_vocab_and_merges_match_transformers(tmp_path, add_bos):
+    """A ``vocab.json`` + ``merges.txt`` snapshot (no ``tokenizer.json``):
+    ids and decodes those of ``transformers``' GPT-2 tokenizer on the same
+    files, OPT's ``</s>`` BOS in front when the config asks, and the
+    ``tokenizers`` package's ByteLevel BPE without it."""
+    from tokenizers import ByteLevelBPETokenizer
+    from transformers import AutoTokenizer
+
+    chip_smoke._write_gpt2_tokenizer(str(tmp_path), _question_texts())
+    conf = json.loads((tmp_path / "tokenizer_config.json").read_text())
+    (tmp_path / "tokenizer_config.json").write_text(
+        json.dumps(dict(conf, add_bos_token=add_bos)))
+    got = ttok.load_tokenizer(str(tmp_path))
+    ref = AutoTokenizer.from_pretrained(str(tmp_path))
+    raw = ByteLevelBPETokenizer(str(tmp_path / "vocab.json"),
+                                str(tmp_path / "merges.txt"))
+    for text in _question_texts() + EXTRA:
+        for special in (True, False):
+            assert got(text, special).input_ids == \
+                ref(text, add_special_tokens=special).input_ids, repr(text)
+        ids = got.encode(text)
+        assert got.encode(text, False) == raw.encode(text).ids
+        for skip in (True, False):
+            assert got.decode(ids, skip) == \
+                ref.decode(ids, skip_special_tokens=skip)
+    assert (got.pad_token_id, got.eos_token_id) == (ref.pad_token_id,
+                                                    ref.eos_token_id)
+
+
+def test_load_tokenizer_picks_the_reader_from_the_files(tmp_path):
+    (tmp_path / "tokenizer.model").write_bytes(b"\x0a\x00")
+    with pytest.raises(NotImplementedError, match="Snapshot tokenizers"):
+        ttok.load_tokenizer(str(tmp_path))
+    (tmp_path / "tokenizer.model").unlink()
+    with pytest.raises(FileNotFoundError, match="no tokenizer files"):
+        ttok.load_tokenizer(str(tmp_path))
