@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each fatal on failure (the exit code is then non-zero and no result
-line is printed; the order of the run is 1-8, 10, 9, 11-15):
+line is printed; the order of the run is 1-8, 10, 16, 17, 9, 11-15):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
@@ -106,7 +106,11 @@ line is printed; the order of the run is 1-8, 10, 9, 11-15):
    in-process sweep over the loaded weights) and with ``--quant int8
    --kv-dtype int8 --prefill-chunk 64`` (verdicts and relative_prob within
    0.05 of bf16's, but for rows whose target lies within the int8 path's
-   measured logit deviation, doubled, of the top-20 edge);
+   measured logit deviation, doubled, of the top-20 edge); then
+   ``--packed 4`` (the packed workbook with its extractor tag, and the
+   drift line) and ``--decode-k 4`` twice (the first run distills a
+   K-head and writes ``k_head.npz``, the second loads it and writes the
+   same workbook; both keep the bf16 run's position-0 columns);
 12. families: Pythia-6.9B (GPT-NeoX), Mistral-7B-Instruct-v0.2 (the
    LLaMA family, 32 query heads on 8 K/V heads) and BLOOM-7b1 (ALiBi) at
    their published width and FAMILY_LAYERS (8) of their 30-32 layers:
@@ -146,8 +150,9 @@ line is printed; the order of the run is 1-8, 10, 9, 11-15):
    checkpoint, resuming it must write the same CSV, and a rerun over the
    finished output must score nothing;
 14. instruct: the instruct roster's new models at their published width
-   and depth (random bf16 HF-named checkpoints from ``--seed`` through the
-   port's converters; T5's at its own initialization scales), under the
+   (random bf16 HF-named checkpoints from ``--seed`` through the port's
+   converters; T5's at its own initialization scales; T0_3B and the T5
+   pair at their depth, the decoders at FAMILY_LAYERS), under the
    families phase's word tokenizer with the targets swapped to ids the
    weights rank high.  T0_3B (T5 XL) scores the 100 instruct prompts
    through the instruct sweep's per-model call, and the word-meaning pair
@@ -169,7 +174,30 @@ line is printed; the order of the run is 1-8, 10, 9, 11-15):
    process must write 1000 rows in the 7 columns, none a ``MODEL_ERROR``,
    name each model's attention (dense for BLOOMZ and the T5s, which warn
    and load bf16), keep exactly the first model's rows after a SIGTERM,
-   resume to the same CSV and score nothing on a rerun.
+   resume to the same CSV and score nothing on a rerun;
+16. packed (after the sweep phase, on the slice's weights): the sweep
+   phase's corpus (its perturbations.json, targets on ids these weights
+   often rank in the top 20) through ``run_packed_perturbation_sweep`` at
+   Q=4 with drift parity (120 questions in 30 packs; the drift report
+   holds 120 questions, none skipped, finite fields); questions/s packed
+   against isolated; then on the kernel and the dense route,
+   single-question packs and question 0 of each pack against isolated
+   scoring (a target may cross the top-20 edge only within the tie of it,
+   the verdict turn only where the targets lie within the tie, the fields
+   move by at most FUSED_PROB_TOL elsewhere); every prompt forward of the
+   kernel route launches the causal kernel once a layer; the causal kernel
+   timed at the packed batch's shape;
+17. k_decode (after phase 16): the full-study row (``score_prefixed``, both
+   legs) on the full-study phase's 96 rows at K=1, then at K=4 with a
+   distilled head (its distillation seconds and size), with oracle
+   proposals (``oracle_engine``: the K=1 chain, so blocks are accepted)
+   and with a random head (every speculative block rejects), then K=1 and
+   the oracle with an int8 KV cache.  The random head's rows equal K=1's;
+   the distilled and oracle rows (and the int8 oracle's against its K=1)
+   part only below the tie (the int8 pair's widened by the int8 cache's
+   measured logit deviation) and keep their probabilities within it; the
+   oracle saves steps; passes a chunk, ms of a sequential chunk against
+   the accepted K path's, and the accept rate are printed.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -283,6 +311,11 @@ TARGET_BOOST = 5.0
 # the int8 CLI run (w8a8 weights, int8 KV, chunked prefill) against the bf16
 # one: |d relative_prob| bound of the int8 class (ROADMAP.md)
 CLI_INT8_MAX_DREL = 0.05
+# the packed phase: questions a pack; the K-decode phase: the block size and
+# the distillation sample (binary and confidence prompts, the CLI's counts)
+PACK_Q = 4
+K_DECODE = 4
+K_DISTILL = (24, 12)
 # (wrapper, source in ops/csrc, line of the TPU kernel it replaces in
 # llm_interpretation_replication_tpu/ops/attention.py, shapes, layout)
 KERNELS = [
@@ -2802,6 +2835,88 @@ def _falcon_config_json(cfg):
             "bos_token_id": 11, "eos_token_id": 11}
 
 
+def _cli_packed_and_k_runs(cli, argv, snap, workdir, attention, cfg, n_rows,
+                           books, runs, card):
+    """``run-perturbation --packed PACK_Q`` (the packed workbook with its
+    extractor tag, and the drift line on stdout), then ``--decode-k
+    K_DECODE`` twice: the first run distills a K-head and writes
+    ``k_head.npz`` beside the snapshot, the second loads it and writes the
+    same workbook.  The K runs' position-0 columns are the bf16 run's
+    (the K path changes the decode only).  Appends each run to ``runs``;
+    returns the failures."""
+    import contextlib
+
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.utils.xlsx import read_xlsx
+
+    fails = []
+    logs = {}
+    for name, extra, book in (
+            ("packed", ["--packed", str(PACK_Q)],
+             "perturbation_results_packed.xlsx"),
+            ("k4", ["--decode-k", str(K_DECODE)], "perturbation_results.xlsx"),
+            ("k4_loaded", ["--decode-k", str(K_DECODE)],
+             "perturbation_results.xlsx")):
+        out = os.path.join(workdir, f"cli_{name}")
+        _reset_launches(attention)
+        stdout, stderr = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            cli.main(argv + ["--output-dir", out] + extra)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        logs[name] = (stdout.getvalue(), stderr.getvalue())
+        books[name] = read_xlsx(os.path.join(out, book))[1]
+        res = dict(run=name, seconds=elapsed, rows=len(books[name]),
+                   rows_per_s=len(books[name]) / elapsed,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   kernel_launches=_launches(attention)[
+                       "causal_grouped_attention"],
+                   stdout_tail=logs[name][0].splitlines()[-2:],
+                   stderr_k_head=[x for x in logs[name][1].splitlines()
+                                  if "K-head" in x])
+        runs.append(res)
+        say("cli", json.dumps(dict(res, card=card)))
+        if len(books[name]) != n_rows:
+            fails.append(f"cli {name}: {len(books[name])} rows")
+        if not res["kernel_launches"] or \
+                res["kernel_launches"] % cfg.num_layers:
+            fails.append(f"cli {name}: {res['kernel_launches']} causal "
+                         f"launches")
+    tag = f"local:packed{PACK_Q}:first_token_top{TOP_FILTER}"
+    if any(r["Log Probabilities"] != tag for r in books["packed"]):
+        fails.append("cli packed: rows without the packed extractor's tag")
+    drift = [json.loads(x)["packed_drift"]
+             for x in logs["packed"][0].splitlines()
+             if x.startswith('{"packed_drift"')]
+    if len(drift) != 1 or drift[0]["n_questions"] != n_rows:
+        fails.append(f"cli packed: drift lines {drift}")
+    if "# K-head distilled" not in logs["k4"][1] or not os.path.exists(
+            os.path.join(snap, "k_head.npz")):
+        fails.append("cli k4: no K-head distilled and written")
+    if "# K-head loaded from snapshot" not in logs["k4_loaded"][1] \
+            or "distilled" in logs["k4_loaded"][1]:
+        fails.append("cli k4_loaded: the K-head was not loaded")
+    if books["k4_loaded"] != books["k4"]:
+        fails.append("cli k4_loaded: workbook differs from the first run's")
+    cols = ("Token_1_Prob", "Token_2_Prob", "Odds_Ratio")
+    for i, (a, b) in enumerate(zip(books["k4"], books["bf16"])):
+        if any(a[c] != b[c] for c in cols):
+            fails.append(f"cli k4: row {i} position-0 columns differ")
+    say("cli packed and K", json.dumps(dict(
+        card=card, drift=drift[:1], k4_completions_as_bf16=sum(
+            a["Model Response"] == b["Model Response"]
+            for a, b in zip(books["k4"], books["bf16"])),
+        k4_confidence_as_bf16=sum(
+            a["Model Confidence Response"] == b["Model Confidence Response"]
+            for a, b in zip(books["k4"], books["bf16"])))))
+    return fails
+
+
 def cli_phase(seed, attention, workdir, card):
     """``python -m llm_interpretation_replication_tpu_torch
     run-perturbation`` in this process, from a snapshot of Falcon-7B's
@@ -2925,6 +3040,8 @@ def cli_phase(seed, attention, workdir, card):
                              f"launches for {res['prefills']} prefills")
     finally:
         decoder.prefill = real_prefill
+    fails += _cli_packed_and_k_runs(cli, argv, snap, workdir, attention, cfg,
+                                    n_rows, books, runs, card)
 
     # the same sweep in this process over the weights load_model gave back
     tok = snap_tok
@@ -3106,7 +3223,8 @@ CLI_SNAPSHOTS = [
 CLI_DENSE = {"bigscience/bloom-7b1", "bigscience/bloomz-7b1",
              "mistralai/Mistral-7B-v0.1"}
 SCAN_STEPS = 10          # the look-ahead the yes/no scan reads
-FAMILY_LAYERS = 8        # the families phase's depth (of the models' 30-32)
+FAMILY_LAYERS = 8        # the families and instruct decoders' depth (of
+#                          their 24-32 layers)
 
 # ---------------------------------------------------------------------------
 # The instruct roster: T5, Qwen-1, Baichuan2 and OPT
@@ -3154,8 +3272,8 @@ H2OGPT_12B = {   # h2oai/h2ogpt-oasst1-512-12b (GPT-NeoX, Pythia-12B's shape)
     "tie_word_embeddings": False, "bos_token_id": 0, "eos_token_id": 0}
 MISTRAL_7B_V03 = dict(   # mistralai/Mistral-7B-Instruct-v0.3
     MISTRAL_7B_V02, vocab_size=32768)
-# the instruct phase's decoder models, at full depth, on the causal kernel
-# and dense
+# the instruct phase's decoder models, at FAMILY_LAYERS of their layers, on
+# the causal kernel and dense
 INSTRUCT_DECODERS = [
     ("qwen-7b-chat", "Qwen/Qwen-7B-Chat", QWEN_7B_CHAT, ("flash", "xla")),
     ("baichuan2-7b-chat", "baichuan-inc/Baichuan2-7B-Chat", BAICHUAN2_7B_CHAT,
@@ -3548,7 +3666,7 @@ def families_phase(seed, attention, card, instruct=False):
     ``_compare_family_rows``, and w8a8 with an int8 KV cache against bf16
     for Mistral.  With ``instruct``, INSTRUCT_DECODERS score the 100
     instruct prompts (each model's own format) through the instruct
-    sweep's per-model call instead, at full depth, their targets' columns
+    sweep's per-model call instead, their targets' columns
     scaled until the targets sit in most rows' top 20
     (``_boost_target_columns``), and the causal kernel is timed at each
     model's longest prompt batch."""
@@ -3587,7 +3705,7 @@ def families_phase(seed, attention, card, instruct=False):
         return real_prefill(*args, **kwargs)
 
     for mi, (label, model, config, routes) in enumerate(models):
-        family, cfg = _family_config(config, None if instruct else FAMILY_LAYERS)
+        family, cfg = _family_config(config, FAMILY_LAYERS)
         dense = dataclasses.replace(cfg, attention_impl="xla")
         if instruct:
             prompts = [tok(format_prompt(q, False, model)).input_ids
@@ -4766,6 +4884,579 @@ def instruct_cli_phase(seed, workdir, card):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Packed scoring and the joint K-token decode
+# ---------------------------------------------------------------------------
+
+def oracle_engine(emod, dmod, decode_k=K_DECODE):
+    """A ``ScoringEngine`` subclass of the engine module ``emod`` (the
+    port's or the JAX package's, with its decoder module ``dmod``) whose
+    K-decode proposals replay the K=1 chain: each chunk first decodes its
+    tokens sequentially from the chunk's entry state, and every block then
+    proposes the next of them, so the accept path runs whatever a head
+    would propose.  Its placeholder head holds ``decode_k - 1`` empty
+    projections (only their count is read)."""
+    import numpy as np
+
+    class OracleEngine(emod.ScoringEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.k_head = {"w": np.zeros((decode_k - 1, 0, 0), np.float32)}
+            self._oracle = None
+
+        def _k_decode_chunk(self, cache, prev, lens, offset, n, eos_id, done,
+                            *rest):
+            toks = dmod.decode_steps(self.params, self.cfg, cache, prev,
+                                     lens, offset, n, eos_id, done,
+                                     with_scores=False)[0]
+            self._oracle = [toks, 0]
+            return super()._k_decode_chunk(cache, prev, lens, offset, n,
+                                           eos_id, done, *rest)
+
+        def _k_propose(self, hidden, prev_logits, kb, done, eos_id):
+            toks, j = self._oracle
+            self._oracle[1] = j + kb
+            return toks[:, j:j + kb]
+
+    return OracleEngine
+
+
+def sweep_packs(scenarios, packing, demos=None):
+    """The sweep corpus as the packed sweep scores it: each row's binary
+    prompt (rephrasing and response format), its (yes, no) target pair,
+    and the packs of ``packing`` consecutive prompts (``demos`` their
+    demonstration answers, the yes targets without)."""
+    from llm_interpretation_replication_tpu_torch.scoring import packed
+
+    prompts = [f"{r} {s['response_format']}" for s in scenarios
+               for r in s["rephrasings"]]
+    targets = [list(s["target_tokens"]) for s in scenarios
+               for _ in s["rephrasings"]]
+    return prompts, targets, packed.build_packs(prompts, packing, demos)
+
+
+def causal_launches(*phase_results):
+    """The causal kernel's launches over every main-path run: the sum of
+    ``kernel_launches`` over each phase result's ``runs`` (each counted
+    from 0 just before it), the slice phase's own count included."""
+    total = 0
+    for res in phase_results:
+        total += res.get("kernel_launches", 0)
+        total += sum(r.get("kernel_launches", 0) for r in res.get("runs", ()))
+    return total
+
+
+def _target_margins(weights, cfg, prompts, target_ids, batch=BATCH):
+    """Per prompt, from one forward of it: the distance of its nearer target
+    logit from the TOP_FILTER-th largest (``edge``) and the two target
+    logits' difference (``split``), ``[N]`` each."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    dev = _device_of(weights)
+    edge, split = np.zeros(len(prompts)), np.zeros(len(prompts))
+    for lo in range(0, len(prompts), batch):
+        ids, mask = _padded(prompts[lo:lo + batch], dev)
+        tgt = torch.as_tensor(np.asarray(target_ids[lo:lo + batch]),
+                              device=dev)
+        logits = decoder.forward_last_logits(weights, cfg, ids, mask).float()
+        kth = torch.topk(logits, TOP_FILTER).values[:, -1:]
+        la = logits.gather(1, tgt)
+        edge[lo:lo + len(ids)] = (la - kth).abs().min(1).values.cpu().numpy()
+        split[lo:lo + len(ids)] = (la[:, 0] - la[:, 1]).abs().cpu().numpy()
+    return edge, split
+
+
+def _position0_partings(what, got, ref, edge, split, tie):
+    """Packed rows' position-0 fields against isolated rows of the same
+    prompts: a target may cross the top filter only where it lies within
+    ``tie`` of its edge, the verdict turn only where the two targets lie
+    within ``tie`` of each other, and every field moves by at most
+    FUSED_PROB_TOL elsewhere.  Returns (stats, failures)."""
+    fails, exact, worst, flips = [], 0, 0.0, 0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        d = max(abs(a[k] - b[k]) for k in range(3))
+        exact += d == 0
+        worst = max(worst, d)
+        if (a[0] > 0) != (b[0] > 0) or (a[1] > 0) != (b[1] > 0):
+            if not edge[i] < tie:
+                fails.append(f"{what}: row {i} target crosses the top "
+                             f"{TOP_FILTER}: {a} vs {b}")
+            continue
+        if (a[2] >= 0.5) != (b[2] >= 0.5):
+            flips += 1
+            if not split[i] < tie:
+                fails.append(f"{what}: row {i} verdict {a[2]} vs {b[2]}")
+        if d > FUSED_PROB_TOL and not edge[i] < tie:
+            fails.append(f"{what}: row {i} position-0 fields {a} vs {b}")
+    return dict(rows=len(ref), exactly_equal=exact, max_abs_delta=worst,
+                verdict_flips=flips), fails
+
+
+def packed_phase(seed, attention, weights, near_tie, workdir, card):
+    """Packed scoring on Falcon-7B over the sweep phase's corpus (its
+    ``perturbations.json``, the targets on ids these weights often rank in
+    the top 20): ``run_packed_perturbation_sweep`` at Q=PACK_Q with drift
+    parity, then on the kernel and the dense route single-question packs
+    and question 0 of each pack against isolated scoring, questions/s
+    packed against isolated, and the causal kernel at the packed batch's
+    shape."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+    from llm_interpretation_replication_tpu_torch.gen.rephrase import (
+        load_perturbations)
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.scoring import packed
+    from llm_interpretation_replication_tpu_torch.scoring import yes_no
+    from llm_interpretation_replication_tpu_torch.sweeps import (
+        PERTURBATION_COLUMNS, run_packed_perturbation_sweep)
+    from llm_interpretation_replication_tpu_torch.utils.logging import (
+        SessionLogger)
+    from llm_interpretation_replication_tpu_torch.utils.xlsx import read_xlsx
+
+    device = "cuda"
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
+    scenarios = load_perturbations(os.path.join(workdir, "perturbations.json"),
+                                   expected_scenarios=legal_scenarios())
+    word_tok = _sweep_tokenizer(scenarios)
+    tok = _sweep_tokenizer(scenarios, _popular_targets(
+        weights, cfg, scenarios, word_tok, range(len(word_tok.special))))
+    prompts, targets, _ = sweep_packs(scenarios, PACK_Q)
+    n = len(prompts)
+    base = emod.EngineConfig(batch_size=BATCH)
+    counted = {"forward_last_logits": 0, "forward_anchor_logits": 0}
+    real = {name: getattr(decoder, name) for name in counted}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counted[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    def reset():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(attention)
+        for k in counted:
+            counted[k] = 0
+
+    def launches_per_forward(name, res):
+        forwards = sum(counted.values())
+        res.update(kernel_launches=_launches(attention)[
+            "causal_grouped_attention"], forwards=dict(counted))
+        if not forwards or res["kernel_launches"] != cfg.num_layers * forwards:
+            fails.append(f"{name}: {res['kernel_launches']} causal launches "
+                         f"for {forwards} prompt forwards")
+
+    fails, runs = [], []
+    for name in counted:
+        setattr(decoder, name, counting(name))
+    try:
+        # the packed sweep with drift parity: the isolated pass, then 30
+        # packs of 4 in one prefill batch
+        engine = emod.ScoringEngine("falcon", cfg, weights, tok,
+                                    engine_config=base, device=device)
+        out = os.path.join(workdir, "packed.xlsx")
+        log = SessionLogger(
+            log_file=os.path.join("chiprun_out", "packed_phase.log"),
+            stream=io.StringIO())
+        reset()
+        t0 = time.perf_counter()
+        _, drift = run_packed_perturbation_sweep(
+            engine, SWEEP_MODEL, scenarios, out, packing=PACK_Q,
+            checkpoint_every=SWEEP_CHECKPOINT, log=log)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        log.close()
+        res = dict(run="packed_sweep", seconds=elapsed,
+                   questions_per_s=n / elapsed,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+        launches_per_forward("packed_sweep", res)
+        runs.append(res)
+        cols, book = read_xlsx(out)
+        tag = f"local:packed{PACK_Q}:first_token_top{TOP_FILTER}"
+        if cols != PERTURBATION_COLUMNS or len(book) != n or any(
+                r["Log Probabilities"] != tag or r["Model Response"]
+                or r["Confidence Value"] is not None for r in book):
+            fails.append(f"packed sweep: workbook of {len(book)} rows")
+        fields = ("mean_abs_delta", "p50_abs_delta", "p90_abs_delta",
+                  "max_abs_delta", "flip_rate")
+        if drift["n_questions"] != n or drift["n_skipped"] != 0 or not all(
+                drift[f] is not None and math.isfinite(drift[f])
+                for f in fields):
+            fails.append(f"packed sweep: drift report {drift}")
+
+        # questions/s, each call timed after a warm-up call
+        iso = engine.first_token_relative_prob(prompts, targets,
+                                               top_filter=TOP_FILTER)
+        demos = packed.demos_from_relative_probs(iso[:, 2], targets)
+        packs = packed.build_packs(prompts, PACK_Q, demos)
+        speed = dict(card=card, questions=n, packs=len(packs))
+        for name, call in (
+                ("isolated", lambda: engine.first_token_relative_prob(
+                    prompts, targets, top_filter=TOP_FILTER)),
+                ("packed", lambda: engine.score_packed(
+                    packs, targets, top_filter=TOP_FILTER))):
+            call()
+            reset()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            speed[f"{name}_questions_per_s"] = n / elapsed
+            speed[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rows, _ = packed.encode_packs(tok, packs)
+        lens = sorted(len(r) for r in rows)
+        speed["packed_tokens"] = [lens[0], lens[-1]]
+        speed["packed_bucket"] = batching.bucket_for(lens[-1], base.buckets)
+        speed["isolated_buckets"] = sorted({
+            b.bucket_len for b in batching.batches_for_prompts(
+                batching.encode_prompts(tok, prompts), BATCH, base.buckets,
+                length_sorted=True)})
+        speed["packed_over_isolated"] = (speed["packed_questions_per_s"]
+                                         / speed["isolated_questions_per_s"])
+        engine.close()
+        say("packed speed", json.dumps(speed))
+
+        # kernel and dense routes: single-question packs and question 0 of
+        # each pack against isolated scoring of the same prompts
+        target_ids = [yes_no.target_token_ids(tok, t) for t in targets]
+        edge, split = _target_margins(
+            weights, cfg, [tok(p)["input_ids"] for p in prompts], target_ids)
+        tie = 2 * near_tie
+        stats = {}
+        q0 = np.arange(0, n, PACK_Q)
+
+        def fields(rows):
+            return [(r["first_token_yes_prob"], r["first_token_no_prob"],
+                     r["first_token_relative_prob"]) for r in rows]
+
+        for route, rcfg in (("kernel", cfg), ("dense", dataclasses.replace(
+                cfg, attention_impl="xla"))):
+            eng = emod.ScoringEngine("falcon", rcfg, weights, tok,
+                                     engine_config=base, device=device)
+            reset()
+            t0 = time.perf_counter()
+            iso_r = eng.first_token_relative_prob(prompts, targets,
+                                                  top_filter=TOP_FILTER)
+            single = eng.score_packed(packed.build_packs(prompts, 1),
+                                      targets, top_filter=TOP_FILTER)
+            four = eng.score_packed(packs, targets, top_filter=TOP_FILTER)
+            torch.cuda.synchronize()
+            res = dict(run=f"packed_{route}", seconds=time.perf_counter() - t0,
+                       peak_memory_bytes=torch.cuda.max_memory_allocated())
+            if route == "kernel":
+                launches_per_forward(res["run"], res)
+            elif _launches(attention)["causal_grouped_attention"]:
+                fails.append("dense route launched the causal kernel")
+            runs.append(res)
+            eng.close()
+            iso_rows = [tuple(float(x) for x in r) for r in iso_r]
+            stats[f"{route}_single"], f = _position0_partings(
+                f"{route} Q=1", fields(single), iso_rows, edge, split, tie)
+            fails += f
+            stats[f"{route}_question0"], f = _position0_partings(
+                f"{route} question 0", [fields(four)[i] for i in q0],
+                [iso_rows[i] for i in q0], edge[q0], split[q0], tie)
+            fails += f
+            stats[f"{route}_drift"] = packed.drift_report(
+                [r["first_token_relative_prob"] for r in four],
+                iso_r[:, 2], PACK_Q)
+    finally:
+        for name in counted:
+            setattr(decoder, name, real[name])
+
+    # the causal kernel at the packed prefill's shape: the packs' real
+    # lengths, in one batch of BATCH rows (pad rows repeat row 0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 10)
+    b_lens = lens + [lens[0]] * (BATCH - len(lens))
+    krow = _family_kernel_row(attention, "falcon-7b-packed", gen, BATCH,
+                              speed["packed_bucket"], cfg.num_heads,
+                              cfg.num_kv_heads, cfg.head_dim, b_lens)
+    result = dict(card=card, packing=PACK_Q, questions=n, drift=drift,
+                  speed=speed, runs=runs, stats=stats, parting_tie=tie,
+                  kernel_rows=[krow], failures=fails[:50])
+    say("packed gates", json.dumps(dict(card=card, drift=drift, stats=stats,
+                                        failures=len(fails))))
+    if fails:
+        raise AssertionError(f"packed: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
+def _k_chunk_timing(weights, cfg, prompts, head, n=10, kmax=K_DECODE):
+    """One ``scan_steps`` chunk of the first BATCH prompts from their
+    prefill cache: ms of the sequential ``decode_steps`` against ms of the
+    accepted K path over the same positions (verify passes of a bootstrap
+    block and then blocks of ``kmax``, the sequential tokens as proposals,
+    each pass's acceptance read to the host as the engine reads it), and
+    ms of one ``k_propose`` of ``head``'s ``kmax - 1`` projections.  Also
+    where the passes' own argmax chain leaves the sequential one: each
+    row's first mismatch in each block, with the sequential decode's lead
+    (top-1 over top-2 logit) at that position."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    ids, mask = _padded(prompts[:BATCH], _device_of(weights))
+    lengths = mask.sum(-1)
+    last, cache = decoder.prefill(weights, cfg, ids, mask, ids.shape[1])
+    tgt = torch.zeros((ids.shape[0], 2), dtype=torch.long, device=ids.device)
+    seq, sc = decoder.decode_steps(weights, cfg, cache, last, lengths, 0, n,
+                                   None, None, with_scores="reduced",
+                                   target_ids=tgt)[:2]
+    leads = (sc.topk_vals[..., 0] - sc.topk_vals[..., 1]).cpu().numpy()
+    blocks = [1]
+    while sum(blocks) < n:
+        blocks.append(min(kmax, n - sum(blocks)))
+    dt = cache.k.dtype
+
+    mismatches = []           # (row, position) of each block's first
+
+    def k_chunk(record=False):
+        shape = (cfg.num_layers, ids.shape[0], n, cfg.num_kv_heads,
+                 cfg.head_dim)
+        tk = torch.zeros(shape, dtype=dt, device=ids.device)
+        tv = torch.zeros(shape, dtype=dt, device=ids.device)
+        prev, done, j = last, None, 0
+        for kb in blocks:
+            out = decoder.k_verify_block(
+                weights, cfg, cache, tk, tv, prev, lengths, 0, j,
+                seq[:, j:j + kb], None, done, tgt, fold=j + kb == n)
+            a_len = torch.stack([out.a_len, out.accepted.long()]).cpu()[0]
+            if record:
+                mismatches.extend((r, j + int(a)) for r, a in
+                                  enumerate(a_len.tolist()) if a < kb)
+            prev, done, j = out.last_logits, out.done, j + kb
+        return out
+
+    hidden = k_chunk(record=True).last_hidden
+    mismatch_leads = [float(leads[r, p]) for r, p in mismatches]
+    res = dict(
+        rows=int(ids.shape[0]), bucket=int(ids.shape[1]), chunk=n,
+        blocks=blocks,
+        sequential_ms=time_ms(lambda: decoder.decode_steps(
+            weights, cfg, cache, last, lengths, 0, n, None, None,
+            with_scores="reduced", target_ids=tgt), iters=3, warmup=1),
+        k_path_ms=time_ms(k_chunk, iters=3, warmup=1),
+        propose_ms=time_ms(lambda: decoder.k_propose(
+            head, hidden, last, kmax), iters=3, warmup=1),
+        row_blocks=int(ids.shape[0]) * len(blocks),
+        mismatched_row_blocks=len(mismatches),
+        widest_lead_at_a_mismatch=max(mismatch_leads, default=None),
+        lead_quantiles=_quantiles(leads))
+    del cache, last
+    return res
+
+
+def k_decode_phase(seed, attention, weights, near_tie, card):
+    """The full-study row (``score_prefixed``, binary and confidence legs)
+    on the full-study phase's 96 rows with the joint K-token decode:
+    K=1, then K=K_DECODE with a distilled head, with oracle proposals
+    (``oracle_engine``) and with a random head (every speculative block
+    rejects); then K=1 and the oracle with an int8 KV cache."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.utils import telemetry
+
+    device = "cuda"
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
+    prefixes, suffixes = _study_inputs(seed, cfg.vocab_size)
+    pairs = list(zip(prefixes, suffixes))
+    n = len(pairs)
+    joined = [[p + s[0] for p, s in pairs], [p + s[1] for p, s in pairs]]
+    base = emod.EngineConfig()
+    targets = _pool_targets(
+        seed, weights, cfg, list(batching.batches_for_prompts(
+            joined[0], base.batch_size, base.buckets, pad_id=0,
+            length_sorted=True)), n, roles=STUDY_ROLES,
+        last_roles=STUDY_ROLES, outside=STUDY_OUTSIDE, by_lead=True)
+    target_ids = [[int(t[1:]) for t in pair] for pair in targets]
+    tok = _id_tokenizer(cfg.vocab_size)
+    legs = [emod.LegSpec("binary"),
+            emod.LegSpec("confidence", with_confidence=True,
+                         max_new_tokens=CONF_CAP)]
+    oracle_cls = oracle_engine(emod, decoder)
+    counted = {"prefill": 0, "k_verify_block": 0}
+    real = {name: getattr(decoder, name) for name in counted}
+    real_chunk = emod.ScoringEngine._k_decode_chunk
+    chunks = [0]
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counted[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    def counting_chunk(self, *args, **kwargs):
+        chunks[0] += 1
+        return real_chunk(self, *args, **kwargs)
+
+    runs, rows = {}, {}
+    keys = ("k_blocks_proposed", "k_blocks_rejected", "k_steps_saved",
+            "k_steps_saved|leg=completion", "k_steps_saved|leg=confidence",
+            "decode_steps_saved", "k_decode_head_missing")
+
+    def run(name, engine):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        telemetry.clear_counters()
+        hist = telemetry.hist_snapshot()
+        _reset_launches(attention)
+        for k in counted:
+            counted[k] = 0
+        chunks[0] = 0
+        t0 = time.perf_counter()
+        out = engine.score_prefixed(pairs, targets, legs=legs)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        c = telemetry.counters()
+        acc = telemetry.hist_since(hist).get("accepted_k")
+        res = dict(run=name, rows_per_s=n / elapsed, seconds=elapsed,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   kernel_launches=_launches(attention)[
+                       "causal_grouped_attention"],
+                   prefills=counted["prefill"],
+                   verify_passes=counted["k_verify_block"],
+                   k_chunks=chunks[0],
+                   accepted_k_mean=(acc["sum"] / acc["count"]
+                                    if acc else None),
+                   **{k: c.get(k, 0) for k in keys})
+        if res["k_blocks_proposed"]:
+            res["accept_rate"] = 1 - (res["k_blocks_rejected"]
+                                      / res["k_blocks_proposed"])
+        if res["k_chunks"]:
+            res["passes_per_chunk"] = res["verify_passes"] / res["k_chunks"]
+        engine.close()
+        runs[name], rows[name] = res, out
+        say("k_decode", json.dumps(dict(res, card=card)))
+
+    def engine(cls=emod.ScoringEngine, **kw):
+        return cls("falcon", cfg, weights, tok, device=device,
+                   engine_config=dataclasses.replace(base, **kw))
+
+    fails, extra = [], {}
+    for name in counted:
+        setattr(decoder, name, counting(name))
+    emod.ScoringEngine._k_decode_chunk = counting_chunk
+    try:
+        warm = engine()
+        warm.score_prefixed(pairs[:base.batch_size],
+                            targets[:base.batch_size], legs=legs)
+        warm.close()
+        run("k1", engine())
+        distilled = engine(decode_k=K_DECODE)
+        sample = ([p + s[0] for p, s in pairs[:K_DISTILL[0]]]
+                  + [p + s[1] for p, s in pairs[:K_DISTILL[1]]])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        head = distilled.distill_k_head_on(sample)
+        torch.cuda.synchronize()
+        extra.update(distill_s=time.perf_counter() - t0,
+                     distill_rows=min(len(sample), 32),
+                     k_head_gb=head["w"].numel() * head["w"].element_size()
+                     / 1e9, k_head_dtype=str(head["w"].dtype))
+        run("distilled", distilled)
+        run("oracle", engine(oracle_cls, decode_k=K_DECODE))
+        rejecting = engine(decode_k=K_DECODE)
+        rejecting.k_head = decoder.init_k_head(
+            cfg, K_DECODE, seed=seed + 11, dtype=torch.bfloat16, device=device)
+        run("forced_rejection", rejecting)
+        del rejecting
+        run("k1_int8kv", engine(kv_dtype="int8"))
+        run("oracle_int8kv", engine(oracle_cls, decode_k=K_DECODE,
+                                    kv_dtype="int8"))
+    finally:
+        for name in counted:
+            setattr(decoder, name, real[name])
+        emod.ScoringEngine._k_decode_chunk = real_chunk
+
+    timing = _k_chunk_timing(weights, cfg, joined[0], head)
+    timing["card"] = card
+    del head
+    say("k_decode timing", json.dumps(timing))
+    tie = 2 * near_tie
+    # the sequential tokens proposed to the passes: the passes' own chain
+    # may leave them only where the sequential lead is below the tie
+    widest = timing["widest_lead_at_a_mismatch"]
+    if widest is not None and not widest < tie:
+        fails.append(f"k_decode timing: a pass left the sequential chain at "
+                     f"a lead of {widest} (tie {tie})")
+
+    # the int8 cache's own deviation: the top-1 logit of a greedy decode of
+    # the confidence prompts from an int8 cache against one bf16 forward
+    # over the same tokens; a K=1-vs-oracle parting on the int8 runs may
+    # lie that much further from the bf16 forward's lead
+    icfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    conf_batches = list(batching.batches_for_prompts(
+        joined[1], base.batch_size, base.buckets, pad_id=0,
+        length_sorted=True))
+    itoks, _, itop1, _, _, _ = _study_prepass(
+        weights, icfg, conf_batches, n, CONF_CAP, CONF_CAP, None, target_ids)
+    int8_dev = float(np.abs(_teacher_top1(
+        weights, cfg, joined[1], itoks.tolist())[0][:, :-1] - itop1).max())
+    stats = {}
+    for leg in (0, 1):
+        leg_name = legs[leg].name
+        for name, ref, leg_tie in (("distilled", "k1", tie),
+                                   ("oracle", "k1", tie),
+                                   ("oracle_int8kv", "k1_int8kv",
+                                    tie + 2 * int8_dev)):
+            ref_rows = rows[ref][leg]
+            _, leads, edge0, _ = _teacher_top1(
+                weights, cfg, joined[leg],
+                [_completion_ids(r["completion"]) for r in ref_rows],
+                target_ids=target_ids)
+            stats[f"{name}_{leg_name}"], f = _compare_rows(
+                f"{name} {leg_name}", rows[name][leg], ref_rows, leads,
+                edge0, leg_tie, True, FUSED_WC_TOL)
+            fails += f
+        if rows["forced_rejection"][leg] != rows["k1"][leg]:
+            fails.append(f"forced_rejection {leg_name}: rows differ from "
+                         f"K=1")
+    for name in ("oracle", "oracle_int8kv"):
+        if not (runs[name]["k_blocks_proposed"] and runs[name]["k_steps_saved"]):
+            fails.append(f"{name}: k_blocks_proposed "
+                         f"{runs[name]['k_blocks_proposed']}, k_steps_saved "
+                         f"{runs[name]['k_steps_saved']}")
+    if not runs["forced_rejection"]["k_blocks_rejected"] \
+            or runs["forced_rejection"]["k_steps_saved"]:
+        fails.append("forced_rejection: no rejection, or steps saved")
+    for name, res in runs.items():
+        if not res["prefills"] or res["kernel_launches"] != \
+                cfg.num_layers * res["prefills"]:
+            fails.append(f"{name}: {res['kernel_launches']} causal launches "
+                         f"for {res['prefills']} prefills")
+        if name != "k1" and name != "k1_int8kv" and not res["k_chunks"]:
+            fails.append(f"{name}: the K path never ran")
+    result = dict(card=card, rows=n, decode_k=K_DECODE, runs=list(
+        runs.values()), timing=timing, stats=stats, parting_tie=tie,
+        int8_logit_deviation=int8_dev, failures=fails[:50], **extra)
+    say("k_decode gates", json.dumps(dict(card=card, stats=stats, **extra,
+                                          failures=len(fails))))
+    if fails:
+        raise AssertionError(f"k_decode: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4812,6 +5503,10 @@ def main(argv=None):
     try:
         wres = timed("sweep", sweep_phase, args.seed, attention, weights,
                      fres["near_tie"], workdir, card)
+        pkres = timed("packed", packed_phase, args.seed, attention, weights,
+                      fres["near_tie"], workdir, card)
+        kres = timed("k_decode", k_decode_phase, args.seed, attention,
+                     weights, fres["near_tie"], card)
         del weights
         torch.cuda.empty_cache()
         ires = timed("int8", int8_phase, args.seed, attention, bf16_rows)
@@ -4829,22 +5524,16 @@ def main(argv=None):
 
     # the causal kernel's launches over every main-path run (each counted
     # from 0 just before it); the head-major kernels run on forced routes
-    causal = (sres["kernel_launches"]
-              + sum(r.get("kernel_launches", 0) for r in pres["runs"])
-              + sum(r["kernel_launches"] for r in fres["runs"]
-                    if "kernel_launches" in r)
-              + sum(r["kernel_launches"] for r in ires["runs"])
-              + sum(r["kernel_launches"] for r in wres["runs"])
-              + sum(r["kernel_launches"] for r in cres["runs"])
-              + sum(r["kernel_launches"] for r in fam["runs"])
-              + sum(r["kernel_launches"] for r in inst["runs"]))
+    causal = causal_launches(sres, pres, fres, ires, wres, pkres, kres, cres,
+                             fam, inst)
     launches = {"causal_grouped_attention": causal,
                 "grouped_attention": sres["forced_routes"]["grouped"]["launches"],
                 "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
     kernels = []
     for name, source, line, _, _ in KERNELS:
         mine = [r for r in krows + erows + fam["kernel_rows"]
-                + inst["kernel_rows"] if r["kernel"] == name]
+                + inst["kernel_rows"] + pkres["kernel_rows"]
+                if r["kernel"] == name]
         main_row = next(r for r in mine
                         if r.get("shape") == "falcon-7b" and r["causal"])
         kernels.append(dict(
@@ -4860,8 +5549,8 @@ def main(argv=None):
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build=build,
                        edge_rows=erows, kernel_rows=krows, slice=sres,
-                       pooled=pres, full_study=fres, sweep=wres, int8=ires,
-                       cli=cres, families=fam, run_100q=qres, instruct=inst,
+                       pooled=pres, full_study=fres, sweep=wres,
+                       packed=pkres, k_decode=kres, int8=ires, cli=cres, families=fam, run_100q=qres, instruct=inst,
                        run_instruct_sweep=ires_cli, phase_seconds=seconds,
                        kernels=kernels), f, indent=1)
     say(json.dumps({"kernels": kernels}))

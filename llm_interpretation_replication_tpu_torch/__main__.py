@@ -11,7 +11,14 @@
 safetensors or ``pytorch_model.bin``, a byte-level BPE ``tokenizer.json``)
 onto the card, or onto the CPU with ``--device cpu``, and writes the
 perturbation study's 15-column workbook to
-``<output-dir>/perturbation_results.xlsx``.  ``run-100q`` scores the 100
+``<output-dir>/perturbation_results.xlsx`` (with ``--packed Q``, Q
+rephrasings a prefill scored at their answer anchors, to
+``perturbation_results_packed.xlsx``, and the drift block against isolated
+scoring printed as ``{"packed_drift": ...}``).  With ``--decode-k K`` the
+decode legs run in joint K-token verify passes: the engine loads the
+snapshot's ``k_head.npz`` when it matches, and otherwise
+``run-perturbation`` distills a K-head on the sweep's own texts and writes
+it there.  ``run-100q`` scores the 100
 ordinary-meaning questions with each base and instruct model of
 ``data_assets/model_pairs_100q.json``, each loaded from its snapshot under
 ``--checkpoint-dir`` (``org/name``, ``org--name`` or a hub cache's
@@ -33,7 +40,6 @@ import sys
 _ITEM_GUARDS = "ROADMAP.md queue 1, 'Guards and device observability'"
 _ITEM_PLAN = "ROADMAP.md queue 1, 'Planning for the H100'"
 _ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
-_ITEM_PACKED = "ROADMAP.md queue 1, 'Packed scoring'"
 
 
 def _add_run_config_args(p: argparse.ArgumentParser):
@@ -71,8 +77,11 @@ def _add_run_config_args(p: argparse.ArgumentParser):
                    help="slot ring (retired lanes refill mid-decode); "
                         "--no-slot-repack decodes whole flushes")
     p.add_argument("--decode-k", type=int, default=1, metavar="K",
-                   help="joint next-K-token decode (not ported: K > 1 "
-                        "raises)")
+                   help="joint next-K-token decode with verify and accept: "
+                        "a K-head proposes K tokens a pass and one joint "
+                        "pass verifies them against the single-step "
+                        "argmax; a rejected pass re-runs its chunk "
+                        "sequentially; 1 = sequential (default)")
     p.add_argument("--plan-search", action="store_true",
                    help="plan search (not ported)")
     p.add_argument("--mesh-model", type=int, default=1)
@@ -92,7 +101,6 @@ def _refuse_unported(args) -> None:
         ("--plan-search", args.plan_search, _ITEM_PLAN),
         ("--mesh-model > 1", args.mesh_model > 1, _ITEM_PAR),
         ("--mesh-seq > 1", args.mesh_seq > 1, _ITEM_PAR),
-        ("--packed", getattr(args, "packed", 0), _ITEM_PACKED),
     ):
         if on:
             raise NotImplementedError(f"{flag} is not ported yet ({item})")
@@ -119,10 +127,12 @@ def _engine_factory(run_config):
     the causal kernel (``flash_refusal``: ALiBi, a sliding window, T5's
     position bias) runs dense, as the reference's loader runs it; each
     model's impl is named on stderr (``# <model>: attention <impl>
-    (<why>)``) before it loads."""
+    (<why>)``) before it loads.  With ``--decode-k`` > 1 the engine takes
+    the snapshot's persisted K-head when one matches."""
     from .models.config import from_hf_config
     from .runtime.engine import EngineConfig, ScoringEngine
-    from .runtime.loader import load_hf_config, load_model, load_tokenizer
+    from .runtime.loader import (K_HEAD_FILENAME, attach_k_head,
+                                 load_hf_config, load_model, load_tokenizer)
 
     def factory(model_name: str) -> ScoringEngine:
         rc = run_config
@@ -137,7 +147,7 @@ def _engine_factory(run_config):
         family, cfg, params = load_model(
             path, dtype=rc.dtype, quant=rc.quant, attention_impl=impl,
             device=rc.device)
-        return ScoringEngine(
+        engine = ScoringEngine(
             family, cfg, params, load_tokenizer(path), device=rc.device,
             engine_config=EngineConfig(
                 batch_size=rc.batch_size,
@@ -148,6 +158,10 @@ def _engine_factory(run_config):
                 slot_repack=rc.slot_repack,
                 decode_k=rc.decode_k,
             ))
+        if rc.decode_k > 1 and attach_k_head(engine, path):
+            print(f"# K-head loaded from snapshot ({K_HEAD_FILENAME}, "
+                  f"decode_k={rc.decode_k})", file=sys.stderr, flush=True)
+        return engine
 
     return factory
 
@@ -196,15 +210,58 @@ def cmd_run_instruct_sweep(args):
     print(f"{len(rows)} rows over {len(prompts)} questions")
 
 
+def _distill_k_head(engine, rc, model, scenarios):
+    """Distill the engine's K-head on the sweep's own texts (24 binary and
+    12 confidence prompts: the continuations the decode legs replay) and
+    write it beside the snapshot; a snapshot directory that cannot be
+    written keeps the run going without it."""
+    from .runtime.loader import save_k_head
+
+    sample = [f"{r} {s['response_format']}" for s in scenarios
+              for r in s["rephrasings"][:3]][:24]
+    sample += [f"{r} {s['confidence_format']}" for s in scenarios
+               for r in s["rephrasings"][:2]][:12]
+    engine.distill_k_head_on(sample)
+    print(f"# K-head distilled for decode_k={engine.ecfg.decode_k} on "
+          f"{min(len(sample), 32)} sample prompts", file=sys.stderr,
+          flush=True)
+    try:
+        saved = save_k_head(rc.snapshot_path(model), engine.k_head,
+                            engine.ecfg.decode_k)
+        print(f"# K-head persisted to {saved}", file=sys.stderr, flush=True)
+    except OSError as err:
+        print(f"# K-head not persisted ({err})", file=sys.stderr, flush=True)
+
+
 def cmd_run_perturbation(args):
+    import json
+
     from .config import legal_scenarios
     from .gen.rephrase import load_perturbations
-    from .sweeps import run_model_perturbation_sweep
+    from .sweeps import (run_model_perturbation_sweep,
+                         run_packed_perturbation_sweep)
 
     rc = _run_config(args)
     scenarios = load_perturbations(args.perturbations,
                                    expected_scenarios=legal_scenarios())
     engine = _engine_factory(rc)(args.model)
+    if rc.decode_k > 1 and engine.k_head is None \
+            and not engine.is_encoder_decoder:
+        _distill_k_head(engine, rc, args.model, scenarios)
+    if args.packed:
+        rows, drift = run_packed_perturbation_sweep(
+            engine, args.model, scenarios,
+            output_xlsx=os.path.join(rc.output_dir,
+                                     "perturbation_results_packed.xlsx"),
+            packing=args.packed, drift_parity=args.packed_parity,
+            max_rephrasings=args.max_rephrasings,
+            score_chunk=args.score_chunk,
+        )
+        engine.close()
+        print(f"{len(rows)} rows (packed Q={args.packed})")
+        if drift is not None:
+            print(json.dumps({"packed_drift": drift}))
+        return
     rows = run_model_perturbation_sweep(
         engine, args.model, scenarios,
         output_xlsx=os.path.join(rc.output_dir, "perturbation_results.xlsx"),
@@ -251,7 +308,18 @@ def main(argv=None):
                    help="generation cap of the confidence leg; 0 = the "
                         "engine's max_new_tokens")
     p.add_argument("--packed", type=int, default=0, metavar="Q",
-                   help="packed multi-question batching (not ported)")
+                   help="> 0: packed multi-question scoring: Q rephrasings "
+                        "and their demonstration answers join into one "
+                        "row, prefill once, and the binary leg reads the "
+                        "logits at each answer anchor (no decode, no "
+                        "confidence leg); writes "
+                        "perturbation_results_packed.xlsx")
+    p.add_argument("--packed-parity",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="with --packed: score the same rows isolated first "
+                        "and print the drift block (per-question |d "
+                        "relative_prob| distribution and flip rate); the "
+                        "isolated answers are the demonstrations")
     p.set_defaults(fn=cmd_run_perturbation)
 
     args = parser.parse_args(argv)

@@ -416,10 +416,16 @@ def _matmul_f32(x, w, chunk: int = 8192):
                       for i in range(0, w.shape[1], chunk)], dim=-1)
 
 
-def _unembed_hidden(cfg: DecoderConfig, params, x):
-    """(final-normed hidden, fp32 logits)."""
+def _final_hidden(cfg: DecoderConfig, params, x):
+    """The final-normed hidden states the unembedding (and a K-head) read."""
     if cfg.final_norm:
         x = _norm(cfg, x, params["final_ln"])
+    return x
+
+
+def _unembed_hidden(cfg: DecoderConfig, params, x):
+    """(final-normed hidden, fp32 logits)."""
+    x = _final_hidden(cfg, params, x)
     table = params.get("lm_head")
     if table is None:
         table = params["embed"]["tokens"].T
@@ -518,6 +524,22 @@ def forward_last_logits(params, cfg: DecoderConfig, token_ids, attention_mask):
     params = _tree(params)
     x, _ = _trunk(params, cfg, token_ids, attention_mask, None)
     return _unembed(cfg, params, _last_hidden(x, attention_mask))[:, 0, :]
+
+
+@torch.no_grad()
+def forward_anchor_logits(params, cfg: DecoderConfig, token_ids,
+                          attention_mask, anchors):
+    """fp32 logits at K anchor positions a row -- [B, K, V].
+
+    The packed-scoring op (``scoring.packed``): a packed row carries K
+    questions, each ending at an anchor token whose next-token logits score
+    its answer.  The final hidden states are gathered at the anchors
+    (``anchors`` [B, K] token indices within each row's real length) before
+    the unembedding, so the logits never span the whole sequence."""
+    params = _tree(params)
+    x, _ = _trunk(params, cfg, token_ids, attention_mask, None)
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return _unembed(cfg, params, x[rows, anchors.long()])
 
 
 @torch.no_grad()
@@ -669,8 +691,9 @@ def _reduce_step_scores(logits, target_ids):
 
 def _block_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l,
                   i, ks_l=None, vs_l=None):
-    """_block for one decode step: this step's K/V go into slot ``i`` of the
-    layer's tail (in place); the prompt cache slice is read-only."""
+    """_block for one decode step, or for a K-token verify pass: the S
+    tokens' K/V go into slots ``i .. i+S`` of the layer's tail (in place);
+    the prompt cache slice is read-only."""
     ln1_out = _norm(cfg, x, lp["ln1"])
     attn_out = _attn_decode(cfg, lp, ln1_out, sin_cos, bias_p, bias_t, kp_l,
                             vp_l, tk_l, tv_l, i, ks_l, vs_l)
@@ -680,14 +703,36 @@ def _block_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l,
 def _attn_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l,
                  i, ks_l=None, vs_l=None):
     q, k, v = _qkv(cfg, lp["attn"], x, sin_cos)
-    # in-place write of slot i of the small tail (the reference's
-    # dynamic-update-slice); the tail is this call's own buffer
-    tk_l[:, i:i + 1] = k.to(tk_l.dtype)
-    tv_l[:, i:i + 1] = v.to(tv_l.dtype)
+    # in-place write of slots i..i+S of the small tail (the reference's
+    # dynamic-update-slice); the tail is the chunk's own buffer
+    tk_l[:, i:i + k.shape[1]] = k.to(tk_l.dtype)
+    tv_l[:, i:i + v.shape[1]] = v.to(tv_l.dtype)
     out = grouped_attention_two_block(
         q, _deq(kp_l, ks_l, x.dtype), _deq(vp_l, vs_l, x.dtype), bias_p,
         tk_l.to(x.dtype), tv_l.to(x.dtype), bias_t)
     return _out_proj(lp["attn"], out)
+
+
+def _fold_tail(cache: KVCache, tail_k, tail_v, tail_positions) -> KVCache:
+    """The end-of-chunk fold: one concat appends the chunk's tail to a new
+    cache (the input cache is not modified); an int8 cache quantizes the
+    tail here, once per generated token."""
+    b, n = tail_positions.shape
+    quantized = cache.k_scale is not None
+    tk_s = tv_s = None
+    if quantized:
+        tail_k, tk_s = quant.quantize_kv(tail_k)
+        tail_v, tv_s = quant.quantize_kv(tail_v)
+    return KVCache(
+        k=torch.cat([cache.k, tail_k], dim=2),
+        v=torch.cat([cache.v, tail_v], dim=2),
+        positions=torch.cat([cache.positions, tail_positions], dim=1),
+        valid=torch.cat([cache.valid, torch.ones(
+            (b, n), dtype=torch.bool, device=tail_positions.device)], dim=1),
+        length=cache.length + n,
+        k_scale=torch.cat([cache.k_scale, tk_s], dim=2) if quantized else None,
+        v_scale=torch.cat([cache.v_scale, tv_s], dim=2) if quantized else None,
+    )
 
 
 @torch.no_grad()
@@ -759,22 +804,7 @@ def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
             outs.append(prev_logits)
         toks.append(next_tok)
         prev_logits = step_logits
-    # one concat per chunk folds the tail in; an int8 cache quantizes the
-    # tail here, once per generated token
-    tk_s = tv_s = None
-    if quantized:
-        tail_k, tk_s = quant.quantize_kv(tail_k)
-        tail_v, tv_s = quant.quantize_kv(tail_v)
-    cache = KVCache(
-        k=torch.cat([cache.k, tail_k], dim=2),
-        v=torch.cat([cache.v, tail_v], dim=2),
-        positions=torch.cat([cache.positions, tail_positions], dim=1),
-        valid=torch.cat([cache.valid, torch.ones((b, n), dtype=torch.bool,
-                                                 device=dev)], dim=1),
-        length=cache.length + n,
-        k_scale=torch.cat([cache.k_scale, tk_s], dim=2) if quantized else None,
-        v_scale=torch.cat([cache.v_scale, tv_s], dim=2) if quantized else None,
-    )
+    cache = _fold_tail(cache, tail_k, tail_v, tail_positions)
     if with_scores == "reduced":
         scores = ReducedScores(*(torch.stack(f, dim=1) for f in zip(*outs)))
     elif with_scores:
@@ -782,3 +812,263 @@ def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
     else:
         scores = None
     return torch.stack(toks, dim=1), scores, cache, prev_logits, done
+
+
+@torch.no_grad()
+def greedy_decode(params, cfg: DecoderConfig, token_ids, attention_mask,
+                  num_steps: int, eos_token_id: Optional[int] = None):
+    """Batched greedy decode of right-padded prompts: one prefill and
+    ``num_steps`` single-token steps.  Returns (tokens [B, num_steps], fp32
+    scores [B, num_steps, V] at each generated position)."""
+    s = token_ids.shape[1]
+    last, cache = prefill(params, cfg, token_ids, attention_mask, s)
+    tokens, scores, _, _, _ = decode_steps(
+        params, cfg, cache, last, attention_mask.sum(-1), 0, num_steps,
+        eos_token_id, None, with_scores=True)
+    return tokens, scores
+
+
+# ---------------------------------------------------------------------------
+# Joint next-K-token decode with verify-and-accept
+# ---------------------------------------------------------------------------
+#
+# A K-head (per-offset logit projections off the last final-normed hidden
+# state) proposes the next K tokens, and one joint pass over the proposed
+# block (`k_verify_block`) checks them against the single-step argmax chain.
+# The pass runs the decode path's own per-layer machinery (`_block_decode`,
+# the two-block softmax, the chunk's tail buffer and its end-of-chunk fold),
+# so an accepted block gives `decode_steps`' tokens exactly and its scores to
+# float32 reduction-order noise (single-query blocks bit for bit).  Any
+# mismatch is a rejection: the engine discards the pass and re-runs the chunk
+# sequentially from its entry state, so a bad head costs passes, never rows.
+
+
+class KVerifyOut(NamedTuple):
+    """One joint verification pass over a proposed block of ``kb`` tokens."""
+    tokens: torch.Tensor          # [B, kb] true tokens (EOS-frozen argmax chain)
+    scores: Optional[object]      # ReducedScores | [B, kb, V] fp32 | None
+    last_logits: torch.Tensor     # [B, V] fp32, predicting the next position
+    last_hidden: torch.Tensor     # [B, H] final-normed hidden at the block's
+    #                             # last position (the next proposals' input)
+    done: torch.Tensor            # [B] EOS-done after the true chain
+    a_len: torch.Tensor           # [B] leading proposals that match
+    accepted: torch.Tensor        # [B] bool: the whole block matched
+    tail_k: torch.Tensor          # the chunk's tail buffers (written in place)
+    tail_v: torch.Tensor
+    cache: Optional[KVCache]      # the folded cache when ``fold``, else None
+
+
+def k_head_num_heads(k_head) -> int:
+    """Look-ahead heads a K-head carries (a proposal block holds one more:
+    position 0 is the free, exact argmax)."""
+    if k_head is None:
+        return 0
+    return int(k_head["w"].shape[0])
+
+
+def init_k_head(cfg: DecoderConfig, k: int, seed: int = 0, dtype=None,
+                device=None):
+    """Random K-head: ``k - 1`` per-offset logit projections [H, V], drawn
+    from numpy's ``default_rng(seed)`` as the reference draws them (a head
+    at a time, the same stream).  Random proposals verify and reject almost
+    everywhere: the forced-rejection fixture."""
+    import numpy as np
+
+    heads = max(0, int(k) - 1)
+    rng = np.random.default_rng(seed)
+    w = torch.empty((heads, cfg.hidden_size, cfg.vocab_size),
+                    dtype=dtype or torch.float32, device=device)
+    for i in range(heads):
+        draw = rng.standard_normal((cfg.hidden_size, cfg.vocab_size))
+        w[i] = torch.from_numpy(draw.astype(np.float32) * np.float32(0.02))
+    return {"w": w}
+
+
+@torch.no_grad()
+def distill_k_head(params, cfg: DecoderConfig, token_ids, attention_mask,
+                   k: int, eos_token_id: Optional[int] = None,
+                   gen_steps: Optional[int] = None, ridge: float = 1e-4):
+    """Greedy self-distillation of the K-head on sample prompts.
+
+    Each row greedy-generates ``gen_steps`` tokens (default ``k + 4``); one
+    forward over prompt and continuation gives the final-normed hidden
+    states along the greedy path, and head ``i`` is the ridge probe from
+    the hidden at position ``t`` to the one-hot greedy token at ``t + 1 +
+    i``: the reference's normal equations (:func:`ridge_probe`), solved
+    with ``torch.linalg`` on the weights' device.  The continuation is appended right
+    after each row's real tokens (no padding between them), so the
+    teacher-forced forward is one right-padded batch on any attention
+    path.  The head is stored in the weights' dtype."""
+    tree = _tree(params)
+    dtype = tree["embed"]["tokens"].dtype
+    dev = tree["embed"]["tokens"].device
+    heads = max(0, int(k) - 1)
+    h_dim, v = cfg.hidden_size, cfg.vocab_size
+    if heads == 0:
+        return {"w": torch.zeros((0, h_dim, v), dtype=dtype, device=dev)}
+    gen = int(gen_steps or (k + 4))
+    ids = torch.as_tensor(token_ids, device=dev).long()
+    mask = torch.as_tensor(attention_mask, device=dev).to(torch.int32)
+    b, s = ids.shape
+    toks, _ = greedy_decode(tree, cfg, ids, mask, gen, eos_token_id)
+    lens = mask.sum(-1).long()
+    slots = torch.arange(s + gen, device=dev)[None, :]
+    seq = torch.zeros((b, s + gen), dtype=torch.long, device=dev)
+    seq[:, :s] = ids * mask
+    seq.scatter_(1, lens[:, None] + torch.arange(gen, device=dev)[None], toks)
+    full_mask = (slots < (lens + gen)[:, None]).to(torch.int32)
+    x, _ = _trunk(tree, cfg, seq, full_mask, None)
+    hidden = _final_hidden(cfg, tree, x).float()               # [B, S+gen, H]
+    lens_np = lens.cpu().tolist()
+    toks_np = toks.cpu().tolist()
+    ws = []
+    for i in range(1, heads + 1):
+        rows, at, targets = [], [], []
+        for r in range(b):
+            # the frontier hidden (position len-1) predicts greedy token i;
+            # the hidden at greedy token jj predicts greedy token jj + 1 + i
+            if i < gen:
+                rows.append(r)
+                at.append(lens_np[r] - 1)
+                targets.append(toks_np[r][i])
+            for jj in range(0, gen - 1 - i):
+                rows.append(r)
+                at.append(lens_np[r] + jj)
+                targets.append(toks_np[r][jj + 1 + i])
+        if not rows:
+            ws.append(torch.zeros((h_dim, v), dtype=dtype, device=dev))
+            continue
+        hm = hidden[torch.as_tensor(rows, device=dev),
+                    torch.as_tensor(at, device=dev)]           # [N, H]
+        ws.append(ridge_probe(hm, torch.as_tensor(targets, device=dev), v,
+                              ridge).to(dtype))
+    return {"w": torch.stack(ws)}
+
+
+def ridge_probe(features, targets, vocab_size: int, ridge: float = 1e-4):
+    """The ridge probe ``(F^T F + ridge * N * I)^-1 F^T onehot(targets)``
+    from features ``F`` [N, H] to one-hot targets, [H, V] float32.
+
+    Formed and solved in float64 (the reference's ``numpy.linalg.solve``
+    also solves its float32 system in double precision).  Final-normed
+    hidden states lie close to a hyperplane, so the system's condition
+    number reaches ~1e6 on the test geometry: there a float32 solve moves
+    the head by ~0.5%, and the head's components along directions the
+    features hardly span follow the features' float32 rounding, while its
+    logits on the features themselves are stable."""
+    f = features.double()
+    h_dim = f.shape[1]
+    a = f.T @ f + ridge * max(1, f.shape[0]) * torch.eye(
+        h_dim, dtype=torch.float64, device=f.device)
+    # F^T @ onehot(targets) without the [N, V] one-hot
+    rhs = torch.zeros((h_dim, vocab_size), dtype=torch.float64,
+                      device=f.device)
+    rhs.index_add_(1, targets.long(), f.T)
+    return torch.linalg.solve(a, rhs).float()
+
+
+@torch.no_grad()
+def k_propose(k_head, hidden, prev_logits, k: int, done=None,
+              eos_token_id: Optional[int] = None):
+    """[B, k] proposed next tokens: position 0 is the free, exact
+    ``argmax(prev_logits)``; positions 1..k-1 project ``hidden`` (the last
+    final-normed hidden state) through the K-head's per-offset matrices,
+    accumulated in float32.  Rows already EOS-done propose EOS throughout."""
+    cols = [torch.argmax(prev_logits, dim=-1)]
+    for i in range(1, k):
+        logits_i = _matmul_f32(hidden, k_head["w"][i - 1].to(hidden.dtype))
+        cols.append(torch.argmax(logits_i, dim=-1))
+    props = torch.stack(cols, dim=1)
+    if eos_token_id is not None and done is not None:
+        props = torch.where(done[:, None], eos_token_id, props)
+    return props
+
+
+@torch.no_grad()
+def k_verify_block(params, cfg: DecoderConfig, cache: KVCache, tail_k, tail_v,
+                   prev_logits, lengths, offset: int, block_start: int,
+                   proposals, eos_token_id: Optional[int] = None, done=None,
+                   target_ids=None, with_scores="reduced",
+                   fold: bool = False) -> KVerifyOut:
+    """One joint forward over a proposed token block and its verification
+    against the single-step argmax chain.
+
+    The block's ``kb`` proposals run as ``kb`` queries at positions
+    ``lengths + offset + block_start + i`` through ``_block_decode``: the
+    two-block softmax over the read-only cache and the chunk's ``n``-slot
+    tail, their K/V written into tail slots ``block_start ..
+    block_start+kb`` (in place; the caller allocates the tail per chunk),
+    later slots masked.  The true token at block position ``i`` is the
+    EOS-frozen argmax of the logits predicting it (``prev_logits`` at 0,
+    the pass's own logits at ``i - 1`` after), computed with the exact ops
+    of ``decode_steps``' step; ``a_len`` counts each row's leading matches
+    and ``accepted`` says the whole block matched.  A row's outputs past its
+    first mismatch are meaningless, so a caller keeps a pass only when every
+    real row accepted.  ``fold=True`` (a chunk's last block) folds the tail
+    into a new cache with ``decode_steps``' end-of-chunk fold, so the int8
+    quantization points are the sequential path's."""
+    params = _tree(params)
+    quantized = cache.k_scale is not None
+    if quantized != (cfg.kv_cache_dtype == "int8"):
+        raise ValueError(
+            f"cache quantization ({'int8' if quantized else 'bf16'}) does "
+            f"not match cfg.kv_cache_dtype={cfg.kv_cache_dtype!r}")
+    if with_scores == "reduced" and target_ids is None:
+        raise ValueError("with_scores='reduced' needs target_ids [B, 2]")
+    b, kb = proposals.shape
+    n = tail_k.shape[2]
+    offset, block_start = int(offset), int(block_start)
+    dev = prev_logits.device
+    if done is None:
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    cdt = params["embed"]["tokens"].dtype if quantized else cache.k.dtype
+    slots = torch.arange(n, device=dev)
+    q_pos = (lengths[:, None] + offset + block_start
+             + torch.arange(kb, device=dev)[None, :])
+    tail_positions = lengths[:, None] + offset + slots[None, :]
+    # slots of earlier blocks stay visible, later ones are masked; causality
+    # inside the block comes from the position comparison, as in the steps
+    tail_valid = (slots < block_start + kb)[None, :].expand(b, n)
+    bias_p = make_attention_bias(cfg, q_pos, cache.positions, cache.valid)
+    bias_t = make_attention_bias(cfg, q_pos, tail_positions, tail_valid)
+    sin_cos = None
+    if cfg.position_embedding == "rotary":
+        sin_cos = rotary_embedding(q_pos, _rotary_dim(cfg), cfg.rope_theta,
+                                   cdt)
+    x = _embed(cfg, params, proposals.long(), q_pos)
+    layers = params["layers"]
+    for li in range(cfg.num_layers):
+        x = _block_decode(
+            cfg, _layer(layers, li), x, sin_cos, bias_p, bias_t,
+            cache.k[li], cache.v[li], tail_k[li], tail_v[li], block_start,
+            cache.k_scale[li] if quantized else None,
+            cache.v_scale[li] if quantized else None)
+    hidden, logits_blk = _unembed_hidden(cfg, params, x)       # [B, kb, H|V]
+    # the chain, position by position, with decode_steps' own step ops
+    cur = done
+    toks, outs = [], []
+    for i in range(kb):
+        pred = prev_logits if i == 0 else logits_blk[:, i - 1]
+        nt = torch.argmax(pred, dim=-1)
+        if eos_token_id is not None:
+            nt = torch.where(cur, eos_token_id, nt)
+            cur = cur | (nt == eos_token_id)
+        if with_scores == "reduced":
+            outs.append(_reduce_step_scores(pred, target_ids))
+        elif with_scores:
+            outs.append(pred)
+        toks.append(nt)
+    true_toks = torch.stack(toks, dim=1)
+    if with_scores == "reduced":
+        scores = ReducedScores(*(torch.stack(f, dim=1) for f in zip(*outs)))
+    elif with_scores:
+        scores = torch.stack(outs, dim=1)
+    else:
+        scores = None
+    match = proposals.long() == true_toks
+    a_len = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+    new_cache = None
+    if fold:
+        new_cache = _fold_tail(cache, tail_k, tail_v, tail_positions)
+    return KVerifyOut(true_toks, scores, logits_blk[:, -1], hidden[:, -1],
+                      cur, a_len, a_len == kb, tail_k, tail_v, new_cache)

@@ -19,7 +19,18 @@ the port honours:
    ``scoring.confidence.weighted_confidence_digits``.
 
 ``first_token_relative_prob`` reads only the position-0 probabilities, one
-forward a batch.
+forward a batch.  ``score_packed`` scores packed rows of several questions
+(``scoring.packed``) from the logits gathered at each question's anchor in
+one prefill (``models.decoder.forward_anchor_logits``), decoding nothing;
+``packed_autoregressive_demos`` decodes each packed question's
+demonstration on the slot ring, stage by stage.
+
+With ``decode_k > 1`` and a K-head (:meth:`ScoringEngine.distill_k_head_on`,
+or ``runtime.loader.attach_k_head``), the completion chunks, the pooled
+confidence flushes and the slot ring decode each chunk in joint K-token
+verify passes (:meth:`ScoringEngine._k_decode_chunk` over
+``models.decoder.k_verify_block``); a rejected pass re-runs the chunk
+sequentially, so rows are those of ``decode_k=1``.
 
 A T5 encoder-decoder (family ``"t5"``, ``models.t5``) scores per batch
 through one greedy decode (``_score_encdec``): the decoder re-runs its short
@@ -81,12 +92,11 @@ from ..models import decoder as dmod
 from ..models import t5 as t5mod
 from ..scoring import confidence as conf_mod
 from ..scoring import yes_no as yn
-from ..utils.telemetry import record_counter, record_fault
+from ..utils.telemetry import record_counter, record_fault, record_hist
 from . import batching, faults
 from . import plan as plan_mod
 from . import slots as slots_mod
 
-_ITEM_KDEC = "ROADMAP.md queue 1, 'K-decode'"
 _ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
 
 
@@ -118,8 +128,9 @@ class EngineConfig:
     ``oom_batch_ladder``), ``prefill_chunk`` (> 0: a prompt bucket longer
     than it prefills in chunks, ``models.decoder.chunked_prefill``).
     ``kv_dtype`` ("bf16" or "int8") sets the decoder's ``kv_cache_dtype``
-    at construction.  ``decode_k`` (K-decode) is not ported yet and must
-    keep its default."""
+    at construction.  ``decode_k`` > 1 decodes in joint K-token verify
+    passes once the engine has a K-head (decoder-only; T5 decodes as with
+    1)."""
     batch_size: int = 32
     max_new_tokens: int = 50
     score_steps: int = 10           # MAX_LOOK_AHEAD -- steps that need scores
@@ -150,13 +161,9 @@ def _check_supported(family, ecfg: EngineConfig, mesh) -> None:
     """Raise NotImplementedError for every setting the port cannot honour."""
     if ecfg.kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_dtype {ecfg.kv_dtype!r}")
-    unsupported = [
-        (mesh is not None, "a device mesh", _ITEM_PAR),
-        (int(ecfg.decode_k) > 1, "decode_k > 1", _ITEM_KDEC),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet ({item})")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"a device mesh is not ported yet ({_ITEM_PAR})")
 
 
 @dataclasses.dataclass
@@ -322,6 +329,9 @@ class ScoringEngine:
         self.last_prefix_pool: Optional[PrefixCachePool] = None
         # token id -> text of the confidence leg's candidates
         self._tok_text_cache: Dict[int, str] = {}
+        # the K-decode proposal head ({"w": [K-1, H, V]}), when decode_k > 1
+        self.k_head = None
+        self._k_head_missing_noted = False
         self._closed = False
 
     # -- lifecycle -------------------------------------------------------
@@ -348,6 +358,7 @@ class ScoringEngine:
         if self.last_prefix_pool is not None:
             self.last_prefix_pool.close()
         self.params = None
+        self.k_head = None
         self._plan_cache.clear()
         self._tok_text_cache = {}
         self._occupancy = []
@@ -908,22 +919,37 @@ class ScoringEngine:
             # as the scored look-ahead when any row needs scores
             reduced = ecfg.top_k <= dmod.REDUCED_TOPK
             tids = self._tensor(row_ids, torch.int64)
+            use_k = self._k_active()
+            prev_h = None         # the K path's frontier hidden
             prev, done, offset = last, None, 0
             chunk_toks, scores_dev = [], None
             lag = None            # host copy of the previous chunk's all-done
             while offset < gen_total:
                 n = min(steps, gen_total - offset)
                 ws = offset == 0 and need_scores
-                toks, sc, cache, prev, done = dmod.decode_steps(
-                    self.params, self.cfg, cache, prev, lengths, offset, n,
-                    eos_id, done,
-                    with_scores=("reduced" if reduced else True) if ws
-                    else False,
-                    target_ids=tids if ws and reduced else None)
+                mode = ("reduced" if reduced else True) if ws else False
+                tgt = tids if ws and reduced else None
+                if use_k:
+                    # the chunk in joint K-token verify passes; the chunk
+                    # boundaries (and fold points) are the sequential ones
+                    toks, sc, cache, prev, done, prev_h = \
+                        self._k_decode_chunk(
+                            cache, prev, lengths, offset, n, eos_id, done,
+                            mode, tgt, prev_h, valid, "completion")
+                else:
+                    toks, sc, cache, prev, done = dmod.decode_steps(
+                        self.params, self.cfg, cache, prev, lengths, offset,
+                        n, eos_id, done, with_scores=mode, target_ids=tgt)
                 if ws:
                     scores_dev = sc
                 chunk_toks.append(toks)
                 offset += n
+                if use_k and eos_id is not None and offset < gen_total:
+                    # the K path read this chunk's acceptance already, so
+                    # the EOS stop is exact (no lag chunk)
+                    if bool(done.all()):
+                        break
+                    continue
                 if eos_id is not None and offset < gen_total:
                     # EOS stop one chunk late: the flag of chunk k is read
                     # after chunk k+1 is queued, so the device never waits
@@ -1273,6 +1299,143 @@ class ScoringEngine:
                 break
         return _cat_scores(sc_parts, reduced), torch.cat(tok_parts, dim=1)
 
+    # -- joint next-K-token decode (verify and accept) -------------------
+
+    def _k_enabled(self) -> bool:
+        """``decode_k`` asks for the K path (decoder-only: T5 re-reads its
+        prompt every step, with no frontier cache to verify against)."""
+        return int(self.ecfg.decode_k) > 1 and not self.is_encoder_decoder
+
+    def _k_active(self) -> bool:
+        """The K path engages: ``decode_k > 1`` and a K-head is set.  A
+        missing head is noted once (``k_decode_head_missing`` and a line on
+        stderr) and the decode legs run sequentially."""
+        if not self._k_enabled():
+            return False
+        if self.k_head is None:
+            if not self._k_head_missing_noted:
+                self._k_head_missing_noted = True
+                record_counter("k_decode_head_missing")
+                print(f"# engine: decode_k={self.ecfg.decode_k} configured "
+                      f"but no K-head is set (distill_k_head_on); decode "
+                      f"legs run sequentially", file=sys.stderr)
+            return False
+        return True
+
+    def distill_k_head_on(self, prompts, max_rows: int = 32,
+                          gen_steps: Optional[int] = None):
+        """Distill this engine's K-head on up to ``max_rows`` sample prompts
+        (``models.decoder.distill_k_head``: ridge probes on the model's own
+        greedy continuations) and set it.  None when ``decode_k <= 1``."""
+        self._check_open()
+        if not self._k_enabled():
+            return None
+        encoded = batching.encode_prompts(self.tokenizer,
+                                          list(prompts)[:max_rows])
+        width = max(len(e) for e in encoded)
+        ids = np.full((len(encoded), width),
+                      self.tokenizer.pad_token_id or 0, np.int64)
+        mask = np.zeros((len(encoded), width), np.int32)
+        for r, e in enumerate(encoded):
+            ids[r, : len(e)] = e
+            mask[r, : len(e)] = 1
+        self.k_head = dmod.distill_k_head(
+            self.params, self.cfg, self._tensor(ids), self._tensor(mask),
+            k=int(self.ecfg.decode_k),
+            eos_token_id=getattr(self.tokenizer, "eos_token_id", None),
+            gen_steps=gen_steps)
+        record_counter("k_head_distilled")
+        return self.k_head
+
+    def _k_propose(self, hidden, prev_logits, kb, done, eos_id):
+        """The proposals of one verify pass (a method, so a caller can put
+        another proposal source in its place: the pass re-derives the true
+        chain either way).  With no frontier hidden yet (a chunk's bootstrap
+        block), only the free, exact argmax."""
+        if hidden is None or kb <= 1:
+            props = torch.argmax(prev_logits, dim=-1)[:, None]
+            if eos_id is not None and done is not None:
+                props = torch.where(done[:, None], eos_id, props)
+            return props
+        return dmod.k_propose(self.k_head, hidden, prev_logits, kb, done,
+                              eos_id)
+
+    def _k_decode_chunk(self, cache, prev, lens, offset, n, eos_id, done,
+                        with_scores, target_ids, prev_h, real_mask, leg):
+        """One chunk of ``n`` positions (one ``decode_steps`` call's worth)
+        in joint K-token verify passes.
+
+        The chunk's tail is allocated here and shared by its blocks; it folds
+        into the cache only at the chunk's last block, so the fold points
+        (an int8 cache's quantization points) are the sequential path's, and
+        the chunk-entry ``cache``, ``prev`` and ``done`` are never written.
+        Per block: up to ``decode_k`` proposals (``_k_propose``; size 1
+        while no frontier hidden exists), one ``k_verify_block`` pass, and
+        its acceptance read to the host (one sync a block).  The pass is
+        kept only when every real row (``real_mask``: gather padding and
+        pool blanks do not veto) matched the whole block; otherwise the
+        whole chunk re-runs through ``decode_steps`` from its entry state.
+
+        Counters count speculative passes only (kb > 1; a kb=1 pass cannot
+        reject): ``k_blocks_proposed``, ``k_blocks_rejected``, the
+        ``accepted_k`` histogram (the least accepted length over the real
+        rows) and ``k_steps_saved`` (and ``k_steps_saved|leg=<leg>``),
+        recorded only when the whole chunk stayed on the K path.
+
+        Returns ``(toks, scores, cache, prev_logits, done, prev_hidden)``:
+        ``decode_steps``' outputs and the frontier hidden for the next chunk
+        (None after a fallback)."""
+        b = int(prev.shape[0])
+        n_real = int(real_mask.sum()) if real_mask is not None else b
+        cdt = (dmod._tree(self.params)["embed"]["tokens"].dtype
+               if cache.k_scale is not None else cache.k.dtype)
+        tail_shape = (self.cfg.num_layers, b, n, self.cfg.num_kv_heads,
+                      self.cfg.head_dim)
+        tail_k = torch.zeros(tail_shape, dtype=cdt, device=prev.device)
+        tail_v = torch.zeros(tail_shape, dtype=cdt, device=prev.device)
+        cache0, prev0, done0 = cache, prev, done
+        kmax = max(1, min(int(self.ecfg.decode_k),
+                          1 + dmod.k_head_num_heads(self.k_head)))
+        toks_parts, sc_parts = [], []
+        j, cur_done, hid, out = 0, done, prev_h, None
+        saved_steps = 0
+        while j < n:
+            kb = 1 if hid is None else max(1, min(kmax, n - j))
+            props = self._k_propose(hid, prev, kb, cur_done, eos_id)
+            out = dmod.k_verify_block(
+                self.params, self.cfg, cache, tail_k, tail_v, prev, lens,
+                offset, j, props, eos_id, cur_done, target_ids,
+                with_scores=with_scores, fold=(j + kb >= n))
+            a_len, acc = torch.stack(
+                [out.a_len, out.accepted.to(out.a_len.dtype)]).cpu().numpy()
+            if real_mask is not None:
+                a_len, acc = a_len[real_mask], acc[real_mask]
+            a_min = int(a_len.min()) if n_real else kb
+            ok = bool(acc.all())
+            if kb > 1:
+                record_counter("k_blocks_proposed")
+                record_hist("accepted_k", a_min)
+            if not ok:
+                record_counter("k_blocks_rejected")
+                toks, sc, cache, prev, cur_done = dmod.decode_steps(
+                    self.params, self.cfg, cache0, prev0, lens, offset, n,
+                    eos_id, done0, with_scores=with_scores,
+                    target_ids=target_ids)
+                return toks, sc, cache, prev, cur_done, None
+            saved_steps += (kb - 1) * n_real
+            toks_parts.append(out.tokens)
+            if out.scores is not None:
+                sc_parts.append(out.scores)
+            prev, cur_done, hid = out.last_logits, out.done, out.last_hidden
+            j += kb
+        if saved_steps:
+            record_counter("k_steps_saved", saved_steps)
+            record_counter(f"k_steps_saved|leg={leg}", saved_steps)
+        toks = torch.cat(toks_parts, dim=1)
+        sc = (_cat_scores(sc_parts, with_scores == "reduced") if sc_parts
+              else None)
+        return toks, sc, out.cache, prev, cur_done, hid
+
     # -- decode-then-repack consumers (runtime/slots.py) ------------------
 
     def record_occupancy(self, stats) -> None:
@@ -1537,6 +1700,290 @@ class ScoringEngine:
         self.record_occupancy(ring.stats)
         return [r if r is not None else _error_row("missing")
                 for r in results]
+
+    def score_packed(
+        self,
+        packs: Sequence,
+        targets: Sequence,
+        top_filter: Optional[int] = None,
+    ) -> List[Dict]:
+        """Packed multi-question scoring (``scoring.packed``): each pack is
+        a list of ``(prompt, demo_continuation)`` segments joined into one
+        row; the row prefills once and every question's yes/no
+        probabilities read from the logits gathered at its anchor (the last
+        token of its prompt segment, ``models.decoder.forward_anchor_logits``),
+        with no decode.
+
+        ``targets``: one (yes, no) pair, or one pair a question in
+        pack-major order.  Returns one result row a question, pack-major,
+        with the result fields; ``completion`` is empty, ``scan_found`` is
+        the anchor's top-k membership, and the ``first_token_*`` fields read
+        under ``top_filter`` (default: the engine's
+        ``first_token_top_filter``).  Question 0 of a pack is isolated
+        scoring; later questions move with their packed context.
+        ``prefill_chunk`` does not apply here."""
+        from ..scoring import packed as packed_mod
+
+        self._check_open()
+        if self.is_encoder_decoder:
+            raise ValueError(
+                "packed anchor scoring is decoder-only (T5 re-reads the "
+                "full prompt per decoder step; there is no single prefill "
+                "to gather anchors from)")
+        ecfg = self.ecfg
+        encoded, anchors = packed_mod.encode_packs(self.tokenizer, packs)
+        n_questions = sum(len(a) for a in anchors)
+        ids_all = self._target_id_rows(list(range(n_questions)), targets)
+        kmax = max(len(a) for a in anchors)
+        # [N, kmax] anchor offsets and flat question indices; padded slots
+        # duplicate anchor 0 (consume skips them), so the gather is
+        # rectangular
+        anchor_arr = np.zeros((len(packs), kmax), np.int64)
+        qindex = np.zeros((len(packs), kmax), np.int64)
+        qvalid = np.zeros((len(packs), kmax), bool)
+        qi = 0
+        for i, offs in enumerate(anchors):
+            for k, off in enumerate(offs):
+                anchor_arr[i, k] = off
+                qindex[i, k] = qi
+                qvalid[i, k] = True
+                qi += 1
+            anchor_arr[i, len(offs):] = offs[0]
+            qindex[i, len(offs):] = qindex[i, 0]
+        results: List[Optional[Dict]] = [None] * n_questions
+        tf = ecfg.first_token_top_filter if top_filter is None else top_filter
+
+        def launch(batch):
+            first = int(batch.indices[0])
+            idx = np.where(batch.indices >= 0, batch.indices, first)
+            tids = self._tensor(ids_all[qindex[idx]].reshape(-1, 2),
+                                torch.int64)                 # [B*K, 2]
+            logits = dmod.forward_anchor_logits(
+                self.params, self.cfg,
+                self._tensor(batch.token_ids, torch.int64),
+                self._tensor(batch.attention_mask, torch.int32),
+                self._tensor(anchor_arr[idx]))
+            flat = logits.reshape(-1, logits.shape[-1])      # [B*K, V]
+            scan0 = yn.first_token_scan(flat, tids[:, 0], tids[:, 1],
+                                        top_k=ecfg.top_k)
+            first3 = yn.relative_prob_first_token(flat, tids[:, 0],
+                                                  tids[:, 1], tf)
+            return _HostCopy((*scan0, *first3))
+
+        def consume(batch, out):
+            host = out.numpy()
+            yes0, no0, rel0, odds0, hit0 = host[:5]
+            first3 = host[5:]
+            for r, orig in enumerate(batch.indices):
+                if orig < 0:
+                    continue
+                for k in range(kmax):
+                    if not qvalid[int(orig), k]:
+                        continue
+                    f = r * kmax + k
+                    results[int(qindex[int(orig), k])] = _attach_first_token(
+                        _result_row(yes0[f], no0[f], rel0[f], odds0[f],
+                                    bool(hit0[f]), ""), first3, f)
+
+        self._run_pipelined(self._batches(encoded), launch, consume,
+                            rebatch=self._oom_rebatch(encoded))
+        record_counter("packed_rows", len(packs))
+        record_counter("packed_questions", n_questions)
+        return [r if r is not None else _error_row("missing")
+                for r in results]
+
+    def packed_autoregressive_demos(
+        self,
+        prompts: Sequence[str],
+        packing: int,
+        max_demo_tokens: int = 8,
+        repack: Optional[bool] = None,
+        extend_stages: bool = True,
+    ):
+        """Auto-Demo's autoregressive demonstrations on the slot ring: each
+        pack builds stage by stage, question k's demonstration being the
+        model's own greedy continuation (up to ``max_demo_tokens``, cut at
+        EOS) in the pack's context so far; the grown pack (demo formatted
+        as ``scoring.packed.format_demo``, then the next question) re-enters
+        the ring's pending queue, and a lane whose demo finished refills
+        with whatever stage is ready.
+
+        Returns ``(packs, demos)``: ``packs`` in ``build_packs`` layout,
+        ready for :meth:`score_packed` (a pack's last question has no
+        demo), and ``demos`` the raw continuation texts, pack-major (None
+        for each pack's last question).  ``repack=False`` runs the same
+        stages in whole flushes (lanes fill only when the ring is empty):
+        each demo is a function of its own row, so both give the same
+        texts.  ``extend_stages`` (the default): a grown pack extends its
+        previous stage's prefill cache by the suffix (formatted demo and
+        next question) through ``models.decoder.extend_prefill`` instead
+        of prefilling the whole pack again; the stage's prefill-only cache
+        stays pinned until its demo is out.  ``extend_stages=False``
+        prefills every stage whole."""
+        from ..scoring import packed as packed_mod
+
+        self._check_open()
+        if self.is_encoder_decoder:
+            raise ValueError("packed demo decode is decoder-only")
+        if packing < 1:
+            raise ValueError(f"packing must be >= 1, got {packing}")
+        ecfg = self.ecfg
+        use_repack = ecfg.slot_repack if repack is None else bool(repack)
+        eos_id = getattr(self.tokenizer, "eos_token_id", None)
+        groups = [list(prompts[i: i + packing])
+                  for i in range(0, len(prompts), packing)]
+        first_ids = batching.encode_prompts(self.tokenizer,
+                                            [g[0] for g in groups])
+        later: Dict[Tuple[int, int], List[int]] = {}
+        keys = [(gi, qi) for gi, g in enumerate(groups)
+                for qi in range(1, len(g))]
+        if keys:
+            enc = self.tokenizer([groups[gi][qi] for gi, qi in keys],
+                                 add_special_tokens=False)["input_ids"]
+            later = {k: [int(t) for t in e] for k, e in zip(keys, enc)}
+        demos: List[List[Optional[str]]] = [[None] * len(g) for g in groups]
+        # stage items: (pack, question whose demo decodes next, ids so far,
+        # src, suffix); src is None (prefill ids so far) or the previous
+        # stage's (cache, row, prefix length), which the suffix (formatted
+        # demo and next question) extends
+        stage_ready: List = [
+            (gi, 0, [int(t) for t in first_ids[gi]], None, None)
+            for gi, g in enumerate(groups) if len(g) > 1]
+        steps = max(1, int(max_demo_tokens))
+
+        def retire(row):
+            window = row.toks[: row.decoded]
+            if eos_id is not None and (window == eos_id).any():
+                return int(np.flatnonzero(window == eos_id)[0]) + 1
+            return row.decoded if row.decoded >= steps else -1
+
+        def emit(rows):
+            for r in rows:
+                gi, qi = r.meta["pack"], r.meta["question"]
+                text = self._completion_text(r.toks[: r.retire_step], eos_id)
+                demos[gi][qi] = text
+                # the grown pack carries the formatted demo, the spelling
+                # encode_packs tokenizes, so the context matches the pack
+                # score_packed prefills
+                demo_ids = [int(t) for t in (self.tokenizer(
+                    packed_mod.format_demo(text),
+                    add_special_tokens=False)["input_ids"]
+                    if text else [])]
+                grown = r.meta["ids"] + demo_ids
+                if qi + 1 < len(groups[gi]) - 1:
+                    suffix = demo_ids + list(later[(gi, qi + 1)])
+                    src = r.meta.get("src") if extend_stages else None
+                    if src is None or not suffix:
+                        src = suffix = None
+                    stage_ready.append(
+                        (gi, qi + 1, grown + list(later[(gi, qi + 1)]),
+                         src, suffix))
+
+        ring = slots_mod.SlotRing(
+            self, steps=steps, eos_id=eos_id,
+            capacity=ecfg.phase2_pool_target or ecfg.batch_size,
+            leg="packed", workload="packed", retire=retire, emit=emit,
+            refill=use_repack, with_scores=False,
+            pad_slice=lambda n: _pad_slice(n, max(n, 1)))
+
+        def feed_extended(chunk):
+            """Extend each item's stage cache by its suffix through
+            ``extend_prefill`` and feed the ring: rows gathered source by
+            source, padded to a common slot width, concatenated."""
+            by_src: Dict[int, List[int]] = {}
+            caches: Dict[int, dmod.KVCache] = {}
+            for n, item in enumerate(chunk):
+                caches[id(item[3][0])] = item[3][0]
+                by_src.setdefault(id(item[3][0]), []).append(n)
+            parts, order = [], []
+            for key, members in by_src.items():
+                idx = self._tensor([chunk[n][3][1] for n in members],
+                                   torch.int64)
+                parts.append(slots_mod._gather_ring_rows(caches[key], idx))
+                order.extend(members)
+            width = max(int(p.k.shape[2]) for p in parts)
+            parts = [p if int(p.k.shape[2]) == width
+                     else slots_mod._pad_cache_to(p, width) for p in parts]
+            cache = slots_mod._concat_caches(parts)
+            # the suffix block pads to a multiple of 8, as the reference's
+            s_pad = max(8, -(-max(len(chunk[n][4]) for n in order) // 8) * 8)
+            suf = np.zeros((len(order), s_pad), np.int64)
+            mask = np.zeros((len(order), s_pad), np.int32)
+            prefix_lens = np.asarray([chunk[n][3][2] for n in order],
+                                     np.int64)
+            for row, n in enumerate(order):
+                sfx = chunk[n][4]
+                suf[row, : len(sfx)] = sfx
+                mask[row, : len(sfx)] = 1
+            last, ext, total = dmod.extend_prefill(
+                self.params, self.cfg, cache, self._tensor(suf),
+                self._tensor(mask), self._tensor(prefix_lens))
+            plen = _pool_len(int(ext.k.shape[2]))
+            if plen > int(ext.k.shape[2]):
+                ext = slots_mod._pad_cache_to(ext, plen)
+            metas = []
+            for row, n in enumerate(order):
+                gi, qi, ids, _, sfx = chunk[n]
+                metas.append(
+                    {"pack": gi, "question": qi, "ids": ids,
+                     "src": (ext, row, int(prefix_lens[row]) + len(sfx))})
+            ring.feed(ext, last, total, np.zeros((len(order), 2), np.int32),
+                      metas)
+            slots_mod.slot_counter("slot_stage_extends", len(order),
+                                   "packed", "packed")
+
+        def prefill_stage():
+            """Prefill every ready stage and feed the ring: fresh items
+            (stage 0, or ``extend_stages`` off) in ordinary batches, grown
+            ones through :func:`feed_extended`."""
+            if not stage_ready:
+                return False
+            items, stage_ready[:] = list(stage_ready), []
+            fresh = [it for it in items if it[3] is None]
+            extends = [it for it in items if it[3] is not None]
+            for batch in (self._batches([ids for _, _, ids, _, _ in fresh])
+                          if fresh else ()):
+                mask = self._tensor(batch.attention_mask, torch.int32)
+                last, cache = self._prefill(
+                    self._tensor(batch.token_ids, torch.int64), mask,
+                    batch.bucket_len)
+                valid = np.flatnonzero(batch.indices >= 0)
+                sub, last_u, len_u = _gather_rows(
+                    cache, last, mask.sum(-1), self._tensor(valid))
+                plen = _pool_len(int(sub.k.shape[2]))
+                if plen > int(sub.k.shape[2]):
+                    sub = slots_mod._pad_cache_to(sub, plen)
+                metas = []
+                for j, m in enumerate(valid):
+                    gi, qi, ids, _, _ = fresh[int(batch.indices[m])]
+                    meta = {"pack": gi, "question": qi, "ids": ids}
+                    if extend_stages:
+                        meta["src"] = (sub, j,
+                                       int(batch.attention_mask[m].sum()))
+                    metas.append(meta)
+                ring.feed(sub, last_u, len_u,
+                          np.zeros((len(valid), 2), np.int32), metas)
+            step = max(1, int(ecfg.batch_size))
+            for at in range(0, len(extends), step):
+                feed_extended(extends[at: at + step])
+            return True
+
+        # starvation hook: a freed lane pulls the next ready stage in
+        # mid-decode instead of waiting for the ring to drain
+        ring.refill_hook = lambda n_free: prefill_stage()
+        while prefill_stage() or ring.live_rows():
+            ring.drain()
+        self.record_occupancy(ring.stats)
+        packs = []
+        for gi, g in enumerate(groups):
+            pack = []
+            for qi, prompt in enumerate(g):
+                demo = None
+                if qi + 1 < len(g) and demos[gi][qi]:
+                    demo = packed_mod.format_demo(demos[gi][qi])
+                pack.append((prompt, demo))
+            packs.append(pack)
+        return packs, [d for g in demos for d in g]
 
     def first_token_relative_prob(
         self, prompts: Sequence, targets: Sequence = ("Yes", "No"),
@@ -1960,14 +2407,26 @@ class _Phase2Pool:
         cache_real = real.copy()          # cache row holds a live real row
         cur_cache, prev, cur_lens, done = cache, last, lens, None
         cur_ids = engine._tensor(ids, torch.int64)
+        use_k = engine._k_active()
+        prev_h = None                     # the K path's frontier hidden
         offset = 0
         while offset < steps:
             n = min_conf if offset == 0 else min(
                 max(1, ecfg.scan_chunk), steps - offset)
-            toks_c, sc_c, cur_cache, prev, done = dmod.decode_steps(
-                engine.params, engine.cfg, cur_cache, prev, cur_lens, offset,
-                n, self.eos_id, done, with_scores="reduced",
-                target_ids=cur_ids)
+            if use_k:
+                # the same chunk schedule (so the same retirement points)
+                # in joint K-token verify passes; blank filler rows
+                # (cache_real False) never veto a pass
+                toks_c, sc_c, cur_cache, prev, done, prev_h = \
+                    engine._k_decode_chunk(
+                        cur_cache, prev, cur_lens, offset, n, self.eos_id,
+                        done, "reduced", cur_ids, prev_h, cache_real,
+                        "confidence")
+            else:
+                toks_c, sc_c, cur_cache, prev, done = dmod.decode_steps(
+                    engine.params, engine.cfg, cur_cache, prev, cur_lens,
+                    offset, n, self.eos_id, done, with_scores="reduced",
+                    target_ids=cur_ids)
             live = np.flatnonzero(cache_real)
             lr = cache_map[live]
             toks_np[lr, offset:offset + n] = toks_c.cpu().numpy()[live]
@@ -2003,6 +2462,8 @@ class _Phase2Pool:
                     cur_cache, prev, cur_lens, idx_dev)
                 done = done[idx_dev]
                 cur_ids = cur_ids[idx_dev]
+                if prev_h is not None:    # the K frontier rides along
+                    prev_h = prev_h[idx_dev]
                 freed -= slots_mod._cache_nbytes(cur_cache)
                 record_counter("completion_cache_bytes_freed", freed)
                 cache_map = cache_map[idx]

@@ -1,7 +1,8 @@
 """Checkpoint loading: a local HF snapshot -> (family, config, weights) on
 the engine's device (a copy of ``runtime/loader.py``'s ``load_hf_config``,
-``CheckpointDir`` and ``load_model``; ``load_tokenizer`` is
-``utils.tokenizer.load_tokenizer``).
+``CheckpointDir``, ``load_model`` and the K-head persistence
+``snapshot_fingerprint``, ``save_k_head``, ``load_k_head`` and
+``attach_k_head``; ``load_tokenizer`` is ``utils.tokenizer.load_tokenizer``).
 
 Weights are read from ``*.safetensors`` (one file, or shards named by
 ``model.safetensors.index.json``) with the port's own reader of the format,
@@ -20,7 +21,7 @@ import os
 import struct
 import types
 import warnings
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +34,9 @@ from ..models.t5 import T5Weights
 from ..ops import quant as qops
 from ..utils.tokenizer import load_tokenizer
 
-__all__ = ["CheckpointDir", "load_hf_config", "load_model", "load_tokenizer",
-           "read_safetensors_header"]
+__all__ = ["CheckpointDir", "K_HEAD_FILENAME", "attach_k_head",
+           "load_hf_config", "load_k_head", "load_model", "load_tokenizer",
+           "read_safetensors_header", "save_k_head", "snapshot_fingerprint"]
 
 #: safetensors dtype -> (numpy storage dtype, torch dtype it is viewed as)
 _ST_DTYPES = {
@@ -193,3 +195,90 @@ def load_model(path: str, dtype="bf16", quant: str = "none",
             tree = qops.quantize_decoder_params(tree)
     holder = T5Weights if is_t5 else DecoderWeights
     return family, cfg, holder(cfg, _cast(tree, dt))
+
+
+# -- K-head persistence ---------------------------------------------------------
+#
+# A distilled K-head (models.decoder.distill_k_head) is a function of the
+# weights, decode_k and the distillation sample, so it is kept as
+# ``k_head.npz`` beside the snapshot and reloaded when an engine is built
+# over the same snapshot.  The fingerprint ties the file to the snapshot's
+# config.json bytes and weight-file names and sizes; a head from another
+# snapshot is a miss (a stale head could only cost rejected passes).
+
+K_HEAD_FILENAME = "k_head.npz"
+
+
+def snapshot_fingerprint(path: str) -> str:
+    """Content key of a snapshot directory: sha256 over the config.json
+    bytes and each weight file's (name, size), reading no weights."""
+    import hashlib
+
+    h = hashlib.sha256()
+    cfg_path = os.path.join(path, "config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path, "rb") as f:
+            h.update(f.read())
+    for fname in sorted(os.listdir(path)):
+        if fname.endswith((".safetensors", ".bin")):
+            h.update(fname.encode())
+            h.update(str(os.path.getsize(os.path.join(path, fname))).encode())
+    return h.hexdigest()[:16]
+
+
+def save_k_head(path: str, k_head, decode_k: int,
+                fingerprint: Optional[str] = None) -> str:
+    """Write a K-head beside the snapshot as float32 numpy (the reference's
+    file layout), renamed into place so an interrupted write leaves no torn
+    file.  Returns the file's path."""
+    fp = fingerprint or snapshot_fingerprint(path)
+    out = os.path.join(path, K_HEAD_FILENAME)
+    tmp = out + ".tmp.npz"               # savez keeps names ending .npz
+    w = k_head["w"].detach().to("cpu", torch.float32).numpy()
+    np.savez(tmp, w=w, fingerprint=np.asarray(fp),
+             decode_k=np.asarray(int(decode_k)))
+    os.replace(tmp, out)
+    return out
+
+
+def load_k_head(path: str, decode_k: int, dtype=None, device="cpu",
+                fingerprint: Optional[str] = None):
+    """The persisted K-head when one matches (fingerprint, decode_k), as
+    ``{"w": tensor}`` in ``dtype`` on ``device``; None on any miss."""
+    f = os.path.join(path, K_HEAD_FILENAME)
+    if not os.path.exists(f):
+        return None
+    try:
+        with np.load(f, allow_pickle=False) as z:
+            if str(z["fingerprint"]) != (fingerprint
+                                         or snapshot_fingerprint(path)):
+                return None
+            if int(z["decode_k"]) != int(decode_k):
+                return None
+            w = z["w"]
+    except (OSError, ValueError, KeyError):
+        return None                      # torn or foreign file: a miss
+    return {"w": torch.from_numpy(w).to(device=device,
+                                        dtype=dtype or torch.float32)}
+
+
+def attach_k_head(engine, path: str) -> bool:
+    """Set ``engine.k_head`` from the snapshot's persisted head when it
+    matches the snapshot, ``decode_k`` and the model's width (counted as
+    ``k_head_loaded``); False on a miss, when the caller distills."""
+    from ..utils.telemetry import record_counter
+
+    decode_k = int(getattr(engine.ecfg, "decode_k", 1))
+    if decode_k <= 1:
+        return False
+    embed = engine.params.tree()["embed"]["tokens"]
+    head = load_k_head(path, decode_k, dtype=embed.dtype,
+                       device=embed.device)
+    if head is None:
+        return False
+    if int(head["w"].shape[0]) != decode_k - 1 \
+            or int(head["w"].shape[1]) != engine.cfg.hidden_size:
+        return False
+    engine.k_head = head
+    record_counter("k_head_loaded")
+    return True

@@ -26,6 +26,12 @@ Fragmentation, not retirement, rebuilds the cache: every chunk appends
 the front (content and order kept) and the axis truncated
 (``slot_compactions``).
 
+With the engine's K path active (``decode_k > 1`` and a K-head), each
+chunk decodes in joint K-token verify passes
+(``ScoringEngine._k_decode_chunk``); retired lanes and gather padding do not
+veto a pass, and a repack drops the frontier hidden, so the next chunk
+starts with a bootstrap block.
+
 Every ``slot_*`` counter records an unlabeled twin and a
 ``name|leg=...,workload=...`` labeled one.
 
@@ -434,6 +440,7 @@ class SlotRing:
         self._tids = None
         self._slots: List[Optional[SlotRow]] = []
         self._base_len: Optional[int] = None
+        self._prev_h = None           # the K path's frontier hidden
 
     # -- feeding ---------------------------------------------------------
 
@@ -498,7 +505,7 @@ class SlotRing:
                            _cache_nbytes(self._cache))
             self._slots = []
             self._cache = self._prev = self._lens = None
-            self._done = self._tids = None
+            self._done = self._tids = self._prev_h = None
 
     def drain(self) -> None:
         self.pump(drain=True)
@@ -599,7 +606,7 @@ class SlotRing:
                 record_counter("completion_cache_bytes_freed", old_bytes)
             self._slots = []
             self._cache = self._prev = self._lens = None
-            self._done = self._tids = None
+            self._done = self._tids = self._prev_h = None
             return
         m = self._pad_slice(len(rows))
         if m > len(rows):
@@ -620,6 +627,9 @@ class SlotRing:
         self._lens = torch.cat(parts_lens, dim=0)
         self._tids = torch.cat(parts_ids, dim=0)
         self._done = torch.cat(done_parts, dim=0)
+        # the K path's frontier hidden covers the old lanes only: the next
+        # chunk's bootstrap block makes a new one
+        self._prev_h = None
         self._slots = rows + [None] * (m - len(rows))
         if had_state:
             freed = old_bytes - _cache_nbytes(self._cache)
@@ -639,16 +649,29 @@ class SlotRing:
 
     # -- decode + retirement --------------------------------------------
 
+    def _real_mask(self) -> np.ndarray:
+        """Lanes holding a live row (retired lanes and padding do not veto
+        a K-decode pass)."""
+        return np.asarray([s is not None and s.retire_step < 0
+                           for s in self._slots], bool)
+
     def _decode_chunk(self) -> None:
         eng = self.engine
         n = self.chunk
         ws = "reduced" if self.with_scores else False
-        toks_c, sc_c, self._cache, self._prev, self._done = \
-            dmod.decode_steps(
-                eng.params, eng.cfg, self._cache, self._prev,
-                self._lens, 0, n, self.eos_id, self._done,
-                with_scores=ws,
-                target_ids=self._tids if self.with_scores else None)
+        tids = self._tids if self.with_scores else None
+        if eng._k_active():
+            toks_c, sc_c, self._cache, self._prev, self._done, \
+                self._prev_h = eng._k_decode_chunk(
+                    self._cache, self._prev, self._lens, 0, n, self.eos_id,
+                    self._done, ws, tids, self._prev_h, self._real_mask(),
+                    self.leg)
+        else:
+            toks_c, sc_c, self._cache, self._prev, self._done = \
+                dmod.decode_steps(
+                    eng.params, eng.cfg, self._cache, self._prev,
+                    self._lens, 0, n, self.eos_id, self._done,
+                    with_scores=ws, target_ids=tids)
         self._lens = self._lens + n
         toks_np = toks_c.cpu().numpy()
         sc_np = (tuple(f.cpu().numpy() for f in sc_c)

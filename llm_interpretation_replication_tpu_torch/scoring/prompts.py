@@ -1,6 +1,6 @@
-"""Prompt formatting of the 100-question sweep (a copy of
-``scoring/prompts.py``'s few-shot and instruct formats; its packed-scoring
-and perturbation helpers come with the slices that use them).
+"""Prompt formatting (a copy of ``scoring/prompts.py``): the 100-question
+sweep's few-shot and instruct formats, and the packed-scoring demonstration
+spelling (``scoring.packed`` assembles packed rows from it).
 
 These strings are behavioural data, kept byte-identical to the reference so
 the statistics reproduce.
@@ -16,6 +16,18 @@ FEW_SHOT_PREFIX = (
 )
 
 ANSWER_INSTRUCTION = "Answer either 'Yes' or 'No', without any other text."
+
+#: Separator between a packed question's demonstration answer and the next
+#: question: two newlines, the few-shot scaffold's question separator.
+PACKED_SEPARATOR = "\n\n"
+
+
+def format_packed_demo(answer: str) -> str:
+    """Packed scoring: the demonstration appended after a question's answer
+    anchor -- ``" {answer}.\\n\\n"``, the few-shot scaffold's answer
+    spelling (``Answer: No.\\n\\n``) without the ``Answer:`` cue the
+    question text already ends with."""
+    return f" {answer}.{PACKED_SEPARATOR}"
 
 
 def format_base_prompt(question: str) -> str:

@@ -9,6 +9,7 @@ from .perturbation import (
     load_existing_keys,
     load_existing_rows,
     run_model_perturbation_sweep,
+    run_packed_perturbation_sweep,
 )
 from .writers import (
     BASE_VS_INSTRUCT_100Q_COLUMNS,
@@ -26,4 +27,4 @@ __all__ = ["BASE_VS_INSTRUCT_100Q_COLUMNS", "INSTRUCT_COMPARISON_COLUMNS",
            "model_family_from_name", "perturbation_row",
            "run_base_vs_instruct_word_meaning", "run_instruct_sweep",
            "run_model_on_prompts", "run_model_perturbation_sweep",
-           "run_sweep", "write_csv"]
+           "run_packed_perturbation_sweep", "run_sweep", "write_csv"]

@@ -1,6 +1,7 @@
 """The 10k-perturbation sweep on a local model (a copy of
 ``sweeps/perturbation.py``'s ``run_model_perturbation_sweep``,
-``load_existing_rows``, ``load_existing_keys`` and ``_sidelog_path``).
+``run_packed_perturbation_sweep``, ``load_existing_rows``,
+``load_existing_keys`` and ``_sidelog_path``).
 
 Per scenario (5 x 2000 rephrasings) a binary leg scores the scenario's two
 target tokens at the first generated position, read under a top-20 filter,
@@ -8,7 +9,9 @@ and a confidence leg greedy-generates a short answer parsed for its first
 integer plus a digit-weighted confidence.  The output workbook has the
 15-column schema of ``sweeps.writers.PERTURBATION_COLUMNS``.  Resume: rows
 already in the workbook or its side-log are skipped by (model,
-original_main, rephrased_main).
+original_main, rephrased_main).  The packed sweep scores Q rephrasings a
+prefill (``scoring.packed``), binary leg only, and returns a drift block
+against isolated scoring beside its rows.
 
 Departures from the reference: the rows come back as a list of dicts in
 ``PERTURBATION_COLUMNS`` order, not a ``DataFrame``; the reference's
@@ -30,6 +33,7 @@ import numpy as np
 from ..runtime import faults
 from ..runtime.batching import HostPrefetcher
 from ..runtime.engine import LegSpec
+from ..scoring import packed as packed_mod
 from ..scoring.confidence import extract_first_int
 from ..utils.checkpoint import append_jsonl
 from ..utils.logging import SessionLogger, heartbeat
@@ -95,6 +99,63 @@ def load_existing_keys(output_xlsx: str) -> set:
     return load_existing_rows(output_xlsx)[1]
 
 
+class _Checkpoint:
+    """A sweep's rows on their way to the workbook: :meth:`flush` appends
+    the pending rows to the side-log, fsync'd, O(new rows); the final
+    flush renders the workbook from every row and deletes the side-log.  A
+    latch keeps the PreemptionGuard's handler, which runs in the sweep's
+    own thread, from re-entering a flush mid-append (the pending rows would
+    land twice, as torn lines); the interrupted append's buffer lands as
+    its file closes."""
+
+    def __init__(self, output_xlsx: str, rows: List[Dict]):
+        self.output_xlsx = output_xlsx
+        self.sidelog = _sidelog_path(output_xlsx)
+        self.rows = rows
+        self.pending: List[Dict] = []
+        self._in_flush = False
+        os.makedirs(os.path.dirname(os.path.abspath(output_xlsx)),
+                    exist_ok=True)
+
+    def flush(self, final: bool = False) -> None:
+        if self._in_flush:
+            return
+        self._in_flush = True
+        try:
+            if self.pending:
+                append_jsonl(self.sidelog, self.pending)
+                self.rows.extend(self.pending)
+                self.pending = []
+            if final:
+                write_xlsx(PERTURBATION_COLUMNS, self.rows, self.output_xlsx)
+                if os.path.exists(self.sidelog):
+                    os.remove(self.sidelog)
+        finally:
+            self._in_flush = False
+
+
+def _todo_items(scenarios, model_name, processed, max_rephrasings, log,
+                verb="scoring", note=""):
+    """(scenario, rephrasing) pairs not yet in the workbook, scenario by
+    scenario, each scenario's count logged."""
+    todo_items: List[tuple] = []
+    for scenario in scenarios:
+        rephrasings = scenario["rephrasings"]
+        if max_rephrasings:
+            rephrasings = rephrasings[:max_rephrasings]
+        todo = [
+            r for r in rephrasings
+            if (model_name, scenario["original_main"], r) not in processed
+        ]
+        if not todo:
+            log(f"Scenario already complete for {model_name}")
+            continue
+        log(f"{model_name}: {verb} {len(todo)} rephrasings{note} of "
+            f"scenario {scenario['original_main'][:50]!r}...")
+        todo_items.extend((scenario, r) for r in todo)
+    return todo_items
+
+
 def run_model_perturbation_sweep(
     engine,
     model_name: str,
@@ -123,53 +184,13 @@ def run_model_perturbation_sweep(
     two-string route: each leg scores its full prompt string."""
     log = log or SessionLogger()
     all_rows, processed = load_existing_rows(output_xlsx)
-    pending: List[Dict] = []
-    os.makedirs(os.path.dirname(os.path.abspath(output_xlsx)), exist_ok=True)
-    sidelog = _sidelog_path(output_xlsx)
-
-    in_flush = False
-
-    def flush(final: bool = False):
-        # O(new rows): append the checkpoint to the side-log, fsync'd; the
-        # workbook renders once, at the end.  The in_flush latch keeps the
-        # PreemptionGuard's handler, which runs in this same thread, from
-        # re-entering mid-append (the pending rows would land twice, as torn
-        # lines); the interrupted append's buffer lands as its file closes.
-        nonlocal pending, in_flush
-        if in_flush:
-            return
-        in_flush = True
-        try:
-            if pending:
-                append_jsonl(sidelog, pending)
-                all_rows.extend(pending)
-                pending = []
-            if final:
-                write_xlsx(PERTURBATION_COLUMNS, all_rows, output_xlsx)
-                if os.path.exists(sidelog):
-                    os.remove(sidelog)
-        finally:
-            in_flush = False
-
+    ckpt = _Checkpoint(output_xlsx, all_rows)
     # One scoring call mixes all scenarios' rephrasings (the engine takes
     # per-prompt target pairs), so the partial tail batches collapse to one
     # per bucket a chunk.  ``score_chunk`` rows score a call: it bounds the
     # loss of a crash, which loses the chunk in flight.
-    todo_items: List[tuple] = []
-    for scenario in scenarios:
-        rephrasings = scenario["rephrasings"]
-        if max_rephrasings:
-            rephrasings = rephrasings[:max_rephrasings]
-        todo = [
-            r for r in rephrasings
-            if (model_name, scenario["original_main"], r) not in processed
-        ]
-        if not todo:
-            log(f"Scenario already complete for {model_name}")
-            continue
-        log(f"{model_name}: scoring {len(todo)} rephrasings of scenario "
-            f"{scenario['original_main'][:50]!r}...")
-        todo_items.extend((scenario, r) for r in todo)
+    todo_items = _todo_items(scenarios, model_name, processed,
+                             max_rephrasings, log)
 
     # an engine whose score_prompts does not take max_new_tokens gets no
     # confidence cap (probed once)
@@ -263,7 +284,7 @@ def run_model_perturbation_sweep(
     done_rows, total_rows = 0, len(todo_items)
     # the guard flushes the pending rows on SIGTERM/SIGINT; _closing stops
     # the prefetcher's thread when an error leaves the loop
-    with faults.PreemptionGuard(flush, label="perturbation"), \
+    with faults.PreemptionGuard(ckpt.flush, label="perturbation"), \
             _closing(prefetcher):
         for start, (chunk, pairs, targets) in zip(
                 range(0, len(todo_items), score_chunk), chunk_iter):
@@ -313,7 +334,7 @@ def run_model_perturbation_sweep(
             for i, (scenario, reph) in enumerate(chunk):
                 t1p, t2p = float(probs[i, 0]), float(probs[i, 1])
                 odds = t1p / t2p if t2p > 0 else float("inf")
-                pending.append(
+                ckpt.pending.append(
                     perturbation_row(
                         model_name,
                         scenario,
@@ -329,12 +350,12 @@ def run_model_perturbation_sweep(
                     )
                 )
                 processed.add((model_name, scenario["original_main"], reph))
-                if len(pending) >= checkpoint_every:
-                    flush()
+                if len(ckpt.pending) >= checkpoint_every:
+                    ckpt.flush()
             done_rows += len(chunk)
             heartbeat(model_name, done_rows, total_rows,
                       time.perf_counter() - sweep_t0, log)
-        flush(final=True)
+        ckpt.flush(final=True)
     delta = counters_since(counters_snap)
     if delta.get("kv_cache_bytes_saved") or delta.get("prefill_chunks"):
         # the int8-KV / chunked-prefill operating point is on record per
@@ -344,3 +365,120 @@ def run_model_perturbation_sweep(
             f"{delta.get('kv_cache_bytes_saved', 0):.0f} "
             f"prefill_chunks={delta.get('prefill_chunks', 0):.0f}")
     return [{c: r.get(c) for c in PERTURBATION_COLUMNS} for r in all_rows]
+
+
+def run_packed_perturbation_sweep(
+    engine,
+    model_name: str,
+    scenarios: Sequence[Dict],
+    output_xlsx: str,
+    packing: int = 4,
+    drift_parity: bool = True,
+    checkpoint_every: int = 100,
+    max_rephrasings: Optional[int] = None,
+    score_chunk: int = 2000,
+    log: Optional[SessionLogger] = None,
+) -> Tuple[List[Dict], Optional[Dict]]:
+    """Packed multi-question perturbation sweep: ``packing`` rephrasings
+    join into one row (each followed by its demonstration answer), the row
+    prefills once, and each question's binary-leg probabilities read from
+    the logits at its answer anchor (``ScoringEngine.score_packed``): no
+    decode and no confidence leg.
+
+    ``drift_parity`` (the default) first scores the same rows isolated
+    (``first_token_relative_prob`` under the top-20 filter), takes each
+    question's isolated answer as its demonstration, and returns the drift
+    block of packed against isolated (``scoring.packed.drift_report``) over
+    the rows this call scored; without it the demonstrations are each
+    scenario's yes target and the block is None.
+
+    The workbook keeps the 15 columns: ``Model Response`` and the
+    confidence columns are empty, and ``Log Probabilities`` names the
+    packed extractor (``local:packed{Q}:first_token_top20``).  Side-log
+    resume and the preemption flush are the unpacked sweep's.  Returns
+    ``(rows, drift block or None)``, the rows as dicts in
+    ``PERTURBATION_COLUMNS`` order."""
+    if not callable(getattr(engine, "score_packed", None)):
+        raise ValueError(
+            "packed sweep needs an engine with score_packed (the anchor-"
+            "gather prefill path); foreign engines score isolated only")
+    log = log or SessionLogger()
+    all_rows, processed = load_existing_rows(output_xlsx)
+    ckpt = _Checkpoint(output_xlsx, all_rows)
+    todo_items = _todo_items(scenarios, model_name, processed,
+                             max_rephrasings, log, verb="packed-scoring",
+                             note=f" (Q={packing})")
+
+    score_packed = faults.retry_transient(
+        engine.score_packed, label="perturbation.packed")
+    first_token = faults.retry_transient(
+        engine.first_token_relative_prob,
+        label="perturbation.packed_isolated")
+
+    sweep_t0 = time.perf_counter()
+    done_rows, total_rows = 0, len(todo_items)
+    drift_packed: List[float] = []
+    drift_isolated: List[float] = []
+    with faults.PreemptionGuard(ckpt.flush, label="perturbation-packed"):
+        for start in range(0, len(todo_items), score_chunk):
+            chunk = todo_items[start:start + score_chunk]
+            prompts = [f"{r} {s['response_format']}" for s, r in chunk]
+            targets = [list(s["target_tokens"]) for s, _ in chunk]
+            iso = None
+            if drift_parity:
+                iso = first_token(prompts, targets=targets,
+                                  top_filter=TOP_LOGPROBS)
+                demos = packed_mod.demos_from_relative_probs(iso[:, 2],
+                                                             targets)
+            else:
+                demos = [t[0] for t in targets]
+            packs = packed_mod.build_packs(prompts, packing, demos)
+            rows = score_packed(packs, targets=targets)
+            if iso is not None:
+                drift_isolated.extend(float(v) for v in iso[:, 2])
+                # error rows carry no first_token_* fields: NaN puts them
+                # in the drift block's n_skipped
+                drift_packed.extend(
+                    row.get("first_token_relative_prob", float("nan"))
+                    for row in rows)
+            n_err = sum(1 for row in rows if not row.get("success"))
+            if n_err:
+                record_fault("packed_error_rows", model=model_name,
+                             rows=n_err, chunk_start=start)
+                log(f"{model_name}: WARNING — {n_err} packed rows are "
+                    f"error rows (recorded in telemetry)")
+            for i, (scenario, reph) in enumerate(chunk):
+                t1p = rows[i].get("first_token_yes_prob", float("nan"))
+                t2p = rows[i].get("first_token_no_prob", float("nan"))
+                odds = t1p / t2p if t2p > 0 else float("inf")
+                ckpt.pending.append(
+                    perturbation_row(
+                        model_name, scenario, reph,
+                        response_text="",
+                        confidence_text="",
+                        logprobs_repr=(f"local:packed{packing}:"
+                                       f"first_token_top{TOP_LOGPROBS}"),
+                        token_1_prob=t1p,
+                        token_2_prob=t2p,
+                        odds_ratio=odds,
+                        confidence_value=None,
+                        weighted_confidence=None,
+                    )
+                )
+                processed.add((model_name, scenario["original_main"], reph))
+                if len(ckpt.pending) >= checkpoint_every:
+                    ckpt.flush()
+            done_rows += len(chunk)
+            heartbeat(f"{model_name}[packed{packing}]", done_rows,
+                      total_rows, time.perf_counter() - sweep_t0, log)
+        ckpt.flush(final=True)
+    report = None
+    if drift_parity:
+        report = packed_mod.drift_report(drift_packed, drift_isolated,
+                                         packing)
+        log(f"{model_name}: packed drift |Δrel_prob| mean "
+            f"{report['mean_abs_delta']} p90 {report['p90_abs_delta']} "
+            f"flip rate {report['flip_rate']} "
+            f"({report['n_questions']} questions, Q={packing})")
+    return ([{c: r.get(c) for c in PERTURBATION_COLUMNS} for r in all_rows],
+            report)

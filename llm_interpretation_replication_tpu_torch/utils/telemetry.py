@@ -1,17 +1,21 @@
-"""Process-wide counters and the fault-event log (a copy of the part of
-``utils/telemetry.py`` the port's engine and slot ring record into).
+"""Process-wide counters, streaming histograms and the fault-event log (a
+copy of the part of ``utils/telemetry.py`` the port's engine and slot ring
+record into).
 
 Counters are named monotones (``slot_rows``, ``slot_refills``, ...); each
 ``slot_*`` counter also has a labeled twin ``name|leg=...,workload=...``
 (``runtime.slots.slot_counter``).  A caller measuring one phase snapshots
 :func:`counters` before it and reads :func:`counters_since` after.  Fault
 events record every recovery the engine made (an OOM back-off step), so a
-run that degraded stays auditable.  Both are guarded by locks: a caller may
-record from more than one thread.
+run that degraded stays auditable.  Histograms (``accepted_k``, the K-decode
+path's accepted length a pass) keep exact counts on geometric buckets, with
+:func:`hist_snapshot` / :func:`hist_since` as the phase scoping.  All are
+guarded by locks: a caller may record from more than one thread.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from typing import Dict, List, Optional
@@ -77,3 +81,89 @@ def counters_since(snapshot: Dict[str, float]) -> Dict[str, float]:
                    if value >= snapshot.get(name, 0) else value)
             for name, value in now.items()
             if value != snapshot.get(name, 0)}
+
+
+# -- streaming histograms -------------------------------------------------------
+
+#: smallest distinguishable value: everything at or below lands in bucket 0
+HIST_MIN_VALUE = 1e-3
+#: geometric bucket growth, 2**(1/8): a quantile read from bucket upper
+#: bounds overstates the sample by under 9.05%
+HIST_GROWTH = 2.0 ** 0.125
+_LOG_GROWTH = math.log(HIST_GROWTH)
+
+_HIST_COUNTS: Dict[str, Dict[int, int]] = {}
+_HIST_META: Dict[str, List[float]] = {}   # [count, sum, min, max]
+
+
+def hist_bucket_index(value: float) -> int:
+    """Bucket of ``value``: 0 holds everything <= HIST_MIN_VALUE, bucket i
+    holds (le(i-1), le(i)] with le(i) = HIST_MIN_VALUE * HIST_GROWTH**i."""
+    if value <= HIST_MIN_VALUE:
+        return 0
+    # epsilon guards the exact-boundary case against float log jitter
+    return max(0, int(math.ceil(
+        math.log(value / HIST_MIN_VALUE) / _LOG_GROWTH - 1e-9)))
+
+
+def record_hist(name: str, value: float) -> None:
+    """Add one observation to the named histogram (exact counts, nothing
+    evicted)."""
+    value = float(value)
+    idx = hist_bucket_index(value)
+    with _COUNTERS_LOCK:
+        counts = _HIST_COUNTS.setdefault(name, {})
+        counts[idx] = counts.get(idx, 0) + 1
+        meta = _HIST_META.get(name)
+        if meta is None:
+            _HIST_META[name] = [1, value, value, value]
+        else:
+            meta[0] += 1
+            meta[1] += value
+            meta[2] = min(meta[2], value)
+            meta[3] = max(meta[3], value)
+
+
+def hist_count(name: str) -> int:
+    """Observations ever recorded to the named histogram (0 if none)."""
+    with _COUNTERS_LOCK:
+        meta = _HIST_META.get(name)
+        return int(meta[0]) if meta else 0
+
+
+def hist_snapshot(names: Optional[List[str]] = None) -> Dict[str, Dict]:
+    """``{name: {"counts", "count", "sum"}}`` for phase scoping; diff it
+    with :func:`hist_since`."""
+    with _COUNTERS_LOCK:
+        keys = list(_HIST_COUNTS) if names is None else list(names)
+        return {
+            name: {
+                "counts": dict(_HIST_COUNTS.get(name, ())),
+                "count": int(_HIST_META[name][0]) if name in _HIST_META else 0,
+                "sum": float(_HIST_META[name][1]) if name in _HIST_META else 0.0,
+            }
+            for name in keys
+        }
+
+
+def hist_since(snapshot: Dict[str, Dict]) -> Dict[str, Dict]:
+    """Per-histogram delta against a :func:`hist_snapshot`, covering only
+    the observations recorded after it; a histogram cleared in between
+    reports its current state, never a negative count."""
+    now = hist_snapshot()
+    out: Dict[str, Dict] = {}
+    for name, cur in now.items():
+        prev = snapshot.get(name, {"counts": {}, "count": 0, "sum": 0.0})
+        counts = {}
+        for idx, n in cur["counts"].items():
+            base = prev["counts"].get(idx, 0)
+            delta = n - base if n >= base else n
+            if delta:
+                counts[idx] = delta
+        count = (cur["count"] - prev["count"]
+                 if cur["count"] >= prev["count"] else cur["count"])
+        total = (cur["sum"] - prev["sum"]
+                 if cur["count"] >= prev["count"] else cur["sum"])
+        if count:
+            out[name] = {"counts": counts, "count": count, "sum": total}
+    return out

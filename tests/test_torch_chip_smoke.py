@@ -897,3 +897,97 @@ def test_instruct_phase_drives_the_sweeps():
     assert {r for *_, r in chip_smoke.INSTRUCT_DECODERS} == {("flash", "xla")}
     cli = inspect.getsource(chip_smoke._run_instruct)
     assert '"--attention-impl", "flash", "--quant", "int8"' in cli
+
+
+# -- the packed and K-decode phases ---------------------------------------------
+
+def test_sweep_packs_cover_the_corpus_in_order():
+    """The packed phase's corpus: every sweep row's binary prompt and
+    target pair in row order, packed PACK_Q at a time as
+    ``scoring.packed.build_packs`` packs them (demonstrations between
+    questions, none after a pack's last)."""
+    from llm_interpretation_replication_tpu_torch.scoring import packed
+
+    scenarios, _, _, _ = _tiny_sweep(per=6)
+    prompts, targets, packs = chip_smoke.sweep_packs(scenarios,
+                                                     chip_smoke.PACK_Q)
+    assert len(prompts) == len(targets) == 30
+    assert prompts[7] == (f"{scenarios[1]['rephrasings'][1]} "
+                          f"{scenarios[1]['response_format']}")
+    assert targets[7] == list(scenarios[1]["target_tokens"])
+    assert packs == packed.build_packs(prompts, chip_smoke.PACK_Q)
+    assert [len(p) for p in packs] == [4] * 7 + [2]
+    assert [q for p in packs for q, _ in p] == prompts
+    assert all(d is None for p in packs for _, d in p[-1:])
+    demos = ["No"] * 30
+    assert chip_smoke.sweep_packs(scenarios, 2, demos)[2][0][0][1] == \
+        packed.format_demo("No")
+
+
+def test_causal_launches_sum_every_run_once():
+    slice_res = dict(kernel_launches=96, forced_routes={"launches": 32})
+    runs = dict(runs=[dict(kernel_launches=32), dict(run="unfused"),
+                      dict(kernel_launches=0)])
+    assert chip_smoke.causal_launches(slice_res, runs, dict(runs=[]),
+                                      dict(models=[])) == 128
+    assert chip_smoke.causal_launches() == 0
+
+
+def test_main_counts_the_new_phases_launches():
+    """The ``kernels`` line's causal count takes the packed and K-decode
+    phases' runs, which run on the slice's weights before they are freed."""
+    src = inspect.getsource(chip_smoke.main)
+    assert "causal_launches(sres, pres, fres, ires, wres, pkres, kres" in src
+    assert src.index("packed_phase") < src.index("del weights")
+    assert src.index("k_decode_phase") < src.index("del weights")
+
+
+def test_oracle_engine_replays_the_k1_chain(one_torch_thread):
+    """The oracle subclass on the CPU: every speculative block accepted,
+    steps saved, and the K=1 rows (float32: bit for bit here)."""
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.utils import telemetry
+
+    scenarios, tok, cfg, weights = _tiny_sweep(per=2)
+    prompts, targets, _ = chip_smoke.sweep_packs(scenarios, 1)
+    ecfg = emod.EngineConfig(batch_size=4, max_new_tokens=12)
+    ref = emod.ScoringEngine("falcon", cfg, weights, tok, device="cpu",
+                             engine_config=ecfg).score_prompts(prompts,
+                                                               targets)
+    cls = chip_smoke.oracle_engine(emod, decoder, decode_k=3)
+    eng = cls("falcon", cfg, weights, tok, device="cpu",
+              engine_config=dataclasses.replace(ecfg, decode_k=3))
+    assert decoder.k_head_num_heads(eng.k_head) == 2
+    telemetry.clear_counters()
+    got = eng.score_prompts(prompts, targets)
+    c = telemetry.counters()
+    assert got == ref
+    assert c["k_blocks_proposed"] > 0 and c.get("k_blocks_rejected", 0) == 0
+    assert c["k_steps_saved"] > 0
+
+
+def test_position0_partings_gate():
+    rows = [(0.2, 0.1, 2 / 3), (0.0, 0.1, 0.0), (0.3, 0.25, 0.545)]
+    edge, split = [1.0, 1.0, 1.0], [1.0, 1.0, 1.0]
+    stats, fails = chip_smoke._position0_partings("t", rows, rows, edge,
+                                                  split, 0.1)
+    assert not fails and stats["exactly_equal"] == 3
+    moved = [(0.2, 0.0, 1.0), (0.0, 0.1, 0.0), (0.25, 0.3, 0.455)]
+    _, fails = chip_smoke._position0_partings("t", moved, rows, edge, split,
+                                              0.1)
+    assert len(fails) == 3          # a crossing, a flip, a move past 0.05
+    _, fails = chip_smoke._position0_partings(
+        "t", moved, rows, [0.05, 1.0, 0.05], [1.0, 1.0, 0.05], 0.1)
+    assert not fails                # each inside the tie
+
+
+def test_k_decode_phase_runs_its_routes():
+    src = inspect.getsource(chip_smoke.k_decode_phase)
+    for call in ('run("k1", engine())', 'run("distilled", distilled)',
+                 'run("oracle", engine(oracle_cls, decode_k=K_DECODE))',
+                 'run("forced_rejection", rejecting)',
+                 'run("k1_int8kv", engine(kv_dtype="int8"))',
+                 '"oracle_int8kv"', "distill_k_head_on(sample)",
+                 "init_k_head("):
+        assert call in src, call

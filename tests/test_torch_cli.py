@@ -3,12 +3,13 @@ the same tiny Falcon snapshot (written with ``transformers``'
 ``FalconForCausalLM`` and ``build_inprocess_tokenizer``) and the same
 perturbations file: ``--device cpu --dtype float32`` on both sides writes
 workbooks equal cell for cell (text identical, numbers rtol 2e-5, atol
-1e-9; ``tests/test_torch_sweep.py``'s comparison).  Each flag whose path the
-port does not cover raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+1e-9; ``tests/test_torch_sweep.py``'s comparison), also with ``--packed``
+and ``--decode-k``.  Each flag whose path the port does not cover raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 import json
+import os
 
 import pytest
 import torch
@@ -80,12 +81,55 @@ def test_run_perturbation_matches_reference(snapshot, perturbations,
     (("--plan-search",), "Planning for the H100"),
     (("--mesh-model", "2"), "Parallel and training"),
     (("--mesh-seq", "2"), "Parallel and training"),
-    (("--packed", "4"), "Packed scoring"),
-    (("--decode-k", "2"), "K-decode"),
 ])
 def test_unported_flags_raise(snapshot, perturbations, tmp_path, extra, title):
     with pytest.raises(NotImplementedError, match=title):
         tmain(_argv(snapshot, perturbations, tmp_path, *extra))
+
+
+@pytest.mark.parametrize("flag", ["--packed", "--decode-k"])
+def test_packed_and_decode_k_flags_run(snapshot, perturbations, tmp_path,
+                                       capsys, flag):
+    """``--packed 4`` writes ``perturbation_results_packed.xlsx`` (the
+    packed extractor's tag) and prints the drift block, both as the JAX
+    CLI's.  ``--decode-k 4`` distills a K-head, writes ``k_head.npz``
+    beside the snapshot and the K=1 workbook; a second run loads the head
+    and writes the same workbook, and the JAX CLI loads the port's file
+    and writes it too."""
+    import shutil
+
+    snap = str(tmp_path / "snap")
+    shutil.copytree(snapshot, snap)
+    if flag == "--packed":
+        jmain(_argv(snap, perturbations, tmp_path / "j", "--packed", "4"))
+        tmain(_argv(snap, perturbations, tmp_path / "t", "--packed", "4"))
+        lines = capsys.readouterr().out.splitlines()
+        assert lines.count("10 rows (packed Q=4)") == 2
+        drift = [json.loads(x)["packed_drift"] for x in lines
+                 if x.startswith('{"packed_drift"')]
+        assert len(drift) == 2 and drift[0] == drift[1]
+        assert drift[0]["n_questions"] == 10 and drift[0]["packing"] == 4
+        rows = assert_workbooks_equal(
+            tmp_path / "t" / "perturbation_results_packed.xlsx",
+            tmp_path / "j" / "perturbation_results_packed.xlsx")
+        assert {r["Log Probabilities"] for r in rows} == {
+            "local:packed4:first_token_top20"}
+        return
+    name = "perturbation_results.xlsx"
+    tmain(_argv(snap, perturbations, tmp_path / "k1"))
+    tmain(_argv(snap, perturbations, tmp_path / "t", "--decode-k", "4"))
+    err = capsys.readouterr().err
+    assert "# K-head distilled for decode_k=4" in err
+    assert os.path.exists(os.path.join(snap, "k_head.npz"))
+    assert_workbooks_equal(tmp_path / "t" / name, tmp_path / "k1" / name)
+    tmain(_argv(snap, perturbations, tmp_path / "t2", "--decode-k", "4"))
+    jmain(_argv(snap, perturbations, tmp_path / "j", "--decode-k", "4"))
+    err = capsys.readouterr().err
+    assert err.count("# K-head loaded from snapshot (k_head.npz, "
+                     "decode_k=4)") == 2
+    assert "distilled" not in err
+    assert_workbooks_equal(tmp_path / "t2" / name, tmp_path / "t" / name)
+    assert_workbooks_equal(tmp_path / "j" / name, tmp_path / "t" / name)
 
 
 def test_default_device_is_cuda(snapshot, perturbations, tmp_path):

@@ -166,65 +166,62 @@ def test_engine_per_prompt_targets_and_tokenized_prompts(setup):
     dict(decode_k=2),
 ])
 def test_unsupported_engine_settings_raise(setup, override):
-    """``decode_k > 1`` is refused at construction and, set afterwards, at
-    scoring.  ``prefill_chunk`` runs since the chunked-prefill slice: set at
-    construction or afterwards, the rows match the JAX engine's at the same
-    setting (one-token chunks on the prompts of the 32 bucket, and 32 on
-    all, below the 64 bucket)."""
+    """Settings the port once refused, each run now: ``prefill_chunk`` since
+    the chunked-prefill slice (set at construction or afterwards, the rows
+    match the JAX engine's at the same setting: one-token chunks on the
+    prompts of the 32 bucket, and 32 on all, below the 64 bucket), and
+    ``decode_k > 1`` since the K-decode slice (with no K-head set, the
+    decode runs sequentially and the rows match the JAX engine's at the
+    same setting)."""
     tok = setup
-    if "prefill_chunk" in override:
-        prompts = list(PROMPTS[:5] if override["prefill_chunk"] == 1
-                       else PROMPTS)
-        jeng, teng = _engines(tok, "flash", batch_size=4, **override)
-        ref = jeng.score_prompts(prompts)
-        _assert_rows_match(teng.score_prompts(prompts), ref)
-        _, eng = _engines(tok, "flash", batch_size=4)
-        eng.ecfg = dataclasses.replace(eng.ecfg, **override)
-        _assert_rows_match(eng.score_prompts(prompts), ref)
-        return
-    tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
-    weights = convert.random_params(tcfg, seed=0, device="cpu", dtype="fp32")
-    kw = {**ENGINE_KW, **override}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tengine.ScoringEngine("falcon", tcfg, weights, tok,
-                              engine_config=tengine.EngineConfig(**kw),
-                              device="cpu")
-    # a supported engine whose config is changed afterwards refuses to score
-    eng = tengine.ScoringEngine("falcon", tcfg, weights, tok, device="cpu",
-                                engine_config=tengine.EngineConfig(**ENGINE_KW))
+    prompts = list(PROMPTS[:5] if override.get("prefill_chunk") == 1
+                   else PROMPTS)
+    jeng, teng = _engines(tok, "flash", batch_size=4, **override)
+    ref = jeng.score_prompts(prompts)
+    _assert_rows_match(teng.score_prompts(prompts), ref)
+    _, eng = _engines(tok, "flash", batch_size=4)
     eng.ecfg = dataclasses.replace(eng.ecfg, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.score_prompts(["Is soup a beverage?"])
+    _assert_rows_match(eng.score_prompts(prompts), ref)
 
 
 @pytest.mark.parametrize("case", ["confidence", "pooled_confidence",
                                   "prefix_pairs", "mesh", "decode_k"])
 def test_unsupported_calls_raise(setup, case):
-    """A mesh and ``decode_k > 1`` are refused at construction (T5, refused
-    here before, is ported now).  The confidence leg (per batch and pooled)
-    and ``(prefix, suffix)`` prompts run since the full-study slice, and
-    refuse the settings still not ported (``decode_k > 1``) as every entry
-    point does."""
+    """A mesh is refused at construction.  The confidence leg (per batch
+    and pooled) and ``(prefix, suffix)`` prompts score with ``decode_k=2``
+    set after construction and no K-head: the rows of ``decode_k=1``.  T5
+    with ``decode_k=4`` scores as with 1 (the K path is decoder-only)."""
     tok = setup
+    if case == "decode_k":
+        import test_torch_t5
+
+        _, k1 = test_torch_t5.engines()
+        _, k4 = test_torch_t5.engines(decode_k=4)
+        assert not k4._k_enabled() and not k4._k_active()
+        prompts = test_torch_t5.prompts()
+        assert k4.score_prompts(prompts) == k1.score_prompts(prompts)
+        return
     tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
     weights = convert.random_params(tcfg, seed=0, device="cpu", dtype="fp32")
     ecfg = tengine.EngineConfig(**{**ENGINE_KW, "phase2_pool": True}
                                 if case == "pooled_confidence" else ENGINE_KW)
     kw = dict(engine_config=ecfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if case == "mesh":
-            tengine.ScoringEngine("falcon", tcfg, weights, tok, mesh=object(), **kw)
-        elif case == "decode_k":
-            tengine.ScoringEngine(
-                "falcon", tcfg, weights, tok, device="cpu",
-                engine_config=dataclasses.replace(ecfg, decode_k=2))
+    if case == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tengine.ScoringEngine("falcon", tcfg, weights, tok,
+                                  mesh=object(), **kw)
+        return
+    rows = []
+    for k in (1, 2):
+        eng = tengine.ScoringEngine("falcon", tcfg, weights, tok, **kw)
+        eng.ecfg = dataclasses.replace(eng.ecfg, decode_k=k)
+        if case.endswith("confidence"):
+            rows.append(eng.score_prompts(["Is soup a beverage?"],
+                                          with_confidence=True))
         else:
-            eng = tengine.ScoringEngine("falcon", tcfg, weights, tok, **kw)
-            eng.ecfg = dataclasses.replace(eng.ecfg, decode_k=2)
-            if case.endswith("confidence"):
-                eng.score_prompts(["Is soup a beverage?"], with_confidence=True)
-            else:
-                eng.score_prompts([("Is soup a beverage?", " Answer:")])
+            rows.append(eng.score_prompts([("Is soup a beverage?",
+                                            " Answer:")]))
+    assert rows[0] == rows[1] and rows[0][0]["success"]
 
 
 def test_default_device_is_cuda(setup):

@@ -455,25 +455,30 @@ def test_prefix_pool_abandoned_entry_counts_as_leak():
     ("mesh", "Parallel and training"),
 ])
 def test_unported_settings_still_raise(case, title):
-    """Each setting not ported raises naming its ROADMAP.md item;
-    ``prefill_chunk`` ("The full-study legs") is ported now, and
-    ``prefill_chunk=1`` scores at ``EngineConfig()``'s other defaults (T5,
-    refused here before, is ported now: ``decode_k=4`` took its case)."""
+    """A mesh raises naming its ROADMAP.md item.  The settings once refused
+    here score at ``EngineConfig()``'s other defaults: ``prefill_chunk=1``
+    ("The full-study legs"), and ``decode_k`` 2 and 4 ("K-decode"), which
+    with no K-head run sequentially (``k_decode_head_missing`` noted once)
+    and give the ``decode_k=1`` rows."""
     _, tcfg, _, weights = text_models()
-    if case == "prefill_chunk":
-        eng = tengine.ScoringEngine(
-            "falcon", tcfg, weights, tok(), device="cpu",
-            engine_config=tengine.EngineConfig(prefill_chunk=1))
-        rows = eng.score_prompts(PROMPTS[:3])
-        assert all(r["success"] and r["completion"] for r in rows)
+    if case == "mesh":
+        with pytest.raises(NotImplementedError, match=title):
+            tengine.ScoringEngine("falcon", tcfg, weights, tok(),
+                                  mesh=object(), device="cpu")
         return
     kw = ({"decode_k": 4 if case == "decode_k_4" else 2}
-          if case.startswith("decode_k") else {})
-    with pytest.raises(NotImplementedError, match=title):
-        tengine.ScoringEngine(
-            "falcon", tcfg, weights, tok(),
-            mesh=object() if case == "mesh" else None,
-            engine_config=tengine.EngineConfig(**kw), device="cpu")
+          if case.startswith("decode_k") else {"prefill_chunk": 1})
+    eng = tengine.ScoringEngine(
+        "falcon", tcfg, weights, tok(), device="cpu",
+        engine_config=tengine.EngineConfig(**kw))
+    ttel.clear_counters()
+    rows = eng.score_prompts(PROMPTS[:3])
+    assert all(r["success"] and r["completion"] for r in rows)
+    if case.startswith("decode_k"):
+        assert ttel.counter("k_decode_head_missing") == 1
+        ref = tengine.ScoringEngine("falcon", tcfg, weights, tok(),
+                                    device="cpu").score_prompts(PROMPTS[:3])
+        assert rows == ref
 
 
 def test_default_config_scores():

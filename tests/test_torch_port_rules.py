@@ -87,6 +87,7 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/scoring/prompts.py",
     "llm_interpretation_replication_tpu_torch/sweeps/base_vs_instruct_100q.py",
     "llm_interpretation_replication_tpu_torch/sweeps/perturbation.py",
+    "llm_interpretation_replication_tpu_torch/scoring/packed.py",
     "llm_interpretation_replication_tpu_torch/sweeps/writers.py",
     "llm_interpretation_replication_tpu_torch/utils/checkpoint.py",
     "llm_interpretation_replication_tpu_torch/utils/logging.py",
@@ -106,7 +107,7 @@ def test_slice_modules_are_guarded(rel):
 
 def test_ops_api_matches_reference():
     """The port's ops package exports the reference's attention and int8
-    names (its MoE ops come with a later slice)."""
+    names (its MoE ops are ROADMAP.md queue 1's "MoE ops" item)."""
     import llm_interpretation_replication_tpu.ops as jops
     import llm_interpretation_replication_tpu_torch.ops as tops
 
