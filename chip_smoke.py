@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each fatal on failure (the exit code is then non-zero and no result
-line is printed; the order of the run is 1-8, 10, 16, 17, 9, 11-15):
+line is printed; the order of the run is 1-8, 10, 16, 17, 18, 9, 11, 18's
+CLI leg, 12-15):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
@@ -197,7 +198,31 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 9, 11-15):
    part only below the tie (the int8 pair's widened by the int8 cache's
    measured logit deviation) and keep their probabilities within it; the
    oracle saves steps; passes a chunk, ms of a sequential chunk against
-   the accepted K path's, and the accept rate are printed.
+   the accepted K path's, and the accept rate are printed;
+18. obs (after phase 17, on the slice's weights; guards and device
+   observability): 20 rows of the sweep phase's corpus (5 scenarios x 4
+   rephrasings) through ``run_model_perturbation_sweep`` after a warm-up
+   run: (a) plain, (b) with strict mode, the span tracer, the metrics log
+   and a ``profile_window`` capture all armed, a warm repeat under strict
+   mode alone, and (c) with the tracer in sync mode.  The rows of every
+   run equal (a)'s; under strict mode every prefill ran at sync debug mode
+   2, (b) and the repeat add no ``blocked_transfers`` and the repeat no
+   ``recompile_events``; every span's phase is in
+   ``KNOWN_PHASES`` and the phase self-times sum to no more than the
+   call's wall time; ``top_device_ops`` of (b)'s capture names the causal
+   kernel, whose events there number layers x prefills;
+   ``device_memory_snapshot`` reads between 0 and the card's total.  The
+   negative control: inside ``strict.scoring_guard`` a ``.item()`` on a
+   CUDA tensor must raise and add exactly 1 to ``blocked_transfers``, and
+   not raise inside ``sanctioned_fetch``; the same guard is asked about
+   13 other operations (what sync debug mode catches).  Printed: rows/s
+   of each run, the phase tables with their coverage, the top 10 device
+   ops.  Its CLI leg (after phase 11, on that phase's 2-layer snapshot):
+   ``run-perturbation --strict --trace T --profile D --metrics M`` writes
+   the workbook of the same call without the flags, and ``obs report
+   --trace T`` prints the phase table.  Phases 13 and 15 run their first
+   CLI call with ``--strict``: its audit line must read
+   ``blocked_transfers`` 0.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -4288,12 +4313,15 @@ def run100q_cli_phase(seed, workdir, card):
 
     # (1) the whole sweep
     out = os.path.join(workdir, "run100q")
-    rc, so, se, secs = _run_100q(snaps, out)
-    runs.append(dict(run="full", rc=rc, seconds=secs,
+    rc, so, se, secs = _run_100q(snaps, out, extra=("--strict",))
+    audit = _strict_audit(se)
+    runs.append(dict(run="full", rc=rc, seconds=secs, strict=audit,
                      rows_per_s=len(names) * len(questions) / secs))
     say("run-100q", json.dumps(dict(runs[-1], card=card)))
     if rc != 0:
         raise AssertionError(f"run-100q exited {rc}: {se[-3000:]}")
+    if len(audit) != 1 or audit[0]["blocked_transfers"] != 0:
+        fails.append(f"run-100q --strict: audit {audit}")
     raw, rows = csv_of(out)
     n = len(names) * len(questions)
     if rows[0] != BASE_VS_INSTRUCT_100Q_COLUMNS or len(rows) != n + 1:
@@ -4737,7 +4765,7 @@ def _write_instruct_snapshots(root, seed, texts):
     return nbytes, time.perf_counter() - t0
 
 
-def _run_instruct(snaps, out, signal_after_first=False):
+def _run_instruct(snaps, out, extra=(), signal_after_first=False):
     """``python -m llm_interpretation_replication_tpu_torch
     run-instruct-sweep --attention-impl flash --quant int8`` in a child
     process (the repository on its path); with ``signal_after_first`` a
@@ -4751,7 +4779,7 @@ def _run_instruct(snaps, out, signal_after_first=False):
     argv = [sys.executable, "-m", "llm_interpretation_replication_tpu_torch",
             "run-instruct-sweep", "--checkpoint-dir", snaps, "--output-dir",
             out, "--attention-impl", "flash", "--quant", "int8",
-            "--batch-size", str(BATCH)]
+            "--batch-size", str(BATCH), *extra]
     ck = os.path.join(out, "instruct_sweep_checkpoint.json")
     t0 = time.perf_counter()
     with tempfile.TemporaryFile("w+") as so, tempfile.TemporaryFile("w+") as se:
@@ -4812,11 +4840,15 @@ def instruct_cli_phase(seed, workdir, card):
         return dict(re.findall(r"^# (\S+): attention (\w+) ", err, re.M))
 
     out = os.path.join(workdir, "instruct")
-    rc, so, se, secs = _run_instruct(snaps, out)
-    runs.append(dict(run="full", rc=rc, seconds=secs, rows_per_s=n / secs))
+    rc, so, se, secs = _run_instruct(snaps, out, extra=("--strict",))
+    audit = _strict_audit(se)
+    runs.append(dict(run="full", rc=rc, seconds=secs, strict=audit,
+                     rows_per_s=n / secs))
     say("run-instruct-sweep", json.dumps(dict(runs[-1], card=card)))
     if rc != 0:
         raise AssertionError(f"run-instruct-sweep exited {rc}: {se[-3000:]}")
+    if len(audit) != 1 or audit[0]["blocked_transfers"] != 0:
+        fails.append(f"run-instruct-sweep --strict: audit {audit}")
     raw, rows = csv_of(out)
     if rows[0] != INSTRUCT_COMPARISON_COLUMNS or len(rows) != n + 1:
         fails.append(f"run-instruct-sweep: header {rows[0]}, "
@@ -5457,6 +5489,381 @@ def k_decode_phase(seed, attention, weights, near_tie, card):
     return result
 
 
+
+# ---------------------------------------------------------------------------
+# Guards and device observability (phase 18)
+# ---------------------------------------------------------------------------
+
+# the obs phase's rows: this many rephrasings of each scenario of the sweep
+# phase's corpus (5 x 4 = 20 rows, one chunk, one batch)
+OBS_PER_SCENARIO = 4
+# what sync debug mode "error" is asked about on the card: each op once,
+# inside a scoring guard (the negative control is the first)
+SYNC_PROBES = ("item", "cpu", "bool_of_tensor", "nonzero", "bool_mask_index",
+               "stream_synchronize", "device_synchronize",
+               "event_synchronize", "pinned_nonblocking_d2h",
+               "pageable_h2d_as_tensor", "scalar_tensor_h2d",
+               "pinned_nonblocking_h2d", "pageable_nonblocking_h2d",
+               "empty_cache")
+
+
+def _same_rows(a, b):
+    """Row lists equal field for field (NaN equal to NaN)."""
+    return (len(a) == len(b) and all(
+        json.dumps(x, sort_keys=True) == json.dumps(y, sort_keys=True)
+        for x, y in zip(a, b)))
+
+
+def _sync_probes(strict, telemetry):
+    """The negative control and what the mode catches: with strict mode
+    armed, each probe runs inside ``strict.scoring_guard``; returns
+    ``{probe: raised}``, the ``blocked_transfers`` the probes added and the
+    failures.  ``.item()`` must raise and add exactly 1, and not raise
+    inside ``sanctioned_fetch``."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.device import to_device
+
+    x = torch.arange(8, device="cuda", dtype=torch.float32)
+    pinned = torch.empty(8, pin_memory=True)
+    arr = np.arange(8, dtype=np.float32)
+
+    def event_sync():
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+
+    ops = {
+        "item": lambda: x.sum().item(),
+        "cpu": lambda: x.cpu(),
+        "bool_of_tensor": lambda: bool((x > 3).any()),
+        "nonzero": lambda: torch.nonzero(x),
+        "bool_mask_index": lambda: x[x > 3],
+        "stream_synchronize": lambda: (
+            torch.cuda.current_stream().synchronize()),
+        "device_synchronize": torch.cuda.synchronize,
+        "event_synchronize": event_sync,
+        "pinned_nonblocking_d2h": lambda: pinned.copy_(x, non_blocking=True),
+        "pageable_h2d_as_tensor": lambda: torch.as_tensor(arr, device="cuda"),
+        "scalar_tensor_h2d": lambda: torch.tensor(10000.0, device="cuda"),
+        "pinned_nonblocking_h2d": lambda: to_device(arr, "cuda"),
+        "pageable_nonblocking_h2d": lambda: torch.as_tensor(arr).to(
+            "cuda", non_blocking=True),
+        "empty_cache": torch.cuda.empty_cache,
+    }
+    assert tuple(ops) == SYNC_PROBES
+    fails, raised = [], {}
+    strict.activate(sentry=False)
+    try:
+        added = _run_sync_probes(strict, telemetry, ops, x, raised, fails)
+    finally:
+        strict.deactivate()
+    return raised, added, fails
+
+
+def _run_sync_probes(strict, telemetry, ops, x, raised, fails):
+    import torch
+
+    before = telemetry.counter(strict.BLOCKED_COUNTER)
+    for name, op in ops.items():
+        torch.cuda.synchronize()
+        one = telemetry.counter(strict.BLOCKED_COUNTER)
+        try:
+            with strict.scoring_guard("sync_probe"):
+                op()
+            raised[name] = False
+        except RuntimeError as err:
+            if not strict._is_transfer_guard_error(err):
+                raise
+            raised[name] = True
+        if telemetry.counter(strict.BLOCKED_COUNTER) - one != raised[name]:
+            fails.append(f"probe {name}: blocked_transfers moved by "
+                         f"{telemetry.counter(strict.BLOCKED_COUNTER) - one}")
+        if strict.sync_debug_mode() != 0:
+            fails.append(f"probe {name}: the mode was left at "
+                         f"{strict.sync_debug_mode()}")
+    if not raised["item"]:
+        fails.append("negative control: .item() inside scoring_guard did "
+                     "not raise")
+    with strict.scoring_guard("sync_probe"):
+        with strict.sanctioned_fetch():
+            x.sum().item()
+    return int(telemetry.counter(strict.BLOCKED_COUNTER) - before)
+
+
+def obs_phase(seed, attention, weights, workdir, card):
+    """Phase 18 on Falcon-7B at full width and depth (the slice's weights,
+    the causal kernel): 20 rows of the sweep phase's corpus through
+    ``run_model_perturbation_sweep``, after a warm-up run: (a) plain, (b)
+    with strict mode, the tracer, the metrics log and a ``profile_window``
+    capture all armed, (b') strict alone again (the warm repeat), (c) with
+    the tracer in sync mode; then the negative control and the sync
+    probes."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch import obs
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+    from llm_interpretation_replication_tpu_torch.gen.rephrase import (
+        load_perturbations)
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.obs import metrics, report
+    from llm_interpretation_replication_tpu_torch.obs.profiler import (
+        device_memory_snapshot, profile_window)
+    from llm_interpretation_replication_tpu_torch.obs.tracer import (
+        KNOWN_PHASES)
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.runtime import strict
+    from llm_interpretation_replication_tpu_torch.sweeps import (
+        run_model_perturbation_sweep)
+    from llm_interpretation_replication_tpu_torch.utils import (
+        profiling, telemetry)
+    from llm_interpretation_replication_tpu_torch.utils.logging import (
+        SessionLogger)
+
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
+    scenarios = [dict(s, rephrasings=s["rephrasings"][:OBS_PER_SCENARIO])
+                 for s in load_perturbations(
+                     os.path.join(workdir, "perturbations.json"),
+                     expected_scenarios=legal_scenarios())]
+    n_rows = sum(len(s["rephrasings"]) for s in scenarios)
+    tok = _sweep_tokenizer(scenarios)
+    engine = emod.ScoringEngine("falcon", cfg, weights, tok, device="cuda",
+                                engine_config=emod.EngineConfig(
+                                    batch_size=BATCH))
+    out_dir = os.path.join(workdir, "obs")
+    prof_dir = os.path.join(out_dir, "profile")
+    counted = {"prefill": 0, "modes": set()}
+    real_prefill = decoder.prefill
+
+    def counting(*args, **kwargs):
+        # the sync debug mode the launch path runs at (2: "error")
+        counted["prefill"] += 1
+        counted["modes"].add(strict.sync_debug_mode())
+        return real_prefill(*args, **kwargs)
+
+    runs, rows, fails = {}, {}, []
+
+    def sweep(name, armed=(), sync=False):
+        counted["prefill"] = 0
+        counted["modes"] = set()
+        _reset_launches(attention)
+        obs.get_tracer().reset()
+        if "strict" in armed:
+            strict.activate()
+        if "trace" in armed:
+            obs.enable(jsonl_path=os.path.join(out_dir, f"{name}.spans.jsonl"),
+                       sync=sync, memory=True)
+        if "metrics" in armed:
+            metrics.enable_jsonl(
+                os.path.join(out_dir, f"{name}.metrics.jsonl"))
+        snap = telemetry.counters()
+        try:
+            with profile_window(prof_dir if "profile" in armed else None,
+                                enabled="profile" in armed) as captured:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows[name] = run_model_perturbation_sweep(
+                    engine, SWEEP_MODEL, scenarios,
+                    os.path.join(out_dir, f"{name}.xlsx"),
+                    log=SessionLogger(stream=io.StringIO()))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            obs.disable()
+            metrics.get_registry().disable_jsonl()
+            strict.deactivate()
+        delta = telemetry.counters_since(snap)
+        totals = obs.phase_totals(by_leg=True)
+        res = dict(run=name, armed=list(armed), sync=sync, seconds=wall,
+                   rows=len(rows[name]), rows_per_s=len(rows[name]) / wall,
+                   prefills=counted["prefill"],
+                   launch_modes=sorted(counted["modes"]),
+                   kernel_launches=_launches(attention)[
+                       "causal_grouped_attention"],
+                   blocked_transfers=int(delta.get(strict.BLOCKED_COUNTER, 0)),
+                   recompile_events=int(
+                       delta.get(strict.RECOMPILE_COUNTER, 0)),
+                   profile_started=captured)
+        if totals:
+            block = report.phases_block(totals, wall_s=wall, rows=n_rows)
+            res["phases"] = block
+            res["spans"] = len(obs.get_tracer().spans())
+            unknown = set(totals) - KNOWN_PHASES
+            if unknown:
+                fails.append(f"obs {name}: phases outside KNOWN_PHASES "
+                             f"{sorted(unknown)}")
+            if not block["total_s"] <= wall:
+                fails.append(f"obs {name}: phase self-times {block['total_s']}"
+                             f" s exceed the call's {wall} s")
+        runs[name] = res
+        say("obs", json.dumps(dict({k: v for k, v in res.items()
+                                    if k != "phases"}, card=card)))
+
+    os.makedirs(out_dir, exist_ok=True)
+    decoder.prefill = counting
+    try:
+        sweep("warmup")             # first use of these shapes: not compared
+        sweep("plain")
+        sweep("armed", ("strict", "trace", "metrics", "profile"))
+        sweep("strict_repeat", ("strict",))
+        sweep("sync_traced", ("trace",), sync=True)
+    finally:
+        decoder.prefill = real_prefill
+    engine.close()
+    memory = device_memory_snapshot("obs")
+    raised, probe_blocked, probe_fails = _sync_probes(strict, telemetry)
+    fails += probe_fails
+
+    for name in ("warmup", "armed", "strict_repeat", "sync_traced"):
+        if not _same_rows(rows[name], rows["plain"]):
+            fails.append(f"obs {name}: rows differ from the plain run's")
+    for name in ("armed", "strict_repeat"):
+        if runs[name]["launch_modes"] != [2]:
+            fails.append(f"obs {name}: the launch path ran at sync debug "
+                         f"modes {runs[name]['launch_modes']}, not 2")
+    for name, res in runs.items():
+        if len(rows[name]) != n_rows:
+            fails.append(f"obs {name}: {len(rows[name])} rows, not {n_rows}")
+        if not res["prefills"] or res["kernel_launches"] != \
+                cfg.num_layers * res["prefills"]:
+            fails.append(f"obs {name}: {res['kernel_launches']} causal "
+                         f"launches for {res['prefills']} prefills")
+    armed = runs["armed"]
+    if armed["blocked_transfers"] or \
+            runs["strict_repeat"]["blocked_transfers"]:
+        fails.append(f"obs: blocked_transfers {armed['blocked_transfers']} / "
+                     f"{runs['strict_repeat']['blocked_transfers']}")
+    if runs["strict_repeat"]["recompile_events"]:
+        fails.append(f"obs: {runs['strict_repeat']['recompile_events']} nvcc "
+                     f"builds on the warm repeat")
+    if armed["profile_started"] is not True:
+        fails.append("obs: profile_window did not start a capture")
+    ranked = profiling.top_device_ops(prof_dir, 10 ** 6) if armed[
+        "profile_started"] else []
+    top = ranked[:10]
+    events = profiling.device_op_events(prof_dir) if ranked else {}
+    # the causal kernel's template instance (the projection-layout rows)
+    causal = {name: n for name, (n, _) in events.items()
+              if "tile_kernel" in name and "BsndRows" in name}
+    causal_rank = [i for i, (name, _) in enumerate(ranked) if name in causal]
+    causal_events = sum(causal.values())
+    if not causal_rank:
+        fails.append("obs: top_device_ops names no causal kernel")
+    if causal_events != cfg.num_layers * armed["prefills"]:
+        fails.append(f"obs: {causal_events} causal kernel events in the "
+                     f"profile for {armed['prefills']} prefills")
+    if not memory or not all(0 < m["bytes_in_use"] <= m["bytes_limit"]
+                             for m in memory):
+        fails.append(f"obs: device memory snapshot {memory}")
+    coverage = armed["phases"]["coverage"]
+    say("obs phase table\n" + report.format_phase_table(
+        armed["phases"], title=f"phase attribution (Falcon-7B, {n_rows} "
+                               f"rows, strict + trace + metrics + profile; "
+                               f"{card})"))
+    say("obs phase table, sync mode\n" + report.format_phase_table(
+        runs["sync_traced"]["phases"],
+        title=f"phase attribution (sync=True; {card})"))
+    say("obs top device ops", json.dumps(dict(card=card, top=top)))
+    summary = dict(card=card, rows=n_rows,
+                   rows_per_s={k: r["rows_per_s"] for k, r in runs.items()},
+                   coverage=coverage,
+                   sync_coverage=runs["sync_traced"]["phases"]["coverage"],
+                   causal_kernel_events=causal,
+                   causal_kernel_rank=causal_rank[:1],
+                   device_ops=len(ranked), memory=memory,
+                   sync_probe_raised=raised,
+                   probe_blocked_transfers=probe_blocked,
+                   failures=len(fails))
+    say("obs gates", json.dumps(summary))
+    result = dict(summary, runs=list(runs.values()), top_device_ops=top,
+                  failures=fails[:50])
+    if fails:
+        raise AssertionError(f"obs: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
+def obs_cli_phase(workdir, card):
+    """Phase 18's CLI leg, on the CLI phase's 2-layer snapshot:
+    ``run-perturbation --strict --trace T --profile D --metrics M`` must
+    write the workbook of the same call without them, and ``obs report
+    --trace T`` must parse the trace and print the phase table."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+    from llm_interpretation_replication_tpu_torch.obs import report
+    from llm_interpretation_replication_tpu_torch.runtime import strict
+    from llm_interpretation_replication_tpu_torch.utils import (
+        profiling, telemetry)
+    from llm_interpretation_replication_tpu_torch.utils.xlsx import read_xlsx
+
+    snap = os.path.join(workdir, "falcon-7b-2l")
+    argv = ["run-perturbation", "--model", snap, "--perturbations",
+            os.path.join(workdir, "perturbations.json"),
+            "--attention-impl", "flash", "--batch-size", str(BATCH)]
+    art = os.path.join(workdir, "obs_cli")
+    trace = os.path.join(art, "trace.json")
+    prof = os.path.join(art, "profile")
+    mlog = os.path.join(art, "metrics.jsonl")
+    books, runs, fails = {}, [], []
+    for name, extra in (("plain", []),
+                        ("flags", ["--strict", "--trace", trace, "--profile",
+                                   prof, "--metrics", mlog])):
+        out = os.path.join(art, name)
+        snap_c = telemetry.counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(argv + ["--output-dir", out] + extra)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        delta = telemetry.counters_since(snap_c)
+        books[name] = read_xlsx(os.path.join(out, "perturbation_results.xlsx"))
+        runs.append(dict(run=name, seconds=elapsed,
+                         rows_per_s=len(books[name][1]) / elapsed,
+                         blocked_transfers=int(delta.get(
+                             strict.BLOCKED_COUNTER, 0))))
+        say("obs cli", json.dumps(dict(runs[-1], card=card)))
+    if books["flags"] != books["plain"]:
+        fails.append("obs cli: the flagged workbook differs")
+    if runs[1]["blocked_transfers"]:
+        fails.append(f"obs cli: blocked_transfers "
+                     f"{runs[1]['blocked_transfers']}")
+    buf = io.StringIO()
+    real_stdout, sys.stdout = sys.stdout, buf
+    try:
+        rc = report.main(["report", "--trace", trace])
+    finally:
+        sys.stdout = real_stdout
+    table = buf.getvalue()
+    say("obs report --trace\n" + table.rstrip())
+    if rc != 0 or "prefill" not in table:
+        fails.append(f"obs cli: obs report exited {rc}")
+    with open(mlog) as f:
+        samples = sum(1 for line in f if line.strip())
+    top = profiling.top_device_ops(prof, 5)
+    if not samples or not top:
+        fails.append(f"obs cli: {samples} metrics samples, profile top {top}")
+    if not os.path.exists(trace + ".spans.jsonl"):
+        fails.append("obs cli: no span log")
+    result = dict(card=card, runs=runs, metrics_samples=samples,
+                  profile_top=top, report_lines=len(table.splitlines()),
+                  failures=fails[:50])
+    say("obs cli gates", json.dumps({k: v for k, v in result.items()
+                                     if k != "runs"}))
+    if fails:
+        raise AssertionError(f"obs cli: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
+def _strict_audit(stderr):
+    """The ``# strict: {...}`` audit lines a ``--strict`` CLI run prints."""
+    return [json.loads(line.split(": ", 1)[1]) for line in stderr.splitlines()
+            if line.startswith("# strict: ")]
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5507,10 +5914,13 @@ def main(argv=None):
                       fres["near_tie"], workdir, card)
         kres = timed("k_decode", k_decode_phase, args.seed, attention,
                      weights, fres["near_tie"], card)
+        ores = timed("obs", obs_phase, args.seed, attention, weights,
+                     workdir, card)
         del weights
         torch.cuda.empty_cache()
         ires = timed("int8", int8_phase, args.seed, attention, bf16_rows)
         cres = timed("cli", cli_phase, args.seed, attention, workdir, card)
+        ocres = timed("obs_cli", obs_cli_phase, workdir, card)
         torch.cuda.empty_cache()
         fam = timed("families", families_phase, args.seed, attention, card)
         qres = timed("run_100q", run100q_cli_phase, args.seed, workdir, card)
@@ -5524,8 +5934,8 @@ def main(argv=None):
 
     # the causal kernel's launches over every main-path run (each counted
     # from 0 just before it); the head-major kernels run on forced routes
-    causal = causal_launches(sres, pres, fres, ires, wres, pkres, kres, cres,
-                             fam, inst)
+    causal = causal_launches(sres, pres, fres, ires, wres, pkres, kres, ores,
+                             cres, fam, inst)
     launches = {"causal_grouped_attention": causal,
                 "grouped_attention": sres["forced_routes"]["grouped"]["launches"],
                 "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
@@ -5550,7 +5960,9 @@ def main(argv=None):
         json.dump(dict(device=kind, nvidia_smi=smi, build=build,
                        edge_rows=erows, kernel_rows=krows, slice=sres,
                        pooled=pres, full_study=fres, sweep=wres,
-                       packed=pkres, k_decode=kres, int8=ires, cli=cres, families=fam, run_100q=qres, instruct=inst,
+                       packed=pkres, k_decode=kres, obs=ores, obs_cli=ocres,
+                       int8=ires, cli=cres, families=fam, run_100q=qres,
+                       instruct=inst,
                        run_instruct_sweep=ires_cli, phase_seconds=seconds,
                        kernels=kernels), f, indent=1)
     say(json.dumps({"kernels": kernels}))

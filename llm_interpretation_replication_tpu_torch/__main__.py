@@ -6,6 +6,8 @@
         --checkpoint-dir DIR [--device cuda]
     python -m llm_interpretation_replication_tpu_torch run-instruct-sweep \\
         --checkpoint-dir DIR [--device cuda]
+    python -m llm_interpretation_replication_tpu_torch obs report --trace PATH
+    python -m llm_interpretation_replication_tpu_torch obs bench-diff RECORD...
 
 ``run-perturbation`` loads a local HF snapshot (``config.json``, weights as
 safetensors or ``pytorch_model.bin``, a byte-level BPE ``tokenizer.json``)
@@ -27,32 +29,55 @@ ordinary-meaning questions with each base and instruct model of
 scores the 100 questions (or ``--questions-file``'s) with each model of
 ``data_assets/instruct_sweep_models.json`` (T5 among them) and writes
 ``<output-dir>/instruct_model_comparison_results.csv`` (or
-``--results-csv``).  These are copies of the reference CLI's commands.  Flags of paths the port does not cover yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``--results-csv``).  These are copies of the reference CLI's commands.
+Each takes ``--strict`` (the sync guard of ``runtime/strict.py``),
+``--trace [PATH]`` (span tracing: a JSONL span log streamed to
+``PATH.spans.jsonl`` and a Chrome trace written to PATH at exit),
+``--profile DIR`` (a ``torch.profiler`` capture of the command) and
+``--metrics [PATH]`` (the streaming JSONL metrics log); ``obs report``
+aggregates a saved trace per phase and leg, ``obs bench-diff`` aligns bench
+records into a regression table.  Flags of paths the port does not cover
+yet raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
-_ITEM_GUARDS = "ROADMAP.md queue 1, 'Guards and device observability'"
 _ITEM_PLAN = "ROADMAP.md queue 1, 'Planning for the H100'"
 _ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
 
 
 def _add_run_config_args(p: argparse.ArgumentParser):
     p.add_argument("--strict", action="store_true",
-                   help="strict transfer guard (not ported)")
+                   help="arm strict mode (runtime/strict.py): raise on any "
+                        "synchronizing CUDA operation outside the engine's "
+                        "sanctioned fetch points and count nvcc builds "
+                        "into telemetry (recompile_events / "
+                        "blocked_transfers) — same as LLM_INTERP_STRICT=1")
     p.add_argument("--trace", nargs="?", const="obs_trace.json",
                    default=None, metavar="PATH",
-                   help="span tracing (not ported)")
+                   help="span tracing (obs/): record hot-path phase spans "
+                        "(tokenize/prefill/extend/decode/fetch), stream a "
+                        "JSONL span log to PATH.spans.jsonl, and export a "
+                        "Perfetto-loadable Chrome trace to PATH at exit; "
+                        "analyze saved traces with the 'obs report' "
+                        "subcommand")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="profiler capture (not ported)")
+                   help="windowed torch.profiler capture into DIR for the "
+                        "command's run (obs/profiler.py; headless "
+                        "analysis: utils/profiling.top_device_ops)")
     p.add_argument("--metrics", nargs="?", const="metrics.jsonl",
                    default=None, metavar="PATH",
-                   help="streaming metrics log (not ported)")
+                   help="streaming JSONL metrics log (obs/metrics.py): "
+                        "one sample per sweep heartbeat — telemetry "
+                        "counters (raw + since-start delta), sample-ring "
+                        "percentiles with truncation visibility, and "
+                        "progress gauges — to PATH (default "
+                        "metrics.jsonl).  Off by default")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--quant", choices=["none", "int8"], default="none",
@@ -94,10 +119,6 @@ def _add_run_config_args(p: argparse.ArgumentParser):
 def _refuse_unported(args) -> None:
     """Raise for each flag whose path the port does not cover yet."""
     for flag, on, item in (
-        ("--strict", args.strict, _ITEM_GUARDS),
-        ("--trace", args.trace, _ITEM_GUARDS),
-        ("--profile", args.profile, _ITEM_GUARDS),
-        ("--metrics", args.metrics, _ITEM_GUARDS),
         ("--plan-search", args.plan_search, _ITEM_PLAN),
         ("--mesh-model > 1", args.mesh_model > 1, _ITEM_PAR),
         ("--mesh-seq > 1", args.mesh_seq > 1, _ITEM_PAR),
@@ -234,8 +255,6 @@ def _distill_k_head(engine, rc, model, scenarios):
 
 
 def cmd_run_perturbation(args):
-    import json
-
     from .config import legal_scenarios
     from .gen.rephrase import load_perturbations
     from .sweeps import (run_model_perturbation_sweep,
@@ -273,9 +292,27 @@ def cmd_run_perturbation(args):
     print(f"{len(rows)} rows")
 
 
+def cmd_obs(args):
+    """``obs report`` / ``obs bench-diff``: the phase-attribution table
+    over a saved span trace, and the bench-trajectory regression analyzer
+    over BENCH_r*.json records.  In practice unreachable — ``main()``
+    routes ``obs`` to :mod:`.obs.report` before argparse runs (REMAINDER
+    cannot take leading optionals like ``--trace``); the subparser exists
+    so the subcommand shows in ``--help``."""
+    from .obs.report import main as obs_main
+
+    raise SystemExit(obs_main(args.obs_args))
+
+
 def main(argv=None):
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "obs":
+        # routed before argparse: `obs report --trace PATH` leads with an
+        # optional the parent parser would reject
+        from .obs.report import main as obs_main
+
+        raise SystemExit(obs_main(argv[1:]))
     parser = argparse.ArgumentParser(prog="llm_interpretation_replication_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -322,8 +359,77 @@ def main(argv=None):
                         "isolated answers are the demonstrations")
     p.set_defaults(fn=cmd_run_perturbation)
 
+    p = sub.add_parser("obs",
+                       help="observability reports: 'obs report --trace "
+                            "PATH' aggregates a saved span trace (JSONL "
+                            "log or Chrome-trace JSON) per phase/leg; "
+                            "'obs bench-diff BENCH_r04.json "
+                            "BENCH_r05.json' aligns bench records into a "
+                            "regression table (exit 1 past --threshold)")
+    p.add_argument("obs_args", nargs=argparse.REMAINDER,
+                   help="forwarded: report --trace PATH [--wall-s S] "
+                        "[--rows N] [--format table|json], or bench-diff "
+                        "RECORD... [--threshold PCT] [--format "
+                        "table|json] [--no-fail]")
+    p.set_defaults(fn=cmd_obs)
+
     args = parser.parse_args(argv)
-    return args.fn(args)
+    # Strict mode (runtime/strict.py): --strict or LLM_INTERP_STRICT=1 arms
+    # the sync guard and the build sentry, so the run's operating point is
+    # auditable (recompile_events / blocked_transfers counters)
+    from .runtime import strict as strict_mod
+    from .utils import telemetry
+
+    was_strict = strict_mod.strict_enabled()
+    counters_at_start = telemetry.counters()
+    if getattr(args, "strict", False):
+        strict_mod.activate()
+    else:
+        strict_mod.activate_from_env()
+    # Observability (obs/): --trace arms the span tracer for the whole
+    # command (the JSONL streams as spans close; the Chrome trace exports
+    # on the way out, success or failure), --profile wraps the command in
+    # a torch.profiler capture window, --metrics streams the JSONL metrics
+    # log (one sample a sweep heartbeat).  All measurement-only; each is
+    # disarmed again on the way out, so a caller that runs several
+    # commands in one process gets one artifact set a command.
+    from . import obs
+    from .obs import metrics as obs_metrics
+    from .obs.profiler import profile_window
+
+    metrics_path = getattr(args, "metrics", None)
+    trace_path = getattr(args, "trace", None)
+    profile_dir = getattr(args, "profile", None)
+    if metrics_path:
+        obs_metrics.enable_jsonl(metrics_path)
+        print(f"# obs: metrics log streaming to {metrics_path}",
+              file=sys.stderr)
+    if trace_path:
+        obs.get_tracer().reset()
+        obs.enable(jsonl_path=trace_path + ".spans.jsonl", memory=True)
+    try:
+        with profile_window(profile_dir, enabled=bool(profile_dir)):
+            return args.fn(args)
+    finally:
+        if trace_path:
+            path = obs.export_chrome(trace_path)
+            obs.disable()
+            print(f"# obs: trace written to {path} (span log "
+                  f"{trace_path}.spans.jsonl)", file=sys.stderr)
+        if metrics_path:
+            obs_metrics.get_registry().disable_jsonl()
+        if strict_mod.strict_enabled():
+            # the audit line, with this command's counts: a clean run
+            # reads blocked_transfers 0
+            audit = strict_mod.strict_report()
+            delta = telemetry.counters_since(counters_at_start)
+            for key in (strict_mod.RECOMPILE_COUNTER,
+                        strict_mod.BLOCKED_COUNTER):
+                audit[key] = int(delta.get(key, 0))
+            print(f"# strict: {json.dumps(audit)}", file=sys.stderr,
+                  flush=True)
+        if not was_strict:
+            strict_mod.deactivate()
 
 
 if __name__ == "__main__":

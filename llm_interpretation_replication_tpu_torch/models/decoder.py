@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import DecoderConfig
+from ..device import to_device
 from ..ops import quant
 from ..ops.attention import NEG_INF, attention_bsnd, cache_extend_attention
 
@@ -131,8 +132,9 @@ def rotary_embedding(positions, dim: int, theta: float, dtype=torch.float32):
     """Return (sin, cos) of shape [..., dim/2] for the given positions."""
     exps = torch.arange(0, dim, 2, dtype=torch.float32,
                         device=positions.device) / dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=positions.device), exps)
+    # a fill, not a host copy: the forward never waits on the host here
+    inv_freq = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                          device=positions.device), exps)
     angles = positions[..., None].float() * inv_freq
     return torch.sin(angles).to(dtype), torch.cos(angles).to(dtype)
 
@@ -175,7 +177,8 @@ def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
         closest = 2 ** math.floor(math.log2(num_heads))
         slopes = pow2_slopes(closest)
         slopes += pow2_slopes(2 * closest)[0::2][: num_heads - closest]
-    return torch.tensor(slopes, dtype=torch.float32, device=device)
+    return to_device(torch.tensor(slopes, dtype=torch.float32),
+                     device or "cpu")
 
 
 # ---------------------------------------------------------------------------

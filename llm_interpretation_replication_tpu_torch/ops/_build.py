@@ -8,7 +8,9 @@ and of the flags, so an edited source or header is rebuilt and a stale
 library is never loaded.  ``nvcc`` finds a header beside the source that
 includes it.  Builds go to
 ``build/torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``).  Nothing here runs at import time.
+``.gitignore``).  Each build started calls the registered build listeners
+with the source's name (``runtime.strict.RecompileSentry`` counts them).
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Callable, Dict, List
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -39,6 +41,19 @@ class BuildRecord:
 
 _records: Dict[str, BuildRecord] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
+_listeners: List[Callable[[str], None]] = []
+
+
+def add_build_listener(fn: Callable[[str], None]) -> None:
+    """Call ``fn(name)`` for every ``nvcc`` build started (idempotent per
+    callable)."""
+    if fn not in _listeners:
+        _listeners.append(fn)
+
+
+def remove_build_listener(fn: Callable[[str], None]) -> None:
+    if fn in _listeners:
+        _listeners.remove(fn)
 
 
 def nvcc() -> str:
@@ -78,6 +93,8 @@ def build_all(names) -> Dict[str, BuildRecord]:
             [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         started[name] = (out, tmp, time.perf_counter(), proc)
+        for fn in list(_listeners):
+            fn(name)
     failed = []
     for name, (out, tmp, t0, proc) in started.items():
         log, _ = proc.communicate()

@@ -2,7 +2,7 @@
 ``Batch``/``bucket_for``/``batches_for_prompts``/``rebatch``/
 ``encode_prompts``, the fused path's ``SUFFIX_BUCKETS``/
 ``suffix_bucket_for``/``encode_prefix_pairs`` and the sweep shell's
-``HostPrefetcher``, without the tracer).
+``HostPrefetcher``, whose worker thread records a ``prefetch`` span).
 
 Batches pad to a fixed menu of lengths and to a full batch of rows (pad
 rows duplicate row 0 and carry index -1), so every batch has one of a few
@@ -20,6 +20,7 @@ from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..config import DEFAULT_BUCKETS
+from ..obs import tracer as obs
 from ..utils.telemetry import record_counter
 
 
@@ -215,7 +216,14 @@ class HostPrefetcher:
             for item in items:
                 if self._stop.is_set():
                     return
-                self._put((None, fn(item)))
+                # tokenize/encode work on the background thread: tagged
+                # host_tokenize so the phases block shows how much host
+                # prep ran overlapped with device time (coverage over
+                # wall-clock can exceed 1.0 because of it)
+                with obs.span("prefetch", phase="host_tokenize",
+                              background=True):
+                    result = fn(item)
+                self._put((None, result))
         # relayed to the consumer, which re-raises it at its next get
         except BaseException as err:
             self._put((err, None))

@@ -87,13 +87,14 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_BUCKETS
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, resolve_device, to_device
 from ..models import decoder as dmod
 from ..models import t5 as t5mod
+from ..obs import tracer as obs
 from ..scoring import confidence as conf_mod
 from ..scoring import yes_no as yn
 from ..utils.telemetry import record_counter, record_fault, record_hist
-from . import batching, faults
+from . import batching, faults, strict
 from . import plan as plan_mod
 from . import slots as slots_mod
 
@@ -290,8 +291,11 @@ class _HostCopy:
         return self.event is None or self.event.query()
 
     def numpy(self) -> List[np.ndarray]:
+        """The host copies as numpy arrays, after waiting for their event
+        (a sanctioned fetch under strict mode)."""
         if self.event is not None:
-            self.event.synchronize()
+            with strict.sanctioned_fetch():
+                self.event.synchronize()
         return [h.numpy() for h in self.host]
 
 
@@ -469,7 +473,7 @@ class ScoringEngine:
         return tuple(a.cpu().numpy() for a in _confidence_topk(sc))
 
     def _tensor(self, arr, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr), device=self.device, dtype=dtype)
+        return to_device(arr, self.device, dtype)
 
     def _batches(self, encoded):
         ecfg = self.ecfg
@@ -495,7 +499,18 @@ class ScoringEngine:
         smaller size, queued ahead of the remaining input; anything it
         cannot absorb it re-raises.  A consume that fails part-way
         re-scores its whole batch; results are keyed by prompt index, so
-        the rewrite is idempotent."""
+        the rewrite is idempotent.
+
+        Under strict mode (``runtime/strict.py``, ``LLM_INTERP_STRICT=1``)
+        the whole loop runs inside the sync guard and only the ``consume``
+        callbacks, the sanctioned fetch points, may make the host wait for
+        the device: a synchronizing CUDA operation anywhere in a launch
+        path raises (counted in ``blocked_transfers``) instead of silently
+        draining the pipeline."""
+        with strict.scoring_guard(type(self).__name__):
+            self._pipeline_loop(batches, launch, consume, rebatch)
+
+    def _pipeline_loop(self, batches, launch, consume, rebatch):
         depth = max(1, int(self.ecfg.pipeline_depth))
         pending: collections.deque = collections.deque()
         retries: collections.deque = collections.deque()
@@ -518,10 +533,21 @@ class ScoringEngine:
                 # cannot be released again under a memory cap.
                 torch.cuda.empty_cache()
             stepped_down = False
-            batch = retries.popleft() if retries else next(it, None)
+            if retries:
+                batch = retries.popleft()
+            else:
+                # batch formation (the bucketing generator's numpy work) is
+                # host prep the pipeline cannot overlap
+                with obs.span("next_batch", phase="host_prep"):
+                    batch = next(it, None)
             if batch is not None:
                 try:
-                    pending.append((batch, launch(batch)))
+                    # dispatch only: the device time of in-flight work
+                    # surfaces in the consume span below
+                    with obs.span("launch", phase="dispatch",
+                                  bucket=int(batch.bucket_len),
+                                  batch=int(batch.token_ids.shape[0])):
+                        pending.append((batch, launch(batch)))
                 except Exception as err:
                     handle(batch, err)
                     continue
@@ -530,7 +556,10 @@ class ScoringEngine:
             if len(pending) >= depth or batch is None:
                 done, out = pending.popleft()
                 try:
-                    consume(done, out)
+                    with strict.sanctioned_fetch():
+                        with obs.span("consume", phase="d2h_fetch",
+                                      bucket=int(done.bucket_len)):
+                            consume(done, out)
                 except Exception as err:
                     out = None           # the failed batch's device outputs
                     handle(done, err)
@@ -589,13 +618,20 @@ class ScoringEngine:
         hold against its bf16 layout; both come from shapes, with no host
         sync."""
         chunk = int(self.ecfg.prefill_chunk or 0)
-        if chunk > 0 and cache_len > chunk:
-            last, cache, n_chunks = dmod.chunked_prefill(
-                self.params, self.cfg, ids, mask, chunk)
-            record_counter("prefill_chunks", n_chunks)
-        else:
-            last, cache = dmod.prefill(self.params, self.cfg, ids, mask,
-                                       cache_len=cache_len)
+        chunked = chunk > 0 and cache_len > chunk
+        with obs.span("chunked_prefill" if chunked else "prefill",
+                      phase="prefill", bucket=int(cache_len),
+                      batch=int(ids.shape[0]),
+                      kv_dtype=self.ecfg.kv_dtype) as sp:
+            if chunked:
+                last, cache, n_chunks = dmod.chunked_prefill(
+                    self.params, self.cfg, ids, mask, chunk)
+                record_counter("prefill_chunks", n_chunks)
+            else:
+                last, cache = dmod.prefill(self.params, self.cfg, ids, mask,
+                                           cache_len=cache_len)
+            if sp is not None:
+                sp["_sync_obj"] = last  # device-time attribution (sync mode)
         if cache.k_scale is not None:
             bf16_bytes = 2 * (cache.k.numel() + cache.v.numel())
             record_counter("kv_cache_bytes_saved",
@@ -634,7 +670,9 @@ class ScoringEngine:
         ecfg = self.ecfg
         ids_all = self._target_id_rows(prompts, targets)   # [N, 2]
         eos_id = getattr(self.tokenizer, "eos_token_id", None)
-        encoded = batching.encode_prompts(self.tokenizer, prompts)
+        with obs.span("encode_prompts", phase="host_tokenize",
+                      prompts=len(prompts)):
+            encoded = batching.encode_prompts(self.tokenizer, prompts)
         results: List[Optional[Dict]] = [None] * len(prompts)
         steps, gen_total = self._gen_plan(max_new_tokens)
         if (ecfg.phase2_pool and not with_confidence
@@ -689,8 +727,10 @@ class ScoringEngine:
                 f"{len(pairs[0][1])} suffixes")
         if not pairs:
             return [[] for _ in legs]
-        prefix_encoded, suffix_encoded = batching.encode_prefix_pairs(
-            self.tokenizer, pairs)
+        with obs.span("encode_prefix_pairs", phase="host_tokenize",
+                      rows=len(pairs)):
+            prefix_encoded, suffix_encoded = batching.encode_prefix_pairs(
+                self.tokenizer, pairs)
         if self.is_encoder_decoder:
             # T5 has no decoder-side prompt cache to extend (the encoder
             # reads the whole prompt every leg): each leg scores the joined
@@ -715,7 +755,9 @@ class ScoringEngine:
         ecfg = self.ecfg
         ids_all = self._target_id_rows(prompts, targets)
         eos_id = getattr(self.tokenizer, "eos_token_id", None)
-        encoded = batching.encode_prompts(self.tokenizer, prompts)
+        with obs.span("encode_prompts", phase="host_tokenize",
+                      prompts=len(prompts)):
+            encoded = batching.encode_prompts(self.tokenizer, prompts)
         results: List[Optional[Dict]] = [None] * len(prompts)
         steps, gen_total = self._gen_plan(max_new_tokens)
 
@@ -822,15 +864,21 @@ class ScoringEngine:
                                        torch.int64)
                 leg_outs = []
                 for li in range(len(legs)):
-                    sids, smask = suffix_batch(batch, li)
-                    last, cache, lengths = dmod.extend_prefill(
-                        self.params, self.cfg, pcache, self._tensor(sids),
-                        self._tensor(smask), plen)
-                    scan0 = yn.first_token_scan(
-                        last, row_ids[:, 0], row_ids[:, 1], top_k=ecfg.top_k)
-                    first3 = yn.relative_prob_first_token(
-                        last, row_ids[:, 0], row_ids[:, 1],
-                        ecfg.first_token_top_filter)
+                    with obs.span("extend_prefill", phase="extend_prefill",
+                                  leg=legs[li].name or f"leg{li}",
+                                  bucket=int(batch.bucket_len)) as sp:
+                        sids, smask = suffix_batch(batch, li)
+                        last, cache, lengths = dmod.extend_prefill(
+                            self.params, self.cfg, pcache,
+                            self._tensor(sids), self._tensor(smask), plen)
+                        scan0 = yn.first_token_scan(
+                            last, row_ids[:, 0], row_ids[:, 1],
+                            top_k=ecfg.top_k)
+                        first3 = yn.relative_prob_first_token(
+                            last, row_ids[:, 0], row_ids[:, 1],
+                            ecfg.first_token_top_filter)
+                        if sp is not None:
+                            sp["_sync_obj"] = last
                     leg_outs.append((last, cache, lengths,
                                      _HostCopy((*scan0, *first3))))
                     if li:              # every later leg rides the cache
@@ -847,15 +895,21 @@ class ScoringEngine:
             entry, leg_outs = out
             try:
                 for li in range(len(legs)):
-                    if li in conf_pools:
-                        self._pool_confidence_batch(
-                            conf_pools[li], batch, leg_outs[li], ids_all)
-                    else:
-                        self._consume_scored_batch(
-                            batch, leg_outs[li], ids_all, results[li],
-                            legs[li].with_confidence, plans[li].scan_steps,
-                            plans[li].total_new_tokens, decode_flags[li],
-                            eos_id)
+                    # one fetch span a leg, so the phases block separates
+                    # the legs' fetch time; nested decode spans inherit it
+                    with obs.span("consume_leg", phase="d2h_fetch",
+                                  leg=legs[li].name or f"leg{li}",
+                                  bucket=int(batch.bucket_len)):
+                        if li in conf_pools:
+                            self._pool_confidence_batch(
+                                conf_pools[li], batch, leg_outs[li], ids_all)
+                        else:
+                            self._consume_scored_batch(
+                                batch, leg_outs[li], ids_all, results[li],
+                                legs[li].with_confidence,
+                                plans[li].scan_steps,
+                                plans[li].total_new_tokens, decode_flags[li],
+                                eos_id)
             finally:
                 # exactly once, whether the legs consumed or an OOM sends
                 # the batch back through the re-bucket ladder
@@ -924,39 +978,45 @@ class ScoringEngine:
             prev, done, offset = last, None, 0
             chunk_toks, scores_dev = [], None
             lag = None            # host copy of the previous chunk's all-done
-            while offset < gen_total:
-                n = min(steps, gen_total - offset)
-                ws = offset == 0 and need_scores
-                mode = ("reduced" if reduced else True) if ws else False
-                tgt = tids if ws and reduced else None
-                if use_k:
-                    # the chunk in joint K-token verify passes; the chunk
-                    # boundaries (and fold points) are the sequential ones
-                    toks, sc, cache, prev, done, prev_h = \
-                        self._k_decode_chunk(
-                            cache, prev, lengths, offset, n, eos_id, done,
-                            mode, tgt, prev_h, valid, "completion")
-                else:
-                    toks, sc, cache, prev, done = dmod.decode_steps(
-                        self.params, self.cfg, cache, prev, lengths, offset,
-                        n, eos_id, done, with_scores=mode, target_ids=tgt)
-                if ws:
-                    scores_dev = sc
-                chunk_toks.append(toks)
-                offset += n
-                if use_k and eos_id is not None and offset < gen_total:
-                    # the K path read this chunk's acceptance already, so
-                    # the EOS stop is exact (no lag chunk)
-                    if bool(done.all()):
-                        break
-                    continue
-                if eos_id is not None and offset < gen_total:
-                    # EOS stop one chunk late: the flag of chunk k is read
-                    # after chunk k+1 is queued, so the device never waits
-                    # for the host; the surplus chunk's tokens are EOS
-                    if lag is not None and bool(lag.numpy()[0]):
-                        break
-                    lag = _HostCopy([done.all()])
+            with obs.span("completion_decode", phase="decode",
+                          gen_total=int(gen_total),
+                          bucket=int(batch.bucket_len)) as dsp:
+                while offset < gen_total:
+                    n = min(steps, gen_total - offset)
+                    ws = offset == 0 and need_scores
+                    mode = ("reduced" if reduced else True) if ws else False
+                    tgt = tids if ws and reduced else None
+                    if use_k:
+                        # the chunk in joint K-token verify passes; the chunk
+                        # boundaries (and fold points) are the sequential ones
+                        toks, sc, cache, prev, done, prev_h = \
+                            self._k_decode_chunk(
+                                cache, prev, lengths, offset, n, eos_id, done,
+                                mode, tgt, prev_h, valid, "completion")
+                    else:
+                        toks, sc, cache, prev, done = dmod.decode_steps(
+                            self.params, self.cfg, cache, prev, lengths,
+                            offset, n, eos_id, done, with_scores=mode,
+                            target_ids=tgt)
+                    if ws:
+                        scores_dev = sc
+                    chunk_toks.append(toks)
+                    offset += n
+                    if use_k and eos_id is not None and offset < gen_total:
+                        # the K path read this chunk's acceptance already, so
+                        # the EOS stop is exact (no lag chunk)
+                        if bool(done.all()):
+                            break
+                        continue
+                    if eos_id is not None and offset < gen_total:
+                        # EOS stop one chunk late: the flag of chunk k is read
+                        # after chunk k+1 is queued, so the device never waits
+                        # for the host; the surplus chunk's tokens are EOS
+                        if lag is not None and bool(lag.numpy()[0]):
+                            break
+                        lag = _HostCopy([done.all()])
+                if dsp is not None:
+                    dsp["_sync_obj"] = chunk_toks[-1]
             if eos_id is not None and offset < gen_total:
                 record_counter("decode_steps_saved",
                                (gen_total - offset) * int(valid.sum()))
@@ -1256,9 +1316,11 @@ class ScoringEngine:
         if reduced:
             target_ids = self._tensor(
                 np.stack([yes_id, no_id], axis=1), torch.int64)
-        return self._scan_decode_loop(
-            sub_cache, last_s, len_s, steps, eos_id, min_steps, real_mask,
-            chunk, reduced, target_ids, yes_id, no_id)
+        with obs.span("scan_decode", phase="decode", steps=int(steps),
+                      rows=int(last_s.shape[0])):
+            return self._scan_decode_loop(
+                sub_cache, last_s, len_s, steps, eos_id, min_steps,
+                real_mask, chunk, reduced, target_ids, yes_id, no_id)
 
     def _scan_decode_loop(self, sub_cache, last_s, len_s, steps, eos_id,
                           min_steps, real_mask, chunk, reduced, target_ids,
@@ -1330,20 +1392,22 @@ class ScoringEngine:
         self._check_open()
         if not self._k_enabled():
             return None
-        encoded = batching.encode_prompts(self.tokenizer,
-                                          list(prompts)[:max_rows])
-        width = max(len(e) for e in encoded)
-        ids = np.full((len(encoded), width),
-                      self.tokenizer.pad_token_id or 0, np.int64)
-        mask = np.zeros((len(encoded), width), np.int32)
-        for r, e in enumerate(encoded):
-            ids[r, : len(e)] = e
-            mask[r, : len(e)] = 1
-        self.k_head = dmod.distill_k_head(
-            self.params, self.cfg, self._tensor(ids), self._tensor(mask),
-            k=int(self.ecfg.decode_k),
-            eos_token_id=getattr(self.tokenizer, "eos_token_id", None),
-            gen_steps=gen_steps)
+        with obs.span("distill_k_head", phase="host_prep",
+                      rows=min(len(prompts), max_rows)):
+            encoded = batching.encode_prompts(self.tokenizer,
+                                              list(prompts)[:max_rows])
+            width = max(len(e) for e in encoded)
+            ids = np.full((len(encoded), width),
+                          self.tokenizer.pad_token_id or 0, np.int64)
+            mask = np.zeros((len(encoded), width), np.int32)
+            for r, e in enumerate(encoded):
+                ids[r, : len(e)] = e
+                mask[r, : len(e)] = 1
+            self.k_head = dmod.distill_k_head(
+                self.params, self.cfg, self._tensor(ids), self._tensor(mask),
+                k=int(self.ecfg.decode_k),
+                eos_token_id=getattr(self.tokenizer, "eos_token_id", None),
+                gen_steps=gen_steps)
         record_counter("k_head_distilled")
         return self.k_head
 
@@ -1521,7 +1585,10 @@ class ScoringEngine:
             base = len(results)
             results.extend([None] * len(batch_prompts))
             ids_all = self._target_id_rows(batch_prompts, batch_targets)
-            encoded = batching.encode_prompts(self.tokenizer, batch_prompts)
+            with obs.span("encode_prompts", phase="host_tokenize",
+                          prompts=len(batch_prompts)):
+                encoded = batching.encode_prompts(self.tokenizer,
+                                                  batch_prompts)
             for batch in self._batches(encoded):
                 parts = self._select_undecided(batch, ids_all, results, base)
                 if parts is not None:
@@ -1547,12 +1614,14 @@ class ScoringEngine:
             return True
 
         ring.refill_hook = refill_hook
-        feed(list(prompts), targets)
-        ring.drain()
-        # one more admission window after the drain, so work that arrived
-        # during the last chunk is not orphaned
-        while admit_fn is not None and refill_hook(0):
-            ring.drain()
+        with strict.scoring_guard(type(self).__name__):
+            with strict.sanctioned_fetch():
+                feed(list(prompts), targets)
+                ring.drain()
+                # one more admission window after the drain, so work that
+                # arrived during the last chunk is not orphaned
+                while admit_fn is not None and refill_hook(0):
+                    ring.drain()
         self.record_occupancy(ring.stats)
         return [r if r is not None else _error_row("missing")
                 for r in results]
@@ -1634,11 +1703,16 @@ class ScoringEngine:
         results: List[Optional[Dict]] = [None] * len(prompts)
         slabs: List[slots_mod.KVSlab] = []
         ids_all = self._target_id_rows(prompts, targets)
-        encoded = batching.encode_prompts(self.tokenizer, list(prompts))
-        for batch in self._batches(encoded):
-            parts = self._select_undecided(batch, ids_all, results, 0)
-            if parts is not None:
-                slabs.append(slots_mod.slab_from_device(*parts))
+        with obs.span("encode_prompts", phase="host_tokenize",
+                      prompts=len(prompts)):
+            encoded = batching.encode_prompts(self.tokenizer, list(prompts))
+        with strict.scoring_guard(type(self).__name__):
+            with strict.sanctioned_fetch():
+                for batch in self._batches(encoded):
+                    parts = self._select_undecided(batch, ids_all, results,
+                                                   0)
+                    if parts is not None:
+                        slabs.append(slots_mod.slab_from_device(*parts))
         if slabs:
             slots_mod.slot_counter(
                 "slot_slab_export_rows", sum(s.rows() for s in slabs),
@@ -1691,12 +1765,14 @@ class ScoringEngine:
             return True
 
         ring.refill_hook = refill_hook
-        for slab in slabs:
-            feed_slab(slab)
-        ring.drain()
-        # post-drain admission window, as in score_prompts_slotted
-        while admit_fn is not None and refill_hook(0):
-            ring.drain()
+        with strict.scoring_guard(type(self).__name__):
+            with strict.sanctioned_fetch():
+                for slab in slabs:
+                    feed_slab(slab)
+                ring.drain()
+                # post-drain admission window, as in score_prompts_slotted
+                while admit_fn is not None and refill_hook(0):
+                    ring.drain()
         self.record_occupancy(ring.stats)
         return [r if r is not None else _error_row("missing")
                 for r in results]
@@ -1731,7 +1807,9 @@ class ScoringEngine:
                 "full prompt per decoder step; there is no single prefill "
                 "to gather anchors from)")
         ecfg = self.ecfg
-        encoded, anchors = packed_mod.encode_packs(self.tokenizer, packs)
+        with obs.span("encode_packed", phase="host_tokenize",
+                      rows=len(packs)):
+            encoded, anchors = packed_mod.encode_packs(self.tokenizer, packs)
         n_questions = sum(len(a) for a in anchors)
         ids_all = self._target_id_rows(list(range(n_questions)), targets)
         kmax = max(len(a) for a in anchors)
@@ -1758,16 +1836,22 @@ class ScoringEngine:
             idx = np.where(batch.indices >= 0, batch.indices, first)
             tids = self._tensor(ids_all[qindex[idx]].reshape(-1, 2),
                                 torch.int64)                 # [B*K, 2]
-            logits = dmod.forward_anchor_logits(
-                self.params, self.cfg,
-                self._tensor(batch.token_ids, torch.int64),
-                self._tensor(batch.attention_mask, torch.int32),
-                self._tensor(anchor_arr[idx]))
-            flat = logits.reshape(-1, logits.shape[-1])      # [B*K, V]
-            scan0 = yn.first_token_scan(flat, tids[:, 0], tids[:, 1],
-                                        top_k=ecfg.top_k)
-            first3 = yn.relative_prob_first_token(flat, tids[:, 0],
-                                                  tids[:, 1], tf)
+            with obs.span("packed_prefill", phase="prefill",
+                          bucket=int(batch.bucket_len),
+                          batch=int(batch.token_ids.shape[0]),
+                          questions=int(kmax)) as sp:
+                logits = dmod.forward_anchor_logits(
+                    self.params, self.cfg,
+                    self._tensor(batch.token_ids, torch.int64),
+                    self._tensor(batch.attention_mask, torch.int32),
+                    self._tensor(anchor_arr[idx]))
+                flat = logits.reshape(-1, logits.shape[-1])  # [B*K, V]
+                scan0 = yn.first_token_scan(flat, tids[:, 0], tids[:, 1],
+                                            top_k=ecfg.top_k)
+                first3 = yn.relative_prob_first_token(flat, tids[:, 0],
+                                                      tids[:, 1], tf)
+                if sp is not None:
+                    sp["_sync_obj"] = first3[2]
             return _HostCopy((*scan0, *first3))
 
         def consume(batch, out):
@@ -1832,15 +1916,17 @@ class ScoringEngine:
         eos_id = getattr(self.tokenizer, "eos_token_id", None)
         groups = [list(prompts[i: i + packing])
                   for i in range(0, len(prompts), packing)]
-        first_ids = batching.encode_prompts(self.tokenizer,
-                                            [g[0] for g in groups])
-        later: Dict[Tuple[int, int], List[int]] = {}
-        keys = [(gi, qi) for gi, g in enumerate(groups)
-                for qi in range(1, len(g))]
-        if keys:
-            enc = self.tokenizer([groups[gi][qi] for gi, qi in keys],
-                                 add_special_tokens=False)["input_ids"]
-            later = {k: [int(t) for t in e] for k, e in zip(keys, enc)}
+        with obs.span("encode_packed_demos", phase="host_tokenize",
+                      rows=len(prompts)):
+            first_ids = batching.encode_prompts(self.tokenizer,
+                                                [g[0] for g in groups])
+            later: Dict[Tuple[int, int], List[int]] = {}
+            keys = [(gi, qi) for gi, g in enumerate(groups)
+                    for qi in range(1, len(g))]
+            if keys:
+                enc = self.tokenizer([groups[gi][qi] for gi, qi in keys],
+                                     add_special_tokens=False)["input_ids"]
+                later = {k: [int(t) for t in e] for k, e in zip(keys, enc)}
         demos: List[List[Optional[str]]] = [[None] * len(g) for g in groups]
         # stage items: (pack, question whose demo decodes next, ids so far,
         # src, suffix); src is None (prefill ids so far) or the previous
@@ -1915,9 +2001,11 @@ class ScoringEngine:
                 sfx = chunk[n][4]
                 suf[row, : len(sfx)] = sfx
                 mask[row, : len(sfx)] = 1
-            last, ext, total = dmod.extend_prefill(
-                self.params, self.cfg, cache, self._tensor(suf),
-                self._tensor(mask), self._tensor(prefix_lens))
+            with obs.span("extend_prefill", phase="extend_prefill",
+                          batch=len(order), bucket=int(s_pad)):
+                last, ext, total = dmod.extend_prefill(
+                    self.params, self.cfg, cache, self._tensor(suf),
+                    self._tensor(mask), self._tensor(prefix_lens))
             plen = _pool_len(int(ext.k.shape[2]))
             if plen > int(ext.k.shape[2]):
                 ext = slots_mod._pad_cache_to(ext, plen)
@@ -1971,8 +2059,10 @@ class ScoringEngine:
         # starvation hook: a freed lane pulls the next ready stage in
         # mid-decode instead of waiting for the ring to drain
         ring.refill_hook = lambda n_free: prefill_stage()
-        while prefill_stage() or ring.live_rows():
-            ring.drain()
+        with strict.scoring_guard(type(self).__name__):
+            with strict.sanctioned_fetch():
+                while prefill_stage() or ring.live_rows():
+                    ring.drain()
         self.record_occupancy(ring.stats)
         packs = []
         for gi, g in enumerate(groups):
@@ -1997,7 +2087,9 @@ class ScoringEngine:
         or one pair per prompt."""
         self._check_open()
         ids_all = self._target_id_rows(prompts, targets)
-        encoded = batching.encode_prompts(self.tokenizer, prompts)
+        with obs.span("encode_prompts", phase="host_tokenize",
+                      prompts=len(prompts)):
+            encoded = batching.encode_prompts(self.tokenizer, prompts)
         out = np.zeros((len(prompts), 3), np.float64)
 
         def launch(batch):
@@ -2176,7 +2268,10 @@ class _Phase2Pool:
     def flush_all(self):
         if self.repack:
             for ring in self._rings.values():
-                ring.drain()
+                with obs.span("pool_flush", phase="pooled_decode",
+                              leg=self.leg, rows=ring.stats.rows,
+                              repack=True):
+                    ring.drain()
                 self.engine.record_occupancy(ring.stats)
             self._rings = {}
             return
@@ -2207,7 +2302,9 @@ class _Phase2Pool:
         if self.confidence:
             record_counter("pooled_conf_rows", int(n_real))
         ring.feed(sub, last_u, len_u, row_ids[: int(n_real)], metas)
-        ring.pump(drain=False)
+        with obs.span("pool_flush", phase="pooled_decode", leg=self.leg,
+                      rows=int(n_real), repack=True):
+            ring.pump(drain=False)
 
     def _make_ring(self) -> slots_mod.SlotRing:
         if self.confidence:
@@ -2353,10 +2450,16 @@ class _Phase2Pool:
             return
         engine = self.engine
         reduced = engine.ecfg.top_k <= dmod.REDUCED_TOPK
-        toks, sc, _, _, _ = dmod.decode_steps(
-            engine.params, engine.cfg, cache, last, lens, 0, self.steps,
-            self.eos_id, None, with_scores="reduced" if reduced else True,
-            target_ids=engine._tensor(ids, torch.int64) if reduced else None)
+        with obs.span("pool_flush", phase="pooled_decode", leg=self.leg,
+                      rows=int(total), padded=int(m),
+                      bucket=int(pool_len)) as sp:
+            toks, sc, _, _, _ = dmod.decode_steps(
+                engine.params, engine.cfg, cache, last, lens, 0, self.steps,
+                self.eos_id, None, with_scores="reduced" if reduced else True,
+                target_ids=(engine._tensor(ids, torch.int64) if reduced
+                            else None))
+            if sp is not None:
+                sp["_sync_obj"] = toks
         res = engine._scan_results(sc, ids[:, 0], ids[:, 1], toks,
                                    self.eos_id)
         fields = res._asdict()
@@ -2410,65 +2513,70 @@ class _Phase2Pool:
         use_k = engine._k_active()
         prev_h = None                     # the K path's frontier hidden
         offset = 0
-        while offset < steps:
-            n = min_conf if offset == 0 else min(
-                max(1, ecfg.scan_chunk), steps - offset)
-            if use_k:
-                # the same chunk schedule (so the same retirement points)
-                # in joint K-token verify passes; blank filler rows
-                # (cache_real False) never veto a pass
-                toks_c, sc_c, cur_cache, prev, done, prev_h = \
-                    engine._k_decode_chunk(
-                        cur_cache, prev, cur_lens, offset, n, self.eos_id,
-                        done, "reduced", cur_ids, prev_h, cache_real,
-                        "confidence")
-            else:
-                toks_c, sc_c, cur_cache, prev, done = dmod.decode_steps(
-                    engine.params, engine.cfg, cur_cache, prev, cur_lens,
-                    offset, n, self.eos_id, done, with_scores="reduced",
-                    target_ids=cur_ids)
-            live = np.flatnonzero(cache_real)
-            lr = cache_map[live]
-            toks_np[lr, offset:offset + n] = toks_c.cpu().numpy()[live]
-            vals_np[lr, offset:offset + n] = sc_c.topk_vals.cpu().numpy()[live]
-            idsk_np[lr, offset:offset + n] = sc_c.topk_ids.cpu().numpy()[live]
-            logz_np[lr, offset:offset + n] = sc_c.logz.cpu().numpy()[live]
-            tgt_np[lr, offset:offset + n] = \
-                sc_c.target_logits.cpu().numpy()[live]
-            decoded_upto[lr] = offset + n
-            offset += n
-            if offset >= steps:
-                break
-            for r in lr:
-                if retire_step[r] >= 0:
-                    continue
-                for k in range(int(checked_upto[r]) + 1, offset + 1):
-                    if self._conf_retired_at(toks_np[r], k):
-                        retire_step[r] = k
-                        break
-                checked_upto[r] = offset
-            alive = [int(c) for c in live if retire_step[cache_map[c]] < 0]
-            if not alive:
-                break
-            m2 = _pad_slice(len(alive), int(cache_map.shape[0]))
-            if m2 < cache_map.shape[0]:
-                # the retired rows' K/V go back to the allocator: the next
-                # chunk decodes only the menu-padded live rows
-                idx = np.zeros((m2,), np.int64)
-                idx[: len(alive)] = alive
-                freed = slots_mod._cache_nbytes(cur_cache)
-                idx_dev = engine._tensor(idx)
-                cur_cache, prev, cur_lens = _gather_rows(
-                    cur_cache, prev, cur_lens, idx_dev)
-                done = done[idx_dev]
-                cur_ids = cur_ids[idx_dev]
-                if prev_h is not None:    # the K frontier rides along
-                    prev_h = prev_h[idx_dev]
-                freed -= slots_mod._cache_nbytes(cur_cache)
-                record_counter("completion_cache_bytes_freed", freed)
-                cache_map = cache_map[idx]
-                cache_real = np.zeros((m2,), bool)
-                cache_real[: len(alive)] = True
+        with obs.span("pool_flush", phase="pooled_decode", leg=self.leg,
+                      rows=int(real.sum()), padded=int(m),
+                      bucket=int(cache.k.shape[2])):
+            while offset < steps:
+                n = min_conf if offset == 0 else min(
+                    max(1, ecfg.scan_chunk), steps - offset)
+                if use_k:
+                    # the same chunk schedule (so the same retirement points)
+                    # in joint K-token verify passes; blank filler rows
+                    # (cache_real False) never veto a pass
+                    toks_c, sc_c, cur_cache, prev, done, prev_h = \
+                        engine._k_decode_chunk(
+                            cur_cache, prev, cur_lens, offset, n, self.eos_id,
+                            done, "reduced", cur_ids, prev_h, cache_real,
+                            "confidence")
+                else:
+                    toks_c, sc_c, cur_cache, prev, done = dmod.decode_steps(
+                        engine.params, engine.cfg, cur_cache, prev, cur_lens,
+                        offset, n, self.eos_id, done, with_scores="reduced",
+                        target_ids=cur_ids)
+                live = np.flatnonzero(cache_real)
+                lr = cache_map[live]
+                toks_np[lr, offset:offset + n] = toks_c.cpu().numpy()[live]
+                vals_np[lr, offset:offset + n] = \
+                    sc_c.topk_vals.cpu().numpy()[live]
+                idsk_np[lr, offset:offset + n] = \
+                    sc_c.topk_ids.cpu().numpy()[live]
+                logz_np[lr, offset:offset + n] = sc_c.logz.cpu().numpy()[live]
+                tgt_np[lr, offset:offset + n] = \
+                    sc_c.target_logits.cpu().numpy()[live]
+                decoded_upto[lr] = offset + n
+                offset += n
+                if offset >= steps:
+                    break
+                for r in lr:
+                    if retire_step[r] >= 0:
+                        continue
+                    for k in range(int(checked_upto[r]) + 1, offset + 1):
+                        if self._conf_retired_at(toks_np[r], k):
+                            retire_step[r] = k
+                            break
+                    checked_upto[r] = offset
+                alive = [int(c) for c in live if retire_step[cache_map[c]] < 0]
+                if not alive:
+                    break
+                m2 = _pad_slice(len(alive), int(cache_map.shape[0]))
+                if m2 < cache_map.shape[0]:
+                    # the retired rows' K/V go back to the allocator: the next
+                    # chunk decodes only the menu-padded live rows
+                    idx = np.zeros((m2,), np.int64)
+                    idx[: len(alive)] = alive
+                    freed = slots_mod._cache_nbytes(cur_cache)
+                    idx_dev = engine._tensor(idx)
+                    cur_cache, prev, cur_lens = _gather_rows(
+                        cur_cache, prev, cur_lens, idx_dev)
+                    done = done[idx_dev]
+                    cur_ids = cur_ids[idx_dev]
+                    if prev_h is not None:    # the K frontier rides along
+                        prev_h = prev_h[idx_dev]
+                    freed -= slots_mod._cache_nbytes(cur_cache)
+                    record_counter("completion_cache_bytes_freed", freed)
+                    cache_map = cache_map[idx]
+                    cache_real = np.zeros((m2,), bool)
+                    cache_real[: len(alive)] = True
         saved = int(np.sum(steps - decoded_upto[real]))
         if saved:
             record_counter("conf_steps_saved", saved)
@@ -2500,7 +2608,9 @@ class _Phase2Pool:
     def drain(self):
         """Resolve every dispatched flush into result rows."""
         for layout, names, first3, fetched, _pinned in self.deferred:
-            res_np = dict(zip(names, fetched.numpy()))
+            with obs.span("pool_drain", phase="d2h_fetch", leg=self.leg,
+                          flushes=len(self.deferred)):
+                res_np = dict(zip(names, fetched.numpy()))
             row = 0
             for rows, n_real, orig in layout:
                 for j in range(n_real):

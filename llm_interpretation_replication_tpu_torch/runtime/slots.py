@@ -49,8 +49,10 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..device import to_device
 from ..models import decoder as dmod
 from ..utils.telemetry import record_counter
+from . import strict
 
 __all__ = ["KVSlab", "OccupancyStats", "SlotRing", "SlotRow",
            "slab_from_device", "slab_to_device", "slot_counter",
@@ -237,17 +239,21 @@ class KVSlab:
 
 
 def slab_from_device(cache, last, lens, row_ids, metas) -> KVSlab:
-    """Copy gathered ring rows into a host :class:`KVSlab`."""
+    """Copy gathered ring rows into a host :class:`KVSlab`.  The copy is
+    a sanctioned fetch (``runtime/strict.py``): export is an explicit
+    device-to-host handoff, so strict mode's ``blocked_transfers == 0``
+    holds across a slab round trip."""
     def host(t):
         return None if t is None else t.cpu()
 
-    return KVSlab(
-        k=host(cache.k), v=host(cache.v), positions=host(cache.positions),
-        valid=host(cache.valid), length=int(cache.length),
-        last=host(last), lens=host(lens),
-        row_ids=np.asarray(row_ids, np.int32), metas=list(metas),
-        k_scale=host(cache.k_scale), v_scale=host(cache.v_scale),
-    )
+    with strict.sanctioned_fetch():
+        return KVSlab(
+            k=host(cache.k), v=host(cache.v),
+            positions=host(cache.positions), valid=host(cache.valid),
+            length=int(cache.length), last=host(last), lens=host(lens),
+            row_ids=np.asarray(row_ids, np.int32), metas=list(metas),
+            k_scale=host(cache.k_scale), v_scale=host(cache.v_scale),
+        )
 
 
 def slab_to_device(slab: KVSlab, device):
@@ -528,14 +534,13 @@ class SlotRing:
             take = min(n, g.remaining())
             idx = np.arange(g.taken, g.taken + take, dtype=np.int64)
             dev = g.cache.k.device
-            idx_dev = torch.as_tensor(idx, device=dev)
+            idx_dev = to_device(idx, dev)
             sub = _gather_ring_rows(g.cache, idx_dev)
             rows = [SlotRow(g.metas[j], g.row_ids[j], self.steps,
                             dmod.REDUCED_TOPK, self.with_scores)
                     for j in idx]
             out.append((sub, g.last[idx_dev], g.lens[idx_dev],
-                        torch.as_tensor(g.row_ids[idx], dtype=torch.int64,
-                                        device=dev), rows))
+                        to_device(g.row_ids[idx], dev, torch.int64), rows))
             g.taken += take
             n -= take
             if not g.remaining():
@@ -568,8 +573,8 @@ class SlotRing:
         old_bytes = _cache_nbytes(self._cache) if had_state else 0
         done_parts = []
         if alive_idx:
-            idx_dev = torch.as_tensor(alive_idx, dtype=torch.int64,
-                                      device=self._cache.k.device)
+            idx_dev = to_device(alive_idx, self._cache.k.device,
+                                torch.int64)
             sub = _gather_ring_rows(self._cache, idx_dev)
             if self._needs_compaction():
                 out_len = self._base_len + self.steps

@@ -12,6 +12,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ..device import to_device
+
 
 class YesNoResult(NamedTuple):
     yes_prob: torch.Tensor       # [B]
@@ -23,7 +25,7 @@ class YesNoResult(NamedTuple):
 
 
 def _ids(ids, b: int, device) -> torch.Tensor:
-    return torch.as_tensor(ids, device=device).to(torch.int64).expand(b)
+    return to_device(ids, device, torch.int64).expand(b)
 
 
 def _scan(p_yes, p_no, hit, look: int, valid_steps) -> YesNoResult:

@@ -18,10 +18,11 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 from ..config import instruct_sweep_models, model_pairs_word_meaning
+from ..obs import metrics as obs_metrics
 from ..runtime import faults
 from ..scoring.prompts import format_prompt
 from ..utils.checkpoint import CheckpointFile
-from ..utils.logging import SessionLogger, heartbeat
+from ..utils.logging import SessionLogger
 from .writers import (INSTRUCT_COMPARISON_COLUMNS, MODEL_COMPARISON_COLUMNS,
                       instruct_comparison_frame, model_comparison_frame,
                       write_csv)
@@ -100,10 +101,13 @@ def run_instruct_sweep(
             remaining = sum(1 for m in models if m not in outputs)
             elapsed = time.perf_counter() - sweep_t0
             rate = scored * len(prompts) / elapsed if elapsed > 0 else 0.0
-            heartbeat("instruct_sweep", len(outputs), len(models), elapsed,
-                      log, unit="models", rate=rate, rate_unit="rows",
-                      eta_s=(remaining * len(prompts) / rate) if rate > 0
-                      else 0.0)
+            # the perturbation shell's progress code path at model
+            # granularity: the line and the registry gauges agree
+            obs_metrics.heartbeat(
+                "instruct_sweep", len(outputs), len(models), elapsed,
+                log=log, unit="models", rate=rate, rate_unit="rows",
+                eta_s=(remaining * len(prompts) / rate) if rate > 0
+                else 0.0)
     rows = instruct_comparison_frame(outputs, models)
     write_csv(INSTRUCT_COMPARISON_COLUMNS, rows, results_csv)
     log(f"Saved {len(rows)} rows to {results_csv}")

@@ -13,10 +13,16 @@ original_main, rephrased_main).  The packed sweep scores Q rephrasings a
 prefill (``scoring.packed``), binary leg only, and returns a drift block
 against isolated scoring beside its rows.
 
-Departures from the reference: the rows come back as a list of dicts in
-``PERTURBATION_COLUMNS`` order, not a ``DataFrame``; the reference's
-tracing spans, flight recorder, stall watchdog and metrics gauges are not
-ported (the ``[heartbeat]`` log line is, byte for byte).
+Run health (``obs/``): the checkpoint flushes and row building record
+spans, the flight recorder is armed at the workbook's directory (an
+OOM-ladder walk, retry exhaustion, preemption or a watchdog trip leaves a
+``flightrec-*.json`` there), and each chunk's heartbeat prints the
+``[heartbeat]`` line, sets the progress gauges and beats the stall
+watchdog, which warns (never kills) when no chunk completes within k x
+the trailing median chunk time.
+
+Departure from the reference: the rows come back as a list of dicts in
+``PERTURBATION_COLUMNS`` order, not a ``DataFrame``.
 """
 
 from __future__ import annotations
@@ -30,13 +36,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs import flight as obs_flight
+from ..obs import metrics as obs_metrics
+from ..obs import tracer as obs
 from ..runtime import faults
 from ..runtime.batching import HostPrefetcher
 from ..runtime.engine import LegSpec
 from ..scoring import packed as packed_mod
 from ..scoring.confidence import extract_first_int
 from ..utils.checkpoint import append_jsonl
-from ..utils.logging import SessionLogger, heartbeat
+from ..utils.logging import SessionLogger
 from ..utils.telemetry import counters, counters_since, record_fault
 from ..utils.xlsx import read_xlsx, write_xlsx
 from .writers import PERTURBATION_COLUMNS, perturbation_row
@@ -122,14 +131,17 @@ class _Checkpoint:
             return
         self._in_flush = True
         try:
-            if self.pending:
-                append_jsonl(self.sidelog, self.pending)
-                self.rows.extend(self.pending)
-                self.pending = []
-            if final:
-                write_xlsx(PERTURBATION_COLUMNS, self.rows, self.output_xlsx)
-                if os.path.exists(self.sidelog):
-                    os.remove(self.sidelog)
+            with obs.span("checkpoint_flush", phase="host_write",
+                          rows=len(self.pending), final=final):
+                if self.pending:
+                    append_jsonl(self.sidelog, self.pending)
+                    self.rows.extend(self.pending)
+                    self.pending = []
+                if final:
+                    write_xlsx(PERTURBATION_COLUMNS, self.rows,
+                               self.output_xlsx)
+                    if os.path.exists(self.sidelog):
+                        os.remove(self.sidelog)
         finally:
             self._in_flush = False
 
@@ -282,10 +294,12 @@ def run_model_perturbation_sweep(
     counters_snap = counters()
     sweep_t0 = time.perf_counter()
     done_rows, total_rows = 0, len(todo_items)
+    obs_flight.enable(os.path.dirname(os.path.abspath(output_xlsx)))
+    watchdog = obs_flight.StallWatchdog(label=f"perturbation:{model_name}")
     # the guard flushes the pending rows on SIGTERM/SIGINT; _closing stops
     # the prefetcher's thread when an error leaves the loop
     with faults.PreemptionGuard(ckpt.flush, label="perturbation"), \
-            _closing(prefetcher):
+            _closing(prefetcher), watchdog:
         for start, (chunk, pairs, targets) in zip(
                 range(0, len(todo_items), score_chunk), chunk_iter):
             if fuse:
@@ -331,30 +345,36 @@ def run_model_perturbation_sweep(
                     conf_values[i] = extract_first_int(row["completion"])
                     weighted[i] = row.get("weighted_confidence")
 
-            for i, (scenario, reph) in enumerate(chunk):
-                t1p, t2p = float(probs[i, 0]), float(probs[i, 1])
-                odds = t1p / t2p if t2p > 0 else float("inf")
-                ckpt.pending.append(
-                    perturbation_row(
-                        model_name,
-                        scenario,
-                        reph,
-                        response_text=responses[i]["completion"],
-                        confidence_text=conf_texts[i],
-                        logprobs_repr=f"local:first_token_top{TOP_LOGPROBS}",
-                        token_1_prob=t1p,
-                        token_2_prob=t2p,
-                        odds_ratio=odds,
-                        confidence_value=conf_values[i],
-                        weighted_confidence=weighted[i],
+            with obs.span("build_rows", phase="host_rows",
+                          rows=len(chunk)):
+                for i, (scenario, reph) in enumerate(chunk):
+                    t1p, t2p = float(probs[i, 0]), float(probs[i, 1])
+                    odds = t1p / t2p if t2p > 0 else float("inf")
+                    ckpt.pending.append(
+                        perturbation_row(
+                            model_name,
+                            scenario,
+                            reph,
+                            response_text=responses[i]["completion"],
+                            confidence_text=conf_texts[i],
+                            logprobs_repr=(
+                                f"local:first_token_top{TOP_LOGPROBS}"),
+                            token_1_prob=t1p,
+                            token_2_prob=t2p,
+                            odds_ratio=odds,
+                            confidence_value=conf_values[i],
+                            weighted_confidence=weighted[i],
+                        )
                     )
-                )
-                processed.add((model_name, scenario["original_main"], reph))
-                if len(ckpt.pending) >= checkpoint_every:
-                    ckpt.flush()
+                    processed.add((model_name, scenario["original_main"],
+                                   reph))
+                    if len(ckpt.pending) >= checkpoint_every:
+                        ckpt.flush()
+            # one code path prints the line, sets the gauges, writes the
+            # JSONL metrics sample and beats the stall watchdog
             done_rows += len(chunk)
-            heartbeat(model_name, done_rows, total_rows,
-                      time.perf_counter() - sweep_t0, log)
+            obs_metrics.heartbeat(model_name, done_rows, total_rows,
+                                  time.perf_counter() - sweep_t0, log=log)
         ckpt.flush(final=True)
     delta = counters_since(counters_snap)
     if delta.get("kv_cache_bytes_saved") or delta.get("prefill_chunks"):
@@ -419,7 +439,11 @@ def run_packed_perturbation_sweep(
     done_rows, total_rows = 0, len(todo_items)
     drift_packed: List[float] = []
     drift_isolated: List[float] = []
-    with faults.PreemptionGuard(ckpt.flush, label="perturbation-packed"):
+    obs_flight.enable(os.path.dirname(os.path.abspath(output_xlsx)))
+    watchdog = obs_flight.StallWatchdog(
+        label=f"perturbation-packed:{model_name}")
+    with faults.PreemptionGuard(ckpt.flush, label="perturbation-packed"), \
+            watchdog:
         for start in range(0, len(todo_items), score_chunk):
             chunk = todo_items[start:start + score_chunk]
             prompts = [f"{r} {s['response_format']}" for s, r in chunk]
@@ -447,30 +471,34 @@ def run_packed_perturbation_sweep(
                              rows=n_err, chunk_start=start)
                 log(f"{model_name}: WARNING — {n_err} packed rows are "
                     f"error rows (recorded in telemetry)")
-            for i, (scenario, reph) in enumerate(chunk):
-                t1p = rows[i].get("first_token_yes_prob", float("nan"))
-                t2p = rows[i].get("first_token_no_prob", float("nan"))
-                odds = t1p / t2p if t2p > 0 else float("inf")
-                ckpt.pending.append(
-                    perturbation_row(
-                        model_name, scenario, reph,
-                        response_text="",
-                        confidence_text="",
-                        logprobs_repr=(f"local:packed{packing}:"
-                                       f"first_token_top{TOP_LOGPROBS}"),
-                        token_1_prob=t1p,
-                        token_2_prob=t2p,
-                        odds_ratio=odds,
-                        confidence_value=None,
-                        weighted_confidence=None,
+            with obs.span("build_rows", phase="host_rows",
+                          rows=len(chunk)):
+                for i, (scenario, reph) in enumerate(chunk):
+                    t1p = rows[i].get("first_token_yes_prob", float("nan"))
+                    t2p = rows[i].get("first_token_no_prob", float("nan"))
+                    odds = t1p / t2p if t2p > 0 else float("inf")
+                    ckpt.pending.append(
+                        perturbation_row(
+                            model_name, scenario, reph,
+                            response_text="",
+                            confidence_text="",
+                            logprobs_repr=(f"local:packed{packing}:"
+                                           f"first_token_top{TOP_LOGPROBS}"),
+                            token_1_prob=t1p,
+                            token_2_prob=t2p,
+                            odds_ratio=odds,
+                            confidence_value=None,
+                            weighted_confidence=None,
+                        )
                     )
-                )
-                processed.add((model_name, scenario["original_main"], reph))
-                if len(ckpt.pending) >= checkpoint_every:
-                    ckpt.flush()
+                    processed.add((model_name, scenario["original_main"],
+                                   reph))
+                    if len(ckpt.pending) >= checkpoint_every:
+                        ckpt.flush()
             done_rows += len(chunk)
-            heartbeat(f"{model_name}[packed{packing}]", done_rows,
-                      total_rows, time.perf_counter() - sweep_t0, log)
+            obs_metrics.heartbeat(f"{model_name}[packed{packing}]",
+                                  done_rows, total_rows,
+                                  time.perf_counter() - sweep_t0, log=log)
         ckpt.flush(final=True)
     report = None
     if drift_parity:

@@ -1,7 +1,7 @@
 """Session logging (a copy of ``utils/logging.py``'s ``SessionLogger``):
 stdout plus an optional file tee; and the sweep shells' ``[heartbeat]``
-progress line (the reference's ``obs.metrics.heartbeat`` line, without its
-gauges)."""
+progress line, which :func:`obs.metrics.heartbeat` prints, records as
+gauges and feeds to the stall watchdog."""
 
 from __future__ import annotations
 
@@ -43,14 +43,16 @@ class SessionLogger:
 def heartbeat(label: str, done: int, total: int, elapsed_s: float,
               log: Callable[[str], None], unit: str = "rows",
               rate: Optional[float] = None, rate_unit: Optional[str] = None,
-              eta_s: Optional[float] = None) -> None:
+              eta_s: Optional[float] = None) -> str:
     """Log a sweep's progress line, byte for byte the reference's
-    ``[heartbeat]`` line.  ``rate``, ``rate_unit`` and ``eta_s`` override
-    the ``done / elapsed`` derivation where the progress unit and the rate
-    unit differ (the instruct sweep counts models and reports rows/s)."""
-    if rate is None:
-        rate = done / elapsed_s if elapsed_s > 0 else 0.0
-    eta = (eta_s if eta_s is not None
-           else ((total - done) / rate if rate > 0 else 0.0))
-    log(f"[heartbeat] {label}: {done}/{total} {unit} "
-        f"| {rate:.2f} {rate_unit or unit}/s | ETA {eta:.0f}s")
+    ``[heartbeat]`` line, through the one code path that also sets the
+    progress gauges, writes the JSONL metrics sample and beats the stall
+    watchdog (:func:`obs.metrics.heartbeat`).  ``rate``, ``rate_unit`` and
+    ``eta_s`` override the ``done / elapsed`` derivation where the
+    progress unit and the rate unit differ (the instruct sweep counts
+    models and reports rows/s)."""
+    from ..obs import metrics
+
+    return metrics.heartbeat(label, done, total, elapsed_s, log=log,
+                             unit=unit, rate=rate, rate_unit=rate_unit,
+                             eta_s=eta_s)

@@ -440,6 +440,34 @@ def test_run_100q_cli_matches_in_process_sweep(snapshots, tmp_path, capsys,
             m for p in SNAPSHOT_PAIRS for m in (p["base"], p["instruct"]))
 
 
+def test_run_100q_with_every_observability_flag(snapshots, tmp_path, capsys,
+                                                monkeypatch):
+    """``--strict --trace T --profile D --metrics M`` on ``run-100q``: the
+    same CSV as without them, each flag's artifact written.  The 100q
+    sweep has no heartbeat (nor has the JAX package's), so its metrics log
+    is empty."""
+    from test_torch_cli import obs_artifacts_ok
+
+    monkeypatch.setattr(tsweep, "model_pairs_100q", lambda: SNAPSHOT_PAIRS[:1])
+    monkeypatch.setattr(tsweep, "ordinary_meaning_questions",
+                        lambda: list(QUESTIONS))
+    argv = ["run-100q", "--device", "cpu", "--dtype", "float32",
+            "--checkpoint-dir", snapshots, "--attention-impl", "flash",
+            "--batch-size", "4"]
+    tcli.main(argv + ["--output-dir", str(tmp_path / "plain")])
+    art = {f: str(tmp_path / f.strip("-")) for f in
+           ("--trace", "--profile", "--metrics")}
+    capsys.readouterr()
+    tcli.main(argv + ["--output-dir", str(tmp_path / "obs"), "--strict",
+                      *(x for f, p in art.items() for x in (f, p))])
+    err = capsys.readouterr().err
+    for flag in ("--strict", *art):
+        obs_artifacts_ok(flag, art.get(flag), err, heartbeats=0)
+    name = "base_vs_instruct_100q_results.csv"
+    assert (tmp_path / "obs" / name).read_bytes() == \
+        (tmp_path / "plain" / name).read_bytes()
+
+
 def _parse(argv):
     """The CLI's parsed arguments of ``argv``."""
     import argparse

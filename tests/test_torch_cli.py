@@ -5,7 +5,9 @@ perturbations file: ``--device cpu --dtype float32`` on both sides writes
 workbooks equal cell for cell (text identical, numbers rtol 2e-5, atol
 1e-9; ``tests/test_torch_sweep.py``'s comparison), also with ``--packed``
 and ``--decode-k``.  Each flag whose path the port does not cover raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``NotImplementedError`` naming its ROADMAP.md item; the observability
+flags (``--strict``, ``--trace``, ``--profile``, ``--metrics``) run and
+leave the workbook as it is without them.
 """
 
 import json
@@ -19,6 +21,7 @@ from llm_interpretation_replication_tpu.__main__ import main as jmain
 from llm_interpretation_replication_tpu_torch.__main__ import main as tmain
 from llm_interpretation_replication_tpu_torch.config import legal_scenarios
 from test_torch_slots import one_torch_thread  # noqa: F401
+from llm_interpretation_replication_tpu_torch.utils.xlsx import read_xlsx
 from test_torch_sweep import assert_workbooks_equal
 
 
@@ -74,10 +77,6 @@ def test_run_perturbation_matches_reference(snapshot, perturbations,
 
 
 @pytest.mark.parametrize("extra,title", [
-    (("--strict",), "Guards and device observability"),
-    (("--trace",), "Guards and device observability"),
-    (("--profile", "prof"), "Guards and device observability"),
-    (("--metrics",), "Guards and device observability"),
     (("--plan-search",), "Planning for the H100"),
     (("--mesh-model", "2"), "Parallel and training"),
     (("--mesh-seq", "2"), "Parallel and training"),
@@ -85,6 +84,67 @@ def test_run_perturbation_matches_reference(snapshot, perturbations,
 def test_unported_flags_raise(snapshot, perturbations, tmp_path, extra, title):
     with pytest.raises(NotImplementedError, match=title):
         tmain(_argv(snapshot, perturbations, tmp_path, *extra))
+
+
+@pytest.fixture(scope="module")
+def plain_workbook(snapshot, perturbations, tmp_path_factory):
+    """The unflagged run's workbook rows."""
+    out = tmp_path_factory.mktemp("plain")
+    tmain(_argv(snapshot, perturbations, out))
+    return read_xlsx(str(out / "perturbation_results.xlsx"))
+
+
+def obs_artifacts_ok(flag, path, err, heartbeats=None):
+    """Assert the artifact of one observability flag: the Chrome trace and
+    its span log (``--trace``), the profiler capture (``--profile``), the
+    JSONL metrics log with one sample a heartbeat (``--metrics``; at least
+    one unless ``heartbeats`` says how many), the strict audit line with no
+    blocked sync (``--strict``).  ``path`` is the flag's argument."""
+    from llm_interpretation_replication_tpu_torch.obs import report
+    from llm_interpretation_replication_tpu_torch.obs.tracer import KNOWN_PHASES
+    from llm_interpretation_replication_tpu_torch.utils import profiling
+
+    if flag == "--trace":
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        assert {"launch", "consume", "prefill"} <= {e["name"] for e in events}
+        spans = report.load_spans(path + ".spans.jsonl")
+        assert len(spans) == len(events)
+        assert {s["phase"] for s in spans} - {None} <= KNOWN_PHASES
+        assert "written to" in err
+    elif flag == "--profile":
+        assert any(f.endswith(".pt.trace.json") for f in os.listdir(path))
+        assert profiling.top_device_ops(path, 5)
+    elif flag == "--metrics":
+        with open(path) as f:
+            samples = [json.loads(line) for line in f]
+        assert (len(samples) == heartbeats if heartbeats is not None
+                else samples)
+        assert all("counters" in s and "gauges" in s for s in samples)
+    else:
+        audit = [json.loads(line.split(": ", 1)[1])
+                 for line in err.splitlines() if line.startswith("# strict: ")]
+        assert audit and all(a["enabled"] and a["blocked_transfers"] == 0
+                             for a in audit)
+
+
+@pytest.mark.parametrize("flag", ["--strict", "--trace", "--profile",
+                                  "--metrics"])
+def test_observability_flag_runs(snapshot, perturbations, tmp_path, capsys,
+                                 plain_workbook, flag):
+    """Each flag runs ``run-perturbation`` to its end, leaves its artifact,
+    and leaves the workbook as the unflagged run's, cell for cell."""
+    from llm_interpretation_replication_tpu_torch.runtime import strict
+
+    path = str(tmp_path / "artifact")
+    extra = [flag] if flag == "--strict" else [flag, path]
+    tmain(_argv(snapshot, perturbations, tmp_path / "out", *extra))
+    captured = capsys.readouterr()
+    assert "10 rows" in captured.out.splitlines()
+    obs_artifacts_ok(flag, path, captured.err)
+    assert read_xlsx(str(tmp_path / "out" / "perturbation_results.xlsx")) \
+        == plain_workbook
+    assert not strict.strict_enabled()      # the command disarms on exit
 
 
 @pytest.mark.parametrize("flag", ["--packed", "--decode-k"])

@@ -423,6 +423,31 @@ def test_questions_file_and_results_csv(snapshots, tmp_path, capsys,
     assert (tmp_path / "o" / "survey2_results_checkpoint.json").exists()
 
 
+def test_run_instruct_sweep_with_every_observability_flag(
+        snapshots, tmp_path, capsys, monkeypatch):
+    """``--strict --trace T --profile D --metrics M`` on
+    ``run-instruct-sweep`` (a T5 and a decoder): the same CSV as without
+    them, each flag's artifact written, one metrics sample a model."""
+    from test_torch_cli import obs_artifacts_ok
+
+    roster = [m for m in CLI_ROSTER if "t5" in m or "opt" in m]
+    monkeypatch.setattr(tsweep, "instruct_sweep_models", lambda: roster)
+    monkeypatch.setattr(tconfig_assets, "ordinary_meaning_questions",
+                        lambda: list(QUESTIONS))
+    tcli.main(_argv(snapshots, tmp_path / "plain"))
+    art = {f: str(tmp_path / f.strip("-")) for f in
+           ("--trace", "--profile", "--metrics")}
+    capsys.readouterr()
+    tcli.main(_argv(snapshots, tmp_path / "obs", "--strict",
+                    *(x for f, p in art.items() for x in (f, p))))
+    err = capsys.readouterr().err
+    for flag in ("--strict", *art):
+        obs_artifacts_ok(flag, art.get(flag), err, heartbeats=len(roster))
+    name = "instruct_model_comparison_results.csv"
+    assert (tmp_path / "obs" / name).read_bytes() == \
+        (tmp_path / "plain" / name).read_bytes()
+
+
 def _parse(argv):
     import argparse
 

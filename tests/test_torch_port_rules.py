@@ -31,7 +31,8 @@ FORBIDDEN = {"jax", "jaxlib", "llm_interpretation_replication_tpu",
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "scripts", "profile_torch_slice.py"),
-           os.path.join(ROOT, "scripts", "profile_torch_pooled.py")]
+           os.path.join(ROOT, "scripts", "profile_torch_pooled.py"),
+           os.path.join(ROOT, "scripts", "sync_sites.py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
         out += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
@@ -67,6 +68,7 @@ def test_port_imports_nothing_of_jax():
     "chip_smoke.py",
     "scripts/profile_torch_slice.py",
     "scripts/profile_torch_pooled.py",
+    "scripts/sync_sites.py",
     "llm_interpretation_replication_tpu_torch/ops/__init__.py",
     "llm_interpretation_replication_tpu_torch/ops/_build.py",
     "llm_interpretation_replication_tpu_torch/ops/attention.py",
@@ -94,15 +96,58 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/utils/retry.py",
     "llm_interpretation_replication_tpu_torch/utils/tokenizer.py",
     "llm_interpretation_replication_tpu_torch/utils/xlsx.py",
+    "llm_interpretation_replication_tpu_torch/device.py",
+    "llm_interpretation_replication_tpu_torch/obs/__init__.py",
+    "llm_interpretation_replication_tpu_torch/obs/benchdiff.py",
+    "llm_interpretation_replication_tpu_torch/obs/flight.py",
+    "llm_interpretation_replication_tpu_torch/obs/metrics.py",
+    "llm_interpretation_replication_tpu_torch/obs/profiler.py",
+    "llm_interpretation_replication_tpu_torch/obs/report.py",
+    "llm_interpretation_replication_tpu_torch/obs/tracer.py",
+    "llm_interpretation_replication_tpu_torch/runtime/strict.py",
+    "llm_interpretation_replication_tpu_torch/utils/profiling.py",
+    "llm_interpretation_replication_tpu_torch/sweeps/instruct_sweep.py",
 ])
 def test_slice_modules_are_guarded(rel):
     """The modules the kernels, the int8 path, the pool, the slot ring,
     the OOM ladder, the sweep shells, the family translators and
-    converters, the loader and the CLI live in are among the guarded
-    sources and import nothing forbidden."""
+    converters, the loader, the CLI, the strict guard and the
+    observability layer live in are among the guarded sources and import
+    nothing forbidden."""
     path = os.path.join(ROOT, rel)
     assert path in _port_sources()
     assert not _forbidden_imports(path)
+
+
+def test_known_phases_match_reference():
+    """The phase table every span's ``phase`` comes from is the JAX
+    package's, name for name."""
+    from llm_interpretation_replication_tpu.obs import tracer as jtracer
+    from llm_interpretation_replication_tpu_torch.obs import tracer
+
+    assert tracer.KNOWN_PHASES == jtracer.KNOWN_PHASES
+
+
+def test_cli_refuses_only_the_plan_and_mesh_flags():
+    """Of the run-config flags, only the plan search and the mesh axes
+    still refuse; the observability flags run."""
+    import argparse
+
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+
+    parser = argparse.ArgumentParser()
+    cli._add_run_config_args(parser)
+    refused = set()
+    for argv in (["--strict"], ["--trace"], ["--profile", "p"],
+                 ["--metrics"], ["--plan-search"], ["--mesh-model", "2"],
+                 ["--mesh-seq", "2"]):
+        try:
+            cli._refuse_unported(parser.parse_args(argv))
+        except NotImplementedError:
+            refused.add(argv[0])
+    assert refused == {"--plan-search", "--mesh-model", "--mesh-seq"}
+    with open(os.path.join(PORT, "__main__.py"), encoding="utf-8") as f:
+        assert "Guards and device observability" not in f.read()
 
 
 def test_ops_api_matches_reference():
