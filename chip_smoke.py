@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each fatal on failure (the exit code is then non-zero and no result
-line is printed; the order of the run is 1-8, 10, 16, 17, 18, 9, 11, 18's
-CLI leg, 12-15):
+line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 9, 11,
+18's CLI leg, 12-15):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
@@ -79,7 +79,8 @@ CLI leg, 12-15):
    gated MLP's among them); then the slice's prompts scored with w8a8 int8
    weights (quantized as they are made), once with a bf16 and once with an
    int8 KV cache, held against the bf16 rows;
-10. sweep (before the int8 phase, on the slice's weights): the 5 legal
+10. sweep (before the int8 phase, on the first SWEEP_LAYERS (8) of the
+   slice's 32 layers, views of its tensors): the 5 legal
    scenarios with 24 seeded word-level edits each of original_main (60-140
    words, one token a word under a word tokenizer of the scenarios' words,
    whose decode writes token i as " t<i>", and whose target tokens take
@@ -92,16 +93,18 @@ CLI leg, 12-15):
    Each workbook is read back (15 columns, 120 rows, no side-log left) and
    held against (a)'s with the full-study gates (completions part only
    where (a)'s lead, from one forward over prompt and completion, is below
-   twice the full-study near-tie; position-0 fields within
+   twice the near-tie, measured as the full-study phase measures it on
+   these prompts at this depth; position-0 fields within
    FUSED_PROB_TOL); every prompt forward launches the causal kernel once a
    layer, and (e)'s ``prefill_chunks`` is the batches' buckets' count.
-   Then the slice's bucket-448 batch prefills monolithic and in chunks of
-   128, timed, with peak memory;
+   Then the slice's bucket-448 batch prefills through all 32 layers
+   monolithic and in chunks of 128, timed, with peak memory;
 11. CLI: a snapshot of Falcon-7B's published width cut to 2 layers
    (random bf16 weights, target rows scaled as in phase 10, written by
    the phase's own safetensors writer,
-   legacy config keys, a byte-level BPE tokenizer.json it builds from the
-   scenarios' texts) in a temporary directory; ``load_model`` must give the
+   legacy config keys, a tokenizer.json in Falcon's published format,
+   its Sequence pre-tokenizer, learned on the scenarios' texts) in a
+   temporary directory; ``load_model`` must give the
    written tensors back bit for bit; ``__main__.main(["run-perturbation",
    ...])`` runs in this process in bf16 (its workbook must equal an
    in-process sweep over the loaded weights) and with ``--quant int8
@@ -141,8 +144,11 @@ CLI leg, 12-15):
    family's prefix-prefill shape, and at StableLM-alpha-7B's heads;
 13. run-100q: 2-layer snapshots of every geometry of the sweep's twelve
    models at their published widths (BLOOM as sharded ``pytorch_model.bin``
-   with its index, the rest safetensors; byte-level BPE tokenizers learned
-   on the questions, the NeoX ones with the NFC normalizer);
+   with its index, the rest safetensors; tokenizers learned on the
+   questions in each model's published format: Falcon's Sequence,
+   BLOOM's Split and ByteLevel(use_regex=false), Mistral's byte-fallback
+   BPE with its BOS, byte-level BPE for the NeoX ones with the NFC
+   normalizer);
    ``python -m llm_interpretation_replication_tpu_torch run-100q
    --attention-impl flash`` in a child process must write 1200 rows in the
    10 columns, each with ``success``, and name each model's attention
@@ -167,9 +173,10 @@ CLI leg, 12-15):
    gates (kernel and dense) on the instruct prompts, the causal kernel
    timed at each one's longest prompt batch;
 15. run-instruct-sweep: 2-layer snapshots of the roster's six geometries
-   phase 13 did not write (a Unigram ``tokenizer.json`` for the T5s,
-   ``qwen.tiktoken`` for Qwen, OPT's ``vocab.json`` + ``merges.txt``,
-   byte-level BPE for the rest) beside phase 13's Falcon, BLOOM and
+   phase 13 did not write (a Unigram ``tokenizer.json`` behind a
+   Precompiled charsmap for the T5s, Mistral v0.3's Metaspace "first"
+   byte-fallback BPE, ``qwen.tiktoken`` for Qwen, OPT's ``vocab.json`` +
+   ``merges.txt``, byte-level BPE for the rest) beside phase 13's Falcon, BLOOM and
    RedPajama snapshots; ``python -m llm_interpretation_replication_tpu_torch
    run-instruct-sweep --attention-impl flash --quant int8`` in a child
    process must write 1000 rows in the 7 columns, none a ``MODEL_ERROR``,
@@ -222,7 +229,21 @@ CLI leg, 12-15):
    the workbook of the same call without the flags, and ``obs report
    --trace T`` prints the phase table.  Phases 13 and 15 run their first
    CLI call with ``--strict``: its audit line must read
-   ``blocked_transfers`` 0.
+   ``blocked_transfers`` 0;
+19. tokenizers (after phase 18, on the slice's weights): each published
+   tokenizer format of ``TOKENIZER_FORMATS`` (Falcon's, BLOOM's, Llama-2 /
+   Mistral's byte-fallback BPE, Mistral v0.3's Metaspace "first", T5's
+   Precompiled charsmap), written as plain JSON and read back through
+   ``load_tokenizer``: the sweep corpus encoded (tokens/s on the card's
+   host) and decoded back, and a sha256 of its ids over the fixed
+   ``_tokenizer_digest_texts()`` equal to ``TOKENIZER_DIGESTS`` (the
+   ``tokenizers`` package's and the JAX loader's on the CPU, so a
+   different ``unicodedata`` on the card's Python shows); then 20 rows
+   of the corpus encoded by the Falcon-format reader through
+   ``run_model_perturbation_sweep`` at 32 layers on the causal kernel,
+   traced (rows/s, the prefetcher's encode spans' share of the wall) and
+   again untraced: every row finite, the rerun's rows equal, 32 causal
+   launches a prefill.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -327,6 +348,10 @@ SWEEP_PER_SCENARIO, SWEEP_TOKENS = 24, (60, 140)
 SWEEP_CHUNK, SWEEP_CHECKPOINT = 40, 20
 SWEEP_PREFILL_CHUNK, TIMING_PREFILL_CHUNK = 64, 128
 SNAPSHOT_LAYERS = 2
+# the sweep phase's depth: its eight sweeps run on the first 8 of the
+# slice's 32 layers (views, nothing copied), the cheapest cut of the
+# smoke's time; its gates' near-tie is measured at that depth
+SWEEP_LAYERS = 8
 SWEEP_MODEL = "tiiuae/falcon-7b (random weights)"
 # the sweep phase's boosted runs scale the (tied) embedding rows of the
 # scenarios' own target ids by this factor: their logits, and the bf16
@@ -2294,6 +2319,44 @@ def _workbook_leads(weights, cfg, scenarios, tok, ref):
     return bin_leads, conf_leads, edge0
 
 
+def _top1_rounding(weights, cfg, scenarios, tok, ecfg):
+    """|top-1 logit of a pre-pass decode of the sweep's binary prompts
+    (``ecfg``'s completion length, in its look-ahead chunks) - the same
+    logit from one forward over each prompt and its tokens|: the rounding
+    between two bf16 computations of the same logits, ``[N, steps]``."""
+    import numpy as np
+
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+
+    prefixes, suffixes, target_ids = _sweep_prompts(scenarios, tok)
+    prompts = [p + x[0] for p, x in zip(prefixes, suffixes)]
+    batches = list(batching.batches_for_prompts(
+        prompts, BATCH, ecfg.buckets, pad_id=tok.pad_token_id,
+        length_sorted=True))
+    tokens, _, top1, _, _, _ = _study_prepass(
+        weights, cfg, batches, len(prompts), ecfg.max_new_tokens,
+        ecfg.max_look_ahead, tok.eos_token_id, target_ids)
+    return np.abs(
+        _teacher_top1(weights, cfg, prompts, tokens.tolist())[0][:, :-1]
+        - top1)
+
+
+def _first_layers(weights, n):
+    """``weights`` cut to their first ``n`` layers: views of the stacked
+    layer tensors (nothing copied; the embedding and final norm shared),
+    with the config at that depth."""
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    def cut(tree):
+        return {k: cut(v) if isinstance(v, dict) else v[:n]
+                for k, v in tree.items()}
+
+    tree = weights.tree()
+    return decoder.DecoderWeights(
+        dataclasses.replace(weights.cfg, num_layers=n),
+        dict(tree, layers=cut(tree["layers"])))
+
+
 def _bf16_rounding(weights, cfg, scenarios, tok, ecfg):
     """The bf16 rounding of the sweep's binary logits on these weights.
     (1) The top-1 logit of two bf16 computations: a pre-pass decode of the
@@ -2309,19 +2372,10 @@ def _bf16_rounding(weights, cfg, scenarios, tok, ecfg):
     import torch
 
     from llm_interpretation_replication_tpu_torch.models import decoder
-    from llm_interpretation_replication_tpu_torch.runtime import batching
 
     prefixes, suffixes, target_ids = _sweep_prompts(scenarios, tok)
     prompts = [p + x[0] for p, x in zip(prefixes, suffixes)]
-    batches = list(batching.batches_for_prompts(
-        prompts, BATCH, ecfg.buckets, pad_id=tok.pad_token_id,
-        length_sorted=True))
-    tokens, _, top1, _, _, _ = _study_prepass(
-        weights, cfg, batches, len(prompts), ecfg.max_new_tokens,
-        ecfg.max_look_ahead, tok.eos_token_id, target_ids)
-    top1_diff = np.abs(
-        _teacher_top1(weights, cfg, prompts, tokens.tolist())[0][:, :-1]
-        - top1)
+    top1_diff = _top1_rounding(weights, cfg, scenarios, tok, ecfg)
     tie = 2 * NEAR_TIE_FACTOR * float(top1_diff.max())
     dev = _device_of(weights)
     ref = decoder.DecoderWeights(cfg, _to_float32(weights.tree()))
@@ -2356,13 +2410,15 @@ def _perturbation_records(seed):
             for s, r in zip(scenarios, _rephrasings(scenarios, seed))]
 
 
-def sweep_phase(seed, attention, weights, near_tie, workdir, card):
-    """``run_model_perturbation_sweep`` on Falcon-7B over the legal
+def sweep_phase(seed, attention, full_weights, workdir, card):
+    """``run_model_perturbation_sweep`` on Falcon-7B's width at its first
+    SWEEP_LAYERS layers (views of the slice's weights) over the legal
     scenarios' rephrasings: the fused route (a), a run interrupted on its
     second chunk and resumed (b), the two-string route (c), the
     ``first_token_relative_prob`` fallback (d) and chunked prefill (e),
-    each workbook held against (a)'s; then one bucket-448 prefill,
-    monolithic against chunked.  The scenarios' target tokens take ids
+    each workbook held against (a)'s with the near-tie measured at that
+    depth; then one bucket-448 prefill of all 32 layers, monolithic
+    against chunked.  The scenarios' target tokens take ids
     that these weights often rank in position 0's top 20
     (``_popular_targets``).  Then (a), (c) and (e) again with the targets'
     own ids, their embedding rows scaled by TARGET_BOOST (larger target
@@ -2388,8 +2444,10 @@ def sweep_phase(seed, attention, weights, near_tie, workdir, card):
     from llm_interpretation_replication_tpu_torch.utils.xlsx import read_xlsx
 
     device = "cuda"
-    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+    cfg = mconfig.DecoderConfig(**{**mconfig.FALCON_7B_GEOMETRY,
+                                   "num_layers": SWEEP_LAYERS},
                                 attention_impl="flash")
+    weights = _first_layers(full_weights, SWEEP_LAYERS)
     path = os.path.join(workdir, "perturbations.json")
     with open(path, "w", encoding="utf-8") as f:
         json.dump(_perturbation_records(seed), f)
@@ -2509,7 +2567,11 @@ def sweep_phase(seed, attention, weights, near_tie, workdir, card):
 
     # the reference's leads: one forward over each prompt and its
     # completion; a lead there adds one more bf16 computation of both
-    # logits, so completions may part below twice the full-study near-tie
+    # logits, so completions may part below twice the near-tie (the
+    # full-study phase's measure, taken here on these prompts at this
+    # depth)
+    near_tie = NEAR_TIE_FACTOR * float(
+        _top1_rounding(weights, cfg, scenarios, tok, base).max())
     tie = 2 * near_tie
     leads = _workbook_leads(weights, cfg, scenarios, tok, books["fused"])
     fails, stats = [], {}
@@ -2555,7 +2617,11 @@ def sweep_phase(seed, attention, weights, near_tie, workdir, card):
             fails.append(f"{name}: {res['kernel_launches']} causal launches "
                          f"for {forwards} prompt forwards")
 
-    # one bucket-448 batch of the slice phase, monolithic and chunked
+    # one bucket-448 batch of the slice phase through all 32 layers,
+    # monolithic and chunked
+    weights = full_weights
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
     ptok = default_tokenizer()
     batch = list(batching.batches_for_prompts(
         _prompts(seed, ptok), BATCH, base.buckets, pad_id=ptok.pad_token_id,
@@ -2583,6 +2649,7 @@ def sweep_phase(seed, attention, weights, near_tie, workdir, card):
     result = dict(card=card, rows=n_rows,
                   token_lengths=[min(lengths), max(lengths)],
                   target_in_top20_share=_target_shares(books["fused"]),
+                  layers=SWEEP_LAYERS, near_tie=near_tie,
                   runs=list(runs.values()), expected_prefill_chunks=expect_chunks,
                   parting_tie=tie, boosted=boosted, stats=stats, timing=timing,
                   failures=fails[:50])
@@ -2693,19 +2760,85 @@ def _bpe_tokenizer_files(texts, nfc=False):
     return spec, config, {"eos_token": eos}
 
 
-def _unigram_tokenizer_files(texts):
+def _charsmap(mapping):
+    """A SentencePiece precompiled charsmap of ``mapping`` (key text ->
+    normalized text): a little-endian u32 trie size in bytes, a
+    darts-clone double array of the keys' UTF-8 bytes (u32 units: label in
+    bits 0-7, has-leaf bit 8, offset to the children's base from bit 10;
+    a leaf's value unit, bit 31 set, sits at its node's base), then the
+    NUL-terminated normalized strings the values point into.  Each node's
+    base is the smallest free one no other node uses, so a label probed at
+    a foreign base never matches; the array covers every base's 256
+    slots."""
+    import struct
+
+    blob, where = bytearray(), {}
+    for v in mapping.values():
+        if v not in where:
+            where[v] = len(blob)
+            blob += v.encode("utf-8") + b"\0"
+    root = {}
+    for key, v in mapping.items():
+        node = root
+        for b in key.encode("utf-8"):
+            node = node.setdefault(b, {})
+        node[None] = where[v]
+    units, bases = {0: 0}, set()
+    queue = [(0, root)]
+    while queue:
+        pos, node = queue.pop(0)
+        labels = [0 if k is None else k for k in node]
+        base = 1
+        while base in bases or any((base ^ lab) in units or base ^ lab == 0
+                                   for lab in labels):
+            base += 1
+        bases.add(base)
+        units[pos] |= (pos ^ base) << 10
+        for k, child in node.items():
+            if k is None:
+                units[base] = child | (1 << 31)
+                units[pos] |= 1 << 8
+            else:
+                units[base ^ k] = k
+                queue.append((base ^ k, child))
+    size = max(b | 0xFF for b in bases) + 1
+    trie = struct.pack(f"<{size}I", *(units.get(i, 0) for i in range(size)))
+    return struct.pack("<I", len(trie)) + trie + bytes(blob)
+
+
+def _charsmap_b64(mapping):
+    """``_charsmap`` as ``tokenizer.json`` stores it (base64)."""
+    import base64
+
+    return base64.b64encode(_charsmap(mapping)).decode("ascii")
+
+
+def _unigram_tokenizer_files(texts, charsmap=None):
     """(tokenizer.json, tokenizer_config.json, special_tokens_map.json) of
     a T5-style Unigram tokenizer: ``<pad>``, ``</s>`` and ``<unk>`` at ids
     0-2 (special added tokens), ``"▁"`` plus every whitespace word of
     ``texts`` after a ``"▁"`` scored by its log frequency, every
     character of them scored 5 lower, the Metaspace pre-tokenizer and
-    decoder, a normalizer folding runs of spaces, and a post-processor
-    appending ``</s>`` (the EOS)."""
+    decoder, a normalizer folding runs of spaces (after a ``Precompiled``
+    normalizer of ``charsmap``, a key -> normalized text mapping, as
+    T5's published files carry one; the words are learned on the
+    normalized texts), and a post-processor appending ``</s>`` (the
+    EOS)."""
     import math
     from collections import Counter
 
+    from llm_interpretation_replication_tpu_torch.utils import (
+        tokenizer_parts)
+
+    norms = [{"type": "Replace", "pattern": {"Regex": " {2,}"},
+              "content": " "}]
+    if charsmap is not None:
+        norms.insert(0, {"type": "Precompiled",
+                         "precompiled_charsmap": _charsmap_b64(charsmap)})
+    normalizer = {"type": "Sequence", "normalizers": norms}
+    normalize = tokenizer_parts.normalizer(normalizer)
     words, chars = Counter(), Counter()
-    for text in texts:
+    for text in map(normalize, texts):
         for w in text.split():
             words["▁" + w] += 1
             chars.update(w)
@@ -2723,9 +2856,7 @@ def _unigram_tokenizer_files(texts):
                           "lstrip": False, "rstrip": False,
                           "normalized": False, "special": True}
                          for i, t in enumerate(("<pad>", "</s>", "<unk>"))],
-        "normalizer": {"type": "Sequence", "normalizers": [
-            {"type": "Replace", "pattern": {"Regex": " {2,}"},
-             "content": " "}]},
+        "normalizer": normalizer,
         "pre_tokenizer": meta,
         "post_processor": {
             "type": "TemplateProcessing",
@@ -2745,6 +2876,211 @@ def _unigram_tokenizer_files(texts):
     config = dict(special, tokenizer_class="T5Tokenizer",
                   clean_up_tokenization_spaces=False, model_max_length=512)
     return spec, config, special
+
+
+#: edge strings the tokenizer formats are held to (digit runs, numerals
+#: of other scripts, ASCII symbols, CJK and Arabic punctuation, emoji ZWJ
+#: and flag sequences, combining marks, whitespace at the ends, added
+#: tokens mid-text, Hangul, runs of spaces)
+TOKENIZER_EDGE_TEXTS = (
+    "", " ", "  ", "Yes", " Yes", " No", "\n",
+    "0 12 345 6789 1234567 3.14159 1,000,000 2024-01-31",
+    "²½٣一 ³¼ ٠١٢٣ 一二三 Ⅻ ⑤ x²",
+    "$+<^~ !\"#%&'()*,-./:;=>?@[\\]_`{|} a$b+c<d^e~f",
+    "中文，标点。「引号」、顿号！ العربية، فاصلة؛ منقوطة؟ ۔ । …",
+    "👩‍👧‍👦 👍🏽 🇺🇸🇫🇷 ❤️ 1️⃣ 🏳️‍🌈",
+    "café naïve q́ ä é́ ́lead",
+    "  two leading spaces", "trailing spaces   ", " \t tab\n\nnew\r\nCRLF ",
+    "mid<|endoftext|>text</s>and<s>more<unk>then<pad>>>TITLE<<",
+    "ﬁ ½ … Ａｂｃ “quotes”  nbsp 　ideo ​zw",
+    "안녕하세요 가각 각",
+    "x‍y q́́ ab ​\r\n",
+    "A long  run   of    spaces     here",
+    "don't I'D we've 're 'S ſ K ß ΣΑΣ",
+    "Answer: Yes Answer:No  Answer:",
+)
+#: the smoke's charsmap for the T5 snapshots, after nmt_nfkc's kind
+#: (spaces, ligatures, fullwidth forms, quotes, a zero-width space to
+#: nothing); "q" is a prefix of "q́", and a cluster starting with
+#: "q" takes the first match, as SentencePiece's code does
+T5_CHARSMAP = {" ": " ", "　": " ", "​": "", "ﬁ": "fi",
+               "ﬂ": "fl", "…": "...", "“": "\"", "”": "\"", "‘": "'",
+               "’": "'", "½": "1/2", "²": "2", "Ａ": "A", "ｂ": "b",
+               "ｃ": "c", "q": "q", "q́": "q", "\r\n": "\n",
+               "x‍": "x"}
+#: the published tokenizer formats of the roster, and the models whose
+#: snapshots carry them
+TOKENIZER_FORMATS = {
+    "falcon": "tiiuae/falcon-7b: BPE behind a Sequence of Punctuation, "
+              "ByteLevel, Digits and a Split",
+    "bloom": "bigscience/bloom-7b1: BPE behind a Split on a custom regex "
+             "and ByteLevel(use_regex=false)",
+    "llama": "mistralai/Mistral-7B-Instruct-v0.2 (v0.1, Llama-2): "
+             "byte-fallback BPE, Prepend/Replace normalizers, a BOS template",
+    "mistral_v03": "mistralai/Mistral-7B-Instruct-v0.3: byte-fallback BPE "
+                   "behind Metaspace prepend_scheme 'first'",
+    "t5": "T0_3B, tk-instruct, the T5 pair: Unigram behind a Precompiled "
+          "charsmap",
+}
+FALCON_PRE_TOKENIZER = {"type": "Sequence", "pretokenizers": [
+    {"type": "Punctuation", "behavior": "Contiguous"},
+    {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+     "use_regex": True},
+    {"type": "Digits", "individual_digits": False},
+    {"type": "Split", "pattern": {"Regex": "[0-9][0-9][0-9]"},
+     "behavior": "Isolated", "invert": False}]}
+BLOOM_PRE_TOKENIZER = {"type": "Sequence", "pretokenizers": [
+    {"type": "Split", "pattern": {"Regex": " ?[^(\\s|[.,!?…。，、।۔،])]+"},
+     "behavior": "Isolated", "invert": False},
+    {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+     "use_regex": False}]}
+#: Llama-2's and Mistral's decoder
+SPM_DECODER = {"type": "Sequence", "decoders": [
+    {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+    {"type": "ByteFallback"}, {"type": "Fuse"},
+    {"type": "Strip", "content": " ", "start": 1, "stop": 0}]}
+
+
+def _added(tokens, first_id, special=True):
+    return [{"id": first_id + i, "content": t, "single_word": False,
+             "lstrip": False, "rstrip": False, "normalized": not special,
+             "special": special} for i, t in enumerate(tokens)]
+
+
+def _byte_level_format(texts, pre, specials, post, decoder):
+    """A byte-level BPE ``tokenizer.json`` behind ``pre``: the 256 byte
+    symbols, merges learned (``_bpe_merges``) on the pieces the port's own
+    reader of ``pre`` cuts ``texts`` into, then ``specials`` as special
+    added tokens."""
+    from collections import Counter
+
+    from llm_interpretation_replication_tpu_torch.utils import (
+        tokenizer_parts)
+
+    byte_map = tokenizer_parts.bytes_to_unicode()
+    split = tokenizer_parts.pre_tokenizer(pre)
+    pieces = Counter(w for t in texts for w, _ in split([(t, None)]))
+    vocab = {byte_map[b]: b for b in range(256)}
+    merges = _bpe_merges(pieces)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": _added(specials, len(vocab)),
+        "normalizer": None, "pre_tokenizer": pre, "post_processor": post,
+        "decoder": decoder,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": [list(m) for m in merges]}}
+
+
+def _byte_fallback_format(texts, normalizer, pre, decoder):
+    """A SentencePiece-converted BPE ``tokenizer.json`` (Llama-2's and
+    Mistral's layout): ``<unk>``, ``<s>``, ``</s>`` at ids 0-2, the 256
+    ``<0xXX>`` byte tokens at 3-258, the characters of ``texts``, then
+    merges learned on the words between ``▁`` marks (so no merge spans
+    two words); byte fallback, fused unknowns, ``<s>`` in front."""
+    import re as _re
+    from collections import Counter
+
+    words = Counter()
+    for t in texts:
+        words.update(_re.findall("▁?[^▁]+|▁", "▁" + t.replace(" ", "▁")))
+    vocab = {t: i for i, t in enumerate(("<unk>", "<s>", "</s>"))}
+    vocab.update({f"<0x{b:02X}>": 3 + b for b in range(256)})
+    for ch in sorted({c for w in words for c in w}):
+        vocab.setdefault(ch, len(vocab))
+    merges = _bpe_merges(words)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": _added(("<unk>", "<s>", "</s>"), 0),
+        "normalizer": normalizer, "pre_tokenizer": pre,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "<s>", "type_id": 1}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<s>": {"id": "<s>", "ids": [1],
+                                       "tokens": ["<s>"]}}},
+        "decoder": decoder,
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": [list(m) for m in merges]}}
+
+
+def _format_tokenizer_files(fmt, texts):
+    """(tokenizer.json, tokenizer_config.json, special_tokens_map.json) in
+    the published format ``fmt`` of ``TOKENIZER_FORMATS``, learned on
+    ``texts``: Falcon's and BLOOM's pre-tokenizers over byte-level BPE,
+    Llama-2/Mistral's byte-fallback BPE (``LlamaTokenizer``,
+    ``add_bos_token``), Mistral v0.3's Metaspace "first", T5's Unigram
+    behind ``T5_CHARSMAP``."""
+    if fmt == "falcon":
+        eos = "<|endoftext|>"
+        spec = _byte_level_format(
+            texts, FALCON_PRE_TOKENIZER,
+            (">>TITLE<<", ">>ABSTRACT<<", ">>QUESTION<<", ">>ANSWER<<", eos),
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": False, "use_regex": True},
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": True, "use_regex": True})
+        config = {"eos_token": eos, "add_prefix_space": False,
+                  "tokenizer_class": "PreTrainedTokenizerFast",
+                  "clean_up_tokenization_spaces": False,
+                  "model_max_length": 2048}
+        return spec, config, {"eos_token": eos}
+    if fmt == "bloom":
+        special = {"unk_token": "<unk>", "bos_token": "<s>",
+                   "eos_token": "</s>", "pad_token": "<pad>"}
+        spec = _byte_level_format(
+            texts, BLOOM_PRE_TOKENIZER, ("<unk>", "<s>", "</s>", "<pad>"),
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": False, "use_regex": False},
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": True, "use_regex": False})
+        config = dict(special, tokenizer_class="BloomTokenizerFast",
+                      padding_side="left", clean_up_tokenization_spaces=False,
+                      model_max_length=2048)
+        return spec, config, special
+    if fmt in ("llama", "mistral_v03"):
+        special = {"bos_token": "<s>", "eos_token": "</s>",
+                   "unk_token": "<unk>"}
+        if fmt == "llama":
+            spec = _byte_fallback_format(
+                texts, {"type": "Sequence", "normalizers": [
+                    {"type": "Prepend", "prepend": "▁"},
+                    {"type": "Replace", "pattern": {"String": " "},
+                     "content": "▁"}]}, None, SPM_DECODER)
+        else:
+            spec = _byte_fallback_format(
+                texts, None, {"type": "Metaspace", "replacement": "▁",
+                              "prepend_scheme": "first", "split": False},
+                SPM_DECODER)
+        config = dict(special, tokenizer_class="LlamaTokenizer",
+                      add_bos_token=True, add_eos_token=False, pad_token=None,
+                      legacy=fmt == "llama",
+                      clean_up_tokenization_spaces=False,
+                      model_max_length=32768)
+        return spec, config, special
+    if fmt == "t5":
+        return _unigram_tokenizer_files(texts, T5_CHARSMAP)
+    raise ValueError(f"unknown tokenizer format {fmt!r}")
+
+
+def _write_tokenizer_files(snap, files):
+    for name, obj in zip(("tokenizer.json", "tokenizer_config.json",
+                          "special_tokens_map.json"), files):
+        with open(os.path.join(snap, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f)
 
 
 def _qwen_tiktoken(texts):
@@ -2946,7 +3282,8 @@ def cli_phase(seed, attention, workdir, card):
     """``python -m llm_interpretation_replication_tpu_torch
     run-perturbation`` in this process, from a snapshot of Falcon-7B's
     published width at SNAPSHOT_LAYERS layers that the phase writes (random
-    bf16 weights, a byte-level BPE tokenizer it builds), in bf16 and then
+    bf16 weights, a tokenizer in Falcon's published format it learns on the
+    scenarios), in bf16 and then
     with int8 weights, int8 KV and chunked prefill."""
     import math
 
@@ -2985,13 +3322,10 @@ def cli_phase(seed, attention, workdir, card):
                                                 "confidence_format")]
     texts += [" " + t for s in scenarios for t in s["target_tokens"]]
     t0 = time.perf_counter()
-    spec, tconf, special = _bpe_tokenizer_files(texts)
-    for name, obj in (("tokenizer.json", spec),
-                      ("tokenizer_config.json", tconf),
-                      ("special_tokens_map.json", special),
-                      ("config.json", _falcon_config_json(cfg))):
-        with open(os.path.join(snap, name), "w", encoding="utf-8") as f:
-            json.dump(obj, f)
+    # Falcon's published tokenizer format (its Sequence pre-tokenizer)
+    _write_tokenizer_files(snap, _format_tokenizer_files("falcon", texts))
+    with open(os.path.join(snap, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(_falcon_config_json(cfg), f)
     tokenizer_s = time.perf_counter() - t0
     # the targets score as the ids these weights rank in the top 20 most
     # often (past the tokenizer's vocabulary, which the prompts use)
@@ -3244,6 +3578,11 @@ CLI_SNAPSHOTS = [
      "safetensors"),
     ("mistralai/Mistral-7B-Instruct-v0.2", MISTRAL_7B_V02, (), "safetensors"),
 ]
+# the run-100q snapshots written in their published tokenizer format
+# (``TOKENIZER_FORMATS``; Mistral-7B-v0.1 reads v0.2's files, the models
+# sharing a geometry its directory); the NeoX ones are byte-level BPE
+CLI_TOKENIZERS = {"tiiuae/falcon-7b": "falcon", "bigscience/bloom-7b1": "bloom",
+                  "mistralai/Mistral-7B-Instruct-v0.2": "llama"}
 # models of the CLI phase that must run dense under --attention-impl flash
 CLI_DENSE = {"bigscience/bloom-7b1", "bigscience/bloomz-7b1",
              "mistralai/Mistral-7B-v0.1"}
@@ -3310,11 +3649,11 @@ T5_PAIR = {"base": "google/t5-v1_1-base", "instruct": "google/flan-t5-base"}
 # the run-instruct-sweep CLI phase: each roster geometry the run-100q
 # phase did not write (model, config, models sharing it, tokenizer format)
 INSTRUCT_SNAPSHOTS = [
-    ("allenai/tk-instruct-3b-def", T0_3B, ("bigscience/T0_3B",), "unigram"),
+    ("allenai/tk-instruct-3b-def", T0_3B, ("bigscience/T0_3B",), "t5"),
     ("baichuan-inc/Baichuan2-7B-Chat", BAICHUAN2_7B_CHAT, (), "bpe"),
     ("facebook/opt-iml-1.3b", OPT_IML_1_3B, (), "gpt2"),
     ("h2oai/h2ogpt-oasst1-512-12b", H2OGPT_12B, (), "bpe"),
-    ("mistralai/Mistral-7B-Instruct-v0.3", MISTRAL_7B_V03, (), "bpe"),
+    ("mistralai/Mistral-7B-Instruct-v0.3", MISTRAL_7B_V03, (), "mistral_v03"),
     ("Qwen/Qwen-7B-Chat", QWEN_7B_CHAT, (), "tiktoken"),
 ]
 # the run-100q phase's snapshots the instruct roster reads again
@@ -4186,8 +4525,10 @@ def _write_100q_snapshots(root, seed, tokenizer_texts):
     SNAPSHOT_LAYERS layers under ``root`` (``org--name`` directories; a
     model that shares a geometry is a symlink to it; Mistral-7B-v0.1 a
     directory of its own config.json and symlinks to v0.2's other files),
-    random bf16 weights from ``seed``, a byte-level BPE tokenizer learned on
-    ``tokenizer_texts`` (with GPT-NeoX-20B's NFC normalizer for the NeoX
+    random bf16 weights from ``seed``, a tokenizer learned on
+    ``tokenizer_texts`` in the published format of the model it stands for
+    (``CLI_TOKENIZERS``: Falcon's, BLOOM's, Mistral's byte-fallback BPE),
+    else byte-level BPE (with GPT-NeoX-20B's NFC normalizer for the NeoX
     models).  Returns (bytes written, seconds)."""
     import torch
 
@@ -4211,14 +4552,13 @@ def _write_100q_snapshots(root, seed, tokenizer_texts):
             sd = _hf_state_dict(family, cfg, seed + 40 + si, device,
                                 torch.bfloat16)
             hf_json = _at_depth(config, SNAPSHOT_LAYERS)
-        spec, tconf, special = _bpe_tokenizer_files(
-            tokenizer_texts, nfc=hf_json["model_type"] == "gpt_neox")
-        for name, obj in (("tokenizer.json", spec),
-                          ("tokenizer_config.json", tconf),
-                          ("special_tokens_map.json", special),
-                          ("config.json", hf_json)):
-            with open(os.path.join(snap, name), "w", encoding="utf-8") as f:
-                json.dump(obj, f)
+        fmt_tok = CLI_TOKENIZERS.get(model)
+        _write_tokenizer_files(snap, _format_tokenizer_files(
+            fmt_tok, tokenizer_texts) if fmt_tok else _bpe_tokenizer_files(
+                tokenizer_texts, nfc=hf_json["model_type"] == "gpt_neox"))
+        with open(os.path.join(snap, "config.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(hf_json, f)
         if fmt == "bin":
             _write_bin_shards(snap, sd)
         else:
@@ -4709,10 +5049,11 @@ def _write_instruct_snapshots(root, seed, texts):
     """2-layer snapshots of ``INSTRUCT_SNAPSHOTS`` beside the run-100q
     phase's (whose other models go first): random bf16 weights from
     ``seed`` as safetensors, tokenizers in each model's format learned on
-    ``texts`` (a Unigram ``tokenizer.json`` for the T5s, ``qwen.tiktoken``,
-    OPT's ``vocab.json`` + ``merges.txt``, byte-level BPE for the rest,
-    Baichuan's SentencePiece file among them).  Returns (bytes written,
-    seconds)."""
+    ``texts`` (the T5s' Unigram ``tokenizer.json`` behind a Precompiled
+    charsmap, Mistral v0.3's Metaspace "first" byte-fallback BPE,
+    ``qwen.tiktoken``, OPT's ``vocab.json`` + ``merges.txt``, byte-level
+    BPE for the rest, Baichuan's SentencePiece file among them).  Returns
+    (bytes written, seconds)."""
     import torch
 
     from llm_interpretation_replication_tpu_torch.models import convert
@@ -4730,7 +5071,7 @@ def _write_instruct_snapshots(root, seed, texts):
         os.makedirs(snap)
         hf_json = (dict(config, num_layers=SNAPSHOT_LAYERS,
                         num_decoder_layers=SNAPSHOT_LAYERS)
-                   if fmt == "unigram" else _at_depth(config, SNAPSHOT_LAYERS))
+                   if fmt == "t5" else _at_depth(config, SNAPSHOT_LAYERS))
         family, cfg = _family_config(hf_json)
         if family == "t5":
             sd = convert.random_t5_state_dict(cfg, seed=seed + 80 + si,
@@ -4739,10 +5080,10 @@ def _write_instruct_snapshots(root, seed, texts):
             sd = _hf_state_dict(family, cfg, seed + 80 + si, "cuda",
                                 torch.bfloat16)
         files = {"config.json": hf_json}
-        if fmt == "unigram":
+        if fmt in ("t5", "mistral_v03"):
             files.update(zip(("tokenizer.json", "tokenizer_config.json",
                               "special_tokens_map.json"),
-                             _unigram_tokenizer_files(texts)))
+                             _format_tokenizer_files(fmt, texts)))
         elif fmt == "bpe":
             files.update(zip(("tokenizer.json", "tokenizer_config.json",
                               "special_tokens_map.json"),
@@ -5859,6 +6200,216 @@ def obs_cli_phase(workdir, card):
     return result
 
 
+TOKENIZER_CHUNK = 10     # the phase's sweep chunk: two, so the prefetcher runs
+#: sha256 of each format's ids (with special tokens, ``_ids_digest``) over
+#: ``_tokenizer_digest_texts()``, the files learned on
+#: ``_tokenizer_learn_texts()``: the ``tokenizers`` package and the JAX
+#: package's loader compute the same on the CPU
+#: (tests/test_torch_tokenizer.py)
+TOKENIZER_DIGESTS = {
+    "falcon": "0eab6160252d142550c8e11bb012e70939c4f6624c70409250d34a43360eaf60",
+    "bloom": "657ea138c438af199faf905ee92e3979c81ea58f117704868efe1a09d4289d7c",
+    "llama": "89fc69bc23c1f7b49158bed31fcc269c6002ec8aa0bc0cceb5ae5f6f2042e7ff",
+    "mistral_v03":
+        "9af18574ce5c6fe1355481d49f5a322b89c7e1ab0a1d624e51dc5faf0558b0a6",
+    "t5": "754860bf3f1db2979a67bd143dbdc8b77941ae7466a7e9d257fd49e8931aa71b",
+}
+
+
+def _tokenizer_learn_texts():
+    """What the tokenizers phase's files are learned on (no seed): the
+    legal scenarios' texts and targets and the 100 questions."""
+    from llm_interpretation_replication_tpu_torch.config import (
+        legal_scenarios, ordinary_meaning_questions)
+
+    out = [s[k] for s in legal_scenarios()
+           for k in ("original_main", "response_format", "confidence_format")]
+    out += [" " + t for s in legal_scenarios() for t in s["target_tokens"]]
+    return out + ordinary_meaning_questions()
+
+
+def _tokenizer_digest_texts():
+    """The fixed texts the digests cover: the legal scenarios, the 100
+    questions' prompts (base and instruct) and ``TOKENIZER_EDGE_TEXTS``."""
+    from llm_interpretation_replication_tpu_torch.config import (
+        legal_scenarios, ordinary_meaning_questions)
+    from llm_interpretation_replication_tpu_torch.scoring import prompts
+
+    out = [s[k] for s in legal_scenarios()
+           for k in ("original_main", "response_format", "confidence_format")]
+    out += [" " + t for s in legal_scenarios() for t in s["target_tokens"]]
+    out += [prompts.format_prompt(q, base)
+            for q in ordinary_meaning_questions() for base in (True, False)]
+    return out + list(TOKENIZER_EDGE_TEXTS)
+
+
+def _ids_digest(id_lists):
+    import hashlib
+
+    return hashlib.sha256(json.dumps(
+        [list(map(int, ids)) for ids in id_lists],
+        separators=(",", ":")).encode()).hexdigest()
+
+
+def tokenizers_phase(seed, attention, weights, workdir, card):
+    """Phase 19 on the card's host and Falcon-7B at full width and depth:
+    each published tokenizer format of ``TOKENIZER_FORMATS``, written as
+    plain JSON and read back through ``load_tokenizer`` from a directory,
+    encodes the sweep corpus (the scenarios and their rephrasings;
+    tokens/s) and decodes it back, and its ids over the fixed
+    ``_tokenizer_digest_texts()`` hash to ``TOKENIZER_DIGESTS``; then 20
+    rows of the corpus, encoded by the Falcon-format reader, go through
+    ``run_model_perturbation_sweep`` on the slice's weights (32 layers,
+    bf16, the causal kernel) with the span tracer on, and again without
+    it: rows/s, the share of the traced run's wall time in the
+    prefetcher's encode spans, every row finite, the rerun's rows
+    equal."""
+    import math
+
+    import torch
+
+    from llm_interpretation_replication_tpu_torch import obs
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+    from llm_interpretation_replication_tpu_torch.gen.rephrase import (
+        load_perturbations)
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.runtime.loader import (
+        load_tokenizer)
+    from llm_interpretation_replication_tpu_torch.sweeps import (
+        run_model_perturbation_sweep)
+    from llm_interpretation_replication_tpu_torch.utils import tokenizer_parts
+    from llm_interpretation_replication_tpu_torch.utils.logging import (
+        SessionLogger)
+    from llm_interpretation_replication_tpu_torch.utils.xlsx import read_xlsx
+
+    scenarios = load_perturbations(os.path.join(workdir, "perturbations.json"),
+                                   expected_scenarios=legal_scenarios())
+    corpus = [s["original_main"] for s in scenarios] + [
+        r for s in scenarios for r in s["rephrasings"]]
+    learn, digest_texts = _tokenizer_learn_texts(), _tokenizer_digest_texts()
+    formats, toks, fails = {}, {}, []
+    for fmt, model in TOKENIZER_FORMATS.items():
+        path = os.path.join(workdir, f"tokenizer_{fmt}")
+        os.makedirs(path)
+        t0 = time.perf_counter()
+        files = _format_tokenizer_files(fmt, learn)
+        _write_tokenizer_files(path, files)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tok = toks[fmt] = load_tokenizer(path)
+        load_s = time.perf_counter() - t0
+        digest = _ids_digest(tok.encode(t) for t in digest_texts)
+        t0 = time.perf_counter()
+        ids = [tok.encode(t) for t in corpus]
+        encode_s = time.perf_counter() - t0
+        # T5's decode gives the normalized text (charsmap, folded spaces)
+        normalize = tokenizer_parts.normalizer(files[0]["normalizer"])
+        want = [normalize(t) for t in corpus] if fmt == "t5" else corpus
+        back = [tok.decode(i, skip_special_tokens=True) for i in ids]
+        bad = [t for t, b, w in zip(corpus, back, want) if b != w]
+        n_tokens = sum(map(len, ids))
+        formats[fmt] = dict(
+            model=model, reader=type(tok).__name__, vocab=len(tok),
+            pre_tokenizer=(files[0].get("pre_tokenizer") or {}).get("type"),
+            normalizer=(files[0].get("normalizer") or {}).get("type"),
+            texts=len(corpus), tokens=n_tokens, encode_s=encode_s,
+            tokens_per_s=n_tokens / encode_s, write_s=write_s, load_s=load_s,
+            digest=digest, round_trip_failures=len(bad))
+        say("tokenizers", json.dumps(dict(format=fmt, **formats[fmt],
+                                          card=card)))
+        if digest != TOKENIZER_DIGESTS.get(fmt):
+            fails.append(f"{fmt}: ids digest {digest}, pinned "
+                         f"{TOKENIZER_DIGESTS.get(fmt)}")
+        if bad:
+            fails.append(f"{fmt}: {len(bad)} texts do not decode back, e.g. "
+                         f"{bad[0][:80]!r}")
+        want_reader = "UnigramTokenizer" if fmt == "t5" else \
+            "ByteLevelBPETokenizer"
+        if formats[fmt]["reader"] != want_reader:
+            fails.append(f"{fmt}: read by {formats[fmt]['reader']}")
+
+    # 20 rows through the sweep, encoded by the Falcon-format reader
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
+    rows_in = [dict(s, rephrasings=s["rephrasings"][:OBS_PER_SCENARIO])
+               for s in scenarios]
+    n_rows = sum(len(s["rephrasings"]) for s in rows_in)
+    engine = emod.ScoringEngine("falcon", cfg, weights, toks["falcon"],
+                                device="cuda", engine_config=emod.EngineConfig(
+                                    batch_size=BATCH))
+    counted = {"prefill": 0}
+    real_prefill = decoder.prefill
+
+    def counting(*args, **kwargs):
+        counted["prefill"] += 1
+        return real_prefill(*args, **kwargs)
+
+    runs, rows = [], {}
+    decoder.prefill = counting
+    try:
+        for name in ("traced", "rerun"):
+            counted["prefill"] = 0
+            _reset_launches(attention)
+            obs.get_tracer().reset()
+            if name == "traced":
+                obs.enable()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows[name] = run_model_perturbation_sweep(
+                    engine, SWEEP_MODEL, rows_in,
+                    os.path.join(workdir, f"tokenizers_{name}.xlsx"),
+                    score_chunk=TOKENIZER_CHUNK,
+                    log=SessionLogger(stream=io.StringIO()))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                obs.disable()
+            encode = [s["dur"] for s in obs.get_tracer().spans()
+                      if s["name"] == "prefetch"]
+            runs.append(dict(
+                run=name, seconds=wall, rows=len(rows[name]),
+                rows_per_s=len(rows[name]) / wall, prefills=counted["prefill"],
+                kernel_launches=_launches(attention)[
+                    "causal_grouped_attention"],
+                encode_spans=len(encode), encode_s=sum(encode),
+                tokenize_share=sum(encode) / wall if encode else None))
+            say("tokenizers sweep", json.dumps(dict(runs[-1], card=card)))
+    finally:
+        decoder.prefill = real_prefill
+        engine.close()
+    for res in runs:
+        if (not res["prefills"]
+                or res["kernel_launches"] != cfg.num_layers * res["prefills"]):
+            fails.append(f"sweep {res['run']}: {res['kernel_launches']} "
+                         f"causal launches for {res['prefills']} prefills")
+    traced = runs[0]
+    if traced["encode_spans"] != math.ceil(n_rows / TOKENIZER_CHUNK):
+        fails.append(f"sweep: {traced['encode_spans']} prefetch spans")
+    for name, got in rows.items():
+        if len(got) != n_rows or not all(
+                math.isfinite(r["Token_1_Prob"])
+                and math.isfinite(r["Token_2_Prob"]) for r in got):
+            fails.append(f"sweep {name}: {len(got)} rows, or a probability "
+                         "not finite")
+    books = [read_xlsx(os.path.join(workdir, f"tokenizers_{name}.xlsx"))
+             for name in rows]
+    if not _same_rows(rows["traced"], rows["rerun"]) or books[0] != books[1]:
+        fails.append("sweep: the rerun's rows or workbook differ")
+    result = dict(card=card, formats=formats, runs=runs, rows=n_rows,
+                  failures=fails[:50])
+    say("tokenizers gates", json.dumps(dict(
+        card=card, tokens_per_s={f: r["tokens_per_s"]
+                                 for f, r in formats.items()},
+        tokenize_share=traced["tokenize_share"], failures=len(fails))))
+    if fails:
+        raise AssertionError(f"tokenizers: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
 def _strict_audit(stderr):
     """The ``# strict: {...}`` audit lines a ``--strict`` CLI run prints."""
     return [json.loads(line.split(": ", 1)[1]) for line in stderr.splitlines()
@@ -5909,13 +6460,15 @@ def main(argv=None):
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         wres = timed("sweep", sweep_phase, args.seed, attention, weights,
-                     fres["near_tie"], workdir, card)
+                     workdir, card)
         pkres = timed("packed", packed_phase, args.seed, attention, weights,
                       fres["near_tie"], workdir, card)
         kres = timed("k_decode", k_decode_phase, args.seed, attention,
                      weights, fres["near_tie"], card)
         ores = timed("obs", obs_phase, args.seed, attention, weights,
                      workdir, card)
+        tres = timed("tokenizers", tokenizers_phase, args.seed, attention,
+                     weights, workdir, card)
         del weights
         torch.cuda.empty_cache()
         ires = timed("int8", int8_phase, args.seed, attention, bf16_rows)
@@ -5935,7 +6488,7 @@ def main(argv=None):
     # the causal kernel's launches over every main-path run (each counted
     # from 0 just before it); the head-major kernels run on forced routes
     causal = causal_launches(sres, pres, fres, ires, wres, pkres, kres, ores,
-                             cres, fam, inst)
+                             tres, cres, fam, inst)
     launches = {"causal_grouped_attention": causal,
                 "grouped_attention": sres["forced_routes"]["grouped"]["launches"],
                 "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
@@ -5961,6 +6514,7 @@ def main(argv=None):
                        edge_rows=erows, kernel_rows=krows, slice=sres,
                        pooled=pres, full_study=fres, sweep=wres,
                        packed=pkres, k_decode=kres, obs=ores, obs_cli=ocres,
+                       tokenizers=tres,
                        int8=ires, cli=cres, families=fam, run_100q=qres,
                        instruct=inst,
                        run_instruct_sweep=ires_cli, phase_seconds=seconds,

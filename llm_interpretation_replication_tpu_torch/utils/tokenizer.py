@@ -7,22 +7,26 @@ and as an attribute), ``encode``, ``decode``, ``pad_token_id`` and
 :class:`WordTokenizer` (a small word-level vocabulary; like a GPT-style one
 it tells ``" Yes"`` from ``"Yes"``) and the readers of a snapshot's
 tokenizer files (:func:`load_tokenizer`, the reader of the reference
-loader's ``load_tokenizer``): :class:`ByteLevelBPETokenizer` (a byte-level
-BPE ``tokenizer.json``, or ``vocab.json`` and ``merges.txt``),
-:class:`UnigramTokenizer` (T5's Unigram ``tokenizer.json``) and
-:class:`QwenTokenizer` (Qwen-1's ``qwen.tiktoken``).
+loader's ``load_tokenizer``): :class:`ByteLevelBPETokenizer` (a BPE
+``tokenizer.json``: GPT-2's, Falcon's, BLOOM's, Llama-2's and Mistral's
+byte-fallback BPE; or ``vocab.json`` and ``merges.txt``),
+:class:`UnigramTokenizer` (T5's Unigram ``tokenizer.json``, with its
+Precompiled charsmap) and :class:`QwenTokenizer` (Qwen-1's
+``qwen.tiktoken``).  The normalizers, pre-tokenizers, decoders and
+post-processors around the models are :mod:`.tokenizer_parts`'.
 """
 
 from __future__ import annotations
 
 import base64
-import functools
 import heapq
 import json
 import os
 import re
 import unicodedata
 from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+from . import tokenizer_parts as parts
 
 
 class Encoding(dict):
@@ -87,64 +91,10 @@ def default_tokenizer() -> WordTokenizer:
     return WordTokenizer(words)
 
 
-_ITEM_TOK = "ROADMAP.md queue 1, 'Snapshot tokenizers'"
-
-#: Unicode's White_Space property: the ``\\s`` of the split pattern the
-#: ``tokenizers`` package compiles (Python's ``\\s`` adds U+001C-U+001F)
-_WHITE_SPACE = ("\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028\u2029"
-                "\u202f\u205f\u3000")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({_ITEM_TOK})")
-
-
-def _class_ranges(pred) -> str:
-    """A regex character class body of the code points ``pred`` accepts."""
-    out, start, prev = [], None, None
-    for cp in range(0x110000):
-        if pred(cp):
-            if start is None:
-                start = cp
-            prev = cp
-        elif start is not None:
-            out.append(re.escape(chr(start)) if start == prev else
-                       f"{re.escape(chr(start))}-{re.escape(chr(prev))}")
-            start = None
-    if start is not None:
-        out.append(f"{re.escape(chr(start))}-{re.escape(chr(prev))}")
-    return "".join(out)
-
-
-@functools.lru_cache(maxsize=1)
-def _byte_level_split() -> "re.Pattern":
-    """The GPT-2 split pattern of the ByteLevel pre-tokenizer,
-    ``'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+``,
-    spelled for ``re``: ``\\p{L}`` and ``\\p{N}`` become classes of the code
-    points whose general category (this Python's ``unicodedata``) starts
-    with L or N; built once, on first use (about a second)."""
-    cats = [unicodedata.category(chr(cp))[0] for cp in range(0x110000)]
-    letters = _class_ranges(lambda cp: cats[cp] == "L")
-    numbers = _class_ranges(lambda cp: cats[cp] == "N")
-    return re.compile(
-        rf"'s|'t|'re|'ve|'m|'ll|'d| ?[{letters}]+| ?[{numbers}]+"
-        rf"| ?[^{_WHITE_SPACE}{letters}{numbers}]+"
-        rf"|[{_WHITE_SPACE}]+(?![^{_WHITE_SPACE}])|[{_WHITE_SPACE}]+")
-
-
-@functools.lru_cache(maxsize=1)
-def _bytes_to_unicode() -> Dict[int, str]:
-    """GPT-2's reversible byte -> printable character table."""
-    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("\xa1"), ord("\xac") + 1))
-          + list(range(ord("\xae"), ord("\xff") + 1)))
-    cs = bs[:]
-    n = 0
-    for b in range(256):
-        if b not in bs:
-            bs.append(b)
-            cs.append(256 + n)
-            n += 1
-    return dict(zip(bs, map(chr, cs)))
+_ITEM_TOK = parts.ITEM_TOK
+_not_ported = parts.not_ported
+_bytes_to_unicode = parts.bytes_to_unicode
+_byte_level_split = parts.byte_level_split
 
 
 def _clean_up_tokenization(text: str) -> str:
@@ -156,14 +106,16 @@ def _clean_up_tokenization(text: str) -> str:
 
 
 class _SnapshotTokenizer:
-    """What the readers of a snapshot's tokenizer files share: the added
-    and special tokens, the pad / EOS / unknown tokens the tokenizer config
-    names, the engine's interface, and the ``tokenizers`` package's order
-    of encoding: split the raw text on the added tokens that are not
-    normalized (longest first), normalize the rest, split that on the
-    normalized added tokens, and encode each other segment with the model
-    (:meth:`_encode_segment`).  A subclass sets ``self.vocab`` (token ->
-    id) and ``self._normalize`` before calling ``__init__``."""
+    """What the readers of a snapshot's ``tokenizer.json`` share: the
+    pipeline of :mod:`.tokenizer_parts` (normalizer, pre-tokenizer,
+    post-processor, decoder), the added and special tokens, the pad / EOS /
+    unknown tokens the tokenizer config names, the engine's interface, and
+    the ``tokenizers`` package's order of encoding: split the raw text on
+    the added tokens that are not normalized (longest first), normalize the
+    rest, split that on the normalized added tokens, pre-tokenize each
+    other segment and encode each of its pieces with the model
+    (:meth:`_encode_word`).  A subclass sets ``self.vocab`` (token -> id)
+    before calling ``__init__``."""
 
     vocab: Dict[str, int]
 
@@ -171,6 +123,15 @@ class _SnapshotTokenizer:
                  clean_up_tokenization_spaces: bool = False):
         if spec.get("truncation") is not None:
             raise _not_ported("truncation")
+        self._normalize = parts.normalizer(spec.get("normalizer"))
+        self._pre = parts.pre_tokenizer(spec.get("pre_tokenizer"))
+        self._post = parts.post_processor(spec.get("post_processor"))
+        self._decode = parts.decoder(spec.get("decoder"))
+        # a Metaspace "first" reads each piece's original offset
+        self._offsets = self._pre.reads_offsets
+        if self._offsets and not self._normalize.keeps_offsets:
+            raise _not_ported("original offsets through this normalizer "
+                              "(Metaspace prepend_scheme 'first' reads them)")
         self.clean_up_tokenization_spaces = bool(clean_up_tokenization_spaces)
         self.added: Dict[str, int] = {}
         self.special_ids = set()
@@ -204,6 +165,7 @@ class _SnapshotTokenizer:
         self._norm_split = _alternation(self._normalize(t) for t in normalized)
         self._norm_added = {self._normalize(t): self.added[t]
                             for t in normalized}
+        self._cache: Dict[str, List[int]] = {}
 
     # -- the engine's interface ---------------------------------------------
 
@@ -243,13 +205,28 @@ class _SnapshotTokenizer:
         """Token ids of ``text``, with the post-processor's special tokens
         when ``add_special_tokens``."""
         ids: List[int] = []
-        for raw, tid in _split_on(self._raw_split, text, self.added):
+        for raw, tid, pos in _split_on(self._raw_split, text, self.added):
             if tid is not None:
                 ids.append(tid)
                 continue
-            for piece, nid in _split_on(self._norm_split, self._normalize(raw),
-                                        self._norm_added):
-                ids += [nid] if nid is not None else self._encode_segment(piece)
+            if self._offsets:
+                norm, starts = self._normalize.aligned(
+                    raw, list(range(pos, pos + len(raw))), pos)
+            else:
+                norm, starts = self._normalize(raw), None
+            for piece, nid, at in _split_on(self._norm_split, norm,
+                                            self._norm_added):
+                if nid is not None:
+                    ids.append(nid)
+                    continue
+                span = starts[at:at + len(piece)] if starts is not None else None
+                for word, _ in self._pre([(piece, span)]):
+                    cached = self._cache.get(word)
+                    if cached is None:
+                        cached = self._encode_word(word)
+                        if len(word) < 256:
+                            self._cache[word] = cached
+                    ids += cached
         return self._post_process(ids) if add_special_tokens else ids
 
     def __call__(self, text: Union[str, Sequence[str]],
@@ -267,36 +244,36 @@ class _SnapshotTokenizer:
             if tok is None or (skip_special_tokens and i in self.special_ids):
                 continue
             tokens.append(tok)
-        text = self._decode_tokens(tokens)
+        text = self._decode(tokens)
         if self.clean_up_tokenization_spaces:
             text = _clean_up_tokenization(text)
         return text
 
     def _post_process(self, ids: List[int]) -> List[int]:
-        return ids
+        return self._post(ids)
 
-    def _encode_segment(self, text: str) -> List[int]:
-        raise NotImplementedError
-
-    def _decode_tokens(self, tokens: List[str]) -> str:
+    def _encode_word(self, word: str) -> List[int]:
         raise NotImplementedError
 
 
 class ByteLevelBPETokenizer(_SnapshotTokenizer):
-    """A byte-level BPE tokenizer read from a ``tokenizer.json`` (or built
-    from a ``vocab.json`` and ``merges.txt``, :func:`load_tokenizer`): the
-    ``BPE`` model with its vocabulary and merge ranks, the ``ByteLevel``
-    pre-tokenizer, post-processor and decoder, and the added and special
-    tokens, and an optional ``NFC`` normalizer (GPT-NeoX-20B's
-    ``tokenizer.json`` has one).  Each segment between added tokens is
-    pre-tokenized with the ByteLevel split pattern, its UTF-8 bytes mapped
-    to the byte alphabet, and each piece merged by rank (the lowest-ranked
-    pair first, leftmost among equals); decoding maps the tokens back to
-    bytes and decodes them as UTF-8 with replacement characters.  With
-    ``add_bos_token`` (a GPT-2-style tokenizer config's flag, as OPT's
-    sets it) an encoding with special tokens starts with the BOS token.
-    Any other model, normalizer, pre-tokenizer, post-processor or decoder
-    raises ``NotImplementedError``."""
+    """A BPE tokenizer read from a ``tokenizer.json`` (or built from a
+    ``vocab.json`` and ``merges.txt``, :func:`load_tokenizer`): the ``BPE``
+    model with its vocabulary and merge ranks, ``unk_token``, ``fuse_unk``,
+    ``ignore_merges`` and ``byte_fallback`` (a character outside the
+    vocabulary becomes its UTF-8 bytes as ``<0xXX>`` tokens when all of
+    them are in it), behind any pipeline of :mod:`.tokenizer_parts`:
+    GPT-2's lone ``ByteLevel``, Falcon's ``Sequence`` of Punctuation,
+    ByteLevel, Digits and a ``Split``, BLOOM's ``Split`` and
+    ``ByteLevel(use_regex=false)``, Llama's and Mistral's ``Prepend`` /
+    ``Replace`` normalizers with the ``Replace`` / ``ByteFallback`` /
+    ``Fuse`` / ``Strip`` decoders and a ``TemplateProcessing`` BOS, or a
+    ``Metaspace`` pre-tokenizer and decoder (Mistral v0.3's "first").
+    Each piece is merged by rank (the lowest-ranked pair first, leftmost
+    among equals) over a heap of adjacent pairs.  With ``add_bos_token`` (a
+    GPT-2-style tokenizer config's flag, as OPT's sets it) an encoding with
+    special tokens starts with the BOS token.  Dropout, a continuing
+    subword prefix or an end-of-word suffix raise ``NotImplementedError``."""
 
     def __init__(self, spec: Dict, special_tokens: Optional[Dict] = None,
                  clean_up_tokenization_spaces: bool = False,
@@ -308,24 +285,10 @@ class ByteLevelBPETokenizer(_SnapshotTokenizer):
                     "end_of_word_suffix"):
             if model.get(key):
                 raise _not_ported(f"BPE {key}={model[key]!r}")
-        if model.get("byte_fallback"):
-            raise _not_ported("BPE byte_fallback")
-        norm = spec.get("normalizer")
-        if norm is not None and norm.get("type") != "NFC":
-            raise _not_ported(f"normalizer {norm.get('type')!r}")
-        self.nfc = norm is not None
-        if spec.get("truncation") is not None:
-            raise _not_ported("truncation")
-        pre = spec.get("pre_tokenizer") or {}
-        if pre.get("type") != "ByteLevel":
-            raise _not_ported(f"pre-tokenizer {pre.get('type')!r}")
-        for key in ("post_processor", "decoder"):
-            part = spec.get(key)
-            if part is not None and part.get("type") != "ByteLevel":
-                raise _not_ported(f"{key} {part.get('type')!r}")
-        self.add_prefix_space = bool(pre.get("add_prefix_space", False))
-        self.use_regex = bool(pre.get("use_regex", True))
-        self.byte_decoder = spec.get("decoder") is not None
+        # GPT-NeoX-20B's NFC normalizer, which the run-100q roster reads
+        self.nfc = (spec.get("normalizer") or {}).get("type") == "NFC"
+        self.byte_fallback = bool(model.get("byte_fallback", False))
+        self.fuse_unk = bool(model.get("fuse_unk", False))
         self.ignore_merges = bool(model.get("ignore_merges", False))
         self.add_bos_token = bool(add_bos_token)
         self.vocab = dict(model["vocab"])
@@ -334,73 +297,58 @@ class ByteLevelBPETokenizer(_SnapshotTokenizer):
             a, b = m.split(" ", 1) if isinstance(m, str) else m
             self.merges[(self.vocab[a], self.vocab[b])] = (rank,
                                                           self.vocab[a + b])
-        unk = model.get("unk_token")
-        self.unk_id = self.vocab.get(unk) if unk is not None else None
-        self._byte_map = _bytes_to_unicode()
-        self._char_bytes = {c: b for b, c in self._byte_map.items()}
-        self._cache: Dict[str, List[int]] = {}
+        self.unk = model.get("unk_token")
+        self.unk_id = self.vocab.get(self.unk) if self.unk is not None else None
+        self._byte_ids = [self.vocab.get(f"<0x{b:02X}>") for b in range(256)]
         super().__init__(spec, special_tokens, clean_up_tokenization_spaces)
 
-    def _normalize(self, text: str) -> str:
-        return unicodedata.normalize("NFC", text) if self.nfc else text
-
     def _post_process(self, ids: List[int]) -> List[int]:
+        ids = self._post(ids)
         bos = self._token_id("bos_token")
         if self.add_bos_token and bos is not None:
             return [bos] + ids
         return ids
 
-    def _decode_tokens(self, tokens: List[str]) -> str:
-        if not self.byte_decoder:
-            return " ".join(tokens)
-        raw = bytearray()
-        for tok in tokens:
-            try:
-                raw += bytes(self._char_bytes[c] for c in tok)
-            except KeyError:      # a token outside the byte alphabet
-                raw += tok.encode("utf-8")
-        return raw.decode("utf-8", errors="replace")
+    def _symbols(self, word: str) -> List[int]:
+        """The package's ``merge_word`` before merging: a vocabulary id a
+        character, else its ``<0xXX>`` byte tokens (byte fallback, all of
+        them in the vocabulary), else the unknown token, a run of them
+        fused into one with ``fuse_unk``.  A pending unknown token is
+        written before the next known character, after byte tokens, as the
+        package does."""
+        syms: List[int] = []
+        unk = False
+        for c in word:
+            tid = self.vocab.get(c)
+            if tid is not None:
+                if unk:
+                    syms.append(self.unk_id)
+                    unk = False
+                syms.append(tid)
+                continue
+            if self.byte_fallback:
+                got = [self._byte_ids[b] for b in c.encode("utf-8")]
+                if None not in got:
+                    syms += got
+                    continue
+            if self.unk is not None:
+                if self.unk_id is None:
+                    raise ValueError(f"BPE unk_token {self.unk!r} is not in "
+                                     "the vocabulary")
+                if unk and not self.fuse_unk:
+                    syms.append(self.unk_id)
+                unk = True
+        if unk:
+            syms.append(self.unk_id)
+        return syms
 
-    # -- encoding ------------------------------------------------------------
-
-    def _encode_segment(self, text: str) -> List[int]:
-        if not text:
-            return []
-        if self.add_prefix_space and not text.startswith(" "):
-            text = " " + text
-        if self.use_regex:
-            pieces, pos = [], 0
-            for m in _byte_level_split().finditer(text):
-                if m.start() > pos:           # an unmatched gap is a piece too
-                    pieces.append(text[pos:m.start()])
-                pieces.append(m.group(0))
-                pos = m.end()
-            if pos < len(text):
-                pieces.append(text[pos:])
-        else:
-            pieces = [text]
-        ids: List[int] = []
-        for piece in pieces:
-            word = "".join(self._byte_map[b] for b in piece.encode("utf-8"))
-            cached = self._cache.get(word)
-            if cached is None:
-                cached = self._cache[word] = self._bpe(word)
-            ids += cached
-        return ids
-
-    def _bpe(self, word: str) -> List[int]:
+    def _encode_word(self, word: str) -> List[int]:
         """Merge one pre-tokenized piece by rank: a heap of (rank,
         position) pairs, each popped pair merged if both symbols are still
         there, then its new neighbours pushed."""
         if self.ignore_merges and word in self.vocab:
             return [self.vocab[word]]
-        syms: List[int] = []
-        for c in word:
-            tid = self.vocab.get(c)
-            if tid is not None:
-                syms.append(tid)
-            elif self.unk_id is not None:
-                syms.append(self.unk_id)
+        syms = self._symbols(word)
         n = len(syms)
         nxt = list(range(1, n + 1))
         prv = list(range(-1, n - 1))
@@ -435,77 +383,27 @@ class ByteLevelBPETokenizer(_SnapshotTokenizer):
         return [t for t, a in zip(syms, alive) if a]
 
 
-#: :data:`_WHITE_SPACE` as characters, for ``str.strip``
-_WHITE_SPACE_CHARS = "".join(c for c in map(chr, range(0x3001))
-                             if re.fullmatch(f"[{_WHITE_SPACE}]", c))
-
-
-def _normalizer(spec: Optional[Dict]):
-    """A ``tokenizer.json`` normalizer as a function on text: ``Sequence``,
-    ``Replace`` (a string or a regex pattern), ``Strip``, ``NFC``,
-    ``NFKC``, ``Lowercase``, and ``Precompiled`` with an empty charsmap;
-    anything else raises ``NotImplementedError``."""
+def _has_byte_level(spec: Optional[Dict]) -> bool:
     if spec is None:
-        return lambda text: text
-    kind = spec.get("type")
-    if kind == "Sequence":
-        parts = [_normalizer(s) for s in spec.get("normalizers") or []]
-
-        def seq(text):
-            for part in parts:
-                text = part(text)
-            return text
-        return seq
-    if kind == "Replace":
-        pattern, content = spec["pattern"], spec["content"]
-        if "Regex" in pattern:
-            regex = re.compile(pattern["Regex"])
-            return lambda text: regex.sub(lambda _: content, text)
-        return lambda text: text.replace(pattern["String"], content)
-    if kind == "Strip":
-        left, right = spec.get("strip_left", True), spec.get("strip_right", True)
-
-        def strip(text):
-            if left:
-                text = text.lstrip(_WHITE_SPACE_CHARS)
-            return text.rstrip(_WHITE_SPACE_CHARS) if right else text
-        return strip
-    if kind in ("NFC", "NFKC"):
-        return lambda text: unicodedata.normalize(kind, text)
-    if kind == "Lowercase":
-        return str.lower
-    if kind == "Precompiled" and not spec.get("precompiled_charsmap"):
-        return lambda text: text
-    raise _not_ported(f"normalizer {kind!r}"
-                      + (" with a charsmap" if kind == "Precompiled" else ""))
-
-
-def _metaspace(spec: Dict) -> Tuple[str, str, bool]:
-    """(replacement, prepend scheme, split) of a Metaspace pre-tokenizer or
-    decoder; the legacy ``add_prefix_space`` reads as "always" / "never"
-    ("first", which hangs on the normalized text's original offsets, is
-    not read)."""
-    scheme = spec.get("prepend_scheme") or (
-        "always" if spec.get("add_prefix_space", True) else "never")
-    if scheme not in ("always", "never"):
-        raise _not_ported(f"Metaspace prepend_scheme {scheme!r}")
-    return spec.get("replacement", "▁"), scheme, bool(spec.get("split", True))
+        return False
+    return spec.get("type") == "ByteLevel" or any(
+        _has_byte_level(s) for s in (spec.get("pretokenizers") or [])
+        + (spec.get("decoders") or []))
 
 
 class UnigramTokenizer(_SnapshotTokenizer):
     """A Unigram (SentencePiece-style) tokenizer read from a
     ``tokenizer.json``, T5's format: the pieces and their scores, the
-    unknown id, the normalizers of :func:`_normalizer`, the ``Metaspace``
-    pre-tokenizer (optionally after ``WhitespaceSplit``, in a
-    ``Sequence``) and decoder, and a ``TemplateProcessing`` post-processor
-    (T5's appends ``</s>``).  Each segment is replaced space for ``▁``,
-    given the prefix ``▁`` by the prepend scheme, split before each ``▁``,
-    and each piece segmented by Viterbi over the pieces' scores, as the
-    ``tokenizers`` package does: the best-scoring path, the first candidate
-    (shortest, leftmost) among equal scores, a character no piece starts
-    with costing the lowest score minus 10, runs of unknown characters
-    fused into one unknown token.  Anything else (byte fallback, other
-    components, a non-empty ``Precompiled`` charsmap) raises
+    unknown id, and the pipeline of :mod:`.tokenizer_parts` around them
+    (T5's ``Precompiled`` charsmap and ``Replace`` normalizers, a
+    ``Metaspace`` pre-tokenizer and decoder at any prepend scheme,
+    optionally after ``WhitespaceSplit``, and a ``TemplateProcessing``
+    post-processor appending ``</s>``).  Each piece is segmented by Viterbi
+    over the pieces' scores, as the ``tokenizers`` package does: the
+    best-scoring path, the first candidate (shortest, leftmost) among
+    equal scores, a character no piece starts with costing the lowest
+    score minus 10, runs of unknown characters fused into one unknown
+    token.  Byte fallback and a byte-level pre-tokenizer or decoder raise
     ``NotImplementedError``."""
 
     UNK_PENALTY = 10.0
@@ -517,33 +415,9 @@ class UnigramTokenizer(_SnapshotTokenizer):
             raise _not_ported(f"tokenizer model {model.get('type')!r}")
         if model.get("byte_fallback"):
             raise _not_ported("Unigram byte_fallback")
-        self._normalize = _normalizer(spec.get("normalizer"))
-        pre = spec.get("pre_tokenizer") or {}
-        parts = pre.get("pretokenizers", []) if pre.get("type") == "Sequence" \
-            else [pre]
-        self.whitespace_split = [p.get("type") for p in parts[:-1]] == \
-            ["WhitespaceSplit"]
-        if (not parts or parts[-1].get("type") != "Metaspace"
-                or len(parts) > 1 + self.whitespace_split):
-            raise _not_ported(f"pre-tokenizer {pre.get('type')!r}")
-        self.replacement, self.prepend_scheme, self.split = \
-            _metaspace(parts[-1])
-        dec = spec.get("decoder")
-        if dec is not None and dec.get("type") != "Metaspace":
-            raise _not_ported(f"decoder {dec.get('type')!r}")
-        self.decoder = _metaspace(dec) if dec is not None else None
-        post = spec.get("post_processor")
-        if post is not None and post.get("type") != "TemplateProcessing":
-            raise _not_ported(f"post_processor {post.get('type')!r}")
-        self.template = None
-        if post is not None:
-            specials = post.get("special_tokens") or {}
-            self.template = []
-            for item in post["single"]:
-                if "Sequence" in item:
-                    self.template.append(None)
-                else:
-                    self.template += specials[item["SpecialToken"]["id"]]["ids"]
+        for key in ("pre_tokenizer", "decoder"):
+            if _has_byte_level(spec.get(key)):
+                raise _not_ported(f"a ByteLevel {key} before a Unigram model")
         pieces = model["vocab"]
         self.scores = [float(s) for _, s in pieces]
         self.vocab = {}
@@ -552,41 +426,9 @@ class UnigramTokenizer(_SnapshotTokenizer):
         self.unk_id = model.get("unk_id")
         self.min_score = min(self.scores, default=0.0)
         self.max_piece = max((len(p) for p, _ in pieces), default=1)
-        self._cache: Dict[str, List[int]] = {}
         super().__init__(spec, special_tokens, clean_up_tokenization_spaces)
 
-    def _post_process(self, ids: List[int]) -> List[int]:
-        if self.template is None:
-            return ids
-        out: List[int] = []
-        for item in self.template:
-            out += ids if item is None else [item]
-        return out
-
-    def _encode_segment(self, text: str) -> List[int]:
-        words = (re.findall(f"[^{re.escape(_WHITE_SPACE_CHARS)}]+", text)
-                 if self.whitespace_split else [text])
-        ids: List[int] = []
-        for word in words:
-            word = word.replace(" ", self.replacement)
-            if (self.prepend_scheme == "always"
-                    and not word.startswith(self.replacement)):
-                word = self.replacement + word
-            if not self.split:
-                pieces = [word] if word else []
-            else:
-                cuts = [i for i, c in enumerate(word)
-                        if c == self.replacement and i > 0]
-                pieces = [word[a:b] for a, b in
-                          zip([0] + cuts, cuts + [len(word)]) if b > a]
-            for piece in pieces:
-                cached = self._cache.get(piece)
-                if cached is None:
-                    cached = self._cache[piece] = self._viterbi(piece)
-                ids += cached
-        return ids
-
-    def _viterbi(self, text: str) -> List[int]:
+    def _encode_word(self, text: str) -> List[int]:
         n = len(text)
         if not n:
             return []
@@ -631,18 +473,6 @@ class UnigramTokenizer(_SnapshotTokenizer):
             tokens.append("".join(reversed(unk_run)))
         return [self.vocab.get(t, self.unk_id) for t in reversed(tokens)]
 
-    def _decode_tokens(self, tokens: List[str]) -> str:
-        if self.decoder is None:
-            return " ".join(tokens)
-        rep, scheme, _ = self.decoder
-        out = []
-        for i, tok in enumerate(tokens):
-            if i == 0 and scheme != "never":
-                out.append(tok.replace(rep, ""))
-            else:
-                out.append(tok.replace(rep, " "))
-        return "".join(out)
-
 
 #: Qwen-1's split pattern (``tokenization_qwen.PAT_STR``)
 _QWEN_PAT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}"
@@ -653,18 +483,10 @@ QWEN_SPECIALS = (("<|endoftext|>", "<|im_start|>", "<|im_end|>")
                  + tuple(f"<|extra_{i}|>" for i in range(205)))
 
 
-@functools.lru_cache(maxsize=1)
 def _qwen_split() -> "re.Pattern":
     """:data:`_QWEN_PAT` spelled for ``re`` (``\\p{L}``, ``\\p{N}`` and
-    ``\\s`` as in :func:`_byte_level_split`)."""
-    cats = [unicodedata.category(chr(cp))[0] for cp in range(0x110000)]
-    letters = _class_ranges(lambda cp: cats[cp] == "L")
-    numbers = _class_ranges(lambda cp: cats[cp] == "N")
-    ws = _WHITE_SPACE
-    return re.compile(
-        rf"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n{letters}{numbers}]?[{letters}]+"
-        rf"|[{numbers}]| ?[^{ws}{letters}{numbers}]+[\r\n]*|[{ws}]*[\r\n]+"
-        rf"|[{ws}]+(?![^{ws}])|[{ws}]+")
+    ``\\s`` as Unicode classes, :func:`.tokenizer_parts.onig_regex`)."""
+    return parts.onig_regex(_QWEN_PAT)
 
 
 class QwenTokenizer:
@@ -721,7 +543,8 @@ class QwenTokenizer:
     def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
         text = unicodedata.normalize("NFC", text)
         ids: List[int] = []
-        for seg, tid in _split_on(self._special_split, text, self.specials):
+        for seg, tid, _ in _split_on(self._special_split, text,
+                                     self.specials):
             if tid is not None:
                 ids.append(tid)
                 continue
@@ -775,17 +598,17 @@ def _alternation(tokens) -> Optional["re.Pattern"]:
 
 
 def _split_on(pattern, text: str, ids: Dict[str, int]):
-    """``text`` as ``(segment, None)`` and ``(token, id)`` pieces, split
-    where ``pattern`` matches one of the tokens ``ids`` names; empty
-    segments are left out."""
+    """``text`` as ``(segment, None, offset)`` and ``(token, id, offset)``
+    pieces, split where ``pattern`` matches one of the tokens ``ids``
+    names; empty segments are left out."""
     pos = 0
     for m in (pattern.finditer(text) if pattern is not None else ()):
         if m.start() > pos:
-            yield text[pos:m.start()], None
-        yield m.group(0), ids[m.group(0)]
+            yield text[pos:m.start()], None, pos
+        yield m.group(0), ids[m.group(0)], m.start()
         pos = m.end()
     if pos < len(text):
-        yield text[pos:], None
+        yield text[pos:], None, pos
 
 
 def _special_token(value) -> Optional[str]:
@@ -847,27 +670,61 @@ def _read_tiktoken(fname: str) -> Dict[bytes, int]:
                                     if line)}
 
 
+#: transformers' ``LlamaTokenizerFast`` (Llama-2's and Mistral's tokenizer
+#: class) and the special tokens it names when the config names none
+_LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast")
+_LLAMA_SPECIALS = {"bos_token": "<s>", "eos_token": "</s>",
+                   "unk_token": "<unk>"}
+
+
+def _llama_template(tok, config: Dict):
+    """``LlamaTokenizerFast.update_post_processor``: BOS in front when
+    ``add_bos_token`` (default on), EOS behind when ``add_eos_token``
+    (default off), whatever the file's post-processor says."""
+    front = [tok._token_id("bos_token")] if config.get("add_bos_token",
+                                                       True) else []
+    back = [tok._token_id("eos_token")] if config.get("add_eos_token",
+                                                      False) else []
+    return lambda ids: front + ids + back
+
+
 def load_tokenizer(path: str):
     """A snapshot's tokenizer, read from the files it holds: a
-    ``tokenizer.json`` (byte-level BPE, :class:`ByteLevelBPETokenizer`, or
-    Unigram, :class:`UnigramTokenizer`), else Qwen-1's ``qwen.tiktoken``
-    (:class:`QwenTokenizer`), else a ``vocab.json`` with ``merges.txt``
-    (byte-level BPE, with the config's ``add_bos_token``); a SentencePiece
-    ``tokenizer.model`` alone (Baichuan's) raises ``NotImplementedError``.
-    Special tokens come from ``tokenizer_config.json`` overridden by
-    ``special_tokens_map.json`` (as transformers reads them), with the
-    reference loader's pad rule: without a pad token, the EOS token pads,
-    else ``<|endoftext|>``, else the unknown token, else the token with the
-    smallest id (pad positions are masked, so any id in range works)."""
+    ``tokenizer.json`` (a BPE model, :class:`ByteLevelBPETokenizer`, or a
+    Unigram one, :class:`UnigramTokenizer`, each behind the pipeline
+    components of :mod:`.tokenizer_parts`), else Qwen-1's
+    ``qwen.tiktoken`` (:class:`QwenTokenizer`), else a ``vocab.json`` with
+    ``merges.txt`` (byte-level BPE, with the config's ``add_bos_token``);
+    a SentencePiece ``tokenizer.model`` or ``spiece.model`` alone
+    (Baichuan's, ChatGLM's, a T5 snapshot without ``tokenizer.json``)
+    raises ``NotImplementedError``.  As transformers loads them: special
+    tokens come from ``tokenizer_config.json`` overridden by
+    ``special_tokens_map.json``; a top-level ``ByteLevel`` pre-tokenizer
+    takes the config's ``add_prefix_space`` (default off); the LLaMA
+    ``tokenizer_class`` names ``<s>``, ``</s>`` and ``<unk>`` unless the config names
+    others and sets the BOS/EOS template from ``add_bos_token`` /
+    ``add_eos_token``.  Then the reference loader's pad rule: without a
+    pad token, the EOS token pads, else ``<|endoftext|>``, else the
+    unknown token, else the token with the smallest id (pad positions are
+    masked, so any id in range works)."""
     special, config = _read_special_tokens(path)
     clean_up = bool(config.get("clean_up_tokenization_spaces", False))
+    llama = config.get("tokenizer_class") in _LLAMA_CLASSES
+    if llama:
+        special = {**_LLAMA_SPECIALS, **special}
     fname = os.path.join(path, "tokenizer.json")
     if os.path.exists(fname):
         with open(fname, encoding="utf-8") as f:
             spec = json.load(f)
+        pre = spec.get("pre_tokenizer") or {}
+        if pre.get("type") == "ByteLevel":
+            spec["pre_tokenizer"] = dict(pre, add_prefix_space=bool(
+                config.get("add_prefix_space", False)))
         kind = (spec.get("model") or {}).get("type")
         reader = UnigramTokenizer if kind == "Unigram" else ByteLevelBPETokenizer
         tok = reader(spec, special, clean_up)
+        if llama:
+            tok._post = _llama_template(tok, config)
     elif os.path.exists(os.path.join(path, "qwen.tiktoken")):
         tok = QwenTokenizer(_read_tiktoken(os.path.join(path, "qwen.tiktoken")),
                             special)
@@ -875,8 +732,9 @@ def load_tokenizer(path: str):
              for n in ("vocab.json", "merges.txt")):
         tok = ByteLevelBPETokenizer(_bpe_spec_from_files(path), special,
                                     clean_up, bool(config.get("add_bos_token")))
-    elif os.path.exists(os.path.join(path, "tokenizer.model")):
-        raise _not_ported("a SentencePiece tokenizer.model")
+    elif any(os.path.exists(os.path.join(path, n))
+             for n in ("tokenizer.model", "spiece.model")):
+        raise _not_ported("a SentencePiece tokenizer.model / spiece.model")
     else:
         raise FileNotFoundError(f"no tokenizer files found under {path}")
     if tok.pad_token_id is None:

@@ -846,7 +846,7 @@ def test_instruct_cli_roster_covers_every_model():
         for s in shared}
     assert set(chip_smoke.INSTRUCT_REUSED) <= from_100q
     assert {f for *_, f in chip_smoke.INSTRUCT_SNAPSHOTS} == {
-        "unigram", "bpe", "gpt2", "tiktoken"}
+        "t5", "mistral_v03", "bpe", "gpt2", "tiktoken"}
 
 
 def test_t5_helpers_on_the_cpu(one_torch_thread):
@@ -991,3 +991,61 @@ def test_k_decode_phase_runs_its_routes():
                  '"oracle_int8kv"', "distill_k_head_on(sample)",
                  "init_k_head("):
         assert call in src, call
+
+
+def test_tokenizers_phase_runs_on_the_slice_weights():
+    """Phase 19 runs after the obs phase, before the slice's weights are
+    freed, and its prefills count in the ``kernels`` line."""
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("obs_phase") < src.index("tokenizers_phase") < \
+        src.index("del weights")
+    assert "ores,\n                             tres," in src
+    assert "tokenizers=tres" in src
+    phase = inspect.getsource(chip_smoke.tokenizers_phase)
+    assert "run_model_perturbation_sweep" in phase
+    assert 'toks["falcon"]' in phase and "FALCON_7B_GEOMETRY" in phase
+    assert set(chip_smoke.TOKENIZER_DIGESTS) == set(chip_smoke.TOKENIZER_FORMATS)
+
+
+def test_sweep_phase_runs_on_the_first_layers(one_torch_thread):
+    """The sweep phase's weights are views of the slice's first
+    SWEEP_LAYERS layers: nothing copied, the embedding shared (the boosted
+    runs scale and restore it in place)."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import config, convert
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    cfg = config.DecoderConfig(**config.FLAGSHIP_SMALL_GEOMETRY)
+    full = convert.random_params(cfg, seed=0, device="cpu", dtype="fp32")
+    cut = chip_smoke._first_layers(full, 2)
+    assert cut.cfg.num_layers == 2 and chip_smoke.SWEEP_LAYERS == 8
+    whole = dict(decoder._flatten(full.tree()))
+    for path, t in decoder._flatten(cut.tree()):
+        assert t.data_ptr() == whole[path].data_ptr(), path
+        if path[0] == "layers":
+            assert t.shape[0] == 2 and torch.equal(t, whole[path][:2])
+        else:
+            assert t.shape == whole[path].shape
+    src = inspect.getsource(chip_smoke.sweep_phase)
+    assert "_first_layers(full_weights, SWEEP_LAYERS)" in src
+    assert "_top1_rounding(weights, cfg, scenarios, tok, base)" in src
+
+
+def test_cli_snapshots_carry_the_published_formats():
+    """The run-100q and run-instruct-sweep snapshots of Falcon, BLOOM and
+    Mistral (v0.1/v0.2, v0.3) and the T5 models are written in their
+    published counterparts' tokenizer formats; the CLI phase's Falcon
+    snapshot too."""
+    models = {m for m, *_ in chip_smoke.CLI_SNAPSHOTS}
+    assert chip_smoke.CLI_TOKENIZERS == {
+        "tiiuae/falcon-7b": "falcon", "bigscience/bloom-7b1": "bloom",
+        "mistralai/Mistral-7B-Instruct-v0.2": "llama"}
+    assert set(chip_smoke.CLI_TOKENIZERS) <= models
+    inst = {m: f for m, _, _, f in chip_smoke.INSTRUCT_SNAPSHOTS}
+    assert inst["allenai/tk-instruct-3b-def"] == "t5"
+    assert inst["mistralai/Mistral-7B-Instruct-v0.3"] == "mistral_v03"
+    assert set(chip_smoke.CLI_TOKENIZERS.values()) | {"t5", "mistral_v03"} \
+        == set(chip_smoke.TOKENIZER_FORMATS)
+    assert '_format_tokenizer_files("falcon", texts)' in inspect.getsource(
+        chip_smoke.cli_phase)

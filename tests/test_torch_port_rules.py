@@ -2,8 +2,8 @@
 
 The port (and ``chip_smoke.py``, which drives it on the card) imports no
 JAX, nothing of the JAX package and no ``transformers``/``tokenizers``/
-``pandas``/``safetensors``: the machine with the card is not known to have
-them.  Its copies of host-only modules
+``pandas``/``safetensors``/``regex``/``sentencepiece``: the machine with
+the card is not known to have them.  Its copies of host-only modules
 must behave exactly as the originals.
 """
 
@@ -25,7 +25,8 @@ from test_torch_slots import one_torch_thread  # noqa: F401
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "llm_interpretation_replication_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "llm_interpretation_replication_tpu",
-             "transformers", "tokenizers", "pandas", "safetensors"}
+             "transformers", "tokenizers", "pandas", "safetensors", "regex",
+             "sentencepiece"}
 
 
 def _port_sources():

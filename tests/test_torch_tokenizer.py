@@ -161,12 +161,13 @@ def _spec(test_snapshot):
     ("model", "type", "WordPiece"),
     ("model", "dropout", 0.1),
     ("model", "continuing_subword_prefix", "##"),
-    ("model", "byte_fallback", True),
-    (None, "normalizer", {"type": "NFKC"}),
-    (None, "pre_tokenizer", {"type": "Sequence", "pretokenizers": []}),
-    (None, "pre_tokenizer", {"type": "Metaspace"}),
-    (None, "post_processor", {"type": "TemplateProcessing"}),
-    (None, "decoder", {"type": "Metaspace"}),
+    (None, "normalizer", {"type": "BertNormalizer"}),
+    (None, "pre_tokenizer", {"type": "Sequence", "pretokenizers": [
+        {"type": "BertPreTokenizer"}]}),
+    (None, "pre_tokenizer", {"type": "Metaspace",
+                             "prepend_scheme": "sometimes"}),
+    (None, "post_processor", {"type": "RobertaProcessing"}),
+    (None, "decoder", {"type": "WordPiece"}),
     (None, "truncation", {"max_length": 8}),
     (None, "added_tokens", [{"id": 0, "content": "!", "lstrip": True}]),
 ], ids=lambda e: f"{e[0]}.{e[1]}")
@@ -362,12 +363,20 @@ def test_smoke_unigram_files_match_tokenizers_and_transformers(tmp_path):
                                                     ref.eos_token_id)
 
 
+FIRST = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "first",
+         "split": True}
+
+
 @pytest.mark.parametrize("edit", [
-    ("normalizer", {"type": "Precompiled", "precompiled_charsmap": "AAEC"}),
+    # a charsmap is read, but not before a Metaspace "first", which reads
+    # original offsets a charsmap does not carry
+    ("normalizer", {"type": "Precompiled", "precompiled_charsmap":
+                    chip_smoke._charsmap_b64({"x": "y"})},
+     {"pre_tokenizer": FIRST}),
     ("normalizer", {"type": "BertNormalizer"}),
     ("pre_tokenizer", {"type": "ByteLevel"}),
-    ("pre_tokenizer", {"type": "Metaspace", "replacement": "▁",
-                       "prepend_scheme": "first", "split": True}),
+    # "first" is read, but not after NFKC (the same reason)
+    ("pre_tokenizer", FIRST, {"normalizer": {"type": "NFKC"}}),
     ("decoder", {"type": "ByteLevel"}),
     ("post_processor", {"type": "RobertaProcessing"}),
     ("model", {"type": "Unigram", "unk_id": 2, "vocab": [["a", 0.0]],
@@ -376,6 +385,7 @@ def test_smoke_unigram_files_match_tokenizers_and_transformers(tmp_path):
 def test_other_unigram_components_raise(edit):
     spec = json.loads(unigram_json("plain"))
     spec[edit[0]] = edit[1]
+    spec.update(edit[2] if len(edit) > 2 else {})
     with pytest.raises(NotImplementedError, match="Snapshot tokenizers"):
         ttok.UnigramTokenizer(spec)
 
@@ -458,9 +468,73 @@ def test_vocab_and_merges_match_transformers(tmp_path, add_bos):
 
 
 def test_load_tokenizer_picks_the_reader_from_the_files(tmp_path):
-    (tmp_path / "tokenizer.model").write_bytes(b"\x0a\x00")
-    with pytest.raises(NotImplementedError, match="Snapshot tokenizers"):
-        ttok.load_tokenizer(str(tmp_path))
-    (tmp_path / "tokenizer.model").unlink()
+    for name in ("tokenizer.model", "spiece.model"):
+        (tmp_path / name).write_bytes(b"\x0a\x00")
+        with pytest.raises(NotImplementedError, match="Snapshot tokenizers"):
+            ttok.load_tokenizer(str(tmp_path))
+        (tmp_path / name).unlink()
     with pytest.raises(FileNotFoundError, match="no tokenizer files"):
         ttok.load_tokenizer(str(tmp_path))
+
+
+# -- the smoke's published-format writers (chip_smoke._format_tokenizer_files)
+
+@functools.lru_cache(maxsize=None)
+def smoke_format_dir(fmt, tmp_dir):
+    path = os.path.join(tmp_dir, fmt)
+    os.makedirs(path, exist_ok=True)
+    chip_smoke._write_tokenizer_files(path, chip_smoke._format_tokenizer_files(
+        fmt, chip_smoke._tokenizer_learn_texts()))
+    return path
+
+
+@pytest.mark.parametrize("fmt", sorted(chip_smoke.TOKENIZER_FORMATS))
+def test_smoke_format_files_match_tokenizers_and_transformers(
+        fmt, tmp_path_factory):
+    """Each format ``chip_smoke.py`` writes for the CLI snapshots and the
+    tokenizers phase: ids (with and without special tokens) and decodes
+    those of the ``tokenizers`` package and of the JAX loader, on the
+    digest texts and the sweep's rephrasings; the reader the format
+    needs; every text back from a decode (T5's: normalized)."""
+    from tokenizers import Tokenizer
+
+    path = smoke_format_dir(fmt, str(tmp_path_factory.mktemp(fmt)))
+    got = ttok.load_tokenizer(path)
+    ref = jloader.load_tokenizer(path)
+    raw = Tokenizer.from_file(os.path.join(path, "tokenizer.json"))
+    assert isinstance(got, ttok.UnigramTokenizer if fmt == "t5"
+                      else ttok.ByteLevelBPETokenizer)
+    rephrasings = [r for rec in chip_smoke._perturbation_records(0)
+                   for r in rec["rephrasings"][:4]]
+    for text in chip_smoke._tokenizer_digest_texts() + rephrasings:
+        ids = got.encode(text)
+        assert ids == raw.encode(text).ids == ref(text).input_ids, repr(text)
+        assert got.encode(text, False) == ref(
+            text, add_special_tokens=False).input_ids
+        for skip in (True, False):
+            assert got.decode(ids, skip) == ref.decode(
+                ids, skip_special_tokens=skip) == raw.decode(
+                    ids, skip_special_tokens=skip), repr(text)
+    for text in rephrasings:
+        back = got.decode(got.encode(text), skip_special_tokens=True)
+        assert back == (got._normalize(text) if fmt == "t5" else text)
+    assert (got.pad_token_id, got.eos_token_id) == (ref.pad_token_id,
+                                                    ref.eos_token_id)
+
+
+@pytest.mark.parametrize("fmt", sorted(chip_smoke.TOKENIZER_FORMATS))
+def test_smoke_tokenizer_digests_match_the_package(fmt, tmp_path_factory):
+    """The digests the tokenizers phase holds the card's reader to are
+    the ``tokenizers`` package's and the JAX loader's ids on the same
+    files (and the port's here)."""
+    from tokenizers import Tokenizer
+
+    path = smoke_format_dir(fmt, str(tmp_path_factory.mktemp(fmt)))
+    texts_ = chip_smoke._tokenizer_digest_texts()
+    raw = Tokenizer.from_file(os.path.join(path, "tokenizer.json"))
+    ref = jloader.load_tokenizer(path)
+    want = chip_smoke.TOKENIZER_DIGESTS[fmt]
+    assert chip_smoke._ids_digest(raw.encode(t).ids for t in texts_) == want
+    assert chip_smoke._ids_digest(ref(t).input_ids for t in texts_) == want
+    got = ttok.load_tokenizer(path)
+    assert chip_smoke._ids_digest(got.encode(t) for t in texts_) == want
