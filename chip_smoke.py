@@ -195,7 +195,9 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 9, 11,
    move by at most FUSED_PROB_TOL elsewhere); every prompt forward of the
    kernel route launches the causal kernel once a layer; the causal kernel
    timed at the packed batch's shape;
-17. k_decode (after phase 16): the full-study row (``score_prefixed``, both
+17. k_decode (after phase 16, on the first K_DECODE_LAYERS (8) of the
+   slice's 32 layers, views; its near-tie measured there): the
+   full-study row (``score_prefixed``, both
    legs) on the full-study phase's 96 rows at K=1, then at K=4 with a
    distilled head (its distillation seconds and size), with oracle
    proposals (``oracle_engine``: the K=1 chain, so blocks are accepted)
@@ -206,8 +208,8 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 9, 11,
    measured logit deviation) and keep their probabilities within it; the
    oracle saves steps; passes a chunk, ms of a sequential chunk against
    the accepted K path's, and the accept rate are printed;
-18. obs (after phase 17, on the slice's weights; guards and device
-   observability): 20 rows of the sweep phase's corpus (5 scenarios x 4
+18. obs (after phase 17, on the first OBS_LAYERS (8) of the slice's
+   layers, views; guards and device observability): 20 rows of the sweep phase's corpus (5 scenarios x 4
    rephrasings) through ``run_model_perturbation_sweep`` after a warm-up
    run: (a) plain, (b) with strict mode, the span tracer, the metrics log
    and a ``profile_window`` capture all armed, a warm repeat under strict
@@ -240,10 +242,34 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 9, 11,
    ``tokenizers`` package's and the JAX loader's on the CPU, so a
    different ``unicodedata`` on the card's Python shows); then 20 rows
    of the corpus encoded by the Falcon-format reader through
-   ``run_model_perturbation_sweep`` at 32 layers on the causal kernel,
-   traced (rows/s, the prefetcher's encode spans' share of the wall) and
-   again untraced: every row finite, the rerun's rows equal, 32 causal
-   launches a prefill.
+   ``run_model_perturbation_sweep`` at OBS_LAYERS layers on the causal
+   kernel, traced (rows/s, the prefetcher's encode spans' share of the
+   wall) and again untraced: every row finite, the rerun's rows equal, a
+   causal launch a layer and prefill;
+20. serve (after phase 19, on the slice's weights at full depth, batch 32,
+   ``attention_impl="flash"``): the serving layer (``serve/``): replay
+   of the pooled phase's 384 prompts with slot admission under strict
+   mode (``blocked_transfers`` 0, rows admitted mid-decode), 96 of the
+   full-study prefix/suffix pairs through ``score_prefixed``, an OOM
+   split under a memory cap between the needs of a micro-batch of 16 and
+   one of 32 (``serve_oom_split`` events, every request answered), a
+   two-replica ``build_shared_pool`` over a copy of the weights serving
+   SERVE_POOL_PROMPTS of the replay's prompts (both
+   replicas answer; after both hot unloads ``memory_allocated`` within
+   SERVE_MEMORY_SLACK of its value before the copy), prefill/decode roles
+   with an int8 KV cache (slab export and import rows balance), a
+   supervised pair in which ``BreakableEngine`` crashes one replica and
+   wedges its rebuilt successor (crash and wedge counted, both rebuilt,
+   the rebuild ms printed), and the load harness (a closed loop, then
+   open loops at 0.25/0.5/0.9 of its rate: p50/p90/p99, phase medians,
+   achieved against offered).  Every leg's rows equal an offline call's
+   (``rows_equal``), and its causal launches equal its layers x prefills
+   (at least that in the OOM leg).  Its CLI leg (after phase 18's, on
+   phase 11's snapshot): ``serve --input`` over 64 JSONL lines, one
+   malformed, under ``--strict`` with ``--metrics-port`` (``/healthz``
+   and ``/metrics`` fetched while it serves), ``--replay`` (exit 0 on
+   parity) and ``--load-rate`` with three rates through
+   ``--pool-replicas 2 --supervise``.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -365,6 +391,8 @@ CLI_INT8_MAX_DREL = 0.05
 # the distillation sample (binary and confidence prompts, the CLI's counts)
 PACK_Q = 4
 K_DECODE = 4
+# the K-decode phase's depth: views of the slice's first layers (of 32)
+K_DECODE_LAYERS = 8
 K_DISTILL = (24, 12)
 # (wrapper, source in ops/csrc, line of the TPU kernel it replaces in
 # llm_interpretation_replication_tpu/ops/attention.py, shapes, layout)
@@ -857,8 +885,8 @@ def slice_phase(seed, attention):
                   same_position0_verdict_share=same_hit0 / N_PROMPTS,
                   max_abs_delta_relative_prob=max_drel)
     say("slice", json.dumps(result))
-    engine.close()
-    dense.close()
+    engine.close(release_params=False)
+    dense.close(release_params=False)
     result["forced_routes"] = forced
     return result, rows, weights
 
@@ -1128,7 +1156,7 @@ def pooled_phase(seed, attention, weights):
                     _check_pooled_rows(name, rows[name], rows["per_batch"])
             runs.append(res)
             say("pooled", json.dumps(res))
-            engine.close()
+            engine.close(release_params=False)
         if not runs[2]["occupancy"]["refills"] > 0:
             raise AssertionError(f"the ring never refilled a lane: "
                                  f"{runs[2]['occupancy']}")
@@ -1169,7 +1197,7 @@ def pooled_phase(seed, attention, weights):
         say("pooled", json.dumps(res))
         if not res["identical_to_slotted"]:
             raise AssertionError("KV-slab rows differ from the slotted rows")
-        engine.close()
+        engine.close(release_params=False)
     finally:
         decoder.prefill = real_prefill
     oom = oom_run(cfg, weights, tok, prompts, targets, base, rows["ring"],
@@ -1177,7 +1205,8 @@ def pooled_phase(seed, attention, weights):
     return dict(prompts=POOL_PROMPTS, batches=len(batches),
                 buckets=[b.bucket_len for b in batches],
                 decided_share=decided / POOL_PROMPTS,
-                pool_target=POOL_TARGET, runs=runs, oom=oom)
+                pool_target=POOL_TARGET, runs=runs, oom=oom,
+                inputs=(prompts, targets))
 
 
 def oom_run(cfg, weights, tok, prompts, targets, base, ring_rows, ring_res):
@@ -1210,7 +1239,7 @@ def oom_run(cfg, weights, tok, prompts, targets, base, ring_rows, ring_res):
         torch.cuda.set_per_process_memory_fraction(1.0)
     events = [{k: e[k] for k in ("batch", "new_batch", "bucket_len", "rows")}
               for e in engine.fault_events]
-    engine.close()
+    engine.close(release_params=False)
     res = dict(prompts=len(idx), batch=OOM_BATCH, cap_bytes=int(cap),
                batch32_need_bytes=int(need32), fault_events=events,
                seconds=elapsed)
@@ -1744,9 +1773,10 @@ def full_study_phase(seed, attention, weights):
                    **{k: c.get(k, 0) for k in (
                        "decode_steps_saved", "conf_steps_saved",
                        "pooled_conf_retired_rows", "pooled_conf_rows",
-                       "completion_cache_bytes_freed", "prefix_hit",
+                       "completion_cache_bytes_freed",
+                       "completion_cache_bytes_retired", "prefix_hit",
                        "prefix_miss")})
-        engine.close()
+        engine.close(release_params=False)
         runs[name], rows[name] = res, out
         say("full_study", json.dumps(res))
 
@@ -1966,7 +1996,7 @@ def int8_phase(seed, attention, bf16_rows):
         runs[kv] = dict(rows=rows, result=dict(
             kv_dtype=kv, rows_per_s=N_PROMPTS / elapsed, seconds=elapsed,
             peak_memory_bytes=peak, kernel_launches=launches))
-        engine.close()
+        engine.close(release_params=False)
 
     def drel(a_rows, b_rows):
         d = np.abs([a["relative_prob"] - b["relative_prob"]
@@ -2519,7 +2549,7 @@ def sweep_phase(seed, attention, full_weights, workdir, card):
                 forward_last_logits=counted["forward_last_logits"],
                 prefill_chunks=c.get("prefill_chunks", 0),
                 interrupted=rows is None))
-        engine.close()
+        engine.close(release_params=False)
         if os.path.exists(out + ".rows.jsonl"):
             raise AssertionError(f"sweep {name}: the side-log outlived the run")
         cols, book = read_xlsx(out)
@@ -3410,7 +3440,7 @@ def cli_phase(seed, attention, workdir, card):
     out = os.path.join(workdir, "in_process.xlsx")
     run_model_perturbation_sweep(engine, snap, scenarios, out,
                                  log=SessionLogger(stream=io.StringIO()))
-    engine.close()
+    engine.close(release_params=False)
     in_process = read_xlsx(out)[1]
     same = sum(a == b for a, b in zip(books["bf16"], in_process))
     if same != n_rows:
@@ -4201,7 +4231,7 @@ def families_phase(seed, attention, card, instruct=False):
                 fails.append(f"{label} {route}: {launches} causal launches "
                              f"for {counted['prefill']} prefills")
             rows_by[route] = engine.rows
-            engine._engine.close()
+            engine._engine.close(release_params=False)
             del engine, rweights
             torch.cuda.empty_cache()
 
@@ -4884,7 +4914,7 @@ def _t5_gated_run(label, model, cfg, weights, tok, prompts, rows, card,
     rows8 = eng.score_prompts(prompts)
     torch.cuda.synchronize()
     secs8 = time.perf_counter() - t0
-    eng.close()
+    eng.close(release_params=False)
     stats, f = _compare_family_rows(f"{label} batch 8", rows8, rows, leads,
                                     edge, split, tie, p32, clear, 2 * dev16)
     fails += f
@@ -4979,7 +5009,7 @@ def instruct_phase(seed, attention, workdir, card):
         if run["success_rows"] != len(prompts):
             fails.append(f"{label}: {run['success_rows']} rows with success "
                          f"of {len(prompts)}")
-        engine._engine.close()
+        engine._engine.close(release_params=False)
         return engine.rows, out
 
     # T0_3B through the instruct sweep's per-model call
@@ -5033,7 +5063,7 @@ def instruct_phase(seed, attention, workdir, card):
         t5_results.append(dict(res, **extra))
         fails += f
         say("instruct gates", json.dumps(t5_results[-1]))
-        engine._engine.close()
+        engine._engine.close(release_params=False)
     made.clear()
     torch.cuda.empty_cache()
 
@@ -5498,7 +5528,7 @@ def packed_phase(seed, attention, weights, near_tie, workdir, card):
                 length_sorted=True)})
         speed["packed_over_isolated"] = (speed["packed_questions_per_s"]
                                          / speed["isolated_questions_per_s"])
-        engine.close()
+        engine.close(release_params=False)
         say("packed speed", json.dumps(speed))
 
         # kernel and dense routes: single-question packs and question 0 of
@@ -5533,7 +5563,7 @@ def packed_phase(seed, attention, weights, near_tie, workdir, card):
             elif _launches(attention)["causal_grouped_attention"]:
                 fails.append("dense route launched the causal kernel")
             runs.append(res)
-            eng.close()
+            eng.close(release_params=False)
             iso_rows = [tuple(float(x) for x in r) for r in iso_r]
             stats[f"{route}_single"], f = _position0_partings(
                 f"{route} Q=1", fields(single), iso_rows, edge, split, tie)
@@ -5633,12 +5663,15 @@ def _k_chunk_timing(weights, cfg, prompts, head, n=10, kmax=K_DECODE):
     return res
 
 
-def k_decode_phase(seed, attention, weights, near_tie, card):
+def k_decode_phase(seed, attention, full_weights, card):
     """The full-study row (``score_prefixed``, binary and confidence legs)
-    on the full-study phase's 96 rows with the joint K-token decode:
-    K=1, then K=K_DECODE with a distilled head, with oracle proposals
-    (``oracle_engine``) and with a random head (every speculative block
-    rejects); then K=1 and the oracle with an int8 KV cache."""
+    on the full-study phase's 96 rows with the joint K-token decode, on
+    the slice's first K_DECODE_LAYERS layers (views, as the sweep phase
+    runs): K=1, then K=K_DECODE with a distilled head, with oracle
+    proposals (``oracle_engine``) and with a random head (every
+    speculative block rejects); then K=1 and the oracle with an int8 KV
+    cache.  The near-tie is measured at this depth, as the full-study
+    phase measures it at full depth."""
     import numpy as np
     import torch
 
@@ -5649,8 +5682,11 @@ def k_decode_phase(seed, attention, weights, near_tie, card):
     from llm_interpretation_replication_tpu_torch.utils import telemetry
 
     device = "cuda"
-    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
-                                attention_impl="flash")
+    weights = _first_layers(full_weights, K_DECODE_LAYERS)
+    cfg = dataclasses.replace(
+        mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                              attention_impl="flash"),
+        num_layers=K_DECODE_LAYERS)
     prefixes, suffixes = _study_inputs(seed, cfg.vocab_size)
     pairs = list(zip(prefixes, suffixes))
     n = len(pairs)
@@ -5717,7 +5753,7 @@ def k_decode_phase(seed, attention, weights, near_tie, card):
                                       / res["k_blocks_proposed"])
         if res["k_chunks"]:
             res["passes_per_chunk"] = res["verify_passes"] / res["k_chunks"]
-        engine.close()
+        engine.close(release_params=False)
         runs[name], rows[name] = res, out
         say("k_decode", json.dumps(dict(res, card=card)))
 
@@ -5733,7 +5769,7 @@ def k_decode_phase(seed, attention, weights, near_tie, card):
         warm = engine()
         warm.score_prefixed(pairs[:base.batch_size],
                             targets[:base.batch_size], legs=legs)
-        warm.close()
+        warm.close(release_params=False)
         run("k1", engine())
         distilled = engine(decode_k=K_DECODE)
         sample = ([p + s[0] for p, s in pairs[:K_DISTILL[0]]]
@@ -5765,6 +5801,16 @@ def k_decode_phase(seed, attention, weights, near_tie, card):
     timing["card"] = card
     del head
     say("k_decode timing", json.dumps(timing))
+    conf_batches = list(batching.batches_for_prompts(
+        joined[1], base.batch_size, base.buckets, pad_id=0,
+        length_sorted=True))
+    # the rounding between two bf16 computations of the same logits at
+    # this depth (the full-study phase's measure): a greedy decode of the
+    # confidence prompts against one forward over them and their tokens
+    btoks, _, btop1, _, _, _ = _study_prepass(
+        weights, cfg, conf_batches, n, CONF_CAP, CONF_CAP, None, target_ids)
+    near_tie = NEAR_TIE_FACTOR * float(np.abs(_teacher_top1(
+        weights, cfg, joined[1], btoks.tolist())[0][:, :-1] - btop1).max())
     tie = 2 * near_tie
     # the sequential tokens proposed to the passes: the passes' own chain
     # may leave them only where the sequential lead is below the tie
@@ -5778,9 +5824,6 @@ def k_decode_phase(seed, attention, weights, near_tie, card):
     # over the same tokens; a K=1-vs-oracle parting on the int8 runs may
     # lie that much further from the bf16 forward's lead
     icfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
-    conf_batches = list(batching.batches_for_prompts(
-        joined[1], base.batch_size, base.buckets, pad_id=0,
-        length_sorted=True))
     itoks, _, itop1, _, _, _ = _study_prepass(
         weights, icfg, conf_batches, n, CONF_CAP, CONF_CAP, None, target_ids)
     int8_dev = float(np.abs(_teacher_top1(
@@ -5820,7 +5863,8 @@ def k_decode_phase(seed, attention, weights, near_tie, card):
         if name != "k1" and name != "k1_int8kv" and not res["k_chunks"]:
             fails.append(f"{name}: the K path never ran")
     result = dict(card=card, rows=n, decode_k=K_DECODE, runs=list(
-        runs.values()), timing=timing, stats=stats, parting_tie=tie,
+        runs.values()), timing=timing, stats=stats, layers=K_DECODE_LAYERS,
+        near_tie=near_tie, parting_tie=tie,
         int8_logit_deviation=int8_dev, failures=fails[:50], **extra)
     say("k_decode gates", json.dumps(dict(card=card, stats=stats, **extra,
                                           failures=len(fails))))
@@ -5836,8 +5880,10 @@ def k_decode_phase(seed, attention, weights, near_tie, card):
 # ---------------------------------------------------------------------------
 
 # the obs phase's rows: this many rephrasings of each scenario of the sweep
-# phase's corpus (5 x 4 = 20 rows, one chunk, one batch)
+# phase's corpus (5 x 4 = 20 rows, one chunk, one batch); it and the
+# tokenizers phase's sweep run on the slice's first OBS_LAYERS layers
 OBS_PER_SCENARIO = 4
+OBS_LAYERS = 8
 # what sync debug mode "error" is asked about on the card: each op once,
 # inside a scoring guard (the negative control is the first)
 SYNC_PROBES = ("item", "cpu", "bool_of_tensor", "nonzero", "bool_mask_index",
@@ -5933,9 +5979,9 @@ def _run_sync_probes(strict, telemetry, ops, x, raised, fails):
     return int(telemetry.counter(strict.BLOCKED_COUNTER) - before)
 
 
-def obs_phase(seed, attention, weights, workdir, card):
-    """Phase 18 on Falcon-7B at full width and depth (the slice's weights,
-    the causal kernel): 20 rows of the sweep phase's corpus through
+def obs_phase(seed, attention, full_weights, workdir, card):
+    """Phase 18 on Falcon-7B at full width and OBS_LAYERS of its layers
+    (views of the slice's weights, the causal kernel): 20 rows of the sweep phase's corpus through
     ``run_model_perturbation_sweep``, after a warm-up run: (a) plain, (b)
     with strict mode, the tracer, the metrics log and a ``profile_window``
     capture all armed, (b') strict alone again (the warm repeat), (c) with
@@ -5963,8 +6009,11 @@ def obs_phase(seed, attention, weights, workdir, card):
     from llm_interpretation_replication_tpu_torch.utils.logging import (
         SessionLogger)
 
-    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
-                                attention_impl="flash")
+    weights = _first_layers(full_weights, OBS_LAYERS)
+    cfg = dataclasses.replace(
+        mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                              attention_impl="flash"),
+        num_layers=OBS_LAYERS)
     scenarios = [dict(s, rephrasings=s["rephrasings"][:OBS_PER_SCENARIO])
                  for s in load_perturbations(
                      os.path.join(workdir, "perturbations.json"),
@@ -6053,7 +6102,7 @@ def obs_phase(seed, attention, weights, workdir, card):
         sweep("sync_traced", ("trace",), sync=True)
     finally:
         decoder.prefill = real_prefill
-    engine.close()
+    engine.close(release_params=False)
     memory = device_memory_snapshot("obs")
     raised, probe_blocked, probe_fails = _sync_probes(strict, telemetry)
     fails += probe_fails
@@ -6252,15 +6301,16 @@ def _ids_digest(id_lists):
 
 
 def tokenizers_phase(seed, attention, weights, workdir, card):
-    """Phase 19 on the card's host and Falcon-7B at full width and depth:
+    """Phase 19 on the card's host and Falcon-7B at full width:
     each published tokenizer format of ``TOKENIZER_FORMATS``, written as
     plain JSON and read back through ``load_tokenizer`` from a directory,
     encodes the sweep corpus (the scenarios and their rephrasings;
     tokens/s) and decodes it back, and its ids over the fixed
     ``_tokenizer_digest_texts()`` hash to ``TOKENIZER_DIGESTS``; then 20
     rows of the corpus, encoded by the Falcon-format reader, go through
-    ``run_model_perturbation_sweep`` on the slice's weights (32 layers,
-    bf16, the causal kernel) with the span tracer on, and again without
+    ``run_model_perturbation_sweep`` on the slice's first OBS_LAYERS layers
+    (views; bf16, the causal kernel) with the span tracer on, and again
+    without
     it: rows/s, the share of the traced run's wall time in the
     prefetcher's encode spans, every row finite, the rerun's rows
     equal."""
@@ -6330,13 +6380,18 @@ def tokenizers_phase(seed, attention, weights, workdir, card):
         if formats[fmt]["reader"] != want_reader:
             fails.append(f"{fmt}: read by {formats[fmt]['reader']}")
 
-    # 20 rows through the sweep, encoded by the Falcon-format reader
-    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
-                                attention_impl="flash")
+    # 20 rows through the sweep at OBS_LAYERS layers (views), encoded by
+    # the Falcon-format reader
+    cfg = dataclasses.replace(
+        mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                              attention_impl="flash"),
+        num_layers=OBS_LAYERS)
     rows_in = [dict(s, rephrasings=s["rephrasings"][:OBS_PER_SCENARIO])
                for s in scenarios]
     n_rows = sum(len(s["rephrasings"]) for s in rows_in)
-    engine = emod.ScoringEngine("falcon", cfg, weights, toks["falcon"],
+    engine = emod.ScoringEngine("falcon", cfg,
+                                _first_layers(weights, OBS_LAYERS),
+                                toks["falcon"],
                                 device="cuda", engine_config=emod.EngineConfig(
                                     batch_size=BATCH))
     counted = {"prefill": 0}
@@ -6379,7 +6434,7 @@ def tokenizers_phase(seed, attention, weights, workdir, card):
             say("tokenizers sweep", json.dumps(dict(runs[-1], card=card)))
     finally:
         decoder.prefill = real_prefill
-        engine.close()
+        engine.close(release_params=False)
     for res in runs:
         if (not res["prefills"]
                 or res["kernel_launches"] != cfg.num_layers * res["prefills"]):
@@ -6408,6 +6463,588 @@ def tokenizers_phase(seed, attention, weights, workdir, card):
         raise AssertionError(f"tokenizers: {len(fails)} failures: "
                              + "; ".join(fails[:20]))
     return result
+
+
+# ---------------------------------------------------------------------------
+# The serving layer (phase 20): serve/ over the slotted engine and KV slabs
+# ---------------------------------------------------------------------------
+
+# the admission hold of the phase's schedulers
+SERVE_MAX_WAIT_S = 0.02
+# prefix/suffix pairs of the full-study rows served through score_prefixed
+SERVE_PREFIX_PAIRS = 96
+# the OOM leg: prompts of this length (bucket 448), one micro-batch of 32
+SERVE_OOM_PROMPTS, SERVE_OOM_LEN = 32, 440
+# the pool, roles and supervise legs' requests (the pooled prompts' first
+# rows)
+SERVE_POOL_PROMPTS, SERVE_ROLE_PROMPTS, SERVE_SUPERVISE_PROMPTS = 192, 64, 32
+# a busy replica with no progress beat for this long is wedged; well above
+# one Falcon-7B launch of 32 rows
+SERVE_WEDGE_S = 3.0
+# the load leg: prompts of one bucket (256), completions of 10 tokens, the
+# open-loop rates as fractions of the closed loop's, seconds each
+SERVE_LOAD_PROMPTS, SERVE_LOAD_LENS = 64, (241, 256)
+SERVE_LOAD_FRACTIONS, SERVE_LOAD_S, SERVE_LOAD_TOKENS = (0.25, 0.5, 0.9), 5.0, 10
+SERVE_LOAD_CLOSED_S = 2.0
+# memory after the pool leg's hot unloads may sit this far above its
+# value before the leg's copy of the weights
+SERVE_MEMORY_SLACK = 64 << 20
+# the CLI leg: request lines (one malformed), and the load harness's rates
+SERVE_CLI_LINES, SERVE_CLI_BAD_LINE = 64, 17
+SERVE_CLI_RATES, SERVE_CLI_LOAD_S = (2.0, 4.0, 8.0), 2.0
+
+
+def _vs_offline(what, rows, ref, rows_equal, fails):
+    """Served rows against one offline call over the same requests: the
+    gate is ``rows_equal`` on every row; the stats say how far apart
+    any others are."""
+    same = [rows_equal(a, b) for a, b in zip(rows, ref)]
+    stats = dict(bit_identical_rows=sum(same), rows=len(ref),
+                 same_scan_found=sum(a["scan_found"] == b["scan_found"]
+                                     for a, b in zip(rows, ref)),
+                 max_abs_delta_relative_prob=max(
+                     abs(a["relative_prob"] - b["relative_prob"])
+                     for a, b in zip(rows, ref)))
+    if len(rows) != len(ref) or not all(same):
+        first = [(i, {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+                      if a.get(k) != b.get(k)})
+                 for i, (a, b, eq) in enumerate(zip(rows, ref, same))
+                 if not eq][:3]
+        fails.append(f"serve {what}: {len(ref) - sum(same)} of {len(ref)} "
+                     f"rows differ from offline ({stats}; first {first})")
+    return stats
+
+
+def _wait_for(cond, timeout_s):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return cond()
+
+
+def serve_phase(seed, attention, weights, pool_inputs, card):
+    """The serving layer on Falcon-7B at full width and depth (bf16,
+    batch 32, ``attention_impl="flash"``): replay with slot admission
+    under strict mode, prefix pairs, a real OOM split, a two-replica
+    shared pool with hot unloads, prefill/decode roles with an int8 KV
+    cache, a supervised pool that loses a replica to a crash and one to a
+    wedge, and the open-loop load harness.  Every leg holds its served rows
+    exactly (``rows_equal``) against one offline call over the same
+    requests: the engine's decode reads a row the same in any batch or
+    ring composition (float64 products and slot-axis sums in the decode
+    attention, rings at their capacity, ReducedScores scanned on the
+    host)."""
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch import serve
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.runtime import strict
+    from llm_interpretation_replication_tpu_torch.serve import cli as scli
+    from llm_interpretation_replication_tpu_torch.serve import load as sload
+    from llm_interpretation_replication_tpu_torch.utils import telemetry
+    from llm_interpretation_replication_tpu_torch.utils.testing import (
+        BreakableEngine)
+
+    device = "cuda"
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
+    tok = _id_tokenizer(cfg.vocab_size)
+    prompts, pairs = pool_inputs
+    # the pool target at its default, the batch: slot rings and the
+    # pooled route's in-place fallback then decode at one row count
+    base = emod.EngineConfig(decode_completions=False, batch_size=BATCH)
+    sched_cfg = serve.SchedulerConfig(max_wait_s=SERVE_MAX_WAIT_S)
+    rows_equal = serve.rows_equal
+    rng = np.random.default_rng(seed + 20)
+
+    def engine(ecfg=base, w=weights):
+        return emod.ScoringEngine("falcon", cfg, w, tok, device=device,
+                                  engine_config=ecfg)
+
+    def requests(ps, ts, **kw):
+        return [serve.ScoreRequest(prompt=p, targets=tuple(t), **kw)
+                for p, t in zip(ps, ts)]
+
+    prefills = [0]
+    real_prefill = decoder.prefill
+
+    def counted_prefill(*args, **kwargs):
+        out = real_prefill(*args, **kwargs)
+        prefills[0] += 1            # a prefill that ran out of memory
+        return out                  # is not counted
+
+    runs, fails = [], []
+    offline_rows = []           # the replay leg's offline call, shared
+
+    def leg(name, fn):
+        torch.cuda.synchronize()
+        _reset_launches(attention)
+        prefills[0] = 0
+        snap = telemetry.counters()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        res.update(run=name, seconds=time.perf_counter() - t0,
+                   kernel_launches=_launches(attention)[
+                       "causal_grouped_attention"],
+                   prefills=prefills[0],
+                   serve_counters={k: v for k, v in telemetry.counters_since(
+                       snap).items() if k.startswith(("serve_", "pool_"))})
+        want = cfg.num_layers * res["prefills"]
+        # the OOM leg's failed prefills launch the kernel up to the layer
+        # that ran out of memory
+        if not res["prefills"] or res["kernel_launches"] < want or (
+                name != "oom" and res["kernel_launches"] != want):
+            fails.append(f"serve {name}: {res['kernel_launches']} causal "
+                         f"launches for {res['prefills']} prefills")
+        runs.append(res)
+        say("serve", json.dumps(dict(res, card=card)))
+        return res
+
+    def replay_leg():
+        eng = engine()
+        eng.score_prompts(prompts[:BATCH], pairs[:BATCH])     # warm-up
+        snap = telemetry.counters()
+        t0 = time.perf_counter()
+        offline = eng.score_prompts(prompts, pairs)
+        offline_s = time.perf_counter() - t0
+        offline_rows.extend(offline)
+        strict.activate(sentry=False)
+        try:
+            report = serve.replay(eng, prompts, targets=pairs,
+                                  config=sched_cfg, offline_rows=offline,
+                                  offline_s=offline_s, require_parity=False)
+        finally:
+            strict.deactivate()
+        served = report.pop("serve_rows")
+        admitted = int(telemetry.counters_since(snap).get(
+            "serve_slot_admitted", 0))
+        if not admitted:
+            fails.append("serve replay: no request was admitted mid-decode")
+        if report["blocked_transfers"]:
+            fails.append(f"serve replay: blocked_transfers "
+                         f"{report['blocked_transfers']} under strict mode")
+        eng.close(release_params=False)
+        return dict(report=report, admitted_mid_decode=admitted,
+                    vs_offline=_vs_offline("replay", served, offline,
+                                           rows_equal, fails))
+
+    # the prefix leg's rows: three in four decided at position 0 (yes =
+    # the top token of one forward, outside the leg's launch count), the
+    # rest decode their look-ahead
+    prefixes, suffixes = _study_inputs(seed, cfg.vocab_size)
+    n_pairs = SERVE_PREFIX_PAIRS
+    top = _top_tokens(weights, cfg, [prefixes[i] + suffixes[i][0]
+                                     for i in range(n_pairs)])
+    prefix_targets = [(f"t{top[i]}", f"t{b}") if i % 4 else (f"t{a}", f"t{b}")
+                      for i, (a, b) in enumerate(
+                          rng.integers(3, cfg.vocab_size, (n_pairs, 2)))]
+
+    def prefix_leg():
+        n, targets = n_pairs, prefix_targets
+        pairs_ = [(prefixes[i], (suffixes[i][0],)) for i in range(n)]
+        eng = engine()
+        sched = serve.Scheduler(eng, sched_cfg)
+        futs = [sched.submit(serve.ScoreRequest(
+            prefix=prefixes[i], suffix=suffixes[i][0], targets=targets[i]))
+            for i in range(n)]
+        with sched:
+            served = [f.result(timeout=600) for f in futs]
+        pool = eng.last_prefix_pool
+        if not (pool.closed and pool.consistent):
+            fails.append("serve prefix: the prefix cache pool leaked")
+        offline = eng.score_prefixed(pairs_, targets=targets)[0]
+        eng.close(release_params=False)
+        return dict(pairs=n, vs_offline=_vs_offline(
+            "prefix", served, offline, rows_equal, fails))
+
+    def oom_leg():
+        oom_prompts = [rng.integers(3, cfg.vocab_size,
+                                    SERVE_OOM_LEN).tolist()
+                       for _ in range(SERVE_OOM_PROMPTS)]
+        targets = [(f"t{a}", f"t{b}") for a, b in
+                   rng.integers(3, cfg.vocab_size, (SERVE_OOM_PROMPTS, 2))]
+        eng = engine()
+        need = {}
+        for b in (BATCH // 2, BATCH):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            with eng.config_overrides(batch_size=b):
+                eng.score_prompts_slotted(oom_prompts[:b], targets[:b])
+            torch.cuda.synchronize()
+            need[b] = torch.cuda.max_memory_allocated() - before
+        torch.cuda.empty_cache()
+        cap = torch.cuda.memory_reserved() + (need[BATCH // 2]
+                                              + need[BATCH]) / 2
+        total = torch.cuda.get_device_properties(0).total_memory
+        telemetry.clear_fault_events()
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            sched = serve.Scheduler(eng, sched_cfg)
+            futs = [sched.submit(r) for r in requests(oom_prompts, targets)]
+            with sched:
+                outcome = [f.exception(timeout=600) or f.result(timeout=0)
+                           for f in futs]
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        errors = [o for o in outcome if isinstance(o, BaseException)]
+        splits = [{k: e[k] for k in ("rows", "batch", "new_batch")}
+                  for e in telemetry.fault_events("serve_oom_split")]
+        if errors or not splits:
+            fails.append(f"serve oom: {len(errors)} requests failed "
+                         f"({errors[:1]}), splits {splits}")
+        eng.close(release_params=False)
+        res = dict(prompts=SERVE_OOM_PROMPTS, bucket_tokens=SERVE_OOM_LEN,
+                   cap_bytes=int(cap), splits=splits,
+                   need_bytes={str(k): int(v) for k, v in need.items()})
+        if not errors and splits:
+            # offline at the batch the split ended at
+            ended = min(sp["new_batch"] for sp in splits)
+            res["vs_offline"] = _vs_offline(
+                "oom", outcome, engine(dataclasses.replace(
+                    base, batch_size=ended)).score_prompts(
+                        oom_prompts, targets), rows_equal, fails)
+        return res
+
+    def pool_leg():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        copy = decoder.DecoderWeights(cfg, _clone_tree(weights.tree()))
+        pool = scli.build_shared_pool(engine(w=copy), "falcon-7b", 2,
+                                      sched_cfg)
+        n = SERVE_POOL_PROMPTS
+        futs = [pool.submit(r) for r in requests(prompts[:n], pairs[:n])]
+        served = [f.result(timeout=600) for f in futs]
+        answered = {r.rid: r.completed for r in pool.replicas()}
+        for rid in list(answered):
+            pool.unload(rid)
+        pool.close()
+        del copy, pool
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        if min(answered.values()) == 0:
+            fails.append(f"serve pool: answered by replica {answered}")
+        if after - before > SERVE_MEMORY_SLACK:
+            fails.append(f"serve pool: {after - before} bytes still "
+                         f"allocated after both hot unloads")
+        return dict(replicas=2, requests=n, answered=answered,
+                    memory_before_bytes=before, memory_after_bytes=after,
+                    vs_offline=_vs_offline("pool", served, offline_rows[:n],
+                                           rows_equal, fails))
+
+    def roles_leg():
+        n = SERVE_ROLE_PROMPTS
+        ecfg = dataclasses.replace(base, kv_dtype="int8")
+        pool = serve.EnginePool(serve.PoolConfig(scheduler=sched_cfg))
+        c0 = telemetry.counters()
+        try:
+            pool.load("falcon-7b", engine(ecfg), owns_engine=False,
+                      role="prefill")
+            pool.load("falcon-7b", engine(ecfg), owns_engine=False,
+                      role="decode")
+            futs = [pool.submit(r) for r in requests(prompts[:n], pairs[:n])]
+            served = [f.result(timeout=600) for f in futs]
+            docs = {d["role"]: d for d in (r.health(0)
+                                           for r in pool.replicas())}
+        finally:
+            pool.close()
+        c = telemetry.counters_since(c0)
+        moved = {k: int(c.get(k, 0)) for k in (
+            "serve_handoff_rows", "slot_slab_export_rows",
+            "slot_slab_import_rows", "slab_export_bytes")}
+        if not moved["serve_handoff_rows"] or len(
+                {moved["serve_handoff_rows"], moved["slot_slab_export_rows"],
+                 moved["slot_slab_import_rows"]}) != 1 \
+                or docs["prefill"]["completed"] != n \
+                or docs["decode"]["completed"]:
+            fails.append(f"serve roles: handoff {moved}, docs {docs}")
+        offline = engine(ecfg).score_prompts(prompts[:n], pairs[:n])
+        return dict(kv_dtype="int8", requests=n, handoff=moved,
+                    vs_offline=_vs_offline("roles", served, offline,
+                                           rows_equal, fails))
+
+    def supervise_leg():
+        n = SERVE_SUPERVISE_PROMPTS
+        made = []
+
+        def factory():
+            made.append(BreakableEngine(engine()))
+            return made[-1]
+
+        pool = serve.EnginePool(serve.PoolConfig(
+            scheduler=sched_cfg, supervision=serve.SupervisorConfig(
+                wedge_timeout_s=SERVE_WEDGE_S, rebuild_backoff_initial_s=0.05,
+                rebuild_backoff_max_s=0.2, poll_s=0.02)))
+        try:
+            for _ in range(2):
+                pool.load("falcon-7b", factory(), owns_engine=False)
+            pool.supervisor.register_rebuild("falcon-7b", factory)
+            made[0].kill()
+            half = n // 2
+            futs = [pool.submit(r) for r in requests(prompts[:half],
+                                                     pairs[:half])]
+            first = [f.result(timeout=600) for f in futs]
+            rebuilt = _wait_for(
+                lambda: pool.supervisor.report()["restarts"] >= 1, 60)
+            wedged = made[-1]
+            wedged.wedge()
+            futs = [pool.submit(r) for r in requests(prompts[half:n],
+                                                     pairs[half:n])]
+            detected = _wait_for(
+                lambda: pool.supervisor.report()["wedges"] >= 1, 60)
+            wedged.heal()
+            second = [f.result(timeout=600) for f in futs]
+            _wait_for(lambda: pool.supervisor.report()["restarts"] >= 2, 60)
+            report = pool.supervisor.report()
+        finally:
+            for e in made:
+                e.heal()
+            pool.close()
+        if not (rebuilt and detected) or report["crashes"] < 1 \
+                or report["wedges"] < 1 or report["requests_lost"]:
+            fails.append(f"serve supervise: report {report}")
+        return dict(requests=n, report=report,
+                    restart_ms=report["restart_ms"],
+                    vs_offline=_vs_offline("supervise", first + second,
+                                           offline_rows[:n], rows_equal,
+                                           fails))
+
+    def load_leg():
+        lo, hi = SERVE_LOAD_LENS
+        load_prompts = [rng.integers(3, cfg.vocab_size,
+                                     int(rng.integers(lo, hi + 1))).tolist()
+                        for _ in range(SERVE_LOAD_PROMPTS)]
+        targets = [(f"t{a}", f"t{b}") for a, b in
+                   rng.integers(3, cfg.vocab_size, (SERVE_LOAD_PROMPTS, 2))]
+        eng = engine(emod.EngineConfig(batch_size=BATCH,
+                                       max_new_tokens=SERVE_LOAD_TOKENS))
+        offline = eng.score_prompts(load_prompts, targets)
+        closed = sload.run_load(eng, load_prompts, targets=targets,
+                                mode="closed", concurrency=2 * BATCH,
+                                duration_s=SERVE_LOAD_CLOSED_S, seed=seed,
+                                config=sched_cfg, offline_rows=offline)
+        saturation = closed["achieved_rows_per_s"]
+        block = sload.rate_sweep(
+            eng, load_prompts, targets=targets,
+            rates=[f * saturation for f in SERVE_LOAD_FRACTIONS],
+            duration_s=SERVE_LOAD_S, seed=seed, config=sched_cfg,
+            offline_rows=offline)
+        block["closed_loop"] = closed
+        say(sload.format_rate_table(block))
+        bad = [p["offered_rate"] for p in [closed] + block["rates"]
+               if p["parity"]["mismatched_rows"] or p["errors"]]
+        if bad:
+            fails.append(f"serve load: parity or errors at {bad}")
+        eng.close(release_params=False)
+        return dict(prompts=SERVE_LOAD_PROMPTS, bucket=256,
+                    max_new_tokens=SERVE_LOAD_TOKENS,
+                    saturation_rows_per_s=saturation, block=block)
+
+    decoder.prefill = counted_prefill
+    try:
+        legs = {}
+        for name, fn in (("replay", replay_leg), ("prefix", prefix_leg),
+                         ("oom", oom_leg), ("pool", pool_leg),
+                         ("roles", roles_leg), ("supervise", supervise_leg),
+                         ("load", load_leg)):
+            legs[name] = leg(name, fn)
+    finally:
+        decoder.prefill = real_prefill
+    rep = legs["replay"]["report"]
+    say(f"serve replay: scheduler {rep['serve_rows_per_s']} rows/s against "
+        f"offline {rep['offline_rows_per_s']} rows/s ({card})")
+    result = dict(card=card, runs=runs, failures=fails[:50])
+    say("serve gates", json.dumps(dict(card=card, failures=len(fails))))
+    if fails:
+        raise AssertionError(f"serve: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
+def _top_tokens(weights, cfg, prompts, batch=BATCH):
+    """The top token at position 0 of each prompt, one forward a batch."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    out = []
+    for i in range(0, len(prompts), batch):
+        ids, mask = _padded(prompts[i:i + batch], "cuda")
+        out += decoder.forward_last_logits(weights, cfg, ids,
+                                           mask).argmax(-1).tolist()
+    torch.cuda.synchronize()
+    return out
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _fetch(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=5) as r:
+        return r.status, r.read().decode("utf-8")
+
+
+def serve_cli_phase(attention, workdir, card):
+    """``python -m llm_interpretation_replication_tpu_torch serve`` on the
+    CLI phase's 2-layer snapshot with ``--attention-impl flash``: the JSONL
+    driver over 64 request lines (one malformed) under ``--strict`` with
+    ``--metrics-port`` (``/metrics`` and ``/healthz`` fetched while it
+    serves), ``--replay`` on the CLI phase's perturbations, and
+    ``--load-rate`` with three rates through ``--pool-replicas 2
+    --supervise``."""
+    import contextlib
+    import threading
+
+    import torch
+
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+    from llm_interpretation_replication_tpu_torch.runtime import strict
+    from llm_interpretation_replication_tpu_torch.utils import telemetry
+
+    snap = os.path.join(workdir, "falcon-7b-2l")
+    pert = os.path.join(workdir, "perturbations.json")
+    argv = ["serve", "--model", snap, "--attention-impl", "flash",
+            "--batch-size", str(BATCH)]
+    with open(pert, encoding="utf-8") as f:
+        scenarios = json.load(f)
+    lines = []
+    for s in scenarios:
+        for r in s["rephrasings"]:
+            lines.append(json.dumps({"prompt": f"{r} {s['response_format']}",
+                                     "targets": s["target_tokens"][:2]}))
+    lines = (lines * (SERVE_CLI_LINES // len(lines) + 1))[:SERVE_CLI_LINES]
+    lines[SERVE_CLI_BAD_LINE] = '{"prompt": "unterminated'
+    fails, runs = [], []
+
+    def run(name, extra, stdin_lines=None):
+        out = os.path.join(workdir, f"serve_{name}.jsonl")
+        codes, buf = [], io.StringIO()
+        snap_c = telemetry.counters()
+        fetched = {}
+
+        def call():
+            try:
+                cli.main(argv + extra)
+            except SystemExit as e:
+                codes.append(e.code)
+
+        torch.cuda.synchronize()
+        _reset_launches(attention)
+        t0 = time.perf_counter()
+        if stdin_lines is None:
+            with contextlib.redirect_stdout(buf):
+                call()
+        else:
+            fifo = os.path.join(workdir, f"serve_{name}.fifo")
+            os.mkfifo(fifo)
+            port = _free_port()
+            extra += ["--input", fifo, "--output", out,
+                      "--metrics-port", str(port)]
+            worker = threading.Thread(target=call, name="serve-cli")
+            worker.start()
+            fd = None
+            # the reader opens the FIFO once its engine is up; a command
+            # that dies first must not leave this writer blocked
+            while fd is None and worker.is_alive():
+                try:
+                    fd = os.open(fifo, os.O_WRONLY | os.O_NONBLOCK)
+                except OSError:
+                    time.sleep(0.05)
+            if fd is not None:
+                os.set_blocking(fd, True)
+                with os.fdopen(fd, "w", encoding="utf-8") as f:
+                    f.write("\n".join(stdin_lines) + "\n")
+                    f.flush()
+                    url = f"http://127.0.0.1:{port}"
+                    if _wait_for(lambda: _try_fetch(url + "/healthz"), 120):
+                        fetched["healthz"] = json.loads(
+                            _fetch(url + "/healthz")[1])
+                        fetched["metrics_lines"] = len(
+                            _fetch(url + "/metrics")[1].splitlines())
+            worker.join(timeout=600)
+        torch.cuda.synchronize()
+        delta = telemetry.counters_since(snap_c)
+        res = dict(run=name, seconds=time.perf_counter() - t0,
+                   exit_code=codes[0] if codes else None,
+                   kernel_launches=_launches(attention)[
+                       "causal_grouped_attention"],
+                   blocked_transfers=int(delta.get(strict.BLOCKED_COUNTER, 0)),
+                   **fetched)
+        runs.append(res)
+        say("serve cli", json.dumps(dict(res, card=card)))
+        if res["exit_code"] != 0 or not res["kernel_launches"]:
+            fails.append(f"serve cli {name}: exit {res['exit_code']}, "
+                         f"{res['kernel_launches']} causal launches")
+        return res, buf.getvalue(), out
+
+    res, _, out = run("jsonl", ["--strict"], lines)
+    with open(out, encoding="utf-8") as f:
+        answers = [json.loads(line) for line in f]
+    if [a["id"] for a in answers] != list(range(SERVE_CLI_LINES)) \
+            or answers[SERVE_CLI_BAD_LINE].get("error_type") \
+            != "JSONDecodeError" \
+            or not all(a.get("success") for i, a in enumerate(answers)
+                       if i != SERVE_CLI_BAD_LINE):
+        fails.append("serve cli jsonl: answers out of order, or the "
+                     "malformed line not answered with its error")
+    if res["blocked_transfers"] or "healthz" not in res \
+            or res["healthz"].get("scheduler") != "running" \
+            or not res.get("metrics_lines"):
+        fails.append(f"serve cli jsonl: blocked_transfers "
+                     f"{res['blocked_transfers']}, endpoints {res}")
+    _, text, _ = run("replay", ["--replay", pert])
+    report = json.loads(text)
+    say(f"serve cli replay: scheduler {report['serve_rows_per_s']} rows/s "
+        f"against offline {report['offline_rows_per_s']} rows/s ({card})")
+    if report["mismatched_rows"]:
+        fails.append(f"serve cli replay: {report['mismatched_rows']} rows "
+                     f"differ from offline")
+    _, text, _ = run("load", [
+        "--replay", pert, "--load-rate",
+        ",".join(str(r) for r in SERVE_CLI_RATES),
+        "--load-duration", str(SERVE_CLI_LOAD_S), "--pool-replicas", "2",
+        "--supervise"])
+    block = json.loads(text)
+    if block.get("parity_ok") is not True or len(block["rates"]) != 3:
+        fails.append(f"serve cli load: parity_ok {block.get('parity_ok')}")
+    result = dict(card=card, runs=runs, replay=report,
+                  load={k: v for k, v in block.items() if k != "rates"},
+                  load_rates=[{k: p[k] for k in (
+                      "offered_rate", "achieved_rows_per_s", "latency_ms",
+                      "completed", "errors")} for p in block["rates"]],
+                  failures=fails[:50])
+    say("serve cli gates", json.dumps(dict(card=card, failures=len(fails))))
+    if fails:
+        raise AssertionError(f"serve cli: {len(fails)} failures: "
+                             + "; ".join(fails[:20]))
+    return result
+
+
+def _try_fetch(url):
+    try:
+        return _fetch(url)[0] == 200
+    except OSError:
+        return False
 
 
 def _strict_audit(stderr):
@@ -6456,6 +7093,7 @@ def main(argv=None):
     erows = timed("edge", edge_phase, attention, gen)
     sres, bf16_rows, weights = timed("slice", slice_phase, args.seed, attention)
     pres = timed("pooled", pooled_phase, args.seed, attention, weights)
+    pool_inputs = pres.pop("inputs")
     fres = timed("full_study", full_study_phase, args.seed, attention, weights)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -6464,16 +7102,19 @@ def main(argv=None):
         pkres = timed("packed", packed_phase, args.seed, attention, weights,
                       fres["near_tie"], workdir, card)
         kres = timed("k_decode", k_decode_phase, args.seed, attention,
-                     weights, fres["near_tie"], card)
+                     weights, card)
         ores = timed("obs", obs_phase, args.seed, attention, weights,
                      workdir, card)
         tres = timed("tokenizers", tokenizers_phase, args.seed, attention,
                      weights, workdir, card)
+        svres = timed("serve", serve_phase, args.seed, attention, weights,
+                      pool_inputs, card)
         del weights
         torch.cuda.empty_cache()
         ires = timed("int8", int8_phase, args.seed, attention, bf16_rows)
         cres = timed("cli", cli_phase, args.seed, attention, workdir, card)
         ocres = timed("obs_cli", obs_cli_phase, workdir, card)
+        svcli = timed("serve_cli", serve_cli_phase, attention, workdir, card)
         torch.cuda.empty_cache()
         fam = timed("families", families_phase, args.seed, attention, card)
         qres = timed("run_100q", run100q_cli_phase, args.seed, workdir, card)
@@ -6488,7 +7129,7 @@ def main(argv=None):
     # the causal kernel's launches over every main-path run (each counted
     # from 0 just before it); the head-major kernels run on forced routes
     causal = causal_launches(sres, pres, fres, ires, wres, pkres, kres, ores,
-                             tres, cres, fam, inst)
+                             tres, cres, fam, inst, svres, svcli)
     launches = {"causal_grouped_attention": causal,
                 "grouped_attention": sres["forced_routes"]["grouped"]["launches"],
                 "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
@@ -6514,7 +7155,7 @@ def main(argv=None):
                        edge_rows=erows, kernel_rows=krows, slice=sres,
                        pooled=pres, full_study=fres, sweep=wres,
                        packed=pkres, k_decode=kres, obs=ores, obs_cli=ocres,
-                       tokenizers=tres,
+                       tokenizers=tres, serve=svres, serve_cli=svcli,
                        int8=ires, cli=cres, families=fam, run_100q=qres,
                        instruct=inst,
                        run_instruct_sweep=ires_cli, phase_seconds=seconds,

@@ -6,6 +6,8 @@
         --checkpoint-dir DIR [--device cuda]
     python -m llm_interpretation_replication_tpu_torch run-instruct-sweep \\
         --checkpoint-dir DIR [--device cuda]
+    python -m llm_interpretation_replication_tpu_torch serve \\
+        --model SNAPSHOT [--input requests.jsonl | --replay FILE] [--device cuda]
     python -m llm_interpretation_replication_tpu_torch obs report --trace PATH
     python -m llm_interpretation_replication_tpu_torch obs bench-diff RECORD...
 
@@ -29,7 +31,14 @@ ordinary-meaning questions with each base and instruct model of
 scores the 100 questions (or ``--questions-file``'s) with each model of
 ``data_assets/instruct_sweep_models.json`` (T5 among them) and writes
 ``<output-dir>/instruct_model_comparison_results.csv`` (or
-``--results-csv``).  These are copies of the reference CLI's commands.
+``--results-csv``).  ``serve`` is the continuous-batching scoring service
+(``serve/``): JSONL requests in, one JSONL answer a line out, in input
+order; ``--replay`` pushes the perturbation workload through the scheduler
+and asserts row parity with offline scoring, ``--load-rate`` runs the
+open-loop load harness, ``--pool-replicas N`` serves through an engine
+pool of N replicas sharing the snapshot's weights (``--supervise`` arms
+its self-healing) and ``--metrics-port`` serves ``/metrics`` and
+``/healthz``.  These are copies of the reference CLI's commands.
 Each takes ``--strict`` (the sync guard of ``runtime/strict.py``),
 ``--trace [PATH]`` (span tracing: a JSONL span log streamed to
 ``PATH.spans.jsonl`` and a Chrome trace written to PATH at exit),
@@ -292,6 +301,101 @@ def cmd_run_perturbation(args):
     print(f"{len(rows)} rows")
 
 
+def cmd_serve(args):
+    """Continuous-batching scoring service (serve/): one resident model,
+    independent requests coalescing onto its batch shapes.  The stdlib
+    JSONL driver reads requests from --input (file or stdin) and answers
+    every line in input order; --replay routes the perturbation sweep
+    workload through the scheduler and asserts row-level parity with the
+    offline score_prompts path; --load-rate drives the open-loop load
+    harness; --pool-replicas N serves through an EnginePool of N
+    shared-snapshot replicas (serve/pool.py: per-replica /healthz and
+    labeled serve_* metrics, hot load/unload over the engine's
+    teardown)."""
+    from .serve.cli import main as serve_main
+
+    rc = _run_config(args)
+    engine = _engine_factory(rc)(args.model)
+    raise SystemExit(serve_main(engine, args))
+
+
+def _add_serve_args(p: argparse.ArgumentParser):
+    p.add_argument("--model", required=True,
+                   help="model snapshot name under --checkpoint-dir")
+    p.add_argument("--input", default="-",
+                   help="JSONL request stream: one "
+                        '{"prompt": ...}/{"prefix": ..., "suffix": ...} '
+                        "object per line ('-' = stdin)")
+    p.add_argument("--output", default="-",
+                   help="JSONL results, input order ('-' = stdout)")
+    p.add_argument("--max-batch", type=int, default=0, metavar="N",
+                   help="rows per coalesced micro-batch (0 = the "
+                        "engine's batch size)")
+    p.add_argument("--max-wait-ms", type=float, default=20.0, metavar="MS",
+                   help="admission policy: hold the head request at most "
+                        "this long for co-batchable traffic before "
+                        "launching a partial micro-batch")
+    p.add_argument("--queue-capacity", type=int, default=2048, metavar="N",
+                   help="admission bound; a submit past it is a typed "
+                        "QueueFull backpressure rejection")
+    p.add_argument("--timeout-s", type=float, default=None, metavar="S",
+                   help="default per-request deadline (expired requests "
+                        "are rejected with a typed DeadlineExceeded, "
+                        "never silently dropped)")
+    p.add_argument("--no-slot-admission", action="store_true",
+                   help="disable slot-level mid-decode admission "
+                        "(SchedulerConfig.slot_admission, default on): "
+                        "eligible requests launch only at coalescer "
+                        "boundaries instead of refilling vacated decode "
+                        "slots")
+    p.add_argument("--metrics-port", type=int, default=0, metavar="PORT",
+                   help="serve /metrics (Prometheus text over the "
+                        "telemetry counters, serve sample rings and "
+                        "latency histograms) and /healthz (scheduler or "
+                        "pool liveness and queue age) on this loopback "
+                        "port while the command runs (0 = off)")
+    p.add_argument("--replay", metavar="PERTURBATIONS", default=None,
+                   help="replay mode: push the perturbation sweep "
+                        "workload through the scheduler, assert "
+                        "row-level parity vs the offline path, and "
+                        "report scheduler-vs-offline throughput")
+    p.add_argument("--max-rephrasings", type=int, default=None,
+                   help="replay mode: cap rephrasings per scenario")
+    p.add_argument("--load-rate", metavar="R[,R2,...]", default=None,
+                   help="open-loop load harness (serve/load.py): drive "
+                        "the scheduler at a seeded-Poisson offered rate "
+                        "(requests/s) drawn from the --replay corpus (or "
+                        "the --input lines) and report per-request "
+                        "latency anatomy (queue_wait/coalesce/"
+                        "serve_engine/respond); a comma list of >= 3 "
+                        "rates walks the rate sweep and reports the knee")
+    p.add_argument("--load-duration", type=float, default=10.0,
+                   metavar="S",
+                   help="load mode: seconds of offered traffic per rate "
+                        "point")
+    p.add_argument("--load-seed", type=int, default=0, metavar="N",
+                   help="load mode: seed for the Poisson schedule and "
+                        "the prompt mix (same seed = identical traffic)")
+    p.add_argument("--load-jsonl", metavar="PATH", default=None,
+                   help="load mode: stream one per-request anatomy "
+                        "record (scheduled time, generator lag, e2e + "
+                        "per-phase ms) per line to PATH")
+    p.add_argument("--pool-replicas", type=int, default=0, metavar="N",
+                   help="serve through an EnginePool (serve/pool.py) of "
+                        "N local replicas of the loaded snapshot, sharing "
+                        "its weight tensors, each behind its own "
+                        "scheduler with {replica, model} labeled serve_* "
+                        "metrics (0/1 = one scheduler)")
+    p.add_argument("--supervise", action="store_true",
+                   help="arm self-healing on the --pool-replicas fleet "
+                        "(serve/supervisor.py): crashed or wedged "
+                        "replicas are quarantined and rebuilt from the "
+                        "shared snapshot with backoff, their requests "
+                        "fail over to a sibling at most once, and a "
+                        "request that kills replicas repeatedly is "
+                        "rejected as poisonous")
+
+
 def cmd_obs(args):
     """``obs report`` / ``obs bench-diff``: the phase-attribution table
     over a saved span trace, and the bench-trajectory regression analyzer
@@ -358,6 +462,17 @@ def main(argv=None):
                         "relative_prob| distribution and flip rate); the "
                         "isolated answers are the demonstrations")
     p.set_defaults(fn=cmd_run_perturbation)
+
+    p = sub.add_parser(
+        "serve",
+        help="continuous-batching scoring service (serve/): JSONL "
+             "stdin/file driver over one resident model, or an "
+             "EnginePool of replicas with --pool-replicas, plus --replay "
+             "for offline-parity verification and --load-rate for the "
+             "open-loop load harness")
+    _add_run_config_args(p)
+    _add_serve_args(p)
+    p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("obs",
                        help="observability reports: 'obs report --trace "

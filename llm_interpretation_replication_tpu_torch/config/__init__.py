@@ -1,8 +1,9 @@
 """Run configuration shared by the port's modules (a copy of what the port
 needs from ``llm_interpretation_replication_tpu/config``): the length
 buckets, the legal scenarios of the perturbation study, the questions and
-model pairs of the 100-question sweep, the instruct-model roster and the
-word-meaning model pairs, and ``RunConfig``."""
+model pairs of the 100-question sweep, the instruct-model roster, the
+word-meaning model pairs, the API model roster with its pricing, and
+``RunConfig``."""
 
 from __future__ import annotations
 
@@ -57,6 +58,13 @@ def instruct_sweep_models() -> List[str]:
     """The 10-model instruct roster (a byte-identical copy of
     ``data_assets/instruct_sweep_models.json``)."""
     return _load("instruct_sweep_models.json")
+
+
+def api_models() -> dict:
+    """The frontier-API model roster and its pricing in USD per 1M tokens
+    (a byte-identical copy of ``data_assets/api_models.json``; the serve
+    pool's remote backends price requests from it)."""
+    return _load("api_models.json")
 
 
 @dataclasses.dataclass

@@ -39,7 +39,8 @@ from torch import nn
 from .config import DecoderConfig
 from ..device import to_device
 from ..ops import quant
-from ..ops.attention import NEG_INF, attention_bsnd, cache_extend_attention
+from ..ops.attention import (NEG_INF, attention_bsnd, cache_extend_attention,
+                             grouped_attention_two_block)
 
 
 class DecoderWeights(nn.Module):
@@ -202,40 +203,6 @@ def dot_product_attention(q, k, v, bias):
     scores = scores.float() + bias
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bnst,btnd->bsnd", probs, v)
-
-
-def _grouped_scores(q, k):
-    """q [B,S,N,D] x unrepeated k [B,T,G,D] -> scores [B,G,N/G,S,T]."""
-    b, s, n, d = q.shape
-    g = k.shape[2]
-    qg = q.reshape(b, s, g, n // g, d)
-    scale = torch.tensor(math.sqrt(d), dtype=q.dtype)
-    return torch.einsum("bsghd,btgd->bghst", qg, k) / scale
-
-
-def _bias_grouped(bias, b, n, g, s, t):
-    bias = bias.expand(b, bias.shape[1], s, t)
-    if bias.shape[1] == n:
-        return bias.reshape(b, g, n // g, s, t)
-    return bias[:, :, None]                        # head-agnostic [B,1,1,S,T]
-
-
-def grouped_attention_two_block(q, kp, vp, bias_p, kt, vt, bias_t):
-    """Attention over two K/V blocks with one joint softmax: the read-only
-    prompt cache and the small per-chunk tail of generated tokens."""
-    b, s, n, d = q.shape
-    g = kp.shape[2]
-    sp = _grouped_scores(q, kp).float() + _bias_grouped(
-        bias_p, b, n, g, s, kp.shape[1])
-    st = _grouped_scores(q, kt).float() + _bias_grouped(
-        bias_t, b, n, g, s, kt.shape[1])
-    m = torch.maximum(sp.amax(-1, keepdim=True), st.amax(-1, keepdim=True))
-    ep = torch.exp(sp - m)
-    et = torch.exp(st - m)
-    denom = ep.sum(-1, keepdim=True) + et.sum(-1, keepdim=True)
-    op = torch.einsum("bghst,btgd->bsghd", (ep / denom).to(q.dtype), vp)
-    ot = torch.einsum("bghst,btgd->bsghd", (et / denom).to(q.dtype), vt)
-    return (op + ot).reshape(b, s, n, d)
 
 
 def make_attention_bias(cfg: DecoderConfig, q_positions, kv_positions, kv_valid):

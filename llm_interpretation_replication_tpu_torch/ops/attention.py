@@ -16,9 +16,10 @@ CPU tensor it computes its plain version:
   input dtype; :func:`_dense_attention` -- the reference's dense path.
 - :func:`attention` (head-major) and :func:`attention_bsnd` (projection
   layout) -- the dispatchers.
-- :func:`cache_extend_attention` -- the suffix-extension prefill's attention
-  over a prefilled prefix cache, a plain PyTorch op as in the reference,
-  which has no Pallas kernel for it.
+- :func:`grouped_attention_two_block` -- the decode's attention over the
+  prompt cache and its tail, and :func:`cache_extend_attention` -- the
+  suffix-extension prefill's over a prefilled prefix cache: plain PyTorch
+  ops as in the reference, which has no Pallas kernel for them.
 
 All three kernels run one Hopper tile core, ``csrc/attention_tile.cuh``
 (an asynchronous K/V ring, ``wgmma`` for both products), each with its own
@@ -276,6 +277,63 @@ def attention_bsnd(q, k, v, lengths, causal: bool = True,
     return attention(qh, kh, vh, lengths, causal, force=force).transpose(1, 2)
 
 
+def _bias_grouped(bias, b, n, g, s, t):
+    bias = bias.expand(b, bias.shape[1], s, t)
+    if bias.shape[1] == n:
+        return bias.reshape(b, g, n // g, s, t)
+    return bias[:, :, None]                        # head-agnostic [B,1,1,S,T]
+
+
+def grouped_attention_two_block(q, kp, vp, bias_p, kt, vt, bias_t):
+    """Attention of queries over two K/V blocks with one joint softmax:
+    the decode's read-only prompt cache and its small per-chunk tail of
+    generated tokens, or a suffix extension's prefix cache and the
+    suffix's own K/V.
+
+    q ``[B, S, N, D]``; kp/vp ``[B, Tp, G, D]`` and kt/vt ``[B, Tt, G, D]``
+    with G dividing N (K/V not repeated); bias_p/bias_t fp32 additive
+    ``[B, N or 1, S, T]`` over each block's slots.
+
+    A row's result depends on its own valid slots only, not on how many
+    masked slots pad a block, where the valid ones sit (a cache padded to
+    another bucket, or compacted in a slot ring) or which rows share the
+    batch: the scores' dot products over D and both sums over the slot
+    axis (the softmax denominator, and the probabilities times V) run in
+    float64, where the products of bf16 values and their sums over D are
+    exact and the slot sums' rounding lies far below the one rounding of
+    each result to the query dtype (scores, probabilities, output) or
+    float32 (the softmax).  In float32 the card's kernels, picked by the
+    slot count, sum in orders that differ in the last bit.  Each block is
+    converted to float64 in the layout of its products by one copy, and
+    the blocks stay apart."""
+    b, s, n, d = q.shape
+    g = kp.shape[2]
+    h = n // g
+    q64 = q.reshape(b, s, g, h, d).permute(0, 2, 3, 1, 4).reshape(
+        b * g, h * s, d).to(torch.float64)
+    scale = torch.tensor(math.sqrt(d), dtype=q.dtype)
+
+    def f64(x):                   # [B, T, G, D] -> [B*G, T, D] float64
+        out = torch.empty((b, g, x.shape[1], d), dtype=torch.float64,
+                          device=x.device)
+        out.copy_(x.transpose(1, 2))
+        return out.view(b * g, x.shape[1], d)
+
+    blocks = [(f64(k), f64(v), bias) for k, v, bias in
+              ((kp, vp, bias_p), (kt, vt, bias_t))]
+    scores = [(torch.bmm(q64, k.transpose(1, 2)).to(q.dtype) / scale)
+              .float().view(b, g, h, s, k.shape[1])
+              + _bias_grouped(bias, b, n, g, s, k.shape[1])
+              for k, _, bias in blocks]
+    m = torch.maximum(*(sc.amax(-1, keepdim=True) for sc in scores))
+    exps = [torch.exp(sc - m) for sc in scores]
+    denom = sum(e.sum(-1, keepdim=True, dtype=torch.float64) for e in exps)
+    out = sum(torch.bmm((e / denom).to(q.dtype).to(torch.float64).view(
+        b * g, h * s, -1), v) for e, (_, v, _) in zip(exps, blocks))
+    return out.to(q.dtype).view(b, g, h, s, d).permute(0, 3, 1, 2, 4) \
+        .reshape(b, s, n, d)
+
+
 def cache_extend_attention(q, kp, vp, kt, vt, bias,
                            kp_scale=None, vp_scale=None):
     """Attention of a suffix-extension prefill (``decoder.extend_prefill``):
@@ -289,25 +347,17 @@ def cache_extend_attention(q, kp, vp, kt, vt, bias,
     block is dequantized here, right before the softmax; the suffix's K/V
     are exact.
 
-    One joint softmax in float32 over the concatenated keys (not the
-    decode's two-block split), with MQA/GQA K/V repeated to the query heads
-    as the dense prompt path repeats them: masked prefix slots contribute
-    exact zeros, so this is the dense full-prompt attention over the same
-    keys.  Products run in the query dtype, as the reference's."""
+    One joint softmax over both blocks (:func:`grouped_attention_two_block`,
+    the decode's attention): masked prefix slots contribute exact zeros, so
+    this is the dense full-prompt attention over the same keys, and a row's
+    value does not depend on how far its prefix bucket pads the key
+    axis."""
     from . import quant
 
     kp = (quant.dequantize_kv(kp, kp_scale, kt.dtype) if kp_scale is not None
           else kp.to(kt.dtype))
     vp = (quant.dequantize_kv(vp, vp_scale, vt.dtype) if vp_scale is not None
           else vp.to(vt.dtype))
-    k = torch.cat([kp, kt], dim=1)
-    v = torch.cat([vp, vt], dim=1)
-    b, t, g, d = k.shape
-    n = q.shape[2]
-    if g != n:
-        k = k[:, :, :, None, :].expand(b, t, g, n // g, d).reshape(b, t, n, d)
-        v = v[:, :, :, None, :].expand(b, t, g, n // g, d).reshape(b, t, n, d)
-    scale = torch.tensor(math.sqrt(d), dtype=q.dtype)
-    scores = torch.einsum("bsnd,btnd->bnst", q, k) / scale
-    probs = torch.softmax(scores.float() + bias, dim=-1).to(q.dtype)
-    return torch.einsum("bnst,btnd->bsnd", probs, v)
+    t = kp.shape[1]
+    return grouped_attention_two_block(q, kp, vp, bias[..., :t], kt, vt,
+                                       bias[..., t:])

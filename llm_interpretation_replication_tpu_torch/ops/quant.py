@@ -105,12 +105,40 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor):
     return (y.float() * x_scale * w_scale).to(x.dtype)
 
 
+#: On the card, cuBLAS splits the reduction of a bf16 product of fewer
+#: rows than this whose reduction is longer than its output (an MLP down
+#: projection), so a row's result depends on how many rows share the
+#: call: a decode step of 32 rows and a K-token verify pass of 128 differ.
+#: Such products pad their rows to this count.  On an H100 that makes
+#: Falcon-7B's and h2oGPT-12B's down projections read every row as a
+#: 128-row product does at 1-96 rows, and those of the NeoX, BLOOM and
+#: StableLM shapes at 1-64; Mistral's, Qwen's, Baichuan's and OPT's
+#: depend on the row count either way
+#: (``scripts/decode_layout_probe.py --sections=products``).  Served and
+#: offline rows do not rely on it: both run their products at the
+#: batch's row count.
+MIN_GEMM_ROWS = 64
+
+
+def rows_padded_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for ``x`` ``[..., K]``, with the rows of a long-reduction
+    product padded to :data:`MIN_GEMM_ROWS` on the card (the CPU's
+    products need none)."""
+    k = x.shape[-1]
+    m = x.numel() // k if k else 0
+    if (not x.is_cuda or m >= MIN_GEMM_ROWS or m == 0
+            or k <= w.shape[-1]):
+        return x @ w
+    y = F.pad(x.reshape(m, k), (0, 0, 0, MIN_GEMM_ROWS - m)) @ w
+    return y[:m].reshape(*x.shape[:-1], w.shape[-1])
+
+
 def linear(p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
     """Dispatch a projection: int8 path when ``{key}_qscale`` is present."""
     qs = p.get(key + QSCALE_SUFFIX)
     if qs is not None:
         return int8_matmul(x, p[key], qs)
-    return x @ p[key]
+    return rows_padded_matmul(x, p[key])
 
 
 def quantize_weight_np(w, *, contract_axis: int = -2):

@@ -79,7 +79,9 @@ ROADMAP.md item that will bring it.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import gc
 import sys
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -103,6 +105,57 @@ _ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
 
 class EngineClosed(RuntimeError):
     """Scoring was attempted on a closed :class:`ScoringEngine`."""
+
+
+def live_buffer_count(device: Optional[str] = None) -> int:
+    """Tensor census: live tensors with a non-empty storage, on device type
+    ``device`` (``"cuda"``, ``"cpu"``) or on any.  The teardown contract's
+    yardstick: after :meth:`ScoringEngine.close` the count returns to its
+    value before the engine's weights were made (the pool's hot unload
+    depends on it).  On the card, ``torch.cuda.memory_allocated()`` is the
+    byte-level twin."""
+    gc.collect()
+    n = 0
+    for obj in gc.get_objects():
+        try:
+            # type(), not isinstance(): a deprecated module proxy warns
+            # when its __class__ is read
+            if not issubclass(type(obj), torch.Tensor):
+                continue
+            if device is not None and obj.device.type != device:
+                continue
+            if obj.untyped_storage().nbytes() > 0:
+                n += 1
+        except (RuntimeError, ReferenceError):
+            continue        # a tensor without storage (meta, sparse)
+    return n
+
+
+def _release_storages(obj) -> None:
+    """Free the storage of every tensor in ``obj`` (a module's buffers and
+    parameters, or a nested dict of tensors) in place: every tensor sharing
+    such a storage, views included, is emptied with it.  A storage that
+    cannot be resized (host memory borrowed from a numpy array or a mapped
+    file) is dropped by the tensor instead, and goes with its last
+    holder."""
+    if isinstance(obj, torch.nn.Module):
+        tensors = list(obj.buffers()) + list(obj.parameters())
+    elif isinstance(obj, dict):
+        tensors = []
+        for val in obj.values():
+            if isinstance(val, dict):
+                _release_storages(val)
+            elif isinstance(val, torch.Tensor):
+                tensors.append(val)
+    else:
+        return
+    for t in tensors:
+        storage = t.untyped_storage()
+        if storage.resizable():
+            storage.resize_(0)
+        else:
+            with torch.no_grad():
+                t.set_()
 
 
 @torch.no_grad()
@@ -336,6 +389,8 @@ class ScoringEngine:
         # the K-decode proposal head ({"w": [K-1, H, V]}), when decode_k > 1
         self.k_head = None
         self._k_head_missing_noted = False
+        # the operating point's provenance note, copied onto pool siblings
+        self.plan_decision: Optional[str] = None
         self._closed = False
 
     # -- lifecycle -------------------------------------------------------
@@ -351,16 +406,32 @@ class ScoringEngine:
                 "construct a new engine before scoring")
         _check_supported(self.family, self.ecfg, self.mesh)
 
-    def close(self) -> None:
-        """Drop the engine's reference to its weights and return cached
-        device memory to the driver.  The caller's ``DecoderWeights`` stay
-        usable by other engines; their memory is freed once no one holds
-        them.  Idempotent."""
+    def close(self, release_params: bool = True) -> None:
+        """Release the device memory this engine pins and return the
+        allocator's cached blocks to the driver, so a pool can hot-unload
+        one model and load another in the same process.
+
+        - ``release_params=True`` (the default) frees the storage of every
+          weight tensor in place, the w8a8 codes and scales included
+          (``untyped_storage().resize_(0)``), whoever else still holds the
+          tensors; a view of them (weights sliced to their first layers)
+          loses its memory too.  ``release_params=False`` only drops this
+          engine's reference: for engines sharing weights with a live
+          sibling, or a caller that reuses them.
+        - the prefix-cache audit pool closes, and the plan and token-text
+          caches clear.
+
+        Idempotent; scoring after close raises :class:`EngineClosed`.
+        :func:`live_buffer_count` is the census around a construct, score,
+        close cycle."""
         if self._closed:
             return
         self._closed = True
         if self.last_prefix_pool is not None:
             self.last_prefix_pool.close()
+        if release_params:
+            _release_storages(self.params)
+            _release_storages(self.k_head)
         self.params = None
         self.k_head = None
         self._plan_cache.clear()
@@ -368,6 +439,7 @@ class ScoringEngine:
         self._occupancy = []
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+        record_counter("engine_closed")
 
     def __enter__(self) -> "ScoringEngine":
         return self
@@ -380,6 +452,21 @@ class ScoringEngine:
     @property
     def is_encoder_decoder(self) -> bool:
         return self.family == "t5"
+
+    @contextlib.contextmanager
+    def config_overrides(self, **overrides):
+        """Replace :class:`EngineConfig` fields for the duration: the serve
+        scheduler disarms the engine's own OOM ladder (``oom_backoff=False``:
+        a split micro-batch re-enters the queue, not the engine) and steps
+        ``batch_size`` down for the re-queued chunks.  Not safe against
+        concurrent calls on the engine (the scheduler runs every engine call
+        on its one loop thread)."""
+        prev = self.ecfg
+        self.ecfg = dataclasses.replace(prev, **overrides)
+        try:
+            yield self.ecfg
+        finally:
+            self.ecfg = prev
 
     def target_ids(self, targets: Sequence[str]) -> List[int]:
         return yn.target_token_ids(self.tokenizer, targets,
@@ -1034,9 +1121,13 @@ class ScoringEngine:
                     conf_lp, conf_idx = self._conf_topk_np(scores_dev)
         elif need_scores:
             # scored decode of the rows that need it, gathered out of the
-            # prefill cache unless most of the batch does
-            m = _pad_slice(undecided.size, hit0.shape[0])
-            if m == hit0.shape[0]:
+            # prefill cache (undecided rows first) unless most of the
+            # batch does, at the batch's own row count either way: the
+            # card's kernels pick their reduction order by the row count,
+            # so a row decoded at another count would read otherwise than
+            # in a slot ring of the batch's width
+            m = hit0.shape[0]
+            if _pad_slice(undecided.size, m) == m:
                 sub_cache, last_s, len_s = cache, last, lengths
                 real, ids_sub = valid, row_ids
             else:
@@ -1288,7 +1379,13 @@ class ScoringEngine:
 
     def _scan_results(self, sc, yes_ids, no_ids, toks, eos_id):
         """Yes/no scan over a decode's scores (full [m, P, V] scores or
-        ReducedScores, whichever the decode produced)."""
+        ReducedScores, whichever the decode produced).  ReducedScores are
+        scanned on the host on every route, as the slot ring scans its
+        rows: the card's and the host's exp and log differ in the last
+        bit, and a row must read the same whichever route decoded it."""
+        if isinstance(sc, dmod.ReducedScores):
+            sc = dmod.ReducedScores(*(f.cpu() for f in sc))
+            toks = toks.cpu()
         vsteps = yn.steps_until_eos(toks, eos_id)
         if isinstance(sc, dmod.ReducedScores):
             return yn.yes_no_from_reduced(
@@ -1527,7 +1624,7 @@ class ScoringEngine:
             emit=lambda rows: self._emit_scored_slot_rows(rows, steps,
                                                           eos_id, results),
             batch_review=self._binary_batch_review(steps, eos_id),
-            pad_slice=lambda n: _pad_slice(n, max(n, 1)),
+            pad_slice=_full_ring(ecfg.phase2_pool_target or ecfg.batch_size),
         )
 
     def _select_undecided(self, batch, ids_all, results, base: int):
@@ -1970,7 +2067,7 @@ class ScoringEngine:
             capacity=ecfg.phase2_pool_target or ecfg.batch_size,
             leg="packed", workload="packed", retire=retire, emit=emit,
             refill=use_repack, with_scores=False,
-            pad_slice=lambda n: _pad_slice(n, max(n, 1)))
+            pad_slice=_full_ring(ecfg.phase2_pool_target or ecfg.batch_size))
 
         def feed_extended(chunk):
             """Extend each item's stage cache by its suffix through
@@ -2151,6 +2248,16 @@ def _cat_scores(parts, reduced: bool):
 _SLICE_MENU = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512)
 
 
+def _full_ring(capacity: int):
+    """A slot ring's repack padding: every repack fills the ring to its
+    capacity with inert lanes, so decode runs at one row count however
+    many lanes are live.  The card's GEMMs and the reductions over the
+    vocabulary choose their kernels by the row count, so at a varying
+    count a row's scores depended on which rows shared its ring; at one
+    count they do not, and a served row equals the offline row."""
+    return lambda n: max(n, capacity)
+
+
 def _pad_slice(n: int, cap: int) -> int:
     """Smallest menu size >= n, capped at the batch size."""
     for m in _SLICE_MENU:
@@ -2313,7 +2420,7 @@ class _Phase2Pool:
                 capacity=self.target, leg=self.leg, workload="engine",
                 retire=self._conf_ring_retire, emit=self._conf_ring_emit,
                 min_check=min(3, self.steps),
-                pad_slice=lambda n: _pad_slice(n, max(n, 1)),
+                pad_slice=_full_ring(self.target),
             )
         return slots_mod.SlotRing(
             self.engine, steps=self.steps, eos_id=self.eos_id,
@@ -2321,7 +2428,7 @@ class _Phase2Pool:
             retire=_binary_retire, emit=self._binary_ring_emit,
             batch_review=self.engine._binary_batch_review(self.steps,
                                                           self.eos_id),
-            pad_slice=lambda n: _pad_slice(n, max(n, 1)),
+            pad_slice=_full_ring(self.target),
         )
 
     def _conf_ring_retire(self, row) -> int:
@@ -2460,17 +2567,22 @@ class _Phase2Pool:
                             else None))
             if sp is not None:
                 sp["_sync_obj"] = toks
-        res = engine._scan_results(sc, ids[:, 0], ids[:, 1], toks,
-                                   self.eos_id)
-        fields = res._asdict()
+        if isinstance(sc, dmod.ReducedScores):
+            # fetched as they are and scanned on the host at drain(), as
+            # every route scans ReducedScores
+            names, fields = None, [*sc, toks]
+        else:
+            res = engine._scan_results(sc, ids[:, 0], ids[:, 1], toks,
+                                       self.eos_id)
+            names, fields = list(res._fields), list(res)
         # keep only the row layout, not the entries, whose cache slices
         # would otherwise stay referenced until drain().  Until the queued
         # decode runs, both the source slices (read by the concat) and the
         # concatenated copy are resident: 2x the slices.
         layout = [(int(e[1].shape[0]), e[3], e[4]) for e in entries]
         pinned = 2 * sum(slots_mod._cache_nbytes(e[0]) for e in entries)
-        self.deferred.append((layout, list(fields), first3,
-                              _HostCopy(fields.values()), [pinned]))
+        self.deferred.append((layout, names, first3, _HostCopy(fields),
+                              [pinned]))
 
     def _flush_confidence(self, layout, cache, last, lens, ids, first3):
         """One pooled confidence decode with per-row retirement.
@@ -2573,7 +2685,10 @@ class _Phase2Pool:
                     if prev_h is not None:    # the K frontier rides along
                         prev_h = prev_h[idx_dev]
                     freed -= slots_mod._cache_nbytes(cur_cache)
+                    # the retired rows leave the cache: freed and retired
+                    # alike (``SlotRing._record_release``)
                     record_counter("completion_cache_bytes_freed", freed)
+                    record_counter("completion_cache_bytes_retired", freed)
                     cache_map = cache_map[idx]
                     cache_real = np.zeros((m2,), bool)
                     cache_real[: len(alive)] = True
@@ -2610,7 +2725,15 @@ class _Phase2Pool:
         for layout, names, first3, fetched, _pinned in self.deferred:
             with obs.span("pool_drain", phase="d2h_fetch", leg=self.leg,
                           flushes=len(self.deferred)):
-                res_np = dict(zip(names, fetched.numpy()))
+                host = fetched.numpy()
+            if names is None:
+                *sc_np, toks_np = (torch.from_numpy(a) for a in host)
+                res = self.engine._scan_results(
+                    dmod.ReducedScores(*sc_np), None, None, toks_np,
+                    self.eos_id)
+                res_np = {k: v.numpy() for k, v in res._asdict().items()}
+            else:
+                res_np = dict(zip(names, host))
             row = 0
             for rows, n_real, orig in layout:
                 for j in range(n_real):

@@ -1,8 +1,10 @@
 """Device out-of-memory classification, the batch back-off ladder, the
 transient-error retry and the preemption guard (a copy of
-``runtime/faults.py``'s ``is_oom``/``oom_detail``/``next_batch_down``,
-``TransientError``/``is_transient``/``default_transient_policy``/
-``retry_transient`` and ``Preempted``/``PreemptionGuard``).
+``runtime/faults.py``'s ``is_oom``/``oom_detail``/``next_batch_down``/
+``split_for_requeue``, ``TransientError``/``is_transient``/
+``default_transient_policy``/``fleet_backoff_policy``/
+``fleet_backoff_delay``/``retry_transient`` and
+``Preempted``/``PreemptionGuard``).
 
 The engine retries a batch whose launch or consume ran out of device memory
 at the next size down the ladder (:func:`next_batch_down`), and records the
@@ -11,7 +13,10 @@ spellings: ``torch.OutOfMemoryError`` and a ``RuntimeError`` whose text says
 "CUDA out of memory".  The sweep shell wraps its engine calls in
 :func:`retry_transient` (connection resets and the like retry in place, OOM
 and real errors propagate) and its chunk loop in :class:`PreemptionGuard`
-(SIGTERM/SIGINT flush the checkpoint before the process exits).
+(SIGTERM/SIGINT flush the checkpoint before the process exits).  The serve
+scheduler splits a micro-batch that ran out of memory into re-queued chunks
+(:func:`split_for_requeue`), and the pool's supervisor spaces its rebuilds
+with full jitter (:func:`fleet_backoff_delay`).
 """
 
 from __future__ import annotations
@@ -65,6 +70,27 @@ def next_batch_down(batch: int, ladder: Sequence[int] = (),
     return max(floor, batch // 2)
 
 
+def split_for_requeue(rows: int, current: int, ladder: Sequence[int] = (),
+                      floor: int = 1
+                      ) -> Optional[Tuple[int, Tuple[int, ...]]]:
+    """Serve-path OOM rule: ``(new_batch, chunk_sizes)`` for a micro-batch
+    that re-enters the scheduler's queue (never the engine's in-place
+    retry, so queued traffic keeps flowing between retries).
+
+    ``current`` is the batch size the failed launch ran at; ``new_batch``
+    is the next ladder step down (:func:`next_batch_down`) and
+    ``chunk_sizes`` partitions the ``rows`` real rows into chunks of at
+    most ``new_batch`` rows.  None at the floor: the caller fails the
+    requests with the original error."""
+    new_batch = next_batch_down(current, ladder=ladder, floor=floor)
+    if new_batch is None:
+        return None
+    sizes = [new_batch] * (rows // new_batch)
+    if rows % new_batch:
+        sizes.append(rows % new_batch)
+    return new_batch, tuple(sizes)
+
+
 class TransientError(RuntimeError):
     """Marker for injected or known-transient failures."""
 
@@ -97,6 +123,25 @@ def default_transient_policy() -> RetryPolicy:
     """Local-engine transient policy: 3 quick retries."""
     return RetryPolicy(max_retries=3, initial_delay=2.0, max_delay=30.0,
                        retry_predicate=is_transient)
+
+
+def fleet_backoff_policy(initial_delay_s: float = 1.0,
+                         max_delay_s: float = 60.0,
+                         max_retries: int = 5) -> RetryPolicy:
+    """Fleet-event backoff with full jitter (the delay uniform in [0, the
+    clamped base]): when a replica dies, every rebuild and failover starts
+    its clock at the same instant, and a multiplicative band would keep
+    them in near lockstep."""
+    return RetryPolicy(max_retries=max_retries,
+                       initial_delay=initial_delay_s,
+                       max_delay=max_delay_s, full_jitter=True)
+
+
+def fleet_backoff_delay(attempt: int,
+                        policy: Optional[RetryPolicy] = None) -> float:
+    """The full-jittered delay before rebuild or failover ``attempt``
+    (0-based) under ``policy`` (default :func:`fleet_backoff_policy`)."""
+    return (policy or fleet_backoff_policy()).delay_for_attempt(attempt)
 
 
 def retry_transient(fn: Callable, policy: Optional[RetryPolicy] = None,

@@ -44,7 +44,7 @@ cache must round-trip bit-exactly.  A slab pins no device memory.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -507,11 +507,11 @@ class SlotRing:
         if self._cache is not None and not self.live_rows():
             # every lane retired and nothing refilled: release the ring's
             # K/V instead of pinning it until the next crank
-            record_counter("completion_cache_bytes_freed",
-                           _cache_nbytes(self._cache))
+            before = self._footprint()
             self._slots = []
             self._cache = self._prev = self._lens = None
             self._done = self._tids = self._prev_h = None
+            self._record_release(before)
 
     def drain(self) -> None:
         self.pump(drain=True)
@@ -570,7 +570,7 @@ class SlotRing:
             return                      # nothing changed: keep lanes
         parts_cache, parts_last, parts_lens, parts_ids, rows = \
             [], [], [], [], []
-        old_bytes = _cache_nbytes(self._cache) if had_state else 0
+        before = self._footprint()
         done_parts = []
         if alive_idx:
             idx_dev = to_device(alive_idx, self._cache.k.device,
@@ -606,12 +606,11 @@ class SlotRing:
                        else _pad_cache_to(c, cur_len)
                        for c in parts_cache]
         if not rows:
-            if had_state:
-                # the whole ring retired at once: every lane's K/V goes back
-                record_counter("completion_cache_bytes_freed", old_bytes)
+            # the whole ring retired at once: every lane's K/V goes back
             self._slots = []
             self._cache = self._prev = self._lens = None
             self._done = self._tids = self._prev_h = None
+            self._record_release(before)
             return
         m = self._pad_slice(len(rows))
         if m > len(rows):
@@ -636,15 +635,37 @@ class SlotRing:
         # chunk's bootstrap block makes a new one
         self._prev_h = None
         self._slots = rows + [None] * (m - len(rows))
-        if had_state:
-            freed = old_bytes - _cache_nbytes(self._cache)
-            if freed > 0:
-                record_counter("completion_cache_bytes_freed", freed)
+        self._record_release(before)
         self.stats.repacks += 1
         slot_counter("slot_repacks", 1, self.leg, self.workload)
         if n_new and had_state and alive_idx:
             self.stats.refills += n_new
             slot_counter("slot_refills", n_new, self.leg, self.workload)
+
+    def _footprint(self) -> Tuple[int, int]:
+        """(K/V bytes allocated, K/V bytes of the ring's rows, live or
+        retired, its padding lanes left out)."""
+        if self._cache is None or not self._slots:
+            return 0, 0
+        total = _cache_nbytes(self._cache)
+        rows = sum(s is not None for s in self._slots)
+        return total, total * rows // len(self._slots)
+
+    def _record_release(self, before: Tuple[int, int]) -> None:
+        """Count what a repack or the ring's release gave back against the
+        :meth:`_footprint` taken ``before`` it:
+        ``completion_cache_bytes_freed`` the K/V bytes actually released,
+        ``completion_cache_bytes_retired`` the bytes of the rows that left.
+        The reference frees a row's bytes when it leaves, shrinking the
+        ring to the slice menu; these rings stay at their capacity
+        (``engine._full_ring``) and release the lanes only at a
+        compaction or when they empty, so the second counter is the one
+        equal to the reference's ``completion_cache_bytes_freed``."""
+        for name, was, now in zip(("completion_cache_bytes_freed",
+                                   "completion_cache_bytes_retired"),
+                                  before, self._footprint()):
+            if was > now:
+                record_counter(name, was - now)
 
     def _needs_compaction(self) -> bool:
         if self._cache is None or self._base_len is None:

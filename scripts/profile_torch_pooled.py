@@ -146,7 +146,7 @@ def main(argv=None):
             route["profile"] = _profile(call)
         out["routes"][name] = route
         print(name, json.dumps(route), flush=True)
-        engine.close()
+        engine.close(release_params=False)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile_torch_pooled.json"),
               "w") as f:

@@ -1049,3 +1049,85 @@ def test_cli_snapshots_carry_the_published_formats():
         == set(chip_smoke.TOKENIZER_FORMATS)
     assert '_format_tokenizer_files("falcon", texts)' in inspect.getsource(
         chip_smoke.cli_phase)
+
+
+# -- the serve phase and its CLI leg -------------------------------------------
+
+def test_serve_phase_runs_its_legs_and_gates():
+    src = inspect.getsource(chip_smoke.serve_phase)
+    for leg in ("replay", "prefix", "oom", "pool", "roles", "supervise",
+                "load"):
+        assert f'("{leg}", {leg}_leg)' in src, leg
+    for gate in ("blocked_transfers", "strict.activate(sentry=False)",
+                 "serve_slot_admitted", "set_per_process_memory_fraction",
+                 "serve_oom_split", "build_shared_pool", "pool.unload(rid)",
+                 "SERVE_MEMORY_SLACK", 'kv_dtype="int8"', 'role="prefill"',
+                 'role="decode"', "made[0].kill()", "wedged.wedge()",
+                 "restart_ms", 'mode="closed"', "sload.rate_sweep",
+                 "SERVE_LOAD_FRACTIONS", "_vs_offline", "_top_tokens",
+                 'attention_impl="flash"', "FALCON_7B_GEOMETRY"):
+        assert gate in src, gate
+    assert chip_smoke.SERVE_LOAD_FRACTIONS == (0.25, 0.5, 0.9)
+    assert chip_smoke.SERVE_LOAD_S == 5.0
+    assert chip_smoke.SERVE_MEMORY_SLACK == 64 << 20
+
+
+def test_serve_cli_phase_drives_every_mode():
+    src = inspect.getsource(chip_smoke.serve_cli_phase)
+    for flag in ('"--strict"', '"--metrics-port"', '"--replay"',
+                 '"--load-rate"', '"--pool-replicas", "2"', '"--supervise"',
+                 '"--attention-impl", "flash"', "/healthz", "/metrics",
+                 "JSONDecodeError", "parity_ok"):
+        assert flag in src, flag
+    assert len(chip_smoke.SERVE_CLI_RATES) == 3
+    assert chip_smoke.SERVE_CLI_LOAD_S == 2.0
+    assert chip_smoke.SERVE_CLI_LINES == 64
+
+
+def test_main_counts_the_serve_phases_launches():
+    """The serve phase runs on the slice's weights before they are freed,
+    its CLI leg after the CLI phases, and both count in the ``kernels``
+    line's causal launches."""
+    src = inspect.getsource(chip_smoke.main)
+    assert "tres, cres, fam, inst, svres, svcli)" in src
+    assert src.index("tokenizers_phase") < src.index("serve_phase") < \
+        src.index("del weights")
+    assert src.index("obs_cli_phase") < src.index("serve_cli_phase")
+    assert 'pool_inputs = pres.pop("inputs")' in src
+    serve_res = dict(runs=[dict(run="replay", kernel_launches=64),
+                           dict(run="oom", kernel_launches=40)])
+    cli_res = dict(runs=[dict(run="jsonl", kernel_launches=4)])
+    assert chip_smoke.causal_launches(serve_res, cli_res) == 108
+
+
+def test_k_decode_phase_runs_on_the_first_layers():
+    src = inspect.getsource(chip_smoke.k_decode_phase)
+    assert "_first_layers(full_weights, K_DECODE_LAYERS)" in src
+    assert "near_tie = NEAR_TIE_FACTOR" in src
+    assert chip_smoke.K_DECODE_LAYERS == 8
+    assert "fres[\"near_tie\"], card)" not in inspect.getsource(
+        chip_smoke.main)
+
+
+def test_vs_offline_gates_every_row_exactly():
+    rows = [dict(scan_found=True, relative_prob=0.5, yes_prob=0.1),
+            dict(scan_found=False, relative_prob=0.25, yes_prob=0.2)]
+    fails = []
+    stats = chip_smoke._vs_offline("t", rows, [dict(r) for r in rows],
+                                   lambda a, b: a == b, fails)
+    assert not fails and stats["bit_identical_rows"] == 2
+    moved = [rows[0], dict(rows[1], yes_prob=0.2 + 1e-9)]
+    stats = chip_smoke._vs_offline("t", moved, rows, lambda a, b: a == b,
+                                   fails)
+    assert stats["bit_identical_rows"] == 1 and len(fails) == 1
+    assert "'yes_prob'" in fails[0] and "first [(1," in fails[0]
+
+
+def test_obs_and_tokenizer_sweeps_run_on_the_first_layers():
+    """The obs phase and the tokenizers phase's sweep run on views of the
+    slice's first OBS_LAYERS layers (the smoke's time)."""
+    assert chip_smoke.OBS_LAYERS == 8
+    assert "_first_layers(full_weights, OBS_LAYERS)" in inspect.getsource(
+        chip_smoke.obs_phase)
+    assert "_first_layers(weights, OBS_LAYERS)" in inspect.getsource(
+        chip_smoke.tokenizers_phase)

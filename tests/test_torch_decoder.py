@@ -23,6 +23,7 @@ from llm_interpretation_replication_tpu_torch.models import config as tconfig
 from llm_interpretation_replication_tpu_torch.models import convert
 from llm_interpretation_replication_tpu_torch.models import decoder as tdec
 from llm_interpretation_replication_tpu_torch.ops import quant as tquant
+from llm_interpretation_replication_tpu_torch.ops.attention import NEG_INF
 from test_torch_slots import one_torch_thread  # noqa: F401
 
 ATOL = 2e-5
@@ -272,3 +273,55 @@ def test_cache_quantization_must_match_config():
         tdec.decode_steps(weights, tcfg, cache, last,
                           torch.from_numpy(mask.sum(-1)), 0, 2,
                           with_scores=False)
+
+
+def _two_block_inputs(rng, n, g, tp=12, tt=3, d=16):
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    bias_p = np.zeros((2, 1, 1, tp), np.float32)
+    bias_p[1, ..., tp - 4:] = NEG_INF
+    bias_t = np.zeros((2, 1, 1, tt), np.float32)
+    bias_t[0, ..., tt - 1] = NEG_INF
+    return (f(2, 1, n, d), f(2, tp, g, d), f(2, tp, g, d), bias_p,
+            f(2, tt, g, d), f(2, tt, g, d), bias_t)
+
+
+@pytest.mark.parametrize("heads", [(4, 1), (4, 2), (4, 4)])
+def test_two_block_attention_matches_reference(heads):
+    """The decode's two-block attention against the JAX function on the same
+    float32 inputs (atol 1e-6: the port sums in float64 and rounds once), in
+    MQA, GQA and MHA layouts."""
+    args = _two_block_inputs(np.random.default_rng(5), *heads)
+    want = jdec.grouped_attention_two_block(*(jnp.asarray(a) for a in args))
+    got = tdec.grouped_attention_two_block(*(torch.as_tensor(a)
+                                             for a in args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("where", ["appended", "between"])
+@pytest.mark.parametrize("heads", [(4, 1), (4, 4)])
+def test_two_block_attention_ignores_masked_slots(heads, where):
+    """Masked slots added to the prompt block (after the valid ones, or in
+    between them, as a compacted or differently padded cache places them)
+    leave a bf16 result bit-identical: the products and slot sums run in
+    float64, so only a row's own valid slots count."""
+    rng = np.random.default_rng(6)
+    q, kp, vp, bias_p, kt, vt, bias_t = _two_block_inputs(rng, *heads)
+    pad = 5
+    junk = rng.standard_normal((2, pad) + kp.shape[2:]).astype(np.float32)
+    masked = np.full((2, 1, 1, pad), NEG_INF, np.float32)
+    at = kp.shape[1] if where == "appended" else 6
+
+    def widen(a, extra):
+        return np.concatenate([a[:, :at], extra, a[:, at:]], axis=1)
+
+    bf = lambda a: torch.as_tensor(a).to(torch.bfloat16)  # noqa: E731
+    base = tdec.grouped_attention_two_block(
+        bf(q), bf(kp), bf(vp), torch.as_tensor(bias_p), bf(kt), bf(vt),
+        torch.as_tensor(bias_t))
+    padded = tdec.grouped_attention_two_block(
+        bf(q), bf(widen(kp, junk)), bf(widen(vp, junk)),
+        torch.as_tensor(np.concatenate(
+            [bias_p[..., :at], masked, bias_p[..., at:]], axis=-1)),
+        bf(kt), bf(vt), torch.as_tensor(bias_t))
+    assert torch.equal(base, padded)

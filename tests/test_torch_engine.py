@@ -238,19 +238,33 @@ def test_default_device_is_cuda(setup):
                               engine_config=tengine.EngineConfig(**ENGINE_KW))
 
 
-def test_close_releases_weights(setup):
+def _closed_engine(setup, **close_kw):
     tcfg = tconfig.DecoderConfig(**tconfig.FLAGSHIP_SMALL_GEOMETRY)
     weights = convert.random_params(tcfg, seed=0, device="cpu", dtype="fp32")
     eng = tengine.ScoringEngine("falcon", tcfg, weights, setup, device="cpu",
                                 engine_config=tengine.EngineConfig(**ENGINE_KW))
     assert eng.score_prompts(["Is soup a beverage?"])[0]["success"]
-    eng.close()
+    eng.close(**close_kw)
     eng.close()                                          # idempotent
     assert eng.closed and eng.params is None
     with pytest.raises(tengine.EngineClosed):
         eng.score_prompts(["Is soup a beverage?"])
-    # the caller's weights survive for another engine built on them
-    assert all(b.numel() > 0 for b in weights.buffers())
+    return tcfg, weights
+
+
+def test_close_releases_weights(setup):
+    """The default ``close()`` frees the weights' storages in place, as the
+    reference's ``close(release_params=True)`` deletes its buffers."""
+    _, weights = _closed_engine(setup)
+    assert all(b.untyped_storage().nbytes() == 0 for b in weights.buffers())
+
+
+def test_close_keeps_weights_when_asked(setup):
+    """``close(release_params=False)``: the caller's weights survive for
+    another engine built on them."""
+    tcfg, weights = _closed_engine(setup, release_params=False)
+    assert all(b.numel() > 0 and b.untyped_storage().nbytes() > 0
+               for b in weights.buffers())
     other = tengine.ScoringEngine("falcon", tcfg, weights, setup, device="cpu",
                                   engine_config=tengine.EngineConfig(**ENGINE_KW))
     assert other.score_prompts(["Is soup a beverage?"])[0]["success"]

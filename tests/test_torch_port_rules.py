@@ -33,7 +33,8 @@ def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "scripts", "profile_torch_slice.py"),
            os.path.join(ROOT, "scripts", "profile_torch_pooled.py"),
-           os.path.join(ROOT, "scripts", "sync_sites.py")]
+           os.path.join(ROOT, "scripts", "sync_sites.py"),
+           os.path.join(ROOT, "scripts", "decode_layout_probe.py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
         out += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
@@ -70,6 +71,7 @@ def test_port_imports_nothing_of_jax():
     "scripts/profile_torch_slice.py",
     "scripts/profile_torch_pooled.py",
     "scripts/sync_sites.py",
+    "scripts/decode_layout_probe.py",
     "llm_interpretation_replication_tpu_torch/ops/__init__.py",
     "llm_interpretation_replication_tpu_torch/ops/_build.py",
     "llm_interpretation_replication_tpu_torch/ops/attention.py",
@@ -108,6 +110,20 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/runtime/strict.py",
     "llm_interpretation_replication_tpu_torch/utils/profiling.py",
     "llm_interpretation_replication_tpu_torch/sweeps/instruct_sweep.py",
+    "llm_interpretation_replication_tpu_torch/serve/__init__.py",
+    "llm_interpretation_replication_tpu_torch/serve/config.py",
+    "llm_interpretation_replication_tpu_torch/serve/request.py",
+    "llm_interpretation_replication_tpu_torch/serve/queue.py",
+    "llm_interpretation_replication_tpu_torch/serve/coalescer.py",
+    "llm_interpretation_replication_tpu_torch/serve/scheduler.py",
+    "llm_interpretation_replication_tpu_torch/serve/replay.py",
+    "llm_interpretation_replication_tpu_torch/serve/load.py",
+    "llm_interpretation_replication_tpu_torch/serve/supervisor.py",
+    "llm_interpretation_replication_tpu_torch/serve/pool.py",
+    "llm_interpretation_replication_tpu_torch/serve/cli.py",
+    "llm_interpretation_replication_tpu_torch/api_backends/__init__.py",
+    "llm_interpretation_replication_tpu_torch/api_backends/cost.py",
+    "llm_interpretation_replication_tpu_torch/utils/testing.py",
 ])
 def test_slice_modules_are_guarded(rel):
     """The modules the kernels, the int8 path, the pool, the slot ring,
@@ -241,3 +257,155 @@ def test_copied_plan_matches_reference():
     for n in (1, 64, 256, 257, 320, 448, 512, 600, 2048, 3000):
         assert plan.pool_len_for(n) == jplan.pool_len_for(n)
         assert plan.conf_pool_len_for(n) == jplan.conf_pool_len_for(n)
+
+
+def _fields(cls):
+    import dataclasses
+
+    return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+
+def test_copied_serve_config_and_request_match_reference():
+    """``serve/config.py`` and ``serve/request.py`` are copies: the same
+    fields and defaults, the same error hierarchy, the same validation."""
+    from llm_interpretation_replication_tpu.serve import config as jsc
+    from llm_interpretation_replication_tpu.serve import request as jreq
+    from llm_interpretation_replication_tpu_torch.serve import config as tsc
+    from llm_interpretation_replication_tpu_torch.serve import request as treq
+
+    assert _fields(tsc.SchedulerConfig) == _fields(jsc.SchedulerConfig)
+    assert _fields(treq.ScoreRequest) == _fields(jreq.ScoreRequest)
+    for name in ("DeadlineExceeded", "QueueFull", "SchedulerClosed",
+                 "PoisonousRequest"):
+        t, j = getattr(treq, name), getattr(jreq, name)
+        assert issubclass(t, treq.ServeError) and issubclass(j, jreq.ServeError)
+        assert [c.__name__ for c in t.__mro__] == [c.__name__ for c in j.__mro__]
+    assert treq.ScoreFuture.__slots__ == jreq.ScoreFuture.__slots__
+    for kw in (dict(), dict(prompt="p", prefix="a", suffix="b"),
+               dict(prefix="a"), dict(prompt="p", targets=("Yes",)),
+               dict(prompt="p", decode_k=0), dict(prompt="p"),
+               dict(prefix="a", suffix="b", decode_k=2)):
+        errs = []
+        for mod in (treq, jreq):
+            try:
+                mod.ScoreRequest(**kw).validate()
+                errs.append(None)
+            except ValueError as e:
+                errs.append(str(e))
+        assert errs[0] == errs[1], kw
+
+
+def test_copied_queue_matches_reference():
+    """``serve/queue.py``: the same pops, expiries and refusals on the
+    same tickets."""
+    from llm_interpretation_replication_tpu.serve import queue as jq
+    from llm_interpretation_replication_tpu.serve import request as jreq
+    from llm_interpretation_replication_tpu_torch.serve import queue as tq
+    from llm_interpretation_replication_tpu_torch.serve import request as treq
+
+    def run(q_mod, r_mod):
+        q = q_mod.RequestQueue(5)
+        spec = [(0, 0.0, None, "a"), (3, 0.1, None, "b"), (3, 0.2, 0.5, "a"),
+                (1, 0.3, None, "a"), (0, 0.4, 0.2, "b")]
+        for i, (prio, t, dl, key) in enumerate(spec):
+            q.put(q_mod.Ticket(request=r_mod.ScoreRequest(prompt=f"q{i}",
+                                                          priority=prio),
+                               future=r_mod.ScoreFuture(), seq=i + 1,
+                               enqueue_t=t, deadline=dl, key=key))
+        out = []
+        try:
+            q.put(q_mod.Ticket(request=r_mod.ScoreRequest(prompt="x"),
+                               future=r_mod.ScoreFuture(), seq=9,
+                               enqueue_t=0.0, deadline=None))
+        except r_mod.QueueFull as e:
+            out.append(("full", str(e)))
+        out.append([t.seq for t in q.pop_compatible("a", 1,
+                                                     now_fn=lambda: 0.3)])
+        out.append(q.oldest_wait_s(now_fn=lambda: 1.0))
+        group, expired = q.pop_group(2, 0.05, now_fn=lambda: 0.6)
+        out.append(([t.seq for t in group], [t.seq for t in expired]))
+        q.close()
+        group, expired = q.pop_group(8, 10.0, now_fn=lambda: 0.6)
+        out.append(([t.seq for t in group], [t.seq for t in expired]))
+        out.append(q.pop_group(8, 10.0, now_fn=lambda: 0.6))
+        return out
+
+    assert run(tq, treq) == run(jq, jreq)
+
+
+def test_copied_cost_tracker_matches_reference():
+    """``api_backends/cost.py`` and its pricing table: the same tallies
+    and costs on the same calls, and ``api_models.json`` byte-identical."""
+    from llm_interpretation_replication_tpu.api_backends import cost as jcost
+    from llm_interpretation_replication_tpu_torch.api_backends import (
+        cost as tcost)
+
+    with open(os.path.join(ROOT, "llm_interpretation_replication_tpu",
+                           "data_assets", "api_models.json"), "rb") as f:
+        ref = f.read()
+    with open(os.path.join(PORT, "data_assets", "api_models.json"),
+              "rb") as f:
+        assert f.read() == ref
+    got = []
+    for mod in (tcost, jcost):
+        tr = mod.CostTracker()
+        models = sorted(tr.pricing)
+        assert models
+        for i, m in enumerate(models):
+            tr.record(m, 1000 * (i + 1), 50 * i)
+            tr.record_response(m, {"usage": {"prompt_tokens": 7,
+                                             "completion_tokens": 3}})
+        tr.record("unpriced", 10, 10)
+        got.append((tr.pricing, tr.summary(), tr.total_cost(),
+                    tr.extrapolate(models[0], 2, 10), tr.cost("unpriced")))
+    assert got[0] == got[1]
+
+
+def _serve_parser(main_mod):
+    """The ``serve`` subparser a package's CLI builds."""
+    import argparse
+
+    class Built(Exception):
+        pass
+
+    real = argparse.ArgumentParser.parse_args
+
+    def capture(self, *args, **kwargs):
+        raise Built(self)
+
+    argparse.ArgumentParser.parse_args = capture
+    try:
+        main_mod.main(["serve", "--model", "m"])
+    except Built as built:
+        parser = built.args[0]
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return sub.choices["serve"]
+
+
+def test_serve_parser_options_match_reference():
+    """The port's ``serve`` takes every option of the reference's: the
+    run-config options by name (their device and dtype defaults are the
+    card's), the serve options with the same defaults, types and
+    arities."""
+    import argparse
+
+    from llm_interpretation_replication_tpu import __main__ as jmain
+    from llm_interpretation_replication_tpu_torch import __main__ as tmain
+
+    run_config = argparse.ArgumentParser()
+    tmain._add_run_config_args(run_config)
+    shared = {a.dest for a in run_config._actions}
+
+    def options(parser):
+        return sorted((tuple(a.option_strings), a.dest)
+                      + ((a.default, a.required, str(a.type), a.nargs,
+                          a.const) if a.dest not in shared else ())
+                      for a in parser._actions)
+
+    got, ref = options(_serve_parser(tmain)), options(_serve_parser(jmain))
+    assert got == ref
+    assert ("--pool-replicas",) in [o[0] for o in got]
+    assert len(got) - len(shared) == 17
