@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, each fatal on failure (the exit code is then non-zero and no result
-line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 9, 11,
-18's CLI leg, 12-15):
+line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
+11, 18's CLI leg, 20's CLI leg, 21, 12-15):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
@@ -117,7 +117,7 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 9, 11,
    same workbook; both keep the bf16 run's position-0 columns);
 12. families: Pythia-6.9B (GPT-NeoX), Mistral-7B-Instruct-v0.2 (the
    LLaMA family, 32 query heads on 8 K/V heads) and BLOOM-7b1 (ALiBi) at
-   their published width and FAMILY_LAYERS (8) of their 30-32 layers:
+   their published width and FAMILY_LAYERS (4) of their 30-32 layers:
    random bf16 weights from ``--seed``
    made as a HF checkpoint and read through the port's converter, the two
    targets' rows swapped with ids the weights rank high; each scores the
@@ -166,8 +166,8 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 9, 11,
    (t5-v1_1-base, flan-t5-base) runs through
    ``sweeps.run_base_vs_instruct_word_meaning`` (the base model's few-shot
    prompt on T5): each T5 model's rows against the same prompts at batch
-   8 (partings only below the tie measured between the decode and one
-   forward over its tokens) and position-0 fields within twice one bf16
+   T5_SECOND_BATCH (16; partings only below the tie measured between the
+   decode and one forward over its tokens) and position-0 fields within twice one bf16
    forward's deviation from float32, and ms a decode step.  Qwen-7B-Chat,
    Baichuan2-7B-Chat (NormHead) and OPT-IML-1.3B run phase 12's routes and
    gates (kernel and dense) on the instruct prompts, the causal kernel
@@ -269,7 +269,27 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 9, 11,
    malformed, under ``--strict`` with ``--metrics-port`` (``/healthz``
    and ``/metrics`` fetched while it serves), ``--replay`` (exit 0 on
    parity) and ``--load-rate`` with three rates through
-   ``--pool-replicas 2 --supervise``.
+   ``--pool-replicas 2 --supervise``;
+21. api (after phase 20's CLI leg, on the slice's weights at full width
+   and depth, the causal kernel; budget API_BUDGET_S, 40 s): the API leg
+   over scripted vendors (``_api_transport``: each answer drawn from a CRC
+   of the prompt, so no socket is opened).  ``generate-irrelevant``
+   through the port's CLI writes the 3,400-row irrelevant-insertion
+   corpus, whose JSON must hash to IRRELEVANT_CORPUS_SHA256; 256 of its
+   binary prompts are scored on the card under a word tokenizer of the
+   corpus (token counts, rows/s and the share decided at position 0 are
+   printed, not gated; a causal launch a layer and prefill); a mixed pool
+   of two local replicas beside ``RemoteBackend.openai``, ``.gemini`` and
+   ``.anthropic`` serves 64 local and 24 remote requests under strict mode
+   (local rows equal an offline call's, remote rows the evaluators' on
+   the same answers, the shared cost tracker's total its expected sum,
+   ``blocked_transfers`` 0, both local replicas answer); and a child
+   process runs ``run-api-perturbation``, ``run-claude-perturbation``,
+   ``run-gpt-perturbation`` and ``run-gemini-perturbation`` on 2
+   scenarios x 5 rephrasings (10 rows each, the right columns; a second
+   run resumes from the workbook and asks nothing), then
+   ``generate-rephrasings`` and ``repair-batch``, and must end with no
+   CUDA context and no pandas imported.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -278,6 +298,7 @@ CPU in its place.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -3617,7 +3638,7 @@ CLI_TOKENIZERS = {"tiiuae/falcon-7b": "falcon", "bigscience/bloom-7b1": "bloom",
 CLI_DENSE = {"bigscience/bloom-7b1", "bigscience/bloomz-7b1",
              "mistralai/Mistral-7B-v0.1"}
 SCAN_STEPS = 10          # the look-ahead the yes/no scan reads
-FAMILY_LAYERS = 8        # the families and instruct decoders' depth (of
+FAMILY_LAYERS = 4        # the families and instruct decoders' depth (of
 #                          their 24-32 layers)
 
 # ---------------------------------------------------------------------------
@@ -4864,11 +4885,16 @@ def _t5_weights(config, seed, device):
     return cfg, weights
 
 
+#: the T5 gates' second bf16 route: the same prompts at this batch (at 8
+#: its 50-step decodes took 45 s of the instruct phase on the H100)
+T5_SECOND_BATCH = 16
+
+
 def _t5_gated_run(label, model, cfg, weights, tok, prompts, rows, card,
                   attention):
     """Gates of one T5 model's rows (``rows``: the sweep's, batch BATCH)
-    against a second bf16 route (the same prompts at batch 8, another set
-    of GEMM shapes) and a float32 forward of the same weights: completions
+    against a second bf16 route (the same prompts at batch
+    T5_SECOND_BATCH, another set of GEMM shapes) and a float32 forward of the same weights: completions
     part only where the batch-BATCH route's lead is below the tie (twice
     NEAR_TIE_FACTOR times the largest top-1 difference between the decode
     and one forward over its tokens, two bf16 computations), verdicts only
@@ -4909,13 +4935,15 @@ def _t5_gated_run(label, model, cfg, weights, tok, prompts, rows, card,
     dev16 = float(np.abs(p16 - p32)[clear].max(initial=0.0))
     _reset_launches(attention)
     eng = emod.ScoringEngine("t5", cfg, weights, tok, device="cuda",
-                             engine_config=emod.EngineConfig(batch_size=8))
+                             engine_config=emod.EngineConfig(
+                                 batch_size=T5_SECOND_BATCH))
     t0 = time.perf_counter()
-    rows8 = eng.score_prompts(prompts)
+    rows2 = eng.score_prompts(prompts)
     torch.cuda.synchronize()
-    secs8 = time.perf_counter() - t0
+    secs2 = time.perf_counter() - t0
     eng.close(release_params=False)
-    stats, f = _compare_family_rows(f"{label} batch 8", rows8, rows, leads,
+    stats, f = _compare_family_rows(f"{label} batch {T5_SECOND_BATCH}",
+                                    rows2, rows, leads,
                                     edge, split, tie, p32, clear, 2 * dev16)
     fails += f
     stats32, f = _compare_family_rows(f"{label} batch {BATCH}", rows, rows,
@@ -4942,8 +4970,8 @@ def _t5_gated_run(label, model, cfg, weights, tok, prompts, rows, card,
                   top1_max_abs_diff=max(diffs),
                   position0_bf16_vs_fp32=dev16,
                   rows_clear_of_edge=int(clear.sum()),
-                  gates={"batch8": stats, "position0": stats32},
-                  batch8_s=secs8, ms_per_decode_step=(t50 - t10) / 40,
+                  gates={"second_batch": stats, "position0": stats32},
+                  second_batch_s=secs2, ms_per_decode_step=(t50 - t10) / 40,
                   decode_ms=[t10, t50], card=card)
     return result, fails
 
@@ -7052,6 +7080,474 @@ def _strict_audit(stderr):
     return [json.loads(line.split(": ", 1)[1]) for line in stderr.splitlines()
             if line.startswith("# strict: ")]
 
+# ---------------------------------------------------------------------------
+# The API leg: the irrelevant-insertion corpus, the vendor clients and the
+# API sweeps over scripted vendors (no socket is opened)
+# ---------------------------------------------------------------------------
+
+#: the irrelevant-insertion corpus ``generate-irrelevant`` writes: its
+#: JSON's sha256 (the JAX package's bytes; tests/test_torch_irrelevant.py
+#: pins it on the CPU) and its perturbation count
+IRRELEVANT_CORPUS_SHA256 = (
+    "e10ad4e6b01698b6aa4150ae54409ba569a2b0278a1a28a4ed2d12a1e5b46edf")
+IRRELEVANT_CORPUS_ROWS = 3400
+API_CORPUS_ROWS = 256      # corpus rows scored on the card
+API_POOL_LOCAL = 64        # of them, through the mixed pool's two replicas
+API_POOL_REMOTE = 4        # binary and confidence requests a vendor
+API_BUDGET_S = 40.0
+API_MODELS = {"openai": "gpt-4.1-2025-04-14", "gemini": "gemini-2.5-pro",
+              "anthropic": "claude-opus-4-1-20250805"}
+#: USD per 1M tokens (input, output) the mixed pool's tracker prices with
+API_PRICING = {API_MODELS["openai"]: {"input": 1.0, "output": 4.0},
+               API_MODELS["gemini"]: {"input": 1.25, "output": 10.0},
+               API_MODELS["anthropic"]: {"input": 15.0, "output": 75.0}}
+API_SWEEP_SCENARIOS = 2
+API_SWEEP_REPHRASINGS = 5
+#: tokens the scripted vendors rank at a binary prompt's first position
+API_ANSWER_TOKENS = ("Yes", "No", "Covered", "Not", "Ultimate", "First",
+                     "Existing", "Future", "Monthly", "Payment", "Completion")
+
+
+def _api_answer(text):
+    """A scripted vendor's answer to one prompt, from a CRC of its text:
+    ``(answer, [(token, logprob), ...] a position)``.  A confidence prompt
+    (one that asks how confident) answers a number, its two digits'
+    candidates a position; a binary prompt answers the best of
+    ``API_ANSWER_TOKENS`` under CRC-drawn weights."""
+    import math
+    import zlib
+
+    h = zlib.crc32(text.encode("utf-8"))
+    if "confident" in text:
+        a, b = h % 90 + 10, (h // 90) % 90 + 10
+        return str(a), [[(x, math.log(p)) for x, p in zip(pair, (0.7, 0.2))]
+                        for pair in zip(str(a), str(b))]
+    w = [1 + (h >> (3 * i)) % 8 for i in range(len(API_ANSWER_TOKENS))]
+    top = sorted(zip(API_ANSWER_TOKENS, (x / sum(w) for x in w)),
+                 key=lambda t: -t[1])
+    return top[0][0], [[(t, math.log(p)) for t, p in top]]
+
+
+def _api_transport(api, vendor, calls=None):
+    """A ``FakeTransport`` scripted as one vendor: chat completions, files,
+    batches and downloads (OpenAI), messages and message batches
+    (Anthropic), or generateContent (Gemini).  Every answer comes from
+    :func:`_api_answer` on the request's text; batches end at their first
+    poll.  ``calls`` (a list) collects each request's URL."""
+    import json as jsonlib
+    import zlib
+
+    ft = api.FakeTransport()
+    store = {}
+
+    def counted(fn):
+        def respond(call):
+            if calls is not None:
+                calls.append(call["url"])
+            return fn(call)
+        return respond
+
+    def openai_body(req):
+        text = req["messages"][0]["content"]
+        answer, positions = _api_answer(text)
+        choice = {"message": {"content": answer}}
+        if "max_completion_tokens" not in req:
+            choice["logprobs"] = {"content": [
+                {"token": answer, "top_logprobs": [
+                    {"token": t, "logprob": lp} for t, lp in pos]}
+                for pos in positions]}
+        return {"choices": [choice],
+                "usage": {"prompt_tokens": len(text) // 4,
+                          "completion_tokens": 2}}
+
+    def claude_message(req):
+        return {"content": [{"type": "text", "text": _api_answer(
+            req["messages"][0]["content"])[0]}]}
+
+    if vendor == "openai":
+        def upload(call):
+            lines = [jsonlib.loads(x) for x in call["data"].decode(
+                "utf-8", "replace").splitlines() if x.startswith("{")]
+            fid = f"file-{zlib.crc32(jsonlib.dumps(lines).encode()):08x}"
+            store[fid] = lines
+            return 200, {"id": fid}
+
+        def download(call):
+            fid = call["url"].split("/files/out-")[1].split("/content")[0]
+            return 200, "\n".join(jsonlib.dumps({
+                "custom_id": r["custom_id"],
+                "response": {"body": openai_body(r["body"])}})
+                for r in store[fid]).encode()
+
+        ft.add("POST", "/chat/completions",
+               counted(lambda c: (200, openai_body(c["json"]))))
+        ft.add("POST", "/files", counted(upload))
+        ft.add("POST", "/batches", counted(lambda c: (200, {
+            "id": "batch-" + c["json"]["input_file_id"][5:],
+            "status": "validating"})))
+        ft.add("GET", "/batches/", counted(lambda c: (200, {
+            "status": "completed",
+            "output_file_id": "out-file-" + c["url"].rsplit("-", 1)[1]})))
+        ft.add("GET", "/content", counted(download))
+    elif vendor == "anthropic":
+        def create(call):
+            bid = f"msgbatch-{len(store)}"
+            store[bid] = call["json"]["requests"]
+            return 200, {"id": bid, "processing_status": "in_progress"}
+
+        def results(call):
+            bid = call["url"].split("/messages/batches/")[1].split("/")[0]
+            return 200, "\n".join(jsonlib.dumps({
+                "custom_id": r["custom_id"], "result": {
+                    "type": "succeeded",
+                    "message": claude_message(r["params"])}})
+                for r in store[bid]).encode()
+
+        ft.add("POST", "/messages/batches", counted(create))
+        ft.add("GET", "/results", counted(results))
+        ft.add("GET", "/messages/batches/", counted(lambda c: (200, {
+            "id": c["url"].rsplit("/", 1)[1], "processing_status": "ended"})))
+        ft.add("POST", "/messages",
+               counted(lambda c: (200, claude_message(c["json"]))))
+    else:
+        def generate(call):
+            answer, positions = _api_answer(
+                call["json"]["contents"][0]["parts"][0]["text"])
+            return 200, {"candidates": [{
+                "content": {"parts": [{"text": answer}]},
+                "logprobsResult": {"topCandidates": [{"candidates": [
+                    {"token": t, "logProbability": lp} for t, lp in pos]}
+                    for pos in positions]}}]}
+
+        ft.add("POST", ":generateContent", counted(generate))
+    return ft
+
+
+def _api_client(api, vendor, calls=None):
+    cls = {"openai": api.OpenAIClient, "gemini": api.GeminiClient,
+           "anthropic": api.AnthropicClient}[vendor]
+    return cls("scripted-key", transport=_api_transport(api, vendor, calls))
+
+
+def _api_host_child(workdir):
+    """The API sweeps on the card's host, in a process of their own: the
+    CLI's four sweep commands over the scripted vendors on
+    API_SWEEP_SCENARIOS scenarios x API_SWEEP_REPHRASINGS rephrasings,
+    each run twice (the second resumes from its workbook and must ask
+    nothing), then ``generate-rephrasings`` and ``repair-batch``.  Prints
+    one JSON line; the process must end without a CUDA context and
+    without pandas."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+    from llm_interpretation_replication_tpu_torch import api_backends as api
+    from llm_interpretation_replication_tpu_torch.api_backends import (
+        anthropic_client, gemini_client, openai_client)
+    from llm_interpretation_replication_tpu_torch.config import legal_scenarios
+    from llm_interpretation_replication_tpu_torch.sweeps.writers import (
+        CLAUDE_PERTURBATION_COLUMNS, PERTURBATION_COLUMNS)
+    from llm_interpretation_replication_tpu_torch.utils.xlsx import read_xlsx
+
+    t0 = time.perf_counter()
+    calls = []
+    for mod, vendor in ((openai_client, "openai"),
+                        (anthropic_client, "anthropic"),
+                        (gemini_client, "gemini")):
+        mod.UrllibTransport = functools.partial(
+            lambda v: _api_transport(api, v, calls), vendor)
+    for var in ("OPENAI_API_KEY", "ANTHROPIC_API_KEY", "GEMINI_API_KEY"):
+        os.environ[var] = "scripted-key"
+    records = [dict(s, rephrasings=[
+        f"{s['original_main'][:80]} (rephrasing {i})"
+        for i in range(API_SWEEP_REPHRASINGS)] if k < API_SWEEP_SCENARIOS
+        else []) for k, s in enumerate(legal_scenarios())]
+    pert = os.path.join(workdir, "api_perturbations.json")
+    with open(pert, "w", encoding="utf-8") as f:
+        json.dump(records, f)
+    want_rows = API_SWEEP_SCENARIOS * API_SWEEP_REPHRASINGS
+    runs, fails = {}, []
+    sweeps = {
+        "run-api-perturbation": (["--model", API_MODELS["openai"]],
+                                 PERTURBATION_COLUMNS),
+        "run-claude-perturbation": (["--model", API_MODELS["anthropic"]],
+                                    CLAUDE_PERTURBATION_COLUMNS),
+        "run-gpt-perturbation": (["--sleep", "0"], PERTURBATION_COLUMNS),
+        "run-gemini-perturbation": (["--threads", "4", "--rps", "1000"],
+                                    PERTURBATION_COLUMNS),
+    }
+    for cmd, (extra, columns) in sweeps.items():
+        out = os.path.join(workdir, f"{cmd}.xlsx")
+        argv = [cmd, "--perturbations", pert, "--output", out] + extra
+        got = []
+        for _ in range(2):
+            before = len(calls)
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(argv)
+            cols, rows = read_xlsx(out)
+            got.append(dict(rows=len(rows), requests=len(calls) - before))
+        runs[cmd] = dict(first=got[0], resume=got[1], columns=len(cols))
+        if cols != columns or got[0]["rows"] != want_rows \
+                or got[1]["rows"] != want_rows or got[1]["requests"] \
+                or not got[0]["requests"]:
+            fails.append(f"{cmd}: {runs[cmd]}")
+    reph = os.path.join(workdir, "generated_perturbations.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["generate-rephrasings", "--sessions", "2", "--target", "1",
+                  "--output", reph])
+    with open(reph, encoding="utf-8") as f:
+        generated = [len(r["rephrasings"]) for r in json.load(f)]
+    if generated != [1] * len(legal_scenarios()):
+        fails.append(f"generate-rephrasings: {generated} rephrasings")
+    req, resp, fixed = (os.path.join(workdir, n) for n in (
+        "req.jsonl", "resp.jsonl", "fixed.jsonl"))
+    with open(req, "w") as f:
+        f.write("\n".join(json.dumps({"custom_id": f"q{i}"})
+                          for i in range(2)) + "\n")
+    with open(resp, "w") as f:
+        f.write(json.dumps({"response": {"candidates": [{"content": {
+            "parts": [{"text": "Part(text='85')"}]}}]}}) + "\n")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["repair-batch", "--requests", req, "--responses", resp,
+                  "--output", fixed])
+    with open(fixed) as f:
+        repaired = [json.loads(x) for x in f]
+    if [r["custom_id"] for r in repaired] != ["q0"] or repaired[0][
+            "response"]["candidates"][0]["content"]["parts"][0]["text"] != "85":
+        fails.append(f"repair-batch: {repaired}")
+    print(json.dumps(dict(
+        runs=runs, generated=generated, fails=fails,
+        cuda_initialized=torch.cuda.is_initialized(),
+        pandas_imported="pandas" in sys.modules,
+        seconds=time.perf_counter() - t0)))
+
+
+def _api_host_leg(workdir):
+    """:func:`_api_host_child` in a child process, in a directory of its
+    own under ``workdir`` (so its first runs find no workbook); its JSON
+    line, checked."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke._api_host_child(sys.argv[2])")
+    own = tempfile.mkdtemp(prefix="api_host_", dir=workdir)
+    proc = subprocess.run([sys.executable, "-c", code, here, own],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"api host leg exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    fails = list(res["fails"])
+    if res["cuda_initialized"]:
+        fails.append("the API commands created a CUDA context")
+    if res["pandas_imported"]:
+        fails.append("the API commands imported pandas")
+    if fails:
+        raise AssertionError("api host leg: " + "; ".join(fails))
+    return res
+
+
+def _corpus_tokenizer(corpus):
+    """A ``WordTokenizer`` over the corpus's words (its texts, response
+    formats and target tokens)."""
+    from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
+        WordTokenizer)
+
+    words = []
+    for s in corpus:
+        words += s["response_format"].split() + list(s["target_tokens"])
+        for p in s["perturbations_with_irrelevant"]:
+            words += p["perturbed_text"].split()
+    return WordTokenizer(words)
+
+
+def api_phase(seed, attention, weights, workdir, card):
+    """The API leg (after serve_cli, on the slice's weights at full width
+    and depth, the causal kernel): (1) ``generate-irrelevant`` through the
+    port's CLI, its JSON's sha256 against IRRELEVANT_CORPUS_SHA256 with
+    IRRELEVANT_CORPUS_ROWS rows; (2) API_CORPUS_ROWS of its binary prompts
+    (every 13th row) scored on the card under a word tokenizer of the
+    corpus (token counts, rows/s and the share decided at position 0,
+    printed, not gated); (3) a mixed pool of two local replicas on the
+    card beside ``RemoteBackend.openai``, ``.gemini`` and ``.anthropic``
+    over scripted vendors under strict mode: local rows equal an offline
+    call, remote rows equal the evaluators' on the same answers, the
+    shared cost tracker's total equals its sum, ``blocked_transfers`` 0;
+    (4) the four API sweeps on the card's host in a child process
+    (:func:`_api_host_child`)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+    from llm_interpretation_replication_tpu_torch import api_backends as api
+    from llm_interpretation_replication_tpu_torch import serve
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.runtime import strict
+    from llm_interpretation_replication_tpu_torch.scoring.prompts import (
+        format_binary_prompt)
+    from llm_interpretation_replication_tpu_torch.utils import telemetry
+
+    t_phase = time.perf_counter()
+    fails, res = [], {}
+    path = os.path.join(workdir, "perturbations_irrelevant.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["generate-irrelevant", "--output", path,
+                  "--readable-output", path + ".txt"])
+    with open(path, "rb") as f:
+        raw = f.read()
+    corpus = json.loads(raw)
+    rows_all = [(s, p) for s in corpus
+                for p in s["perturbations_with_irrelevant"]]
+    digest = hashlib.sha256(raw).hexdigest()
+    res["corpus"] = dict(rows=len(rows_all), sha256=digest)
+    if digest != IRRELEVANT_CORPUS_SHA256 \
+            or len(rows_all) != IRRELEVANT_CORPUS_ROWS:
+        raise AssertionError(f"api corpus: {res['corpus']}")
+
+    # (2) the corpus scored on the card
+    picked = rows_all[::13][:API_CORPUS_ROWS]
+    prompts = [format_binary_prompt(p["perturbed_text"], s["response_format"])
+               for s, p in picked]
+    targets = [tuple(s["target_tokens"]) for s, _ in picked]
+    tok = _corpus_tokenizer(corpus)
+    lens = [len(tok.encode(p)) for p in prompts]
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
+    ecfg = emod.EngineConfig(decode_completions=False, batch_size=BATCH)
+
+    def engine():
+        return emod.ScoringEngine("falcon", cfg, weights, tok, device="cuda",
+                                  engine_config=ecfg)
+
+    prefills = [0]
+    real_prefill = decoder.prefill
+
+    def counted_prefill(*args, **kwargs):
+        prefills[0] += 1
+        return real_prefill(*args, **kwargs)
+
+    eng = engine()
+    decoder.prefill = counted_prefill
+    try:
+        torch.cuda.synchronize()
+        _reset_launches(attention)
+        t0 = time.perf_counter()
+        scored = eng.score_prompts(prompts, targets)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launches(attention)["causal_grouped_attention"]
+        n_prefills = prefills[0]
+    finally:
+        decoder.prefill = real_prefill
+    # the share decided at position 0: a target in the top_k of one
+    # forward a batch (outside the run's launch count)
+    decided = 0
+    with torch.no_grad():
+        for i in range(0, len(prompts), BATCH):
+            ids, mask = _padded([tok.encode(p) for p in prompts[i:i + BATCH]],
+                                "cuda")
+            top = decoder.forward_last_logits(weights, cfg, ids, mask).topk(
+                ecfg.top_k, dim=-1).indices.cpu()
+            for row, pair in zip(top.tolist(), targets[i:i + BATCH]):
+                decided += bool(set(row) & set(eng.target_ids(list(pair))))
+    finite = all(np.isfinite([r["yes_prob"], r["no_prob"]]).all()
+                 and r["success"] for r in scored)
+    res["scored"] = dict(
+        rows=len(scored), vocab=len(tok), tokens_min=min(lens),
+        tokens_median=float(np.median(lens)), tokens_max=max(lens),
+        seconds=seconds, rows_per_s=len(scored) / seconds,
+        decided_share=decided / len(scored),
+        prefills=n_prefills, kernel_launches=launches, card=card)
+    say("api corpus", json.dumps(res["scored"]))
+    if not finite or len(scored) != API_CORPUS_ROWS or not n_prefills \
+            or launches != cfg.num_layers * n_prefills:
+        fails.append(f"api scoring: finite {finite}, {res['scored']}")
+
+    # (3) the mixed pool
+    local_p, local_t = prompts[:API_POOL_LOCAL], targets[:API_POOL_LOCAL]
+    remote_prompts = [p["perturbed_text"] for _, p in picked[
+        API_POOL_LOCAL:API_POOL_LOCAL + API_POOL_REMOTE]]
+    tracker = api.CostTracker(pricing=API_PRICING)
+    offline = eng.score_prompts(local_p, local_t)   # the pool closes eng
+    second = engine()
+    pool = serve.EnginePool(serve.PoolConfig(
+        scheduler=serve.SchedulerConfig(max_wait_s=SERVE_MAX_WAIT_S)))
+    strict.activate(sentry=False)
+    snap = telemetry.counters()
+    _reset_launches(attention)
+    t0 = time.perf_counter()
+    try:
+        replicas = [pool.load("falcon-7b", e, owns_engine=False)
+                    for e in (eng, second)]
+        for vendor, model in API_MODELS.items():
+            pool.load_remote(getattr(serve.RemoteBackend, vendor)(
+                _api_client(api, vendor), model, cost_tracker=tracker),
+                model=model)
+        local = [pool.submit(serve.ScoreRequest(prompt=p, targets=t),
+                             model="falcon-7b")
+                 for p, t in zip(local_p, local_t)]
+        remote = [(vendor, p, conf, pool.submit(serve.ScoreRequest(
+            prompt=p, with_confidence=conf), model=model))
+            for vendor, model in API_MODELS.items()
+            for conf in (False, True) for p in remote_prompts]
+        local_rows = [f.result(timeout=600) for f in local]
+        remote_rows = [(v, p, c, f.result(timeout=60))
+                       for v, p, c, f in remote]
+        answered = {r.rid: r.completed for r in replicas}
+    finally:
+        strict.deactivate()
+        pool.close()
+    pool_s = time.perf_counter() - t0
+    blocked = int(telemetry.counters_since(snap).get(
+        strict.BLOCKED_COUNTER, 0))
+    pool_launches = _launches(attention)["causal_grouped_attention"]
+    vs = _vs_offline("api pool", local_rows, offline, serve.rows_equal, fails)
+    expected_usd, remote_same = 0.0, 0
+    evaluate = {"openai": (api.evaluate_gpt_binary,
+                           api.evaluate_gpt_confidence),
+                "gemini": (api.evaluate_gemini_binary,
+                           api.evaluate_gemini_confidence),
+                "anthropic": (api.evaluate_claude, api.evaluate_claude)}
+    for vendor, prompt, conf, row in remote_rows:
+        out = evaluate[vendor][conf](_api_client(api, vendor),
+                                     API_MODELS[vendor], prompt)
+        remote_same += json.dumps(row) == json.dumps(
+            serve.RemoteBackend._result_row(out))
+        usage = (out.get("raw") or {}).get("usage")
+        n_in, n_out = ((usage["prompt_tokens"], usage["completion_tokens"])
+                       if usage else (int(len(prompt) / 4), 16))
+        price = API_PRICING[API_MODELS[vendor]]
+        expected_usd += (n_in / 1e6 * price["input"]
+                         + n_out / 1e6 * price["output"])
+    total = tracker.total_cost()
+    res["pool"] = dict(local_requests=len(local_rows),
+                       remote_requests=len(remote_rows),
+                       remote_rows_equal=remote_same, answered=answered,
+                       vs_offline=vs, cost_usd=total,
+                       expected_cost_usd=expected_usd,
+                       blocked_transfers=blocked, seconds=pool_s,
+                       kernel_launches=pool_launches, card=card)
+    say("api pool", json.dumps(res["pool"]))
+    if remote_same != len(remote_rows) or blocked \
+            or abs(total - expected_usd) > 1e-12 * max(1.0, expected_usd) \
+            or not total or not pool_launches or min(answered.values()) == 0:
+        fails.append(f"api pool: {res['pool']}")
+
+    # (4) the sweeps on the card's host
+    res["sweeps"] = _api_host_leg(workdir)
+    say("api sweeps", json.dumps(dict(res["sweeps"], card=card)))
+    res["seconds"] = time.perf_counter() - t_phase
+    if res["seconds"] > API_BUDGET_S:
+        say(f"api: {res['seconds']:.1f} s, past its {API_BUDGET_S:.0f} s "
+            "budget")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    res["runs"] = [res["scored"], res["pool"]]
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7109,12 +7605,13 @@ def main(argv=None):
                      weights, workdir, card)
         svres = timed("serve", serve_phase, args.seed, attention, weights,
                       pool_inputs, card)
-        del weights
-        torch.cuda.empty_cache()
         ires = timed("int8", int8_phase, args.seed, attention, bf16_rows)
         cres = timed("cli", cli_phase, args.seed, attention, workdir, card)
         ocres = timed("obs_cli", obs_cli_phase, workdir, card)
         svcli = timed("serve_cli", serve_cli_phase, attention, workdir, card)
+        apres = timed("api", api_phase, args.seed, attention, weights,
+                      workdir, card)
+        del weights
         torch.cuda.empty_cache()
         fam = timed("families", families_phase, args.seed, attention, card)
         qres = timed("run_100q", run100q_cli_phase, args.seed, workdir, card)
@@ -7129,7 +7626,7 @@ def main(argv=None):
     # the causal kernel's launches over every main-path run (each counted
     # from 0 just before it); the head-major kernels run on forced routes
     causal = causal_launches(sres, pres, fres, ires, wres, pkres, kres, ores,
-                             tres, cres, fam, inst, svres, svcli)
+                             tres, cres, fam, inst, svres, svcli, apres)
     launches = {"causal_grouped_attention": causal,
                 "grouped_attention": sres["forced_routes"]["grouped"]["launches"],
                 "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
@@ -7156,10 +7653,14 @@ def main(argv=None):
                        pooled=pres, full_study=fres, sweep=wres,
                        packed=pkres, k_decode=kres, obs=ores, obs_cli=ocres,
                        tokenizers=tres, serve=svres, serve_cli=svcli,
+                       api=apres,
                        int8=ires, cli=cres, families=fam, run_100q=qres,
                        instruct=inst,
                        run_instruct_sweep=ires_cli, phase_seconds=seconds,
                        kernels=kernels), f, indent=1)
+    say("phase seconds", json.dumps({k: round(v, 1) for k, v in
+                                     seconds.items()}),
+        f"sum {sum(seconds.values()):.1f} s ({card})")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

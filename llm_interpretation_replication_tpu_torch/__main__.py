@@ -10,6 +10,9 @@
         --model SNAPSHOT [--input requests.jsonl | --replay FILE] [--device cuda]
     python -m llm_interpretation_replication_tpu_torch obs report --trace PATH
     python -m llm_interpretation_replication_tpu_torch obs bench-diff RECORD...
+    python -m llm_interpretation_replication_tpu_torch generate-irrelevant
+    python -m llm_interpretation_replication_tpu_torch run-api-perturbation \\
+        --perturbations perturbations.json --model gpt-4.1
 
 ``run-perturbation`` loads a local HF snapshot (``config.json``, weights as
 safetensors or ``pytorch_model.bin``, a byte-level BPE ``tokenizer.json``)
@@ -38,7 +41,17 @@ and asserts row parity with offline scoring, ``--load-rate`` runs the
 open-loop load harness, ``--pool-replicas N`` serves through an engine
 pool of N replicas sharing the snapshot's weights (``--supervise`` arms
 its self-healing) and ``--metrics-port`` serves ``/metrics`` and
-``/healthz``.  These are copies of the reference CLI's commands.
+``/healthz``.  The API leg runs on the host alone and creates no CUDA
+context: ``generate-irrelevant`` writes the 3,400-row
+irrelevant-insertion corpus; ``run-api-perturbation`` (OpenAI batches),
+``run-claude-perturbation`` (Claude message batches, confidence only),
+``run-gpt-perturbation`` (serial) and ``run-gemini-perturbation``
+(threaded) score a ``perturbations.json`` on a vendor's API into the
+study's workbooks, resuming from them; ``generate-rephrasings`` builds a
+``perturbations.json`` from Claude sessions, and ``repair-batch``
+rewrites a corrupted batch-response JSONL.  The vendor keys come from
+``OPENAI_API_KEY``, ``ANTHROPIC_API_KEY`` and ``GEMINI_API_KEY``.  These
+are copies of the reference CLI's commands.
 Each takes ``--strict`` (the sync guard of ``runtime/strict.py``),
 ``--trace [PATH]`` (span tracing: a JSONL span log streamed to
 ``PATH.spans.jsonl`` and a Chrome trace written to PATH at exit),
@@ -396,6 +409,142 @@ def _add_serve_args(p: argparse.ArgumentParser):
                         "rejected as poisonous")
 
 
+def cmd_run_api_perturbation(args):
+    from .api_backends.cost import CostTracker
+    from .api_backends.openai_client import OpenAIClient
+    from .config import legal_scenarios
+    from .gen.rephrase import load_perturbations
+    from .sweeps.api_perturbation import run_api_perturbation_sweep
+
+    key = os.environ.get("OPENAI_API_KEY")
+    if not key:
+        raise SystemExit("OPENAI_API_KEY not set")
+    scenarios = load_perturbations(args.perturbations,
+                                   expected_scenarios=legal_scenarios())
+    cost = CostTracker()
+    run_api_perturbation_sweep(
+        OpenAIClient(key), args.model, scenarios, args.output,
+        max_rephrasings=args.max_rephrasings,
+        skip_reasoning_logprobs=not args.reasoning_logprob_runs,
+        cost_tracker=cost,
+    )
+    print(cost.summary())
+
+
+def cmd_run_claude_perturbation(args):
+    from .api_backends.anthropic_client import AnthropicClient
+    from .config import legal_scenarios
+    from .gen.rephrase import load_perturbations
+    from .sweeps.api_perturbation import run_claude_perturbation_sweep
+
+    key = os.environ.get("ANTHROPIC_API_KEY")
+    if not key:
+        raise SystemExit("ANTHROPIC_API_KEY not set")
+    scenarios = load_perturbations(args.perturbations,
+                                   expected_scenarios=legal_scenarios())
+    run_claude_perturbation_sweep(
+        AnthropicClient(key), args.model, scenarios, args.output,
+        max_rephrasings=args.max_rephrasings,
+    )
+
+
+def cmd_generate_rephrasings(args):
+    from .api_backends.anthropic_client import AnthropicClient
+    from .config import legal_scenarios
+    from .gen.rephrase import generate_rephrasings, save_perturbations
+
+    key = os.environ.get("ANTHROPIC_API_KEY")
+    if not key:
+        raise SystemExit("ANTHROPIC_API_KEY not set")
+    client = AnthropicClient(key)
+
+    def complete(prompt):
+        # one rephrasing session: temperature 0.9, up to 4000 tokens
+        msg = client.create_message(
+            args.model, [{"role": "user", "content": prompt}],
+            temperature=0.9, max_tokens=4000,
+        )
+        return client.text_of(msg)
+
+    records = generate_rephrasings(
+        legal_scenarios(), complete,
+        sessions_per_scenario=args.sessions,
+        target_per_scenario=args.target,
+        on_error=lambda s, e: print(f"session {s} failed: {e}"),
+    )
+    save_perturbations(records, args.output)
+    print(f"wrote {args.output}: "
+          + ", ".join(str(len(r["rephrasings"])) for r in records)
+          + " rephrasings per scenario")
+
+
+def cmd_run_gpt_perturbation(args):
+    from .api_backends.openai_client import OpenAIClient
+    from .config import legal_scenarios
+    from .gen.rephrase import load_perturbations
+    from .sweeps.api_perturbation import run_gpt_perturbation_sweep
+
+    key = os.environ.get("OPENAI_API_KEY")
+    if not key:
+        raise SystemExit("OPENAI_API_KEY not set")
+    scenarios = load_perturbations(args.perturbations,
+                                   expected_scenarios=legal_scenarios())
+    run_gpt_perturbation_sweep(
+        OpenAIClient(key), args.model, scenarios, args.output,
+        rate_limit_sleep=args.sleep,
+        max_rephrasings=args.max_rephrasings,
+    )
+
+
+def cmd_run_gemini_perturbation(args):
+    from .api_backends.gemini_client import GeminiClient
+    from .config import legal_scenarios
+    from .gen.rephrase import load_perturbations
+    from .sweeps.api_perturbation import run_gemini_perturbation_sweep
+
+    key = os.environ.get("GEMINI_API_KEY")
+    if not key:
+        raise SystemExit("GEMINI_API_KEY not set")
+    scenarios = load_perturbations(args.perturbations,
+                                   expected_scenarios=legal_scenarios())
+    run_gemini_perturbation_sweep(
+        GeminiClient(key, requests_per_second=args.rps), args.model, scenarios,
+        args.output, max_workers=args.threads,
+        max_rephrasings=args.max_rephrasings,
+    )
+
+
+def cmd_generate_irrelevant(args):
+    from .config import irrelevant_scenarios, irrelevant_statements
+    from .gen.irrelevant import (
+        generate_perturbations,
+        save_perturbations,
+        save_readable,
+    )
+
+    perturbed = generate_perturbations(irrelevant_scenarios(), irrelevant_statements())
+    save_perturbations(perturbed, args.output)
+    total = sum(len(s["perturbations_with_irrelevant"]) for s in perturbed)
+    print(f"{total} perturbations -> {args.output}")
+    if args.readable_output:
+        import datetime
+
+        save_readable(
+            perturbed, args.readable_output,
+            generated_at=datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S"),
+        )
+        print(f"readable dump -> {args.readable_output}")
+
+
+def cmd_repair_batch(args):
+    """Rewrite a corrupted batch-response JSONL: re-pair each row with its
+    request's custom_id and recover the reply text."""
+    from .api_backends.gemini_client import repair_batch_responses
+
+    n = repair_batch_responses(args.requests, args.responses, args.output)
+    print(f"repaired {n} rows -> {args.output}")
+
+
 def cmd_obs(args):
     """``obs report`` / ``obs bench-diff``: the phase-attribution table
     over a saved span trace, and the bench-trajectory regression analyzer
@@ -463,6 +612,66 @@ def main(argv=None):
                         "isolated answers are the demonstrations")
     p.set_defaults(fn=cmd_run_perturbation)
 
+    p = sub.add_parser("run-api-perturbation",
+                       help="frontier-model 10k-perturbation sweep via the "
+                            "OpenAI Batch API (key via env)")
+    p.add_argument("--perturbations", required=True, help="perturbations.json")
+    p.add_argument("--model", action="append", required=True,
+                   help="repeat per model (<=3 run concurrently)")
+    p.add_argument("--output", default="results/perturbation_results_api.xlsx")
+    p.add_argument("--max-rephrasings", type=int, default=None)
+    p.add_argument("--reasoning-logprob-runs", action="store_true",
+                   help="approximate reasoning-model logprobs with 10 repeats "
+                        "instead of skipping the binary leg")
+    p.set_defaults(fn=cmd_run_api_perturbation)
+
+    p = sub.add_parser("run-claude-perturbation",
+                       help="confidence-only Claude Message-Batches sweep "
+                            "(key via env)")
+    p.add_argument("--perturbations", required=True, help="perturbations.json")
+    p.add_argument("--model", default="claude-opus-4-1-20250805")
+    p.add_argument("--output", default="results/claude_batch_perturbation_results.xlsx")
+    p.add_argument("--max-rephrasings", type=int, default=None)
+    p.set_defaults(fn=cmd_run_claude_perturbation)
+
+    p = sub.add_parser("generate-rephrasings",
+                       help="build perturbations.json via Claude rephrasing "
+                            "sessions (key via env)")
+    p.add_argument("--model", default="claude-sonnet-4-20250514")
+    p.add_argument("--sessions", type=int, default=100)
+    p.add_argument("--target", type=int, default=2000)
+    p.add_argument("--output", default="data/perturbations.json")
+    p.set_defaults(fn=cmd_generate_rephrasings)
+
+    p = sub.add_parser("run-gpt-perturbation",
+                       help="serial GPT sync perturbation sweep, no batch "
+                            "service (key via env)")
+    p.add_argument("--perturbations", required=True, help="perturbations.json")
+    p.add_argument("--model", default="gpt-4-0125-preview")
+    p.add_argument("--output", default="results/gpt4_perturbation_results.xlsx")
+    p.add_argument("--sleep", type=float, default=0.5,
+                   help="rate-limit sleep between rephrasings (0.5 s)")
+    p.add_argument("--max-rephrasings", type=int, default=None)
+    p.set_defaults(fn=cmd_run_gpt_perturbation)
+
+    p = sub.add_parser("run-gemini-perturbation",
+                       help="threaded Gemini sync perturbation sweep (key via env)")
+    p.add_argument("--perturbations", required=True, help="perturbations.json")
+    p.add_argument("--model", default="gemini-2.5-pro")
+    p.add_argument("--output", default="results/gemini_perturbation_results.xlsx")
+    p.add_argument("--threads", type=int, default=20)
+    p.add_argument("--rps", type=float, default=2.3,
+                   help="token-bucket rate limit (~2.3 req/s)")
+    p.add_argument("--max-rephrasings", type=int, default=None)
+    p.set_defaults(fn=cmd_run_gemini_perturbation)
+
+    p = sub.add_parser("generate-irrelevant", help="build perturbations_irrelevant.json")
+    p.add_argument("--output", default="data/perturbations_irrelevant.json")
+    p.add_argument("--readable-output", default=None,
+                   help="also write the human-readable dump "
+                        "(perturbations_irrelevant_readable.txt)")
+    p.set_defaults(fn=cmd_generate_irrelevant)
+
     p = sub.add_parser(
         "serve",
         help="continuous-batching scoring service (serve/): JSONL "
@@ -487,6 +696,13 @@ def main(argv=None):
                         "RECORD... [--threshold PCT] [--format "
                         "table|json] [--no-fail]")
     p.set_defaults(fn=cmd_obs)
+
+    p = sub.add_parser("repair-batch",
+                       help="re-pair a corrupted batch-response JSONL")
+    p.add_argument("--requests", required=True, help="request JSONL")
+    p.add_argument("--responses", required=True, help="corrupted response JSONL")
+    p.add_argument("--output", required=True)
+    p.set_defaults(fn=cmd_repair_batch)
 
     args = parser.parse_args(argv)
     # Strict mode (runtime/strict.py): --strict or LLM_INTERP_STRICT=1 arms

@@ -1,8 +1,10 @@
 """Run configuration shared by the port's modules (a copy of what the port
 needs from ``llm_interpretation_replication_tpu/config``): the length
-buckets, the legal scenarios of the perturbation study, the questions and
-model pairs of the 100-question sweep, the instruct-model roster, the
-word-meaning model pairs, the API model roster with its pricing, and
+buckets, the legal scenarios of the perturbation study, the scenarios and
+statements of the irrelevant-insertion study, the decided-rate
+calibration evidence, the questions and model pairs of the 100-question
+sweep, the instruct-model roster, the word-meaning model pairs, the API
+model roster with its pricing, the irrelevant-evaluation roster, and
 ``RunConfig``."""
 
 from __future__ import annotations
@@ -35,6 +37,28 @@ def legal_scenarios() -> List[dict]:
     return _load("legal_scenarios.json")
 
 
+def irrelevant_scenarios() -> List[dict]:
+    """The 5 scenarios (simpler target tokens) of the irrelevant-insertion
+    study (a byte-identical copy of ``data_assets/irrelevant_scenarios.json``)."""
+    return _load("irrelevant_scenarios.json")
+
+
+def irrelevant_statements() -> List[str]:
+    """The 200 factual statements of the irrelevant-insertion study (a
+    byte-identical copy of ``data_assets/irrelevant_statements.txt``)."""
+    path = os.path.join(_ASSETS, "irrelevant_statements.txt")
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def decided_rate_calibration() -> dict:
+    """The position-0 decided-rate evidence behind the synthetic-weight
+    calibration targets: the reference workbooks' answer-start floor, the
+    measured calibrated rates and the [0.87, 0.92] target bracket (a
+    byte-identical copy of ``data_assets/decided_rate_calibration.json``)."""
+    return _load("decided_rate_calibration.json")
+
+
 def ordinary_meaning_questions() -> List[str]:
     """The 100 ordinary-meaning questions, survey 1 then survey 2 (a
     byte-identical copy of ``data_assets/ordinary_meaning_questions.json``)."""
@@ -65,6 +89,12 @@ def api_models() -> dict:
     (a byte-identical copy of ``data_assets/api_models.json``; the serve
     pool's remote backends price requests from it)."""
     return _load("api_models.json")
+
+
+def irrelevant_eval_models() -> dict:
+    """The models of the irrelevant-perturbation evaluation (a
+    byte-identical copy of ``data_assets/irrelevant_eval_models.json``)."""
+    return _load("irrelevant_eval_models.json")
 
 
 @dataclasses.dataclass

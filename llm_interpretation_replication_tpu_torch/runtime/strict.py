@@ -19,11 +19,21 @@ mode).
   ``nvcc`` build ``ops/_build.py`` starts while strict mode is armed into
   the same ``recompile_events`` counter.  A warm repeat must hold it flat.
 
-The mode is process-wide, not per thread: while the main thread holds a
-scoring guard, a sync on another thread trips it too, and while the main
-thread sits in a sanctioned fetch, another thread's sync passes.  Without
-CUDA (the CPU runs) the mode is kept here, so the nesting behaves the same
-and nothing is guarded: CPU tensors never make the host wait.
+Each thread's mode is its own, as the JAX package's transfer-guard
+contexts are: :func:`sync_debug_mode` returns the calling thread's
+innermost region's mode, and a region restores only its own thread's.
+PyTorch's sync debug mode, though, is one setting for the whole process,
+so the card's mode is derived from a registry of the threads inside a
+region: "error" while some thread's innermost region is a guard and no
+thread's is a sanctioned fetch, else the mode found before the first
+region (restored when the last region exits, in any interleaving).  The
+departure from the reference: on the card a guard is off while another
+thread sits in a sanctioned fetch (a sync then passes where JAX would
+raise), and a thread outside any region is guarded while another holds a
+guard.  A sanctioned fetch never raises for another thread's guard.
+Without CUDA (the CPU runs) only the per-thread modes exist, so the
+nesting behaves the same and nothing is guarded: CPU tensors never make
+the host wait.
 
 Enablement is env-gated — ``LLM_INTERP_STRICT=1`` (0/off/empty disables)
 — or explicit via :func:`activate`; the CLI's ``--strict`` routes here.
@@ -35,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 from typing import Dict, Iterator, List, Optional
 
 import torch
@@ -62,7 +73,11 @@ _MODES = {"default": 0, "warn": 1, "error": 2}
 
 _ACTIVE = False
 _SENTRY: Optional["RecompileSentry"] = None
-_HOST_MODE = 0      # the mode of a process without CUDA
+
+_LOCAL = threading.local()      # .modes: this thread's stack of region modes
+_LOCK = threading.Lock()
+_REGIONS: Dict[int, int] = {}   # thread ident -> its innermost region's mode
+_BASE: Optional[int] = None     # the card's mode before the first region
 
 
 def env_requests_strict() -> bool:
@@ -77,29 +92,62 @@ def strict_enabled() -> bool:
     return _ACTIVE
 
 
-def sync_debug_mode() -> int:
-    """The current sync debug mode: 0 off, 1 warn, 2 error."""
+def _stack() -> List[int]:
+    modes = getattr(_LOCAL, "modes", None)
+    if modes is None:
+        modes = _LOCAL.modes = []
+    return modes
+
+
+def _device_mode() -> int:
     if torch.cuda.is_available():
         return int(torch.cuda.get_sync_debug_mode())
-    return _HOST_MODE
+    return 0
 
 
-def _set_mode(mode) -> None:
-    global _HOST_MODE
-    if torch.cuda.is_available():
-        torch.cuda.set_sync_debug_mode(mode)
-    else:
-        _HOST_MODE = _MODES.get(mode, mode)
+def sync_debug_mode() -> int:
+    """The calling thread's sync debug mode: 0 off, 1 warn, 2 error (its
+    innermost region's, else the mode found outside every region)."""
+    modes = _stack()
+    if modes:
+        return modes[-1]
+    base = _BASE
+    return _device_mode() if base is None else base
+
+
+def _apply_locked() -> None:
+    """Set the card's mode from the registry (caller holds ``_LOCK``)."""
+    if not torch.cuda.is_available():
+        return
+    inner = set(_REGIONS.values())
+    guarded = _MODES[GUARD_MODE] in inner and 0 not in inner
+    torch.cuda.set_sync_debug_mode(_MODES[GUARD_MODE] if guarded else _BASE)
 
 
 @contextlib.contextmanager
 def _mode(mode) -> Iterator[None]:
-    prev = sync_debug_mode()
-    _set_mode(mode)
+    global _BASE
+    mode = _MODES.get(mode, mode)
+    modes = _stack()
+    tid = threading.get_ident()
+    with _LOCK:
+        if not _REGIONS:
+            _BASE = _device_mode()
+        modes.append(mode)
+        _REGIONS[tid] = mode
+        _apply_locked()
     try:
         yield
     finally:
-        _set_mode(prev)
+        with _LOCK:
+            modes.pop()
+            if modes:
+                _REGIONS[tid] = modes[-1]
+            else:
+                del _REGIONS[tid]
+            _apply_locked()
+            if not _REGIONS:
+                _BASE = None
 
 
 class RecompileSentry:

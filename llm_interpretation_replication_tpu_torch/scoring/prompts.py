@@ -1,6 +1,7 @@
 """Prompt formatting (a copy of ``scoring/prompts.py``): the 100-question
-sweep's few-shot and instruct formats, and the packed-scoring demonstration
-spelling (``scoring.packed`` assembles packed rows from it).
+sweep's few-shot and instruct formats, the packed-scoring demonstration
+spelling (``scoring.packed`` assembles packed rows from it), and the
+perturbation sweeps' binary and confidence prompts.
 
 These strings are behavioural data, kept byte-identical to the reference so
 the statistics reproduce.
@@ -63,3 +64,13 @@ def format_prompt_parts(question: str, is_base_model: bool,
     if "baichuan" in model_name.lower():
         return (f"<human>: {question}", f" {ANSWER_INSTRUCTION}\n<bot>:")
     return (question, f" {ANSWER_INSTRUCTION}")
+
+
+def format_binary_prompt(main_part: str, response_format: str) -> str:
+    """Perturbation-sweep binary prompt: ``{rephrased_main} {response_format}``
+    (the workbook's 'Full Rephrased Prompt' column)."""
+    return f"{main_part} {response_format}"
+
+
+def format_confidence_prompt(main_part: str, confidence_format: str) -> str:
+    return f"{main_part} {confidence_format}"

@@ -42,12 +42,12 @@ the position-0 scan and ship undecided rows' int8/bf16 KV slabs
 whose slot rings import them mid-flight.  The router's role affinity
 keeps fresh prompts off decode replicas unless nothing else is live.
 
-Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: replicas on mesh slices (``devices=``; 'Parallel and
-training') and the vendor constructors :meth:`RemoteBackend.openai` /
-``gemini`` / ``anthropic`` ('API clients and the API sweeps').  A
-``RemoteBackend(model, evaluate)`` over an injected callable works in
-full, cost routing included.
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP.md
+item: replicas on mesh slices (``devices=``; 'Parallel and training').
+Remote backends work in full, cost routing included: the vendor
+constructors :meth:`RemoteBackend.openai` / ``gemini`` / ``anthropic``
+over the port's API clients, or ``RemoteBackend(model, evaluate)`` over
+an injected callable.
 
 Measurement-only routing (PARITY.md): the pool changes WHERE and WHEN a
 row is computed, never WHAT — local replica rows are bit-identical to
@@ -78,7 +78,6 @@ from .scheduler import Scheduler
 from .supervisor import ReplicaSupervisor, SupervisorConfig
 
 _ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
-_ITEM_API = "ROADMAP.md queue 1, 'API clients and the API sweeps'"
 
 #: router reap tick while work is IN FLIGHT: replica futures resolve on
 #: replica threads that cannot signal the pool's condition, so completion
@@ -343,8 +342,8 @@ class RemoteBackend:
     optionally ``confidence``/``weighted_confidence``/``raw``); the
     backend normalizes it to the engine result-row schema so the pool's
     callers never see which backend answered.  The construction helpers
-    (:meth:`openai`, :meth:`gemini`, :meth:`anthropic`) wait for the
-    port's API clients and raise ``NotImplementedError`` until then.
+    (:meth:`openai`, :meth:`gemini`, :meth:`anthropic`) wrap the port's
+    API clients in the evaluators of :mod:`..api_backends.evaluators`.
 
     Cost: per-request USD estimated from :class:`CostTracker` pricing
     (chars/4 prompt-token heuristic; actual usage is recorded into the
@@ -372,18 +371,38 @@ class RemoteBackend:
 
     @classmethod
     def openai(cls, client, model: str, **kw) -> "RemoteBackend":
-        raise NotImplementedError(
-            f"the OpenAI backend is not ported yet ({_ITEM_API})")
+        from ..api_backends import evaluators
+
+        def evaluate(prompt, targets, with_confidence, max_new_tokens):
+            if with_confidence:
+                return evaluators.evaluate_gpt_confidence(
+                    client, model, prompt)
+            return evaluators.evaluate_gpt_binary(
+                client, model, prompt, targets=tuple(targets))
+
+        return cls(model, evaluate, **kw)
 
     @classmethod
     def gemini(cls, client, model: str, **kw) -> "RemoteBackend":
-        raise NotImplementedError(
-            f"the Gemini backend is not ported yet ({_ITEM_API})")
+        from ..api_backends import evaluators
+
+        def evaluate(prompt, targets, with_confidence, max_new_tokens):
+            if with_confidence:
+                return evaluators.evaluate_gemini_confidence(
+                    client, model, prompt)
+            return evaluators.evaluate_gemini_binary(
+                client, model, prompt, targets=tuple(targets))
+
+        return cls(model, evaluate, **kw)
 
     @classmethod
     def anthropic(cls, client, model: str, **kw) -> "RemoteBackend":
-        raise NotImplementedError(
-            f"the Anthropic backend is not ported yet ({_ITEM_API})")
+        from ..api_backends import evaluators
+
+        def evaluate(prompt, targets, with_confidence, max_new_tokens):
+            return evaluators.evaluate_claude(client, model, prompt)
+
+        return cls(model, evaluate, **kw)
 
     # -- contract -------------------------------------------------------
 

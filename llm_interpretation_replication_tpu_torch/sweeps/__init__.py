@@ -1,6 +1,15 @@
 """The port's sweep shells (copies of ``sweeps/``'s local-model
 perturbation sweep, the 100-question base-vs-instruct sweep, the
-instruct-model sweep and the word-meaning base-vs-instruct sweep)."""
+instruct-model sweep, the word-meaning base-vs-instruct sweep and the
+frontier-API perturbation sweeps)."""
+
+from .api_perturbation import (
+    load_processed_triples,
+    run_api_perturbation_sweep,
+    run_claude_perturbation_sweep,
+    run_gemini_perturbation_sweep,
+    run_gpt_perturbation_sweep,
+)
 
 from .base_vs_instruct_100q import run_model_on_prompts, run_sweep
 from .instruct_sweep import (run_base_vs_instruct_word_meaning,
@@ -13,6 +22,7 @@ from .perturbation import (
 )
 from .writers import (
     BASE_VS_INSTRUCT_100Q_COLUMNS,
+    CLAUDE_PERTURBATION_COLUMNS,
     INSTRUCT_COMPARISON_COLUMNS,
     MODEL_COMPARISON_COLUMNS,
     PERTURBATION_COLUMNS,
@@ -21,9 +31,13 @@ from .writers import (
     write_csv,
 )
 
-__all__ = ["BASE_VS_INSTRUCT_100Q_COLUMNS", "INSTRUCT_COMPARISON_COLUMNS",
+__all__ = ["BASE_VS_INSTRUCT_100Q_COLUMNS", "CLAUDE_PERTURBATION_COLUMNS",
+           "INSTRUCT_COMPARISON_COLUMNS",
            "MODEL_COMPARISON_COLUMNS", "PERTURBATION_COLUMNS",
            "load_existing_keys", "load_existing_rows",
+           "load_processed_triples", "run_api_perturbation_sweep",
+           "run_claude_perturbation_sweep", "run_gemini_perturbation_sweep",
+           "run_gpt_perturbation_sweep",
            "model_family_from_name", "perturbation_row",
            "run_base_vs_instruct_word_meaning", "run_instruct_sweep",
            "run_model_on_prompts", "run_model_perturbation_sweep",

@@ -1,5 +1,6 @@
 """Schema-exact result rows (a copy of ``sweeps/writers.py``'s
-``PERTURBATION_COLUMNS``, ``perturbation_row``, ``model_family_from_name``,
+``PERTURBATION_COLUMNS``, ``CLAUDE_PERTURBATION_COLUMNS``,
+``perturbation_row``, ``model_family_from_name``,
 ``BASE_VS_INSTRUCT_100Q_COLUMNS``, ``MODEL_COMPARISON_COLUMNS`` and
 ``INSTRUCT_COMPARISON_COLUMNS``, with the two comparison frames as row
 lists) and a CSV writer that writes the bytes
@@ -36,6 +37,15 @@ PERTURBATION_COLUMNS = [
     "Weighted Confidence",
 ]
 
+#: the Claude Message-Batches workbook adds a 'Target Tokens' column and
+#: reorders the rest
+CLAUDE_PERTURBATION_COLUMNS = [
+    "Model", "Original Main Part", "Response Format", "Confidence Format",
+    "Rephrased Main Part", "Target Tokens", "Model Confidence Response",
+    "Full Confidence Prompt", "Confidence Value", "Weighted Confidence",
+    "Model Response", "Full Rephrased Prompt", "Log Probabilities",
+    "Token_1_Prob", "Token_2_Prob", "Odds_Ratio",
+]
 
 #: base_vs_instruct_100q_results.csv columns, in order
 BASE_VS_INSTRUCT_100Q_COLUMNS = [

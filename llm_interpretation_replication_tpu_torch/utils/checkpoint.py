@@ -1,6 +1,8 @@
 """Sweep checkpoint primitives (a copy of ``utils/checkpoint.py``'s
-``append_jsonl`` and ``CheckpointFile``): the perturbation sweep's side-log
-append and the 100-question sweep's atomic JSON checkpoint."""
+``append_jsonl``, ``CheckpointFile`` and ``ProcessedSet``): the
+perturbation sweep's side-log append, the atomic JSON checkpoint of the
+100-question sweep and of the Gemini batch resume file, and a persistent
+set of idempotency keys (JSON-encoded tuples, no pickle)."""
 
 from __future__ import annotations
 
@@ -58,3 +60,51 @@ class CheckpointFile:
 
     def save(self, state: dict) -> None:
         _atomic_write_json(self.path, state)
+
+    def clear(self) -> None:
+        if os.path.exists(self.path):
+            os.remove(self.path)
+
+
+class ProcessedSet:
+    """Persistent set of idempotency keys (tuples of str/int)."""
+
+    def __init__(self, path: Optional[str] = None):
+        self.path = path
+        self._keys = set()
+        if path and os.path.exists(path):
+            with open(path) as f:
+                self._keys = {tuple(k) for k in json.load(f)}
+
+    @staticmethod
+    def _norm(key) -> tuple:
+        # a scalar key (a bare model name) is a 1-tuple; only real
+        # sequences are composite keys
+        if isinstance(key, (str, bytes, int, float)):
+            return (key,)
+        return tuple(key)
+
+    def __contains__(self, key) -> bool:
+        return self._norm(key) in self._keys
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+    def add(self, key, flush: bool = True) -> None:
+        self._keys.add(self._norm(key))
+        if flush and self.path:
+            self.flush()
+
+    def update(self, keys, flush: bool = True) -> None:
+        for k in keys:
+            self._keys.add(self._norm(k))
+        if flush and self.path:
+            self.flush()
+
+    def flush(self) -> None:
+        if self.path:
+            # sorted by JSON text: stable even when keys mix types at one
+            # tuple position (plain sorted() would raise TypeError)
+            keys = sorted((list(k) for k in self._keys),
+                          key=lambda k: json.dumps(k, default=str))
+            _atomic_write_json(self.path, keys)

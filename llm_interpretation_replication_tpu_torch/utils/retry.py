@@ -1,5 +1,6 @@
-"""Retry with exponential backoff (a copy of ``utils/retry.py``'s
-``RetryPolicy`` and ``retry_with_exponential_backoff``).
+"""Retry with exponential backoff and a rate limiter (a copy of
+``utils/retry.py``'s ``RetryPolicy``, ``retry_with_exponential_backoff``
+and ``RateLimiter``).
 
 Up to 10 retries, initial delay 60 s doubling to a 300 s cap,
 multiplicative jitter in [0.8, 1.2], retry on the policy's error classes,
@@ -77,3 +78,28 @@ def retry_with_exponential_backoff(policy: RetryPolicy | None = None, **override
         return wrapper
 
     return decorator
+
+
+class RateLimiter:
+    """Token-bucket rate limiter: one request slot every
+    ``1 / requests_per_second`` seconds.  Thread-safe; clock and sleep are
+    injectable so tests never wait."""
+
+    def __init__(self, requests_per_second: float, clock=time.monotonic, sleep=time.sleep):
+        import threading
+
+        self._interval = 1.0 / requests_per_second
+        self._clock = clock
+        self._sleep = sleep
+        self._lock = threading.Lock()
+        self._next_slot = clock()
+
+    def acquire(self) -> float:
+        """Block until a request slot is available; return the wait incurred."""
+        with self._lock:
+            now = self._clock()
+            wait = max(0.0, self._next_slot - now)
+            self._next_slot = max(now, self._next_slot) + self._interval
+        if wait:
+            self._sleep(wait)
+        return wait

@@ -11,6 +11,7 @@ row dicts keyed by it (a missing key is an empty cell).
     write_xlsx(columns, rows, path, sheet_name="Sheet1")
     write_xlsx_sheets({name: (columns, rows), ...}, path)
     read_xlsx(path, sheet=0) -> (columns, rows)
+    append_xlsx(columns, rows, path) -> combined rows
 """
 
 from __future__ import annotations
@@ -236,3 +237,19 @@ def read_xlsx(path, sheet: int = 0) -> Tuple[List[str], List[Dict]]:
     header = [h if h is not None else f"Unnamed: {i}" for i, h in enumerate(header)]
     rows = [{h: r.get(i) for i, h in enumerate(header)} for r in raw_rows[1:]]
     return header, rows
+
+
+def append_xlsx(columns: Sequence[str], rows: Sequence[Dict], path) -> List[Dict]:
+    """Append ``rows`` to the workbook at ``path`` (if any) and rewrite it;
+    returns the combined rows.  The columns are the existing sheet's, then
+    any of ``columns`` it lacks (the column union ``pandas.concat``
+    takes); an empty existing sheet gives way to ``columns``."""
+    rows = list(rows)
+    if os.path.exists(path):
+        old_columns, old_rows = read_xlsx(path)
+        if old_rows:
+            columns = list(old_columns) + [c for c in columns
+                                           if c not in old_columns]
+            rows = old_rows + rows
+    write_xlsx(columns, rows, path)
+    return rows

@@ -1089,7 +1089,7 @@ def test_main_counts_the_serve_phases_launches():
     its CLI leg after the CLI phases, and both count in the ``kernels``
     line's causal launches."""
     src = inspect.getsource(chip_smoke.main)
-    assert "tres, cres, fam, inst, svres, svcli)" in src
+    assert "tres, cres, fam, inst, svres, svcli, apres)" in src
     assert src.index("tokenizers_phase") < src.index("serve_phase") < \
         src.index("del weights")
     assert src.index("obs_cli_phase") < src.index("serve_cli_phase")
@@ -1131,3 +1131,57 @@ def test_obs_and_tokenizer_sweeps_run_on_the_first_layers():
         chip_smoke.obs_phase)
     assert "_first_layers(weights, OBS_LAYERS)" in inspect.getsource(
         chip_smoke.tokenizers_phase)
+
+
+def test_main_runs_the_api_phase_on_the_slice_weights():
+    """The api phase runs after the serve phase's CLI leg, on the slice's
+    weights before they are freed, and its runs count in the ``kernels``
+    line's causal launches."""
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("serve_cli_phase") < src.index("api_phase") < \
+        src.index("del weights") < src.index("families_phase")
+    assert "api=apres" in src
+    res = dict(runs=[dict(run="corpus", kernel_launches=256),
+                     dict(run="pool", kernel_launches=96)])
+    assert chip_smoke.causal_launches(res) == 352
+
+
+def test_api_phase_constants_and_legs():
+    src = inspect.getsource(chip_smoke.api_phase)
+    for piece in ('"generate-irrelevant"', "IRRELEVANT_CORPUS_SHA256",
+                  "RemoteBackend", "strict.activate", "BLOCKED_COUNTER",
+                  "rows_equal", "_api_host_leg", "decided_share",
+                  "tokens_median", "rows_per_s"):
+        assert piece in src, piece
+    child = inspect.getsource(chip_smoke._api_host_child)
+    for cmd in ("run-api-perturbation", "run-claude-perturbation",
+                "run-gpt-perturbation", "run-gemini-perturbation",
+                "generate-rephrasings", "repair-batch",
+                "is_initialized", '"pandas"'):
+        assert cmd in child, cmd
+    assert chip_smoke.API_BUDGET_S == 40.0
+    assert chip_smoke.API_CORPUS_ROWS == 256
+    assert chip_smoke.IRRELEVANT_CORPUS_ROWS == 3400
+    assert (chip_smoke.API_SWEEP_SCENARIOS,
+            chip_smoke.API_SWEEP_REPHRASINGS) == (2, 5)
+
+
+@pytest.mark.parametrize("text", [
+    "Is a tent a building? Answer only 'Yes' or 'No'.",
+    "How confident are you that the answer is Yes?", ""])
+def test_api_scripted_answers_are_deterministic(text):
+    """The scripted vendors answer from the prompt alone: a confidence
+    prompt a two-digit number with its digits' candidates, a binary one
+    the best of API_ANSWER_TOKENS."""
+    import math
+
+    a, positions = chip_smoke._api_answer(text)
+    assert (a, positions) == chip_smoke._api_answer(text)
+    if "confident" in text:
+        assert a.isdigit() and len(a) == 2 and len(positions) == 2
+        assert [p[0][0] for p in positions] == list(a)
+    else:
+        assert a in chip_smoke.API_ANSWER_TOKENS and len(positions) == 1
+        assert positions[0][0][0] == a
+        assert sum(math.exp(lp) for _, lp in positions[0]) == \
+            pytest.approx(1.0)

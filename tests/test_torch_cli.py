@@ -209,3 +209,155 @@ def test_mismatched_perturbations_file_raises(snapshot, tmp_path):
     path.write_text(json.dumps(recs))
     with pytest.raises(ValueError, match="scenario mismatch"):
         tmain(_argv(snapshot, str(path), tmp_path))
+
+
+# -- the API leg's commands, over scripted vendors ---------------------------
+
+API_SWEEPS = {
+    # one model: several run on threads and print in completion order
+    "run-api-perturbation": ["--model", "gpt-4.1-2025-04-14"],
+    "run-claude-perturbation": [],
+    "run-gpt-perturbation": ["--sleep", "0", "--max-rephrasings", "4"],
+    "run-gemini-perturbation": ["--threads", "1", "--rps", "1000"],
+}
+
+
+@pytest.fixture
+def scripted_vendors(monkeypatch):
+    """Both packages' clients talk to ``chip_smoke._api_transport``'s
+    scripted vendors (no socket); the keys are set."""
+    import importlib
+
+    import chip_smoke
+
+    for pkg in ("llm_interpretation_replication_tpu",
+                "llm_interpretation_replication_tpu_torch"):
+        api = importlib.import_module(f"{pkg}.api_backends")
+        for mod, vendor in (("openai_client", "openai"),
+                            ("anthropic_client", "anthropic"),
+                            ("gemini_client", "gemini")):
+            monkeypatch.setattr(
+                importlib.import_module(f"{pkg}.api_backends.{mod}"),
+                "UrllibTransport",
+                lambda api=api, vendor=vendor: chip_smoke._api_transport(
+                    api, vendor))
+    for var in ("OPENAI_API_KEY", "ANTHROPIC_API_KEY", "GEMINI_API_KEY"):
+        monkeypatch.setenv(var, "scripted-key")
+
+
+@pytest.fixture
+def api_perturbations(tmp_path):
+    """Two scenarios of five rephrasings (the other three scenarios empty,
+    so the file passes the identity check)."""
+    path = tmp_path / "api_perturbations.json"
+    path.write_text(json.dumps([
+        dict(s, rephrasings=[f"{s['original_main'][:70]} (rephrasing {i})"
+                             for i in range(5)] if k < 2 else [])
+        for k, s in enumerate(legal_scenarios())]))
+    return str(path)
+
+
+@pytest.mark.parametrize("cmd", sorted(API_SWEEPS))
+def test_api_sweep_command_matches_reference(cmd, scripted_vendors,
+                                             api_perturbations, tmp_path,
+                                             capsys):
+    """Each API sweep command end to end on both packages: the same
+    stdout, the same workbook cells; a second run resumes and changes
+    nothing."""
+    got = {}
+    for name, main in (("jax", jmain), ("torch", tmain)):
+        d = str(tmp_path / name)
+        os.makedirs(d)
+        out = os.path.join(d, "out.xlsx")
+        argv = [cmd, "--perturbations", api_perturbations, "--output", out,
+                *API_SWEEPS[cmd]]
+        main(argv)
+        first = (capsys.readouterr().out.replace(d, "<d>"), read_xlsx(out))
+        main(argv)
+        capsys.readouterr()
+        got[name] = (first, read_xlsx(out))
+    assert got["torch"] == got["jax"]
+    (stdout, (cols, rows)), again = got["torch"]
+    assert again == (cols, rows)
+    assert len(rows) == (8 if cmd == "run-gpt-perturbation" else 10)
+
+
+def test_generate_rephrasings_and_repair_batch_commands(scripted_vendors,
+                                                        tmp_path, capsys):
+    got = {}
+    req, resp = tmp_path / "req.jsonl", tmp_path / "resp.jsonl"
+    req.write_text("\n".join(json.dumps({"custom_id": f"q{i}"})
+                             for i in range(2)) + "\n")
+    resp.write_text("\n".join(json.dumps({"response": {"candidates": [{
+        "content": {"parts": [{"text": f"Part(text='{t}')"}]}}]}})
+        for t in ("85", "It's")) + "\n")
+    for name, main in (("jax", jmain), ("torch", tmain)):
+        d = tmp_path / name
+        main(["generate-rephrasings", "--sessions", "3", "--target", "2",
+              "--output", str(d / "p.json")])
+        main(["repair-batch", "--requests", str(req), "--responses",
+              str(resp), "--output", str(d / "fixed.jsonl")])
+        got[name] = (capsys.readouterr().out.replace(str(d), "<d>"),
+                     (d / "p.json").read_bytes(),
+                     (d / "fixed.jsonl").read_bytes())
+    assert got["torch"] == got["jax"]
+    assert [len(r["rephrasings"]) for r in json.loads(got["torch"][1])] == \
+        [2] * 5
+
+
+@pytest.mark.parametrize("argv", [
+    ["generate-rephrasings"],
+    ["run-api-perturbation", "--perturbations", "p.json", "--model", "m"],
+    ["run-claude-perturbation", "--perturbations", "p.json"],
+    ["run-gpt-perturbation", "--perturbations", "p.json"],
+    ["run-gemini-perturbation", "--perturbations", "p.json"],
+], ids=lambda a: a[0])
+def test_api_keyed_commands_require_env(monkeypatch, argv):
+    """Without its key each command exits naming the variable, as the JAX
+    package's does."""
+    for var in ("ANTHROPIC_API_KEY", "OPENAI_API_KEY", "GEMINI_API_KEY"):
+        monkeypatch.delenv(var, raising=False)
+    msgs = []
+    for main in (jmain, tmain):
+        with pytest.raises(SystemExit, match="API_KEY not set") as err:
+            main(argv)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+
+
+class _Parsed(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv", [
+    ["run-api-perturbation", "--perturbations", "p", "--model", "m"],
+    ["run-claude-perturbation", "--perturbations", "p"],
+    ["run-gpt-perturbation", "--perturbations", "p"],
+    ["run-gemini-perturbation", "--perturbations", "p"],
+    ["generate-rephrasings"],
+    ["generate-irrelevant"],
+    ["repair-batch", "--requests", "a", "--responses", "b", "--output", "c"],
+    ["run-gemini-perturbation", "--perturbations", "p", "--threads", "3",
+     "--rps", "1.5", "--max-rephrasings", "2", "--model", "g",
+     "--output", "o.xlsx"],
+    ["run-api-perturbation", "--perturbations", "p", "--model", "a",
+     "--model", "b", "--reasoning-logprob-runs"],
+], ids=lambda a: "_".join(a[:1] + [x for x in a[1:] if x.startswith("--")]))
+def test_api_command_flags_and_defaults_match_reference(monkeypatch, argv):
+    """The parsed arguments (flags and defaults) of each API-leg command
+    are the JAX CLI's."""
+    import argparse
+
+    parsed = []
+    real = argparse.ArgumentParser.parse_args
+
+    def capture(self, *args, **kwargs):
+        ns = real(self, *args, **kwargs)
+        parsed.append({k: v for k, v in vars(ns).items() if k != "fn"})
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    for main in (jmain, tmain):
+        with pytest.raises(_Parsed):
+            main(list(argv))
+    assert parsed[0] == parsed[1]

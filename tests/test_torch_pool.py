@@ -16,12 +16,17 @@ timing; a row's scores do not depend on them (the engine's decode sums
 the slot axis in float64 and runs every ring at its capacity), so the
 role tests hold the handed-off rows exactly against one offline call.
 
+The vendor constructors (``RemoteBackend.openai``, ``.gemini``,
+``.anthropic``) run over each package's ``FakeTransport``: the JAX
+package's remote-backend cases (row contract, cost- and latency-weighted
+routing, deadlines without spending, typed remote failures) on both
+packages, and the port's rows, requests and spend against the JAX
+package's for each vendor.
+
 Waiting for their items (ROADMAP.md queue 1): the plan search's
 ``replica_plan`` ('Planning for the H100'), replicas on mesh slices
-('Parallel and training'; ``devices=`` refuses), the bench's
-``--serve-load`` blocks (the port bench), and the vendor clients over
-``FakeTransport`` ('API clients and the API sweeps'; the vendor
-constructors refuse, ``RemoteBackend(model, evaluate)`` runs here).
+('Parallel and training'; ``devices=`` refuses), and the bench's
+``--serve-load`` blocks (the port bench).
 """
 
 import io
@@ -38,10 +43,12 @@ from test_torch_engine import PROB_FIELDS, RTOL
 from test_torch_slots import (  # noqa: F401
     PROMPTS, TOK, engines, models, one_torch_thread, targets)
 
+import llm_interpretation_replication_tpu.api_backends as japi
 import llm_interpretation_replication_tpu.serve as jserve
 import llm_interpretation_replication_tpu.serve.cli as jcli
 import llm_interpretation_replication_tpu.utils.telemetry as jtel
 import llm_interpretation_replication_tpu.utils.testing as jtesting
+import llm_interpretation_replication_tpu_torch.api_backends as tapi
 import llm_interpretation_replication_tpu_torch.serve as tserve
 import llm_interpretation_replication_tpu_torch.serve.cli as tcli
 import llm_interpretation_replication_tpu_torch.utils.telemetry as ttel
@@ -54,8 +61,10 @@ from llm_interpretation_replication_tpu_torch.serve import load as tload
 from llm_interpretation_replication_tpu_torch.serve import pool as tpool
 
 PKGS = {
-    "jax": dict(serve=jserve, cli=jcli, tel=jtel, testing=jtesting),
-    "torch": dict(serve=tserve, cli=tcli, tel=ttel, testing=ttesting),
+    "jax": dict(serve=jserve, cli=jcli, tel=jtel, testing=jtesting,
+                api=japi),
+    "torch": dict(serve=tserve, cli=tcli, tel=ttel, testing=ttesting,
+                  api=tapi),
 }
 
 
@@ -416,6 +425,183 @@ def test_remote_failure_is_this_requests_typed_error(pkg):
                            model="gpt").result(timeout=30)["success"]
 
 
+# -- the vendor constructors over FakeTransport (both packages) --------------
+
+VENDORS = ("openai", "gemini", "anthropic")
+
+
+def _vendor_script(api, vendor, log=None, latency_s=0.0):
+    """``FakeTransport`` handlers answering a binary prompt "Yes" (with
+    first-token log-probabilities where the vendor gives them) and a
+    confidence prompt "85"."""
+    def text_of(call):
+        body = call["json"]
+        if vendor == "gemini":
+            return body["contents"][0]["parts"][0]["text"]
+        return body["messages"][0]["content"]
+
+    def respond(call):
+        if log is not None:
+            log.append((call["json"] or {}).get("model", call["url"]))
+        if latency_s:
+            time.sleep(latency_s)
+        conf = "How confident" in text_of(call)
+        answer = "85" if conf else "Yes"
+        top = ([("85", -0.3), ("90", -1.5)] if conf
+               else [("Yes", -0.2), ("No", -1.8)])
+        if vendor == "openai":
+            return 200, {"choices": [{"message": {"content": answer},
+                                      "logprobs": {"content": [{
+                                          "top_logprobs": [
+                                              {"token": t, "logprob": lp}
+                                              for t, lp in top]}]}}],
+                         "usage": {"prompt_tokens": 10,
+                                   "completion_tokens": 2}}
+        if vendor == "gemini":
+            return 200, {"candidates": [{
+                "content": {"parts": [{"text": answer}]},
+                "logprobsResult": {"topCandidates": [{"candidates": [
+                    {"token": t, "logProbability": lp} for t, lp in top]}]}}]}
+        return 200, {"content": [{"type": "text", "text": answer}]}
+
+    ft = api.FakeTransport()
+    path = {"openai": "/chat/completions", "gemini": ":generateContent",
+            "anthropic": "/messages"}[vendor]
+    ft.add("POST", path, respond)
+    return ft
+
+
+def _vendor_backend(pkg, vendor, model, pricing=None, log=None,
+                    latency_s=0.0, transport=None):
+    api, s = pkg["api"], pkg["serve"]
+    ft = transport or _vendor_script(api, vendor, log, latency_s)
+    client = {"openai": api.OpenAIClient, "gemini": api.GeminiClient,
+              "anthropic": api.AnthropicClient}[vendor](api_key="k",
+                                                          transport=ft)
+    return getattr(s.RemoteBackend, vendor)(client, model,
+                                            pricing=pricing), ft
+
+
+@pytest.mark.parametrize("vendor", VENDORS)
+def test_vendor_constructor_rows_and_spend_match_reference(vendor):
+    """A binary and a confidence request through each vendor constructor:
+    the rows, the requests sent and the spend recorded equal the JAX
+    package's, and each row is ``_result_row`` of the evaluator's output
+    on the same canned response."""
+    got = {}
+    for name, pkg in PKGS.items():
+        s = pkg["serve"]
+        backend, ft = _vendor_backend(
+            pkg, vendor, "m-1", pricing={"m-1": {"input": 1.5,
+                                                 "output": 6.0}})
+        with fast_pool(s) as pool:
+            pool.load_remote(backend)
+            rows = [pool.submit(s.ScoreRequest(
+                prompt="Is soup a beverage?", with_confidence=conf,
+                max_new_tokens=10 if conf else None),
+                model="m-1").result(timeout=30) for conf in (False, True)]
+        api = pkg["api"]
+        binary, confidence = {
+            "openai": (api.evaluate_gpt_binary, api.evaluate_gpt_confidence),
+            "gemini": (api.evaluate_gemini_binary,
+                       api.evaluate_gemini_confidence),
+            "anthropic": (api.evaluate_claude, api.evaluate_claude)}[vendor]
+        want = []
+        for evaluate in (binary, confidence):
+            c = {"openai": api.OpenAIClient, "gemini": api.GeminiClient,
+                 "anthropic": api.AnthropicClient}[vendor](
+                     "k", transport=_vendor_script(api, vendor))
+            want.append(s.RemoteBackend._result_row(
+                evaluate(c, "m-1", "Is soup a beverage?")))
+        assert json.dumps(rows) == json.dumps(want)     # NaN as NaN
+        got[name] = (json.dumps(rows),
+                     [(c["method"], c["url"], c["headers"], c["json"])
+                      for c in ft.calls],
+                     backend.tracker.summary(), backend.tracker.total_cost())
+    assert got["torch"] == got["jax"]
+    assert got["torch"][3] > 0
+
+
+@pytest.mark.parametrize("vendor", VENDORS)
+def test_vendor_cost_weight_prefers_cheaper_backend(pkg, vendor):
+    s, log = pkg["serve"], []
+    cheap, _ = _vendor_backend(pkg, vendor, "v-cheap",
+                               {"v-cheap": {"input": 1.0, "output": 1.0}},
+                               log=log)
+    dear, _ = _vendor_backend(pkg, vendor, "v-dear",
+                              {"v-dear": {"input": 500.0, "output": 500.0}},
+                              log=log)
+    with fast_pool(s, cost_weight=1.0, latency_weight=0.0) as pool:
+        pool.load_remote(cheap, model="v")
+        pool.load_remote(dear, model="v")
+        for f in [pool.submit(s.ScoreRequest(prompt="Is soup a beverage?"),
+                              model="v") for _ in range(6)]:
+            assert f.result(timeout=30)["success"]
+    n_calls = 2 if vendor == "anthropic" else 1      # Claude asks twice
+    assert len(log) == 6 * n_calls
+    assert cheap.tracker.summary()["v-cheap"]["requests"] == 6
+    assert "v-dear" not in dear.tracker.summary()
+
+
+def test_vendor_latency_weight_prefers_faster_backend(pkg):
+    s = pkg["serve"]
+    pool = fast_pool(s, cost_weight=0.0, latency_weight=1.0)
+    try:
+        r_fast = pool.load_remote(
+            _vendor_backend(pkg, "openai", "g-fast")[0], model="gpt")
+        r_slow = pool.load_remote(
+            _vendor_backend(pkg, "gemini", "g-slow")[0], model="gpt")
+        r_fast.note_latency(0.01)
+        r_slow.note_latency(2.0)
+        with pool._lock:
+            assert pool._select_replica(
+                "gpt", s.ScoreRequest(prompt="q")) is r_fast
+        r_fast.note_latency(10.0)
+        for _ in range(64):
+            r_slow.note_latency(0.01)
+        with pool._lock:
+            assert pool._select_replica(
+                "gpt", s.ScoreRequest(prompt="q")) is r_slow
+    finally:
+        pool.close()
+
+
+def test_vendor_leg_honors_deadlines_without_spending(pkg):
+    """An expired request never reaches the vendor: it rejects with the
+    typed ``DeadlineExceeded`` and no request leaves the transport."""
+    s, log = pkg["serve"], []
+    backend, ft = _vendor_backend(pkg, "openai", "gpt-x", log=log,
+                                  latency_s=0.15)
+    with fast_pool(s) as pool:
+        pool.load_remote(backend, model="gpt")
+        f1 = pool.submit(s.ScoreRequest(prompt="a"), model="gpt")
+        f2 = pool.submit(s.ScoreRequest(prompt="b", timeout_s=0.05),
+                         model="gpt")
+        assert isinstance(f2.exception(timeout=30), s.DeadlineExceeded)
+        assert f1.result(timeout=30)["success"]
+    assert len(log) == 1 and len(ft.calls) == 1
+
+
+def test_vendor_failure_is_this_requests_typed_error(pkg):
+    """A vendor without a handler answers 404: that request fails with
+    the client's ``RuntimeError`` and the replica keeps draining; a
+    hot swap to a healthy vendor heals the traffic."""
+    s, api = pkg["serve"], pkg["api"]
+    bad, _ = _vendor_backend(pkg, "openai", "gpt-x",
+                             transport=api.FakeTransport())
+    with fast_pool(s, cost_weight=0.0, latency_weight=1.0) as pool:
+        rep = pool.load_remote(bad, model="gpt")
+        err = pool.submit(s.ScoreRequest(prompt="q"),
+                          model="gpt").exception(timeout=30)
+        assert isinstance(err, RuntimeError) and "404" in str(err)
+        pool.unload(rep.rid)
+        pool.load_remote(_vendor_backend(pkg, "gemini", "gem-x")[0],
+                         model="gpt")
+        row = pool.submit(s.ScoreRequest(prompt="q"),
+                          model="gpt").result(timeout=30)
+        assert row["success"] and row["completion"] == "Yes"
+
+
 # -- health and labeled metrics ----------------------------------------------
 
 def test_health_reports_per_replica_and_degrades_on_wedge(pkg):
@@ -487,15 +673,20 @@ def test_prometheus_export_labels_serve_metrics_by_replica():
 # -- what the port refuses, by item ------------------------------------------
 
 def test_refusals_name_their_items():
+    """``devices=`` still refuses naming its item; the vendor constructors
+    no longer refuse (their item has landed)."""
     with fast_pool(tserve) as pool:
         with pytest.raises(NotImplementedError,
                            match="'Parallel and training'"):
             pool.load("alpha", FakeEngine("fake/a"), devices=[0])
         assert pool.replicas() == []
-    for ctor in ("openai", "gemini", "anthropic"):
-        with pytest.raises(NotImplementedError,
-                           match="'API clients and the API sweeps'"):
-            getattr(tserve.RemoteBackend, ctor)(object(), "m")
+    for ctor, client in (("openai", tapi.OpenAIClient),
+                         ("gemini", tapi.GeminiClient),
+                         ("anthropic", tapi.AnthropicClient)):
+        backend = getattr(tserve.RemoteBackend, ctor)(
+            client("k", transport=tapi.FakeTransport()), "m")
+        assert isinstance(backend, tserve.RemoteBackend)
+        assert backend.model == "m"
 
 
 def test_replica_engine_config_applies_an_operating_point():

@@ -124,6 +124,15 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/api_backends/__init__.py",
     "llm_interpretation_replication_tpu_torch/api_backends/cost.py",
     "llm_interpretation_replication_tpu_torch/utils/testing.py",
+    "llm_interpretation_replication_tpu_torch/api_backends/transport.py",
+    "llm_interpretation_replication_tpu_torch/api_backends/cache.py",
+    "llm_interpretation_replication_tpu_torch/api_backends/openai_client.py",
+    "llm_interpretation_replication_tpu_torch/api_backends/anthropic_client.py",
+    "llm_interpretation_replication_tpu_torch/api_backends/gemini_client.py",
+    "llm_interpretation_replication_tpu_torch/api_backends/evaluators.py",
+    "llm_interpretation_replication_tpu_torch/gen/__init__.py",
+    "llm_interpretation_replication_tpu_torch/gen/irrelevant.py",
+    "llm_interpretation_replication_tpu_torch/sweeps/api_perturbation.py",
 ])
 def test_slice_modules_are_guarded(rel):
     """The modules the kernels, the int8 path, the pool, the slot ring,
@@ -134,6 +143,29 @@ def test_slice_modules_are_guarded(rel):
     path = os.path.join(ROOT, rel)
     assert path in _port_sources()
     assert not _forbidden_imports(path)
+
+
+def test_api_leg_imports_no_pandas_at_run_time():
+    """Importing the API leg (clients, evaluators, sweeps, the corpus
+    generator, the CLI) loads neither pandas nor JAX nor the JAX package,
+    and creates no CUDA context: the card's machine has no pandas, and the
+    API commands do no device work."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, torch\n"
+        "import llm_interpretation_replication_tpu_torch.api_backends\n"
+        "import llm_interpretation_replication_tpu_torch.sweeps.api_perturbation\n"
+        "import llm_interpretation_replication_tpu_torch.gen\n"
+        "import llm_interpretation_replication_tpu_torch.__main__\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('pandas', 'jax', 'jaxlib', 'llm_interpretation_replication_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 def test_known_phases_match_reference():

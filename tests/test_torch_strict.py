@@ -292,3 +292,177 @@ def test_fault_listeners_and_memory_summary():
     assert ttel.device_memory_summary() is None          # no card here
     assert ttel.get_memory_usage().endswith("HBM: n/a")
     ttel.clear_host_memory()
+
+
+# -- per-thread modes ---------------------------------------------------------
+
+def _jax_mode():
+    """The calling thread's device-to-host guard in the JAX package, as a
+    sync debug mode (``"disallow"`` 2, ``"allow"`` or unset 0)."""
+    from jax._src import config as jconfig
+
+    return {"disallow": 2}.get(jconfig.transfer_guard_device_to_host.value, 0)
+
+
+class _FakeCuda:
+    """A card's process-wide sync debug mode, for the registry's sake."""
+
+    def __init__(self):
+        self.mode = 0
+        self.history = []
+
+    def is_available(self):
+        return True
+
+    def get_sync_debug_mode(self):
+        return self.mode
+
+    def set_sync_debug_mode(self, mode):
+        self.mode = strict._MODES.get(mode, mode)
+        self.history.append(self.mode)
+
+
+def _choreograph(mod, read, plan, card=None):
+    """Run ``plan`` — a list of ``(thread, action)`` steps, action one of
+    ``"guard"``, ``"fetch"``, ``"exit"`` or ``"read"`` — on one thread a
+    name, strictly in order (each step waits for the one before it).
+    Returns each thread's readings and, with a fake ``card``, the card's
+    mode after every step."""
+    import threading
+
+    done = [threading.Event() for _ in plan]
+    reads = {name: [] for name, _ in plan}
+    card_modes, errors = [], []
+
+    def run(name):
+        open_ = []
+        try:
+            for i, (who, action) in enumerate(plan):
+                if who != name:
+                    continue
+                if i:
+                    assert done[i - 1].wait(10), "choreography stalled"
+                if action in ("guard", "fetch"):
+                    cm = (mod.scoring_guard(name) if action == "guard"
+                          else mod.sanctioned_fetch())
+                    cm.__enter__()
+                    open_.append(cm)
+                elif action == "exit":
+                    open_.pop().__exit__(None, None, None)
+                reads[name].append(read())
+                if card is not None:
+                    card_modes.append(card.mode)
+                done[i].set()
+        except BaseException as err:       # surfaced by the main thread
+            errors.append(err)
+            for ev in done:
+                ev.set()
+
+    threads = [threading.Thread(target=run, args=(n,)) for n in reads]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(20)
+    assert not errors, errors
+    return reads, card_modes
+
+
+# A enters a guard, B a sanctioned fetch, then they exit: in that order,
+# with A leaving first, in the mirror (B first in, B first out) and nested.
+ORDERS = {
+    "guard_exits_first": [("A", "guard"), ("B", "fetch"), ("A", "read"),
+                          ("B", "read"), ("A", "exit"), ("B", "exit")],
+    "mirror": [("B", "fetch"), ("A", "guard"), ("A", "read"), ("B", "read"),
+               ("B", "exit"), ("A", "exit")],
+    "fetch_exits_first": [("A", "guard"), ("B", "fetch"), ("A", "read"),
+                          ("B", "read"), ("B", "exit"), ("A", "exit")],
+}
+
+
+@pytest.mark.parametrize("order", sorted(ORDERS))
+def test_each_thread_reads_its_own_mode(order):
+    """Thread A inside a guard reads 2 and thread B inside a sanctioned
+    fetch reads 0 whatever the other does, as the JAX package's
+    per-thread transfer guards read ``"disallow"`` and ``"allow"``; after
+    both exit, every thread reads 0."""
+    plan = ORDERS[order]
+    strict.activate(sentry=False)
+    jstrict.activate(sentry=False)
+    try:
+        port, _ = _choreograph(strict, strict.sync_debug_mode, plan)
+        ref, _ = _choreograph(jstrict, _jax_mode, plan)
+    finally:
+        jstrict.deactivate()
+    assert port == ref
+    a_in = plan.index(("A", "read"))
+    b_in = plan.index(("B", "read"))
+    assert port["A"][[i for i, (w, _) in enumerate(plan)
+                      if w == "A"].index(a_in)] == 2
+    assert port["B"][[i for i, (w, _) in enumerate(plan)
+                      if w == "B"].index(b_in)] == 0
+    assert port["A"][-1] == 0 and port["B"][-1] == 0
+    assert strict.sync_debug_mode() == 0 and _jax_mode() == 0
+    assert not strict._REGIONS and strict._BASE is None
+
+
+@pytest.mark.parametrize("order", sorted(ORDERS))
+def test_card_mode_follows_the_registry(monkeypatch, order):
+    """With a card, the process-wide mode is "error" only while some
+    thread sits in a guard and none in a sanctioned fetch, and returns to
+    the mode found before the first region."""
+    card = _FakeCuda()
+    card.mode = 1                           # "warn", set by someone before
+    monkeypatch.setattr(strict, "torch", type("T", (), {"cuda": card}))
+    strict.activate(sentry=False)
+    plan = ORDERS[order]
+    reads, modes = _choreograph(strict, strict.sync_debug_mode, plan, card)
+    inside = {}
+    for (who, action), mode in zip(plan, modes):
+        if action in ("guard", "fetch"):
+            inside.setdefault(who, []).append(action)
+        elif action == "exit":
+            inside[who].pop()
+        inner = {v[-1] for v in inside.values() if v}
+        expect = 2 if "guard" in inner and "fetch" not in inner else 1
+        assert mode == expect, (who, action, mode)
+    assert card.mode == 1
+    assert reads["A"][-1] == 1 and reads["B"][-1] == 1
+    assert not strict._REGIONS and strict._BASE is None
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_random_interleavings_restore_the_mode(monkeypatch, seed):
+    """Three threads with nested guards and fetches in a seeded random
+    interleaving: no thread reads another's mode, a fetch never runs with
+    the card at "error", and the mode found before comes back."""
+    rng = np.random.default_rng(seed)
+    card = _FakeCuda()
+    monkeypatch.setattr(strict, "torch", type("T", (), {"cuda": card}))
+    strict.activate(sentry=False)
+    depth = {n: [] for n in "ABC"}
+    plan = []
+    while len(plan) < 30 or any(depth.values()):
+        who = "ABC"[rng.integers(3)]
+        if len(plan) < 30 and (not depth[who] or rng.random() < 0.5):
+            action = ("guard", "fetch")[rng.integers(2)]
+            depth[who].append(action)
+        elif depth[who]:
+            action = "exit"
+            depth[who].pop()
+        else:
+            continue
+        plan.append((who, action))
+    reads, modes = _choreograph(strict, strict.sync_debug_mode, plan, card)
+    stacks = {n: [] for n in "ABC"}
+    it = {n: iter(reads[n]) for n in "ABC"}
+    for (who, action), mode in zip(plan, modes):
+        if action == "exit":
+            stacks[who].pop()
+        else:
+            stacks[who].append(action)
+        own = next(it[who])
+        want = {"guard": 2, "fetch": 0}[stacks[who][-1]] if stacks[who] else 0
+        assert own == want
+        if any(s and s[-1] == "fetch" for s in stacks.values()):
+            assert mode == 0
+    assert card.mode == 0 and not strict._REGIONS
