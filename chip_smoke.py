@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the exit code is then non-zero and no result
 line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
-11, 18's CLI leg, 20's CLI leg, 21, 12-15):
+11, 18's CLI leg, 20's CLI leg, 21, 22, 12-15):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
@@ -79,7 +79,7 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    gated MLP's among them); then the slice's prompts scored with w8a8 int8
    weights (quantized as they are made), once with a bf16 and once with an
    int8 KV cache, held against the bf16 rows;
-10. sweep (before the int8 phase, on the first SWEEP_LAYERS (8) of the
+10. sweep (before the int8 phase, on the first SWEEP_LAYERS (2) of the
    slice's 32 layers, views of its tensors): the 5 legal
    scenarios with 24 seeded word-level edits each of original_main (60-140
    words, one token a word under a word tokenizer of the scenarios' words,
@@ -117,7 +117,7 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    same workbook; both keep the bf16 run's position-0 columns);
 12. families: Pythia-6.9B (GPT-NeoX), Mistral-7B-Instruct-v0.2 (the
    LLaMA family, 32 query heads on 8 K/V heads) and BLOOM-7b1 (ALiBi) at
-   their published width and FAMILY_LAYERS (4) of their 30-32 layers:
+   their published width and FAMILY_LAYERS (2) of their 30-32 layers:
    random bf16 weights from ``--seed``
    made as a HF checkpoint and read through the port's converter, the two
    targets' rows swapped with ids the weights rank high; each scores the
@@ -174,9 +174,11 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    timed at each one's longest prompt batch;
 15. run-instruct-sweep: 2-layer snapshots of the roster's six geometries
    phase 13 did not write (a Unigram ``tokenizer.json`` behind a
-   Precompiled charsmap for the T5s, Mistral v0.3's Metaspace "first"
-   byte-fallback BPE, ``qwen.tiktoken`` for Qwen, OPT's ``vocab.json`` +
-   ``merges.txt``, byte-level BPE for the rest) beside phase 13's Falcon, BLOOM and
+   Precompiled charsmap for the T5s, Baichuan2's SentencePiece BPE
+   ``tokenizer.model`` alone, which the parent reads back first, Mistral
+   v0.3's Metaspace "first" byte-fallback BPE, ``qwen.tiktoken`` for
+   Qwen, OPT's ``vocab.json`` + ``merges.txt``, byte-level BPE for
+   h2oGPT) beside phase 13's Falcon, BLOOM and
    RedPajama snapshots; ``python -m llm_interpretation_replication_tpu_torch
    run-instruct-sweep --attention-impl flash --quant int8`` in a child
    process must write 1000 rows in the 7 columns, none a ``MODEL_ERROR``,
@@ -195,7 +197,7 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    move by at most FUSED_PROB_TOL elsewhere); every prompt forward of the
    kernel route launches the causal kernel once a layer; the causal kernel
    timed at the packed batch's shape;
-17. k_decode (after phase 16, on the first K_DECODE_LAYERS (8) of the
+17. k_decode (after phase 16, on the first K_DECODE_LAYERS (2) of the
    slice's 32 layers, views; its near-tie measured there): the
    full-study row (``score_prefixed``, both
    legs) on the full-study phase's 96 rows at K=1, then at K=4 with a
@@ -208,7 +210,7 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    measured logit deviation) and keep their probabilities within it; the
    oracle saves steps; passes a chunk, ms of a sequential chunk against
    the accepted K path's, and the accept rate are printed;
-18. obs (after phase 17, on the first OBS_LAYERS (8) of the slice's
+18. obs (after phase 17, on the first OBS_LAYERS (2) of the slice's
    layers, views; guards and device observability): 20 rows of the sweep phase's corpus (5 scenarios x 4
    rephrasings) through ``run_model_perturbation_sweep`` after a warm-up
    run: (a) plain, (b) with strict mode, the span tracer, the metrics log
@@ -235,12 +237,15 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
 19. tokenizers (after phase 18, on the slice's weights): each published
    tokenizer format of ``TOKENIZER_FORMATS`` (Falcon's, BLOOM's, Llama-2 /
    Mistral's byte-fallback BPE, Mistral v0.3's Metaspace "first", T5's
-   Precompiled charsmap), written as plain JSON and read back through
-   ``load_tokenizer``: the sweep corpus encoded (tokens/s on the card's
-   host) and decoded back, and a sha256 of its ids over the fixed
+   Precompiled charsmap, written as plain JSON; a SentencePiece Unigram
+   ``spiece.model`` and Baichuan2's byte-fallback BPE ``tokenizer.model``,
+   written by the port's own ``ModelProto`` serializer) and read back
+   through ``load_tokenizer``: the sweep corpus encoded (tokens/s on the
+   card's host) and decoded back, and a sha256 of its ids over the fixed
    ``_tokenizer_digest_texts()`` equal to ``TOKENIZER_DIGESTS`` (the
-   ``tokenizers`` package's and the JAX loader's on the CPU, so a
-   different ``unicodedata`` on the card's Python shows); then 20 rows
+   ``tokenizers`` package's and the JAX loader's on the CPU, for the
+   model files ``transformers``' conversion's, so a different
+   ``unicodedata`` on the card's Python shows); then 20 rows
    of the corpus encoded by the Falcon-format reader through
    ``run_model_perturbation_sweep`` at OBS_LAYERS layers on the causal
    kernel, traced (rows/s, the prefetcher's encode spans' share of the
@@ -289,7 +294,20 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    scenarios x 5 rephrasings (10 rows each, the right columns; a second
    run resumes from the workbook and asks nothing), then
    ``generate-rephrasings`` and ``repair-batch``, and must end with no
-   CUDA context and no pandas imported.
+   CUDA context and no pandas imported;
+22. stats (after phase 21; budget STATS_BUDGET_S, 20 s): the pandas-free
+   statistics layer in a child process on the card's host
+   (``_stats_host_child``): the native Levenshtein built by ``cc`` and
+   loaded (``using_native()``), equal to its plain version on
+   STATS_PLAIN_PAIRS pairs; the BM25 and Levenshtein similarity matrices
+   over scenario 0's original and 24 rephrasings, their float64 bytes
+   hashing to SIMILARITY_SHA256 (the JAX package's on the CPU);
+   ``power-analysis`` at its 10,000 simulations, its printed N(80%) a
+   model and recommendation equal to POWER_N80 / POWER_RECOMMENDED_N
+   (analytic; the simulated powers are printed, not gated); and
+   ``sample-statements``, its file hashing to SAMPLE_STATEMENTS_SHA256.
+   The child must end with no CUDA context and without pandas,
+   matplotlib or sklearn.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -395,10 +413,10 @@ SWEEP_PER_SCENARIO, SWEEP_TOKENS = 24, (60, 140)
 SWEEP_CHUNK, SWEEP_CHECKPOINT = 40, 20
 SWEEP_PREFILL_CHUNK, TIMING_PREFILL_CHUNK = 64, 128
 SNAPSHOT_LAYERS = 2
-# the sweep phase's depth: its eight sweeps run on the first 8 of the
+# the sweep phase's depth: its eight sweeps run on the first 2 of the
 # slice's 32 layers (views, nothing copied), the cheapest cut of the
 # smoke's time; its gates' near-tie is measured at that depth
-SWEEP_LAYERS = 8
+SWEEP_LAYERS = 2
 SWEEP_MODEL = "tiiuae/falcon-7b (random weights)"
 # the sweep phase's boosted runs scale the (tied) embedding rows of the
 # scenarios' own target ids by this factor: their logits, and the bf16
@@ -413,7 +431,7 @@ CLI_INT8_MAX_DREL = 0.05
 PACK_Q = 4
 K_DECODE = 4
 # the K-decode phase's depth: views of the slice's first layers (of 32)
-K_DECODE_LAYERS = 8
+K_DECODE_LAYERS = 2
 K_DISTILL = (24, 12)
 # (wrapper, source in ops/csrc, line of the TPU kernel it replaces in
 # llm_interpretation_replication_tpu/ops/attention.py, shapes, layout)
@@ -2972,6 +2990,11 @@ TOKENIZER_FORMATS = {
                    "behind Metaspace prepend_scheme 'first'",
     "t5": "T0_3B, tk-instruct, the T5 pair: Unigram behind a Precompiled "
           "charsmap",
+    "sp_unigram": "a T5 snapshot shipping only spiece.model: a SentencePiece "
+                  "Unigram model with a charsmap (T5Converter's reading)",
+    "sp_bpe": "baichuan-inc/Baichuan2-7B-Chat: a SentencePiece BPE "
+              "tokenizer.model with byte fallback and no dummy prefix "
+              "(LlamaConverter's reading)",
 }
 FALCON_PRE_TOKENIZER = {"type": "Sequence", "pretokenizers": [
     {"type": "Punctuation", "behavior": "Contiguous"},
@@ -3068,13 +3091,90 @@ def _byte_fallback_format(texts, normalizer, pre, decoder):
                   "vocab": vocab, "merges": [list(m) for m in merges]}}
 
 
+def _spm_unigram_files(texts, charsmap=T5_CHARSMAP):
+    """((``"spiece.model"``, bytes), tokenizer_config.json,
+    special_tokens_map.json) of a T5 snapshot that ships only its
+    SentencePiece model: ``_unigram_tokenizer_files``' pieces and scores
+    as a Unigram ``ModelProto`` (written by the port's own serializer;
+    ``<pad>`` and ``</s>`` control pieces, ``<unk>`` the unknown one) with
+    ``charsmap`` in its normalizer spec, T5's trainer ids and normalizer
+    flags; ``T5Tokenizer`` with 100 extra ids."""
+    from llm_interpretation_replication_tpu_torch.utils import (
+        sentencepiece_model as spm)
+
+    spec, config, special = _unigram_tokenizer_files(texts, charsmap)
+    kinds = {"<pad>": spm.CONTROL, "</s>": spm.CONTROL, "<unk>": spm.UNKNOWN}
+    model = spm.serialize_model_proto(
+        [(p, score, kinds.get(p, spm.NORMAL))
+         for p, score in spec["model"]["vocab"]],
+        trainer_spec=dict(model_type=spm.UNIGRAM, unk_id=2, bos_id=-1,
+                          eos_id=1, pad_id=0),
+        normalizer_spec=dict(name="nmt_nfkc",
+                             precompiled_charsmap=_charsmap(charsmap),
+                             add_dummy_prefix=True,
+                             remove_extra_whitespaces=True,
+                             escape_whitespaces=True))
+    return ("spiece.model", model), dict(config, extra_ids=100), special
+
+
+def _spm_bpe_files(texts):
+    """((``"tokenizer.model"``, bytes), tokenizer_config.json,
+    special_tokens_map.json) in Baichuan2's layout: a BPE ``ModelProto``
+    with byte fallback (the port's serializer), ``<unk>``, ``<s>``,
+    ``</s>`` at ids 0-2, the 256 ``<0xXX>`` byte pieces, then the products
+    of merges learned on the words of ``texts`` between ``"▁"`` marks and
+    the characters, scored 0, -1, -2, ... in that order (merges go by
+    score); no dummy prefix, no normalization, split digits; the
+    ``BaichuanTokenizer`` class with ``add_bos_token`` and
+    ``add_eos_token`` off and ``<unk>`` padding."""
+    import re as _re
+    from collections import Counter
+
+    from llm_interpretation_replication_tpu_torch.utils import (
+        sentencepiece_model as spm)
+
+    words = Counter()
+    for t in texts:
+        words.update(_re.findall("▁?[^▁]+|▁", t.replace(" ", "▁")))
+    pieces = [("<unk>", 0.0, spm.UNKNOWN), ("<s>", 0.0, spm.CONTROL),
+              ("</s>", 0.0, spm.CONTROL)]
+    pieces += [(f"<0x{b:02X}>", 0.0, spm.BYTE) for b in range(256)]
+    seen = {p for p, _, _ in pieces}
+    learned = [a + b for a, b in _bpe_merges(words)]
+    for piece in learned + sorted({c for w in words for c in w}):
+        if piece not in seen:
+            seen.add(piece)
+            pieces.append((piece, float(259 - len(pieces)), spm.NORMAL))
+    model = spm.serialize_model_proto(
+        pieces,
+        trainer_spec=dict(model_type=spm.BPE, byte_fallback=True,
+                          split_digits=True, unk_id=0, bos_id=1, eos_id=2),
+        normalizer_spec=dict(name="identity", add_dummy_prefix=False,
+                             remove_extra_whitespaces=False))
+    special = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>",
+               "pad_token": "<unk>"}
+    config = dict(special, tokenizer_class="BaichuanTokenizer",
+                  add_bos_token=False, add_eos_token=False,
+                  clean_up_tokenization_spaces=False, model_max_length=4096,
+                  auto_map={"AutoTokenizer": [
+                      "tokenization_baichuan.BaichuanTokenizer", None]})
+    return ("tokenizer.model", model), config, special
+
+
 def _format_tokenizer_files(fmt, texts):
     """(tokenizer.json, tokenizer_config.json, special_tokens_map.json) in
     the published format ``fmt`` of ``TOKENIZER_FORMATS``, learned on
     ``texts``: Falcon's and BLOOM's pre-tokenizers over byte-level BPE,
     Llama-2/Mistral's byte-fallback BPE (``LlamaTokenizer``,
     ``add_bos_token``), Mistral v0.3's Metaspace "first", T5's Unigram
-    behind ``T5_CHARSMAP``."""
+    behind ``T5_CHARSMAP``; the SentencePiece formats give their model
+    file as (file name, bytes) in place of the ``tokenizer.json``: a
+    Unigram ``spiece.model`` (``_spm_unigram_files``) and Baichuan2's BPE
+    ``tokenizer.model`` (``_spm_bpe_files``)."""
+    if fmt == "sp_unigram":
+        return _spm_unigram_files(texts)
+    if fmt == "sp_bpe":
+        return _spm_bpe_files(texts)
     if fmt == "falcon":
         eos = "<|endoftext|>"
         spec = _byte_level_format(
@@ -3128,8 +3228,16 @@ def _format_tokenizer_files(fmt, texts):
 
 
 def _write_tokenizer_files(snap, files):
+    """Write ``_format_tokenizer_files``' files into ``snap``: the
+    ``tokenizer.json`` (or a SentencePiece model file), the tokenizer
+    config and the special tokens map."""
     for name, obj in zip(("tokenizer.json", "tokenizer_config.json",
                           "special_tokens_map.json"), files):
+        if isinstance(obj, tuple):          # (model file name, bytes)
+            name, blob = obj
+            with open(os.path.join(snap, name), "wb") as f:
+                f.write(blob)
+            continue
         with open(os.path.join(snap, name), "w", encoding="utf-8") as f:
             json.dump(obj, f)
 
@@ -3638,7 +3746,7 @@ CLI_TOKENIZERS = {"tiiuae/falcon-7b": "falcon", "bigscience/bloom-7b1": "bloom",
 CLI_DENSE = {"bigscience/bloom-7b1", "bigscience/bloomz-7b1",
              "mistralai/Mistral-7B-v0.1"}
 SCAN_STEPS = 10          # the look-ahead the yes/no scan reads
-FAMILY_LAYERS = 4        # the families and instruct decoders' depth (of
+FAMILY_LAYERS = 2        # the families and instruct decoders' depth (of
 #                          their 24-32 layers)
 
 # ---------------------------------------------------------------------------
@@ -3701,7 +3809,7 @@ T5_PAIR = {"base": "google/t5-v1_1-base", "instruct": "google/flan-t5-base"}
 # phase did not write (model, config, models sharing it, tokenizer format)
 INSTRUCT_SNAPSHOTS = [
     ("allenai/tk-instruct-3b-def", T0_3B, ("bigscience/T0_3B",), "t5"),
-    ("baichuan-inc/Baichuan2-7B-Chat", BAICHUAN2_7B_CHAT, (), "bpe"),
+    ("baichuan-inc/Baichuan2-7B-Chat", BAICHUAN2_7B_CHAT, (), "sp_bpe"),
     ("facebook/opt-iml-1.3b", OPT_IML_1_3B, (), "gpt2"),
     ("h2oai/h2ogpt-oasst1-512-12b", H2OGPT_12B, (), "bpe"),
     ("mistralai/Mistral-7B-Instruct-v0.3", MISTRAL_7B_V03, (), "mistral_v03"),
@@ -5107,11 +5215,12 @@ def _write_instruct_snapshots(root, seed, texts):
     """2-layer snapshots of ``INSTRUCT_SNAPSHOTS`` beside the run-100q
     phase's (whose other models go first): random bf16 weights from
     ``seed`` as safetensors, tokenizers in each model's format learned on
-    ``texts`` (the T5s' Unigram ``tokenizer.json`` behind a Precompiled
-    charsmap, Mistral v0.3's Metaspace "first" byte-fallback BPE,
-    ``qwen.tiktoken``, OPT's ``vocab.json`` + ``merges.txt``, byte-level
-    BPE for the rest, Baichuan's SentencePiece file among them).  Returns
-    (bytes written, seconds)."""
+    ``texts``: the T5s' Unigram ``tokenizer.json`` behind a Precompiled
+    charsmap, Baichuan2's SentencePiece BPE ``tokenizer.model`` alone
+    (no ``tokenizer.json``), Mistral v0.3's Metaspace "first"
+    byte-fallback BPE ``tokenizer.json``, Qwen's ``qwen.tiktoken``, OPT's
+    ``vocab.json`` + ``merges.txt``, and a byte-level BPE
+    ``tokenizer.json`` for h2oGPT.  Returns (bytes written, seconds)."""
     import torch
 
     from llm_interpretation_replication_tpu_torch.models import convert
@@ -5142,6 +5251,8 @@ def _write_instruct_snapshots(root, seed, texts):
             files.update(zip(("tokenizer.json", "tokenizer_config.json",
                               "special_tokens_map.json"),
                              _format_tokenizer_files(fmt, texts)))
+        elif fmt == "sp_bpe":
+            _write_tokenizer_files(snap, _format_tokenizer_files(fmt, texts))
         elif fmt == "bpe":
             files.update(zip(("tokenizer.json", "tokenizer_config.json",
                               "special_tokens_map.json"),
@@ -5212,6 +5323,8 @@ def instruct_cli_phase(seed, workdir, card):
 
     from llm_interpretation_replication_tpu_torch.config import (
         instruct_sweep_models, ordinary_meaning_questions)
+    from llm_interpretation_replication_tpu_torch.runtime.loader import (
+        load_tokenizer)
     from llm_interpretation_replication_tpu_torch.scoring.prompts import (
         format_prompt)
     from llm_interpretation_replication_tpu_torch.sweeps import (
@@ -5226,6 +5339,19 @@ def instruct_cli_phase(seed, workdir, card):
     say(f"run-instruct-sweep: {len(INSTRUCT_SNAPSHOTS)} snapshots, "
         f"{nbytes / 1e9:.2f} GB of weights written in {write_s:.1f} s")
     fails, runs = [], []
+    # Baichuan2's snapshot holds its SentencePiece file and no
+    # tokenizer.json: the child reads it through the ModelProto reader
+    spm_snap = os.path.join(snaps, "baichuan-inc--Baichuan2-7B-Chat")
+    spm_files = sorted(os.listdir(spm_snap))
+    spm_tok = load_tokenizer(spm_snap)
+    spm_back = sum(spm_tok.decode(spm_tok.encode(t), skip_special_tokens=True)
+                   != t for t in texts)
+    spm_read = dict(files=spm_files, reader=type(spm_tok).__name__,
+                    vocab=len(spm_tok), texts_not_decoding_back=spm_back)
+    say("run-instruct-sweep baichuan tokenizer", json.dumps(spm_read))
+    if "tokenizer.model" not in spm_files or "tokenizer.json" in spm_files \
+            or spm_read["reader"] != "ByteLevelBPETokenizer" or spm_back:
+        fails.append(f"run-instruct-sweep: Baichuan2's tokenizer {spm_read}")
     n = len(names) * len(questions)
 
     def csv_of(out):
@@ -5306,7 +5432,8 @@ def instruct_cli_phase(seed, workdir, card):
     shutil.rmtree(snaps, ignore_errors=True)
     result = dict(card=card, layers=SNAPSHOT_LAYERS, snapshot_bytes=nbytes,
                   snapshot_write_s=write_s, rows=n, runs=runs,
-                  attention=lines, failures=fails[:50])
+                  attention=lines, baichuan_tokenizer=spm_read,
+                  failures=fails[:50])
     say("run-instruct-sweep gates", json.dumps(
         {k: v for k, v in result.items() if k != "runs"}))
     if fails:
@@ -5911,7 +6038,7 @@ def k_decode_phase(seed, attention, full_weights, card):
 # phase's corpus (5 x 4 = 20 rows, one chunk, one batch); it and the
 # tokenizers phase's sweep run on the slice's first OBS_LAYERS layers
 OBS_PER_SCENARIO = 4
-OBS_LAYERS = 8
+OBS_LAYERS = 2
 # what sync debug mode "error" is asked about on the card: each op once,
 # inside a scoring guard (the negative control is the first)
 SYNC_PROBES = ("item", "cpu", "bool_of_tensor", "nonzero", "bool_mask_index",
@@ -6281,7 +6408,8 @@ TOKENIZER_CHUNK = 10     # the phase's sweep chunk: two, so the prefetcher runs
 #: sha256 of each format's ids (with special tokens, ``_ids_digest``) over
 #: ``_tokenizer_digest_texts()``, the files learned on
 #: ``_tokenizer_learn_texts()``: the ``tokenizers`` package and the JAX
-#: package's loader compute the same on the CPU
+#: package's loader compute the same on the CPU, and for the SentencePiece
+#: formats ``transformers``' conversion of the same model file
 #: (tests/test_torch_tokenizer.py)
 TOKENIZER_DIGESTS = {
     "falcon": "0eab6160252d142550c8e11bb012e70939c4f6624c70409250d34a43360eaf60",
@@ -6290,6 +6418,9 @@ TOKENIZER_DIGESTS = {
     "mistral_v03":
         "9af18574ce5c6fe1355481d49f5a322b89c7e1ab0a1d624e51dc5faf0558b0a6",
     "t5": "754860bf3f1db2979a67bd143dbdc8b77941ae7466a7e9d257fd49e8931aa71b",
+    "sp_unigram":
+        "ed4112e34c0df3a9bc8fae8212ea20f326d1b388a2af2fc76bdd1a7821f2a210",
+    "sp_bpe": "cc848ba3b0d57df789fe3dfae1e07dba52a43835318695864b20fd4b400a94a8",
 }
 
 
@@ -6331,7 +6462,8 @@ def _ids_digest(id_lists):
 def tokenizers_phase(seed, attention, weights, workdir, card):
     """Phase 19 on the card's host and Falcon-7B at full width:
     each published tokenizer format of ``TOKENIZER_FORMATS``, written as
-    plain JSON and read back through ``load_tokenizer`` from a directory,
+    plain JSON (the SentencePiece formats as a model file the port
+    serializes) and read back through ``load_tokenizer`` from a directory,
     encodes the sweep corpus (the scenarios and their rephrasings;
     tokens/s) and decodes it back, and its ids over the fixed
     ``_tokenizer_digest_texts()`` hash to ``TOKENIZER_DIGESTS``; then 20
@@ -6357,7 +6489,6 @@ def tokenizers_phase(seed, attention, weights, workdir, card):
         load_tokenizer)
     from llm_interpretation_replication_tpu_torch.sweeps import (
         run_model_perturbation_sweep)
-    from llm_interpretation_replication_tpu_torch.utils import tokenizer_parts
     from llm_interpretation_replication_tpu_torch.utils.logging import (
         SessionLogger)
     from llm_interpretation_replication_tpu_torch.utils.xlsx import read_xlsx
@@ -6382,16 +6513,20 @@ def tokenizers_phase(seed, attention, weights, workdir, card):
         t0 = time.perf_counter()
         ids = [tok.encode(t) for t in corpus]
         encode_s = time.perf_counter() - t0
-        # T5's decode gives the normalized text (charsmap, folded spaces)
-        normalize = tokenizer_parts.normalizer(files[0]["normalizer"])
-        want = [normalize(t) for t in corpus] if fmt == "t5" else corpus
+        # a Unigram decode gives the normalized text (charsmap, folded
+        # spaces; the SentencePiece conversion folds runs to "▁")
+        unigram = fmt in ("t5", "sp_unigram")
+        want = [tok._normalize(t).replace("▁", " ") for t in corpus] \
+            if unigram else corpus
         back = [tok.decode(i, skip_special_tokens=True) for i in ids]
         bad = [t for t, b, w in zip(corpus, back, want) if b != w]
         n_tokens = sum(map(len, ids))
+        spec = files[0] if isinstance(files[0], dict) else {}
         formats[fmt] = dict(
             model=model, reader=type(tok).__name__, vocab=len(tok),
-            pre_tokenizer=(files[0].get("pre_tokenizer") or {}).get("type"),
-            normalizer=(files[0].get("normalizer") or {}).get("type"),
+            model_file=None if spec else files[0][0],
+            pre_tokenizer=(spec.get("pre_tokenizer") or {}).get("type"),
+            normalizer=(spec.get("normalizer") or {}).get("type"),
             texts=len(corpus), tokens=n_tokens, encode_s=encode_s,
             tokens_per_s=n_tokens / encode_s, write_s=write_s, load_s=load_s,
             digest=digest, round_trip_failures=len(bad))
@@ -6403,7 +6538,7 @@ def tokenizers_phase(seed, attention, weights, workdir, card):
         if bad:
             fails.append(f"{fmt}: {len(bad)} texts do not decode back, e.g. "
                          f"{bad[0][:80]!r}")
-        want_reader = "UnigramTokenizer" if fmt == "t5" else \
+        want_reader = "UnigramTokenizer" if unigram else \
             "ByteLevelBPETokenizer"
         if formats[fmt]["reader"] != want_reader:
             fails.append(f"{fmt}: read by {formats[fmt]['reader']}")
@@ -7548,6 +7683,171 @@ def api_phase(seed, attention, weights, workdir, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# The pandas-free statistics layer on the card's host (phase 22)
+# ---------------------------------------------------------------------------
+
+STATS_BUDGET_S = 20.0
+#: ``power-analysis`` at its defaults (10,000 simulations): N(80%) a model
+#: and the recommended N with its margin, analytic (normal quantiles), as
+#: the JAX package's command prints them on the CPU
+POWER_N80 = {"GPT": 122, "GEMINI": 44, "Claude": 38}
+POWER_RECOMMENDED_N = 183
+POWER_LIMITING_MODEL = "GPT"
+#: sha256 of ``sample-statements --output``'s file (Python's ``random``
+#: only): the JAX package's bytes (tests/test_torch_stats.py)
+SAMPLE_STATEMENTS_SHA256 = (
+    "f933ec8c959217fb2853d59073789df63e12fce3d814a581e296718d47ac53f4")
+#: the texts of the similarity matrices: scenario 0's original and its 24
+#: rephrasings of ``_perturbation_records(0)`` (whatever ``--seed``)
+STATS_SCENARIO = 0
+#: sha256 of each similarity matrix's float64 bytes over those texts: the
+#: JAX package's on the CPU (tests/test_torch_stats.py)
+SIMILARITY_SHA256 = {
+    "bm25": "228be72ec375aa96cac4876eac62c5c9bc54486080473ae3fbcca341808204c9",
+    "levenshtein":
+        "2511fb2af344d6728ca4c34620a9f31b4cc725c0443b2f936128dbeddf7f4fa4",
+}
+#: (pairs, characters) of the native-against-plain Levenshtein check
+STATS_PLAIN_PAIRS = (6, 240)
+
+
+def _similarity_texts():
+    rec = _perturbation_records(0)[STATS_SCENARIO]
+    return [rec["original_main"]] + list(rec["rephrasings"])
+
+
+def _matrix_digest(m):
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(
+        m, dtype=np.float64).tobytes()).hexdigest()
+
+
+def _stats_host_child(workdir):
+    """The statistics layer on the card's host, in a process of its own:
+    the native Levenshtein built and loaded (``using_native()``), held
+    against the plain version on STATS_PLAIN_PAIRS pairs; the BM25 and
+    Levenshtein similarity matrices over ``_similarity_texts()``;
+    ``power-analysis`` at its defaults and ``sample-statements`` through
+    the port's CLI.  Prints one JSON line; the process must end without a
+    CUDA context and without pandas, matplotlib or sklearn."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+    from llm_interpretation_replication_tpu_torch import native
+    from llm_interpretation_replication_tpu_torch.stats import (
+        bm25_similarity_matrix, levenshtein_similarity_matrix)
+
+    t0 = time.perf_counter()
+    fails, seconds = [], {}
+
+    t = time.perf_counter()
+    built = native.using_native()
+    seconds["native_build"] = time.perf_counter() - t
+    texts = _similarity_texts()
+    n_pairs, width = STATS_PLAIN_PAIRS
+    pairs = [(texts[i][:width], texts[-1 - i][:width]) for i in range(n_pairs)]
+    plain = [native._levenshtein_py(a, b) for a, b in pairs]
+    got = [native.levenshtein(a, b) for a, b in pairs]
+    if got != plain:
+        fails.append(f"levenshtein: native {got}, plain {plain}")
+    matrices = {}
+    for name, fn in (("bm25", bm25_similarity_matrix),
+                     ("levenshtein", levenshtein_similarity_matrix)):
+        t = time.perf_counter()
+        m = fn(texts)
+        seconds[name] = time.perf_counter() - t
+        matrices[name] = dict(shape=list(m.shape), digest=_matrix_digest(m),
+                              min=float(m.min()), mean=float(m.mean()))
+        # BM25 scores go negative where a term is in most texts (rank_bm25's
+        # idf floor), so only the Levenshtein matrix lies in [0, 1]
+        if m.shape != (len(texts), len(texts)) or not np.isfinite(m).all() \
+                or not np.array_equal(m, m.T) or (name == "levenshtein" and (
+                    m.min() < 0 or not (np.diag(m) == 1).all())):
+            fails.append(f"{name} matrix: {matrices[name]}")
+        if matrices[name]["digest"] != SIMILARITY_SHA256[name]:
+            fails.append(f"{name} matrix digest {matrices[name]['digest']}, "
+                         f"pinned {SIMILARITY_SHA256[name]}")
+
+    out_dir = tempfile.mkdtemp(prefix="power_", dir=workdir)
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["power-analysis", "--output-dir", out_dir])
+    seconds["power_analysis"] = time.perf_counter() - t
+    printed = buf.getvalue()
+    n80 = {m: int(n) for m, n in re.findall(
+        r"^(\S+): effect d=[0-9.]+, power@N=\d+ [0-9.]+, N\(80%\)=(\d+)$",
+        printed, re.M)}
+    rec = re.search(r"^recommendation \(80% power\): N=(\d+) \(limiting "
+                    r"model: (\S+)\)$", printed, re.M)
+    power = dict(n80=n80, recommended=int(rec.group(1)) if rec else None,
+                 limiting=rec.group(2) if rec else None,
+                 achieved=dict(re.findall(r"^(\S+): .* power@N=\d+ ([0-9.]+)",
+                                          printed, re.M)))
+    with open(os.path.join(out_dir, "power_analysis_report.tex")) as f:
+        tex = f.read()
+    if n80 != POWER_N80 or power["recommended"] != POWER_RECOMMENDED_N \
+            or power["limiting"] != POWER_LIMITING_MODEL \
+            or not all(f"\n{m} & " in tex for m in POWER_N80):
+        fails.append(f"power-analysis: {power}")
+
+    t = time.perf_counter()
+    sample = os.path.join(workdir, "statements_sample.tex")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["sample-statements", "--output", sample])
+    seconds["sample_statements"] = time.perf_counter() - t
+    with open(sample, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    if digest != SAMPLE_STATEMENTS_SHA256:
+        fails.append(f"sample-statements: sha256 {digest}")
+    print(json.dumps(dict(
+        using_native=built, native_plain_pairs=len(pairs), texts=len(texts),
+        matrices=matrices, power=power, sample_statements_sha256=digest,
+        seconds=seconds, fails=fails,
+        cuda_initialized=torch.cuda.is_initialized(),
+        imported=sorted(m for m in ("pandas", "matplotlib", "sklearn")
+                        if m in sys.modules),
+        total_s=time.perf_counter() - t0)))
+
+
+def stats_phase(workdir, card):
+    """Phase 22: :func:`_stats_host_child` in a child process, in a
+    directory of its own under ``workdir``; its JSON line, checked."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke._stats_host_child(sys.argv[2])")
+    own = tempfile.mkdtemp(prefix="stats_", dir=workdir)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, here, own],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"stats phase exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res.update(seconds_with_start=time.perf_counter() - t0, card=card)
+    say("stats", json.dumps(res))
+    fails = list(res["fails"])
+    if not res["using_native"]:
+        fails.append("the native Levenshtein did not load")
+    if res["cuda_initialized"]:
+        fails.append("the statistics layer created a CUDA context")
+    if res["imported"]:
+        fails.append(f"the statistics layer imported {res['imported']}")
+    if res["seconds_with_start"] > STATS_BUDGET_S:
+        say(f"stats: {res['seconds_with_start']:.1f} s, past its "
+            f"{STATS_BUDGET_S:.0f} s budget")
+    if fails:
+        raise AssertionError("stats: " + "; ".join(fails))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7611,6 +7911,7 @@ def main(argv=None):
         svcli = timed("serve_cli", serve_cli_phase, attention, workdir, card)
         apres = timed("api", api_phase, args.seed, attention, weights,
                       workdir, card)
+        stres = timed("stats", stats_phase, workdir, card)
         del weights
         torch.cuda.empty_cache()
         fam = timed("families", families_phase, args.seed, attention, card)
@@ -7653,7 +7954,7 @@ def main(argv=None):
                        pooled=pres, full_study=fres, sweep=wres,
                        packed=pkres, k_decode=kres, obs=ores, obs_cli=ocres,
                        tokenizers=tres, serve=svres, serve_cli=svcli,
-                       api=apres,
+                       api=apres, stats=stres,
                        int8=ires, cli=cres, families=fam, run_100q=qres,
                        instruct=inst,
                        run_instruct_sweep=ires_cli, phase_seconds=seconds,

@@ -13,6 +13,8 @@
     python -m llm_interpretation_replication_tpu_torch generate-irrelevant
     python -m llm_interpretation_replication_tpu_torch run-api-perturbation \\
         --perturbations perturbations.json --model gpt-4.1
+    python -m llm_interpretation_replication_tpu_torch power-analysis
+    python -m llm_interpretation_replication_tpu_torch sample-statements
 
 ``run-perturbation`` loads a local HF snapshot (``config.json``, weights as
 safetensors or ``pytorch_model.bin``, a byte-level BPE ``tokenizer.json``)
@@ -50,8 +52,12 @@ irrelevant-insertion corpus; ``run-api-perturbation`` (OpenAI batches),
 study's workbooks, resuming from them; ``generate-rephrasings`` builds a
 ``perturbations.json`` from Claude sessions, and ``repair-batch``
 rewrites a corrupted batch-response JSONL.  The vendor keys come from
-``OPENAI_API_KEY``, ``ANTHROPIC_API_KEY`` and ``GEMINI_API_KEY``.  These
-are copies of the reference CLI's commands.
+``OPENAI_API_KEY``, ``ANTHROPIC_API_KEY`` and ``GEMINI_API_KEY``.
+``power-analysis`` writes the sample-size report
+(``<output-dir>/power_analysis_report.tex``) from the pilot MAEs, and
+``sample-statements`` a seeded LaTeX sample of the irrelevant statements;
+both run on the host alone.  These are copies of the reference CLI's
+commands.
 Each takes ``--strict`` (the sync guard of ``runtime/strict.py``),
 ``--trace [PATH]`` (span tracing: a JSONL span log streamed to
 ``PATH.spans.jsonl`` and a Chrome trace written to PATH at exit),
@@ -545,6 +551,52 @@ def cmd_repair_batch(args):
     print(f"repaired {n} rows -> {args.output}")
 
 
+def cmd_sample_statements(args):
+    """Seeded LaTeX sample of the irrelevant statements for the appendix
+    (data/generate_latex_statements.py)."""
+    from .config import irrelevant_statements
+    from .viz.latex import irrelevant_statements_sample
+
+    tex = irrelevant_statements_sample(
+        irrelevant_statements(), k=args.k, seed=args.seed
+    )
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as f:
+            f.write(tex + "\n")
+        print(f"wrote {args.output}")
+    else:
+        print(tex)
+
+
+def cmd_power_analysis(args):
+    """Sample-size / power report (power_analysis.py:10-278) from pilot MAEs;
+    writes power_analysis_report.tex."""
+    from .config import power_pilot_results
+    from .stats import power_report
+
+    if args.pilot_json:
+        with open(args.pilot_json) as f:
+            pilot = json.load(f)
+    else:
+        pilot = power_pilot_results()
+    os.makedirs(args.output_dir, exist_ok=True)
+    tex = os.path.join(args.output_dir, "power_analysis_report.tex")
+    report = power_report(
+        pilot["models"], baseline_mae=pilot["baseline_mae"],
+        sample_size=pilot["sample_size"], alpha=args.alpha,
+        n_simulations=args.simulations, output_tex=tex,
+    )
+    for name, analysis in report["models"].items():
+        n80 = analysis["sample_sizes"]["power_80"]["raw"]
+        print(f"{name}: effect d={analysis['effect_size']:.3f}, "
+              f"power@N={pilot['sample_size']} "
+              f"{analysis['achieved_power']:.2f}, N(80%)={n80}")
+    rec = report["recommendation"]["power_80"]
+    print(f"recommendation (80% power): N={rec['with_margin']} "
+          f"(limiting model: {rec['limiting_model']})")
+    print(f"wrote {tex}")
+
+
 def cmd_obs(args):
     """``obs report`` / ``obs bench-diff``: the phase-attribution table
     over a saved span trace, and the bench-trajectory regression analyzer
@@ -696,6 +748,22 @@ def main(argv=None):
                         "RECORD... [--threshold PCT] [--format "
                         "table|json] [--no-fail]")
     p.set_defaults(fn=cmd_obs)
+
+    p = sub.add_parser("sample-statements",
+                       help="seeded LaTeX sample of the irrelevant statements")
+    p.add_argument("--k", type=int, default=50)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--output", default=None)
+    p.set_defaults(fn=cmd_sample_statements)
+
+    p = sub.add_parser("power-analysis",
+                       help="sample-size / power report from pilot MAEs")
+    p.add_argument("--pilot-json", default=None,
+                   help="override the built-in pilot results asset")
+    p.add_argument("--output-dir", default="results/power_analysis")
+    p.add_argument("--alpha", type=float, default=0.05)
+    p.add_argument("--simulations", type=int, default=10_000)
+    p.set_defaults(fn=cmd_power_analysis)
 
     p = sub.add_parser("repair-batch",
                        help="re-pair a corrupted batch-response JSONL")

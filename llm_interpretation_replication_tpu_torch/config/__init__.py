@@ -4,8 +4,8 @@ buckets, the legal scenarios of the perturbation study, the scenarios and
 statements of the irrelevant-insertion study, the decided-rate
 calibration evidence, the questions and model pairs of the 100-question
 sweep, the instruct-model roster, the word-meaning model pairs, the API
-model roster with its pricing, the irrelevant-evaluation roster, and
-``RunConfig``."""
+model roster with its pricing, the irrelevant-evaluation roster, the
+power analysis's pilot results, and ``RunConfig``."""
 
 from __future__ import annotations
 
@@ -49,6 +49,13 @@ def irrelevant_statements() -> List[str]:
     path = os.path.join(_ASSETS, "irrelevant_statements.txt")
     with open(path) as f:
         return [line.strip() for line in f if line.strip()]
+
+
+def power_pilot_results() -> dict:
+    """The pilot MAE results the power analysis starts from: baseline_mae,
+    sample_size and each model's mae/mae_std/mae_diff/CI (a byte-identical
+    copy of ``data_assets/power_pilot_results.json``)."""
+    return _load("power_pilot_results.json")
 
 
 def decided_rate_calibration() -> dict:

@@ -12,8 +12,11 @@ loader's ``load_tokenizer``): :class:`ByteLevelBPETokenizer` (a BPE
 byte-fallback BPE; or ``vocab.json`` and ``merges.txt``),
 :class:`UnigramTokenizer` (T5's Unigram ``tokenizer.json``, with its
 Precompiled charsmap) and :class:`QwenTokenizer` (Qwen-1's
-``qwen.tiktoken``).  The normalizers, pre-tokenizers, decoders and
-post-processors around the models are :mod:`.tokenizer_parts`'.
+``qwen.tiktoken``); a SentencePiece ``tokenizer.model`` or
+``spiece.model`` (:mod:`.sentencepiece_model`) becomes the spec of one of
+the first two, as ``transformers`` converts it.  The normalizers,
+pre-tokenizers, decoders and post-processors around the models are
+:mod:`.tokenizer_parts`'.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import re
 import unicodedata
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+from . import sentencepiece_model as spm
 from . import tokenizer_parts as parts
 
 
@@ -688,17 +692,76 @@ def _llama_template(tok, config: Dict):
     return lambda ids: front + ids + back
 
 
+#: transformers' ``T5TokenizerFast`` and the special tokens it names when
+#: the config names none
+_T5_CLASSES = ("T5Tokenizer", "T5TokenizerFast")
+_T5_SPECIALS = {"eos_token": "</s>", "unk_token": "<unk>",
+                "pad_token": "<pad>"}
+#: the SentencePiece files a snapshot may ship
+_SPM_FILES = ("tokenizer.model", "spiece.model")
+
+
+def _model_type(path: str) -> str:
+    """``config.json``'s ``model_type`` ("" without one): the reference
+    loader keys the tokenizer's quirks off it."""
+    fname = os.path.join(path, "config.json")
+    if not os.path.exists(fname):
+        return ""
+    with open(fname, encoding="utf-8") as f:
+        return json.load(f).get("model_type") or ""
+
+
+def _sentencepiece_tokenizer(fname: str, model_type: str, special: Dict,
+                             config: Dict, clean_up: bool):
+    """A SentencePiece model file as ``transformers`` converts it: a
+    Unigram model as ``T5Converter`` (``T5Tokenizer``'s specials, the
+    config's ``extra_ids``, default 100, as pieces and special tokens), a
+    BPE one as ``LlamaConverter`` (``LlamaTokenizer``'s specials and
+    BOS/EOS template; Baichuan's own ``BaichuanTokenizer`` is a
+    LlamaTokenizer copy, which the reference runs on the same file).  The
+    prefix space is the proto's ``add_dummy_prefix``; ``legacy`` (default
+    on) comes from the config."""
+    proto = spm.read_model_proto(fname)
+    cls = config.get("tokenizer_class")
+    legacy = config.get("legacy")
+    legacy = True if legacy is None else bool(legacy)
+    prefix = proto.normalizer_spec["add_dummy_prefix"]
+    if config.get("add_prefix_space") is not None and \
+            bool(config["add_prefix_space"]) != prefix:
+        raise _not_ported("a tokenizer config's add_prefix_space against "
+                          "its SentencePiece add_dummy_prefix")
+    if proto.trainer_spec["model_type"] == spm.UNIGRAM:
+        if cls not in (None, *_T5_CLASSES):
+            raise _not_ported(f"a SentencePiece Unigram model under {cls}")
+        extra = int(config.get("extra_ids", 100))
+        special = {**_T5_SPECIALS, **special}
+        if extra and not special.get("additional_special_tokens"):
+            special["additional_special_tokens"] = [
+                f"<extra_id_{i}>" for i in range(extra)]
+        return UnigramTokenizer(spm.unigram_spec(proto, extra, legacy),
+                                special, clean_up)
+    if cls not in (None, *_LLAMA_CLASSES, "BaichuanTokenizer") and \
+            model_type != "baichuan":
+        raise _not_ported(f"a SentencePiece BPE model under {cls}")
+    tok = ByteLevelBPETokenizer(spm.bpe_spec(proto, legacy),
+                                {**_LLAMA_SPECIALS, **special}, clean_up)
+    tok._post = _llama_template(tok, config)
+    return tok
+
+
 def load_tokenizer(path: str):
     """A snapshot's tokenizer, read from the files it holds: a
     ``tokenizer.json`` (a BPE model, :class:`ByteLevelBPETokenizer`, or a
     Unigram one, :class:`UnigramTokenizer`, each behind the pipeline
     components of :mod:`.tokenizer_parts`), else Qwen-1's
     ``qwen.tiktoken`` (:class:`QwenTokenizer`), else a ``vocab.json`` with
-    ``merges.txt`` (byte-level BPE, with the config's ``add_bos_token``);
-    a SentencePiece ``tokenizer.model`` or ``spiece.model`` alone
-    (Baichuan's, ChatGLM's, a T5 snapshot without ``tokenizer.json``)
-    raises ``NotImplementedError``.  As transformers loads them: special
-    tokens come from ``tokenizer_config.json`` overridden by
+    ``merges.txt`` (byte-level BPE, with the config's ``add_bos_token``),
+    else a SentencePiece ``tokenizer.model`` or ``spiece.model``
+    (:mod:`.sentencepiece_model`: Unigram as T5's conversion, BPE as
+    Llama's).  For ``config.json``'s ``model_type`` ``baichuan`` the
+    SentencePiece file comes first, as the reference loads Baichuan's slow
+    tokenizer whatever else the snapshot holds.  As transformers loads
+    them: special tokens come from ``tokenizer_config.json`` overridden by
     ``special_tokens_map.json``; a top-level ``ByteLevel`` pre-tokenizer
     takes the config's ``add_prefix_space`` (default off); the LLaMA
     ``tokenizer_class`` names ``<s>``, ``</s>`` and ``<unk>`` unless the config names
@@ -709,11 +772,17 @@ def load_tokenizer(path: str):
     masked, so any id in range works)."""
     special, config = _read_special_tokens(path)
     clean_up = bool(config.get("clean_up_tokenization_spaces", False))
+    model_type = _model_type(path)
     llama = config.get("tokenizer_class") in _LLAMA_CLASSES
     if llama:
         special = {**_LLAMA_SPECIALS, **special}
     fname = os.path.join(path, "tokenizer.json")
-    if os.path.exists(fname):
+    sp_file = next((os.path.join(path, n) for n in _SPM_FILES
+                    if os.path.exists(os.path.join(path, n))), None)
+    if sp_file is not None and model_type == "baichuan":
+        tok = _sentencepiece_tokenizer(sp_file, model_type, special, config,
+                                       clean_up)
+    elif os.path.exists(fname):
         with open(fname, encoding="utf-8") as f:
             spec = json.load(f)
         pre = spec.get("pre_tokenizer") or {}
@@ -732,9 +801,9 @@ def load_tokenizer(path: str):
              for n in ("vocab.json", "merges.txt")):
         tok = ByteLevelBPETokenizer(_bpe_spec_from_files(path), special,
                                     clean_up, bool(config.get("add_bos_token")))
-    elif any(os.path.exists(os.path.join(path, n))
-             for n in ("tokenizer.model", "spiece.model")):
-        raise _not_ported("a SentencePiece tokenizer.model / spiece.model")
+    elif sp_file is not None:
+        tok = _sentencepiece_tokenizer(sp_file, model_type, special, config,
+                                       clean_up)
     else:
         raise FileNotFoundError(f"no tokenizer files found under {path}")
     if tok.pad_token_id is None:

@@ -846,7 +846,7 @@ def test_instruct_cli_roster_covers_every_model():
         for s in shared}
     assert set(chip_smoke.INSTRUCT_REUSED) <= from_100q
     assert {f for *_, f in chip_smoke.INSTRUCT_SNAPSHOTS} == {
-        "t5", "mistral_v03", "bpe", "gpt2", "tiktoken"}
+        "t5", "mistral_v03", "bpe", "gpt2", "tiktoken", "sp_bpe"}
 
 
 def test_t5_helpers_on_the_cpu(one_torch_thread):
@@ -1019,7 +1019,7 @@ def test_sweep_phase_runs_on_the_first_layers(one_torch_thread):
     cfg = config.DecoderConfig(**config.FLAGSHIP_SMALL_GEOMETRY)
     full = convert.random_params(cfg, seed=0, device="cpu", dtype="fp32")
     cut = chip_smoke._first_layers(full, 2)
-    assert cut.cfg.num_layers == 2 and chip_smoke.SWEEP_LAYERS == 8
+    assert cut.cfg.num_layers == 2 and chip_smoke.SWEEP_LAYERS == 2
     whole = dict(decoder._flatten(full.tree()))
     for path, t in decoder._flatten(cut.tree()):
         assert t.data_ptr() == whole[path].data_ptr(), path
@@ -1034,9 +1034,10 @@ def test_sweep_phase_runs_on_the_first_layers(one_torch_thread):
 
 def test_cli_snapshots_carry_the_published_formats():
     """The run-100q and run-instruct-sweep snapshots of Falcon, BLOOM and
-    Mistral (v0.1/v0.2, v0.3) and the T5 models are written in their
-    published counterparts' tokenizer formats; the CLI phase's Falcon
-    snapshot too."""
+    Mistral (v0.1/v0.2, v0.3), the T5 models and Baichuan2 (its
+    SentencePiece ``tokenizer.model``) are written in their published
+    counterparts' tokenizer formats; the CLI phase's Falcon snapshot
+    too."""
     models = {m for m, *_ in chip_smoke.CLI_SNAPSHOTS}
     assert chip_smoke.CLI_TOKENIZERS == {
         "tiiuae/falcon-7b": "falcon", "bigscience/bloom-7b1": "bloom",
@@ -1045,7 +1046,9 @@ def test_cli_snapshots_carry_the_published_formats():
     inst = {m: f for m, _, _, f in chip_smoke.INSTRUCT_SNAPSHOTS}
     assert inst["allenai/tk-instruct-3b-def"] == "t5"
     assert inst["mistralai/Mistral-7B-Instruct-v0.3"] == "mistral_v03"
-    assert set(chip_smoke.CLI_TOKENIZERS.values()) | {"t5", "mistral_v03"} \
+    assert inst["baichuan-inc/Baichuan2-7B-Chat"] == "sp_bpe"
+    assert set(chip_smoke.CLI_TOKENIZERS.values()) | {
+        "t5", "mistral_v03", "sp_bpe", "sp_unigram"} \
         == set(chip_smoke.TOKENIZER_FORMATS)
     assert '_format_tokenizer_files("falcon", texts)' in inspect.getsource(
         chip_smoke.cli_phase)
@@ -1104,7 +1107,7 @@ def test_k_decode_phase_runs_on_the_first_layers():
     src = inspect.getsource(chip_smoke.k_decode_phase)
     assert "_first_layers(full_weights, K_DECODE_LAYERS)" in src
     assert "near_tie = NEAR_TIE_FACTOR" in src
-    assert chip_smoke.K_DECODE_LAYERS == 8
+    assert chip_smoke.K_DECODE_LAYERS == 2
     assert "fres[\"near_tie\"], card)" not in inspect.getsource(
         chip_smoke.main)
 
@@ -1126,7 +1129,7 @@ def test_vs_offline_gates_every_row_exactly():
 def test_obs_and_tokenizer_sweeps_run_on_the_first_layers():
     """The obs phase and the tokenizers phase's sweep run on views of the
     slice's first OBS_LAYERS layers (the smoke's time)."""
-    assert chip_smoke.OBS_LAYERS == 8
+    assert chip_smoke.OBS_LAYERS == 2
     assert "_first_layers(full_weights, OBS_LAYERS)" in inspect.getsource(
         chip_smoke.obs_phase)
     assert "_first_layers(weights, OBS_LAYERS)" in inspect.getsource(

@@ -26,7 +26,27 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "llm_interpretation_replication_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "llm_interpretation_replication_tpu",
              "transformers", "tokenizers", "pandas", "safetensors", "regex",
-             "sentencepiece"}
+             "sentencepiece", "google.protobuf"}
+#: modules the card's machine lacks that the port may import only where
+#: nothing on the card reaches: the figures module, and sklearn's TF-IDF
+#: inside the similarity validator's one function that uses it
+OFF_CARD = {"matplotlib": {"viz/figures.py": None},
+            "sklearn": {"stats/similarity.py": "tfidf_cosine_matrix"}}
+
+
+def _imported_names(node):
+    """The dotted module names an import statement reaches (``from a
+    import b`` reaches ``a`` and ``a.b``)."""
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        mod = node.module or ""
+        return [mod] + [f"{mod}.{a.name}" for a in node.names]
+    return []
+
+
+def _matches(name, modules):
+    return any(name == m or name.startswith(m + ".") for m in modules)
 
 
 def _port_sources():
@@ -46,15 +66,10 @@ def _forbidden_imports(path):
         tree = ast.parse(f.read(), path)
     bad = []
     for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names = [node.module or ""]
-        else:
-            continue
+        names = _imported_names(node)
         bad += [(os.path.relpath(path, ROOT), n) for n in names
-                if n.split(".")[0] in FORBIDDEN]
-    return bad
+                if _matches(n, FORBIDDEN)]
+    return sorted(set(bad))
 
 
 def test_port_imports_nothing_of_jax():
@@ -133,6 +148,18 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/gen/__init__.py",
     "llm_interpretation_replication_tpu_torch/gen/irrelevant.py",
     "llm_interpretation_replication_tpu_torch/sweeps/api_perturbation.py",
+    "llm_interpretation_replication_tpu_torch/utils/sentencepiece_model.py",
+    "llm_interpretation_replication_tpu_torch/utils/strict_json.py",
+    "llm_interpretation_replication_tpu_torch/native/__init__.py",
+    "llm_interpretation_replication_tpu_torch/stats/__init__.py",
+    "llm_interpretation_replication_tpu_torch/stats/bootstrap.py",
+    "llm_interpretation_replication_tpu_torch/stats/normality.py",
+    "llm_interpretation_replication_tpu_torch/stats/power.py",
+    "llm_interpretation_replication_tpu_torch/stats/similarity.py",
+    "llm_interpretation_replication_tpu_torch/stats/truncated.py",
+    "llm_interpretation_replication_tpu_torch/viz/__init__.py",
+    "llm_interpretation_replication_tpu_torch/viz/latex.py",
+    "llm_interpretation_replication_tpu_torch/viz/figures.py",
 ])
 def test_slice_modules_are_guarded(rel):
     """The modules the kernels, the int8 path, the pool, the slot ring,
@@ -166,6 +193,91 @@ def test_api_leg_imports_no_pandas_at_run_time():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_forbidden_imports_catch_protobuf(tmp_path):
+    """``google.protobuf`` is caught however it is imported; the rest of
+    ``google`` is not forbidden."""
+    path = tmp_path / "m.py"
+    for src, caught in (("import google.protobuf", True),
+                        ("from google.protobuf import message", True),
+                        ("from google import protobuf", True),
+                        ("import google.auth", False)):
+        path.write_text(src + "\n")
+        assert bool(_forbidden_imports(str(path))) == caught, src
+
+
+def test_off_card_modules_stay_where_nothing_on_the_card_reaches():
+    """``matplotlib`` is imported only by ``viz/figures.py`` and
+    ``sklearn`` only inside ``stats/similarity.tfidf_cosine_matrix``
+    (the card's machine has neither)."""
+    found = []
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        rel = os.path.relpath(path, PORT)
+        funcs = {}
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for node in ast.walk(fn):
+                    funcs.setdefault(id(node), fn.name)
+        for node in ast.walk(tree):
+            for name in _imported_names(node):
+                for mod, allowed in OFF_CARD.items():
+                    if not _matches(name, {mod}):
+                        continue
+                    where = funcs.get(id(node))
+                    found.append((rel, mod, where))
+                    assert rel in allowed and allowed[rel] in (None, where), \
+                        (rel, name, where)
+    assert {(r, m) for r, m, _ in found} == {
+        ("viz/figures.py", "matplotlib"), ("stats/similarity.py", "sklearn")}
+
+
+def test_host_layers_import_nothing_off_card_at_run_time():
+    """Importing the port's CLI, ``stats``, ``native``, ``viz.latex`` and
+    the SentencePiece reader loads neither matplotlib nor sklearn (nor
+    pandas, protobuf or JAX) and creates no CUDA context."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, torch\n"
+        "import llm_interpretation_replication_tpu_torch.__main__\n"
+        "import llm_interpretation_replication_tpu_torch.stats\n"
+        "import llm_interpretation_replication_tpu_torch.native\n"
+        "import llm_interpretation_replication_tpu_torch.viz.latex\n"
+        "import llm_interpretation_replication_tpu_torch.utils."
+        "sentencepiece_model\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('matplotlib', 'sklearn', 'pandas', 'jax', 'jaxlib', "
+        "'llm_interpretation_replication_tpu') or m.startswith("
+        "'google.protobuf'))\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("command", ["power-analysis", "sample-statements"])
+def test_host_command_parsers_match_reference(command):
+    """The port's ``power-analysis`` and ``sample-statements`` take the
+    reference's options with the same defaults, types and arities."""
+    import argparse
+
+    from llm_interpretation_replication_tpu import __main__ as jmain
+    from llm_interpretation_replication_tpu_torch import __main__ as tmain
+
+    def options(parser):
+        return sorted((tuple(a.option_strings), a.dest, a.default,
+                       a.required, str(a.type), a.nargs, a.const)
+                      for a in parser._actions)
+
+    got = options(_serve_parser(tmain, command, []))
+    ref = options(_serve_parser(jmain, command, []))
+    assert got == ref
+    assert len(got) == {"power-analysis": 5, "sample-statements": 4}[command]
 
 
 def test_known_phases_match_reference():
@@ -393,8 +505,8 @@ def test_copied_cost_tracker_matches_reference():
     assert got[0] == got[1]
 
 
-def _serve_parser(main_mod):
-    """The ``serve`` subparser a package's CLI builds."""
+def _serve_parser(main_mod, command="serve", argv=("--model", "m")):
+    """The ``serve`` subparser a package's CLI builds (or ``command``'s)."""
     import argparse
 
     class Built(Exception):
@@ -407,14 +519,14 @@ def _serve_parser(main_mod):
 
     argparse.ArgumentParser.parse_args = capture
     try:
-        main_mod.main(["serve", "--model", "m"])
+        main_mod.main([command, *argv])
     except Built as built:
         parser = built.args[0]
     finally:
         argparse.ArgumentParser.parse_args = real
     sub = next(a for a in parser._actions
                if isinstance(a, argparse._SubParsersAction))
-    return sub.choices["serve"]
+    return sub.choices[command]
 
 
 def test_serve_parser_options_match_reference():

@@ -468,11 +468,22 @@ def test_vocab_and_merges_match_transformers(tmp_path, add_bos):
 
 
 def test_load_tokenizer_picks_the_reader_from_the_files(tmp_path):
-    for name in ("tokenizer.model", "spiece.model"):
-        (tmp_path / name).write_bytes(b"\x0a\x00")
-        with pytest.raises(NotImplementedError, match="Snapshot tokenizers"):
-            ttok.load_tokenizer(str(tmp_path))
-        (tmp_path / name).unlink()
+    """A SentencePiece model file alone is read by the reader its model
+    type needs (Unigram as T5's conversion, BPE as Llama's), under either
+    file name; a model type the conversions do not cover refuses; no file
+    at all is an error."""
+    texts = [s["original_main"] for s in legal_scenarios()]
+    for fmt, reader in (("sp_unigram", ttok.UnigramTokenizer),
+                        ("sp_bpe", ttok.ByteLevelBPETokenizer)):
+        (name, blob), _, _ = chip_smoke._format_tokenizer_files(fmt, texts)
+        for fname in ("tokenizer.model", "spiece.model"):
+            (tmp_path / fname).write_bytes(blob)
+            assert isinstance(ttok.load_tokenizer(str(tmp_path)), reader)
+            (tmp_path / fname).unlink()
+    (tmp_path / "tokenizer.model").write_bytes(b"\x12\x02\x18\x03")  # WORD
+    with pytest.raises(NotImplementedError, match="Snapshot tokenizers"):
+        ttok.load_tokenizer(str(tmp_path))
+    (tmp_path / "tokenizer.model").unlink()
     with pytest.raises(FileNotFoundError, match="no tokenizer files"):
         ttok.load_tokenizer(str(tmp_path))
 
@@ -488,6 +499,28 @@ def smoke_format_dir(fmt, tmp_dir):
     return path
 
 
+def format_oracles(fmt, path):
+    """(the reference's tokenizer, the raw ``tokenizers`` one) of a smoke
+    format's files: the JAX loader and ``tokenizer.json``, or for a
+    SentencePiece model file (which the JAX loader needs the
+    ``sentencepiece`` library to read) ``transformers``' conversion of it
+    in its fast tokenizer class and that fast tokenizer again."""
+    from tokenizers import Tokenizer
+
+    if fmt.startswith("sp_"):
+        from test_torch_sentencepiece import converter_oracle
+
+        ref = converter_oracle(path)[0]
+        return ref, ref
+    return (jloader.load_tokenizer(path),
+            Tokenizer.from_file(os.path.join(path, "tokenizer.json")))
+
+
+def raw_ids(raw, text):
+    got = raw.encode(text)
+    return got.ids if hasattr(got, "ids") else got
+
+
 @pytest.mark.parametrize("fmt", sorted(chip_smoke.TOKENIZER_FORMATS))
 def test_smoke_format_files_match_tokenizers_and_transformers(
         fmt, tmp_path_factory):
@@ -496,19 +529,17 @@ def test_smoke_format_files_match_tokenizers_and_transformers(
     those of the ``tokenizers`` package and of the JAX loader, on the
     digest texts and the sweep's rephrasings; the reader the format
     needs; every text back from a decode (T5's: normalized)."""
-    from tokenizers import Tokenizer
-
     path = smoke_format_dir(fmt, str(tmp_path_factory.mktemp(fmt)))
     got = ttok.load_tokenizer(path)
-    ref = jloader.load_tokenizer(path)
-    raw = Tokenizer.from_file(os.path.join(path, "tokenizer.json"))
-    assert isinstance(got, ttok.UnigramTokenizer if fmt == "t5"
+    ref, raw = format_oracles(fmt, path)
+    unigram = fmt in ("t5", "sp_unigram")
+    assert isinstance(got, ttok.UnigramTokenizer if unigram
                       else ttok.ByteLevelBPETokenizer)
     rephrasings = [r for rec in chip_smoke._perturbation_records(0)
                    for r in rec["rephrasings"][:4]]
     for text in chip_smoke._tokenizer_digest_texts() + rephrasings:
         ids = got.encode(text)
-        assert ids == raw.encode(text).ids == ref(text).input_ids, repr(text)
+        assert ids == raw_ids(raw, text) == ref(text).input_ids, repr(text)
         assert got.encode(text, False) == ref(
             text, add_special_tokens=False).input_ids
         for skip in (True, False):
@@ -517,7 +548,8 @@ def test_smoke_format_files_match_tokenizers_and_transformers(
                     ids, skip_special_tokens=skip), repr(text)
     for text in rephrasings:
         back = got.decode(got.encode(text), skip_special_tokens=True)
-        assert back == (got._normalize(text) if fmt == "t5" else text)
+        assert back == (got._normalize(text).replace("▁", " ") if unigram
+                        else text)
     assert (got.pad_token_id, got.eos_token_id) == (ref.pad_token_id,
                                                     ref.eos_token_id)
 
@@ -527,14 +559,11 @@ def test_smoke_tokenizer_digests_match_the_package(fmt, tmp_path_factory):
     """The digests the tokenizers phase holds the card's reader to are
     the ``tokenizers`` package's and the JAX loader's ids on the same
     files (and the port's here)."""
-    from tokenizers import Tokenizer
-
     path = smoke_format_dir(fmt, str(tmp_path_factory.mktemp(fmt)))
     texts_ = chip_smoke._tokenizer_digest_texts()
-    raw = Tokenizer.from_file(os.path.join(path, "tokenizer.json"))
-    ref = jloader.load_tokenizer(path)
+    ref, raw = format_oracles(fmt, path)
     want = chip_smoke.TOKENIZER_DIGESTS[fmt]
-    assert chip_smoke._ids_digest(raw.encode(t).ids for t in texts_) == want
+    assert chip_smoke._ids_digest(raw_ids(raw, t) for t in texts_) == want
     assert chip_smoke._ids_digest(ref(t).input_ids for t in texts_) == want
     got = ttok.load_tokenizer(path)
     assert chip_smoke._ids_digest(got.encode(t) for t in texts_) == want

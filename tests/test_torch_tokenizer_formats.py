@@ -444,7 +444,8 @@ def test_oniguruma_translation_splits_as_the_package(pattern, behavior):
     "wordpiece", "tokenizer.model", "spiece.model", "\\G", "(?<name>x)",
     "[[:alpha:]]", "\\X", "(a)\\1", "\\k<a>", "a{2}+"])
 def test_still_refused(tmp_path, what):
-    """WordPiece, SentencePiece model files and Oniguruma constructs the
+    """WordPiece, SentencePiece model files of a type the conversions do
+    not cover (a WORD model, a CHAR one) and Oniguruma constructs the
     translation does not take raise ``NotImplementedError`` naming the
     ROADMAP item; nothing falls back to another reader."""
     if what == "wordpiece":
@@ -452,7 +453,11 @@ def test_still_refused(tmp_path, what):
             {"model": {"type": "WordPiece", "vocab": {"[UNK]": 0},
                        "unk_token": "[UNK]"}}))
     elif what.endswith(".model"):
-        (tmp_path / what).write_bytes(b"\x0a\x00")
+        # a one-piece ModelProto whose trainer spec's model_type is WORD (3)
+        # for tokenizer.model, CHAR (4) for spiece.model
+        kind = 3 if what == "tokenizer.model" else 4
+        (tmp_path / what).write_bytes(b"\x0a\x03\x0a\x01a\x12\x02\x18"
+                                      + bytes([kind]))
     else:
         spec = json.loads(json.dumps(falcon_json("isolated", False, False)))
         spec["pre_tokenizer"] = {"type": "Split", "pattern": {"Regex": what},
