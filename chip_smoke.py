@@ -7726,14 +7726,360 @@ def _matrix_digest(m):
         m, dtype=np.float64).tobytes()).hexdigest()
 
 
-def _stats_host_child(workdir):
+#: the synthetic survey of phase 22: the study's 1,003 respondents over two
+#: Qualtrics exports (the first half in survey 1), with a planted number of
+#: each preregistered exclusion (disjoint sets); one respondent has no
+#: duration, which drops out without counting as a speeder
+SURVEY_RESPONDENTS = 1003
+SURVEY_PLANTED = {"duration_excluded": 17, "identical_excluded": 9,
+                  "attention_failed": 115}
+SURVEY_NO_DURATION = 1
+#: the demographics columns of the exports (``demographics-table``'s
+#: defaults, and Age)
+SURVEY_DEMOGRAPHICS = {
+    "Sex": ["Female", "Male", "Prefer not to say"],
+    "Ethnicity simplified": ["White", "Black", "Asian", "Mixed", "Other"],
+    "Employment status": ["Full-Time", "Part-Time", "Unemployed (and job "
+                          "seeking)", "Not in paid work (e.g. homemaker, "
+                          "retired or disabled)", "Other"],
+    "Student status": ["Yes", "No"],
+}
+SURVEY_STEM = ("Please answer each question with the slider.\n"
+               "Left = No, Right = Yes")
+
+
+def _survey_columns():
+    """The substantive (Q{g}_{q}, q != 8) and attention (Q{g}_8) columns of
+    one export, in file order."""
+    return [f"Q{g}_{q}" for g in range(1, 6) for q in range(1, 12)]
+
+
+def _survey_exports(seed, out_dir, n_respondents=SURVEY_RESPONDENTS,
+                    questions=None, planted=None, no_duration=SURVEY_NO_DURATION):
+    """Two Qualtrics exports written from ``seed`` (numpy only): header row
+    0 the column ids, row 1 each column's text (``"<stem> - <question>"``,
+    the stem quoting a line break and a comma), row 2 the ImportId row,
+    then the respondents.  Export k holds questions[50k:50k+50] on its 50
+    substantive columns (``config.ordinary_meaning_questions()`` by
+    default, so the texts join run-100q's prompts exactly), an attention
+    check in each group's ``_8`` (100 passes), a duration, and the
+    demographics.  Every answer is an integer slider value: a question's
+    centre plus a respondent's lean plus noise, one answer in 100 left
+    blank.  Returns ``(paths, planted)``: the planted exclusion counts."""
+    import csv
+
+    import numpy as np
+
+    from llm_interpretation_replication_tpu_torch.config import (
+        ordinary_meaning_questions)
+
+    questions = list(questions or ordinary_meaning_questions())
+    planted = dict(planted or SURVEY_PLANTED)
+    rng = np.random.default_rng(seed)
+    n = n_respondents
+    order = rng.permutation(n)
+    cut = np.cumsum([planted["duration_excluded"], no_duration,
+                     planted["identical_excluded"],
+                     planted["attention_failed"]])
+    speeders, no_dur, identical, failing = (
+        np.isin(np.arange(n), order[a:b]) for a, b in zip([0, *cut[:-1]], cut))
+    centres = rng.beta(2.0, 2.0, len(questions)) * 100
+    lean = rng.normal(0.0, 12.0, n)
+    durations = np.where(speeders, rng.integers(10, 60, n),
+                         rng.integers(400, 2400, n))
+    noise = rng.normal(0.0, 18.0, (n, 50))
+    blank = (rng.random((n, 50)) < 0.01) & ~identical[:, None]
+    flat = rng.integers(0, 101, n)
+    bad_group = np.where(failing, rng.integers(1, 6, n), 0)
+    bad_value = rng.integers(0, 96, n)
+    ages = rng.integers(18, 80, n)
+    picks = {c: rng.integers(0, len(choices), n)
+             for c, choices in SURVEY_DEMOGRAPHICS.items()}
+    per_file = [(n + 1) // 2, n // 2]
+    sub_cols = [c for c in _survey_columns() if not c.endswith("_8")]
+    cols = ["StartDate", "Duration (in seconds)", "Finished", "ResponseId",
+            *_survey_columns(), "Age", *SURVEY_DEMOGRAPHICS]
+    paths, start = [], 0
+    os.makedirs(out_dir, exist_ok=True)
+    for k, count in enumerate(per_file):
+        text = dict(zip(sub_cols, questions[50 * k:50 * k + 50]))
+        row1 = {"StartDate": "Start Date",
+                "Duration (in seconds)": "Duration (in seconds)",
+                "Finished": "Finished", "ResponseId": "Response ID",
+                "Age": "What is your age?",
+                **{c: f"{c}?" for c in SURVEY_DEMOGRAPHICS}}
+        for c in _survey_columns():
+            row1[c] = f"{SURVEY_STEM} - " + text.get(
+                c, "Attention check: move the slider to 100.")
+        rows = [cols, [row1[c] for c in cols],
+                ['{"ImportId":"%s"}' % c for c in cols]]
+        idx = np.arange(start, start + count)
+        answers = np.clip(np.rint(centres[50 * k:50 * k + 50][None, :]
+                                  + lean[idx, None] + noise[idx]), 0, 100)
+        answers = np.where(identical[idx, None], flat[idx, None], answers)
+        for r, i in enumerate(idx):
+            row = {"StartDate": f"2024-03-{1 + i % 28:02d} 10:00:00",
+                   "Duration (in seconds)": "" if no_dur[i]
+                   else str(int(durations[i])),
+                   "Finished": "True", "ResponseId": f"R_{seed}_{i:05d}",
+                   "Age": "CONSENT_REVOKED" if i % 211 == 7 else str(ages[i])}
+            for j, c in enumerate(sub_cols):
+                row[c] = "" if blank[i, j] else str(int(answers[r, j]))
+            for g in range(1, 6):
+                row[f"Q{g}_8"] = str(int(bad_value[i])) if g == bad_group[i] \
+                    else "100"
+            for c, choices in SURVEY_DEMOGRAPHICS.items():
+                row[c] = "" if i % 97 == 3 else choices[int(picks[c][i])]
+            rows.append([row[c] for c in cols])
+        start += count
+        path = os.path.join(out_dir, f"word_meaning_survey_part_{k + 1}.csv")
+        with open(path, "w", newline="", encoding="utf-8") as f:
+            csv.writer(f, lineterminator="\n").writerows(rows)
+        paths.append(path)
+    return paths, planted
+
+
+#: phase 22's bootstrap counts for ``analyze-survey``, ``model-comparison``
+#: and ``cross-kappa`` (the CLI defaults are 1,000 and, for the
+#: cross-prompt bootstrap, 100; at 1,003 respondents the difference CI's
+#: 1,000 resamples of ~900,000 rater-pair correlations alone take ~13 s of
+#: a host core, and each cross-prompt resample ~50 ms)
+STATS_BOOTSTRAP = 20
+STATS_CROSS_PROMPT_BOOTSTRAP = 5
+#: sha256 of the survey-only numbers of phase 22 (``_survey_numbers``, floats
+#: at 12 significant digits) at ``--seed 0``: the port's on the CPU, held
+#: there to the JAX package's (tests/test_torch_survey.py)
+SURVEY_SHA256 = (
+    "f8cf5ba7a6a4f8e73fd3b745eda968159e6ea10f57448d24c1cb6b4fd967d17c")
+
+
+def _survey_numbers(results, demographics_tex):
+    """What phase 22 computes from the synthetic exports alone: the
+    exclusion counts, the human per-item agreement and the human
+    cross-prompt correlations (point estimates; their CIs depend on the
+    bootstrap counts) of ``analyze-survey``'s ``results.json``, and
+    ``demographics-table``'s LaTeX."""
+    keep = {"human_agreement": ("overall_mean", "overall_std", "n_items"),
+            "human_cross_prompt": ("mean_correlation", "std_correlation",
+                                   "n_pairs")}
+    out = {k: {f: results[k][f] for f in fields} for k, fields in keep.items()}
+    out.update(exclusions=results["exclusions"],
+               n_survey_questions=results["n_survey_questions"],
+               demographics_tex=demographics_tex)
+    return out
+
+
+def _twelve_digits(obj):
+    """Floats at 12 significant digits: the last bits of numpy's sums move
+    between numpy versions (2.0 on the CPU, 2.3 on the card's host)."""
+    if isinstance(obj, dict):
+        return {k: _twelve_digits(v) for k, v in obj.items()}
+    if isinstance(obj, float):
+        return float(f"{obj:.12g}")
+    return obj
+
+
+def _survey_digest(numbers):
+    import hashlib
+
+    return hashlib.sha256(json.dumps(_twelve_digits(numbers),
+                                     sort_keys=True).encode()).hexdigest()
+
+
+def _plain_quality(rows):
+    """model -> whether its relative probability, yes / (yes + no) with a
+    NaN quotient at 0.5 (as the analysis commands load it, so none is
+    NaN), passes the reference's gate (a spread, ddof 1, of at least 0.01
+    when more than one value), computed with numpy alone."""
+    import numpy as np
+
+    out = {}
+    for r in rows:
+        out.setdefault(r["model"], []).append((r["yes_prob"], r["no_prob"]))
+    for model, probs in out.items():
+        yes, no = np.asarray(probs, dtype=float).T
+        with np.errstate(divide="ignore", invalid="ignore"):
+            v = yes / (yes + no)
+        v[np.isnan(v)] = 0.5
+        out[model] = bool(v.size < 2 or v.std(ddof=1) >= 0.01)
+    return out
+
+
+def _latex_rows(table):
+    """The body rows of a ``tabular`` (the lines ending in ``\\\\`` but its
+    header)."""
+    body = table[table.index("\\begin{tabular}"):table.index("\\end{tabular}")]
+    rows = [line for line in body.splitlines() if line.endswith("\\\\")]
+    return rows[1:]
+
+
+def _analysis_leg(workdir, run100q_csv, instruct_csv, seed):
+    """The analysis commands on the card's host, through the port's CLI in
+    this process: ``analyze-mae-100q --latex`` (Table 5), ``analyze-100q``,
+    ``model-comparison --no-figures`` and ``cross-kappa`` on the run-100q
+    CSV, ``analyze-survey`` on the run-instruct-sweep CSV, and
+    ``demographics-table``, over two synthetic Qualtrics exports from
+    ``seed``.  Returns (result, fails)."""
+    import math
+
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+    from llm_interpretation_replication_tpu_torch.survey import MODEL_FAMILIES
+    from llm_interpretation_replication_tpu_torch.utils import frame
+
+    fails, seconds = [], {}
+    t = time.perf_counter()
+    (s1, s2), planted = _survey_exports(seed, os.path.join(workdir, "survey"))
+    seconds["survey_exports"] = time.perf_counter() - t
+    out = os.path.join(workdir, "analysis")
+    os.makedirs(out, exist_ok=True)
+
+    def run(name, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        seconds[name] = time.perf_counter() - t0
+        return buf.getvalue()
+
+    def finite(*xs):
+        return all(isinstance(x, (int, float)) and math.isfinite(x) for x in xs)
+
+    models = frame.unique(frame.column(frame.read_csv(run100q_csv)[1], "model"))
+    shared = [f for f, pair in MODEL_FAMILIES.items()
+              if pair["base"] in models and pair["instruct"] in models]
+    respondents = (SURVEY_RESPONDENTS - sum(planted.values())
+                   - SURVEY_NO_DURATION)
+
+    # Table 5
+    mae_json = os.path.join(out, "mae_100q.json")
+    printed = run("analyze_mae_100q", [
+        "analyze-mae-100q", "--results", run100q_csv, "--survey1-csv", s1,
+        "--survey2-csv", s2, "--latex", "--output-json", mae_json])
+    with open(mae_json) as f:
+        mae = json.load(f)
+    end = "\\end{tabular}"
+    table = printed[printed.index("\\begin{tabular}"):
+                    printed.index(end) + len(end)]
+    if mae["meta"]["respondents"] != respondents or \
+            mae["meta"]["matched_prompts"] != 100 or \
+            f"Respondents after exclusions: {respondents}" not in printed or \
+            "Matched prompts: 100" not in printed:
+        fails.append(f"analyze-mae-100q: {mae['meta']}")
+    # a family is analysed unless one of its models fails the reference's
+    # data-quality gate (a spread under 0.01 on random weights), checked
+    # here on the CSV's probabilities with numpy alone
+    plain = _plain_quality(frame.read_csv(run100q_csv)[1])
+    families = {f: mae["families"].get(f, {}) for f in shared}
+    expect_ok = {f: plain[MODEL_FAMILIES[f]["base"]] and
+                 plain[MODEL_FAMILIES[f]["instruct"]] for f in shared}
+    keys = ("base_mae", "instruct_mae", "observed_diff", "ci_lower",
+            "ci_upper", "p_value")
+    bad = [f for f, rec in families.items()
+           if rec.get("excluded", True) == expect_ok[f]
+           or (expect_ok[f] and not finite(*(rec.get(k) for k in keys)))]
+    if not shared or bad or not any(expect_ok.values()):
+        fails.append(f"analyze-mae-100q: families {bad} of {shared} "
+                     f"(plain gate {expect_ok})")
+    if len(_latex_rows(table)) != len(MODEL_FAMILIES):
+        fails.append(f"analyze-mae-100q: {len(_latex_rows(table))} table rows")
+
+    # the instruct - base bootstrap per family
+    q_json = os.path.join(out, "100q.json")
+    run("analyze_100q", ["analyze-100q", "--results", run100q_csv,
+                         "--output-json", q_json])
+    with open(q_json) as f:
+        per_family = json.load(f)
+    if not per_family or any(rec.get("skipped") or not finite(
+            rec.get("ci_lower"), rec.get("ci_upper")) or rec.get("n") != 100
+            for rec in per_family.values()):
+        fails.append(f"analyze-100q: {per_family}")
+
+    # inter-model correlations and agreement
+    cmp_dir = os.path.join(out, "model_comparison")
+    printed_cmp = run("model_comparison", [
+        "model-comparison", "--results", run100q_csv, "--output-dir",
+        cmp_dir, "--bootstrap", str(STATS_BOOTSTRAP), "--no-figures"])
+    pairs = frame.read_csv(os.path.join(cmp_dir, "pairwise_correlations.csv"))[1]
+    with open(os.path.join(cmp_dir, "correlation_summary.json")) as f:
+        summary = json.load(f)
+    n_models = len(models)
+    if len(pairs) != n_models * (n_models - 1) // 2 or \
+            not finite(summary["summary"]["mean"]):
+        fails.append(f"model-comparison: {len(pairs)} pairs, "
+                     f"{summary['summary']}")
+    kappa_json = os.path.join(out, "kappa.json")
+    run("cross_kappa", ["cross-kappa", "--results", run100q_csv,
+                        "--bootstrap", str(STATS_BOOTSTRAP),
+                        "--output-json", kappa_json])
+    with open(kappa_json) as f:
+        kappa = json.load(f)
+    if kappa["n_frames"] != 1 or kappa["n_pairs"] != len(pairs) or \
+            not finite(kappa["mean_kappa"]):
+        fails.append(f"cross-kappa: {dict(kappa, pairs=len(kappa['pairs']))}")
+
+    # the consolidated survey analysis
+    survey_dir = os.path.join(out, "survey")
+    run("analyze_survey", [
+        "analyze-survey", "--survey1-csv", s1, "--survey2-csv", s2,
+        "--llm-csv", instruct_csv, "--output-dir", survey_dir,
+        "--bootstrap", str(STATS_BOOTSTRAP), "--cross-prompt-bootstrap",
+        str(STATS_CROSS_PROMPT_BOOTSTRAP)])
+    with open(os.path.join(survey_dir, "results.json")) as f:
+        results = json.load(f)
+    excl = results["exclusions"]
+    if any(excl[k] != n for k, n in planted.items()) or \
+            excl["final_count"] != respondents or results["n_matched"] != 100 \
+            or not finite(results["human_cross_prompt"]["mean_correlation"]):
+        fails.append(f"analyze-survey: exclusions {excl}, matched "
+                     f"{results['n_matched']}")
+    tex = os.path.join(out, "demographics.tex")
+    run("demographics_table", ["demographics-table", "--csv", s1, "--csv", s2,
+                               "--output", tex])
+    with open(tex) as f:
+        demographics = f.read()
+    digest = _survey_digest(_survey_numbers(results, demographics))
+    pinned = SURVEY_SHA256 if seed == 0 else None
+    if pinned is not None and digest != pinned:
+        fails.append(f"survey numbers: sha256 {digest}, pinned {pinned}")
+    table5 = {f: {k: rec[k] for k in ("base_mae", "instruct_mae",
+                                      "observed_diff", "ci_lower", "ci_upper",
+                                      "p_value", "n", "excluded", "reason")
+                  if k in rec}
+              for f, rec in mae["families"].items()}
+    res = dict(respondents=respondents, planted=planted, shared=shared,
+               table5=table5, table5_tex=table, latex_rows=len(
+                   _latex_rows(table)), per_family_100q=per_family,
+               model_pairs=len(pairs), correlation_mean=summary["summary"][
+                   "mean"], kappa=kappa["mean_kappa"], kappa_pairs=kappa[
+                   "n_pairs"], survey=dict(
+                   matched=results["n_matched"],
+                   human_cross_prompt=results["human_cross_prompt"][
+                       "mean_correlation"],
+                   llm_cross_prompt=results["llm_cross_prompt"][
+                       "mean_correlation"],
+                   human_llm=(results["human_llm_correlation"] or {}).get(
+                       "correlation")),
+               survey_sha256=digest, survey_sha256_pinned=pinned,
+               survey_numbers=_survey_numbers(results, demographics),
+               plain_quality=plain,
+               seconds=seconds, model_comparison=printed_cmp.splitlines()[:3])
+    return res, fails
+
+
+def _stats_host_child(workdir, run100q_csv=None, instruct_csv=None, seed=0,
+                      launched=None):
     """The statistics layer on the card's host, in a process of its own:
     the native Levenshtein built and loaded (``using_native()``), held
     against the plain version on STATS_PLAIN_PAIRS pairs; the BM25 and
     Levenshtein similarity matrices over ``_similarity_texts()``;
     ``power-analysis`` at its defaults and ``sample-statements`` through
-    the port's CLI.  Prints one JSON line; the process must end without a
-    CUDA context and without pandas, matplotlib or sklearn."""
+    the port's CLI; then, given the run-100q and run-instruct-sweep CSVs,
+    the analysis commands over them and a synthetic survey from ``seed``
+    (:func:`_analysis_leg`).  Prints one JSON line; the process must end
+    without a CUDA context and without pandas, matplotlib, sklearn,
+    sentence-transformers or JAX.  ``launched`` (the parent's ``time.time()``
+    at the launch) times the process's start and imports."""
+    entered = time.time()
     import hashlib
 
     import numpy as np
@@ -7745,7 +8091,9 @@ def _stats_host_child(workdir):
         bm25_similarity_matrix, levenshtein_similarity_matrix)
 
     t0 = time.perf_counter()
-    fails, seconds = [], {}
+    fails, seconds = [], {"imports": time.time() - entered}
+    if launched is not None:
+        seconds["start"] = entered - launched
 
     t = time.perf_counter()
     built = native.using_native()
@@ -7807,32 +8155,53 @@ def _stats_host_child(workdir):
         digest = hashlib.sha256(f.read()).hexdigest()
     if digest != SAMPLE_STATEMENTS_SHA256:
         fails.append(f"sample-statements: sha256 {digest}")
+    analysis = None
+    if run100q_csv:
+        t = time.perf_counter()
+        analysis, analysis_fails = _analysis_leg(workdir, run100q_csv,
+                                                 instruct_csv, seed)
+        seconds["analysis"] = time.perf_counter() - t
+        fails += analysis_fails
     print(json.dumps(dict(
         using_native=built, native_plain_pairs=len(pairs), texts=len(texts),
         matrices=matrices, power=power, sample_statements_sha256=digest,
-        seconds=seconds, fails=fails,
+        analysis=analysis, seconds=seconds, fails=fails,
         cuda_initialized=torch.cuda.is_initialized(),
-        imported=sorted(m for m in ("pandas", "matplotlib", "sklearn")
-                        if m in sys.modules),
+        imported=sorted(m for m in sys.modules if m.split(".")[0] in (
+            "pandas", "matplotlib", "sklearn", "sentence_transformers", "jax",
+            "jaxlib", "llm_interpretation_replication_tpu")),
         total_s=time.perf_counter() - t0)))
 
 
-def stats_phase(workdir, card):
+def stats_phase(seed, workdir, card):
     """Phase 22: :func:`_stats_host_child` in a child process, in a
-    directory of its own under ``workdir``; its JSON line, checked."""
+    directory of its own under ``workdir``, over the run-100q and
+    run-instruct-sweep phases' CSVs there; its JSON line, checked, and
+    Table 5 printed."""
     here = os.path.dirname(os.path.abspath(__file__))
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
-            "chip_smoke._stats_host_child(sys.argv[2])")
+            "chip_smoke._stats_host_child(sys.argv[2], sys.argv[3], "
+            "sys.argv[4], int(sys.argv[5]), float(sys.argv[6]))")
     own = tempfile.mkdtemp(prefix="stats_", dir=workdir)
+    sweeps = [os.path.join(workdir, "run100q",
+                           "base_vs_instruct_100q_results.csv"),
+              os.path.join(workdir, "instruct",
+                           "instruct_model_comparison_results.csv")]
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", code, here, own],
+    proc = subprocess.run([sys.executable, "-c", code, here, own, *sweeps,
+                           str(seed), repr(time.time())],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode:
         raise AssertionError(f"stats phase exited {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     res.update(seconds_with_start=time.perf_counter() - t0, card=card)
+    table5 = res["analysis"].pop("table5_tex")
     say("stats", json.dumps(res))
+    say("stats: Table 5 from run-100q's CSV and the synthetic survey "
+        f"({res['analysis']['respondents']} respondents after exclusions)")
+    for line in table5.splitlines():
+        say(line)
     fails = list(res["fails"])
     if not res["using_native"]:
         fails.append("the native Levenshtein did not load")
@@ -7841,8 +8210,8 @@ def stats_phase(workdir, card):
     if res["imported"]:
         fails.append(f"the statistics layer imported {res['imported']}")
     if res["seconds_with_start"] > STATS_BUDGET_S:
-        say(f"stats: {res['seconds_with_start']:.1f} s, past its "
-            f"{STATS_BUDGET_S:.0f} s budget")
+        fails.append(f"stats: {res['seconds_with_start']:.1f} s, past its "
+                     f"{STATS_BUDGET_S:.0f} s budget")
     if fails:
         raise AssertionError("stats: " + "; ".join(fails))
     return res
@@ -7911,7 +8280,6 @@ def main(argv=None):
         svcli = timed("serve_cli", serve_cli_phase, attention, workdir, card)
         apres = timed("api", api_phase, args.seed, attention, weights,
                       workdir, card)
-        stres = timed("stats", stats_phase, workdir, card)
         del weights
         torch.cuda.empty_cache()
         fam = timed("families", families_phase, args.seed, attention, card)
@@ -7921,6 +8289,8 @@ def main(argv=None):
                      workdir, card)
         ires_cli = timed("run_instruct_sweep", instruct_cli_phase, args.seed,
                          workdir, card)
+        # the analysis commands over the two sweeps' CSVs (host only)
+        stres = timed("stats", stats_phase, args.seed, workdir, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

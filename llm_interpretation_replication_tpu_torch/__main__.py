@@ -15,6 +15,9 @@
         --perturbations perturbations.json --model gpt-4.1
     python -m llm_interpretation_replication_tpu_torch power-analysis
     python -m llm_interpretation_replication_tpu_torch sample-statements
+    python -m llm_interpretation_replication_tpu_torch analyze-mae-100q \
+        --results results/base_vs_instruct_100q_results.csv \
+        --survey1-csv S1.csv --survey2-csv S2.csv --latex
 
 ``run-perturbation`` loads a local HF snapshot (``config.json``, weights as
 safetensors or ``pytorch_model.bin``, a byte-level BPE ``tokenizer.json``)
@@ -56,8 +59,14 @@ rewrites a corrupted batch-response JSONL.  The vendor keys come from
 ``power-analysis`` writes the sample-size report
 (``<output-dir>/power_analysis_report.tex``) from the pilot MAEs, and
 ``sample-statements`` a seeded LaTeX sample of the irrelevant statements;
-both run on the host alone.  These are copies of the reference CLI's
-commands.
+both run on the host alone.  So do the fourteen analysis commands, on row
+dicts (``utils/frame.py``) in place of pandas: ``analyze-survey``,
+``analyze-combined``, ``demographics-table``, ``analyze-perturbations``,
+``similarity``, ``analyze-100q``, ``analyze-mae-100q`` (paper Table 5),
+``extract-survey2-questions``, ``analyze-3way``, ``analyze-agreement``,
+``analyze-family-differences``, ``ground-truth-figure``,
+``model-comparison`` and ``cross-kappa``; their figures need matplotlib.
+These are copies of the reference CLI's commands.
 Each takes ``--strict`` (the sync guard of ``runtime/strict.py``),
 ``--trace [PATH]`` (span tracing: a JSONL span log streamed to
 ``PATH.spans.jsonl`` and a Chrome trace written to PATH at exit),
@@ -597,6 +606,429 @@ def cmd_power_analysis(args):
     print(f"wrote {tex}")
 
 
+def _write_json(obj, path):
+    """Shared artifact writer: parent dir, utf-8, indent-2, strict JSON
+    (non-finite floats become null — utils/strict_json)."""
+    from .utils.strict_json import dump_strict
+
+    dump_strict(obj, path)
+    print(f"wrote {path}")
+
+
+def _read_workbook(path):
+    """A workbook's rows typed as the JAX package's ``read_xlsx`` frame."""
+    from .utils import frame
+    from .utils.xlsx import read_xlsx
+
+    columns, rows = read_xlsx(path)
+    return frame.records(rows, columns)[1]
+
+
+def cmd_analyze_survey(args):
+    from .survey.pipeline import run_consolidated_analysis
+
+    run_consolidated_analysis(
+        [args.survey1_csv, args.survey2_csv], args.llm_csv, args.output_dir,
+        n_bootstrap=args.bootstrap, cross_prompt_bootstrap=args.cross_prompt_bootstrap,
+    )
+
+
+def cmd_analyze_combined(args):
+    from .analysis.combined_confidence import run_combined_analysis
+    from .utils import frame
+
+    frames = {}
+    for spec in args.workbook:
+        name, sep, path = spec.partition("=")
+        if not sep or not name or not path:
+            raise SystemExit(f"--workbook expects NAME=PATH, got {spec!r}")
+        if name in frames:
+            raise SystemExit(f"duplicate workbook name {name!r}")
+        frames[name] = _read_workbook(path)
+    out = run_combined_analysis(frames, args.output_dir)
+    print(frame.to_string(*frame.records(out["stats"]), index=False))
+
+
+def cmd_demographics(args):
+    from .survey.demographics import (
+        demographics_latex_table,
+        load_demographics,
+        summarize_age,
+    )
+
+    df = load_demographics(list(args.csv))
+    columns = args.column or ["Sex", "Ethnicity simplified", "Employment status",
+                              "Student status"]
+    tex = demographics_latex_table(df, columns)
+    age = summarize_age(df)
+    age_block = (
+        "\n% Age summary (reference generate_demographics_table.py:115-120)\n"
+        f"% n={age['n']} mean={age['mean']:.1f} median={age['median']:.0f} "
+        f"range {age['min']:.0f}-{age['max']:.0f}\n"
+    )
+    tex = tex + age_block
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(tex)
+        print(f"wrote {args.output}")
+    else:
+        print(tex)
+
+
+def cmd_analyze_perturbations(args):
+    from .analysis import analyze_workbook
+    from .config import legal_scenarios
+
+    df = _read_workbook(args.workbook)
+    out = analyze_workbook(df, legal_scenarios(), args.output_dir,
+                           n_simulations=args.simulations)
+    print(json.dumps({m: len(r["scenarios"]) for m, r in out.items()}, indent=2))
+
+
+def cmd_similarity(args):
+    from .analysis import similarity_report
+    from .analysis.similarity_report import load_embedding_model
+    from .config import legal_scenarios
+    from .gen.rephrase import load_perturbations
+    from .utils import frame
+
+    embedding_model = None
+    if args.embeddings:
+        # gated exactly like the reference: absent package / unloadable
+        # model degrades to the lexical metrics with a warning
+        embedding_model = load_embedding_model(args.embedding_model)
+    records = load_perturbations(args.perturbations, expected_scenarios=legal_scenarios())
+    summary = similarity_report(records, args.output_dir,
+                                max_rephrasings=args.max_rephrasings,
+                                embedding_model=embedding_model)
+    print(frame.to_string(*frame.records(summary), index=False))
+
+
+def _mae_100q_families(results_csv, survey_csvs):
+    """Shared Table-5 machinery: survey loading + exclusions + human means
+    (0-1) + question matching + per-family paired bootstrap
+    (analyze_base_vs_instruct_mae_100q.py:421-560)."""
+    from .survey import (
+        analyze_families,
+        apply_exclusion_criteria,
+        human_responses_by_question,
+        load_and_clean_survey_data,
+        match_survey_to_llm_questions,
+    )
+
+    df, cols = load_and_clean_survey_data(survey_csvs)
+    df, excl = apply_exclusion_criteria(df, cols)
+    model_df = _load_llm_csv(results_csv)
+    matches, _ = match_survey_to_llm_questions(model_df, survey_csvs)
+    human = human_responses_by_question(df, cols)
+    human_avgs = {q: s["mean"] / 100.0 for q, s in human.items()}  # 0-100 → 0-1
+    families = analyze_families(model_df, human_avgs, matches)
+    meta = {
+        "respondents": int(excl["final_count"]),
+        "questions_with_humans": len(human_avgs),
+        "matched_prompts": len(matches),
+        "model_rows": len(model_df),
+    }
+    return families, meta
+
+
+def cmd_analyze_100q(args):
+    from .stats.bootstrap import base_vs_instruct_analysis
+    from .utils import frame
+
+    _, df = frame.read_csv(args.results)
+    out = base_vs_instruct_analysis(df)
+    print(json.dumps(out, indent=2, default=float))
+    if args.output_json:
+        _write_json(out, args.output_json)
+    if args.latex:
+        # Table 5 needs human survey means — delegate to the real machinery
+        # (the old mapping printed NaN MAE columns from bootstrap-only keys)
+        if not args.survey1_csv:
+            raise SystemExit(
+                "--latex emits paper Table 5 (MAE vs human means): pass "
+                "--survey1-csv/--survey2-csv, or use the analyze-mae-100q "
+                "subcommand"
+            )
+        from .viz.latex import base_vs_instruct_table
+
+        surveys = [args.survey1_csv] + (
+            [args.survey2_csv] if args.survey2_csv else []
+        )
+        families, _ = _mae_100q_families(args.results, surveys)
+        print(base_vs_instruct_table(families))
+
+
+def cmd_analyze_mae_100q(args):
+    """Paper Table 5 end-to-end: per-family base→instruct MAE vs human means
+    with paired bootstrap — analyze_base_vs_instruct_mae_100q.py's main."""
+    from .viz.latex import base_vs_instruct_table
+
+    surveys = [args.survey1_csv] + ([args.survey2_csv] if args.survey2_csv else [])
+    families, meta = _mae_100q_families(args.results, surveys)
+    print(f"Respondents after exclusions: {meta['respondents']}")
+    print(f"Questions with human responses: {meta['questions_with_humans']}")
+    print(f"Matched prompts: {meta['matched_prompts']}")
+    for fam, rec in families.items():
+        if fam.startswith("_"):
+            continue
+        if rec.get("excluded"):
+            print(f"{fam}: excluded ({rec.get('reason', '')})")
+            continue
+        print(
+            f"{fam}: base {rec['base_mae']:.3f} -> instruct "
+            f"{rec['instruct_mae']:.3f}  diff {rec['observed_diff']:+.3f} "
+            f"[{rec['ci_lower']:+.3f}, {rec['ci_upper']:+.3f}] "
+            f"p={rec['p_value']:.4f} (n={rec['n']})"
+        )
+    overall = families.get("_overall")
+    if overall:
+        print(
+            f"Overall: base {overall['base_mae']:.3f} -> instruct "
+            f"{overall['instruct_mae']:.3f}  diff {overall['observed_diff']:+.3f} "
+            f"[{overall['ci_lower']:+.3f}, {overall['ci_upper']:+.3f}] "
+            f"p={overall['p_value']:.4f}"
+        )
+    if args.latex or args.output_tex:
+        table = base_vs_instruct_table(families)
+        if args.output_tex:
+            with open(args.output_tex, "w", encoding="utf-8") as f:
+                f.write(table + "\n")
+            print(f"wrote {args.output_tex}")
+        if args.latex:
+            print(table)
+    if args.output_json:
+        _write_json({"families": families, "meta": meta}, args.output_json)
+
+
+def cmd_extract_survey2(args):
+    """Pull the part-2 questions out of the Qualtrics headers
+    (analysis/extract_survey2_questions.py:9-82)."""
+    from .analysis.questions import extract_survey2_questions
+
+    questions, _ = extract_survey2_questions(args.survey_csv)
+    if getattr(args, "ascii_quotes", False):
+        table = str.maketrans({"“": '"', "”": '"',
+                               "‘": "'", "’": "'"})
+        questions = [q.translate(table) for q in questions]
+    parent = os.path.dirname(os.path.abspath(args.output))
+    os.makedirs(parent, exist_ok=True)
+    with open(args.output, "w", encoding="utf-8") as f:
+        f.write("\n".join(questions) + "\n")
+    print(f"wrote {len(questions)} questions -> {args.output}")
+
+
+def _load_llm_csv(path):
+    """Model-results rows with relative_prob guaranteed: recomputed from the
+    raw probs when yes/no columns exist, a NaN quotient (both zero, or a
+    missing probability) at 0.5 (analyze_base_vs_instruct_mae_100q.py:212-222)."""
+    import numpy as np
+
+    from .utils import frame
+
+    columns, rows = frame.read_csv(path)
+    if {"yes_prob", "no_prob"}.issubset(columns):
+        yes = np.asarray(frame.column(rows, "yes_prob"), dtype=float)
+        no = np.asarray(frame.column(rows, "no_prob"), dtype=float)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            rel = yes / (yes + no)
+        for r, v in zip(rows, np.where(np.isnan(rel), 0.5, rel)):
+            r["relative_prob"] = float(v)
+    return rows
+
+
+def _load_clean_survey(survey_csvs):
+    from .survey import apply_exclusion_criteria, load_and_clean_survey_data
+    from .survey.pipeline import extract_question_text
+
+    df, cols = load_and_clean_survey_data(survey_csvs)
+    df, excl = apply_exclusion_criteria(df, cols)
+    mapping = extract_question_text(survey_csvs)
+    return df, cols, mapping, excl
+
+
+def cmd_analyze_3way(args):
+    """Base-vs-instruct-vs-human 3-way comparison
+    (analyze_base_vs_instruct_vs_human.py as a subcommand)."""
+    from .survey import three_way_report
+    from .utils import frame
+
+    surveys = [args.survey1_csv] + ([args.survey2_csv] if args.survey2_csv else [])
+    survey_df, cols, mapping, _ = _load_clean_survey(surveys)
+    llm_df = _load_llm_csv(args.llm_csv)
+    out = three_way_report(llm_df, survey_df, cols, mapping, args.output_dir,
+                           make_figures=not args.no_figures)
+    print(f"Loaded human data for {out['human_questions']} questions")
+    print("Model correlations with human responses:")
+    print(frame.to_string(*frame.records(out["correlations"])))
+    print(f"Found {len(out['invalid_responses'])} invalid responses "
+          f"(not containing Yes/No)")
+    for row in out["distribution_stats"]:
+        line = (f"{row['model']}: mean {row['mean']:.3f}, std {row['std']:.3f}, "
+                f"range [{row['min']:.3f}, {row['max']:.3f}]")
+        if row["warning"]:
+            line += f"  WARNING: {row['warning']}"
+        print(line)
+    print(f"wrote {out['correlations_csv']}")
+    if out.get("figure"):
+        print(f"figure: {out['figure']}")
+
+
+def cmd_analyze_agreement(args):
+    """Point-estimate + question-bootstrap LLM/human agreement reports
+    (analyze_llm_human_agreement.py + analyze_llm_agreement_simple_bootstrap.py
+    as one subcommand; both reference JSON shapes)."""
+    from .survey.variants import (
+        agreement_question_bootstrap,
+        human_agreement_means,
+        human_agreement_report,
+        save_agreement_json,
+    )
+    from .utils import frame
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    instruct_df = _load_llm_csv(args.llm_csv)
+    base_df = frame.read_csv(args.base_csv)[1] if args.base_csv else None
+    means = human_agreement_means([args.survey_csv], instruct_df)
+    print(f"Loaded human average ratings for {len(means)} questions")
+
+    point = human_agreement_report(instruct_df, base_df, means)
+    point_path = os.path.join(args.output_dir, "llm_human_agreement_analysis.json")
+    save_agreement_json({k: v for k, v in point.items() if k != "detailed"},
+                        point_path)
+    print(f"{'Model':<45} {'Type':<9} {'MAE':<8} {'RMSE':<8} {'Pearson r':<10}")
+    for r in point["model_results"]:
+        print(f"{r['model']:<45} {r['model_type']:<9} {r['mae']:<8.4f} "
+              f"{r['rmse']:<8.4f} {r['pearson_r']:<10.4f}")
+
+    boot = agreement_question_bootstrap(
+        instruct_df, base_df, means,
+        n_bootstrap=args.bootstrap, seed=args.seed,
+    )
+    boot_path = os.path.join(args.output_dir, "llm_human_agreement_bootstrap.json")
+    save_agreement_json(boot, boot_path)
+    for metric, rec in boot["overall_comparison"]["metrics"].items():
+        print(f"{metric.upper()}: base {rec['base_mean']:.4f} vs instruct "
+              f"{rec['instruct_mean']:.4f}, diff {rec['difference']:+.4f} "
+              f"[{rec['difference_ci'][0]:+.4f}, {rec['difference_ci'][1]:+.4f}], "
+              f"p = {rec['p_value']:.4f}")
+    print(f"wrote {point_path}")
+    print(f"wrote {boot_path}")
+
+
+def cmd_analyze_family_differences(args):
+    """Respondent-level agreement bootstrap + per-family MAE/MSE/MAPE
+    differences (analyze_llm_human_agreement_bootstrap.py +
+    analyze_model_family_differences.py)."""
+    from .survey import (
+        agreement_bootstrap,
+        family_differences,
+        family_differences_text,
+    )
+    from .survey.variants import save_agreement_json
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    agreement_path = os.path.join(args.output_dir,
+                                  "llm_human_agreement_bootstrap.json")
+    if args.agreement_json:
+        with open(args.agreement_json) as f:
+            agreement = json.load(f)
+    else:
+        if not (args.llm_csv and args.survey1_csv):
+            raise SystemExit(
+                "pass --llm-csv and --survey1-csv, or --agreement-json"
+            )
+        surveys = [args.survey1_csv] + (
+            [args.survey2_csv] if args.survey2_csv else []
+        )
+        survey_df, cols, mapping, _ = _load_clean_survey(surveys)
+        llm_df = _load_llm_csv(args.llm_csv)
+        agreement = agreement_bootstrap(
+            llm_df, survey_df, cols, mapping,
+            n_bootstrap=args.bootstrap,
+        )
+        save_agreement_json(agreement, agreement_path)
+        print(f"wrote {agreement_path}")
+    records = family_differences(agreement)
+    text = family_differences_text(records)
+    print(text)
+    report_path = os.path.join(args.output_dir, "family_differences.txt")
+    with open(report_path, "w", encoding="utf-8") as f:
+        f.write(text)
+    print(f"wrote {report_path}")
+
+
+def cmd_ground_truth_figure(args):
+    """Ground-truth distribution figures
+    (visualize_ground_truth_distribution.py)."""
+    from .survey import ground_truth_figures, ground_truth_values
+
+    surveys = [args.survey1_csv] + ([args.survey2_csv] if args.survey2_csv else [])
+    survey_df, cols, _, _ = _load_clean_survey(surveys)
+    values = ground_truth_values(survey_df, cols)
+    if not values.size:
+        raise SystemExit("no human ground-truth values found")
+    out = ground_truth_figures(values, args.output_dir)
+    print(f"Loaded {out['n']} human ground truth values")
+    print(f"Mean: {out['mean']:.3f} ({out['mean'] * 100:.1f}%)")
+    print(f"Std:  {out['std']:.3f} ({out['std'] * 100:.1f}%)")
+    print(f"figures: {out['two_panel']}, {out['simple']}")
+
+
+def cmd_model_comparison(args):
+    """Inter-model correlation engine as a runnable leg
+    (model_comparison_graph.py:389-494): pairwise Pearson/Spearman, bootstrap
+    summary, pairwise+aggregate kappa, heatmap/distribution/strip figures."""
+    from .analysis import model_comparison_report
+    from .utils import frame
+
+    _, df = frame.read_csv(args.results)
+    reference_model = args.reference_model
+    if reference_model is None:
+        # reference default: a Baichuan model anchors the strip plot when
+        # present (model_comparison_graph.py:59-79)
+        baichuan = [m for m in frame.unique(frame.column(df, "model"))
+                    if "baichuan" in m.lower()]
+        reference_model = baichuan[0] if baichuan else None
+    report = model_comparison_report(
+        df, args.output_dir, n_bootstrap=args.bootstrap,
+        reference_model=reference_model, make_figures=not args.no_figures,
+    )
+    s = report["summary"]
+    print(f"{len(report['pairwise'])} model pairs")
+    print(f"mean correlation {s['mean']:.3f} "
+          f"[{s['mean_ci'][0]:.3f}, {s['mean_ci'][1]:.3f}], "
+          f"median {s['median']:.3f}, std {s['std']:.3f}")
+    print(f"mean kappa {report['kappa']['mean_kappa']:.3f}")
+    for key in ("heatmap", "distribution", "difference_strip"):
+        if report.get(key):
+            print(f"figure: {report[key]}")
+    print(f"wrote {args.output_dir}/pairwise_correlations.csv, "
+          f"correlation_summary.json")
+
+
+def cmd_cross_kappa(args):
+    """Cross-experiment Cohen's kappa (calculate_cohens_kappa.py): merge
+    result frames from multiple experiments, binarize at the threshold, and
+    bootstrap the aggregate agreement."""
+    from .analysis import cross_experiment_kappa
+    from .utils import frame
+
+    frames = [frame.read_csv(path)[1] for path in args.results]
+    kappa = cross_experiment_kappa(
+        frames, threshold=args.threshold, n_bootstrap=args.bootstrap,
+    )
+    out = {
+        "n_frames": len(frames),
+        "mean_kappa": kappa["mean_kappa"],
+        "mean_kappa_ci": kappa["mean_kappa_ci"],
+        "n_pairs": len(kappa["pairs"]),
+    }
+    print(json.dumps(out, indent=2, default=float))
+    if args.output_json:
+        _write_json({**out, "pairs": kappa["pairs"]}, args.output_json)
+
+
 def cmd_obs(args):
     """``obs report`` / ``obs bench-diff``: the phase-attribution table
     over a saved span trace, and the bench-trajectory regression analyzer
@@ -771,6 +1203,152 @@ def main(argv=None):
     p.add_argument("--responses", required=True, help="corrupted response JSONL")
     p.add_argument("--output", required=True)
     p.set_defaults(fn=cmd_repair_batch)
+
+    p = sub.add_parser("analyze-survey",
+                       help="consolidated human-vs-LLM survey analysis")
+    p.add_argument("--survey1-csv", required=True)
+    p.add_argument("--survey2-csv", required=True)
+    p.add_argument("--llm-csv", required=True,
+                   help="instruct_model_comparison_results_combined.csv")
+    p.add_argument("--output-dir", default="results/survey_analysis")
+    p.add_argument("--bootstrap", type=int, default=1000)
+    p.add_argument("--cross-prompt-bootstrap", type=int, default=100)
+    p.set_defaults(fn=cmd_analyze_survey)
+
+    p = sub.add_parser("analyze-combined",
+                       help="three-model confidence combiner over sweep workbooks")
+    p.add_argument("--workbook", action="append", required=True,
+                   metavar="NAME=PATH", help="repeat per model")
+    p.add_argument("--output-dir", default="results/combined_analysis")
+    p.set_defaults(fn=cmd_analyze_combined)
+
+    p = sub.add_parser("demographics-table",
+                       help="Prolific demographics LaTeX table")
+    p.add_argument("--csv", action="append", required=True)
+    p.add_argument("--column", action="append", default=None,
+                   help="repeat per categorical column (default: Sex, "
+                        "Ethnicity simplified, Employment status, Student "
+                        "status; an Age summary comment is always appended)")
+    p.add_argument("--output", default=None)
+    p.set_defaults(fn=cmd_demographics)
+
+    p = sub.add_parser("analyze-perturbations", help="statistics over a sweep workbook")
+    p.add_argument("--workbook", required=True)
+    p.add_argument("--output-dir", default="results/perturbation_analysis")
+    p.add_argument("--simulations", type=int, default=100_000)
+    p.set_defaults(fn=cmd_analyze_perturbations)
+
+    p = sub.add_parser("similarity", help="rephrasing similarity validation")
+    p.add_argument("--perturbations", required=True)
+    p.add_argument("--output-dir", default="results/prompt_similarity")
+    p.add_argument("--max-rephrasings", type=int, default=None)
+    p.add_argument("--embeddings", action="store_true",
+                   help="add the sentence-transformer embedding-cosine "
+                        "column (calculate_prompt_similarity.py:98-207); "
+                        "degrades with a warning when the package or model "
+                        "is unavailable")
+    p.add_argument("--embedding-model", default="all-MiniLM-L6-v2",
+                   help="sentence-transformers model name (reference default)")
+    p.set_defaults(fn=cmd_similarity)
+
+    p = sub.add_parser("analyze-100q", help="instruct-base bootstrap over 100q results")
+    p.add_argument("--results", required=True)
+    p.add_argument("--latex", action="store_true",
+                   help="also emit paper Table 5 (needs --survey1-csv)")
+    p.add_argument("--survey1-csv", default=None)
+    p.add_argument("--survey2-csv", default=None)
+    p.add_argument("--output-json", default=None,
+                   help="also write the analysis records here")
+    p.set_defaults(fn=cmd_analyze_100q)
+
+    p = sub.add_parser("extract-survey2-questions",
+                       help="extract part-2 questions from Qualtrics headers")
+    p.add_argument("--survey-csv", required=True)
+    p.add_argument("--output", default="data/question_list_part_2_actual.txt")
+    p.add_argument("--ascii-quotes", action="store_true",
+                   help="normalize the 7 curly-quoted Qualtrics headers to "
+                        "straight quotes — the form the reference sweep "
+                        "actually ran (its hardcoded prompts list, "
+                        "compare_instruct_models_survey2.py:298-355, is a "
+                        "straight-quote transcription of this extractor's "
+                        "output)")
+    p.set_defaults(fn=cmd_extract_survey2)
+
+    p = sub.add_parser("analyze-3way",
+                       help="base-vs-instruct-vs-human comparison "
+                            "(correlations, validity audit, scatter)")
+    p.add_argument("--llm-csv", required=True)
+    p.add_argument("--survey1-csv", required=True)
+    p.add_argument("--survey2-csv", default=None)
+    p.add_argument("--output-dir", default="results/three_way")
+    p.add_argument("--no-figures", action="store_true")
+    p.set_defaults(fn=cmd_analyze_3way)
+
+    p = sub.add_parser("analyze-agreement",
+                       help="point-estimate + question-bootstrap LLM/human "
+                            "agreement (both reference JSON report shapes)")
+    p.add_argument("--llm-csv", required=True,
+                   help="instruct_model_comparison_results.csv")
+    p.add_argument("--base-csv", default=None,
+                   help="model_comparison_results.csv (base models)")
+    p.add_argument("--survey-csv", required=True,
+                   help="survey-1 Qualtrics export (the 50 mapped questions)")
+    p.add_argument("--output-dir", default="results/agreement")
+    p.add_argument("--bootstrap", type=int, default=1000)
+    p.add_argument("--seed", type=int, default=42)
+    p.set_defaults(fn=cmd_analyze_agreement)
+
+    p = sub.add_parser("analyze-family-differences",
+                       help="respondent-bootstrap agreement + per-family "
+                            "MAE/MSE/MAPE differences")
+    p.add_argument("--llm-csv", default=None)
+    p.add_argument("--survey1-csv", default=None)
+    p.add_argument("--survey2-csv", default=None)
+    p.add_argument("--agreement-json", default=None,
+                   help="reuse a saved llm_human_agreement_bootstrap.json")
+    p.add_argument("--output-dir", default="results/family_differences")
+    p.add_argument("--bootstrap", type=int, default=100)
+    p.set_defaults(fn=cmd_analyze_family_differences)
+
+    p = sub.add_parser("ground-truth-figure",
+                       help="human ground-truth distribution figures")
+    p.add_argument("--survey1-csv", required=True)
+    p.add_argument("--survey2-csv", default=None)
+    p.add_argument("--output-dir", default="results/ground_truth")
+    p.set_defaults(fn=cmd_ground_truth_figure)
+
+    p = sub.add_parser("model-comparison",
+                       help="inter-model correlation report + heatmap + kappa "
+                            "over a results CSV (prompt/model/relative_prob)")
+    p.add_argument("--results", required=True,
+                   help="instruct_model_comparison_results*.csv-style CSV")
+    p.add_argument("--output-dir", default="results/model_comparison")
+    p.add_argument("--reference-model", default=None,
+                   help="strip-plot anchor (default: auto-detect Baichuan)")
+    p.add_argument("--bootstrap", type=int, default=1000)
+    p.add_argument("--no-figures", action="store_true")
+    p.set_defaults(fn=cmd_model_comparison)
+
+    p = sub.add_parser("cross-kappa",
+                       help="aggregate Cohen's kappa across experiment CSVs")
+    p.add_argument("--results", nargs="+", required=True,
+                   help="one or more results CSVs (same schema)")
+    p.add_argument("--threshold", type=float, default=0.5)
+    p.add_argument("--bootstrap", type=int, default=1000)
+    p.add_argument("--output-json", default=None)
+    p.set_defaults(fn=cmd_cross_kappa)
+
+    p = sub.add_parser("analyze-mae-100q",
+                       help="paper Table 5: per-family base-vs-instruct MAE "
+                            "vs human survey means (paired bootstrap)")
+    p.add_argument("--results", required=True,
+                   help="base_vs_instruct_100q_results.csv")
+    p.add_argument("--survey1-csv", required=True)
+    p.add_argument("--survey2-csv", default=None)
+    p.add_argument("--latex", action="store_true", help="print the LaTeX table")
+    p.add_argument("--output-tex", default=None, help="write the LaTeX table here")
+    p.add_argument("--output-json", default=None, help="write family records here")
+    p.set_defaults(fn=cmd_analyze_mae_100q)
 
     args = parser.parse_args(argv)
     # Strict mode (runtime/strict.py): --strict or LLM_INTERP_STRICT=1 arms

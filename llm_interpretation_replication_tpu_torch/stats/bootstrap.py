@@ -10,9 +10,8 @@ Behavioral replicas with the reference's seed discipline (seed 42,
 - ``paired_mean_diff_bootstrap`` — run_base_vs_instruct_100q.py:606-712 and
   analyze_base_vs_instruct_mae_100q.py:270-420 (instruct−base paired diffs).
 
-A copy of the JAX package's module without ``base_vs_instruct_analysis``,
-which takes a pandas DataFrame (ROADMAP.md queue 1, "Statistics, survey,
-analysis and figures — the pandas part").
+A copy of the JAX package's module; ``base_vs_instruct_analysis`` takes the
+results' row dicts in place of a DataFrame.
 """
 
 from __future__ import annotations
@@ -21,6 +20,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 from scipy.stats import bootstrap as scipy_bootstrap
+
+from ..utils import frame
 
 
 def bootstrap_mae(
@@ -113,6 +114,28 @@ def paired_mean_diff_bootstrap(
         "ci_upper": float(np.percentile(boot, 97.5)),
         "p_value": min(p, 1.0),
     }
+
+
+def base_vs_instruct_analysis(rows: Sequence[Dict], value_col: str = "relative_prob",
+                              n_bootstrap: int = 10_000, seed: int = 42) -> Dict[str, Dict]:
+    """Per-family instruct−base paired bootstrap over a 100q results frame
+    (columns model_family / base_or_instruct / prompt / value_col)."""
+    out: Dict[str, Dict] = {}
+    for family in frame.unique(frame.column(rows, "model_family")):
+        fam = [r for r in rows if r["model_family"] == family]
+        base, inst = ([{"prompt": r["prompt"], value_col: r[value_col]}
+                       for r in fam if r["base_or_instruct"] == role]
+                      for role in ("base", "instruct"))
+        merged = [r for r in frame.inner_merge(
+            base, inst, "prompt", suffixes=("_base", "_instruct"))
+            if not any(frame.is_na(v) for v in r.values())]
+        if len(merged) < 10:
+            out[family] = {"n": len(merged), "skipped": True}
+            continue
+        diffs = (np.asarray([r[f"{value_col}_instruct"] for r in merged], dtype=float)
+                 - np.asarray([r[f"{value_col}_base"] for r in merged], dtype=float))
+        out[family] = paired_mean_diff_bootstrap(diffs, n_bootstrap, seed)
+    return out
 
 
 def bootstrap_statistic(

@@ -26,7 +26,11 @@ from .writers import (
     INSTRUCT_COMPARISON_COLUMNS,
     MODEL_COMPARISON_COLUMNS,
     PERTURBATION_COLUMNS,
+    base_vs_instruct_100q_frame,
+    instruct_comparison_frame,
+    model_comparison_frame,
     model_family_from_name,
+    perturbation_frame,
     perturbation_row,
     write_csv,
 )
@@ -34,6 +38,8 @@ from .writers import (
 __all__ = ["BASE_VS_INSTRUCT_100Q_COLUMNS", "CLAUDE_PERTURBATION_COLUMNS",
            "INSTRUCT_COMPARISON_COLUMNS",
            "MODEL_COMPARISON_COLUMNS", "PERTURBATION_COLUMNS",
+           "base_vs_instruct_100q_frame", "instruct_comparison_frame",
+           "model_comparison_frame", "perturbation_frame",
            "load_existing_keys", "load_existing_rows",
            "load_processed_triples", "run_api_perturbation_sweep",
            "run_claude_perturbation_sweep", "run_gemini_perturbation_sweep",

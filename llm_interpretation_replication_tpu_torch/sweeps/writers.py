@@ -2,9 +2,10 @@
 ``PERTURBATION_COLUMNS``, ``CLAUDE_PERTURBATION_COLUMNS``,
 ``perturbation_row``, ``model_family_from_name``,
 ``BASE_VS_INSTRUCT_100Q_COLUMNS``, ``MODEL_COMPARISON_COLUMNS`` and
-``INSTRUCT_COMPARISON_COLUMNS``, with the two comparison frames as row
-lists) and a CSV writer that writes the bytes
-``pandas.DataFrame(rows)[columns].to_csv(path, index=False)`` writes.
+``INSTRUCT_COMPARISON_COLUMNS``, with its four frames as row lists) and
+the CSV writer the sweeps use, ``utils.frame.write_csv``, which writes the
+bytes ``pandas.DataFrame(rows)[columns].to_csv(path, index=False)``
+writes.
 
 Downstream statistics key on these exact column names, so the workbook and
 the CSV are drop-in replacements for the study's own.
@@ -12,11 +13,9 @@ the CSV are drop-in replacements for the study's own.
 
 from __future__ import annotations
 
-import csv
-import math
-import numbers
-import os
 from typing import Dict, List, Optional, Sequence
+
+from ..utils.frame import write_csv  # noqa: F401
 
 #: perturbation result workbook columns, in order
 PERTURBATION_COLUMNS = [
@@ -105,6 +104,19 @@ def perturbation_row(
     }
 
 
+def perturbation_frame(rows: Sequence[Dict]) -> List[Dict]:
+    """The rows in ``PERTURBATION_COLUMNS`` only (a missing one NaN), as
+    ``pd.DataFrame(rows, columns=PERTURBATION_COLUMNS)`` holds them."""
+    return [{c: r.get(c, float("nan")) for c in PERTURBATION_COLUMNS}
+            for r in rows]
+
+
+def base_vs_instruct_100q_frame(rows: Sequence[Dict]) -> List[Dict]:
+    """The rows in ``BASE_VS_INSTRUCT_100Q_COLUMNS``' order (a missing
+    column raises ``KeyError``, as the DataFrame selection does)."""
+    return [{c: r[c] for c in BASE_VS_INSTRUCT_100Q_COLUMNS} for r in rows]
+
+
 def model_comparison_frame(outputs: Dict[str, Dict[str, Dict]],
                            model_pairs) -> List[Dict]:
     """``outputs[model][prompt]`` -> result dict, over (base, instruct)
@@ -147,38 +159,3 @@ def instruct_comparison_frame(outputs: Dict[str, Dict[str, Dict]],
                 "relative_prob": result.get("relative_prob", float("nan")),
             })
     return data
-
-
-def _is_null(v) -> bool:
-    return v is None or (isinstance(v, float) and math.isnan(v))
-
-
-def _is_number(v) -> bool:
-    return isinstance(v, numbers.Real) and not isinstance(v, bool)
-
-
-def _csv_column(values: Sequence) -> List[str]:
-    """One column's fields as pandas writes them: a column of numbers with a
-    float or an empty cell is float64, every value in ``repr`` (an int
-    reads ``1.0``); a column of ints only keeps them; any other column is
-    object, each value in ``str``.  An empty cell (None, NaN) is empty."""
-    present = [v for v in values if not _is_null(v)]
-    as_float = (all(_is_number(v) for v in present) and len(present) > 0
-                and (len(present) < len(values)
-                     or any(not isinstance(v, numbers.Integral) for v in present)))
-    return ["" if _is_null(v) else repr(float(v)) if as_float else str(v)
-            for v in values]
-
-
-def write_csv(columns: Sequence[str], rows: Sequence[Dict], path: str) -> None:
-    """Write ``rows`` (dicts holding every column) to ``path`` as
-    ``pandas.DataFrame(rows)[columns].to_csv(path, index=False)`` does:
-    comma-separated, ``\\n`` line ends, fields quoted only where they hold a
-    comma, a quote or a line break (quotes doubled), floats in their
-    shortest round-trip form, ``True``/``False``, empty cells empty."""
-    cols = [_csv_column([r[c] for r in rows]) for c in columns]
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w", newline="", encoding="utf-8") as f:
-        w = csv.writer(f, lineterminator="\n")
-        w.writerow(columns)
-        w.writerows(zip(*cols))

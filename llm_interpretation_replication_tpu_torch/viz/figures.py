@@ -10,6 +10,9 @@ Covers the reference's figure families (all Agg/matplotlib, saved as PNG):
 - violin plots for irrelevant-perturbation consistency
   (evaluate_irrelevant_perturbations.py:503-941)
 - correlation heatmap + distribution histogram (model_comparison_graph.py:389-494)
+- the survey and analysis modules' figures: the human-vs-model scatter, the
+  ground-truth distribution panels, the reference-model difference strip and
+  the stacked confidence strips (their modules compute, these draw)
 """
 
 from __future__ import annotations
@@ -489,3 +492,150 @@ def correlation_distribution(correlations, title: str, output_path: str) -> str:
     ax.set_title(title)
     ax.legend()
     return _save(fig, output_path)
+
+
+# -- the survey and analysis modules' own figures (their modules compute, these
+# draw; each is the JAX package's drawing code, call for call)
+
+def human_vs_model_scatter(h, m, model: str, pearson_r: float,
+                           output_path: str) -> str:
+    """Scatter of the best-correlated model vs humans with identity line
+    (analyze_base_vs_instruct_vs_human.py:175-214)."""
+    fig, ax = plt.subplots(figsize=(12, 8))
+    ax.scatter(h, m, alpha=0.6)
+    ax.plot([0, 1], [0, 1], "r--", alpha=0.5)
+    ax.set_xlabel('Human Proportion "Yes"')
+    ax.set_ylabel('Model Probability "Yes"')
+    ax.set_title(f"Human vs Model Responses\n({model})")
+    ax.set_xlim(-0.05, 1.05)
+    ax.set_ylim(-0.05, 1.05)
+    ax.text(0.05, 0.95, f"Pearson r = {pearson_r:.3f}",
+            transform=ax.transAxes, verticalalignment="top")
+    os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
+    fig.tight_layout()
+    fig.savefig(output_path, dpi=150)
+    plt.close(fig)
+    return output_path
+
+
+def ground_truth_distribution(pct, mean_pct: float, std_pct: float,
+                              output_dir: str, smoother) -> Dict[str, str]:
+    """Two-panel (histogram + fitted normal; random-baseline overlay) and
+    simplified single-panel figures of the human ground truth
+    (visualize_ground_truth_distribution.py:79-199); ``smoother(y, x)``
+    smooths the simple panel's histogram."""
+    x = np.linspace(0, 100, 200)
+
+    fig, (ax1, ax2) = plt.subplots(1, 2, figsize=(14, 6))
+    ax1.hist(pct, bins=30, density=True, alpha=0.7, color="#2ca02c",
+             edgecolor="black", label="Actual Human Responses")
+    ax1.plot(x, scipy_stats.norm.pdf(x, mean_pct, std_pct), "r-", linewidth=2,
+             label=f"Fitted Normal\nN({mean_pct:.1f}, {std_pct:.1f})")
+    ax1.axvline(mean_pct, color="red", linestyle="--", linewidth=1.5,
+                alpha=0.8, label=f"Mean: {mean_pct:.1f}%")
+    ax1.axvline(mean_pct - std_pct, color="orange", linestyle=":", alpha=0.6)
+    ax1.axvline(mean_pct + std_pct, color="orange", linestyle=":", alpha=0.6,
+                label=f"±1 SD: {std_pct:.1f}%")
+    ax1.set_xlabel('Percentage "Yes" Responses (%)')
+    ax1.set_ylabel("Probability Density")
+    ax1.set_title("Distribution of Human Ground Truth Values")
+    ax1.set_xlim(0, 100)
+    ax1.legend(loc="upper left", fontsize=9)
+
+    rng = np.random.default_rng(42)
+    samples = np.clip(rng.normal(mean_pct, std_pct, 10_000), 0, 100)
+    ax2.hist(pct, bins=30, density=True, alpha=0.5, color="#2ca02c",
+             edgecolor="black", label="Actual Human Data")
+    ax2.hist(samples, bins=30, density=True, alpha=0.5, color="#17becf",
+             edgecolor="black", label="Random Baseline\n(Sampled)")
+    ax2.plot(x, scipy_stats.norm.pdf(x, mean_pct, std_pct), "r-", linewidth=2,
+             alpha=0.8, label=f"Theoretical N({mean_pct:.1f}, {std_pct:.1f})")
+    ax2.axvline(mean_pct, color="red", linestyle="--", alpha=0.8)
+    ax2.set_xlabel('Percentage "Yes" Responses (%)')
+    ax2.set_ylabel("Probability Density")
+    ax2.set_title("Random Baseline Distribution")
+    ax2.set_xlim(0, 100)
+    ax2.legend(loc="upper left", fontsize=9)
+    fig.suptitle("Ground Truth Distribution Analysis for Random Baseline")
+    fig.tight_layout()
+    two_panel = os.path.join(output_dir, "ground_truth_distribution.png")
+    fig.savefig(two_panel, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+
+    fig, ax = plt.subplots(figsize=(10, 6))
+    n, bins, _ = ax.hist(pct, bins=30, density=True, alpha=0.7,
+                         color="#1f77b4", edgecolor="black")
+    centers = (bins[:-1] + bins[1:]) / 2
+    smoothed = smoother(n, centers)
+    ax.plot(smoothed[:, 0], smoothed[:, 1], "r-", linewidth=2.5,
+            label="Smoothed empirical distribution")
+    ax.axvline(mean_pct, color="red", linestyle="--", linewidth=2, alpha=0.8,
+               label=f"Mean = {mean_pct:.1f}%")
+    ax.set_xlabel('Percentage of "Yes" Responses (%)')
+    ax.set_ylabel("Probability Density")
+    ax.set_xlim(0, 100)
+    ax.legend(loc="upper left")
+    fig.tight_layout()
+    simple = os.path.join(output_dir, "ground_truth_distribution_simple.png")
+    fig.savefig(simple, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    return {"two_panel": two_panel, "simple": simple}
+
+
+def difference_strip(diffs_by_model: Dict[str, np.ndarray],
+                     reference_model: str, value_col: str,
+                     output_path: str) -> str:
+    """Per-model distribution of (model − reference) differences per prompt
+    (model_comparison_graph.py:33-205)."""
+    others = list(diffs_by_model)
+    rng = np.random.default_rng(42)
+    fig, ax = plt.subplots(figsize=(max(8, 1.6 * len(others)), 6))
+    for i, model in enumerate(others):
+        diffs = diffs_by_model[model]
+        x = i + rng.uniform(-0.18, 0.18, diffs.size)
+        ax.scatter(x, diffs, s=10, alpha=0.4)
+        ax.plot([i - 0.3, i + 0.3], [np.mean(diffs)] * 2, color="black", lw=2)
+    ax.axhline(0.0, color="grey", linestyle=":")
+    ax.set_xticks(range(len(others)))
+    ax.set_xticklabels([m.split("/")[-1] for m in others], rotation=30, ha="right")
+    ax.set_ylabel(f"{value_col} − {reference_model.split('/')[-1]}")
+    ax.set_title("Per-prompt differences vs reference model")
+    os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
+    fig.savefig(output_path, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    return output_path
+
+
+def stacked_confidence_strips(values_by_model: Dict[str, Sequence[np.ndarray]],
+                              n_scenarios: int, output_path: str) -> str:
+    """One jitter-strip panel per model, stacked (Fig. 5/6 style;
+    combine_model_confidence_analysis.py): ``values_by_model[model][i]`` is
+    scenario i's confidences (empty arrays are skipped)."""
+    models = list(values_by_model)
+    fig, axes = plt.subplots(
+        len(models), 1,
+        figsize=(max(8, 2.0 * n_scenarios), 4 * len(models)),
+        squeeze=False,
+    )
+    rng = np.random.default_rng(42)
+    for ax_row, model in zip(axes, models):
+        ax = ax_row[0]
+        for i, vals in enumerate(values_by_model[model]):
+            if not vals.size:
+                continue
+            x = i + rng.uniform(-0.18, 0.18, vals.size)
+            ax.scatter(x, vals, s=6, alpha=0.25)
+            mean = vals.mean()
+            lo, hi = np.percentile(vals, [2.5, 97.5])
+            ax.errorbar([i], [mean], yerr=[[mean - lo], [hi - mean]], fmt="o",
+                        color="black", capsize=5, zorder=5)
+        ax.set_title(model)
+        ax.set_ylim(0, 100)
+        ax.set_xticks(range(n_scenarios))
+        ax.set_xticklabels([f"S{i + 1}" for i in range(n_scenarios)])
+        ax.set_ylabel("Confidence")
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(os.path.abspath(output_path)), exist_ok=True)
+    fig.savefig(output_path, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    return output_path

@@ -58,6 +58,14 @@ def standalone_document(tables: Sequence[str], title: str = "Perturbation analys
     )
 
 
+def _rows(table):
+    """A report's rows: a list of row dicts (``stats.compliance``'s), or
+    anything with ``iterrows()``."""
+    if hasattr(table, "iterrows"):
+        return [row for _, row in table.iterrows()]
+    return list(table)
+
+
 def compliance_table(compliance_df) -> str:
     """First-token / subsequent compliance rates per scenario."""
     lines = [
@@ -66,7 +74,7 @@ def compliance_table(compliance_df) -> str:
         "Prompt & N & First-token \\% & Non-compliant \\% & Subsequent \\% \\\\",
         "\\hline",
     ]
-    for _, row in compliance_df.iterrows():
+    for row in _rows(compliance_df):
         sub = row.get("Conditional_Subsequent_Compliance_Rate")
         sub_str = f"{sub:.1f}" if sub is not None and np.isfinite(sub) else "--"
         lines.append(
@@ -85,7 +93,7 @@ def confidence_compliance_table(conf_df) -> str:
         "Prompt & N & Compliant \\% & Float & Text & Out-of-range \\\\",
         "\\hline",
     ]
-    for _, row in conf_df.iterrows():
+    for row in _rows(conf_df):
         lines.append(
             f"{int(row['Prompt'])} & {int(row['Total_Confidence_Samples'])} & "
             f"{row['Confidence_Compliance_Rate']:.1f} & {int(row['Float_Errors'])} & "

@@ -361,3 +361,188 @@ def test_api_command_flags_and_defaults_match_reference(monkeypatch, argv):
         with pytest.raises(_Parsed):
             main(list(argv))
     assert parsed[0] == parsed[1]
+
+
+# -- the analysis commands (survey, Table 5, agreement, comparison) -------------------
+#
+# Each runs in process on both packages with the same arguments (the JAX
+# command first; each writes under its own directory): every file either
+# writes is byte-equal, figures included, and so is what it prints (with
+# the directory written as <d>).
+
+@pytest.fixture(scope="module")
+def analysis_inputs(tmp_path_factory):
+    import numpy as np
+
+    from test_torch_analysis import workbook_rows, write_workbook
+    from test_torch_survey import results_csv, survey_files
+
+    root = tmp_path_factory.mktemp("analysis_inputs")
+    paths = {"surveys": survey_files(root)}
+    for schema in ("100q", "instruct", "base"):
+        paths[schema] = results_csv(root, schema)
+    rng = np.random.default_rng(41)
+    scen = legal_scenarios()
+    for name, n in (("a", 30), ("b", 24)):
+        paths[f"wb_{name}"] = write_workbook(
+            root / f"{name}.xlsx", workbook_rows(rng, scen[:2], f"m-{name}", n)
+            + workbook_rows(rng, scen[2:3], f"m-{name}x", 8))
+    pert = root / "perturbations.json"
+    pert.write_text(json.dumps([
+        dict(s, rephrasings=[f"{s['original_main'][:80]} (take {k})"
+                             for k in range(4)] + [
+            "An unrelated sentence about bananas."]) for s in scen]))
+    paths["perturbations"] = str(pert)
+    return paths
+
+
+def _analysis_argv(command, p, extra):
+    s1, s2 = p["surveys"]
+    base = {
+        "analyze-survey": ["--survey1-csv", s1, "--survey2-csv", s2,
+                           "--llm-csv", p["instruct"], "--bootstrap", "200",
+                           "--cross-prompt-bootstrap", "10",
+                           "--output-dir", "<d>"],
+        "analyze-combined": ["--workbook", f"A={p['wb_a']}",
+                             "--workbook", f"B={p['wb_b']}",
+                             "--output-dir", "<d>"],
+        "demographics-table": ["--csv", s1, "--csv", s2],
+        "analyze-perturbations": ["--workbook", p["wb_a"], "--simulations",
+                                  "2000", "--output-dir", "<d>"],
+        "similarity": ["--perturbations", p["perturbations"],
+                       "--output-dir", "<d>"],
+        "analyze-100q": ["--results", p["100q"]],
+        "analyze-mae-100q": ["--results", p["100q"], "--survey1-csv", s1,
+                             "--survey2-csv", s2],
+        "extract-survey2-questions": ["--survey-csv", s2,
+                                      "--output", "<d>/q.txt"],
+        "analyze-3way": ["--llm-csv", p["100q"], "--survey1-csv", s1,
+                         "--survey2-csv", s2, "--output-dir", "<d>"],
+        "analyze-agreement": ["--llm-csv", p["instruct"], "--survey-csv", s1,
+                              "--bootstrap", "120", "--output-dir", "<d>"],
+        "analyze-family-differences": ["--llm-csv", p["100q"],
+                                       "--survey1-csv", s1, "--survey2-csv",
+                                       s2, "--bootstrap", "30",
+                                       "--output-dir", "<d>"],
+        "ground-truth-figure": ["--survey1-csv", s1, "--survey2-csv", s2,
+                                "--output-dir", "<d>"],
+        "model-comparison": ["--results", p["instruct"], "--bootstrap", "60",
+                             "--output-dir", "<d>"],
+        "cross-kappa": ["--results", p["100q"], p["instruct"],
+                        "--bootstrap", "60"],
+    }[command]
+    extra = [x.replace("<base>", p["base"]) for x in extra]
+    return [command, *base, *extra]
+
+
+ANALYSIS_CASES = [
+    ("analyze-survey", []),
+    ("analyze-combined", []),
+    ("demographics-table", []),
+    ("demographics-table", ["--column", "Sex", "--column", "Age",
+                            "--output", "<d>/demographics.tex"]),
+    ("analyze-perturbations", []),
+    ("similarity", ["--max-rephrasings", "3"]),
+    ("analyze-100q", ["--output-json", "<d>/o.json"]),
+    ("analyze-100q", ["--latex", "--survey1-csv", "SURVEY1"]),
+    ("analyze-mae-100q", ["--latex", "--output-tex", "<d>/t.tex",
+                          "--output-json", "<d>/o.json"]),
+    ("extract-survey2-questions", []),
+    ("extract-survey2-questions", ["--ascii-quotes"]),
+    ("analyze-3way", []),
+    ("analyze-3way", ["--no-figures"]),
+    ("analyze-agreement", ["--base-csv", "<base>", "--seed", "3"]),
+    ("analyze-family-differences", []),
+    ("ground-truth-figure", []),
+    ("model-comparison", []),
+    ("model-comparison", ["--reference-model", "tiiuae/falcon-7b",
+                          "--no-figures"]),
+    ("model-comparison", ["--reference-model", "tiiuae/falcon-7b"]),
+    ("cross-kappa", ["--threshold", "0.4", "--output-json", "<d>/k.json"]),
+]
+
+
+def run_in(main, argv, d, capsys):
+    d.mkdir(parents=True, exist_ok=True)
+    main([a.replace("<d>", str(d)) for a in argv])
+    printed = capsys.readouterr().out.replace(str(d), "<d>")
+    files = {os.path.relpath(os.path.join(r, f), d):
+             open(os.path.join(r, f), "rb").read()
+             for r, _, fs in os.walk(d) for f in fs}
+    return printed, files
+
+
+@pytest.mark.parametrize("command,extra", ANALYSIS_CASES,
+                         ids=lambda v: v if isinstance(v, str) else
+                         "_".join(x.lstrip("-") for x in v if x.startswith("--")))
+def test_analysis_command_matches_reference(analysis_inputs, tmp_path, capsys,
+                                            command, extra):
+    extra = [analysis_inputs["surveys"][0] if x == "SURVEY1" else x
+             for x in extra]
+    argv = _analysis_argv(command, analysis_inputs, extra)
+    got = {tag: run_in(main, argv, tmp_path / tag, capsys)
+           for tag, main in (("jax", jmain), ("port", tmain))}
+    assert got["port"] == got["jax"]
+    assert got["port"][0] or got["port"][1]
+
+
+def test_family_differences_reads_a_saved_agreement(analysis_inputs, tmp_path,
+                                                    capsys):
+    argv = _analysis_argv("analyze-family-differences", analysis_inputs, [])
+    saved = run_in(jmain, argv, tmp_path / "first", capsys)[1]
+    path = tmp_path / "agreement.json"
+    path.write_bytes(saved["llm_human_agreement_bootstrap.json"])
+    argv = ["analyze-family-differences", "--agreement-json", str(path),
+            "--output-dir", "<d>"]
+    got = {tag: run_in(main, argv, tmp_path / tag, capsys)
+           for tag, main in (("jax", jmain), ("port", tmain))}
+    assert got["port"] == got["jax"]
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["analyze-100q", "--results", "R", "--latex"], "--latex emits"),
+    (["analyze-family-differences"], "pass --llm-csv"),
+    (["analyze-combined", "--workbook", "nameless"], "NAME=PATH"),
+    (["analyze-combined", "--workbook", "A=W", "--workbook", "A=W"],
+     "duplicate workbook"),
+])
+def test_analysis_command_refusals_match_reference(analysis_inputs, tmp_path,
+                                                   monkeypatch, argv, message):
+    argv = [analysis_inputs["100q"] if a == "R" else
+            a.replace("=W", "=" + analysis_inputs["wb_a"]) for a in argv]
+    monkeypatch.chdir(tmp_path)    # a refused command may make its output dir
+    msgs = []
+    for main in (jmain, tmain):
+        with pytest.raises(SystemExit, match=message) as err:
+            main(list(argv))
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+
+
+def test_similarity_command_embeddings_leg_matches_reference(
+        analysis_inputs, tmp_path, capsys, monkeypatch):
+    """``similarity --embeddings`` through a stand-in
+    ``sentence_transformers`` (nothing is downloaded): the embedding
+    column joins the workbook, on both packages alike."""
+    import sys
+    import types
+
+    import numpy as np
+
+    fake = types.ModuleType("sentence_transformers")
+
+    class SentenceTransformer:
+        def __init__(self, name):
+            self.name = name
+
+        def encode(self, texts):
+            return np.random.default_rng(len(texts)).normal(size=(len(texts), 6))
+
+    fake.SentenceTransformer = SentenceTransformer
+    monkeypatch.setitem(sys.modules, "sentence_transformers", fake)
+    argv = _analysis_argv("similarity", analysis_inputs,
+                          ["--embeddings", "--embedding-model", "stub"])
+    got = {tag: run_in(main, argv, tmp_path / tag, capsys)
+           for tag, main in (("jax", jmain), ("port", tmain))}
+    assert got["port"] == got["jax"]
+    assert "embedding_cosine_similarity" in got["port"][0]

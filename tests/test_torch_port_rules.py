@@ -28,10 +28,14 @@ FORBIDDEN = {"jax", "jaxlib", "llm_interpretation_replication_tpu",
              "transformers", "tokenizers", "pandas", "safetensors", "regex",
              "sentencepiece", "google.protobuf"}
 #: modules the card's machine lacks that the port may import only where
-#: nothing on the card reaches: the figures module, and sklearn's TF-IDF
-#: inside the similarity validator's one function that uses it
+#: nothing on the card reaches: the figures module, sklearn's TF-IDF
+#: inside the similarity validator's one function that uses it, and
+#: sentence-transformers inside the similarity report's optional
+#: embedding-model loader
 OFF_CARD = {"matplotlib": {"viz/figures.py": None},
-            "sklearn": {"stats/similarity.py": "tfidf_cosine_matrix"}}
+            "sklearn": {"stats/similarity.py": "tfidf_cosine_matrix"},
+            "sentence_transformers": {
+                "analysis/similarity_report.py": "load_embedding_model"}}
 
 
 def _imported_names(node):
@@ -160,6 +164,21 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/viz/__init__.py",
     "llm_interpretation_replication_tpu_torch/viz/latex.py",
     "llm_interpretation_replication_tpu_torch/viz/figures.py",
+    "llm_interpretation_replication_tpu_torch/utils/frame.py",
+    "llm_interpretation_replication_tpu_torch/stats/compliance.py",
+    "llm_interpretation_replication_tpu_torch/stats/correlations.py",
+    "llm_interpretation_replication_tpu_torch/survey/__init__.py",
+    "llm_interpretation_replication_tpu_torch/survey/pipeline.py",
+    "llm_interpretation_replication_tpu_torch/survey/mae_100q.py",
+    "llm_interpretation_replication_tpu_torch/survey/demographics.py",
+    "llm_interpretation_replication_tpu_torch/survey/variants.py",
+    "llm_interpretation_replication_tpu_torch/analysis/__init__.py",
+    "llm_interpretation_replication_tpu_torch/analysis/questions.py",
+    "llm_interpretation_replication_tpu_torch/analysis/perturbation_report.py",
+    "llm_interpretation_replication_tpu_torch/analysis/similarity_report.py",
+    "llm_interpretation_replication_tpu_torch/analysis/model_comparison.py",
+    "llm_interpretation_replication_tpu_torch/analysis/base_vs_instruct_figs.py",
+    "llm_interpretation_replication_tpu_torch/analysis/combined_confidence.py",
 ])
 def test_slice_modules_are_guarded(rel):
     """The modules the kernels, the int8 path, the pool, the slot ring,
@@ -208,9 +227,11 @@ def test_forbidden_imports_catch_protobuf(tmp_path):
 
 
 def test_off_card_modules_stay_where_nothing_on_the_card_reaches():
-    """``matplotlib`` is imported only by ``viz/figures.py`` and
-    ``sklearn`` only inside ``stats/similarity.tfidf_cosine_matrix``
-    (the card's machine has neither)."""
+    """``matplotlib`` is imported only by ``viz/figures.py``, ``sklearn``
+    only inside ``stats/similarity.tfidf_cosine_matrix`` and
+    ``sentence_transformers`` only inside
+    ``analysis/similarity_report.load_embedding_model`` (the card's
+    machine has none of them)."""
     found = []
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:
@@ -231,13 +252,15 @@ def test_off_card_modules_stay_where_nothing_on_the_card_reaches():
                     assert rel in allowed and allowed[rel] in (None, where), \
                         (rel, name, where)
     assert {(r, m) for r, m, _ in found} == {
-        ("viz/figures.py", "matplotlib"), ("stats/similarity.py", "sklearn")}
+        ("viz/figures.py", "matplotlib"), ("stats/similarity.py", "sklearn"),
+        ("analysis/similarity_report.py", "sentence_transformers")}
 
 
 def test_host_layers_import_nothing_off_card_at_run_time():
-    """Importing the port's CLI, ``stats``, ``native``, ``viz.latex`` and
-    the SentencePiece reader loads neither matplotlib nor sklearn (nor
-    pandas, protobuf or JAX) and creates no CUDA context."""
+    """Importing the port's CLI, ``stats``, ``survey``, ``analysis``,
+    ``utils.frame``, ``native``, ``viz.latex`` and the SentencePiece
+    reader loads neither matplotlib nor sklearn nor sentence-transformers
+    (nor pandas, protobuf or JAX) and creates no CUDA context."""
     import subprocess
     import sys
 
@@ -245,13 +268,17 @@ def test_host_layers_import_nothing_off_card_at_run_time():
         "import sys, torch\n"
         "import llm_interpretation_replication_tpu_torch.__main__\n"
         "import llm_interpretation_replication_tpu_torch.stats\n"
+        "import llm_interpretation_replication_tpu_torch.survey\n"
+        "import llm_interpretation_replication_tpu_torch.analysis\n"
+        "import llm_interpretation_replication_tpu_torch.utils.frame\n"
         "import llm_interpretation_replication_tpu_torch.native\n"
         "import llm_interpretation_replication_tpu_torch.viz.latex\n"
         "import llm_interpretation_replication_tpu_torch.utils."
         "sentencepiece_model\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('matplotlib', 'sklearn', 'pandas', 'jax', 'jaxlib', "
-        "'llm_interpretation_replication_tpu') or m.startswith("
+        "('matplotlib', 'sklearn', 'sentence_transformers', 'pandas', "
+        "'jax', 'jaxlib', 'llm_interpretation_replication_tpu') or "
+        "m.startswith("
         "'google.protobuf'))\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n")
@@ -260,10 +287,23 @@ def test_host_layers_import_nothing_off_card_at_run_time():
     assert out.returncode == 0, out.stderr[-2000:]
 
 
-@pytest.mark.parametrize("command", ["power-analysis", "sample-statements"])
+#: the host commands and their option counts (``-h`` included)
+HOST_COMMANDS = {
+    "power-analysis": 5, "sample-statements": 4,
+    "analyze-survey": 7, "analyze-combined": 3, "demographics-table": 4,
+    "analyze-perturbations": 4, "similarity": 6, "analyze-100q": 6,
+    "analyze-mae-100q": 7, "extract-survey2-questions": 4,
+    "analyze-3way": 6, "analyze-agreement": 7,
+    "analyze-family-differences": 7, "ground-truth-figure": 4,
+    "model-comparison": 6, "cross-kappa": 5,
+}
+
+
+@pytest.mark.parametrize("command", sorted(HOST_COMMANDS))
 def test_host_command_parsers_match_reference(command):
-    """The port's ``power-analysis`` and ``sample-statements`` take the
-    reference's options with the same defaults, types and arities."""
+    """The port's host commands (``power-analysis``, ``sample-statements``
+    and the fourteen analysis commands) take the reference's options with
+    the same defaults, types and arities."""
     import argparse
 
     from llm_interpretation_replication_tpu import __main__ as jmain
@@ -277,7 +317,7 @@ def test_host_command_parsers_match_reference(command):
     got = options(_serve_parser(tmain, command, []))
     ref = options(_serve_parser(jmain, command, []))
     assert got == ref
-    assert len(got) == {"power-analysis": 5, "sample-statements": 4}[command]
+    assert len(got) == HOST_COMMANDS[command]
 
 
 def test_known_phases_match_reference():

@@ -280,15 +280,61 @@ def jstats_pilot():
     return power_pilot_results()
 
 
+def synthetic_sweeps(root, seed=SEED):
+    """The two CSVs phase 22 reads, in the sweeps' schemas and rosters
+    (run-100q's 12 models, run-instruct-sweep's 10) over the 100
+    questions, probabilities from ``seed``."""
+    from llm_interpretation_replication_tpu_torch.config import (
+        instruct_sweep_models, model_pairs_100q, ordinary_meaning_questions)
+    from llm_interpretation_replication_tpu_torch.sweeps.writers import (
+        BASE_VS_INSTRUCT_100Q_COLUMNS, INSTRUCT_COMPARISON_COLUMNS,
+        model_family_from_name, write_csv)
+
+    rng = np.random.default_rng(seed)
+    questions = ordinary_meaning_questions()
+    q100, inst = [], []
+    for pair in model_pairs_100q():
+        for role in ("base", "instruct"):
+            for q in questions:
+                yes, no = rng.uniform(0.001, 0.5, 2)
+                q100.append(dict(yes_prob=yes, no_prob=no,
+                                 relative_prob=yes / (yes + no),
+                                 completion=" Yes", success=True, prompt=q,
+                                 model=pair[role], formatted_prompt=q,
+                                 model_family=pair["family"],
+                                 base_or_instruct=role))
+    for model in instruct_sweep_models():
+        for q in questions:
+            yes, no = rng.uniform(0.001, 0.5, 2)
+            inst.append(dict(prompt=q, model=model,
+                             model_family=model_family_from_name(model),
+                             model_output="No", yes_prob=yes, no_prob=no,
+                             relative_prob=yes / (yes + no)))
+    paths = [str(root / "base_vs_instruct_100q_results.csv"),
+             str(root / "instruct_model_comparison_results.csv")]
+    write_csv(BASE_VS_INSTRUCT_100Q_COLUMNS, q100, paths[0])
+    write_csv(INSTRUCT_COMPARISON_COLUMNS, inst, paths[1])
+    return paths
+
+
 def test_smoke_stats_child_passes_on_the_cpu(tmp_path):
-    """The stats phase's child runs here too (its gates hold on the CPU)
-    and leaves no CUDA context and no pandas, matplotlib or sklearn."""
+    """The stats phase's child runs here too (its gates hold on the CPU,
+    the analysis commands over sweeps CSVs in the rosters' shapes and the
+    1,003-respondent synthetic survey included) and leaves no CUDA
+    context and no pandas, matplotlib, sklearn or JAX."""
     out = io.StringIO()
+    sweeps = synthetic_sweeps(tmp_path)
     with contextlib.redirect_stdout(out):
-        chip_smoke._stats_host_child(str(tmp_path))
+        chip_smoke._stats_host_child(str(tmp_path), *sweeps, 0)
     res = json.loads(out.getvalue().strip().splitlines()[-1])
     assert res["fails"] == [] and res["using_native"]
     assert res["power"]["n80"] == chip_smoke.POWER_N80
+    from llm_interpretation_replication_tpu_torch.survey import MODEL_FAMILIES
+
+    analysis = res["analysis"]
+    assert analysis["shared"] == list(MODEL_FAMILIES)
+    assert analysis["latex_rows"] == 6 and analysis["model_pairs"] == 66
+    assert analysis["survey_sha256"] == chip_smoke.SURVEY_SHA256
 
 
 # -- strict JSON ---------------------------------------------------------------------
@@ -351,13 +397,45 @@ def test_sample_statements_command_matches_reference(tmp_path, argv):
 
 
 def test_stats_phase_runs_after_the_api_phase():
-    """Phase 22 runs after phase 21 in ``chip_smoke.main``, in a child
-    process, and its result lands in ``chip_smoke.json``."""
+    """Phase 22 runs in a child process after phase 21 and after the
+    run-100q and run-instruct-sweep phases whose CSVs it analyses, and its
+    result lands in ``chip_smoke.json``."""
     import inspect
 
     src = inspect.getsource(chip_smoke.main)
-    assert src.index('"api", api_phase') < src.index('"stats", stats_phase') \
-        < src.index("del weights")
+    assert src.index('"api", api_phase') < src.index('"run_100q",') \
+        < src.index('"run_instruct_sweep",') \
+        < src.index('"stats", stats_phase') < src.index("finally:")
     assert "stats=stres" in src
     assert "_stats_host_child" in inspect.getsource(chip_smoke.stats_phase)
     assert chip_smoke.STATS_BUDGET_S <= 20
+
+
+# -- the statistics that took DataFrames (more in tests/test_torch_analysis.py) -----------
+
+def test_stats_package_exports_match_reference():
+    names = {n for n in dir(jstats) if not n.startswith("_")}
+    assert {n for n in names if callable(getattr(jstats, n))} <= set(dir(tstats))
+
+
+@pytest.mark.parametrize("case", ["separated", "same", "nan_and_p", "few"])
+def test_correlation_distribution_comparison_matches_reference(case):
+    a, b = draws(40, SEED, 0.5, 0.2), draws(35, SEED + 1, 0.1, 0.3)
+    kwargs = {}
+    if case == "same":
+        b = draws(35, SEED + 2, 0.5, 0.2)
+    if case == "nan_and_p":
+        a[::7] = np.nan
+        kwargs = dict(p_values_a=np.abs(draws(40, 3, 0, 0.05)),
+                      p_values_b=[np.nan] * 35, labels=("humans", "llms"))
+    if case == "few":
+        with pytest.raises(ValueError) as t_err:
+            tstats.compare_correlation_distributions([0.1, np.nan], b)
+        with pytest.raises(ValueError) as j_err:
+            jstats.compare_correlation_distributions([0.1, np.nan], b)
+        assert str(t_err.value) == str(j_err.value)
+        return
+    assert same(tstats.compare_correlation_distributions(a, b, **kwargs),
+                jstats.compare_correlation_distributions(a, b, **kwargs))
+    for r, n in ((0.3, 50), (-0.99, 10), (1.0, 20), (0.2, 3)):
+        assert same(tstats.fisher_z_pvalue(r, n), jstats.fisher_z_pvalue(r, n))
