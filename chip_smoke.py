@@ -5,12 +5,13 @@
 
 Phases, each fatal on failure (the exit code is then non-zero and no result
 line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
-11, 18's CLI leg, 20's CLI leg, 21, 22, 12-15):
+11, 18's CLI leg, 20's CLI leg, 21, 12, 23, 13-15, 22):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
-   started together) and print, for each kernel template instance, its
-   ptxas registers, spills and shared memory;
+   started together) and print, for each kernel template instance (the
+   tile core at padded head dims 64, 128 and 256), its ptxas registers,
+   spills and shared memory;
 3. kernels: hold each kernel (causal grouped, head-major grouped, head-major
    flash; all three on ``attention_tile.cuh``) against its plain PyTorch
    version (float32 from the same bf16 inputs) at the shapes the main paths
@@ -21,13 +22,17 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    cost per call is a column of its own; the plain version is timed call
    after call between CUDA events.  This phase draws first from the seeded
    generator, so its q, k and lengths are those of earlier runs of the
-   script, and its v theirs up to the clamp;
+   script, and its v theirs up to the clamp; the other decoder families'
+   prompt batches (FAMILY_KERNEL_SHAPES: GPT-J-6B's 16 heads of 256
+   through all three kernels, Qwen2-7B's 28/4 and GLM-4-9B's and
+   ChatGLM3-6B's 32/2 heads of 128) come after the rest;
 4. edge: the three kernels on ``attention_tile.cuh`` (causal grouped,
    head-major grouped with K/V unrepeated, flash) against their plain
    versions, causal and not, at the shapes where a pipelined tile loop goes
-   wrong: S in {1, 63, 64, 65, 127, 129} x D in {64, 96, 128} x (N, G) in
-   {(71, 1), (8, 2), (4, 4)} with a full, a length-1, a length-0 and a
-   mid-tile row, and S=4097 (B=1, (4, 4)): 114 cases a kernel, 342 in all;
+   wrong: S in {1, 63, 64, 65, 127, 129} x D in {64, 96, 128, 256} x
+   (N, G) in {(71, 1), (8, 2), (4, 4)} with a full, a length-1, a
+   length-0 and a mid-tile row, and S=4097 (B=1, (4, 4)): 152 cases a
+   kernel, 456 in all;
 5. slice: Falcon-7B at its published width and depth, bf16, random weights
    from ``--seed``, scores 96 pre-tokenized prompts of 100-440 tokens in
    batches of 32 through ``ScoringEngine.score_prompts`` with the causal
@@ -150,12 +155,13 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    BPE with its BOS, byte-level BPE for the NeoX ones with the NFC
    normalizer);
    ``python -m llm_interpretation_replication_tpu_torch run-100q
-   --attention-impl flash`` in a child process must write 1200 rows in the
-   10 columns, each with ``success``, and name each model's attention
-   (dense for BLOOM and Mistral-7B-v0.1); a run stopped by SIGTERM after
-   its first model must leave exactly that model's rows in its
-   checkpoint, resuming it must write the same CSV, and a rerun over the
-   finished output must score nothing;
+   --attention-impl flash`` in a child process, stopped by SIGTERM after
+   its first model, must leave exactly that model's rows in its
+   checkpoint; resuming it under ``--strict`` must skip that model, name
+   each other model's attention (dense for BLOOM and Mistral-7B-v0.1) and
+   write 1200 rows in the 10 columns, each with ``success``, the first
+   model's equal to the checkpoint's; a rerun over the finished output
+   must score nothing;
 14. instruct: the instruct roster's new models at their published width
    (random bf16 HF-named checkpoints from ``--seed`` through the port's
    converters; T5's at its own initialization scales; T0_3B and the T5
@@ -295,7 +301,7 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    run resumes from the workbook and asks nothing), then
    ``generate-rephrasings`` and ``repair-batch``, and must end with no
    CUDA context and no pandas imported;
-22. stats (after phase 21; budget STATS_BUDGET_S, 20 s): the pandas-free
+22. stats (last; budget STATS_BUDGET_S, 30 s): the pandas-free
    statistics layer in a child process on the card's host
    (``_stats_host_child``): the native Levenshtein built by ``cc`` and
    loaded (``using_native()``), equal to its plain version on
@@ -305,9 +311,29 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    ``power-analysis`` at its 10,000 simulations, its printed N(80%) a
    model and recommendation equal to POWER_N80 / POWER_RECOMMENDED_N
    (analytic; the simulated powers are printed, not gated); and
-   ``sample-statements``, its file hashing to SAMPLE_STATEMENTS_SHA256.
-   The child must end with no CUDA context and without pandas,
-   matplotlib or sklearn.
+   ``sample-statements``, its file hashing to SAMPLE_STATEMENTS_SHA256;
+   then, over the run-100q and run-instruct-sweep phases' CSVs and two
+   synthetic Qualtrics exports, the analysis commands (``_analysis_leg``)
+   and the vendor-evaluation commands (``_vendor_eval_leg``, budget
+   VENDOR_EVAL_BUDGET_S, 10 s, inside the phase's 30: scripted vendors, no
+   socket): ``run-closed-source --yes`` (100 rows in the section 2.8
+   columns, finite MAEs, a rerun that asks nothing), ``run-irrelevant
+   --limit 60`` over phase 21's corpus (a finite consistency table,
+   reruns that ask nothing) and ``verify-replication`` over a reference
+   tree of those files (a verdict on every check, exit 1 exactly when one
+   fails, as on random weights it must).  The child must end with no CUDA
+   context and without pandas, matplotlib or sklearn;
+23. other_families (after phase 12; budget OTHER_FAMILIES_BUDGET_S, 45 s):
+   Qwen2-7B, GPT-J-6B, MPT-7B-Instruct, GLM-4-9B-chat-hf and ChatGLM3-6B
+   at their published widths and FAMILY_LAYERS (2) of their depth, random
+   bf16 weights from ``--seed`` written as a snapshot (``config.json``
+   and safetensors under the HF names) and read through
+   ``runtime/loader.load_model`` (the weights equal the converter's on
+   the written tensors, bit for bit), score the 100 instruct prompts
+   through ``sweeps.run_model_on_prompts`` at ``EngineConfig(batch_size=
+   32)`` on the causal kernel and dense (MPT, ALiBi, dense only), under
+   phase 12's gates; GPT-J's longest batch also goes through the forced
+   grouped and flash routes (the head-major kernels at D=256).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -351,6 +377,19 @@ HEAD_MAJOR_SHAPES = [     # of the head-major kernels (the slice's bucket 448)
 FLASH_ONLY_SHAPES = [     # Llama-2-7B's width at its 4096 context
     ("llama-2-7b-4096", 2, 4096, 32, 32, 128),
 ]
+#: (wrapper, label, B, S, N, G, D): the other decoder families' prompt
+#: batches, drawn after the shapes above (which so keep drawing the inputs
+#: of earlier runs); GPT-J's head dim 256 through all three kernels
+FAMILY_KERNEL_SHAPES = [
+    ("causal_grouped_attention", "gpt-j-6b", 32, 64, 16, 16, 256),
+    ("causal_grouped_attention", "qwen2-7b", 32, 64, 28, 4, 128),
+    ("causal_grouped_attention", "glm-4-9b/chatglm3-6b", 32, 64, 32, 2, 128),
+    ("grouped_attention", "gpt-j-6b", 32, 64, 16, 16, 256),
+    ("flash_attention", "gpt-j-6b", 32, 64, 16, 16, 256),
+]
+#: the head dim of the tile core's widest instance (GPT-J's), which the
+#: kernels line lists as an entry of its own for each kernel
+WIDE_HEAD_DIM = 256
 N_PROMPTS, BATCH = 96, 32
 # the pooled phase: prompts, ring capacity, and per batch the rows decided at
 # position 0, resolved at look-ahead step 1, and never resolved; the longest
@@ -451,7 +490,7 @@ LAYOUTS = {k[0]: k[4] for k in KERNELS}
 TILE_KERNELS = ("causal_grouped_attention", "flash_attention",
                 "grouped_attention")
 EDGE_SEQS = (1, 63, 64, 65, 127, 129)
-EDGE_DIMS = (64, 96, 128)
+EDGE_DIMS = (64, 96, 128, 256)
 EDGE_HEADS = ((71, 1), (8, 2), (4, 4))
 EDGE_BATCH = 4
 # S=4097 with one batch row and 4 heads only: the float32 plain version's
@@ -693,6 +732,15 @@ def kernel_phase(attention, gen):
                                  lengths, (True, False))
             del q, k, v
             torch.cuda.empty_cache()
+    for kname, label, b, s, n, g, d in FAMILY_KERNEL_SHAPES:
+        layout = LAYOUTS[kname]
+        q, k, v, lengths = _inputs(gen, b, s, n, g, d, layout)
+        if kname == "flash_attention":
+            k = k.repeat_interleave(n // g, dim=1)
+            v = v.repeat_interleave(n // g, dim=1)
+        rows += _kernel_rows(attention, kname, layout, label, g, q, k, v,
+                             lengths, (True, False))
+        del q, k, v
     return rows
 
 
@@ -2309,8 +2357,8 @@ def _boost_targets(weights, tok, scenarios):
 def _swap_embedding_rows(weights, tok, chosen):
     """Swap, in place, the embedding row of each target token with the row
     of the id ``chosen`` gives it (``{" <target>": id}``), and an untied
-    head's columns the same way, so the id the tokenizer gives the target
-    scores as that id did.  Returns the swapped ``(target id, chosen id)``
+    head's columns (and its bias, GPT-J's) the same way, so the id the
+    tokenizer gives the target scores as that id did.  Returns the swapped ``(target id, chosen id)``
     pairs."""
     import torch
 
@@ -2320,11 +2368,14 @@ def _swap_embedding_rows(weights, tok, chosen):
     emb, head = tree["embed"]["tokens"], tree.get("lm_head")
     pairs = [(yes_no.target_token_ids(tok, [word[1:]])[0], tid)
              for word, tid in chosen.items()]
+    bias = tree.get("lm_head_bias")
     with torch.no_grad():
         for a, b in pairs:
             emb[[a, b]] = emb[[b, a]]
             if head is not None:
                 head[:, [a, b]] = head[:, [b, a]]
+            if bias is not None:
+                bias[[a, b]] = bias[[b, a]]
     return pairs
 
 
@@ -3745,6 +3796,60 @@ CLI_TOKENIZERS = {"tiiuae/falcon-7b": "falcon", "bigscience/bloom-7b1": "bloom",
 # models of the CLI phase that must run dense under --attention-impl flash
 CLI_DENSE = {"bigscience/bloom-7b1", "bigscience/bloomz-7b1",
              "mistralai/Mistral-7B-v0.1"}
+# the other decoder families (phase other_families): each published
+# config.json, at FAMILY_LAYERS of its depth in the phase
+QWEN2_7B = {   # Qwen/Qwen2-7B
+    "model_type": "qwen2", "vocab_size": 152064, "hidden_size": 3584,
+    "num_hidden_layers": 28, "num_attention_heads": 28,
+    "num_key_value_heads": 4, "intermediate_size": 18944,
+    "max_position_embeddings": 131072, "max_window_layers": 28,
+    "rms_norm_eps": 1e-6, "rope_theta": 1000000.0, "sliding_window": 131072,
+    "use_sliding_window": False, "hidden_act": "silu",
+    "tie_word_embeddings": False, "bos_token_id": 151643,
+    "eos_token_id": 151643}
+GPT_J_6B = {   # EleutherAI/gpt-j-6b
+    "model_type": "gptj", "vocab_size": 50400, "n_embd": 4096, "n_layer": 28,
+    "n_head": 16, "n_inner": None, "n_positions": 2048, "rotary_dim": 64,
+    "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5,
+    "tie_word_embeddings": False, "bos_token_id": 50256,
+    "eos_token_id": 50256}
+MPT_7B_INSTRUCT = {   # mosaicml/mpt-7b-instruct
+    "model_type": "mpt", "vocab_size": 50432, "d_model": 4096, "n_heads": 32,
+    "n_layers": 32, "expansion_ratio": 4, "max_seq_len": 2048,
+    "no_bias": True, "learned_pos_emb": True,
+    "attn_config": {"alibi": True, "alibi_bias_max": 8, "attn_impl": "torch",
+                    "attn_pdrop": 0, "attn_type": "multihead_attention",
+                    "clip_qkv": None, "prefix_lm": False, "qk_ln": False,
+                    "softmax_scale": None}}
+GLM_4_9B_CHAT_HF = {   # THUDM/glm-4-9b-chat-hf
+    "model_type": "glm", "vocab_size": 151552, "hidden_size": 4096,
+    "intermediate_size": 13696, "num_hidden_layers": 40,
+    "num_attention_heads": 32, "num_key_value_heads": 2, "head_dim": 128,
+    "partial_rotary_factor": 0.5, "rms_norm_eps": 1.5625e-07,
+    "rope_theta": 10000.0, "max_position_embeddings": 131072,
+    "attention_bias": True, "hidden_act": "silu",
+    "tie_word_embeddings": False, "pad_token_id": 151329,
+    "eos_token_id": [151329, 151336, 151338]}
+CHATGLM3_6B = {   # THUDM/chatglm3-6b
+    "model_type": "chatglm", "vocab_size": 65024, "padded_vocab_size": 65024,
+    "hidden_size": 4096, "ffn_hidden_size": 13696, "kv_channels": 128,
+    "num_layers": 28, "num_attention_heads": 32, "seq_length": 8192,
+    "layernorm_epsilon": 1e-5, "rmsnorm": True, "add_bias_linear": False,
+    "add_qkv_bias": True, "multi_query_attention": True,
+    "multi_query_group_num": 2, "original_rope": True,
+    "tie_word_embeddings": False}
+# the other_families phase: (label, model, config, routes); MPT runs dense
+# only (ALiBi: the causal kernel takes no bias, in both packages)
+OTHER_FAMILY_MODELS = [
+    ("qwen2-7b", "Qwen/Qwen2-7B", QWEN2_7B, ("flash", "xla")),
+    ("gpt-j-6b", "EleutherAI/gpt-j-6b", GPT_J_6B, ("flash", "xla")),
+    ("mpt-7b-instruct", "mosaicml/mpt-7b-instruct", MPT_7B_INSTRUCT,
+     ("xla",)),
+    ("glm-4-9b-chat-hf", "THUDM/glm-4-9b-chat-hf", GLM_4_9B_CHAT_HF,
+     ("flash", "xla")),
+    ("chatglm3-6b", "THUDM/chatglm3-6b", CHATGLM3_6B, ("flash", "xla")),
+]
+OTHER_FAMILIES_BUDGET_S = 45.0
 SCAN_STEPS = 10          # the look-ahead the yes/no scan reads
 FAMILY_LAYERS = 2        # the families and instruct decoders' depth (of
 #                          their 24-32 layers)
@@ -3831,9 +3936,12 @@ def _hf_state_dict(family, cfg, seed, device, dtype):
     NeoX and BLOOM fuse QKV as rows ``[q; k; v]`` per head, Qwen's
     ``c_attn`` and Baichuan's ``W_pack`` as ``[q; k; v]`` whole, Qwen's MLP
     is half its config's ``intermediate_size``; OPT ties its head and
-    stores positions with the +2 offset), made on ``device``: projections,
-    embeddings and linear biases N(0, 0.02^2), norm scales 1 and norm
-    biases 0."""
+    stores positions with the +2 offset; GPT-J's one LayerNorm a layer and
+    biased head; MPT's straight-concat ``Wqkv``, bias-free, tied;
+    GLM-4's fused ``gate_up_proj``; ChatGLM's ``query_key_value`` as ``[q;
+    k; v]`` whole and ``dense_h_to_4h`` as ``[gate; up]``), made on
+    ``device``: projections, embeddings and linear biases N(0, 0.02^2),
+    norm scales 1 and norm biases 0."""
     import torch
 
     gen = torch.Generator(device=device)
@@ -3884,12 +3992,63 @@ def _hf_state_dict(family, cfg, seed, device, dtype):
             norm(f"{pre}.post_attention_layernorm", bias=False)
             for name, out, inp in (("q", n * d, h), ("k", g * d, h),
                                    ("v", g * d, h), ("o", h, n * d)):
-                linear(f"{pre}.self_attn.{name}_proj", out, inp, bias=False)
+                linear(f"{pre}.self_attn.{name}_proj", out, inp,
+                       bias=cfg.qkv_bias and name != "o")
             for name, out, inp in (("gate", f, h), ("up", f, h),
                                    ("down", h, f)):
                 linear(f"{pre}.mlp.{name}_proj", out, inp, bias=False)
         norm("model.norm", bias=False)
         sd["lm_head.weight"] = rnd(v, h)
+    elif family == "glm":
+        sd["model.embed_tokens.weight"] = rnd(v, h)
+        for i in range(cfg.num_layers):
+            pre = f"model.layers.{i}"
+            norm(f"{pre}.input_layernorm", bias=False)
+            norm(f"{pre}.post_attention_layernorm", bias=False)
+            for name, out, inp in (("q", n * d, h), ("k", g * d, h),
+                                   ("v", g * d, h), ("o", h, n * d)):
+                linear(f"{pre}.self_attn.{name}_proj", out, inp,
+                       bias=cfg.qkv_bias and name != "o")
+            linear(f"{pre}.mlp.gate_up_proj", 2 * f, h, bias=False)
+            linear(f"{pre}.mlp.down_proj", h, f, bias=False)
+        norm("model.norm", bias=False)
+        sd["lm_head.weight"] = rnd(v, h)
+    elif family == "gptj":
+        sd["transformer.wte.weight"] = rnd(v, h)
+        for i in range(cfg.num_layers):
+            pre = f"transformer.h.{i}"
+            norm(f"{pre}.ln_1")
+            for name in ("q", "k", "v", "out"):
+                linear(f"{pre}.attn.{name}_proj", h, h, bias=False)
+            linear(f"{pre}.mlp.fc_in", f, h)
+            linear(f"{pre}.mlp.fc_out", h, f)
+        norm("transformer.ln_f")
+        linear("lm_head", v, h)
+    elif family == "mpt":
+        sd["transformer.wte.weight"] = rnd(v, h)
+        for i in range(cfg.num_layers):
+            pre = f"transformer.blocks.{i}"
+            norm(f"{pre}.norm_1", bias=cfg.qkv_bias)
+            norm(f"{pre}.norm_2", bias=cfg.qkv_bias)
+            linear(f"{pre}.attn.Wqkv", 3 * h, h, bias=cfg.qkv_bias)
+            linear(f"{pre}.attn.out_proj", h, h, bias=cfg.qkv_bias)
+            linear(f"{pre}.ffn.up_proj", f, h, bias=cfg.qkv_bias)
+            linear(f"{pre}.ffn.down_proj", h, f, bias=cfg.qkv_bias)
+        norm("transformer.norm_f", bias=cfg.qkv_bias)
+    elif family == "chatglm":
+        pre = "transformer.encoder"
+        sd["transformer.embedding.word_embeddings.weight"] = rnd(v, h)
+        for i in range(cfg.num_layers):
+            lay = f"{pre}.layers.{i}"
+            norm(f"{lay}.input_layernorm", bias=False)
+            norm(f"{lay}.post_attention_layernorm", bias=False)
+            linear(f"{lay}.self_attention.query_key_value", (n + 2 * g) * d,
+                   h, bias=cfg.qkv_bias)
+            linear(f"{lay}.self_attention.dense", h, n * d, bias=False)
+            linear(f"{lay}.mlp.dense_h_to_4h", 2 * f, h, bias=False)
+            linear(f"{lay}.mlp.dense_4h_to_h", h, f, bias=False)
+        norm(f"{pre}.final_layernorm", bias=False)
+        sd["transformer.output_layer.weight"] = rnd(v, h)
     elif family in ("qwen", "baichuan"):
         qwen = family == "qwen"
         emb = "transformer.wte" if qwen else "model.embed_tokens"
@@ -3949,7 +4108,8 @@ def _family_config(config, layers=None):
 def _at_depth(config, layers):
     if layers is None:
         return dict(config)
-    key = "n_layer" if "n_layer" in config else "num_hidden_layers"
+    key = next(k for k in ("n_layer", "n_layers", "num_layers",
+                           "num_hidden_layers") if k in config)
     return {**config, key: layers}
 
 
@@ -4179,7 +4339,7 @@ def _compare_family_rows(what, rows, ref, leads, edge, split, tie, p32,
     return stats, [f"{what}: {f}" for f in fails]
 
 
-def families_phase(seed, attention, card, instruct=False):
+def families_phase(seed, attention, card, instruct=False, workdir=None):
     """Pythia-6.9B, Mistral-7B-Instruct-v0.2 and BLOOM-7b1 at their
     published width (random bf16 weights from ``seed``, made as a HF
     checkpoint and read through the port's converter; FAMILY_LAYERS of
@@ -4192,7 +4352,15 @@ def families_phase(seed, attention, card, instruct=False):
     sweep's per-model call instead, their targets' columns
     scaled until the targets sit in most rows' top 20
     (``_boost_target_columns``), and the causal kernel is timed at each
-    model's longest prompt batch."""
+    model's longest prompt batch.  With ``workdir``, OTHER_FAMILY_MODELS
+    instead: each checkpoint is written under ``workdir`` as a snapshot
+    (its ``config.json`` and a safetensors file) and read back through
+    ``runtime/loader.load_model``, whose weights must equal the
+    converter's on the written tensors bit for bit; each scores the 100
+    instruct prompts through the sweep's per-model call; a model whose
+    head dim the kernels pad to 256 (GPT-J) also runs its longest batch
+    through ``forced_route_phase`` (the head-major kernels at D=256).  The
+    phase table's kernel rows for these shapes come from phase 3."""
     import numpy as np
     import torch
 
@@ -4203,6 +4371,7 @@ def families_phase(seed, attention, card, instruct=False):
     from llm_interpretation_replication_tpu_torch.ops import quant as qops
     from llm_interpretation_replication_tpu_torch.runtime import batching
     from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+    from llm_interpretation_replication_tpu_torch.runtime import loader
     from llm_interpretation_replication_tpu_torch.scoring import yes_no
     from llm_interpretation_replication_tpu_torch.scoring.prompts import (
         format_prompt)
@@ -4210,12 +4379,18 @@ def families_phase(seed, attention, card, instruct=False):
         instruct_sweep, run_model_on_prompts)
 
     device = "cuda"
+    other = workdir is not None
     phase, models = (("instruct", INSTRUCT_DECODERS) if instruct
+                     else ("other_families", OTHER_FAMILY_MODELS) if other
                      else ("families", FAMILY_MODELS))
     questions = ordinary_meaning_questions()
     tok = _question_tokenizer()
     if not instruct:
         prompts, prefix_lens = _question_prompts(tok)
+    if other:   # the instruct prompts only (the second half)
+        prompts, prefix_lens = (prompts[len(questions):],
+                                prefix_lens[len(questions):])
+    forced = {}
     ecfg = emod.EngineConfig(batch_size=BATCH)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 11)
@@ -4236,9 +4411,15 @@ def families_phase(seed, attention, card, instruct=False):
             prefix_lens = None
         target_ids = [yes_no.target_token_ids(tok, ["Yes", "No"])] * len(prompts)
         t0 = time.perf_counter()
-        sd = _hf_state_dict(family, cfg, seed + (60 if instruct else 20) + mi,
+        sd = _hf_state_dict(family, cfg, seed + (60 if instruct else 80
+                                                  if other else 20) + mi,
                             device, torch.bfloat16)
         tree = convert.CONVERTERS[family](sd.__getitem__, cfg)
+        snapshot = None
+        if other:
+            tree, snapshot = _snapshot_round_trip(
+                loader, os.path.join(workdir, label), config, family, cfg,
+                sd, tree, fails)
         del sd
         weights = decoder.DecoderWeights(dense, tree)
         del tree
@@ -4272,6 +4453,17 @@ def families_phase(seed, attention, card, instruct=False):
             edge0.append((r.gather(1, tgt) - kth).abs().min(1).values.cpu())
             p16.append(_filtered_target_probs(a, tgt).cpu())
             p32.append(_filtered_target_probs(r, tgt).cpu())
+        if other and cfg.head_dim > 128:
+            # GPT-J's longest batch through the head-major kernels at D=256
+            longest = max(batches, key=lambda bt: bt.bucket_len)
+            ids = torch.as_tensor(longest.token_ids, device=device).long()
+            mask = torch.as_tensor(longest.attention_mask, device=device)
+            real = torch.as_tensor(longest.indices >= 0, device=device)
+            forced[label] = forced_route_phase(
+                attention, weights, dataclasses.replace(
+                    cfg, attention_impl="flash"), ref_w, longest,
+                decoder.forward_last_logits(weights, dense, ids, mask)[real],
+                decoder.forward_last_logits(ref_w, dense, ids, mask)[real])
         del ref_w
         torch.cuda.empty_cache()
         clear = torch.cat(edge0).numpy() >= tie
@@ -4296,7 +4488,8 @@ def families_phase(seed, attention, card, instruct=False):
             engine = _Recorder(emod.ScoringEngine(
                 family, rcfg, rweights, tok, engine_config=rcfg_e,
                 device=device))
-            engine.score_prompts([("a b", " c")])       # warm-up, not counted
+            if not other:    # warm-up, not counted (timed routes only)
+                engine.score_prompts([("a b", " c")])
             engine.rows = []
             _reset_launches(attention)
             counted["prefill"] = 0
@@ -4308,6 +4501,9 @@ def families_phase(seed, attention, card, instruct=False):
                 if instruct:
                     csv_rows = list(instruct_sweep._score_model(
                         engine, model, questions, False).values())
+                elif other:
+                    csv_rows = run_model_on_prompts(engine, model, questions,
+                                                    False)
                 else:
                     csv_rows = []
                     for base in (True, False):
@@ -4318,28 +4514,33 @@ def families_phase(seed, attention, card, instruct=False):
             finally:
                 decoder.prefill = real_prefill
             launches = _launches(attention)["causal_grouped_attention"]
-            # one prefill of the longest base prefix+suffix batch, timed
-            longest = max(batches, key=lambda bt: bt.bucket_len)
-            ids = torch.as_tensor(longest.token_ids, device=device).long()
-            mask = torch.as_tensor(longest.attention_mask, device=device)
-            kcfg = dataclasses.replace(rcfg, kv_cache_dtype=rcfg_e.kv_dtype)
-            prefill_ms = time_ms(lambda: decoder.prefill(
-                rweights, kcfg, ids, mask, longest.bucket_len), iters=3,
-                warmup=1)
-            # ms a look-ahead step: one scan chunk from that prefill's cache
-            last, cache = decoder.prefill(rweights, kcfg, ids, mask,
-                                          longest.bucket_len)
-            tgt = torch.as_tensor([target_ids[0]] * ids.shape[0],
-                                  device=device)
-            step_ms = time_ms(lambda: decoder.decode_steps(
-                rweights, kcfg, cache, last, mask.sum(-1), 0, ecfg.scan_chunk,
-                None, None, with_scores="reduced", target_ids=tgt),
-                iters=2, warmup=1) / ecfg.scan_chunk
-            del last, cache
+            prefill_ms = step_ms = None
+            if not other:    # other_families: its budget takes no timing
+                # one prefill of the longest base prefix+suffix batch, timed
+                longest = max(batches, key=lambda bt: bt.bucket_len)
+                ids = torch.as_tensor(longest.token_ids, device=device).long()
+                mask = torch.as_tensor(longest.attention_mask, device=device)
+                kcfg = dataclasses.replace(rcfg,
+                                           kv_cache_dtype=rcfg_e.kv_dtype)
+                prefill_ms = [longest.bucket_len, time_ms(
+                    lambda: decoder.prefill(rweights, kcfg, ids, mask,
+                                            longest.bucket_len),
+                    iters=3, warmup=1)]
+                # ms a look-ahead step: one scan chunk from that prefill's
+                # cache
+                last, cache = decoder.prefill(rweights, kcfg, ids, mask,
+                                              longest.bucket_len)
+                tgt = torch.as_tensor([target_ids[0]] * ids.shape[0],
+                                      device=device)
+                step_ms = time_ms(lambda: decoder.decode_steps(
+                    rweights, kcfg, cache, last, mask.sum(-1), 0,
+                    ecfg.scan_chunk, None, None, with_scores="reduced",
+                    target_ids=tgt), iters=2, warmup=1) / ecfg.scan_chunk
+                del last, cache
             res = dict(model=label, route=route, rows=len(csv_rows),
                        seconds=elapsed, rows_per_s=len(csv_rows) / elapsed,
                        prefills=counted["prefill"], kernel_launches=launches,
-                       prefill_ms_bucket=[longest.bucket_len, prefill_ms],
+                       prefill_ms_bucket=prefill_ms,
                        decode_ms_per_step=step_ms,
                        peak_memory_bytes=torch.cuda.max_memory_allocated(),
                        success_rows=sum(bool(r["success"]) for r in csv_rows),
@@ -4397,7 +4598,7 @@ def families_phase(seed, attention, card, instruct=False):
             del qweights
         # the causal kernel at this family's prefix-prefill shape (the
         # longest prompt batch's, for instruct prompts)
-        if "flash" in routes:
+        if "flash" in routes and not other:
             if instruct:
                 bt = max(batches, key=lambda b: (b.bucket_len,
                                                  int((b.indices >= 0).sum())))
@@ -4414,6 +4615,7 @@ def families_phase(seed, attention, card, instruct=False):
                       layers=cfg.num_layers, width=cfg.hidden_size,
                       heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
                       vocab=cfg.vocab_size, weights_s=make_s,
+                      snapshot=snapshot,
                       swapped_target_rows=swapped, target_boost=boost,
                       rounding=rounding, runs=runs, gates=gates, card=card)
         say(f"{phase} gates", json.dumps({k: v for k, v in result.items()
@@ -4421,7 +4623,7 @@ def families_phase(seed, attention, card, instruct=False):
         results.append(result)
         del weights
         torch.cuda.empty_cache()
-    if not instruct:
+    if not (instruct or other):
         # StableLM-alpha-7B's head shape (48 heads of 128) at the same
         # prefix shape: its model runs only in the CLI phase, at 2 layers
         fam, scfg = _family_config(STABLELM_ALPHA_7B)
@@ -4432,8 +4634,61 @@ def families_phase(seed, attention, card, instruct=False):
     if fails:
         raise AssertionError(f"{phase}: {len(fails)} failures: "
                              + "; ".join(fails[:20]))
-    return dict(models=results, kernel_rows=kernel_rows,
+    return dict(models=results, kernel_rows=kernel_rows, forced_routes=forced,
                 runs=[r for m in results for r in m["runs"]])
+
+
+def _snapshot_round_trip(loader, snap, config, family, cfg, sd, tree, fails,
+                         device="cuda"):
+    """Write ``sd`` as a snapshot at ``snap`` (``config`` at FAMILY_LAYERS
+    as its ``config.json``, the tensors in one safetensors file), read it
+    back through ``loader.load_model`` onto ``device`` in bf16 and hold the
+    loaded config and weights to ``cfg`` and the converter's ``tree``,
+    bit for bit.  Returns (the loaded tree, sizes and seconds); the
+    snapshot is deleted."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    os.makedirs(snap)
+    t0 = time.perf_counter()
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump(_at_depth(config, FAMILY_LAYERS), f)
+    _write_safetensors(os.path.join(snap, "model.safetensors"), sd)
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(snap, "model.safetensors"))
+    t0 = time.perf_counter()
+    lfamily, lcfg, loaded = loader.load_model(snap, dtype="bf16",
+                                              device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(snap)
+    want = dict(decoder._flatten(tree))
+    got = dict(decoder._flatten(loaded.tree()))
+    differ = sorted("/".join(k) for k in want.keys() | got.keys()
+                    if k not in want or k not in got
+                    or not torch.equal(want[k], got[k]))
+    if lfamily != family or lcfg != cfg or differ:
+        fails.append(f"{snap}: load_model gave {lfamily}, config equal "
+                     f"{lcfg == cfg}, leaves that differ {differ[:5]}")
+    return loaded.tree(), dict(bytes=nbytes, write_s=write_s, load_s=load_s)
+
+
+def other_families_phase(seed, attention, workdir, card):
+    """Phase other_families: ``families_phase`` over OTHER_FAMILY_MODELS
+    (Qwen2-7B, GPT-J-6B, MPT-7B-Instruct, GLM-4-9B, ChatGLM3-6B at their
+    published widths and FAMILY_LAYERS of their depth), each read from a
+    snapshot under ``workdir``, within OTHER_FAMILIES_BUDGET_S."""
+    t0 = time.perf_counter()
+    res = families_phase(seed, attention, card,
+                         workdir=tempfile.mkdtemp(prefix="other_", dir=workdir))
+    res["seconds"] = time.perf_counter() - t0
+    if res["seconds"] > OTHER_FAMILIES_BUDGET_S:
+        raise AssertionError(
+            f"other_families: {res['seconds']:.1f} s, past its "
+            f"{OTHER_FAMILIES_BUDGET_S:.0f} s budget")
+    return res
 
 
 def _quantized_route_gate(label, rows, ref, paths, prompts, prefix_lens,
@@ -4775,11 +5030,13 @@ def _run_100q(snaps, out, extra=(), signal_after_first=False):
 def run100q_cli_phase(seed, workdir, card):
     """``run-100q --attention-impl flash`` over 2-layer snapshots of the
     sweep's twelve models at their published widths, in a child process:
-    1200 rows in the CSV's 10 columns, each with ``success``; one attention
-    line a model (dense for BLOOM and Mistral-7B-v0.1); then a run that a
-    SIGTERM stops after its first model leaves a checkpoint of exactly that
-    model's rows, and resuming it skips that model and writes the same
-    CSV; a rerun over a finished output directory skips all twelve."""
+    a run that a SIGTERM stops after its first model leaves a checkpoint of
+    exactly that model's rows; resuming it (under ``--strict``) skips that
+    model, scores the other eleven and writes 1200 rows in the CSV's 10
+    columns, each with ``success``, the first model's the checkpoint's;
+    one attention line a model it scores (dense for BLOOM and
+    Mistral-7B-v0.1); a rerun over the finished output skips all twelve.
+    (No uninterrupted run: the resume scores eleven of the twelve.)"""
     import csv
 
     from llm_interpretation_replication_tpu_torch.config import (
@@ -4810,15 +5067,30 @@ def run100q_cli_phase(seed, workdir, card):
     def attention_lines(err):
         return dict(re.findall(r"^# (\S+): attention (\w+) ", err, re.M))
 
-    # (1) the whole sweep
+    # (1) SIGTERM after the first model
     out = os.path.join(workdir, "run100q")
+    rc2, _, se2, secs2 = _run_100q(snaps, out, signal_after_first=True)
+    with open(os.path.join(out, "base_vs_instruct_100q_checkpoint.json")) as f:
+        state = json.load(f)
+    kept = sorted({r["model"] for r in state["results"]})
+    runs.append(dict(run="sigterm", rc=rc2, seconds=secs2,
+                     completed_models=state["completed_models"],
+                     checkpoint_rows=len(state["results"])))
+    say("run-100q", json.dumps(dict(runs[-1], card=card)))
+    if (rc2 != 143 or state["completed_models"] != names[:1]
+            or kept != names[:1] or len(state["results"]) != len(questions)):
+        fails.append(f"run-100q SIGTERM: exit {rc2}, checkpoint "
+                     f"{state['completed_models']} with "
+                     f"{len(state['results'])} rows of {kept}")
+
+    # (2) the resume: the rest of the sweep, under strict mode
     rc, so, se, secs = _run_100q(snaps, out, extra=("--strict",))
     audit = _strict_audit(se)
-    runs.append(dict(run="full", rc=rc, seconds=secs, strict=audit,
-                     rows_per_s=len(names) * len(questions) / secs))
+    runs.append(dict(run="resume", rc=rc, seconds=secs, strict=audit,
+                     rows_per_s=(len(names) - 1) * len(questions) / secs))
     say("run-100q", json.dumps(dict(runs[-1], card=card)))
     if rc != 0:
-        raise AssertionError(f"run-100q exited {rc}: {se[-3000:]}")
+        raise AssertionError(f"run-100q resume exited {rc}: {se[-3000:]}")
     if len(audit) != 1 or audit[0]["blocked_transfers"] != 0:
         fails.append(f"run-100q --strict: audit {audit}")
     raw, rows = csv_of(out)
@@ -4833,38 +5105,20 @@ def run100q_cli_phase(seed, workdir, card):
     if f"{n} rows" not in so.splitlines():
         fails.append(f"run-100q printed {so.splitlines()[-1:]}")
     lines = attention_lines(se)
-    want = {m: "xla" if m in CLI_DENSE else "flash" for m in names}
-    if lines != want:
-        fails.append(f"run-100q attention lines {lines}, want {want}")
+    want = {m: "xla" if m in CLI_DENSE else "flash" for m in names[1:]}
+    if f"Skipping {names[0]} (already completed)" not in so or lines != want:
+        fails.append(f"run-100q resume: attention lines {lines}, want {want}")
     order = [r[rows[0].index("model")] for r in rows[1:]]
     if order != [m for m in names for _ in questions]:
         fails.append("run-100q: rows not in roster order")
-
-    # (2) SIGTERM after the first model, then the resume
-    out2 = os.path.join(workdir, "run100q_preempted")
-    rc2, _, se2, secs2 = _run_100q(snaps, out2, signal_after_first=True)
-    with open(os.path.join(out2, "base_vs_instruct_100q_checkpoint.json")) as f:
-        state = json.load(f)
-    kept = sorted({r["model"] for r in state["results"]})
-    runs.append(dict(run="sigterm", rc=rc2, seconds=secs2,
-                     completed_models=state["completed_models"],
-                     checkpoint_rows=len(state["results"])))
-    say("run-100q", json.dumps(dict(runs[-1], card=card)))
-    if (rc2 != 143 or state["completed_models"] != names[:1]
-            or kept != names[:1] or len(state["results"]) != len(questions)):
-        fails.append(f"run-100q SIGTERM: exit {rc2}, checkpoint "
-                     f"{state['completed_models']} with "
-                     f"{len(state['results'])} rows of {kept}")
-    rc3, so3, se3, secs3 = _run_100q(snaps, out2)
-    runs.append(dict(run="resume", rc=rc3, seconds=secs3))
-    say("run-100q", json.dumps(dict(runs[-1], card=card)))
-    if rc3 != 0:
-        raise AssertionError(f"run-100q resume exited {rc3}: {se3[-3000:]}")
-    if f"Skipping {names[0]} (already completed)" not in so3 or \
-            set(attention_lines(se3)) != set(names[1:]):
-        fails.append("run-100q resume did not skip just the first model")
-    if csv_of(out2)[0] != raw:
-        fails.append("run-100q resume: the CSV differs from the whole run's")
+    # the first model's rows are the checkpoint's, field for field
+    for row, ck in zip(rows[1:1 + len(questions)], state["results"]):
+        for col, cell in zip(rows[0], row):
+            v = ck[col]
+            if (float(cell) != v if isinstance(v, float) else cell != str(v)):
+                fails.append(f"run-100q resume: {col} {cell!r} vs the "
+                             f"checkpoint's {v!r}")
+                break
 
     # (3) a rerun over the finished output: nothing to score
     rc4, so4, se4, secs4 = _run_100q(snaps, out)
@@ -5317,8 +5571,10 @@ def instruct_cli_phase(seed, workdir, card):
     in [0, 1]; one attention line a model (dense for BLOOMZ and the T5
     models, whose int8 request loads bf16 with a warning); then a run a
     SIGTERM stops after its first model keeps exactly that model's rows,
-    resuming it writes the same CSV, and a rerun over the finished output
-    scores nothing."""
+    resuming it (under ``--strict``) writes the whole CSV, the first
+    model's rows the checkpoint's, and a rerun over the finished output
+    scores nothing (no uninterrupted run: the resume scores nine of the
+    ten)."""
     import csv
 
     from llm_interpretation_replication_tpu_torch.config import (
@@ -5364,14 +5620,28 @@ def instruct_cli_phase(seed, workdir, card):
     def attention_lines(err):
         return dict(re.findall(r"^# (\S+): attention (\w+) ", err, re.M))
 
+    # a run SIGTERM'd after its first model, then its resume under strict
+    # mode: together the whole sweep
     out = os.path.join(workdir, "instruct")
+    rc2, _, se2, secs2 = _run_instruct(snaps, out, signal_after_first=True)
+    with open(os.path.join(out, "instruct_sweep_checkpoint.json")) as f:
+        state = json.load(f)
+    kept = list(state["outputs"])
+    runs.append(dict(run="sigterm", rc=rc2, seconds=secs2, kept=kept,
+                     checkpoint_rows=sum(map(len, state["outputs"].values()))))
+    say("run-instruct-sweep", json.dumps(dict(runs[-1], card=card)))
+    if rc2 != 143 or kept != names[:1] or \
+            len(state["outputs"][names[0]]) != len(questions):
+        fails.append(f"run-instruct-sweep SIGTERM: exit {rc2}, checkpoint of "
+                     f"{kept}")
     rc, so, se, secs = _run_instruct(snaps, out, extra=("--strict",))
     audit = _strict_audit(se)
-    runs.append(dict(run="full", rc=rc, seconds=secs, strict=audit,
-                     rows_per_s=n / secs))
+    runs.append(dict(run="resume", rc=rc, seconds=secs, strict=audit,
+                     rows_per_s=(n - len(questions)) / secs))
     say("run-instruct-sweep", json.dumps(dict(runs[-1], card=card)))
     if rc != 0:
-        raise AssertionError(f"run-instruct-sweep exited {rc}: {se[-3000:]}")
+        raise AssertionError(f"run-instruct-sweep resume exited {rc}: "
+                             f"{se[-3000:]}")
     if len(audit) != 1 or audit[0]["blocked_transfers"] != 0:
         fails.append(f"run-instruct-sweep --strict: audit {audit}")
     raw, rows = csv_of(out)
@@ -5387,41 +5657,29 @@ def instruct_cli_phase(seed, workdir, card):
                      f"{bad[0]}")
     if f"{n} rows over {len(questions)} questions" not in so.splitlines():
         fails.append(f"run-instruct-sweep printed {so.splitlines()[-1:]}")
-    lines = attention_lines(se)
+    # the first model's attention line and T5 warning are the SIGTERM'd
+    # run's, the others the resume's
+    lines = {**attention_lines(se2), **attention_lines(se)}
     want = {m: "xla" if m in INSTRUCT_DENSE else "flash" for m in names}
-    if lines != want:
-        fails.append(f"run-instruct-sweep attention lines {lines}, want {want}")
-    if se.count("UserWarning: int8 quantization unsupported for T5") != 2:
+    if lines != want or f"Skipping {names[0]} (checkpointed)" not in so or \
+            set(attention_lines(se)) != set(names[1:]):
+        fails.append(f"run-instruct-sweep attention lines {lines}, want "
+                     f"{want}")
+    if (se2 + se).count(
+            "UserWarning: int8 quantization unsupported for T5") != 2:
         fails.append("run-instruct-sweep: no int8 warning for the T5 models")
     order = [r[col["model"]] for r in rows[1:]]
     if order != [m for m in names for _ in questions]:
         fails.append("run-instruct-sweep: rows not in roster order")
-
-    out2 = os.path.join(workdir, "instruct_preempted")
-    rc2, _, _, secs2 = _run_instruct(snaps, out2, signal_after_first=True)
-    with open(os.path.join(out2, "instruct_sweep_checkpoint.json")) as f:
-        state = json.load(f)
-    kept = list(state["outputs"])
-    runs.append(dict(run="sigterm", rc=rc2, seconds=secs2, kept=kept,
-                     checkpoint_rows=sum(map(len, state["outputs"].values()))))
-    say("run-instruct-sweep", json.dumps(dict(runs[-1], card=card)))
-    if rc2 != 143 or kept != names[:1] or \
-            len(state["outputs"][names[0]]) != len(questions):
-        fails.append(f"run-instruct-sweep SIGTERM: exit {rc2}, checkpoint of "
-                     f"{kept}")
-    rc3, so3, se3, secs3 = _run_instruct(snaps, out2)
-    runs.append(dict(run="resume", rc=rc3, seconds=secs3))
-    say("run-instruct-sweep", json.dumps(dict(runs[-1], card=card)))
-    if rc3 != 0:
-        raise AssertionError(f"run-instruct-sweep resume exited {rc3}: "
-                             f"{se3[-3000:]}")
-    if f"Skipping {names[0]} (checkpointed)" not in so3 or \
-            set(attention_lines(se3)) != set(names[1:]):
-        fails.append("run-instruct-sweep resume did not skip just the first "
-                     "model")
-    if csv_of(out2)[0] != raw:
-        fails.append("run-instruct-sweep resume: the CSV differs from the "
-                     "whole run's")
+    # the first model's rows are the checkpoint's, field for field
+    for row in rows[1:1 + len(questions)]:
+        ck = state["outputs"][names[0]][row[col["prompt"]]]
+        if any(float(row[col[c]]) != ck[c] for c in
+               ("yes_prob", "no_prob", "relative_prob")) or \
+                row[col["model_output"]] != ck["completion"]:
+            fails.append(f"run-instruct-sweep resume: {row} vs the "
+                         f"checkpoint's {ck}")
+            break
     rc4, so4, se4, secs4 = _run_instruct(snaps, out)
     runs.append(dict(run="rerun", rc=rc4, seconds=secs4))
     say("run-instruct-sweep", json.dumps(dict(runs[-1], card=card)))
@@ -7687,7 +7945,7 @@ def api_phase(seed, attention, weights, workdir, card):
 # The pandas-free statistics layer on the card's host (phase 22)
 # ---------------------------------------------------------------------------
 
-STATS_BUDGET_S = 20.0
+STATS_BUDGET_S = 30.0    # the vendor leg's VENDOR_EVAL_BUDGET_S included
 #: ``power-analysis`` at its defaults (10,000 simulations): N(80%) a model
 #: and the recommended N with its margin, analytic (normal quantiles), as
 #: the JAX package's command prints them on the CPU
@@ -8061,13 +8319,210 @@ def _analysis_leg(workdir, run100q_csv, instruct_csv, seed):
                        "correlation")),
                survey_sha256=digest, survey_sha256_pinned=pinned,
                survey_numbers=_survey_numbers(results, demographics),
-               plain_quality=plain,
+               plain_quality=plain, table5_analysed=expect_ok,
+               survey_csvs=[s1, s2],
                seconds=seconds, model_comparison=printed_cmp.splitlines()[:3])
     return res, fails
 
 
+VENDOR_EVAL_BUDGET_S = 10.0
+VENDOR_IRRELEVANT_LIMIT = 60       # evaluations, split over the three vendors
+VENDOR_REPLICATION_BOOTSTRAP = (200, 5)   # MAE, cross-prompt resamples
+#: verify-replication's checks: Tables 3 and 4, the two appendix tables
+#: and Table 5's row a family (an analysed family has two more)
+VENDOR_CHECKS_FIXED = 5 + 6 + 3 + 3 + 3
+
+
+class _FigureRecorder:
+    """A stand-in for ``viz.figures`` on the card's host, which has no
+    matplotlib: every figure call is recorded (its name) and returns its
+    PNG path, drawing nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def figure(*args, **kwargs):
+            self.calls.append(name)
+            return next(a for a in [*args, *kwargs.values()]
+                        if isinstance(a, str) and a.endswith(".png"))
+        return figure
+
+
+def _vendor_eval_leg(workdir, instruct_csv, run100q_csv, surveys, analysed,
+                     corpus=None):
+    """The three vendor-evaluation commands on the card's host, through the
+    port's CLI in this process, over the scripted vendors (phase 21's
+    ``_api_transport``; no socket), their pacing sleeps skipped:
+    ``run-closed-source --yes`` over the run-instruct-sweep CSV and the
+    synthetic exports ``surveys`` (the results CSV in the section 2.8
+    columns, one row a question; finite MAEs; a second run asks nothing;
+    ``tests/test_torch_vendor_eval.py`` holds the cache's partial and full
+    re-runs); ``run-irrelevant --limit
+    VENDOR_IRRELEVANT_LIMIT`` over phase 21's ``corpus`` (written by
+    ``generate-irrelevant`` here when None; a finite consistency
+    table; a rerun loads the saved results, and a ``--force-rerun --limit
+    0`` resume from the triple checkpoint rewrites the same analysis, both
+    asking nothing); ``verify-replication`` over a reference tree of these
+    files under the reference's names and ``--results-100q`` (a verdict on
+    every check, exit 1 exactly when its JSON counts a FAIL, the check
+    count VENDOR_CHECKS_FIXED plus 2 a Table-5 family ``analysed``).  The
+    card's host has no matplotlib: ``viz.figures`` is a
+    :class:`_FigureRecorder` for the leg.  Returns (result, fails)."""
+    import math
+
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+    from llm_interpretation_replication_tpu_torch import api_backends as api
+    from llm_interpretation_replication_tpu_torch.analysis.closed_source_eval \
+        import RESULT_COLUMNS
+    from llm_interpretation_replication_tpu_torch.analysis.replication import (
+        TABLE5_FAMILIES)
+    from llm_interpretation_replication_tpu_torch.api_backends import (
+        anthropic_client, gemini_client, openai_client)
+    from llm_interpretation_replication_tpu_torch.utils import frame
+
+    fails, seconds, calls = [], {}, []
+    s1, s2 = surveys
+    figures = _FigureRecorder()
+    fig_module = "llm_interpretation_replication_tpu_torch.viz.figures"
+    saved = dict(sleep=time.sleep, figures=sys.modules.get(fig_module),
+                 transports={m: m.UrllibTransport for m in (
+                     openai_client, anthropic_client, gemini_client)})
+    for mod, vendor in ((openai_client, "openai"),
+                        (anthropic_client, "anthropic"),
+                        (gemini_client, "gemini")):
+        mod.UrllibTransport = functools.partial(
+            lambda v: _api_transport(api, v, calls), vendor)
+    for var in ("OPENAI_API_KEY", "ANTHROPIC_API_KEY", "GEMINI_API_KEY"):
+        os.environ[var] = "scripted-key"
+    sys.modules[fig_module] = figures
+    time.sleep = lambda s: None
+
+    def run(name, argv):
+        asked = len(calls)
+        t0 = time.perf_counter()
+        code = 0
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            try:
+                cli.main(argv)
+            except SystemExit as exit_:
+                code = exit_.code
+        seconds[name] = time.perf_counter() - t0
+        return code, buf.getvalue(), len(calls) - asked
+
+    def finite(*xs):
+        return all(isinstance(x, (int, float)) and math.isfinite(x) for x in xs)
+
+    try:
+        # the frontier-API evaluation (Tables 3-4's data leg)
+        cs_dir = os.path.join(workdir, "closed_source")
+        argv = ["run-closed-source", "--questions-csv", instruct_csv,
+                "--survey2-csv", s2, "--survey1-csv", s1, "--output-dir",
+                cs_dir, "--yes"]
+        _, _, asked = run("run_closed_source", argv)
+        results_csv = os.path.join(cs_dir, "closed_source_evaluation_results.csv")
+        columns, rows = frame.read_csv(results_csv)
+        with open(os.path.join(cs_dir, "human_comparisons.json")) as f:
+            mae = json.load(f)["mae"]
+        if columns != RESULT_COLUMNS or len(rows) != 100 or \
+                len({r["question"] for r in rows}) != 100 or not asked:
+            fails.append(f"run-closed-source: {len(rows)} rows, "
+                         f"{len({r['question'] for r in rows})} questions, "
+                         f"{asked} requests")
+        if sorted(mae) != sorted(["GPT", "Gemini", "Claude", "Random",
+                                  "Equanimity", "Normal"]) or not all(
+                finite(m["mae"], m["ci_lower"], m["ci_upper"])
+                for m in mae.values()):
+            fails.append(f"run-closed-source: MAE records {mae}")
+        _, _, again = run("run_closed_source_again", argv)
+        if again:
+            fails.append(f"run-closed-source rerun asked {again} requests")
+        closed_source = dict(rows=len(rows), requests=asked,
+                             mae={k: v["mae"] for k, v in mae.items()})
+
+        # the irrelevant-insertion study
+        irr_dir = os.path.join(workdir, "irrelevant")
+        if corpus is None:
+            corpus = os.path.join(workdir, "perturbations_irrelevant.json")
+            run("generate_irrelevant", ["generate-irrelevant", "--output",
+                                        corpus])
+        argv = ["run-irrelevant", "--perturbations", corpus, "--output-dir",
+                irr_dir, "--limit", str(VENDOR_IRRELEVANT_LIMIT)]
+        _, _, asked = run("run_irrelevant", argv)
+        _, summary = frame.read_csv(os.path.join(irr_dir, "summary.csv"))
+        with open(os.path.join(irr_dir, "analysis.json"), "rb") as f:
+            analysis = f.read()
+        with open(os.path.join(irr_dir, "progress.json")) as f:
+            done = json.load(f)["done"]
+        if done != VENDOR_IRRELEVANT_LIMIT or \
+                asked != 2 * VENDOR_IRRELEVANT_LIMIT or not summary or \
+                not all(finite(r["consistency"]) for r in summary):
+            fails.append(f"run-irrelevant: {done} evaluations, {asked} "
+                         f"requests, consistency "
+                         f"{[r['consistency'] for r in summary]}")
+        _, printed, again = run("run_irrelevant_again", argv)
+        _, _, resumed = run("run_irrelevant_resume", [
+            *argv[:-2], "--force-rerun", "--limit", "0"])
+        with open(os.path.join(irr_dir, "analysis.json"), "rb") as f:
+            same = f.read() == analysis
+        if again or resumed or "--force-rerun" not in printed or not same:
+            fails.append(f"run-irrelevant reruns asked {again} and {resumed} "
+                         f"requests; the resumed analysis equal: {same}")
+        irrelevant = dict(evaluations=done, requests=asked,
+                          consistency={f"{r['model']}/{r['scenario']}":
+                                       r["consistency"] for r in summary})
+
+        # the replication verifier over a reference tree of these files
+        ref = os.path.join(workdir, "reference")
+        links = {"data/word_meaning_survey_results.csv": s1,
+                 "data/word_meaning_survey_results_part_2.csv": s2,
+                 "data/instruct_model_comparison_results.csv": instruct_csv,
+                 "data/instruct_model_comparison_results_combined.csv":
+                     instruct_csv,
+                 "results/closed_source_evaluation/"
+                 "closed_source_evaluation_results.csv": results_csv}
+        for rel, src in links.items():
+            os.makedirs(os.path.dirname(os.path.join(ref, rel)), exist_ok=True)
+            os.symlink(src, os.path.join(ref, rel))
+        out_json = os.path.join(workdir, "replication.json")
+        boot, cross = VENDOR_REPLICATION_BOOTSTRAP
+        code, printed, _ = run("verify_replication", [
+            "verify-replication", "--reference-root", ref, "--results-100q",
+            run100q_csv, "--bootstrap", str(boot), "--cross-prompt-bootstrap",
+            str(cross), "--output-json", out_json])
+        with open(out_json) as f:
+            result = json.load(f)
+        want = VENDOR_CHECKS_FIXED + 2 * sum(
+            bool(analysed.get(fam)) for fam in TABLE5_FAMILIES)
+        verdicts = [c["verdict"] for c in result["checks"]]
+        if any(v not in ("PASS", "FAIL", "SKIP") for v in verdicts) or \
+                len(verdicts) != want or \
+                code != (1 if result["n_fail"] else 0) or \
+                f"{result['n_pass']} PASS, {result['n_fail']} FAIL" \
+                not in printed:
+            fails.append(f"verify-replication: exit {code}, {len(verdicts)} "
+                         f"checks (want {want}), {result['n_fail']} FAIL")
+        replication = dict(exit=code, checks=len(verdicts),
+                           n_pass=result["n_pass"], n_fail=result["n_fail"],
+                           n_skip=result["n_skip"],
+                           report=[line for line in printed.splitlines()
+                                   if " PASS, " in line])
+    finally:
+        time.sleep = saved["sleep"]
+        for mod, transport in saved["transports"].items():
+            mod.UrllibTransport = transport
+        if saved["figures"] is None:
+            sys.modules.pop(fig_module, None)
+        else:
+            sys.modules[fig_module] = saved["figures"]
+    seconds["total"] = sum(seconds.values())
+    return dict(closed_source=closed_source, irrelevant=irrelevant,
+                replication=replication, figures=sorted(set(figures.calls)),
+                seconds=seconds), fails
+
+
 def _stats_host_child(workdir, run100q_csv=None, instruct_csv=None, seed=0,
-                      launched=None):
+                      launched=None, corpus=None):
     """The statistics layer on the card's host, in a process of its own:
     the native Levenshtein built and loaded (``using_native()``), held
     against the plain version on STATS_PLAIN_PAIRS pairs; the BM25 and
@@ -8075,7 +8530,9 @@ def _stats_host_child(workdir, run100q_csv=None, instruct_csv=None, seed=0,
     ``power-analysis`` at its defaults and ``sample-statements`` through
     the port's CLI; then, given the run-100q and run-instruct-sweep CSVs,
     the analysis commands over them and a synthetic survey from ``seed``
-    (:func:`_analysis_leg`).  Prints one JSON line; the process must end
+    (:func:`_analysis_leg`), then the vendor-evaluation commands over the
+    same files and the irrelevant-insertion ``corpus`` (phase 21's; written
+    here when None) (:func:`_vendor_eval_leg`).  Prints one JSON line; the process must end
     without a CUDA context and without pandas, matplotlib, sklearn,
     sentence-transformers or JAX.  ``launched`` (the parent's ``time.time()``
     at the launch) times the process's start and imports."""
@@ -8155,17 +8612,23 @@ def _stats_host_child(workdir, run100q_csv=None, instruct_csv=None, seed=0,
         digest = hashlib.sha256(f.read()).hexdigest()
     if digest != SAMPLE_STATEMENTS_SHA256:
         fails.append(f"sample-statements: sha256 {digest}")
-    analysis = None
+    analysis = vendor = None
     if run100q_csv:
         t = time.perf_counter()
         analysis, analysis_fails = _analysis_leg(workdir, run100q_csv,
                                                  instruct_csv, seed)
         seconds["analysis"] = time.perf_counter() - t
         fails += analysis_fails
+        t = time.perf_counter()
+        vendor, vendor_fails = _vendor_eval_leg(
+            workdir, instruct_csv, run100q_csv, analysis["survey_csvs"],
+            analysis["table5_analysed"], corpus)
+        seconds["vendor_eval"] = time.perf_counter() - t
+        fails += vendor_fails
     print(json.dumps(dict(
         using_native=built, native_plain_pairs=len(pairs), texts=len(texts),
         matrices=matrices, power=power, sample_statements_sha256=digest,
-        analysis=analysis, seconds=seconds, fails=fails,
+        analysis=analysis, vendor_eval=vendor, seconds=seconds, fails=fails,
         cuda_initialized=torch.cuda.is_initialized(),
         imported=sorted(m for m in sys.modules if m.split(".")[0] in (
             "pandas", "matplotlib", "sklearn", "sentence_transformers", "jax",
@@ -8181,15 +8644,16 @@ def stats_phase(seed, workdir, card):
     here = os.path.dirname(os.path.abspath(__file__))
     code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
             "chip_smoke._stats_host_child(sys.argv[2], sys.argv[3], "
-            "sys.argv[4], int(sys.argv[5]), float(sys.argv[6]))")
+            "sys.argv[4], int(sys.argv[5]), float(sys.argv[6]), sys.argv[7])")
     own = tempfile.mkdtemp(prefix="stats_", dir=workdir)
     sweeps = [os.path.join(workdir, "run100q",
                            "base_vs_instruct_100q_results.csv"),
               os.path.join(workdir, "instruct",
                            "instruct_model_comparison_results.csv")]
     t0 = time.perf_counter()
+    corpus = os.path.join(workdir, "perturbations_irrelevant.json")
     proc = subprocess.run([sys.executable, "-c", code, here, own, *sweeps,
-                           str(seed), repr(time.time())],
+                           str(seed), repr(time.time()), corpus],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode:
         raise AssertionError(f"stats phase exited {proc.returncode}: "
@@ -8212,9 +8676,39 @@ def stats_phase(seed, workdir, card):
     if res["seconds_with_start"] > STATS_BUDGET_S:
         fails.append(f"stats: {res['seconds_with_start']:.1f} s, past its "
                      f"{STATS_BUDGET_S:.0f} s budget")
+    vendor_s = res["vendor_eval"]["seconds"]["total"]
+    if vendor_s > VENDOR_EVAL_BUDGET_S:
+        fails.append(f"vendor leg: {vendor_s:.1f} s, past its "
+                     f"{VENDOR_EVAL_BUDGET_S:.0f} s budget")
     if fails:
         raise AssertionError("stats: " + "; ".join(fails))
     return res
+
+
+def kernels_line(rows, launches, wide):
+    """The ``{"kernels": [...]}`` entries: each kernel of KERNELS over all
+    its rows (its times those of the Falcon-7B causal row), then each
+    kernel's head-dim-WIDE_HEAD_DIM instance over its rows at that head
+    dim (its times GPT-J-6B's causal row).  ``launches`` and ``wide`` map
+    each kernel to its main-path launches, all and at that head dim."""
+    kernels = []
+    for entry in ("all", "wide"):
+        for name, source, line, _, _ in KERNELS:
+            mine = [r for r in rows if r["kernel"] == name
+                    and (entry == "all" or r.get("D") == WIDE_HEAD_DIM)]
+            main_row = next(r for r in mine if r["causal"] and r.get(
+                "shape") == ("falcon-7b" if entry == "all" else "gpt-j-6b"))
+            kernels.append(dict(
+                name=name if entry == "all" else f"{name}[D={WIDE_HEAD_DIM}]",
+                route="cuda",
+                source=f"llm_interpretation_replication_tpu_torch/ops/csrc/{source}.cu",
+                replaces=f"llm_interpretation_replication_tpu/ops/attention.py:{line}",
+                launches=launches[name] if entry == "all" else wide[name],
+                max_abs_err=max(r["max_abs_err"] for r in mine),
+                ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+                library_ms=main_row["library_ms"]))
+    return kernels
 
 
 def main(argv=None):
@@ -8283,6 +8777,9 @@ def main(argv=None):
         del weights
         torch.cuda.empty_cache()
         fam = timed("families", families_phase, args.seed, attention, card)
+        torch.cuda.empty_cache()
+        oth = timed("other_families", other_families_phase, args.seed,
+                    attention, workdir, card)
         qres = timed("run_100q", run100q_cli_phase, args.seed, workdir, card)
         torch.cuda.empty_cache()
         inst = timed("instruct", instruct_phase, args.seed, attention,
@@ -8297,26 +8794,24 @@ def main(argv=None):
     # the causal kernel's launches over every main-path run (each counted
     # from 0 just before it); the head-major kernels run on forced routes
     causal = causal_launches(sres, pres, fres, ires, wres, pkres, kres, ores,
-                             tres, cres, fam, inst, svres, svcli, apres)
+                             tres, cres, fam, inst, svres, svcli, apres) \
+        + causal_launches(oth)
+    forced = [*oth["forced_routes"].values()]
     launches = {"causal_grouped_attention": causal,
-                "grouped_attention": sres["forced_routes"]["grouped"]["launches"],
-                "flash_attention": sres["forced_routes"]["pallas"]["launches"]}
-    kernels = []
-    for name, source, line, _, _ in KERNELS:
-        mine = [r for r in krows + erows + fam["kernel_rows"]
-                + inst["kernel_rows"] + pkres["kernel_rows"]
-                if r["kernel"] == name]
-        main_row = next(r for r in mine
-                        if r.get("shape") == "falcon-7b" and r["causal"])
-        kernels.append(dict(
-            name=name, route="cuda",
-            source=f"llm_interpretation_replication_tpu_torch/ops/csrc/{source}.cu",
-            replaces=f"llm_interpretation_replication_tpu/ops/attention.py:{line}",
-            launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"]))
+                "grouped_attention": sum(f["grouped"]["launches"] for f in
+                                         [sres["forced_routes"], *forced]),
+                "flash_attention": sum(f["pallas"]["launches"] for f in
+                                       [sres["forced_routes"], *forced])}
+    # each kernel, then its head-dim-256 instance (GPT-J's) as an entry of
+    # its own: its launches are the other_families phase's GPT-J runs
+    wide = {"causal_grouped_attention": sum(
+                r["kernel_launches"] for m in oth["models"]
+                if m["heads"][2] == WIDE_HEAD_DIM for r in m["runs"]),
+            "grouped_attention": sum(f["grouped"]["launches"] for f in forced),
+            "flash_attention": sum(f["pallas"]["launches"] for f in forced)}
+    kernels = kernels_line(krows + erows + fam["kernel_rows"]
+                           + inst["kernel_rows"] + pkres["kernel_rows"],
+                           launches, wide)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, build=build,
@@ -8325,7 +8820,8 @@ def main(argv=None):
                        packed=pkres, k_decode=kres, obs=ores, obs_cli=ocres,
                        tokenizers=tres, serve=svres, serve_cli=svcli,
                        api=apres, stats=stres,
-                       int8=ires, cli=cres, families=fam, run_100q=qres,
+                       int8=ires, cli=cres, families=fam,
+                       other_families=oth, run_100q=qres,
                        instruct=inst,
                        run_instruct_sweep=ires_cli, phase_seconds=seconds,
                        kernels=kernels), f, indent=1)

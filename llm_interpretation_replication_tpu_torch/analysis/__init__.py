@@ -1,12 +1,28 @@
-"""The analysis commands' modules on row dicts (copies of the JAX
-package's ``analysis/`` but its three vendor-evaluation modules,
-``closed_source_eval``, ``irrelevant_eval`` and ``replication``, which
-ROADMAP.md queue 1's "Statistics, survey, analysis and figures — the
-pandas part" still lists).  Importing the package loads no matplotlib:
-each figure imports ``viz.figures`` when it is drawn."""
+"""The analysis commands' modules on row dicts: copies of the JAX package's
+``analysis/``, its three vendor-evaluation modules (``closed_source_eval``,
+``irrelevant_eval``, ``replication``) among them.  Importing the package
+loads no matplotlib: each figure imports ``viz.figures`` when it is
+drawn."""
 
 from .base_vs_instruct_figs import base_vs_instruct_figures, process_model_pair
+from .closed_source_eval import (
+    calculate_correlations,
+    compare_with_human_data,
+    evaluate_all_models,
+    write_report,
+)
 from .combined_confidence import ModelConfidenceAnalyzer, run_combined_analysis
+from .irrelevant_eval import (
+    analyze_results,
+    build_vendor_evaluators,
+    consistency_statistics,
+    create_stacked_visualization,
+    process_scenario_perturbations,
+    run_irrelevant_evaluation,
+    save_results,
+    summary_frame,
+    write_outputs,
+)
 from .model_comparison import (
     cross_experiment_kappa,
     difference_strip_plot,

@@ -1,17 +1,14 @@
 """Model configuration (a copy of what the port needs from
 ``llm_interpretation_replication_tpu/models/config.py``): ``DecoderConfig``,
-``T5Config``, the GPT-NeoX, Falcon, BLOOM, LLaMA/Mistral, Qwen (first
-generation), Baichuan(2), OPT and T5 family translators, ``from_hf_config``
-for their model types and the two Falcon geometries.  Other family presets
-come with the slices that port them."""
+``T5Config``, every family translator (GPT-NeoX, Falcon, BLOOM,
+LLaMA/Mistral/XGen, Qwen and Qwen2, Baichuan(2), OPT, GPT-J, MPT, GLM-4,
+ChatGLM2/3 and T5), ``from_hf_config`` for their model types and the two
+Falcon geometries."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple, Union
-
-_ITEM_FAMILIES = "ROADMAP.md queue 1, 'Other decoder families'"
-
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
@@ -249,6 +246,17 @@ def qwen_config(hf) -> DecoderConfig:
     )
 
 
+def qwen2_config(hf) -> DecoderConfig:
+    """Qwen2/Qwen1.5: llama-shaped but QKV bias is hardwired on in the HF
+    model (no ``attention_bias`` config attr).  Checkpoints ship a
+    ``sliding_window`` value alongside ``use_sliding_window: false``; the
+    window only applies when the latter is set."""
+    cfg = dataclasses.replace(llama_config(hf), qkv_bias=True, out_bias=False)
+    if not getattr(hf, "use_sliding_window", False):
+        cfg = dataclasses.replace(cfg, sliding_window=None)
+    return cfg
+
+
 def baichuan_config(hf) -> DecoderConfig:
     """Baichuan(2)-7B/13B(-Chat) (``model_type: "baichuan"``): a LLaMA
     block with a fused ``W_pack`` QKV; rotary at 7B (32 layers), ALiBi at
@@ -273,6 +281,139 @@ def baichuan_config(hf) -> DecoderConfig:
         activation="silu",
         norm_head=hf.vocab_size > 100_000,  # Baichuan2
         tie_word_embeddings=getattr(hf, "tie_word_embeddings", False),
+    )
+
+
+def gptj_config(hf) -> DecoderConfig:
+    """GPT-J-6B / GPT-JT-6B (``model_type: "gptj"`` — togethercomputer/GPT-JT
+    in the reference's commented word-meaning roster,
+    compare_instruct_models.py:162).  Parallel attn+mlp off ONE shared LN
+    (Falcon-style block), interleaved RoPE on ``rotary_dim`` dims, no
+    qkv/out biases but fc biases, untied lm_head WITH bias."""
+    return DecoderConfig(
+        vocab_size=hf.vocab_size,
+        hidden_size=hf.n_embd,
+        num_layers=hf.n_layer,
+        num_heads=hf.n_head,
+        intermediate_size=getattr(hf, "n_inner", None) or 4 * hf.n_embd,
+        position_embedding="rotary",
+        rotary_pct=(hf.rotary_dim or hf.n_embd // hf.n_head)
+        / (hf.n_embd // hf.n_head),
+        rotary_style="interleaved",
+        max_position_embeddings=hf.n_positions,
+        parallel_residual=True,
+        shared_layernorm=True,
+        norm_eps=hf.layer_norm_epsilon,
+        qkv_bias=False,
+        out_bias=False,
+        mlp_bias=True,
+        activation=_act(getattr(hf, "activation_function", "gelu_new")),
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", False),
+    )
+
+
+def mpt_config(hf) -> DecoderConfig:
+    """MPT-7B(-Instruct) (``model_type: "mpt"`` — mosaicml/mpt-7b-instruct in
+    the reference's commented word-meaning roster,
+    compare_instruct_models.py:157).  ALiBi, fused Wqkv, and — with the
+    standard ``no_bias: true`` — no biases anywhere including LayerNorm."""
+    attn_cfg = getattr(hf, "attn_config", None)
+    alibi, kv_heads, clip_qkv, qk_ln = True, None, None, False
+    if attn_cfg is not None:
+        _get = attn_cfg.get if isinstance(attn_cfg, dict) else (
+            lambda k, d=None: getattr(attn_cfg, k, d))
+        alibi = _get("alibi", True)
+        kv_heads = _get("kv_n_heads", None)
+        clip_qkv = _get("clip_qkv", None)
+        qk_ln = _get("qk_ln", False)
+    if not alibi:
+        # HF's MPT port itself has no learned-position path; neither do we.
+        raise ValueError("MPT without ALiBi (attn_config.alibi=false) is unsupported")
+    if kv_heads is not None and kv_heads != hf.n_heads:
+        raise ValueError("GQA MPT (attn_config.kv_n_heads) is unsupported")
+    if clip_qkv:
+        raise ValueError("MPT clip_qkv (e.g. mpt-30b/storywriter) is unsupported")
+    if qk_ln:
+        raise ValueError("MPT qk_ln checkpoints are unsupported")
+    no_bias = getattr(hf, "no_bias", True)
+    return DecoderConfig(
+        vocab_size=hf.vocab_size,
+        hidden_size=hf.d_model,
+        num_layers=hf.n_layers,
+        num_heads=hf.n_heads,
+        intermediate_size=int(getattr(hf, "expansion_ratio", 4) * hf.d_model),
+        position_embedding="alibi",
+        max_position_embeddings=getattr(hf, "max_seq_len", 2048),
+        norm_eps=getattr(hf, "layer_norm_epsilon", 1e-5),
+        qkv_bias=not no_bias,
+        out_bias=not no_bias,
+        mlp_bias=not no_bias,
+        fused_qkv=True,
+        activation="gelu",
+        tie_word_embeddings=True,   # MPT always ties (no lm_head weight)
+    )
+
+
+def glm_config(hf) -> DecoderConfig:
+    """GLM-4 (``model_type: "glm"``, HF-native GlmForCausalLM) — the current
+    lineage of the ChatGLM family the reference's loader special-cases
+    (compare_instruct_models.py:416-421).  LLaMA-shaped block with GQA, a
+    partial GLM-convention RoPE, and QKV-only biases."""
+    head_dim = getattr(hf, "head_dim", None) or hf.hidden_size // hf.num_attention_heads
+    return DecoderConfig(
+        vocab_size=hf.vocab_size,
+        hidden_size=hf.hidden_size,
+        num_layers=hf.num_hidden_layers,
+        num_heads=hf.num_attention_heads,
+        num_kv_heads=getattr(hf, "num_key_value_heads", hf.num_attention_heads),
+        head_dim=head_dim,
+        intermediate_size=hf.intermediate_size,
+        position_embedding="rotary",
+        rotary_pct=getattr(hf, "partial_rotary_factor", 0.5),
+        rotary_style="glm",
+        rope_theta=getattr(hf, "rope_theta", 10000.0),
+        max_position_embeddings=getattr(hf, "max_position_embeddings", 131072),
+        norm_type="rmsnorm",
+        norm_eps=hf.rms_norm_eps,
+        qkv_bias=getattr(hf, "attention_bias", True),
+        out_bias=False,
+        mlp_bias=False,
+        mlp_type="gated",
+        activation=_act(getattr(hf, "hidden_act", "silu")),
+        tie_word_embeddings=getattr(hf, "tie_word_embeddings", False),
+    )
+
+
+def chatglm_config(hf) -> DecoderConfig:
+    """ChatGLM2/3-6B (``model_type: "chatglm"``, the trust_remote_code arch in
+    the reference's roster — compare_instruct_models.py:165 (commented) and
+    its tokenizer special-case ibid.:416-421).  RMSNorm + SwiGLU + GQA
+    (``multi_query_group_num``) with interleaved RoPE on half the head dims.
+    No in-process HF oracle exists offline (remote-code only), so conversion
+    is structurally tested; the GLM-4 leg above is oracle-tested."""
+    return DecoderConfig(
+        vocab_size=getattr(hf, "padded_vocab_size", None) or hf.vocab_size,
+        hidden_size=hf.hidden_size,
+        num_layers=hf.num_layers,
+        num_heads=hf.num_attention_heads,
+        num_kv_heads=(getattr(hf, "multi_query_group_num", None)
+                      if getattr(hf, "multi_query_attention", False) else None),
+        head_dim=getattr(hf, "kv_channels", None),
+        intermediate_size=hf.ffn_hidden_size,
+        position_embedding="rotary",
+        rotary_pct=0.5,
+        rotary_style="interleaved",
+        rope_theta=10000.0 * getattr(hf, "rope_ratio", 1.0),
+        max_position_embeddings=getattr(hf, "seq_length", 32768),
+        norm_type="rmsnorm" if getattr(hf, "rmsnorm", True) else "layernorm",
+        norm_eps=getattr(hf, "layernorm_epsilon", 1e-5),
+        qkv_bias=getattr(hf, "add_qkv_bias", True),
+        out_bias=getattr(hf, "add_bias_linear", False),
+        mlp_bias=getattr(hf, "add_bias_linear", False),
+        fused_qkv=True,
+        mlp_type="gated",
+        activation="silu",
+        tie_word_embeddings=False,
     )
 
 
@@ -327,7 +468,7 @@ def _act(name: str) -> str:
     }[name]
 
 
-#: HF ``model_type`` -> (family, config translator), for the types ported
+#: HF ``model_type`` -> (family, config translator)
 FAMILY_BY_MODEL_TYPE = {
     "gpt_neox": ("neox", neox_config),
     "falcon": ("falcon", falcon_config),
@@ -337,21 +478,26 @@ FAMILY_BY_MODEL_TYPE = {
     "llama": ("llama", llama_config),
     "mistral": ("llama", llama_config),
     "qwen": ("qwen", qwen_config),
+    "qwen2": ("llama", qwen2_config),
     "baichuan": ("baichuan", baichuan_config),
     "opt": ("opt", opt_config),
+    "gptj": ("gptj", gptj_config),
+    "mpt": ("mpt", mpt_config),
+    "glm": ("glm", glm_config),
+    "chatglm": ("chatglm", chatglm_config),
+    # Salesforce XGen ships LLaMA-architecture weights behind remote code;
+    # only its tokenizer needs special handling (compare_instruct_models.py:409-415)
+    "xgen": ("llama", llama_config),
     "t5": ("t5", t5_config),
 }
 
 
 def from_hf_config(hf) -> Tuple[str, Union[DecoderConfig, T5Config]]:
     """Map a HF config (any object with its attributes) to (family, our
-    config).  GPT-NeoX, Falcon, BLOOM, LLaMA/Mistral, Qwen, Baichuan, OPT
-    and T5 model types are ported; another raises ``NotImplementedError``
-    naming its ROADMAP.md item."""
+    config); an unknown model type raises ``ValueError``."""
     mt = getattr(hf, "model_type", None)
     if mt not in FAMILY_BY_MODEL_TYPE:
-        raise NotImplementedError(
-            f"model_type {mt!r} is not ported yet ({_ITEM_FAMILIES})")
+        raise ValueError(f"unsupported model_type {mt!r}")
     family, translate = FAMILY_BY_MODEL_TYPE[mt]
     return family, translate(hf)
 

@@ -4,12 +4,10 @@
 arrays) across unchanged in layout, quantized (w8a8) trees included;
 ``random_params`` builds full-width random weights directly on the device
 from an explicit generator, optionally quantized as they are made; the
-converters turn a HF checkpoint of the GPT-NeoX, Falcon, BLOOM or
-LLaMA/Mistral family (any ``get(name) -> tensor``) into the same stacked
-tree (copies of ``models/convert.py``'s ``convert_neox``,
-``convert_falcon``, ``convert_bloom`` and ``convert_llama`` with their
-fused-QKV splits, on tensors), so both load paths meet in one
-``DecoderWeights``.
+converters turn a HF checkpoint of every family of ``config.py`` (any
+``get(name) -> tensor``) into the same stacked tree (copies of
+``models/convert.py``'s converters with their fused-QKV and fused-MLP
+splits, on tensors), so both load paths meet in one ``DecoderWeights``.
 """
 
 from __future__ import annotations
@@ -417,6 +415,134 @@ def convert_opt(get: Getter, cfg: DecoderConfig) -> Dict:
     }
 
 
+def convert_gptj(get: Getter, cfg: DecoderConfig) -> Dict:
+    """A GPT-J / GPT-JT checkpoint: separate unbiased q/k/v/out, biased
+    fc_in/fc_out off one shared LN (parallel block), untied lm_head with
+    its bias."""
+    L = range(cfg.num_layers)
+    pre = "transformer.h.{i}"
+    return {
+        "embed": {"tokens": get("transformer.wte.weight")},
+        "layers": {
+            "ln1": _ln(get, pre + ".ln_1", L),
+            "attn": {f"w{n}": _stack_linear(get, f"{pre}.attn.{p}_proj", L)
+                     for n, p in (("q", "q"), ("k", "k"), ("v", "v"),
+                                  ("o", "out"))},
+            "mlp": {
+                "wi": _stack_linear(get, pre + ".mlp.fc_in", L),
+                "bi": _stack_get(get, pre + ".mlp.fc_in.bias", L),
+                "wo": _stack_linear(get, pre + ".mlp.fc_out", L),
+                "bo": _stack_get(get, pre + ".mlp.fc_out.bias", L),
+            },
+        },
+        "final_ln": _ln(get, "transformer.ln_f"),
+        "lm_head": get("lm_head.weight").t().contiguous(),
+        "lm_head_bias": get("lm_head.bias"),
+    }
+
+
+def convert_mpt(get: Getter, cfg: DecoderConfig) -> Dict:
+    """An MPT checkpoint: fused straight-concat ``Wqkv``; with the standard
+    ``no_bias: true`` everything (LayerNorm too) is bias-free; tied
+    embeddings (no lm_head tensor in the checkpoint).  Non-ALiBi and GQA
+    variants are refused by ``mpt_config``."""
+    L = range(cfg.num_layers)
+    pre = "transformer.blocks.{i}"
+    biased = cfg.qkv_bias                    # no_bias=false checkpoints
+    split = [_split_concat_qkv(
+        get(f"transformer.blocks.{i}.attn.Wqkv.weight"),
+        get(f"transformer.blocks.{i}.attn.Wqkv.bias") if biased else None)
+        for i in L]
+    attn = {"w" + n: torch.stack([ws[j] for ws, _ in split])
+            for j, n in enumerate("qkv")}
+    attn["wo"] = _stack_linear(get, pre + ".attn.out_proj", L)
+    mlp = {"wi": _stack_linear(get, pre + ".ffn.up_proj", L),
+           "wo": _stack_linear(get, pre + ".ffn.down_proj", L)}
+    if biased:
+        attn.update({"b" + n: torch.stack([bs[j] for _, bs in split])
+                     for j, n in enumerate("qkv")})
+        attn["bo"] = _stack_get(get, pre + ".attn.out_proj.bias", L)
+        mlp["bi"] = _stack_get(get, pre + ".ffn.up_proj.bias", L)
+        mlp["bo"] = _stack_get(get, pre + ".ffn.down_proj.bias", L)
+    del split
+    return {
+        "embed": {"tokens": get("transformer.wte.weight")},
+        "layers": {
+            "ln1": _ln(get, pre + ".norm_1", L, bias=biased),
+            "ln2": _ln(get, pre + ".norm_2", L, bias=biased),
+            "attn": attn,
+            "mlp": mlp,
+        },
+        "final_ln": _ln(get, "transformer.norm_f", bias=biased),
+    }
+
+
+def _gate_up(w: torch.Tensor):
+    """A fused ``[gate; up]`` projection ``[2F, H]`` (GLM-4's
+    ``gate_up_proj``, ChatGLM's ``dense_h_to_4h``) -> (wg, wi) ``[H, F]``."""
+    return tuple(part.t().contiguous() for part in torch.chunk(w, 2, dim=0))
+
+
+def convert_glm(get: Getter, cfg: DecoderConfig) -> Dict:
+    """A HF GLM-4 checkpoint: LLaMA names but for the fused
+    ``mlp.gate_up_proj`` (rows ``[gate; up]``; ``GlmMLP`` chunks the
+    output), so :func:`convert_llama` reads it through a getter that
+    splits it."""
+
+    def get_split(name: str) -> torch.Tensor:
+        m = re.fullmatch(r"model\.layers\.(\d+)\.mlp\.(gate|up)_proj\.weight",
+                         name)
+        if m is None:
+            return get(name)
+        packed = get(f"model.layers.{m.group(1)}.mlp.gate_up_proj.weight")
+        return torch.chunk(packed, 2, dim=0)[("gate", "up").index(m.group(2))]
+
+    return convert_llama(get_split, cfg)
+
+
+def convert_chatglm(get: Getter, cfg: DecoderConfig) -> Dict:
+    """A ChatGLM2/3-6B checkpoint (THUDM's remote-code names): the fused
+    ``query_key_value`` is a straight concat ``[q (N*D); k (G*D); v
+    (G*D)]`` and ``dense_h_to_4h`` is ``[gate; up]`` on the output dim
+    (modeling_chatglm's swiglu chunks it in half)."""
+    L = range(cfg.num_layers)
+    pre = "transformer.encoder.layers.{i}"
+    nd = cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    cuts = (nd, kvd, kvd)
+    attn = {}
+    ws = [torch.split(get(f"transformer.encoder.layers.{i}.self_attention"
+                          ".query_key_value.weight"), cuts) for i in L]
+    for j, n in enumerate("qkv"):
+        attn["w" + n] = torch.stack([w[j].t().contiguous() for w in ws])
+    del ws
+    if cfg.qkv_bias:
+        bs = [torch.split(get(f"transformer.encoder.layers.{i}.self_attention"
+                              ".query_key_value.bias"), cuts) for i in L]
+        for j, n in enumerate("qkv"):
+            attn["b" + n] = torch.stack([b[j].contiguous() for b in bs])
+    attn["wo"] = _stack_linear(get, pre + ".self_attention.dense", L)
+    gu = [_gate_up(get(f"transformer.encoder.layers.{i}.mlp.dense_h_to_4h"
+                       ".weight")) for i in L]
+    mlp = {"wg": torch.stack([g for g, _ in gu]),
+           "wi": torch.stack([u for _, u in gu]),
+           "wo": _stack_linear(get, pre + ".mlp.dense_4h_to_h", L)}
+    del gu
+    return {
+        "embed": {"tokens": get(
+            "transformer.embedding.word_embeddings.weight")},
+        "layers": {
+            "ln1": _ln(get, pre + ".input_layernorm", L, bias=False),
+            "ln2": _ln(get, pre + ".post_attention_layernorm", L, bias=False),
+            "attn": attn,
+            "mlp": mlp,
+        },
+        "final_ln": _ln(get, "transformer.encoder.final_layernorm",
+                        bias=False),
+        "lm_head": get("transformer.output_layer.weight").t().contiguous(),
+    }
+
+
 def convert_t5(get: Getter, cfg: T5Config) -> Dict:
     """A HF ``T5ForConditionalGeneration`` checkpoint (T5, T0, tk-instruct,
     Flan-T5) -> the stacked T5 tree of ``models/t5.py``."""
@@ -526,8 +652,10 @@ def random_t5_state_dict(cfg: T5Config, seed: int = 0, device=DEFAULT_DEVICE,
     return sd
 
 
-#: family -> checkpoint converter, for the families ported
+#: family -> checkpoint converter
 CONVERTERS = {"neox": convert_neox, "falcon": convert_falcon,
               "bloom": convert_bloom, "llama": convert_llama,
               "qwen": convert_qwen, "baichuan": convert_baichuan,
-              "opt": convert_opt, "t5": convert_t5}
+              "opt": convert_opt, "gptj": convert_gptj, "mpt": convert_mpt,
+              "glm": convert_glm, "chatglm": convert_chatglm,
+              "t5": convert_t5}

@@ -128,8 +128,8 @@ def _check_kernel_inputs(q, k, v, lengths, head_axis: int = 2):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if g < 1 or n % g:
         raise ValueError(f"query heads {n} not a multiple of K/V heads {g}")
-    if d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"head dim {d}: the kernel takes D <= 128, D % 8 == 0")
+    if d % 8 or not 8 <= d <= 256:
+        raise ValueError(f"head dim {d}: the kernel takes D <= 256, D % 8 == 0")
     b = q.shape[0]
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32 [{b}]; got "

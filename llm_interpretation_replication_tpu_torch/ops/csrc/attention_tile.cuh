@@ -22,23 +22,26 @@
 //   contiguous 16 KB run; head-major, each row's D values are contiguous)
 //   and stays there as Q.K's A operand; O goes back through the same
 //   shared memory and leaves with 16-byte coalesced stores.
-// - K/V stream through a ring of 3 tiles (64 keys at D <= 64, 128 at
-//   D = 128) in dynamic shared memory, filled with 16-byte `cp.async.cg` in
-//   commit/wait groups: tiles t+1 and t+2 load while tile t computes, one
-//   __syncthreads a tile.  Keys past the block's largest bound, and the
-//   head-dim padding, are zero-filled by the copy itself (src-size 0), never
-//   left stale: 0 x NaN would be NaN in P.V.
+// - K/V stream through a ring of tiles in dynamic shared memory (3 tiles of
+//   64 keys at D <= 64 and of 128 at D = 128; 2 tiles of 64 keys at D = 256,
+//   where the 64 KB Q/O tile leaves room for no more), filled with 16-byte
+//   `cp.async.cg` in commit/wait groups: the next tiles load while tile t
+//   computes, one __syncthreads a tile.  Keys past the block's largest
+//   bound, and the head-dim padding, are zero-filled by the copy itself
+//   (src-size 0), never left stale: 0 x NaN would be NaN in P.V.
 // - Every tile is row-major with the 128-byte XOR swizzle (16-byte chunk c
 //   of row r at chunk c ^ (r % 8) of its 128-byte line; D = 128 is two
 //   64-column halves), which the copies write without bank conflicts and
 //   which is wgmma's 128-byte-swizzle layout: K-major for Q and K, MN-major
-//   for V.
+//   for V.  D = 256 is four 64-column quarters.
 // - Both products are Hopper `wgmma`, one warpgroup per 64 rows: Q.K as
 //   m64nKk16 with Q and K from shared memory; P.V as m64nDk16 with P from
 //   registers (the score accumulator's layout is the A operand's) and V from
 //   shared memory, transposed by the instruction, so V is never transposed
-//   by scalar stores.  m, l, the 1/sqrt(D) scale (on the fp32 scores, in the
-//   FFMA of the exponent) and the output accumulator are fp32.  l sums the
+//   by scalar stores; at D = 256 the output is two m64n128 halves, so a
+//   thread holds 128 fp32 accumulators.  m, l, the 1/sqrt(D) scale (on the
+//   fp32 scores, in the FFMA of the exponent) and the output accumulator
+//   are fp32.  l sums the
 //   fp32 P; P enters P.V as a bf16 high part plus a bf16 residual (~16
 //   significant bits, one more P.V wgmma), as the port's 1e-2 gate against
 //   the float32 plain version needs.
@@ -48,8 +51,8 @@
 //   the reference).
 // - Blocks run heaviest first: the row-tile index is the slowest grid
 //   dimension and counts down, so the longest causal key loops start first.
-// - Any S >= 1, any N / G, any D <= 128 with D % 8 == 0 (padded with zeros to
-//   64 or 128 inside shared memory).
+// - Any S >= 1, any N / G, any D <= 256 with D % 8 == 0 (padded with zeros to
+//   64, 128 or 256 inside shared memory).
 
 #pragma once
 
@@ -251,7 +254,9 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[16][4],
 // per SM that __launch_bounds__ asks the register allocation to allow (at
 // D=64 two blocks of 8 warps fit in 128 registers and hide each other's
 // softmax; at D=128 one block of ~250 registers, where a 128-key tile halves
-// the per-tile barriers and softmax bookkeeping).
+// the per-tile barriers and softmax bookkeeping; at D=256 the 128 output
+// accumulators a thread leave room for a 64-key score tile only, and the
+// 64 KB Q/O tile plus two 64 KB K/V stages fill 192 KB of shared memory).
 template <int DP>
 struct Tune;
 template <>
@@ -262,6 +267,15 @@ template <>
 struct Tune<128> {
   static constexpr int kKeys = 128, kStages = 3, kMinBlocks = 1;
 };
+template <>
+struct Tune<256> {
+  static constexpr int kKeys = 64, kStages = 2, kMinBlocks = 1;
+};
+
+// Output columns one P.V wgmma covers: the whole padded head dim up to 128,
+// two m64n128 halves at 256.
+template <int DP>
+constexpr int kPvCols = DP < 128 ? DP : 128;
 
 // Dynamic shared memory of one block: the Q/O tile and the K/V ring.
 template <int DP>
@@ -285,18 +299,26 @@ __device__ __forceinline__ void issue_qk(float (&s)[KEYS / 8][4],
              kk > 0);
 }
 
-// Issues O += P_hi . V + P_lo . V: m64nDPk16 per 16 keys, P from registers,
-// V rows from shared memory, transposed by the instruction.
+// Issues O += P_hi . V + P_lo . V: m64nNk16 per 16 keys and N = kPvCols
+// output columns (acc[h] holds columns h * N ..), P from registers, V rows
+// from shared memory, transposed by the instruction.
 template <int DP, int KEYS>
-__device__ __forceinline__ void issue_pv(float (&acc)[DP / 8][4],
-                                         const uint32_t (&ph)[KEYS / 16][4],
-                                         const uint32_t (&pl)[KEYS / 16][4],
-                                         const __nv_bfloat16* vs) {
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[DP / kPvCols<DP>][kPvCols<DP> / 8][4],
+    const uint32_t (&ph)[KEYS / 16][4], const uint32_t (&pl)[KEYS / 16][4],
+    const __nv_bfloat16* vs) {
+  constexpr int H = DP / kPvCols<DP>;
 #pragma unroll
   for (int kc = 0; kc < KEYS / 16; ++kc) {
-    const uint64_t dv = sw128_desc(vs + kc * 16 * 64, KEYS * 128, 1024);
-    wgmma_rs_t(acc, ph[kc], dv);
-    wgmma_rs_t(acc, pl[kc], dv);
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      // a half starts kPvCols / 64 swizzled 64-column chunks further on
+      const uint64_t dv = sw128_desc(
+          vs + h * (kPvCols<DP> / 64) * (KEYS * 64) + kc * 16 * 64,
+          KEYS * 128, 1024);
+      wgmma_rs_t(acc[h], ph[kc], dv);
+      wgmma_rs_t(acc[h], pl[kc], dv);
+    }
   }
 }
 
@@ -371,6 +393,12 @@ __device__ __forceinline__ void rescale(float (&acc)[N][4], float corr_a,
   }
 }
 
+template <int H, int N>
+__device__ __forceinline__ void pin_acc(float (&acc)[H][N][4]) {
+#pragma unroll
+  for (int h = 0; h < H; ++h) pin(acc[h]);
+}
+
 template <int N>
 __device__ __forceinline__ void pin_regs(uint32_t (&a)[N][4]) {
 #pragma unroll
@@ -379,7 +407,7 @@ __device__ __forceinline__ void pin_regs(uint32_t (&a)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
 }
 
-// DP: head dim padded to 64 or 128.
+// DP: head dim padded to 64, 128 or 256.
 template <int DP, class Rows>
 __global__ void __launch_bounds__(kThreads, Tune<DP>::kMinBlocks)
 tile_kernel(const __nv_bfloat16* __restrict__ q,
@@ -391,6 +419,8 @@ tile_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int STAGES = Tune<DP>::kStages;
   constexpr int AHEAD = STAGES - 1;  // K/V tiles loaded ahead of the one used
   constexpr int CH = DP / 8;          // 16-byte chunks of one row
+  constexpr int NH = DP / kPvCols<DP>;  // output halves (1, or 2 at DP=256)
+  constexpr int NJ = kPvCols<DP> / 8;   // 8-column fragments of one half
   constexpr int KV_TILE = KEYS * DP;  // elements of one K (or V) tile
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -467,9 +497,12 @@ tile_kernel(const __nv_bfloat16* __restrict__ q,
   fence_proxy_async();
   __syncthreads();
 
-  float acc[DP / 8][4];
+  float acc[NH][NJ][4];
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      acc[h][j][0] = acc[h][j][1] = acc[h][j][2] = acc[h][j][3] = 0.f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -484,7 +517,7 @@ tile_kernel(const __nv_bfloat16* __restrict__ q,
     uint32_t ph[KEYS / 16][4], pl[KEYS / 16][4];
     float corr_a, corr_b;
     pin(s);
-    pin(acc);
+    pin_acc(acc);
     wgmma_fence();
     issue_qk<DP, KEYS>(s, qs_wg, stage(t));
     wgmma_commit();
@@ -492,13 +525,14 @@ tile_kernel(const __nv_bfloat16* __restrict__ q,
     pin(s);
     softmax_tile<KEYS>(s, t0, t0 + KEYS > w_min, bnd_a, bnd_b, tig,
                        scale_log2, m_a, m_b, l_a, l_b, corr_a, corr_b, ph, pl);
-    rescale(acc, corr_a, corr_b);
-    pin(acc);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) rescale(acc[h], corr_a, corr_b);
+    pin_acc(acc);
     wgmma_fence();
     issue_pv<DP, KEYS>(acc, ph, pl, stage(t) + KV_TILE);
     wgmma_commit();
     wgmma_wait_all();
-    pin(acc);
+    pin_acc(acc);
     pin_regs(ph);  // P stays in its registers until the wgmma has read it
     pin_regs(pl);
   }
@@ -514,12 +548,17 @@ tile_kernel(const __nv_bfloat16* __restrict__ q,
   const float inv_b = bnd_b > 0 ? 1.f / fmaxf(l_b, 1e-30f) : 0.f;
   const int ra = warp * kRowsPerWarp + gid;
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(qs + swz<kBlockRows>(ra, j) + 2 * tig) =
-        pack_bf16(acc[j][0] * inv_a, acc[j][1] * inv_a);
-    *reinterpret_cast<uint32_t*>(qs + swz<kBlockRows>(ra + 8, j) + 2 * tig) =
-        pack_bf16(acc[j][2] * inv_b, acc[j][3] * inv_b);
-  }
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float(&a)[4] = acc[h][j];
+      *reinterpret_cast<uint32_t*>(qs + swz<kBlockRows>(ra, h * NJ + j) +
+                                   2 * tig) =
+          pack_bf16(a[0] * inv_a, a[1] * inv_a);
+      *reinterpret_cast<uint32_t*>(qs + swz<kBlockRows>(ra + 8, h * NJ + j) +
+                                   2 * tig) =
+          pack_bf16(a[2] * inv_b, a[3] * inv_b);
+    }
   __syncwarp();
 #pragma unroll
   for (int it = 0; it < kRowsPerWarp * CH / 32; ++it) {
@@ -566,7 +605,7 @@ template <class Rows>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, int B, int S, int N, int G, int D, int causal,
            void* stream) {
-  if (B < 1 || S < 1 || G < 1 || N < G || N % G != 0 || D < 8 || D > 128 ||
+  if (B < 1 || S < 1 || G < 1 || N < G || N % G != 0 || D < 8 || D > 256 ||
       D % 8 != 0 || G > 65535)
     return (int)cudaErrorInvalidValue;
   if (((long long)S * (N / G) + kBlockRows - 1) / kBlockRows > 65535)
@@ -579,12 +618,15 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   auto* op = static_cast<__nv_bfloat16*>(out);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D <= 64) return launch_dp<64>(qp, kp, vp, lp, op, rows, B, causal, st);
-  return launch_dp<128>(qp, kp, vp, lp, op, rows, B, causal, st);
+  if (D <= 128) return launch_dp<128>(qp, kp, vp, lp, op, rows, B, causal, st);
+  return launch_dp<256>(qp, kp, vp, lp, op, rows, B, causal, st);
 }
 
 }  // namespace attn_tile
 
 // Dynamic shared memory a launch at head dim `d` requests, in bytes.
 extern "C" int attention_tile_smem_bytes(int d) {
-  return d <= 64 ? attn_tile::smem_bytes<64>() : attn_tile::smem_bytes<128>();
+  return d <= 64    ? attn_tile::smem_bytes<64>()
+         : d <= 128 ? attn_tile::smem_bytes<128>()
+                    : attn_tile::smem_bytes<256>();
 }

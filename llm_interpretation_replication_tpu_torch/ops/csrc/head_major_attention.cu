@@ -21,18 +21,17 @@
 // G == N check.  Rows past a row's length are not zero: they attend
 // min(length, p + 1) keys, as on the TPU.
 //
-// Design: both entries run attention_tile.cuh's main loop (an asynchronous
-// 3-stage `cp.async` K/V ring zero-filled past the bound and the D padding,
-// 128-byte-swizzled tiles, `wgmma` for Q.K and for P.V with V transposed by
-// the instruction, Q and O staged through shared memory with 16-byte
-// accesses, heaviest row tiles first) with the head-major row policy
-// `BnsdRows`.  The rows of one (batch, K/V group) are numbered
-// position-major across the group's hpg = N / G heads, so a 128-row block
-// holds ~1.8 positions x 71 heads at Falcon-7B (32 positions x 4 heads at
-// GQA with hpg = 4): the causal bounds of a block's rows are nearly equal,
-// and each K/V tile is staged once in shared memory for every head that
-// reads it.  The flash entry's hpg is 1: a block is 128 positions of one
-// head.
+// Design: both entries run attention_tile.cuh's main loop (an asynchronous 2-
+// or 3-stage `cp.async` K/V ring zero-filled past the bound and the D padding
+// to 64, 128 or 256, 128-byte-swizzled tiles, `wgmma` for Q.K and for P.V with
+// V transposed by the instruction, Q and O staged through shared memory with
+// 16-byte accesses, heaviest row tiles first) with the head-major row policy
+// `BnsdRows`. The rows of one (batch, K/V group) are numbered position-major
+// across the group's hpg = N / G heads, so a 128-row block holds ~1.8 positions
+// x 71 heads at Falcon-7B (32 positions x 4 heads at GQA with hpg = 4): the
+// causal bounds of a block's rows are nearly equal, and each K/V tile is staged
+// once in shared memory for every head that reads it. The flash entry's hpg is
+// 1: a block is 128 positions of one head.
 //
 // Precision.  Q.K runs on bf16 operands with fp32 accumulation; a product of
 // two bf16 values is exact in fp32, so this is the flash TPU kernel's fp32

@@ -51,17 +51,45 @@ def pairwise_correlations(pivot: frame.Pivot) -> List[Dict]:
     return rows
 
 
+def _corrcoef_pair(x: np.ndarray, y: np.ndarray) -> float:
+    """``np.corrcoef(x, y)[0, 1]``: its arithmetic, op for op (the rows'
+    means, the 2 x 2 product, the scale and the clip), without its
+    argument handling, which the bootstrap would pay 45 times a
+    resample."""
+    X = np.concatenate((x[None, :], y[None, :]), axis=0)
+    X -= X.mean(axis=1)[:, None]
+    c = np.dot(X, X.T)
+    c *= np.true_divide(1, X.shape[1] - 1)
+    sd = np.sqrt(np.diag(c))
+    c /= sd[:, None]
+    c /= sd[None, :]
+    np.clip(c, -1, 1, out=c)
+    return c[0, 1]
+
+
 def _pairwise_pearson_values(matrix: np.ndarray) -> np.ndarray:
     """Pearson r for every column pair of a prompts×models matrix (NaN-pair
-    rows dropped per pair)."""
-    n_models = matrix.shape[1]
+    rows dropped per pair; a pair with fewer than 3 rows or a constant
+    column skipped).  A column without NaN has its std taken once."""
+    cols = np.ascontiguousarray(matrix.T)
+    finite = np.isfinite(cols)
+    whole = finite.all(axis=1)
+    std = [np.std(c) if w else None for c, w in zip(cols, whole)]
     out = []
-    for i, j in combinations(range(n_models), 2):
-        a, b = matrix[:, i], matrix[:, j]
-        ok = np.isfinite(a) & np.isfinite(b)
-        if ok.sum() < 3 or np.std(a[ok]) == 0 or np.std(b[ok]) == 0:
+    for i, j in combinations(range(cols.shape[0]), 2):
+        if whole[i] and whole[j]:
+            a, b, sa, sb = cols[i], cols[j], std[i], std[j]
+        else:
+            ok = finite[i] & finite[j]
+            a, b = cols[i][ok], cols[j][ok]
+            sa = sb = None
+        if a.size < 3:
             continue
-        out.append(np.corrcoef(a[ok], b[ok])[0, 1])
+        if sa is None:
+            sa, sb = np.std(a), np.std(b)
+        if sa == 0 or sb == 0:
+            continue
+        out.append(_corrcoef_pair(a, b))
     return np.asarray(out)
 
 

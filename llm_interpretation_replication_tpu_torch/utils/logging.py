@@ -1,14 +1,17 @@
-"""Session logging (a copy of ``utils/logging.py``'s ``SessionLogger``):
-stdout plus an optional file tee; and the sweep shells' ``[heartbeat]``
-progress line, which :func:`obs.metrics.heartbeat` prints, records as
-gauges and feeds to the stall watchdog."""
+"""Session logging (copies of ``utils/logging.py``'s ``SessionLogger`` and
+``Progress``): stdout plus an optional file tee; a persisted JSON progress
+heartbeat; and the sweep shells' ``[heartbeat]`` progress line, which
+:func:`obs.metrics.heartbeat` prints, records as gauges and feeds to the
+stall watchdog."""
 
 from __future__ import annotations
 
 import datetime as _dt
+import json
 import os
 import sys
 import threading
+import time
 from typing import Callable, Optional
 
 
@@ -38,6 +41,43 @@ class SessionLogger:
             if self._file:
                 self._file.close()
                 self._file = None
+
+
+class Progress:
+    """Persistent progress heartbeat: counts, rate, ETA, arbitrary extras,
+    rewritten atomically to ``path`` (when given) on every update."""
+
+    def __init__(self, total: int, path: Optional[str] = None,
+                 clock=time.monotonic):
+        self.total = total
+        self.done = 0
+        self.path = path
+        self._clock = clock
+        self._start = clock()
+        self._lock = threading.Lock()
+
+    def update(self, n: int = 1, **extras) -> dict:
+        with self._lock:
+            self.done += n
+            elapsed = max(self._clock() - self._start, 1e-9)
+            rate = self.done / elapsed
+            snapshot = {
+                "done": self.done,
+                "total": self.total,
+                "elapsed_sec": round(elapsed, 3),
+                "rate_per_sec": round(rate, 6),
+                "eta_sec": (round((self.total - self.done) / rate, 3)
+                            if rate else None),
+                **extras,
+            }
+            if self.path:
+                parent = os.path.dirname(os.path.abspath(self.path))
+                os.makedirs(parent, exist_ok=True)
+                tmp = self.path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump(snapshot, f, indent=2)
+                os.replace(tmp, self.path)
+            return snapshot
 
 
 def heartbeat(label: str, done: int, total: int, elapsed_s: float,

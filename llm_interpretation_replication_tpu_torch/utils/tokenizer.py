@@ -699,6 +699,8 @@ _T5_SPECIALS = {"eos_token": "</s>", "unk_token": "<unk>",
                 "pad_token": "<pad>"}
 #: the SentencePiece files a snapshot may ship
 _SPM_FILES = ("tokenizer.model", "spiece.model")
+#: model types whose tokenizer exists only as a snapshot's remote code
+_REMOTE_CODE_ONLY = ("chatglm", "xgen")
 
 
 def _model_type(path: str) -> str:
@@ -769,10 +771,15 @@ def load_tokenizer(path: str):
     ``add_eos_token``.  Then the reference loader's pad rule: without a
     pad token, the EOS token pads, else ``<|endoftext|>``, else the
     unknown token, else the token with the smallest id (pad positions are
-    masked, so any id in range works)."""
+    masked, so any id in range works).  ChatGLM's and XGen's tokenizers
+    exist only as their snapshots' remote code (XGen's over a tiktoken file
+    the repository lacks), so their model types raise
+    ``NotImplementedError``; their weights load all the same."""
+    model_type = _model_type(path)
+    if model_type in _REMOTE_CODE_ONLY:
+        raise _not_ported(f"the {model_type} tokenizer (remote code only)")
     special, config = _read_special_tokens(path)
     clean_up = bool(config.get("clean_up_tokenization_spaces", False))
-    model_type = _model_type(path)
     llama = config.get("tokenizer_class") in _LLAMA_CLASSES
     if llama:
         special = {**_LLAMA_SPECIALS, **special}

@@ -323,26 +323,40 @@ def _mae_bars(ax, human_comparisons: Dict, capsize: int = 5) -> None:
     ax.grid(axis="y", alpha=0.3)
 
 
+def _present(rows: Sequence[Dict], col: str) -> np.ndarray:
+    """A column's non-NA values, as ``df[col].dropna()`` gives them."""
+    return np.asarray([r[col] for r in rows if not _is_na(r.get(col))])
+
+
+def _is_na(v) -> bool:
+    return v is None or (isinstance(v, float) and v != v)
+
+
 def model_comparison_dashboard(
-    df,
+    rows: Sequence[Dict],
     correlations: Optional[Dict] = None,
     human_comparisons: Optional[Dict] = None,
     output_path: str = "model_comparison_plots.png",
 ) -> str:
     """The closed-source evaluation dashboard (evaluate_closed_source_models.py
-    `create_visualizations`, :1587-1830): GPT-vs-Gemini scatter, per-model
-    confidence histograms, binary-agreement heatmap, response-count bars, and
-    — when human comparisons exist — the MAE bar chart, a correlation summary
-    card, and confidence boxplots."""
+    `create_visualizations`, :1587-1830), over the results' row dicts:
+    GPT-vs-Gemini scatter, per-model confidence histograms,
+    binary-agreement heatmap, response-count bars, and -- when human
+    comparisons exist -- the MAE bar chart, a correlation summary card, and
+    confidence boxplots."""
     correlations = correlations or {}
     with_humans = bool(human_comparisons)
+    columns = set(rows[0]) if rows else set()
     nrows = 3 if with_humans else 2
     fig, axes = plt.subplots(nrows, 3, figsize=(18, 4.7 * nrows))
 
     ax = axes[0, 0]
-    if {"gpt_relative_prob", "gemini_relative_prob"} <= set(df.columns):
-        sub = df[["gpt_relative_prob", "gemini_relative_prob"]].dropna()
-        ax.scatter(sub["gpt_relative_prob"], sub["gemini_relative_prob"], alpha=0.6)
+    if {"gpt_relative_prob", "gemini_relative_prob"} <= columns:
+        pairs = np.asarray(
+            [(r["gpt_relative_prob"], r["gemini_relative_prob"]) for r in rows
+             if not (_is_na(r["gpt_relative_prob"])
+                     or _is_na(r["gemini_relative_prob"]))], float).reshape(-1, 2)
+        ax.scatter(pairs[:, 0], pairs[:, 1], alpha=0.6)
         ax.plot([0, 1], [0, 1], "r--", alpha=0.5)
         ax.set_xlabel("GPT relative probability")
         ax.set_ylabel("Gemini relative probability")
@@ -357,7 +371,7 @@ def model_comparison_dashboard(
         (axes[1, 0], "claude_confidence", "Claude confidence"),
     ]
     for ax, col, title in hist_specs:
-        vals = df[col].dropna() if col in df.columns else []
+        vals = _present(rows, col) if col in columns else []
         if len(vals):
             ax.hist(vals, bins=20, edgecolor="black", alpha=0.7)
             ax.axvline(np.mean(vals), color="red", linestyle="--",
@@ -370,13 +384,15 @@ def model_comparison_dashboard(
     ax = axes[1, 1]
     names = ["gpt", "gemini", "claude"]
     cols = [f"{n}_response" for n in names]
-    if all(c in df.columns for c in cols):
+    if all(c in columns for c in cols):
         agree = np.eye(3)
         for i, a in enumerate(cols):
             for j, b in enumerate(cols):
                 if i != j:
-                    sub = df[[a, b]].dropna()
-                    agree[i, j] = (sub[a] == sub[b]).mean() if len(sub) else np.nan
+                    both = [(r[a], r[b]) for r in rows
+                            if not (_is_na(r[a]) or _is_na(r[b]))]
+                    agree[i, j] = (np.mean([x == y for x, y in both])
+                                   if both else np.nan)
         ax.imshow(agree, cmap="coolwarm", vmin=0, vmax=1)
         ax.set_xticks(range(3)), ax.set_yticks(range(3))
         ax.set_xticklabels(names), ax.set_yticklabels(names)
@@ -390,10 +406,11 @@ def model_comparison_dashboard(
         ax.axis("off")
 
     ax = axes[1, 2]
-    counts = {n: df[f"{n}_response"].value_counts()
-              for n in names if f"{n}_response" in df.columns}
+    counts = {n: [r[f"{n}_response"] for r in rows]
+              for n in names if f"{n}_response" in columns}
     if counts:
-        table = np.array([[c.get(v, 0) for v in ("Yes", "No")] for c in counts.values()])
+        table = np.array([[c.count(v) for v in ("Yes", "No")]
+                          for c in counts.values()])
         x = np.arange(len(counts))
         ax.bar(x - 0.18, table[:, 0], width=0.36, label="Yes")
         ax.bar(x + 0.18, table[:, 1], width=0.36, label="No")
@@ -433,7 +450,7 @@ def model_comparison_dashboard(
                     ("claude", "claude_confidence")]
         data, labels = [], []
         for name, col in box_cols:
-            vals = df[col].dropna() if col in df.columns else []
+            vals = _present(rows, col) if col in columns else []
             if len(vals):
                 data.append(np.asarray(vals, float))
                 labels.append(name)

@@ -1188,3 +1188,170 @@ def test_api_scripted_answers_are_deterministic(text):
         assert positions[0][0][0] == a
         assert sum(math.exp(lp) for _, lp in positions[0]) == \
             pytest.approx(1.0)
+
+
+# -- the other decoder families (phase other_families) ---------------------------------
+
+_SMALL_OTHER = {
+    "qwen2": dict(hidden_size=32, intermediate_size=64, num_attention_heads=4,
+                  num_key_value_heads=2),
+    "gptj": dict(n_embd=32, n_head=4, rotary_dim=4),
+    "mpt": dict(d_model=32, n_heads=4),
+    "glm": dict(hidden_size=32, intermediate_size=64, num_attention_heads=4,
+                num_key_value_heads=2, head_dim=8),
+    "chatglm": dict(hidden_size=32, ffn_hidden_size=64, num_attention_heads=4,
+                    kv_channels=8, padded_vocab_size=96),
+}
+_HF_OTHER = {"qwen2": "Qwen2", "gptj": "GPTJ", "mpt": "Mpt", "glm": "Glm"}
+
+
+def _small_other(config):
+    return dict(config, vocab_size=96, **_SMALL_OTHER[config["model_type"]])
+
+
+@pytest.mark.parametrize("label", [m[0] for m in chip_smoke.OTHER_FAMILY_MODELS])
+def test_other_family_state_dicts_are_the_hf_models_and_convert(
+        label, one_torch_thread):
+    """Each other family's random checkpoint: the converter reads every
+    tensor it holds and finds every one it asks for, and (but ChatGLM,
+    remote code only) its names and shapes are the HF model's of the same
+    narrowed config."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import convert
+
+    config = next(c for lab, _, c, _ in chip_smoke.OTHER_FAMILY_MODELS
+                  if lab == label)
+    small = _small_other(config)
+    family, cfg = chip_smoke._family_config(small, layers=2)
+    assert cfg.num_layers == 2
+    sd = chip_smoke._hf_state_dict(family, cfg, 0, "cpu", torch.float32)
+    read = set()
+
+    def get(name):
+        read.add(name)
+        return sd[name]
+
+    tree = convert.CONVERTERS[family](get, cfg)
+    assert read == set(sd)
+    assert tree["layers"]["attn"]["wk"].shape == (
+        2, cfg.hidden_size, cfg.num_kv_heads * cfg.head_dim)
+    stem = _HF_OTHER.get(small["model_type"])
+    if stem is None:
+        return
+    import transformers
+
+    hf_kw = {k: v for k, v in chip_smoke._at_depth(small, 2).items()
+             if k not in ("model_type", "bos_token_id", "eos_token_id")}
+    hf_kw["pad_token_id"] = 0        # the published ids lie past 96
+    model = getattr(transformers, f"{stem}ForCausalLM")(
+        getattr(transformers, f"{stem}Config")(**hf_kw))
+    ref = {k: tuple(v.shape) for k, v in model.state_dict().items()
+           if v.is_floating_point() and not (
+               k == "lm_head.weight" and cfg.tie_word_embeddings)}
+    assert {k: tuple(v.shape) for k, v in sd.items()} == ref
+
+
+def test_other_published_configs_translate():
+    """The five published geometries of the phase's table."""
+    got = {label: chip_smoke._family_config(config)
+           for label, _, config, _ in chip_smoke.OTHER_FAMILY_MODELS}
+    fam, cfg = got["qwen2-7b"]
+    assert (fam, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+            cfg.intermediate_size, cfg.vocab_size, cfg.qkv_bias,
+            cfg.sliding_window) == ("llama", 3584, 28, 4, 18944, 152064,
+                                    True, None)
+    fam, cfg = got["gpt-j-6b"]
+    assert (fam, cfg.hidden_size, cfg.num_heads, cfg.head_dim,
+            cfg.vocab_size, cfg.rotary_pct * cfg.head_dim,
+            cfg.rotary_style) == ("gptj", 4096, 16, 256, 50400, 64,
+                                  "interleaved")
+    fam, cfg = got["mpt-7b-instruct"]
+    assert (fam, cfg.hidden_size, cfg.num_heads, cfg.vocab_size,
+            cfg.position_embedding, cfg.qkv_bias, cfg.mlp_bias) == (
+        "mpt", 4096, 32, 50432, "alibi", False, False)
+    fam, cfg = got["glm-4-9b-chat-hf"]
+    assert (fam, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.intermediate_size, cfg.vocab_size,
+            cfg.rotary_pct) == ("glm", 4096, 32, 2, 128, 13696, 151552, 0.5)
+    fam, cfg = got["chatglm3-6b"]
+    assert (fam, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.intermediate_size, cfg.vocab_size) == (
+        "chatglm", 4096, 32, 2, 128, 13696, 65024)
+    routes = {label: r for label, _, _, r in chip_smoke.OTHER_FAMILY_MODELS}
+    assert routes.pop("mpt-7b-instruct") == ("xla",)
+    assert set(routes.values()) == {("flash", "xla")}
+    kernel = {(k, label): (n, g, d) for k, label, _, _, n, g, d
+              in chip_smoke.FAMILY_KERNEL_SHAPES}
+    assert kernel[("causal_grouped_attention", "gpt-j-6b")] == (16, 16, 256)
+    assert {k for k, label in kernel if label == "gpt-j-6b"} == \
+        set(chip_smoke.KERNEL_NAMES)
+    assert chip_smoke.WIDE_HEAD_DIM in chip_smoke.EDGE_DIMS
+
+
+@pytest.mark.parametrize("label", ["gpt-j-6b", "mpt-7b-instruct",
+                                   "chatglm3-6b"])
+def test_snapshot_round_trip_loads_the_written_tensors(label, tmp_path,
+                                                       one_torch_thread):
+    """A narrowed snapshot of each writer goes through the port's loader to
+    the converter's tree, bit for bit, and is deleted after."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import convert
+    from llm_interpretation_replication_tpu_torch.runtime import loader
+
+    config = _small_other(next(c for lab, _, c, _ in
+                               chip_smoke.OTHER_FAMILY_MODELS if lab == label))
+    family, cfg = chip_smoke._family_config(config, chip_smoke.FAMILY_LAYERS)
+    sd = chip_smoke._hf_state_dict(family, cfg, 0, "cpu", torch.bfloat16)
+    tree = convert.CONVERTERS[family](sd.__getitem__, cfg)
+    fails = []
+    snap = str(tmp_path / label)
+    got, sizes = chip_smoke._snapshot_round_trip(
+        loader, snap, config, family, cfg, sd, tree, fails, device="cpu")
+    assert fails == [] and not os.path.exists(snap)
+    assert sizes["bytes"] > sum(t.numel() * 2 for t in sd.values())
+    bad = []
+    chip_smoke._snapshot_round_trip(
+        loader, snap, config, family, cfg,
+        {k: v + 1 if k == next(iter(sd)) else v for k, v in sd.items()},
+        tree, bad, device="cpu")
+    assert len(bad) == 1
+
+
+def test_main_runs_other_families_and_counts_their_launches():
+    """The other_families phase runs after phase 12 in main, its runs count
+    in the causal total, and the kernels line adds each kernel's D=256
+    instance from its GPT-J runs."""
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index('timed("families"') < src.index('"other_families"') \
+        < src.index('timed("run_100q"')
+    assert "causal_launches(oth)" in src
+    assert "WIDE_HEAD_DIM" in src and 'forced_routes"' in src
+
+
+def test_kernels_line_lists_each_kernel_and_its_wide_instance():
+    """Six entries with every key of the contract: each kernel over all
+    its rows at the Falcon-7B row's times, then its D=256 instance over
+    its D=256 rows at GPT-J-6B's."""
+    rows = []
+    for i, (name, *_rest) in enumerate(chip_smoke.KERNELS):
+        for shape, d, err in (("falcon-7b", 64, 0.001), ("gpt-j-6b", 256,
+                                                         0.002 + i)):
+            rows.append(dict(kernel=name, shape=shape, D=d, causal=True,
+                             max_abs_err=err, ms=d / 1e3, plain_ms=1.0,
+                             bound_ms=0.5, bound_by="bytes",
+                             library_ms=2.0))
+        rows.append(dict(kernel=name, D=128, causal=False, max_abs_err=0.005))
+    launches = dict.fromkeys(chip_smoke.KERNEL_NAMES, 34)
+    wide = dict.fromkeys(chip_smoke.KERNEL_NAMES, 2)
+    got = chip_smoke.kernels_line(rows, launches, wide)
+    assert [k["name"] for k in got] == chip_smoke.KERNEL_NAMES + [
+        f"{n}[D=256]" for n in chip_smoke.KERNEL_NAMES]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(set(k) == keys for k in got)
+    assert [k["ms"] for k in got] == [0.064] * 3 + [0.256] * 3
+    assert [k["launches"] for k in got] == [34] * 3 + [2] * 3
+    assert [k["max_abs_err"] for k in got[3:]] == [0.002, 1.002, 2.002]
+    assert got[0]["max_abs_err"] == 0.005

@@ -243,6 +243,59 @@ HF_JSON = {
                 num_hidden_layers=24, num_attention_heads=32, ffn_dim=8192,
                 max_position_embeddings=2048, activation_function="relu",
                 do_layer_norm_before=True, word_embed_proj_dim=2048),
+    # Qwen/Qwen2-7B: a window value beside use_sliding_window false
+    "qwen2": dict(model_type="qwen2", vocab_size=152064, hidden_size=3584,
+                  num_hidden_layers=28, num_attention_heads=28,
+                  num_key_value_heads=4, intermediate_size=18944,
+                  max_position_embeddings=131072, max_window_layers=28,
+                  rms_norm_eps=1e-6, rope_theta=1000000.0,
+                  sliding_window=131072, use_sliding_window=False,
+                  hidden_act="silu", tie_word_embeddings=False),
+    # the same with the window switched on
+    "qwen2_window": dict(model_type="qwen2", vocab_size=152064,
+                         hidden_size=3584, num_hidden_layers=28,
+                         num_attention_heads=28, num_key_value_heads=4,
+                         intermediate_size=18944,
+                         max_position_embeddings=131072, rms_norm_eps=1e-6,
+                         rope_theta=1000000.0, sliding_window=4096,
+                         use_sliding_window=True, hidden_act="silu",
+                         tie_word_embeddings=False),
+    # EleutherAI/gpt-j-6b (GPT-2's short keys)
+    "gptj": dict(model_type="gptj", vocab_size=50400, n_embd=4096, n_layer=28,
+                 n_head=16, n_inner=None, n_positions=2048, rotary_dim=64,
+                 activation_function="gelu_new", layer_norm_epsilon=1e-5,
+                 tie_word_embeddings=False),
+    # mosaicml/mpt-7b-instruct (attn_config a dict)
+    "mpt": dict(model_type="mpt", vocab_size=50432, d_model=4096, n_heads=32,
+                n_layers=32, expansion_ratio=4, max_seq_len=2048,
+                no_bias=True, learned_pos_emb=True,
+                attn_config=dict(alibi=True, alibi_bias_max=8,
+                                 attn_impl="torch", clip_qkv=None,
+                                 qk_ln=False, prefix_lm=False,
+                                 softmax_scale=None)),
+    # THUDM/glm-4-9b-chat-hf
+    "glm": dict(model_type="glm", vocab_size=151552, hidden_size=4096,
+                intermediate_size=13696, num_hidden_layers=40,
+                num_attention_heads=32, num_key_value_heads=2, head_dim=128,
+                partial_rotary_factor=0.5, rms_norm_eps=1.5625e-07,
+                rope_theta=10000.0, max_position_embeddings=131072,
+                attention_bias=True, hidden_act="silu",
+                tie_word_embeddings=False),
+    # THUDM/chatglm3-6b
+    "chatglm": dict(model_type="chatglm", vocab_size=65024,
+                    padded_vocab_size=65024, hidden_size=4096,
+                    ffn_hidden_size=13696, kv_channels=128, num_layers=28,
+                    num_attention_heads=32, seq_length=8192,
+                    layernorm_epsilon=1e-5, rmsnorm=True,
+                    add_bias_linear=False, add_qkv_bias=True,
+                    multi_query_attention=True, multi_query_group_num=2,
+                    original_rope=True, tie_word_embeddings=False),
+    # Salesforce/xgen-7b-8k-inst's geometry under the xgen model type
+    "xgen": dict(model_type="xgen", vocab_size=51200, hidden_size=4096,
+                 num_hidden_layers=32, num_attention_heads=32,
+                 intermediate_size=11008, max_position_embeddings=8192,
+                 rms_norm_eps=1e-6, hidden_act="silu",
+                 tie_word_embeddings=False),
 }
 
 
@@ -273,14 +326,36 @@ def test_from_hf_config_matches_reference(tmp_path, model_type):
     if model_type == "opt":
         assert (got.position_embedding, got.learned_pos_offset,
                 got.tie_word_embeddings) == ("learned", 2, True)
+    if model_type.startswith("qwen2"):
+        assert (family, got.num_kv_heads, got.qkv_bias) == ("llama", 4, True)
+        assert got.sliding_window == (4096 if model_type == "qwen2_window"
+                                      else None)
+    if model_type == "gptj":
+        assert (got.head_dim, got.rotary_pct, got.rotary_style) == \
+            (256, 0.25, "interleaved")
+        assert got.parallel_residual and got.shared_layernorm
+    if model_type == "mpt":
+        assert (got.position_embedding, got.qkv_bias, got.norm_eps) == \
+            ("alibi", False, 1e-5)
+    if model_type == "glm":
+        assert (got.num_kv_heads, got.head_dim, got.rotary_style,
+                got.rotary_pct) == (2, 128, "glm", 0.5)
+    if model_type == "chatglm":
+        assert (got.vocab_size, got.num_kv_heads, got.head_dim,
+                got.rotary_style) == (65024, 2, 128, "interleaved")
+    if model_type == "xgen":
+        assert family == "llama"
 
 
-@pytest.mark.parametrize("model_type,item", [
-    ("mpt", "Other decoder families"), ("glm", "Other decoder families"),
-    ("qwen2", "Other decoder families"), ("gptj", "Other decoder families")])
-def test_other_model_types_raise(model_type, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tconfig.from_hf_config(types.SimpleNamespace(model_type=model_type))
+def test_unknown_model_type_raises():
+    """Every model type of the JAX package is ported; another raises its
+    ``ValueError``, word for word."""
+    ns = types.SimpleNamespace(model_type="bert")
+    with pytest.raises(ValueError) as ref:
+        jconfig.from_hf_config(ns)
+    with pytest.raises(ValueError, match="unsupported model_type 'bert'") as got:
+        tconfig.from_hf_config(ns)
+    assert str(got.value) == str(ref.value)
 
 
 # -- converters and forward ---------------------------------------------------

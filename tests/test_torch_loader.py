@@ -22,6 +22,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from llm_interpretation_replication_tpu.models import config as jconfig
 from llm_interpretation_replication_tpu.runtime import loader as jloader
 from llm_interpretation_replication_tpu_torch.models import config as tconfig
 from llm_interpretation_replication_tpu_torch.models import convert
@@ -180,32 +181,33 @@ def test_load_hf_config_aliases_legacy_keys(tmp_path):
     assert family == "falcon" and cfg.num_layers == 2
 
 
-@pytest.mark.parametrize("model_type,title", [
-    ("llama", "Other decoder families"), ("gpt_neox", "Other decoder families"),
-    ("mpt", "Other decoder families"), (None, "Other decoder families"),
+@pytest.mark.parametrize("model_type,raises", [
+    ("llama", "no weights"), ("gpt_neox", "no weights"),
+    ("mpt", "no weights"), (None, "unsupported model_type"),
 ])
-def test_other_model_types_raise(tmp_path, model_type, title):
-    """A model type no slice has ported raises naming its ROADMAP.md item.
-    ``llama`` and ``gpt_neox`` are ported now: their config translates and
-    the loader goes on to look for weights, while a type of the same item
-    still unported (``qwen2``) raises with the title.  (``mpt`` took the
-    case of ``t5``, which is ported now.)"""
+def test_other_model_types_raise(tmp_path, model_type, raises):
+    """Every model type of the JAX package is ported: ``llama``,
+    ``gpt_neox`` and ``mpt`` (one of the last types ported) translate and
+    the loader goes on to look for weights, while a snapshot without a
+    known model type raises the JAX package's ``ValueError``, word for
+    word."""
     import types
 
-    if model_type in tconfig.FAMILY_BY_MODEL_TYPE:
-        (tmp_path / "config.json").write_text(json.dumps(dict(
-            model_type=model_type, vocab_size=VOCAB, hidden_size=32,
-            num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
-            max_position_embeddings=64, layer_norm_eps=1e-5,
-            rms_norm_eps=1e-5, hidden_act="silu")))
-        with pytest.raises(FileNotFoundError, match="no weights"):
+    if model_type is None:
+        (tmp_path / "config.json").write_text(json.dumps({"hidden_size": 32}))
+        with pytest.raises(ValueError, match=raises) as got:
             loader.load_model(str(tmp_path), device="cpu")
-        with pytest.raises(NotImplementedError, match=title):
-            tconfig.from_hf_config(types.SimpleNamespace(model_type="qwen2"))
+        with pytest.raises(ValueError) as ref:
+            jconfig.from_hf_config(types.SimpleNamespace(hidden_size=32))
+        assert str(got.value) == str(ref.value)
         return
-    (tmp_path / "config.json").write_text(json.dumps(
-        {"model_type": model_type, "hidden_size": 32}))
-    with pytest.raises(NotImplementedError, match=title):
+    (tmp_path / "config.json").write_text(json.dumps(dict(
+        model_type=model_type, vocab_size=VOCAB, hidden_size=32,
+        num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
+        max_position_embeddings=64, layer_norm_eps=1e-5,
+        rms_norm_eps=1e-5, hidden_act="silu", d_model=32, n_heads=4,
+        n_layers=2)))
+    with pytest.raises(FileNotFoundError, match=raises):
         loader.load_model(str(tmp_path), device="cpu")
 
 

@@ -296,22 +296,32 @@ HOST_COMMANDS = {
     "analyze-3way": 6, "analyze-agreement": 7,
     "analyze-family-differences": 7, "ground-truth-figure": 4,
     "model-comparison": 6, "cross-kappa": 5,
+    "run-closed-source": 6, "run-irrelevant": 13, "verify-replication": 27,
 }
 
 
 @pytest.mark.parametrize("command", sorted(HOST_COMMANDS))
 def test_host_command_parsers_match_reference(command):
-    """The port's host commands (``power-analysis``, ``sample-statements``
-    and the fourteen analysis commands) take the reference's options with
-    the same defaults, types and arities."""
+    """The port's host commands (``power-analysis``, ``sample-statements``,
+    the fourteen analysis commands and the three vendor-evaluation ones)
+    take the reference's options with the same defaults, types and
+    arities; ``verify-replication``'s run-config options by name (their
+    device default is the card's)."""
     import argparse
 
     from llm_interpretation_replication_tpu import __main__ as jmain
     from llm_interpretation_replication_tpu_torch import __main__ as tmain
 
+    shared = set()
+    if command == "verify-replication":       # it takes the run config
+        run_config = argparse.ArgumentParser()
+        tmain._add_run_config_args(run_config)
+        shared = {a.dest for a in run_config._actions if a.dest != "help"}
+
     def options(parser):
-        return sorted((tuple(a.option_strings), a.dest, a.default,
-                       a.required, str(a.type), a.nargs, a.const)
+        return sorted((tuple(a.option_strings), a.dest)
+                      + ((a.default, a.required, str(a.type), a.nargs,
+                          a.const) if a.dest not in shared else ())
                       for a in parser._actions)
 
     got = options(_serve_parser(tmain, command, []))

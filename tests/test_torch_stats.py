@@ -408,7 +408,8 @@ def test_stats_phase_runs_after_the_api_phase():
         < src.index('"stats", stats_phase') < src.index("finally:")
     assert "stats=stres" in src
     assert "_stats_host_child" in inspect.getsource(chip_smoke.stats_phase)
-    assert chip_smoke.STATS_BUDGET_S <= 20
+    # 20 s before the vendor leg, whose own 10 s the budget took on
+    assert chip_smoke.STATS_BUDGET_S <= 20 + chip_smoke.VENDOR_EVAL_BUDGET_S
 
 
 # -- the statistics that took DataFrames (more in tests/test_torch_analysis.py) -----------

@@ -178,7 +178,9 @@ def test_figures_equal_byte_for_byte(case, tmp_path):
         path = str(tmp_path / tag / f"{case}.png")
         if name in ("model_comparison_dashboard",):
             kwargs = dict(kwargs, output_path=path)
-            got = getattr(mod, name)(*args, **kwargs)
+            # the port's dashboard takes the frame's row dicts
+            rows = args if tag == "jax" else (args[0].to_dict("records"),)
+            got = getattr(mod, name)(*rows, **kwargs)
         else:
             got = getattr(mod, name)(*args, path, **kwargs)
         assert got == path
