@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the exit code is then non-zero and no result
 line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
-11, 18's CLI leg, 20's CLI leg, 21, 12, 23, 13-15, 22):
+11, 18's CLI leg, 20's CLI leg, 21, 12, 23, 13-15, 22, 24):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
@@ -259,9 +259,11 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    causal launch a layer and prefill;
 20. serve (after phase 19, on the slice's weights at full depth, batch 32,
    ``attention_impl="flash"``): the serving layer (``serve/``): replay
-   of the pooled phase's 384 prompts with slot admission under strict
-   mode (``blocked_transfers`` 0, rows admitted mid-decode), 96 of the
-   full-study prefix/suffix pairs through ``score_prefixed``, an OOM
+   of SERVE_REPLAY_PROMPTS (192) of the pooled phase's prompts with slot
+   admission under strict
+   mode (``blocked_transfers`` 0, rows admitted mid-decode),
+   SERVE_PREFIX_PAIRS (64) of the full-study prefix/suffix pairs through
+   ``score_prefixed``, an OOM
    split under a memory cap between the needs of a micro-batch of 16 and
    one of 32 (``serve_oom_split`` events, every request answered), a
    two-replica ``build_shared_pool`` over a copy of the weights serving
@@ -333,7 +335,22 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    through ``sweeps.run_model_on_prompts`` at ``EngineConfig(batch_size=
    32)`` on the causal kernel and dense (MPT, ALiBi, dense only), under
    phase 12's gates; GPT-J's longest batch also goes through the forced
-   grouped and flash routes (the head-major kernels at D=256).
+   grouped and flash routes (the head-major kernels at D=256);
+24. plan (last, nothing of the other phases resident; budget
+   PLAN_BUDGET_S, 30 s): the plan model on the card.  ``plan search``
+   prints the ranked table for Falcon-7B, w8a8, the full-study row, on
+   the causal kernel's route, at the card's memory; at every operating
+   point where the phases above recorded a peak (each run's
+   ``plan_point``: geometry at its depth, batch, bucket, quant, KV dtype,
+   chunk, decode block and what was allocated at the reset) the budget
+   model's live set must cover the measured increment (its whole need
+   where a CLI run loads its own weights; T5's runs are unpriced); then
+   ``run-perturbation --plan-search --quant int8 --attention-impl flash``
+   on a Falcon-7B snapshot at full width and depth (random weights it
+   writes) over one batch of the irrelevant-insertion corpus's rows:
+   no OOM step, the measured peak within the predicted need and the need
+   within the card's memory, the chosen plan run, a causal launch a layer
+   a prefill.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -868,6 +885,7 @@ def slice_phase(seed, attention):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     _reset_launches(attention)
     t0 = time.perf_counter()
     rows = engine.score_prompts(prompts)
@@ -875,6 +893,8 @@ def slice_phase(seed, attention):
     elapsed = time.perf_counter() - t0
     launches = _launches(attention)["causal_grouped_attention"]
     peak = torch.cuda.max_memory_allocated()
+    point = _plan_point("binary", cfg, BATCH,
+                        batching.bucket_for(max(map(len, prompts))), before)
 
     batches = list(batching.batches_for_prompts(
         prompts, BATCH, ecfg.buckets, pad_id=tok.pad_token_id,
@@ -965,7 +985,7 @@ def slice_phase(seed, attention):
                                      dense_prefill_ms=dense_prefill_ms,
                                      lookahead_step_ms=step_ms),
                   undecided_share=undecided / N_PROMPTS,
-                  peak_memory_bytes=peak,
+                  peak_memory_bytes=peak, plan_point=point,
                   logits_rel_l2={k: v for k, v in rel.items()},
                   same_scan_found_share=same_found,
                   scan_found_rows=dict(kernel=found_rows[0], dense=found_rows[1]),
@@ -1195,7 +1215,9 @@ def pooled_phase(seed, attention, weights):
         prefills[0] += 1
         return real_prefill(*args, **kwargs)
 
-    def timed(name, call, n_batches, pooled):
+    seq = batching.bucket_for(max(map(len, prompts)))
+
+    def timed(name, call, n_batches, pooled, ecfg=base):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
@@ -1210,7 +1232,9 @@ def pooled_phase(seed, attention, weights):
         res = dict(run=name, rows_per_s=len(rows) / elapsed, seconds=elapsed,
                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
                    memory_before_bytes=before, kernel_launches=launches,
-                   prefills=prefills[0], overflow_batches=overflow)
+                   prefills=prefills[0], overflow_batches=overflow,
+                   plan_point=_plan_point("binary", cfg, BATCH, seq, before,
+                                          depth=ecfg.pipeline_depth))
         if launches < cfg.num_layers * prefills[0] or \
                 prefills[0] < n_batches or overflow != int(pooled):
             raise AssertionError(f"pooled {name}: {launches} launches, "
@@ -1236,7 +1260,7 @@ def pooled_phase(seed, attention, weights):
             engine.occupancy_report()
             rows[name], res = timed(
                 name, lambda: engine.score_prompts(prompts, targets),
-                len(batches), pooled)
+                len(batches), pooled, ecfg)
             res["occupancy"] = engine.occupancy_report()
             if name != "per_batch":
                 res["max_abs_delta_relative_prob_vs_per_batch"] = \
@@ -1836,12 +1860,13 @@ def full_study_phase(seed, attention, weights):
 
     runs, rows = {}, {}
 
-    def timed(name, call, ecfg):
+    def timed(name, call, ecfg, texts):
         engine = emod.ScoringEngine("falcon", cfg, weights, tok,
                                     engine_config=ecfg, device=device)
         call(engine, slice(0, base.batch_size))             # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         telemetry.clear_counters()
         _reset_launches(attention)
         for k in counted:
@@ -1855,6 +1880,12 @@ def full_study_phase(seed, attention, weights):
         res = dict(run=name, rows_per_s=STUDY_PROMPTS / elapsed,
                    seconds=elapsed,
                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   plan_point=_plan_point(
+                       "full", cfg, ecfg.batch_size,
+                       batching.bucket_for(max(map(len, texts))), before,
+                       kv=ecfg.kv_dtype, depth=ecfg.pipeline_depth,
+                       pooled=ecfg.pooled_confidence and name != "binary",
+                       repack=ecfg.slot_repack),
                    kernel_launches=launches, prefills=counted["prefill"],
                    extend_prefills=counted["extend_prefill"],
                    **{k: c.get(k, 0) for k in (
@@ -1873,7 +1904,8 @@ def full_study_phase(seed, attention, weights):
         setattr(decoder, name, counting(name))
     try:
         timed("binary", lambda e, sl: e.score_prompts(binary[sl],
-                                                      targets[sl]), base)
+                                                      targets[sl]), base,
+              binary)
         for name, ecfg in (
                 ("confidence_ring", base),
                 ("confidence_flush",
@@ -1881,9 +1913,9 @@ def full_study_phase(seed, attention, weights):
                 ("confidence_per_batch",
                  dataclasses.replace(base, pooled_confidence=False))):
             timed(name, lambda e, sl: e.score_prompts(
-                conf[sl], targets[sl], **conf_kw), ecfg)
+                conf[sl], targets[sl], **conf_kw), ecfg, conf)
         timed("fused", lambda e, sl: e.score_prefixed(
-            pairs[sl], targets[sl], legs=legs), base)
+            pairs[sl], targets[sl], legs=legs), base, prefixes)
     finally:
         for name in counted:
             setattr(decoder, name, real[name])
@@ -2068,6 +2100,7 @@ def int8_phase(seed, attention, bf16_rows):
         engine.score_prompts(prompts[:BATCH])          # warm-up, not counted
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         _reset_launches(attention)
         t0 = time.perf_counter()
         rows = engine.score_prompts(prompts)
@@ -2075,6 +2108,9 @@ def int8_phase(seed, attention, bf16_rows):
         elapsed = time.perf_counter() - t0
         launches = _launches(attention)["causal_grouped_attention"]
         peak = torch.cuda.max_memory_allocated()
+        point = _plan_point("binary", cfg, BATCH,
+                            max(b.bucket_len for b in batches), before,
+                            quant="int8", kv=kv)
         _check_rows(rows)
         yes_id, no_id = engine.target_ids(["Yes", "No"])
         if launches < cfg.num_layers * len(batches):
@@ -2082,7 +2118,8 @@ def int8_phase(seed, attention, bf16_rows):
                                  f"{launches} times")
         runs[kv] = dict(rows=rows, result=dict(
             kv_dtype=kv, rows_per_s=N_PROMPTS / elapsed, seconds=elapsed,
-            peak_memory_bytes=peak, kernel_launches=launches))
+            peak_memory_bytes=peak, plan_point=point,
+            kernel_launches=launches))
         engine.close(release_params=False)
 
     def drel(a_rows, b_rows):
@@ -2597,10 +2634,16 @@ def sweep_phase(seed, attention, full_weights, workdir, card):
         out = os.path.join(workdir, f"sweep_{name}.xlsx")
         engine = emod.ScoringEngine("falcon", cfg, weights, tok,
                                     engine_config=ecfg, device=device)
+        # the legacy route scores each whole prompt, the fused one each
+        # rephrasing's prefix; both buckets priced at the whole prompt's
+        seq = batching.bucket_for(max(
+            len(tok(f"{r} {s['confidence_format']}")["input_ids"])
+            for s in scenarios for r in s["rephrasings"]))
         calls = []
         for attempt in ((True, False) if crash else (False,)):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
             telemetry.clear_counters()
             _reset_launches(attention)
             for k in counted:
@@ -2633,6 +2676,12 @@ def sweep_phase(seed, attention, full_weights, workdir, card):
                 seconds=elapsed, rows_scored=scored,
                 rows_per_s=scored / elapsed,
                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                plan_point=_plan_point(
+                    "full", cfg, ecfg.batch_size, seq, before,
+                    kv=ecfg.kv_dtype, chunk=ecfg.prefill_chunk,
+                    depth=ecfg.pipeline_depth,
+                    pooled=ecfg.pooled_confidence,
+                    repack=ecfg.slot_repack),
                 kernel_launches=_launches(attention)[
                     "causal_grouped_attention"],
                 prefills=counted["prefill"],
@@ -2765,6 +2814,11 @@ def sweep_phase(seed, attention, full_weights, workdir, card):
         timing[f"{name}_ms"] = time_ms(fn, iters=3, warmup=1)
         timing[f"{name}_peak_gb"] = peak / 1e9
         timing[f"{name}_transient_gb"] = (peak - base_bytes) / 1e9
+        timing.setdefault("points", []).append(dict(
+            run=name, peak_memory_bytes=peak,
+            plan_point=_plan_point(
+                "prefill", cfg, ids.shape[0], batch.bucket_len, base_bytes,
+                chunk=TIMING_PREFILL_CHUNK if name == "chunked" else 0)))
     say("sweep prefill timing", json.dumps(timing))
     result = dict(card=card, rows=n_rows,
                   token_lengths=[min(lengths), max(lengths)],
@@ -3341,11 +3395,23 @@ def _write_gpt2_tokenizer(snap, texts):
             json.dump(obj, f)
 
 
-def _write_safetensors(path, tensors):
+def _pwrite_all(fd, view, at):
+    """``os.pwrite`` of every byte of ``view`` at offset ``at``."""
+    view = memoryview(view).cast("B")
+    while view:
+        done = os.pwrite(fd, view, at)
+        view, at = view[done:], at + done
+
+
+def _write_safetensors(path, tensors, chunk=64 << 20, threads=4):
     """A safetensors file of ``tensors`` (name -> tensor, any device): an
     8-byte little-endian header length, the JSON header (padded with spaces
-    to a multiple of 8), then each tensor's bytes in order."""
+    to a multiple of 8), then each tensor's bytes in order.  The bytes go
+    out in ``chunk``-byte pieces written at their offsets by ``threads``
+    writers (``os.pwrite``); a tensor on the card is staged through a ring
+    of pinned host buffers, each reused once its write has finished."""
     import struct
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -3360,12 +3426,36 @@ def _write_safetensors(path, tensors):
         offset += n
     head = json.dumps(header).encode()
     head += b" " * (-len(head) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(head)))
-        f.write(head)
-        for t in tensors.values():
-            f.write(t.detach().contiguous().cpu().reshape(-1)
-                    .view(torch.uint8).numpy().data)
+    at = 8 + len(head)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    try:
+        os.pwrite(fd, struct.pack("<Q", len(head)) + head, 0)
+        staging, busy = [], {}
+        with ThreadPoolExecutor(threads) as pool:
+            for t in tensors.values():
+                flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+                for lo in range(0, flat.numel(), chunk):
+                    part = flat[lo:lo + chunk]
+                    if part.is_cuda:
+                        slot = len(staging) if len(staging) < 2 * threads \
+                            else min(busy, key=lambda i: busy[i][0])
+                        if slot == len(staging):
+                            staging.append(torch.empty(
+                                chunk, dtype=torch.uint8, pin_memory=True))
+                        elif slot in busy:
+                            busy.pop(slot)[1].result()
+                        host = staging[slot][:part.numel()]
+                        host.copy_(part)
+                        busy[slot] = (at, pool.submit(
+                            _pwrite_all, fd, host.numpy().data, at))
+                    else:
+                        busy[("cpu", at)] = (at, pool.submit(
+                            _pwrite_all, fd, part.numpy().data, at))
+                    at += part.numel()
+            for _, job in busy.values():
+                job.result()
+    finally:
+        os.close(fd)
 
 
 def _falcon_state_dict(tree, cfg):
@@ -3407,7 +3497,7 @@ def _falcon_config_json(cfg):
 
 
 def _cli_packed_and_k_runs(cli, argv, snap, workdir, attention, cfg, n_rows,
-                           books, runs, card):
+                           books, runs, card, longest):
     """``run-perturbation --packed PACK_Q`` (the packed workbook with its
     extractor tag, and the drift line on stdout), then ``--decode-k
     K_DECODE`` twice: the first run distills a K-head and writes
@@ -3423,17 +3513,25 @@ def _cli_packed_and_k_runs(cli, argv, snap, workdir, attention, cfg, n_rows,
 
     fails = []
     logs = {}
-    for name, extra, book in (
+    # a pack of PACK_Q prompts and their demonstrations, priced at PACK_Q
+    # times the longest prompt and a demonstration's few tokens each
+    packed = _plan_point("packed", cfg, BATCH, _bucket(PACK_Q * (longest + 8)),
+                         0, packing=PACK_Q, weights_in_run=True)
+    k = _plan_point("full", cfg, BATCH, _bucket(longest), 0, pooled=True,
+                    decode_k=K_DECODE, weights_in_run=True)
+    for name, extra, book, point in (
             ("packed", ["--packed", str(PACK_Q)],
-             "perturbation_results_packed.xlsx"),
-            ("k4", ["--decode-k", str(K_DECODE)], "perturbation_results.xlsx"),
+             "perturbation_results_packed.xlsx", packed),
+            ("k4", ["--decode-k", str(K_DECODE)], "perturbation_results.xlsx",
+             k),
             ("k4_loaded", ["--decode-k", str(K_DECODE)],
-             "perturbation_results.xlsx")):
+             "perturbation_results.xlsx", k)):
         out = os.path.join(workdir, f"cli_{name}")
         _reset_launches(attention)
         stdout, stderr = io.StringIO(), io.StringIO()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        point = dict(point, memory_before_bytes=torch.cuda.memory_allocated())
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(stdout), \
                 contextlib.redirect_stderr(stderr):
@@ -3445,6 +3543,7 @@ def _cli_packed_and_k_runs(cli, argv, snap, workdir, attention, cfg, n_rows,
         res = dict(run=name, seconds=elapsed, rows=len(books[name]),
                    rows_per_s=len(books[name]) / elapsed,
                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   plan_point=point,
                    kernel_launches=_launches(attention)[
                        "causal_grouped_attention"],
                    stdout_tail=logs[name][0].splitlines()[-2:],
@@ -3576,17 +3675,22 @@ def cli_phase(seed, attention, workdir, card):
     runs, books = [], {}
     argv = ["run-perturbation", "--model", snap, "--perturbations", pert,
             "--attention-impl", "flash", "--batch-size", str(BATCH)]
+    # the longest whole prompt a run scores, in the snapshot's tokens
+    longest = max(len(snap_tok(f"{r} {s['confidence_format']}")["input_ids"])
+                  for s in scenarios for r in s["rephrasings"])
     decoder.prefill = counting
     try:
-        for name, extra in (("bf16", []),
-                            ("int8", ["--quant", "int8", "--kv-dtype", "int8",
-                                      "--prefill-chunk",
-                                      str(SWEEP_PREFILL_CHUNK)])):
+        for name, extra, quant, kv, chunk in (
+                ("bf16", [], "none", "bf16", 0),
+                ("int8", ["--quant", "int8", "--kv-dtype", "int8",
+                          "--prefill-chunk", str(SWEEP_PREFILL_CHUNK)],
+                 "int8", "int8", SWEEP_PREFILL_CHUNK)):
             out = os.path.join(workdir, f"cli_{name}")
             _reset_launches(attention)
             counted["prefill"] = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             cli.main(argv + ["--output-dir", out] + extra)
             torch.cuda.synchronize()
@@ -3596,6 +3700,10 @@ def cli_phase(seed, attention, workdir, card):
             res = dict(run=name, seconds=elapsed, rows=len(books[name]),
                        rows_per_s=len(books[name]) / elapsed,
                        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                       plan_point=_plan_point(
+                           "full", cfg, BATCH, _bucket(longest), before,
+                           quant=quant, kv=kv, chunk=chunk, pooled=True,
+                           weights_in_run=True),
                        kernel_launches=_launches(attention)[
                            "causal_grouped_attention"],
                        prefills=counted["prefill"])
@@ -3610,7 +3718,7 @@ def cli_phase(seed, attention, workdir, card):
     finally:
         decoder.prefill = real_prefill
     fails += _cli_packed_and_k_runs(cli, argv, snap, workdir, attention, cfg,
-                                    n_rows, books, runs, card)
+                                    n_rows, books, runs, card, longest)
 
     # the same sweep in this process over the weights load_model gave back
     tok = snap_tok
@@ -4495,6 +4603,13 @@ def families_phase(seed, attention, card, instruct=False, workdir=None):
             counted["prefill"] = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            point = _plan_point(
+                "full", rcfg, BATCH, max(b.bucket_len for b in batches),
+                torch.cuda.memory_allocated(),
+                quant="int8" if route.startswith("w8a8") else "none",
+                kv=rcfg_e.kv_dtype,
+                suffix=max([64] + [len(p) - n for p, n in zip(
+                    prompts, prefix_lens or ())]))
             decoder.prefill = counting
             try:
                 t0 = time.perf_counter()
@@ -4543,6 +4658,7 @@ def families_phase(seed, attention, card, instruct=False, workdir=None):
                        prefill_ms_bucket=prefill_ms,
                        decode_ms_per_step=step_ms,
                        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                       plan_point=point,
                        success_rows=sum(bool(r["success"]) for r in csv_rows),
                        scan_found_rows=sum(r["scan_found"]
                                            for r in engine.rows),
@@ -5859,12 +5975,22 @@ def packed_phase(seed, attention, weights, near_tie, workdir, card):
             return real[name](*args, **kwargs)
         return call
 
+    # the packed rows' bucket, and what was allocated at each reset
+    pack_seq = batching.bucket_for(max(map(len, packed.encode_packs(
+        tok, packed.build_packs(prompts, PACK_Q))[0])))
+    before = [0]
+
     def reset():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before[0] = torch.cuda.memory_allocated()
         _reset_launches(attention)
         for k in counted:
             counted[k] = 0
+
+    def point(rcfg=cfg):
+        return _plan_point("packed", rcfg, BATCH, pack_seq, before[0],
+                           packing=PACK_Q)
 
     def launches_per_forward(name, res):
         forwards = sum(counted.values())
@@ -5896,7 +6022,8 @@ def packed_phase(seed, attention, weights, near_tie, workdir, card):
         log.close()
         res = dict(run="packed_sweep", seconds=elapsed,
                    questions_per_s=n / elapsed,
-                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   plan_point=point())
         launches_per_forward("packed_sweep", res)
         runs.append(res)
         cols, book = read_xlsx(out)
@@ -5931,6 +6058,9 @@ def packed_phase(seed, attention, weights, near_tie, workdir, card):
             elapsed = time.perf_counter() - t0
             speed[f"{name}_questions_per_s"] = n / elapsed
             speed[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            speed.setdefault("points", []).append(dict(
+                run=name, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                plan_point=point()))
         rows, _ = packed.encode_packs(tok, packs)
         lens = sorted(len(r) for r in rows)
         speed["packed_tokens"] = [lens[0], lens[-1]]
@@ -5970,7 +6100,8 @@ def packed_phase(seed, attention, weights, near_tie, workdir, card):
             four = eng.score_packed(packs, targets, top_filter=TOP_FILTER)
             torch.cuda.synchronize()
             res = dict(run=f"packed_{route}", seconds=time.perf_counter() - t0,
-                       peak_memory_bytes=torch.cuda.max_memory_allocated())
+                       peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                       plan_point=point(rcfg))
             if route == "kernel":
                 launches_per_forward(res["run"], res)
             elif _launches(attention)["causal_grouped_attention"]:
@@ -6139,6 +6270,12 @@ def k_decode_phase(seed, attention, full_weights, card):
     def run(name, engine):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        point = _plan_point(
+            "full", cfg, engine.ecfg.batch_size,
+            _bucket(max(len(p) for p, _ in pairs)),
+            torch.cuda.memory_allocated(), kv=engine.ecfg.kv_dtype,
+            depth=engine.ecfg.pipeline_depth, pooled=True,
+            decode_k=engine.ecfg.decode_k)
         telemetry.clear_counters()
         hist = telemetry.hist_snapshot()
         _reset_launches(attention)
@@ -6153,6 +6290,7 @@ def k_decode_phase(seed, attention, full_weights, card):
         acc = telemetry.hist_since(hist).get("accepted_k")
         res = dict(run=name, rows_per_s=n / elapsed, seconds=elapsed,
                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   plan_point=point,
                    kernel_launches=_launches(attention)[
                        "causal_grouped_attention"],
                    prefills=counted["prefill"],
@@ -6892,20 +7030,22 @@ def tokenizers_phase(seed, attention, weights, workdir, card):
 
 # the admission hold of the phase's schedulers
 SERVE_MAX_WAIT_S = 0.02
-# prefix/suffix pairs of the full-study rows served through score_prefixed
-SERVE_PREFIX_PAIRS = 96
+# the replay leg's requests (the pooled prompts' first rows); prefix/suffix
+# pairs of the full-study rows served through score_prefixed
+SERVE_REPLAY_PROMPTS = 192
+SERVE_PREFIX_PAIRS = 64
 # the OOM leg: prompts of this length (bucket 448), one micro-batch of 32
 SERVE_OOM_PROMPTS, SERVE_OOM_LEN = 32, 440
 # the pool, roles and supervise legs' requests (the pooled prompts' first
 # rows)
-SERVE_POOL_PROMPTS, SERVE_ROLE_PROMPTS, SERVE_SUPERVISE_PROMPTS = 192, 64, 32
+SERVE_POOL_PROMPTS, SERVE_ROLE_PROMPTS, SERVE_SUPERVISE_PROMPTS = 96, 64, 32
 # a busy replica with no progress beat for this long is wedged; well above
 # one Falcon-7B launch of 32 rows
 SERVE_WEDGE_S = 3.0
 # the load leg: prompts of one bucket (256), completions of 10 tokens, the
 # open-loop rates as fractions of the closed loop's, seconds each
 SERVE_LOAD_PROMPTS, SERVE_LOAD_LENS = 64, (241, 256)
-SERVE_LOAD_FRACTIONS, SERVE_LOAD_S, SERVE_LOAD_TOKENS = (0.25, 0.5, 0.9), 5.0, 10
+SERVE_LOAD_FRACTIONS, SERVE_LOAD_S, SERVE_LOAD_TOKENS = (0.25, 0.5, 0.9), 3.0, 10
 SERVE_LOAD_CLOSED_S = 2.0
 # memory after the pool leg's hot unloads may sit this far above its
 # value before the leg's copy of the weights
@@ -7031,13 +7171,14 @@ def serve_phase(seed, attention, weights, pool_inputs, card):
         eng = engine()
         eng.score_prompts(prompts[:BATCH], pairs[:BATCH])     # warm-up
         snap = telemetry.counters()
+        rp, rt = prompts[:SERVE_REPLAY_PROMPTS], pairs[:SERVE_REPLAY_PROMPTS]
         t0 = time.perf_counter()
-        offline = eng.score_prompts(prompts, pairs)
+        offline = eng.score_prompts(rp, rt)
         offline_s = time.perf_counter() - t0
         offline_rows.extend(offline)
         strict.activate(sentry=False)
         try:
-            report = serve.replay(eng, prompts, targets=pairs,
+            report = serve.replay(eng, rp, targets=rt,
                                   config=sched_cfg, offline_rows=offline,
                                   offline_s=offline_s, require_parity=False)
         finally:
@@ -7091,7 +7232,7 @@ def serve_phase(seed, attention, weights, pool_inputs, card):
         targets = [(f"t{a}", f"t{b}") for a, b in
                    rng.integers(3, cfg.vocab_size, (SERVE_OOM_PROMPTS, 2))]
         eng = engine()
-        need = {}
+        need, points = {}, []
         for b in (BATCH // 2, BATCH):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -7101,6 +7242,10 @@ def serve_phase(seed, attention, weights, pool_inputs, card):
                 eng.score_prompts_slotted(oom_prompts[:b], targets[:b])
             torch.cuda.synchronize()
             need[b] = torch.cuda.max_memory_allocated() - before
+            points.append(dict(
+                batch=b, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                plan_point=_plan_point("binary", cfg, b,
+                                       _bucket(SERVE_OOM_LEN), before)))
         torch.cuda.empty_cache()
         cap = torch.cuda.memory_reserved() + (need[BATCH // 2]
                                               + need[BATCH]) / 2
@@ -7124,7 +7269,8 @@ def serve_phase(seed, attention, weights, pool_inputs, card):
         eng.close(release_params=False)
         res = dict(prompts=SERVE_OOM_PROMPTS, bucket_tokens=SERVE_OOM_LEN,
                    cap_bytes=int(cap), splits=splits,
-                   need_bytes={str(k): int(v) for k, v in need.items()})
+                   need_bytes={str(k): int(v) for k, v in need.items()},
+                   points=points)
         if not errors and splits:
             # offline at the batch the split ended at
             ended = min(sp["new_batch"] for sp in splits)
@@ -8711,6 +8857,324 @@ def kernels_line(rows, launches, wide):
     return kernels
 
 
+PLAN_BUDGET_S = 55.0
+#: the plan phase's searched run: Falcon-7B at full width and depth, w8a8
+#: weights on the causal kernel's route, the full-study row
+PLAN_QUANT, PLAN_IMPL = "int8", "flash"
+
+
+def _plan_point(kind, cfg, batch, seq, before, *, quant="none", kv="bf16",
+                chunk=0, depth=2, packing=1, decode_k=1, pooled=False,
+                repack=True, suffix=64, weights_in_run=False):
+    """What the budget model needs to price one recorded peak: the
+    workload (``kind``: "binary", "full", "packed" or "prefill"), the
+    geometry at the depth the run ran, batch, bucket, quant, KV dtype,
+    chunk, pipeline depth, packing, decode block, the pooled confidence
+    decode, the suffix length, and the bytes allocated when the peak was
+    reset (``before``).  ``weights_in_run``: the weights were allocated
+    inside the measured run (a CLI run loading its snapshot)."""
+    return dict(kind=kind, geometry={f.name: getattr(cfg, f.name)
+                                     for f in dataclasses.fields(cfg)},
+                batch=batch, seq=seq, quant=quant, kv_dtype=kv, chunk=chunk,
+                pipeline_depth=depth, packing=packing, decode_k=decode_k,
+                pooled=pooled, repack=repack, suffix=suffix,
+                memory_before_bytes=before, weights_in_run=weights_in_run)
+
+
+def _bucket(length):
+    """The engine's bucket for a prompt of ``length`` tokens."""
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+
+    return batching.bucket_for(length)
+
+
+def _plan_need(point):
+    """(need bytes, terms) the budget model gives a recorded point (the
+    module's own coefficients)."""
+    from llm_interpretation_replication_tpu_torch.models.config import (
+        DecoderConfig)
+    from llm_interpretation_replication_tpu_torch.runtime import plan
+    from llm_interpretation_replication_tpu_torch.runtime import plan_search
+
+    cfg = DecoderConfig(**point["geometry"])
+    b, s, q = point["batch"], point["seq"], point["quant"]
+    impl = "flash" if cfg.use_flash_attention(s) else "xla"
+    wb = plan.weight_bytes(cfg, q)
+    kind, depth = point["kind"], point["pipeline_depth"]
+    if kind == "binary":
+        terms = plan_search.binary_need_terms(cfg, wb, b, s, depth, impl,
+                                              quant=q)
+    elif kind == "full":
+        terms = plan.full_study_need_terms(
+            cfg, wb, impl, b, s, pipeline_depth=depth,
+            kv_dtype=point["kv_dtype"], prefill_chunk=point["chunk"],
+            pooled_confidence=point["pooled"], slot_repack=point["repack"],
+            decode_k=point["decode_k"], quant=q, suffix_len=point["suffix"])
+    elif kind == "packed":
+        terms = plan.packed_need_terms(cfg, wb, impl, b, s, point["packing"],
+                                       depth, quant=q)
+    else:                  # one prompt forward and its cache (and a copy)
+        terms = {"weights": wb,
+                 "attn": plan.prefill_attention_bytes(cfg, impl, b, s,
+                                                      point["chunk"]),
+                 "act": plan.activation_bytes(cfg, b, s, point["chunk"], q),
+                 "completions": 2 * plan.kv_cache_bytes(cfg, b, s,
+                                                        point["kv_dtype"])}
+    if point["weights_in_run"]:       # the run loaded its snapshot
+        load = plan.load_excess_bytes(cfg, q, terms)
+        if load:
+            terms["load"] = load
+    return sum(terms.values()), terms
+
+
+def _recorded_points(results, path="", out=None):
+    """Every (path, run) under ``results`` that recorded a peak, each run
+    once (a phase may list a run twice)."""
+    out = {} if out is None else out
+    if isinstance(results, dict):
+        if "peak_memory_bytes" in results and "calls" not in results:
+            out.setdefault(id(results), (path, results))
+        for k, v in results.items():
+            if k != "plan_point":
+                _recorded_points(v, f"{path}/{k}", out)
+    elif isinstance(results, (list, tuple)):
+        for i, v in enumerate(results):
+            _recorded_points(v, f"{path}[{i}]", out)
+    return list(out.values())
+
+
+def plan_memory_check(results):
+    """(b): at every recorded operating point, the budget model's need
+    against the measured peak.  The measured need is the peak above what
+    was allocated when the peak was reset; the predicted one is the
+    model's live set beyond the weights (which were allocated before),
+    or its whole need where the run loaded its own weights.  Returns
+    (rows, failures)."""
+    rows, fails = [], []
+    for path, run in _recorded_points(results):
+        point = run.get("plan_point")
+        if point is None:       # T5: the model prices decoders only
+            rows.append(dict(point=path, kind="unpriced",
+                             model=run.get("model")))
+            if run.get("route") != "t5":
+                fails.append(f"plan {path}: a peak without its plan point")
+            continue
+        need, terms = _plan_need(point)
+        measured = run["peak_memory_bytes"] - point["memory_before_bytes"]
+        predicted = need if point["weights_in_run"] else \
+            need - terms["weights"]
+        row = dict(point=path, kind=point["kind"],
+                   layers=point["geometry"]["num_layers"],
+                   hidden=point["geometry"]["hidden_size"],
+                   batch=point["batch"], seq=point["seq"],
+                   quant=point["quant"], kv_dtype=point["kv_dtype"],
+                   chunk=point["chunk"], predicted_bytes=predicted,
+                   measured_bytes=measured,
+                   ratio=predicted / max(1, measured))
+        rows.append(row)
+        if predicted < measured:
+            fails.append(f"plan {path}: predicted {predicted} bytes < "
+                         f"measured {measured}")
+    return rows, fails
+
+
+def _plan_searched_run(seed, attention, workdir, card, chosen):
+    """(c): ``run-perturbation --plan-search`` on a Falcon-7B snapshot at
+    full width and depth (random bf16 weights from ``seed``, loaded as
+    w8a8) on the causal kernel's route, over one batch (the chosen batch)
+    of the irrelevant-insertion corpus's rows as the legal scenarios'
+    rephrasings.  Returns the run's record (peak, the need the model
+    predicts for the chosen plan, OOM steps, launches and prefills)."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+    from llm_interpretation_replication_tpu_torch.config import (
+        irrelevant_scenarios, irrelevant_statements, legal_scenarios)
+    from llm_interpretation_replication_tpu_torch.gen.irrelevant import (
+        generate_perturbations)
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import convert
+    from llm_interpretation_replication_tpu_torch.models import decoder
+
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl=PLAN_IMPL)
+    corpus = generate_perturbations(irrelevant_scenarios(),
+                                    irrelevant_statements())
+    per = -(-chosen["batch"] // len(corpus))
+    records = [dict(s, rephrasings=[p["perturbed_text"] for p in
+                                    c["perturbations_with_irrelevant"][:per]])
+               for s, c in zip(legal_scenarios(), corpus)]
+    extra = sum(len(r["rephrasings"]) for r in records) - chosen["batch"]
+    records[-1]["rephrasings"] = records[-1]["rephrasings"][:per - extra]
+    pert = os.path.join(workdir, "plan_perturbations.json")
+    with open(pert, "w", encoding="utf-8") as f:
+        json.dump(records, f)
+    snap = os.path.join(workdir, "falcon-7b-plan")
+    os.makedirs(snap)
+    texts = [s[k] for s in records for k in ("original_main",
+                                              "response_format",
+                                              "confidence_format")]
+    texts += list(irrelevant_statements())
+    texts += [" " + t for s in records for t in s["target_tokens"]]
+    t0 = time.perf_counter()
+    _write_tokenizer_files(snap, _format_tokenizer_files("falcon", texts))
+    with open(os.path.join(snap, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(_falcon_config_json(cfg), f)
+    weights = convert.random_params(cfg, seed=seed + 5, device="cuda",
+                                    dtype="bf16")
+    _write_safetensors(os.path.join(snap, "model.safetensors"),
+                       _falcon_state_dict(weights.tree(), cfg))
+    del weights
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    snapshot_s = time.perf_counter() - t0
+
+    # every prompt forward (the sweep's prefills, the K-head distillation's
+    # greedy prefill and teacher-forced pass) runs the model's trunk once
+    engines, forwards = [], [0]
+    real_factory, real_trunk = cli._engine_factory, decoder._trunk
+
+    def factory(rc):
+        make = real_factory(rc)
+
+        def build(name):
+            engines.append(make(name))
+            return engines[-1]
+        return build
+
+    def counted_trunk(*args, **kwargs):
+        forwards[0] += 1
+        return real_trunk(*args, **kwargs)
+
+    out = os.path.join(workdir, "plan_run")
+    stdout, stderr = io.StringIO(), io.StringIO()
+    cli._engine_factory, decoder._trunk = factory, counted_trunk
+    try:
+        _reset_launches(attention)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            cli.main(["run-perturbation", "--model", snap, "--perturbations",
+                      pert, "--quant", PLAN_QUANT, "--attention-impl",
+                      PLAN_IMPL, "--plan-search", "--output-dir", out])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        cli._engine_factory, decoder._trunk = real_factory, real_trunk
+    eng = engines[0]
+    err = stderr.getvalue()
+    launches = _launches(attention)["causal_grouped_attention"]
+    log_plan = [x for x in err.splitlines() + stdout.getvalue().splitlines()
+                if "plan search chose" in x]
+    return dict(snapshot_seconds=snapshot_s, run_seconds=run_s,
+                rows=chosen["batch"], peak_memory_bytes=peak,
+                memory_before_bytes=before,
+                fault_events=[str(e) for e in eng.fault_events],
+                oom_steps=sum("oom" in str(e).lower()
+                              for e in eng.fault_events),
+                plan_decision=eng.plan_decision, plan_lines=log_plan,
+                batch_size=eng.ecfg.batch_size, kv_dtype=eng.ecfg.kv_dtype,
+                prefill_chunk=eng.ecfg.prefill_chunk,
+                decode_k=eng.ecfg.decode_k, kernel_launches=launches,
+                forwards=forwards[0], layers=cfg.num_layers, card=card)
+
+
+def plan_run_fails(run, chosen):
+    """The searched run's gates: no OOM step, the measured peak within the
+    predicted need and the need within the card's memory, the engine on
+    the chosen plan with its ``[plan]`` decision logged, and the causal
+    kernel launched once a layer a prompt forward."""
+    fails = []
+    if run["oom_steps"]:
+        fails.append(f"plan searched run: {run['oom_steps']} OOM steps")
+    if not run["measured_bytes"] <= run["predicted_need_bytes"] \
+            <= run["hbm_bytes"]:
+        fails.append(f"plan searched run: measured {run['measured_bytes']}, "
+                     f"predicted {run['predicted_need_bytes']}, card "
+                     f"{run['hbm_bytes']}")
+    if (run["batch_size"], run["kv_dtype"], run["prefill_chunk"],
+            run["decode_k"]) != (chosen["batch"], chosen["kv_dtype"],
+                                 chosen["prefill_chunk"], chosen["decode_k"]) \
+            or not run["plan_lines"]:
+        fails.append(f"plan searched run: ran batch {run['batch_size']} kv "
+                     f"{run['kv_dtype']} chunk {run['prefill_chunk']} "
+                     f"decode-k {run['decode_k']}, chosen {chosen}")
+    if not run["forwards"] or \
+            run["kernel_launches"] != run["layers"] * run["forwards"]:
+        fails.append(f"plan searched run: {run['kernel_launches']} causal "
+                     f"launches for {run['forwards']} prompt forwards")
+    return fails
+
+
+def plan_phase(seed, attention, workdir, card, results):
+    """The plan model on the card (after every other phase, nothing of
+    theirs resident; budget PLAN_BUDGET_S): (a) ``plan search`` prints the
+    ranked table for Falcon-7B, w8a8, the full-study row, on the kernel
+    route, at the card's own memory; (b) at every operating point the
+    other phases recorded a peak (``plan_point``; T5 has none: the model
+    prices decoders), the model's need is at least the measured peak; (c)
+    ``run-perturbation --plan-search`` runs the chosen plan on Falcon-7B at
+    full width and depth over one batch of corpus rows: no OOM step, the
+    measured peak within the predicted need, the need within the card's
+    memory, the causal kernel launched once a layer a prompt forward."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.runtime import plan
+    from llm_interpretation_replication_tpu_torch.runtime import plan_search
+
+    t_phase = time.perf_counter()
+    fails, res = [], {}
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        code = plan_search.main(["search", "--model", "falcon-7b", "--quant",
+                                 PLAN_QUANT, "--workload", "full",
+                                 "--attention-impl", PLAN_IMPL])
+    say(table.getvalue().rstrip())
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY)
+    ranked = plan_search.search_plans(cfg, PLAN_QUANT, 1, workload="full",
+                                      attention_impl=PLAN_IMPL,
+                                      slot_repack=True)
+    best = plan_search.chosen_plan(ranked)
+    memory = plan.device_memory_bytes()
+    res["search"] = dict(exit=code, hbm_bytes=memory, card=card,
+                         chosen=best and best.as_record())
+    if code != 0 or best is None or "chosen" not in table.getvalue():
+        raise AssertionError(f"plan search: exit {code}, chosen {best}")
+
+    res["points"], point_fails = plan_memory_check(results)
+    fails += point_fails
+    for row in res["points"]:
+        say("plan point", json.dumps(row))
+    ratios = [r["ratio"] for r in res["points"] if "ratio" in r]
+    say("plan points", json.dumps(dict(
+        n=len(ratios), min_ratio=min(ratios, default=None),
+        max_ratio=max(ratios, default=None), card=card)))
+
+    run = _plan_searched_run(seed, attention, workdir, card,
+                             best.as_record())
+    need = best.need_bytes      # the chosen plan's, its load included
+    measured = run["peak_memory_bytes"] - run["memory_before_bytes"]
+    run.update(predicted_need_bytes=need, measured_bytes=measured,
+               ratio=need / max(1, measured), hbm_bytes=memory,
+               predicted_rows_per_s=best.predicted_rows_per_s,
+               measured_rows_per_s=run["rows"] / run["run_seconds"])
+    res["searched_run"] = run
+    say("plan searched run", json.dumps(run))
+    fails += plan_run_fails(run, best.as_record())
+    res["seconds"] = time.perf_counter() - t_phase
+    if res["seconds"] > PLAN_BUDGET_S:
+        fails.append(f"plan: {res['seconds']:.1f} s, past its "
+                     f"{PLAN_BUDGET_S:.0f} s budget")
+    if fails:
+        raise AssertionError("plan: " + "; ".join(fails[:10]))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8788,6 +9252,15 @@ def main(argv=None):
                          workdir, card)
         # the analysis commands over the two sweeps' CSVs (host only)
         stres = timed("stats", stats_phase, args.seed, workdir, card)
+        # the plan model against every peak recorded above, then its
+        # searched run (nothing of the other phases resident)
+        torch.cuda.empty_cache()
+        plres = timed("plan", plan_phase, args.seed, attention, workdir,
+                      card, dict(slice=sres, pooled=pres, full_study=fres,
+                                 sweep=wres, packed=pkres, k_decode=kres,
+                                 int8=ires, cli=cres, families=fam,
+                                 other_families=oth, instruct=inst,
+                                 serve=svres))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -8795,7 +9268,7 @@ def main(argv=None):
     # from 0 just before it); the head-major kernels run on forced routes
     causal = causal_launches(sres, pres, fres, ires, wres, pkres, kres, ores,
                              tres, cres, fam, inst, svres, svcli, apres) \
-        + causal_launches(oth)
+        + causal_launches(oth) + plres["searched_run"]["kernel_launches"]
     forced = [*oth["forced_routes"].values()]
     launches = {"causal_grouped_attention": causal,
                 "grouped_attention": sum(f["grouped"]["launches"] for f in
@@ -8819,7 +9292,7 @@ def main(argv=None):
                        pooled=pres, full_study=fres, sweep=wres,
                        packed=pkres, k_decode=kres, obs=ores, obs_cli=ocres,
                        tokenizers=tres, serve=svres, serve_cli=svcli,
-                       api=apres, stats=stres,
+                       api=apres, stats=stres, plan=plres,
                        int8=ires, cli=cres, families=fam,
                        other_families=oth, run_100q=qres,
                        instruct=inst,

@@ -73,7 +73,9 @@ irrelevant-insertion study over three vendors, with resume) and
 ``verify-replication`` (every headline table recomputed and judged
 PASS/FAIL against the published values; with ``--snapshots`` its Table-5
 sweep runs on the card first).  These are copies of the reference CLI's
-commands; of its 33, only ``plan`` and ``lint`` are not ported.
+commands; of its 33, only ``lint`` is not ported.  ``plan search``
+prints the plan search's ranked table (host arithmetic; ``--hbm-gib``
+without a card), and ``--plan-search`` on a sweep runs its choice.
 Each takes ``--strict`` (the sync guard of ``runtime/strict.py``),
 ``--trace [PATH]`` (span tracing: a JSONL span log streamed to
 ``PATH.spans.jsonl`` and a Chrome trace written to PATH at exit),
@@ -91,7 +93,6 @@ import json
 import os
 import sys
 
-_ITEM_PLAN = "ROADMAP.md queue 1, 'Planning for the H100'"
 _ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
 
 
@@ -152,7 +153,17 @@ def _add_run_config_args(p: argparse.ArgumentParser):
                         "argmax; a rejected pass re-runs its chunk "
                         "sequentially; 1 = sequential (default)")
     p.add_argument("--plan-search", action="store_true",
-                   help="plan search (not ported)")
+                   help="plan search (runtime/plan_search.py): enumerate "
+                        "mesh x batch x kv-dtype x prefill-chunk x pool "
+                        "target candidates against the device-memory "
+                        "budget model and run the predicted-rows/s winner "
+                        "instead of the batch/kv/chunk/pool flags; the "
+                        "engine's OOM back-off ladder stays armed as the "
+                        "safety net ('plan search' prints the same table "
+                        "standalone)")
+    p.add_argument("--hbm-gib", type=float, default=None, metavar="GIB",
+                   help="device memory --plan-search budgets, in GiB "
+                        "(default: the card's; needed without a card)")
     p.add_argument("--mesh-model", type=int, default=1)
     p.add_argument("--mesh-seq", type=int, default=1)
     p.add_argument("--batch-size", type=int, default=16)
@@ -163,7 +174,6 @@ def _add_run_config_args(p: argparse.ArgumentParser):
 def _refuse_unported(args) -> None:
     """Raise for each flag whose path the port does not cover yet."""
     for flag, on, item in (
-        ("--plan-search", args.plan_search, _ITEM_PLAN),
         ("--mesh-model > 1", args.mesh_model > 1, _ITEM_PAR),
         ("--mesh-seq > 1", args.mesh_seq > 1, _ITEM_PAR),
     ):
@@ -181,6 +191,9 @@ def _run_config(args):
         pooled_confidence=args.pooled_confidence,
         phase2_pool_target=args.phase2_pool_target,
         slot_repack=args.slot_repack, decode_k=args.decode_k,
+        plan_search=args.plan_search,
+        hbm_bytes=(None if args.hbm_gib is None
+                   else int(args.hbm_gib * 2**30)),
         attention_impl=args.attention_impl, batch_size=args.batch_size,
         checkpoint_dir=args.checkpoint_dir, output_dir=args.output_dir,
     )
@@ -202,6 +215,9 @@ def _engine_factory(run_config):
     def factory(model_name: str) -> ScoringEngine:
         rc = run_config
         path = rc.snapshot_path(model_name)
+        plan_note = None
+        if rc.plan_search:
+            rc, plan_note = _searched_run_config(rc, path)
         impl, why = rc.attention_impl, f"--attention-impl {rc.attention_impl}"
         if impl == "flash":
             refusal = from_hf_config(load_hf_config(path))[1].flash_refusal()
@@ -223,12 +239,74 @@ def _engine_factory(run_config):
                 slot_repack=rc.slot_repack,
                 decode_k=rc.decode_k,
             ))
+        # with --plan-search the engine's OOM ladder (armed by default) is
+        # the safety net for a prediction the card does not keep
+        engine.plan_decision = plan_note
         if rc.decode_k > 1 and attach_k_head(engine, path):
             print(f"# K-head loaded from snapshot ({K_HEAD_FILENAME}, "
                   f"decode_k={rc.decode_k})", file=sys.stderr, flush=True)
         return engine
 
     return factory
+
+
+def _plan_devices(rc) -> int:
+    """Devices the plan search enumerates meshes over: the visible cards,
+    or the one CPU."""
+    if rc.device != "cuda":
+        return 1
+    import torch
+
+    return torch.cuda.device_count()
+
+
+def _searched_run_config(rc, path):
+    """Apply the plan search to one model's engine construction: read the
+    snapshot's geometry (``config.json`` only, no weights), search mesh x
+    batch x kv-dtype x prefill-chunk x pool target x decode-k over the
+    visible devices at the device's memory (``rc.hbm_bytes``, else the
+    card's: without either it raises), on the route ``--attention-impl``
+    takes, and rewrite the RunConfig fields to the chosen plan.  Returns
+    (run_config, decision note).  T5 geometries, which the budget model
+    cannot price, keep the flags with a note on stderr; so does a search
+    where nothing fits.  A chosen mesh beyond one device raises: no mesh
+    is ported yet."""
+    import dataclasses
+
+    from .models.config import DecoderConfig, from_hf_config
+    from .runtime.loader import load_hf_config
+    from .runtime.plan_search import (chosen_plan, format_candidate_table,
+                                      require_single_device, search_plans)
+
+    _family, dcfg = from_hf_config(load_hf_config(path))
+    if not isinstance(dcfg, DecoderConfig):
+        print(f"# plan search skipped for {path}: the budget model prices "
+              f"decoder geometries only; running the configured flags",
+              file=sys.stderr)
+        return rc, None
+    impl = "flash" if rc.attention_impl == "flash" else "xla"
+    ranked = search_plans(dcfg, rc.quant, _plan_devices(rc), workload="full",
+                          hbm_bytes=rc.hbm_bytes, attention_impl=impl,
+                          slot_repack=rc.slot_repack)
+    best = chosen_plan(ranked)
+    if best is None:
+        print("# plan search: no candidate fits; running the configured "
+              "flags", file=sys.stderr)
+        return rc, None
+    print(format_candidate_table(ranked, top=4), file=sys.stderr)
+    require_single_device(best)
+    rc = dataclasses.replace(
+        rc, batch_size=best.batch, kv_dtype=best.kv_dtype,
+        prefill_chunk=best.prefill_chunk,
+        # unconditional: pool_target 0 is the chosen plan's pool-at-batch
+        # configuration, not "keep the flag"
+        phase2_pool_target=best.pool_target, decode_k=best.decode_k)
+    note = (f"plan search chose mesh dp{best.data}xtp{best.model} batch "
+            f"{best.batch} kv {best.kv_dtype} chunk {best.prefill_chunk}"
+            + (f" decode-k {best.decode_k}" if best.decode_k > 1 else "")
+            + f" ({best.reason})")
+    print(f"# {note}", file=sys.stderr)
+    return rc, note
 
 
 def cmd_run_100q(args):
@@ -308,7 +386,8 @@ def cmd_run_perturbation(args):
     scenarios = load_perturbations(args.perturbations,
                                    expected_scenarios=legal_scenarios())
     engine = _engine_factory(rc)(args.model)
-    if rc.decode_k > 1 and engine.k_head is None \
+    # the engine's decode_k: --plan-search may have chosen one
+    if engine.ecfg.decode_k > 1 and engine.k_head is None \
             and not engine.is_encoder_decoder:
         _distill_k_head(engine, rc, args.model, scenarios)
     if args.packed:
@@ -1206,6 +1285,15 @@ def cmd_cross_kappa(args):
         _write_json({**out, "pairs": kappa["pairs"]}, args.output_json)
 
 
+def cmd_plan(args):
+    """``plan search``: the plan search (runtime/plan_search.py).  In
+    practice unreachable: ``main()`` routes ``plan`` before argparse runs;
+    the subparser exists so the subcommand shows in ``--help``."""
+    from .runtime.plan_search import main as plan_main
+
+    raise SystemExit(plan_main(args.plan_args))
+
+
 def cmd_obs(args):
     """``obs report`` / ``obs bench-diff``: the phase-attribution table
     over a saved span trace, and the bench-trajectory regression analyzer
@@ -1227,6 +1315,12 @@ def main(argv=None):
         from .obs.report import main as obs_main
 
         raise SystemExit(obs_main(argv[1:]))
+    if argv and argv[0] == "plan":
+        # same pre-argparse routing: the plan search is host arithmetic
+        # and needs none of the run-config machinery
+        from .runtime.plan_search import main as plan_main
+
+        raise SystemExit(plan_main(argv[1:]))
     parser = argparse.ArgumentParser(prog="llm_interpretation_replication_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -1411,6 +1505,19 @@ def main(argv=None):
     _add_run_config_args(p)
     _add_serve_args(p)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("plan",
+                       help="plan search: 'plan search' enumerates mesh x "
+                            "batch x kv-dtype x prefill-chunk candidates "
+                            "against the device-memory budget model and "
+                            "ranks them by predicted rows/s ('plan search "
+                            "--dryrun' compares the choice for 8 devices "
+                            "with the hand-picked dp4xtp2 point)")
+    p.add_argument("plan_args", nargs=argparse.REMAINDER,
+                   help="forwarded: search [--model ...] [--devices N] "
+                        "[--workload full|binary|packed] [--hbm-gib GIB] "
+                        "[--dryrun] [--format table|json]")
+    p.set_defaults(fn=cmd_plan)
 
     p = sub.add_parser("obs",
                        help="observability reports: 'obs report --trace "

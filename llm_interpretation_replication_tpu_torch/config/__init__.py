@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import List
+from typing import List, Optional
 
 # Length buckets of the sweep: prompts pad to the smallest bucket that holds
 # the longest prompt of their batch.  Step 16 in the two hot zones (the
@@ -107,8 +107,8 @@ def irrelevant_eval_models() -> dict:
 @dataclasses.dataclass
 class RunConfig:
     """One typed config for the local-model sweep (the reference's
-    ``RunConfig`` with ``device`` ``"cuda"`` or ``"cpu"``; its mesh and
-    plan-search fields are not ported)."""
+    ``RunConfig`` with ``device`` ``"cuda"`` or ``"cpu"``, and the device
+    memory the plan search budgets; its mesh fields are not ported)."""
 
     device: str = "cuda"                 # 'cuda' | 'cpu'
     dtype: str = "bfloat16"              # weights/compute dtype on the device
@@ -119,6 +119,12 @@ class RunConfig:
     phase2_pool_target: int = 0          # rows per pooled decode; 0 = batch
     slot_repack: bool = True             # slot ring (False: whole flushes)
     decode_k: int = 1                    # joint next-K decode block size
+    plan_search: bool = False            # pick batch/kv-dtype/chunk/pool/
+                                         # decode-k by the plan search
+                                         # (runtime/plan_search.py); the OOM
+                                         # ladder stays armed
+    hbm_bytes: Optional[int] = None      # device memory the search budgets
+                                         # (None: the card's)
     attention_impl: str = "xla"          # 'xla' | 'flash' | 'auto'
     batch_size: int = 32
     checkpoint_dir: str = "checkpoints"  # local snapshots root

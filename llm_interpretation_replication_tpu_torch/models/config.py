@@ -2,8 +2,8 @@
 ``llm_interpretation_replication_tpu/models/config.py``): ``DecoderConfig``,
 ``T5Config``, every family translator (GPT-NeoX, Falcon, BLOOM,
 LLaMA/Mistral/XGen, Qwen and Qwen2, Baichuan(2), OPT, GPT-J, MPT, GLM-4,
-ChatGLM2/3 and T5), ``from_hf_config`` for their model types and the two
-Falcon geometries."""
+ChatGLM2/3 and T5), ``from_hf_config`` for their model types, the two
+Falcon geometries and ``BENCH_GEOMETRIES``."""
 
 from __future__ import annotations
 
@@ -510,6 +510,18 @@ FALCON_7B_GEOMETRY = dict(
     position_embedding="rotary", tie_word_embeddings=True,
     max_position_embeddings=2048,
 )
+
+#: The bench's second synthetic geometry (a 1B GPT-NeoX-style decoder).
+SMALL_1B_GEOMETRY = dict(
+    vocab_size=50304, hidden_size=2048, num_layers=16, num_heads=16,
+    intermediate_size=8192, parallel_residual=True, qkv_bias=True,
+    out_bias=True, mlp_bias=True, position_embedding="rotary",
+    rotary_pct=0.25, max_position_embeddings=2048,
+)
+
+#: The geometries ``plan search --model`` prices.
+BENCH_GEOMETRIES = {"falcon-7b": FALCON_7B_GEOMETRY,
+                    "small-1b": SMALL_1B_GEOMETRY}
 
 #: The same architecture at test scale (MQA + parallel attention + shared LN).
 FLAGSHIP_SMALL_GEOMETRY = dict(

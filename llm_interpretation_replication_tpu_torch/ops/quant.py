@@ -175,9 +175,21 @@ def quantize_decoder_params_np(params: dict) -> dict:
     return _quantize_layers(params, quantize_weight_np)
 
 
+def _quantize_stacked(w: torch.Tensor):
+    """:func:`quantize_weight` of a stacked ``[L, K, N]`` weight one layer
+    at a time: the same codes and scales (each channel's scale is its own
+    layer's), with one layer's float32 copy alive instead of the stack's
+    (a 7B model's MLP stack alone would take 10 GB of it)."""
+    if w.ndim < 3:
+        return quantize_weight(w)
+    pairs = [quantize_weight(w[i]) for i in range(w.shape[0])]
+    return (torch.stack([q for q, _ in pairs]),
+            torch.stack([s for _, s in pairs]))
+
+
 def quantize_decoder_params(params: dict) -> dict:
     """Quantize a decoder param tree's projection weights: stacked
     ``[L, K, N]`` become int8 with ``[L, N]`` scales under
-    ``{name}_qscale``.  Embedding, norms, biases and the (tied) unembedding
-    keep their dtype."""
-    return _quantize_layers(params, quantize_weight)
+    ``{name}_qscale``, a layer at a time.  Embedding, norms, biases and the
+    (tied) unembedding keep their dtype."""
+    return _quantize_layers(params, _quantize_stacked)

@@ -195,6 +195,10 @@ def run_model_perturbation_sweep(
     without ``score_prefixed``, and ``fuse_prefix=False``, take the
     two-string route: each leg scores its full prompt string."""
     log = log or SessionLogger()
+    if getattr(engine, "plan_decision", None):
+        # the operating point was chosen by the plan search: name the
+        # decision in the sweep log
+        log(f"[plan] {engine.plan_decision}")
     all_rows, processed = load_existing_rows(output_xlsx)
     ckpt = _Checkpoint(output_xlsx, all_rows)
     # One scoring call mixes all scenarios' rephrasings (the engine takes
@@ -423,6 +427,8 @@ def run_packed_perturbation_sweep(
             "packed sweep needs an engine with score_packed (the anchor-"
             "gather prefill path); foreign engines score isolated only")
     log = log or SessionLogger()
+    if getattr(engine, "plan_decision", None):
+        log(f"[plan] {engine.plan_decision}")
     all_rows, processed = load_existing_rows(output_xlsx)
     ckpt = _Checkpoint(output_xlsx, all_rows)
     todo_items = _todo_items(scenarios, model_name, processed,

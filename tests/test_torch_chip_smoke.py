@@ -1071,7 +1071,9 @@ def test_serve_phase_runs_its_legs_and_gates():
                  'attention_impl="flash"', "FALCON_7B_GEOMETRY"):
         assert gate in src, gate
     assert chip_smoke.SERVE_LOAD_FRACTIONS == (0.25, 0.5, 0.9)
-    assert chip_smoke.SERVE_LOAD_S == 5.0
+    assert chip_smoke.SERVE_LOAD_S == 3.0
+    assert (chip_smoke.SERVE_REPLAY_PROMPTS, chip_smoke.SERVE_PREFIX_PAIRS,
+            chip_smoke.SERVE_POOL_PROMPTS) == (192, 64, 96)
     assert chip_smoke.SERVE_MEMORY_SLACK == 64 << 20
 
 
@@ -1355,3 +1357,104 @@ def test_kernels_line_lists_each_kernel_and_its_wide_instance():
     assert [k["launches"] for k in got] == [34] * 3 + [2] * 3
     assert [k["max_abs_err"] for k in got[3:]] == [0.002, 1.002, 2.002]
     assert got[0]["max_abs_err"] == 0.005
+
+
+def _small_point(kind="full", before=1 << 30, **kw):
+    from llm_interpretation_replication_tpu_torch.models import config
+
+    cfg = config.DecoderConfig(**config.FLAGSHIP_SMALL_GEOMETRY)
+    return chip_smoke._plan_point(kind, cfg, 32, 256, before, **kw)
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("full", dict(pooled=True)), ("full", dict(chunk=64, kv="int8")),
+    ("full", dict(decode_k=4, weights_in_run=True)), ("binary", {}),
+    ("packed", dict(packing=4)), ("prefill", dict(chunk=128))])
+def test_plan_memory_check_fails_a_need_below_the_peak(kind, kw):
+    """(b)'s gate: a recorded peak above the budget model's need fails the
+    phase, one within it passes; the ratio is the need over the peak."""
+    point = _small_point(kind, **kw)
+    need, terms = chip_smoke._plan_need(point)
+    predicted = need if kw.get("weights_in_run") else need - terms["weights"]
+    base = point["memory_before_bytes"]
+    for measured, ok in ((predicted, True), (predicted + 1, False),
+                         (predicted // 2, True)):
+        rows, fails = chip_smoke.plan_memory_check(dict(phase=dict(runs=[
+            dict(peak_memory_bytes=base + measured, plan_point=point)])))
+        assert bool(fails) == (not ok)
+        assert rows[0]["ratio"] == predicted / measured
+        assert rows[0]["point"] == "/phase/runs[0]"
+
+
+def test_plan_memory_check_prices_every_decoder_peak():
+    """A run that records a peak must carry its plan point, but for T5's
+    (the budget model prices decoders); a run listed twice counts once."""
+    run = dict(peak_memory_bytes=(1 << 30) + (1 << 20),
+               plan_point=_small_point())
+    t5 = dict(route="t5", model="t0-3b", peak_memory_bytes=1 << 30)
+    rows, fails = chip_smoke.plan_memory_check(dict(
+        families=dict(models=[dict(runs=[run])], runs=[run]),
+        instruct=dict(runs=[t5])))
+    assert [r["kind"] for r in rows] == ["full", "unpriced"] and not fails
+    rows, fails = chip_smoke.plan_memory_check(dict(x=dict(runs=[
+        dict(route="flash", peak_memory_bytes=1)])))
+    assert fails and "without its plan point" in fails[0]
+
+
+def _searched_run(**kw):
+    run = dict(oom_steps=0, measured_bytes=20 << 30,
+               predicted_need_bytes=30 << 30, hbm_bytes=80 << 30,
+               batch_size=512, kv_dtype="bf16", prefill_chunk=0, decode_k=4,
+               plan_lines=["# plan search chose mesh dp1xtp1 batch 512"],
+               forwards=4, kernel_launches=128, layers=32)
+    run.update(kw)
+    return run
+
+
+@pytest.mark.parametrize("kw,fails", [
+    ({}, 0), (dict(oom_steps=1), 1), (dict(measured_bytes=31 << 30), 1),
+    (dict(predicted_need_bytes=81 << 30), 1), (dict(batch_size=256), 1),
+    (dict(plan_lines=[]), 1), (dict(kernel_launches=127), 1),
+    (dict(forwards=0, kernel_launches=0), 1)])
+def test_plan_searched_run_gates(kw, fails):
+    """(c)'s gates: an OOM step, a peak above the predicted need, a need
+    above the card, another plan than the chosen one, or a prefill without
+    its causal launch a layer fails the phase."""
+    chosen = dict(batch=512, kv_dtype="bf16", prefill_chunk=0, decode_k=4)
+    assert len(chip_smoke.plan_run_fails(_searched_run(**kw), chosen)) == fails
+
+
+def test_every_phase_that_records_a_peak_records_its_plan_point():
+    """Each phase function that resets the peak-memory counter records the
+    operating point the budget model prices, but for T5's scoring
+    (instruct_phase) and the plan phase's own run."""
+    src = inspect.getsource(chip_smoke)
+    tree = ast.parse(src)
+    missing = []
+    for fn in tree.body:
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        body = ast.get_source_segment(src, fn)
+        if "reset_peak_memory_stats()" in body and "_plan_point(" not in body:
+            missing.append(fn.name)
+    assert sorted(missing) == ["_plan_searched_run", "instruct_phase"]
+
+
+def test_main_runs_the_plan_phase_last_and_counts_its_launches():
+    """The plan phase runs after every other phase (it holds the budget
+    model to their recorded peaks), within its own budget, and its searched
+    run's causal launches count in the kernels line."""
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index('timed("stats"') < src.index('timed("plan"')
+    assert 'plres["searched_run"]["kernel_launches"]' in src
+    assert "plan=plres" in src
+    assert chip_smoke.PLAN_BUDGET_S == 55.0
+    assert (chip_smoke.PLAN_QUANT, chip_smoke.PLAN_IMPL) == ("int8", "flash")
+    phase = inspect.getsource(chip_smoke.plan_phase)
+    for piece in ('"search"', "plan_memory_check", "_plan_searched_run",
+                  "plan_run_fails", "PLAN_BUDGET_S", "device_memory_bytes"):
+        assert piece in phase, piece
+    run = inspect.getsource(chip_smoke._plan_searched_run)
+    for piece in ('"--plan-search"', "PLAN_QUANT", "PLAN_IMPL",
+                  "fault_events", "FALCON_7B_GEOMETRY"):
+        assert piece in run, piece

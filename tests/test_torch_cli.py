@@ -4,7 +4,8 @@ the same tiny Falcon snapshot (written with ``transformers``'
 perturbations file: ``--device cpu --dtype float32`` on both sides writes
 workbooks equal cell for cell (text identical, numbers rtol 2e-5, atol
 1e-9; ``tests/test_torch_sweep.py``'s comparison), also with ``--packed``
-and ``--decode-k``.  Each flag whose path the port does not cover raises
+and ``--decode-k``; ``--plan-search`` writes the workbook of its chosen
+flags given by hand.  Each flag whose path the port does not cover raises
 ``NotImplementedError`` naming its ROADMAP.md item; the observability
 flags (``--strict``, ``--trace``, ``--profile``, ``--metrics``) run and
 leave the workbook as it is without them.
@@ -77,13 +78,78 @@ def test_run_perturbation_matches_reference(snapshot, perturbations,
 
 
 @pytest.mark.parametrize("extra,title", [
-    (("--plan-search",), "Planning for the H100"),
     (("--mesh-model", "2"), "Parallel and training"),
     (("--mesh-seq", "2"), "Parallel and training"),
 ])
 def test_unported_flags_raise(snapshot, perturbations, tmp_path, extra, title):
     with pytest.raises(NotImplementedError, match=title):
         tmain(_argv(snapshot, perturbations, tmp_path, *extra))
+
+
+def test_plan_search_runs_its_chosen_flags(snapshot, perturbations,
+                                           tmp_path, capsys):
+    """``run-perturbation --plan-search`` at an explicit memory prints the
+    candidate table, logs its ``[plan]`` decision, and writes the workbook
+    a run with the chosen flags given by hand writes."""
+    import re
+    import shutil
+
+    from llm_interpretation_replication_tpu_torch.models.config import (
+        from_hf_config)
+    from llm_interpretation_replication_tpu_torch.runtime import (
+        loader, plan, plan_search)
+
+    snap = str(tmp_path / "snap")
+    shutil.copytree(snapshot, snap)
+    name = "perturbation_results.xlsx"
+    # a memory that holds batch 32 but not the top of the ladder: the CPU
+    # pads each batch to its size, and 512 rows take half a minute here
+    cfg = from_hf_config(loader.load_hf_config(snap))[1]
+    need32 = max(c.need_bytes for c in plan_search.search_plans(
+        cfg, "none", 1, batches=(32,), hbm_bytes=1 << 40))
+    gib = (plan.RESERVE_BYTES + plan.THRASH_HEADROOM_BYTES + need32
+           + (1 << 20)) / 2**30
+    tmain(_argv(snap, perturbations, tmp_path / "searched", "--plan-search",
+                "--hbm-gib", repr(gib)))
+    captured = capsys.readouterr()
+    chosen = re.search(
+        r"#   chosen : mesh dp1xpp1xtp1 batch (\d+) kv (\w+) chunk (\d+) "
+        r"pool (\w+)(?: decode-k (\d+))?", captured.err)
+    assert chosen, captured.err
+    batch, kv, chunk, pool, k = chosen.groups()
+    assert "[plan] plan search chose mesh dp1xtp1 batch " + batch in (
+        captured.out + captured.err)
+    tmain(_argv(snap, perturbations, tmp_path / "hand", "--batch-size", batch,
+                "--kv-dtype", kv, "--prefill-chunk", chunk,
+                "--phase2-pool-target", "0" if pool == "batch" else pool,
+                "--decode-k", k or "1"))
+    assert_workbooks_equal(tmp_path / "searched" / name,
+                           tmp_path / "hand" / name)
+
+
+def test_plan_search_needs_a_memory_and_one_device(snapshot, perturbations,
+                                                   tmp_path, capsys,
+                                                   monkeypatch):
+    """``plan search --format json`` runs at ``--hbm-gib`` and raises
+    without it where there is no card; ``--plan-search`` whose chosen
+    plan spans more than one device raises naming the item that ports
+    meshes."""
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+
+    with pytest.raises(SystemExit) as done:
+        tmain(["plan", "search", "--format", "json", "--hbm-gib", "80"])
+    assert done.value.code == 0
+    rec = json.loads(capsys.readouterr().out)
+    assert rec["chosen"]["mesh"] == {"data": 1, "pipe": 1, "model": 1}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="memory"):
+        tmain(["plan", "search", "--format", "json"])
+    with pytest.raises(RuntimeError, match="memory"):
+        tmain(_argv(snapshot, perturbations, tmp_path / "a", "--plan-search"))
+    monkeypatch.setattr(cli, "_plan_devices", lambda rc: 8)
+    with pytest.raises(NotImplementedError, match="Parallel and training"):
+        tmain(_argv(snapshot, perturbations, tmp_path / "b", "--plan-search",
+                    "--hbm-gib", "80"))
 
 
 @pytest.fixture(scope="module")

@@ -23,10 +23,11 @@ routing, deadlines without spending, typed remote failures) on both
 packages, and the port's rows, requests and spend against the JAX
 package's for each vendor.
 
-Waiting for their items (ROADMAP.md queue 1): the plan search's
-``replica_plan`` ('Planning for the H100'), replicas on mesh slices
+Waiting for their items (ROADMAP.md queue 1): replicas on mesh slices
 ('Parallel and training'; ``devices=`` refuses), and the bench's
-``--serve-load`` blocks (the port bench).
+``--serve-load`` blocks (the port bench).  The plan search's
+``replica_plan`` is ported (``runtime/plan_search.py``;
+``tests/test_torch_plan_search.py``).
 """
 
 import io

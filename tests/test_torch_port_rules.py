@@ -58,7 +58,8 @@ def _port_sources():
            os.path.join(ROOT, "scripts", "profile_torch_slice.py"),
            os.path.join(ROOT, "scripts", "profile_torch_pooled.py"),
            os.path.join(ROOT, "scripts", "sync_sites.py"),
-           os.path.join(ROOT, "scripts", "decode_layout_probe.py")]
+           os.path.join(ROOT, "scripts", "decode_layout_probe.py"),
+           os.path.join(ROOT, "scripts", "calibrate_plan_torch.py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
         out += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
@@ -179,6 +180,12 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/analysis/model_comparison.py",
     "llm_interpretation_replication_tpu_torch/analysis/base_vs_instruct_figs.py",
     "llm_interpretation_replication_tpu_torch/analysis/combined_confidence.py",
+    "llm_interpretation_replication_tpu_torch/runtime/__init__.py",
+    "llm_interpretation_replication_tpu_torch/runtime/plan.py",
+    "llm_interpretation_replication_tpu_torch/runtime/plan_search.py",
+    "llm_interpretation_replication_tpu_torch/parallel/__init__.py",
+    "llm_interpretation_replication_tpu_torch/parallel/mesh.py",
+    "scripts/calibrate_plan_torch.py",
 ])
 def test_slice_modules_are_guarded(rel):
     """The modules the kernels, the int8 path, the pool, the slot ring,
@@ -300,6 +307,10 @@ HOST_COMMANDS = {
 }
 
 
+#: run-config options the port has and the reference has not
+PORT_ONLY_RUN_CONFIG = {"hbm_gib"}
+
+
 @pytest.mark.parametrize("command", sorted(HOST_COMMANDS))
 def test_host_command_parsers_match_reference(command):
     """The port's host commands (``power-analysis``, ``sample-statements``,
@@ -326,6 +337,12 @@ def test_host_command_parsers_match_reference(command):
 
     got = options(_serve_parser(tmain, command, []))
     ref = options(_serve_parser(jmain, command, []))
+    if shared:
+        # the port's run config adds the device memory the plan search
+        # budgets (it has no built-in device size)
+        port_only = [o for o in got if o[1] in PORT_ONLY_RUN_CONFIG]
+        assert [o[1] for o in port_only] == sorted(PORT_ONLY_RUN_CONFIG)
+        got = [o for o in got if o not in port_only]
     assert got == ref
     assert len(got) == HOST_COMMANDS[command]
 
@@ -340,8 +357,8 @@ def test_known_phases_match_reference():
 
 
 def test_cli_refuses_only_the_plan_and_mesh_flags():
-    """Of the run-config flags, only the plan search and the mesh axes
-    still refuse; the observability flags run."""
+    """Of the run-config flags, only the mesh axes still refuse; the plan
+    search (ported) and the observability flags run."""
     import argparse
 
     from llm_interpretation_replication_tpu_torch import __main__ as cli
@@ -356,9 +373,82 @@ def test_cli_refuses_only_the_plan_and_mesh_flags():
             cli._refuse_unported(parser.parse_args(argv))
         except NotImplementedError:
             refused.add(argv[0])
-    assert refused == {"--plan-search", "--mesh-model", "--mesh-seq"}
+    assert refused == {"--mesh-model", "--mesh-seq"}
     with open(os.path.join(PORT, "__main__.py"), encoding="utf-8") as f:
         assert "Guards and device observability" not in f.read()
+
+
+#: the files holding the plan model's coefficients (the reference's
+#: ``lint/contracts.CALIBRATED_FILES``)
+CALIBRATED_FILES = ("runtime/plan.py", "runtime/plan_search.py")
+#: a coefficient's provenance: measured by the calibration script on a
+#: named card at a named power limit, or a prior with its reason
+ANCHOR_RE = (r"#:?\s*(anchor: scripts/calibrate_plan_torch\.py on "
+             r"NVIDIA [^,]+, \d+\.\d+ W$|prior: \S)")
+#: what no line of those files may name: a TPU record or chip
+TPU_ANCHOR_RE = r"BENCH_r\d|MULTICHIP_r\d|v5e|HBM_BYTES_V5E"
+
+
+def _coefficient_lines(text):
+    """(name, line number, cited) of every module-level UPPER_CASE name
+    bound to a numeric literal; the citation rides the line or the comment
+    block right above it (the reference's rule)."""
+    import re
+
+    def numeric(node):
+        if isinstance(node, ast.Constant):
+            return (isinstance(node.value, (int, float))
+                    and not isinstance(node.value, bool))
+        if isinstance(node, ast.UnaryOp):
+            return numeric(node.operand)
+        if isinstance(node, ast.BinOp):
+            return numeric(node.left) and numeric(node.right)
+        return False
+
+    lines = text.splitlines()
+    out = []
+    for node in ast.parse(text).body:
+        if not (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)
+                and re.fullmatch(r"[A-Z][A-Z0-9_]*", node.targets[0].id)
+                and numeric(node.value)):
+            continue
+        cited = bool(re.search(ANCHOR_RE, lines[node.lineno - 1]))
+        i = node.lineno - 2
+        while not cited and i >= 0 and lines[i].lstrip().startswith("#"):
+            cited = bool(re.search(ANCHOR_RE, lines[i]))
+            i -= 1
+        out.append((node.targets[0].id, node.lineno, cited))
+    return out
+
+
+@pytest.mark.parametrize("rel", CALIBRATED_FILES)
+def test_plan_coefficients_carry_their_provenance(rel):
+    """Every coefficient of the port's plan model carries an ``# anchor:``
+    naming the calibration script, the card and its power limit, or a
+    ``# prior:`` with its reason; no line names a TPU record or chip."""
+    import re
+
+    with open(os.path.join(PORT, rel), encoding="utf-8") as f:
+        text = f.read()
+    found = _coefficient_lines(text)
+    assert len(found) >= (9 if rel.endswith("plan.py") else 17)
+    assert [name for name, _, cited in found if not cited] == []
+    assert not re.search(TPU_ANCHOR_RE, text)
+
+
+@pytest.mark.parametrize("line,cited", [
+    ("X = 1.0  # anchor: scripts/calibrate_plan_torch.py on NVIDIA H100 "
+     "80GB HBM3, 700.00 W", True),
+    ("X = 1.0  # prior: one card, no run to measure", True),
+    ("X = 1.0  # anchor: BENCH_r05", False),
+    ("X = 1.0  # anchor: scripts/calibrate_plan_torch.py", False),
+    ("X = 1 << 28", False),
+    ("X = (1, 2)  # a menu, not a coefficient", None),
+])
+def test_provenance_rule_catches_a_missing_or_tpu_anchor(line, cited):
+    found = _coefficient_lines(line + "\n")
+    assert (found[0][2] if found else None) == cited
 
 
 def test_ops_api_matches_reference():
@@ -591,13 +681,14 @@ def test_serve_parser_options_match_reference():
 
     run_config = argparse.ArgumentParser()
     tmain._add_run_config_args(run_config)
-    shared = {a.dest for a in run_config._actions}
+    shared = {a.dest for a in run_config._actions} - PORT_ONLY_RUN_CONFIG
 
     def options(parser):
         return sorted((tuple(a.option_strings), a.dest)
                       + ((a.default, a.required, str(a.type), a.nargs,
                           a.const) if a.dest not in shared else ())
-                      for a in parser._actions)
+                      for a in parser._actions
+                      if a.dest not in PORT_ONLY_RUN_CONFIG)
 
     got, ref = options(_serve_parser(tmain)), options(_serve_parser(jmain))
     assert got == ref
