@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the exit code is then non-zero and no result
 line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
-11, 18's CLI leg, 20's CLI leg, 21, 12, 23, 13-15, 22, 24):
+11, 18's CLI leg, 20's CLI leg, 21, 12, 23, 13-15, 22, 24, 25):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile every CUDA source of ``ops/csrc`` (one ``nvcc`` each, all
@@ -350,7 +350,32 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    writes) over one batch of the irrelevant-insertion corpus's rows:
    no OOM step, the measured peak within the predicted need and the need
    within the card's memory, the chosen plan run, a causal launch a layer
-   a prefill.
+   a prefill;
+25. train (last, nothing of the other phases resident; budget
+   TRAIN_BUDGET_S, 45 s): the training step and the parallel package.
+   (a) ``parallel.initialize_distributed`` brings up an NCCL group of one
+   rank through a ``file://`` rendezvous, and ``make_mesh()`` is built on
+   it; (b) Falcon-7B at its published width and full depth, random bf16
+   weights (and bf16 moments) from ``--seed``, takes 4 steps of
+   ``runtime.train.make_train_step`` (``make_optimizer(1e-4,
+   warmup_steps=1, total_steps=10)``) on 4 x 128 tokens of the
+   irrelevant-insertion corpus under a ``WordTokenizer``, on the dense
+   route: step 1 (lr 0) leaves every parameter bit-equal (each leaf's
+   16-bit patterns summed plain and position-weighted, modulo 2^64,
+   before and after), every loss is
+   finite, loss 4 is below loss 2, step 2's gradient reaches every leaf,
+   finite, norm above 0; ms a step, tokens/s and the peak allocated
+   memory are printed; (c) 2 float32 steps of its first FAMILY_LAYERS
+   layers at full width on the card (TF32 off) and on the CPU from the
+   same weights and batch (2 x 64): losses within rtol 1e-4, step 1's
+   gradients within a relative L2 error of 1e-4; (d) a loss through
+   ``attention_impl="flash"`` under grad raises ``NotImplementedError``
+   (the kernels have no backward); (e) ``parallel.pipeline_decoder_forward``
+   (pipe 1, 2 microbatches) on (b)'s weights through the causal kernel:
+   one launch a layer a microbatch, logits as close to a float32 forward
+   as the forced-route phase allows; (f) ring and Ulysses attention at seq
+   1 on Falcon-7B's q/k/v (71 heads, S=448, D=64; bf16 draws compared in
+   float32) against dense attention.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -365,6 +390,7 @@ import functools
 import importlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -9175,6 +9201,411 @@ def plan_phase(seed, attention, workdir, card, results):
     return res
 
 
+TRAIN_BUDGET_S = 45.0
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 4
+#: (c): the card against the CPU, float32, at FAMILY_LAYERS of Falcon-7B
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS = 2, 64, 2
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL_L2 = 1e-4
+TRAIN_MICROBATCHES = 2
+#: (f): ring and Ulysses at seq 1 on Falcon-7B's q/k/v, against dense
+SEQ_PARALLEL_SHAPE = (2, 448, 71, 64)      # B, S, N, D
+SEQ_PARALLEL_ATOL = 1e-5
+
+
+@functools.lru_cache(maxsize=1)
+def _train_corpus():
+    """The irrelevant-insertion corpus and a ``WordTokenizer`` of its
+    words."""
+    from llm_interpretation_replication_tpu_torch.config import (
+        irrelevant_scenarios, irrelevant_statements)
+    from llm_interpretation_replication_tpu_torch.gen.irrelevant import (
+        generate_perturbations)
+
+    corpus = generate_perturbations(irrelevant_scenarios(),
+                                    irrelevant_statements())
+    return corpus, _corpus_tokenizer(corpus)
+
+
+def _train_batch(rows, seq, device):
+    """``rows`` texts of the irrelevant-insertion corpus (round robin over
+    its scenarios) under a ``WordTokenizer`` of its words, each cut to
+    ``seq`` tokens and right-padded to ``seq``: (ids, mask, vocab)."""
+    import torch
+
+    corpus, tok = _train_corpus()
+    texts = [p["perturbed_text"] for i in range(rows) for p in
+             [corpus[i % len(corpus)]["perturbations_with_irrelevant"]
+              [i // len(corpus)]]]
+    ids = torch.zeros((rows, seq), dtype=torch.long)
+    mask = torch.zeros((rows, seq), dtype=torch.int32)
+    for i, text in enumerate(texts):
+        row = tok.encode(text)[:seq]
+        ids[i, :len(row)] = torch.as_tensor(row)
+        mask[i, :len(row)] = 1
+    return ids.to(device), mask.to(device), len(tok)
+
+
+def _grad_check(grads, params):
+    """What (b)'s gate reads of step 2's gradient: leaves without one
+    (missing, or zero everywhere) and leaves with a non-finite entry."""
+    from llm_interpretation_replication_tpu_torch.runtime import train
+
+    got = dict(train._flatten(grads))
+    missing, nonfinite = [], []
+    for path, _ in train._flatten(params):
+        g = got.get(path)
+        name = "/".join(path)
+        if g is None or not bool(g.any()):
+            missing.append(name)
+        elif not bool(g.isfinite().all()):
+            nonfinite.append(name)
+    return missing, nonfinite
+
+
+def train_run_fails(res):
+    """The train phase's gates: (b) step 1 leaves every parameter
+    bit-equal, every loss is finite, loss 4 is below loss 2, step 2's
+    gradient reaches every leaf, finite, with a global norm above 0; (c)
+    the card's losses and step-1 gradient agree with the CPU's; (d) the
+    kernel under grad raises; (e) the pipelined forward launches the
+    causal kernel a layer a microbatch and stays within the forced-route
+    tolerance; (f) ring and Ulysses agree with dense attention; the
+    budget."""
+    fails = []
+    b = res["falcon_7b"]
+    if b["step1_changed"]:
+        fails.append(f"train: step 1 (lr 0) changed {b['step1_changed']}")
+    if not all(math.isfinite(x) for x in b["losses"]):
+        fails.append(f"train: losses {b['losses']}")
+    elif not b["losses"][3] < b["losses"][1]:
+        fails.append(f"train: loss 4 {b['losses'][3]} not below loss 2 "
+                     f"{b['losses'][1]}")
+    if b["step2_missing"] or b["step2_nonfinite"] or \
+            not b["step2_norm"] > 0:
+        fails.append(f"train: step 2 gradient: no gradient "
+                     f"{b['step2_missing'][:3]}, non-finite "
+                     f"{b['step2_nonfinite'][:3]}, norm {b['step2_norm']}")
+    c = res["card_vs_cpu"]
+    if not all(abs(x - y) <= TRAIN_LOSS_RTOL * abs(y)
+               for x, y in zip(c["card_losses"], c["cpu_losses"])):
+        fails.append(f"train: card losses {c['card_losses']}, CPU "
+                     f"{c['cpu_losses']}")
+    if not c["grad_rel_l2"] <= TRAIN_GRAD_REL_L2:
+        fails.append(f"train: step-1 gradient {c['grad_rel_l2']} from the "
+                     f"CPU's")
+    if not res["guard"]["raised"]:
+        fails.append("train: a loss through the kernel did not raise")
+    e = res["pipelined"]
+    if e["kernel_launches"] != e["layers"] * e["microbatches"]:
+        fails.append(f"train: pipelined forward {e['kernel_launches']} "
+                     f"causal launches, want {e['layers']} x "
+                     f"{e['microbatches']}")
+    if not e["logits_rel_l2_vs_fp32"] <= \
+            KERNEL_VS_DENSE_ERR_RATIO * e["dense_rel_l2_vs_fp32"]:
+        fails.append(f"train: pipelined logits {e['logits_rel_l2_vs_fp32']} "
+                     f"from float32, dense bf16 {e['dense_rel_l2_vs_fp32']}")
+    for name, err in res["seq_parallel"].items():
+        if not err <= SEQ_PARALLEL_ATOL:
+            fails.append(f"train: {name} {err} from dense")
+    if res["seconds"] > TRAIN_BUDGET_S:
+        fails.append(f"train: {res['seconds']:.1f} s, past its "
+                     f"{TRAIN_BUDGET_S:.0f} s budget")
+    return fails
+
+
+def _bit_fingerprints(params, run=1 << 26):
+    """path -> two int64 sums of each leaf's 16-bit patterns, plain and
+    weighted by 2i + 1 at element i, modulo 2^64 (so in any order): a
+    leaf with one element changed always moves the weighted sum, one with
+    more moves it but for a 2^-64 chance."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.runtime import train
+
+    out = {}
+    for path, t in train._flatten(params):
+        bits = t.detach().view(torch.int16).view(-1)
+        plain = weighted = 0
+        for i in range(0, bits.numel(), run):
+            b = bits[i:i + run].to(torch.int64)
+            odd = torch.arange(2 * i + 1, 2 * (i + b.numel()) + 1, 2,
+                               device=b.device)
+            plain = plain + b.sum()
+            weighted = weighted + (b * odd).sum()
+        out[path] = (int(plain), int(weighted))
+    return out
+
+
+def _falcon_train_steps(cfg, mesh, ids, mask, seed):
+    """(b) and (d): Falcon-7B's full-width, full-depth training steps on the
+    card; returns the record and the trained weights."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import convert
+    from llm_interpretation_replication_tpu_torch.runtime import train
+
+    t0 = time.perf_counter()
+    weights = convert.random_params(cfg, seed=seed + 7, device="cuda",
+                                    dtype="bf16")
+    opt = train.make_optimizer(1e-4, warmup_steps=1, total_steps=10)
+    state = train.init_train_state(weights, opt)
+    step = train.make_train_step(cfg, opt, mesh)
+    torch.cuda.synchronize()
+    seconds = dict(init=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    before = _bit_fingerprints(state.params)
+    seconds["fingerprint"] = time.perf_counter() - t0
+    seen = {}
+
+    def on_grads(grads, norm):
+        seen["missing"], seen["nonfinite"] = _grad_check(grads, state.params)
+        seen["norm"] = float(norm)
+
+    losses, step_ms, changed = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, ids, mask,
+                           on_grads=on_grads if i == 1 else None)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            after = _bit_fingerprints(state.params)
+            changed = ["/".join(p) for p in before if after[p] != before[p]]
+    peak = torch.cuda.max_memory_allocated()
+    # (d): a loss through the causal kernel under grad
+    flash = dataclasses.replace(cfg, attention_impl="flash")
+    attention = importlib.import_module(
+        "llm_interpretation_replication_tpu_torch.ops.attention")
+    launches = attention.causal_grouped_attention.launches
+    try:
+        train.causal_lm_loss(state.params, flash, ids[:1, :16], mask[:1, :16])
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    guard = dict(raised=raised is not None and
+                 attention.causal_grouped_attention.launches == launches,
+                 message=raised)
+    real = int(mask.sum())
+    steady = sum(step_ms[1:]) / (len(step_ms) - 1)
+    rec = dict(layers=cfg.num_layers, params=sum(
+                   t.numel() for _, t in train._flatten(state.params)),
+               batch=list(ids.shape), real_tokens=real, losses=losses,
+               step_ms=step_ms, steady_step_ms=steady,
+               tokens_per_s=ids.numel() / (steady / 1e3),
+               real_tokens_per_s=real / (steady / 1e3),
+               peak_memory_bytes=peak, step1_changed=changed,
+               step2_missing=seen["missing"],
+               step2_nonfinite=seen["nonfinite"], step2_norm=seen["norm"],
+               seconds=seconds)
+    del state, step, opt
+    for _, t in train._flatten(weights.tree()):
+        t.requires_grad_(False)
+    return rec, guard, weights
+
+
+def _float32_steps(cfg, host, ids, mask, where):
+    """TRAIN_CPU_STEPS float32 steps of ``cfg`` from the weights ``host``
+    (path -> CPU tensor) on ``where``: the losses and step 1's gradient
+    (on ``where``)."""
+    from llm_interpretation_replication_tpu_torch.runtime import train
+
+    t0 = time.perf_counter()
+    params = train._unflatten((p, t.to(where, copy=True))
+                              for p, t in host.items())
+    opt = train.make_optimizer(1e-4, warmup_steps=1, total_steps=10)
+    state = train.init_train_state(params, opt)
+    step = train.make_train_step(cfg, opt)
+    grads, losses = {}, []
+
+    def keep(g, _norm):     # the optimizer does not write the gradients
+        grads.update((p, t.detach()) for p, t in train._flatten(g))
+
+    for i in range(TRAIN_CPU_STEPS):
+        state, loss = step(state, ids.to(where), mask.to(where),
+                           on_grads=keep if i == 0 else None)
+        losses.append(float(loss))
+    return dict(losses=losses, grads=grads, seconds=time.perf_counter() - t0)
+
+
+def _card_vs_cpu(card, cpu, layers, batch):
+    """(c)'s record: the two runs' losses and how far step 1's gradient on
+    the card is from the CPU's (relative L2 in float64 on the card, over
+    all leaves and the worst leaf)."""
+    num = den = worst = 0.0
+    for path, g in cpu["grads"].items():
+        ref = g.to("cuda").double()
+        d2 = float((card["grads"][path].double() - ref).square().sum())
+        r2 = float(ref.square().sum())
+        num, den = num + d2, den + r2
+        worst = max(worst, math.sqrt(d2 / r2))
+    return dict(layers=layers, batch=batch, card_losses=card["losses"],
+                cpu_losses=cpu["losses"], grad_rel_l2=math.sqrt(num / den),
+                worst_leaf_rel_l2=worst, card_s=card["seconds"],
+                cpu_s=cpu["seconds"])
+
+
+def _pipelined_forward(cfg, weights, mesh, ids, mask, attention):
+    """(e): ``pipeline_decoder_forward`` (pipe 1, TRAIN_MICROBATCHES) on the
+    causal kernel's route against ``decoder.forward`` on the same route,
+    both held to a float32 forward as the forced-route phase holds them."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.parallel import (
+        pipeline_decoder_forward)
+
+    t0 = time.perf_counter()
+    flash = dataclasses.replace(cfg, attention_impl="flash")
+    real = mask.bool()
+    with torch.no_grad():
+        _reset_launches(attention)
+        piped = pipeline_decoder_forward(weights, flash, ids, mask, mesh,
+                                         n_microbatches=TRAIN_MICROBATCHES)
+        torch.cuda.synchronize()
+        launches = _launches(attention)
+        if launches["grouped_attention"] or launches["flash_attention"]:
+            raise AssertionError(f"train: pipelined forward launched "
+                                 f"{launches}")
+        piped = piped[real]
+        routed = decoder.forward(weights, flash, ids, mask)[real]
+        dense = decoder.forward(weights, cfg, ids, mask)[real]
+        ref = decoder.forward(_to_float32(weights.tree()), cfg, ids,
+                              mask)[real]
+    return dict(layers=cfg.num_layers, microbatches=TRAIN_MICROBATCHES,
+                seconds=time.perf_counter() - t0,
+                kernel_launches=launches["causal_grouped_attention"],
+                finite=bool(torch.isfinite(piped).all()),
+                logits_rel_l2_vs_fp32=_rel_l2(piped, ref),
+                dense_rel_l2_vs_fp32=_rel_l2(dense, ref),
+                vs_forward_rel_l2=_rel_l2(piped, routed))
+
+
+def _seq_parallel(mesh, seed):
+    """(f): ring and Ulysses attention over the seq axis (one rank) on
+    Falcon-7B's q/k/v shape, bf16 draws compared in float32 against dense
+    attention, causal, with a padded row."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.parallel import (
+        ring_attention_sharded, ulysses_attention_sharded)
+
+    b, s, n, d = SEQ_PARALLEL_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 9)
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16).float() for _ in range(3))
+    mask = torch.ones((b, s), dtype=torch.int32, device="cuda")
+    mask[1, s // 3:] = 0
+    with torch.no_grad():
+        scores = torch.einsum("bsnd,btnd->bnst", q, k) / math.sqrt(d)
+        pos = torch.arange(s, device="cuda")
+        ok = (pos[None, :] <= pos[:, None])[None, None] \
+            & mask.bool()[:, None, None, :]
+        probs = torch.softmax(torch.where(ok, scores, -1e9), -1)
+        dense = torch.einsum("bnst,btnd->bsnd", probs, v)
+        real = mask.bool()[:, :, None, None]
+        return {name: float(((fn(mesh, q, k, v, mask) - dense) * real)
+                            .abs().max())
+                for name, fn in (("ring", ring_attention_sharded),
+                                 ("ulysses", ulysses_attention_sharded))}
+
+
+def train_phase(seed, attention, workdir, card):
+    """The training step and the parallel package on the card (last,
+    nothing of the other phases resident; budget TRAIN_BUDGET_S): (a) an
+    NCCL group of one rank through ``initialize_distributed`` with a
+    ``file://`` rendezvous under ``workdir``, and ``make_mesh()`` on it;
+    (b) Falcon-7B at its published width and full depth, random bf16
+    weights and moments, TRAIN_STEPS steps of ``make_train_step`` on
+    TRAIN_BATCH x TRAIN_SEQ corpus tokens on the dense route; (c) the same
+    float32 steps at FAMILY_LAYERS on the card (TF32 off) and on the CPU;
+    (d) a loss through the causal kernel under grad raises; (e)
+    ``pipeline_decoder_forward`` on (b)'s weights through the causal
+    kernel; (f) ring and Ulysses attention at seq 1."""
+    import torch
+    import torch.distributed as dist
+
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import convert
+    from llm_interpretation_replication_tpu_torch.parallel import (
+        initialize_distributed, make_mesh)
+    from llm_interpretation_replication_tpu_torch.runtime import train
+
+    t_phase = time.perf_counter()
+    res, parts = {}, {}
+    os.environ.pop("MASTER_ADDR", None)
+    up = initialize_distributed(num_processes=1, process_id=0, device="cuda",
+                                init_method="file://" + os.path.join(
+                                    workdir, "train_rendezvous"))
+    try:
+        mesh = make_mesh()
+        probe = torch.ones(1, device="cuda")
+        dist.all_reduce(probe)
+        res["group"] = dict(initialized=up, backend=dist.get_backend(),
+                            world=dist.get_world_size(),
+                            mesh=list(mesh.mesh.shape),
+                            device_type=mesh.device_type,
+                            all_reduce=float(probe))
+        if not (up and res["group"]["backend"] == "nccl"
+                and res["group"]["all_reduce"] == 1.0):
+            raise AssertionError(f"train: process group {res['group']}")
+        cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                    attention_impl="xla")
+        ids, mask, vocab = _train_batch(TRAIN_BATCH, TRAIN_SEQ, "cuda")
+        parts["group_and_batch"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        res["falcon_7b"], res["guard"], weights = _falcon_train_steps(
+            cfg, mesh, ids, mask, seed)
+        res["falcon_7b"].update(vocab_words=vocab, memory_before_bytes=before)
+        torch.cuda.empty_cache()
+        parts["falcon_7b"] = time.perf_counter() - t0
+        res["pipelined"] = _pipelined_forward(cfg, weights, mesh, ids, mask,
+                                              attention)
+        del weights
+        torch.cuda.empty_cache()
+        # (f) and (c) compare float32 results: TF32 off
+        t0 = time.perf_counter()
+        matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            res["seq_parallel"] = _seq_parallel(mesh, seed)
+            # (c)'s weights are drawn on the card, then run on both
+            small = dataclasses.replace(cfg, num_layers=FAMILY_LAYERS)
+            host = {p: t.cpu() for p, t in train._flatten(
+                convert.random_params(small, seed=seed + 8, device="cuda",
+                                      dtype="fp32").tree())}
+            cids, cmask, _ = _train_batch(TRAIN_CPU_BATCH, TRAIN_CPU_SEQ,
+                                          "cpu")
+            card_run = _float32_steps(small, host, cids, cmask, "cuda")
+            parts["card_float32"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu_run = _float32_steps(small, host, cids, cmask, "cpu")
+            parts["cpu_float32"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res["card_vs_cpu"] = _card_vs_cpu(card_run, cpu_run,
+                                              small.num_layers,
+                                              list(cids.shape))
+            parts["compare"] = time.perf_counter() - t0
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    finally:
+        dist.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t_phase
+    res.update(card=card, part_seconds=parts)
+    for key in ("group", "falcon_7b", "guard", "card_vs_cpu", "pipelined",
+                "seq_parallel", "part_seconds"):
+        say(f"train {key}", json.dumps(res[key]))
+    fails = train_run_fails(res)
+    if fails:
+        raise AssertionError("train: " + "; ".join(fails[:10]))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9261,6 +9692,10 @@ def main(argv=None):
                                  int8=ires, cli=cres, families=fam,
                                  other_families=oth, instruct=inst,
                                  serve=svres))
+        # training and the parallel package (nothing else resident)
+        torch.cuda.empty_cache()
+        trres = timed("train", train_phase, args.seed, attention, workdir,
+                      card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -9268,7 +9703,8 @@ def main(argv=None):
     # from 0 just before it); the head-major kernels run on forced routes
     causal = causal_launches(sres, pres, fres, ires, wres, pkres, kres, ores,
                              tres, cres, fam, inst, svres, svcli, apres) \
-        + causal_launches(oth) + plres["searched_run"]["kernel_launches"]
+        + causal_launches(oth) + plres["searched_run"]["kernel_launches"] \
+        + trres["pipelined"]["kernel_launches"]
     forced = [*oth["forced_routes"].values()]
     launches = {"causal_grouped_attention": causal,
                 "grouped_attention": sum(f["grouped"]["launches"] for f in
@@ -9292,7 +9728,7 @@ def main(argv=None):
                        pooled=pres, full_study=fres, sweep=wres,
                        packed=pkres, k_decode=kres, obs=ores, obs_cli=ocres,
                        tokenizers=tres, serve=svres, serve_cli=svcli,
-                       api=apres, stats=stres, plan=plres,
+                       api=apres, stats=stres, plan=plres, train=trres,
                        int8=ires, cli=cres, families=fam,
                        other_families=oth, run_100q=qres,
                        instruct=inst,

@@ -108,7 +108,9 @@ def irrelevant_eval_models() -> dict:
 class RunConfig:
     """One typed config for the local-model sweep (the reference's
     ``RunConfig`` with ``device`` ``"cuda"`` or ``"cpu"``, and the device
-    memory the plan search budgets; its mesh fields are not ported)."""
+    memory the plan search budgets).  Its mesh fields build a mesh
+    (:meth:`make_mesh`); the scoring engine refuses one of more than one
+    rank."""
 
     device: str = "cuda"                 # 'cuda' | 'cpu'
     dtype: str = "bfloat16"              # weights/compute dtype on the device
@@ -126,9 +128,18 @@ class RunConfig:
     hbm_bytes: Optional[int] = None      # device memory the search budgets
                                          # (None: the card's)
     attention_impl: str = "xla"          # 'xla' | 'flash' | 'auto'
+    mesh_data: Optional[int] = None      # None = all remaining ranks
+    mesh_model: int = 1
+    mesh_seq: int = 1
     batch_size: int = 32
     checkpoint_dir: str = "checkpoints"  # local snapshots root
     output_dir: str = "results"
+
+    def make_mesh(self):
+        from ..parallel import make_mesh
+
+        return make_mesh(data=self.mesh_data, model=self.mesh_model,
+                         seq=self.mesh_seq)
 
     def snapshot_path(self, model_name: str) -> str:
         """Local snapshot dir for a model id or path (nothing is

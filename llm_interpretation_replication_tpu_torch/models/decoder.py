@@ -41,6 +41,7 @@ from ..device import to_device
 from ..ops import quant
 from ..ops.attention import (NEG_INF, attention_bsnd, cache_extend_attention,
                              grouped_attention_two_block)
+from ..parallel import tensor_parallel
 
 
 class DecoderWeights(nn.Module):
@@ -273,9 +274,15 @@ def _rotary_dim(cfg: DecoderConfig) -> int:
     return int(cfg.rotary_pct * cfg.head_dim) // 2 * 2
 
 
-def _qkv(cfg: DecoderConfig, ap, x, sin_cos):
+def _qkv(cfg: DecoderConfig, ap, x, sin_cos, tp=None):
+    """(q, k, v) ``[B, S, heads, D]``.  With ``tp`` (a
+    ``tensor_parallel.TensorParallel``) the rank's query heads and the K/V
+    heads they read."""
     b, s, _ = x.shape
     n, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if tp is not None:
+        x = tensor_parallel.copy_to_model(x, tp)
+        n, nkv = tp.heads[1], tp.kv_heads[1]
     q = quant.linear(ap, "wq", x)
     k = quant.linear(ap, "wk", x)
     v = quant.linear(ap, "wv", x)
@@ -289,12 +296,18 @@ def _qkv(cfg: DecoderConfig, ap, x, sin_cos):
         rd = _rotary_dim(cfg)
         q = apply_rotary(q, sin, cos, rd, cfg.rotary_style)
         k = apply_rotary(k, sin, cos, rd, cfg.rotary_style)
+    if tp is not None:
+        k, v = tp.local_kv(k), tp.local_kv(v)
     return q, k, v
 
 
-def _out_proj(ap, out):
+def _out_proj(ap, out, tp=None):
+    """The output projection; with ``tp`` a row-parallel product over the
+    rank's heads, reduced over the model axis before its bias."""
     b, s = out.shape[:2]
     out = quant.linear(ap, "wo", out.reshape(b, s, -1))
+    if tp is not None:
+        out = tensor_parallel.reduce_from_model(out, tp)
     if "bo" in ap:
         out = out + ap["bo"]
     return out
@@ -305,14 +318,14 @@ def _out_proj(ap, out):
 # ---------------------------------------------------------------------------
 
 def _attn(cfg: DecoderConfig, lp, x, sin_cos, bias, cache_len=None,
-          flash_lengths=None):
+          flash_lengths=None, tp=None):
     """One attention sub-block.  With ``cache_len`` the prompt K/V are
     zero-padded to that many slots and returned as this layer's cache.  With
     ``flash_lengths`` the layout-native kernel path replaces the dense
-    bias-based attention."""
+    bias-based attention.  With ``tp`` it runs the rank's heads."""
     s = x.shape[1]
-    n, nkv = cfg.num_heads, cfg.num_kv_heads
-    q, k, v = _qkv(cfg, lp["attn"], x, sin_cos)
+    q, k, v = _qkv(cfg, lp["attn"], x, sin_cos, tp)
+    n, nkv = q.shape[2], k.shape[2]
     new_cache = None
     if cache_len is not None:
         pad = (0, 0, 0, 0, 0, cache_len - s)
@@ -325,11 +338,15 @@ def _attn(cfg: DecoderConfig, lp, x, sin_cos, bias, cache_len=None,
     else:
         out = dot_product_attention(q, _repeat_kv(k, n // nkv),
                                     _repeat_kv(v, n // nkv), bias)
-    return _out_proj(lp["attn"], out), new_cache
+    return _out_proj(lp["attn"], out, tp), new_cache
 
 
-def _mlp(cfg: DecoderConfig, lp, x):
+def _mlp(cfg: DecoderConfig, lp, x, tp=None):
+    """The MLP; with ``tp`` over the rank's columns, reduced over the model
+    axis before the down projection's bias."""
     mp = lp["mlp"]
+    if tp is not None:
+        x = tensor_parallel.copy_to_model(x, tp)
     if cfg.mlp_type == "gated":
         gate = quant.linear(mp, "wg", x)
         up = quant.linear(mp, "wi", x)
@@ -342,30 +359,43 @@ def _mlp(cfg: DecoderConfig, lp, x):
             hidden = hidden + mp["bi"]
         hidden = activation(cfg.activation, hidden)
     out = quant.linear(mp, "wo", hidden)
+    if tp is not None:
+        out = tensor_parallel.reduce_from_model(out, tp)
     if "bo" in mp:
         out = out + mp["bo"]
     return out
 
 
-def _residual(cfg: DecoderConfig, lp, x, ln1_out, attn_out):
+def _residual(cfg: DecoderConfig, lp, x, ln1_out, attn_out, tp=None):
     if cfg.parallel_residual:
         # NeoX/Falcon: mlp reads the same (or its own) LN of the block input
         mlp_in = ln1_out if cfg.shared_layernorm else _norm(cfg, x, lp["ln2"])
-        return x + attn_out + _mlp(cfg, lp, mlp_in)
+        return x + attn_out + _mlp(cfg, lp, mlp_in, tp)
     x = x + attn_out
-    return x + _mlp(cfg, lp, _norm(cfg, x, lp["ln2"]))
+    return x + _mlp(cfg, lp, _norm(cfg, x, lp["ln2"]), tp)
 
 
 def _block(cfg: DecoderConfig, lp, x, sin_cos, bias, cache_len=None,
-           flash_lengths=None):
+           flash_lengths=None, tp=None):
     ln1_out = _norm(cfg, x, lp["ln1"])
     attn_out, new_cache = _attn(cfg, lp, ln1_out, sin_cos, bias, cache_len,
-                                flash_lengths)
-    return _residual(cfg, lp, x, ln1_out, attn_out), new_cache
+                                flash_lengths, tp)
+    return _residual(cfg, lp, x, ln1_out, attn_out, tp), new_cache
 
 
-def _embed(cfg: DecoderConfig, params, token_ids, positions):
-    x = params["embed"]["tokens"][token_ids]
+def _embed(cfg: DecoderConfig, params, token_ids, positions, tp=None):
+    """Token (+ learned position) embeddings.  With ``tp`` the table holds
+    the rank's vocab rows: ids outside them look up zeros and the ranks'
+    rows are summed over the model axis."""
+    table = params["embed"]["tokens"]
+    if tp is None:
+        x = table[token_ids]
+    else:
+        first, count = tp.vocab
+        local = token_ids - first
+        inside = ((local >= 0) & (local < count))[..., None]
+        x = torch.where(inside, table[local.clamp(0, count - 1)], 0)
+        x = tensor_parallel.reduce_from_model(x, tp)
     if cfg.position_embedding == "learned":
         x = x + params["embed"]["pos"][positions + cfg.learned_pos_offset]
     if cfg.embedding_layernorm:
@@ -393,21 +423,27 @@ def _final_hidden(cfg: DecoderConfig, params, x):
     return x
 
 
-def _unembed_hidden(cfg: DecoderConfig, params, x):
-    """(final-normed hidden, fp32 logits)."""
+def _unembed_hidden(cfg: DecoderConfig, params, x, tp=None):
+    """(final-normed hidden, fp32 logits).  With ``tp`` the table holds the
+    rank's vocab columns and the logits are gathered over the model axis."""
     x = _final_hidden(cfg, params, x)
     table = params.get("lm_head")
     if table is None:
         table = params["embed"]["tokens"].T
-    logits = _matmul_f32(x, table) * cfg.logit_scale
+    if tp is None:
+        logits = _matmul_f32(x, table) * cfg.logit_scale
+    else:
+        logits = tensor_parallel.gather_vocab(
+            _matmul_f32(tensor_parallel.copy_to_model(x, tp), table)
+            * cfg.logit_scale, tp)
     bias = params.get("lm_head_bias")
     if bias is not None:
         logits = logits + bias.float()
     return x, logits
 
 
-def _unembed(cfg: DecoderConfig, params, x):
-    return _unembed_hidden(cfg, params, x)[1]
+def _unembed(cfg: DecoderConfig, params, x, tp=None):
+    return _unembed_hidden(cfg, params, x, tp)[1]
 
 
 def _positions(attention_mask):
@@ -415,9 +451,23 @@ def _positions(attention_mask):
     return torch.clamp(torch.cumsum(attention_mask, dim=-1) - 1, min=0)
 
 
-def run_layers(cfg: DecoderConfig, layers, x, positions, attention_mask):
+def _unstack(layers):
+    """Per-layer views of a stacked layer tree, one ``unbind`` a leaf (its
+    backward stacks the layers' gradients once, where an index a layer
+    would scatter each into a zeroed copy of the whole stack)."""
+    if not isinstance(layers, dict):
+        return layers.unbind(0)
+    parts = {k: _unstack(v) for k, v in layers.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
+def run_layers(cfg: DecoderConfig, layers, x, positions, attention_mask,
+               tp=None):
     """Rotary setup + flash/dense attention dispatch + the loop over the
-    stacked ``layers``."""
+    stacked ``layers`` (as many as they stack: a pipeline stage passes its
+    own).  With ``tp`` each block runs the rank's share of the heads and
+    MLP columns (``parallel.tensor_parallel``)."""
     mask = attention_mask.bool()
     sin_cos = None
     if cfg.position_embedding == "rotary":
@@ -425,22 +475,29 @@ def run_layers(cfg: DecoderConfig, layers, x, positions, attention_mask):
                                    x.dtype)
     use_flash = cfg.use_flash_attention(x.shape[1])
     bias = None if use_flash else make_attention_bias(cfg, positions, positions, mask)
+    if tp is not None and bias is not None and bias.shape[1] > 1:
+        bias = tp.local_heads(bias)                 # ALiBi: the rank's heads
     flash_lengths = (attention_mask.sum(-1).to(torch.int32).contiguous()
                      if use_flash else None)
-    for i in range(cfg.num_layers):
-        x, _ = _block(cfg, _layer(layers, i), x, sin_cos, bias, None,
-                      flash_lengths)
+    for lp in _unstack(layers):
+        x, _ = _block(cfg, lp, x, sin_cos, bias, None, flash_lengths, tp)
     return x
 
 
 def _trunk(params, cfg: DecoderConfig, token_ids, attention_mask,
-           cache_len: Optional[int] = None):
-    """Embed + blocks.  Returns (hidden [B,S,H], cache | None)."""
+           cache_len: Optional[int] = None, tp=None):
+    """Embed + blocks.  Returns (hidden [B,S,H], cache | None).  ``tp``
+    (tensor parallelism) runs without a cache only."""
     b, s = token_ids.shape
     positions = _positions(attention_mask)
-    x = _embed(cfg, params, token_ids, positions)
+    if tp is not None and cache_len is not None:
+        raise NotImplementedError("a KV cache under tensor parallelism is not "
+                                  "ported (ROADMAP.md queue 1, 'Parallel and "
+                                  "training')")
+    x = _embed(cfg, params, token_ids, positions, tp)
     if cache_len is None:
-        return run_layers(cfg, params["layers"], x, positions, attention_mask), None
+        return (run_layers(cfg, params["layers"], x, positions,
+                           attention_mask, tp), None)
 
     sin_cos = None
     if cfg.position_embedding == "rotary":

@@ -146,9 +146,27 @@ def _check_kernel_inputs(q, k, v, lengths, head_axis: int = 2):
         raise ValueError("lengths must be contiguous")
 
 
+def _on_kernel_device(q) -> bool:
+    """Whether a wrapper takes its kernel (a tensor off the CPU) or its
+    plain version (a CPU tensor)."""
+    return q.device.type != "cpu"
+
+
+def _refuse_grad(name, *tensors):
+    """The kernels have no backward (nor have the JAX package's Pallas
+    kernels): under grad mode an input that requires grad raises, so no
+    loss runs through a kernel whose output carries no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel (the JAX package has none "
+            f"either): training takes the dense route, attention_impl='xla'")
+
+
 def _launch(source, name, q, k, v, lengths, causal, head_axis):
     """Check, allocate the output and launch one kernel on the current
-    stream; raise if the launch is refused."""
+    stream; raise if the launch is refused or an input needs a
+    gradient."""
+    _refuse_grad(name, q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check_kernel_inputs(q, k, v, lengths, head_axis)
@@ -175,9 +193,10 @@ def causal_grouped_attention(q, k, v, lengths, causal: bool = True):
     ``csrc/attention_tile.cuh`` (bf16 in and out, ``wgmma`` products with
     float32 accumulation, float32 softmax, a ~16-bit P in P.V) and counts
     the launch in ``causal_grouped_attention.launches``; there is no
-    fallback.  On a CPU tensor it returns
+    fallback, and no backward: an input that requires grad under grad
+    mode raises ``NotImplementedError``.  On a CPU tensor it returns
     :func:`causal_grouped_attention_plain`."""
-    if q.device.type == "cpu":
+    if not _on_kernel_device(q):
         return causal_grouped_attention_plain(q, k, v, lengths, causal)
     out = _launch("causal_grouped_attention", "causal_grouped_attention_bf16",
                   q, k, v, lengths, causal, head_axis=2)
@@ -196,9 +215,10 @@ def grouped_attention(q, k, v, lengths, causal: bool = True):
     unrepeated (each K/V tile staged once for all the heads of its group;
     bf16 in and out, ``wgmma`` products with float32 accumulation, float32
     softmax, a ~16-bit P in P.V), and counts it in
-    ``grouped_attention.launches``; there is no fallback.  On a CPU tensor
+    ``grouped_attention.launches``; there is no fallback and no backward
+    (an input that requires grad under grad mode raises).  On a CPU tensor
     it returns :func:`grouped_attention_plain`."""
-    if q.device.type == "cpu":
+    if not _on_kernel_device(q):
         return grouped_attention_plain(q, k, v, lengths, causal)
     out = _launch("head_major_attention", "grouped_attention_bf16",
                   q, k, v, lengths, causal, head_axis=1)
@@ -215,12 +235,13 @@ def flash_attention(q, k, v, lengths, causal: bool = True):
     of ``csrc/attention_tile.cuh`` on head-major rows (bf16 in and out,
     products as exact as the TPU kernel's fp32 ones up to summation order
     and a ~16-bit P), and counts it in ``flash_attention.launches``; there
-    is no fallback.  On a CPU tensor it returns
+    is no fallback and no backward (an input that requires grad under
+    grad mode raises).  On a CPU tensor it returns
     :func:`flash_attention_plain`."""
     if k.shape != q.shape:
         raise ValueError(f"flash attention takes K/V repeated to q's shape "
                          f"{tuple(q.shape)}; got {tuple(k.shape)}")
-    if q.device.type == "cpu":
+    if not _on_kernel_device(q):
         return flash_attention_plain(q, k, v, lengths, causal)
     out = _launch("head_major_attention", "flash_attention_bf16",
                   q, k, v, lengths, causal, head_axis=1)

@@ -217,7 +217,8 @@ def _check_supported(family, ecfg: EngineConfig, mesh) -> None:
         raise ValueError(f"unknown kv_dtype {ecfg.kv_dtype!r}")
     if mesh is not None:
         raise NotImplementedError(
-            f"a device mesh is not ported yet ({_ITEM_PAR})")
+            f"the scoring engine on a device mesh is not ported yet "
+            f"({_ITEM_PAR})")
 
 
 @dataclasses.dataclass

@@ -20,8 +20,9 @@ predicted rows/s.  The chosen plan and a ranked runner-up table with each
 candidate's fit or reject reason go to stderr or a JSON record; the
 engine's OOM ladder stays armed for a prediction the card does not keep.
 The search picks shapes and batch sizes and never touches scoring
-numerics.  A chosen mesh larger than one device cannot run yet: building
-a mesh waits for ROADMAP.md queue 1's 'Parallel and training'.
+numerics.  A chosen mesh larger than one device cannot run yet: the
+scoring engine on a mesh waits for ROADMAP.md queue 1's 'Parallel and
+training'.
 
 Cost model
 ----------
@@ -547,12 +548,12 @@ def format_candidate_table(ranked: Sequence[PlanCandidate], top: int = 8,
 
 def require_single_device(best: PlanCandidate) -> None:
     """Raise for a chosen plan whose mesh spans more than one device: the
-    port builds no mesh yet."""
+    port's scoring engine runs on one device."""
     if best.data * best.pipe * best.model > 1:
         raise NotImplementedError(
             f"the chosen plan's mesh dp{best.data}xpp{best.pipe}"
-            f"xtp{best.model} spans more than one device; a device mesh is "
-            f"not ported yet ({_ITEM_PAR})")
+            f"xtp{best.model} spans more than one device; the scoring "
+            f"engine on a mesh is not ported yet ({_ITEM_PAR})")
 
 
 # ---------------------------------------------------------------------------

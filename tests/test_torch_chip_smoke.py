@@ -1427,7 +1427,8 @@ def test_plan_searched_run_gates(kw, fails):
 def test_every_phase_that_records_a_peak_records_its_plan_point():
     """Each phase function that resets the peak-memory counter records the
     operating point the budget model prices, but for T5's scoring
-    (instruct_phase) and the plan phase's own run."""
+    (instruct_phase), the plan phase's own run and the train phase (the
+    budget model prices scoring, not training)."""
     src = inspect.getsource(chip_smoke)
     tree = ast.parse(src)
     missing = []
@@ -1437,7 +1438,8 @@ def test_every_phase_that_records_a_peak_records_its_plan_point():
         body = ast.get_source_segment(src, fn)
         if "reset_peak_memory_stats()" in body and "_plan_point(" not in body:
             missing.append(fn.name)
-    assert sorted(missing) == ["_plan_searched_run", "instruct_phase"]
+    assert sorted(missing) == ["_plan_searched_run", "instruct_phase",
+                               "train_phase"]
 
 
 def test_main_runs_the_plan_phase_last_and_counts_its_launches():
@@ -1458,3 +1460,120 @@ def test_main_runs_the_plan_phase_last_and_counts_its_launches():
     for piece in ('"--plan-search"', "PLAN_QUANT", "PLAN_IMPL",
                   "fault_events", "FALCON_7B_GEOMETRY"):
         assert piece in run, piece
+
+
+def _train_result(**changes):
+    res = dict(
+        falcon_7b=dict(step1_changed=[], losses=[11.09, 11.09, 11.05, 10.98],
+                       step2_missing=[], step2_nonfinite=[], step2_norm=3.2),
+        card_vs_cpu=dict(card_losses=[11.0968, 11.0968],
+                         cpu_losses=[11.0968, 11.0968], grad_rel_l2=2e-6),
+        guard=dict(raised=True), seq_parallel=dict(ring=3e-7, ulysses=2e-7),
+        pipelined=dict(kernel_launches=64, layers=32, microbatches=2,
+                       logits_rel_l2_vs_fp32=0.0101,
+                       dense_rel_l2_vs_fp32=0.0100),
+        seconds=30.0)
+    for key, value in changes.items():
+        part, _, field = key.partition("__")
+        if field:
+            res[part] = dict(res[part], **{field: value})
+        else:
+            res[part] = value
+    return res
+
+
+@pytest.mark.parametrize("changes,fails", [
+    ({}, 0),
+    (dict(falcon_7b__step1_changed=["layers/attn/wq"]), 1),
+    (dict(falcon_7b__losses=[11.09, float("nan"), 11.05, 10.98]), 1),
+    (dict(falcon_7b__losses=[11.09, 11.0, 11.05, 11.01]), 1),
+    (dict(falcon_7b__step2_missing=["layers/ln1/bias"]), 1),
+    (dict(falcon_7b__step2_nonfinite=["lm_head"]), 1),
+    (dict(falcon_7b__step2_norm=0.0), 1),
+    (dict(guard__raised=False), 1),
+    (dict(card_vs_cpu__card_losses=[11.0968, 11.1]), 1),
+    (dict(card_vs_cpu__grad_rel_l2=2e-4), 1),
+    (dict(pipelined__kernel_launches=63), 1),
+    (dict(pipelined__logits_rel_l2_vs_fp32=0.013), 1),
+    (dict(seq_parallel__ulysses=1e-3), 1),
+    (dict(seconds=46.0), 1)])
+def test_train_phase_gates(changes, fails):
+    """The train phase fails on a parameter changed at step 1 (lr 0), a
+    NaN loss or no fall from loss 2 to loss 4, a leaf with no gradient or
+    a non-finite one at step 2, a kernel guard that does not raise, the
+    card parting from the CPU, a pipelined forward without its launch a
+    layer a microbatch or off the forced-route tolerance, ring or Ulysses
+    off dense attention, or a run past its budget."""
+    assert len(chip_smoke.train_run_fails(_train_result(**changes))) == fails
+
+
+def test_grad_check_names_missing_and_nonfinite_leaves():
+    import torch
+
+    params = {"a": torch.ones(2), "b": {"c": torch.ones(3), "d": torch.ones(1)}}
+    grads = {"a": torch.tensor([0.5, 0.0]),
+             "b": {"c": torch.zeros(3), "d": torch.tensor([float("inf")])}}
+    assert chip_smoke._grad_check(grads, params) == (["b/c"], ["b/d"])
+    del grads["b"]["c"]
+    assert chip_smoke._grad_check(grads, params)[0] == ["b/c"]
+
+
+def test_train_batch_is_padded_corpus_text(one_torch_thread):
+    """The train phase's batch: corpus texts under a WordTokenizer, cut or
+    right-padded to the sequence, every id inside Falcon-7B's vocab."""
+    from llm_interpretation_replication_tpu_torch.models import config
+
+    ids, mask, vocab = chip_smoke._train_batch(4, 128, "cpu")
+    assert ids.shape == mask.shape == (4, 128)
+    assert 0 < int(mask.sum()) <= 4 * 128 and vocab < 65024
+    assert int(ids.max()) < config.FALCON_7B_GEOMETRY["vocab_size"]
+    lengths = mask.sum(-1)
+    for row, n in enumerate(lengths.tolist()):
+        assert mask[row, :n].all() and not mask[row, n:].any()
+        assert not ids[row, n:].any()
+
+
+def test_main_runs_the_train_phase_last_and_counts_its_launches():
+    """The train phase runs after the plan phase, within its own budget,
+    and its pipelined forward's causal launches count in the kernels
+    line."""
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index('timed("plan"') < src.index('timed("train"')
+    assert 'trres["pipelined"]["kernel_launches"]' in src
+    assert "train=trres" in src
+    assert chip_smoke.TRAIN_BUDGET_S == 45.0
+    assert (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ,
+            chip_smoke.TRAIN_STEPS) == (4, 128, 4)
+    phase = inspect.getsource(chip_smoke.train_phase)
+    for piece in ("initialize_distributed", "file://", "make_mesh()",
+                  "FALCON_7B_GEOMETRY", "train_run_fails", "allow_tf32",
+                  "destroy_process_group"):
+        assert piece in phase, piece
+    steps = inspect.getsource(chip_smoke._falcon_train_steps)
+    for piece in ("make_optimizer(1e-4, warmup_steps=1, total_steps=10)",
+                  'dtype="bf16"', "NotImplementedError", "on_grads"):
+        assert piece in steps, piece
+
+
+def test_bit_fingerprints_see_one_changed_bit():
+    """(b)'s step-1 gate: the fingerprint of an unchanged tree is equal,
+    and one element changed anywhere (a sign bit: -0.0 for 0.0 too) moves
+    its leaf's, across the runs the sums are taken in."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    tree = {"a": torch.randn(5, 7, generator=gen).to(torch.bfloat16),
+            "b": {"c": torch.zeros(300, dtype=torch.bfloat16)}}
+    before = chip_smoke._bit_fingerprints(tree, run=64)
+    assert chip_smoke._bit_fingerprints(tree, run=64) == before
+    assert chip_smoke._bit_fingerprints(tree, run=1 << 20) == before
+    for path, index, value in ((("a",), (3, 4), None),
+                               (("b", "c"), (299,), -0.0),
+                               (("b", "c"), (0,), 2.0 ** -133)):
+        leaf = tree[path[0]] if len(path) == 1 else tree["b"]["c"]
+        old = leaf[index].clone()
+        leaf[index] = -leaf[index] if value is None else value
+        after = chip_smoke._bit_fingerprints(tree, run=64)
+        assert [p for p in before if after[p] != before[p]] == [path]
+        leaf[index] = old
+    assert chip_smoke._bit_fingerprints(tree, run=64) == before

@@ -185,6 +185,12 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/runtime/plan_search.py",
     "llm_interpretation_replication_tpu_torch/parallel/__init__.py",
     "llm_interpretation_replication_tpu_torch/parallel/mesh.py",
+    "llm_interpretation_replication_tpu_torch/parallel/sharding.py",
+    "llm_interpretation_replication_tpu_torch/parallel/tensor_parallel.py",
+    "llm_interpretation_replication_tpu_torch/parallel/pipeline.py",
+    "llm_interpretation_replication_tpu_torch/parallel/ring_attention.py",
+    "llm_interpretation_replication_tpu_torch/parallel/ulysses.py",
+    "llm_interpretation_replication_tpu_torch/runtime/train.py",
     "scripts/calibrate_plan_torch.py",
 ])
 def test_slice_modules_are_guarded(rel):
