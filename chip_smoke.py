@@ -161,14 +161,16 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    each other model's attention (dense for BLOOM and Mistral-7B-v0.1) and
    write 1200 rows in the 10 columns, each with ``success``, the first
    model's equal to the checkpoint's; a rerun over the finished output
+   (the same command in the smoke's own process: it starts no model)
    must score nothing;
 14. instruct: the instruct roster's new models at their published width
    (random bf16 HF-named checkpoints from ``--seed`` through the port's
    converters; T5's at its own initialization scales; T0_3B and the T5
    pair at their depth, the decoders at FAMILY_LAYERS), under the
    families phase's word tokenizer with the targets swapped to ids the
-   weights rank high.  T0_3B (T5 XL) scores the 100 instruct prompts
-   through the instruct sweep's per-model call, and the word-meaning pair
+   weights rank high.  T0_3B (T5 XL) scores the first
+   INSTRUCT_T5_QUESTIONS (32) of the 100 instruct prompts through the
+   instruct sweep's per-model call, and the word-meaning pair
    (t5-v1_1-base, flan-t5-base) runs through
    ``sweeps.run_base_vs_instruct_word_meaning`` (the base model's few-shot
    prompt on T5): each T5 model's rows against the same prompts at batch
@@ -262,7 +264,7 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    of SERVE_REPLAY_PROMPTS (192) of the pooled phase's prompts with slot
    admission under strict
    mode (``blocked_transfers`` 0, rows admitted mid-decode),
-   SERVE_PREFIX_PAIRS (64) of the full-study prefix/suffix pairs through
+   SERVE_PREFIX_PAIRS (32) of the full-study prefix/suffix pairs through
    ``score_prefixed``, an OOM
    split under a memory cap between the needs of a micro-batch of 16 and
    one of 32 (``serve_oom_split`` events, every request answered), a
@@ -375,7 +377,25 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    one launch a layer a microbatch, logits as close to a float32 forward
    as the forced-route phase allows; (f) ring and Ulysses attention at seq
    1 on Falcon-7B's q/k/v (71 heads, S=448, D=64; bf16 draws compared in
-   float32) against dense attention.
+   float32) against dense attention.  The group stays up for phase 26;
+26. mesh (after train, on its NCCL world of one; budget MESH_BUDGET_S,
+   45 s, printed beside the phase's time): the scoring engine on a mesh.
+   (a) Falcon-7B at its published width and full depth, random bf16
+   weights from ``--seed``: MESH_PROMPTS of the slice's prompts (one batch)
+   through ``ScoringEngine.bind_mesh(make_mesh())`` and through the engine
+   without a mesh, per batch: the rows equal bit for bit, the mesh run's
+   prefill one causal launch a layer.  (b) Two spawned processes on the
+   one card in a gloo group (NCCL refuses two ranks on one device) first
+   probe gloo's ``all_reduce`` and ``all_gather`` on CUDA tensors; where
+   gloo takes them, each runs the engine on ``device="cuda"`` bound to
+   dp2 and then to tp2, Falcon-7B at full width and FAMILY_LAYERS
+   layers, w8a8 weights and an int8 KV cache (seed + 26), on the same
+   prompts: the rows held to the world of one's rows of the same weights
+   in the CPU tests' w8a8 class (verdicts identical, probabilities within
+   MESH_W8A8_RTOL), each rank's prefills launching the causal kernel at
+   its own heads (71 at dp2; 36 and 35 at tp2); ms a batch, each rank's
+   peak memory and the bytes through its collectives are printed.  A
+   failure of either process, the probe included, fails the phase.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -5137,11 +5157,31 @@ def _write_100q_snapshots(root, seed, tokenizer_texts):
     return nbytes, time.perf_counter() - t0
 
 
-def _run_100q(snaps, out, extra=(), signal_after_first=False):
+def _cli_here(args):
+    """The port's CLI on ``args`` in this process, its output captured:
+    (exit code, stdout, stderr, seconds).  The sweeps' reruns over a
+    finished output score nothing, so they run here rather than pay a
+    child interpreter's start."""
+    from llm_interpretation_replication_tpu_torch.__main__ import \
+        main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = cli_main(list(args)) or 0
+        except SystemExit as done:
+            rc = done.code or 0
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def _run_100q(snaps, out, extra=(), signal_after_first=False,
+              in_process=False):
     """``python -m llm_interpretation_replication_tpu_torch run-100q`` in a
-    child process (the repository on its path).  With
-    ``signal_after_first`` a SIGTERM goes to it as soon as its checkpoint
-    file appears.  Returns (exit code, stdout, stderr, seconds)."""
+    child process (the repository on its path), or in this one with
+    ``in_process`` (:func:`_cli_here`).  With ``signal_after_first`` a
+    SIGTERM goes to the child as soon as its checkpoint file appears.
+    Returns (exit code, stdout, stderr, seconds)."""
     import signal
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -5150,6 +5190,8 @@ def _run_100q(snaps, out, extra=(), signal_after_first=False):
     argv = [sys.executable, "-m", "llm_interpretation_replication_tpu_torch",
             "run-100q", "--checkpoint-dir", snaps, "--output-dir", out,
             "--attention-impl", "flash", "--batch-size", str(BATCH), *extra]
+    if in_process:
+        return _cli_here(argv[3:])
     ck = os.path.join(out, "base_vs_instruct_100q_checkpoint.json")
     t0 = time.perf_counter()
     with tempfile.TemporaryFile("w+") as so, tempfile.TemporaryFile("w+") as se:
@@ -5177,8 +5219,9 @@ def run100q_cli_phase(seed, workdir, card):
     model, scores the other eleven and writes 1200 rows in the CSV's 10
     columns, each with ``success``, the first model's the checkpoint's;
     one attention line a model it scores (dense for BLOOM and
-    Mistral-7B-v0.1); a rerun over the finished output skips all twelve.
-    (No uninterrupted run: the resume scores eleven of the twelve.)"""
+    Mistral-7B-v0.1); a rerun over the finished output (in this process)
+    skips all twelve.  (No uninterrupted run: the resume scores eleven of
+    the twelve.)"""
     import csv
 
     from llm_interpretation_replication_tpu_torch.config import (
@@ -5262,8 +5305,9 @@ def run100q_cli_phase(seed, workdir, card):
                              f"checkpoint's {v!r}")
                 break
 
-    # (3) a rerun over the finished output: nothing to score
-    rc4, so4, se4, secs4 = _run_100q(snaps, out)
+    # (3) a rerun over the finished output: nothing to score (in this
+    # process: it starts no model)
+    rc4, so4, se4, secs4 = _run_100q(snaps, out, in_process=True)
     runs.append(dict(run="rerun", rc=rc4, seconds=secs4))
     say("run-100q", json.dumps(dict(runs[-1], card=card)))
     if rc4 != 0 or attention_lines(se4) or csv_of(out)[0] != raw or \
@@ -5392,6 +5436,9 @@ def _t5_weights(config, seed, device):
 #: the T5 gates' second bf16 route: the same prompts at this batch (at 8
 #: its 50-step decodes took 45 s of the instruct phase on the H100)
 T5_SECOND_BATCH = 16
+#: the instruct phase's T5 rows (T0_3B's instruct prompts and the
+#: word-meaning pair's sweep): the first of the 100 questions
+INSTRUCT_T5_QUESTIONS = 32
 
 
 def _t5_gated_run(label, model, cfg, weights, tok, prompts, rows, card,
@@ -5485,7 +5532,8 @@ def instruct_phase(seed, attention, workdir, card):
     depth, random bf16 weights from ``seed`` made as HF checkpoints and
     read through the port's converters, under the phase's word tokenizer
     with the targets swapped to ids the weights rank high: T0_3B scores
-    the 100 instruct prompts through the instruct sweep's per-model call;
+    the first INSTRUCT_T5_QUESTIONS instruct prompts through the instruct
+    sweep's per-model call (the word-meaning pair the same questions);
     the word-meaning T5 pair (t5-v1_1-base, flan-t5-base) runs through
     ``sweeps.run_base_vs_instruct_word_meaning`` (the base model's few-shot
     prompt on T5); each T5 model is held by ``_t5_gated_run``.  Qwen-7B-
@@ -5503,7 +5551,7 @@ def instruct_phase(seed, attention, workdir, card):
     from llm_interpretation_replication_tpu_torch.sweeps import (
         instruct_sweep, run_base_vs_instruct_word_meaning)
 
-    questions = ordinary_meaning_questions()
+    questions = ordinary_meaning_questions()[:INSTRUCT_T5_QUESTIONS]
     tok = _question_tokenizer()
     fails, t5_results, runs = [], [], []
 
@@ -5671,12 +5719,14 @@ def _write_instruct_snapshots(root, seed, texts):
     return nbytes, time.perf_counter() - t0
 
 
-def _run_instruct(snaps, out, extra=(), signal_after_first=False):
+def _run_instruct(snaps, out, extra=(), signal_after_first=False,
+                  in_process=False):
     """``python -m llm_interpretation_replication_tpu_torch
     run-instruct-sweep --attention-impl flash --quant int8`` in a child
-    process (the repository on its path); with ``signal_after_first`` a
-    SIGTERM goes to it as soon as its checkpoint file appears.  Returns
-    (exit code, stdout, stderr, seconds)."""
+    process (the repository on its path), or in this one with
+    ``in_process`` (:func:`_cli_here`); with ``signal_after_first`` a
+    SIGTERM goes to the child as soon as its checkpoint file appears.
+    Returns (exit code, stdout, stderr, seconds)."""
     import signal
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -5686,6 +5736,8 @@ def _run_instruct(snaps, out, extra=(), signal_after_first=False):
             "run-instruct-sweep", "--checkpoint-dir", snaps, "--output-dir",
             out, "--attention-impl", "flash", "--quant", "int8",
             "--batch-size", str(BATCH), *extra]
+    if in_process:
+        return _cli_here(argv[3:])
     ck = os.path.join(out, "instruct_sweep_checkpoint.json")
     t0 = time.perf_counter()
     with tempfile.TemporaryFile("w+") as so, tempfile.TemporaryFile("w+") as se:
@@ -5715,8 +5767,8 @@ def instruct_cli_phase(seed, workdir, card):
     SIGTERM stops after its first model keeps exactly that model's rows,
     resuming it (under ``--strict``) writes the whole CSV, the first
     model's rows the checkpoint's, and a rerun over the finished output
-    scores nothing (no uninterrupted run: the resume scores nine of the
-    ten)."""
+    (in this process) scores nothing (no uninterrupted run: the resume
+    scores nine of the ten)."""
     import csv
 
     from llm_interpretation_replication_tpu_torch.config import (
@@ -5822,7 +5874,7 @@ def instruct_cli_phase(seed, workdir, card):
             fails.append(f"run-instruct-sweep resume: {row} vs the "
                          f"checkpoint's {ck}")
             break
-    rc4, so4, se4, secs4 = _run_instruct(snaps, out)
+    rc4, so4, se4, secs4 = _run_instruct(snaps, out, in_process=True)
     runs.append(dict(run="rerun", rc=rc4, seconds=secs4))
     say("run-instruct-sweep", json.dumps(dict(runs[-1], card=card)))
     if rc4 != 0 or attention_lines(se4) or csv_of(out)[0] != raw or \
@@ -7059,19 +7111,19 @@ SERVE_MAX_WAIT_S = 0.02
 # the replay leg's requests (the pooled prompts' first rows); prefix/suffix
 # pairs of the full-study rows served through score_prefixed
 SERVE_REPLAY_PROMPTS = 192
-SERVE_PREFIX_PAIRS = 64
+SERVE_PREFIX_PAIRS = 32
 # the OOM leg: prompts of this length (bucket 448), one micro-batch of 32
 SERVE_OOM_PROMPTS, SERVE_OOM_LEN = 32, 440
 # the pool, roles and supervise legs' requests (the pooled prompts' first
 # rows)
-SERVE_POOL_PROMPTS, SERVE_ROLE_PROMPTS, SERVE_SUPERVISE_PROMPTS = 96, 64, 32
+SERVE_POOL_PROMPTS, SERVE_ROLE_PROMPTS, SERVE_SUPERVISE_PROMPTS = 48, 64, 32
 # a busy replica with no progress beat for this long is wedged; well above
 # one Falcon-7B launch of 32 rows
 SERVE_WEDGE_S = 3.0
 # the load leg: prompts of one bucket (256), completions of 10 tokens, the
 # open-loop rates as fractions of the closed loop's, seconds each
 SERVE_LOAD_PROMPTS, SERVE_LOAD_LENS = 64, (241, 256)
-SERVE_LOAD_FRACTIONS, SERVE_LOAD_S, SERVE_LOAD_TOKENS = (0.25, 0.5, 0.9), 3.0, 10
+SERVE_LOAD_FRACTIONS, SERVE_LOAD_S, SERVE_LOAD_TOKENS = (0.25, 0.5, 0.9), 1.5, 10
 SERVE_LOAD_CLOSED_S = 2.0
 # memory after the pool leg's hot unloads may sit this far above its
 # value before the leg's copy of the weights
@@ -9202,6 +9254,10 @@ def plan_phase(seed, attention, workdir, card, results):
 
 
 TRAIN_BUDGET_S = 45.0
+MESH_BUDGET_S = 45.0
+#: phase 26: one batch of the slice's prompts; (b)'s w8a8 class is the CPU
+#: tests' (tests/test_torch_engine.W8A8_RTOL)
+MESH_PROMPTS, MESH_W8A8_RTOL = 32, 2e-2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 4
 #: (c): the card against the CPU, float32, at FAMILY_LAYERS of Falcon-7B
 TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS = 2, 64, 2
@@ -9523,7 +9579,9 @@ def train_phase(seed, attention, workdir, card):
     float32 steps at FAMILY_LAYERS on the card (TF32 off) and on the CPU;
     (d) a loss through the causal kernel under grad raises; (e)
     ``pipeline_decoder_forward`` on (b)'s weights through the causal
-    kernel; (f) ring and Ulysses attention at seq 1."""
+    kernel; (f) ring and Ulysses attention at seq 1.  The process group
+    stays up for :func:`mesh_phase`, which ends it; a failure here ends
+    it at once."""
     import torch
     import torch.distributed as dist
 
@@ -9593,8 +9651,10 @@ def train_phase(seed, attention, workdir, card):
             parts["compare"] = time.perf_counter() - t0
         finally:
             torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
-    finally:
+    except BaseException:
+        # the group stays up for the mesh phase only when this one passes
         dist.destroy_process_group()
+        raise
     res["seconds"] = time.perf_counter() - t_phase
     res.update(card=card, part_seconds=parts)
     for key in ("group", "falcon_7b", "guard", "card_vs_cpu", "pipelined",
@@ -9603,6 +9663,266 @@ def train_phase(seed, attention, workdir, card):
     fails = train_run_fails(res)
     if fails:
         raise AssertionError("train: " + "; ".join(fails[:10]))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The scoring engine on a mesh (phase 26)
+# ---------------------------------------------------------------------------
+
+def _mesh_inputs(seed):
+    """The slice's tokenizer and the first MESH_PROMPTS of its prompts."""
+    from llm_interpretation_replication_tpu_torch.utils.tokenizer import (
+        default_tokenizer)
+
+    tok = default_tokenizer()
+    return tok, _prompts(seed, tok)[:MESH_PROMPTS]
+
+
+def _mesh_engine(cfg, weights, tok, mesh=None, **ecfg):
+    from llm_interpretation_replication_tpu_torch.runtime import engine as emod
+
+    engine = emod.ScoringEngine(
+        "falcon", cfg, weights, tok, device="cuda",
+        engine_config=emod.EngineConfig(decode_completions=False,
+                                        phase2_pool=False, batch_size=BATCH,
+                                        **ecfg))
+    return engine.bind_mesh(mesh) if mesh is not None else engine
+
+
+def _mesh_small(seed):
+    """(b)'s model: Falcon-7B at full width and FAMILY_LAYERS layers, w8a8
+    weights from ``seed + 26`` (the same on every process of the card)."""
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import convert
+
+    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                attention_impl="flash")
+    cfg = dataclasses.replace(cfg, num_layers=FAMILY_LAYERS)
+    return cfg, convert.random_params(cfg, seed=seed + 26, device="cuda",
+                                      dtype="bf16", quant="int8")
+
+
+def _mesh_rank_runs(rank, seed):
+    """One gloo rank of (b): dp2 then tp2 on the card, each rank's causal
+    launches (the heads of each), peak memory, collective bytes and ms."""
+    import torch
+    import torch.distributed as dist
+
+    from llm_interpretation_replication_tpu_torch.parallel import make_mesh
+
+    # the ops package re-exports a function named ``attention``
+    attention = importlib.import_module(
+        "llm_interpretation_replication_tpu_torch.ops.attention")
+    cfg, weights = _mesh_small(seed)
+    tok, prompts = _mesh_inputs(seed)
+    heads, moved = [], [0]
+    kernel = attention.causal_grouped_attention
+
+    def counted(q, *args, **kwargs):
+        heads.append(int(q.shape[2]))
+        return kernel(q, *args, **kwargs)
+
+    # the kernel's wrapper counts its launches on the module's name
+    counted.launches = kernel.launches
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    real = dist.all_reduce, dist.all_gather
+
+    def all_reduce(t, *args, **kwargs):
+        moved[0] += nbytes(t)
+        return real[0](t, *args, **kwargs)
+
+    def all_gather(parts, t, *args, **kwargs):
+        moved[0] += sum(nbytes(p) for p in parts)
+        return real[1](parts, t, *args, **kwargs)
+
+    runs = {}
+    attention.causal_grouped_attention = counted
+    dist.all_reduce, dist.all_gather = all_reduce, all_gather
+    try:
+        for name, shape in (("dp2", dict(data=2)), ("tp2", dict(model=2))):
+            engine = _mesh_engine(cfg, weights, tok, make_mesh(**shape),
+                                  kv_dtype="int8")
+            heads.clear()
+            moved[0] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rows = engine.score_prompts(prompts)
+            torch.cuda.synchronize()
+            runs[name] = dict(
+                ms=(time.perf_counter() - t0) * 1e3, heads=list(heads),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                collective_bytes=moved[0],
+                rows=[[r["scan_found"], r["relative_prob"], r["yes_prob"],
+                       r["no_prob"]] for r in rows])
+            engine.close(release_params=False)
+    finally:
+        attention.causal_grouped_attention = kernel
+        dist.all_reduce, dist.all_gather = real
+    return runs
+
+
+def _mesh_rank(rank, world, workdir, seed):
+    """A spawned process of (b): rank ``rank`` of a gloo group on the one
+    card.  Probes gloo with CUDA tensors, then runs :func:`_mesh_rank_runs`;
+    writes its results under ``workdir``.  An error ends the process with
+    it, and so the phase."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from llm_interpretation_replication_tpu_torch.parallel import (
+        initialize_distributed)
+
+    torch.cuda.set_device(0)
+    os.environ.pop("MASTER_ADDR", None)
+    initialize_distributed(num_processes=world, process_id=rank, device="cpu",
+                           init_method="file://" + os.path.join(
+                               workdir, "mesh_rendezvous"), timeout=120)
+    res = {}
+    try:
+        x = torch.full((4,), float(rank + 1), device="cuda")
+        dist.all_reduce(x)
+        parts = [torch.empty(2, device="cuda") for _ in range(world)]
+        dist.all_gather(parts, torch.full((2,), float(rank), device="cuda"))
+        res["probe"] = dict(all_reduce=x.tolist(),
+                            all_gather=[p.tolist() for p in parts])
+        res["runs"] = _mesh_rank_runs(rank, seed)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def mesh_run_fails(res, ref_rows, num_heads):
+    """(b)'s gates on both ranks' results against the world of one's rows
+    (``[scan_found, relative, yes, no]`` a row); ``num_heads`` the model's
+    query heads (each dp2 rank launches at all of them, the tp2 ranks at
+    their head-boundary shares)."""
+    from llm_interpretation_replication_tpu_torch.parallel.tensor_parallel \
+        import split_sizes
+
+    fails = [f"mesh: rank {rank} has no {key}" for rank, r in enumerate(res)
+             for key in ("probe", "runs") if key not in r]
+    if fails:
+        return fails
+    for p in (r["probe"] for r in res):
+        if p != dict(all_reduce=[3.0] * 4, all_gather=[[0.0, 0.0],
+                                                       [1.0, 1.0]]):
+            fails.append(f"mesh: gloo probe read {p}")
+    want_heads = {"dp2": (num_heads, num_heads),
+                  "tp2": tuple(split_sizes(num_heads, 2))}
+    for name, heads in want_heads.items():
+        for rank, r in enumerate(res):
+            run = r["runs"][name]
+            if set(run["heads"]) != {heads[rank]} or \
+                    len(run["heads"]) != FAMILY_LAYERS:
+                fails.append(f"mesh {name} rank {rank}: causal launches at "
+                             f"heads {run['heads']}")
+            for i, (got, want) in enumerate(zip(run["rows"], ref_rows)):
+                if got[0] != want[0]:
+                    fails.append(f"mesh {name} rank {rank} row {i}: "
+                                 f"scan_found {got[0]} vs {want[0]}")
+                for g, w in zip(got[1:], want[1:]):
+                    if abs(g - w) > MESH_W8A8_RTOL * abs(w) + 1e-9:
+                        fails.append(f"mesh {name} rank {rank} row {i}: "
+                                     f"{g} vs {w}")
+                        break
+            if len(run["rows"]) != len(ref_rows):
+                fails.append(f"mesh {name} rank {rank}: {len(run['rows'])} "
+                             f"rows")
+        if res[0]["runs"][name]["rows"] != res[1]["runs"][name]["rows"]:
+            fails.append(f"mesh {name}: the ranks' rows differ")
+    return fails
+
+
+def mesh_phase(seed, attention, workdir, card):
+    """Phase 26 (after train, on its NCCL world of one, which it ends;
+    budget MESH_BUDGET_S): (a) Falcon-7B at full width and depth through
+    ``bind_mesh(make_mesh())`` and without a mesh, rows equal bit for bit,
+    one causal launch a layer; (b) dp2 and tp2 on two gloo processes of the
+    card against the world of one (see the module docstring)."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from llm_interpretation_replication_tpu_torch.models import config as mconfig
+    from llm_interpretation_replication_tpu_torch.models import convert
+    from llm_interpretation_replication_tpu_torch.parallel import make_mesh
+    from llm_interpretation_replication_tpu_torch.utils import telemetry
+
+    t_phase = time.perf_counter()
+    res, parts = {}, {}
+    try:
+        world_of_one = make_mesh()
+        cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+                                    attention_impl="flash")
+        tok, prompts = _mesh_inputs(seed)
+        weights = convert.random_params(cfg, seed=seed, device="cuda",
+                                        dtype="bf16")
+        bound = telemetry.counter("replica_mesh_bound")
+        meshed = _mesh_engine(cfg, weights, tok, world_of_one)
+        bound = telemetry.counter("replica_mesh_bound") - bound
+        _reset_launches(attention)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = meshed.score_prompts(prompts)
+        torch.cuda.synchronize()
+        mesh_ms = (time.perf_counter() - t0) * 1e3
+        launches = _launches(attention)["causal_grouped_attention"]
+        plain = _mesh_engine(cfg, weights, tok).score_prompts(prompts)
+        equal = sum(a == b for a, b in zip(rows, plain))
+        res["a"] = dict(rows=len(rows), bit_equal_rows=equal,
+                        kernel_launches=launches, layers=cfg.num_layers,
+                        mesh=list(world_of_one.mesh.shape),
+                        backend=dist.get_backend(), ms=mesh_ms,
+                        replica_mesh_bound=bound)
+        meshed.close(release_params=False)
+        del weights, meshed
+        torch.cuda.empty_cache()
+        parts["a"] = time.perf_counter() - t_phase
+    finally:
+        dist.destroy_process_group()
+    fails = [] if bound == 1 else [
+        f"mesh (a): replica_mesh_bound counted {bound} binds of one"]
+    if equal != len(prompts) or launches != cfg.num_layers:
+        fails.append(f"mesh (a): {equal} of {len(prompts)} rows bit-equal, "
+                     f"{launches} causal launches for {cfg.num_layers} "
+                     f"layers")
+
+    # (b): the world of one's rows of (b)'s weights, then two gloo ranks
+    t0 = time.perf_counter()
+    small, qweights = _mesh_small(seed)
+    ref = _mesh_engine(small, qweights, tok, kv_dtype="int8").score_prompts(
+        prompts)
+    ref_rows = [[r["scan_found"], r["relative_prob"], r["yes_prob"],
+                 r["no_prob"]] for r in ref]
+    del qweights
+    torch.cuda.empty_cache()
+    parts["b_reference"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp.start_processes(_mesh_rank, args=(2, workdir, seed), nprocs=2,
+                       start_method="spawn")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(workdir, f"mesh_rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    parts["b_ranks"] = time.perf_counter() - t0
+    res["b"] = dict(
+        probe=[r.get("probe") for r in ranks],
+        runs=[{name: {k: v for k, v in run.items() if k != "rows"}
+               for name, run in r.get("runs", {}).items()} for r in ranks])
+    fails += mesh_run_fails(ranks, ref_rows, small.num_heads)
+    res.update(card=card, seconds=time.perf_counter() - t_phase,
+               budget_s=MESH_BUDGET_S, part_seconds=parts, failures=fails)
+    for key in ("a", "b", "part_seconds"):
+        say(f"mesh {key}", json.dumps(res[key]))
+    if fails:
+        raise AssertionError("mesh: " + "; ".join(fails[:10]))
     return res
 
 
@@ -9696,6 +10016,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
         trres = timed("train", train_phase, args.seed, attention, workdir,
                       card)
+        # the scoring engine on a mesh, on the train phase's world of one
+        mres = timed("mesh", mesh_phase, args.seed, attention, workdir, card)
+        say(f"phase mesh: {seconds['mesh']:.1f} s of its {MESH_BUDGET_S:.0f} "
+            f"s budget")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -9704,7 +10028,8 @@ def main(argv=None):
     causal = causal_launches(sres, pres, fres, ires, wres, pkres, kres, ores,
                              tres, cres, fam, inst, svres, svcli, apres) \
         + causal_launches(oth) + plres["searched_run"]["kernel_launches"] \
-        + trres["pipelined"]["kernel_launches"]
+        + trres["pipelined"]["kernel_launches"] \
+        + mres["a"]["kernel_launches"]
     forced = [*oth["forced_routes"].values()]
     launches = {"causal_grouped_attention": causal,
                 "grouped_attention": sum(f["grouped"]["launches"] for f in
@@ -9729,6 +10054,7 @@ def main(argv=None):
                        packed=pkres, k_decode=kres, obs=ores, obs_cli=ocres,
                        tokenizers=tres, serve=svres, serve_cli=svcli,
                        api=apres, stats=stres, plan=plres, train=trres,
+                       mesh=mres,
                        int8=ires, cli=cres, families=fam,
                        other_families=oth, run_100q=qres,
                        instruct=inst,

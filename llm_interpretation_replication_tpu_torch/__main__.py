@@ -93,6 +93,8 @@ import json
 import os
 import sys
 
+from .utils.checkpoint import writing_rank
+
 _ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
 
 
@@ -171,20 +173,9 @@ def _add_run_config_args(p: argparse.ArgumentParser):
     p.add_argument("--output-dir", default="results")
 
 
-def _refuse_unported(args) -> None:
-    """Raise for each flag whose path the port does not cover yet."""
-    for flag, on, item in (
-        ("--mesh-model > 1", args.mesh_model > 1, _ITEM_PAR),
-        ("--mesh-seq > 1", args.mesh_seq > 1, _ITEM_PAR),
-    ):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet ({item})")
-
-
 def _run_config(args):
     from .config import RunConfig
 
-    _refuse_unported(args)
     return RunConfig(
         device=args.device, dtype=args.dtype, quant=args.quant,
         kv_dtype=args.kv_dtype, prefill_chunk=args.prefill_chunk,
@@ -194,9 +185,40 @@ def _run_config(args):
         plan_search=args.plan_search,
         hbm_bytes=(None if args.hbm_gib is None
                    else int(args.hbm_gib * 2**30)),
-        attention_impl=args.attention_impl, batch_size=args.batch_size,
+        attention_impl=args.attention_impl, mesh_model=args.mesh_model,
+        mesh_seq=args.mesh_seq, batch_size=args.batch_size,
         checkpoint_dir=args.checkpoint_dir, output_dir=args.output_dir,
     )
+
+
+def _world(rc) -> int:
+    """Ranks of the world this process is one of: the process group
+    ``torchrun`` launches (``parallel.initialize_distributed`` reads its
+    variables; NCCL on ``--device cuda``, gloo on ``cpu``), or 1."""
+    import torch.distributed as dist
+
+    from .parallel import initialize_distributed
+
+    initialize_distributed(device=rc.device)
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _run_mesh(rc):
+    """The mesh ``--mesh-model``/``--mesh-seq`` ask for, built exactly when
+    the reference's CLI builds one (either above 1), over the world's ranks
+    with ``mesh_data`` taking the ranks left; None otherwise.  A world the
+    mesh does not fit raises."""
+    world = _world(rc)
+    if rc.mesh_model <= 1 and rc.mesh_seq <= 1:
+        return None
+    need = rc.mesh_model * rc.mesh_seq
+    if world % need:
+        raise ValueError(
+            f"--mesh-model {rc.mesh_model} --mesh-seq {rc.mesh_seq} needs a "
+            f"world of a multiple of {need} ranks; it has {world} (launch "
+            f"one process a rank: torchrun --nproc-per-node N -m "
+            f"llm_interpretation_replication_tpu_torch ...)")
+    return rc.make_mesh()
 
 
 def _engine_factory(run_config):
@@ -206,18 +228,23 @@ def _engine_factory(run_config):
     position bias) runs dense, as the reference's loader runs it; each
     model's impl is named on stderr (``# <model>: attention <impl>
     (<why>)``) before it loads.  With ``--decode-k`` > 1 the engine takes
-    the snapshot's persisted K-head when one matches."""
+    the snapshot's persisted K-head when one matches.  On a mesh
+    (``--mesh-model``/``--mesh-seq``, or one the plan search chose) every
+    rank loads its blocks of the weights and binds the engine to it."""
     from .models.config import from_hf_config
     from .runtime.engine import EngineConfig, ScoringEngine
     from .runtime.loader import (K_HEAD_FILENAME, attach_k_head,
                                  load_hf_config, load_model, load_tokenizer)
 
+    mesh = _run_mesh(run_config)
+
     def factory(model_name: str) -> ScoringEngine:
-        rc = run_config
+        rc, factory_mesh = run_config, mesh
         path = rc.snapshot_path(model_name)
         plan_note = None
         if rc.plan_search:
-            rc, plan_note = _searched_run_config(rc, path)
+            rc, factory_mesh, plan_note = _searched_run_config(rc, path,
+                                                              mesh)
         impl, why = rc.attention_impl, f"--attention-impl {rc.attention_impl}"
         if impl == "flash":
             refusal = from_hf_config(load_hf_config(path))[1].flash_refusal()
@@ -227,9 +254,10 @@ def _engine_factory(run_config):
               flush=True)
         family, cfg, params = load_model(
             path, dtype=rc.dtype, quant=rc.quant, attention_impl=impl,
-            device=rc.device)
+            device=rc.device, mesh=factory_mesh)
         engine = ScoringEngine(
             family, cfg, params, load_tokenizer(path), device=rc.device,
+            mesh=factory_mesh,
             engine_config=EngineConfig(
                 batch_size=rc.batch_size,
                 kv_dtype=rc.kv_dtype,
@@ -250,63 +278,62 @@ def _engine_factory(run_config):
     return factory
 
 
-def _plan_devices(rc) -> int:
-    """Devices the plan search enumerates meshes over: the visible cards,
-    or the one CPU."""
-    if rc.device != "cuda":
-        return 1
-    import torch
-
-    return torch.cuda.device_count()
-
-
-def _searched_run_config(rc, path):
+def _searched_run_config(rc, path, mesh):
     """Apply the plan search to one model's engine construction: read the
     snapshot's geometry (``config.json`` only, no weights), search mesh x
     batch x kv-dtype x prefill-chunk x pool target x decode-k over the
     visible devices at the device's memory (``rc.hbm_bytes``, else the
     card's: without either it raises), on the route ``--attention-impl``
     takes, and rewrite the RunConfig fields to the chosen plan.  Returns
-    (run_config, decision note).  T5 geometries, which the budget model
-    cannot price, keep the flags with a note on stderr; so does a search
-    where nothing fits.  A chosen mesh beyond one device raises: no mesh
-    is ported yet."""
+    (run_config, mesh, decision note): the meshes searched are those of
+    the world's ranks (one process a rank), and a chosen mesh of more than
+    one rank is built over them.  T5 geometries, which the budget model
+    cannot price, keep the flags and ``mesh`` with a note on stderr; so
+    does a search where nothing fits."""
     import dataclasses
 
     from .models.config import DecoderConfig, from_hf_config
     from .runtime.loader import load_hf_config
+    from .parallel import make_mesh
     from .runtime.plan_search import (chosen_plan, format_candidate_table,
-                                      require_single_device, search_plans)
+                                      require_ranks, search_plans)
 
     _family, dcfg = from_hf_config(load_hf_config(path))
     if not isinstance(dcfg, DecoderConfig):
         print(f"# plan search skipped for {path}: the budget model prices "
               f"decoder geometries only; running the configured flags",
               file=sys.stderr)
-        return rc, None
+        return rc, mesh, None
     impl = "flash" if rc.attention_impl == "flash" else "xla"
-    ranked = search_plans(dcfg, rc.quant, _plan_devices(rc), workload="full",
+    world = _world(rc)
+    # the engine does not run the joint K-token decode on a mesh of more
+    # than one rank yet: a world of ranks searches decode-k 1 only
+    extra = {} if world == 1 else {"decode_ks": (1,)}
+    ranked = search_plans(dcfg, rc.quant, world, workload="full", **extra,
                           hbm_bytes=rc.hbm_bytes, attention_impl=impl,
                           slot_repack=rc.slot_repack)
     best = chosen_plan(ranked)
     if best is None:
         print("# plan search: no candidate fits; running the configured "
               "flags", file=sys.stderr)
-        return rc, None
+        return rc, mesh, None
     print(format_candidate_table(ranked, top=4), file=sys.stderr)
-    require_single_device(best)
+    require_ranks(best, world)
     rc = dataclasses.replace(
         rc, batch_size=best.batch, kv_dtype=best.kv_dtype,
         prefill_chunk=best.prefill_chunk,
         # unconditional: pool_target 0 is the chosen plan's pool-at-batch
         # configuration, not "keep the flag"
-        phase2_pool_target=best.pool_target, decode_k=best.decode_k)
+        phase2_pool_target=best.pool_target, decode_k=best.decode_k,
+        mesh_model=best.model)
+    if best.data * best.model > 1:
+        mesh = make_mesh(data=best.data, model=best.model)
     note = (f"plan search chose mesh dp{best.data}xtp{best.model} batch "
             f"{best.batch} kv {best.kv_dtype} chunk {best.prefill_chunk}"
             + (f" decode-k {best.decode_k}" if best.decode_k > 1 else "")
             + f" ({best.reason})")
     print(f"# {note}", file=sys.stderr)
-    return rc, note
+    return rc, mesh, note
 
 
 def cmd_run_100q(args):
@@ -318,7 +345,8 @@ def cmd_run_100q(args):
         checkpoint_path=os.path.join(rc.output_dir, "base_vs_instruct_100q_checkpoint.json"),
         results_csv=os.path.join(rc.output_dir, "base_vs_instruct_100q_results.csv"),
     )
-    print(f"{len(rows)} rows")
+    if writing_rank():
+        print(f"{len(rows)} rows")
 
 
 def cmd_run_instruct_sweep(args):
@@ -350,7 +378,8 @@ def cmd_run_instruct_sweep(args):
         checkpoint_path=checkpoint,
         results_csv=results_csv,
     )
-    print(f"{len(rows)} rows over {len(prompts)} questions")
+    if writing_rank():
+        print(f"{len(rows)} rows over {len(prompts)} questions")
 
 
 def _distill_k_head(engine, rc, model, scenarios):
@@ -400,9 +429,10 @@ def cmd_run_perturbation(args):
             score_chunk=args.score_chunk,
         )
         engine.close()
-        print(f"{len(rows)} rows (packed Q={args.packed})")
-        if drift is not None:
-            print(json.dumps({"packed_drift": drift}))
+        if writing_rank():
+            print(f"{len(rows)} rows (packed Q={args.packed})")
+            if drift is not None:
+                print(json.dumps({"packed_drift": drift}))
         return
     rows = run_model_perturbation_sweep(
         engine, args.model, scenarios,
@@ -412,7 +442,8 @@ def cmd_run_perturbation(args):
         confidence_max_new_tokens=args.confidence_max_new_tokens,
     )
     engine.close()
-    print(f"{len(rows)} rows")
+    if writing_rank():
+        print(f"{len(rows)} rows")
 
 
 def cmd_serve(args):
@@ -429,6 +460,11 @@ def cmd_serve(args):
     from .serve.cli import main as serve_main
 
     rc = _run_config(args)
+    if rc.mesh_model > 1 or rc.mesh_seq > 1:
+        raise NotImplementedError(
+            f"serve on a mesh of more than one rank is not ported yet: a "
+            f"scheduler driven by the clock cannot take the same decision "
+            f"on every rank ({_ITEM_PAR})")
     engine = _engine_factory(rc)(args.model)
     raise SystemExit(serve_main(engine, args))
 

@@ -108,9 +108,9 @@ def irrelevant_eval_models() -> dict:
 class RunConfig:
     """One typed config for the local-model sweep (the reference's
     ``RunConfig`` with ``device`` ``"cuda"`` or ``"cpu"``, and the device
-    memory the plan search budgets).  Its mesh fields build a mesh
-    (:meth:`make_mesh`); the scoring engine refuses one of more than one
-    rank."""
+    memory the plan search budgets).  Its mesh fields build a mesh over
+    the world's ranks (:meth:`make_mesh`), which the scoring engine binds
+    (``--mesh-model``, ``--mesh-seq``)."""
 
     device: str = "cuda"                 # 'cuda' | 'cpu'
     dtype: str = "bfloat16"              # weights/compute dtype on the device

@@ -270,6 +270,14 @@ def _quantize_append(cfg: DecoderConfig, k, v):
     return kq, vq, ks, vs
 
 
+def _tp_bias(bias, tp):
+    """An additive bias with a head axis (ALiBi) cut to the rank's query
+    heads under ``tp``; a head-free bias as it is."""
+    if tp is not None and bias is not None and bias.shape[1] > 1:
+        return tp.local_heads(bias)
+    return bias
+
+
 def _rotary_dim(cfg: DecoderConfig) -> int:
     return int(cfg.rotary_pct * cfg.head_dim) // 2 * 2
 
@@ -301,13 +309,25 @@ def _qkv(cfg: DecoderConfig, ap, x, sin_cos, tp=None):
     return q, k, v
 
 
+def _row_parallel(p, key, x, tp=None):
+    """``quant.linear`` of a row-parallel product (attention's output, the
+    MLP's down projection): with ``tp``, ``x`` holds the rank's input
+    columns and the result is reduced over the model axis.  On the w8a8
+    path the activations quantize against the whole row's absmax and the
+    int32 accumulators are summed (``quant.int8_matmul(group=)``)."""
+    if tp is None:
+        return quant.linear(p, key, x)
+    qs = p.get(key + quant.QSCALE_SUFFIX)
+    if qs is not None:
+        return quant.int8_matmul(x, p[key], qs, group=tp.group)
+    return tensor_parallel.reduce_from_model(quant.linear(p, key, x), tp)
+
+
 def _out_proj(ap, out, tp=None):
     """The output projection; with ``tp`` a row-parallel product over the
     rank's heads, reduced over the model axis before its bias."""
     b, s = out.shape[:2]
-    out = quant.linear(ap, "wo", out.reshape(b, s, -1))
-    if tp is not None:
-        out = tensor_parallel.reduce_from_model(out, tp)
+    out = _row_parallel(ap, "wo", out.reshape(b, s, -1), tp)
     if "bo" in ap:
         out = out + ap["bo"]
     return out
@@ -358,9 +378,7 @@ def _mlp(cfg: DecoderConfig, lp, x, tp=None):
         if "bi" in mp:
             hidden = hidden + mp["bi"]
         hidden = activation(cfg.activation, hidden)
-    out = quant.linear(mp, "wo", hidden)
-    if tp is not None:
-        out = tensor_parallel.reduce_from_model(out, tp)
+    out = _row_parallel(mp, "wo", hidden, tp)
     if "bo" in mp:
         out = out + mp["bo"]
     return out
@@ -474,9 +492,9 @@ def run_layers(cfg: DecoderConfig, layers, x, positions, attention_mask,
         sin_cos = rotary_embedding(positions, _rotary_dim(cfg), cfg.rope_theta,
                                    x.dtype)
     use_flash = cfg.use_flash_attention(x.shape[1])
-    bias = None if use_flash else make_attention_bias(cfg, positions, positions, mask)
-    if tp is not None and bias is not None and bias.shape[1] > 1:
-        bias = tp.local_heads(bias)                 # ALiBi: the rank's heads
+    bias = _tp_bias(None if use_flash
+                    else make_attention_bias(cfg, positions, positions, mask),
+                    tp)
     flash_lengths = (attention_mask.sum(-1).to(torch.int32).contiguous()
                      if use_flash else None)
     for lp in _unstack(layers):
@@ -486,14 +504,12 @@ def run_layers(cfg: DecoderConfig, layers, x, positions, attention_mask,
 
 def _trunk(params, cfg: DecoderConfig, token_ids, attention_mask,
            cache_len: Optional[int] = None, tp=None):
-    """Embed + blocks.  Returns (hidden [B,S,H], cache | None).  ``tp``
-    (tensor parallelism) runs without a cache only."""
+    """Embed + blocks.  Returns (hidden [B,S,H], cache | None).  Under
+    ``tp`` the cache holds the K/V heads the rank's query heads read
+    (``TensorParallel.local_kv``: all of them when the model axis does not
+    divide the K/V heads)."""
     b, s = token_ids.shape
     positions = _positions(attention_mask)
-    if tp is not None and cache_len is not None:
-        raise NotImplementedError("a KV cache under tensor parallelism is not "
-                                  "ported (ROADMAP.md queue 1, 'Parallel and "
-                                  "training')")
     x = _embed(cfg, params, token_ids, positions, tp)
     if cache_len is None:
         return (run_layers(cfg, params["layers"], x, positions,
@@ -511,14 +527,14 @@ def _trunk(params, cfg: DecoderConfig, token_ids, attention_mask,
     use_flash = cfg.use_flash_attention(s)
     flash_lengths = (attention_mask.sum(-1).to(torch.int32).contiguous()
                      if use_flash else None)
-    bias = (None if use_flash
-            else make_attention_bias(cfg, positions, kv_positions, kv_valid))
+    bias = _tp_bias(None if use_flash else make_attention_bias(
+        cfg, positions, kv_positions, kv_valid), tp)
     # per layer (k, v, k_scale, v_scale): quantized on append, after the
     # layer's attention read its exact K/V
     per_layer = []
     for i in range(cfg.num_layers):
         x, (ck, cv) = _block(cfg, _layer(params["layers"], i), x, sin_cos,
-                             bias, t, flash_lengths)
+                             bias, t, flash_lengths, tp)
         per_layer.append(_quantize_append(cfg, ck, cv))
     ks, vs, kss, vss = zip(*per_layer)
     quantized = cfg.kv_cache_dtype == "int8"
@@ -546,16 +562,18 @@ def forward(params, cfg: DecoderConfig, token_ids, attention_mask):
 
 
 @torch.no_grad()
-def forward_last_logits(params, cfg: DecoderConfig, token_ids, attention_mask):
+def forward_last_logits(params, cfg: DecoderConfig, token_ids, attention_mask,
+                        tp=None):
     """fp32 logits at each row's last real position only -- [B, V]."""
     params = _tree(params)
-    x, _ = _trunk(params, cfg, token_ids, attention_mask, None)
-    return _unembed(cfg, params, _last_hidden(x, attention_mask))[:, 0, :]
+    x, _ = _trunk(params, cfg, token_ids, attention_mask, None, tp)
+    return _unembed(cfg, params, _last_hidden(x, attention_mask),
+                    tp)[:, 0, :]
 
 
 @torch.no_grad()
 def forward_anchor_logits(params, cfg: DecoderConfig, token_ids,
-                          attention_mask, anchors):
+                          attention_mask, anchors, tp=None):
     """fp32 logits at K anchor positions a row -- [B, K, V].
 
     The packed-scoring op (``scoring.packed``): a packed row carries K
@@ -564,45 +582,48 @@ def forward_anchor_logits(params, cfg: DecoderConfig, token_ids,
     (``anchors`` [B, K] token indices within each row's real length) before
     the unembedding, so the logits never span the whole sequence."""
     params = _tree(params)
-    x, _ = _trunk(params, cfg, token_ids, attention_mask, None)
+    x, _ = _trunk(params, cfg, token_ids, attention_mask, None, tp)
     rows = torch.arange(x.shape[0], device=x.device)[:, None]
-    return _unembed(cfg, params, x[rows, anchors.long()])
+    return _unembed(cfg, params, x[rows, anchors.long()], tp)
 
 
 @torch.no_grad()
-def prefill(params, cfg: DecoderConfig, token_ids, attention_mask, cache_len: int):
+def prefill(params, cfg: DecoderConfig, token_ids, attention_mask, cache_len: int,
+            tp=None):
     """One prompt forward returning (last_logits [B, V] fp32 at each row's
-    last real token, KVCache padded to ``cache_len`` slots)."""
+    last real token, KVCache padded to ``cache_len`` slots).  With ``tp``
+    (``parallel.tensor_parallel``) the rank's heads, its share of the
+    cache, and the logits gathered over the model axis."""
     params = _tree(params)
-    x, cache = _trunk(params, cfg, token_ids, attention_mask, cache_len)
-    last = _unembed(cfg, params, _last_hidden(x, attention_mask))[:, 0, :]
+    x, cache = _trunk(params, cfg, token_ids, attention_mask, cache_len, tp)
+    last = _unembed(cfg, params, _last_hidden(x, attention_mask), tp)[:, 0, :]
     return last, cache
 
 
 def _attn_extend(cfg: DecoderConfig, lp, x, sin_cos, bias, kp_l, vp_l,
-                 ks_l=None, vs_l=None):
+                 ks_l=None, vs_l=None, tp=None):
     """Attention sub-block of a suffix-extension prefill: the suffix's
     queries over the read-only prefix cache slice of this layer plus the
     suffix's own K/V, one joint softmax (``cache_extend_attention``, which
     dequantizes an int8 prefix block with ``ks_l``/``vs_l``).  Returns the
     suffix's K/V for the caller to append to the cache."""
-    q, k, v = _qkv(cfg, lp["attn"], x, sin_cos)
+    q, k, v = _qkv(cfg, lp["attn"], x, sin_cos, tp)
     out = cache_extend_attention(q, kp_l, vp_l, k, v, bias,
                                  kp_scale=ks_l, vp_scale=vs_l)
-    return _out_proj(lp["attn"], out), (k, v)
+    return _out_proj(lp["attn"], out, tp), (k, v)
 
 
 def _block_extend(cfg: DecoderConfig, lp, x, sin_cos, bias, kp_l, vp_l,
-                  ks_l=None, vs_l=None):
+                  ks_l=None, vs_l=None, tp=None):
     ln1_out = _norm(cfg, x, lp["ln1"])
     attn_out, new_kv = _attn_extend(cfg, lp, ln1_out, sin_cos, bias, kp_l,
-                                    vp_l, ks_l, vs_l)
-    return _residual(cfg, lp, x, ln1_out, attn_out), new_kv
+                                    vp_l, ks_l, vs_l, tp)
+    return _residual(cfg, lp, x, ln1_out, attn_out, tp), new_kv
 
 
 @torch.no_grad()
 def extend_prefill(params, cfg: DecoderConfig, cache: KVCache, token_ids,
-                   attention_mask, prefix_lengths):
+                   attention_mask, prefix_lengths, tp=None):
     """Suffix-extension prefill: the trunk over ``token_ids`` ([B, S]
     right-padded suffix tokens) attending over a prefilled prefix
     :class:`KVCache`, so each leg of a fused call extends one shared prefix
@@ -618,7 +639,7 @@ def extend_prefill(params, cfg: DecoderConfig, cache: KVCache, token_ids,
 
     Returns (last_logits [B, V] fp32 at each row's last real suffix token,
     the extended KVCache, total lengths [B] = prefix + suffix real
-    tokens)."""
+    tokens).  With ``tp`` the cache is the rank's share (:func:`prefill`'s)."""
     params = _tree(params)
     quantized = cache.k_scale is not None
     if quantized != (cfg.kv_cache_dtype == "int8"):
@@ -628,24 +649,25 @@ def extend_prefill(params, cfg: DecoderConfig, cache: KVCache, token_ids,
     s = token_ids.shape[1]
     mask = attention_mask.bool()
     positions = prefix_lengths[:, None] + _positions(attention_mask)  # [B, S]
-    x = _embed(cfg, params, token_ids, positions)
+    x = _embed(cfg, params, token_ids, positions, tp)
     sin_cos = None
     if cfg.position_embedding == "rotary":
         sin_cos = rotary_embedding(positions, _rotary_dim(cfg), cfg.rope_theta,
                                    params["embed"]["tokens"].dtype)
     kv_positions = torch.cat([cache.positions, positions], dim=1)
     kv_valid = torch.cat([cache.valid, mask], dim=1)
-    bias = make_attention_bias(cfg, positions, kv_positions, kv_valid)
+    bias = _tp_bias(make_attention_bias(cfg, positions, kv_positions,
+                                        kv_valid), tp)
     per_layer = []
     for i in range(cfg.num_layers):
         x, (k_s, v_s) = _block_extend(
             cfg, _layer(params["layers"], i), x, sin_cos, bias,
             cache.k[i], cache.v[i],
             cache.k_scale[i] if quantized else None,
-            cache.v_scale[i] if quantized else None)
+            cache.v_scale[i] if quantized else None, tp)
         per_layer.append(_quantize_append(cfg, k_s, v_s))
     ks, vs, kss, vss = zip(*per_layer)
-    last = _unembed(cfg, params, _last_hidden(x, attention_mask))[:, 0, :]
+    last = _unembed(cfg, params, _last_hidden(x, attention_mask), tp)[:, 0, :]
     new_cache = KVCache(
         k=torch.cat([cache.k, torch.stack(ks).to(cache.k.dtype)], dim=2),
         v=torch.cat([cache.v, torch.stack(vs).to(cache.v.dtype)], dim=2),
@@ -660,7 +682,7 @@ def extend_prefill(params, cfg: DecoderConfig, cache: KVCache, token_ids,
 
 @torch.no_grad()
 def chunked_prefill(params, cfg: DecoderConfig, token_ids, attention_mask,
-                    chunk: int):
+                    chunk: int, tp=None):
     """Prompt forward in chunks of ``chunk`` tokens: chunk 0 runs the
     ordinary :func:`prefill` (the causal kernel when the flash path is on),
     and every later chunk replays through :func:`extend_prefill` against the
@@ -675,7 +697,7 @@ def chunked_prefill(params, cfg: DecoderConfig, token_ids, attention_mask,
     s = token_ids.shape[1]
     c0 = min(int(chunk), s)
     last, cache = prefill(params, cfg, token_ids[:, :c0],
-                          attention_mask[:, :c0], cache_len=c0)
+                          attention_mask[:, :c0], cache_len=c0, tp=tp)
     lengths = attention_mask[:, :c0].sum(-1)
     offset, n_chunks = c0, 1
     while offset < s:
@@ -683,7 +705,7 @@ def chunked_prefill(params, cfg: DecoderConfig, token_ids, attention_mask,
         sub_mask = attention_mask[:, offset:offset + c]
         nlast, cache, lengths = extend_prefill(
             params, cfg, cache, token_ids[:, offset:offset + c], sub_mask,
-            lengths)
+            lengths, tp)
         # a row right-padded out before this chunk keeps the logits of the
         # chunk that holds its last token
         has = sub_mask.sum(-1) > 0
@@ -717,19 +739,19 @@ def _reduce_step_scores(logits, target_ids):
 
 
 def _block_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l,
-                  i, ks_l=None, vs_l=None):
+                  i, ks_l=None, vs_l=None, tp=None):
     """_block for one decode step, or for a K-token verify pass: the S
     tokens' K/V go into slots ``i .. i+S`` of the layer's tail (in place);
-    the prompt cache slice is read-only."""
+    the prompt cache slice is read-only.  With ``tp`` the rank's heads."""
     ln1_out = _norm(cfg, x, lp["ln1"])
     attn_out = _attn_decode(cfg, lp, ln1_out, sin_cos, bias_p, bias_t, kp_l,
-                            vp_l, tk_l, tv_l, i, ks_l, vs_l)
-    return _residual(cfg, lp, x, ln1_out, attn_out)
+                            vp_l, tk_l, tv_l, i, ks_l, vs_l, tp)
+    return _residual(cfg, lp, x, ln1_out, attn_out, tp)
 
 
 def _attn_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l,
-                 i, ks_l=None, vs_l=None):
-    q, k, v = _qkv(cfg, lp["attn"], x, sin_cos)
+                 i, ks_l=None, vs_l=None, tp=None):
+    q, k, v = _qkv(cfg, lp["attn"], x, sin_cos, tp)
     # in-place write of slots i..i+S of the small tail (the reference's
     # dynamic-update-slice); the tail is the chunk's own buffer
     tk_l[:, i:i + k.shape[1]] = k.to(tk_l.dtype)
@@ -737,7 +759,7 @@ def _attn_decode(cfg, lp, x, sin_cos, bias_p, bias_t, kp_l, vp_l, tk_l, tv_l,
     out = grouped_attention_two_block(
         q, _deq(kp_l, ks_l, x.dtype), _deq(vp_l, vs_l, x.dtype), bias_p,
         tk_l.to(x.dtype), tv_l.to(x.dtype), bias_t)
-    return _out_proj(lp["attn"], out)
+    return _out_proj(lp["attn"], out, tp)
 
 
 def _fold_tail(cache: KVCache, tail_k, tail_v, tail_positions) -> KVCache:
@@ -766,8 +788,10 @@ def _fold_tail(cache: KVCache, tail_k, tail_v, tail_positions) -> KVCache:
 def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
                  lengths, offset: int, num_steps: int,
                  eos_token_id: Optional[int] = None, done=None,
-                 with_scores=True, target_ids=None):
-    """Continue a batched greedy decode from an existing KV cache.
+                 with_scores=True, target_ids=None, tp=None):
+    """Continue a batched greedy decode from an existing KV cache (with
+    ``tp``, the rank's share of it and of the heads; the logits, and so the
+    tokens and scores, are gathered over the model axis).
 
     ``prev_logits`` [B, V] fp32 predict the next token; ``lengths`` [B] are
     the prompt lengths and ``offset`` the tokens generated before this call.
@@ -795,7 +819,8 @@ def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
     if with_scores == "reduced" and target_ids is None:
         raise ValueError("with_scores='reduced' needs target_ids [B, 2]")
     cdt = params["embed"]["tokens"].dtype if quantized else cache.k.dtype
-    tail_shape = (cfg.num_layers, b, n, cfg.num_kv_heads, cfg.head_dim)
+    # the cache's own K/V heads: the rank's share under tp
+    tail_shape = (cfg.num_layers, b, n, cache.k.shape[3], cfg.head_dim)
     tail_k = torch.zeros(tail_shape, dtype=cdt, device=dev)
     tail_v = torch.zeros(tail_shape, dtype=cdt, device=dev)
     # tail slot j holds the step-j token, at position lengths + offset + j
@@ -808,21 +833,23 @@ def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
         if eos_token_id is not None:
             next_tok = torch.where(done, eos_token_id, next_tok)
         q_pos = (lengths + offset + i)[:, None]                         # [B,1]
-        bias_p = make_attention_bias(cfg, q_pos, cache.positions, cache.valid)
+        bias_p = _tp_bias(make_attention_bias(cfg, q_pos, cache.positions,
+                                              cache.valid), tp)
         tail_valid = (steps <= i)[None, :].expand(b, n)
-        bias_t = make_attention_bias(cfg, q_pos, tail_positions, tail_valid)
+        bias_t = _tp_bias(make_attention_bias(cfg, q_pos, tail_positions,
+                                              tail_valid), tp)
         sin_cos = None
         if cfg.position_embedding == "rotary":
             sin_cos = rotary_embedding(q_pos, _rotary_dim(cfg), cfg.rope_theta,
                                        cdt)
-        x = _embed(cfg, params, next_tok[:, None], q_pos)
+        x = _embed(cfg, params, next_tok[:, None], q_pos, tp)
         for li in range(cfg.num_layers):
             x = _block_decode(
                 cfg, _layer(layers, li), x, sin_cos, bias_p, bias_t,
                 cache.k[li], cache.v[li], tail_k[li], tail_v[li], i,
                 cache.k_scale[li] if quantized else None,
-                cache.v_scale[li] if quantized else None)
-        step_logits = _unembed(cfg, params, x)[:, 0, :]
+                cache.v_scale[li] if quantized else None, tp)
+        step_logits = _unembed(cfg, params, x, tp)[:, 0, :]
         if eos_token_id is not None:
             done = done | (next_tok == eos_token_id)
         if with_scores == "reduced":

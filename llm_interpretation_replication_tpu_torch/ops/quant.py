@@ -45,10 +45,25 @@ def quantize_weight(w: torch.Tensor, *, contract_axis: int = -2):
     return q, scale.squeeze(contract_axis)
 
 
-def quantize_activations(x: torch.Tensor):
+def quantize_activations(x: torch.Tensor, group=None):
     """Symmetric per-token dynamic int8: scale over the last (feature) axis,
-    kept as ``[..., 1]``."""
-    return _symmetric_int8(x.float(), -1)
+    kept as ``[..., 1]``.
+
+    ``group``: ``x`` is one rank's slice of the feature axis (the input of
+    a row-parallel product under tensor parallelism).  The per-token
+    absmax is all-reduced (MAX) over the group before the codes are made,
+    so they are the codes of the whole axis, as GSPMD's max over the
+    sharded axis gives them; a rank's local absmax would give others."""
+    if group is None:
+        return _symmetric_int8(x.float(), -1)
+    import torch.distributed as dist
+
+    x32 = x.float()
+    absmax = x32.abs().amax(dim=-1, keepdim=True).contiguous()
+    dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(absmax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def quantize_kv(x: torch.Tensor):
@@ -96,12 +111,26 @@ def int8_accumulate(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, n)
 
 
-def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor):
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                group=None):
     """``x @ dequant(w_q)`` on the int8 path.  x: ``[..., K]`` float; w_q:
     ``[K, N]`` int8; w_scale: ``[N]`` float32.  Returns ``[..., N]`` in
-    ``x.dtype``."""
-    x_q, x_scale = quantize_activations(x)
+    ``x.dtype``.
+
+    ``group``: a row-parallel product, ``x`` and ``w_q`` the rank's run of
+    K.  The activation codes take the whole row's absmax
+    (:func:`quantize_activations`) and the int32 accumulators are summed
+    over the group before the one rescale, as XLA sums the sharded
+    contraction's partial products: the result is the whole product's, on
+    every rank."""
+    x_q, x_scale = (quantize_activations(x) if group is None
+                    else quantize_activations(x, group))
     y = int8_accumulate(x_q, w_q)
+    if group is not None:
+        import torch.distributed as dist
+
+        y = y.contiguous()
+        dist.all_reduce(y, group=group)
     return (y.float() * x_scale * w_scale).to(x.dtype)
 
 

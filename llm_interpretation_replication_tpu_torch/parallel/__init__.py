@@ -2,8 +2,8 @@
 (``mesh``), tensor-parallel sharding (``sharding``) and its Megatron
 collectives (``tensor_parallel``), the GPipe pipeline (``pipeline``), and
 ring and Ulysses sequence-parallel attention.  The package exports the
-reference's names; the scoring engine on a mesh of more than one rank is
-not ported yet (ROADMAP.md queue 1, 'Parallel and training')."""
+reference's names; the scoring engine runs on a mesh through
+``runtime/row_parallel.py``."""
 
 from .mesh import (
     DATA_AXIS,

@@ -12,7 +12,11 @@ from one to the other.
 
 ``enumerate_mesh_shapes`` and ``mesh_shape_for`` are the shape arithmetic
 the plan search reads; ``axis_size``, ``axis_rank`` and ``axis_group`` read
-one axis of a mesh (a missing mesh is one rank on every axis).
+one axis of a mesh (a missing mesh is one rank on every axis).  The scoring
+engine's placements are ``data_rows`` (a rank's rows of a batch) with
+``gather_rows`` back, and ``agree`` (every rank's MAX of a host flag).  The
+reference's replicated placement needs no function: one process a rank,
+every rank holds a replicated tensor whole.
 """
 
 from __future__ import annotations
@@ -202,6 +206,87 @@ def replicated(mesh) -> Placement:
 def data_sharded(mesh, rank: int = 2) -> Placement:
     """Batch-leading arrays sharded over the data axis."""
     return Placement(mesh, (DATA_AXIS,) + (None,) * (rank - 1))
+
+
+def data_rows(x, mesh, dim: int = 0):
+    """This rank's share of a batch's rows along ``data`` (the port's
+    counterpart of the reference engine's ``_put``, ``P(DATA_AXIS, ...)``):
+    the rank's contiguous block of ``x`` along ``dim``, ``ceil(rows / n)``
+    rows.  The rule the port keeps is not ``jax.device_put``'s, which
+    raises on rows the data axis does not divide: the engine's pooled
+    flushes, rings and look-ahead subsets have such row counts, so a short
+    block is filled out with copies of row 0, which :func:`gather_rows`
+    with ``rows=`` drops again.  ``x`` itself with one data rank."""
+    n = axis_size(mesh, DATA_AXIS)
+    if n == 1:
+        return x
+    rows = x.shape[dim]
+    per = -(-rows // n)
+    lo = min(axis_rank(mesh, DATA_AXIS) * per, rows)
+    real = min(per, rows - lo)
+    block = x.narrow(dim, lo, real)
+    if real == per:
+        return block
+    import torch
+
+    fill = list(x.shape)
+    fill[dim] = per - real
+    return torch.cat([block, x.narrow(dim, 0, 1).expand(fill)], dim)
+
+
+def gather_rows(xs, mesh, dims, rows: Optional[int] = None):
+    """Each tensor of ``xs`` whole from every data rank's block (the
+    inverse of :func:`data_rows`) along its axis in ``dims``, on every
+    rank; ``rows`` drops the blocks' padding.  An axis of ``None`` stacks
+    the ranks' tensors on a new leading axis instead.  One ``all_gather``
+    moves the bytes of all of them: every rank's blocks have the same
+    shapes."""
+    n = axis_size(mesh, DATA_AXIS)
+    if n == 1:
+        return [x if d is not None else x[None] for x, d in zip(xs, dims)]
+    import torch
+    import torch.distributed as dist
+
+    parts, spans, at = [], [], 0
+    for x in xs:
+        raw = x.contiguous().reshape(-1).view(torch.uint8)
+        pad = -raw.numel() % 16            # each span 16-byte aligned
+        parts += [raw, raw.new_zeros(pad)] if pad else [raw]
+        spans.append((at, raw.numel()))
+        at += raw.numel() + pad
+    flat = torch.cat(parts)
+    got = [torch.empty_like(flat) for _ in range(n)]
+    dist.all_gather(got, flat, group=axis_group(mesh, DATA_AXIS))
+    out = []
+    for x, d, (start, size) in zip(xs, dims, spans):
+        blocks = [g[start:start + size].view(x.dtype).reshape(x.shape)
+                  for g in got]
+        if d is None:
+            out.append(torch.stack(blocks))
+            continue
+        whole = torch.cat(blocks, d)
+        if rows is not None and rows < whole.shape[d]:
+            whole = whole.narrow(d, 0, rows).contiguous()
+        out.append(whole)
+    return out
+
+
+def agree(flag: int, mesh) -> int:
+    """The largest ``flag`` over every rank of ``mesh`` (an all-reduce MAX
+    of one small int, axis by axis): the ranks' agreement on a host
+    decision such as an OOM on one of them.  ``flag`` without a mesh."""
+    if mesh is None or mesh.size() == 1:
+        return int(flag)
+    import torch
+    import torch.distributed as dist
+
+    device = "cuda" if mesh.device_type == "cuda" else "cpu"
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+    for axis in AXES:
+        group = axis_group(mesh, axis)
+        if group is not None:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return int(t.item())
 
 
 def initialize_distributed(

@@ -148,20 +148,22 @@ def _set(tree, path, value):
     tree[path[-1]] = value
 
 
-def shard_params(params, mesh, kind: str = "decoder", cfg=None):
-    """Each rank's local block of a full params tree, on the mesh's device
-    type: column- and row-parallel leaves cut to the rank's heads, MLP
-    columns or vocab rows (:func:`leaf_split`), everything else whole (the
-    same tensors when they already sit on that device).  ``cfg`` (the
-    model's config) names the head boundaries; it is needed when the model
-    axis has more than one rank."""
+def shard_params(params, mesh, kind: str = "decoder", cfg=None,
+                 device: Optional[str] = None):
+    """Each rank's local block of a full params tree, on ``device`` (a
+    device type; default the mesh's): column- and row-parallel leaves cut
+    to the rank's heads, MLP columns or vocab rows (:func:`leaf_split`),
+    everything else whole (the same tensors when they already sit on that
+    device).  ``cfg`` (the model's config) names the head boundaries; it
+    is needed when the model axis has more than one rank."""
     params = _plain(params)
     size = axis_size(mesh, MODEL_AXIS)
     rank = axis_rank(mesh, MODEL_AXIS)
     if size > 1 and cfg is None:
         raise ValueError("shard_params over a model axis needs cfg= to cut "
                          "on head boundaries")
-    device = None if mesh is None else mesh.device_type
+    if device is None and mesh is not None:
+        device = mesh.device_type
     out: dict = {}
     for path, leaf, spec in _walk(params, param_specs(params, kind)):
         split = leaf_split(path, spec, tuple(leaf.shape), cfg, size, kind)

@@ -155,10 +155,29 @@ def for_config(cfg, group, rank: int, size: int) -> Optional[TensorParallel]:
         vocab_sizes=tuple(split_sizes(cfg.vocab_size, size)))
 
 
+def for_t5(cfg, group, rank: int, size: int) -> Optional[TensorParallel]:
+    """The rank's share of a T5 model (``T5Config``): its heads (K/V with
+    them, held whole when the model axis does not divide the heads, as
+    ``shard_params(kind="t5")`` holds them), MLP columns and vocab rows of
+    the shared embedding; None for one rank."""
+    if size == 1:
+        return None
+    n = cfg.num_heads
+    replicated = n % size != 0
+    return TensorParallel(
+        group=group, rank=rank, size=size, heads=split_range(n, size, rank),
+        kv_heads=(0, n) if replicated else split_range(n, size, rank),
+        kv_replicated=replicated, group_size=1,
+        ffn=split_range(cfg.d_ff, size, rank),
+        vocab_sizes=tuple(split_sizes(cfg.vocab_size, size)))
+
+
 def for_mesh(cfg, mesh) -> Optional[TensorParallel]:
-    """:func:`for_config` over the mesh's ``model`` axis."""
-    return for_config(cfg, axis_group(mesh, MODEL_AXIS),
-                      axis_rank(mesh, MODEL_AXIS), axis_size(mesh, MODEL_AXIS))
+    """:func:`for_config` (or :func:`for_t5` for a ``T5Config``) over the
+    mesh's ``model`` axis."""
+    make = for_t5 if hasattr(cfg, "d_kv") else for_config
+    return make(cfg, axis_group(mesh, MODEL_AXIS),
+                axis_rank(mesh, MODEL_AXIS), axis_size(mesh, MODEL_AXIS))
 
 
 def copy_to_model(x, tp: TensorParallel):

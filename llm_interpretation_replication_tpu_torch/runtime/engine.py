@@ -71,6 +71,16 @@ also serves :meth:`ScoringEngine.score_prompts_slotted` (mid-decode
 admission) and the KV-slab handoff (:meth:`~ScoringEngine.export_kv_slab`,
 :meth:`~ScoringEngine.decode_kv_slabs`).
 
+On a mesh (``mesh=``, or :meth:`ScoringEngine.bind_mesh`; one process a
+rank, every rank running the same calls on the same prompts) the device
+calls run row-parallel over the mesh's ``data`` axis and tensor-parallel
+over ``model`` (``runtime/row_parallel.py``); every result, and so every
+host decision, is the same on every rank, and an OOM steps every rank down
+together.  ``score_prompts`` (every schedule), ``score_prefixed``,
+``score_packed``, the packed demonstrations and ``first_token_relative_prob``
+run there; slotted scoring, the KV-slab handoff and ``decode_k > 1`` do
+not yet.
+
 Every ``EngineConfig`` field keeps the reference's name and default; a
 setting the port cannot honour yet raises ``NotImplementedError`` naming the
 ROADMAP.md item that will bring it.
@@ -91,7 +101,6 @@ import torch
 from ..config import DEFAULT_BUCKETS
 from ..device import DEFAULT_DEVICE, resolve_device, to_device
 from ..models import decoder as dmod
-from ..models import t5 as t5mod
 from ..obs import tracer as obs
 from ..scoring import confidence as conf_mod
 from ..scoring import yes_no as yn
@@ -99,6 +108,7 @@ from ..utils.telemetry import record_counter, record_fault, record_hist
 from . import batching, faults, strict
 from . import plan as plan_mod
 from . import slots as slots_mod
+from .row_parallel import RowParallel
 
 _ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
 
@@ -212,12 +222,27 @@ class EngineConfig:
 
 
 def _check_supported(family, ecfg: EngineConfig, mesh) -> None:
-    """Raise NotImplementedError for every setting the port cannot honour."""
+    """Raise NotImplementedError for every setting the port cannot honour:
+    on a mesh of more than one rank, the joint K-token decode."""
     if ecfg.kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_dtype {ecfg.kv_dtype!r}")
-    if mesh is not None:
+    if _multi_rank(mesh) and int(ecfg.decode_k) > 1:
         raise NotImplementedError(
-            f"the scoring engine on a device mesh is not ported yet "
+            f"decode_k > 1 on a mesh of more than one rank is not ported "
+            f"yet ({_ITEM_PAR})")
+
+
+def _multi_rank(mesh) -> bool:
+    return mesh is not None and mesh.size() > 1
+
+
+def _refuse_on_mesh(mesh, what: str) -> None:
+    """The routes the port does not run on a mesh of more than one rank:
+    a scheduler driven by the clock cannot take the same decision on every
+    rank."""
+    if _multi_rank(mesh):
+        raise NotImplementedError(
+            f"{what} on a mesh of more than one rank is not ported yet "
             f"({_ITEM_PAR})")
 
 
@@ -375,7 +400,10 @@ class ScoringEngine:
         self.device = resolve_device(device)
         self.params = params.to(self.device)
         self.tokenizer = tokenizer
+        # with a mesh, ``params`` are the rank's blocks
+        # (``parallel.sharding.shard_params``, ``load_model(mesh=)``)
         self.mesh = mesh
+        self._dev = RowParallel(mesh, cfg)
         self.ecfg = ecfg
         # every OOM back-off step this engine took (the telemetry fault log
         # holds the process-wide list)
@@ -468,6 +496,32 @@ class ScoringEngine:
             yield self.ecfg
         finally:
             self.ecfg = prev
+
+    def bind_mesh(self, mesh) -> "ScoringEngine":
+        """Bind this engine to ``mesh`` (every rank of it calls this): the
+        weights, whole until now, are cut to the rank's blocks over the
+        mesh's ``model`` axis (``parallel.sharding.shard_params``, head
+        boundaries), and every later call runs row-parallel over ``data``
+        (``runtime.row_parallel``).  Clears the plan cache and counts
+        ``replica_mesh_bound``.  Returns ``self``."""
+        from ..parallel import sharding
+        from ..parallel.mesh import MODEL_AXIS, axis_size
+
+        self._check_open()
+        if self.mesh is not None and self._dev.tp is not None:
+            raise ValueError("bind_mesh needs whole weights: this engine "
+                             "already holds a model rank's blocks")
+        _check_supported(self.family, self.ecfg, mesh)
+        kind = "t5" if self.is_encoder_decoder else "decoder"
+        if axis_size(mesh, MODEL_AXIS) > 1:
+            self.params = type(self.params)(self.cfg, sharding.shard_params(
+                self.params.tree(), mesh, kind=kind, cfg=self.cfg,
+                device=self.device.type))
+        self.mesh = mesh
+        self._dev = RowParallel(mesh, self.cfg)
+        self._plan_cache.clear()
+        record_counter("replica_mesh_bound")
+        return self
 
     def target_ids(self, targets: Sequence[str]) -> List[int]:
         return yn.target_token_ids(self.tokenizer, targets,
@@ -712,12 +766,12 @@ class ScoringEngine:
                       batch=int(ids.shape[0]),
                       kv_dtype=self.ecfg.kv_dtype) as sp:
             if chunked:
-                last, cache, n_chunks = dmod.chunked_prefill(
+                last, cache, n_chunks = self._dev.chunked_prefill(
                     self.params, self.cfg, ids, mask, chunk)
                 record_counter("prefill_chunks", n_chunks)
             else:
-                last, cache = dmod.prefill(self.params, self.cfg, ids, mask,
-                                           cache_len=cache_len)
+                last, cache = self._dev.prefill(self.params, self.cfg, ids,
+                                                mask, cache_len=cache_len)
             if sp is not None:
                 sp["_sync_obj"] = last  # device-time attribution (sync mode)
         if cache.k_scale is not None:
@@ -852,7 +906,7 @@ class ScoringEngine:
         def launch(batch):
             ids = self._tensor(batch.token_ids, torch.int64)
             mask = self._tensor(batch.attention_mask, torch.int32)
-            tokens, scores = t5mod.greedy_decode(
+            tokens, scores = self._dev.t5_greedy_decode(
                 self.params, self.cfg, ids, mask, num_steps=gen_total,
                 eos_token_id=eos_id, score_steps=steps)
             row_ids = self._tensor(self._batch_target_rows(ids_all, batch),
@@ -956,7 +1010,7 @@ class ScoringEngine:
                                   leg=legs[li].name or f"leg{li}",
                                   bucket=int(batch.bucket_len)) as sp:
                         sids, smask = suffix_batch(batch, li)
-                        last, cache, lengths = dmod.extend_prefill(
+                        last, cache, lengths = self._dev.extend_prefill(
                             self.params, self.cfg, pcache,
                             self._tensor(sids), self._tensor(smask), plen)
                         scan0 = yn.first_token_scan(
@@ -1082,7 +1136,7 @@ class ScoringEngine:
                                 cache, prev, lengths, offset, n, eos_id, done,
                                 mode, tgt, prev_h, valid, "completion")
                     else:
-                        toks, sc, cache, prev, done = dmod.decode_steps(
+                        toks, sc, cache, prev, done = self._dev.decode_steps(
                             self.params, self.cfg, cache, prev, lengths,
                             offset, n, eos_id, done, with_scores=mode,
                             target_ids=tgt)
@@ -1188,7 +1242,7 @@ class ScoringEngine:
             top_filter=ecfg.first_token_top_filter,
             out_len=(_pool_len(batch.bucket_len) if out_len is None
                      else out_len),
-            select_all=select_all)
+            select_all=select_all, dev=self._dev)
         return _HostCopy((*scan0, *first3, sel)), sub, last_s, len_s
 
     def _score_decoder_pooled(self, encoded, ids_all, results, eos_id,
@@ -1429,7 +1483,7 @@ class ScoringEngine:
         offset = 0
         while offset < steps:
             n = min(chunk, steps - offset)
-            toks_c, sc_c, cur_cache, prev, done = dmod.decode_steps(
+            toks_c, sc_c, cur_cache, prev, done = self._dev.decode_steps(
                 self.params, self.cfg, cur_cache, prev, len_s, offset, n,
                 eos_id, done, with_scores="reduced" if reduced else True,
                 target_ids=target_ids)
@@ -1671,6 +1725,7 @@ class ScoringEngine:
         route: verdicts identical, probabilities in the chunked-prefill fp32
         class (PARITY.md "Decode-then-repack")."""
         self._check_open()
+        _refuse_on_mesh(self.mesh, "slotted scoring (score_prompts_slotted)")
         if self.is_encoder_decoder:
             raise ValueError("slotted scoring is decoder-only (T5 has no "
                              "decoder-side prompt cache to refill)")
@@ -1795,6 +1850,7 @@ class ScoringEngine:
         (PARITY.md "Cross-replica KV handoff"): the round trip moves bytes,
         not values."""
         self._check_open()
+        _refuse_on_mesh(self.mesh, "the KV-slab handoff (export_kv_slab)")
         if self.is_encoder_decoder:
             raise ValueError("KV slab export is decoder-only (T5 has no "
                              "decoder-side prompt cache to hand off)")
@@ -1832,6 +1888,7 @@ class ScoringEngine:
         ``orig`` map them back.  ``admit_fn()`` may return more slabs
         between decode chunks, as in :meth:`score_prompts_slotted`."""
         self._check_open()
+        _refuse_on_mesh(self.mesh, "the KV-slab handoff (decode_kv_slabs)")
         if self.is_encoder_decoder:
             raise ValueError("KV slab decode is decoder-only")
         eos_id = getattr(self.tokenizer, "eos_token_id", None)
@@ -1938,7 +1995,7 @@ class ScoringEngine:
                           bucket=int(batch.bucket_len),
                           batch=int(batch.token_ids.shape[0]),
                           questions=int(kmax)) as sp:
-                logits = dmod.forward_anchor_logits(
+                logits = self._dev.forward_anchor_logits(
                     self.params, self.cfg,
                     self._tensor(batch.token_ids, torch.int64),
                     self._tensor(batch.attention_mask, torch.int32),
@@ -2101,7 +2158,7 @@ class ScoringEngine:
                 mask[row, : len(sfx)] = 1
             with obs.span("extend_prefill", phase="extend_prefill",
                           batch=len(order), bucket=int(s_pad)):
-                last, ext, total = dmod.extend_prefill(
+                last, ext, total = self._dev.extend_prefill(
                     self.params, self.cfg, cache, self._tensor(suf),
                     self._tensor(mask), self._tensor(prefix_lens))
             plen = _pool_len(int(ext.k.shape[2]))
@@ -2198,11 +2255,11 @@ class ScoringEngine:
                 dec = torch.full((ids.shape[0], 1),
                                  self.cfg.decoder_start_token_id,
                                  dtype=torch.int64, device=self.device)
-                logits = t5mod.forward(self.params, self.cfg, ids, mask,
-                                       dec)[:, 0, :]
+                logits = self._dev.t5_forward(self.params, self.cfg, ids,
+                                              mask, dec)[:, 0, :]
             else:
-                logits = dmod.forward_last_logits(self.params, self.cfg, ids,
-                                                  mask)
+                logits = self._dev.forward_last_logits(self.params, self.cfg,
+                                                       ids, mask)
             row_ids = self._tensor(self._batch_target_rows(ids_all, batch),
                                    torch.int64)
             return _HostCopy(yn.relative_prob_first_token(
@@ -2561,7 +2618,7 @@ class _Phase2Pool:
         with obs.span("pool_flush", phase="pooled_decode", leg=self.leg,
                       rows=int(total), padded=int(m),
                       bucket=int(pool_len)) as sp:
-            toks, sc, _, _, _ = dmod.decode_steps(
+            toks, sc, _, _, _ = engine._dev.decode_steps(
                 engine.params, engine.cfg, cache, last, lens, 0, self.steps,
                 self.eos_id, None, with_scores="reduced" if reduced else True,
                 target_ids=(engine._tensor(ids, torch.int64) if reduced
@@ -2642,7 +2699,8 @@ class _Phase2Pool:
                             done, "reduced", cur_ids, prev_h, cache_real,
                             "confidence")
                 else:
-                    toks_c, sc_c, cur_cache, prev, done = dmod.decode_steps(
+                    toks_c, sc_c, cur_cache, prev, done = \
+                        engine._dev.decode_steps(
                         engine.params, engine.cfg, cur_cache, prev, cur_lens,
                         offset, n, self.eos_id, done, with_scores="reduced",
                         target_ids=cur_ids)
@@ -2751,7 +2809,7 @@ class _Phase2Pool:
 def _prefill_select(params, cfg, ids, mask, valid_rows, yes_ids, no_ids,
                     cache_len: int, slice_m: int, top_k: int,
                     top_filter: int = 20, out_len: int = 0,
-                    select_all: bool = False):
+                    select_all: bool = False, dev=dmod):
     """Prefill, position-0 scan and the look-ahead's row selection.
 
     The selection is a stable undecided-first sort of the scan's hit mask
@@ -2763,12 +2821,13 @@ def _prefill_select(params, cfg, ids, mask, valid_rows, yes_ids, no_ids,
     Returns (scan0, first3 [top-filtered position-0 (yes, no, relative)],
     sel [slice_m] batch row of each slice row, sub_cache, last_sel,
     len_sel).  When more than ``slice_m`` rows are undecided the caller
-    must prefill again with the full cache.
+    must prefill again with the full cache.  ``dev`` runs the prefill: the
+    engine's ``RowParallel`` (default ``models.decoder`` itself).
 
     ``select_all`` (the pooled confidence leg, where every valid row takes
     the scored decode): the sort key is batch padding only, and the slice
     (``slice_m`` = the batch size) holds every valid row, first."""
-    last, cache = dmod.prefill(params, cfg, ids, mask, cache_len=cache_len)
+    last, cache = dev.prefill(params, cfg, ids, mask, cache_len=cache_len)
     lengths = mask.sum(-1)
     scan0 = yn.first_token_scan(last, yes_ids, no_ids, top_k=top_k)
     first3 = yn.relative_prob_first_token(last, yes_ids, no_ids, top_filter)

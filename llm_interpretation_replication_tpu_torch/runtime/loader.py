@@ -162,7 +162,7 @@ def _cast(tree: Dict, dtype: torch.dtype, key: str = "") -> Dict:
 
 
 def load_model(path: str, dtype="bf16", quant: str = "none",
-               attention_impl=None, device=DEFAULT_DEVICE
+               attention_impl=None, device=DEFAULT_DEVICE, mesh=None
                ) -> Tuple[str, object, DecoderWeights]:
     """(family, config, weights on ``device``) from a local snapshot dir:
     ``DecoderWeights`` for a decoder-only family, ``T5Weights`` for T5.
@@ -176,7 +176,16 @@ def load_model(path: str, dtype="bf16", quant: str = "none",
     plain path.  T5 ignores ``attention_impl``, and under ``quant='int8'``
     warns and loads ``dtype`` weights, as the reference does, so that a
     roster-wide ``--attention-impl flash --quant int8`` runs its T5
-    models."""
+    models.
+
+    ``mesh`` (``parallel.make_mesh``; every rank calls this): the weights
+    are loaded, quantized and cast whole, then each rank keeps its blocks
+    (``parallel.sharding.shard_params``, ``kind="t5"`` for T5): column- and
+    row-parallel projections cut on head boundaries over ``model``, each
+    ``*_qscale`` with its columns, K/V heads the axis does not divide held
+    whole -- the reference's placement by ``param_specs``, with the head
+    boundaries in place of GSPMD's even byte split.  The holder then holds
+    the rank's blocks, for an engine on the same mesh."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     if quant not in ("none", "int8"):
@@ -194,7 +203,13 @@ def load_model(path: str, dtype="bf16", quant: str = "none",
         else:
             tree = qops.quantize_decoder_params(tree)
     holder = T5Weights if is_t5 else DecoderWeights
-    return family, cfg, holder(cfg, _cast(tree, dt))
+    tree = _cast(tree, dt)
+    if mesh is not None:
+        from ..parallel.sharding import shard_params
+
+        tree = shard_params(tree, mesh, kind="t5" if is_t5 else "decoder",
+                            cfg=cfg, device=dev.type)
+    return family, cfg, holder(cfg, tree)
 
 
 # -- K-head persistence ---------------------------------------------------------

@@ -44,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from typing import Dict, List, Optional, Sequence
 
@@ -55,7 +56,6 @@ from .plan import (
     weight_bytes,
 )
 
-_ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
 
 # ---------------------------------------------------------------------------
 # Calibrated cost-model coefficients
@@ -290,11 +290,14 @@ def sharded_need_bytes(terms: Dict[str, int], cfg, data: int, model: int,
                        pipe: int) -> int:
     """Per-device live set: each plan.py term divided across the mesh axis
     that shards it.  Weights shard over tp and pp; batch-leading
-    transients over dp; KV-cache terms also over tp only when the kv heads
-    divide (an MQA cache is replicated per tp shard)."""
+    transients over dp; KV-cache terms over tp only when the kv heads
+    divide (an MQA cache is replicated per tp shard).  Departure from the
+    reference, which also divides the KV-cache terms over dp: each data
+    rank of the port holds the whole cache between device calls
+    (``runtime/row_parallel.py``), so they count whole on every rank."""
     head_div = model if cfg.num_heads % model == 0 else 1
     kv_heads = cfg.num_kv_heads or cfg.num_heads
-    kv_div = data * (model if kv_heads % model == 0 else 1)
+    kv_div = model if kv_heads % model == 0 else 1
     return (terms["weights"] // (model * pipe)
             + terms["attn"] // (data * head_div)
             + terms["act"] // data
@@ -546,14 +549,16 @@ def format_candidate_table(ranked: Sequence[PlanCandidate], top: int = 8,
     return "\n".join(lines)
 
 
-def require_single_device(best: PlanCandidate) -> None:
-    """Raise for a chosen plan whose mesh spans more than one device: the
-    port's scoring engine runs on one device."""
-    if best.data * best.pipe * best.model > 1:
-        raise NotImplementedError(
+def require_ranks(best: PlanCandidate, world: int) -> None:
+    """Raise for a chosen plan whose mesh needs more ranks than the world
+    has (``world``: the process group's size, 1 without one)."""
+    need = best.data * best.pipe * best.model
+    if need > world:
+        raise ValueError(
             f"the chosen plan's mesh dp{best.data}xpp{best.pipe}"
-            f"xtp{best.model} spans more than one device; the scoring "
-            f"engine on a mesh is not ported yet ({_ITEM_PAR})")
+            f"xtp{best.model} needs {need} ranks; the world has {world} "
+            f"(launch one process a rank, as torchrun --nproc-per-node "
+            f"{need} does)")
 
 
 # ---------------------------------------------------------------------------
@@ -572,8 +577,7 @@ def run_dryrun(n_devices: int = 8, exec_leg: bool = True, out=None,
     """Search ``n_devices`` devices (arithmetic only: no device is
     touched) and show the chosen plan reproduces or beats the hand-picked
     dp x tp operating point; then (``exec_leg``) build the chosen mesh and
-    score on it, which raises until meshes are ported
-    (:func:`_exec_tiny_leg`)."""
+    score on it with single-device parity (:func:`_exec_tiny_leg`)."""
     out = out or sys.stderr
     hand_n = (HAND_PICKED_MULTICHIP["data"] * HAND_PICKED_MULTICHIP["pipe"]
               * HAND_PICKED_MULTICHIP["model"])
@@ -618,11 +622,99 @@ def run_dryrun(n_devices: int = 8, exec_leg: bool = True, out=None,
 
 
 def _exec_tiny_leg(cfg, best: PlanCandidate, out) -> Dict:
-    """Build the chosen mesh and score a few prompts on it: the dryrun's
-    proof the plan runs.  The dryrun prices eight devices, whose plan is
-    never one device, and the port builds no mesh yet, so this raises."""
-    require_single_device(best)
-    raise AssertionError("a plan for eight devices spans one device")
+    """Build the chosen mesh and score a handful of prompts through the
+    sharded engine with single-device parity: proof the plan runs.  The
+    counterpart of the reference's eight virtual CPU devices is a world of
+    gloo ranks on the CPU, one spawned process a device of the plan, met
+    through a ``file://`` rendezvous in a temporary directory; rank 0
+    reports."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    world = best.data * best.pipe * best.model
+    shape = dict(data=best.data, pipe=best.pipe, model=best.model)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_exec_rank, args=(world, tmp, cfg, shape),
+                           nprocs=world, start_method="spawn")
+        with open(os.path.join(tmp, "exec.pkl"), "rb") as f:
+            result = pickle.load(f)
+    print(f"# plan search exec: sharded fast-path parity on "
+          f"mesh {result['mesh']} ({result['prompts']} prompts, "
+          f"{world} gloo ranks)", file=out)
+    return result
+
+
+def _exec_rank(rank: int, world: int, tmp: str, cfg, shape: Dict) -> None:
+    """One rank of :func:`_exec_tiny_leg`: the reference's tiny w8a8 model
+    (numpy seed 0), its first-token relative probabilities on one device
+    and on the mesh, held to the reference's tolerance (atol 5e-5, rtol
+    1e-4)."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ..models.convert import params_from_jax
+    from ..ops.quant import quantize_decoder_params_np
+    from ..parallel import initialize_distributed, make_mesh
+    from ..parallel.mesh import AXES
+    from ..utils.tokenizer import WordTokenizer
+    from .engine import EngineConfig, ScoringEngine
+
+    torch.set_num_threads(1)
+    initialize_distributed(num_processes=world, process_id=rank,
+                           device="cpu", init_method=f"file://{tmp}/store",
+                           timeout=120)
+    try:
+        mesh = make_mesh(**shape)
+        rng = np.random.default_rng(0)
+        h, nd = cfg.hidden_size, cfg.num_heads * cfg.head_dim
+        kvd = cfg.num_kv_heads * cfg.head_dim
+        L, F, V = cfg.num_layers, cfg.intermediate_size, cfg.vocab_size
+
+        def init(*s):
+            return (rng.standard_normal(s) * 0.02).astype(np.float32)
+
+        params = quantize_decoder_params_np({
+            "embed": {"tokens": init(V, h)},
+            "layers": {
+                "ln1": {"scale": np.ones((L, h), np.float32),
+                        "bias": np.zeros((L, h), np.float32)},
+                "attn": {"wq": init(L, h, nd), "wk": init(L, h, kvd),
+                         "wv": init(L, h, kvd), "wo": init(L, nd, h)},
+                "mlp": {"wi": init(L, h, F), "wo": init(L, F, h)},
+            },
+            "final_ln": {"scale": np.ones(h, np.float32),
+                         "bias": np.zeros(h, np.float32)},
+        })
+        tokenizer = WordTokenizer(["Question:", "is", "candidate", "a",
+                                   "plan?", "Answer:"]
+                                  + [str(i) for i in range(4)])
+        prompts = [f"Question: is candidate {i} a plan? Answer:"
+                   for i in range(4)]
+        dp = shape["data"]
+        ecfg = EngineConfig(batch_size=dp * max(1, -(-4 // dp)),
+                            decode_completions=False, buckets=(32, 96))
+        single = ScoringEngine(
+            "falcon", cfg, params_from_jax(params, cfg, device="cpu",
+                                           dtype="fp32"),
+            tokenizer, engine_config=ecfg, device="cpu")
+        sharded = ScoringEngine(
+            "falcon", cfg, params_from_jax(params, cfg, device="cpu",
+                                           dtype="fp32"),
+            tokenizer, engine_config=ecfg, device="cpu").bind_mesh(mesh)
+        ref = single.first_token_relative_prob(prompts)
+        got = sharded.first_token_relative_prob(prompts)
+        np.testing.assert_allclose(got, ref, atol=5e-5, rtol=1e-4)
+        if rank == 0:
+            with open(os.path.join(tmp, "exec.pkl"), "wb") as f:
+                pickle.dump({"mesh": dict(zip(AXES, mesh.mesh.shape)),
+                             "prompts": len(prompts), "parity": True}, f)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -670,9 +762,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "hand-picked dp4xtp2 point")
     p.add_argument("--exec", dest="exec_leg",
                    action=argparse.BooleanOptionalAction, default=True,
-                   help="with --dryrun: also build the chosen mesh and "
-                        "score on it (raises: no mesh is ported yet; "
-                        "--no-exec = prediction comparison only)")
+                   help="with --dryrun: also build the chosen mesh on "
+                        "spawned gloo ranks of the CPU and score on it "
+                        "with single-device parity (--no-exec = "
+                        "prediction comparison only)")
     args = parser.parse_args(argv)
     hbm = None if args.hbm_gib is None else int(args.hbm_gib * 2**30)
 

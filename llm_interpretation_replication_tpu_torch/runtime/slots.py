@@ -694,7 +694,7 @@ class SlotRing:
                     self.leg)
         else:
             toks_c, sc_c, self._cache, self._prev, self._done = \
-                dmod.decode_steps(
+                eng._dev.decode_steps(
                     eng.params, eng.cfg, self._cache, self._prev,
                     self._lens, 0, n, self.eos_id, self._done,
                     with_scores=ws, target_ids=tids)

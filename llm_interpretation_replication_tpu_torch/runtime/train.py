@@ -180,9 +180,11 @@ class Optimizer:
         return AdamWState(count, state.mu, state.nu)
 
 
-def _sum_sq(t) -> torch.Tensor:
+def _leaf_sum_sq(t) -> torch.Tensor:
+    """``sum(t * t)`` as ``jnp.sum`` takes it: the squares in ``t``'s
+    dtype, accumulated in float32 run by run (not yet rounded back)."""
     t, run = t.contiguous().view(-1), _chunk(t)
-    return sum(t[i:i + run].float().square().sum()
+    return sum(t[i:i + run].square().float().sum()
                for i in range(0, t.numel(), run))
 
 
@@ -282,24 +284,27 @@ def loss_and_grads(params, cfg, token_ids, attention_mask, mesh=None):
 
 
 def grad_norm(grads, cfg=None, mesh=None) -> torch.Tensor:
-    """The global norm of the unsharded gradient (float32): the cut
-    leaves' squared norms summed over ``model``, whole leaves counted
-    once.  Without a mesh, the norm of every leaf in order."""
+    """The global norm of the unsharded gradient as ``optax.global_norm``
+    takes it, in the leaves' dtype: each leaf's squares summed in float32
+    and rounded to the leaf's dtype, the leaves' sums added in that dtype
+    in ``jax.tree.leaves`` order (sorted keys), and the root taken there.
+    A leaf cut over ``model`` adds its ranks' float32 partial sums before
+    the rounding; a leaf held whole counts once.  Float32 leaves give the
+    float32 norm."""
     import torch.distributed as dist
 
     model = axis_group(mesh, MODEL_AXIS)
     cut = model_sharded_leaves(grads, cfg, mesh) if model is not None else {}
-    whole = sharded = None
-    for path, g in _flatten(grads):
-        sq = _sum_sq(g)
-        if cut.get(path):
-            sharded = sq if sharded is None else sharded + sq
-        else:
-            whole = sq if whole is None else whole + sq
-    if sharded is not None:
-        dist.all_reduce(sharded, group=model)
-        whole = sharded if whole is None else whole + sharded
-    return torch.sqrt(whole)
+    leaves = list(_flatten(grads))
+    sums = [_leaf_sum_sq(g) for _, g in leaves]
+    shared = [i for i, (path, _) in enumerate(leaves) if cut.get(path)]
+    if shared:
+        part = torch.stack([sums[i] for i in shared])
+        dist.all_reduce(part, group=model)
+        for j, i in enumerate(shared):
+            sums[i] = part[j]
+    total = sum(s.to(g.dtype) for s, (_, g) in zip(sums, leaves))
+    return torch.sqrt(total)
 
 
 def make_train_step(cfg, optimizer: Optimizer, mesh=None,

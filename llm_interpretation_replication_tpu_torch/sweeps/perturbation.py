@@ -44,7 +44,7 @@ from ..runtime.batching import HostPrefetcher
 from ..runtime.engine import LegSpec
 from ..scoring import packed as packed_mod
 from ..scoring.confidence import extract_first_int
-from ..utils.checkpoint import append_jsonl
+from ..utils.checkpoint import append_jsonl, from_writing_rank, writing_rank
 from ..utils.logging import SessionLogger
 from ..utils.telemetry import counters, counters_since, record_fault
 from ..utils.xlsx import read_xlsx, write_xlsx
@@ -78,7 +78,13 @@ def load_existing_rows(output_xlsx: str) -> Tuple[List[Dict], set]:
     The side-log (``<output>.rows.jsonl``) is the sweep's append-only
     checkpoint: each flush appends its new rows there, O(new rows), and the
     workbook is rendered from the full row list once, at the end of the
-    sweep, after which the side-log is deleted."""
+    sweep, after which the side-log is deleted.  Under a world of ranks
+    every rank gets rank 0's rows (``utils.checkpoint.from_writing_rank``),
+    so all of them resume from the same rows."""
+    return from_writing_rank(lambda: _read_existing_rows(output_xlsx))
+
+
+def _read_existing_rows(output_xlsx: str) -> Tuple[List[Dict], set]:
     rows: List[Dict] = []
     if os.path.exists(output_xlsx):
         rows = read_xlsx(output_xlsx)[1]
@@ -137,7 +143,9 @@ class _Checkpoint:
                     append_jsonl(self.sidelog, self.pending)
                     self.rows.extend(self.pending)
                     self.pending = []
-                if final:
+                # under a world of ranks rank 0 alone writes (the side-log
+                # append above is gated the same way)
+                if final and writing_rank():
                     write_xlsx(PERTURBATION_COLUMNS, self.rows,
                                self.output_xlsx)
                     if os.path.exists(self.sidelog):

@@ -3,9 +3,9 @@
 ``perturbation_row``, ``model_family_from_name``,
 ``BASE_VS_INSTRUCT_100Q_COLUMNS``, ``MODEL_COMPARISON_COLUMNS`` and
 ``INSTRUCT_COMPARISON_COLUMNS``, with its four frames as row lists) and
-the CSV writer the sweeps use, ``utils.frame.write_csv``, which writes the
-bytes ``pandas.DataFrame(rows)[columns].to_csv(path, index=False)``
-writes.
+the CSV writer the sweeps use, :func:`write_csv` (``utils.frame.write_csv``,
+which writes the bytes ``pandas.DataFrame(rows)[columns].to_csv(path,
+index=False)`` writes, on rank 0 only under a world of ranks).
 
 Downstream statistics key on these exact column names, so the workbook and
 the CSV are drop-in replacements for the study's own.
@@ -15,7 +15,16 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
-from ..utils.frame import write_csv  # noqa: F401
+from ..utils import frame
+from ..utils.checkpoint import writing_rank
+
+def write_csv(columns, rows, path, **kwargs):
+    """``utils.frame.write_csv`` where this process writes
+    (``utils.checkpoint.writing_rank``: rank 0 of a world, or the one
+    process); the other ranks of a mesh write nothing."""
+    if writing_rank():
+        frame.write_csv(columns, rows, path, **kwargs)
+
 
 #: perturbation result workbook columns, in order
 PERTURBATION_COLUMNS = [

@@ -2,7 +2,14 @@
 ``append_jsonl``, ``CheckpointFile`` and ``ProcessedSet``): the
 perturbation sweep's side-log append, the atomic JSON checkpoint of the
 100-question sweep and of the Gemini batch resume file, and a persistent
-set of idempotency keys (JSON-encoded tuples, no pickle)."""
+set of idempotency keys (JSON-encoded tuples, no pickle).
+
+Under a world of ranks (the scoring engine on a mesh: every rank runs the
+sweep on the same rows) only rank 0 writes: :func:`writing_rank` gates the
+side-log appends and the checkpoint saves here, and the sweeps' workbook
+and CSV writes.  Only rank 0 reads the state a sweep resumes from, and
+:func:`from_writing_rank` hands it to the others, so every rank resumes
+from the same rows also where the output directory is node-local."""
 
 from __future__ import annotations
 
@@ -11,6 +18,27 @@ import os
 from typing import Any, Iterable, Optional
 
 _TMP_SEQ = iter(range(1 << 62))
+
+
+def writing_rank() -> bool:
+    """True where this process writes a sweep's files and prints its rows:
+    without a process group, or on rank 0 of one."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def from_writing_rank(read):
+    """``read()`` on rank 0 of a world, sent to every other rank
+    (``torch.distributed.broadcast_object_list``); ``read()`` itself
+    without a world.  Every rank of the world must call it."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return read()
+    box = [read() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def _atomic_write_json(path: str, obj: Any) -> None:
@@ -34,7 +62,10 @@ def append_jsonl(path: str, rows: Iterable[Any], fsync: bool = True) -> None:
     ``.rows.jsonl`` side-log; with ``fsync`` (the default) the data is
     forced to disk before the call returns, so a SIGKILL or power loss right
     after a ``checkpoint_every`` flush cannot lose the rows the flush claimed
-    to checkpoint.  Numpy scalars serialize via ``.item()``."""
+    to checkpoint.  Numpy scalars serialize via ``.item()``.  A rank other
+    than 0 of a world writes nothing."""
+    if not writing_rank():
+        return
     with open(path, "a") as f:
         for row in rows:
             f.write(json.dumps(
@@ -53,16 +84,22 @@ class CheckpointFile:
         self.default = default or {}
 
     def load(self) -> dict:
+        """The saved state (the default before the first save); rank 0's
+        under a world of ranks (:func:`from_writing_rank`)."""
+        return from_writing_rank(self._read)
+
+    def _read(self) -> dict:
         if os.path.exists(self.path):
             with open(self.path) as f:
                 return json.load(f)
         return json.loads(json.dumps(self.default))
 
     def save(self, state: dict) -> None:
-        _atomic_write_json(self.path, state)
+        if writing_rank():
+            _atomic_write_json(self.path, state)
 
     def clear(self) -> None:
-        if os.path.exists(self.path):
+        if writing_rank() and os.path.exists(self.path):
             os.remove(self.path)
 
 

@@ -25,6 +25,12 @@ class SessionLogger:
             self._file = open(log_file, "a", encoding="utf-8")
 
     def log(self, *parts, timestamp: bool = False) -> None:
+        """Print (and tee) one line; under a world of ranks only rank 0
+        logs (``utils.checkpoint.writing_rank``)."""
+        from .checkpoint import writing_rank
+
+        if not writing_rank():
+            return
         msg = " ".join(str(p) for p in parts)
         if timestamp:
             msg = f"[{_dt.datetime.now().isoformat(timespec='seconds')}] {msg}"

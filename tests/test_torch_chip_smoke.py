@@ -1071,9 +1071,9 @@ def test_serve_phase_runs_its_legs_and_gates():
                  'attention_impl="flash"', "FALCON_7B_GEOMETRY"):
         assert gate in src, gate
     assert chip_smoke.SERVE_LOAD_FRACTIONS == (0.25, 0.5, 0.9)
-    assert chip_smoke.SERVE_LOAD_S == 3.0
+    assert chip_smoke.SERVE_LOAD_S == 1.5
     assert (chip_smoke.SERVE_REPLAY_PROMPTS, chip_smoke.SERVE_PREFIX_PAIRS,
-            chip_smoke.SERVE_POOL_PROMPTS) == (192, 64, 96)
+            chip_smoke.SERVE_POOL_PROMPTS) == (192, 32, 48)
     assert chip_smoke.SERVE_MEMORY_SLACK == 64 << 20
 
 
@@ -1427,8 +1427,10 @@ def test_plan_searched_run_gates(kw, fails):
 def test_every_phase_that_records_a_peak_records_its_plan_point():
     """Each phase function that resets the peak-memory counter records the
     operating point the budget model prices, but for T5's scoring
-    (instruct_phase), the plan phase's own run and the train phase (the
-    budget model prices scoring, not training)."""
+    (instruct_phase), the plan phase's own run, the train phase (the
+    budget model prices scoring, not training) and the mesh phase's gloo
+    ranks (two processes share the one card: a rank's peak is not a
+    device's need)."""
     src = inspect.getsource(chip_smoke)
     tree = ast.parse(src)
     missing = []
@@ -1438,8 +1440,8 @@ def test_every_phase_that_records_a_peak_records_its_plan_point():
         body = ast.get_source_segment(src, fn)
         if "reset_peak_memory_stats()" in body and "_plan_point(" not in body:
             missing.append(fn.name)
-    assert sorted(missing) == ["_plan_searched_run", "instruct_phase",
-                               "train_phase"]
+    assert sorted(missing) == ["_mesh_rank_runs", "_plan_searched_run",
+                               "instruct_phase", "train_phase"]
 
 
 def test_main_runs_the_plan_phase_last_and_counts_its_launches():
@@ -1577,3 +1579,57 @@ def test_bit_fingerprints_see_one_changed_bit():
         assert [p for p in before if after[p] != before[p]] == [path]
         leaf[index] = old
     assert chip_smoke._bit_fingerprints(tree, run=64) == before
+
+
+# -- the scoring engine on a mesh (phase 26) ------------------------------------
+
+def test_main_runs_the_mesh_phase_after_train_and_counts_its_launches():
+    """Phase 26 runs after the train phase, on its world of one, within
+    its own budget, and (a)'s causal launches count in the kernels line."""
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index('timed("train"') < src.index('timed("mesh"')
+    assert 'mres["a"]["kernel_launches"]' in src and "mesh=mres" in src
+    assert chip_smoke.MESH_BUDGET_S == 45.0
+    assert chip_smoke.MESH_PROMPTS == chip_smoke.BATCH
+    phase = inspect.getsource(chip_smoke.mesh_phase)
+    for piece in ("make_mesh()", "destroy_process_group", "start_processes",
+                  "mesh_run_fails", 'kv_dtype="int8"'):
+        assert piece in phase, piece
+    assert "bind_mesh" in inspect.getsource(chip_smoke._mesh_engine)
+    assert 'quant="int8"' in inspect.getsource(chip_smoke._mesh_small)
+
+
+def _mesh_ranks(rows, heads=((71, 71), (36, 35))):
+    probe = dict(all_reduce=[3.0] * 4, all_gather=[[0.0, 0.0], [1.0, 1.0]])
+    return [dict(probe=probe, runs={
+        name: dict(heads=[h[rank]] * chip_smoke.FAMILY_LAYERS, rows=rows)
+        for name, h in zip(("dp2", "tp2"), heads)}) for rank in (0, 1)]
+
+
+@pytest.mark.parametrize("change,fails", [
+    (None, 0),
+    ("flip", 4),                 # each shape's row 0 on both ranks
+    ("far", 4),
+    ("near", 0),                 # within MESH_W8A8_RTOL
+    ("heads", 2),
+    ("left_out", 4),             # no probe and no runs on either rank
+])
+def test_mesh_phase_gates(change, fails):
+    """(b)'s gates: a verdict that differs from the world of one's, a
+    probability beyond the w8a8 class or a rank's prefill at other heads
+    fails, and so does a rank that brought back no probe or no runs."""
+    ref = [[True, 0.5, 0.2, 0.2], [False, 0.25, 0.1, 0.3]]
+    rows = [list(r) for r in ref]
+    heads = ((71, 71), (36, 35))
+    if change == "flip":
+        rows[0][0] = False
+    elif change == "far":
+        rows[0][1] = 0.6
+    elif change == "near":
+        rows[0][1] = 0.5 * (1 + chip_smoke.MESH_W8A8_RTOL / 2)
+    elif change == "heads":
+        heads = ((71, 71), (35, 36))
+    res = _mesh_ranks(rows, heads)
+    if change == "left_out":
+        res = [dict(probe_error="RuntimeError: no CUDA"), {}]
+    assert len(chip_smoke.mesh_run_fails(res, ref, 71)) == fails

@@ -78,12 +78,18 @@ def test_run_perturbation_matches_reference(snapshot, perturbations,
 
 
 @pytest.mark.parametrize("extra,title", [
-    (("--mesh-model", "2"), "Parallel and training"),
-    (("--mesh-seq", "2"), "Parallel and training"),
+    (("--mesh-model", "2"), "needs a world of a multiple of 2 ranks"),
+    (("--mesh-seq", "2"), "needs a world of a multiple of 2 ranks"),
 ])
 def test_unported_flags_raise(snapshot, perturbations, tmp_path, extra, title):
-    with pytest.raises(NotImplementedError, match=title):
+    """``--mesh-model`` and ``--mesh-seq`` build a mesh over the world's
+    ranks (``tests/test_torch_mesh.py`` runs them on two): in a world of
+    one process they raise, naming the ranks the mesh needs; ``serve`` on
+    a mesh still raises naming its queue item."""
+    with pytest.raises(ValueError, match=title):
         tmain(_argv(snapshot, perturbations, tmp_path, *extra))
+    with pytest.raises(NotImplementedError, match="Parallel and training"):
+        tmain(["serve", "--model", snapshot, "--device", "cpu", *extra])
 
 
 def test_plan_search_runs_its_chosen_flags(snapshot, perturbations,
@@ -131,9 +137,11 @@ def test_plan_search_needs_a_memory_and_one_device(snapshot, perturbations,
                                                    tmp_path, capsys,
                                                    monkeypatch):
     """``plan search --format json`` runs at ``--hbm-gib`` and raises
-    without it where there is no card; ``--plan-search`` whose chosen
-    plan spans more than one device raises naming the item that ports
-    meshes."""
+    without it where there is no card; ``--plan-search`` searches the
+    meshes of the world's ranks and builds the chosen one over them (here
+    a world of 8 stands in, and the mesh is recorded, not built)."""
+    import re
+
     from llm_interpretation_replication_tpu_torch import __main__ as cli
 
     with pytest.raises(SystemExit) as done:
@@ -146,10 +154,26 @@ def test_plan_search_needs_a_memory_and_one_device(snapshot, perturbations,
         tmain(["plan", "search", "--format", "json"])
     with pytest.raises(RuntimeError, match="memory"):
         tmain(_argv(snapshot, perturbations, tmp_path / "a", "--plan-search"))
-    monkeypatch.setattr(cli, "_plan_devices", lambda rc: 8)
-    with pytest.raises(NotImplementedError, match="Parallel and training"):
+    from llm_interpretation_replication_tpu_torch import parallel
+
+    class Built(Exception):
+        pass
+
+    def make_mesh(**shape):
+        raise Built(shape)
+
+    monkeypatch.setattr(cli, "_world", lambda rc: 8)
+    monkeypatch.setattr(parallel, "make_mesh", make_mesh)
+    with pytest.raises(Built) as built:
         tmain(_argv(snapshot, perturbations, tmp_path / "b", "--plan-search",
                     "--hbm-gib", "80"))
+    shape = built.value.args[0]
+    assert shape["data"] * shape["model"] == 8
+    chosen = re.search(r"#   chosen : mesh dp(\d+)xpp1xtp(\d+) batch \d+ "
+                       r"kv \w+ chunk \d+ pool \w+ ->",
+                       capsys.readouterr().err)
+    assert chosen, "no chosen mesh without the joint K-token decode"
+    assert (shape["data"], shape["model"]) == tuple(map(int, chosen.groups()))
 
 
 @pytest.fixture(scope="module")

@@ -187,7 +187,9 @@ def test_unsupported_engine_settings_raise(setup, override):
 @pytest.mark.parametrize("case", ["confidence", "pooled_confidence",
                                   "prefix_pairs", "mesh", "decode_k"])
 def test_unsupported_calls_raise(setup, case):
-    """A mesh is refused at construction.  The confidence leg (per batch
+    """A mesh of one rank (a gloo world of one) scores the meshless rows
+    bit for bit, and a mesh of more ranks refuses ``decode_k > 1`` naming
+    its queue item.  The confidence leg (per batch
     and pooled) and ``(prefix, suffix)`` prompts score with ``decode_k=2``
     set after construction and no K-head: the rows of ``decode_k=1``.  T5
     with ``decode_k=4`` scores as with 1 (the K path is decoder-only)."""
@@ -207,9 +209,36 @@ def test_unsupported_calls_raise(setup, case):
                                 if case == "pooled_confidence" else ENGINE_KW)
     kw = dict(engine_config=ecfg, device="cpu")
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tengine.ScoringEngine("falcon", tcfg, weights, tok,
-                                  mesh=object(), **kw)
+        import tempfile
+
+        import torch.distributed as dist
+
+        from llm_interpretation_replication_tpu_torch.parallel import mesh
+
+        class TwoRanks:
+            def size(self, dim=None):
+                return 2
+
+        with pytest.raises(NotImplementedError,
+                           match="Parallel and training"):
+            tengine.ScoringEngine(
+                "falcon", tcfg, weights, tok, mesh=TwoRanks(),
+                engine_config=dataclasses.replace(ecfg, decode_k=2),
+                device="cpu")
+        prompts = ["Is soup a beverage?", "Is a tomato a fruit?"]
+        plain = tengine.ScoringEngine("falcon", tcfg, weights, tok, **kw)
+        want = plain.score_prompts(prompts)
+        with tempfile.TemporaryDirectory() as tmp:
+            assert mesh.initialize_distributed(
+                num_processes=1, process_id=0, device="cpu",
+                init_method=f"file://{tmp}/store")
+            try:
+                eng = tengine.ScoringEngine("falcon", tcfg, weights, tok,
+                                            **kw)
+                eng.bind_mesh(mesh.make_mesh())
+                assert eng.score_prompts(prompts) == want
+            finally:
+                dist.destroy_process_group()
         return
     rows = []
     for k in (1, 2):

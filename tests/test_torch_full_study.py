@@ -466,16 +466,37 @@ def test_prefix_pool_abandoned_entry_counts_as_leak():
     ("mesh", "Parallel and training"),
 ])
 def test_unported_settings_still_raise(case, title):
-    """A mesh raises naming its ROADMAP.md item.  The settings once refused
+    """On a mesh of more than one rank, slotted scoring, the KV-slab
+    handoff and ``decode_k > 1`` raise naming their ROADMAP.md item (a
+    two-rank data axis stands in: the refusals come before any
+    collective).  The settings once refused
     here score at ``EngineConfig()``'s other defaults: ``prefill_chunk=1``
     ("The full-study legs"), and ``decode_k`` 2 and 4 ("K-decode"), which
     with no K-head run sequentially (``k_decode_head_missing`` noted once)
     and give the ``decode_k=1`` rows."""
     _, tcfg, _, weights = text_models()
     if case == "mesh":
+        class TwoRanks:
+            """Two ranks on the data axis, one on the others."""
+            device_type = "cpu"
+
+            def size(self, dim=None):
+                return 2 if dim in (None, 0) else 1
+
+            def get_local_rank(self, axis):
+                return 0
+
         with pytest.raises(NotImplementedError, match=title):
-            tengine.ScoringEngine("falcon", tcfg, weights, tok(),
-                                  mesh=object(), device="cpu")
+            tengine.ScoringEngine(
+                "falcon", tcfg, weights, tok(), mesh=TwoRanks(),
+                device="cpu", engine_config=tengine.EngineConfig(decode_k=2))
+        eng = tengine.ScoringEngine("falcon", tcfg, weights, tok(),
+                                    mesh=TwoRanks(), device="cpu")
+        for call in (lambda: eng.score_prompts_slotted(["Is soup food?"]),
+                     lambda: eng.export_kv_slab(["Is soup food?"]),
+                     lambda: eng.decode_kv_slabs([])):
+            with pytest.raises(NotImplementedError, match=title):
+                call()
         return
     kw = ({"decode_k": 4 if case == "decode_k_4" else 2}
           if case.startswith("decode_k") else {"prefill_chunk": 1})

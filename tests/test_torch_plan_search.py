@@ -9,7 +9,9 @@ workloads, both quants and 1, 4 and 8 devices; ``replica_plan`` (every
 role), ``chosen_plan``, the rate model, the mesh arithmetic and the dryrun's
 prediction comparison equal too.  With the port's own coefficients every
 ``# anchor:`` value is pinned to what ``scripts/calibrate_plan_torch.py``
-measured on the card.
+measured on the card.  The reference's memory estimate is taken with the
+port's one recorded departure (:func:`whole_cache_per_rank`): the KV-cache
+terms count whole on every data rank.
 """
 
 import pytest
@@ -32,11 +34,29 @@ SEARCH_COEFFICIENTS = (
     "PACKED_DEMO_TOKENS", "PACKED_NO_DECODE_GAIN",
     "PACKED_SWEEP_HEADROOM_BYTES", "BINARY_SWEEP_HEADROOM_BYTES")
 HBM = 16 << 30
+#: the need terms that hold the KV cache
+CACHE_TERMS = ("completions", "conf_pool")
+
+
+def whole_cache_per_rank(need):
+    """The reference's ``sharded_need_bytes`` with the port's departure:
+    the KV-cache terms divided as at one data rank, every other term as
+    the reference divides it."""
+    def sharded(terms, cfg, data, model, pipe):
+        cache = dict.fromkeys(("weights", "attn", "act"), 0)
+        cache.update({k: terms.get(k, 0) for k in CACHE_TERMS})
+        return (need(terms, cfg, data, model, pipe)
+                - need(cache, cfg, data, model, pipe)
+                + need(cache, cfg, 1, model, pipe))
+    sharded.__wrapped__ = need
+    return sharded
 
 
 @pytest.fixture
 def reference(monkeypatch):
     set_reference_plan(monkeypatch)
+    monkeypatch.setattr(jsearch, "sharded_need_bytes",
+                        whole_cache_per_rank(jsearch.sharded_need_bytes))
     for name in SEARCH_COEFFICIENTS:
         monkeypatch.setattr(plan_search, name, getattr(jsearch, name))
     # the reference's full-study row rides the binary curve
@@ -115,6 +135,35 @@ def test_rate_model_equals_reference(reference):
     for data, model, pipe in ((1, 1, 1), (4, 2, 1), (2, 71, 1), (1, 4, 2)):
         assert (plan_search.sharded_need_bytes(terms, t, data, model, pipe)
                 == jsearch.sharded_need_bytes(terms, j, data, model, pipe))
+        if data == 1:
+            assert (plan_search.sharded_need_bytes(terms, t, 1, model, pipe)
+                    == jsearch.sharded_need_bytes.__wrapped__(
+                        terms, j, 1, model, pipe))
+
+
+def test_a_searched_dp_plan_holds_the_whole_cache_on_each_rank():
+    """Each data rank holds the whole KV cache between device calls, so a
+    searched plan on more than one data rank budgets every cache term
+    whole, not the reference's share of it: the plan search never picks a
+    batch whose cache does not fit on one rank."""
+    t = falcon()[0]
+    seq, depth = 256, 2
+    ranked = plan_search.search_plans(t, "int8", 8, seq=seq,
+                                      pipeline_depth=depth,
+                                      hbm_bytes=80 << 30)
+    dp = [c for c in ranked if c.fits and c.data > 1]
+    assert dp
+    wb = plan_search.weight_bytes(t, "int8")
+    for c in dp:
+        terms = plan.full_study_need_terms(
+            t, wb, "xla", c.batch, seq, 50, 10, depth, reduced_scores=True,
+            kv_dtype=c.kv_dtype, prefill_chunk=c.prefill_chunk,
+            pooled_confidence=True, pool_target=c.pool_target or None,
+            decode_k=c.decode_k, quant="int8")
+        kv_div = c.model if t.num_kv_heads % c.model == 0 else 1
+        whole = sum(terms[k] for k in CACHE_TERMS) // kv_div
+        assert whole >= plan.kv_cache_bytes(t, c.batch, seq, c.kv_dtype)
+        assert c.need_bytes >= wb // c.model + whole
 
 
 def test_mesh_arithmetic_equals_reference():
@@ -135,17 +184,27 @@ def test_mesh_arithmetic_equals_reference():
 def test_dryrun_prediction_equals_reference(reference, eight_cpu_devices,
                                             capsys):
     """The dryrun's chosen plan and the hand-picked dp4 x tp2 point for 8
-    devices, as arithmetic; its exec leg needs the chosen mesh to be one
-    device, so here it raises naming the item that ports meshes."""
+    devices, as arithmetic; its exec leg builds the chosen mesh on 8
+    spawned gloo ranks and scores with single-device parity, as the
+    reference's does on its 8 virtual devices."""
     import io
 
     got = plan_search.run_dryrun(8, exec_leg=False, out=io.StringIO(),
                                  hbm_bytes=HBM)
     ref = jsearch.run_dryrun(8, exec_leg=False, out=io.StringIO())
     assert got == ref
-    with pytest.raises(NotImplementedError, match="Parallel and training"):
-        plan_search.run_dryrun(8, exec_leg=True, out=io.StringIO(),
-                               hbm_bytes=HBM)
+    out = io.StringIO()
+    ran = plan_search.run_dryrun(8, exec_leg=True, out=out, hbm_bytes=HBM)
+    assert ran["exec"] == {"mesh": {**ran["chosen"]["mesh"], "seq": 1},
+                           "prompts": 4, "parity": True}
+    assert "sharded fast-path parity" in out.getvalue()
+    wide = plan_search.PlanCandidate(
+        data=4, pipe=1, model=2, batch=32, kv_dtype="bf16", prefill_chunk=0,
+        pool_target=0, fits=True, reason="", need_bytes=0,
+        predicted_rows_per_s=0.0)
+    plan_search.require_ranks(wide, world=8)
+    with pytest.raises(ValueError, match="needs 8 ranks"):
+        plan_search.require_ranks(wide, world=1)
     with pytest.raises(ValueError):
         plan_search.run_dryrun(4, exec_leg=False, hbm_bytes=HBM)
 

@@ -59,7 +59,8 @@ def _port_sources():
            os.path.join(ROOT, "scripts", "profile_torch_pooled.py"),
            os.path.join(ROOT, "scripts", "sync_sites.py"),
            os.path.join(ROOT, "scripts", "decode_layout_probe.py"),
-           os.path.join(ROOT, "scripts", "calibrate_plan_torch.py")]
+           os.path.join(ROOT, "scripts", "calibrate_plan_torch.py"),
+           os.path.join(ROOT, "scripts", "chip_mesh_phase.py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
         out += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
@@ -191,7 +192,9 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/parallel/ring_attention.py",
     "llm_interpretation_replication_tpu_torch/parallel/ulysses.py",
     "llm_interpretation_replication_tpu_torch/runtime/train.py",
+    "llm_interpretation_replication_tpu_torch/runtime/row_parallel.py",
     "scripts/calibrate_plan_torch.py",
+    "scripts/chip_mesh_phase.py",
 ])
 def test_slice_modules_are_guarded(rel):
     """The modules the kernels, the int8 path, the pool, the slot ring,
@@ -363,23 +366,24 @@ def test_known_phases_match_reference():
 
 
 def test_cli_refuses_only_the_plan_and_mesh_flags():
-    """Of the run-config flags, only the mesh axes still refuse; the plan
-    search (ported) and the observability flags run."""
+    """No run-config flag refuses any more: the plan search, the
+    observability flags and, since the engine runs on a mesh, the mesh
+    axes all land in the ``RunConfig`` (a world too small for the mesh
+    raises when the engine is built, ``tests/test_torch_cli.py``)."""
     import argparse
 
     from llm_interpretation_replication_tpu_torch import __main__ as cli
 
     parser = argparse.ArgumentParser()
     cli._add_run_config_args(parser)
-    refused = set()
+    assert not hasattr(cli, "_refuse_unported")
     for argv in (["--strict"], ["--trace"], ["--profile", "p"],
                  ["--metrics"], ["--plan-search"], ["--mesh-model", "2"],
                  ["--mesh-seq", "2"]):
-        try:
-            cli._refuse_unported(parser.parse_args(argv))
-        except NotImplementedError:
-            refused.add(argv[0])
-    assert refused == {"--mesh-model", "--mesh-seq"}
+        rc = cli._run_config(parser.parse_args(argv))
+        assert (rc.mesh_model, rc.mesh_seq) == (
+            2 if argv[0] == "--mesh-model" else 1,
+            2 if argv[0] == "--mesh-seq" else 1)
     with open(os.path.join(PORT, "__main__.py"), encoding="utf-8") as f:
         assert "Guards and device observability" not in f.read()
 
