@@ -264,7 +264,7 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    of SERVE_REPLAY_PROMPTS (192) of the pooled phase's prompts with slot
    admission under strict
    mode (``blocked_transfers`` 0, rows admitted mid-decode),
-   SERVE_PREFIX_PAIRS (32) of the full-study prefix/suffix pairs through
+   SERVE_PREFIX_PAIRS (16) of the full-study prefix/suffix pairs through
    ``score_prefixed``, an OOM
    split under a memory cap between the needs of a micro-batch of 16 and
    one of 32 (``serve_oom_split`` events, every request answered), a
@@ -379,7 +379,7 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    1 on Falcon-7B's q/k/v (71 heads, S=448, D=64; bf16 draws compared in
    float32) against dense attention.  The group stays up for phase 26;
 26. mesh (after train, on its NCCL world of one; budget MESH_BUDGET_S,
-   45 s, printed beside the phase's time): the scoring engine on a mesh.
+   80 s, printed beside the phase's time): the scoring engine on a mesh.
    (a) Falcon-7B at its published width and full depth, random bf16
    weights from ``--seed``: MESH_PROMPTS of the slice's prompts (one batch)
    through ``ScoringEngine.bind_mesh(make_mesh())`` and through the engine
@@ -394,8 +394,29 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    in the CPU tests' w8a8 class (verdicts identical, probabilities within
    MESH_W8A8_RTOL), each rank's prefills launching the causal kernel at
    its own heads (71 at dp2; 36 and 35 at tp2); ms a batch, each rank's
-   peak memory and the bytes through its collectives are printed.  A
-   failure of either process, the probe included, fails the phase.
+   peak memory and the bytes through its collectives are printed.  The
+   same two processes and weights then run (c) the prompts through the
+   serve scheduler on dp2 and on tp2, rank 0 leading (it submits and reads
+   the rows) and rank 1 following its decisions, slot admission on and
+   micro-batches of MESH_SERVE_BATCH: the rows in the w8a8 class against
+   the world of one's, mid-decode admissions on the leader, the same
+   admissions and engine calls on both ranks; (d) the KV-slab handoff on
+   dp2 (``export_kv_slab`` into ``decode_kv_slabs``): the rows in the class;
+   (e) ``decode_k=K_DECODE`` on tp2 over MESH_K_TOKENS completion tokens of
+   MESH_K_PROMPTS prompts, with a K-head distilled on them on the mesh:
+   the rows in the class against tp2's
+   ``decode_k=1`` rows, the head's digest equal on both ranks, the accept
+   rate and the ms of a K chunk printed; (f) an ``EnginePool`` of two
+   replicas on ``carve_slices(2)``, one rank each: each hosts one, both
+   answer (``placement`` "sliced"), the rows in the class; (g) one MoE
+   layer at Mixtral-8x7B's published widths (MOE_HIDDEN, MOE_FFN,
+   MOE_EXPERTS, top-MOE_TOP_K; bf16 weights and MOE_TOKENS tokens from
+   ``--seed``): ``moe_mlp_sharded`` over the two ranks against
+   ``moe_mlp_dense`` on rank 0, within MOE_RTOL of the dense path's largest
+   value on the tokens whose choices all found capacity and the aux losses
+   within MOE_AUX_RTOL, each path's ms and the all_to_all bytes a rank
+   printed.  A failure of either process, the probe included, fails the
+   phase.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -5916,9 +5937,12 @@ def oracle_engine(emod, dmod, decode_k=K_DECODE):
 
         def _k_decode_chunk(self, cache, prev, lens, offset, n, eos_id, done,
                             *rest):
-            toks = dmod.decode_steps(self.params, self.cfg, cache, prev,
-                                     lens, offset, n, eos_id, done,
-                                     with_scores=False)[0]
+            # on a mesh, the port's row-parallel decode (the rank's rows
+            # and heads; whole tokens on every rank)
+            run = getattr(self, "_dev", dmod)
+            toks = run.decode_steps(self.params, self.cfg, cache, prev,
+                                    lens, offset, n, eos_id, done,
+                                    with_scores=False)[0]
             self._oracle = [toks, 0]
             return super()._k_decode_chunk(cache, prev, lens, offset, n,
                                            eos_id, done, *rest)
@@ -7111,26 +7135,26 @@ SERVE_MAX_WAIT_S = 0.02
 # the replay leg's requests (the pooled prompts' first rows); prefix/suffix
 # pairs of the full-study rows served through score_prefixed
 SERVE_REPLAY_PROMPTS = 192
-SERVE_PREFIX_PAIRS = 32
+SERVE_PREFIX_PAIRS = 16
 # the OOM leg: prompts of this length (bucket 448), one micro-batch of 32
 SERVE_OOM_PROMPTS, SERVE_OOM_LEN = 32, 440
 # the pool, roles and supervise legs' requests (the pooled prompts' first
 # rows)
-SERVE_POOL_PROMPTS, SERVE_ROLE_PROMPTS, SERVE_SUPERVISE_PROMPTS = 48, 64, 32
+SERVE_POOL_PROMPTS, SERVE_ROLE_PROMPTS, SERVE_SUPERVISE_PROMPTS = 24, 32, 32
 # a busy replica with no progress beat for this long is wedged; well above
 # one Falcon-7B launch of 32 rows
 SERVE_WEDGE_S = 3.0
 # the load leg: prompts of one bucket (256), completions of 10 tokens, the
 # open-loop rates as fractions of the closed loop's, seconds each
-SERVE_LOAD_PROMPTS, SERVE_LOAD_LENS = 64, (241, 256)
-SERVE_LOAD_FRACTIONS, SERVE_LOAD_S, SERVE_LOAD_TOKENS = (0.25, 0.5, 0.9), 1.5, 10
-SERVE_LOAD_CLOSED_S = 2.0
+SERVE_LOAD_PROMPTS, SERVE_LOAD_LENS = 32, (241, 256)
+SERVE_LOAD_FRACTIONS, SERVE_LOAD_S, SERVE_LOAD_TOKENS = (0.25, 0.5, 0.9), 1.0, 10
+SERVE_LOAD_CLOSED_S = 1.5
 # memory after the pool leg's hot unloads may sit this far above its
 # value before the leg's copy of the weights
 SERVE_MEMORY_SLACK = 64 << 20
 # the CLI leg: request lines (one malformed), and the load harness's rates
 SERVE_CLI_LINES, SERVE_CLI_BAD_LINE = 64, 17
-SERVE_CLI_RATES, SERVE_CLI_LOAD_S = (2.0, 4.0, 8.0), 2.0
+SERVE_CLI_RATES, SERVE_CLI_LOAD_S = (2.0, 4.0, 8.0), 1.0
 
 
 def _vs_offline(what, rows, ref, rows_equal, fails):
@@ -9254,10 +9278,34 @@ def plan_phase(seed, attention, workdir, card, results):
 
 
 TRAIN_BUDGET_S = 45.0
-MESH_BUDGET_S = 45.0
+#: phase 26's budget: (a) and (b) took 12-24 s of 45; (c)-(g) take their
+#: predicted share of at most 35 s more
+MESH_BUDGET_S = 80.0
 #: phase 26: one batch of the slice's prompts; (b)'s w8a8 class is the CPU
 #: tests' (tests/test_torch_engine.W8A8_RTOL)
 MESH_PROMPTS, MESH_W8A8_RTOL = 32, 2e-2
+#: (c): the prompts of the MESH_SERVE_BUCKETS buckets that hold the most of
+#: them, through a leader's scheduler that launches micro-batches of
+#: MESH_SERVE_BATCH rows, so that the rest of a bucket meets the ring's
+#: free lanes mid-decode (requests of two buckets never share a launch)
+MESH_SERVE_BUCKETS, MESH_SERVE_BATCH = 3, 2
+#: (c) and (f): the slot ring's lanes and the engine's batch, a
+#: micro-batch and one admission's worth (a ring decodes every lane at
+#: each step, and a prefill pads its rows to the batch)
+MESH_SERVE_RING = 2 * MESH_SERVE_BATCH
+#: (e): the prompts (the first of the slice's; the engine's batch) and the
+#: completion tokens the K path decodes (one chunk)
+MESH_K_PROMPTS, MESH_K_TOKENS = 8, 10
+#: (g): one MoE layer at Mixtral-8x7B's published widths
+#: (mistralai/Mixtral-8x7B-v0.1 config.json: hidden_size 4096,
+#: intermediate_size 14336, num_local_experts 8, num_experts_per_tok 2)
+MOE_HIDDEN, MOE_FFN, MOE_EXPERTS, MOE_TOP_K, MOE_TOKENS = (4096, 14336, 8, 2,
+                                                           1024)
+#: (g)'s tolerance: the dense path runs its experts in bf16, the sharded
+#: one in float32 (the reference's), so they part by bf16 rounding: the
+#: largest difference over the largest dense value; the aux losses part by
+#: float32 reduction order only
+MOE_RTOL, MOE_AUX_RTOL = 2e-2, 1e-5
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 4
 #: (c): the card against the CPU, float32, at FAMILY_LAYERS of Falcon-7B
 TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS = 2, 64, 2
@@ -9684,9 +9732,9 @@ def _mesh_engine(cfg, weights, tok, mesh=None, **ecfg):
 
     engine = emod.ScoringEngine(
         "falcon", cfg, weights, tok, device="cuda",
-        engine_config=emod.EngineConfig(decode_completions=False,
-                                        phase2_pool=False, batch_size=BATCH,
-                                        **ecfg))
+        engine_config=emod.EngineConfig(**{
+            "decode_completions": False, "phase2_pool": False,
+            "batch_size": BATCH, **ecfg}))
     return engine.bind_mesh(mesh) if mesh is not None else engine
 
 
@@ -9763,7 +9811,266 @@ def _mesh_rank_runs(rank, seed):
     finally:
         attention.causal_grouped_attention = kernel
         dist.all_reduce, dist.all_gather = real
-    return runs
+    legs = {}
+    for key, leg in (("c", _mesh_serve_leg), ("d", _mesh_slab_leg),
+                     ("e", _mesh_k_leg), ("f", _mesh_pool_leg)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        legs[key] = leg(rank, cfg, weights, tok, prompts)
+        torch.cuda.synchronize()
+        legs[key]["seconds"] = time.perf_counter() - t0
+    del weights
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    legs["g"] = _mesh_moe_leg(rank, seed)
+    legs["g"]["seconds"] = time.perf_counter() - t0
+    return runs, legs
+
+
+def _row_fields(rows):
+    return [[r["scan_found"], r["relative_prob"], r["yes_prob"],
+             r["no_prob"]] for r in rows]
+
+
+def mesh_serve_rows(prompts):
+    """(c)'s prompts: the indices of those in the MESH_SERVE_BUCKETS
+    buckets (the engine's default menu) that hold the most of them."""
+    import collections
+
+    from llm_interpretation_replication_tpu_torch.config import \
+        DEFAULT_BUCKETS
+    from llm_interpretation_replication_tpu_torch.runtime import batching
+
+    bucket = [batching.bucket_for(len(p), DEFAULT_BUCKETS) for p in prompts]
+    top = [b for b, _ in sorted(collections.Counter(bucket).items(),
+                                key=lambda kv: (-kv[1], kv[0]))]
+    keep = set(top[:MESH_SERVE_BUCKETS])
+    return [i for i, b in enumerate(bucket) if b in keep]
+
+
+def _mesh_serve_leg(rank, cfg, weights, tok, prompts):
+    """(c): the prompts of :func:`mesh_serve_rows` through the leader's
+    scheduler on dp2 and on tp2, slot admission on: rank 0 submits them
+    all before the loop starts and reads the rows, rank 1 follows.  Each
+    rank's engine calls and ring admissions (the engine's
+    ``slot_admitted``)."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.parallel import make_mesh
+    from llm_interpretation_replication_tpu_torch.serve import (
+        Scheduler, SchedulerConfig, ScoreRequest)
+    from llm_interpretation_replication_tpu_torch.utils import telemetry
+
+    out = {}
+    prompts = [prompts[i] for i in mesh_serve_rows(prompts)]
+    for name, shape in (("dp2", dict(data=2)), ("tp2", dict(model=2))):
+        engine = _mesh_engine(cfg, weights, tok, make_mesh(**shape),
+                              kv_dtype="int8", batch_size=MESH_SERVE_RING,
+                              phase2_pool_target=MESH_SERVE_RING)
+        before = telemetry.counters()
+        sched = Scheduler(engine, SchedulerConfig(
+            max_batch=MESH_SERVE_BATCH, max_wait_s=0.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = None
+        if sched.follower:
+            sched.start()
+        else:
+            futures = [sched.submit(ScoreRequest(prompt=p)) for p in prompts]
+            sched.start()
+            rows = _row_fields(f.result(timeout=600) for f in futures)
+        sched.close()
+        torch.cuda.synchronize()
+        delta = telemetry.counters_since(before)
+        out[name] = dict(rows=rows, follower=sched.follower,
+                         engine_calls=sched.engine_calls,
+                         admitted=int(delta.get("slot_admitted", 0)),
+                         serve_slot_admitted=int(delta.get(
+                             "serve_slot_admitted", 0)),
+                         ms=(time.perf_counter() - t0) * 1e3)
+        engine.close(release_params=False)
+    return out
+
+
+def _mesh_slab_leg(rank, cfg, weights, tok, prompts):
+    """(d): the KV-slab handoff on dp2: the prompts' undecided rows leave
+    one engine as host slabs and decode on another; the rows in prompt
+    order."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(data=2)
+    exporter = _mesh_engine(cfg, weights, tok, mesh, kv_dtype="int8")
+    importer = _mesh_engine(cfg, weights, tok, mesh, kv_dtype="int8")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, slabs = exporter.export_kv_slab(prompts)
+    decoded = importer.decode_kv_slabs(slabs)
+    torch.cuda.synchronize()
+    origs = [m["orig"] for slab in slabs for m in slab.metas]
+    for i, row in zip(origs, decoded):
+        rows[i] = row
+    for engine in (exporter, importer):
+        engine.close(release_params=False)
+    return dict(rows=_row_fields(rows), slab_rows=len(origs),
+                slab_bytes=sum(slab.nbytes() for slab in slabs),
+                ms=(time.perf_counter() - t0) * 1e3)
+
+
+def _mesh_k_leg(rank, cfg, weights, tok, prompts):
+    """(e): ``decode_k=K_DECODE`` on tp2 with a K-head distilled on the
+    mesh, against ``decode_k=1`` on tp2, both decoding MESH_K_TOKENS
+    completion tokens (the K path's completion chunks): the rows, the
+    head's digest on this rank, the accept rate and the ms of a K
+    chunk."""
+    import hashlib
+
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.parallel import make_mesh
+    from llm_interpretation_replication_tpu_torch.utils import telemetry
+
+    mesh = make_mesh(model=2)
+    prompts = prompts[:MESH_K_PROMPTS]
+    k = dict(kv_dtype="int8", decode_completions=True,
+             max_new_tokens=MESH_K_TOKENS, batch_size=MESH_K_PROMPTS)
+    k1 = _mesh_engine(cfg, weights, tok, mesh, **k)
+    ref = _row_fields(k1.score_prompts(prompts))
+    k1.close(release_params=False)
+    k4 = _mesh_engine(cfg, weights, tok, mesh, decode_k=K_DECODE, **k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    head = k4.distill_k_head_on(prompts)["w"]
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    digest = hashlib.sha256(
+        head.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    ).hexdigest()
+    chunks, chunk = [], k4._k_decode_chunk
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        try:
+            return chunk(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            chunks.append((time.perf_counter() - start) * 1e3)
+
+    k4._k_decode_chunk = timed
+    before = telemetry.counters()
+    rows = _row_fields(k4.score_prompts(prompts))
+    delta = telemetry.counters_since(before)
+    k4.close(release_params=False)
+    proposed = int(delta.get("k_blocks_proposed", 0))
+    rejected = int(delta.get("k_blocks_rejected", 0))
+    return dict(rows=rows, k1_rows=ref, head_digest=digest,
+                head_shape=list(head.shape), distill_s=distill_s,
+                k_chunks=len(chunks),
+                chunk_ms=sum(chunks) / len(chunks) if chunks else None,
+                k_blocks_proposed=proposed, k_blocks_rejected=rejected,
+                accept_rate=(1 - rejected / proposed) if proposed else None)
+
+
+def _mesh_pool_leg(rank, cfg, weights, tok, prompts):
+    """(f): an ``EnginePool`` of two replicas on ``carve_slices(2)``, one
+    rank each: rank 0 submits and reads the rows and the health document;
+    each rank reports the replicas it hosts."""
+    import torch.distributed as dist
+
+    from llm_interpretation_replication_tpu_torch.parallel import mesh
+    from llm_interpretation_replication_tpu_torch.serve import (
+        EnginePool, SchedulerConfig, ScoreRequest)
+    from llm_interpretation_replication_tpu_torch.serve.pool import PoolConfig
+
+    pool = EnginePool(PoolConfig(scheduler=SchedulerConfig(
+        max_batch=MESH_SERVE_BATCH, max_wait_s=0.0)))
+    slices = mesh.carve_slices(2)
+    for sl in slices:
+        pool.load("falcon-7b", _mesh_engine(
+            cfg, weights, tok, kv_dtype="int8", batch_size=MESH_SERVE_RING,
+            phase2_pool_target=MESH_SERVE_RING)
+            if rank in sl else None, devices=sl, owns_engine=False)
+    t0 = time.perf_counter()
+    rows = health = None
+    if pool.leads:
+        futures = [pool.submit(ScoreRequest(prompt=p)) for p in prompts]
+        rows = _row_fields(f.result(timeout=600) for f in futures)
+        health = pool.health()["replicas"]
+    hosted = sorted(r.rid for r in pool.replicas()
+                    if getattr(r, "hosted", False))
+    pool.close()
+    everyone = [None, None]
+    dist.all_gather_object(everyone, hosted)
+    return dict(rows=rows, health=health, hosted=everyone,
+                slices=[list(sl) for sl in slices],
+                ms=(time.perf_counter() - t0) * 1e3)
+
+
+def _mesh_moe_leg(rank, seed):
+    """(g): one MoE layer at Mixtral-8x7B's widths, bf16 weights and
+    MOE_TOKENS tokens from ``seed + 27`` (the same on both processes):
+    ``moe_mlp_sharded`` over the two ranks (MOE_EXPERTS / 2 experts each),
+    then, on rank 0, ``moe_mlp_dense`` on one process.  Each path's ms (a
+    warm call, then a timed one), the all_to_all bytes a rank, and the
+    tokens whose choices overflowed a capacity."""
+    import torch
+    import torch.distributed as dist
+
+    from llm_interpretation_replication_tpu_torch.ops import moe
+    from llm_interpretation_replication_tpu_torch.parallel import make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 27)
+    params = moe.init_moe_params(gen, MOE_HIDDEN, MOE_FFN, MOE_EXPERTS,
+                                 dtype=torch.bfloat16, device="cuda")
+    x = torch.randn((MOE_TOKENS, MOE_HIDDEN), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    mesh = make_mesh(data=2)
+    moved = [0]
+    real = dist.all_to_all_single
+
+    def all_to_all_single(out, inp, *args, **kwargs):
+        moved[0] += inp.numel() * inp.element_size()
+        return real(out, inp, *args, **kwargs)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t0) * 1e3
+
+    dist.all_to_all_single = all_to_all_single
+    try:
+        (y, aux), sharded_ms = timed(lambda: moe.moe_mlp_sharded(
+            params, x, mesh, top_k=MOE_TOP_K))
+    finally:
+        dist.all_to_all_single = real
+    # this rank's tokens whose choices found a capacity full
+    t = MOE_TOKENS // 2
+    gates, idx, _ = moe.route(params, x[rank * t:(rank + 1) * t], MOE_TOP_K)
+    cap = max(1, int(2.0 * MOE_TOP_K * t / MOE_EXPERTS))
+    dispatch, _ = moe._dispatch_tensors(gates, idx, MOE_EXPERTS, cap)
+    kept = dispatch.sum(dim=(1, 2)) == MOE_TOP_K
+    kept_all = [None, None]
+    dist.all_gather_object(kept_all, kept.cpu().tolist())
+    out = dict(sharded_ms=sharded_ms, all_to_all_bytes=moved[0] // 2,
+               capacity=cap, aux_sharded=float(aux),
+               overflowed_tokens=sum(k.count(False) for k in kept_all))
+    if rank == 0:
+        (yd, auxd), dense_ms = timed(lambda: moe.moe_mlp_dense(
+            params, x, top_k=MOE_TOP_K))
+        keep = torch.tensor(sum(kept_all, []), device="cuda")
+        err = float((y[keep].float() - yd[keep].float()).abs().max())
+        out.update(dense_ms=dense_ms, aux_dense=float(auxd),
+                   max_abs_err=err,
+                   dense_max_abs=float(yd.float().abs().max()),
+                   compared_tokens=int(keep.sum()))
+    del params, x
+    torch.cuda.empty_cache()
+    return out
 
 
 def _mesh_rank(rank, world, workdir, seed):
@@ -9791,7 +10098,7 @@ def _mesh_rank(rank, world, workdir, seed):
         dist.all_gather(parts, torch.full((2,), float(rank), device="cuda"))
         res["probe"] = dict(all_reduce=x.tolist(),
                             all_gather=[p.tolist() for p in parts])
-        res["runs"] = _mesh_rank_runs(rank, seed)
+        res["runs"], res["legs"] = _mesh_rank_runs(rank, seed)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(workdir, f"mesh_rank{rank}.json"), "w") as f:
@@ -9837,6 +10144,78 @@ def mesh_run_fails(res, ref_rows, num_heads):
                              f"rows")
         if res[0]["runs"][name]["rows"] != res[1]["runs"][name]["rows"]:
             fails.append(f"mesh {name}: the ranks' rows differ")
+    return fails
+
+
+def _class_fails(label, got, want):
+    """Rows ``[scan_found, relative, yes, no]`` against ``want`` in the
+    w8a8 class: verdicts identical, probabilities within MESH_W8A8_RTOL."""
+    if got is None or len(got) != len(want):
+        return [f"{label}: {None if got is None else len(got)} rows of "
+                f"{len(want)}"]
+    fails = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g[0] != w[0]:
+            fails.append(f"{label} row {i}: scan_found {g[0]} vs {w[0]}")
+        elif any(abs(a - b) > MESH_W8A8_RTOL * abs(b) + 1e-9
+                 for a, b in zip(g[1:], w[1:])):
+            fails.append(f"{label} row {i}: {g[1:]} vs {w[1:]}")
+    return fails
+
+
+def mesh_leg_fails(res, ref_rows, prompts):
+    """The gates of (c)-(g) on both ranks' results (``ref_rows`` the world
+    of one's rows of the same weights, on ``prompts``)."""
+    if any("legs" not in r for r in res):
+        return ["mesh: a rank returned no legs"]
+    legs = [r["legs"] for r in res]
+    fails = []
+    served = [ref_rows[i] for i in mesh_serve_rows(prompts)]
+    for name in ("dp2", "tp2"):
+        c = [leg["c"][name] for leg in legs]
+        fails += _class_fails(f"mesh (c) {name}", c[0]["rows"], served)
+        if [x["follower"] for x in c] != [False, True]:
+            fails.append(f"mesh (c) {name}: followers {[x['follower'] for x in c]}")
+        if c[0]["admitted"] < 1 or c[0]["serve_slot_admitted"] < 1:
+            fails.append(f"mesh (c) {name}: no mid-decode admission")
+        for key in ("admitted", "engine_calls"):
+            if c[0][key] != c[1][key]:
+                fails.append(f"mesh (c) {name}: {key} {c[0][key]} vs "
+                             f"{c[1][key]} on the ranks")
+    for rank, leg in enumerate(legs):
+        fails += _class_fails(f"mesh (d) rank {rank}", leg["d"]["rows"],
+                              ref_rows)
+        e = leg["e"]
+        fails += _class_fails(f"mesh (e) rank {rank}", e["rows"],
+                              e["k1_rows"])
+        if not e["k_chunks"] or not e["k_blocks_proposed"]:
+            fails.append(f"mesh (e) rank {rank}: the K path never ran")
+    if not legs[0]["d"]["slab_rows"]:
+        fails.append("mesh (d): no row left in a slab")
+    if legs[0]["e"]["head_digest"] != legs[1]["e"]["head_digest"]:
+        fails.append("mesh (e): the ranks' K-heads differ")
+    f = legs[0]["f"]
+    fails += _class_fails("mesh (f)", f["rows"], ref_rows)
+    if f["hosted"] != [["r0"], ["r1"]]:
+        fails.append(f"mesh (f): hosted {f['hosted']}")
+    docs = f["health"] or []
+    if len(docs) != 2 or not all(d.get("placement") == "sliced"
+                                 and d.get("devices") == 1
+                                 and d.get("completed", 0) > 0
+                                 for d in docs):
+        fails.append(f"mesh (f): health {docs}")
+    g = legs[0]["g"]
+    if not g.get("compared_tokens"):
+        fails.append("mesh (g): every token overflowed")
+    elif g["max_abs_err"] > MOE_RTOL * g["dense_max_abs"]:
+        fails.append(f"mesh (g): sharded against dense {g['max_abs_err']} "
+                     f"(largest dense {g['dense_max_abs']})")
+    if abs(g["aux_sharded"] - g.get("aux_dense", float("nan"))) > \
+            MOE_AUX_RTOL * abs(g.get("aux_dense", 0.0)) \
+            or g["aux_sharded"] != legs[1]["g"]["aux_sharded"]:
+        fails.append(f"mesh (g): aux {g['aux_sharded']} / "
+                     f"{legs[1]['g']['aux_sharded']} vs dense "
+                     f"{g.get('aux_dense')}")
     return fails
 
 
@@ -9917,9 +10296,24 @@ def mesh_phase(seed, attention, workdir, card):
         runs=[{name: {k: v for k, v in run.items() if k != "rows"}
                for name, run in r.get("runs", {}).items()} for r in ranks])
     fails += mesh_run_fails(ranks, ref_rows, small.num_heads)
+    fails += mesh_leg_fails(ranks, ref_rows, prompts)
+
+    def numbers(obj):
+        # a leg's printout: everything but its rows
+        if isinstance(obj, dict):
+            return {k: numbers(v) for k, v in obj.items()
+                    if k not in ("rows", "k1_rows")}
+        return obj
+
+    for key in "cdefg":
+        res[key] = [numbers(r.get("legs", {}).get(key)) for r in ranks]
+        res["legs_seconds"] = [
+            {k: v.get("seconds") for k, v in r.get("legs", {}).items()}
+            for r in ranks]
     res.update(card=card, seconds=time.perf_counter() - t_phase,
                budget_s=MESH_BUDGET_S, part_seconds=parts, failures=fails)
-    for key in ("a", "b", "part_seconds"):
+    for key in ("a", "b", "c", "d", "e", "f", "g", "legs_seconds",
+                "part_seconds"):
         say(f"mesh {key}", json.dumps(res[key]))
     if fails:
         raise AssertionError("mesh: " + "; ".join(fails[:10]))

@@ -95,8 +95,6 @@ import sys
 
 from .utils.checkpoint import writing_rank
 
-_ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
-
 
 def _add_run_config_args(p: argparse.ArgumentParser):
     p.add_argument("--strict", action="store_true",
@@ -456,15 +454,13 @@ def cmd_serve(args):
     harness; --pool-replicas N serves through an EnginePool of N
     shared-snapshot replicas (serve/pool.py: per-replica /healthz and
     labeled serve_* metrics, hot load/unload over the engine's
-    teardown)."""
+    teardown).  Under ``torchrun`` with ``--mesh-model``/``--mesh-seq``
+    every rank loads its blocks and runs the scheduler; the mesh's first
+    rank reads the requests, decides every launch and answers, and the
+    other ranks follow its decisions (serve/scheduler.py)."""
     from .serve.cli import main as serve_main
 
     rc = _run_config(args)
-    if rc.mesh_model > 1 or rc.mesh_seq > 1:
-        raise NotImplementedError(
-            f"serve on a mesh of more than one rank is not ported yet: a "
-            f"scheduler driven by the clock cannot take the same decision "
-            f"on every rank ({_ITEM_PAR})")
     engine = _engine_factory(rc)(args.model)
     raise SystemExit(serve_main(engine, args))
 

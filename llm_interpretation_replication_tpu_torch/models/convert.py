@@ -59,6 +59,18 @@ def params_from_jax(params_np: Dict, cfg, device=DEFAULT_DEVICE,
     return holder(cfg, tree)
 
 
+def moe_params_from_jax(params_np: Dict, device=DEFAULT_DEVICE,
+                        dtype="fp32") -> Dict[str, torch.Tensor]:
+    """The reference's MoE tree (``ops/moe.py``: ``router`` [H, E], ``wi``
+    [E, H, F], ``wo`` [E, F, H]; numpy leaves or anything ``np.asarray``
+    takes) -> the port's ``ops.moe`` tree of tensors on ``device`` in
+    ``dtype``."""
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype)
+    return {k: torch.from_numpy(np.asarray(params_np[k]).astype(np.float32))
+            .to(device=dev, dtype=dt) for k in ("router", "wi", "wo")}
+
+
 def random_params(cfg, seed: int = 0, device=DEFAULT_DEVICE,
                   dtype="bf16", scale: float = 0.02,
                   quant: str = "none") -> DecoderWeights:

@@ -870,15 +870,17 @@ def decode_steps(params, cfg: DecoderConfig, cache: KVCache, prev_logits,
 
 @torch.no_grad()
 def greedy_decode(params, cfg: DecoderConfig, token_ids, attention_mask,
-                  num_steps: int, eos_token_id: Optional[int] = None):
+                  num_steps: int, eos_token_id: Optional[int] = None,
+                  tp=None):
     """Batched greedy decode of right-padded prompts: one prefill and
     ``num_steps`` single-token steps.  Returns (tokens [B, num_steps], fp32
-    scores [B, num_steps, V] at each generated position)."""
+    scores [B, num_steps, V] at each generated position).  With ``tp`` the
+    rank's heads (the tokens and scores are whole)."""
     s = token_ids.shape[1]
-    last, cache = prefill(params, cfg, token_ids, attention_mask, s)
+    last, cache = prefill(params, cfg, token_ids, attention_mask, s, tp)
     tokens, scores, _, _, _ = decode_steps(
         params, cfg, cache, last, attention_mask.sum(-1), 0, num_steps,
-        eos_token_id, None, with_scores=True)
+        eos_token_id, None, with_scores=True, tp=tp)
     return tokens, scores
 
 
@@ -939,20 +941,49 @@ def init_k_head(cfg: DecoderConfig, k: int, seed: int = 0, dtype=None,
 
 
 @torch.no_grad()
+def distill_forward(params, cfg: DecoderConfig, token_ids, attention_mask,
+                    gen_steps: int, eos_token_id: Optional[int] = None,
+                    tp=None):
+    """The device half of :func:`distill_k_head`: each row greedy-generates
+    ``gen_steps`` tokens, and one teacher-forced forward over prompt and
+    continuation gives the final-normed hidden states along the greedy
+    path.  The continuation is appended right after each row's real tokens
+    (no padding between them), so the forward is one right-padded batch on
+    any attention path.  Returns (tokens [B, gen_steps], float32 hidden
+    [B, S + gen_steps, H]); with ``tp`` the rank's heads, both whole."""
+    tree = _tree(params)
+    dev = tree["embed"]["tokens"].device
+    gen = int(gen_steps)
+    ids = torch.as_tensor(token_ids, device=dev).long()
+    mask = torch.as_tensor(attention_mask, device=dev).to(torch.int32)
+    b, s = ids.shape
+    toks, _ = greedy_decode(tree, cfg, ids, mask, gen, eos_token_id, tp)
+    lens = mask.sum(-1).long()
+    slots = torch.arange(s + gen, device=dev)[None, :]
+    seq = torch.zeros((b, s + gen), dtype=torch.long, device=dev)
+    seq[:, :s] = ids * mask
+    seq.scatter_(1, lens[:, None] + torch.arange(gen, device=dev)[None], toks)
+    full_mask = (slots < (lens + gen)[:, None]).to(torch.int32)
+    x, _ = _trunk(tree, cfg, seq, full_mask, None, tp)
+    return toks, _final_hidden(cfg, tree, x).float()
+
+
+@torch.no_grad()
 def distill_k_head(params, cfg: DecoderConfig, token_ids, attention_mask,
                    k: int, eos_token_id: Optional[int] = None,
-                   gen_steps: Optional[int] = None, ridge: float = 1e-4):
+                   gen_steps: Optional[int] = None, ridge: float = 1e-4,
+                   forward=None):
     """Greedy self-distillation of the K-head on sample prompts.
 
-    Each row greedy-generates ``gen_steps`` tokens (default ``k + 4``); one
-    forward over prompt and continuation gives the final-normed hidden
-    states along the greedy path, and head ``i`` is the ridge probe from
-    the hidden at position ``t`` to the one-hot greedy token at ``t + 1 +
-    i``: the reference's normal equations (:func:`ridge_probe`), solved
-    with ``torch.linalg`` on the weights' device.  The continuation is appended right
-    after each row's real tokens (no padding between them), so the
-    teacher-forced forward is one right-padded batch on any attention
-    path.  The head is stored in the weights' dtype."""
+    Each row greedy-generates ``gen_steps`` tokens (default ``k + 4``) and
+    :func:`distill_forward` (or ``forward``, a function of its signature:
+    the engine's row-parallel one on a mesh) gives the final-normed hidden
+    states along the greedy path; head ``i`` is the ridge probe from the
+    hidden at position ``t`` to the one-hot greedy token at ``t + 1 + i``:
+    the reference's normal equations (:func:`ridge_probe`), solved with
+    ``torch.linalg`` on the weights' device.  The probes read only whole
+    tensors, so ranks that pass the same hidden states get the same head.
+    The head is stored in the weights' dtype."""
     tree = _tree(params)
     dtype = tree["embed"]["tokens"].dtype
     dev = tree["embed"]["tokens"].device
@@ -961,19 +992,12 @@ def distill_k_head(params, cfg: DecoderConfig, token_ids, attention_mask,
     if heads == 0:
         return {"w": torch.zeros((0, h_dim, v), dtype=dtype, device=dev)}
     gen = int(gen_steps or (k + 4))
-    ids = torch.as_tensor(token_ids, device=dev).long()
     mask = torch.as_tensor(attention_mask, device=dev).to(torch.int32)
-    b, s = ids.shape
-    toks, _ = greedy_decode(tree, cfg, ids, mask, gen, eos_token_id)
-    lens = mask.sum(-1).long()
-    slots = torch.arange(s + gen, device=dev)[None, :]
-    seq = torch.zeros((b, s + gen), dtype=torch.long, device=dev)
-    seq[:, :s] = ids * mask
-    seq.scatter_(1, lens[:, None] + torch.arange(gen, device=dev)[None], toks)
-    full_mask = (slots < (lens + gen)[:, None]).to(torch.int32)
-    x, _ = _trunk(tree, cfg, seq, full_mask, None)
-    hidden = _final_hidden(cfg, tree, x).float()               # [B, S+gen, H]
-    lens_np = lens.cpu().tolist()
+    b = mask.shape[0]
+    toks, hidden = (forward or distill_forward)(
+        params, cfg, torch.as_tensor(token_ids, device=dev).long(), mask,
+        gen, eos_token_id)
+    lens_np = mask.sum(-1).long().cpu().tolist()
     toks_np = toks.cpu().tolist()
     ws = []
     for i in range(1, heads + 1):
@@ -1043,7 +1067,7 @@ def k_verify_block(params, cfg: DecoderConfig, cache: KVCache, tail_k, tail_v,
                    prev_logits, lengths, offset: int, block_start: int,
                    proposals, eos_token_id: Optional[int] = None, done=None,
                    target_ids=None, with_scores="reduced",
-                   fold: bool = False) -> KVerifyOut:
+                   fold: bool = False, tp=None) -> KVerifyOut:
     """One joint forward over a proposed token block and its verification
     against the single-step argmax chain.
 
@@ -1060,7 +1084,10 @@ def k_verify_block(params, cfg: DecoderConfig, cache: KVCache, tail_k, tail_v,
     first mismatch are meaningless, so a caller keeps a pass only when every
     real row accepted.  ``fold=True`` (a chunk's last block) folds the tail
     into a new cache with ``decode_steps``' end-of-chunk fold, so the int8
-    quantization points are the sequential path's."""
+    quantization points are the sequential path's.  With ``tp`` the cache
+    and the tail hold the rank's K/V heads and the pass runs the rank's
+    query heads; its logits and hidden states, and so the chain and the
+    acceptance, are whole on every rank."""
     params = _tree(params)
     quantized = cache.k_scale is not None
     if quantized != (cfg.kv_cache_dtype == "int8"):
@@ -1083,21 +1110,23 @@ def k_verify_block(params, cfg: DecoderConfig, cache: KVCache, tail_k, tail_v,
     # slots of earlier blocks stay visible, later ones are masked; causality
     # inside the block comes from the position comparison, as in the steps
     tail_valid = (slots < block_start + kb)[None, :].expand(b, n)
-    bias_p = make_attention_bias(cfg, q_pos, cache.positions, cache.valid)
-    bias_t = make_attention_bias(cfg, q_pos, tail_positions, tail_valid)
+    bias_p = _tp_bias(make_attention_bias(cfg, q_pos, cache.positions,
+                                          cache.valid), tp)
+    bias_t = _tp_bias(make_attention_bias(cfg, q_pos, tail_positions,
+                                          tail_valid), tp)
     sin_cos = None
     if cfg.position_embedding == "rotary":
         sin_cos = rotary_embedding(q_pos, _rotary_dim(cfg), cfg.rope_theta,
                                    cdt)
-    x = _embed(cfg, params, proposals.long(), q_pos)
+    x = _embed(cfg, params, proposals.long(), q_pos, tp)
     layers = params["layers"]
     for li in range(cfg.num_layers):
         x = _block_decode(
             cfg, _layer(layers, li), x, sin_cos, bias_p, bias_t,
             cache.k[li], cache.v[li], tail_k[li], tail_v[li], block_start,
             cache.k_scale[li] if quantized else None,
-            cache.v_scale[li] if quantized else None)
-    hidden, logits_blk = _unembed_hidden(cfg, params, x)       # [B, kb, H|V]
+            cache.v_scale[li] if quantized else None, tp)
+    hidden, logits_blk = _unembed_hidden(cfg, params, x, tp)   # [B, kb, H|V]
     # the chain, position by position, with decode_steps' own step ops
     cur = done
     toks, outs = [], []

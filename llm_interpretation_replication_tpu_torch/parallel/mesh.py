@@ -17,6 +17,16 @@ engine's placements are ``data_rows`` (a rank's rows of a batch) with
 ``gather_rows`` back, and ``agree`` (every rank's MAX of a host flag).  The
 reference's replicated placement needs no function: one process a rank,
 every rank holds a replicated tensor whole.
+
+The control channel.  The reference has one controller, so a host
+decision (which requests a serve scheduler launches, which it admits
+mid-decode) is taken once.  Here every rank runs the host code, and a
+decision read off a clock would differ between ranks.  So one rank
+decides (:func:`leader`, the mesh's first rank) and sends the decision to
+the others before any rank acts on it (:func:`decide`), on a gloo group
+over the mesh's ranks (:func:`control_group`): the decisions are host
+objects, so they never touch the card.  :func:`make_mesh` makes the
+group; under a gloo world it is the world itself.
 """
 
 from __future__ import annotations
@@ -30,6 +40,11 @@ MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 PIPE_AXIS = "pipe"
 AXES = (DATA_AXIS, PIPE_AXIS, MODEL_AXIS, SEQ_AXIS)
+
+# the control channels: a gloo group for each mesh's ranks, by rank tuple
+_CONTROL = {}
+# the seconds a collective waits (initialize_distributed's ``timeout``)
+_TIMEOUT = [None]
 
 
 def mesh_shape(n_devices: int, data: Optional[int] = None, model: int = 1,
@@ -83,8 +98,70 @@ def make_mesh(
     from torch.distributed.device_mesh import DeviceMesh
 
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape),
+    mesh = DeviceMesh(device_type, torch.tensor(ranks).reshape(shape),
                       mesh_dim_names=AXES)
+    if len(ranks) > 1 and tuple(ranks) not in _CONTROL:
+        _CONTROL[tuple(ranks)] = _new_control_group(ranks)
+    return mesh
+
+
+def _new_control_group(ranks):
+    """A gloo group over ``ranks`` (the world's group under a gloo world
+    that they fill); every rank of the world calls this."""
+    import torch.distributed as dist
+
+    if dist.get_backend() == "gloo" and list(ranks) == list(
+            range(dist.get_world_size())):
+        return dist.group.WORLD
+    extra = {} if _TIMEOUT[0] is None else dict(
+        timeout=datetime.timedelta(seconds=_TIMEOUT[0]))
+    return dist.new_group(ranks=list(ranks), backend="gloo", **extra)
+
+
+def mesh_ranks(mesh) -> Tuple[int, ...]:
+    """The mesh's ranks, in its layout's order (rank 0 alone without a
+    mesh)."""
+    if mesh is None:
+        return (0,)
+    return tuple(int(r) for r in mesh.mesh.flatten().tolist())
+
+
+def leader(mesh) -> int:
+    """The rank that takes the mesh's host decisions: its first rank."""
+    return mesh_ranks(mesh)[0]
+
+
+def is_leader(mesh) -> bool:
+    """Whether this process is :func:`leader` (True without a mesh or a
+    process group)."""
+    import torch.distributed as dist
+
+    if mesh is None or not dist.is_initialized():
+        return True
+    return dist.get_rank() == leader(mesh)
+
+
+def control_group(mesh):
+    """The gloo group of the mesh's ranks (None for a mesh of one rank)."""
+    if mesh is None or mesh.size() == 1:
+        return None
+    return _CONTROL[mesh_ranks(mesh)]
+
+
+def decide(decision, mesh):
+    """The leader's ``decision`` (any picklable host object) on every rank
+    of ``mesh``: the leader passes it and the others pass None.  Blocks a
+    follower until the leader sends; raises when the group's timeout
+    expires or the leader's process is gone.  ``decision`` itself on a
+    mesh of one rank."""
+    group = control_group(mesh)
+    if group is None:
+        return decision
+    import torch.distributed as dist
+
+    box = [decision if is_leader(mesh) else None]
+    dist.broadcast_object_list(box, src=leader(mesh), group=group)
+    return box[0]
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -340,4 +417,10 @@ def initialize_distributed(
         "nccl" if device == "cuda" else "gloo",
         init_method=init_method or f"tcp://{coordinator_address}",
         world_size=num_processes or 1, rank=rank, **extra)
+    _CONTROL.clear()
+    _TIMEOUT[0] = timeout
+    world = tuple(range(dist.get_world_size()))
+    if len(world) > 1:
+        # host decisions travel beside the NCCL world, never on the card
+        _CONTROL[world] = _new_control_group(world)
     return True

@@ -77,13 +77,12 @@ calls run row-parallel over the mesh's ``data`` axis and tensor-parallel
 over ``model`` (``runtime/row_parallel.py``); every result, and so every
 host decision, is the same on every rank, and an OOM steps every rank down
 together.  ``score_prompts`` (every schedule), ``score_prefixed``,
-``score_packed``, the packed demonstrations and ``first_token_relative_prob``
-run there; slotted scoring, the KV-slab handoff and ``decode_k > 1`` do
-not yet.
+``score_packed``, the packed demonstrations, ``first_token_relative_prob``,
+slotted scoring (every rank fed the same admissions), the KV-slab handoff
+(a slab is whole on every rank) and ``decode_k > 1`` run there.
 
-Every ``EngineConfig`` field keeps the reference's name and default; a
-setting the port cannot honour yet raises ``NotImplementedError`` naming the
-ROADMAP.md item that will bring it.
+Every ``EngineConfig`` field keeps the reference's name and default, and
+every setting runs, on a mesh too.
 """
 
 from __future__ import annotations
@@ -109,9 +108,6 @@ from . import batching, faults, strict
 from . import plan as plan_mod
 from . import slots as slots_mod
 from .row_parallel import RowParallel
-
-_ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
-
 
 class EngineClosed(RuntimeError):
     """Scoring was attempted on a closed :class:`ScoringEngine`."""
@@ -221,29 +217,10 @@ class EngineConfig:
     oom_batch_ladder: Sequence[int] = ()
 
 
-def _check_supported(family, ecfg: EngineConfig, mesh) -> None:
-    """Raise NotImplementedError for every setting the port cannot honour:
-    on a mesh of more than one rank, the joint K-token decode."""
+def _check_supported(ecfg: EngineConfig) -> None:
+    """Raise for a setting the engine cannot honour."""
     if ecfg.kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_dtype {ecfg.kv_dtype!r}")
-    if _multi_rank(mesh) and int(ecfg.decode_k) > 1:
-        raise NotImplementedError(
-            f"decode_k > 1 on a mesh of more than one rank is not ported "
-            f"yet ({_ITEM_PAR})")
-
-
-def _multi_rank(mesh) -> bool:
-    return mesh is not None and mesh.size() > 1
-
-
-def _refuse_on_mesh(mesh, what: str) -> None:
-    """The routes the port does not run on a mesh of more than one rank:
-    a scheduler driven by the clock cannot take the same decision on every
-    rank."""
-    if _multi_rank(mesh):
-        raise NotImplementedError(
-            f"{what} on a mesh of more than one rank is not ported yet "
-            f"({_ITEM_PAR})")
 
 
 @dataclasses.dataclass
@@ -389,7 +366,7 @@ class ScoringEngine:
                  mesh=None, engine_config: Optional[EngineConfig] = None,
                  device=DEFAULT_DEVICE):
         ecfg = engine_config or EngineConfig()
-        _check_supported(family, ecfg, mesh)
+        _check_supported(ecfg)
         # the KV storage dtype lives on the decoder config: resolve the
         # engine knob into it once, at construction
         if (ecfg.kv_dtype != "bf16" and hasattr(cfg, "kv_cache_dtype")
@@ -433,7 +410,7 @@ class ScoringEngine:
             raise EngineClosed(
                 "ScoringEngine is closed -- its weights are released; "
                 "construct a new engine before scoring")
-        _check_supported(self.family, self.ecfg, self.mesh)
+        _check_supported(self.ecfg)
 
     def close(self, release_params: bool = True) -> None:
         """Release the device memory this engine pins and return the
@@ -511,7 +488,6 @@ class ScoringEngine:
         if self.mesh is not None and self._dev.tp is not None:
             raise ValueError("bind_mesh needs whole weights: this engine "
                              "already holds a model rank's blocks")
-        _check_supported(self.family, self.ecfg, mesh)
         kind = "t5" if self.is_encoder_decoder else "decoder"
         if axis_size(mesh, MODEL_AXIS) > 1:
             self.params = type(self.params)(self.cfg, sharding.shard_params(
@@ -1540,7 +1516,13 @@ class ScoringEngine:
                           gen_steps: Optional[int] = None):
         """Distill this engine's K-head on up to ``max_rows`` sample prompts
         (``models.decoder.distill_k_head``: ridge probes on the model's own
-        greedy continuations) and set it.  None when ``decode_k <= 1``."""
+        greedy continuations) and set it.  None when ``decode_k <= 1``.
+
+        On a mesh the greedy pass and the teacher-forced forward run
+        row-parallel and return whole tensors, and every rank solves the
+        probes on them: the same head on every rank, with no broadcast of
+        the head itself ((K-1) x hidden x vocab values, 1.77 GB at
+        Falcon-7B's widths in bf16 for K=4)."""
         self._check_open()
         if not self._k_enabled():
             return None
@@ -1559,7 +1541,7 @@ class ScoringEngine:
                 self.params, self.cfg, self._tensor(ids), self._tensor(mask),
                 k=int(self.ecfg.decode_k),
                 eos_token_id=getattr(self.tokenizer, "eos_token_id", None),
-                gen_steps=gen_steps)
+                gen_steps=gen_steps, forward=self._dev.distill_forward)
         record_counter("k_head_distilled")
         return self.k_head
 
@@ -1605,7 +1587,8 @@ class ScoringEngine:
         n_real = int(real_mask.sum()) if real_mask is not None else b
         cdt = (dmod._tree(self.params)["embed"]["tokens"].dtype
                if cache.k_scale is not None else cache.k.dtype)
-        tail_shape = (self.cfg.num_layers, b, n, self.cfg.num_kv_heads,
+        # the cache's own K/V heads: the rank's share under tp
+        tail_shape = (self.cfg.num_layers, b, n, cache.k.shape[3],
                       self.cfg.head_dim)
         tail_k = torch.zeros(tail_shape, dtype=cdt, device=prev.device)
         tail_v = torch.zeros(tail_shape, dtype=cdt, device=prev.device)
@@ -1618,7 +1601,7 @@ class ScoringEngine:
         while j < n:
             kb = 1 if hid is None else max(1, min(kmax, n - j))
             props = self._k_propose(hid, prev, kb, cur_done, eos_id)
-            out = dmod.k_verify_block(
+            out = self._dev.k_verify_block(
                 self.params, self.cfg, cache, tail_k, tail_v, prev, lens,
                 offset, j, props, eos_id, cur_done, target_ids,
                 with_scores=with_scores, fold=(j + kb >= n))
@@ -1633,7 +1616,7 @@ class ScoringEngine:
                 record_hist("accepted_k", a_min)
             if not ok:
                 record_counter("k_blocks_rejected")
-                toks, sc, cache, prev, cur_done = dmod.decode_steps(
+                toks, sc, cache, prev, cur_done = self._dev.decode_steps(
                     self.params, self.cfg, cache0, prev0, lens, offset, n,
                     eos_id, done0, with_scores=with_scores,
                     target_ids=target_ids)
@@ -1725,7 +1708,6 @@ class ScoringEngine:
         route: verdicts identical, probabilities in the chunked-prefill fp32
         class (PARITY.md "Decode-then-repack")."""
         self._check_open()
-        _refuse_on_mesh(self.mesh, "slotted scoring (score_prompts_slotted)")
         if self.is_encoder_decoder:
             raise ValueError("slotted scoring is decoder-only (T5 has no "
                              "decoder-side prompt cache to refill)")
@@ -1832,6 +1814,23 @@ class ScoringEngine:
                 _result_row(*(res_np[k][i] for k in _SCAN_FIELDS), ""),
                 (f3[0:1], f3[1:2], f3[2:3]), 0)
 
+    def _slab_kv_heads(self, cache, whole: bool):
+        """A slab holds every K/V head, whatever mesh exported it: under a
+        model axis that splits the K/V heads, the export gathers them
+        (``whole``) and the import keeps the rank's own.  The rows stay
+        whole on every rank; a ring's decode splits them over ``data``."""
+        tp = self._dev.tp
+        if tp is None or tp.kv_replicated:
+            return cache
+        if not whole:
+            return dmod.cache_kv_map(
+                cache, lambda t: t.narrow(3, *tp.kv_heads).contiguous())
+        from ..parallel import tensor_parallel
+
+        sizes = tensor_parallel.split_sizes(self.cfg.num_kv_heads, tp.size)
+        return dmod.cache_kv_map(cache, lambda t: tensor_parallel._all_gather(
+            t, 3, tp.group, sizes))
+
     def export_kv_slab(
         self,
         prompts: Sequence,
@@ -1850,7 +1849,6 @@ class ScoringEngine:
         (PARITY.md "Cross-replica KV handoff"): the round trip moves bytes,
         not values."""
         self._check_open()
-        _refuse_on_mesh(self.mesh, "the KV-slab handoff (export_kv_slab)")
         if self.is_encoder_decoder:
             raise ValueError("KV slab export is decoder-only (T5 has no "
                              "decoder-side prompt cache to hand off)")
@@ -1866,7 +1864,9 @@ class ScoringEngine:
                     parts = self._select_undecided(batch, ids_all, results,
                                                    0)
                     if parts is not None:
-                        slabs.append(slots_mod.slab_from_device(*parts))
+                        cache, *rest = parts
+                        slabs.append(slots_mod.slab_from_device(
+                            self._slab_kv_heads(cache, whole=True), *rest))
         if slabs:
             slots_mod.slot_counter(
                 "slot_slab_export_rows", sum(s.rows() for s in slabs),
@@ -1888,7 +1888,6 @@ class ScoringEngine:
         ``orig`` map them back.  ``admit_fn()`` may return more slabs
         between decode chunks, as in :meth:`score_prompts_slotted`."""
         self._check_open()
-        _refuse_on_mesh(self.mesh, "the KV-slab handoff (decode_kv_slabs)")
         if self.is_encoder_decoder:
             raise ValueError("KV slab decode is decoder-only")
         eos_id = getattr(self.tokenizer, "eos_token_id", None)
@@ -1901,6 +1900,7 @@ class ScoringEngine:
             results.extend([None] * slab.rows())
             cache, last, lens, row_ids, metas = slots_mod.slab_to_device(
                 slab, self.device)
+            cache = self._slab_kv_heads(cache, whole=False)
             # re-key to local result indices; the exporter's orig stays on
             # the slab for the caller's mapping
             local = [{"orig": base + i, "first3": m["first3"]}

@@ -26,7 +26,8 @@ rank (the data axis splits the compute, not the cache), so the plan
 search counts it whole on each rank (``plan_search.sharded_need_bytes``).
 A call's outputs move in one ``all_gather``; a call that extends its
 input cache (``decode_steps``, ``extend_prefill``) gathers only the slots
-it appended.
+it appended, and a K-token verify pass (``k_verify_block``) the slots its
+block wrote into the chunk's tail.
 
 The OOM ladder.  With one rank on ``model`` a forward holds no collective
 until its gather, so the ranks agree on its outcome first
@@ -113,12 +114,13 @@ class RowParallel:
         return dmod.cache_kv_map(c, cut, positions=cut(c.positions, 0),
                                  valid=cut(c.valid, 0))
 
-    def _gather(self, out, rows: int, base=None):
+    def _gather(self, out, rows: int, base=None, extra=()):
         """A call's outputs whole from the ranks' blocks, in one gather.  A
         call that extends its input cache (``base``, whole on every rank)
         appends slots to it without changing the old ones, so only the
-        appended slots are gathered."""
-        sends = []
+        appended slots are gathered.  ``extra`` (tensor, row axis) pairs
+        ride the same gather; their whole tensors come back second."""
+        sends = list(extra)
 
         def send(t, dim=0):
             sends.append((t, dim))
@@ -151,6 +153,8 @@ class RowParallel:
             lambda got, i=send(t): got[i]), cache)
         got = gather_rows([t for t, _ in sends], self.mesh,
                           [d for _, d in sends], rows=rows)
+        if extra:
+            return _resolve(pending, got), got[:len(extra)]
         return _resolve(pending, got)
 
     def _agree(self, code: int) -> int:
@@ -160,6 +164,11 @@ class RowParallel:
     def call(self, fn, params, cfg, *args, **kwargs):
         if self.mesh is None:
             return fn(params, cfg, *args, **kwargs)
+        return self._call(fn, params, cfg, args, kwargs)
+
+    def _call(self, fn, params, cfg, args, kwargs, gather=None):
+        """``call`` on a mesh; ``gather(out, rows, base)`` replaces
+        :meth:`_gather` for outputs it does not cover."""
         if self.tp is not None:
             kwargs["tp"] = self.tp
         rows = next(_rows(a) for a in args
@@ -192,8 +201,44 @@ class RowParallel:
                 raise PeerRankFailed("a peer rank of the mesh failed this "
                                      "device call")
         if split:
-            out = self._gather(out, rows, base)
+            out = (gather or self._gather)(out, rows, base)
         return out
+
+    def k_verify_block(self, params, cfg, cache, tail_k, tail_v, *args,
+                       **kwargs):
+        """``decoder.k_verify_block`` over the rank's rows and heads.  The
+        pass writes its block's K/V in place into the chunk's tail, which
+        the caller holds whole ([L, B, n, G, D]): on a data split each rank
+        writes its rows of a copy, and the gather brings back the block's
+        slots (``block_start .. block_start + kb``) of every row into the
+        caller's tail, beside the chain, the acceptance vector and, at the
+        chunk's last block, the folded cache's appended slots.  So every
+        rank reads the same whole acceptance before it decides."""
+        if self.data == 1:
+            return self.call(dmod.k_verify_block, params, cfg, cache, tail_k,
+                             tail_v, *args, **kwargs)
+        start = int(args[3] if len(args) > 3 else kwargs["block_start"])
+        whole = tail_k, tail_v
+        # the rank's rows of the tail, bound here: the split of the call's
+        # arguments cuts tensors by their leading axis, and a tail's is L
+        mine = [data_rows(t, self.mesh, dim=1).contiguous() for t in whole]
+
+        def fn(params, cfg, cache, *rest, **kw):
+            return dmod.k_verify_block(params, cfg, cache, *mine, *rest,
+                                       **kw)
+
+        def gather(out, rows, base):
+            kb = out.tokens.shape[1]
+            slots = [(t.narrow(2, start, kb), 1)
+                     for t in (out.tail_k, out.tail_v)]
+            out, got = self._gather(out._replace(tail_k=None, tail_v=None),
+                                    rows, base, extra=slots)
+            for t, block in zip(whole, got):
+                t[:, :, start:start + kb] = block
+            return out._replace(tail_k=whole[0], tail_v=whole[1])
+
+        return self._call(fn, params, cfg, (cache,) + args, kwargs,
+                          gather=gather)
 
     # the entry points the engine calls, as in models.decoder / models.t5
 
@@ -208,6 +253,9 @@ class RowParallel:
 
     def decode_steps(self, params, cfg, *args, **kwargs):
         return self.call(dmod.decode_steps, params, cfg, *args, **kwargs)
+
+    def distill_forward(self, params, cfg, *args, **kwargs):
+        return self.call(dmod.distill_forward, params, cfg, *args, **kwargs)
 
     def forward_anchor_logits(self, params, cfg, *args, **kwargs):
         return self.call(dmod.forward_anchor_logits, params, cfg, *args,

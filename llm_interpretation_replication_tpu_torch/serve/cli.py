@@ -17,6 +17,14 @@ The replay entry (``serve --replay perturbations.json``) rebuilds the
 perturbation sweep's prompt workload exactly as the offline sweep shell
 does and routes it through :func:`..serve.replay.replay`, asserting
 row-level parity and reporting scheduler-vs-offline throughput.
+
+On a mesh of ranks (``torchrun`` with ``--mesh-model``/``--mesh-seq``)
+every rank builds the same replay corpus, and only the mesh's leader
+reads ``--input`` (its lines reach the other ranks on the control
+channel where they need them), writes ``--output``, serves
+``--metrics-port``, draws ``--load-rate``'s arrivals and prints the
+report; the other ranks follow its scheduler (serve/scheduler.py) and
+exit with its code.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import json
 import sys
 from typing import Dict, Optional
 
+from ..parallel import mesh as pmesh
 from . import load as load_mod
 from .config import SchedulerConfig
 from .replay import replay
@@ -92,6 +101,12 @@ def _metrics_endpoint(sched, port: int, healthz_fn=None):
     print(f"# serve: metrics on :{server.port}/metrics, health on "
           f"/healthz", file=sys.stderr)
     return server
+
+
+def _mesh(engine):
+    """The engine's mesh when it has more than one rank, else None."""
+    mesh = getattr(engine, "mesh", None)
+    return mesh if mesh is not None and mesh.size() > 1 else None
 
 
 def _sibling(engine):
@@ -255,9 +270,15 @@ def run_load_cli(engine, args, config: SchedulerConfig, pool=None) -> int:
               f"to bracket a knee (got {len(rates)}); pass one rate or "
               f"add a third", file=sys.stderr)
         return 2
+    mesh = _mesh(engine)
+    leads = pmesh.is_leader(mesh)
     if args.replay:
         prompts, targets = load_mod.corpus_workload(
             args.replay, max_rephrasings=args.max_rephrasings)
+    elif not leads:
+        # the offline parity pass is an engine call: every rank needs the
+        # leader's prompt pool
+        prompts, targets = pmesh.decide(None, mesh)
     else:
         prompts, targets = [], []
         stream = sys.stdin if args.input == "-" else open(
@@ -277,6 +298,7 @@ def run_load_cli(engine, args, config: SchedulerConfig, pool=None) -> int:
         finally:
             if stream is not sys.stdin:
                 stream.close()
+        pmesh.decide((prompts, targets), mesh)
     if not prompts:
         print("# serve load: empty prompt pool (need --replay or "
               "--input lines)", file=sys.stderr)
@@ -287,7 +309,7 @@ def run_load_cli(engine, args, config: SchedulerConfig, pool=None) -> int:
     # run_load per rate point, so /healthz carries the generic liveness
     # document (no per-scheduler queue health here).
     server = None
-    if getattr(args, "metrics_port", 0):
+    if getattr(args, "metrics_port", 0) and leads:
         from ..obs import metrics as obs_metrics
 
         registry = obs_metrics.get_registry()
@@ -305,14 +327,18 @@ def run_load_cli(engine, args, config: SchedulerConfig, pool=None) -> int:
             block = load_mod.rate_sweep(engine, prompts, targets=targets,
                                         rates=rates,
                                         closed_comparator=True, **kw)
-            print(load_mod.format_rate_table(block), file=sys.stderr)
-            print(json.dumps(block, indent=2))
-            return 0 if block.get("parity_ok") in (True, None) else 1
-        report = load_mod.run_load(engine, prompts, targets=targets,
-                                   rate=rates[0], **kw)
-        print(json.dumps(report, indent=2))
-        parity = report.get("parity")
-        return 0 if parity is None or parity["mismatched_rows"] == 0 else 1
+            ok = block.get("parity_ok") in (True, None)
+            if leads:
+                print(load_mod.format_rate_table(block), file=sys.stderr)
+                print(json.dumps(block, indent=2))
+        else:
+            report = load_mod.run_load(engine, prompts, targets=targets,
+                                       rate=rates[0], **kw)
+            parity = report.get("parity")
+            ok = parity is None or parity["mismatched_rows"] == 0
+            if leads:
+                print(json.dumps(report, indent=2))
+        return 0 if pmesh.decide(ok, mesh) else 1
     finally:
         if server is not None:
             server.close()
@@ -331,6 +357,14 @@ def main(engine, args) -> int:
         slot_admission=not getattr(args, "no_slot_admission", False),
     )
     replicas = getattr(args, "pool_replicas", 0) or 0
+    mesh = _mesh(engine)
+    leads = pmesh.is_leader(mesh)
+    if replicas > 1 and mesh is not None:
+        raise ValueError(
+            "--pool-replicas with --mesh-model/--mesh-seq: a pool's "
+            "replicas on a mesh of ranks each take a slice of it "
+            "(EnginePool.load(devices=), parallel.mesh.carve_slices), "
+            "not one engine's mesh")
     pool = None
     # the bare --replay harness is single-engine parity by construction;
     # every other mode (JSONL driver, --load-rate — including load over
@@ -356,8 +390,15 @@ def main(engine, args) -> int:
             report = run_replay(engine, args.replay,
                                 max_rephrasings=args.max_rephrasings,
                                 config=config, require_parity=False)
-            print(json.dumps(report, indent=2))
-            return 0 if report["mismatched_rows"] == 0 else 1
+            if leads:
+                print(json.dumps(report, indent=2))
+            ok = pmesh.decide(report.get("mismatched_rows") == 0, mesh)
+            return 0 if ok else 1
+        if not leads:
+            # a follower answers no client: it runs the leader's engine
+            # calls until the leader closes
+            Scheduler(engine, config).start().close()
+            return 0
         in_stream = sys.stdin if args.input == "-" else open(
             args.input, encoding="utf-8")
         out_stream = sys.stdout if args.output == "-" else open(

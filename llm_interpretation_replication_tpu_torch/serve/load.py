@@ -242,6 +242,14 @@ def run_load(engine, prompts: Sequence, targets=("Yes", "No"),
     shed = 0
     sched = (scheduler_factory(cfg) if scheduler_factory is not None
              else Scheduler(engine, cfg).start())
+    if getattr(sched, "follower", False):
+        # a follower rank of a mesh: the leader draws the arrivals and
+        # reports; this rank runs its engine calls until it closes
+        sched.close()
+        if close_jsonl:
+            jsonl.close()
+        return {"mode": mode, "follower": True,
+                "engine_calls": sched.engine_calls}
     t0 = time.monotonic()
     depth = _DepthSampler(sched, t0)
     try:
@@ -460,6 +468,9 @@ def rate_sweep(engine, prompts: Sequence, targets=("Yes", "No"),
     finally:
         if close_jsonl:
             jsonl.close()
+    if points[0].get("follower"):
+        return {"follower": True, "rates": points, "closed_loop": closed,
+                "parity_ok": None}
 
     achieved = [p["achieved_rows_per_s"] or 0.0 for p in points]
     base_drain = min(p["drain_s"] for p in points)

@@ -42,8 +42,26 @@ the position-0 scan and ship undecided rows' int8/bf16 KV slabs
 whose slot rings import them mid-flight.  The router's role affinity
 keeps fresh prompts off decode replicas unless nothing else is live.
 
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP.md
-item: replicas on mesh slices (``devices=``; 'Parallel and training').
+Replicas on rank slices: ``load(..., devices=slice)`` with a slice of
+:func:`~..parallel.mesh.carve_slices` binds the replica's engine to
+``make_mesh(data=len(slice), devices=slice)``, as the reference binds it
+to a device slice.  One process a rank (``torchrun``): every rank builds
+the pool and loads every replica in the same order (the slices' groups
+are made collectively), and a rank hosts the replicas whose slice holds
+it.  World rank 0 is the pool's leader: it alone takes requests and
+routes them.  A replica whose slice holds rank 0 serves in its process;
+one on other ranks is a :class:`SliceReplica` there, whose requests go
+to the slice's first rank on a gloo pair group and whose rows come back
+on another (:class:`_SliceServer` on that rank); inside a slice of more
+than one rank the slice's first rank leads its scheduler and the others
+follow (serve/scheduler.py).  With fewer ranks than slices every slice is
+the whole world, the reference's shared placement: on a world of one
+rank (one card) the replicas share it.  A prefill replica hands its KV
+slabs only to a decode sibling in its own process; one on another slice
+decodes them itself.  Supervision (``supervise``) is for a pool in one
+process: its rebuild of a replica on slices of a world of ranks would
+make the slice's groups on one rank alone.
+
 Remote backends work in full, cost routing included: the vendor
 constructors :meth:`RemoteBackend.openai` / ``gemini`` / ``anthropic``
 over the port's API clients, or ``RemoteBackend(model, evaluate)`` over
@@ -64,6 +82,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from ..parallel import mesh as pmesh
 from ..utils.telemetry import record_counter
 from .config import SchedulerConfig
 from .request import (
@@ -74,10 +93,9 @@ from .request import (
     ScoreRequest,
     ServeError,
 )
+from .scheduler import IDLE_TICK_S as LINK_IDLE_S
 from .scheduler import Scheduler
 from .supervisor import ReplicaSupervisor, SupervisorConfig
-
-_ITEM_PAR = "ROADMAP.md queue 1, 'Parallel and training'"
 
 #: router reap tick while work is IN FLIGHT: replica futures resolve on
 #: replica threads that cannot signal the pool's condition, so completion
@@ -267,6 +285,16 @@ class _BaseReplica:
         return doc
 
 
+def _world() -> tuple:
+    """(rank, world size) of this process (0, 1 without a process
+    group)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
 class LocalReplica(_BaseReplica):
     """One resident :class:`ScoringEngine` behind its own
     :class:`Scheduler`.  ``owns_engine`` controls whether unload calls
@@ -274,8 +302,15 @@ class LocalReplica(_BaseReplica):
     tree (bench fleets over a single snapshot) release buffers only when
     the LAST sibling unloads.
 
-    ``devices`` (a mesh slice of the reference) is not ported: one H100
-    holds every replica, so it raises ``NotImplementedError``."""
+    ``devices`` (ranks: a slice of :func:`~..parallel.mesh.carve_slices`)
+    binds the replica's engine to ``make_mesh(data=len(devices),
+    devices=devices)`` before its scheduler starts, as the reference
+    binds it to a device slice.  Every rank of the world constructs the
+    replica (the mesh's groups are made collectively); a rank outside the
+    slice holds it unhosted (``hosted`` False, no scheduler).  The slice's
+    first rank leads the scheduler.  A slice of the whole world is the
+    shared placement (``placement`` in the health doc); without a process
+    group (one rank) the engine stays unbound."""
 
     def __init__(self, rid: str, model: str, engine,
                  config: SchedulerConfig, owns_engine: bool = True,
@@ -283,20 +318,40 @@ class LocalReplica(_BaseReplica):
                  share_group: Optional[ParamShareGroup] = None,
                  role: Optional[str] = None,
                  devices=None):
-        if devices is not None:
-            raise NotImplementedError(
-                f"replicas on mesh slices (devices=) are not ported yet "
-                f"({_ITEM_PAR})")
         super().__init__(rid, model, role=role)
         self.engine = engine
         self.owns_engine = owns_engine
         self.share_group = share_group
         self.plan_note = plan_note
-        self.devices = None
-        cfg = dataclasses.replace(
-            config, metric_labels={**(config.metric_labels or {}),
-                                   "replica": rid, "model": model})
-        self.scheduler = Scheduler(engine, cfg).start()
+        self.devices = None if devices is None else tuple(
+            int(d) for d in devices)
+        self.placement = None
+        self.hosted = True
+        #: the slice's request server (on its first rank, when the pool's
+        #: leader is another rank)
+        self.server = None
+        if self.devices is not None:
+            rank, world = _world()
+            self.placement = ("shared" if len(self.devices) >= world
+                              else "sliced")
+            if self.placement == "shared" and world > 1:
+                raise ValueError(
+                    f"replica {rid}: {len(self.devices)} ranks for a world "
+                    f"of {world}: replicas sharing more than one rank "
+                    f"would interleave their collectives; carve the world "
+                    f"into slices (parallel.mesh.carve_slices)")
+            if world > 1:
+                mesh = pmesh.make_mesh(data=len(self.devices),
+                                       devices=self.devices)
+                self.hosted = rank in self.devices
+                if self.hosted:
+                    engine.bind_mesh(mesh)
+        self.scheduler = None
+        if self.hosted:
+            cfg = dataclasses.replace(
+                config, metric_labels={**(config.metric_labels or {}),
+                                       "replica": rid, "model": model})
+            self.scheduler = Scheduler(engine, cfg).start()
 
     def dispatch(self, ticket: _PoolTicket) -> ScoreFuture:
         return self.scheduler.submit(ticket.request)
@@ -313,8 +368,12 @@ class LocalReplica(_BaseReplica):
         (:meth:`ScoringEngine.close` — verified buffer release).  A
         replica in a :class:`ParamShareGroup` releases the shared tree
         only when it is the LAST sibling to shut down, whatever the
-        unload order."""
+        unload order.  A slice's first rank first waits for the pool
+        leader's close (its request server); a follower rank, for its
+        scheduler's leader."""
         self.state = "closed"
+        if self.server is not None:
+            self.server.join()
         self.scheduler.close(drain=drain)
         close = getattr(self.engine, "close", None)
         if close is not None:
@@ -330,7 +389,245 @@ class LocalReplica(_BaseReplica):
         doc = super().health(max_age_s)
         if self.plan_note:
             doc["plan"] = self.plan_note
+        _slice_health(doc, self)
         return doc
+
+
+def _slice_health(doc: Dict, replica) -> None:
+    """A sliced replica's placement in its health doc: ``devices`` (its
+    rank count, as the reference counts devices), ``ranks`` and
+    ``placement`` ("shared" or "sliced")."""
+    if replica.devices is not None:
+        doc["devices"] = len(replica.devices)
+        doc["ranks"] = list(replica.devices)
+        doc["placement"] = replica.placement
+
+
+def _pair_group(a: int, b: int):
+    """A gloo group over ranks ``a`` and ``b`` (every rank calls this)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    extra = {} if pmesh._TIMEOUT[0] is None else dict(
+        timeout=datetime.timedelta(seconds=pmesh._TIMEOUT[0]))
+    return dist.new_group(ranks=sorted({a, b}), backend="gloo", **extra)
+
+
+class _SliceLink:
+    """The pool leader's line to a slice's first rank: one gloo pair group
+    a direction, each read by one thread and written by one."""
+
+    def __init__(self, leader: int, head: int):
+        self.leader, self.head = leader, head
+        self.down = _pair_group(leader, head)
+        self.up = _pair_group(leader, head)
+        self.idle_s = (pmesh._TIMEOUT[0] / 4.0 if pmesh._TIMEOUT[0]
+                       else LINK_IDLE_S)
+
+    @staticmethod
+    def _send(msg, dst, group) -> None:
+        import torch.distributed as dist
+
+        dist.send_object_list([msg], dst=dst, group=group)
+
+    @staticmethod
+    def _recv(src, group):
+        import torch.distributed as dist
+
+        box = [None]
+        dist.recv_object_list(box, src=src, group=group)
+        return box[0]
+
+    def send_down(self, msg) -> None:
+        self._send(msg, self.head, self.down)
+
+    def recv_down(self):
+        return self._recv(self.leader, self.down)
+
+    def send_up(self, msg) -> None:
+        self._send(msg, self.leader, self.up)
+
+    def recv_up(self):
+        return self._recv(self.head, self.up)
+
+
+def _portable(err: BaseException) -> BaseException:
+    """``err`` if it pickles (it crosses ranks), else a ServeError with
+    its type and message."""
+    import pickle
+
+    try:
+        pickle.loads(pickle.dumps(err))
+        return err
+    except Exception:  # graftlint: disable=G05 any pickling failure means the error cannot travel as itself; its text still does
+        return ServeError(f"{type(err).__name__}: {err}")
+
+
+class SliceReplica(_BaseReplica):
+    """The pool leader's handle of a replica whose slice it is not in: a
+    dispatch sends the request to the slice's first rank, and a reader
+    thread resolves the returned rows and errors onto the futures."""
+
+    def __init__(self, rid: str, model: str, link: _SliceLink, devices,
+                 placement: str, role: Optional[str] = None):
+        super().__init__(rid, model, role=role)
+        self.link = link
+        self.devices = tuple(devices)
+        self.placement = placement
+        self._pending: Dict[int, ScoreFuture] = {}
+        self._lock = threading.Lock()
+        self._send_lock = threading.Lock()
+        self._seq = itertools.count()
+        self._last_sent = time.monotonic()
+        self.error: Optional[BaseException] = None
+        self._reader = threading.Thread(target=self._read, daemon=True,
+                                        name=f"pool-slice-{rid}")
+        self._reader.start()
+
+    def _send(self, msg) -> None:
+        with self._send_lock:
+            self.link.send_down(msg)
+            self._last_sent = time.monotonic()
+
+    def tick(self) -> None:
+        """An idle message when the line has been quiet a while, so that
+        the slice's server does not time out waiting."""
+        if (self.state == "live"
+                and time.monotonic() - self._last_sent >= self.link.idle_s):
+            self._send(("idle",))
+
+    def dispatch(self, ticket: _PoolTicket) -> ScoreFuture:
+        if self.state != "live" or self.error is not None:
+            raise SchedulerClosed(f"replica {self.rid} is shut down")
+        future = ScoreFuture()
+        seq = next(self._seq)
+        with self._lock:
+            self._pending[seq] = future
+        self._send(("request", seq, ticket.request))
+        return future
+
+    def _read(self) -> None:
+        try:
+            while True:
+                msg = self.link.recv_up()
+                if msg[0] == "idle":
+                    continue
+                if msg[0] == "closed":
+                    break
+                _, seq, row, err, timing = msg
+                with self._lock:
+                    future = self._pending.pop(seq, None)
+                if future is None:
+                    continue
+                future.timing = timing
+                if err is not None:
+                    future._set_exception(err)
+                else:
+                    future._set_result(row)
+        # graftlint: disable=G05 a broken line fails every pending request with its error below; nothing above this thread could take it
+        except Exception as err:
+            self.error = err
+            self.state = "closed"      # the router selects it no more
+        with self._lock:
+            left, self._pending = list(self._pending.values()), {}
+        for future in left:
+            future._set_exception(self.error or SchedulerClosed(
+                f"replica {self.rid} shut down before the request "
+                f"completed"))
+
+    def shutdown(self, drain: bool = True, **_kw) -> None:
+        self.state = "closed"
+        if self.error is None:
+            self._send(("close", drain))
+        self._reader.join()
+
+    def health(self, max_age_s: float) -> Dict:
+        doc = super().health(max_age_s)
+        _slice_health(doc, self)
+        return doc
+
+
+class _SliceServer:
+    """On a slice's first rank (not the pool leader): requests from the
+    leader go into the slice's scheduler, and their rows and errors go
+    back as they resolve."""
+
+    def __init__(self, replica: LocalReplica, link: _SliceLink):
+        self.replica = replica
+        self.link = link
+        self._waiting: List = []
+        self._lock = threading.Lock()
+        self._closing = threading.Event()
+        self.error: Optional[BaseException] = None
+        self._threads = [
+            threading.Thread(target=self._serve, daemon=True,
+                             name=f"pool-serve-{replica.rid}"),
+            threading.Thread(target=self._answer, daemon=True,
+                             name=f"pool-answer-{replica.rid}")]
+        for t in self._threads:
+            t.start()
+
+    def _serve(self) -> None:
+        drain = True
+        try:
+            while True:
+                msg = self.link.recv_down()
+                if msg[0] == "idle":
+                    continue
+                if msg[0] == "close":
+                    drain = msg[1]
+                    break
+                _, seq, request = msg
+                try:
+                    future = self.replica.scheduler.submit(request)
+                except ServeError as err:
+                    future = ScoreFuture()
+                    future._set_exception(err)
+                with self._lock:
+                    self._waiting.append((seq, future))
+        # graftlint: disable=G05 a broken line ends this server; join() raises it on the rank's own thread
+        except Exception as err:
+            self.error = err
+        finally:
+            self.replica.scheduler.close(drain=drain)
+            self._closing.set()
+
+    def _answer(self) -> None:
+        last = time.monotonic()
+        try:
+            while True:
+                with self._lock:
+                    ready = [w for w in self._waiting if w[1].done()]
+                    for w in ready:
+                        self._waiting.remove(w)
+                    idle = not self._waiting
+                for seq, future in ready:
+                    err = future.exception(timeout=0)
+                    self.link.send_up((
+                        "row", seq,
+                        None if err is not None else future.result(0),
+                        None if err is None else _portable(err),
+                        future.timing))
+                    last = time.monotonic()
+                if ready:
+                    continue
+                if self._closing.is_set() and idle:
+                    self.link.send_up(("closed",))
+                    return
+                if time.monotonic() - last >= self.link.idle_s:
+                    self.link.send_up(("idle",))
+                    last = time.monotonic()
+                time.sleep(DISPATCH_TICK_S)
+        # graftlint: disable=G05 a broken line ends this server; join() raises it on the rank's own thread
+        except Exception as err:
+            self.error = self.error or err
+
+    def join(self) -> None:
+        for t in self._threads:
+            t.join()
+        if self.error is not None:
+            raise self.error
 
 
 class RemoteBackend:
@@ -551,6 +848,9 @@ class EnginePool:
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
         self._closed = False
+        #: world rank 0 takes the requests and routes them (one process
+        #: a rank; every rank builds the pool and loads every replica)
+        self.leads = _world()[0] == 0
         self.supervisor: Optional[ReplicaSupervisor] = None
         if self.config.supervision is not None:
             self.supervisor = ReplicaSupervisor(
@@ -597,12 +897,16 @@ class EnginePool:
         least-loaded live ``"decode"`` sibling of the same model, whose
         slot ring imports them mid-flight; when no decode sibling is
         live the prefill replica decodes locally (always-answered beats
-        role purity).  ``devices`` (a mesh slice) is not ported and
-        raises."""
+        role purity).  ``devices`` (ranks: a slice of
+        :func:`~..parallel.mesh.carve_slices`) binds the replica to
+        ``make_mesh(data=len(devices), devices=devices)``; on a world of
+        ranks every rank makes this call for every replica, in the same
+        order, with the engine of each replica it hosts (None for one it
+        does not)."""
         if role not in (None, "prefill", "decode"):
             raise ValueError(
                 f"role must be None, 'prefill', or 'decode': {role!r}")
-        if plan is not None:
+        if plan is not None and engine is not None:
             engine.ecfg = replica_engine_config(engine.ecfg, plan)
             plan_note = plan_note or plan.reason
         with self._wake:
@@ -617,7 +921,21 @@ class EnginePool:
                                    plan_note=plan_note,
                                    share_group=share_group,
                                    role=role, devices=devices)
-            if role == "prefill":
+            rank, world = _world()
+            link = None
+            if replica.devices is not None and world > 1 \
+                    and replica.devices[0] != 0:
+                link = _SliceLink(0, replica.devices[0])
+            if link is not None and self.leads:
+                replica = SliceReplica(rid, model, link, replica.devices,
+                                       replica.placement, role=role)
+            elif link is not None and rank == replica.devices[0]:
+                replica.server = _SliceServer(replica, link)
+            if not (self.leads or replica.hosted):
+                # a replica of another slice: nothing of it on this rank
+                record_counter("pool_replicas_loaded")
+                return replica
+            if role == "prefill" and isinstance(replica, LocalReplica):
                 replica.scheduler.handoff = self._make_handoff(replica)
             self._replicas[rid] = replica
             self._known_models.add(model)
@@ -698,6 +1016,9 @@ class EnginePool:
         :class:`DeadlineExceeded`, and the replica leg gets only the
         remaining budget), and higher ``priority`` dispatches first."""
         request.validate()
+        if not self.leads:
+            raise ServeError("a pool on a world of ranks takes requests on "
+                             "rank 0 only")
         model = model or getattr(request, "model", None)
         now = time.monotonic()
         with self._wake:
@@ -813,6 +1134,9 @@ class EnginePool:
                     return
                 dispatched = self._dispatch_ready()
                 resolved = self._reap_inflight()
+                for replica in self._replicas.values():
+                    if isinstance(replica, SliceReplica):
+                        replica.tick()
                 if not dispatched and not resolved:
                     # replica futures resolve on replica threads that
                     # cannot signal this condition, so IN-FLIGHT work

@@ -72,7 +72,11 @@ def replay(engine, prompts: Sequence, targets=("Yes", "No"),
     ``offline_rows``/``offline_s`` reuse an already-measured offline pass
     (bench mode) instead of re-scoring.  ``require_parity=True`` raises
     :class:`ServeError` on any mismatched row — the replay contract is
-    row-IDENTICAL results, with mismatches named, never a silent skew."""
+    row-IDENTICAL results, with mismatches named, never a silent skew.
+
+    On a mesh of ranks every rank calls this alike (the offline pass is an
+    engine call); a follower rank's report is ``{"rows", "follower":
+    True, "engine_calls"}``."""
     prompts = list(prompts)
     per_targets = _per_request_targets(targets, len(prompts))
     if offline_rows is None:
@@ -88,6 +92,12 @@ def replay(engine, prompts: Sequence, targets=("Yes", "No"),
     wait_total0 = sample_total("serve_queue_wait_ms")
     lat_total0 = sample_total("serve_latency_ms")
     sched = Scheduler(engine, cfg)
+    if sched.follower:
+        # a follower rank of a mesh runs the leader's engine calls until
+        # the leader closes; the report is the leader's
+        sched.start().close()
+        return {"rows": len(prompts), "follower": True,
+                "engine_calls": sched.engine_calls}
     # the serve clock starts BEFORE submission: per-request host
     # tokenization happens inside submit(), and the offline side pays the
     # same tokenization inside its timed score_prompts call — excluding

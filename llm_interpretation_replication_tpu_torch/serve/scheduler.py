@@ -32,6 +32,22 @@ never around them:
 - **Telemetry** — admission, rejection, batching factor, queue-depth and
   latency distributions land in the ``serve_*`` counters/samples
   (utils/telemetry.py).
+- **A mesh of ranks** — the engine's device calls are collective, and
+  each rank runs its own copy of this scheduler, so every rank must make
+  the same engine calls on the same inputs in the same order.  The
+  decisions read the clock (the max-wait hold, deadlines, what a
+  mid-decode admission finds queued), so only the mesh's leader
+  (``parallel.mesh.leader``) takes them: it runs :meth:`Scheduler._loop`
+  and sends each decision on the mesh's control channel
+  (``parallel.mesh.decide``) before it acts on it: every engine call
+  (its route, inputs and config overrides), every ``admit()`` result, an
+  idle tick while it waits, and a close at shutdown.  The other ranks
+  (followers) run :meth:`Scheduler._follow`: the same engine calls on the
+  same inputs, their ``admit`` hooks fed from the channel; they answer
+  no client.  A follower whose leader is gone ends with an error when the
+  channel's timeout expires.  Under a ``model`` axis of more than one
+  rank an OOM inside a forward is final (``runtime/row_parallel.py``), so
+  the leader fails the micro-batch with it instead of splitting.
 
 Thread model: ``submit`` is safe from any thread (tokenization happens on
 the submitting thread); ALL engine access is serialized on the single
@@ -49,6 +65,7 @@ from typing import List, Optional
 import torch
 
 from ..obs import tracer as obs
+from ..parallel import mesh as pmesh
 from ..runtime import faults
 from ..runtime.engine import LegSpec
 from ..utils.telemetry import (
@@ -66,7 +83,13 @@ from .request import (
     SchedulerClosed,
     ScoreFuture,
     ScoreRequest,
+    ServeError,
 )
+
+#: the leader's longest silence on the control channel before it sends an
+#: idle tick (the channel's timeout / 4 when one is set), so that a
+#: follower waiting through a quiet spell does not time out
+IDLE_TICK_S = 60.0
 
 
 #: Streaming latency-anatomy histograms (telemetry.record_hist — exact
@@ -152,6 +175,18 @@ class Scheduler:
         # nudging pop_group's ready_fn probe in between.
         self._slabs: List = []
         self._slab_lock = threading.Lock()
+        # on a mesh of more than one rank: the leader decides, the other
+        # ranks follow (module docstring)
+        mesh = getattr(engine, "mesh", None)
+        self._mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        self.follower = (self._mesh is not None
+                         and not pmesh.is_leader(self._mesh))
+        self._last_sent = time.monotonic()
+        self._idle_s = (pmesh._TIMEOUT[0] / 4.0 if pmesh._TIMEOUT[0]
+                        else IDLE_TICK_S)
+        self._follow_error: Optional[BaseException] = None
+        # the engine calls this rank made, leader or follower
+        self.engine_calls = 0
 
     # -- telemetry (labeled twin per metric when metric_labels is set) ---
 
@@ -177,7 +212,8 @@ class Scheduler:
             raise SchedulerClosed("scheduler is shut down")
         if self._thread is None:
             self._thread = threading.Thread(
-                target=self._loop, name="serve-scheduler", daemon=True)
+                target=self._follow if self.follower else self._loop,
+                name="serve-scheduler", daemon=True)
             self._thread.start()
         return self
 
@@ -190,6 +226,14 @@ class Scheduler:
             return
         self._closed = True
         self.queue.close()
+        if self.follower:
+            # a follower ends with its leader's close (or the channel's
+            # error): no drain window of its own
+            if self._thread is not None:
+                self._thread.join()
+            if self._follow_error is not None:
+                raise self._follow_error
+            return
         if self._thread is not None:
             self._thread.join(
                 timeout if timeout is not None
@@ -238,6 +282,10 @@ class Scheduler:
         after shutdown.  An already-expired deadline resolves the future
         with :class:`DeadlineExceeded` (counted, never dropped)."""
         request.validate()
+        if self.follower:
+            raise ServeError(
+                f"a follower rank answers no client: submit on the mesh's "
+                f"leader (rank {pmesh.leader(self._mesh)})")
         if self._closed:
             # typed rejection, counted like its QueueFull/DeadlineExceeded
             # siblings so the serve_rejected_* split stays complete
@@ -296,12 +344,116 @@ class Scheduler:
     def _slabs_ready(self) -> bool:
         return bool(self._slabs)
 
+    # -- the control channel (a mesh of more than one rank) ---------------
+
+    def _send(self, *decision) -> None:
+        """Send one decision to the followers (the leader's side; nothing
+        without a mesh)."""
+        if self._mesh is not None:
+            pmesh.decide(decision, self._mesh)
+            self._last_sent = time.monotonic()
+
+    def _tick_due(self) -> bool:
+        return (self._mesh is not None
+                and time.monotonic() - self._last_sent >= self._idle_s)
+
+    def _woken(self) -> bool:
+        return self._slabs_ready() or self._tick_due()
+
+    def _engine_call(self, route: str, *args, ov=None, admit=None):
+        """One engine call of ``route``, the same on the leader and on a
+        follower: ``plain`` and ``prefixed`` score, ``slotted`` and
+        ``slabs`` decode through the slot ring with the ``admit`` hook,
+        ``export`` runs the prefill half of the KV-slab handoff."""
+        self.engine_calls += 1
+        eng = self.engine
+        ctx = getattr(eng, "config_overrides", None)
+        with (ctx(**ov) if ctx is not None and ov
+              else contextlib.nullcontext()):
+            if route == "plain":
+                prompts, targets, conf, max_new = args
+                return eng.score_prompts(prompts, targets=targets,
+                                         with_confidence=conf,
+                                         max_new_tokens=max_new)
+            if route == "prefixed":
+                pairs, targets, conf, max_new = args
+                return eng.score_prefixed(
+                    pairs, targets=targets,
+                    legs=[LegSpec("serve", with_confidence=conf,
+                                  max_new_tokens=max_new)])[0]
+            if route == "slotted":
+                prompts, pair_list = args
+                return eng.score_prompts_slotted(prompts, targets=pair_list,
+                                                 admit_fn=admit)
+            if route == "export":
+                prompts, pair_list = args
+                return eng.export_kv_slab(prompts, targets=pair_list)
+            if route == "slabs":
+                slabs, = args
+                return eng.decode_kv_slabs(slabs, admit_fn=admit)
+        raise ValueError(f"unknown route {route!r}")
+
+    def _follow(self) -> None:
+        """A follower's loop: every engine call the leader makes, on the
+        leader's inputs, until the leader's close.  Errors of an engine
+        call are the leader's too (its futures carry them); an error of the
+        channel itself ends the loop and :meth:`close` raises it."""
+
+        def admit():
+            kind, payload = pmesh.decide(None, self._mesh)
+            if kind != "admit":
+                raise ServeError(f"follower expected an admission, got "
+                                 f"{kind!r} from the leader")
+            return payload
+
+        try:
+            while True:
+                decision = pmesh.decide(None, self._mesh)
+                kind = decision[0]
+                if kind == "close":
+                    return
+                if kind == "idle":
+                    continue
+                if kind != "call":
+                    raise ServeError(f"follower expected an engine call, "
+                                     f"got {kind!r} from the leader")
+                _, route, args, ov = decision
+                try:
+                    self._engine_call(route, *args, ov=ov, admit=admit)
+                # graftlint: disable=G05 the leader met the same error in the same call and answers its clients with it; a follower answers none
+                except Exception as err:
+                    if faults.is_oom(err):
+                        self._release_failed_launch(err)
+        # graftlint: disable=G05 a channel error ends the follower: close() raises it to the caller
+        except Exception as err:
+            self._follow_error = err
+
+    def _call_route(self, route: str, *args, ov=None, admit=None):
+        """The leader's engine call: its decision goes to the followers
+        first, then the call runs here."""
+        self._send("call", route, args, ov)
+        return self._engine_call(route, *args, ov=ov, admit=admit)
+
+    def _admitted(self, payload):
+        """An ``admit()`` result, sent to the followers before the engine
+        consumes it."""
+        self._send("admit", payload)
+        return payload
+
     def _loop(self) -> None:
+        try:
+            self._lead()
+        finally:
+            self._send("close")
+
+    def _lead(self) -> None:
         while True:
             t_pop = time.monotonic()
             group, expired = self.queue.pop_group(
                 self._max_batch(), self.config.max_wait_s,
-                ready_fn=self._slabs_ready)
+                ready_fn=self._woken)
+            if self._tick_due():
+                self._send("idle")
             hold_start = None
             if group:
                 # the admission window: how long the loop held the head
@@ -346,7 +498,7 @@ class Scheduler:
         if ticket.future._set_exception(err) and counter:
             self._counter(counter)
 
-    def _engine_overrides(self, group: List[Ticket]):
+    def _engine_overrides(self, group: List[Ticket]) -> dict:
         """Per-launch EngineConfig overrides: the serve path owns OOM
         recovery (in-place ladder disarmed), split chunks carry the
         stepped-down batch size they re-entered the queue with, and a
@@ -361,8 +513,7 @@ class Scheduler:
         req_k = getattr(group[0].request, "decode_k", None)
         if req_k is not None:
             ov["decode_k"] = int(req_k)
-        ctx = getattr(self.engine, "config_overrides", None)
-        return ctx(**ov) if ctx is not None else contextlib.nullcontext()
+        return ov
 
     def _finish_ticket(self, t: Ticket, row, launch_t: float,
                        done: float) -> None:
@@ -406,18 +557,17 @@ class Scheduler:
         pair_list = [tuple(t.request.targets) for t in group]
         prompts = [t.encoded if t.encoded is not None
                    else t.request.prompt for t in group]
+        ov = self._engine_overrides(group)
         try:
-            with self._engine_overrides(group):
-                with obs.span("serve_engine", phase="serve_engine",
-                              batch=len(group),
-                              trace_id=group[0].trace_id):
-                    rows0, slabs = faults.retry_transient(
-                        lambda: self.engine.export_kv_slab(
-                            prompts, targets=pair_list),
-                        self.config.retry_policy, label="serve")()
+            with obs.span("serve_engine", phase="serve_engine",
+                          batch=len(group), trace_id=group[0].trace_id):
+                rows0, slabs = faults.retry_transient(
+                    lambda: self._call_route("export", prompts, pair_list,
+                                             ov=ov),
+                    self.config.retry_policy, label="serve")()
         # graftlint: disable=G05 same serve fault boundary as _launch: OOM routes to the split/re-queue ladder, everything else lands typed on the futures
         except Exception as err:
-            if faults.is_oom(err) and self._split_requeue(group, err):
+            if self._may_split(err) and self._split_requeue(group, err):
                 return
             self._counter("serve_failed", len(group))
             for t in group:
@@ -485,10 +635,10 @@ class Scheduler:
                 for e in more:
                     self._slabs.remove(e)
             if not more:
-                return None
+                return self._admitted(None)
             admitted_entries.extend(more)
             self._counter("serve_slab_admitted", len(more))
-            return note(more)
+            return self._admitted(note(more))
 
         def call():
             if admitted_entries:
@@ -500,15 +650,14 @@ class Scheduler:
                     self._slabs[:0] = admitted_entries
                 admitted_entries.clear()
                 del flat[base_n:]
-            return self.engine.decode_kv_slabs(slabs, admit_fn=admit)
+            return self._call_route("slabs", slabs, ov=ov, admit=admit)
 
+        ov = self._engine_overrides([t for t, _ in flat])
         try:
-            with self._engine_overrides([t for t, _ in flat]):
-                with obs.span("serve_engine", phase="serve_engine",
-                              batch=len(flat),
-                              trace_id=flat[0][0].trace_id):
-                    rows = faults.retry_transient(
-                        call, self.config.retry_policy, label="serve")()
+            with obs.span("serve_engine", phase="serve_engine",
+                          batch=len(flat), trace_id=flat[0][0].trace_id):
+                rows = faults.retry_transient(
+                    call, self.config.retry_policy, label="serve")()
         # graftlint: disable=G05 same serve fault boundary as _launch: the slab rows' errors land typed on each request's future, nothing re-raises above the loop thread
         except Exception as err:
             self._counter("serve_failed", len(flat))
@@ -550,6 +699,7 @@ class Scheduler:
         targets = (list(first.targets) if len(set(pair_list)) == 1
                    else pair_list)
         admitted: List[Ticket] = []
+        ov = self._engine_overrides(group)
 
         if self.handoff is not None and self._slotted_eligible(first):
             # prefill-role replica of a disaggregated roster: the slotted
@@ -578,19 +728,20 @@ class Scheduler:
                 # deadline sweep) behind the single loop thread
                 budget = self._max_batch() - len(admitted)
                 if budget <= 0:
-                    return None
+                    return self._admitted(None)
                 extra = self.queue.pop_compatible(key, budget)
                 if not extra:
-                    return None
+                    return self._admitted(None)
                 t_adm = time.monotonic()
                 for t in extra:
                     t.queue_wait_s = max(0.0, t_adm - t.enqueue_t)
                     t.coalesce_s = 0.0
                 self._counter("serve_slot_admitted", len(extra))
                 admitted.extend(extra)
-                return ([t.encoded if t.encoded is not None
-                         else t.request.prompt for t in extra],
-                        [tuple(t.request.targets) for t in extra])
+                return self._admitted(
+                    ([t.encoded if t.encoded is not None
+                      else t.request.prompt for t in extra],
+                     [tuple(t.request.targets) for t in extra]))
 
             def call():
                 if admitted:
@@ -602,8 +753,8 @@ class Scheduler:
                     # never resolved
                     self.queue.requeue(list(admitted))
                     admitted.clear()
-                return self.engine.score_prompts_slotted(
-                    prompts, targets=pair_list, admit_fn=admit)
+                return self._call_route("slotted", prompts, pair_list,
+                                        ov=ov, admit=admit)
         elif first.prefix is not None:
             pairs = [
                 (t.encoded[0], (t.encoded[1],)) if t.encoded is not None
@@ -612,35 +763,30 @@ class Scheduler:
             ]
 
             def call():
-                return self.engine.score_prefixed(
-                    pairs, targets=targets,
-                    legs=[LegSpec("serve",
-                                  with_confidence=first.with_confidence,
-                                  max_new_tokens=first.max_new_tokens)])[0]
+                return self._call_route("prefixed", pairs, targets,
+                                        first.with_confidence,
+                                        first.max_new_tokens, ov=ov)
         else:
             prompts = [t.encoded if t.encoded is not None
                        else t.request.prompt for t in group]
 
             def call():
-                return self.engine.score_prompts(
-                    prompts, targets=targets,
-                    with_confidence=first.with_confidence,
-                    max_new_tokens=first.max_new_tokens)
+                return self._call_route("plain", prompts, targets,
+                                        first.with_confidence,
+                                        first.max_new_tokens, ov=ov)
 
         try:
-            with self._engine_overrides(group):
-                with obs.span("serve_engine", phase="serve_engine",
-                              batch=len(group),
-                              trace_id=group[0].trace_id):
-                    rows = faults.retry_transient(
-                        call, self.config.retry_policy, label="serve")()
+            with obs.span("serve_engine", phase="serve_engine",
+                          batch=len(group), trace_id=group[0].trace_id):
+                rows = faults.retry_transient(
+                    call, self.config.retry_policy, label="serve")()
         # graftlint: disable=G05 serve fault boundary: the error IS classified (faults.is_oom routes to the split/re-queue ladder) and everything else lands typed on each request's future — nothing above the scheduler thread could observe a re-raise
         except Exception as err:
             # slot-admitted tickets ride the SAME recovery as the group
             # they joined: an OOM re-queues everyone down the ladder,
             # anything else lands typed on every participating future
             group = group + admitted
-            if faults.is_oom(err) and self._split_requeue(group, err):
+            if self._may_split(err) and self._split_requeue(group, err):
                 return
             self._counter("serve_failed", len(group))
             for t in group:
@@ -700,6 +846,15 @@ class Scheduler:
         if getattr(self.engine, "is_encoder_decoder", False):
             return False
         return hasattr(self.engine, "score_prompts_slotted")
+
+    def _may_split(self, err) -> bool:
+        """An OOM the split/re-queue ladder may take: not under a ``model``
+        axis of more than one rank, where an OOM inside a forward is final
+        (the other model ranks wait in its collectives; a retry would pair
+        with them).  The micro-batch's requests fail with it."""
+        if not faults.is_oom(err):
+            return False
+        return pmesh.axis_size(self._mesh, pmesh.MODEL_AXIS) == 1
 
     def _split_requeue(self, group: List[Ticket], err) -> bool:
         """OOM recovery: split the micro-batch down the engine's ladder

@@ -1071,9 +1071,9 @@ def test_serve_phase_runs_its_legs_and_gates():
                  'attention_impl="flash"', "FALCON_7B_GEOMETRY"):
         assert gate in src, gate
     assert chip_smoke.SERVE_LOAD_FRACTIONS == (0.25, 0.5, 0.9)
-    assert chip_smoke.SERVE_LOAD_S == 1.5
+    assert chip_smoke.SERVE_LOAD_S == 1.0
     assert (chip_smoke.SERVE_REPLAY_PROMPTS, chip_smoke.SERVE_PREFIX_PAIRS,
-            chip_smoke.SERVE_POOL_PROMPTS) == (192, 32, 48)
+            chip_smoke.SERVE_POOL_PROMPTS) == (192, 16, 24)
     assert chip_smoke.SERVE_MEMORY_SLACK == 64 << 20
 
 
@@ -1085,7 +1085,7 @@ def test_serve_cli_phase_drives_every_mode():
                  "JSONDecodeError", "parity_ok"):
         assert flag in src, flag
     assert len(chip_smoke.SERVE_CLI_RATES) == 3
-    assert chip_smoke.SERVE_CLI_LOAD_S == 2.0
+    assert chip_smoke.SERVE_CLI_LOAD_S == 1.0
     assert chip_smoke.SERVE_CLI_LINES == 64
 
 
@@ -1589,11 +1589,11 @@ def test_main_runs_the_mesh_phase_after_train_and_counts_its_launches():
     src = inspect.getsource(chip_smoke.main)
     assert src.index('timed("train"') < src.index('timed("mesh"')
     assert 'mres["a"]["kernel_launches"]' in src and "mesh=mres" in src
-    assert chip_smoke.MESH_BUDGET_S == 45.0
+    assert chip_smoke.MESH_BUDGET_S == 80.0
     assert chip_smoke.MESH_PROMPTS == chip_smoke.BATCH
     phase = inspect.getsource(chip_smoke.mesh_phase)
     for piece in ("make_mesh()", "destroy_process_group", "start_processes",
-                  "mesh_run_fails", 'kv_dtype="int8"'):
+                  "mesh_run_fails", "mesh_leg_fails", 'kv_dtype="int8"'):
         assert piece in phase, piece
     assert "bind_mesh" in inspect.getsource(chip_smoke._mesh_engine)
     assert 'quant="int8"' in inspect.getsource(chip_smoke._mesh_small)
@@ -1633,3 +1633,70 @@ def test_mesh_phase_gates(change, fails):
     if change == "left_out":
         res = [dict(probe_error="RuntimeError: no CUDA"), {}]
     assert len(chip_smoke.mesh_run_fails(res, ref, 71)) == fails
+
+
+def _mesh_legs(**change):
+    """Two ranks' legs (c)-(g) that pass every gate against ``REF`` (the
+    world of one's rows on 4 prompts, all in one bucket), with ``change``
+    applied to rank ``change.pop("rank", 0)``'s copy."""
+    import copy
+
+    rows = [[False, 0.5, 0.1, 0.1]] * 4
+    serve = dict(rows=rows, follower=False, engine_calls=2, admitted=2,
+                 serve_slot_admitted=2)
+    leg = dict(
+        c={"dp2": serve, "tp2": serve},
+        d=dict(rows=rows, slab_rows=4),
+        e=dict(rows=rows, k1_rows=rows, head_digest="x", k_chunks=1,
+               k_blocks_proposed=1),
+        f=dict(rows=rows, hosted=[["r0"], ["r1"]], health=[
+            dict(placement="sliced", devices=1, completed=2)] * 2),
+        g=dict(compared_tokens=4, max_abs_err=0.01, dense_max_abs=1.0,
+               aux_sharded=1.0, aux_dense=1.0))
+    legs = [copy.deepcopy(leg), copy.deepcopy(leg)]
+    for r in (0, 1):
+        for name in ("dp2", "tp2"):
+            legs[r]["c"][name]["follower"] = bool(r)
+    rank = change.pop("rank", 0)
+    for path, value in change.items():
+        *keys, last = path.split("__")
+        node = legs[rank]
+        for key in keys:
+            node = node[key]
+        node[last] = value
+    return [{"legs": legs[0]}, {"legs": legs[1]}]
+
+
+@pytest.mark.parametrize("change,fails", [
+    ({}, ""),
+    ({"c__tp2__admitted": 0, "c__tp2__serve_slot_admitted": 0},
+     "mesh (c) tp2: no mid-decode admission"),
+    ({"rank": 1, "c__dp2__engine_calls": 3}, "engine_calls 2 vs 3"),
+    ({"rank": 1, "c__dp2__follower": False}, "followers"),
+    ({"d__rows": [[True, 0.5, 0.1, 0.1]] * 4}, "mesh (d) rank 0 row 0"),
+    ({"rank": 1, "e__head_digest": "y"}, "the ranks' K-heads differ"),
+    ({"e__k_chunks": 0}, "the K path never ran"),
+    ({"f__hosted": [["r0", "r1"], []]}, "mesh (f): hosted"),
+    ({"g__max_abs_err": 0.5}, "sharded against dense"),
+    ({"rank": 1, "g__aux_sharded": 1.1}, "mesh (g): aux"),
+])
+def test_mesh_leg_gates(change, fails):
+    """Phase 26's gates of (c)-(g) (``mesh_leg_fails``): a passing pair of
+    ranks, and each gate failing on its own change."""
+    ref = [[False, 0.5, 0.1, 0.1]] * 4
+    prompts = [[5] * 100] * 4
+    got = chip_smoke.mesh_leg_fails(_mesh_legs(**change), ref, prompts)
+    if not fails:
+        assert got == []
+    else:
+        assert any(fails in f for f in got), got
+
+
+def test_mesh_serve_rows_take_the_fullest_buckets():
+    """(c)'s prompts: those of the MESH_SERVE_BUCKETS (3) buckets that hold
+    the most prompts (of equal counts, the shorter bucket), in prompt
+    order."""
+    assert chip_smoke.MESH_SERVE_BUCKETS == 3
+    lengths = [100, 300, 100, 500, 300, 100, 700]    # buckets 128, 320,
+    prompts = [[1] * n for n in lengths]             # 512 and 768
+    assert chip_smoke.mesh_serve_rows(prompts) == [0, 1, 2, 3, 4, 5]

@@ -83,12 +83,13 @@ def test_run_perturbation_matches_reference(snapshot, perturbations,
 ])
 def test_unported_flags_raise(snapshot, perturbations, tmp_path, extra, title):
     """``--mesh-model`` and ``--mesh-seq`` build a mesh over the world's
-    ranks (``tests/test_torch_mesh.py`` runs them on two): in a world of
-    one process they raise, naming the ranks the mesh needs; ``serve`` on
-    a mesh still raises naming its queue item."""
+    ranks, for ``run-perturbation`` (``tests/test_torch_mesh.py`` runs it on
+    two) and for ``serve`` (``tests/test_torch_mesh_serve.py`` runs it on
+    two): in a world of one process both raise, naming the ranks the mesh
+    needs."""
     with pytest.raises(ValueError, match=title):
         tmain(_argv(snapshot, perturbations, tmp_path, *extra))
-    with pytest.raises(NotImplementedError, match="Parallel and training"):
+    with pytest.raises(ValueError, match=title):
         tmain(["serve", "--model", snapshot, "--device", "cpu", *extra])
 
 

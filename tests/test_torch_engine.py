@@ -188,8 +188,10 @@ def test_unsupported_engine_settings_raise(setup, override):
                                   "prefix_pairs", "mesh", "decode_k"])
 def test_unsupported_calls_raise(setup, case):
     """A mesh of one rank (a gloo world of one) scores the meshless rows
-    bit for bit, and a mesh of more ranks refuses ``decode_k > 1`` naming
-    its queue item.  The confidence leg (per batch
+    bit for bit, with ``decode_k=1`` and with ``decode_k=2`` and a K-head
+    distilled on the mesh, which is the meshless one
+    (``tests/test_torch_mesh_serve.py`` runs ``decode_k=4`` on two ranks).
+    The confidence leg (per batch
     and pooled) and ``(prefix, suffix)`` prompts score with ``decode_k=2``
     set after construction and no K-head: the rows of ``decode_k=1``.  T5
     with ``decode_k=4`` scores as with 1 (the K path is decoder-only)."""
@@ -215,19 +217,13 @@ def test_unsupported_calls_raise(setup, case):
 
         from llm_interpretation_replication_tpu_torch.parallel import mesh
 
-        class TwoRanks:
-            def size(self, dim=None):
-                return 2
-
-        with pytest.raises(NotImplementedError,
-                           match="Parallel and training"):
-            tengine.ScoringEngine(
-                "falcon", tcfg, weights, tok, mesh=TwoRanks(),
-                engine_config=dataclasses.replace(ecfg, decode_k=2),
-                device="cpu")
         prompts = ["Is soup a beverage?", "Is a tomato a fruit?"]
+        k2 = dict(kw, engine_config=dataclasses.replace(ecfg, decode_k=2))
         plain = tengine.ScoringEngine("falcon", tcfg, weights, tok, **kw)
         want = plain.score_prompts(prompts)
+        kplain = tengine.ScoringEngine("falcon", tcfg, weights, tok, **k2)
+        kplain.distill_k_head_on(prompts, gen_steps=4)
+        kwant = kplain.score_prompts(prompts)
         with tempfile.TemporaryDirectory() as tmp:
             assert mesh.initialize_distributed(
                 num_processes=1, process_id=0, device="cpu",
@@ -237,6 +233,12 @@ def test_unsupported_calls_raise(setup, case):
                                             **kw)
                 eng.bind_mesh(mesh.make_mesh())
                 assert eng.score_prompts(prompts) == want
+                keng = tengine.ScoringEngine("falcon", tcfg, weights, tok,
+                                             **k2)
+                keng.bind_mesh(mesh.make_mesh())
+                keng.distill_k_head_on(prompts, gen_steps=4)
+                assert torch.equal(keng.k_head["w"], kplain.k_head["w"])
+                assert keng.score_prompts(prompts) == kwant
             finally:
                 dist.destroy_process_group()
         return

@@ -466,37 +466,48 @@ def test_prefix_pool_abandoned_entry_counts_as_leak():
     ("mesh", "Parallel and training"),
 ])
 def test_unported_settings_still_raise(case, title):
-    """On a mesh of more than one rank, slotted scoring, the KV-slab
-    handoff and ``decode_k > 1`` raise naming their ROADMAP.md item (a
-    two-rank data axis stands in: the refusals come before any
-    collective).  The settings once refused
+    """Slotted scoring, the KV-slab handoff and ``decode_k > 1``, once
+    refused on a mesh ("Parallel and training"), run on one: on a gloo
+    world of one rank they give the meshless engine's rows bit for bit, a
+    slab crossing from the mesh's engine to a meshless one included
+    (``tests/test_torch_mesh_serve.py`` runs them on two ranks).  The
+    settings once refused
     here score at ``EngineConfig()``'s other defaults: ``prefill_chunk=1``
     ("The full-study legs"), and ``decode_k`` 2 and 4 ("K-decode"), which
     with no K-head run sequentially (``k_decode_head_missing`` noted once)
     and give the ``decode_k=1`` rows."""
     _, tcfg, _, weights = text_models()
     if case == "mesh":
-        class TwoRanks:
-            """Two ranks on the data axis, one on the others."""
-            device_type = "cpu"
+        import tempfile
 
-            def size(self, dim=None):
-                return 2 if dim in (None, 0) else 1
+        import torch.distributed as dist
 
-            def get_local_rank(self, axis):
-                return 0
+        from llm_interpretation_replication_tpu_torch.parallel import mesh
 
-        with pytest.raises(NotImplementedError, match=title):
-            tengine.ScoringEngine(
-                "falcon", tcfg, weights, tok(), mesh=TwoRanks(),
-                device="cpu", engine_config=tengine.EngineConfig(decode_k=2))
-        eng = tengine.ScoringEngine("falcon", tcfg, weights, tok(),
-                                    mesh=TwoRanks(), device="cpu")
-        for call in (lambda: eng.score_prompts_slotted(["Is soup food?"]),
-                     lambda: eng.export_kv_slab(["Is soup food?"]),
-                     lambda: eng.decode_kv_slabs([])):
-            with pytest.raises(NotImplementedError, match=title):
-                call()
+        def engine(**kw):
+            return tengine.ScoringEngine(
+                "falcon", tcfg, weights, tok(), device="cpu",
+                engine_config=tengine.EngineConfig(decode_completions=False,
+                                                   **kw))
+
+        def legs(bind):
+            eng = bind(engine())
+            rows, slabs = eng.export_kv_slab(PROMPTS[:4])
+            return (eng.score_prompts_slotted(PROMPTS[:3]), rows,
+                    engine().decode_kv_slabs(slabs),
+                    bind(engine(decode_k=2)).score_prompts(PROMPTS[:3]))
+
+        want = legs(lambda eng: eng)
+        with tempfile.TemporaryDirectory() as tmp:
+            assert mesh.initialize_distributed(
+                num_processes=1, process_id=0, device="cpu",
+                init_method=f"file://{tmp}/store")
+            try:
+                one = mesh.make_mesh()
+                got = legs(lambda eng: eng.bind_mesh(one))
+            finally:
+                dist.destroy_process_group()
+        assert got == want and len(got[2]) > 0
         return
     kw = ({"decode_k": 4 if case == "decode_k_4" else 2}
           if case.startswith("decode_k") else {"prefill_chunk": 1})

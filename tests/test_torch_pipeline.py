@@ -35,8 +35,8 @@ ROUTES = {
 EVENT_FIELDS = ("kind", "batch", "new_batch", "bucket_len", "rows")
 
 
-def _score(eng):
-    return eng.score_prompts(PROMPTS, list(targets()))
+def _score(eng, pairs=None):
+    return eng.score_prompts(PROMPTS, pairs or list(targets()))
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
@@ -119,17 +119,21 @@ def test_oom_without_a_step_propagates(monkeypatch, override):
 def test_pooled_decode_oom_is_not_rebatched(monkeypatch, route):
     """An OOM in the pooled decode, which holds rows of earlier batches, is
     marked ``_no_rebatch`` and propagates: stepping down the batch that
-    triggered it cannot shrink it."""
+    triggered it cannot shrink it.  The targets come from a greedy pass
+    of the decoder, so they are computed before the patch: run first in
+    its worker, the injected OOM must strike the pooled decode, not that
+    pass."""
     _, teng = engines(batch_size=4, phase2_pool_target=4,
                       **{k: v for k, v in ROUTES[route].items()
                          if k != "phase2_pool_target"})
+    pairs = list(targets())
 
     def decode_oom(*args, **kwargs):
         raise torch.OutOfMemoryError("CUDA out of memory (injected)")
 
     monkeypatch.setattr(tengine.dmod, "decode_steps", decode_oom)
     with pytest.raises(torch.OutOfMemoryError) as info:
-        _score(teng)
+        _score(teng, pairs)
     assert info.value._no_rebatch is True
     assert teng.fault_events == []
 

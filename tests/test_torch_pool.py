@@ -23,9 +23,9 @@ routing, deadlines without spending, typed remote failures) on both
 packages, and the port's rows, requests and spend against the JAX
 package's for each vendor.
 
-Waiting for their items (ROADMAP.md queue 1): replicas on mesh slices
-('Parallel and training'; ``devices=`` refuses), and the bench's
-``--serve-load`` blocks (the port bench).  The plan search's
+Replicas on rank slices (``devices=``) run: the shared placement of one
+rank here, the sliced one on gloo ranks in ``tests/test_torch_mesh_serve.py``.
+Waiting for the port bench: the bench's ``--serve-load`` blocks.  The plan search's
 ``replica_plan`` is ported (``runtime/plan_search.py``;
 ``tests/test_torch_plan_search.py``).
 """
@@ -674,13 +674,23 @@ def test_prometheus_export_labels_serve_metrics_by_replica():
 # -- what the port refuses, by item ------------------------------------------
 
 def test_refusals_name_their_items():
-    """``devices=`` still refuses naming its item; the vendor constructors
-    no longer refuse (their item has landed)."""
+    """Neither ``devices=`` nor the vendor constructors refuse any more
+    (their items have landed).  On one rank (no process group: a card's
+    world) a replica's slice is the reference's shared placement: it
+    loads unbound, says so in its health document and answers the
+    engine's rows (``tests/test_torch_mesh_serve.py`` runs the sliced
+    placement on 2 and 4 gloo ranks)."""
+    eng = FakeEngine("fake/a")
     with fast_pool(tserve) as pool:
-        with pytest.raises(NotImplementedError,
-                           match="'Parallel and training'"):
-            pool.load("alpha", FakeEngine("fake/a"), devices=[0])
-        assert pool.replicas() == []
+        replica = pool.load("alpha", eng, devices=[0])
+        assert (replica.devices, replica.placement, replica.hosted) == (
+            (0,), "shared", True)
+        row = pool.submit(tserve.ScoreRequest(prompt="q0")).result(
+            timeout=30)
+        doc = pool.health()["replicas"][0]
+    assert tserve.rows_equal(row, eng.score_prompts(["q0"])[0])
+    assert (doc["devices"], doc["ranks"], doc["placement"]) == (
+        1, [0], "shared")
     for ctor, client in (("openai", tapi.OpenAIClient),
                          ("gemini", tapi.GeminiClient),
                          ("anthropic", tapi.AnthropicClient)):

@@ -462,13 +462,12 @@ def test_provenance_rule_catches_a_missing_or_tpu_anchor(line, cited):
 
 
 def test_ops_api_matches_reference():
-    """The port's ops package exports the reference's attention and int8
-    names (its MoE ops are ROADMAP.md queue 1's "MoE ops" item)."""
+    """The port's ops package exports every name of the reference's: the
+    attention, int8 and MoE ops."""
     import llm_interpretation_replication_tpu.ops as jops
     import llm_interpretation_replication_tpu_torch.ops as tops
 
-    assert set(tops.__all__) == set(jops.__all__) - {
-        "init_moe_params", "moe_mlp_dense", "moe_mlp_sharded"}
+    assert set(tops.__all__) == set(jops.__all__)
     for name in tops.__all__:
         assert callable(getattr(tops, name))
 

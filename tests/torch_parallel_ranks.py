@@ -298,9 +298,10 @@ def mesh_attention_pipeline(rank, inputs):
 # the scoring engine on a mesh
 # ---------------------------------------------------------------------------
 
-def _engine(case, mesh=None, **ecfg):
+def _engine(case, mesh=None, cls=None, **ecfg):
     """The port's engine of a case (``cfg``, numpy ``params``, ``words``
-    of a ``WordTokenizer``; or ``t5``) on ``mesh``."""
+    of a ``WordTokenizer``; or ``t5``) on ``mesh``; ``cls`` a subclass of
+    ``ScoringEngine``."""
     from llm_interpretation_replication_tpu_torch.models import config, convert
     from llm_interpretation_replication_tpu_torch.runtime import engine
     from llm_interpretation_replication_tpu_torch.utils import tokenizer
@@ -320,8 +321,9 @@ def _engine(case, mesh=None, **ecfg):
                                           dtype="fp32")
         tok = tokenizer.WordTokenizer(case["words"])
         family = "falcon"
-    eng = engine.ScoringEngine(family, cfg, weights, tok, device="cpu",
-                               engine_config=engine.EngineConfig(**ecfg))
+    eng = (cls or engine.ScoringEngine)(
+        family, cfg, weights, tok, device="cpu",
+        engine_config=engine.EngineConfig(**ecfg))
     return eng.bind_mesh(mesh) if mesh is not None else eng
 
 
@@ -563,3 +565,289 @@ SCENARIOS = {"train": train_two, "parallel": mesh_attention_pipeline,
              "engine_eight": engine_eight, "engine_two": engine_two,
              "oom_inside_tp": oom_inside_tp}
 WITH_DIR = ("engine_two", "oom_inside_tp")
+
+
+# ---------------------------------------------------------------------------
+# the MoE MLP, expert-parallel
+# ---------------------------------------------------------------------------
+
+def moe_sharded(rank, inputs):
+    """``ops.moe.moe_mlp_sharded`` over the world's ranks (one expert block
+    a rank) on every case of ``inputs["cases"]``, and the dense path."""
+    import torch
+    import torch.distributed as dist
+
+    from llm_interpretation_replication_tpu_torch.models.convert import \
+        moe_params_from_jax
+    from llm_interpretation_replication_tpu_torch.ops import moe
+    from llm_interpretation_replication_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(data=dist.get_world_size())
+    out = {}
+    for name, case in inputs["cases"].items():
+        params = moe_params_from_jax(case["params"], device="cpu")
+        x = torch.from_numpy(case["x"])
+        y, aux = moe.moe_mlp_sharded(params, x, mesh, top_k=case["top_k"],
+                                     capacity_factor=case["capacity_factor"])
+        out[name] = (y.numpy(), float(aux))
+    return out
+
+
+SCENARIOS["moe_sharded"] = moe_sharded
+
+
+# ---------------------------------------------------------------------------
+# slotted scoring, the KV-slab handoff, the K-token decode and serving on
+# a mesh
+# ---------------------------------------------------------------------------
+
+def admit_once(case, lo, hi):
+    """An ``admit_fn`` that admits prompts ``lo:hi`` of the case at its
+    first call and nothing after: every rank admits alike."""
+    sent = []
+
+    def admit():
+        if sent:
+            return None
+        sent.append(True)
+        return case["prompts"][lo:hi], case["targets"][lo:hi]
+
+    return admit
+
+
+def slotted_rows(eng, case, rows=3, admit=(3, 6)):
+    return eng.score_prompts_slotted(case["prompts"][:rows],
+                                     case["targets"][:rows],
+                                     admit_fn=admit_once(case, *admit))
+
+
+def slab_rows(exporter, importer, case, rows=6):
+    """``export_kv_slab`` on one engine, ``decode_kv_slabs`` on another:
+    the rows in prompt order."""
+    decided, slabs = exporter.export_kv_slab(case["prompts"][:rows],
+                                             case["targets"][:rows])
+    decoded = importer.decode_kv_slabs(slabs)
+    origs = [m["orig"] for s in slabs for m in s.metas]
+    for i, row in zip(origs, decoded):
+        decided[i] = row
+    return decided, len(origs)
+
+
+def oracle_class(decode_k=4):
+    """chip_smoke's oracle engine of the port (every K block accepted)."""
+    import importlib
+    import sys
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.runtime import engine
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    chip_smoke = importlib.import_module("chip_smoke")
+    return chip_smoke.oracle_engine(engine, decoder, decode_k=decode_k)
+
+
+def _digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.float().contiguous().numpy().tobytes()
+                          ).hexdigest()
+
+
+def _k_verify_tp(case, mesh):
+    """``decoder.k_verify_block`` with ``tp`` on the rank's blocks against
+    the whole call: the chain, the acceptance and the logits, and the
+    block's K/V in the tail."""
+    import torch
+
+    from llm_interpretation_replication_tpu_torch.models import decoder
+    from llm_interpretation_replication_tpu_torch.parallel import \
+        tensor_parallel
+
+    whole = _engine(case)
+    part = _engine(case).bind_mesh(mesh)
+    tp = tensor_parallel.for_mesh(part.cfg, mesh)
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(1, 300, (3, 7)))
+    mask = torch.ones_like(ids, dtype=torch.int32)
+    lens = mask.sum(-1)
+    # rows 0 and 1 propose the greedy chain (accepted), row 2 a wrong
+    # third token (a prefix of 2 accepted)
+    last, cache = decoder.prefill(whole.params, whole.cfg, ids, mask, 7)
+    props = decoder.decode_steps(whole.params, whole.cfg, cache, last, lens,
+                                 0, 3, with_scores=False)[0]
+    props[2, 2] = (props[2, 2] + 1) % whole.cfg.vocab_size
+    out = {}
+    for name, eng, kw in (("whole", whole, {}), ("tp", part, {"tp": tp})):
+        last, cache = decoder.prefill(eng.params, eng.cfg, ids, mask, 7,
+                                      **kw)
+        shape = (eng.cfg.num_layers, 3, 4, cache.k.shape[3],
+                 eng.cfg.head_dim)
+        tk, tv = torch.zeros(shape), torch.zeros(shape)
+        got = decoder.k_verify_block(
+            eng.params, eng.cfg, cache, tk, tv, last, lens, 0, 0, props,
+            None, None, torch.zeros((3, 2), dtype=torch.long), fold=True,
+            **kw)
+        out[name] = dict(tokens=got.tokens.numpy(), a_len=got.a_len.numpy(),
+                         accepted=got.accepted.numpy(),
+                         logits=got.last_logits.numpy(),
+                         hidden=got.last_hidden.numpy(),
+                         tail=tk[:, :, :3].numpy(),
+                         folded=got.cache.k.numpy())
+    return out
+
+
+def serve_two(rank, inputs, tmpdir):
+    """On 2 ranks: slotted scoring with an admission on dp2 (3 rows) and
+    tp2, a KV slab exported on dp2 and decoded on tp2 (and, for a model
+    whose two K/V heads tp2 splits, the other way round), oracle K=4 rows on
+    dp2 (3 rows) and tp2 with the K=1 rows beside them, a distilled
+    K-head's digest on each rank, ``k_verify_block(tp=)`` against the whole
+    call, a pool of two replicas on rank slices, and ``serve`` through
+    ``__main__`` (``--replay`` and the JSONL driver) on ``--mesh-model 2``."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from llm_interpretation_replication_tpu_torch import __main__ as cli
+    from llm_interpretation_replication_tpu_torch.parallel import make_mesh
+
+    falcon = inputs["falcon"]
+    pooled = dict(batch_size=8, buckets=(32, 64), decode_completions=False)
+    ecfg = dict(batch_size=8, buckets=(32, 64), max_new_tokens=20)
+    dp2, tp2 = make_mesh(data=2), make_mesh(model=2)
+    out = {}
+    out["slotted_dp2"] = slotted_rows(_engine(falcon, dp2, **pooled), falcon)
+    out["slotted_tp2"] = slotted_rows(_engine(falcon, tp2, **pooled), falcon)
+    out["slotted/meshless"] = slotted_rows(_engine(falcon, **pooled), falcon)
+    out["slabs"] = slab_rows(_engine(falcon, dp2, **pooled),
+                             _engine(falcon, tp2, **pooled), falcon)
+    out["slabs/meshless"] = slab_rows(_engine(falcon, **pooled),
+                                      _engine(falcon, **pooled), falcon)
+    # two K/V heads, which tp2 splits: the slab gathers them on export
+    gqa = inputs["gqa"]
+    out["slabs_gqa"] = slab_rows(_engine(gqa, tp2, **pooled),
+                                 _engine(gqa, dp2, **pooled), gqa)
+    out["slabs_gqa/meshless"] = slab_rows(_engine(gqa, **pooled),
+                                          _engine(gqa, **pooled), gqa)
+    from llm_interpretation_replication_tpu_torch.utils import telemetry
+
+    oracle = oracle_class()
+    prompts, targets = falcon["prompts"], falcon["targets"]
+    for name, mesh, rows in (("dp2", dp2, 3), ("tp2", tp2, 4)):
+        telemetry.clear_counters()
+        out[f"k4_{name}"] = _engine(
+            falcon, mesh, cls=oracle, decode_k=4, **ecfg).score_prompts(
+                prompts[:rows], targets[:rows])
+        out[f"k4_{name}/counters"] = {
+            k: telemetry.counter(k) for k in ("k_blocks_proposed",
+                                              "k_blocks_rejected")}
+        out[f"k1_{name}"] = _engine(falcon, mesh, **ecfg).score_prompts(
+            prompts[:rows], targets[:rows])
+    out["k4/meshless"] = _engine(falcon, cls=oracle, decode_k=4,
+                                 **ecfg).score_prompts(prompts, targets)
+    heads = {}
+    for name, mesh in (("dp2", dp2), ("tp2", tp2), ("meshless", None)):
+        eng = _engine(falcon, mesh, decode_k=4, **ecfg)
+        head = eng.distill_k_head_on(prompts[:5], gen_steps=6)["w"]
+        digests = [None, None]
+        dist.all_gather_object(digests, _digest(head))
+        heads[name] = (digests, head.numpy())
+        out[f"distilled_{name}"] = eng.score_prompts(prompts[:3],
+                                                     targets[:3])
+    out["heads"] = heads
+    out["k_verify_tp"] = _k_verify_tp(falcon, tp2)
+    out["k_verify_tp/by_rank"] = [None, None]
+    dist.all_gather_object(out["k_verify_tp/by_rank"],
+                           out["k_verify_tp"]["tp"]["tokens"].tolist())
+    out["pool"] = pool_on_slices(falcon, 2, prompts[:8], targets[:8])
+    printed = {}
+    for name, argv in inputs["serve"].items():
+        buf = io.StringIO()
+        argv = [a.replace("{rank}", str(rank)) for a in argv]
+        with contextlib.redirect_stdout(buf):
+            try:
+                cli.main(argv)
+                code = 0
+            except SystemExit as stop:
+                code = stop.code
+        printed[name] = (code, buf.getvalue())
+    lines = [None, None]
+    dist.all_gather_object(lines, printed)
+    out["serve"] = lines
+    return out
+
+
+def pool_on_slices(case, n_slices, prompts, targets):
+    """An ``EnginePool`` of ``n_slices`` replicas on
+    ``carve_slices(n_slices)`` of the world: rank 0 submits, every rank
+    closes.  Returns rank 0's rows, its health doc, and each rank's
+    hosted replicas."""
+    import torch.distributed as dist
+
+    from llm_interpretation_replication_tpu_torch.parallel import mesh
+    from llm_interpretation_replication_tpu_torch.serve import (
+        EnginePool, ScoreRequest)
+    from llm_interpretation_replication_tpu_torch.serve.config import \
+        SchedulerConfig
+    from llm_interpretation_replication_tpu_torch.serve.pool import PoolConfig
+
+    rank = dist.get_rank()
+    pool = EnginePool(PoolConfig(scheduler=SchedulerConfig(max_wait_s=0.0)))
+    for sl in mesh.carve_slices(n_slices):
+        pool.load("m", _engine(case, batch_size=8, buckets=(32, 64),
+                               decode_completions=False)
+                  if rank in sl else None, devices=sl)
+    rows = health = None
+    if pool.leads:
+        futures = [pool.submit(ScoreRequest(prompt=p, targets=tuple(t)))
+                   for p, t in zip(prompts, targets)]
+        rows = [f.result(timeout=TIMEOUT_S) for f in futures]
+        health = pool.health()
+    hosted = sorted(r.rid for r in pool.replicas()
+                    if getattr(r, "hosted", False))
+    pool.close()
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, hosted)
+    return dict(rows=rows, health=health, hosted=everyone)
+
+
+def pool_four(rank, inputs):
+    """A pool of two replicas on ``carve_slices(2)`` of 4 ranks: each
+    replica's slice is dp2, led by its first rank."""
+    case = inputs["falcon"]
+    return pool_on_slices(case, 2, case["prompts"][:8], case["targets"][:8])
+
+
+def leader_exits(rank, inputs, tmpdir):
+    """A dp2 scheduler whose leader's process exits while its follower
+    waits for a decision: the follower's outcome and how long it took."""
+    import time
+
+    from llm_interpretation_replication_tpu_torch.parallel import make_mesh
+    from llm_interpretation_replication_tpu_torch.serve.scheduler import \
+        Scheduler
+
+    eng = _engine(inputs["falcon"], make_mesh(data=2), batch_size=8,
+                  buckets=(32, 64), decode_completions=False)
+    sched = Scheduler(eng).start()
+    if rank == 0:
+        with open(os.path.join(tmpdir, "out.pkl"), "wb") as f:
+            pickle.dump({}, f)
+        time.sleep(0.5)
+        os._exit(0)
+    start = time.monotonic()
+    try:
+        sched.close()
+        outcome = "returned"
+    except Exception as err:             # the follower's error is the result
+        outcome = f"{type(err).__name__}: {err}"
+    with open(os.path.join(tmpdir, "follower.pkl"), "wb") as f:
+        pickle.dump((outcome, time.monotonic() - start), f)
+    return {}
+
+
+SCENARIOS.update(serve_two=serve_two, pool_four=pool_four,
+                 leader_exits=leader_exits)
+WITH_DIR = WITH_DIR + ("serve_two", "leader_exits")
