@@ -59,13 +59,14 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    Last, one real OOM: under a per-process memory cap between the batch-32
    and the batch-64 need, the 128 longest prompts at batch 64 must step
    down to 32 and give run 3's rows;
-8. full study: the full-study row on the slice's weights at
-   ``EngineConfig()``: 96 prefixes of 100-440 tokens, each with a binary
-   and a confidence suffix of a scenario's format lengths (19-21 and 30-35
-   words).  A greedy pre-pass decodes both legs as the per-batch route
-   does, and gives the id tokenizer a decode map under which chosen tokens
-   read as a terminated number, so confidence rows retire mid-decode and
-   some position-0 candidates read as digits.  Five runs on the same rows:
+8. full study: the full-study row on the slice's weights (their first
+   FULL_STUDY_LAYERS, 8, of 32 layers) at ``EngineConfig()``: 96 prefixes
+   of 100-440 tokens, each with a binary and a confidence suffix of a
+   scenario's format lengths (19-21 and 30-35 words).  A greedy pre-pass
+   decodes both legs as the per-batch route does, and gives the id
+   tokenizer a decode map under which chosen tokens read as a terminated
+   number, so confidence rows retire mid-decode and some position-0
+   candidates read as digits.  Five runs on the same rows:
    the binary leg with its 50-token completion, the confidence leg
    (``max_new_tokens=10``) on the ring, on whole flushes and per batch, and
    ``score_prefixed`` with both legs over one prefix cache.  The per-batch
@@ -193,7 +194,9 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    name each model's attention (dense for BLOOMZ and the T5s, which warn
    and load bf16), keep exactly the first model's rows after a SIGTERM,
    resume to the same CSV and score nothing on a rerun;
-16. packed (after the sweep phase, on the slice's weights): the sweep
+16. packed (after the sweep phase, on the slice's weights at
+   FULL_STUDY_LAYERS, 8, of 32 layers, where the full-study phase measured
+   the tie its gates take): the sweep
    phase's corpus (its perturbations.json, targets on ids these weights
    often rank in the top 20) through ``run_packed_perturbation_sweep`` at
    Q=4 with drift parity (120 questions in 30 packs; the drift report
@@ -305,7 +308,7 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    run resumes from the workbook and asks nothing), then
    ``generate-rephrasings`` and ``repair-batch``, and must end with no
    CUDA context and no pandas imported;
-22. stats (last; budget STATS_BUDGET_S, 30 s): the pandas-free
+22. stats (last; budget STATS_BUDGET_S, 40 s): the pandas-free
    statistics layer in a child process on the card's host
    (``_stats_host_child``): the native Levenshtein built by ``cc`` and
    loaded (``using_native()``), equal to its plain version on
@@ -319,14 +322,20 @@ line is printed; the order of the run is 1-8, 10, 16, 17, 18, 19, 20, 9,
    then, over the run-100q and run-instruct-sweep phases' CSVs and two
    synthetic Qualtrics exports, the analysis commands (``_analysis_leg``)
    and the vendor-evaluation commands (``_vendor_eval_leg``, budget
-   VENDOR_EVAL_BUDGET_S, 10 s, inside the phase's 30: scripted vendors, no
+   VENDOR_EVAL_BUDGET_S, 10 s, inside the phase's 40: scripted vendors, no
    socket): ``run-closed-source --yes`` (100 rows in the section 2.8
    columns, finite MAEs, a rerun that asks nothing), ``run-irrelevant
    --limit 60`` over phase 21's corpus (a finite consistency table,
    reruns that ask nothing) and ``verify-replication`` over a reference
    tree of those files (a verdict on every check, exit 1 exactly when one
-   fails, as on random weights it must).  The child must end with no CUDA
-   context and without pandas, matplotlib or sklearn;
+   fails, as on random weights it must); last, the lint leg
+   (``_lint_leg``, budget LINT_BUDGET_S, 10 s, inside the phase's 40):
+   ``python -m llm_interpretation_replication_tpu_torch lint`` and ``lint
+   contracts`` over this tree, at once, both exiting 0 with no new
+   finding against ``lint_baseline_torch.json`` and no drift; it prints
+   their seconds, the files linted and the inline suppressions and
+   baselined findings.  The child must end with no CUDA context and
+   without pandas, matplotlib or sklearn;
 23. other_families (after phase 12; budget OTHER_FAMILIES_BUDGET_S, 45 s):
    Qwen2-7B, GPT-J-6B, MPT-7B-Instruct, GLM-4-9B-chat-hf and ChatGLM3-6B
    at their published widths and FAMILY_LAYERS (2) of their depth, random
@@ -555,6 +564,10 @@ PACK_Q = 4
 K_DECODE = 4
 # the K-decode phase's depth: views of the slice's first layers (of 32)
 K_DECODE_LAYERS = 2
+# the full-study and packed phases' depth: views of the slice's first 8
+# layers (of 32); the full-study phase measures its gates' near-tie at that
+# depth, and the packed phase's gates take it
+FULL_STUDY_LAYERS = 8
 K_DISTILL = (24, 12)
 # (wrapper, source in ops/csrc, line of the TPU kernel it replaces in
 # llm_interpretation_replication_tpu/ops/attention.py, shapes, layout)
@@ -1827,7 +1840,8 @@ def _quantiles(a):
 
 
 def full_study_phase(seed, attention, weights):
-    """The full-study row on Falcon-7B: the binary leg with its 50-token
+    """The full-study row on Falcon-7B at FULL_STUDY_LAYERS of its depth
+    (views of the slice's weights): the binary leg with its 50-token
     completion and the confidence leg, unfused through ``score_prompts``
     (the confidence leg on the ring, on whole flushes and per batch) and
     fused through ``score_prefixed`` over one prefix cache, on prompts
@@ -1842,8 +1856,10 @@ def full_study_phase(seed, attention, weights):
     from llm_interpretation_replication_tpu_torch.utils import telemetry
 
     device = "cuda"
-    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+    cfg = mconfig.DecoderConfig(**{**mconfig.FALCON_7B_GEOMETRY,
+                                   "num_layers": FULL_STUDY_LAYERS},
                                 attention_impl="flash")
+    weights = _first_layers(weights, FULL_STUDY_LAYERS)
     base = emod.EngineConfig()
     prefixes, suffixes = _study_inputs(seed, cfg.vocab_size)
     binary = [p + s[0] for p, s in zip(prefixes, suffixes)]
@@ -6058,8 +6074,11 @@ def packed_phase(seed, attention, weights, near_tie, workdir, card):
     from llm_interpretation_replication_tpu_torch.utils.xlsx import read_xlsx
 
     device = "cuda"
-    cfg = mconfig.DecoderConfig(**mconfig.FALCON_7B_GEOMETRY,
+    # at the full-study phase's depth, where its near-tie was measured
+    cfg = mconfig.DecoderConfig(**{**mconfig.FALCON_7B_GEOMETRY,
+                                   "num_layers": FULL_STUDY_LAYERS},
                                 attention_impl="flash")
+    weights = _first_layers(weights, FULL_STUDY_LAYERS)
     scenarios = load_perturbations(os.path.join(workdir, "perturbations.json"),
                                    expected_scenarios=legal_scenarios())
     word_tok = _sweep_tokenizer(scenarios)
@@ -8193,7 +8212,7 @@ def api_phase(seed, attention, weights, workdir, card):
 # The pandas-free statistics layer on the card's host (phase 22)
 # ---------------------------------------------------------------------------
 
-STATS_BUDGET_S = 30.0    # the vendor leg's VENDOR_EVAL_BUDGET_S included
+STATS_BUDGET_S = 40.0    # the vendor and lint legs' budgets included
 #: ``power-analysis`` at its defaults (10,000 simulations): N(80%) a model
 #: and the recommended N with its margin, analytic (normal quantiles), as
 #: the JAX package's command prints them on the CPU
@@ -8769,6 +8788,81 @@ def _vendor_eval_leg(workdir, instruct_csv, run100q_csv, surveys, analysed,
                 seconds=seconds), fails
 
 
+LINT_BUDGET_S = 10.0
+#: the linter's two commands, each run as a user runs it
+LINT_COMMANDS = {"lint": ["lint", "--format", "json"],
+                 "contracts": ["lint", "contracts", "--format", "json"]}
+
+
+def _lint_leg():
+    """The port's linter over the smoke's own tree, from the card's host:
+    ``python -m llm_interpretation_replication_tpu_torch lint`` (the
+    package and this script against ``lint_baseline_torch.json``) and
+    ``... lint contracts``, both at once, each in a process of its own.
+    Both must exit 0 with no new finding, no stale or rotten baseline
+    entry and no contract drift.  Returns (result, fails): the leg's and
+    each command's seconds, the files linted, the inline suppressions in
+    them (``# graftlint: disable=``) and the baselined findings."""
+    import threading
+
+    from llm_interpretation_replication_tpu_torch.lint import cli as lint_cli
+    from llm_interpretation_replication_tpu_torch.lint.report import (
+        parse_suppressions)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    done = {}
+
+    def run(name):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "llm_interpretation_replication_tpu_torch",
+             *LINT_COMMANDS[name]], cwd=here, capture_output=True, text=True,
+            timeout=120)
+        done[name] = (proc, time.perf_counter() - t)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(name,))
+               for name in LINT_COMMANDS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = dict(total=time.perf_counter() - t0,
+                   **{name: done[name][1] for name in LINT_COMMANDS})
+    fails, docs = [], {}
+    for name in LINT_COMMANDS:
+        proc = done[name][0]
+        try:
+            docs[name] = json.loads(proc.stdout)
+        except ValueError:
+            docs[name] = None
+        if proc.returncode or docs[name] is None:
+            fails.append(f"{name}: exit {proc.returncode}: "
+                         f"{(proc.stdout + proc.stderr)[-1500:]}")
+    lint_doc = docs["lint"] or {}
+    for key in ("findings", "stale_baseline", "rotten_baseline"):
+        if lint_doc.get(key):
+            fails.append(f"lint: {key} {lint_doc[key]}")
+    if (docs["contracts"] or {}).get("drift"):
+        fails.append(f"contracts: {docs['contracts']['drift']}")
+    files = lint_cli.iter_python_files(lint_cli.default_paths())
+    # every source of the package and this script: a walker that skipped
+    # some would pass the gate on fewer files
+    package = os.path.join(here, "llm_interpretation_replication_tpu_torch")
+    sources = 1 + sum(f.endswith(".py") for _, _, names in os.walk(package)
+                      for f in names)
+    if len(files) != sources:
+        fails.append(f"lint: {len(files)} files linted of {sources}")
+    suppressions = 0
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            suppressions += sum(map(len, parse_suppressions(
+                f.read().splitlines()).values()))
+    return dict(seconds=seconds, files=len(files),
+                suppressions=suppressions,
+                baselined=lint_doc.get("baselined")), fails
+
+
 def _stats_host_child(workdir, run100q_csv=None, instruct_csv=None, seed=0,
                       launched=None, corpus=None):
     """The statistics layer on the card's host, in a process of its own:
@@ -8780,10 +8874,12 @@ def _stats_host_child(workdir, run100q_csv=None, instruct_csv=None, seed=0,
     the analysis commands over them and a synthetic survey from ``seed``
     (:func:`_analysis_leg`), then the vendor-evaluation commands over the
     same files and the irrelevant-insertion ``corpus`` (phase 21's; written
-    here when None) (:func:`_vendor_eval_leg`).  Prints one JSON line; the process must end
-    without a CUDA context and without pandas, matplotlib, sklearn,
-    sentence-transformers or JAX.  ``launched`` (the parent's ``time.time()``
-    at the launch) times the process's start and imports."""
+    here when None) (:func:`_vendor_eval_leg`); last, the port's linter
+    over this tree (:func:`_lint_leg`).  Prints one JSON line; the process
+    must end without a CUDA context and without pandas, matplotlib,
+    sklearn, sentence-transformers or JAX.  ``launched`` (the parent's
+    ``time.time()`` at the launch) times the process's start and
+    imports."""
     entered = time.time()
     import hashlib
 
@@ -8873,10 +8969,14 @@ def _stats_host_child(workdir, run100q_csv=None, instruct_csv=None, seed=0,
             analysis["table5_analysed"], corpus)
         seconds["vendor_eval"] = time.perf_counter() - t
         fails += vendor_fails
+    lint, lint_fails = _lint_leg()
+    seconds["lint"] = lint["seconds"]["total"]
+    fails += lint_fails
     print(json.dumps(dict(
         using_native=built, native_plain_pairs=len(pairs), texts=len(texts),
         matrices=matrices, power=power, sample_statements_sha256=digest,
-        analysis=analysis, vendor_eval=vendor, seconds=seconds, fails=fails,
+        analysis=analysis, vendor_eval=vendor, lint=lint, seconds=seconds,
+        fails=fails,
         cuda_initialized=torch.cuda.is_initialized(),
         imported=sorted(m for m in sys.modules if m.split(".")[0] in (
             "pandas", "matplotlib", "sklearn", "sentence_transformers", "jax",
@@ -8928,6 +9028,16 @@ def stats_phase(seed, workdir, card):
     if vendor_s > VENDOR_EVAL_BUDGET_S:
         fails.append(f"vendor leg: {vendor_s:.1f} s, past its "
                      f"{VENDOR_EVAL_BUDGET_S:.0f} s budget")
+    lint = res["lint"]
+    say(f"stats: lint leg {lint['seconds']['total']:.2f} s of its "
+        f"{LINT_BUDGET_S:.0f} s (lint {lint['seconds']['lint']:.2f} s, "
+        f"contracts {lint['seconds']['contracts']:.2f} s, at once): "
+        f"{lint['files']} files linted, {lint['suppressions']} inline "
+        f"suppressions, {lint['baselined']} baselined, 0 new findings, "
+        f"0 drifts")
+    if lint["seconds"]["total"] > LINT_BUDGET_S:
+        fails.append(f"lint leg: {lint['seconds']['total']:.1f} s, past its "
+                     f"{LINT_BUDGET_S:.0f} s budget")
     if fails:
         raise AssertionError("stats: " + "; ".join(fails))
     return res

@@ -73,7 +73,10 @@ irrelevant-insertion study over three vendors, with resume) and
 ``verify-replication`` (every headline table recomputed and judged
 PASS/FAIL against the published values; with ``--snapshots`` its Table-5
 sweep runs on the card first).  These are copies of the reference CLI's
-commands; of its 33, only ``lint`` is not ported.  ``plan search``
+commands; all 33 of its commands are ported.  ``lint`` runs the port's
+static-analysis gate (``lint/``: G01/G02 read for PyTorch, G05-G11 as
+the reference has them, gated by ``lint_baseline_torch.json``) and ``lint
+contracts`` its cross-artifact checks; both read sources only.  ``plan search``
 prints the plan search's ranked table (host arithmetic; ``--hbm-gib``
 without a card), and ``--plan-search`` on a sweep runs its choice.
 Each takes ``--strict`` (the sync guard of ``runtime/strict.py``),
@@ -1317,6 +1320,16 @@ def cmd_cross_kappa(args):
         _write_json({**out, "pairs": kappa["pairs"]}, args.output_json)
 
 
+def cmd_lint(args):
+    """The port's static-analysis gate (lint/).  In practice unreachable:
+    ``main()`` routes ``lint`` to :mod:`.lint.cli` before argparse runs,
+    because REMAINDER cannot take leading optionals like ``--explain``;
+    the subparser exists so the subcommand shows in ``--help``."""
+    from .lint.cli import main as lint_main
+
+    raise SystemExit(lint_main(args.lint_args))
+
+
 def cmd_plan(args):
     """``plan search``: the plan search (runtime/plan_search.py).  In
     practice unreachable: ``main()`` routes ``plan`` before argparse runs;
@@ -1341,9 +1354,16 @@ def cmd_obs(args):
 def main(argv=None):
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "lint":
+        # routed before argparse: REMAINDER cannot swallow leading
+        # optionals (`lint --explain all` would error against the parent
+        # parser), and the linter needs none of the run-config machinery
+        from .lint.cli import main as lint_main
+
+        raise SystemExit(lint_main(argv[1:]))
     if argv and argv[0] == "obs":
-        # routed before argparse: `obs report --trace PATH` leads with an
-        # optional the parent parser would reject
+        # same pre-argparse routing as lint: `obs report --trace PATH`
+        # leads with an optional the parent parser would reject
         from .obs.report import main as obs_main
 
         raise SystemExit(obs_main(argv[1:]))
@@ -1537,6 +1557,22 @@ def main(argv=None):
     _add_run_config_args(p)
     _add_serve_args(p)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("lint",
+                       help="PyTorch-aware static analysis (rules G01, "
+                            "G02, G05-G11, interprocedural device regions "
+                            "and the whole-tree concurrency layer) gated "
+                            "by lint_baseline_torch.json; `lint "
+                            "contracts` runs the cross-artifact drift "
+                            "checker")
+    p.add_argument("lint_args", nargs=argparse.REMAINDER,
+                   help="forwarded to the linter: paths, --diff, "
+                        "--format text|json, --baseline PATH, "
+                        "--no-baseline, --write-baseline, --explain "
+                        "RULE|all, or the `contracts` subcommand "
+                        "(--root, --format, --only KIND, --diff, "
+                        "--explain KIND|all)")
+    p.set_defaults(fn=cmd_lint)
 
     p = sub.add_parser("plan",
                        help="plan search: 'plan search' enumerates mesh x "

@@ -220,8 +220,7 @@ class FlightRecorder:
                                            "trace_id", "t0", "dur", "self")}
                     for s in tracer.spans()[-200:]
                 ]
-        # triage decoration: span summaries are best-effort context on a
-        # crash artifact; a tracer hiccup must not lose the dump
+        # graftlint: disable=G05 triage decoration: span summaries are best-effort context on a crash artifact; a tracer hiccup must not lose the dump
         except Exception:
             pass
         path = os.path.join(out_dir,
@@ -230,8 +229,7 @@ class FlightRecorder:
             os.makedirs(out_dir, exist_ok=True)
             with open(path, "w", encoding="utf-8") as f:
                 json.dump(doc, f, indent=2, default=str)
-        # triage artifact writer: a full disk while dumping a crash record
-        # must never mask the fault being recorded
+        # graftlint: disable=G05 triage artifact writer: a full disk while dumping a crash record must never mask the fault being recorded
         except Exception as err:
             print(f"# obs: flight-record dump failed ({err})",
                   file=sys.stderr)

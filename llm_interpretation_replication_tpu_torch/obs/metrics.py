@@ -406,9 +406,7 @@ class MetricsServer:
                     if server.healthz_fn is not None:
                         try:
                             doc.update(server.healthz_fn())
-                        # liveness probe: a failing health contributor
-                        # downgrades the document, never 500s the scrape
-                        except Exception as err:
+                        except Exception as err:  # graftlint: disable=G05 liveness probe: a failing health contributor downgrades the document, it must never 500 the scrape loop
                             doc["status"] = "degraded"
                             doc["error"] = str(err)
                     body = json.dumps(doc).encode("utf-8")

@@ -49,8 +49,7 @@ def profile_window(log_dir: Optional[str], enabled: bool = True) -> Iterator[boo
             activities.append(ProfilerActivity.CUDA)
         prof = profile(activities=activities)
         prof.start()
-    # best-effort capture: a profiler that cannot start must not kill the
-    # measured run it was decorating
+    # graftlint: disable=G05 best-effort capture: a profiler that cannot start must not kill the measured run it was decorating
     except Exception as err:
         print(f"# obs: torch.profiler capture unavailable ({err}); "
               f"window runs unprofiled", file=sys.stderr)
@@ -68,8 +67,7 @@ def profile_window(log_dir: Optional[str], enabled: bool = True) -> Iterator[boo
             prof.export_chrome_trace(path)
             print(f"# obs: profiler capture written to {path}",
                   file=sys.stderr)
-        # best-effort teardown: a stop failure loses the capture, never the
-        # measured result
+        # graftlint: disable=G05 best-effort capture teardown: a stop failure loses the capture, never the measured result
         except Exception as err:
             print(f"# obs: torch.profiler stop failed ({err})",
                   file=sys.stderr)
@@ -97,8 +95,7 @@ def device_memory_snapshot(tag: str = "") -> List[Dict]:
                     "peak_bytes_in_use": int(ms.get("allocated_bytes.all.peak",
                                                     0)),
                 })
-    # telemetry probe: a backend without memory stats must never fail the
-    # run being observed
+    # graftlint: disable=G05 telemetry probe: a backend without memory stats must never fail the run being observed
     except Exception:
         return out
     tracer = get_tracer()

@@ -386,8 +386,7 @@ def _device_bytes_in_use() -> Optional[int]:
         if not torch.cuda.is_initialized():
             return None
         return int(torch.cuda.memory_allocated())
-    # telemetry probe: memory stats are best-effort decoration on a
-    # measurement span; a backend without them must never fail the run
+    # graftlint: disable=G05 telemetry probe: memory stats are best-effort decoration on a measurement span; a backend without them must never fail the traced run
     except Exception:
         return None
 

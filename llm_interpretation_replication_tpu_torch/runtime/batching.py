@@ -224,7 +224,7 @@ class HostPrefetcher:
                               background=True):
                     result = fn(item)
                 self._put((None, result))
-        # relayed to the consumer, which re-raises it at its next get
+        # graftlint: disable=G05 producer-thread relay: the error is stored and re-raised at the consumer's get (classification still sees it there)
         except BaseException as err:
             self._put((err, None))
             return

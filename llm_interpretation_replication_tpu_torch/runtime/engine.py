@@ -666,6 +666,7 @@ class ScoringEngine:
                                   bucket=int(batch.bucket_len),
                                   batch=int(batch.token_ids.shape[0])):
                         pending.append((batch, launch(batch)))
+                # graftlint: disable=G05 pipeline handler: handle() re-raises via the _oom_rebatch faults classification
                 except Exception as err:
                     handle(batch, err)
                     continue
@@ -678,6 +679,7 @@ class ScoringEngine:
                         with obs.span("consume", phase="d2h_fetch",
                                       bucket=int(done.bucket_len)):
                             consume(done, out)
+                # graftlint: disable=G05 pipeline handler: handle() re-raises via the _oom_rebatch faults classification
                 except Exception as err:
                     out = None           # the failed batch's device outputs
                     handle(done, err)

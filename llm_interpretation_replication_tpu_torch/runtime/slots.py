@@ -661,11 +661,13 @@ class SlotRing:
         (``engine._full_ring``) and release the lanes only at a
         compaction or when they empty, so the second counter is the one
         equal to the reference's ``completion_cache_bytes_freed``."""
-        for name, was, now in zip(("completion_cache_bytes_freed",
-                                   "completion_cache_bytes_retired"),
-                                  before, self._footprint()):
-            if was > now:
-                record_counter(name, was - now)
+        (freed_was, retired_was), (freed, retired) = (
+            before, self._footprint())
+        if freed_was > freed:
+            record_counter("completion_cache_bytes_freed", freed_was - freed)
+        if retired_was > retired:
+            record_counter("completion_cache_bytes_retired",
+                           retired_was - retired)
 
     def _needs_compaction(self) -> bool:
         if self._cache is None or self._base_len is None:

@@ -498,16 +498,21 @@ class SliceReplica(_BaseReplica):
             self._send(("idle",))
 
     def dispatch(self, ticket: _PoolTicket) -> ScoreFuture:
-        if self.state != "live" or self.error is not None:
-            raise SchedulerClosed(f"replica {self.rid} is shut down")
         future = ScoreFuture()
-        seq = next(self._seq)
+        # the check and the registration are one step under the lock the
+        # reader drains under: a request either sees the broken line and
+        # bounces, or is registered before the drain fails it with the
+        # line's error — never registered after the drain, never answered
         with self._lock:
+            if self.state != "live" or self.error is not None:
+                raise SchedulerClosed(f"replica {self.rid} is shut down")
+            seq = next(self._seq)
             self._pending[seq] = future
         self._send(("request", seq, ticket.request))
         return future
 
     def _read(self) -> None:
+        error = None
         try:
             while True:
                 msg = self.link.recv_up()
@@ -527,18 +532,22 @@ class SliceReplica(_BaseReplica):
                     future._set_result(row)
         # graftlint: disable=G05 a broken line fails every pending request with its error below; nothing above this thread could take it
         except Exception as err:
-            self.error = err
-            self.state = "closed"      # the router selects it no more
+            error = err
         with self._lock:
+            if error is not None:
+                self.error = error
+                self.state = "closed"      # the router selects it no more
             left, self._pending = list(self._pending.values()), {}
         for future in left:
-            future._set_exception(self.error or SchedulerClosed(
+            future._set_exception(error or SchedulerClosed(
                 f"replica {self.rid} shut down before the request "
                 f"completed"))
 
     def shutdown(self, drain: bool = True, **_kw) -> None:
-        self.state = "closed"
-        if self.error is None:
+        with self._lock:
+            self.state = "closed"
+            broken = self.error is not None
+        if not broken:
             self._send(("close", drain))
         self._reader.join()
 
@@ -588,7 +597,7 @@ class _SliceServer:
                     self._waiting.append((seq, future))
         # graftlint: disable=G05 a broken line ends this server; join() raises it on the rank's own thread
         except Exception as err:
-            self.error = err
+            self._fail(err)
         finally:
             self.replica.scheduler.close(drain=drain)
             self._closing.set()
@@ -621,7 +630,14 @@ class _SliceServer:
                 time.sleep(DISPATCH_TICK_S)
         # graftlint: disable=G05 a broken line ends this server; join() raises it on the rank's own thread
         except Exception as err:
-            self.error = self.error or err
+            self._fail(err)
+
+    def _fail(self, err: BaseException) -> None:
+        """Keep the first error either thread met: the one that broke the
+        line, not a later one it caused."""
+        with self._lock:
+            if self.error is None:
+                self.error = err
 
     def join(self) -> None:
         for t in self._threads:

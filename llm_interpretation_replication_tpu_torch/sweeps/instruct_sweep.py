@@ -39,6 +39,7 @@ def _score_model(engine, model_name: str, prompts: Sequence[str],
     try:
         rows = faults.retry_transient(
             engine.score_prompts, label=f"instruct.{model_name}")(formatted)
+    # graftlint: disable=G05 per-model guard: one broken roster model must not sink the multi-model sweep; the engine's OOM ladder runs below this
     except Exception as err:
         rows = [
             {

@@ -403,7 +403,7 @@ def find_iter(regex: "re.Pattern", text: str) -> List[Tuple[int, int]]:
         m = regex.search(text, pos)
         if m is None:
             break
-        s, e = m.span()
+        s, e = m.start(), m.end()
         if s == e and last == e:
             pos += 1
             continue

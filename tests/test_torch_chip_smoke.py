@@ -256,6 +256,13 @@ def test_full_study_phase_runs_the_defaults_and_their_routes():
                 for c in calls if _call_name(c) == "replace"]
     for override in ({"slot_repack": False}, {"pooled_confidence": False}):
         assert override in replaced
+    # the phase, and the packed phase that takes its near-tie, run at one
+    # depth: views of the slice's first FULL_STUDY_LAYERS layers
+    assert chip_smoke.FULL_STUDY_LAYERS == 8
+    for phase in (chip_smoke.full_study_phase, chip_smoke.packed_phase):
+        src = inspect.getsource(phase)
+        assert "_first_layers(weights, FULL_STUDY_LAYERS)" in src
+        assert '"num_layers": FULL_STUDY_LAYERS' in src
 
 
 # -- the sweep and CLI phases ----------------------------------------------------

@@ -193,15 +193,23 @@ def test_port_imports_nothing_of_jax():
     "llm_interpretation_replication_tpu_torch/parallel/ulysses.py",
     "llm_interpretation_replication_tpu_torch/runtime/train.py",
     "llm_interpretation_replication_tpu_torch/runtime/row_parallel.py",
+    "llm_interpretation_replication_tpu_torch/lint/__init__.py",
+    "llm_interpretation_replication_tpu_torch/lint/report.py",
+    "llm_interpretation_replication_tpu_torch/lint/baseline.py",
+    "llm_interpretation_replication_tpu_torch/lint/visitor.py",
+    "llm_interpretation_replication_tpu_torch/lint/rules.py",
+    "llm_interpretation_replication_tpu_torch/lint/threads.py",
+    "llm_interpretation_replication_tpu_torch/lint/contracts.py",
+    "llm_interpretation_replication_tpu_torch/lint/cli.py",
     "scripts/calibrate_plan_torch.py",
     "scripts/chip_mesh_phase.py",
 ])
 def test_slice_modules_are_guarded(rel):
     """The modules the kernels, the int8 path, the pool, the slot ring,
     the OOM ladder, the sweep shells, the family translators and
-    converters, the loader, the CLI, the strict guard and the
-    observability layer live in are among the guarded sources and import
-    nothing forbidden."""
+    converters, the loader, the CLI, the strict guard, the
+    observability layer and the linter live in are among the guarded
+    sources and import nothing forbidden."""
     path = os.path.join(ROOT, rel)
     assert path in _port_sources()
     assert not _forbidden_imports(path)

@@ -335,6 +335,10 @@ def test_smoke_stats_child_passes_on_the_cpu(tmp_path):
     assert analysis["shared"] == list(MODEL_FAMILIES)
     assert analysis["latex_rows"] == 6 and analysis["model_pairs"] == 66
     assert analysis["survey_sha256"] == chip_smoke.SURVEY_SHA256
+    lint = res["lint"]
+    assert lint["files"] > 100 and lint["baselined"] == 0
+    assert lint["suppressions"] >= 20
+    assert set(lint["seconds"]) == {"total", "lint", "contracts"}
 
 
 # -- strict JSON ---------------------------------------------------------------------
@@ -408,8 +412,10 @@ def test_stats_phase_runs_after_the_api_phase():
         < src.index('"stats", stats_phase') < src.index("finally:")
     assert "stats=stres" in src
     assert "_stats_host_child" in inspect.getsource(chip_smoke.stats_phase)
-    # 20 s before the vendor leg, whose own 10 s the budget took on
-    assert chip_smoke.STATS_BUDGET_S <= 20 + chip_smoke.VENDOR_EVAL_BUDGET_S
+    # 20 s before the vendor and lint legs, whose own 10 s each the
+    # budget took on
+    assert chip_smoke.STATS_BUDGET_S <= (20 + chip_smoke.VENDOR_EVAL_BUDGET_S
+                                         + chip_smoke.LINT_BUDGET_S)
 
 
 # -- the statistics that took DataFrames (more in tests/test_torch_analysis.py) -----------
